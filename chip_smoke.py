@@ -3,38 +3,56 @@
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA device
 
-Drives the port's inference path — NeMAR's default model at full width and
-256^2 (ResNet-6 G at ngf 64, depth-5 UNet STN at stn_ngf 32, 70x70
-PatchGAN D built and loaded) — through the entry points a user calls, and
-prints one line per phase. Any failure raises and the exit code is not 0.
+Drives the port's inference path and its training step — NeMAR's default
+model at full width and 256^2 (ResNet-6 G at ngf 64, depth-5 UNet STN at
+stn_ngf 32, 70x70 PatchGAN D at ndf 64) — through the entry points a user
+calls, and prints one line per phase. Any failure raises and the exit code
+is not 0.
 
   0. environment: versions, the card, ``nvidia-smi``'s name and power limit;
-  1. build: nvcc compiles nemar_tpu_torch/csrc/*.cu (Triton compiles K-in at
-     its first launch in phase 2);
-  2. each kernel against its plain PyTorch version on the card, at the
-     slice's shapes, with TF32 off: max abs error against the stated
+  1. build: nvcc compiles nemar_tpu_torch/csrc/*.cu (Triton compiles K-in and
+     K-in-bwd at their first launch);
+  2. each forward kernel against its plain PyTorch version on the card, at
+     the slice's shapes, with TF32 off: max abs error against the stated
      tolerance, and the median CUDA-event time of kernel and plain version;
-  3. the slice: options parsed as ``nemar_tpu_torch.test`` parses them
-     (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
+  2b. each backward kernel likewise, at the training step's shapes (batch 8);
+  3. the inference slice: options parsed as ``nemar_tpu_torch.test`` parses
+     them (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
      non-zero, so the warp samples between pixels) and loaded by
      ``setup()``, then 8 requests of batch 1 (set_input -> test ->
      get_current_visuals + the registration metrics). The launch counters
      are zeroed just before and must show K-block 12, K-warp 1 and K-in 20
-     launches per request. Then the same model at batch 8, and a
-     torch.profiler pass over 3 batch-1 requests: device time by kernel
-     name and input shape (chiprun_out/profile_b1.txt) and the device's busy
-     share of that window;
+     launches per request and no backward launch. Then the same model at
+     batch 8, and a torch.profiler pass over 3 batch-1 requests
+     (chiprun_out/profile_b1.txt, and the device's busy share);
   4. card against CPU: the same checkpoints on a CPU model (the plain
-     path), one request, outputs and flow within 1e-3.
+     path), one request, outputs and flow within 1e-3;
+  5. the training slice: options parsed as ``nemar_tpu_torch.train`` parses
+     them, batch 8, seeded synthetic batches; 2 warm-up steps, then 6
+     counted steps with the counters zeroed just before: ms per step,
+     pairs/s, the launches per step of all six kernels (asserted), finite
+     losses, and the zero-initialised flow head must have moved; a
+     torch.profiler pass over 2 steps (chiprun_out/profile_train_b8.txt,
+     and the device's busy share);
+  6. card against CPU for one training step on a 256^2 batch-1 pair, from
+     one shared state (checkpoint and Adam moments): the seven losses within
+     1e-4 relative, every gradient within max(1e-3, 3 x the step's own
+     conditioning baseline) (‖Δg‖/‖g‖), the updated parameters within 1e-5
+     (with the Adam caveat of tests/test_torch_nemar_train.py); see
+     ``compare_train_with_cpu``. Then two fresh, identical two-step runs on
+     the card, which must give bit-identical losses and parameters.
 
-The line before the last is a JSON object with one entry per kernel
-(``ms``/``plain_ms``: the kernel's and the plain version's device time for
-one request at batch 1, summed over that request's calls); the last line is
+The line before the last is a JSON object with one entry per kernel. For a
+forward kernel, ``ms``/``plain_ms`` are the kernel's and the plain
+version's device time for one inference request at batch 1, summed over
+that request's calls; for a backward kernel, for one training step at
+batch 8, summed over the step's calls. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
@@ -62,7 +80,41 @@ IN_SHAPES = [
     (128, 32, 32, "leaky_relu", 2), (256, 16, 16, "leaky_relu", 2),
     (256, 8, 8, "leaky_relu", 1), (32, 256, 256, "leaky_relu", 1),
 ]
-TOL = {"K-warp": 1e-5, "K-in": 1e-5, "K-block": 1e-3}
+TOL = {"K-warp": 1e-5, "K-in": 1e-5, "K-block": 1e-3,
+       # backward tolerances, relative to the largest reference value: the
+       # warp's and IN's are fp32 roundoff of short sums; the block's that of
+       # four 2304-deep GEMMs summed over up to 32768 pixels around two IN
+       # backwards
+       "K-warp-bwd": 1e-5, "K-in-bwd": 1e-5, "K-block-bwd": 1e-3}
+# phase 6's conditioning baseline: the CPU step again with real_A scaled by
+# 1 + PERTURB, about how far the card's activations sit from the CPU's
+# (phase 4: up to 6.5e-5 absolute on outputs in [-1, 1])
+PERTURB = 1e-5
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6
+TRAIN_ARGS = [
+    "--model", "nemar", "--netG", "resnet_6blocks", "--ngf", "64", "--ndf", "64",
+    "--stn_type", "unet", "--stn_ngf", "32", "--stn_depth", "5",
+    "--input_nc", "1", "--output_nc", "3", "--crop_size", "256", "--load_size", "256",
+    "--norm", "instance", "--stn_field_source", "pair", "--dataset_mode", "synthetic",
+    "--name", "smoke_train",
+]
+# (C, H, W, act, batch multiple, calls per step) of every instance norm
+# backward of a training step: G's two passes, the STN, D in the D step (one
+# pass over [real; fake], twice the batch) and D in the G step
+IN_BWD_SHAPES = [
+    (64, 256, 256, "relu", 1, 4), (128, 128, 128, "relu", 1, 4), (256, 64, 64, "relu", 1, 2),
+    (32, 128, 128, "leaky_relu", 1, 2), (64, 64, 64, "leaky_relu", 1, 2),
+    (128, 32, 32, "leaky_relu", 1, 2), (256, 16, 16, "leaky_relu", 1, 2),
+    (256, 8, 8, "leaky_relu", 1, 1), (32, 256, 256, "leaky_relu", 1, 1),
+    (128, 64, 64, "leaky_relu", 2, 1), (256, 32, 32, "leaky_relu", 2, 1),
+    (512, 31, 31, "leaky_relu", 2, 1),
+    (128, 64, 64, "leaky_relu", 1, 1), (256, 32, 32, "leaky_relu", 1, 1),
+    (512, 31, 31, "leaky_relu", 1, 1),
+]
+# launches per training step: forward and backward of every kernel op
+STEP_LAUNCHES = {"K-block": 12, "K-warp": 1, "K-in": 26,
+                 "K-block-bwd": 12, "K-warp-bwd": 1, "K-in-bwd": 26}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -139,7 +191,7 @@ def check_kernels(dev) -> dict:
     tot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
     for c, h, w, act, calls in IN_SHAPES:
         x = torch.from_numpy((rng.standard_normal((1, h, w, c)) * 2 + 0.5).astype(np.float32)).to(dev)
-        got = norm_triton.instance_norm_act_triton(x, act)
+        got, _ = norm_triton.instance_norm_act_triton(x, act)
         ref = norm.instance_norm_act_plain(x, act)
         err = torch.max(torch.abs(got - ref)).item()
         ms = median_ms(lambda: norm_triton.instance_norm_act_triton(x, act))
@@ -158,7 +210,7 @@ def check_kernels(dev) -> dict:
         x = torch.from_numpy(rng.standard_normal((n, 64, 64, 256)).astype(np.float32)).to(dev)
         w1, w2 = (torch.from_numpy((0.02 * rng.standard_normal((3, 3, 256, 256))).astype(np.float32)).to(dev)
                   for _ in range(2))
-        got = conv_fused.fused_resblock_cuda(x, w1, w2)
+        got = conv_fused.fused_resblock_cuda(x, w1, w2)[0]
         ref = conv_fused.resblock_plain(x, w1, w2)
         err = torch.max(torch.abs(got - ref)).item()
         ms = median_ms(lambda: conv_fused.fused_resblock_cuda(x, w1, w2), iters=10)
@@ -175,11 +227,114 @@ def check_kernels(dev) -> dict:
     return results
 
 
+def max_rel_err(got, ref) -> float:
+    """Largest |got - ref| over the largest |ref|, across the outputs."""
+    return max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, ref)
+               if a is not None)
+
+
+def check_bwd_kernels(dev) -> dict:
+    """Phase 2b: every backward kernel against its plain version at the
+    training step's shapes (batch 8), with each launch repeated to show it
+    is bit-for-bit repeatable."""
+    from nemar_tpu_torch.ops import conv_fused, norm, norm_triton, warp, warp_cuda
+
+    rng = np.random.default_rng(1)
+    results = {}
+    n = TRAIN_BATCH
+
+    # K-warp-bwd: the step's one sampling of (fake_B, real_A); d img for
+    # fake_B's 3 channels only
+    for b in (1, n):
+        img = torch.from_numpy(smooth_images(rng, b, 4)).to(dev)
+        grid = smooth_grid(rng, b, 256, 256).to(dev)
+        xs, ys = (c.contiguous() for c in warp._pixel_coords(img, grid, "zeros", False))
+        g = torch.from_numpy(rng.standard_normal((b, 256, 256, 4)).astype(np.float32)).to(dev)
+        got = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
+        again = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
+        ref = warp._sample_plain_bwd(img, xs, ys, g, 3)
+        err = max_rel_err(got, ref)
+        abs_err = max(float((p - q).abs().max()) for p, q in zip(got, ref))
+        repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+        ms = median_ms(lambda: warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3))
+        pms = median_ms(lambda: warp._sample_plain_bwd(img, xs, ys, g, 3))
+        phase("kernel_bwd", name="K-warp-bwd", shape=f"{b}x256x256x4", grad_channels=3,
+              max_rel_err=err, tol=TOL["K-warp-bwd"], max_abs_err=abs_err,
+              bitwise_repeatable=repeatable, ms=ms, plain_ms=pms)
+        if not (err <= TOL["K-warp-bwd"] and repeatable and not torch.any(got[0][..., 3])):
+            raise AssertionError(f"K-warp-bwd: err {err}, repeatable {repeatable}")
+        if b == n:
+            results["K-warp-bwd"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": pms}
+
+    # K-in-bwd: every instance-norm backward of a step
+    tot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for c, h, w, act, mult, calls in IN_BWD_SHAPES:
+        shape = (n * mult, h, w, c)
+        x = torch.from_numpy((rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        _, stats = norm_triton.instance_norm_act_triton(x, act)
+        got = norm_triton.instance_norm_act_bwd_triton(x, g, stats, act)
+        again = norm_triton.instance_norm_act_bwd_triton(x, g, stats, act)
+        ref = norm.instance_norm_act_bwd_plain(x, g, stats, act)
+        err = max_rel_err([got], [ref])
+        abs_err = float((got - ref).abs().max())
+        ms = median_ms(lambda: norm_triton.instance_norm_act_bwd_triton(x, g, stats, act))
+        pms = median_ms(lambda: norm.instance_norm_act_bwd_plain(x, g, stats, act))
+        phase("kernel_bwd", name="K-in-bwd", shape="x".join(map(str, shape)), act=act,
+              calls=calls, max_rel_err=err, tol=TOL["K-in-bwd"], max_abs_err=abs_err,
+              bitwise_repeatable=torch.equal(got, again), ms=ms, plain_ms=pms)
+        if not (err <= TOL["K-in-bwd"] and torch.equal(got, again)):
+            raise AssertionError(f"K-in-bwd disagrees at {shape} {act}: {err}")
+        tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+        tot["ms"] += calls * ms
+        tot["plain_ms"] += calls * pms
+    results["K-in-bwd"] = tot
+
+    # K-block-bwd: the trunk. The kernel is fed the plain forward's saved
+    # values (y1, y2, stats), as the plain backward uses them: with K-block's
+    # own, a y1hat within roundoff of 0 can sit on the other side of the relu
+    # than in the plain forward, and that element's gradient then differs by
+    # O(1) (counted and shown as relu_flips / err_with_kblock_saved).
+    for b in (1, n):
+        c = 256
+        x = torch.from_numpy(rng.standard_normal((b, 64, 64, c)).astype(np.float32)).to(dev)
+        w1, w2 = (torch.from_numpy((0.02 * rng.standard_normal((3, 3, c, c))).astype(np.float32))
+                  .to(dev) for _ in range(2))
+        g = torch.from_numpy(rng.standard_normal((b, 64, 64, c)).astype(np.float32)).to(dev)
+        saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
+        got = conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
+        again = conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
+        ref = conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved)
+        err = max_rel_err(got, ref)
+        abs_err = max(float((p - q).abs().max()) for p, q in zip(got, ref))
+        repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+        _, y1k, y2k, stk = conv_fused.fused_resblock_cuda(x, w1, w2)
+        own = conv_fused.resblock_bwd_cuda(x, w1, w2, y1k, y2k, stk, g)
+        flips = int(torch.sum((norm.normalise(y1k, stk[:, :2]) > 0)
+                              != (norm.normalise(saved[0], saved[2][:, :2]) > 0)))
+        ms = median_ms(lambda: conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g), iters=10)
+        pms = median_ms(lambda: conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved), iters=10)
+        flops = 4 * 2 * b * 64 * 64 * 256 * 9 * 256
+        phase("kernel_bwd", name="K-block-bwd", shape=f"{b}x64x64x256",
+              max_rel_err_dx_dw1_dw2=json.dumps([max_rel_err([p], [q]) for p, q in zip(got, ref)]),
+              tol=TOL["K-block-bwd"], max_abs_err=abs_err, bitwise_repeatable=repeatable,
+              err_with_kblock_saved=max_rel_err(own, ref), relu_flips=flips, ms=ms, plain_ms=pms,
+              tflops=round(flops / ms / 1e9, 2), plain_tflops=round(flops / pms / 1e9, 2))
+        if not (err <= TOL["K-block-bwd"] and repeatable):
+            raise AssertionError(f"K-block-bwd disagrees with its plain version: {err}")
+        if b == n:
+            results["K-block-bwd"] = {"max_abs_err": abs_err, "ms": 12 * ms, "plain_ms": 12 * pms}
+    torch.cuda.synchronize()
+    return results
+
+
 def launch_counters():
     from nemar_tpu_torch.ops import conv_fused, norm_triton, warp_cuda
 
     return {"K-block": conv_fused.fused_resblock_cuda, "K-warp": warp_cuda.warp_bilinear,
-            "K-in": norm_triton.instance_norm_act_triton}
+            "K-in": norm_triton.instance_norm_act_triton,
+            "K-block-bwd": conv_fused.resblock_bwd_cuda, "K-warp-bwd": warp_cuda.warp_bilinear_bwd,
+            "K-in-bwd": norm_triton.instance_norm_act_bwd_triton}
 
 
 def request_batches(n_batches: int, n: int, seed: int):
@@ -231,7 +386,8 @@ def run_slice(ckpt: str) -> tuple:
             if not np.all(np.isfinite(v)):
                 raise AssertionError(f"non-finite values in {k}")
     launches = {k: fn.launches for k, fn in counters.items()}
-    want = {"K-block": 12 * REQUESTS, "K-warp": REQUESTS, "K-in": 20 * REQUESTS}
+    want = {"K-block": 12 * REQUESTS, "K-warp": REQUESTS, "K-in": 20 * REQUESTS,
+            "K-block-bwd": 0, "K-warp-bwd": 0, "K-in-bwd": 0}
     flow_px = float(np.abs(first["flow"]).max() * 128)
     phase("slice", requests=REQUESTS, batch=1, launches=json.dumps(launches),
           expected=json.dumps(want), ms_per_pair_median=round(float(np.median(times)), 3),
@@ -260,32 +416,43 @@ def run_slice(ckpt: str) -> tuple:
     return launches, first, batches[0]
 
 
-def profile_request(model, batch, reps: int = 3) -> None:
-    """Device time by kernel name for batch-1 requests, and the device's busy
-    share of the window (kernel time over wall time)."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(run, reps: int, name: str, unit: str) -> None:
+    """Device time by kernel name over ``reps`` calls of ``run``, written to
+    chiprun_out/<name>.txt, and the device's busy share of the window
+    (kernel time over wall time)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(reps):
-            model.set_input(batch)
-            model.test()
+        for i in range(reps):
+            run(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device work = the kernel, memcpy and memset events (an aten op's
     # "self device time" repeats the time of the kernels it launched)
     device_us = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=30)
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     table += "\n" + prof.key_averages(group_by_input_shape=True).table(
-        sort_by="self_device_time_total", row_limit=20)
+        sort_by="self_device_time_total", row_limit=30)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "profile_b1.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", f"{name}.txt"), "w") as f:
         f.write(table)
-    phase("profile", requests=reps, wall_ms_per_request=round(wall_us / reps / 1e3, 3),
-          device_ms_per_request=round(device_us / reps / 1e3, 3),
+    phase("profile", name=name, reps=reps,
+          **{f"wall_ms_per_{unit}": round(wall_us / reps / 1e3, 3),
+             f"device_ms_per_{unit}": round(device_us / reps / 1e3, 3)},
           device_busy_share=round(device_us / wall_us, 3))
+
+
+def profile_request(model, batch, reps: int = 3) -> None:
+    """Device time by kernel name for batch-1 requests."""
+    def run(_):
+        model.set_input(batch)
+        model.test()
+
+    profile(run, reps, "profile_b1", "request")
 
 
 def compare_with_cpu(ckpt: str, first: dict, batch: dict) -> None:
@@ -304,6 +471,207 @@ def compare_with_cpu(ckpt: str, first: dict, batch: dict) -> None:
         phase("card_vs_cpu", output=k, max_abs_err=err, tol=1e-3)
         if not err <= 1e-3:
             raise AssertionError(f"card and CPU disagree on {k}: {err}")
+
+
+def train_model(args: list):
+    from nemar_tpu_torch.models import create_model
+    from nemar_tpu_torch.options import TrainOptions
+
+    opt = TrainOptions().parse(args)
+    model = create_model(opt)
+    model.setup(opt)
+    model.set_epoch(opt.epoch_count)
+    return model
+
+
+def run_train(ckpt: str):
+    """Phase 5. Returns (launches over the counted steps, the model)."""
+    model = train_model([*TRAIN_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+                         "--batch_size", str(TRAIN_BATCH)])
+    head = model.netR.head()
+    head0 = head.weight.detach().clone()
+    batches = request_batches(2 + TRAIN_STEPS, TRAIN_BATCH, seed=4)
+    for b in batches[:2]:  # warm-up steps, outside the counted run
+        model.set_input(b)
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for b in batches[2:]:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = model.get_current_losses()
+    want = {k: v * TRAIN_STEPS for k, v in STEP_LAUNCHES.items()}
+    moved = float((head.weight.detach() - head0).abs().max())
+    ms = float(np.median(times))
+    phase("train", batch=TRAIN_BATCH, steps=TRAIN_STEPS, launches=json.dumps(launches),
+          expected=json.dumps(want), ms_per_step_median=round(ms, 3),
+          ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(TRAIN_BATCH / ms * 1e3, 3),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+          losses=json.dumps({k: round(v, 6) for k, v in losses.items()}),
+          head_moved_max=moved)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    if not moved > 0.0:
+        raise AssertionError("the R flow head did not move")
+
+    def run(i):
+        model.set_input(batches[2 + i])
+        model.optimize_parameters()
+
+    profile(run, 2, "profile_train_b8", "step")
+    return launches, model
+
+
+def _in_biases(model) -> dict:
+    """Per net, the biases of convolutions followed by instance norm (zero
+    gradient up to roundoff)."""
+    g = {k for k in model.netG.state_dict() if k.endswith(".bias")
+         and not k.startswith(f"Conv_{1 + model.netG.n_downsampling}.")}
+    d = {f"Conv_{i}.bias" for i in range(1, model.netD.n_layers + 1)}
+    r = {f"Conv_{i}.bias" for i in range(model.netR.n_convs - 1)}
+    return {"G": g, "D": d, "R": r}
+
+
+def _grad(net_params: dict, key: str) -> torch.Tensor:
+    p = net_params[key]
+    return torch.zeros_like(p).cpu() if p.grad is None else p.grad.detach().cpu()
+
+
+def compare_train_with_cpu(ckpt: str, model) -> None:
+    """Phase 6: one training step, card against CPU, from one shared state,
+    and against the step's own conditioning; then two fresh two-step runs
+    on the card, bit for bit.
+
+    The shared state is the phase-5 model's checkpoint after one more step
+    on the card (parameters and Adam moments, loaded by --continue_train and
+    the optimizers' state dicts). A fresh Adam is not used: its first update
+    is lr * sign(g), so the G step's gradient, taken against the updated D,
+    jumps with the sign of D-gradient elements that are zero up to roundoff.
+    Even from the shared state, the step's gradients are ill-conditioned:
+    the CPU against itself with real_A scaled by 1 + 1e-6 moves R's weight
+    gradients by up to 1.6% (measured; the smoothness term alone is stable,
+    the image terms are not: likely relu masks and the recon L1's sign
+    flipping where a value sits within roundoff of 0, reached by R through
+    the warp). So each gradient is held to max(1e-3, 3 x its
+    baseline), the baseline being the CPU against itself with real_A scaled
+    by 1 + PERTURB (printed)."""
+    model.save_networks("smoke")
+    pairs = request_batches(2, 1, seed=5)
+    args = [*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--continue_train", "--batch_size", "1"]
+    card = train_model([*args, "--epoch", "smoke", "--gpu_ids", "0"])
+    card.set_input(pairs[0])
+    card.optimize_parameters()
+    card.save_networks("smoke6")
+    # copies: a state dict holds the live tensors, and Adam's step counts
+    # stay on the CPU, where loading would alias them between the models
+    adam = {n: copy.deepcopy(o.state_dict()) for n, o in card.optimizers.items()}
+    runs = {"card": card}
+    for name in ("cpu", "cpu_perturbed"):
+        m = train_model([*args, "--epoch", "smoke6", "--gpu_ids", "-1"])
+        for n, o in m.optimizers.items():
+            o.load_state_dict(copy.deepcopy(adam[n]))
+        runs[name] = m
+    before = {}
+    for name, m in runs.items():
+        before[name] = {n: {k: p.detach().cpu().clone() for k, p in net.named_parameters()}
+                        for n, net in m.nets().items()}
+        scale = np.float32(1 + PERTURB) if name == "cpu_perturbed" else np.float32(1)
+        m.set_input(dict(pairs[1], A=pairs[1]["A"] * scale))
+        m.optimize_parameters()
+    losses = {name: m.get_current_losses() for name, m in runs.items()}
+    lc = losses["cpu"]
+
+    def loss_rel(other):
+        return {k: abs(other[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc}
+
+    loss_errs, loss_base = loss_rel(losses["card"]), loss_rel(losses["cpu_perturbed"])
+    skip = _in_biases(card)
+    bound = card.opt.lr * 1.1  # Adam's step bound from a warm state, with margin
+    grad_worst, bias_err, param_err, unresolved, fails = [], 0.0, 0.0, 0, []
+    per_net = {}
+    for n in ("G", "D", "R"):
+        net_grad, net_base, net_param = 0.0, 0.0, 0.0
+        params = {name: dict(m.nets()[n].named_parameters()) for name, m in runs.items()}
+        for key in params["cpu"]:
+            gc = _grad(params["cpu"], key)
+            gg, gp = _grad(params["card"], key), _grad(params["cpu_perturbed"], key)
+            if key in skip[n]:  # roundoff of a 65536-term sum that is 0 exactly,
+                # relative to the conv's weight gradient (absolute below norm 1)
+                scale = float(torch.linalg.vector_norm(_grad(params["cpu"],
+                                                             key.replace(".bias", ".weight"))))
+                bias_err = max(bias_err, max(float(gg.abs().max()), float(gc.abs().max()))
+                               / max(scale, 1.0))
+                continue
+            norm = float(torch.linalg.vector_norm(gc))
+            if norm == 0.0:  # no gradient at this state: none on the card either
+                if torch.any(gg):
+                    fails.append(f"grad {n}.{key}: non-zero on the card only")
+                continue
+            err = float(torch.linalg.vector_norm(gg - gc)) / norm
+            base = float(torch.linalg.vector_norm(gp - gc)) / norm
+            grad_worst.append((f"{n}.{key}", err, base))
+            net_grad, net_base = max(net_grad, err), max(net_base, base)
+            if err > max(1e-3, 3 * base):
+                fails.append(f"grad {n}.{key}: {err} (baseline {base})")
+            # where the two gradients agree to 1e-3, so must the updates (to
+            # 1e-5); the other elements move by at most one Adam step each
+            free = (gg - gc).abs() > 1e-3 * gc.abs()
+            unresolved += int(free.sum())
+            dcard = params["card"][key].detach().cpu() - before["card"][n][key]
+            dcpu = params["cpu"][key].detach() - before["cpu"][n][key]
+            if float(torch.where(free, dcard.abs() + dcpu.abs(), 0.0).max()) > 2 * bound:
+                fails.append(f"{n}.{key}: an unresolved element moved more than lr")
+            net_param = max(net_param, float(torch.where(free, 0.0, dcard - dcpu).abs().max()))
+        per_net[n] = {"grad_err": net_grad, "grad_baseline": net_base, "param_err": net_param}
+        param_err = max(param_err, net_param)
+    grad_worst.sort(key=lambda t: -t[1])
+    phase("train_card_vs_cpu", loss_rel_err=json.dumps(loss_errs),
+          loss_baseline=json.dumps(loss_base), tol_losses=1e-4,
+          worst_grads_err_baseline=json.dumps(grad_worst[:8]), per_net=json.dumps(per_net),
+          grads_max_rel_err=grad_worst[0][1], tol_grads="max(1e-3, 3 x baseline)",
+          in_bias_grad_over_weight_grad=bias_err, tol_in_bias=1e-4,
+          unresolved_elements=unresolved, params_max_abs_err=param_err, tol_params=1e-5)
+    if max(loss_errs.values()) > 1e-4:
+        fails.append(f"losses {loss_errs}")
+    if bias_err > 1e-4 or param_err > 1e-5:
+        fails.append(f"IN biases {bias_err}, params {param_err}")
+    if fails:
+        raise AssertionError("card and CPU disagree on the training step: " + "; ".join(fails))
+    del runs, card
+
+    # two fresh, identical two-step runs on the card
+    batches = request_batches(2, TRAIN_BATCH, seed=6)
+    outs = []
+    for _ in range(2):
+        m = train_model([*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--continue_train",
+                         "--epoch", "smoke", "--gpu_ids", "0", "--batch_size", str(TRAIN_BATCH)])
+        losses = []
+        for b in batches:
+            m.set_input(b)
+            m.optimize_parameters()
+            losses.append(list(m.get_current_losses().values()))
+        outs.append((np.array(losses), [p.detach().clone() for p in
+                                        (*m.netG.parameters(), *m.netD.parameters(),
+                                         *m.netR.parameters())]))
+        del m
+    loss_diff = float(np.abs(outs[0][0] - outs[1][0]).max())
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(outs[0][1], outs[1][1]))
+    phase("train_determinism", steps=2, batch=TRAIN_BATCH, max_loss_diff=loss_diff,
+          max_param_diff=param_diff)
+    if loss_diff != 0.0 or param_diff != 0.0:
+        raise AssertionError("two identical training runs on the card differ")
 
 
 def main() -> int:
@@ -334,17 +702,35 @@ def main() -> int:
     t0 = time.perf_counter()
     results = check_kernels(dev)
     phase("kernels", seconds=round(time.perf_counter() - t0, 2))
+    t0 = time.perf_counter()
+    results.update(check_bwd_kernels(dev))
+    phase("kernels_bwd", seconds=round(time.perf_counter() - t0, 2))
 
     with tempfile.TemporaryDirectory(prefix="nemar_smoke_") as ckpt:
         launches, first, batch = run_slice(ckpt)
         compare_with_cpu(ckpt, first, batch)
+        t0 = time.perf_counter()
+        train_launches, model = run_train(ckpt)
+        phase("train_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        compare_train_with_cpu(ckpt, model)
+        phase("train_vs_cpu_phase", seconds=round(time.perf_counter() - t0, 2))
+    # the inference kernels' launches come from phase 3, the backward ones'
+    # from phase 5 (the inference path launches none)
+    launches.update({k: train_launches[k] for k in ("K-block-bwd", "K-warp-bwd", "K-in-bwd")})
 
     sources = {"K-block": ("cuda", "nemar_tpu_torch/csrc/resblock_fwd.cu",
                            "nemar_tpu/ops/conv_fused.py:228"),
                "K-warp": ("cuda", "nemar_tpu_torch/csrc/warp_fwd.cu",
                           "nemar_tpu/ops/warp_pallas.py:152"),
                "K-in": ("triton", "nemar_tpu_torch/ops/norm_triton.py",
-                        "nemar_tpu/ops/norm.py:193")}
+                        "nemar_tpu/ops/norm.py:193"),
+               "K-block-bwd": ("cuda", "nemar_tpu_torch/csrc/resblock_bwd.cu",
+                               "nemar_tpu/ops/conv_fused.py:544"),
+               "K-warp-bwd": ("cuda", "nemar_tpu_torch/csrc/warp_bwd.cu",
+                              "nemar_tpu/ops/warp_pallas.py:448"),
+               "K-in-bwd": ("triton", "nemar_tpu_torch/ops/norm_triton.py",
+                            "nemar_tpu/ops/norm.py:89")}
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep, "launches": launches[k],
                 **results[k]} for k, (r, s, rep) in sources.items()]
     print(smi, flush=True)

@@ -5,22 +5,27 @@ The second package beside ``nemar_tpu`` (the JAX reference, which it is
 held against in ``tests/test_torch_*.py``). It mirrors the reference's file
 names so each module's counterpart is easy to find:
 
-  * ``ops/warp.py`` + ``ops/warp_cuda.py`` + ``csrc/warp_fwd.cu`` — grid
-    sampling; the bilinear gather is the CUDA kernel K-warp.
+  * ``ops/warp.py`` + ``ops/warp_cuda.py`` + ``csrc/warp_{fwd,bwd}.cu`` —
+    grid sampling; the bilinear gather and its VJP are the CUDA kernels
+    K-warp and K-warp-bwd.
   * ``ops/norm.py`` + ``ops/norm_triton.py`` — instance norm + activation;
-    the Triton kernel K-in.
-  * ``ops/conv_fused.py`` + ``csrc/resblock_fwd.cu`` — the ResNet trunk
-    block; the CUDA kernel K-block.
-  * ``models/`` — ResnetGenerator, NLayerDiscriminator, UnetSTN, NEMARModel.
-  * ``test.py`` — the inference entry point (``python -m nemar_tpu_torch.test``).
+    the Triton kernels K-in and K-in-bwd.
+  * ``ops/conv_fused.py`` + ``csrc/resblock_{fwd,bwd}.cu`` — the ResNet
+    trunk block; the CUDA kernels K-block and K-block-bwd.
+  * ``models/`` — ResnetGenerator, NLayerDiscriminator, UnetSTN, NEMARModel
+    (inference and the training step).
+  * ``test.py``, ``train.py`` — the entry points (``python -m
+    nemar_tpu_torch.test`` / ``.train``).
 
-Every kernel op dispatches on the device of its input: a CPU tensor takes
-the op's plain PyTorch version, a CUDA tensor launches the kernel or raises.
-The package never imports JAX. Model boundaries keep the reference's NHWC
-numpy layout; inside, activations are NCHW tensors in ``channels_last``
-memory, so the kernels see NHWC-contiguous data.
+Every kernel op is a ``torch.autograd.Function`` that dispatches on the
+device of its input: a CPU tensor takes the op's plain PyTorch versions, a
+CUDA tensor launches the kernels or raises. The package never imports JAX.
+Model boundaries keep the reference's NHWC numpy layout; inside,
+activations are NCHW tensors in ``channels_last`` memory, so the kernels see
+NHWC-contiguous data.
 
-This slice runs inference; training is queued in ROADMAP.md (A5).
+The flags of the JAX package that are not ported yet are refused by name,
+each naming its ROADMAP.md item.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Model base class (reference ``models/base_model.py``), PyTorch inside.
 
-Same public surface as the JAX package's BaseModel for inference: setup /
-eval / test / get_current_visuals / save_networks / load_networks /
-print_networks. Inside:
+Same public surface as the JAX package's BaseModel: setup / train / eval /
+test / set_epoch / update_learning_rate / get_current_losses /
+get_current_visuals / save_networks / load_networks / print_networks.
+Inside:
 
   * one ``nn.Module`` per net (``self.net<Name>``) on ``self.device``, taken
     from ``--gpu_ids``: none (``-1``) means the CPU, ``k`` means ``cuda:k``
@@ -13,8 +14,15 @@ print_networks. Inside:
     (``set_input`` in, ``get_current_visuals`` out), so the numpy utilities
     of ``nemar_tpu.utils`` and ``nemar_tpu.data`` serve both packages.
 
-Optimizers, schedulers and the full training state are queued as
-ROADMAP.md A5/A6.
+  * for training, ``setup()`` builds one ``torch.optim.Adam`` per net
+    (``make_optimizers``); the lr is stepped once per epoch on the host by
+    the JAX package's policies (``networks.get_lr_multiplier_fn``) and set
+    on every param group, times the group's ``lr_ratio``.
+
+Training on CUDA sets ``torch.backends.cudnn.deterministic``, so two runs
+from one state are bit-identical, as the JAX package's are.
+``--continue_train`` loads the per-net files; the full training state with
+the Adam moments is queued as ROADMAP.md A6.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from nemar_tpu_torch.models.networks import get_lr_multiplier_fn
 
 
 def resolve_device(gpu_ids) -> torch.device:
@@ -60,6 +70,10 @@ class BaseModel(ABC):
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         os.makedirs(self.save_dir, exist_ok=True)
         self.model_names: list[str] = []
+        self.loss_names: list[str] = []
+        self.optimizers: dict[str, torch.optim.Optimizer] = {}
+        self.metric = 0.0  # fed to the plateau policy
+        self._losses: dict[str, torch.Tensor] = {}
         self._visuals: dict[str, torch.Tensor] = {}
 
     @staticmethod
@@ -81,13 +95,39 @@ class BaseModel(ABC):
     def nets(self) -> dict:
         return {n: getattr(self, f"net{n}") for n in self.model_names}
 
+    def make_optimizers(self) -> dict:
+        """{net name: optimizer} for training; each param group carries an
+        ``lr_ratio`` (its lr is ``current_lr * lr_ratio``)."""
+        return {}
+
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):
-        """Load checkpoints for inference (or to continue training), print."""
-        if not self.isTrain or getattr(opt, "continue_train", False):
+        """Schedules and optimizers (training), checkpoints (inference or
+        --continue_train), print."""
+        resume = self.isTrain and getattr(opt, "continue_train", False)
+        if self.isTrain:
+            self.lr_fn = get_lr_multiplier_fn(opt)
+            self.current_lr = opt.lr
+            if resume:
+                # epoch epoch_count trains at the multiplier of the last
+                # completed epoch, as the JAX package resumes
+                self.current_lr = opt.lr * self.lr_fn(max(0, opt.epoch_count - 1), None)
+        if not self.isTrain or resume:
             suffix = f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch
             self.load_networks(suffix)
+        if self.isTrain:
+            self.optimizers = self.make_optimizers()
+            self._set_lr()
+            self.train()
+            if self.device.type == "cuda":
+                # bit-identical steps, as the JAX package's: cuDNN's default
+                # convolution backward algorithms sum in a run-dependent order
+                torch.backends.cudnn.deterministic = True
         self.print_networks(getattr(opt, "verbose", False))
+
+    def train(self):
+        for net in self.nets().values():
+            net.train()
 
     def eval(self):
         for net in self.nets().values():
@@ -97,6 +137,38 @@ class BaseModel(ABC):
         """Inference forward, without autograd."""
         with torch.no_grad():
             self.forward()
+
+    # -- losses, epoch-indexed schedules, lr -----------------------------------
+    def get_current_losses(self) -> "OrderedDict[str, float]":
+        """The last step's losses as floats, in ``loss_names`` order (one
+        device sync)."""
+        return OrderedDict((k, float(self._losses[k])) for k in self.loss_names
+                           if k in self._losses)
+
+    def set_epoch(self, epoch: int):
+        """Current absolute epoch (the train loop calls this at epoch start;
+        it feeds the warm-up and ramp schedules)."""
+        self._cur_epoch = int(epoch)
+
+    def _set_lr(self):
+        for optimizer in self.optimizers.values():
+            for group in optimizer.param_groups:
+                group["lr"] = self.current_lr * group.get("lr_ratio", 1.0)
+
+    def update_learning_rate(self, epoch: int | None = None):
+        """Step the per-epoch lr multiplier (reference update_learning_rate);
+        the plateau policy is fed the last step's G loss, as in the JAX
+        package."""
+        if epoch is None:
+            epoch = getattr(self, "_epoch", self.opt.epoch_count)
+            self._epoch = epoch + 1
+        if getattr(self.opt, "lr_policy", "linear") == "plateau" and self._losses:
+            key = "G" if "G" in self._losses else sorted(self._losses)[0]
+            self.metric = float(self._losses[key])
+        old = self.current_lr
+        self.current_lr = self.opt.lr * self.lr_fn(epoch, self.metric)
+        self._set_lr()
+        print(f"learning rate {old:.7f} -> {self.current_lr:.7f}")
 
     # -- visuals -------------------------------------------------------------
     def get_current_visuals(self) -> "OrderedDict[str, np.ndarray]":

@@ -1,26 +1,32 @@
-"""NeMAR model, inference (reference ``models/nemar_model.py``).
+"""NeMAR model, inference and the training step (reference ``models/nemar_model.py``).
 
 Three networks, as in the JAX package:
   T (netG)  ResNet generator translating modality A to B's appearance,
   R (netR)  UNet STN predicting the field φ that aligns A to B,
-  D (netD)  70x70 PatchGAN (built and checkpointed; not run at test time).
+  D (netD)  70x70 PatchGAN.
 
 The forward is the reference's ``_forward_parts``: φ is predicted once and
 applied in both orders, warp(T(a), φ) (``reg_fakeB``) and T(warp(a, φ))
 (``fake_B2``). ``forward`` exposes the same visuals and ``last_flow`` as the
 JAX model, as NHWC numpy arrays.
 
-On the card the path runs through the three hand-written kernels: K-block
-for the 6 trunk blocks of each G pass, K-in for every instance norm outside
-the trunk, K-warp for the one grid sample of (fake_B, real_A).
+``optimize_parameters`` is the JAX package's ``_train_step_impl`` in the
+same order: one forward with the graph kept; the D step on the detached
+reg_fakeB (one D pass over [real_B; fake], Adam); the G+R loss against the
+UPDATED D, backpropagated through the kept graph with D's parameters
+frozen; R's gradients clipped to --stn_grad_clip by global norm and then
+multiplied by the R gate; Adam for G (not under --freeze_g) and for R.
 
-The training step (``optimize_parameters``: D loss, G+R loss, Adam) is
-queued as ROADMAP.md A5.
+On the card the path runs through the six hand-written kernels: K-block /
+K-block-bwd for the 6 trunk blocks of each G pass, K-in / K-in-bwd for
+every instance norm outside the trunk, K-warp / K-warp-bwd for the one
+grid sample of (fake_B, real_A).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from nemar_tpu_torch.models import networks
 from nemar_tpu_torch.models.base_model import BaseModel, to_device_nchw
@@ -172,9 +178,28 @@ class NEMARModel(BaseModel):
     def __init__(self, opt):
         super().__init__(opt)
         self.model_names = ["G", "D", "R"]
+        self.loss_names = ["D", "D_real", "D_fake", "G_GAN", "G_recon", "G_smooth", "G"]
         _check_supported(opt)
         self.field_source = getattr(opt, "stn_field_source", "pair")
         self.g_batch = getattr(opt, "g_batch", False)
+        self.gan_mode = getattr(opt, "gan_mode", "lsgan")
+        self.lambda_GAN = getattr(opt, "lambda_GAN", 1.0)
+        self.lambda_recon = getattr(opt, "lambda_recon", 100.0)
+        self.lambda_smooth = getattr(opt, "lambda_smooth", 10.0)
+        stn_lr = getattr(opt, "stn_lr", None)
+        self.stn_lr_ratio = 1.0 if stn_lr is None else stn_lr / getattr(opt, "lr", 2e-4)
+        self.gan_warmup = getattr(opt, "gan_warmup_epochs", 0)
+        self.gan_ramp = getattr(opt, "gan_ramp_epochs", 0)
+        self.stn_warmup = getattr(opt, "stn_warmup_epochs", 0)
+        self.stn_ramp = getattr(opt, "stn_ramp_epochs", 0)
+        self.stn_grad_clip = getattr(opt, "stn_grad_clip", 0.0)
+        self.border_mask = getattr(opt, "border_mask", False)
+        self.recon_pyramid = getattr(opt, "recon_pyramid", 0)
+        self.freeze_g = getattr(opt, "freeze_g", False)
+        if self.recon_pyramid > 0 and opt.crop_size % (2 ** self.recon_pyramid):
+            raise ValueError(
+                f"--recon_pyramid {self.recon_pyramid} needs --crop_size "
+                f"divisible by {2 ** self.recon_pyramid}, got {opt.crop_size}")
 
         gen = torch.Generator().manual_seed(getattr(opt, "seed", 0))
         self.netG = networks.define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.netG,
@@ -189,17 +214,33 @@ class NEMARModel(BaseModel):
         head = self.netR.head()
         torch.nn.init.zeros_(head.weight)
         torch.nn.init.zeros_(head.bias)
-        for name, net in self.nets().items():
+        for net in self.nets().values():
             net.to(self.device, memory_format=torch.channels_last)
-            net.eval()
+            net.train(self.isTrain)
+
+    def make_optimizers(self) -> dict:
+        """Adam per net, ``betas=(beta1, 0.999), eps=1e-8``: optax
+        ``scale_by_adam`` with the lr applied outside, as the JAX package's
+        ``models/optim.py``. R takes --stn_beta1 and lr * stn_lr / lr."""
+        beta1 = self.opt.beta1
+        stn_beta1 = getattr(self.opt, "stn_beta1", None)
+
+        def adam(net, b1, ratio):
+            return torch.optim.Adam([{"params": list(net.parameters()), "lr_ratio": ratio}],
+                                    lr=self.current_lr * ratio, betas=(b1, 0.999), eps=1e-8)
+
+        return {"G": adam(self.netG, beta1, 1.0), "D": adam(self.netD, beta1, 1.0),
+                "R": adam(self.netR, beta1 if stn_beta1 is None else stn_beta1,
+                          self.stn_lr_ratio)}
 
     def _forward_parts(self, a: torch.Tensor, b: torch.Tensor) -> dict:
-        """Both warp orders from one φ; NCHW tensors in and out."""
+        """Both warp orders from one φ; NCHW tensors in and out. With
+        --border_mask, also the warp's validity mask (N, 1, H, W), detached."""
         netG, netR = self.netG, self.netR
         if self.field_source == "pair" and self.g_batch:
             # φ depends only on (a, b): R first, then ONE G pass at 2N over
             # [a; warp(a, φ)], then the warp of fake_B with the same grid
-            (warped_A,), _, aux = netR(a, b, (a,), n_grad_imgs=0)
+            (warped_A,), reg, aux = netR(a, b, (a,), n_grad_imgs=0)
             both = netG(torch.cat([a, warped_A], dim=0))
             fake_B, fake_B2 = torch.split(both, a.shape[0], dim=0)
             reg_fakeB = networks.to_nchw(grid_sample(
@@ -208,10 +249,129 @@ class NEMARModel(BaseModel):
         else:
             fake_B = netG(a)
             src = (a, b) if self.field_source == "pair" else (fake_B, b)
-            (reg_fakeB, warped_A), _, aux = netR(src[0], src[1], (fake_B, a), n_grad_imgs=1)
+            (reg_fakeB, warped_A), reg, aux = netR(src[0], src[1], (fake_B, a), n_grad_imgs=1)
             fake_B2 = netG(warped_A)
-        return {"fake_B": fake_B, "reg_fakeB": reg_fakeB, "warped_A": warped_A,
-                "fake_B2": fake_B2, "flow": aux["flow"]}
+        out = {"fake_B": fake_B, "reg_fakeB": reg_fakeB, "warped_A": warped_A,
+               "fake_B2": fake_B2, "reg": reg, "flow": aux["flow"]}
+        if self.border_mask:
+            # validity of each output pixel under the warp; no gradient: the
+            # mask must not be a lever for shrinking the loss support
+            with torch.no_grad():
+                n, _, h, w = a.shape
+                ones = torch.ones((n, h, w, 1), dtype=torch.float32, device=a.device)
+                out["mask"] = networks.to_nchw(grid_sample(
+                    ones, aux["grid"], "bilinear", "zeros",
+                    getattr(self.opt, "stn_align_corners", False)))
+        return out
+
+    # ------------------------------------------------------------------
+    # the training step
+    # ------------------------------------------------------------------
+    def _d_loss(self, fake: torch.Tensor, b: torch.Tensor):
+        """One D pass over [real; fake] (instance norm is per sample)."""
+        pred_real, pred_fake = torch.chunk(self.netD(torch.cat([b, fake], dim=0)), 2, dim=0)
+        l_real = networks.gan_loss(pred_real, True, self.gan_mode)
+        l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
+        return 0.5 * (l_real + l_fake), (l_real, l_fake)
+
+    @staticmethod
+    def _recon_l1(x, y, m):
+        if m is None:
+            return torch.mean(torch.abs(x - y))
+        return torch.sum(torch.abs(x - y).mean(1, keepdim=True) * m) / torch.clamp_min(
+            torch.sum(m), 1.0)
+
+    def _head_loss(self, o: dict, b: torch.Tensor, gan_w: float):
+        """G+R loss on the forward outputs ``o`` against D as it is now."""
+        l_gan = networks.gan_loss(self.netD(o["reg_fakeB"]), True, self.gan_mode)
+        m = o.get("mask")
+        rf, f2, bb = o["reg_fakeB"], o["fake_B2"], b
+        l_recon = self._recon_l1(rf, bb, m) + self._recon_l1(f2, bb, m)
+        # --recon_pyramid: K extra 2x2-average-pooled octaves
+        for _ in range(self.recon_pyramid):
+            rf, f2, bb = F.avg_pool2d(rf, 2), F.avg_pool2d(f2, 2), F.avg_pool2d(bb, 2)
+            m = F.avg_pool2d(m, 2) if m is not None else None
+            l_recon = l_recon + self._recon_l1(rf, bb, m) + self._recon_l1(f2, bb, m)
+        l_recon = l_recon / (1 + self.recon_pyramid)
+        l_smooth = o["reg"]
+        total = (gan_w * self.lambda_GAN * l_gan + self.lambda_recon * l_recon
+                 + self.lambda_smooth * l_smooth)
+        return total, (l_gan, l_recon, l_smooth)
+
+    def _clip_r(self, grads: list) -> None:
+        """--stn_grad_clip: scale R's gradients to at most that global norm
+        (in place, on the device)."""
+        c = self.stn_grad_clip
+        if c <= 0:
+            return
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g)) for g in grads))
+        scale = torch.clamp(c / torch.clamp_min(gnorm, 1e-12), max=1.0)
+        for g in grads:
+            g.mul_(scale)
+
+    def _gan_w_scalar(self) -> float:
+        """GAN weight for the current epoch: 0 through the R warm-up, then a
+        linear ramp."""
+        epoch = getattr(self, "_cur_epoch", getattr(self.opt, "epoch_count", 1))
+        if not self.isTrain or self.gan_warmup <= 0:
+            return 1.0
+        if epoch <= self.gan_warmup:
+            return 0.0
+        if self.gan_ramp > 0:
+            return min(1.0, (epoch - self.gan_warmup) / float(self.gan_ramp))
+        return 1.0
+
+    def _r_gate_scalar(self) -> float:
+        """R's gradient gate: 0 while R is frozen (--stn_warmup_epochs), then
+        a linear ramp over --stn_ramp_epochs."""
+        epoch = getattr(self, "_cur_epoch", getattr(self.opt, "epoch_count", 1))
+        if not self.isTrain:
+            return 1.0
+        if epoch <= self.stn_warmup:
+            return 0.0
+        if self.stn_ramp > 0:
+            return min(1.0, (epoch - self.stn_warmup) / float(self.stn_ramp))
+        return 1.0
+
+    def optimize_parameters(self):
+        """One training step (the JAX package's ``_train_step_impl``)."""
+        a, b = self.real_A, self.real_B
+        gan_w, r_gate = self._gan_w_scalar(), self._r_gate_scalar()
+        out = self._forward_parts(a, b)
+
+        # ---- D step: the current fake, detached --------------------------
+        fake = out["reg_fakeB"].detach()
+        opt_D = self.optimizers["D"]
+        if self.freeze_g:  # D is not updated: its loss is only reported
+            with torch.no_grad():
+                loss_D, (l_dr, l_df) = self._d_loss(fake, b)
+        else:
+            loss_D, (l_dr, l_df) = self._d_loss(fake, b)
+            opt_D.zero_grad(set_to_none=True)
+            loss_D.backward()
+            opt_D.step()
+
+        # ---- G+R step against the UPDATED D, frozen ------------------------
+        self.netD.requires_grad_(False)
+        try:
+            loss_G, (l_gan, l_rec, l_sm) = self._head_loss(out, b, gan_w)
+            self.optimizers["G"].zero_grad(set_to_none=True)
+            self.optimizers["R"].zero_grad(set_to_none=True)
+            loss_G.backward()
+        finally:
+            self.netD.requires_grad_(True)
+        grads_R = [p.grad for p in self.netR.parameters() if p.grad is not None]
+        self._clip_r(grads_R)
+        if r_gate != 1.0:
+            # zeroed grads keep the Adam moments at zero while R is frozen
+            for g in grads_R:
+                g.mul_(r_gate)
+        self.optimizers["R"].step()
+        if not self.freeze_g:
+            self.optimizers["G"].step()
+        self._losses = {k: v.detach() for k, v in (
+            ("D", loss_D), ("D_real", l_dr), ("D_fake", l_df), ("G_GAN", l_gan),
+            ("G_recon", l_rec), ("G_smooth", l_sm), ("G", loss_G))}
 
     # ------------------------------------------------------------------
     # reference-API host methods
@@ -233,9 +393,6 @@ class NEMARModel(BaseModel):
         }
         return out
 
-    def optimize_parameters(self):
-        raise NotImplementedError(
-            "the NeMAR training step is not ported yet (queued as ROADMAP.md A5)")
 
 
 def _check_supported(opt) -> None:
@@ -244,6 +401,14 @@ def _check_supported(opt) -> None:
         (getattr(opt, "bf16", False), "--bf16", "A7"),
         (getattr(opt, "init_type", "normal") != "normal", f"--init_type {opt.init_type}", "A5"),
         (getattr(opt, "use_ema", False), "--use_ema (EMA shadows come with training)", "A5"),
+        (getattr(opt, "pool_size", 0) > 0, "--pool_size > 0 (the image pool)", "A5"),
+        (getattr(opt, "grad_accum", 1) > 1, "--grad_accum > 1", "A5"),
+        (getattr(opt, "ema_decay", 0.0) > 0, "--ema_decay > 0", "A5"),
+        (getattr(opt, "gan_mode", "lsgan") == "wgangp",
+         "--gan_mode wgangp (a double backward through the kernels)", "A5"),
+        (getattr(opt, "steps_per_execution", 1) > 1, "--steps_per_execution > 1", "A5"),
+        (getattr(opt, "opt_fused", False), "--opt_fused", "A5"),
+        (getattr(opt, "opt_split", False), "--opt_split", "A5"),
         (getattr(opt, "mesh_spatial", 1) > 1, "--mesh_spatial > 1", "A10"),
         (getattr(opt, "c7_impl", "xla") == "roll",
          "--c7_impl roll (kernel B4 of the TPU package)", "queue B"),

@@ -1,8 +1,10 @@
-"""Generators and discriminators: the ResNet translator T and the PatchGAN D.
+"""Generators and discriminators, the GAN objective and the lr schedules.
 
 Counterpart of ``nemar_tpu/models/networks.py`` (``ResnetBlock``,
-``ResnetGenerator``, ``NLayerDiscriminator``, ``define_G``, ``define_D``),
-forward only. Module attribute names are the flax parameter names
+``ResnetGenerator``, ``NLayerDiscriminator``, ``define_G``, ``define_D``,
+``gan_loss``, ``get_lr_multiplier_fn``). Every op is differentiable: the
+kernels' wrappers are ``torch.autograd.Function``s with hand-written
+backwards on the card. Module attribute names are the flax parameter names
 (``Conv_0``, ``ResnetBlock_3``, ``ConvTranspose_1``, ...), so a state_dict
 key reads as the flax tree path it was converted from (``utils/convert.py``).
 
@@ -17,6 +19,9 @@ same function from the same parameters; here each is the direct convolution.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Callable
 
 import torch
 import torch.nn as nn
@@ -45,15 +50,22 @@ def norm_act(x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """ReflectionPad2d, NCHW."""
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    """ReflectionPad2d, NCHW, built from slices, flips and concatenations:
+    its backward is deterministic on CUDA, where ReflectionPad2d's scatters
+    with float atomics."""
+    if pad == 0:
+        return x
+    h, w = x.shape[2], x.shape[3]
+    x = torch.cat([x[:, :, 1:pad + 1].flip(2), x, x[:, :, h - pad - 1:h - 1].flip(2)], dim=2)
+    return torch.cat([x[:, :, :, 1:pad + 1].flip(3), x, x[:, :, :, w - pad - 1:w - 1].flip(3)],
+                     dim=3)
 
 
 def init_weights(module: nn.Module, init_gain: float, generator: torch.Generator) -> None:
     """Reference init_weights 'normal': conv kernels N(0, init_gain), zero bias.
 
     The same seed draws other numbers than the JAX package; a trained model
-    comes from a checkpoint. (The other init types come with training,
+    comes from a checkpoint. (The other init types are refused by the model,
     ROADMAP.md A5.)
     """
     for m in module.modules():
@@ -170,3 +182,63 @@ def define_D(input_nc: int, ndf: int, netD: str, n_layers_D: int = 3,
         raise NotImplementedError(f"Discriminator model name [{netD}] is not ported yet "
                                   f"({_QUEUED})")
     raise NotImplementedError(f"Discriminator model name [{netD}] is not recognized")
+
+
+# ---------------------------------------------------------------------------
+# GAN objective (reference GANLoss) and per-epoch lr schedules (get_scheduler)
+# ---------------------------------------------------------------------------
+
+
+def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_mode: str) -> torch.Tensor:
+    """Reference GANLoss: lsgan = MSE against 1/0, vanilla = BCE with logits.
+
+    'wgangp' needs a double backward through the kernels and is refused by
+    the model (ROADMAP.md A5).
+    """
+    if gan_mode == "lsgan":
+        return torch.mean(torch.square(pred - (1.0 if target_is_real else 0.0)))
+    if gan_mode == "vanilla":
+        target = 1.0 if target_is_real else 0.0
+        return torch.mean(torch.clamp_min(pred, 0.0) - pred * target
+                          + torch.log1p(torch.exp(-torch.abs(pred))))
+    raise NotImplementedError(f"gan mode {gan_mode!r}")
+
+
+def get_lr_multiplier_fn(opt) -> Callable[[int, float], float]:
+    """fn(epoch, metric) -> lr multiplier, stepped once per epoch; the four
+    policies of ``nemar_tpu/models/networks.py:get_lr_multiplier_fn``.
+
+    ``epoch`` is the absolute epoch number (it starts at ``epoch_count``),
+    which makes 'linear' right for fresh and resumed runs alike. 'plateau'
+    keeps ReduceLROnPlateau(mode='min', factor=0.2, threshold=0.01,
+    patience=5) state in ``fn.state``.
+    """
+    policy = getattr(opt, "lr_policy", "linear")
+    if policy == "linear":
+        n_epochs = getattr(opt, "n_epochs", 100)
+        n_decay = getattr(opt, "n_epochs_decay", 100)
+        return lambda epoch, metric=None: 1.0 - max(0, epoch + 1 - n_epochs) / float(n_decay + 1)
+    if policy == "step":
+        iters = getattr(opt, "lr_decay_iters", 50)
+        return lambda epoch, metric=None: 0.1 ** (epoch // iters)
+    if policy == "cosine":
+        total = getattr(opt, "n_epochs", 100) + getattr(opt, "n_epochs_decay", 100)
+        return lambda epoch, metric=None: 0.5 * (1.0 + math.cos(math.pi * epoch / total))
+    if policy == "plateau":
+        state = {"best": float("inf"), "bad": 0, "mult": 1.0}
+
+        def fn(epoch, metric=None):
+            if metric is not None:
+                if metric < state["best"] * (1 - 0.01):
+                    state["best"] = metric
+                    state["bad"] = 0
+                else:
+                    state["bad"] += 1
+                    if state["bad"] > 5:
+                        state["mult"] *= 0.2
+                        state["bad"] = 0
+            return state["mult"]
+
+        fn.state = state
+        return fn
+    raise NotImplementedError(f"learning rate policy [{policy}] is not implemented")

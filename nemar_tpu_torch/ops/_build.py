@@ -111,15 +111,6 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def refuse_autograd(what: str, *tensors) -> None:
-    """The kernels have no backward yet: refuse inputs that autograd would
-    silently cut off, instead of returning outputs without a gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} has no backward kernel yet (queued with the training step, "
-            f"ROADMAP.md A5); call it under torch.no_grad()")
-
-
 def import_triton():
     """Import triton, with its kernel cache under the build directory."""
     os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

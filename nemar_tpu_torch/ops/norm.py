@@ -7,10 +7,17 @@ affine (the reference's ``InstanceNorm2d`` configuration), then 'none',
 
     y = act((x - mean) / sqrt(var + eps))
 
-``instance_norm_act`` dispatches on the device: a CPU tensor takes
-``instance_norm_act_plain``; a CUDA tensor launches the Triton kernel K-in
-(``ops/norm_triton.py``), which replaces the TPU kernel
-``nemar_tpu/ops/norm.py:_instance_norm_act_pallas``.
+``instance_norm_act`` is a ``torch.autograd.Function`` that dispatches on
+the device: a CPU tensor takes the plain versions (``instance_norm_stats``
++ the activation forward, ``instance_norm_act_bwd_plain`` backward); a CUDA
+tensor launches the Triton kernels K-in (forward, which replaces the TPU
+kernel ``nemar_tpu/ops/norm.py:_instance_norm_act_pallas``) and K-in-bwd
+(``ops/norm_triton.py``). The forward saves x and the (mean, rstd) it
+computed, so the backward does not recompute them:
+
+    dx = rstd * (ĝ - mean(ĝ) - ŷ * mean(ĝ * ŷ)),   ĝ = g * act'(ŷ),
+
+the JAX package's analytic backward (``_in_act_vjp_bwd``).
 """
 
 from __future__ import annotations
@@ -37,17 +44,67 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(N, 2, C) = (mean, rstd) per (sample, channel) of an NHWC tensor."""
+    mean = x.mean(dim=(1, 2))
+    var = torch.square(x - mean[:, None, None]).mean(dim=(1, 2))  # biased
+    return torch.stack([mean, torch.rsqrt(var + eps)], dim=1)
+
+
+def normalise(x: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    return (x - stats[:, None, None, 0]) * stats[:, None, None, 1]
+
+
 def instance_norm_act_plain(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,
                             negative_slope: float = 0.2) -> torch.Tensor:
     """Plain PyTorch version of ``instance_norm_act`` (any device)."""
     return _apply_act(instance_norm(x, eps), act, negative_slope)
 
 
+def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                                act: str = "relu", negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain version of K-in-bwd: d x of ``instance_norm_act`` given g = d y
+    and the forward's stats (N, 2, C) = (mean, rstd)."""
+    y = normalise(x, stats)
+    if act == "relu":
+        g = torch.where(y > 0, g, 0.0)
+    elif act == "leaky_relu":
+        g = torch.where(y >= 0, g, negative_slope * g)
+    elif act != "none":
+        raise ValueError(f"unknown act: {act!r}")
+    m1 = g.mean(dim=(1, 2), keepdim=True)
+    m2 = (g * y).mean(dim=(1, 2), keepdim=True)
+    return stats[:, None, None, 1] * (g - m1 - y * m2)
+
+
+class _InstanceNormAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, act, eps, negative_slope):
+        if x.is_cuda:
+            y, stats = norm_triton.instance_norm_act_triton(x, act, eps, negative_slope)
+        else:
+            stats = instance_norm_stats(x, eps)
+            y = _apply_act(normalise(x, stats), act, negative_slope)
+        ctx.act, ctx.negative_slope = act, negative_slope
+        ctx.save_for_backward(x, stats)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        if x.is_cuda:
+            dx = norm_triton.instance_norm_act_bwd_triton(x, g.contiguous(), stats, ctx.act,
+                                                          ctx.negative_slope)
+        else:
+            dx = instance_norm_act_bwd_plain(x, g, stats, ctx.act, ctx.negative_slope)
+        return dx, None, None, None
+
+
 def instance_norm_act(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,
                       negative_slope: float = 0.2) -> torch.Tensor:
-    """Fused instance norm + activation of an NHWC tensor."""
-    if x.is_cuda:
-        return norm_triton.instance_norm_act_triton(x, act, eps, negative_slope)
-    if x.device.type != "cpu":
+    """Fused instance norm + activation of an NHWC tensor, differentiable."""
+    if act not in ("none", "relu", "leaky_relu"):
+        raise ValueError(f"unknown act: {act!r}")
+    if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"instance_norm_act: unsupported device {x.device}")
-    return instance_norm_act_plain(x, act, eps, negative_slope)
+    return _InstanceNormAct.apply(x, act, eps, negative_slope)

@@ -11,11 +11,18 @@ functions, so the two packages are compared like with like:
     'nearest'.
 
 The coordinate transform (unnormalise + padding mode) is torch code for
-every device. The sampling itself dispatches on the image's device: a CPU
-tensor takes ``_sample_plain``, a gather that mirrors the JAX package's
-``_grid_sample_xla``; a CUDA tensor launches the kernel K-warp
-(``ops/warp_cuda.py``) for bilinear sampling and raises for 'nearest',
-which no CUDA path of the package uses.
+every device, differentiated by torch autograd, exactly where the JAX
+package leaves it outside its kernel's custom VJP. Bilinear sampling at
+pixel coordinates is one ``torch.autograd.Function`` that dispatches on
+the image's device: a CPU tensor takes ``_sample_plain`` (a gather that
+mirrors the JAX package's ``_grid_sample_xla``) and ``_sample_plain_bwd``;
+a CUDA tensor launches the kernels K-warp and K-warp-bwd
+(``ops/warp_cuda.py``). 'nearest' is plain torch on the CPU and raises on
+CUDA, where no path of the package uses it.
+
+``grad_channels`` limits d img to the first channels, the rest get exact
+zeros, as ``grid_sample_pallas(grad_channels=...)`` does: the model warps
+(fake_B, real_A) in one call and only fake_B needs an image gradient.
 """
 
 from __future__ import annotations
@@ -158,6 +165,74 @@ def _sample_plain(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out.reshape(n, gh, gw, c)
 
 
+def _sample_plain_bwd(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                      grad_channels: int) -> tuple:
+    """Plain version of K-warp-bwd: (d img, d x, d y) of bilinear
+    ``_sample_plain`` given g = d out (N, Ho, Wo, C).
+
+    d img covers the first ``grad_channels`` channels (exact zeros for the
+    rest; None when 0); the taps' values are zero out of frame, and floor()
+    carries no gradient, as in the JAX package's gather.
+    """
+    n, h, w, c = img.shape
+    gh, gw = x.shape[1], x.shape[2]
+    x = x.reshape(n, gh * gw)
+    y = y.reshape(n, gh * gw)
+    g = g.reshape(n, gh * gw, c)
+    flat = img.reshape(n, h * w, c)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    taps = []
+    for dy, dx, wgt in (
+        (0, 0, (1.0 - wx) * (1.0 - wy)),
+        (0, 1, wx * (1.0 - wy)),
+        (1, 0, (1.0 - wx) * wy),
+        (1, 1, wx * wy),
+    ):
+        cx, cy = x0 + dx, y0 + dy
+        valid = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+        idx = cy.clamp(0, h - 1).long() * w + cx.clamp(0, w - 1).long()
+        vals = torch.gather(flat, 1, idx[:, :, None].expand(n, gh * gw, c))
+        taps.append((torch.where(valid[..., None], vals, 0.0), valid, idx, wgt))
+    (v00, *_), (v01, *_), (v10, *_), (v11, *_) = taps
+    dx = (g * ((v01 - v00) * (1.0 - wy)[..., None] + (v11 - v10) * wy[..., None])).sum(-1)
+    dy = (g * ((v10 - v00) * (1.0 - wx)[..., None] + (v11 - v01) * wx[..., None])).sum(-1)
+    dimg = None
+    if grad_channels:
+        acc = torch.zeros((n, h * w, grad_channels), dtype=img.dtype, device=img.device)
+        gg = g[..., :grad_channels]
+        for _, valid, idx, wgt in taps:
+            contrib = gg * torch.where(valid, wgt, 0.0)[..., None]
+            acc.scatter_add_(1, idx[:, :, None].expand(n, gh * gw, grad_channels), contrib)
+        pad = torch.zeros((n, h * w, c - grad_channels), dtype=img.dtype, device=img.device)
+        dimg = torch.cat([acc, pad], dim=-1).reshape(n, h, w, c)
+    return dimg, dx.reshape(n, gh, gw), dy.reshape(n, gh, gw)
+
+
+class _SampleBilinear(torch.autograd.Function):
+    """Bilinear zeros-padded sampling at pixel coordinates, differentiable in
+    img (first ``grad_channels`` channels), x and y: the plain versions on
+    the CPU, K-warp / K-warp-bwd on CUDA."""
+
+    @staticmethod
+    def forward(ctx, img, x, y, grad_channels):
+        ctx.grad_channels = grad_channels
+        ctx.save_for_backward(img, x, y)
+        if img.is_cuda:
+            return warp_cuda.warp_bilinear(img, x, y)
+        return _sample_plain(img, x, y, "bilinear")
+
+    @staticmethod
+    def backward(ctx, g):
+        img, x, y = ctx.saved_tensors
+        gc = ctx.grad_channels if ctx.needs_input_grad[0] else 0
+        if img.is_cuda:
+            dimg, dx, dy = warp_cuda.warp_bilinear_bwd(img, x, y, g.contiguous(), gc)
+        else:
+            dimg, dx, dy = _sample_plain_bwd(img, x, y, g, gc)
+        return dimg, dx, dy, None
+
+
 def _check(img: torch.Tensor, grid: torch.Tensor) -> None:
     if img.dim() != 4 or grid.dim() != 4 or grid.shape[-1] != 2 or grid.shape[0] != img.shape[0]:
         raise ValueError(f"bad grid shape {tuple(grid.shape)} for image {tuple(img.shape)}")
@@ -182,23 +257,27 @@ def grid_sample_plain(img: torch.Tensor, grid: torch.Tensor, mode: str = "biline
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
-                padding_mode: str = "zeros", align_corners: bool = False) -> torch.Tensor:
+                padding_mode: str = "zeros", align_corners: bool = False,
+                grad_channels: int = -1) -> torch.Tensor:
     """Sample ``img`` (N, H, W, C) at ``grid`` (N, Ho, Wo, 2) locations.
 
-    CPU tensors take the plain gather; CUDA tensors the kernel K-warp
-    (bilinear only).
+    CPU tensors take the plain gather; CUDA tensors the kernels K-warp and
+    K-warp-bwd (bilinear only). ``grad_channels >= 0`` limits d img to the
+    first channels (exact zeros for the rest); -1 means all.
     """
     _check(img, grid)
-    if img.is_cuda:
-        if mode != "bilinear":
-            raise NotImplementedError(
-                f"grid_sample mode {mode!r} has no CUDA kernel; the CUDA path samples bilinearly")
-        x, y = _pixel_coords(img, grid, padding_mode, align_corners)
-        return warp_cuda.warp_bilinear(img.contiguous(), x.contiguous(), y.contiguous())
-    if img.device.type != "cpu":
+    if not img.is_cuda and img.device.type != "cpu":
         raise ValueError(f"grid_sample: unsupported device {img.device}")
+    if img.is_cuda and mode != "bilinear":
+        raise NotImplementedError(
+            f"grid_sample mode {mode!r} has no CUDA kernel; the CUDA path samples bilinearly")
     x, y = _pixel_coords(img, grid, padding_mode, align_corners)
-    return _sample_plain(img, x, y, mode)
+    if mode != "bilinear":
+        return _sample_plain(img, x, y, mode)
+    if img.is_cuda:
+        img, x, y = img.contiguous(), x.contiguous(), y.contiguous()
+    c = img.shape[-1]
+    return _SampleBilinear.apply(img, x, y, c if grad_channels < 0 else min(grad_channels, c))
 
 
 # ---------------------------------------------------------------------------
@@ -213,15 +292,18 @@ def grid_sample_multi(imgs: Sequence[torch.Tensor], grid: torch.Tensor, mode: st
 
     Concatenates along channels, samples once, splits back. With
     ``n_grad_imgs >= 0`` only the first n images carry a gradient (the rest
-    are detached), as in the reference.
+    are detached), as in the reference, and the sampling computes d img for
+    their channels only (a detach alone would not stop the one sampling
+    call from computing d img for the whole concatenation).
     """
     if 0 <= n_grad_imgs < len(imgs):
         imgs = tuple(imgs[:n_grad_imgs]) + tuple(i.detach() for i in imgs[n_grad_imgs:])
-    if len(imgs) == 1:
-        return (grid_sample(imgs[0], grid, mode, padding_mode, align_corners),)
     sizes = [i.shape[-1] for i in imgs]
+    gc = sum(sizes[:n_grad_imgs]) if n_grad_imgs >= 0 else -1
+    if len(imgs) == 1:
+        return (grid_sample(imgs[0], grid, mode, padding_mode, align_corners, gc),)
     cat = torch.cat([i.to(imgs[0].dtype) for i in imgs], dim=-1)
-    out = grid_sample(cat, grid, mode, padding_mode, align_corners)
+    out = grid_sample(cat, grid, mode, padding_mode, align_corners, gc)
     return tuple(torch.split(out, sizes, dim=-1))
 
 

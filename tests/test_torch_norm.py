@@ -2,8 +2,10 @@
 
 The JAX side runs its Pallas kernel (``impl='pallas'``, interpret mode on the
 CPU); the port takes its plain version on the CPU, which the Triton kernel
-K-in is held against on the card (tests/test_torch_cuda_kernels.py).
-Tolerance 1e-5 (fp32 roundoff of the statistics over H*W).
+K-in is held against on the card (tests/test_torch_cuda_kernels.py). The
+backward's plain version is held against the JAX package's analytic VJP
+(``_in_act_vjp_bwd``), which K-in-bwd replaces on the card. Tolerance 1e-5
+(fp32 roundoff of the statistics over H*W).
 """
 
 import jax.numpy as jnp
@@ -31,6 +33,20 @@ def test_instance_norm_act_matches_jax_pallas(act):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+def test_instance_norm_act_bwd_plain_matches_jax_vjp(act):
+    x = _x(10 + len(act))
+    g = np.random.default_rng(len(act)).standard_normal(x.shape).astype(np.float32)
+    (want,) = jnorm._in_act_vjp_bwd(act, 1e-5, 0.2, jnp.asarray(x), jnp.asarray(g))
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    got = tnorm.instance_norm_act_bwd_plain(xt, gt, tnorm.instance_norm_stats(xt), act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    # the differentiable op's backward is that plain version on the CPU
+    xg = xt.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tnorm.instance_norm_act(xg, act), xg, gt)
+    np.testing.assert_array_equal(dx.numpy(), got.numpy())
+
+
 def test_instance_norm_matches_jax_and_torch():
     x = _x(9, (2, 7, 5, 6))
     got = tnorm.instance_norm(torch.from_numpy(x))
@@ -46,7 +62,10 @@ def test_unknown_act_raises_and_kernel_refuses_cpu():
         tnorm.instance_norm_act(x, "gelu")
     with pytest.raises(ValueError, match="not on a CUDA device"):
         norm_triton.instance_norm_act_triton(x)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        norm_triton.instance_norm_act_bwd_triton(x, x, torch.zeros((1, 2, 2)))
     assert norm_triton.instance_norm_act_triton.launches == 0
+    assert norm_triton.instance_norm_act_bwd_triton.launches == 0
 
 
 def test_launch_shape_fills_the_card_at_batch_one():

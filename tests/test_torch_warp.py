@@ -3,9 +3,14 @@
 Same numpy inputs through both; on the CPU the port takes its plain gather,
 which the CUDA kernel K-warp is held against on the card
 (tests/test_torch_cuda_kernels.py). Tolerance 1e-5 (fp32 roundoff of the
-coordinate transform and the four-tap sum).
+coordinate transform and the four-tap sum). Gradients (d img for the first
+``grad_channels`` channels, d grid) go through the port's differentiable
+sampling, whose CPU backward is ``_sample_plain_bwd`` (K-warp-bwd on the
+card), against JAX autodiff of the same op; tolerance 1e-5 relative to the
+largest gradient (d grid is in pixels per normalised unit, up to ~W/2).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,11 +113,90 @@ def test_grids_match_jax(align_corners):
         atol=1e-6, rtol=0)
 
 
+def _grads_jax(img, grid, g, gc, **kw):
+    def f(i, gr):
+        return jwarp.grid_sample(i, gr, **kw) if "impl" in kw else \
+            warp_pallas.grid_sample_pallas(i, gr, grad_channels=gc)
+    _, vjp = jax.vjp(f, jnp.asarray(img), jnp.asarray(grid))
+    return [np.asarray(a) for a in vjp(jnp.asarray(g))]
+
+
+def _grads_port(img, grid, g, gc, padding_mode="zeros", align_corners=False):
+    it, gt = _t(img).requires_grad_(), _t(grid).requires_grad_()
+    out = twarp.grid_sample(it, gt, "bilinear", padding_mode, align_corners, gc)
+    return [a.numpy() for a in torch.autograd.grad(out, (it, gt), _t(g))]
+
+
+def _close(got, want):
+    scale = max(np.abs(want).max(), 1e-30)
+    np.testing.assert_allclose(got, want, atol=TOL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_grid_sample_grads_match_jax(padding_mode, align_corners):
+    img, grid = _imgs(len(padding_mode) + 3 * align_corners, c=4)
+    g = np.random.default_rng(2).standard_normal(grid.shape[:3] + (4,)).astype(np.float32)
+    want = _grads_jax(img, grid, g, -1, mode="bilinear", padding_mode=padding_mode,
+                      align_corners=align_corners, impl="xla")
+    dimg, dgrid = _grads_port(img, grid, g, 3, padding_mode, align_corners)
+    _close(dimg[..., :3], want[0][..., :3])
+    assert not np.any(dimg[..., 3])  # past grad_channels: exact zeros
+    _close(dgrid, want[1])
+    dimg_all, dgrid_all = _grads_port(img, grid, g, -1, padding_mode, align_corners)
+    _close(dimg_all, want[0])
+    np.testing.assert_array_equal(dgrid_all, dgrid)
+
+
+def test_grid_sample_grads_match_jax_pallas_kernel():
+    """Against the TPU kernel's VJP itself (interpret mode, W = 128), with
+    its grad_channels."""
+    rng = np.random.default_rng(12)
+    img = rng.standard_normal((1, 16, 128, 4)).astype(np.float32)
+    grid, _ = _smooth_grid(rng, 1, 16, 128)
+    g = rng.standard_normal(img.shape).astype(np.float32)
+    want = _grads_jax(img, grid, g, 3)
+    got = _grads_port(img, grid, g, 3)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_grid_sample_multi_limits_image_grads():
+    """n_grad_imgs=1: the second image is detached and the sampling's d img
+    covers the first image's channels only."""
+    rng = np.random.default_rng(13)
+    a = _t(rng.standard_normal((1, 6, 5, 3)).astype(np.float32)).requires_grad_()
+    b = _t(rng.standard_normal((1, 6, 5, 1)).astype(np.float32)).requires_grad_()
+    grid, _ = _smooth_grid(rng, 1, 6, 5)
+    gt = _t(grid).requires_grad_()
+    out = twarp.grid_sample_multi([a, b], gt, n_grad_imgs=1)
+    (out[0].sum() + out[1].sum()).backward()
+    assert a.grad is not None and b.grad is None and gt.grad is not None
+
+
+def test_sample_plain_bwd_matches_autograd():
+    """The written-out backward against torch autograd of the plain gather."""
+    img, grid = _imgs(21, c=3)
+    x, y = twarp._pixel_coords(_t(img), _t(grid), "zeros", False)
+    it, xt, yt = _t(img).double().requires_grad_(), x.double().requires_grad_(), \
+        y.double().requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(x.shape + (3,)))
+    want = torch.autograd.grad(twarp._sample_plain(it, xt, yt, "bilinear"), (it, xt, yt), g)
+    got = twarp._sample_plain_bwd(it.detach(), xt.detach(), yt.detach(), g, 2)
+    torch.testing.assert_close(got[0][..., :2], want[0][..., :2], rtol=0, atol=1e-12)
+    assert not torch.any(got[0][..., 2])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-12)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros((1, 4, 4, 1))
     with pytest.raises(ValueError, match="not on a CUDA device"):
         warp_cuda.warp_bilinear(x, x[..., 0], x[..., 0])
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        warp_cuda.warp_bilinear_bwd(x, x[..., 0], x[..., 0], x, 1)
     assert warp_cuda.warp_bilinear.launches == 0
+    assert warp_cuda.warp_bilinear_bwd.launches == 0
 
 
 def test_bad_grid_shape_raises():
