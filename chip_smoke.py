@@ -10,19 +10,25 @@ calls, and prints one line per phase. Any failure raises and the exit code
 is not 0.
 
   0. environment: versions, the card, ``nvidia-smi``'s name and power limit;
-  1. build: nvcc compiles nemar_tpu_torch/csrc/*.cu (Triton compiles K-in and
-     K-in-bwd at their first launch);
-  2. each forward kernel against its plain PyTorch version on the card, at
-     the slice's shapes, with TF32 off: max abs error against the stated
-     tolerance, and the median CUDA-event time of kernel and plain version;
-  2b. each backward kernel likewise, at the training step's shapes (batch 8);
+  1. build: one nvcc per nemar_tpu_torch/csrc/*.cu, all at once, then a
+     link (Triton compiles K-in and K-in-bwd at their first launch);
+  2. each forward kernel (K-warp, K-in, K-block, K-head, K-convt) against
+     its plain PyTorch version on the card, at the slice's shapes, with
+     TF32 off: max abs error against the stated tolerance, the median
+     CUDA-event time of kernel and plain version, the time of the one
+     PyTorch call that computes the same function where there is one
+     (F.grid_sample for K-warp, nn.Conv2d(padding_mode='reflect') for
+     K-head), and the kernel's bound on this card;
+  2b. each backward kernel likewise, at the training step's shapes (batch
+     8); K-block-bwd and K-convt-bwd are fed the plain forward's saved
+     values, and their comparison with their own forward's is shown beside;
   3. the inference slice: options parsed as ``nemar_tpu_torch.test`` parses
      them (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
      non-zero, so the warp samples between pixels) and loaded by
      ``setup()``, then 8 requests of batch 1 (set_input -> test ->
      get_current_visuals + the registration metrics). The launch counters
-     are zeroed just before and must show K-block 12, K-warp 1 and K-in 20
-     launches per request and no backward launch. Then the same model at
+     are zeroed just before and must show K-block 12, K-warp 1, K-in 16,
+     K-head 2 and K-convt 4 launches per request and no backward launch. Then the same model at
      batch 8, and a torch.profiler pass over 3 batch-1 requests
      (chiprun_out/profile_b1.txt, and the device's busy share);
   4. card against CPU: the same checkpoints on a CPU model (the plain
@@ -30,10 +36,14 @@ is not 0.
   5. the training slice: options parsed as ``nemar_tpu_torch.train`` parses
      them, batch 8, seeded synthetic batches; 2 warm-up steps, then 6
      counted steps with the counters zeroed just before: ms per step,
-     pairs/s, the launches per step of all six kernels (asserted), finite
+     pairs/s, the launches per step of all ten kernels (asserted), finite
      losses, and the zero-initialised flow head must have moved; a
      torch.profiler pass over 2 steps (chiprun_out/profile_train_b8.txt,
-     and the device's busy share);
+     and the device's busy share); then 6 more steps with cuDNN's default
+     (non-deterministic) algorithms, for what determinism costs;
+  5b. one batch-1 step each with the default flags, ``--block_impl
+     pallas_all`` and ``--c7_impl roll``: each flag is accepted, launches
+     the same kernels per step, and gives bit-identical losses;
   6. card against CPU for one training step on a 256^2 batch-1 pair, from
      one shared state (checkpoint and Adam moments): the seven losses within
      1e-4 relative, every gradient within max(1e-3, 3 x the step's own
@@ -43,10 +53,14 @@ is not 0.
      the card, which must give bit-identical losses and parameters.
 
 The line before the last is a JSON object with one entry per kernel. For a
-forward kernel, ``ms``/``plain_ms`` are the kernel's and the plain
-version's device time for one inference request at batch 1, summed over
-that request's calls; for a backward kernel, for one training step at
-batch 8, summed over the step's calls. The last line is
+forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
+plain version's and the library call's device time for one inference
+request at batch 1, summed over that request's calls, and ``bound_ms`` the
+least time the card could take for the same calls (the larger of their
+fp32 operations at 67 TFLOP/s and their bytes at 3.35 TB/s, the H100 SXM's
+peaks at 700 W; ``bound_by`` says which); for a backward kernel, the same
+for one training step at batch 8. ``launches`` counts phase 3's requests
+(forward kernels) or phase 5's steps (backward kernels). The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -73,19 +87,31 @@ SLICE_ARGS = [
     "--norm", "instance", "--stn_field_source", "pair", "--dataset_mode", "synthetic",
     "--name", "smoke", "--eval_registration",
 ]
-# (C, H, W, act, calls per request) of every instance norm outside the trunk
+# (C, H, W, act, calls per request) of every instance norm K-in runs: G's
+# encoder (its decoder's are K-convt's), the STN
 IN_SHAPES = [
-    (64, 256, 256, "relu", 4), (128, 128, 128, "relu", 4), (256, 64, 64, "relu", 2),  # G x2
+    (64, 256, 256, "relu", 2), (128, 128, 128, "relu", 2), (256, 64, 64, "relu", 2),  # G x2
     (32, 128, 128, "leaky_relu", 2), (64, 64, 64, "leaky_relu", 2),                   # STN
     (128, 32, 32, "leaky_relu", 2), (256, 16, 16, "leaky_relu", 2),
     (256, 8, 8, "leaky_relu", 1), (32, 256, 256, "leaky_relu", 1),
 ]
-TOL = {"K-warp": 1e-5, "K-in": 1e-5, "K-block": 1e-3,
+# (H, W, Ci, Co, calls per request / step) of G's decoder stages (K-convt)
+# and its 7x7 head (K-head), two G passes each
+CONVT_SHAPES = [(64, 64, 256, 128, 2), (128, 128, 128, 64, 2)]
+HEAD_SHAPE = (256, 256, 64, 3, 2)
+TOL = {"K-warp": 1e-5, "K-in": 1e-5, "K-block": 1e-3, "K-head": 1e-4, "K-convt": 1e-4,
        # backward tolerances, relative to the largest reference value: the
        # warp's and IN's are fp32 roundoff of short sums; the block's that of
        # four 2304-deep GEMMs summed over up to 32768 pixels around two IN
-       # backwards
-       "K-warp-bwd": 1e-5, "K-in-bwd": 1e-5, "K-block-bwd": 1e-3}
+       # backwards; the head's and the decoder's weight gradients are sums
+       # over up to 524288 pixels, merged in fp64 across tiles / splits
+       "K-warp-bwd": 1e-5, "K-in-bwd": 1e-5, "K-block-bwd": 1e-3,
+       "K-head-bwd": 1e-4, "K-convt-bwd": 1e-4}
+# the H100's peaks (NVIDIA's data sheet, SXM, 700 W): fp32 outside the
+# tensor cores, and device memory; each kernel's bound is the larger of its
+# operations over the first and its bytes over the second
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 # phase 6's conditioning baseline: the CPU step again with real_A scaled by
 # 1 + PERTURB, about how far the card's activations sit from the CPU's
 # (phase 4: up to 6.5e-5 absolute on outputs in [-1, 1])
@@ -100,10 +126,11 @@ TRAIN_ARGS = [
     "--name", "smoke_train",
 ]
 # (C, H, W, act, batch multiple, calls per step) of every instance norm
-# backward of a training step: G's two passes, the STN, D in the D step (one
-# pass over [real; fake], twice the batch) and D in the G step
+# backward K-in-bwd runs in a training step: G's encoder in two passes, the
+# STN, D in the D step (one pass over [real; fake], twice the batch) and D
+# in the G step
 IN_BWD_SHAPES = [
-    (64, 256, 256, "relu", 1, 4), (128, 128, 128, "relu", 1, 4), (256, 64, 64, "relu", 1, 2),
+    (64, 256, 256, "relu", 1, 2), (128, 128, 128, "relu", 1, 2), (256, 64, 64, "relu", 1, 2),
     (32, 128, 128, "leaky_relu", 1, 2), (64, 64, 64, "leaky_relu", 1, 2),
     (128, 32, 32, "leaky_relu", 1, 2), (256, 16, 16, "leaky_relu", 1, 2),
     (256, 8, 8, "leaky_relu", 1, 1), (32, 256, 256, "leaky_relu", 1, 1),
@@ -112,9 +139,15 @@ IN_BWD_SHAPES = [
     (128, 64, 64, "leaky_relu", 1, 1), (256, 32, 32, "leaky_relu", 1, 1),
     (512, 31, 31, "leaky_relu", 1, 1),
 ]
-# launches per training step: forward and backward of every kernel op
-STEP_LAUNCHES = {"K-block": 12, "K-warp": 1, "K-in": 26,
-                 "K-block-bwd": 12, "K-warp-bwd": 1, "K-in-bwd": 26}
+# launches per inference request and per training step
+REQUEST_LAUNCHES = {"K-block": 12, "K-warp": 1, "K-in": 16, "K-head": 2, "K-convt": 4,
+                    "K-block-bwd": 0, "K-warp-bwd": 0, "K-in-bwd": 0, "K-head-bwd": 0,
+                    "K-convt-bwd": 0}
+STEP_LAUNCHES = {"K-block": 12, "K-warp": 1, "K-in": 22, "K-head": 2, "K-convt": 4,
+                 "K-block-bwd": 12, "K-warp-bwd": 1, "K-in-bwd": 22, "K-head-bwd": 2,
+                 "K-convt-bwd": 4}
+# the TPU layouts of G's head and decoder: accepted, and the same kernels run
+LAYOUT_FLAGS = [["--block_impl", "pallas_all"], ["--c7_impl", "roll"]]
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -160,15 +193,57 @@ def smooth_grid(rng, n: int, h: int, w: int, px: float = 3.0) -> torch.Tensor:
     return identity_grid(h, w)[None] + field
 
 
+def bound(flops: float, *tensors) -> tuple:
+    """(ms on the operations' bound, ms on the bytes' bound) of one call:
+    its fp32 operations over the fp32 peak, and the bytes of ``tensors``
+    (each input read once, each output written once) over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+class Tally:
+    """One kernel's numbers summed over the calls of a request or a step."""
+
+    def __init__(self):
+        self.err, self.ms, self.plain_ms, self.lib_ms = 0.0, 0.0, 0.0, None
+        self.ops_ms, self.bytes_ms, self.bound_ms = 0.0, 0.0, 0.0
+
+    def add(self, calls: int, err: float, ms: float, pms: float, bnd: tuple,
+            lib_ms: float | None = None) -> None:
+        self.err = max(self.err, err)
+        self.ms += calls * ms
+        self.plain_ms += calls * pms
+        if lib_ms is not None:
+            self.lib_ms = (self.lib_ms or 0.0) + calls * lib_ms
+        self.ops_ms += calls * bnd[0]
+        self.bytes_ms += calls * bnd[1]
+        self.bound_ms += calls * max(bnd)
+
+    def result(self) -> dict:
+        return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": self.bound_ms,
+                "bound_by": "operations" if self.ops_ms >= self.bytes_ms else "bytes",
+                "library_ms": self.lib_ms}
+
+
+def randn(rng, shape, scale: float = 1.0, dev=None) -> torch.Tensor:
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+
 def check_kernels(dev) -> dict:
-    """Phase 2: every kernel against its plain version at the slice's shapes."""
-    from nemar_tpu_torch.ops import conv_fused, norm, norm_triton, warp, warp_cuda
+    """Phase 2: every forward kernel against its plain version at the
+    slice's shapes. Each kernel's totals are those of one batch-1 request;
+    ``library_ms`` times the one PyTorch call that computes the same
+    function, where there is one (the port never calls it)."""
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton
+    from nemar_tpu_torch.ops import warp, warp_cuda
 
     rng = np.random.default_rng(0)
     results = {}
 
-    # K-warp: the slice's one sample per request, (fake_B, real_A) = 4 channels
-    per_request = {}
+    # K-warp: the slice's one sample per request, (fake_B, real_A) = 4
+    # channels; the library call is F.grid_sample on the same image and grid
+    tally = Tally()
     for n in (1, 8):
         img = torch.from_numpy(smooth_images(rng, n, 4)).to(dev)
         grid = smooth_grid(rng, n, 256, 256).to(dev)
@@ -179,18 +254,25 @@ def check_kernels(dev) -> dict:
         frac = torch.mean(((xs - xs.floor()) > 1e-3).float()).item()
         ms = median_ms(lambda: warp_cuda.warp_bilinear(img, xs, ys))
         pms = median_ms(lambda: warp._sample_plain(img, xs, ys, "bilinear"))
+        img_nchw = img.permute(0, 3, 1, 2)
+        lib = torch.nn.functional.grid_sample(img_nchw, grid, "bilinear", "zeros", False)
+        lib_err = torch.max(torch.abs(lib.permute(0, 2, 3, 1) - ref)).item()
+        lms = median_ms(lambda: torch.nn.functional.grid_sample(img_nchw, grid, "bilinear",
+                                                                "zeros", False))
+        bnd = bound(8 * got.numel(), img, xs, ys, got)
         phase("kernel", name="K-warp", shape=f"{n}x256x256x4", max_abs_err=err,
-              tol=TOL["K-warp"], ms=ms, plain_ms=pms, fractional_x=round(frac, 3))
+              tol=TOL["K-warp"], ms=ms, plain_ms=pms, library_ms=lms, library_err=lib_err,
+              bound_ms=max(bnd), fractional_x=round(frac, 3))
         if not err <= TOL["K-warp"]:
             raise AssertionError(f"K-warp disagrees with its plain version: {err}")
         if n == 1:
-            per_request = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
-    results["K-warp"] = per_request
+            tally.add(1, err, ms, pms, bnd, lms)
+    results["K-warp"] = tally.result()
 
     # K-in: every instance norm shape of one request, batch 1
-    tot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    tally = Tally()
     for c, h, w, act, calls in IN_SHAPES:
-        x = torch.from_numpy((rng.standard_normal((1, h, w, c)) * 2 + 0.5).astype(np.float32)).to(dev)
+        x = randn(rng, (1, h, w, c), 2.0, dev) + 0.5
         got, _ = norm_triton.instance_norm_act_triton(x, act)
         ref = norm.instance_norm_act_plain(x, act)
         err = torch.max(torch.abs(got - ref)).item()
@@ -200,19 +282,16 @@ def check_kernels(dev) -> dict:
               max_abs_err=err, tol=TOL["K-in"], ms=ms, plain_ms=pms)
         if not err <= TOL["K-in"]:
             raise AssertionError(f"K-in disagrees with its plain version at {(c, h, w)}: {err}")
-        tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        tot["ms"] += calls * ms
-        tot["plain_ms"] += calls * pms
-    results["K-in"] = tot
+        tally.add(calls, err, ms, pms, bound(6 * x.numel(), x, got))
+    results["K-in"] = tally.result()
 
     # K-block: the trunk, N x 64 x 64 x 256, 6 blocks x 2 G passes per request
     for n in (1, 8):
-        x = torch.from_numpy(rng.standard_normal((n, 64, 64, 256)).astype(np.float32)).to(dev)
-        w1, w2 = (torch.from_numpy((0.02 * rng.standard_normal((3, 3, 256, 256))).astype(np.float32)).to(dev)
-                  for _ in range(2))
-        got = conv_fused.fused_resblock_cuda(x, w1, w2)[0]
+        x = randn(rng, (n, 64, 64, 256), 1.0, dev)
+        w1, w2 = (randn(rng, (3, 3, 256, 256), 0.02, dev) for _ in range(2))
+        out, y1, y2, stats = conv_fused.fused_resblock_cuda(x, w1, w2)
         ref = conv_fused.resblock_plain(x, w1, w2)
-        err = torch.max(torch.abs(got - ref)).item()
+        err = torch.max(torch.abs(out - ref)).item()
         ms = median_ms(lambda: conv_fused.fused_resblock_cuda(x, w1, w2), iters=10)
         pms = median_ms(lambda: conv_fused.resblock_plain(x, w1, w2), iters=10)
         flops = 2 * 2 * n * 64 * 64 * 256 * 9 * 256
@@ -222,7 +301,61 @@ def check_kernels(dev) -> dict:
         if not err <= TOL["K-block"]:
             raise AssertionError(f"K-block disagrees with its plain version: {err}")
         if n == 1:
-            results["K-block"] = {"max_abs_err": err, "ms": 12 * ms, "plain_ms": 12 * pms}
+            tally = Tally()
+            tally.add(12, err, ms, pms, bound(flops, x, w1, w2, out, y1, y2, stats))
+            results["K-block"] = tally.result()
+
+    # K-head: G's 7x7 output conv, N x 256 x 256 x 64 -> 3, twice per
+    # request; the library call is nn.Conv2d(padding_mode='reflect')
+    h, w, ci, co, calls = HEAD_SHAPE
+    for n in (1, 8):
+        x = randn(rng, (n, h, w, ci), 1.0, dev)
+        wk = randn(rng, (7, 7, ci, co), 0.02, dev)
+        got = conv_head.conv_head_cuda(x, wk)
+        ref = conv_head.conv_head_plain(x, wk)
+        err = torch.max(torch.abs(got - ref)).item()
+        ms = median_ms(lambda: conv_head.conv_head_cuda(x, wk))
+        pms = median_ms(lambda: conv_head.conv_head_plain(x, wk))
+        lib = torch.nn.Conv2d(ci, co, 7, padding=3, padding_mode="reflect", bias=False).to(dev)
+        with torch.no_grad():
+            lib.weight.copy_(wk.permute(3, 2, 0, 1))
+            x_nchw = x.permute(0, 3, 1, 2)
+            lib_err = torch.max(torch.abs(lib(x_nchw).permute(0, 2, 3, 1) - ref)).item()
+            lms = median_ms(lambda: lib(x_nchw))
+        flops = 2 * n * h * w * 49 * ci * co
+        bnd = bound(flops, x, wk, got)
+        phase("kernel", name="K-head", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
+              max_abs_err=err, tol=TOL["K-head"], ms=ms, plain_ms=pms, library_ms=lms,
+              library_err=lib_err, bound_ms=max(bnd), tflops=round(flops / ms / 1e9, 2))
+        if not err <= TOL["K-head"]:
+            raise AssertionError(f"K-head disagrees with its plain version: {err}")
+        if n == 1:
+            tally = Tally()
+            tally.add(calls, err, ms, pms, bnd, lms)
+            results["K-head"] = tally.result()
+
+    # K-convt: G's two decoder stages, twice each per request
+    tally = Tally()
+    for h, w, ci, co, calls in CONVT_SHAPES:
+        for n in (1, 8):
+            x = randn(rng, (n, h, w, ci), 1.0, dev)
+            wk = randn(rng, (3, 3, ci, co), 0.02, dev)
+            out, yhat, stats = convt_fused.fused_convt_in_cuda(x, wk)
+            ref, ref_yhat, _ = convt_fused.convt_in_fwd_plain(x, wk)
+            err = max(torch.max(torch.abs(out - ref)).item(),
+                      torch.max(torch.abs(yhat - ref_yhat)).item())
+            ms = median_ms(lambda: convt_fused.fused_convt_in_cuda(x, wk))
+            pms = median_ms(lambda: convt_fused.convt_in_plain(x, wk))
+            flops = 2 * n * h * w * 9 * ci * co
+            bnd = bound(flops, x, wk, out, yhat, stats)
+            phase("kernel", name="K-convt", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
+                  max_abs_err=err, tol=TOL["K-convt"], ms=ms, plain_ms=pms, bound_ms=max(bnd),
+                  tflops=round(flops / ms / 1e9, 2))
+            if not err <= TOL["K-convt"]:
+                raise AssertionError(f"K-convt disagrees with its plain version: {err}")
+            if n == 1:
+                tally.add(calls, err, ms, pms, bnd)
+    results["K-convt"] = tally.result()
     torch.cuda.synchronize()
     return results
 
@@ -233,11 +366,16 @@ def max_rel_err(got, ref) -> float:
                if a is not None)
 
 
+def max_abs_err(got, ref) -> float:
+    return max(float((p - q).abs().max()) for p, q in zip(got, ref))
+
+
 def check_bwd_kernels(dev) -> dict:
     """Phase 2b: every backward kernel against its plain version at the
     training step's shapes (batch 8), with each launch repeated to show it
-    is bit-for-bit repeatable."""
-    from nemar_tpu_torch.ops import conv_fused, norm, norm_triton, warp, warp_cuda
+    is bit-for-bit repeatable. Each kernel's totals are those of one step."""
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton
+    from nemar_tpu_torch.ops import warp, warp_cuda
 
     rng = np.random.default_rng(1)
     results = {}
@@ -249,12 +387,12 @@ def check_bwd_kernels(dev) -> dict:
         img = torch.from_numpy(smooth_images(rng, b, 4)).to(dev)
         grid = smooth_grid(rng, b, 256, 256).to(dev)
         xs, ys = (c.contiguous() for c in warp._pixel_coords(img, grid, "zeros", False))
-        g = torch.from_numpy(rng.standard_normal((b, 256, 256, 4)).astype(np.float32)).to(dev)
+        g = randn(rng, (b, 256, 256, 4), 1.0, dev)
         got = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
         again = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
         ref = warp._sample_plain_bwd(img, xs, ys, g, 3)
         err = max_rel_err(got, ref)
-        abs_err = max(float((p - q).abs().max()) for p, q in zip(got, ref))
+        abs_err = max_abs_err(got, ref)
         repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
         ms = median_ms(lambda: warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3))
         pms = median_ms(lambda: warp._sample_plain_bwd(img, xs, ys, g, 3))
@@ -264,14 +402,16 @@ def check_bwd_kernels(dev) -> dict:
         if not (err <= TOL["K-warp-bwd"] and repeatable and not torch.any(got[0][..., 3])):
             raise AssertionError(f"K-warp-bwd: err {err}, repeatable {repeatable}")
         if b == n:
-            results["K-warp-bwd"] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": pms}
+            tally = Tally()
+            tally.add(1, abs_err, ms, pms, bound(20 * g.numel(), img, xs, ys, g, *got))
+            results["K-warp-bwd"] = tally.result()
 
     # K-in-bwd: every instance-norm backward of a step
-    tot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    tally = Tally()
     for c, h, w, act, mult, calls in IN_BWD_SHAPES:
         shape = (n * mult, h, w, c)
-        x = torch.from_numpy((rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)).to(dev)
-        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+        x = randn(rng, shape, 2.0, dev) + 0.5
+        g = randn(rng, shape, 1.0, dev)
         _, stats = norm_triton.instance_norm_act_triton(x, act)
         got = norm_triton.instance_norm_act_bwd_triton(x, g, stats, act)
         again = norm_triton.instance_norm_act_bwd_triton(x, g, stats, act)
@@ -285,10 +425,8 @@ def check_bwd_kernels(dev) -> dict:
               bitwise_repeatable=torch.equal(got, again), ms=ms, plain_ms=pms)
         if not (err <= TOL["K-in-bwd"] and torch.equal(got, again)):
             raise AssertionError(f"K-in-bwd disagrees at {shape} {act}: {err}")
-        tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
-        tot["ms"] += calls * ms
-        tot["plain_ms"] += calls * pms
-    results["K-in-bwd"] = tot
+        tally.add(calls, abs_err, ms, pms, bound(8 * x.numel(), x, g, stats, got))
+    results["K-in-bwd"] = tally.result()
 
     # K-block-bwd: the trunk. The kernel is fed the plain forward's saved
     # values (y1, y2, stats), as the plain backward uses them: with K-block's
@@ -297,16 +435,15 @@ def check_bwd_kernels(dev) -> dict:
     # O(1) (counted and shown as relu_flips / err_with_kblock_saved).
     for b in (1, n):
         c = 256
-        x = torch.from_numpy(rng.standard_normal((b, 64, 64, c)).astype(np.float32)).to(dev)
-        w1, w2 = (torch.from_numpy((0.02 * rng.standard_normal((3, 3, c, c))).astype(np.float32))
-                  .to(dev) for _ in range(2))
-        g = torch.from_numpy(rng.standard_normal((b, 64, 64, c)).astype(np.float32)).to(dev)
+        x = randn(rng, (b, 64, 64, c), 1.0, dev)
+        w1, w2 = (randn(rng, (3, 3, c, c), 0.02, dev) for _ in range(2))
+        g = randn(rng, (b, 64, 64, c), 1.0, dev)
         saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
         got = conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
         again = conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
         ref = conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved)
         err = max_rel_err(got, ref)
-        abs_err = max(float((p - q).abs().max()) for p, q in zip(got, ref))
+        abs_err = max_abs_err(got, ref)
         repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
         _, y1k, y2k, stk = conv_fused.fused_resblock_cuda(x, w1, w2)
         own = conv_fused.resblock_bwd_cuda(x, w1, w2, y1k, y2k, stk, g)
@@ -323,18 +460,85 @@ def check_bwd_kernels(dev) -> dict:
         if not (err <= TOL["K-block-bwd"] and repeatable):
             raise AssertionError(f"K-block-bwd disagrees with its plain version: {err}")
         if b == n:
-            results["K-block-bwd"] = {"max_abs_err": abs_err, "ms": 12 * ms, "plain_ms": 12 * pms}
+            tally = Tally()
+            tally.add(12, abs_err, ms, pms, bound(flops, x, *saved, g, w1, w2, *got))
+            results["K-block-bwd"] = tally.result()
+
+    # K-head-bwd: G's 7x7 output conv, twice per step
+    h, w, ci, co, calls = HEAD_SHAPE
+    x = randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = randn(rng, (7, 7, ci, co), 0.02, dev)
+    g = randn(rng, (n, h, w, co), 1.0, dev)
+    got = conv_head.conv_head_bwd_cuda(x, wk, g)
+    again = conv_head.conv_head_bwd_cuda(x, wk, g)
+    ref = conv_head.conv_head_bwd_plain(x, wk, g)
+    err = max_rel_err(got, ref)
+    abs_err = max_abs_err(got, ref)
+    repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+    ms = median_ms(lambda: conv_head.conv_head_bwd_cuda(x, wk, g), iters=10)
+    pms = median_ms(lambda: conv_head.conv_head_bwd_plain(x, wk, g), iters=5)
+    flops = 2 * 2 * n * h * w * 49 * ci * co
+    phase("kernel_bwd", name="K-head-bwd", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
+          max_rel_err_dx_dw=json.dumps([max_rel_err([p], [q]) for p, q in zip(got, ref)]),
+          tol=TOL["K-head-bwd"], max_abs_err=abs_err, bitwise_repeatable=repeatable, ms=ms,
+          plain_ms=pms, tflops=round(flops / ms / 1e9, 2))
+    if not (err <= TOL["K-head-bwd"] and repeatable):
+        raise AssertionError(f"K-head-bwd disagrees with its plain version: {err}")
+    tally = Tally()
+    tally.add(calls, abs_err, ms, pms, bound(flops, x, wk, g, *got))
+    results["K-head-bwd"] = tally.result()
+
+    # K-convt-bwd: G's two decoder stages, twice each per step. As for
+    # K-block-bwd, the kernel is fed the plain forward's saved (yhat, stats);
+    # the comparison with K-convt's own saved values is shown beside it.
+    tally = Tally()
+    for h, w, ci, co, calls in CONVT_SHAPES:
+        x = randn(rng, (n, h, w, ci), 1.0, dev)
+        wk = randn(rng, (3, 3, ci, co), 0.02, dev)
+        g = randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev)
+        saved = convt_fused.convt_in_fwd_plain(x, wk)[1:]
+        got = convt_fused.convt_in_bwd_cuda(x, wk, *saved, g)
+        again = convt_fused.convt_in_bwd_cuda(x, wk, *saved, g)
+        ref = convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved)
+        err = max_rel_err(got, ref)
+        abs_err = max_abs_err(got, ref)
+        repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+        _, yk, sk = convt_fused.fused_convt_in_cuda(x, wk)
+        own = convt_fused.convt_in_bwd_cuda(x, wk, yk, sk, g)
+        flips = int(torch.sum((yk > 0) != (saved[0] > 0)))
+        ms = median_ms(lambda: convt_fused.convt_in_bwd_cuda(x, wk, *saved, g), iters=10)
+        pms = median_ms(lambda: convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved), iters=5)
+        flops = 2 * 2 * n * h * w * 9 * ci * co
+        phase("kernel_bwd", name="K-convt-bwd", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
+              max_rel_err_dx_dw=json.dumps([max_rel_err([p], [q]) for p, q in zip(got, ref)]),
+              tol=TOL["K-convt-bwd"], max_abs_err=abs_err, bitwise_repeatable=repeatable,
+              err_with_kconvt_saved=max_rel_err(own, ref), relu_flips=flips, ms=ms,
+              plain_ms=pms, tflops=round(flops / ms / 1e9, 2))
+        if not (err <= TOL["K-convt-bwd"] and repeatable):
+            raise AssertionError(f"K-convt-bwd disagrees with its plain version: {err}")
+        tally.add(calls, abs_err, ms, pms, bound(flops, x, wk, *saved, g, *got))
+    results["K-convt-bwd"] = tally.result()
     torch.cuda.synchronize()
     return results
 
 
 def launch_counters():
-    from nemar_tpu_torch.ops import conv_fused, norm_triton, warp_cuda
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm_triton, warp_cuda
 
     return {"K-block": conv_fused.fused_resblock_cuda, "K-warp": warp_cuda.warp_bilinear,
-            "K-in": norm_triton.instance_norm_act_triton,
+            "K-in": norm_triton.instance_norm_act_triton, "K-head": conv_head.conv_head_cuda,
+            "K-convt": convt_fused.fused_convt_in_cuda,
             "K-block-bwd": conv_fused.resblock_bwd_cuda, "K-warp-bwd": warp_cuda.warp_bilinear_bwd,
-            "K-in-bwd": norm_triton.instance_norm_act_bwd_triton}
+            "K-in-bwd": norm_triton.instance_norm_act_bwd_triton,
+            "K-head-bwd": conv_head.conv_head_bwd_cuda,
+            "K-convt-bwd": convt_fused.convt_in_bwd_cuda}
+
+
+def zero_counters() -> dict:
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
 
 
 def request_batches(n_batches: int, n: int, seed: int):
@@ -368,9 +572,7 @@ def run_slice(ckpt: str) -> tuple:
         model.test()
     torch.cuda.synchronize()
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = zero_counters()
     acc = new_metrics()
     times, first = [], None
     for b in batches:
@@ -386,8 +588,7 @@ def run_slice(ckpt: str) -> tuple:
             if not np.all(np.isfinite(v)):
                 raise AssertionError(f"non-finite values in {k}")
     launches = {k: fn.launches for k, fn in counters.items()}
-    want = {"K-block": 12 * REQUESTS, "K-warp": REQUESTS, "K-in": 20 * REQUESTS,
-            "K-block-bwd": 0, "K-warp-bwd": 0, "K-in-bwd": 0}
+    want = {k: v * REQUESTS for k, v in REQUEST_LAUNCHES.items()}
     flow_px = float(np.abs(first["flow"]).max() * 128)
     phase("slice", requests=REQUESTS, batch=1, launches=json.dumps(launches),
           expected=json.dumps(want), ms_per_pair_median=round(float(np.median(times)), 3),
@@ -497,9 +698,7 @@ def run_train(ckpt: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = zero_counters()
     times = []
     for b in batches[2:]:
         t0 = time.perf_counter()
@@ -531,7 +730,56 @@ def run_train(ckpt: str):
         model.optimize_parameters()
 
     profile(run, 2, "profile_train_b8", "step")
+
+    # what determinism costs: the same steps with cuDNN's default
+    # algorithms (the convolutions outside the kernels), then back
+    torch.backends.cudnn.deterministic = False
+    try:
+        for b in batches[:2]:
+            model.set_input(b)
+            model.optimize_parameters()
+        torch.cuda.synchronize()
+        free = []
+        for b in batches[2:]:
+            t0 = time.perf_counter()
+            model.set_input(b)
+            model.optimize_parameters()
+            torch.cuda.synchronize()
+            free.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.backends.cudnn.deterministic = True
+    ms_free = float(np.median(free))
+    phase("train_cudnn_default", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+          ms_per_step_median=round(ms_free, 3), deterministic_ms_per_step=round(ms, 3),
+          determinism_cost=round(ms / ms_free - 1, 4))
     return launches, model
+
+
+def run_layout_flags(ckpt: str) -> None:
+    """Phase 5b: one batch-1 training step with the default flags and with
+    each of G's TPU layout flags (``LAYOUT_FLAGS``), from the same seed and
+    pair. Each flag is accepted, launches the same kernels as often (the
+    counters zeroed just before the step), and gives bit-identical losses."""
+    pair = request_batches(1, 1, seed=7)[0]
+    ref = None
+    for flag in [[], *LAYOUT_FLAGS]:
+        model = train_model([*TRAIN_ARGS, *flag, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+                             "--batch_size", "1", "--name", "smoke_layout"])
+        counters = zero_counters()
+        model.set_input(pair)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        losses = model.get_current_losses()
+        phase("layout_flag", flag=" ".join(flag) or "default", batch=1,
+              launches=json.dumps(launches), losses=json.dumps(losses))
+        if launches != STEP_LAUNCHES:
+            raise AssertionError(f"{flag}: launch counts {launches} != {STEP_LAUNCHES}")
+        if ref is None:
+            ref = losses
+        elif losses != ref:
+            raise AssertionError(f"{flag}: losses {losses} differ from the default's {ref}")
+        del model
 
 
 def _in_biases(model) -> dict:
@@ -713,11 +961,14 @@ def main() -> int:
         train_launches, model = run_train(ckpt)
         phase("train_phase", seconds=round(time.perf_counter() - t0, 2))
         t0 = time.perf_counter()
+        run_layout_flags(ckpt)
+        phase("layout_flags_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
         compare_train_with_cpu(ckpt, model)
         phase("train_vs_cpu_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none)
-    launches.update({k: train_launches[k] for k in ("K-block-bwd", "K-warp-bwd", "K-in-bwd")})
+    launches.update({k: v for k, v in train_launches.items() if k.endswith("-bwd")})
 
     sources = {"K-block": ("cuda", "nemar_tpu_torch/csrc/resblock_fwd.cu",
                            "nemar_tpu/ops/conv_fused.py:228"),
@@ -725,12 +976,20 @@ def main() -> int:
                           "nemar_tpu/ops/warp_pallas.py:152"),
                "K-in": ("triton", "nemar_tpu_torch/ops/norm_triton.py",
                         "nemar_tpu/ops/norm.py:193"),
+               "K-head": ("cuda", "nemar_tpu_torch/csrc/head_fwd.cu",
+                          "nemar_tpu/ops/conv_head_roll.py:151"),
+               "K-convt": ("cuda", "nemar_tpu_torch/csrc/convt_fwd.cu",
+                           "nemar_tpu/ops/attic/convt_fused.py:105"),
                "K-block-bwd": ("cuda", "nemar_tpu_torch/csrc/resblock_bwd.cu",
                                "nemar_tpu/ops/conv_fused.py:544"),
                "K-warp-bwd": ("cuda", "nemar_tpu_torch/csrc/warp_bwd.cu",
                               "nemar_tpu/ops/warp_pallas.py:448"),
                "K-in-bwd": ("triton", "nemar_tpu_torch/ops/norm_triton.py",
-                            "nemar_tpu/ops/norm.py:89")}
+                            "nemar_tpu/ops/norm.py:89"),
+               "K-head-bwd": ("cuda", "nemar_tpu_torch/csrc/head_bwd.cu",
+                              "nemar_tpu/ops/conv_head_roll.py:174"),
+               "K-convt-bwd": ("cuda", "nemar_tpu_torch/csrc/convt_bwd.cu",
+                               "nemar_tpu/ops/attic/convt_fused.py:216")}
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep, "launches": launches[k],
                 **results[k]} for k, (r, s, rep) in sources.items()]
     print(smi, flush=True)

@@ -11,15 +11,24 @@ names so each module's counterpart is easy to find:
   * ``ops/norm.py`` + ``ops/norm_triton.py`` — instance norm + activation;
     the Triton kernels K-in and K-in-bwd.
   * ``ops/conv_fused.py`` + ``csrc/resblock_{fwd,bwd}.cu`` — the ResNet
-    trunk block; the CUDA kernels K-block and K-block-bwd.
+    trunk block; the CUDA kernels K-block and K-block-bwd, on the GEMM core
+    ``csrc/gemm_core.cuh``.
+  * ``ops/conv_head.py`` + ``csrc/head_{fwd,bwd}.cu`` — the generator's 7x7
+    head conv; the CUDA kernels K-head and K-head-bwd.
+  * ``ops/convt_fused.py`` + ``csrc/convt_{fwd,bwd}.cu`` — a decoder stage
+    (ConvTranspose + IN + ReLU); the CUDA kernels K-convt and K-convt-bwd.
   * ``models/`` — ResnetGenerator, NLayerDiscriminator, UnetSTN, NEMARModel
     (inference and the training step).
+  * ``options/``, ``data/``, ``utils/`` — this package's copies of the JAX
+    package's framework-free modules (flags, datasets and loaders, HTML and
+    metrics), so that it imports nothing of ``nemar_tpu``.
   * ``test.py``, ``train.py`` — the entry points (``python -m
     nemar_tpu_torch.test`` / ``.train``).
 
 Every kernel op is a ``torch.autograd.Function`` that dispatches on the
 device of its input: a CPU tensor takes the op's plain PyTorch versions, a
-CUDA tensor launches the kernels or raises. The package never imports JAX.
+CUDA tensor launches the kernels or raises. The package never imports JAX
+or the JAX package.
 Model boundaries keep the reference's NHWC numpy layout; inside,
 activations are NCHW tensors in ``channels_last`` memory, so the kernels see
 NHWC-contiguous data.

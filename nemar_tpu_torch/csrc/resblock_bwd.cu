@@ -15,7 +15,7 @@
 // reductions that move a few MB. Like K-block, this first version runs the
 // GEMMs as fp32 FMAs on the same 64x128x8 tile (8x8 outputs per thread,
 // double-buffered shared memory, register prefetch); the tensor cores are
-// later work.
+// later work. The GEMM core is gemm_core.cuh's, shared with K-convt(-bwd).
 //
 // The TPU kernels hold one sample in VMEM and carry dW across sequential
 // grid steps; Hopper blocks run in parallel and in no order, so every
@@ -52,102 +52,30 @@
 // pointers, (N*H*W) % (SPLITS * 8) == 0.
 #include <cuda_runtime.h>
 
+#include "gemm_core.cuh"
+
 namespace {
 
-constexpr int BM = 64;   // output rows per block tile
-constexpr int BN = 128;  // output columns per block tile
-constexpr int BK = 8;    // reduction depth per stage
-constexpr int TM = 8;    // rows per thread
-constexpr int TN = 8;    // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
-constexpr int IN_TILE = 64;                     // pixels per IN-backward partial
-static_assert(BM * BK == 4 * THREADS && BN * BK == 8 * THREADS, "loader shapes");
+using gemm::add4;
+using gemm::BK;
+using gemm::BLoader;
+using gemm::BM;
+using gemm::BN;
+using gemm::gemm_kernel;
+using gemm::split_sum_kernel;
+using gemm::THREADS;
+
+constexpr int IN_TILE = 64;  // pixels per IN-backward partial
 
 __device__ __forceinline__ int reflect(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-// Thread (tx, ty) owns rows {ty*4 + i, 32 + ty*4 + i} and columns
-// {tx*4 + j, 64 + tx*4 + j} (i, j < 4), as in K-block's forward.
-__device__ __forceinline__ int row_of(int ty, int i) { return (i < 4 ? 0 : 32) + ty * 4 + (i & 3); }
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// ---------------------------------------------------------------------------
-// The GEMM core: C[BM x BN] += A^T B over K, A staged as As[k][m], B as
-// Bs[k][n]. An Op supplies the loads (global -> registers), the stores
-// (registers -> shared memory) and the epilogue; the next K slice is loaded
-// before the current slice's FMAs and stored after them.
-// ---------------------------------------------------------------------------
-template <class Op>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(const Op params) {
-  Op op = params;
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  op.setup(tid);
-  const int ktiles = op.ktiles();
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  typename Op::Stage st;
-  op.load(0, st);
-  op.store(As[0], Bs[0], st);
-  __syncthreads();
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < ktiles;
-    if (more) op.load(kt + 1, st);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], bv[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][32 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    if (more) op.store(As[cur ^ 1], Bs[cur ^ 1], st);
-    __syncthreads();
-  }
-
-  // epilogue: row r of the tile, columns tx*4.. and 64 + tx*4..
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    op.write(row_of(ty, i), tx * 4, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    op.write(row_of(ty, i), 64 + tx * 4, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
-  }
-}
-
-// Which part of a K slice of the B operand a thread loads: rows b_r and
-// b_r + 4, four columns from b_c (a row-major matrix with C columns).
-struct BLoader {
-  int b_r, b_c;
-  __device__ void init(int tid) {
-    b_r = tid >> 5;
-    b_c = (tid & 31) * 4;
-  }
-};
-
 // dgrad: out[m, ci] = add[m, ci] + sum_{tap, co} A[m, (tap, co)] * wt[tap*C + co, ci],
 // A[(b, u, v), (tap, co)] = sum of dz[b, i, j, co] over the rows i with
 // reflect(i + dy - 1) == u and the columns j with reflect(j + dx - 1) == v.
 struct DgradOp {
+  static constexpr bool kTileStats = false;
   const float* dz;
   const float* wt;
   const float* add;  // nullptr: no residual
@@ -215,6 +143,7 @@ struct DgradOp {
 // src' = src, or relu((src - mu1) * rstd1) when kNormRelu (h1 from y1).
 template <bool kNormRelu>
 struct WgradOp {
+  static constexpr bool kTileStats = false;
   const float* src;
   const float* stats;
   const float* dz;
@@ -273,16 +202,6 @@ struct WgradOp {
     *reinterpret_cast<float4*>(dst) = val;
   }
 };
-
-// dW = sum over the splits of part, in split order; float4-wide.
-__global__ void split_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dw,
-                                 long long total4, int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total4) return;
-  float4 s = part[i];
-  for (int k = 1; k < splits; ++k) s = add4(s, part[(size_t)k * total4 + i]);
-  dw[i] = s;
-}
 
 // ---------------------------------------------------------------------------
 // Instance-norm backward: dz = rstd * (gv - mean(gv) - yhat * mean(gv * yhat))

@@ -11,8 +11,9 @@ Inside:
   * checkpoints are the reference's per-net state_dict files
     ``{suffix}_net_{Name}.pth`` under ``checkpoints/{name}/``;
   * the model boundary keeps the reference's NHWC numpy layout
-    (``set_input`` in, ``get_current_visuals`` out), so the numpy utilities
-    of ``nemar_tpu.utils`` and ``nemar_tpu.data`` serve both packages.
+    (``set_input`` in, ``get_current_visuals`` out), as the numpy utilities
+    of ``nemar_tpu_torch.utils`` and ``nemar_tpu_torch.data`` (copies of the
+    JAX package's) expect.
 
   * for training, ``setup()`` builds one ``torch.optim.Adam`` per net
     (``make_optimizers``); the lr is stepped once per epoch on the host by

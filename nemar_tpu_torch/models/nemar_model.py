@@ -17,10 +17,13 @@ UPDATED D, backpropagated through the kept graph with D's parameters
 frozen; R's gradients clipped to --stn_grad_clip by global norm and then
 multiplied by the R gate; Adam for G (not under --freeze_g) and for R.
 
-On the card the path runs through the six hand-written kernels: K-block /
-K-block-bwd for the 6 trunk blocks of each G pass, K-in / K-in-bwd for
-every instance norm outside the trunk, K-warp / K-warp-bwd for the one
-grid sample of (fake_B, real_A).
+On the card the path runs through ten hand-written kernels: K-block /
+K-block-bwd for the 6 trunk blocks of each G pass, K-convt / K-convt-bwd
+for G's 2 decoder stages, K-head / K-head-bwd for G's 7x7 output conv,
+K-in / K-in-bwd for every other instance norm (G's encoder, the STN, D),
+and K-warp / K-warp-bwd for the one grid sample of (fake_B, real_A).
+``--block_impl`` and ``--c7_impl`` name the JAX package's TPU layouts of G's
+convolutions; every choice runs these kernels.
 """
 
 from __future__ import annotations
@@ -410,10 +413,6 @@ def _check_supported(opt) -> None:
         (getattr(opt, "opt_fused", False), "--opt_fused", "A5"),
         (getattr(opt, "opt_split", False), "--opt_split", "A5"),
         (getattr(opt, "mesh_spatial", 1) > 1, "--mesh_spatial > 1", "A10"),
-        (getattr(opt, "c7_impl", "xla") == "roll",
-         "--c7_impl roll (kernel B4 of the TPU package)", "queue B"),
-        (getattr(opt, "block_impl", "xla") == "pallas_all",
-         "--block_impl pallas_all (kernels B5/B6 of the TPU package)", "queue B"),
     ]
     for on, flag, item in queued:
         if on:

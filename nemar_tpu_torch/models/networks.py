@@ -8,14 +8,18 @@ backwards on the card. Module attribute names are the flax parameter names
 (``Conv_0``, ``ResnetBlock_3``, ``ConvTranspose_1``, ...), so a state_dict
 key reads as the flax tree path it was converted from (``utils/convert.py``).
 
-Activations are NCHW tensors in ``channels_last`` memory. Every instance
-norm goes through ``ops.instance_norm_act`` (the Triton kernel K-in on the
-card) and every trunk block through ``ops.fused_resblock`` (the CUDA kernel
-K-block); plain convolutions outside those are ``nn.Conv2d``.
+Activations are NCHW tensors in ``channels_last`` memory. In the ResNet
+generator every trunk block goes through ``ops.fused_resblock`` (the CUDA
+kernel K-block on the card), every decoder stage (ConvTranspose + IN +
+relu) through ``ops.fused_convt_in`` (K-convt) and the 7x7 output conv
+through ``ops.conv_head`` (K-head) plus its bias; every other instance norm
+goes through ``ops.instance_norm_act`` (the Triton kernel K-in). The
+remaining convolutions (G's encoder, D) are ``nn.Conv2d``.
 
-The JAX package's convolution rewrites for the TPU's lane width
-(``--c7_impl s2d|fact|factg|auto``, ``--block_impl xla|pallas``) compute the
-same function from the same parameters; here each is the direct convolution.
+The JAX package's convolution rewrites for the TPU
+(``--c7_impl s2d|fact|factg|auto|roll``, ``--block_impl
+xla|pallas|pallas_all``) compute the same function from the same parameters
+in other layouts; here every choice runs the path above.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nemar_tpu_torch.ops.conv_fused import fused_resblock
+from nemar_tpu_torch.ops.conv_head import conv_head
+from nemar_tpu_torch.ops.convt_fused import fused_convt_in
 from nemar_tpu_torch.ops.norm import instance_norm_act
 
 _QUEUED = "queued as ROADMAP.md A9"
@@ -111,7 +117,8 @@ class ResnetGenerator(nn.Module):
         for i in range(n_downsampling):
             mult = 2 ** (n_downsampling - i)
             # flax ConvTranspose(k3, s2, 'SAME') == this (kernel flipped by
-            # utils/convert.py) cropped to [:2H, :2W]
+            # utils/convert.py) cropped to [:2H, :2W]; its bias is inert
+            # through IN and the fused op leaves it out
             setattr(self, f"ConvTranspose_{i}",
                     nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 3, stride=2, padding=0))
         setattr(self, f"Conv_{1 + n_downsampling}", nn.Conv2d(ngf, output_nc, 7))
@@ -123,11 +130,12 @@ class ResnetGenerator(nn.Module):
         for i in range(self.n_blocks):
             h = getattr(self, f"ResnetBlock_{i}")(h)
         for i in range(self.n_downsampling):
-            hh, ww = h.shape[2], h.shape[3]
-            h = getattr(self, f"ConvTranspose_{i}")(h)[:, :, :2 * hh, :2 * ww]
-            h = norm_act(h, "relu")
-        h = getattr(self, f"Conv_{1 + self.n_downsampling}")(reflect_pad(h, 3))
-        return torch.tanh(h)
+            # (in, out, kh, kw), flipped -> flax's HWIO kernel
+            w = getattr(self, f"ConvTranspose_{i}").weight.permute(2, 3, 0, 1).flip(0, 1)
+            h = to_nchw(fused_convt_in(to_nhwc(h), w))
+        head = getattr(self, f"Conv_{1 + self.n_downsampling}")
+        h = to_nchw(conv_head(to_nhwc(h), head.weight.permute(2, 3, 1, 0)))
+        return torch.tanh(h + head.bias[:, None, None])
 
 
 class NLayerDiscriminator(nn.Module):

@@ -102,9 +102,9 @@ class UnetSTN(nn.Module):
         """(warped imgs, smoothness reg, {'flow', 'grid'}); images NCHW in and out."""
         flow = self.predict_flow(a, b)
         n, h, w, _ = flow.shape
-        # grid coordinates are fp32 whatever the activations' type
-        grid = identity_grid(h, w, self.align_corners, torch.float32, flow.device)[None] \
-            + flow.float()
+        # grid coordinates are at least fp32 whatever the activations' type
+        cdt = torch.float64 if flow.dtype == torch.float64 else torch.float32
+        grid = identity_grid(h, w, self.align_corners, cdt, flow.device)[None] + flow.to(cdt)
         warped = ()
         if imgs:
             warped = grid_sample_multi([to_nhwc(i) for i in imgs], grid, "bilinear",

@@ -1,9 +1,10 @@
 """Build the package's CUDA kernels with nvcc; locate Triton's cache.
 
 The CUDA sources under ``nemar_tpu_torch/csrc/`` have a plain C interface.
-At first use they are compiled, all in one nvcc call, into one shared
-library under ``nemar_tpu_torch/_build/`` (listed in ``.gitignore``), named by
-a hash of the sources and flags, and loaded with ``ctypes``. A rebuild
+At first use each ``.cu`` is compiled by its own nvcc process, all started
+together, and the objects are linked into one shared library under
+``nemar_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
+the sources (headers included) and flags, and loaded with ``ctypes``. A rebuild
 happens only when a source or a flag changes. The library is written under a
 temporary name and renamed into place, so processes that build at the same
 time never load a half-written file.
@@ -28,10 +29,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -63,22 +62,43 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the library if it is not built yet; (path, seconds spent).
 
-    nvcc's output, ptxas's per-kernel register and spill counts included,
-    is kept beside the library as ``<name>.log``.
+    One nvcc per source, all running at once, then one link. nvcc's
+    output, ptxas's per-kernel register and spill counts included, is kept
+    beside the library as ``<name>.log``.
     """
     path = library_path()
     if path.exists():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    stem = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, proc))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-3000:]}")
+    tmp = path.with_name(f"{stem}.tmp.so")
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+                              capture_output=True, text=True)
+        log.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-3000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    path.with_suffix(".log").write_text("".join(log))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, path)
     return path, seconds
 

@@ -57,39 +57,45 @@ def _in_bwd(g: torch.Tensor, yhat: torch.Tensor, rstd: torch.Tensor) -> torch.Te
     return rstd * (g - m1 - yhat * m2)
 
 
-def _conv_wgrad(src: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
-    """dW[dy, dx] = pad(src)[p + (dy, dx)]^T @ dz[p], summed over pixels; HWIO."""
+def conv_wgrad_plain(src: torch.Tensor, dz: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """dW[dy, dx] = pad(src)[p + (dy, dx)]^T @ dz[p], summed over pixels, for
+    a k x k conv over the reflect-padded NHWC src; HWIO."""
     n, h, w, c = src.shape
-    sp = F.pad(src.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    sp = F.pad(src.permute(0, 3, 1, 2), (k // 2,) * 4, mode="reflect").permute(0, 2, 3, 1)
     dzf = dz.reshape(-1, dz.shape[-1])
     return torch.stack([torch.stack([
-        sp[:, dy:dy + h, dx:dx + w, :].reshape(-1, c).T @ dzf for dx in range(3)])
-        for dy in range(3)])
+        sp[:, dy:dy + h, dx:dx + w, :].reshape(-1, c).T @ dzf for dx in range(k)])
+        for dy in range(k)])
 
 
-def _conv_adjoint(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Gradient of the padded input (N, H+2, W+2, C_in): each tap scatters
-    dz @ W[dy, dx]^T back to the rows and columns it read."""
+def conv_adjoint_plain(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Gradient of the padded input (N, H+k-1, W+k-1, C_in) of a k x k conv
+    with HWIO w: each tap scatters dz @ W[dy, dx]^T back to the rows and
+    columns it read."""
+    k = w.shape[0]
     n, h, wd, _ = dz.shape
-    dpad = dz.new_zeros((n, h + 2, wd + 2, w.shape[2]))
-    for dy in range(3):
-        for dx in range(3):
+    dpad = dz.new_zeros((n, h + k - 1, wd + k - 1, w.shape[2]))
+    for dy in range(k):
+        for dx in range(k):
             dpad[:, dy:dy + h, dx:dx + wd, :] += dz @ w[dy, dx].T
     return dpad
 
 
-def _pad_adjoint(dpad: torch.Tensor) -> torch.Tensor:
-    """Fold the reflect padding's gradient back into the interior: the
-    reverse of the padding's construction order (columns were filled last,
-    from the padded array's columns 2 and W-1; rows from interior rows 1
-    and H-2), as ``nemar_tpu/ops/conv_fused.py:_pad_adjoint``."""
+def reflect_pad_adjoint(dpad: torch.Tensor, pad: int) -> torch.Tensor:
+    """Gradient of x from the gradient of reflect_pad(x, pad), NHWC: each
+    padded row, then each padded column, is added to the one it reflects
+    (padded index a < pad copies source pad - a; index pad + H + k copies
+    H - 2 - k), as ``nemar_tpu/ops/conv_fused.py:_pad_adjoint`` folds pad 1."""
     d = dpad.clone()
-    h, w = d.shape[1] - 2, d.shape[2] - 2
-    d[:, :, 2] += d[:, :, 0]
-    d[:, :, w - 1] += d[:, :, w + 1]
-    d[:, 2, 1:w + 1] += d[:, 0, 1:w + 1]
-    d[:, h - 1, 1:w + 1] += d[:, h + 1, 1:w + 1]
-    return d[:, 1:h + 1, 1:w + 1]
+    h, w = d.shape[1] - 2 * pad, d.shape[2] - 2 * pad
+    for a in range(pad):
+        d[:, 2 * pad - a] += d[:, a]
+        d[:, pad + h - 2 - a] += d[:, pad + h + a]
+    d = d[:, pad:pad + h]
+    for a in range(pad):
+        d[:, :, 2 * pad - a] += d[:, :, a]
+        d[:, :, pad + w - 2 - a] += d[:, :, pad + w + a]
+    return d[:, :, pad:pad + w]
 
 
 def resblock_fwd_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -115,11 +121,11 @@ def resblock_bwd_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: t
     y1h = normalise(y1, stats[:, 0:2])
     h1 = torch.clamp_min(y1h, 0.0)
     dz2 = _in_bwd(g, normalise(y2, stats[:, 2:4]), stats[:, None, None, 3])
-    dw2 = _conv_wgrad(h1, dz2)
-    dh1 = _pad_adjoint(_conv_adjoint(dz2, w2))
+    dw2 = conv_wgrad_plain(h1, dz2)
+    dh1 = reflect_pad_adjoint(conv_adjoint_plain(dz2, w2), 1)
     dz1 = _in_bwd(torch.where(y1h > 0, dh1, 0.0), y1h, stats[:, None, None, 1])
-    dw1 = _conv_wgrad(x, dz1)
-    dx = g + _pad_adjoint(_conv_adjoint(dz1, w1))
+    dw1 = conv_wgrad_plain(x, dz1)
+    dx = g + reflect_pad_adjoint(conv_adjoint_plain(dz1, w1), 1)
     return dx, dw1, dw2
 
 

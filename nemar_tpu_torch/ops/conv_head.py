@@ -1,0 +1,137 @@
+"""The ResNet generator's 7x7 head conv over a reflect-padded input:
+
+    out = conv7x7(reflect_pad3(x), W)
+
+NHWC x (N, H, W, Ci), HWIO W (7, 7, Ci, Co) with Co <= 8, no bias (the
+generator adds it: the head feeds tanh, not an instance norm, so its bias is
+live). The counterpart of ``nemar_tpu/ops/conv_head_roll.py:conv_head_roll``
+(``--c7_impl roll``) and ``nemar_tpu/ops/attic/conv_head.py:conv_head``
+(``--block_impl pallas_all``), which compute this function in two TPU
+layouts, and of the direct conv the JAX generator runs otherwise.
+
+``conv_head`` is a ``torch.autograd.Function`` that dispatches on the
+device. A CPU tensor takes ``conv_head_plain`` (reflect pad + ``F.conv2d``)
+forward and ``conv_head_bwd_plain`` (the VJP written out) backward. A CUDA
+tensor launches the CUDA kernels K-head (``csrc/head_fwd.cu``, replacing
+the TPU kernels B4 and B6's forwards) and K-head-bwd (``csrc/head_bwd.cu``,
+their backwards). Both compute the convolutions in their own bodies: no
+cuDNN, cuBLAS or ``F.conv2d`` on that path, and no float atomics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from nemar_tpu_torch.ops import _build
+from nemar_tpu_torch.ops.conv_fused import (
+    conv_adjoint_plain, conv_wgrad_plain, reflect_pad_adjoint,
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+PAD = 3
+MAX_CO = 8
+# pixel tile of K-head-bwd's weight-gradient partials (csrc/head_bwd.cu)
+_WG_TILE = 32
+
+
+def conv_head_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``conv_head`` (any device)."""
+    xp = F.pad(x.permute(0, 3, 1, 2), (PAD, PAD, PAD, PAD), mode="reflect")
+    return F.conv2d(xp, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+
+
+def conv_head_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tuple:
+    """Plain version of K-head-bwd: (dx, dw) of ``conv_head`` given g = d out,
+    written out (no autograd) with K-block-bwd's plain helpers at k = 7: dW
+    from the padded input's 49 windows, dx the reflect-pad adjoint of the
+    conv's input adjoint."""
+    return reflect_pad_adjoint(conv_adjoint_plain(g, w), PAD), conv_wgrad_plain(x, g, 7)
+
+
+def _check_cuda(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    if not (x.is_cuda and w.device == x.device):
+        raise ValueError(f"{what}: x and w must be on one CUDA device")
+    if not (x.dtype == w.dtype == torch.float32):
+        raise TypeError(f"{what}: the kernel takes float32 x and w")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"{what}: x {tuple(x.shape)} must be NHWC-contiguous")
+    n, h, wd, ci = x.shape
+    if w.dim() != 4 or tuple(w.shape[:3]) != (7, 7, ci) or not 1 <= w.shape[3] <= MAX_CO:
+        raise ValueError(f"{what}: w {tuple(w.shape)} is not (7, 7, {ci}, Co <= {MAX_CO})")
+    if h <= PAD or wd <= PAD:
+        raise ValueError(f"{what}: H, W must be >= {PAD + 1} for the reflect pad, "
+                         f"got {(h, wd)}")
+
+
+def conv_head_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch K-head. x (N, H, W, Ci) fp32 NHWC-contiguous on a CUDA device;
+    w (7, 7, Ci, Co) HWIO fp32 (made contiguous here). Returns (N, H, W, Co)."""
+    _check_cuda("conv_head_cuda", x, w)
+    w = w.contiguous()
+    n, h, wd, ci = x.shape
+    co = w.shape[3]
+    out = torch.empty((n, h, wd, co), dtype=torch.float32, device=x.device)
+    fn = _build.c_function("nemar_conv_head_fwd", [_P] * 3 + [_I] * 5 + [_P])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci, co, stream)
+    _build.check(code, "conv_head_cuda")
+    conv_head_cuda.launches += 1
+    return out
+
+
+conv_head_cuda.launches = 0
+
+
+def conv_head_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tuple:
+    """Launch K-head-bwd: (dx, dw) of ``conv_head`` given g = d out
+    (N, H, W, Co); same layouts and shape rules as ``conv_head_cuda``."""
+    _check_cuda("conv_head_bwd_cuda", x, w)
+    w = w.contiguous()
+    n, h, wd, ci = x.shape
+    co = w.shape[3]
+    if tuple(g.shape) != (n, h, wd, co) or g.dtype != torch.float32 or not g.is_contiguous() \
+            or g.device != x.device:
+        raise ValueError(f"conv_head_bwd_cuda: g {tuple(g.shape)} must be a contiguous fp32 "
+                         f"({n}, {h}, {wd}, {co}) tensor on x's device")
+    tiles = n * (-(-h // _WG_TILE)) * (-(-wd // _WG_TILE))
+    part = torch.empty((tiles, 49, ci, co), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dw = torch.empty((7, 7, ci, co), dtype=torch.float32, device=x.device)
+    fn = _build.c_function("nemar_conv_head_bwd", [_P] * 6 + [_I] * 5 + [_P])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(x.data_ptr(), w.data_ptr(), g.data_ptr(), part.data_ptr(), dx.data_ptr(),
+                  dw.data_ptr(), n, h, wd, ci, co, stream)
+    _build.check(code, "conv_head_bwd_cuda")
+    conv_head_bwd_cuda.launches += 1
+    return dx, dw
+
+
+conv_head_bwd_cuda.launches = 0
+
+
+class _ConvHead(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv_head_cuda(x, w) if x.is_cuda else conv_head_plain(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if g.is_cuda:
+            return conv_head_bwd_cuda(x, w, g.contiguous())
+        return conv_head_bwd_plain(x, w, g)
+
+
+def conv_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv7x7(reflect_pad3(x), w); NHWC x, HWIO w with at most 8 output
+    channels, no bias. Differentiable in x and w."""
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"conv_head: unsupported device {x.device}")
+    return _ConvHead.apply(x, w)

@@ -239,9 +239,10 @@ def _check(img: torch.Tensor, grid: torch.Tensor) -> None:
 
 
 def _pixel_coords(img, grid, padding_mode, align_corners):
-    # sampling coordinates never round through a narrower type (1 px of
-    # error at the far edge of a 256-wide image in bf16); values may
-    grid = grid.float()
+    # sampling coordinates never round through a type narrower than float32
+    # (1 px of error at the far edge of a 256-wide image in bf16); values may
+    if grid.dtype != torch.float64:
+        grid = grid.float()
     _, h, w, _ = img.shape
     x = _compute_source_coords(grid[..., 0], w, align_corners, padding_mode)
     y = _compute_source_coords(grid[..., 1], h, align_corners, padding_mode)

@@ -16,10 +16,10 @@ import os
 
 import numpy as np
 
-from nemar_tpu.data import create_dataset
-from nemar_tpu.utils import html as html_mod
-from nemar_tpu.utils import metrics as M
-from nemar_tpu.utils.visualizer import save_images
+from nemar_tpu_torch.data import create_dataset
+from nemar_tpu_torch.utils import html as html_mod
+from nemar_tpu_torch.utils import metrics as M
+from nemar_tpu_torch.utils.visualizer import save_images
 from nemar_tpu_torch.models import create_model
 from nemar_tpu_torch.options import TestOptions
 

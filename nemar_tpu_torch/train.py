@@ -3,7 +3,7 @@
     python -m nemar_tpu_torch.train --dataroot ./datasets/xyz --name run1 --model nemar --gpu_ids 0
     python -m nemar_tpu_torch.train --dataset_mode synthetic --gpu_ids -1 ...   # on the CPU
 
-The JAX package's loop: options -> data (``nemar_tpu.data``, numpy) ->
+The JAX package's loop: options -> data (``nemar_tpu_torch.data``, numpy) ->
 model -> epochs from --epoch_count to --n_epochs + --n_epochs_decay, with
 the display / print / save frequencies, and the lr stepped at each epoch's
 end. Each step is the model's ``optimize_parameters``; losses are pulled to
@@ -14,8 +14,8 @@ the host only at --print_freq boundaries. Checkpoints are the per-net files
 
 import time
 
-from nemar_tpu.data import create_dataset
-from nemar_tpu.utils.visualizer import Visualizer
+from nemar_tpu_torch.data import create_dataset
+from nemar_tpu_torch.utils.visualizer import Visualizer
 from nemar_tpu_torch.models import create_model
 from nemar_tpu_torch.options import TrainOptions
 

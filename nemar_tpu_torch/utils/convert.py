@@ -1,8 +1,9 @@
 """Carry the JAX package's parameters across: flax trees -> torch state_dicts.
 
-``flax_to_torch(params, module)`` takes a flax variables tree as nested dicts
-of numpy arrays (``{'params': {...}}`` or the inner dict) and returns the
-state_dict of ``module``, one of this package's nets, whose attribute names
+``flax_to_torch(params, module, dtype)`` takes a flax variables tree as
+nested dicts of numpy arrays (``{'params': {...}}`` or the inner dict) and
+returns the state_dict of ``module``, as tensors of ``dtype`` (float32 by
+default), one of this package's nets, whose attribute names
 are the flax names in creation order (``models/networks.py``,
 ``models/stn/unet_stn.py``):
 
@@ -37,7 +38,7 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
     return out
 
 
-def flax_to_torch(params: Mapping, module: nn.Module) -> dict:
+def flax_to_torch(params: Mapping, module: nn.Module, dtype: torch.dtype = torch.float32) -> dict:
     tree = params["params"] if "params" in params else params
     mods = dict(module.named_modules())
     target = module.state_dict()
@@ -58,7 +59,7 @@ def flax_to_torch(params: Mapping, module: nn.Module) -> dict:
         if tuple(val.shape) != tuple(target[key].shape):
             raise ValueError(f"{'/'.join(path)}: shape {val.shape} does not fit {key} "
                              f"{tuple(target[key].shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(val, dtype=np.float32))
+        out[key] = torch.tensor(np.ascontiguousarray(val), dtype=dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"flax tree lacks {missing} of {type(module).__name__}")

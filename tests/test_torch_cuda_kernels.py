@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from nemar_tpu_torch.ops import conv_fused, norm, norm_triton, warp, warp_cuda
+from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton, warp
+from nemar_tpu_torch.ops import warp_cuda
 from nemar_tpu_torch.ops.warp import identity_grid
 
 pytestmark = pytest.mark.cuda
@@ -223,3 +224,116 @@ def test_warp_grads_padding_modes(dev, padding_mode, align_corners):
         warp.grid_sample_plain(*args, "bilinear", padding_mode, align_corners), args, g)
     for a, b in zip(got, want):
         assert torch.max(torch.abs(a - b)).item() < 1e-5 * torch.max(torch.abs(b)).item()
+
+
+def _randn(rng, shape, scale, dev):
+    return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+
+# (N, H, W, Ci, Co): G's head at 256^2, ragged tiles, and shapes where every
+# pixel is an edge of the reflect pad (H or W of 4 and 5)
+HEAD_SHAPES = [(1, 256, 256, 64, 3), (8, 256, 256, 64, 3), (2, 37, 70, 20, 8),
+               (1, 5, 5, 12, 1), (2, 4, 9, 8, 5), (1, 40, 4, 64, 2)]
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_head_kernel_matches_plain(dev, shape):
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(h + w)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (7, 7, ci, co), 0.02, dev)
+    before = conv_head.conv_head_cuda.launches
+    got = conv_head.conv_head(x, wk)
+    ref = conv_head.conv_head_plain(x, wk)
+    torch.cuda.synchronize()
+    assert conv_head.conv_head_cuda.launches == before + 1
+    assert torch.max(torch.abs(got - ref)).item() < 1e-4 * max(1.0, torch.max(torch.abs(ref)).item())
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_head_bwd_kernel_matches_plain(dev, shape):
+    """K-head-bwd against the written-out plain backward, 1e-4 of each
+    output's largest value (the reflect-pad fold at every edge included),
+    bit for bit repeatable, and reached through autograd."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(h * w)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (7, 7, ci, co), 0.02, dev)
+    g = _randn(rng, (n, h, w, co), 1.0, dev)
+    got = conv_head.conv_head_bwd_cuda(x, wk, g)
+    again = conv_head.conv_head_bwd_cuda(x, wk, g)
+    ref = conv_head.conv_head_bwd_plain(x, wk, g)
+    before = conv_head.conv_head_bwd_cuda.launches
+    args = [x.clone().requires_grad_(), wk.clone().requires_grad_()]
+    auto = torch.autograd.grad(conv_head.conv_head(*args), args, g)
+    torch.cuda.synchronize()
+    assert conv_head.conv_head_bwd_cuda.launches == before + 1
+    for a, b, c, r in zip(got, again, auto, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.max(torch.abs(a - r)).item() < 1e-4 * torch.max(torch.abs(r)).item()
+
+
+# (N, H, W, Ci, Co): G's two decoder stages, ragged tiles and channels
+CONVT_SHAPES = [(1, 64, 64, 256, 128), (8, 64, 64, 256, 128), (1, 128, 128, 128, 64),
+                (8, 128, 128, 128, 64), (2, 5, 7, 12, 8), (1, 9, 3, 132, 20)]
+
+
+@pytest.mark.parametrize("shape", CONVT_SHAPES)
+def test_convt_kernel_matches_plain(dev, shape):
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(h + ci)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (3, 3, ci, co), 0.05, dev)
+    before = convt_fused.fused_convt_in_cuda.launches
+    out, yhat, stats = convt_fused.fused_convt_in_cuda(x, wk)
+    ref = convt_fused.convt_in_fwd_plain(x, wk)
+    torch.cuda.synchronize()
+    assert convt_fused.fused_convt_in_cuda.launches == before + 1
+    for a, r in zip((out, yhat, stats[:, 0]), (ref[0], ref[1], ref[2][:, 0])):
+        assert torch.max(torch.abs(a - r)).item() < 1e-4
+    assert torch.max(torch.abs(stats[:, 1] / ref[2][:, 1] - 1)).item() < 1e-4
+
+
+@pytest.mark.parametrize("shape", CONVT_SHAPES)
+def test_convt_bwd_kernel_matches_plain(dev, shape):
+    """K-convt-bwd against the written-out plain backward, 1e-4 of each
+    output's largest value, fed the plain forward's saved (yhat, stats) so
+    both take the same relu mask; bit for bit repeatable."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(h + ci + 1)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (3, 3, ci, co), 0.05, dev)
+    g = _randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev)
+    saved = convt_fused.convt_in_fwd_plain(x, wk)[1:]
+    got = convt_fused.convt_in_bwd_cuda(x, wk, *saved, g)
+    again = convt_fused.convt_in_bwd_cuda(x, wk, *saved, g)
+    ref = convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved)
+    torch.cuda.synchronize()
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert torch.max(torch.abs(a - r)).item() < 1e-4 * torch.max(torch.abs(r)).item()
+
+
+def test_convt_autograd_runs_the_kernels(dev):
+    rng = np.random.default_rng(11)
+    args = [_randn(rng, (2, 8, 8, 32), 1.0, dev).requires_grad_(),
+            _randn(rng, (3, 3, 32, 16), 0.05, dev).requires_grad_()]
+    g = _randn(rng, (2, 16, 16, 16), 1.0, dev)
+    before = convt_fused.convt_in_bwd_cuda.launches
+    got = torch.autograd.grad(convt_fused.fused_convt_in(*args), args, g)
+    want = torch.autograd.grad(convt_fused.convt_in_plain(*args), args, g)
+    assert convt_fused.convt_in_bwd_cuda.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.max(torch.abs(a - b)).item() < 1e-3 * torch.max(torch.abs(b)).item()
+
+
+def test_head_and_convt_refuse_what_they_cannot_run(dev):
+    with pytest.raises(ValueError, match="Co <= 8"):
+        conv_head.conv_head_cuda(torch.zeros((1, 8, 8, 4), device=dev),
+                                 torch.zeros((7, 7, 4, 9), device=dev))
+    with pytest.raises(ValueError, match=">= 4"):
+        conv_head.conv_head_cuda(torch.zeros((1, 3, 8, 4), device=dev),
+                                 torch.zeros((7, 7, 4, 3), device=dev))
+    with pytest.raises(ValueError, match="multiples of 4"):
+        convt_fused.fused_convt_in_cuda(torch.zeros((1, 8, 8, 6), device=dev),
+                                        torch.zeros((3, 3, 6, 4), device=dev))

@@ -135,7 +135,8 @@ def test_port_refuses_missing_checkpoints(tmp_path):
 
 
 def test_port_path_imports_no_jax(tmp_path):
-    """Importing the entry point and running a forward pulls in no JAX."""
+    """Importing the entry point and running a forward pulls in no JAX and
+    no module of the JAX package."""
     code = (
         "import sys, numpy as np\n"
         "import nemar_tpu_torch.test\n"
@@ -146,7 +147,8 @@ def test_port_path_imports_no_jax(tmp_path):
         "m.set_input({'A': np.zeros((1, 32, 32, 1), np.float32),\n"
         "             'B': np.zeros((1, 32, 32, 3), np.float32)})\n"
         "m.test()\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'optax', 'orbax'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'nemar_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -169,11 +171,30 @@ def test_field_source_fake_predicts_from_the_translation(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--bf16"], ["--use_ema"], ["--init_type", "xavier"],
-                                  ["--c7_impl", "roll"], ["--stn_type", "affine"]])
+                                  ["--mesh_spatial", "2"], ["--stn_type", "affine"]])
 def test_unported_flags_raise(tmp_path, flag):
     opt = TestOptions().parse(_port_args(tmp_path, *flag))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(opt)
+
+
+@pytest.mark.parametrize("flag", [["--c7_impl", "roll"], ["--block_impl", "pallas_all"]])
+def test_tpu_layout_flags_accepted(tmp_path, flag):
+    """The TPU layouts of G's head and decoder run the port's one path: the
+    same outputs as the default flags, from the same checkpoint."""
+    base = create_model(TestOptions().parse(_port_args(tmp_path)))
+    model = create_model(TestOptions().parse(_port_args(tmp_path, *flag)))
+    model.netG.load_state_dict(base.netG.state_dict())
+    model.netR.load_state_dict(base.netR.state_dict())
+    batch = {"A": np.random.default_rng(5).standard_normal((1, 32, 32, 1)).astype(np.float32),
+             "B": np.zeros((1, 32, 32, 3), np.float32)}
+    outs = []
+    for m in (base, model):
+        m.set_input(batch)
+        m.test()
+        outs.append(m.get_current_visuals())
+    for k in ("fake_B", "reg_fakeB", "fake_B2"):
+        np.testing.assert_array_equal(outs[0][k], outs[1][k])
 
 
 def test_gpu_ids_ask_for_cuda(tmp_path):

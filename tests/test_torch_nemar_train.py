@@ -371,12 +371,14 @@ def test_schedule_scalars(tmp_path):
 
 
 def test_train_path_imports_no_jax(tmp_path):
-    """The train entry point, a few steps and a save pull in no JAX."""
+    """The train entry point, a few steps and a save pull in no JAX and no
+    module of the JAX package."""
     code = (
         "import sys\n"
         "from nemar_tpu_torch import train\n"
         f"train.main({[*SLICE, '--gpu_ids', '-1', '--checkpoints_dir', str(tmp_path), '--n_epochs', '1', '--n_epochs_decay', '0', '--save_epoch_freq', '1']!r})\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'optax', 'orbax'))\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'nemar_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
