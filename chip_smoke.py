@@ -18,10 +18,21 @@ is not 0.
      CUDA-event time of kernel and plain version, the time of the one
      PyTorch call that computes the same function where there is one
      (F.grid_sample for K-warp, nn.Conv2d(padding_mode='reflect') for
-     K-head), and the kernel's bound on this card;
+     K-head), and the kernel's bound on this card. K-warp is timed as the
+     model calls it, ops/warp.grid_sample from the normalised grid, call by
+     call in alternation with F.grid_sample on the same grid, and both by their
+     device time from torch.profiler (``device_ms``: the host's cost is the
+     difference);
   2b. each backward kernel likewise, at the training step's shapes (batch
      8); K-block-bwd and K-convt-bwd are fed the plain forward's saved
-     values, and their comparison with their own forward's is shown beside;
+     values, and their comparison with their own forward's is shown beside.
+     K-warp-bwd's library time is aten.grid_sampler_2d_backward's on the
+     same image, grid and g. K-block-bwd also prints its TFLOP/s, its
+     tensor-core bound ``tc_bound_ms`` (its fp32 products x 3 at 495
+     TFLOP/s TF32) beside the fp32 ``bound_ms``, its device time per launch
+     from the profiler, and its largest relative error against the plain
+     backward run in float64, which must be at most 4x the fp32 plain
+     version's;
   3. the inference slice: options parsed as ``nemar_tpu_torch.test`` parses
      them (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
      non-zero, so the warp samples between pixels) and loaded by
@@ -112,6 +123,9 @@ TOL = {"K-warp": 1e-5, "K-in": 1e-5, "K-block": 1e-3, "K-head": 1e-4, "K-convt":
 # operations over the first and its bytes over the second
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# TF32 on the tensor cores (dense), for K-block-bwd's 3xTF32 GEMMs: three
+# TF32 products per fp32 product
+PEAK_TF32_FLOPS = 495e12
 # phase 6's conditioning baseline: the CPU step again with real_A scaled by
 # 1 + PERTURB, about how far the card's activations sit from the CPU's
 # (phase 4: up to 6.5e-5 absolute on outputs in [-1, 1])
@@ -167,6 +181,47 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def paired_median_ms(fa, fb, iters: int = 200, warmup: int = 10) -> tuple:
+    """Median CUDA-event times of fa() and fb(), timed call by call in
+    alternation, so that both see the same state of the host and the card."""
+    for _ in range(warmup):
+        fa()
+        fb()
+    times = ([], [])
+    for _ in range(iters):
+        for fn, ts in zip((fa, fb), times):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def device_ms(fn, reps: int = 10) -> tuple:
+    """fn's device time per call from torch.profiler (the sum of the CUDA
+    kernels, memcpys and memsets it runs), and that time by kernel, in the
+    order of their first launch: [(kernel, launches per call, ms per call)]."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+        count, us = by_kernel.get(name, (0, 0.0))
+        by_kernel[name] = (count + 1, us + e.time_range.elapsed_us())
+    per_kernel = [(k, round(n / reps, 2), round(us / reps / 1e3, 4)) for k, (n, us) in by_kernel.items()]
+    return sum(ms for *_, ms in per_kernel), per_kernel
 
 
 def smooth_images(rng, n: int, c: int, size: int = 256) -> np.ndarray:
@@ -235,39 +290,63 @@ def check_kernels(dev) -> dict:
     slice's shapes. Each kernel's totals are those of one batch-1 request;
     ``library_ms`` times the one PyTorch call that computes the same
     function, where there is one (the port never calls it)."""
-    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton
-    from nemar_tpu_torch.ops import warp, warp_cuda
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton, warp
 
     rng = np.random.default_rng(0)
     results = {}
 
     # K-warp: the slice's one sample per request, (fake_B, real_A) = 4
-    # channels; the library call is F.grid_sample on the same image and grid
+    # channels. Timed as the model calls it: ops/warp.grid_sample from the
+    # normalised grid (one launch, the coordinate transform in the kernel),
+    # against F.grid_sample on the same image and grid, call by call in
+    # alternation; each with
+    # its device time from the profiler beside the CUDA-event time (at b1
+    # both calls are bound by the host). The three padding modes and both
+    # align_corners are checked on a small ragged grid.
+    F = torch.nn.functional
+    img = torch.from_numpy(smooth_images(rng, 2, 3, 40)).to(dev)
+    grid = torch.from_numpy(rng.uniform(-1.3, 1.3, (2, 23, 31, 2)).astype(np.float32)).to(dev)
+    modes_err = 0.0
+    for pad in ("zeros", "border", "reflection"):
+        for ac in (False, True):
+            got = warp.grid_sample(img, grid, "bilinear", pad, ac)
+            modes_err = max(modes_err, torch.max(torch.abs(
+                got - warp.grid_sample_plain(img, grid, "bilinear", pad, ac))).item())
+    if not modes_err <= TOL["K-warp"]:
+        raise AssertionError(f"K-warp disagrees with its plain version across padding modes: "
+                             f"{modes_err}")
     tally = Tally()
     for n in (1, 8):
         img = torch.from_numpy(smooth_images(rng, n, 4)).to(dev)
         grid = smooth_grid(rng, n, 256, 256).to(dev)
-        xs, ys = (c.contiguous() for c in warp._pixel_coords(img, grid, "zeros", False))
-        got = warp_cuda.warp_bilinear(img, xs, ys)
-        ref = warp._sample_plain(img, xs, ys, "bilinear")
+        got = warp.grid_sample(img, grid)
+        ref = warp.grid_sample_plain(img, grid)
         err = torch.max(torch.abs(got - ref)).item()
-        frac = torch.mean(((xs - xs.floor()) > 1e-3).float()).item()
-        ms = median_ms(lambda: warp_cuda.warp_bilinear(img, xs, ys))
-        pms = median_ms(lambda: warp._sample_plain(img, xs, ys, "bilinear"))
         img_nchw = img.permute(0, 3, 1, 2)
-        lib = torch.nn.functional.grid_sample(img_nchw, grid, "bilinear", "zeros", False)
-        lib_err = torch.max(torch.abs(lib.permute(0, 2, 3, 1) - ref)).item()
-        lms = median_ms(lambda: torch.nn.functional.grid_sample(img_nchw, grid, "bilinear",
-                                                                "zeros", False))
-        bnd = bound(8 * got.numel(), img, xs, ys, got)
+
+        def kern():
+            return warp.grid_sample(img, grid)
+
+        def lib():
+            return F.grid_sample(img_nchw, grid, "bilinear", "zeros", False)
+
+        lib_err = torch.max(torch.abs(lib().permute(0, 2, 3, 1) - ref)).item()
+        ms, lms = paired_median_ms(kern, lib)
+        pms = median_ms(lambda: warp.grid_sample_plain(img, grid))
+        dms, dl = device_ms(kern, 50)
+        launches = sum(n for _, n, _ in dl)
+        lib_dms, _ = device_ms(lib, 50)
+        bnd = bound(8 * got.numel(), img, grid, got)
         phase("kernel", name="K-warp", shape=f"{n}x256x256x4", max_abs_err=err,
-              tol=TOL["K-warp"], ms=ms, plain_ms=pms, library_ms=lms, library_err=lib_err,
-              bound_ms=max(bnd), fractional_x=round(frac, 3))
+              tol=TOL["K-warp"], padding_modes_max_abs_err=modes_err, ms=ms, library_ms=lms,
+              device_ms=dms, library_device_ms=lib_dms, launches_per_call=launches,
+              plain_ms=pms, library_err=lib_err, bound_ms=max(bnd))
         if not err <= TOL["K-warp"]:
             raise AssertionError(f"K-warp disagrees with its plain version: {err}")
         if n == 1:
             tally.add(1, err, ms, pms, bnd, lms)
-    results["K-warp"] = tally.result()
+            results["K-warp"] = tally.result()
+            results["K-warp"].update(device_ms=dms, library_device_ms=lib_dms)
 
     # K-in: every instance norm shape of one request, batch 1
     tally = Tally()
@@ -396,14 +475,20 @@ def check_bwd_kernels(dev) -> dict:
         repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
         ms = median_ms(lambda: warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3))
         pms = median_ms(lambda: warp._sample_plain_bwd(img, xs, ys, g, 3))
+        # the library's VJP of F.grid_sample on the same image, grid and g:
+        # d img for all 4 channels and d grid (K-warp-bwd: 3 channels and d
+        # of the pixel coordinates)
+        img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        lms = median_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g_nchw, img_nchw, grid, 0, 0, False, [True, True]))
         phase("kernel_bwd", name="K-warp-bwd", shape=f"{b}x256x256x4", grad_channels=3,
               max_rel_err=err, tol=TOL["K-warp-bwd"], max_abs_err=abs_err,
-              bitwise_repeatable=repeatable, ms=ms, plain_ms=pms)
+              bitwise_repeatable=repeatable, ms=ms, plain_ms=pms, library_ms=lms)
         if not (err <= TOL["K-warp-bwd"] and repeatable and not torch.any(got[0][..., 3])):
             raise AssertionError(f"K-warp-bwd: err {err}, repeatable {repeatable}")
         if b == n:
             tally = Tally()
-            tally.add(1, abs_err, ms, pms, bound(20 * g.numel(), img, xs, ys, g, *got))
+            tally.add(1, abs_err, ms, pms, bound(20 * g.numel(), img, xs, ys, g, *got), lms)
             results["K-warp-bwd"] = tally.result()
 
     # K-in-bwd: every instance-norm backward of a step
@@ -432,7 +517,11 @@ def check_bwd_kernels(dev) -> dict:
     # values (y1, y2, stats), as the plain backward uses them: with K-block's
     # own, a y1hat within roundoff of 0 can sit on the other side of the relu
     # than in the plain forward, and that element's gradient then differs by
-    # O(1) (counted and shown as relu_flips / err_with_kblock_saved).
+    # O(1) (counted and shown as relu_flips / err_with_kblock_saved). Its
+    # accuracy is also held against the plain backward in float64 from the
+    # same inputs and saved values cast up (the relu mask is the same): the
+    # kernel's largest relative error at most 4x the fp32 plain version's
+    # (3xTF32 is fp32-level; 1xTF32 would be ~100x).
     for b in (1, n):
         c = 256
         x = randn(rng, (b, 64, 64, c), 1.0, dev)
@@ -445,24 +534,44 @@ def check_bwd_kernels(dev) -> dict:
         err = max_rel_err(got, ref)
         abs_err = max_abs_err(got, ref)
         repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+        ref64 = conv_fused.resblock_bwd_plain(x.double(), w1.double(), w2.double(), g.double(),
+                                              saved=tuple(t.double() for t in saved))
+        err64 = [max_rel_err([p.double()], [q]) for p, q in zip(got, ref64)]
+        plain_err64 = [max_rel_err([p.double()], [q]) for p, q in zip(ref, ref64)]
+        del ref64
         _, y1k, y2k, stk = conv_fused.fused_resblock_cuda(x, w1, w2)
         own = conv_fused.resblock_bwd_cuda(x, w1, w2, y1k, y2k, stk, g)
         flips = int(torch.sum((norm.normalise(y1k, stk[:, :2]) > 0)
                               != (norm.normalise(saved[0], saved[2][:, :2]) > 0)))
-        ms = median_ms(lambda: conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g), iters=10)
+
+        def kern():
+            return conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
+
+        ms = median_ms(kern, iters=20)
         pms = median_ms(lambda: conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved), iters=10)
+        dms, per_launch = device_ms(kern, 10)
         flops = 4 * 2 * b * 64 * 64 * 256 * 9 * 256
+        bnd = bound(flops, x, *saved, g, w1, w2, *got)
+        tc_bound = 3 * flops / PEAK_TF32_FLOPS * 1e3
         phase("kernel_bwd", name="K-block-bwd", shape=f"{b}x64x64x256",
               max_rel_err_dx_dw1_dw2=json.dumps([max_rel_err([p], [q]) for p, q in zip(got, ref)]),
               tol=TOL["K-block-bwd"], max_abs_err=abs_err, bitwise_repeatable=repeatable,
-              err_with_kblock_saved=max_rel_err(own, ref), relu_flips=flips, ms=ms, plain_ms=pms,
-              tflops=round(flops / ms / 1e9, 2), plain_tflops=round(flops / pms / 1e9, 2))
+              rel_err_vs_fp64=json.dumps(err64), plain_fp32_rel_err_vs_fp64=json.dumps(plain_err64),
+              err_with_kblock_saved=max_rel_err(own, ref), relu_flips=flips, ms=ms,
+              device_ms=dms, plain_ms=pms, tflops=round(flops / ms / 1e9, 2),
+              plain_tflops=round(flops / pms / 1e9, 2), bound_ms=max(bnd), tc_bound_ms=tc_bound,
+              launches_per_call=sum(n for _, n, _ in per_launch),
+              device_ms_by_kernel=json.dumps(per_launch))
         if not (err <= TOL["K-block-bwd"] and repeatable):
             raise AssertionError(f"K-block-bwd disagrees with its plain version: {err}")
+        if not max(err64) <= 4 * max(plain_err64):
+            raise AssertionError(f"K-block-bwd is less accurate than fp32 allows: {err64} against "
+                                 f"fp64, the fp32 plain version {plain_err64}")
         if b == n:
             tally = Tally()
-            tally.add(12, abs_err, ms, pms, bound(flops, x, *saved, g, w1, w2, *got))
+            tally.add(12, abs_err, ms, pms, bnd)
             results["K-block-bwd"] = tally.result()
+            results["K-block-bwd"].update(tc_bound_ms=12 * tc_bound, device_ms=12 * dms)
 
     # K-head-bwd: G's 7x7 output conv, twice per step
     h, w, ci, co, calls = HEAD_SHAPE

@@ -30,7 +30,7 @@
 //        table: a GEMM M = N*H*W pixels, N = Ci, K = 9 * Co (tap, co) with
 //        wt = W transposed to (3, 3, Co, Ci).
 //
-// All three GEMMs run on K-block-bwd's templated FMA core (gemm_core.cuh).
+// All three GEMMs run on the templated FMA core (gemm_core.cuh).
 //
 // Layouts: x, dx (N, H, W, Ci); yhat, g, dz (N, 2H, 2W, Co); stats
 // (N, 2, Co) = (mu, rstd); wt (3, 3, Co, Ci); dw (3, 3, Ci, Co) HWIO;

@@ -23,7 +23,7 @@
 // fp32 FMA peak, against 8-17 MB of activations. Three launches, counted as
 // one call:
 //
-//   1. the four planes' GEMMs on K-block-bwd's templated FMA core
+//   1. the four planes' GEMMs on the templated FMA core
 //      (gemm_core.cuh: 64 x 128 tiles, 8-deep double-buffered K slices),
 //      a tile being 64 pixels of one plane of one sample. The epilogue
 //      writes y to its interleaved place (N, 2H, 2W, Co) and, per channel,

@@ -1,6 +1,6 @@
 // The templated fp32 FMA GEMM core of the kernel library, shared by
-// K-block-bwd (resblock_bwd.cu), K-convt (convt_fwd.cu) and K-convt-bwd
-// (convt_bwd.cu).
+// K-convt (convt_fwd.cu) and K-convt-bwd (convt_bwd.cu). K-block-bwd runs on
+// the tensor-core cores of gemm_tc.cuh.
 //
 // One block computes a BM x BN tile of C = A^T B over K, in BK-deep slices
 // staged in shared memory (double-buffered, the next slice loaded into

@@ -4,10 +4,16 @@ The CUDA sources under ``nemar_tpu_torch/csrc/`` have a plain C interface.
 At first use each ``.cu`` is compiled by its own nvcc process, all started
 together, and the objects are linked into one shared library under
 ``nemar_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the sources (headers included) and flags, and loaded with ``ctypes``. A rebuild
-happens only when a source or a flag changes. The library is written under a
-temporary name and renamed into place, so processes that build at the same
-time never load a half-written file.
+the sources (headers included), the flags and PyTorch's version, and loaded
+with ``ctypes``. A rebuild happens only when one of those changes. The
+library is written under a temporary name and renamed into place, so
+processes that build at the same time never load a half-written file.
+
+The ``.cpp`` sources are PyTorch operators around a launcher (K-warp's,
+``csrc/warp_op.cpp``): nvcc compiles them against PyTorch's headers (ATen
+and c10 only, a few seconds) into the same library, linked to PyTorch's
+``c10``, ``c10_cuda`` and ``torch_cpu``; loading the library registers them
+under ``torch.ops.nemar``.
 
 Nothing here runs at import time: this module is imported on machines
 without CUDA, where only the ops' plain PyTorch versions run.
@@ -31,6 +37,11 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+TORCH_DIR = Path(torch.__file__).resolve().parent
+CPP_FLAGS = ("-std=c++20", "-O3", "-Xcompiler", "-fPIC", "-I", str(TORCH_DIR / "include"),
+             f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}")
+TORCH_LIBS = ("-L", str(TORCH_DIR / "lib"), "-lc10", "-lc10_cuda", "-ltorch_cpu",
+              "-Xlinker", "-rpath", "-Xlinker", str(TORCH_DIR / "lib"))
 
 
 def _nvcc() -> str:
@@ -47,12 +58,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _compiled() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cpp"))
+
+
 def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    return _compiled() + sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, *CPP_FLAGS, torch.__version__)).encode())
     for src in _sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -62,7 +77,7 @@ def library_path() -> Path:
 def build() -> tuple[Path, float]:
     """Compile the library if it is not built yet; (path, seconds spent).
 
-    One nvcc per source, all running at once, then one link. nvcc's
+    One nvcc per ``.cu`` and ``.cpp``, all running at once, then one link. nvcc's
     output, ptxas's per-kernel register and spill counts included, is kept
     beside the library as ``<name>.log``.
     """
@@ -74,9 +89,10 @@ def build() -> tuple[Path, float]:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in _compiled():
         obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        flags = CPP_FLAGS if src.suffix == ".cpp" else NVCC_FLAGS
+        proc = subprocess.Popen([nvcc, *flags, "-c", "-o", str(obj), str(src)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((src, obj, proc))
     log, failed = [], []
@@ -87,7 +103,8 @@ def build() -> tuple[Path, float]:
             failed.append(f"{src.name} ({proc.returncode}):\n{out[-3000:]}")
     tmp = path.with_name(f"{stem}.tmp.so")
     if not failed:
-        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                               *(str(o) for _, o, _ in jobs), *TORCH_LIBS],
                               capture_output=True, text=True)
         log.append(f"== link\n{link.stdout}{link.stderr}")
         if link.returncode != 0:
@@ -122,6 +139,40 @@ def c_function(name: str, argtypes: list):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+class Launcher:
+    """A launcher of the library on PyTorch's current stream, with a lean
+    host path: the argument types are declared once, at the first call,
+    and the raw stream is read without entering ``torch.cuda.device``
+    unless the tensors lie on another device than the current one.
+
+    ``launcher(device, *args)`` calls the C function with ``args`` and the
+    stream appended, and raises if it returned a CUDA error.
+    """
+
+    def __init__(self, name: str, argtypes: list):
+        self.name, self._argtypes, self._fn = name, argtypes, None
+
+    def __call__(self, device: torch.device, *args) -> None:
+        fn = self._fn
+        if fn is None:
+            fn = self._fn = c_function(self.name, [*self._argtypes, ctypes.c_void_p])
+        index = device.index
+        if index == torch._C._cuda_getDevice():
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        else:
+            with torch.cuda.device(index):
+                code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        if code:
+            check(code, self.name)
+
+
+def op(name: str):
+    """The PyTorch operator ``torch.ops.nemar.<name>`` (its default
+    overload), registered by loading the library."""
+    _library()
+    return getattr(torch.ops.nemar, name).default
 
 
 def check(code: int, what: str) -> None:

@@ -34,8 +34,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # tile sizes of csrc/resblock_{fwd,bwd}.cu: a pixel tile must not straddle samples
 _BM, _BN = 64, 128
-# pixel ranges K-block-bwd splits each weight gradient's reduction into
-_WGRAD_SPLITS = 8
+# K-block-bwd's weight gradients are split-K GEMMs of (9C / 128) x (C / 128)
+# tiles: split into as many pixel ranges as fill three waves of one block
+# (its registers' budget) on each of the H100's 132 SMs
+_WGRAD_SLOTS = 3 * 132
+_resblock_bwd = _build.Launcher("nemar_resblock_bwd", [_P] * 16 + [_I] * 5)
+
+
+def wgrad_splits(n: int, h: int, w: int, c: int) -> int:
+    """Pixel ranges K-block-bwd splits each weight gradient's reduction into
+    (K slices of 32 pixels, at least one per range)."""
+    tiles = (9 * c // 128) * (c // 128)
+    return max(1, min(n * h * w // 32, _WGRAD_SLOTS // tiles))
 
 
 def _conv3x3_reflect(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -199,28 +209,27 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: t
                              f"of x's shape {tuple(x.shape)} and device")
     if tuple(stats.shape) != (n, 4, c) or not stats.is_contiguous():
         raise ValueError(f"resblock_bwd_cuda: stats {tuple(stats.shape)} is not ({n}, 4, {c})")
-    # the dgrads contract over output channels: W[dy, dx]^T, as (9C, C) rows (tap, co)
-    w1t = w1.transpose(2, 3).contiguous()
-    w2t = w2.transpose(2, 3).contiguous()
-    splits = _WGRAD_SPLITS
+    if n * (h + 2) * (w + 2) * c >= 2**31:
+        raise ValueError(f"resblock_bwd_cuda: {tuple(x.shape)} is too large for 32-bit offsets")
+    # HWIO as they are: the dgrads read W[tap][ci][co] K-major (along co)
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    splits = wgrad_splits(n, h, w, c)
     dev = x.device
+    wsplit = torch.empty((4, 9 * c, c), dtype=torch.float32, device=dev)
     dz = torch.empty_like(x)
-    dh1 = torch.empty_like(x)
+    # the dgrads' two K halves of the reflect-padded input's gradient
+    dpad = torch.empty((2, n, h + 2, w + 2, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     part_in = torch.empty((n * h * w // 64, 2, c), dtype=torch.float32, device=dev)
     means = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
     part_w = torch.empty((splits, 9 * c, c), dtype=torch.float32, device=dev)
     dw1 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
     dw2 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
-    _aligned("resblock_bwd_cuda", x, y1, y2, stats, g, w1t, w2t)
-    fn = _build.c_function("nemar_resblock_bwd", [_P] * 15 + [_I] * 5 + [_P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), y1.data_ptr(), y2.data_ptr(), stats.data_ptr(), g.data_ptr(),
-                  w1t.data_ptr(), w2t.data_ptr(), dz.data_ptr(), dh1.data_ptr(),
-                  part_in.data_ptr(), means.data_ptr(), part_w.data_ptr(), dw1.data_ptr(),
-                  dw2.data_ptr(), dx.data_ptr(), n, h, w, c, splits, stream)
-    _build.check(code, "resblock_bwd_cuda")
+    _aligned("resblock_bwd_cuda", x, y1, y2, stats, g, w1, w2)
+    _resblock_bwd(dev, x.data_ptr(), y1.data_ptr(), y2.data_ptr(), stats.data_ptr(), g.data_ptr(),
+                  w1.data_ptr(), w2.data_ptr(), wsplit.data_ptr(), dz.data_ptr(), dpad.data_ptr(), part_in.data_ptr(),
+                  means.data_ptr(), part_w.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+                  dx.data_ptr(), n, h, w, c, splits)
     resblock_bwd_cuda.launches += 1
     return dx, dw1, dw2
 

@@ -10,14 +10,17 @@ functions, so the two packages are compared like with like:
   * padding modes 'zeros', 'border', 'reflection'; modes 'bilinear',
     'nearest'.
 
-The coordinate transform (unnormalise + padding mode) is torch code for
-every device, differentiated by torch autograd, exactly where the JAX
-package leaves it outside its kernel's custom VJP. Bilinear sampling at
-pixel coordinates is one ``torch.autograd.Function`` that dispatches on
-the image's device: a CPU tensor takes ``_sample_plain`` (a gather that
-mirrors the JAX package's ``_grid_sample_xla``) and ``_sample_plain_bwd``;
-a CUDA tensor launches the kernels K-warp and K-warp-bwd
-(``ops/warp_cuda.py``). 'nearest' is plain torch on the CPU and raises on
+Bilinear sampling is one ``torch.autograd.Function`` from the grid to the
+output (``_GridSample``) that dispatches on the image's device. A CPU
+tensor takes the plain path: the coordinate transform (unnormalise +
+padding mode, ``_compute_source_coords``) in torch, then ``_sample_plain``
+(a gather that mirrors the JAX package's ``_grid_sample_xla``), and
+``_sample_plain_bwd`` backward. A CUDA tensor launches K-warp, which runs
+the coordinate transform in the kernel, and K-warp-bwd at the pixel
+coordinates (``ops/warp_cuda.py``). Backward, the coordinates are
+recomputed in torch and d x, d y chain to d grid through torch autograd of
+the transform, exactly where the JAX package leaves the transform outside
+its kernel's custom VJP. 'nearest' is plain torch on the CPU and raises on
 CUDA, where no path of the package uses it.
 
 ``grad_channels`` limits d img to the first channels, the rest get exact
@@ -209,30 +212,6 @@ def _sample_plain_bwd(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: to
     return dimg, dx.reshape(n, gh, gw), dy.reshape(n, gh, gw)
 
 
-class _SampleBilinear(torch.autograd.Function):
-    """Bilinear zeros-padded sampling at pixel coordinates, differentiable in
-    img (first ``grad_channels`` channels), x and y: the plain versions on
-    the CPU, K-warp / K-warp-bwd on CUDA."""
-
-    @staticmethod
-    def forward(ctx, img, x, y, grad_channels):
-        ctx.grad_channels = grad_channels
-        ctx.save_for_backward(img, x, y)
-        if img.is_cuda:
-            return warp_cuda.warp_bilinear(img, x, y)
-        return _sample_plain(img, x, y, "bilinear")
-
-    @staticmethod
-    def backward(ctx, g):
-        img, x, y = ctx.saved_tensors
-        gc = ctx.grad_channels if ctx.needs_input_grad[0] else 0
-        if img.is_cuda:
-            dimg, dx, dy = warp_cuda.warp_bilinear_bwd(img, x, y, g.contiguous(), gc)
-        else:
-            dimg, dx, dy = _sample_plain_bwd(img, x, y, g, gc)
-        return dimg, dx, dy, None
-
-
 def _check(img: torch.Tensor, grid: torch.Tensor) -> None:
     if img.dim() != 4 or grid.dim() != 4 or grid.shape[-1] != 2 or grid.shape[0] != img.shape[0]:
         raise ValueError(f"bad grid shape {tuple(grid.shape)} for image {tuple(img.shape)}")
@@ -257,6 +236,38 @@ def grid_sample_plain(img: torch.Tensor, grid: torch.Tensor, mode: str = "biline
     return _sample_plain(img, x, y, mode)
 
 
+class _GridSample(torch.autograd.Function):
+    """Bilinear zeros-padded sampling of img at a normalised grid (after the
+    padding mode's coordinate transform), differentiable in img (first
+    ``grad_channels`` channels) and the grid: the plain versions on the
+    CPU, K-warp / K-warp-bwd on CUDA."""
+
+    @staticmethod
+    def forward(ctx, img, grid, padding_mode, align_corners, grad_channels):
+        ctx.conf = (padding_mode, align_corners, grad_channels)
+        ctx.save_for_backward(img, grid)
+        if img.is_cuda:
+            return warp_cuda.warp_bilinear(img, grid, padding_mode, align_corners)
+        x, y = _pixel_coords(img, grid, padding_mode, align_corners)
+        return _sample_plain(img, x, y, "bilinear")
+
+    @staticmethod
+    def backward(ctx, g):
+        img, grid = ctx.saved_tensors
+        padding_mode, align_corners, gc = ctx.conf
+        gc = gc if ctx.needs_input_grad[0] else 0
+        with torch.enable_grad():
+            gr = grid.detach().requires_grad_(ctx.needs_input_grad[1])
+            x, y = _pixel_coords(img, gr, padding_mode, align_corners)
+        if img.is_cuda:
+            dimg, dx, dy = warp_cuda.warp_bilinear_bwd(
+                img, x.detach().contiguous(), y.detach().contiguous(), g.contiguous(), gc)
+        else:
+            dimg, dx, dy = _sample_plain_bwd(img, x.detach(), y.detach(), g, gc)
+        dgrid = torch.autograd.grad((x, y), gr, (dx, dy))[0] if ctx.needs_input_grad[1] else None
+        return dimg, dgrid, None, None, None
+
+
 def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
                 padding_mode: str = "zeros", align_corners: bool = False,
                 grad_channels: int = -1) -> torch.Tensor:
@@ -266,19 +277,27 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
     K-warp-bwd (bilinear only). ``grad_channels >= 0`` limits d img to the
     first channels (exact zeros for the rest); -1 means all.
     """
+    if (img.is_cuda and not (img.requires_grad or grid.requires_grad) and mode == "bilinear"
+            and grid.dtype == torch.float32):
+        # nothing to differentiate: the kernel alone, which checks what it takes
+        return warp_cuda.warp_bilinear(img, grid, padding_mode, align_corners)
     _check(img, grid)
+    if padding_mode not in warp_cuda.PADDING_MODES:
+        raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if not img.is_cuda and img.device.type != "cpu":
         raise ValueError(f"grid_sample: unsupported device {img.device}")
-    if img.is_cuda and mode != "bilinear":
-        raise NotImplementedError(
-            f"grid_sample mode {mode!r} has no CUDA kernel; the CUDA path samples bilinearly")
-    x, y = _pixel_coords(img, grid, padding_mode, align_corners)
     if mode != "bilinear":
-        return _sample_plain(img, x, y, mode)
+        if img.is_cuda:
+            raise NotImplementedError(
+                f"grid_sample mode {mode!r} has no CUDA kernel; the CUDA path samples bilinearly")
+        return grid_sample_plain(img, grid, mode, padding_mode, align_corners)
+    if grid.dtype != torch.float64:
+        grid = grid.float()
     if img.is_cuda:
-        img, x, y = img.contiguous(), x.contiguous(), y.contiguous()
+        img, grid = img.contiguous(), grid.contiguous()
     c = img.shape[-1]
-    return _SampleBilinear.apply(img, x, y, c if grad_channels < 0 else min(grad_channels, c))
+    return _GridSample.apply(img, grid, padding_mode, align_corners,
+                             c if grad_channels < 0 else min(grad_channels, c))
 
 
 # ---------------------------------------------------------------------------

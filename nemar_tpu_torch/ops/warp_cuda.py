@@ -2,12 +2,18 @@
 (``csrc/warp_bwd.cu``).
 
 They replace the TPU kernels ``nemar_tpu/ops/warp_pallas.py:_fwd_pallas``
-and ``_bwd_pallas`` (through ``_warp_core`` and its custom VJP): bilinear
-sampling with zeros padding of an NHWC fp32 image at per-pixel PIXEL
-coordinates, and its gradient with respect to the image (first
-``grad_channels`` channels) and to the coordinates. The padding modes and
-``align_corners`` are applied before, in ``ops/warp.py``, exactly as the JAX
-package applies them outside its kernel.
+and ``_bwd_pallas`` (through ``_warp_core`` and its custom VJP). K-warp
+samples an NHWC fp32 image bilinearly at a normalised grid, with the
+padding mode and ``align_corners`` applied in the kernel (zeros-padded
+taps). K-warp-bwd takes the PIXEL coordinates the grid maps to
+(``ops/warp.py:_pixel_coords``) and returns the gradient with respect to the
+image (first ``grad_channels`` channels) and to those coordinates; torch
+autograd chains it to the grid (``ops/warp.py:_GridSample``).
+
+K-warp launches through its C++ operator (``csrc/warp_op.cpp``): at batch 1
+its device time is a few microseconds, so the host's cost per call is what
+the caller waits for. K-warp-bwd launches through ``_build.Launcher``. Both
+check only what their kernels need: CUDA, fp32, contiguous, shapes.
 """
 
 from __future__ import annotations
@@ -20,42 +26,55 @@ from nemar_tpu_torch.ops import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+PADDING_MODES = {"zeros": 0, "border": 1, "reflection": 2}
+_warp_grid = None  # torch.ops.nemar.warp_grid, once the library is loaded
+_bwd = _build.Launcher("nemar_warp_bilinear_bwd", [_P] * 9 + [_I] * 7)
 
 
-def _check(what: str, img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-           *more: tuple) -> None:
-    for name, t in (("img", img), ("xs", xs), ("ys", ys), *more):
+def _refuse(what: str, tensors: dict) -> None:
+    """Raise on the first tensor the kernel cannot take (the slow path of
+    the wrappers' one-line check)."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{what}: {name} is on {t.device}, not on a CUDA device")
         if t.dtype != torch.float32:
             raise TypeError(f"{what}: {name} is {t.dtype}, the kernel takes float32")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} {tuple(t.shape)} is not contiguous")
-        if t.device != img.device:
+        if t.device != first.device:
             raise ValueError(f"{what}: inputs on different devices")
-    if img.dim() != 4 or xs.dim() != 3 or xs.shape != ys.shape or xs.shape[0] != img.shape[0]:
-        raise ValueError(f"{what}: bad shapes img {tuple(img.shape)}, "
-                         f"xs {tuple(xs.shape)}, ys {tuple(ys.shape)}")
 
 
-def warp_bilinear(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    """img (N, H, W, C), xs/ys (N, Ho, Wo) pixel coords -> (N, Ho, Wo, C).
+def _usable(*tensors) -> bool:
+    dev = tensors[0].device
+    return all(t.is_cuda and t.dtype == torch.float32 and t.is_contiguous() and t.device == dev
+               for t in tensors)
 
-    CUDA tensors only; all fp32 and contiguous (an NCHW ``channels_last``
-    tensor permuted to NHWC is contiguous).
+
+def warp_bilinear(img: torch.Tensor, grid: torch.Tensor, padding_mode: str = "zeros",
+                  align_corners: bool = False) -> torch.Tensor:
+    """Launch K-warp: img (N, H, W, C) sampled at grid (N, Ho, Wo, 2), (x, y)
+    normalised to [-1, 1] -> (N, Ho, Wo, C).
+
+    CUDA tensors only, both fp32. The checks, the allocation and the launch
+    are the C++ operator ``torch.ops.nemar.warp_grid`` (``csrc/warp_op.cpp``),
+    which raises on what the kernel does not take.
     """
-    _check("warp_bilinear", img, xs, ys)
-    n, h, w, c = img.shape
-    ho, wo = xs.shape[1:]
-    out = torch.empty((n, ho, wo, c), dtype=torch.float32, device=img.device)
-    fn = _build.c_function("nemar_warp_bilinear_fwd", [_P] * 4 + [_I] * 6 + [_P])
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(img.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
-                  n, h, w, c, ho, wo, stream)
-    _build.check(code, "warp_bilinear")
+    if not img.is_cuda:
+        _refuse("warp_bilinear", {"img": img, "grid": grid})
+    padding = PADDING_MODES.get(padding_mode)
+    if padding is None:
+        raise ValueError(f"unknown padding_mode: {padding_mode!r}")
+    out = (_warp_grid or _load_warp_grid())(img, grid, padding, align_corners)
     warp_bilinear.launches += 1
     return out
+
+
+def _load_warp_grid():
+    global _warp_grid
+    _warp_grid = _build.op("warp_grid")
+    return _warp_grid
 
 
 warp_bilinear.launches = 0
@@ -63,18 +82,21 @@ warp_bilinear.launches = 0
 
 def warp_bilinear_bwd(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, g: torch.Tensor,
                       grad_channels: int) -> tuple:
-    """Launch K-warp-bwd: (d img or None, d xs, d ys) of ``warp_bilinear``.
+    """Launch K-warp-bwd: (d img or None, d xs, d ys) of bilinear zeros-padded
+    sampling of img at pixel coordinates xs, ys (N, Ho, Wo).
 
     g (N, Ho, Wo, C) is the gradient of its output. d img covers the first
     ``grad_channels`` channels, the rest are exact zeros; with
     ``grad_channels == 0`` it is not computed and None is returned.
     Deterministic: the scatter into d img sums in 64-bit fixed point.
     """
-    _check("warp_bilinear_bwd", img, xs, ys, ("g", g))
+    if not _usable(img, xs, ys, g):
+        _refuse("warp_bilinear_bwd", {"img": img, "xs": xs, "ys": ys, "g": g})
     n, h, w, c = img.shape
     ho, wo = xs.shape[1:]
-    if tuple(g.shape) != (n, ho, wo, c):
-        raise ValueError(f"warp_bilinear_bwd: g {tuple(g.shape)} is not {(n, ho, wo, c)}")
+    if xs.shape != ys.shape or tuple(g.shape) != (n, ho, wo, c):
+        raise ValueError(f"warp_bilinear_bwd: bad shapes img {tuple(img.shape)}, "
+                         f"xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, g {tuple(g.shape)}")
     if not 0 <= grad_channels <= c:
         raise ValueError(f"warp_bilinear_bwd: grad_channels {grad_channels} not in [0, {c}]")
     dev = img.device
@@ -83,13 +105,9 @@ def warp_bilinear_bwd(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, g: 
     dimg = torch.empty_like(img) if grad_channels else None
     acc = torch.zeros((n, h, w, grad_channels), dtype=torch.int64, device=dev)
     gmax = torch.zeros((1,), dtype=torch.int32, device=dev)
-    fn = _build.c_function("nemar_warp_bilinear_bwd", [_P] * 9 + [_I] * 7 + [_P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(img.data_ptr(), xs.data_ptr(), ys.data_ptr(), g.data_ptr(),
-                  dimg.data_ptr() if dimg is not None else None, dxs.data_ptr(), dys.data_ptr(),
-                  acc.data_ptr(), gmax.data_ptr(), n, h, w, c, ho, wo, grad_channels, stream)
-    _build.check(code, "warp_bilinear_bwd")
+    _bwd(dev, img.data_ptr(), xs.data_ptr(), ys.data_ptr(), g.data_ptr(),
+         dimg.data_ptr() if dimg is not None else None, dxs.data_ptr(), dys.data_ptr(),
+         acc.data_ptr(), gmax.data_ptr(), n, h, w, c, ho, wo, grad_channels)
     warp_bilinear_bwd.launches += 1
     return dimg, dxs, dys
 

@@ -74,6 +74,37 @@ def test_warp_kernel_padding_modes(dev, padding_mode, align_corners):
     assert torch.max(torch.abs(got - ref)).item() < 1e-5
 
 
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_warp_grid_kernel_matches_torch(dev, padding_mode, align_corners):
+    """K-warp from the normalised grid, one launch, against F.grid_sample on
+    the same image and grid (grid points off the frame included)."""
+    rng = np.random.default_rng(17)
+    img = torch.from_numpy(rng.standard_normal((2, 37, 29, 4), dtype=np.float32)).to(dev)
+    grid = torch.from_numpy(rng.uniform(-1.4, 1.4, (2, 23, 31, 2)).astype(np.float32)).to(dev)
+    before = warp_cuda.warp_bilinear.launches
+    got = warp_cuda.warp_bilinear(img, grid, padding_mode, align_corners)
+    torch.cuda.synchronize()
+    assert warp_cuda.warp_bilinear.launches == before + 1
+    ref = torch.nn.functional.grid_sample(img.permute(0, 3, 1, 2), grid, "bilinear", padding_mode,
+                                          align_corners).permute(0, 2, 3, 1)
+    assert torch.max(torch.abs(got - ref)).item() < 1e-5
+
+
+def test_warp_grid_op_refuses_what_it_cannot_run(dev):
+    img = torch.zeros((1, 8, 8, 3), device=dev)
+    grid = identity_grid(8, 8, device=dev)[None]
+    with pytest.raises(RuntimeError, match="float32"):
+        warp_cuda.warp_bilinear(img, grid.double())
+    with pytest.raises(RuntimeError, match="bad grid"):
+        warp_cuda.warp_bilinear(img, grid[..., :1])
+    with pytest.raises(ValueError, match="padding_mode"):
+        warp_cuda.warp_bilinear(img, grid, "wrap")
+    # a non-contiguous grid is made contiguous, as the model may hand one over
+    t = torch.stack([grid[..., 1], grid[..., 0]], dim=1).permute(0, 2, 3, 1)[..., [1, 0]]
+    assert torch.equal(warp_cuda.warp_bilinear(img, t), warp_cuda.warp_bilinear(img, grid))
+
+
 def test_warp_nearest_raises_on_cuda(dev):
     img = torch.zeros((1, 8, 8, 1), device=dev)
     with pytest.raises(NotImplementedError):
@@ -128,7 +159,7 @@ def test_block_kernel_matches_plain(dev, n):
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 8, 128), (2, 2, 32, 128), (1, 16, 4, 256),
-                                   (1, 64, 64, 256), (8, 64, 64, 256)])
+                                   (3, 4, 16, 128), (1, 64, 64, 256), (8, 64, 64, 256)])
 def test_block_bwd_kernel_matches_plain(dev, shape):
     """K-block-bwd against the written-out plain backward, 1e-3 of each
     output's largest value, at shapes whose edges and corners (H or W of 2)
@@ -148,6 +179,29 @@ def test_block_bwd_kernel_matches_plain(dev, shape):
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b)
         assert torch.max(torch.abs(a - r)).item() < 1e-3 * torch.max(torch.abs(r)).item()
+
+
+def test_block_bwd_kernel_fp64_accuracy(dev):
+    """K-block-bwd's 3xTF32 GEMMs keep fp32-level accuracy: against the plain
+    backward in float64 (from the same fp32 inputs and saved values, so the
+    relu mask is the same), its largest relative error is at most 4x that of
+    the fp32 plain version (1xTF32 would be ~100x)."""
+    rng = np.random.default_rng(19)
+    shape = (2, 32, 32, 256)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    w1, w2 = (torch.from_numpy((0.02 * rng.standard_normal((3, 3, 256, 256))).astype(np.float32))
+              .to(dev) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
+    got = conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
+    ref32 = conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved)
+    ref64 = conv_fused.resblock_bwd_plain(x.double(), w1.double(), w2.double(), g.double(),
+                                          saved=tuple(t.double() for t in saved))
+
+    def rel(a, b):
+        return max(float((p.double() - q).abs().max() / q.abs().max()) for p, q in zip(a, b))
+
+    assert rel(got, ref64) <= 4 * rel(ref32, ref64)
 
 
 def test_block_autograd_runs_the_kernels(dev):

@@ -192,11 +192,65 @@ def test_sample_plain_bwd_matches_autograd():
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.zeros((1, 4, 4, 1))
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        warp_cuda.warp_bilinear(x, x[..., 0], x[..., 0])
+        warp_cuda.warp_bilinear(x, torch.zeros((1, 4, 4, 2)))
     with pytest.raises(ValueError, match="not on a CUDA device"):
         warp_cuda.warp_bilinear_bwd(x, x[..., 0], x[..., 0], x, 1)
     assert warp_cuda.warp_bilinear.launches == 0
     assert warp_cuda.warp_bilinear_bwd.launches == 0
+
+
+class _PixelSample(torch.autograd.Function):
+    """The CPU composition before the grid-in Function: bilinear sampling at
+    pixel coordinates, d x and d y chained to the grid by autograd of
+    ``_pixel_coords``."""
+
+    @staticmethod
+    def forward(ctx, img, x, y, grad_channels):
+        ctx.grad_channels = grad_channels
+        ctx.save_for_backward(img, x, y)
+        return twarp._sample_plain(img, x, y, "bilinear")
+
+    @staticmethod
+    def backward(ctx, g):
+        img, x, y = ctx.saved_tensors
+        gc = ctx.grad_channels if ctx.needs_input_grad[0] else 0
+        return (*twarp._sample_plain_bwd(img, x, y, g, gc), None)
+
+
+@pytest.mark.parametrize("grad_channels", [0, 3, -1])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_grid_in_function_matches_pixel_composition(padding_mode, align_corners, grad_channels):
+    """The grid-in Function (one launch on the card) gives exactly what the
+    pixel-coordinate composition gives on the CPU: output, d img, d grid;
+    and it matches the JAX grid_sample's VJP at TOL."""
+    img, grid = _imgs(7 + len(padding_mode) + 2 * align_corners, c=4)
+    g = np.random.default_rng(4).standard_normal(grid.shape[:3] + (4,)).astype(np.float32)
+    gc = 4 if grad_channels < 0 else grad_channels
+
+    def run(new):
+        it, gt = _t(img).requires_grad_(), _t(grid).requires_grad_()
+        if new:
+            out = twarp.grid_sample(it, gt, "bilinear", padding_mode, align_corners, grad_channels)
+        else:
+            x, y = twarp._pixel_coords(it, gt, padding_mode, align_corners)
+            out = _PixelSample.apply(it, x, y, gc)
+        grads = torch.autograd.grad(out, (it, gt), _t(g), allow_unused=True)
+        return out.detach(), *grads
+
+    got, want = run(True), run(False)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert (got[1] is None) == (gc == 0)
+    ref = _grads_jax(img, grid, g, -1, mode="bilinear", padding_mode=padding_mode,
+                     align_corners=align_corners, impl="xla")
+    out_jax = jwarp.grid_sample(jnp.asarray(img), jnp.asarray(grid), padding_mode=padding_mode,
+                                align_corners=align_corners, impl="xla")
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(out_jax), atol=TOL, rtol=0)
+    if gc:
+        _close(got[1].numpy()[..., :gc], ref[0][..., :gc])
+        assert not np.any(got[1].numpy()[..., gc:])
+    _close(got[2].numpy(), ref[1])
 
 
 def test_bad_grid_shape_raises():
