@@ -210,13 +210,16 @@ def device_ms(fn, reps: int = 10) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then hands back no device events: retry
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     by_kernel = {}
-    for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start):
+    for e in sorted(events, key=lambda e: e.time_range.start):
         name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
         count, us = by_kernel.get(name, (0, 0.0))
         by_kernel[name] = (count + 1, us + e.time_range.elapsed_us())

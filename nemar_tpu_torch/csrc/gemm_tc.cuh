@@ -1,45 +1,56 @@
 // The 3xTF32 tensor-core GEMM cores of K-block-bwd (resblock_bwd.cu).
 //
 // Both compute a 128 x 128 tile of C = A B over K, in 32-deep slices, with
-// 256 threads, from a STAGES-deep ring in dynamic shared memory that
-// cp.async fills (16 bytes a copy, zero-filled where the Op masks a row:
-// src-size 0); slice kt + STAGES - 1 is in flight while slice kt is
-// multiplied. An Op (resblock_bwd.cu) supplies the operands' addresses,
-// masks and layouts and the epilogue's writes.
+// two warpgroups (256 threads): warpgroup w computes rows 64 w .. 64 w + 63
+// with wgmma.mma_async m64n128k8 tf32, A from registers (each warp's 16 x 8
+// fragment, split there), B from shared memory through a matrix
+// descriptor, in the K-major 128-byte-swizzled layout wgmma reads for TF32:
+// a row (n) holds the slice's 32 k in 128 bytes, its 16-byte chunks
+// permuted by XOR with n % 8, and 8-row groups are 1024 bytes apart. A ring
+// of STAGES slices in dynamic shared memory is filled by cp.async (16 bytes
+// a copy, zero-filled where the Op masks a row: src-size 0); slice
+// kt + STAGES - 1 is in flight while slice kt is multiplied. An Op
+// (resblock_bwd.cu) supplies the operands' addresses, masks and layouts and
+// the epilogue's writes.
 //
-//   gemm_tc_kernel: mma.sync.aligned.m16n8k8 (tf32, fp32 accumulate), for
-//     operands that are M- or N-major in device memory (the wgrads: pixels
-//     are their K, outermost). Eight warps, each a 64 x 32 slice of 4 x 4
-//     fragments; a tile row is a K row of 128 values + 8 floats of pad, and
-//     fragments are read as 8- and 16-byte loads (a thread's two A rows are
-//     adjacent, its four B fragments' columns too, and the epilogue maps
-//     them back), free of bank conflicts.
-//   gemm_wgmma_kernel: wgmma.mma_async m64n128k8 (tf32), for operands that
-//     are both K-major (the dgrads); below.
+//   gemm_wgmma_kernel: operands both K-major in device memory (the dgrads:
+//     dz along channels, W in HWIO). A is copied as rows of 32 k (+ 4
+//     floats of pad) and read by ldmatrix; B is split before the GEMM (the
+//     weights: big and small arrays) and copied straight into the swizzled
+//     layout.
+//   gemm_wgmma_mn_kernel: A M-major, B N-major (the wgrads: the pixels,
+//     their K, are outermost in both). Both are copied as rows of 128 (+ 8
+//     floats of pad); per slice each thread transposes and splits 4 chunks
+//     of B (4 k of one n: column reads, 16-byte swizzled writes) into the
+//     big and small tiles, and reads its A fragments as 8-byte loads (its
+//     two rows of a fragment are adjacent tile rows: the epilogue maps them
+//     back).
 //
 // 3xTF32. Each fp32 value x is split into big = tf32(x) (round to nearest,
-// ties away, as cvt.rna.tf32.f32) and small = x - big (exact in fp32; the
-// tensor core reads its top 19 bits). A product is three MMAs, always in
-// this order, into a chain that spans one K slice (4 steps x 3), and at the
-// end of each slice the chain is added to the fp32 total with an IEEE add:
+// ties away, as cvt.rna.tf32.f32, with two integer ops) and small = x - big
+// (exact in fp32; the tensor core reads its top 19 bits). A product is three
+// MMAs, always in this order, into a chain that spans one K slice (4 steps
+// x 3 = 12 wgmma's), added at the end of the slice to the fp32 total:
 //     part = small_a * big_b (first), or part += small_a * big_b;
 //     part += big_a * small_b;  part += big_a * big_b;   ... 4 times, then
-//     acc += part;
+//     acc += part;   (IEEE fp32)
 // The dropped small_a * small_b term is below 2^-22 of |a b|. The tensor
 // core's own accumulation rounds toward zero: chained over a whole K of 2304
 // that bias alone cost 2.5e-5 of the largest value on the H100 (70x the
 // fp32 plain version's error); chains of 12 MMAs keep it to the fp32 level
 // (emulated: tests/test_torch_tf32_split.py, which mirrors this order). It
 // costs 3x the tensor core's operations (495 / 3 = 165 TFLOP/s fp32-
-// equivalent at the TF32 peak) and the second accumulator's 64 registers,
-// so one block runs on each SM. 1xTF32 (big_a * big_b alone) keeps 10
-// mantissa bits and misses fp32 by ~3e-4 of the largest value at K = 2304;
-// it is not used.
+// equivalent at the TF32 peak) and a second accumulator of 64 registers.
+// 1xTF32 (big_a * big_b alone) keeps 10 mantissa bits and misses fp32 by
+// ~3e-4 of the largest value at K = 2304; it is not used. (mma.sync
+// m16n8k8 was tried first: it reaches 280 TFLOP/s TF32 on the H100 with
+// nothing else issued, but each split, add or load issued beside it costs
+// tensor time, and these GEMMs ran 30-45% slower on it.)
 //
 // Deterministic: every output is one thread's fixed sequence of MMAs and
 // adds; no atomics. An Op with kNormRelu has its A values rebuilt as
-// relu((v - mu) * rstd) at fragment load, before the split, with (mu, rstd)
-// per A row and per sample of the K slice.
+// relu((v - mu) * rstd) before the split, with (mu, rstd) per A row and per
+// sample of the K slice.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -52,12 +63,9 @@ namespace {
 constexpr int BM = 128;      // output rows per block tile
 constexpr int BN = 128;      // output columns per block tile
 constexpr int BK = 32;       // reduction depth per stage
-constexpr int THREADS = 256; // 8 warps: 2 along M x 4 along N
+constexpr int THREADS = 256; // two warpgroups, 64 rows each
 constexpr int STAGES = 4;    // cp.async ring depth
-constexpr int MIN_BLOCKS = 1;  // blocks per SM: the two accumulators take 128 registers
-constexpr int WM = 64, WN = 32;            // warp tile
-constexpr int FM = WM / 16, FN = WN / 8;   // 4 x 4 fragments per warp
-constexpr int KSTRIDE = BK + 4;  // K-major A tile of the wgmma core: floats per row (m)
+constexpr int KSTRIDE = BK + 4;  // K-major A tile: floats per row (m)
 constexpr int MSTRIDE = BM + 8;  // M/N-major tile: floats per row (k)
 static_assert(BM == BN, "one M/N-major row length for both operands");
 
@@ -88,33 +96,18 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // big = tf32(x) rounded to nearest, ties away (cvt.rna.tf32.f32's rounding,
-// done with two integer ops: the conversion instruction runs at a fraction
-// of the ALU rate); small = x - big, exact in fp32, whose low 13 bits the
-// mma ignores (truncation: at most 2^-11 of small, 2^-22 of x).
+// done with two integer ops); small = x - big, exact in fp32, whose low 13
+// bits the tensor core ignores (truncation: at most 2^-11 of small, 2^-22
+// of x).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
   big = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
   small = __float_as_uint(x - __uint_as_float(big));
 }
 
-// d += a b, and d = a b (C = 0)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
-}
-
 // Four 8x8 matrices of 16-bit elements from shared memory, lane l giving
 // the address of row l % 8 of matrix l / 8: on 32-bit data, the register q
 // of lane l holds element (l / 4, l % 4) of the q-th 8 x 4 block, which is
-// the layout of a warp's 16 x 8 tf32 A fragment (mma.m16n8k8, and wgmma's
-// A from registers).
+// the layout of a warp's 16 x 8 tf32 A fragment of wgmma (A from registers).
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(p);
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -122,167 +115,10 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
                : "r"(a));
 }
 
-template <class Op>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) gemm_tc_kernel(const Op params) {
-  static_assert(!Op::kAKMajor && !Op::kBKMajor && FN == 4, "M-major A, N-major B");
-  // the tile row of fragment row g (h = 0) or g + 8 (h = 1) of the m16 block
-  // at m: m + 2g + h, so that a thread's two rows are one float2
-  auto a_row = [](int m, int g, int h) { return m + 2 * g + h; };
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  constexpr int A_FL = tile_floats(false);
-  constexpr int STAGE_FL = 2 * A_FL;
-  Op op = params;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // the mma's groupID, threadID_in_group
-  const int wm = (warp >> 2) * WM, wn = (warp & 3) * WN;
-  op.setup(tid);
-  const int ktiles = op.ktiles();
+constexpr int WG_B_FL = BN * BK;  // floats of one swizzled K-major B tile
 
-  // acc: the total, in IEEE fp32 adds; part: one K slice's chain of mma's
-  float acc[FM][FN][4], part[FM][FN][4];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  // the A rows this thread's fragments read: wm + 16 i + g + 8 h
-  float nmu[FM][2], nrs[FM][2];
-  int cur_sample = -1;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) op.load(s, smem + s * STAGE_FL, smem + s * STAGE_FL + A_FL, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slice kt landed for all; slice kt - 1's stage is free
-    {
-      const int nk = kt + STAGES - 1;
-      float* st = smem + (nk % STAGES) * STAGE_FL;
-      if (nk < ktiles) op.load(nk, st, st + A_FL, tid);
-      cp_async_commit();
-    }
-    if constexpr (Op::kNormRelu) {
-      const int sample = op.sample_of(kt);
-      if (sample != cur_sample) {
-        cur_sample = sample;
-#pragma unroll
-        for (int i = 0; i < FM; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) op.norm_params(sample, a_row(wm + 16 * i, g, h), nmu[i][h], nrs[i][h]);
-      }
-    }
-    const float* As = smem + (kt % STAGES) * STAGE_FL;
-    const float* Bs = As + A_FL;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      // fragment j's column g is n = wn + 4 g + j, so one float4 holds the
-      // four fragments' values at a k
-      float bv[FN][2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float4 v = *reinterpret_cast<const float4*>(Bs + (kk + t + 4 * r) * MSTRIDE + wn + 4 * g);
-        bv[0][r] = v.x, bv[1][r] = v.y, bv[2][r] = v.z, bv[3][r] = v.w;
-      }
-      uint32_t bbig[FN][2], bsmall[FN][2];
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) split_tf32(bv[j][r], bbig[j][r], bsmall[j][r]);
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        const int m = wm + 16 * i;
-        // fragment order: (m + g, k + t), (m + g + 8, k + t), (m + g, k + t + 4), (m + g + 8, k + t + 4)
-        // fragment rows g and g + 8 are m + 2g and m + 2g + 1: one float2
-        float av[4];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float2 v = *reinterpret_cast<const float2*>(As + (kk + t + 4 * r) * MSTRIDE + m + 2 * g);
-          av[2 * r] = v.x, av[2 * r + 1] = v.y;
-        }
-        if constexpr (Op::kNormRelu) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) av[q] = fmaxf((av[q] - nmu[i][q & 1]) * nrs[i][q & 1], 0.f);
-        }
-        uint32_t abig[4], asmall[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(av[q], abig[q], asmall[q]);
-#pragma unroll
-        for (int j = 0; j < FN; ++j) {
-          if (kk == 0) {
-            mma_tf32_first(part[i][j], asmall, bbig[j]);
-          } else {
-            mma_tf32(part[i][j], asmall, bbig[j]);
-          }
-          mma_tf32(part[i][j], abig, bsmall[j]);
-          mma_tf32(part[i][j], abig, bbig[j]);
-        }
-      }
-    }
-    // the K slice's chains into the total, in IEEE fp32
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
-  }
-  cp_async_wait<0>();
-
-  // epilogue: the accumulator fragment holds rows g (values 0, 1) and g + 8
-  // (values 2, 3) at columns 2t, 2t + 1, mapped to the tile as the operands
-  // were (a_row; fragment j's column c is wn + 4 c + j): per row, two float4s
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int c = 0; c < 2; ++c)
-        op.write(a_row(wm + 16 * i, g, h), wn + 8 * t + 4 * c,
-                 make_float4(acc[i][0][2 * h + c], acc[i][1][2 * h + c], acc[i][2][2 * h + c],
-                             acc[i][3][2 * h + c]));
-}
-
-// Launch gemm_tc_kernel<Op> on grid, with its ring in dynamic shared memory.
-template <class Op>
-cudaError_t launch(const Op& op, dim3 grid, cudaStream_t stream) {
-  constexpr int bytes = STAGES * 2 * tile_floats(false) * (int)sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(gemm_tc_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  gemm_tc_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
-  return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// The wgmma core, for GEMMs whose operands are both K-major (the dgrads)
-// ---------------------------------------------------------------------------
-//
-// Two warpgroups; warpgroup w computes rows 64 w .. 64 w + 63 of the 128 x
-// 128 tile with wgmma.mma_async m64n128k8 tf32: A from registers (each
-// warp's 16 x 8 fragment read from a K-major tile by ldmatrix and split
-// there, as in the mma.sync core), B from shared memory through a matrix
-// descriptor. B is split once, before the GEMM (the weights: Op supplies
-// big and small arrays), and each K slice of both is copied into the
-// K-major 128-byte-swizzled layout wgmma reads: a row (n) holds the slice's
-// 32 k in 128 bytes, its 16-byte chunks permuted by XOR with n % 8, and
-// the 8-row groups are 1024 bytes apart. Each 8-deep step is three wgmma's
-// (small_a big_b, big_a small_b, big_a big_b) into a chain over the K slice
-// (12 wgmma's), added to the fp32 total after it, as in the mma.sync core.
-// The ring holds STAGES slices of (A, B big, B small); the copies are made
-// visible to the async proxy (fence.proxy.async) before the barrier.
-
-constexpr int WG_B_FL = BN * BK;  // floats of one B tile in the core-matrix layout
-
-// float offset of the 16-byte chunk (n, k-group kg) of a B tile: row n is
-// 128 bytes (the slice's 32 k), its chunks permuted by the 128-byte swizzle
-__device__ __forceinline__ int core_matrix_off(int n, int kg) {
+// float offset of the 16-byte chunk (n, k-group kg) of a swizzled B tile
+__device__ __forceinline__ int swizzled_off(int n, int kg) {
   return n * BK + ((kg ^ (n & 7)) << 2);
 }
 
@@ -300,8 +136,23 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
       : "memory");
 }
@@ -312,10 +163,12 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// A and B K-major (the dgrads); see the header.
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_kernel(const Op params) {
   static_assert(Op::kAKMajor && Op::kBKMajor && !Op::kNormRelu, "K-major A and B");
-  static_assert(tile_floats(true) * 4 % 1024 == 0 && WG_B_FL * 4 % 1024 == 0, "1024-byte aligned B tiles");
+  static_assert(tile_floats(true) * 4 % 1024 == 0 && WG_B_FL * 4 % 1024 == 0,
+                "1024-byte aligned B tiles");
   extern __shared__ __align__(1024) float4 smem4[];
   constexpr int A_FL = tile_floats(true);
   constexpr int STAGE_FL = A_FL + 2 * WG_B_FL;
@@ -392,6 +245,118 @@ cudaError_t launch_wgmma(const Op& op, dim3 grid, cudaStream_t stream) {
       cudaFuncSetAttribute(gemm_wgmma_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   gemm_wgmma_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
+  return cudaGetLastError();
+}
+
+// A M-major, B N-major (the wgrads); see the header.
+template <class Op>
+__global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_mn_kernel(const Op params) {
+  static_assert(!Op::kAKMajor && !Op::kBKMajor, "M-major A, N-major B");
+  extern __shared__ __align__(1024) float4 smem4[];
+  constexpr int T_FL = tile_floats(false);
+  constexpr int STAGE_FL = 2 * T_FL;
+  float* Bb = reinterpret_cast<float*>(smem4);  // 2 x WG_B_FL: B big, small, K-major
+  float* Bsm = Bb + WG_B_FL;
+  float* ring = Bsm + WG_B_FL;                  // STAGES x (A, B) as copied
+  Op op = params;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // warp w's 16 rows start at 16 w; its fragment rows g, g + 8 are 2g, 2g + 1
+  const int row0 = 16 * warp;
+  op.setup(tid);
+  const int ktiles = op.ktiles();
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  float nmu[2] = {0.f, 0.f}, nrs[2] = {0.f, 0.f};
+  int cur_sample = -1;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    float* st = ring + s * STAGE_FL;
+    if (s < ktiles) op.load(s, st, st + T_FL, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // slice kt landed for all; slice kt - 1's stage and B tiles are free
+    {
+      const int nk = kt + STAGES - 1;
+      float* st = ring + (nk % STAGES) * STAGE_FL;
+      if (nk < ktiles) op.load(nk, st, st + T_FL, tid);
+      cp_async_commit();
+    }
+    const float* As = ring + (kt % STAGES) * STAGE_FL;
+    const float* Bst = As + T_FL;
+    // B: chunk q = tid + 256 i is (n = q % 128, k-group q / 128)
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int q = tid + THREADS * i, n = q & (BN - 1), kg = q / BN;
+      uint32_t big[4], sm[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(Bst[(4 * kg + j) * MSTRIDE + n], big[j], sm[j]);
+      const int off = swizzled_off(n, kg);
+      *reinterpret_cast<uint4*>(Bb + off) = make_uint4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<uint4*>(Bsm + off) = make_uint4(sm[0], sm[1], sm[2], sm[3]);
+    }
+    if constexpr (Op::kNormRelu) {
+      const int sample = op.sample_of(kt);
+      if (sample != cur_sample) {
+        cur_sample = sample;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) op.norm_params(sample, row0 + 2 * g + h, nmu[h], nrs[h]);
+      }
+    }
+    uint32_t abig[BK / 8][4], asmall[BK / 8][4];
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 v = *reinterpret_cast<const float2*>(As + (8 * s + t + 4 * r) * MSTRIDE + row0 + 2 * g);
+        float av[2] = {v.x, v.y};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if constexpr (Op::kNormRelu) av[h] = fmaxf((av[h] - nmu[h]) * nrs[h], 0.f);
+          split_tf32(av[h], abig[s][2 * r + h], asmall[s][2 * r + h]);
+        }
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the B tiles are written
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence_operand(part);
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s) {
+      const uint64_t db = kmajor_desc(Bb + 8 * s), ds = kmajor_desc(Bsm + 8 * s);
+      wgmma_tf32(part, asmall[s], db, s > 0);
+      wgmma_tf32(part, abig[s], ds, 1);
+      wgmma_tf32(part, abig[s], db, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  }
+  cp_async_wait<0>();
+
+  // epilogue: d[4 j + v] is fragment row g (v < 2) or g + 8, i.e. tile row
+  // row0 + 2g or row0 + 2g + 1, column 8 j + 2 t + (v & 1)
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    op.write(row0 + 2 * g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
+    op.write(row0 + 2 * g + 1, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+}
+
+template <class Op>
+cudaError_t launch_wgmma_mn(const Op& op, dim3 grid, cudaStream_t stream) {
+  constexpr int bytes = (2 * WG_B_FL + STAGES * 2 * tile_floats(false)) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(gemm_wgmma_mn_kernel<Op>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  gemm_wgmma_mn_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
   return cudaGetLastError();
 }
 

@@ -21,11 +21,12 @@
 // tensor-core bound is then 3 x 154.6 GFLOP at 495 TFLOP/s = 0.94 ms a b8
 // call. 1xTF32 would be 3x cheaper but misses fp32 by ~3e-4 of the largest
 // value at K = 2304 (tests/test_torch_tf32_split.py), far from the fp32
-// plain version this kernel is held to. The dgrads, whose operands are both
-// K-major (dz along co, W in HWIO along co), run on wgmma; the wgrads, whose
-// operands are both pixel-major (K outermost: wgmma's TF32 B operand would
-// need a transpose), on mma.sync. Operands reach shared memory by cp.async
-// into a 4-stage ring.
+// plain version this kernel is held to. All four run on wgmma (m64n128k8,
+// A from registers): the dgrads' operands are both K-major (dz along co, W
+// in HWIO along co); the wgrads' are both pixel-major (K outermost), and
+// their B tile is transposed in shared memory into the K-major layout
+// wgmma wants for TF32. Operands reach shared memory by cp.async into a
+// 4-stage ring.
 //
 // The TPU kernels hold one sample in VMEM and carry dW across sequential
 // grid steps; Hopper blocks run in parallel and in no order, so every
@@ -189,7 +190,7 @@ struct DgradOp {
     for (int i = 0; i < CHUNKS; ++i) {
       const int nr = tc::kmajor_row(tid, i);
       const size_t src = ((size_t)tap * c + n0 + nr) * c + co;
-      const int dst = tc::core_matrix_off(nr, kc / 4);
+      const int dst = tc::swizzled_off(nr, kc / 4);
       cp_async16(Bb + dst, wbig + src, true);
       cp_async16(Bs + dst, wsmall + src, true);
     }
@@ -434,7 +435,8 @@ cudaError_t wgrad(const float* src, const float* stats, const float* dz, float* 
   op.c = c;
   op.ktiles_total = n * h * w / BK;
   op.splits = splits;
-  return tc::launch(op, dim3((unsigned)(9 * c / BM), (unsigned)(c / BN), (unsigned)splits), stream);
+  return tc::launch_wgmma_mn(op, dim3((unsigned)(9 * c / BM), (unsigned)(c / BN), (unsigned)splits),
+                            stream);
 }
 
 // 6 / 11

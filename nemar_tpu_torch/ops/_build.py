@@ -169,10 +169,11 @@ class Launcher:
 
 
 def op(name: str):
-    """The PyTorch operator ``torch.ops.nemar.<name>`` (its default
-    overload), registered by loading the library."""
+    """The PyTorch operator ``torch.ops.nemar.<name>``, registered by loading
+    the library: the dispatcher's callable of its default overload (what
+    ``OpOverload.__call__`` calls, without that Python frame)."""
     _library()
-    return getattr(torch.ops.nemar, name).default
+    return getattr(torch.ops.nemar, name).default._op
 
 
 def check(code: int, what: str) -> None:
