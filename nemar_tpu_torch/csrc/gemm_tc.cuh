@@ -166,7 +166,6 @@ __device__ __forceinline__ void wgmma_fence_operand(float (&d)[64]) {
 // A and B K-major (the dgrads); see the header.
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_kernel(const Op params) {
-  static_assert(Op::kAKMajor && Op::kBKMajor && !Op::kNormRelu, "K-major A and B");
   static_assert(tile_floats(true) * 4 % 1024 == 0 && WG_B_FL * 4 % 1024 == 0,
                 "1024-byte aligned B tiles");
   extern __shared__ __align__(1024) float4 smem4[];
@@ -251,7 +250,6 @@ cudaError_t launch_wgmma(const Op& op, dim3 grid, cudaStream_t stream) {
 // A M-major, B N-major (the wgrads); see the header.
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_mn_kernel(const Op params) {
-  static_assert(!Op::kAKMajor && !Op::kBKMajor, "M-major A, N-major B");
   extern __shared__ __align__(1024) float4 smem4[];
   constexpr int T_FL = tile_floats(false);
   constexpr int STAGE_FL = 2 * T_FL;

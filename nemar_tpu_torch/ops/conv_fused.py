@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _BM, _BN = 64, 128
 # K-block-bwd's weight gradients are split-K GEMMs of (9C / 128) x (C / 128)
 # tiles: split into as many pixel ranges as fill three waves of one block
-# (its registers' budget) on each of the H100's 132 SMs
+# (its shared memory's and registers' budget) on each of the H100's 132 SMs
 _WGRAD_SLOTS = 3 * 132
 _resblock_bwd = _build.Launcher("nemar_resblock_bwd", [_P] * 16 + [_I] * 5)
 
@@ -227,9 +227,9 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: t
     dw2 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
     _aligned("resblock_bwd_cuda", x, y1, y2, stats, g, w1, w2)
     _resblock_bwd(dev, x.data_ptr(), y1.data_ptr(), y2.data_ptr(), stats.data_ptr(), g.data_ptr(),
-                  w1.data_ptr(), w2.data_ptr(), wsplit.data_ptr(), dz.data_ptr(), dpad.data_ptr(), part_in.data_ptr(),
-                  means.data_ptr(), part_w.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-                  dx.data_ptr(), n, h, w, c, splits)
+                  w1.data_ptr(), w2.data_ptr(), wsplit.data_ptr(), dz.data_ptr(), dpad.data_ptr(),
+                  part_in.data_ptr(), means.data_ptr(), part_w.data_ptr(), dw1.data_ptr(),
+                  dw2.data_ptr(), dx.data_ptr(), n, h, w, c, splits)
     resblock_bwd_cuda.launches += 1
     return dx, dw1, dw2
 
