@@ -36,16 +36,18 @@
 //     acc += part;   (IEEE fp32)
 // The dropped small_a * small_b term is below 2^-22 of |a b|. The tensor
 // core's own accumulation rounds toward zero: chained over a whole K of 2304
-// that bias alone cost 2.5e-5 of the largest value on the H100 (70x the
-// fp32 plain version's error); chains of 12 MMAs keep it to the fp32 level
-// (emulated: tests/test_torch_tf32_split.py, which mirrors this order). It
+// that bias alone cost 2.5e-5 of the largest value on the H100, 70x the
+// fp32 plain version's error (test_block_bwd_kernel_fp64_accuracy in
+// tests/test_torch_cuda_kernels.py on a single-chain build); chains of 12
+// MMAs keep it to the fp32 level (emulated in tests/test_torch_tf32_split.py,
+// which mirrors this order). It
 // costs 3x the tensor core's operations (495 / 3 = 165 TFLOP/s fp32-
 // equivalent at the TF32 peak) and a second accumulator of 64 registers.
 // 1xTF32 (big_a * big_b alone) keeps 10 mantissa bits and misses fp32 by
-// ~3e-4 of the largest value at K = 2304; it is not used. (mma.sync
-// m16n8k8 was tried first: it reaches 280 TFLOP/s TF32 on the H100 with
-// nothing else issued, but each split, add or load issued beside it costs
-// tensor time, and these GEMMs ran 30-45% slower on it.)
+// ~3e-4 of the largest value at K = 2304; it is not used. (A first version
+// on mma.sync m16n8k8 ran slower: there every split, add and load a warp
+// issues beside its MMAs costs tensor time; a wgmma of 64 x 128 x 8 is one
+// instruction for a warpgroup.)
 //
 // Deterministic: every output is one thread's fixed sequence of MMAs and
 // adds; no atomics. An Op with kNormRelu has its A values rebuilt as

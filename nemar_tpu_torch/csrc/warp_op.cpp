@@ -4,11 +4,11 @@
 // The host side of one K-warp launch, in C++: the checks, the output's
 // allocation from PyTorch's caching allocator, the current stream, the
 // launch. At batch 1 the warp's device time is a few microseconds, so its
-// host path is what a caller waits for; from Python through ctypes it cost
-// about 16 us a call on the H100's host (torch.empty ~4-5 us, the ctypes
-// call and launch ~5-6 us, the checks the rest), against F.grid_sample's
-// ~9 us. Registered at load time of the kernel library (ops/_build.py
-// builds it with the CUDA sources and links PyTorch's c10 and torch_cpu).
+// host path is what a caller waits for (chip_smoke.py prints both: ms, by
+// CUDA events around the whole call, and device_ms); a torch.empty and a
+// ctypes call from Python cost more than a PyTorch operator's dispatch.
+// Registered at load time of the kernel library (ops/_build.py builds it
+// with the CUDA sources and links PyTorch's c10 and torch_cpu).
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <c10/cuda/CUDAGuard.h>
