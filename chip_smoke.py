@@ -20,9 +20,11 @@ is not 0.
      (F.grid_sample for K-warp, nn.Conv2d(padding_mode='reflect') for
      K-head), and the kernel's bound on this card. K-warp is timed as the
      model calls it, ops/warp.grid_sample from the normalised grid, call by
-     call in alternation with F.grid_sample on the same grid, and both by their
-     device time from torch.profiler (``device_ms``: the host's cost is the
-     difference);
+     call in alternation with F.grid_sample on the same grid (and with
+     the kernel through grid_sample's autograd.Function,
+     ``autograd_fn_ms``), and both by their device time from torch.profiler
+     (``device_ms``: the host's cost is the difference; a trace that misses
+     a launch is taken again, then fails the run);
   2b. each backward kernel likewise, at the training step's shapes (batch
      8); K-block-bwd and K-convt-bwd are fed the plain forward's saved
      values, and their comparison with their own forward's is shown beside.
@@ -56,7 +58,8 @@ is not 0.
      pallas_all`` and ``--c7_impl roll``: each flag is accepted, launches
      the same kernels per step, and gives bit-identical losses;
   6. card against CPU for one training step on a 256^2 batch-1 pair, from
-     one shared state (checkpoint and Adam moments): the seven losses within
+     one shared state (phase 5's checkpoint, saved before its
+     non-deterministic steps, and Adam moments): the seven losses within
      1e-4 relative, every gradient within max(1e-3, 3 x the step's own
      conditioning baseline) (‖Δg‖/‖g‖), the updated parameters within 1e-5
      (with the Adam caveat of tests/test_torch_nemar_train.py); see
@@ -183,48 +186,64 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def paired_median_ms(fa, fb, iters: int = 200, warmup: int = 10) -> tuple:
-    """Median CUDA-event times of fa() and fb(), timed call by call in
-    alternation, so that both see the same state of the host and the card."""
+def paired_median_ms(*fns, iters: int = 200, warmup: int = 10) -> list:
+    """Median CUDA-event times of each of fns, timed call by call in
+    alternation, so that all see the same state of the host and the card."""
     for _ in range(warmup):
-        fa()
-        fb()
-    times = ([], [])
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
     for _ in range(iters):
-        for fn, ts in zip((fa, fb), times):
+        for fn, ts in zip(fns, times):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
             end.synchronize()
             ts.append(start.elapsed_time(end))
-    return float(np.median(times[0])), float(np.median(times[1]))
+    return [float(np.median(ts)) for ts in times]
 
 
-def device_ms(fn, reps: int = 10) -> tuple:
+def device_ms(fn, launches: int | None, reps: int = 10) -> tuple:
     """fn's device time per call from torch.profiler (the sum of the CUDA
     kernels, memcpys and memsets it runs), and that time by kernel, in the
-    order of their first launch: [(kernel, launches per call, ms per call)]."""
-    from torch.profiler import ProfilerActivity
+    order of their first launch: [(kernel, launches per call, ms per call)].
+
+    The profiler traces one warm-up call and drops it (the first launches of
+    a trace can go unrecorded), then keeps ``reps`` calls. Each call must
+    show ``launches`` device events (None: the same number, at least one):
+    a trace that does not is taken again, twice at most, and then this
+    raises, so no time is returned that was not measured in full."""
+    from torch.profiler import ProfilerActivity, schedule
     from torch.profiler import profile as torch_profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then hands back no device events: retry
-        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    seen = []
+    for _ in range(3):
+        with torch_profile(activities=[ProfilerActivity.CUDA],
+                           schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        seen.append(len(events))
+        if events and len(events) % reps == 0 and launches in (None, len(events) // reps):
             break
+    else:
+        raise AssertionError(f"the profiler traced {seen} device events over {reps} calls, "
+                             f"not {launches or 'a whole number'} per call")
     by_kernel = {}
     for e in sorted(events, key=lambda e: e.time_range.start):
         name = e.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
         count, us = by_kernel.get(name, (0, 0.0))
         by_kernel[name] = (count + 1, us + e.time_range.elapsed_us())
     per_kernel = [(k, round(n / reps, 2), round(us / reps / 1e3, 4)) for k, (n, us) in by_kernel.items()]
-    return sum(ms for *_, ms in per_kernel), per_kernel
+    return sum(us for _, us in by_kernel.values()) / reps / 1e3, per_kernel
 
 
 def smooth_images(rng, n: int, c: int, size: int = 256) -> np.ndarray:
@@ -302,10 +321,13 @@ def check_kernels(dev) -> dict:
     # channels. Timed as the model calls it: ops/warp.grid_sample from the
     # normalised grid (one launch, the coordinate transform in the kernel),
     # against F.grid_sample on the same image and grid, call by call in
-    # alternation; each with
-    # its device time from the profiler beside the CUDA-event time (at b1
-    # both calls are bound by the host). The three padding modes and both
-    # align_corners are checked on a small ragged grid.
+    # alternation; each with its device time from the profiler beside the
+    # CUDA-event time (at b1 both calls are bound by the host). Alternated
+    # with them, ``autograd_fn_ms`` times the kernel through the
+    # autograd.Function that grid_sample takes when a gradient is needed (its
+    # own checks left out), for what grid_sample's direct path saves. The
+    # three padding modes and both align_corners are checked on a small
+    # ragged grid.
     F = torch.nn.functional
     img = torch.from_numpy(smooth_images(rng, 2, 3, 40)).to(dev)
     grid = torch.from_numpy(rng.uniform(-1.3, 1.3, (2, 23, 31, 2)).astype(np.float32)).to(dev)
@@ -333,17 +355,22 @@ def check_kernels(dev) -> dict:
         def lib():
             return F.grid_sample(img_nchw, grid, "bilinear", "zeros", False)
 
+        def autograd_fn():
+            with torch.no_grad():
+                return warp._GridSample.apply(img, grid, "zeros", False, 4)
+
         lib_err = torch.max(torch.abs(lib().permute(0, 2, 3, 1) - ref)).item()
-        ms, lms = paired_median_ms(kern, lib)
+        ms, lms, fms = paired_median_ms(kern, lib, autograd_fn)
         pms = median_ms(lambda: warp.grid_sample_plain(img, grid))
-        dms, dl = device_ms(kern, 50)
-        launches = sum(n for _, n, _ in dl)
-        lib_dms, _ = device_ms(lib, 50)
+        dms, dl = device_ms(kern, 1, 50)
+        lib_dms, ldl = device_ms(lib, None, 50)
         bnd = bound(8 * got.numel(), img, grid, got)
         phase("kernel", name="K-warp", shape=f"{n}x256x256x4", max_abs_err=err,
               tol=TOL["K-warp"], padding_modes_max_abs_err=modes_err, ms=ms, library_ms=lms,
-              device_ms=dms, library_device_ms=lib_dms, launches_per_call=launches,
-              plain_ms=pms, library_err=lib_err, bound_ms=max(bnd))
+              autograd_fn_ms=fms, device_ms=dms, library_device_ms=lib_dms,
+              launches_per_call=sum(k for _, k, _ in dl),
+              library_launches_per_call=sum(k for _, k, _ in ldl), plain_ms=pms,
+              library_err=lib_err, bound_ms=max(bnd))
         if not err <= TOL["K-warp"]:
             raise AssertionError(f"K-warp disagrees with its plain version: {err}")
         if n == 1:
@@ -552,7 +579,7 @@ def check_bwd_kernels(dev) -> dict:
 
         ms = median_ms(kern, iters=20)
         pms = median_ms(lambda: conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved), iters=10)
-        dms, per_launch = device_ms(kern, 10)
+        dms, per_launch = device_ms(kern, 12, 10)
         flops = 4 * 2 * b * 64 * 64 * 256 * 9 * 256
         bnd = bound(flops, x, *saved, g, w1, w2, *got)
         tc_bound = 3 * flops / PEAK_TF32_FLOPS * 1e3
@@ -797,8 +824,10 @@ def train_model(args: list):
     return model
 
 
-def run_train(ckpt: str):
-    """Phase 5. Returns (launches over the counted steps, the model)."""
+def run_train(ckpt: str) -> dict:
+    """Phase 5. Returns the launches over the counted steps. Saves the model
+    as epoch ``smoke`` before the steps with cuDNN's non-deterministic
+    algorithms, so phase 6 starts from the same state in every run."""
     model = train_model([*TRAIN_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
                          "--batch_size", str(TRAIN_BATCH)])
     head = model.netR.head()
@@ -842,6 +871,7 @@ def run_train(ckpt: str):
         model.optimize_parameters()
 
     profile(run, 2, "profile_train_b8", "step")
+    model.save_networks("smoke")
 
     # what determinism costs: the same steps with cuDNN's default
     # algorithms (the convolutions outside the kernels), then back
@@ -864,7 +894,7 @@ def run_train(ckpt: str):
     phase("train_cudnn_default", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
           ms_per_step_median=round(ms_free, 3), deterministic_ms_per_step=round(ms, 3),
           determinism_cost=round(ms / ms_free - 1, 4))
-    return launches, model
+    return launches
 
 
 def run_layout_flags(ckpt: str) -> None:
@@ -909,14 +939,15 @@ def _grad(net_params: dict, key: str) -> torch.Tensor:
     return torch.zeros_like(p).cpu() if p.grad is None else p.grad.detach().cpu()
 
 
-def compare_train_with_cpu(ckpt: str, model) -> None:
+def compare_train_with_cpu(ckpt: str) -> None:
     """Phase 6: one training step, card against CPU, from one shared state,
     and against the step's own conditioning; then two fresh two-step runs
     on the card, bit for bit.
 
-    The shared state is the phase-5 model's checkpoint after one more step
-    on the card (parameters and Adam moments, loaded by --continue_train and
-    the optimizers' state dicts). A fresh Adam is not used: its first update
+    The shared state is the phase-5 model's checkpoint (epoch ``smoke``,
+    saved before its non-deterministic steps) after one more step on the
+    card (parameters and Adam moments, loaded by --continue_train and the
+    optimizers' state dicts). A fresh Adam is not used: its first update
     is lr * sign(g), so the G step's gradient, taken against the updated D,
     jumps with the sign of D-gradient elements that are zero up to roundoff.
     Even from the shared state, the step's gradients are ill-conditioned:
@@ -927,7 +958,6 @@ def compare_train_with_cpu(ckpt: str, model) -> None:
     the warp). So each gradient is held to max(1e-3, 3 x its
     baseline), the baseline being the CPU against itself with real_A scaled
     by 1 + PERTURB (printed)."""
-    model.save_networks("smoke")
     pairs = request_batches(2, 1, seed=5)
     args = [*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--continue_train", "--batch_size", "1"]
     card = train_model([*args, "--epoch", "smoke", "--gpu_ids", "0"])
@@ -1070,13 +1100,13 @@ def main() -> int:
         launches, first, batch = run_slice(ckpt)
         compare_with_cpu(ckpt, first, batch)
         t0 = time.perf_counter()
-        train_launches, model = run_train(ckpt)
+        train_launches = run_train(ckpt)
         phase("train_phase", seconds=round(time.perf_counter() - t0, 2))
         t0 = time.perf_counter()
         run_layout_flags(ckpt)
         phase("layout_flags_phase", seconds=round(time.perf_counter() - t0, 2))
         t0 = time.perf_counter()
-        compare_train_with_cpu(ckpt, model)
+        compare_train_with_cpu(ckpt)
         phase("train_vs_cpu_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none)

@@ -39,8 +39,10 @@
 // that bias alone cost 2.5e-5 of the largest value on the H100, 70x the
 // fp32 plain version's error (test_block_bwd_kernel_fp64_accuracy in
 // tests/test_torch_cuda_kernels.py on a single-chain build); chains of 12
-// MMAs keep it to the fp32 level (emulated in tests/test_torch_tf32_split.py,
-// which mirrors this order). It
+// MMAs keep it to the fp32 level. tests/test_torch_tf32_split.py emulates
+// this order, with each MMA rounding toward zero, and holds both: 32-deep
+// chains within 2e-6 of the largest value, one chain over K beyond it. On
+// the card, chip_smoke.py's rel_err_vs_fp64 (phase 2b) holds the kernel. It
 // costs 3x the tensor core's operations (495 / 3 = 165 TFLOP/s fp32-
 // equivalent at the TF32 peak) and a second accumulator of 64 registers.
 // 1xTF32 (big_a * big_b alone) keeps 10 mantissa bits and misses fp32 by

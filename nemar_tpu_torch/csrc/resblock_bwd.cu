@@ -47,10 +47,7 @@
 //   6.   dpad2 = the zero-padded full correlation of dz2 with W2^T on the
 //        (H+2) x (W+2) domain: GEMM M = N (H+2)(W+2), N = C (ci), K = 9C
 //        (tap, co), A[(b, U, V), (tap, co)] = dz2[b, U - dy, V - dx, co] or 0
-//        off the frame (cp.async zero fill), B = W2 in HWIO as it is. K is
-//        cut in DSPLIT = 2 parts (a block each, two dpad buffers summed in
-//        order where they are read): the 273 x 2 tiles at b8 then fill the
-//        132 SMs in 9 rounds, not 5 of which the last holds 18 tiles. The
+//        off the frame (cp.async zero fill), B = W2 in HWIO as it is. The
 //        reflect pad's adjoint is then a fold of dpad's four border lines
 //        onto rows / columns 1 and H-2 (W-2), in
 //        ops/conv_fused.py:reflect_pad_adjoint's order. This is design (b):
@@ -65,7 +62,7 @@
 //   12.  dx = g + fold(dpad1), and dW1 = the fixed-order sum of 10's
 //        partials, in one launch (two independent element-wise passes).
 //
-// Layouts: x, y1, y2, g, dz, dx (N, H, W, C) fp32; dpad (DSPLIT, N, H+2, W+2, C);
+// Layouts: x, y1, y2, g, dz, dx (N, H, W, C) fp32; dpad (N, H+2, W+2, C);
 // stats (N, 4, C) = (mu1, rstd1, mu2, rstd2), the forward's; w1, w2, dw1,
 // dw2 (3, 3, C_in, C_out) HWIO; wsplit (4, 9C, C) = (W1 big, W1 small, W2
 // big, W2 small); part_in (N*H*W/64, 2, C); means (N, 2, C); part_w
@@ -97,30 +94,19 @@ __device__ __forceinline__ float4 add(float4 a, float4 b) {
 template <class T>
 __device__ __forceinline__ T load(const float* p) { return *reinterpret_cast<const T*>(p); }
 
-// The dgrads cut K into DSPLIT parts, each written to its own dpad buffer
-// (dstride floats apart); a dpad value is their sum, in order.
-constexpr int DSPLIT = 2;
-template <class T>
-__device__ __forceinline__ T load_ksum(const float* p, size_t dstride) {
-  T s = load<T>(p);
-#pragma unroll
-  for (int k = 1; k < DSPLIT; ++k) s = add(s, load<T>(p + k * dstride));
-  return s;
-}
-
 // reflect_pad_adjoint(dpad, 1) at (b, u, v), channels ch.. (1 or 4 of them):
 // the padded row U = u + 1 plus padded row 0 (U == 2) then row H + 1
 // (U == H - 1); then, on those row sums, column V = v + 1 plus column 0
 // (V == 2) then column W + 1 (V == W - 1).
 template <class T>
-__device__ __forceinline__ T fold(const float* __restrict__ dpad, size_t dstride, int b, int u,
-                                  int v, int ch, int h, int w, int c) {
+__device__ __forceinline__ T fold(const float* __restrict__ dpad, int b, int u, int v, int ch,
+                                  int h, int w, int c) {
   const int wp = w + 2, U = u + 1, V = v + 1;
   const float* base = dpad + (size_t)b * (h + 2) * wp * c + ch;
   auto row_sum = [&](int col) {
-    T s = load_ksum<T>(base + ((size_t)U * wp + col) * c, dstride);
-    if (U == 2) s = add(s, load_ksum<T>(base + (size_t)col * c, dstride));
-    if (U == h - 1) s = add(s, load_ksum<T>(base + ((size_t)(h + 1) * wp + col) * c, dstride));
+    T s = load<T>(base + ((size_t)U * wp + col) * c);
+    if (U == 2) s = add(s, load<T>(base + (size_t)col * c));
+    if (U == h - 1) s = add(s, load<T>(base + ((size_t)(h + 1) * wp + col) * c));
     return s;
   };
   T s = row_sum(V);
@@ -132,13 +118,13 @@ __device__ __forceinline__ T fold(const float* __restrict__ dpad, size_t dstride
 // The gradient arriving at an instance norm, at pixel p (global index):
 // stage 2 reads g; stage 1 reads dh1 = fold(dpad2).
 template <int kStage, class T>
-__device__ __forceinline__ T grad_at(const float* __restrict__ src, size_t dstride, int p, int ch,
-                                     int h, int w, int c) {
+__device__ __forceinline__ T grad_at(const float* __restrict__ src, int p, int ch, int h, int w,
+                                     int c) {
   if constexpr (kStage == 2) {
     return load<T>(src + (size_t)p * c + ch);
   } else {
     const int hw = h * w, b = p / hw, pix = p - b * hw, u = pix / w;
-    return fold<T>(src, dstride, b, u, pix - u * w, ch, h, w, c);
+    return fold<T>(src, b, u, pix - u * w, ch, h, w, c);
   }
 }
 
@@ -174,10 +160,9 @@ struct DgradOp {
       ruv[i] = m < rows ? (u << 16) | v : 0x7fff0000;
     }
   }
-  // blockIdx.z: which of the DSPLIT parts of the K slices (taps x channels)
-  __device__ int ktiles() const { return 9 * c / BK / DSPLIT; }
+  __device__ int ktiles() const { return 9 * c / BK; }
   __device__ void load(int kt, float* As, float* Bb, float* Bs, int tid) const {
-    const int k0 = (kt + blockIdx.z * ktiles()) * BK;
+    const int k0 = kt * BK;
     const int tap = k0 / c;
     const int co = k0 - tap * c + kc;
     const int dy = tap / 3, dx = tap - 3 * dy;
@@ -201,7 +186,7 @@ struct DgradOp {
   template <class V>
   __device__ void write(int r, int col, V val) const {
     const int m = m0 + r;
-    if (m < rows) *reinterpret_cast<V*>(dpad + ((size_t)blockIdx.z * rows + m) * c + n0 + col) = val;
+    if (m < rows) *reinterpret_cast<V*>(dpad + (size_t)m * c + n0 + col) = val;
   }
 };
 
@@ -281,8 +266,7 @@ __device__ __forceinline__ void in_bwd_terms(float gin, float yv, float mu, floa
 
 // One block per (64-pixel tile, 128-channel block), one thread per channel.
 template <int kStage>
-__global__ void in_bwd_partial_kernel(const float* __restrict__ gsrc, size_t dstride,
-                                      const float* __restrict__ y,
+__global__ void in_bwd_partial_kernel(const float* __restrict__ gsrc, const float* __restrict__ y,
                                       const float* __restrict__ stats,
                                       float* __restrict__ part, int h, int w, int c) {
   const int tile = blockIdx.x;
@@ -294,7 +278,7 @@ __global__ void in_bwd_partial_kernel(const float* __restrict__ gsrc, size_t dst
   float s1 = 0.f, s2 = 0.f;
   for (int i = 0; i < IN_TILE; ++i) {
     float gv, yh;
-    in_bwd_terms<kStage>(grad_at<kStage, float>(gsrc, dstride, m0 + i, ch, h, w, c),
+    in_bwd_terms<kStage>(grad_at<kStage, float>(gsrc, m0 + i, ch, h, w, c),
                          y[(size_t)(m0 + i) * c + ch], mu, rs, gv, yh);
     s1 += gv;
     s2 = fmaf(gv, yh, s2);
@@ -341,8 +325,7 @@ __global__ void in_bwd_merge_kernel(const float* __restrict__ part, float* __res
 }
 
 template <int kStage>
-__global__ void in_bwd_apply_kernel(const float* __restrict__ gsrc, size_t dstride,
-                                    const float4* __restrict__ y,
+__global__ void in_bwd_apply_kernel(const float* __restrict__ gsrc, const float4* __restrict__ y,
                                     const float* __restrict__ stats,
                                     const float* __restrict__ means, float4* __restrict__ dz,
                                     long long total4, int h, int w, int c) {
@@ -356,7 +339,7 @@ __global__ void in_bwd_apply_kernel(const float* __restrict__ gsrc, size_t dstri
   const float* rs = mu + c;
   const float* m1 = means + (size_t)b * 2 * c + ch;
   const float* m2 = m1 + c;
-  const float4 gv4 = grad_at<kStage, float4>(gsrc, dstride, p, ch, h, w, c), yv4 = y[i];
+  const float4 gv4 = grad_at<kStage, float4>(gsrc, p, ch, h, w, c), yv4 = y[i];
   const float gin[4] = {gv4.x, gv4.y, gv4.z, gv4.w};
   const float yin[4] = {yv4.x, yv4.y, yv4.z, yv4.w};
   float o[4];
@@ -384,7 +367,7 @@ __global__ void split_sum_kernel(const float4* __restrict__ part, float4* __rest
 }
 
 // 12: blocks [0, fold_blocks) write dx = g + fold(dpad1), the rest dW1
-__global__ void finish_kernel(const float* __restrict__ g, const float* __restrict__ dpad, size_t dstride,
+__global__ void finish_kernel(const float* __restrict__ g, const float* __restrict__ dpad,
                               float4* __restrict__ dx, const float4* __restrict__ part,
                               float4* __restrict__ dw, long long total4_x, long long total4_w,
                               int splits, int fold_blocks, int h, int w, int c) {
@@ -394,7 +377,7 @@ __global__ void finish_kernel(const float* __restrict__ g, const float* __restri
     const long long e = i * 4;
     const int p = (int)(e / c);
     const int ch = (int)(e - (long long)p * c);
-    dx[i] = add(load<float4>(g + e), grad_at<1, float4>(dpad, dstride, p, ch, h, w, c));
+    dx[i] = add(load<float4>(g + e), grad_at<1, float4>(dpad, p, ch, h, w, c));
   } else {
     const long long i = (long long)(blockIdx.x - fold_blocks) * blockDim.x + threadIdx.x;
     if (i < total4_w) split_sum(part, dw, i, total4_w, splits);
@@ -403,12 +386,12 @@ __global__ void finish_kernel(const float* __restrict__ g, const float* __restri
 
 // 1-3 / 7-9
 template <int kStage>
-cudaError_t in_bwd(const float* gsrc, size_t dstride, const float* y, const float* stats, float* part,
+cudaError_t in_bwd(const float* gsrc, const float* y, const float* stats, float* part,
                    float* means, float* dz, int n, int h, int w, int c, cudaStream_t stream,
                    const float* w1 = nullptr, const float* w2 = nullptr, float* wsplit = nullptr) {
   const int hw = h * w, tiles = hw / IN_TILE;
   in_bwd_partial_kernel<kStage><<<dim3((unsigned)(n * tiles), (unsigned)(c / 128)), 128, 0, stream>>>(
-      gsrc, dstride, y, stats, part, h, w, c);
+      gsrc, y, stats, part, h, w, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_blocks = (n * c + 255) / 256;
@@ -419,7 +402,7 @@ cudaError_t in_bwd(const float* gsrc, size_t dstride, const float* y, const floa
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long total4 = (long long)n * hw * c / 4;
   in_bwd_apply_kernel<kStage><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-      gsrc, dstride, reinterpret_cast<const float4*>(y), stats, means, reinterpret_cast<float4*>(dz),
+      gsrc, reinterpret_cast<const float4*>(y), stats, means, reinterpret_cast<float4*>(dz),
       total4, h, w, c);
   return cudaGetLastError();
 }
@@ -454,8 +437,7 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dpad, int n, int 
   op.wd = wd;
   op.c = c;
   op.rows = n * (h + 2) * (wd + 2);
-  return tc::launch_wgmma(op, dim3((unsigned)((op.rows + BM - 1) / BM), (unsigned)(c / BN), DSPLIT),
-                         stream);
+  return tc::launch_wgmma(op, dim3((unsigned)((op.rows + BM - 1) / BM), (unsigned)(c / BN)), stream);
 }
 
 }  // namespace
@@ -466,24 +448,23 @@ extern "C" int nemar_resblock_bwd(const float* x, const float* y1, const float* 
                                   float* means, float* part_w, float* dw1, float* dw2, float* dx,
                                   int n, int h, int w, int c, int splits, cudaStream_t stream) {
   cudaError_t err;
-  const size_t dstride = (size_t)n * (h + 2) * (w + 2) * c;  // one dpad buffer
   const long long total4_w = (long long)9 * c * c / 4;
   const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
   // stage 2: through IN2 and conv2 -> dW2, dpad2
-  if ((err = in_bwd<2>(g, 0, y2, stats, part_in, means, dz, n, h, w, c, stream, w1, w2, wsplit)) != cudaSuccess) return (int)err;
+  if ((err = in_bwd<2>(g, y2, stats, part_in, means, dz, n, h, w, c, stream, w1, w2, wsplit)) != cudaSuccess) return (int)err;
   if ((err = wgrad<true>(y1, stats, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
   split_sum_kernel<<<sum_blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part_w),
                                                    reinterpret_cast<float4*>(dw2), total4_w, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = dgrad(dz, wsplit + (size_t)18 * c * c, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   // stage 1: through the fold, relu, IN1 and conv1 -> dW1, dx = g + fold(dpad1)
-  if ((err = in_bwd<1>(dpad, dstride, y1, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = in_bwd<1>(dpad, y1, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   if ((err = wgrad<false>(x, stats, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
   if ((err = dgrad(dz, wsplit, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   const long long total4_x = (long long)n * h * w * c / 4;
   const int fold_blocks = (int)((total4_x + 255) / 256);
   finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
-      g, dpad, dstride, reinterpret_cast<float4*>(dx), reinterpret_cast<const float4*>(part_w),
+      g, dpad, reinterpret_cast<float4*>(dx), reinterpret_cast<const float4*>(part_w),
       reinterpret_cast<float4*>(dw1), total4_x, total4_w, splits, fold_blocks, h, w, c);
   return (int)cudaGetLastError();
 }

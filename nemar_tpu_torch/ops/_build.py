@@ -1,19 +1,18 @@
-"""Build the package's CUDA kernels with nvcc; locate Triton's cache.
+"""Build the package's CUDA kernels with nvcc; load their PyTorch operators;
+locate Triton's cache.
 
-The CUDA sources under ``nemar_tpu_torch/csrc/`` have a plain C interface.
-At first use each ``.cu`` is compiled by its own nvcc process, all started
-together, and the objects are linked into one shared library under
-``nemar_tpu_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-the sources (headers included), the flags and PyTorch's version, and loaded
-with ``ctypes``. A rebuild happens only when one of those changes. The
-library is written under a temporary name and renamed into place, so
+The CUDA sources under ``nemar_tpu_torch/csrc/`` are kernels behind plain C
+launchers (``*.cu``) and the PyTorch operators that call them
+(``ops.cpp``, ``torch.ops.nemar.*``, one per kernel). At first use each
+source is compiled by its own nvcc process, all started together (the
+``.cpp`` against PyTorch's ATen and c10 headers), and the objects are linked
+into one shared library under ``nemar_tpu_torch/_build/`` (listed in
+``.gitignore``), linked to PyTorch's ``c10``, ``c10_cuda`` and
+``torch_cpu``, named by a hash of the sources (headers included), the flags
+and PyTorch's version, and loaded with ``torch.ops.load_library``, which
+registers the operators. A rebuild happens only when one of those changes.
+The library is written under a temporary name and renamed into place, so
 processes that build at the same time never load a half-written file.
-
-The ``.cpp`` sources are PyTorch operators around a launcher (K-warp's,
-``csrc/warp_op.cpp``): nvcc compiles them against PyTorch's headers (ATen
-and c10 only, a few seconds) into the same library, linked to PyTorch's
-``c10``, ``c10_cuda`` and ``torch_cpu``; loading the library registers them
-under ``torch.ops.nemar``.
 
 Nothing here runs at import time: this module is imported on machines
 without CUDA, where only the ops' plain PyTorch versions run.
@@ -21,7 +20,6 @@ without CUDA, where only the ops' plain PyTorch versions run.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
 import os
@@ -121,66 +119,18 @@ def build() -> tuple[Path, float]:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _library() -> Path:
     path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    lib.nemar_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.nemar_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    torch.ops.load_library(str(path))
+    return path
 
 
-def c_function(name: str, argtypes: list):
-    """A launcher of the library, with its argument types declared.
-
-    Pointers and the stream must be declared ``ctypes.c_void_p``: undeclared,
-    ctypes would pass them as 32-bit ints and cut them.
-    """
-    fn = getattr(_library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-class Launcher:
-    """A launcher of the library on PyTorch's current stream, with a lean
-    host path: the argument types are declared once, at the first call,
-    and the raw stream is read without entering ``torch.cuda.device``
-    unless the tensors lie on another device than the current one.
-
-    ``launcher(device, *args)`` calls the C function with ``args`` and the
-    stream appended, and raises if it returned a CUDA error.
-    """
-
-    def __init__(self, name: str, argtypes: list):
-        self.name, self._argtypes, self._fn = name, argtypes, None
-
-    def __call__(self, device: torch.device, *args) -> None:
-        fn = self._fn
-        if fn is None:
-            fn = self._fn = c_function(self.name, [*self._argtypes, ctypes.c_void_p])
-        index = device.index
-        if index == torch._C._cuda_getDevice():
-            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-        else:
-            with torch.cuda.device(index):
-                code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-        if code:
-            check(code, self.name)
-
-
+@functools.cache
 def op(name: str):
-    """The PyTorch operator ``torch.ops.nemar.<name>``, registered by loading
-    the library: the dispatcher's callable of its default overload (what
-    ``OpOverload.__call__`` calls, without that Python frame)."""
+    """The operator ``torch.ops.nemar.<name>`` (its default overload), built
+    and registered at the first call."""
     _library()
-    return getattr(torch.ops.nemar, name).default._op
-
-
-def check(code: int, what: str) -> None:
-    """Raise if a launcher returned a CUDA error (a refused launch never runs)."""
-    if code != 0:
-        msg = _library().nemar_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+    return getattr(torch.ops.nemar, name).default
 
 
 def import_triton():

@@ -22,23 +22,18 @@ gradient (they are inert through IN and no inputs here).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
 from nemar_tpu_torch.ops import _build
 from nemar_tpu_torch.ops.norm import instance_norm_stats, normalise
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 # tile sizes of csrc/resblock_{fwd,bwd}.cu: a pixel tile must not straddle samples
 _BM, _BN = 64, 128
 # K-block-bwd's weight gradients are split-K GEMMs of (9C / 128) x (C / 128)
 # tiles: split into as many pixel ranges as fill three waves of one block
 # (its shared memory's and registers' budget) on each of the H100's 132 SMs
 _WGRAD_SLOTS = 3 * 132
-_resblock_bwd = _build.Launcher("nemar_resblock_bwd", [_P] * 16 + [_I] * 5)
 
 
 def wgrad_splits(n: int, h: int, w: int, c: int) -> int:
@@ -181,13 +176,7 @@ def fused_resblock_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     out = torch.empty_like(x)
     part = torch.empty((n * h * w // _BM, 2, c), dtype=torch.float32, device=x.device)
     stats = torch.empty((n, 4, c), dtype=torch.float32, device=x.device)
-    fn = _build.c_function("nemar_resblock_fwd",
-                           [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-                  part.data_ptr(), stats.data_ptr(), out.data_ptr(), n, h, w, c, eps, stream)
-    _build.check(code, "fused_resblock_cuda")
+    _build.op("resblock_fwd")(x, w1, w2, y1, y2, part, stats, out, eps)
     fused_resblock_cuda.launches += 1
     return out, y1, y2, stats
 
@@ -217,8 +206,8 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: t
     dev = x.device
     wsplit = torch.empty((4, 9 * c, c), dtype=torch.float32, device=dev)
     dz = torch.empty_like(x)
-    # the dgrads' two K halves of the reflect-padded input's gradient
-    dpad = torch.empty((2, n, h + 2, w + 2, c), dtype=torch.float32, device=dev)
+    # the gradient of the reflect-padded input, written by each dgrad
+    dpad = torch.empty((n, h + 2, w + 2, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     part_in = torch.empty((n * h * w // 64, 2, c), dtype=torch.float32, device=dev)
     means = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
@@ -226,10 +215,8 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: t
     dw1 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
     dw2 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
     _aligned("resblock_bwd_cuda", x, y1, y2, stats, g, w1, w2)
-    _resblock_bwd(dev, x.data_ptr(), y1.data_ptr(), y2.data_ptr(), stats.data_ptr(), g.data_ptr(),
-                  w1.data_ptr(), w2.data_ptr(), wsplit.data_ptr(), dz.data_ptr(), dpad.data_ptr(),
-                  part_in.data_ptr(), means.data_ptr(), part_w.data_ptr(), dw1.data_ptr(),
-                  dw2.data_ptr(), dx.data_ptr(), n, h, w, c, splits)
+    _build.op("resblock_bwd")(x, y1, y2, stats, g, w1, w2, wsplit, dz, dpad, part_in, means,
+                              part_w, dw1, dw2, dx, splits)
     resblock_bwd_cuda.launches += 1
     return dx, dw1, dw2
 

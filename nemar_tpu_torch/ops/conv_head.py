@@ -20,8 +20,6 @@ cuDNN, cuBLAS or ``F.conv2d`` on that path, and no float atomics.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
@@ -30,8 +28,6 @@ from nemar_tpu_torch.ops.conv_fused import (
     conv_adjoint_plain, conv_wgrad_plain, reflect_pad_adjoint,
 )
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 PAD = 3
 MAX_CO = 8
 # pixel tile of K-head-bwd's weight-gradient partials (csrc/head_bwd.cu)
@@ -75,11 +71,7 @@ def conv_head_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n, h, wd, ci = x.shape
     co = w.shape[3]
     out = torch.empty((n, h, wd, co), dtype=torch.float32, device=x.device)
-    fn = _build.c_function("nemar_conv_head_fwd", [_P] * 3 + [_I] * 5 + [_P])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, ci, co, stream)
-    _build.check(code, "conv_head_cuda")
+    _build.op("conv_head_fwd")(x, w, out)
     conv_head_cuda.launches += 1
     return out
 
@@ -102,12 +94,7 @@ def conv_head_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tup
     part = torch.empty((tiles, 49, ci, co), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty((7, 7, ci, co), dtype=torch.float32, device=x.device)
-    fn = _build.c_function("nemar_conv_head_bwd", [_P] * 6 + [_I] * 5 + [_P])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), w.data_ptr(), g.data_ptr(), part.data_ptr(), dx.data_ptr(),
-                  dw.data_ptr(), n, h, wd, ci, co, stream)
-    _build.check(code, "conv_head_bwd_cuda")
+    _build.op("conv_head_bwd")(x, w, g, part, dx, dw)
     conv_head_bwd_cuda.launches += 1
     return dx, dw
 

@@ -28,16 +28,12 @@ the TPU kernel does.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
 from nemar_tpu_torch.ops import _build
 from nemar_tpu_torch.ops.norm import instance_norm_stats, normalise
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 # tile of K-convt's GEMM (pixels of one plane) and of K-convt-bwd's
 # instance-norm partials (output pixels), csrc/gemm_core.cuh and convt_bwd.cu
 _BM = 64
@@ -145,12 +141,7 @@ def fused_convt_in_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> 
     out = torch.empty_like(yhat)
     part = torch.empty((n * 4 * tiles, 2, co), dtype=torch.float32, device=dev)
     stats = torch.empty((n, 2, co), dtype=torch.float32, device=dev)
-    fn = _build.c_function("nemar_convt_in_fwd", [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), w.data_ptr(), yhat.data_ptr(), part.data_ptr(),
-                  stats.data_ptr(), out.data_ptr(), n, h, wd, ci, co, eps, stream)
-    _build.check(code, "fused_convt_in_cuda")
+    _build.op("convt_in_fwd")(x, w, yhat, part, stats, out, eps)
     fused_convt_in_cuda.launches += 1
     return out, yhat, stats
 
@@ -194,13 +185,8 @@ def convt_in_bwd_cuda(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stat
     dw = torch.empty((3, 3, ci, co), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     _aligned("convt_in_bwd_cuda", x, wt, yhat, stats, g)
-    fn = _build.c_function("nemar_convt_in_bwd", [_P] * 11 + [_I] * 7 + [_P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), wt.data_ptr(), yhat.data_ptr(), stats.data_ptr(), g.data_ptr(),
-                  dz.data_ptr(), part_in.data_ptr(), means.data_ptr(), part_w.data_ptr(),
-                  dw.data_ptr(), dx.data_ptr(), n, h, wd, ci, co, splits, per, stream)
-    _build.check(code, "convt_in_bwd_cuda")
+    _build.op("convt_in_bwd")(x, wt, yhat, stats, g, dz, part_in, means, part_w, dw, dx,
+                              splits, per)
     convt_in_bwd_cuda.launches += 1
     return dx, dw
 

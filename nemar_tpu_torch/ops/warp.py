@@ -279,7 +279,9 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
     """
     if (img.is_cuda and not (img.requires_grad or grid.requires_grad) and mode == "bilinear"
             and grid.dtype == torch.float32):
-        # nothing to differentiate: the kernel alone, which checks what it takes
+        # nothing to differentiate: the kernel's operator alone, which checks
+        # what it takes; through _GridSample the b1 call costs 0.05 ms of host
+        # time instead of 0.03, F.grid_sample's (PERF.md, section 6)
         return warp_cuda.warp_bilinear(img, grid, padding_mode, align_corners)
     _check(img, grid)
     if padding_mode not in warp_cuda.PADDING_MODES:

@@ -10,25 +10,20 @@ taps). K-warp-bwd takes the PIXEL coordinates the grid maps to
 image (first ``grad_channels`` channels) and to those coordinates; torch
 autograd chains it to the grid (``ops/warp.py:_GridSample``).
 
-K-warp launches through its C++ operator (``csrc/warp_op.cpp``): at batch 1
-its device time is a few microseconds, so the host's cost per call is what
-the caller waits for. K-warp-bwd launches through ``_build.Launcher``. Both
-check only what their kernels need: CUDA, fp32, contiguous, shapes.
+Both launch through their PyTorch operators (``csrc/ops.cpp``). K-warp's
+does the checks and the allocation in C++: at batch 1 its device time is a
+few microseconds, so the host's cost per call is what the caller waits for.
+Both check only what their kernels need: CUDA, fp32, contiguous, shapes.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from nemar_tpu_torch.ops import _build
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 PADDING_MODES = {"zeros": 0, "border": 1, "reflection": 2}
 _warp_grid = None  # torch.ops.nemar.warp_grid, once the library is loaded
-_bwd = _build.Launcher("nemar_warp_bilinear_bwd", [_P] * 9 + [_I] * 7)
 
 
 def _refuse(what: str, tensors: dict) -> None:
@@ -58,7 +53,7 @@ def warp_bilinear(img: torch.Tensor, grid: torch.Tensor, padding_mode: str = "ze
     normalised to [-1, 1] -> (N, Ho, Wo, C).
 
     CUDA tensors only, both fp32. The checks, the allocation and the launch
-    are the C++ operator ``torch.ops.nemar.warp_grid`` (``csrc/warp_op.cpp``),
+    are the C++ operator ``torch.ops.nemar.warp_grid`` (``csrc/ops.cpp``),
     which raises on what the kernel does not take.
     """
     if not img.is_cuda:
@@ -105,9 +100,7 @@ def warp_bilinear_bwd(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, g: 
     dimg = torch.empty_like(img) if grad_channels else None
     acc = torch.zeros((n, h, w, grad_channels), dtype=torch.int64, device=dev)
     gmax = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _bwd(dev, img.data_ptr(), xs.data_ptr(), ys.data_ptr(), g.data_ptr(),
-         dimg.data_ptr() if dimg is not None else None, dxs.data_ptr(), dys.data_ptr(),
-         acc.data_ptr(), gmax.data_ptr(), n, h, w, c, ho, wo, grad_channels)
+    _build.op("warp_bwd")(img, xs, ys, g, dimg, dxs, dys, acc, gmax, grad_channels)
     warp_bilinear_bwd.launches += 1
     return dimg, dxs, dys
 
