@@ -88,6 +88,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -212,7 +213,7 @@ def device_ms(fn, launches: int | None, reps: int = 10) -> tuple:
     The profiler traces one warm-up call and drops it (the first launches of
     a trace can go unrecorded), then keeps ``reps`` calls. Each call must
     show ``launches`` device events (None: the same number, at least one):
-    a trace that does not is taken again, twice at most, and then this
+    a trace that does not is taken again, four times at most, and then this
     raises, so no time is returned that was not measured in full."""
     from torch.profiler import ProfilerActivity, schedule
     from torch.profiler import profile as torch_profile
@@ -220,7 +221,7 @@ def device_ms(fn, launches: int | None, reps: int = 10) -> tuple:
     fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(3):
+    for _ in range(5):
         with torch_profile(activities=[ProfilerActivity.CUDA],
                            schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
@@ -270,6 +271,27 @@ def smooth_grid(rng, n: int, h: int, w: int, px: float = 3.0) -> torch.Tensor:
     return identity_grid(h, w)[None] + field
 
 
+def warp_bwd_tie_case(rng, align_corners: bool, dev) -> tuple:
+    """(img, grid) for K-warp-bwd's check in one padding mode: a ragged
+    33 x 47 image sampled at a 21 x 19 grid whose entries are, at random,
+    exactly -1 or +1, the identity grid's first or last value on their axis
+    (where the clip and the reflection sit on their ties), or uniform in
+    [-1.3, 1.3] (off the frame too). tests/test_torch_cuda_kernels.py sweeps
+    more shapes and fields."""
+    from nemar_tpu_torch.ops.warp import identity_grid
+
+    h, w = 33, 47
+    img = rng.standard_normal((2, h, w, 4)).astype(np.float32)
+    ident = identity_grid(h, w, align_corners).numpy()
+    edges = ((ident[0, 0, 0], ident[0, -1, 0]), (ident[0, 0, 1], ident[-1, 0, 1]))
+    grid = rng.uniform(-1.3, 1.3, (2, 21, 19, 2)).astype(np.float32)
+    pick = rng.integers(0, 5, grid.shape)
+    for axis in (0, 1):
+        for k, v in enumerate((-1.0, 1.0, *edges[axis])):
+            grid[..., axis][pick[..., axis] == k] = v
+    return torch.from_numpy(img).to(dev), torch.from_numpy(grid).to(dev)
+
+
 def bound(flops: float, *tensors) -> tuple:
     """(ms on the operations' bound, ms on the bytes' bound) of one call:
     its fp32 operations over the fp32 peak, and the bytes of ``tensors``
@@ -283,7 +305,7 @@ class Tally:
 
     def __init__(self):
         self.err, self.ms, self.plain_ms, self.lib_ms = 0.0, 0.0, 0.0, None
-        self.ops_ms, self.bytes_ms, self.bound_ms = 0.0, 0.0, 0.0
+        self.ops_ms, self.bytes_ms, self.bound_ms, self.tc_ms = 0.0, 0.0, 0.0, 0.0
 
     def add(self, calls: int, err: float, ms: float, pms: float, bnd: tuple,
             lib_ms: float | None = None) -> None:
@@ -295,12 +317,18 @@ class Tally:
         self.ops_ms += calls * bnd[0]
         self.bytes_ms += calls * bnd[1]
         self.bound_ms += calls * max(bnd)
+        # a GEMM's operations in 3xTF32 on the tensor cores: the larger of
+        # that and its bytes (fp32-accurate on this card, PERF.md section 6)
+        self.tc_ms += calls * max(bnd[0] * PEAK_FP32_FLOPS * 3 / PEAK_TF32_FLOPS, bnd[1])
 
-    def result(self) -> dict:
-        return {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
-                "bound_ms": self.bound_ms,
-                "bound_by": "operations" if self.ops_ms >= self.bytes_ms else "bytes",
-                "library_ms": self.lib_ms}
+    def result(self, gemm: bool = False) -> dict:
+        out = {"max_abs_err": self.err, "ms": self.ms, "plain_ms": self.plain_ms,
+               "bound_ms": self.bound_ms,
+               "bound_by": "operations" if self.ops_ms >= self.bytes_ms else "bytes",
+               "library_ms": self.lib_ms}
+        if gemm:
+            out["tc_bound_ms"] = self.tc_ms
+        return out
 
 
 def randn(rng, shape, scale: float = 1.0, dev=None) -> torch.Tensor:
@@ -394,25 +422,53 @@ def check_kernels(dev) -> dict:
         tally.add(calls, err, ms, pms, bound(6 * x.numel(), x, got))
     results["K-in"] = tally.result()
 
-    # K-block: the trunk, N x 64 x 64 x 256, 6 blocks x 2 G passes per request
+    # K-block: the trunk, N x 64 x 64 x 256, 6 blocks x 2 G passes per
+    # request. Its two convolutions run in 3xTF32 on the tensor cores: held
+    # also against the plain forward in float64 (the same inputs cast up),
+    # its largest relative error on out, y1, y2 at most 4x the fp32 plain
+    # version's; its device time per launch from the profiler (6 a call).
+    # Its GEMM tiles are 64 channels wide at b1 and 128 at b8, so both
+    # widths are checked.
     for n in (1, 8):
         x = randn(rng, (n, 64, 64, 256), 1.0, dev)
         w1, w2 = (randn(rng, (3, 3, 256, 256), 0.02, dev) for _ in range(2))
-        out, y1, y2, stats = conv_fused.fused_resblock_cuda(x, w1, w2)
-        ref = conv_fused.resblock_plain(x, w1, w2)
-        err = torch.max(torch.abs(out - ref)).item()
-        ms = median_ms(lambda: conv_fused.fused_resblock_cuda(x, w1, w2), iters=10)
+
+        def kern():
+            return conv_fused.fused_resblock_cuda(x, w1, w2)
+
+        got, again = kern(), kern()
+        repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+        ref = conv_fused.resblock_fwd_plain(x, w1, w2)
+        err = torch.max(torch.abs(got[0] - ref[0])).item()
+        ref64 = conv_fused.resblock_fwd_plain(x.double(), w1.double(), w2.double())
+        err64 = [max_rel_err([p.double()], [q]) for p, q in zip(got[:3], ref64[:3])]
+        plain_err64 = [max_rel_err([p.double()], [q]) for p, q in zip(ref[:3], ref64[:3])]
+        del ref64, again
+        ms = median_ms(kern, iters=20)
         pms = median_ms(lambda: conv_fused.resblock_plain(x, w1, w2), iters=10)
+        dms, per_launch = device_ms(kern, 6, 10)
         flops = 2 * 2 * n * 64 * 64 * 256 * 9 * 256
+        bnd = bound(flops, x, w1, w2, *got)
+        tc_bound = 3 * flops / PEAK_TF32_FLOPS * 1e3
         phase("kernel", name="K-block", shape=f"{n}x64x64x256", max_abs_err=err,
-              tol=TOL["K-block"], ms=ms, plain_ms=pms,
-              tflops=round(flops / ms / 1e9, 2), plain_tflops=round(flops / pms / 1e9, 2))
-        if not err <= TOL["K-block"]:
-            raise AssertionError(f"K-block disagrees with its plain version: {err}")
+              tol=TOL["K-block"], bitwise_repeatable=repeatable,
+              rel_err_vs_fp64_out_y1_y2=json.dumps(err64),
+              plain_fp32_rel_err_vs_fp64=json.dumps(plain_err64), ms=ms, device_ms=dms,
+              plain_ms=pms, tflops=round(flops / ms / 1e9, 2),
+              plain_tflops=round(flops / pms / 1e9, 2), bound_ms=max(bnd), tc_bound_ms=tc_bound,
+              launches_per_call=sum(k for _, k, _ in per_launch),
+              device_ms_by_kernel=json.dumps(per_launch))
+        if not (err <= TOL["K-block"] and repeatable):
+            raise AssertionError(f"K-block disagrees with its plain version: {err}, "
+                                 f"repeatable {repeatable}")
+        if not max(err64) <= 4 * max(plain_err64):
+            raise AssertionError(f"K-block is less accurate than fp32 allows: {err64} against "
+                                 f"fp64, the fp32 plain version {plain_err64}")
         if n == 1:
             tally = Tally()
-            tally.add(12, err, ms, pms, bound(flops, x, w1, w2, out, y1, y2, stats))
-            results["K-block"] = tally.result()
+            tally.add(12, err, ms, pms, bnd)
+            results["K-block"] = tally.result(gemm=True)
+            results["K-block"].update(device_ms=12 * dms)
 
     # K-head: G's 7x7 output conv, N x 256 x 256 x 64 -> 3, twice per
     # request; the library call is nn.Conv2d(padding_mode='reflect')
@@ -441,7 +497,7 @@ def check_kernels(dev) -> dict:
         if n == 1:
             tally = Tally()
             tally.add(calls, err, ms, pms, bnd, lms)
-            results["K-head"] = tally.result()
+            results["K-head"] = tally.result(gemm=True)
 
     # K-convt: G's two decoder stages, twice each per request
     tally = Tally()
@@ -464,7 +520,7 @@ def check_kernels(dev) -> dict:
                 raise AssertionError(f"K-convt disagrees with its plain version: {err}")
             if n == 1:
                 tally.add(calls, err, ms, pms, bnd)
-    results["K-convt"] = tally.result()
+    results["K-convt"] = tally.result(gemm=True)
     torch.cuda.synchronize()
     return results
 
@@ -490,36 +546,68 @@ def check_bwd_kernels(dev) -> dict:
     results = {}
     n = TRAIN_BATCH
 
-    # K-warp-bwd: the step's one sampling of (fake_B, real_A); d img for
-    # fake_B's 3 channels only
+    # K-warp-bwd: one operator from (img, grid, g) to (d img, d grid). First
+    # every padding mode and align_corners against the plain version on a
+    # small ragged grid with entries on the clip's and the reflection's ties,
+    # each launch repeated bit for bit. Then the step's one sampling of
+    # (fake_B, real_A), d img for fake_B's 3 channels only, timed as the
+    # model runs it: _GridSample's backward from g to (d img, d grid),
+    # against aten.grid_sampler_2d_backward on the same image, grid and g (d
+    # img of 4 channels, d grid), call by call in alternation, and both by
+    # their device time from the profiler (2 launches a call for the kernel).
+    modes_err, modes_repeatable = 0.0, True
+    for pad in ("zeros", "border", "reflection"):
+        for ac in (False, True):
+            img, grid = warp_bwd_tie_case(rng, ac, dev)
+            g = randn(rng, tuple(grid.shape[:3]) + (img.shape[3],), 1.0, dev)
+            got = warp_cuda.warp_grid_bwd(img, grid, g, pad, ac, 3)
+            again = warp_cuda.warp_grid_bwd(img, grid, g, pad, ac, 3)
+            ref = warp._grid_sample_plain_bwd(img, grid, g, pad, ac, 3)
+            modes_err = max(modes_err, max_rel_err(got, ref))
+            modes_repeatable &= all(torch.equal(p, q) for p, q in zip(got, again))
+    if not (modes_err <= TOL["K-warp-bwd"] and modes_repeatable):
+        raise AssertionError(f"K-warp-bwd across padding modes and ties: err {modes_err}, "
+                             f"repeatable {modes_repeatable}")
     for b in (1, n):
         img = torch.from_numpy(smooth_images(rng, b, 4)).to(dev)
         grid = smooth_grid(rng, b, 256, 256).to(dev)
-        xs, ys = (c.contiguous() for c in warp._pixel_coords(img, grid, "zeros", False))
         g = randn(rng, (b, 256, 256, 4), 1.0, dev)
-        got = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
-        again = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
-        ref = warp._sample_plain_bwd(img, xs, ys, g, 3)
+        ctx = SimpleNamespace(saved_tensors=(img, grid), conf=("zeros", False, 3),
+                              needs_input_grad=(True, True, False, False, False))
+
+        def kern():
+            return warp._GridSample.backward(ctx, g)[:2]
+
+        got, again = kern(), kern()
+        ref = warp._grid_sample_plain_bwd(img, grid, g, "zeros", False, 3)
         err = max_rel_err(got, ref)
         abs_err = max_abs_err(got, ref)
         repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
-        ms = median_ms(lambda: warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3))
-        pms = median_ms(lambda: warp._sample_plain_bwd(img, xs, ys, g, 3))
-        # the library's VJP of F.grid_sample on the same image, grid and g:
-        # d img for all 4 channels and d grid (K-warp-bwd: 3 channels and d
-        # of the pixel coordinates)
         img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-        lms = median_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-            g_nchw, img_nchw, grid, 0, 0, False, [True, True]))
+
+        def lib():
+            return torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, False,
+                                                           [True, True])
+
+        ms, lms = paired_median_ms(kern, lib)
+        pms = median_ms(lambda: warp._grid_sample_plain_bwd(img, grid, g, "zeros", False, 3))
+        dms, dl = device_ms(kern, 2, 50)
+        lib_dms, ldl = device_ms(lib, None, 50)
+        bnd = bound(20 * g.numel(), img, grid, g, *got)
         phase("kernel_bwd", name="K-warp-bwd", shape=f"{b}x256x256x4", grad_channels=3,
               max_rel_err=err, tol=TOL["K-warp-bwd"], max_abs_err=abs_err,
-              bitwise_repeatable=repeatable, ms=ms, plain_ms=pms, library_ms=lms)
+              modes_ties_ragged_max_rel_err=modes_err, bitwise_repeatable=repeatable, ms=ms,
+              library_ms=lms, device_ms=dms, library_device_ms=lib_dms,
+              launches_per_call=sum(k for _, k, _ in dl),
+              library_launches_per_call=sum(k for _, k, _ in ldl),
+              device_ms_by_kernel=json.dumps(dl), plain_ms=pms, bound_ms=max(bnd))
         if not (err <= TOL["K-warp-bwd"] and repeatable and not torch.any(got[0][..., 3])):
             raise AssertionError(f"K-warp-bwd: err {err}, repeatable {repeatable}")
         if b == n:
             tally = Tally()
-            tally.add(1, abs_err, ms, pms, bound(20 * g.numel(), img, xs, ys, g, *got), lms)
+            tally.add(1, abs_err, ms, pms, bnd, lms)
             results["K-warp-bwd"] = tally.result()
+            results["K-warp-bwd"].update(device_ms=dms, library_device_ms=lib_dms)
 
     # K-in-bwd: every instance-norm backward of a step
     tally = Tally()
@@ -600,8 +688,8 @@ def check_bwd_kernels(dev) -> dict:
         if b == n:
             tally = Tally()
             tally.add(12, abs_err, ms, pms, bnd)
-            results["K-block-bwd"] = tally.result()
-            results["K-block-bwd"].update(tc_bound_ms=12 * tc_bound, device_ms=12 * dms)
+            results["K-block-bwd"] = tally.result(gemm=True)
+            results["K-block-bwd"].update(device_ms=12 * dms)
 
     # K-head-bwd: G's 7x7 output conv, twice per step
     h, w, ci, co, calls = HEAD_SHAPE
@@ -625,7 +713,7 @@ def check_bwd_kernels(dev) -> dict:
         raise AssertionError(f"K-head-bwd disagrees with its plain version: {err}")
     tally = Tally()
     tally.add(calls, abs_err, ms, pms, bound(flops, x, wk, g, *got))
-    results["K-head-bwd"] = tally.result()
+    results["K-head-bwd"] = tally.result(gemm=True)
 
     # K-convt-bwd: G's two decoder stages, twice each per step. As for
     # K-block-bwd, the kernel is fed the plain forward's saved (yhat, stats);
@@ -656,7 +744,7 @@ def check_bwd_kernels(dev) -> dict:
         if not (err <= TOL["K-convt-bwd"] and repeatable):
             raise AssertionError(f"K-convt-bwd disagrees with its plain version: {err}")
         tally.add(calls, abs_err, ms, pms, bound(flops, x, wk, *saved, g, *got))
-    results["K-convt-bwd"] = tally.result()
+    results["K-convt-bwd"] = tally.result(gemm=True)
     torch.cuda.synchronize()
     return results
 
@@ -667,7 +755,7 @@ def launch_counters():
     return {"K-block": conv_fused.fused_resblock_cuda, "K-warp": warp_cuda.warp_bilinear,
             "K-in": norm_triton.instance_norm_act_triton, "K-head": conv_head.conv_head_cuda,
             "K-convt": convt_fused.fused_convt_in_cuda,
-            "K-block-bwd": conv_fused.resblock_bwd_cuda, "K-warp-bwd": warp_cuda.warp_bilinear_bwd,
+            "K-block-bwd": conv_fused.resblock_bwd_cuda, "K-warp-bwd": warp_cuda.warp_grid_bwd,
             "K-in-bwd": norm_triton.instance_norm_act_bwd_triton,
             "K-head-bwd": conv_head.conv_head_bwd_cuda,
             "K-convt-bwd": convt_fused.convt_in_bwd_cuda}

@@ -1,4 +1,5 @@
-// The 3xTF32 tensor-core GEMM cores of K-block-bwd (resblock_bwd.cu).
+// The 3xTF32 tensor-core GEMM cores of K-block (resblock_fwd.cu) and
+// K-block-bwd (resblock_bwd.cu).
 //
 // Both compute a 128 x 128 tile of C = A B over K, in 32-deep slices, with
 // two warpgroups (256 threads): warpgroup w computes rows 64 w .. 64 w + 63
@@ -10,14 +11,17 @@
 // of STAGES slices in dynamic shared memory is filled by cp.async (16 bytes
 // a copy, zero-filled where the Op masks a row: src-size 0); slice
 // kt + STAGES - 1 is in flight while slice kt is multiplied. An Op
-// (resblock_bwd.cu) supplies the operands' addresses, masks and layouts and
-// the epilogue's writes.
+// (resblock_{fwd,bwd}.cu) supplies the operands' addresses, masks and
+// layouts and the epilogue's writes.
 //
 //   gemm_wgmma_kernel: operands both K-major in device memory (the dgrads:
-//     dz along channels, W in HWIO). A is copied as rows of 32 k (+ 4
+//     dz along channels, W in HWIO; the forward's convs: the activation
+//     along channels, W^T per tap). A is copied as rows of 32 k (+ 4
 //     floats of pad) and read by ldmatrix; B is split before the GEMM (the
 //     weights: big and small arrays) and copied straight into the swizzled
-//     layout.
+//     layout. With Op::kTileStats the epilogue also reduces the tile's
+//     valid rows to per-column (mean, sum of squared deviations) for the
+//     instance norm (tile_stats).
 //   gemm_wgmma_mn_kernel: A M-major, B N-major (the wgrads: the pixels,
 //     their K, are outermost in both). Both are copied as rows of 128 (+ 8
 //     floats of pad); per slice each thread transposes and splits 4 chunks
@@ -54,7 +58,8 @@
 // Deterministic: every output is one thread's fixed sequence of MMAs and
 // adds; no atomics. An Op with kNormRelu has its A values rebuilt as
 // relu((v - mu) * rstd) before the split, with (mu, rstd) per A row and per
-// sample of the K slice.
+// sample of the K slice (gemm_wgmma_mn_kernel), or per K column, copied
+// beside the slice (gemm_wgmma_kernel).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -161,21 +166,97 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "memory");
 }
 
-// keep the compiler from moving reads or writes of d across the asynchronous wgmma's
-__device__ __forceinline__ void wgmma_fence_operand(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+// the same, m64n64k8 (a 64-column tile)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate)
+      : "memory");
 }
 
-// A and B K-major (the dgrads); see the header.
+// keep the compiler from moving reads or writes of d across the asynchronous wgmma's
+template <int N>
+__device__ __forceinline__ void wgmma_fence_operand(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+constexpr int NORM_FL = 2 * BK;  // (mu, rstd) of a K slice's 32 channels
+
+// The tile's per-column mean and sum of squared deviations over its first
+// op.rows_in_tile() rows, in a fixed order: each thread's two rows, then the
+// 8 lanes of a warp that share a column (butterfly), then the 8 warps in
+// order through shared memory (red: 8 x TN + TN floats, free by now).
+template <int TN, class Op>
+__device__ __forceinline__ void tile_stats(const Op& op, const float (&acc)[TN / 2], float* red,
+                                           int tid, int row0, int g, int t) {
+  const int warp = tid >> 5, lane = tid & 31, nrows = op.rows_in_tile();
+  const bool v0 = row0 + g < nrows, v1 = row0 + g + 8 < nrows;
+  float* mean = red + 8 * TN;
+  float s[TN / 4];
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      s[2 * j + e] = (v0 ? acc[4 * j + e] : 0.f) + (v1 ? acc[4 * j + 2 + e] : 0.f);
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int i = 0; i < TN / 4; ++i)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) s[i] += __shfl_xor_sync(0xffffffffu, s[i], off);
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) red[warp * TN + 8 * j + 2 * t + e] = s[2 * j + e];
+    }
+    __syncthreads();
+    if (tid < TN) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) sum += red[w * TN + tid];
+      if (pass == 0) mean[tid] = sum / (float)nrows;
+      else op.write_stats(tid, mean[tid], sum);
+    }
+    __syncthreads();
+    if (pass == 0) {
+#pragma unroll
+      for (int j = 0; j < TN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float m = mean[8 * j + 2 * t + e];
+          const float d0 = acc[4 * j + e] - m, d1 = acc[4 * j + 2 + e] - m;
+          s[2 * j + e] = (v0 ? d0 * d0 : 0.f) + (v1 ? d1 * d1 : 0.f);
+        }
+    }
+  }
+}
+
+// A and B K-major (the dgrads, the forward's convolutions); see the header.
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_kernel(const Op params) {
-  static_assert(tile_floats(true) * 4 % 1024 == 0 && WG_B_FL * 4 % 1024 == 0,
+  constexpr int TN = Op::kTileN;  // the tile's columns: 128, or 64 to fill the card
+  constexpr int B_FL = TN * BK;   // floats of one swizzled K-major B tile
+  static_assert(TN == 128 || TN == 64, "wgmma m64n128k8 or m64n64k8");
+  static_assert(tile_floats(true) * 4 % 1024 == 0 && B_FL * 4 % 1024 == 0,
                 "1024-byte aligned B tiles");
   extern __shared__ __align__(1024) float4 smem4[];
   constexpr int A_FL = tile_floats(true);
-  constexpr int STAGE_FL = A_FL + 2 * WG_B_FL;
+  constexpr int STAGE_FL = A_FL + 2 * B_FL;
   float* smem = reinterpret_cast<float*>(smem4);
+  float* norm = smem + STAGES * STAGE_FL;  // STAGES x NORM_FL when Op::kNormRelu
   Op op = params;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -184,14 +265,20 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_kernel(const Op params)
   op.setup(tid);
   const int ktiles = op.ktiles();
 
-  float acc[64], part[64];
+  float acc[TN / 2], part[TN / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
 
+  // The loads are written out per branch: with a shared lambda, the dgrad's
+  // kernel (no kNormRelu) compiled to another HGMMA schedule (PERF.md).
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     float* st = smem + s * STAGE_FL;
-    if (s < ktiles) op.load(s, st, st + A_FL, st + A_FL + WG_B_FL, tid);
+    if constexpr (Op::kNormRelu) {
+      if (s < ktiles) op.load(s, st, st + A_FL, st + A_FL + B_FL, norm + s * NORM_FL, tid);
+    } else {
+      if (s < ktiles) op.load(s, st, st + A_FL, st + A_FL + B_FL, tid);
+    }
     cp_async_commit();
   }
   for (int kt = 0; kt < ktiles; ++kt) {
@@ -201,19 +288,32 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_kernel(const Op params)
     {
       const int nk = kt + STAGES - 1;
       float* st = smem + (nk % STAGES) * STAGE_FL;
-      if (nk < ktiles) op.load(nk, st, st + A_FL, st + A_FL + WG_B_FL, tid);
+      if constexpr (Op::kNormRelu) {
+        if (nk < ktiles)
+          op.load(nk, st, st + A_FL, st + A_FL + B_FL, norm + (nk % STAGES) * NORM_FL, tid);
+      } else {
+        if (nk < ktiles) op.load(nk, st, st + A_FL, st + A_FL + B_FL, tid);
+      }
       cp_async_commit();
     }
     const float* As = smem + (kt % STAGES) * STAGE_FL;
     const float* Bb = As + A_FL;
-    const float* Bs = Bb + WG_B_FL;
+    const float* Bs = Bb + B_FL;
     uint32_t abig[BK / 8][4], asmall[BK / 8][4];
 #pragma unroll
     for (int s = 0; s < BK / 8; ++s) {
       uint32_t r[4];
       ldsm_x4(r, As + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * KSTRIDE + 8 * s + (lane >> 4) * 4);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(r[q]), abig[s][q], asmall[s][q]);
+      for (int q = 0; q < 4; ++q) {
+        float v = __uint_as_float(r[q]);
+        if constexpr (Op::kNormRelu) {
+          // register q holds k = 8 s + t + 4 (q / 2) of the slice
+          const float* ns = norm + (kt % STAGES) * NORM_FL + 8 * s + t + 4 * (q >> 1);
+          v = fmaxf((v - ns[0]) * ns[BK], 0.f);
+        }
+        split_tf32(v, abig[s][q], asmall[s][q]);
+      }
     }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     wgmma_fence_operand(part);
@@ -228,22 +328,27 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_kernel(const Op params)
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     wgmma_fence_operand(part);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    for (int i = 0; i < TN / 2; ++i) acc[i] += part[i];
   }
   cp_async_wait<0>();
 
   // epilogue: d[4 j + v] is row g (v < 2) or g + 8, column 8 j + 2 t + (v & 1)
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < TN / 8; ++j) {
     op.write(row0 + g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
     op.write(row0 + g + 8, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+  if constexpr (Op::kTileStats) {
+    __syncthreads();  // every warp is done with the ring
+    tile_stats<TN>(op, acc, smem, tid, row0, g, t);
   }
 }
 
 // Launch gemm_wgmma_kernel<Op> on grid, with its ring in dynamic shared memory.
 template <class Op>
 cudaError_t launch_wgmma(const Op& op, dim3 grid, cudaStream_t stream) {
-  constexpr int bytes = STAGES * (tile_floats(true) + 2 * WG_B_FL) * (int)sizeof(float);
+  constexpr int bytes = (STAGES * (tile_floats(true) + 2 * Op::kTileN * BK) +
+                         (Op::kNormRelu ? STAGES * NORM_FL : 0)) * (int)sizeof(float);
   cudaError_t err =
       cudaFuncSetAttribute(gemm_wgmma_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;

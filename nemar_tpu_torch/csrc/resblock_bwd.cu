@@ -134,6 +134,9 @@ __device__ __forceinline__ T grad_at(const float* __restrict__ src, int p, int c
 
 // dgrad: dpad[(b, U, V), ci] = sum_{tap, co} dz[b, U - dy, V - dx, co] * w[tap][ci][co]
 struct DgradOp {
+  static constexpr bool kNormRelu = false;
+  static constexpr bool kTileStats = false;
+  static constexpr int kTileN = BN;
   const float* dz;
   // W in HWIO, split into tf32 big and small parts: B(k = (tap, co), n = ci)
   // is K-major as it lies

@@ -10,240 +10,194 @@
 //
 // What bounds it on the H100: arithmetic. One conv at the slice shape
 // (N x 64 x 64 x 256) is 2 * N*4096 * 256 * 2304 = 4.8 GFLOP per sample,
-// against 4 MiB of activation; this first version runs it as fp32 FMAs
-// (67 TFLOP/s peak, far below the tensor cores; mma.sync / wgmma are later
-// work).
+// against 4 MiB of activation. Both convolutions run on the tensor cores in
+// 3xTF32 on K-block-bwd's wgmma core (gemm_tc.cuh: each fp32 product is
+// three TF32 MMAs, chained over one 32-deep K slice and added to an fp32
+// total, which keeps fp32-level accuracy), so the bound is 3 x 77.3 GFLOP at
+// 495 TFLOP/s = 0.47 ms a b8 call, against 1.15 ms at the fp32 FMA peak of
+// 67 TFLOP/s, where an earlier version of this kernel ran.
+//
+// Each conv is an implicit GEMM over NHWC: M = pixels (128-row tiles, a tile
+// never straddles two samples: a sample's last tile is masked), N = C_out
+// (128 columns, or 64 where 128 would leave SMs idle: batch 1 at 64^2 has
+// 64 tiles of 128 x 128 for 132 SMs), K = 9 C_in in 32-deep slices, one tap
+// and 32 channels each.
+// A row of a slice is 32 channels of one source pixel, copied by cp.async in
+// 16-byte pieces, K-major as wgmma's A wants it; the reflect padding is in
+// the index (-1 -> 1, H -> H - 2), so no padded copy is made and nothing is
+// zero-filled. B is W transposed per tap to (tap, C_out, C_in), K-major,
+// split into TF32 big and small parts once per call for both weights (the
+// dgrads' layout: copied straight into wgmma's swizzled tiles). conv2 reads
+// y1 and rebuilds h1 = relu((y1 - mu1) * rstd1) on A's fragments before the
+// split (the core's kNormRelu: (mu1, rstd1) of the slice's 32 channels ride
+// in the same cp.async group), so h1 is never written; reflection commutes
+// with this per-channel map.
 //
 // The TPU kernel keeps one whole sample (4 MiB fp32 here) resident in
 // 100 MiB of VMEM, so its IN statistics are a plain reduction. A Hopper
 // block has at most 227 KB of shared memory, so the statistics need a
-// reduction across blocks. The design is deterministic and has five
+// reduction across blocks: the GEMM's epilogue reduces its tile to the
+// per-channel (mean, sum of squared deviations) of its rows (gemm_tc.cuh:
+// tile_stats, a fixed order), and a merge launch combines a sample's tiles
+// in fp64 in tile order. The whole forward is deterministic, in six
 // launches, all counted as one fused_resblock call by the wrapper:
 //
-//   1. conv1: implicit GEMM over NHWC, M = N*H*W pixels, N = C_out,
-//      K = 9*C_in. Reflect padding is computed in the load (-1 -> 1,
-//      H -> H-2), so no padded copy is made. 64x128 output tiles, 8-deep
-//      K slices staged in shared memory (double-buffered, register
-//      prefetch), 8x8 outputs per thread, fp32 FMA. The epilogue writes
-//      y1 and, per tile and channel, the tile mean and the sum of squared
-//      deviations from it (a tile is 64 pixels of one sample).
-//   2. stats: one thread per (n, c) merges the tiles' (mean, M2) in a fixed
-//      order (Chan's parallel formula) into (mu1, rstd1).
-//   3. conv2: the same conv kernel; it applies relu((y1 - mu1) * rstd1) to
-//      every value it stages, so h1 is never written. Reflection commutes
-//      with this per-channel map.
-//   4. stats: (mu2, rstd2).
-//   5. out = x + (y2 - mu2) * rstd2.
+//   1. split: W1, W2 -> (big, small) of W^T per tap (a tiled transpose);
+//   2. conv1: y1 and its tile statistics;
+//   3. stats: (mu1, rstd1);
+//   4. conv2 from relu(IN(y1)): y2 and its tile statistics;
+//   5. stats: (mu2, rstd2);
+//   6. out = x + (y2 - mu2) * rstd2.
 //
-// Layouts: x, y1, y2, out (N, H, W, C) fp32; W1, W2 (3, 3, C, C) HWIO fp32
-// (row k = (dy*3 + dx)*C + ci of a (9C, C) matrix); stats (N, 4, C) =
-// (mu1, rstd1, mu2, rstd2) as in the TPU kernel; part (N*H*W/64, 2, C).
-// Requirements (checked by the wrapper): C % 128 == 0, H*W % 64 == 0,
-// H, W >= 2, 16-byte aligned pointers.
+// Layouts: x, y1, y2, out (N, H, W, C) fp32; W1, W2 (3, 3, C, C) HWIO fp32;
+// wsplit (4, 9, C, C) = (W1^T big, W1^T small, W2^T big, W2^T small), each
+// (tap, C_out, C_in); stats (N, 4, C) = (mu1, rstd1, mu2, rstd2) as in the
+// TPU kernel; part (N * ceil(H*W / 128), 2, C). Requirements (checked by the
+// wrapper): C % 128 == 0, H, W >= 2, 16-byte aligned pointers.
 #include <cuda_runtime.h>
+
+#include "gemm_tc.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // output pixels per block tile
-constexpr int BN = 128;  // output channels per block tile
-constexpr int BK = 8;    // reduction depth per stage (inside one tap)
-constexpr int TM = 8;    // pixels per thread
-constexpr int TN = 8;    // channels per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 128
-static_assert(THREADS == BN, "the epilogue gives each thread one channel of the tile");
-static_assert(BM * BK == 4 * THREADS && BN * BK == 8 * THREADS, "loader shapes");
+using tc::BK;
+using tc::BM;
+using tc::BN;
+using tc::CHUNKS;
+using tc::cp_async16;
 
 __device__ __forceinline__ int reflect(int i, int n) {
   return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
 }
 
-// A thread owns pixel rows {ty*4 + i, 32 + ty*4 + i} and channel columns
-// {tx*4 + j, 64 + tx*4 + j} (i, j < 4): each quarter-warp then reads 128
-// contiguous bytes of shared memory per float4 load, without bank conflicts.
-__device__ __forceinline__ int row_of(int ty, int i) { return (i < 4 ? 0 : 32) + ty * 4 + (i & 3); }
-__device__ __forceinline__ int col_of(int tx, int j) { return (j < 4 ? 0 : 64) + tx * 4 + (j & 3); }
+// y[b, p, co] = sum_{tap, ci} src'[b, reflect(u + dy - 1), reflect(v + dx - 1), ci]
+//                             * W[tap][ci][co],
+// src' = src, or relu((src - mu1) * rstd1) when kNorm (h1 from y1); the
+// tile's per-column (mean, M2) to part.
+template <bool kNorm, int kTN>
+struct ConvOp {
+  static constexpr bool kNormRelu = kNorm;
+  static constexpr bool kTileStats = true;
+  static constexpr int kTileN = kTN;  // output channels per tile: 128 or 64
+  const float* src;
+  const float* stats;
+  // W^T (tap, co, ci), split: B(k = (tap, ci), n = co) is K-major as it lies
+  const float* wbig;
+  const float* wsmall;
+  float* y;
+  float* part;
+  int h, w, c, tiles;  // tiles: 128-pixel tiles per sample
+  // per thread: the tile, and for its A rows u << 16 | v (-1 past the sample)
+  int b, tile, m0, n0, kc, rows;
+  int ruv[CHUNKS];
 
-template <bool kNormReluIn>
-__global__ void __launch_bounds__(THREADS)
-conv3x3_reflect_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                       const float* __restrict__ in_stats, float* __restrict__ y,
-                       float* __restrict__ part, int h, int w, int c) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
-  __shared__ float red[BM / TM][BN];
-  __shared__ float tile_mean[BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int hw = h * w;
-  const int m0 = blockIdx.x * BM;   // first pixel of the tile, over N*H*W
-  const int n0 = blockIdx.y * BN;   // first output channel
-  const int b = m0 / hw;            // a tile never straddles two samples
-
-  // A loader: one pixel, four consecutive input channels (BM*BK/4 = 128).
-  const int a_p = tid >> 1;
-  const int a_c = (tid & 1) * 4;
-  const int pix = m0 + a_p - b * hw;
-  const int oh = pix / w, ow = pix - (pix / w) * w;
-  const float* xb = x + (size_t)b * hw * c;
-  const float* mu = kNormReluIn ? in_stats + (size_t)b * 4 * c : nullptr;
-  const float* rs = kNormReluIn ? mu + c : nullptr;
-  // B loader: rows b_r and b_r + 4 of the K slice, four output channels.
-  const int b_r = tid >> 5;
-  const int b_c = (tid & 31) * 4;
-
-  const int slices_per_tap = c / BK;
-  const int ktiles = 9 * slices_per_tap;
-
-  // The A operand of the next K slice is loaded into registers before the
-  // current slice's FMAs and stored to shared memory after them, so the
-  // global-load latency hides behind the math. conv2's prologue
-  // relu((v - mu) * rstd) is applied at the store, not at the load, for the
-  // same reason.
-  struct ALoad { float4 v, mu, rs; };
-  auto load_a = [&](int kt) {
-    const int tap = kt / slices_per_tap;
-    const int ci = (kt - tap * slices_per_tap) * BK + a_c;
-    const int dy = tap / 3, dx = tap - dy * 3;
-    const int ih = reflect(oh + dy - 1, h), iw = reflect(ow + dx - 1, w);
-    ALoad a;
-    a.v = *reinterpret_cast<const float4*>(xb + ((size_t)ih * w + iw) * c + ci);
-    if (kNormReluIn) {
-      a.mu = *reinterpret_cast<const float4*>(mu + ci);
-      a.rs = *reinterpret_cast<const float4*>(rs + ci);
-    }
-    return a;
-  };
-  auto load_b = [&](int kt, float4& r0, float4& r1) {
-    const float* row = wt + (size_t)(kt * BK + b_r) * c + n0 + b_c;
-    r0 = *reinterpret_cast<const float4*>(row);
-    r1 = *reinterpret_cast<const float4*>(row + (size_t)4 * c);
-  };
-  auto store = [&](int buf, const ALoad& a, const float4& b0, const float4& b1) {
-    float4 v = a.v;
-    if (kNormReluIn) {
-      v.x = fmaxf((v.x - a.mu.x) * a.rs.x, 0.f);
-      v.y = fmaxf((v.y - a.mu.y) * a.rs.y, 0.f);
-      v.z = fmaxf((v.z - a.mu.z) * a.rs.z, 0.f);
-      v.w = fmaxf((v.w - a.mu.w) * a.rs.w, 0.f);
-    }
-    As[buf][a_c + 0][a_p] = v.x;
-    As[buf][a_c + 1][a_p] = v.y;
-    As[buf][a_c + 2][a_p] = v.z;
-    As[buf][a_c + 3][a_p] = v.w;
-    *reinterpret_cast<float4*>(&Bs[buf][b_r][b_c]) = b0;
-    *reinterpret_cast<float4*>(&Bs[buf][b_r + 4][b_c]) = b1;
-  };
-
-  float acc[TM][TN];
+  __device__ void setup(int tid) {
+    b = blockIdx.x / tiles;
+    tile = blockIdx.x - b * tiles;
+    m0 = tile * BM;
+    n0 = blockIdx.y * kTN;
+    kc = tc::kmajor_k(tid);
+    const int hw = h * w;
+    rows = min(BM, hw - m0);
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int p = m0 + tc::kmajor_row(tid, i);
+      const int u = p / w;
+      ruv[i] = p < hw ? (u << 16) | (p - u * w) : -1;
+    }
+  }
+  __device__ int ktiles() const { return 9 * c / BK; }
+  __device__ void load_ab(int kt, float* As, float* Bb, float* Bs, int tid) const {
+    const int k0 = kt * BK;
+    const int tap = k0 / c;
+    const int ci = k0 - tap * c + kc;
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const float* sb = src + (size_t)b * h * w * c;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < CHUNKS; ++i) {
+      const bool valid = ruv[i] >= 0;
+      const int su = reflect((ruv[i] >> 16) + dy - 1, h), sv = reflect((ruv[i] & 0xffff) + dx - 1, w);
+      cp_async16(tc::kmajor_at(As, tc::kmajor_row(tid, i), kc),
+                 valid ? sb + ((size_t)su * w + sv) * c + ci : sb, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < kTN * BK / 4 / tc::THREADS; ++i) {
+      const int nr = tc::kmajor_row(tid, i);
+      const size_t off = ((size_t)tap * c + n0 + nr) * c + ci;
+      const int dst = tc::swizzled_off(nr, kc / 4);
+      cp_async16(Bb + dst, wbig + off, true);
+      cp_async16(Bs + dst, wsmall + off, true);
+    }
+  }
+  __device__ void load(int kt, float* As, float* Bb, float* Bs, int tid) const {
+    load_ab(kt, As, Bb, Bs, tid);
+  }
+  // kNorm: also (mu1, rstd1) of the slice's 32 channels -> ns[0, 32), ns[32, 64)
+  __device__ void load(int kt, float* As, float* Bb, float* Bs, float* ns, int tid) const {
+    load_ab(kt, As, Bb, Bs, tid);
+    if (tid < 16) {
+      const int k0 = kt * BK, ci0 = k0 - (k0 / c) * c;
+      cp_async16(ns + 4 * tid, stats + (size_t)b * 4 * c + (tid < 8 ? 0 : c) + ci0 + 4 * (tid & 7),
+                 true);
+    }
+  }
+  template <class V>
+  __device__ void write(int r, int col, V val) const {
+    if (r < rows)
+      *reinterpret_cast<V*>(y + ((size_t)b * h * w + m0 + r) * c + n0 + col) = val;
+  }
+  __device__ int rows_in_tile() const { return rows; }
+  __device__ void write_stats(int col, float mean, float m2) const {
+    float* p = part + (size_t)(b * tiles + tile) * 2 * c + n0 + col;
+    p[0] = mean;
+    p[c] = m2;
+  }
+};
 
-  ALoad a_reg;
-  float4 b_reg0, b_reg1;
-  a_reg = load_a(0);
-  load_b(0, b_reg0, b_reg1);
-  store(0, a_reg, b_reg0, b_reg1);
+// 1: wsplit[2 which + s][tap][co][ci] = big / small part of w_which[tap][ci][co],
+// through a 32 x 32 tile in shared memory (reads and writes coalesced)
+__global__ void split_transpose_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                                       float* __restrict__ wsplit, int c) {
+  __shared__ float tile[32][33];
+  const int which = blockIdx.z / 9, tap = blockIdx.z - 9 * which;
+  const float* src = (which ? w2 : w1) + (size_t)tap * c * c;
+  const int ci0 = blockIdx.y * 32, co0 = blockIdx.x * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) tile[r][tx] = src[(size_t)(ci0 + r) * c + co0 + tx];
   __syncthreads();
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < ktiles;
-    if (more) {
-      a_reg = load_a(kt + 1);
-      load_b(kt + 1, b_reg0, b_reg1);
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], bv[TN];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][32 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    if (more) store(cur ^ 1, a_reg, b_reg0, b_reg1);
-    __syncthreads();
-  }
-
-  // ---- epilogue: write y, then the tile's per-channel (mean, M2) ----
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float* yrow = y + (size_t)(m0 + row_of(ty, i)) * c + n0;
-    *reinterpret_cast<float4*>(yrow + tx * 4) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(yrow + 64 + tx * 4) =
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-  }
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) s += acc[i][j];
-    red[ty][col_of(tx, j)] = s;
-  }
-  __syncthreads();
-  {
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < BM / TM; ++t) s += red[t][tid];
-    tile_mean[tid] = s * (1.f / BM);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const float m = tile_mean[col_of(tx, j)];
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float d = acc[i][j] - m;
-      q = fmaf(d, d, q);
-    }
-    red[ty][col_of(tx, j)] = q;
-  }
-  __syncthreads();
-  {
-    float q = 0.f;
-#pragma unroll
-    for (int t = 0; t < BM / TM; ++t) q += red[t][tid];
-    float* p = part + (size_t)blockIdx.x * 2 * c + n0 + tid;
-    p[0] = tile_mean[tid];
-    p[c] = q;
+  float* big = wsplit + ((size_t)2 * which * 9 + tap) * c * c;
+  float* small = big + (size_t)9 * c * c;
+  for (int r = ty; r < 32; r += 8) {
+    uint32_t bg, sm;
+    tc::split_tf32(tile[tx][r], bg, sm);
+    const size_t o = (size_t)(co0 + r) * c + ci0 + tx;
+    big[o] = __uint_as_float(bg);
+    small[o] = __uint_as_float(sm);
   }
 }
 
-// Merge the per-tile (mean, M2) of one sample into (mu, rstd), fixed order.
-__global__ void in_stats_kernel(const float* __restrict__ part, float* __restrict__ stats,
-                                int n, int c, int tiles, float eps) {
+// 3 / 5: (mu, rstd) per (n, c) from the sample's tile partials, in fp64 and
+// tile order: mean = sum_t n_t m_t / HW, M2 = sum_t (M2_t + n_t (m_t - mean)^2)
+__global__ void in_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, int n,
+                                int c, int tiles, int hw, float eps) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * c) return;
   const int b = idx / c, ch = idx - b * c;
   const float* p = part + (size_t)b * tiles * 2 * c + ch;
-  float mean = 0.f;
-  for (int t = 0; t < tiles; ++t) mean += p[(size_t)t * 2 * c];
-  mean /= (float)tiles;
-  float m2 = 0.f;
+  double mean = 0.0;
+  for (int t = 0; t < tiles; ++t) mean += (double)min(BM, hw - t * BM) * (double)p[(size_t)t * 2 * c];
+  mean /= (double)hw;
+  double m2 = 0.0;
   for (int t = 0; t < tiles; ++t) {
-    const float d = p[(size_t)t * 2 * c] - mean;
-    m2 += p[(size_t)t * 2 * c + c] + (float)BM * d * d;
+    const double d = (double)p[(size_t)t * 2 * c] - mean;
+    m2 += (double)p[(size_t)t * 2 * c + c] + (double)min(BM, hw - t * BM) * d * d;
   }
-  const float var = m2 / ((float)tiles * (float)BM);
   float* s = stats + (size_t)b * 4 * c + ch;
-  s[0] = mean;
-  s[c] = 1.f / sqrtf(var + eps);
+  s[0] = (float)mean;
+  s[c] = (float)(1.0 / sqrt(m2 / (double)hw + (double)eps));
 }
 
-// out = x + (y2 - mu2) * rstd2, float4-wide.
+// 6: out = x + (y2 - mu2) * rstd2, float4-wide.
 __global__ void residual_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
                                 const float* __restrict__ stats, float4* __restrict__ out,
                                 long long total4, int hw, int c) {
@@ -259,28 +213,61 @@ __global__ void residual_kernel(const float4* __restrict__ x, const float4* __re
                        xv.z + (yv.z - mu[2]) * rs[2], xv.w + (yv.w - mu[3]) * rs[3]);
 }
 
+template <bool kNorm, int kTN>
+cudaError_t conv(const float* src, const float* stats, const float* wsplit, float* y, float* part,
+                 int n, int h, int w, int c, int tiles, cudaStream_t stream) {
+  ConvOp<kNorm, kTN> op;
+  op.src = src;
+  op.stats = stats;
+  op.wbig = wsplit;
+  op.wsmall = wsplit + (size_t)9 * c * c;
+  op.y = y;
+  op.part = part;
+  op.h = h;
+  op.w = w;
+  op.c = c;
+  op.tiles = tiles;
+  return tc::launch_wgmma(op, dim3((unsigned)(n * tiles), (unsigned)(c / kTN)), stream);
+}
+
+template <int kTN>
+cudaError_t convs(const float* x, const float* wsplit, float* y1, float* y2, float* part,
+                  float* stats, int n, int h, int w, int c, int tiles, float eps,
+                  cudaStream_t stream) {
+  const int hw = h * w;
+  const unsigned st_blocks = (unsigned)((n * c + 255) / 256);
+  cudaError_t err;
+  if ((err = conv<false, kTN>(x, nullptr, wsplit, y1, part, n, h, w, c, tiles, stream)) != cudaSuccess)
+    return err;
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = conv<true, kTN>(y1, stats, wsplit + (size_t)18 * c * c, y2, part, n, h, w, c, tiles,
+                             stream)) != cudaSuccess)
+    return err;
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int nemar_resblock_fwd(const float* x, const float* w1, const float* w2,
-                                  float* y1, float* y2, float* part, float* stats,
-                                  float* out, int n, int h, int w, int c, float eps,
-                                  cudaStream_t stream) {
+// The GEMM tiles are 128 output channels wide, or 64 where 128-wide tiles
+// would leave SMs idle (batch 1 at 64^2: 64 tiles for 132 SMs).
+extern "C" int nemar_resblock_fwd(const float* x, const float* w1, const float* w2, float* wsplit,
+                                  float* y1, float* y2, float* part, float* stats, float* out,
+                                  int n, int h, int w, int c, float eps, cudaStream_t stream) {
   const int hw = h * w;
-  const int tiles = hw / BM;
-  const dim3 conv_grid((unsigned)(n * tiles), (unsigned)(c / BN));
-  const int st_threads = 256;
-  const unsigned st_blocks = (unsigned)((n * c + st_threads - 1) / st_threads);
-  cudaError_t err;
-
-  conv3x3_reflect_kernel<false><<<conv_grid, THREADS, 0, stream>>>(x, w1, nullptr, y1, part, h, w, c);
+  const int tiles = (hw + BM - 1) / BM;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const bool narrow = (long long)n * tiles * (c / BN) < sms;
+  split_transpose_kernel<<<dim3((unsigned)(c / 32), (unsigned)(c / 32), 18), dim3(32, 8), 0,
+                           stream>>>(w1, w2, wsplit, c);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  in_stats_kernel<<<st_blocks, st_threads, 0, stream>>>(part, stats, n, c, tiles, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  conv3x3_reflect_kernel<true><<<conv_grid, THREADS, 0, stream>>>(y1, w2, stats, y2, part, h, w, c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  in_stats_kernel<<<st_blocks, st_threads, 0, stream>>>(part, stats + 2 * c, n, c, tiles, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
+  err = narrow ? convs<64>(x, wsplit, y1, y2, part, stats, n, h, w, c, tiles, eps, stream)
+               : convs<128>(x, wsplit, y1, y2, part, stats, n, h, w, c, tiles, eps, stream);
+  if (err != cudaSuccess) return (int)err;
   const long long total4 = (long long)n * hw * c / 4;
   const int r_threads = 256;
   const unsigned r_blocks = (unsigned)((total4 + r_threads - 1) / r_threads);

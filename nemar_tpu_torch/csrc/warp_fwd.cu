@@ -7,8 +7,7 @@
 // [-1, 1], and computes each source pixel coordinate itself, with
 // padding_mode (zeros / border / reflection) and align_corners, in the
 // order of operations of nemar_tpu_torch/ops/warp.py:_compute_source_coords
-// (each step rounded to fp32 as torch rounds it: the adds and multiplies
-// are __fadd_rn / __fmul_rn, so no FMA contraction changes a coordinate).
+// (warp_coords.cuh, shared with K-warp-bwd).
 // The taps are then zeros-padded, as in the TPU kernel: 'border' and
 // 'reflection' arrive at in-frame coordinates.
 //
@@ -29,82 +28,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_coords.cuh"
+
 namespace {
 
-enum Padding { kZeros = 0, kBorder = 1, kReflection = 2 };
-
-// _unnormalize: align_corners ? (g + 1) * 0.5 * (size - 1)
-//                             : ((g + 1) * size - 1) * 0.5
-__device__ __forceinline__ float unnormalize(float g, int size, bool align) {
-  const float s1 = __fadd_rn(g, 1.f);
-  if (align) return __fmul_rn(__fmul_rn(s1, 0.5f), (float)(size - 1));
-  return __fmul_rn(__fadd_rn(__fmul_rn(s1, (float)size), -1.f), 0.5f);
-}
-
-// _reflect(coord, twice_low, twice_high): min = twice_low / 2, span =
-// (twice_high - twice_low) / 2, x = |coord - min|, extra = x mod 2 span
-// (torch.remainder of a non-negative x: fmod), then min + (extra > span ?
-// 2 span - extra : extra).
-__device__ __forceinline__ float reflect(float coord, float mn, float span) {
-  const float x = fabsf(__fadd_rn(coord, -mn));
-  const float span2 = 2.f * span;  // exact: a power-of-two scale
-  const float extra = fmodf(x, span2);
-  return __fadd_rn(mn, extra > span ? __fadd_rn(span2, -extra) : extra);
-}
-
-__device__ __forceinline__ float clip(float v, int size) {
-  return fminf(fmaxf(v, 0.f), (float)(size - 1));
-}
-
-// _compute_source_coords for one axis
-__device__ __forceinline__ float source_coord(float g, int size, int padding, bool align) {
-  float pix = unnormalize(g, size, align);
-  if (padding == kBorder) {
-    pix = clip(pix, size);
-  } else if (padding == kReflection) {
-    if (size == 1) {
-      pix = 0.f;  // _reflect's zeros (align_corners), or the clip to [0, 0]
-    } else if (align) {
-      pix = reflect(pix, 0.f, (float)(size - 1));
-    } else {
-      pix = reflect(pix, -0.5f, (float)size);
-    }
-    pix = clip(pix, size);
-  }
-  return pix;
-}
-
-struct Taps {
-  int off[4];     // pixel offsets (iy * W + ix) of the four taps
-  float wgt[4];   // bilinear weights, zero for out-of-frame taps
-};
-
-// Tap order and weights as in nemar_tpu/ops/warp.py:_grid_sample_xla:
-// (dy, dx) = (0,0), (0,1), (1,0), (1,1).
-__device__ __forceinline__ Taps make_taps(float x, float y, int h, int w) {
-  Taps t;
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float wx = x - x0, wy = y - y0;
-  const float wts[4] = {(1.f - wx) * (1.f - wy), wx * (1.f - wy),
-                        (1.f - wx) * wy, wx * wy};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float cx = x0 + (k & 1), cy = y0 + (k >> 1);
-    const bool valid = cx >= 0.f && cx < (float)w && cy >= 0.f && cy < (float)h;
-    // clamp before the cast: a float outside int range must not reach it
-    const int ix = (int)fminf(fmaxf(cx, 0.f), (float)(w - 1));
-    const int iy = (int)fminf(fmaxf(cy, 0.f), (float)(h - 1));
-    t.off[k] = iy * w + ix;
-    t.wgt[k] = valid ? wts[k] : 0.f;
-  }
-  return t;
-}
+using warp::Taps;
 
 __device__ __forceinline__ Taps grid_taps(const float2* grid, long long p, int h, int w,
                                           int padding, bool align) {
   const float2 gxy = grid[p];
-  return make_taps(source_coord(gxy.x, w, padding, align),
-                   source_coord(gxy.y, h, padding, align), h, w);
+  return warp::make_taps(warp::source_coord(gxy.x, w, padding, align),
+                         warp::source_coord(gxy.y, h, padding, align), h, w);
 }
 
 __global__ void warp_grid_kernel(const float* __restrict__ img, const float2* __restrict__ grid,

@@ -28,7 +28,9 @@ import torch.nn.functional as F
 from nemar_tpu_torch.ops import _build
 from nemar_tpu_torch.ops.norm import instance_norm_stats, normalise
 
-# tile sizes of csrc/resblock_{fwd,bwd}.cu: a pixel tile must not straddle samples
+# the shapes both kernels take: 128-channel GEMM tiles, and K-block-bwd's
+# 64-pixel instance-norm tiles must not straddle samples (K-block masks a
+# sample's last pixel tile)
 _BM, _BN = 64, 128
 # K-block-bwd's weight gradients are split-K GEMMs of (9C / 128) x (C / 128)
 # tiles: split into as many pixel ranges as fill three waves of one block
@@ -171,12 +173,16 @@ def fused_resblock_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     w1, w2 = w1.contiguous(), w2.contiguous()
     _aligned("fused_resblock_cuda", x, w1, w2)
     n, h, w, c = x.shape
+    dev = x.device
+    # W1^T, W2^T per tap, split into TF32 big and small parts
+    wsplit = torch.empty((4, 9, c, c), dtype=torch.float32, device=dev)
     y1 = torch.empty_like(x)
     y2 = torch.empty_like(x)
     out = torch.empty_like(x)
-    part = torch.empty((n * h * w // _BM, 2, c), dtype=torch.float32, device=x.device)
-    stats = torch.empty((n, 4, c), dtype=torch.float32, device=x.device)
-    _build.op("resblock_fwd")(x, w1, w2, y1, y2, part, stats, out, eps)
+    # per 128-pixel tile of a sample, its per-channel (mean, M2)
+    part = torch.empty((n * -(-h * w // 128), 2, c), dtype=torch.float32, device=dev)
+    stats = torch.empty((n, 4, c), dtype=torch.float32, device=dev)
+    _build.op("resblock_fwd")(x, w1, w2, wsplit, y1, y2, part, stats, out, eps)
     fused_resblock_cuda.launches += 1
     return out, y1, y2, stats
 

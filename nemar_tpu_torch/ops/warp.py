@@ -15,13 +15,17 @@ output (``_GridSample``) that dispatches on the image's device. A CPU
 tensor takes the plain path: the coordinate transform (unnormalise +
 padding mode, ``_compute_source_coords``) in torch, then ``_sample_plain``
 (a gather that mirrors the JAX package's ``_grid_sample_xla``), and
-``_sample_plain_bwd`` backward. A CUDA tensor launches K-warp, which runs
-the coordinate transform in the kernel, and K-warp-bwd at the pixel
-coordinates (``ops/warp_cuda.py``). Backward, the coordinates are
-recomputed in torch and d x, d y chain to d grid through torch autograd of
-the transform, exactly where the JAX package leaves the transform outside
-its kernel's custom VJP. 'nearest' is plain torch on the CPU and raises on
-CUDA, where no path of the package uses it.
+``_grid_sample_plain_bwd`` backward, from g to (d img, d grid). A CUDA
+tensor launches K-warp and K-warp-bwd (``ops/warp_cuda.py``), each from the
+normalised grid, with the coordinate transform and its derivative in the
+kernel. 'nearest' is plain torch on the CPU and raises on CUDA, where no
+path of the package uses it.
+
+The grid gradient follows the JAX package where a coordinate sits exactly
+on a limit of the padding mode's clip (the identity grid's edge pixels):
+half the gradient passes, as ``jax.grad`` of ``jnp.clip`` gives, and the
+reflection's abs has slope +1 at 0. It differs there from
+``F.grid_sample``'s backward, which passes none at the border.
 
 ``grad_channels`` limits d img to the first channels, the rest get exact
 zeros, as ``grid_sample_pallas(grad_channels=...)`` does: the model warps
@@ -47,32 +51,79 @@ def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool) -> torch.T
     return ((coord + 1.0) * size - 1.0) * 0.5
 
 
+def _clip(pix: torch.Tensor, size: int) -> torch.Tensor:
+    """Clip to [0, size - 1] as ``jnp.clip`` (a max, then a min): autograd
+    gives half the gradient where pix equals a limit (a quarter when both
+    limits are 0), as ``jax.grad`` does; ``torch.clamp`` would give all of it."""
+    lo = torch.zeros((), dtype=pix.dtype, device=pix.device)
+    return torch.minimum(torch.maximum(pix, lo), lo + (size - 1))
+
+
 def _reflect(coord: torch.Tensor, twice_low: float, twice_high: float) -> torch.Tensor:
-    """torch's reflect_coordinates: reflect into [twice_low/2, twice_high/2]."""
+    """torch's reflect_coordinates: reflect into [twice_low/2, twice_high/2].
+    The abs has gradient +1 at 0, as ``jax.grad(jnp.abs)``; torch.abs has 0."""
     if twice_low == twice_high:
         return torch.zeros_like(coord)
     mn = twice_low / 2.0
     span = (twice_high - twice_low) / 2.0
-    x = torch.abs(coord - mn)
+    d = coord - mn
+    x = torch.where(d >= 0, d, -d)
     extra = torch.remainder(x, 2.0 * span)
     return mn + torch.where(extra > span, 2.0 * span - extra, extra)
 
 
 def _compute_source_coords(coord: torch.Tensor, size: int, align_corners: bool,
                            padding_mode: str) -> torch.Tensor:
-    """Unnormalise and apply the padding-mode coordinate transform."""
+    """Unnormalise and apply the padding-mode coordinate transform.
+
+    Its gradient takes the JAX package's conventions where a coordinate sits
+    on a tie (``_clip``, ``_reflect``): the identity grid maps exactly onto
+    pixels 0 and size - 1, where ``border`` and ``reflection`` pass half
+    the gradient. ``F.grid_sample``'s backward passes none there."""
     pix = _unnormalize(coord, size, align_corners)
     if padding_mode == "border":
-        pix = torch.clamp(pix, 0.0, float(size - 1))
+        pix = _clip(pix, size)
     elif padding_mode == "reflection":
         if align_corners:
             pix = _reflect(pix, 0.0, 2.0 * (size - 1))
         else:
             pix = _reflect(pix, -1.0, 2.0 * size - 1.0)
-        pix = torch.clamp(pix, 0.0, float(size - 1))
+        pix = _clip(pix, size)
     elif padding_mode != "zeros":
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     return pix
+
+
+def _clip_slope(pix: torch.Tensor, size: int) -> torch.Tensor:
+    """d _clip(pix) / d pix, written out: max's factor (1 above 0, 1/2 at 0,
+    0 below) times min's on max's result (1 below size - 1, 1/2 at it)."""
+    hi = float(size - 1)
+    up = torch.where(pix > 0, 1.0, torch.where(pix == 0, 0.5, 0.0))
+    m = torch.clamp_min(pix, 0.0)
+    return up * torch.where(m < hi, 1.0, torch.where(m == hi, 0.5, 0.0))
+
+
+def _source_coords_and_slope(coord: torch.Tensor, size: int, align_corners: bool,
+                             padding_mode: str) -> tuple:
+    """(``_compute_source_coords(coord)``, its derivative in coord), written
+    out with the same tie conventions, as K-warp-bwd computes them."""
+    pix = _unnormalize(coord, size, align_corners)
+    slope = torch.full_like(pix, 0.5 * (size - 1) if align_corners else 0.5 * size)
+    if padding_mode == "reflection":
+        if align_corners and size == 1:
+            return torch.zeros_like(pix), torch.zeros_like(pix)
+        mn, span = (0.0, size - 1.0) if align_corners else (-0.5, float(size))
+        d = pix - mn
+        extra = torch.remainder(torch.where(d >= 0, d, -d), 2.0 * span)
+        flip = extra > span
+        pix = mn + torch.where(flip, 2.0 * span - extra, extra)
+        slope = slope * torch.where(d >= 0, 1.0, -1.0) * torch.where(flip, -1.0, 1.0)
+    if padding_mode in ("border", "reflection"):
+        slope = slope * _clip_slope(pix, size)
+        pix = torch.clamp(pix, 0.0, float(size - 1))
+    elif padding_mode != "zeros":
+        raise ValueError(f"unknown padding_mode: {padding_mode!r}")
+    return pix, slope
 
 
 # ---------------------------------------------------------------------------
@@ -168,17 +219,24 @@ def _sample_plain(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     return out.reshape(n, gh, gw, c)
 
 
-def _sample_plain_bwd(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
-                      grad_channels: int) -> tuple:
-    """Plain version of K-warp-bwd: (d img, d x, d y) of bilinear
-    ``_sample_plain`` given g = d out (N, Ho, Wo, C).
+def _grid_sample_plain_bwd(img: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
+                           padding_mode: str, align_corners: bool, grad_channels: int) -> tuple:
+    """Plain version of K-warp-bwd: (d img, d grid) of bilinear sampling of
+    img (N, H, W, C) at grid (N, Ho, Wo, 2), given g = d out (N, Ho, Wo, C),
+    written out (no autograd).
 
     d img covers the first ``grad_channels`` channels (exact zeros for the
     rest; None when 0); the taps' values are zero out of frame, and floor()
-    carries no gradient, as in the JAX package's gather.
+    carries no gradient, as in the JAX package's gather. d grid is d x, d y
+    at the pixel coordinates times the coordinate transform's slope, with the
+    JAX package's conventions at ties (``_source_coords_and_slope``).
     """
+    if grid.dtype != torch.float64:
+        grid = grid.float()
     n, h, w, c = img.shape
-    gh, gw = x.shape[1], x.shape[2]
+    gh, gw = grid.shape[1], grid.shape[2]
+    x, sx = _source_coords_and_slope(grid[..., 0], w, align_corners, padding_mode)
+    y, sy = _source_coords_and_slope(grid[..., 1], h, align_corners, padding_mode)
     x = x.reshape(n, gh * gw)
     y = y.reshape(n, gh * gw)
     g = g.reshape(n, gh * gw, c)
@@ -205,11 +263,13 @@ def _sample_plain_bwd(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor, g: to
         acc = torch.zeros((n, h * w, grad_channels), dtype=img.dtype, device=img.device)
         gg = g[..., :grad_channels]
         for _, valid, idx, wgt in taps:
-            contrib = gg * torch.where(valid, wgt, 0.0)[..., None]
+            # out of frame, nothing (not g * 0, which is NaN for g = inf)
+            contrib = torch.where(valid[..., None], gg * wgt[..., None], 0.0)
             acc.scatter_add_(1, idx[:, :, None].expand(n, gh * gw, grad_channels), contrib)
         pad = torch.zeros((n, h * w, c - grad_channels), dtype=img.dtype, device=img.device)
         dimg = torch.cat([acc, pad], dim=-1).reshape(n, h, w, c)
-    return dimg, dx.reshape(n, gh, gw), dy.reshape(n, gh, gw)
+    dgrid = torch.stack([dx.reshape(n, gh, gw) * sx, dy.reshape(n, gh, gw) * sy], dim=-1)
+    return dimg, dgrid.to(grid.dtype)
 
 
 def _check(img: torch.Tensor, grid: torch.Tensor) -> None:
@@ -256,16 +316,12 @@ class _GridSample(torch.autograd.Function):
         img, grid = ctx.saved_tensors
         padding_mode, align_corners, gc = ctx.conf
         gc = gc if ctx.needs_input_grad[0] else 0
-        with torch.enable_grad():
-            gr = grid.detach().requires_grad_(ctx.needs_input_grad[1])
-            x, y = _pixel_coords(img, gr, padding_mode, align_corners)
         if img.is_cuda:
-            dimg, dx, dy = warp_cuda.warp_bilinear_bwd(
-                img, x.detach().contiguous(), y.detach().contiguous(), g.contiguous(), gc)
+            dimg, dgrid = warp_cuda.warp_grid_bwd(img, grid, g.contiguous(), padding_mode,
+                                                  align_corners, gc)
         else:
-            dimg, dx, dy = _sample_plain_bwd(img, x.detach(), y.detach(), g, gc)
-        dgrid = torch.autograd.grad((x, y), gr, (dx, dy))[0] if ctx.needs_input_grad[1] else None
-        return dimg, dgrid, None, None, None
+            dimg, dgrid = _grid_sample_plain_bwd(img, grid, g, padding_mode, align_corners, gc)
+        return dimg, dgrid if ctx.needs_input_grad[1] else None, None, None, None
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",

@@ -5,15 +5,13 @@ They replace the TPU kernels ``nemar_tpu/ops/warp_pallas.py:_fwd_pallas``
 and ``_bwd_pallas`` (through ``_warp_core`` and its custom VJP). K-warp
 samples an NHWC fp32 image bilinearly at a normalised grid, with the
 padding mode and ``align_corners`` applied in the kernel (zeros-padded
-taps). K-warp-bwd takes the PIXEL coordinates the grid maps to
-(``ops/warp.py:_pixel_coords``) and returns the gradient with respect to the
-image (first ``grad_channels`` channels) and to those coordinates; torch
-autograd chains it to the grid (``ops/warp.py:_GridSample``).
+taps). K-warp-bwd takes the same image and grid and g = d out, and returns
+the gradient with respect to the image (first ``grad_channels`` channels)
+and to the grid, the coordinate transform's derivative included.
 
-Both launch through their PyTorch operators (``csrc/ops.cpp``). K-warp's
-does the checks and the allocation in C++: at batch 1 its device time is a
+Both launch through their PyTorch operators (``csrc/ops.cpp``), which do
+the checks and the allocation in C++: at batch 1 a call's device time is a
 few microseconds, so the host's cost per call is what the caller waits for.
-Both check only what their kernels need: CUDA, fp32, contiguous, shapes.
 """
 
 from __future__ import annotations
@@ -23,7 +21,9 @@ import torch
 from nemar_tpu_torch.ops import _build
 
 PADDING_MODES = {"zeros": 0, "border": 1, "reflection": 2}
-_warp_grid = None  # torch.ops.nemar.warp_grid, once the library is loaded
+# torch.ops.nemar.warp_grid and warp_grid_bwd, once the library is loaded
+_warp_grid = None
+_warp_grid_bwd = None
 
 
 def _refuse(what: str, tensors: dict) -> None:
@@ -75,34 +75,37 @@ def _load_warp_grid():
 warp_bilinear.launches = 0
 
 
-def warp_bilinear_bwd(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, g: torch.Tensor,
-                      grad_channels: int) -> tuple:
-    """Launch K-warp-bwd: (d img or None, d xs, d ys) of bilinear zeros-padded
-    sampling of img at pixel coordinates xs, ys (N, Ho, Wo).
+def warp_grid_bwd(img: torch.Tensor, grid: torch.Tensor, g: torch.Tensor,
+                  padding_mode: str = "zeros", align_corners: bool = False,
+                  grad_channels: int = -1) -> tuple:
+    """Launch K-warp-bwd: (d img or None, d grid) of ``warp_bilinear(img,
+    grid, padding_mode, align_corners)`` given g = d out (N, Ho, Wo, C).
 
-    g (N, Ho, Wo, C) is the gradient of its output. d img covers the first
-    ``grad_channels`` channels, the rest are exact zeros; with
-    ``grad_channels == 0`` it is not computed and None is returned.
-    Deterministic: the scatter into d img sums in 64-bit fixed point.
+    d img covers the first ``grad_channels`` channels (-1: all), the rest
+    are exact zeros; with ``grad_channels == 0`` it is not computed and None
+    is returned. d grid takes the padding mode's derivative with the JAX
+    package's conventions at ties (``ops/warp.py:_source_coords_and_slope``).
+    Deterministic: the scatter into d img sums in 64-bit fixed point. CUDA
+    tensors only, fp32 and contiguous; the C++ operator
+    ``torch.ops.nemar.warp_grid_bwd`` (``csrc/ops.cpp``) checks them, the
+    shapes and the alignment, and raises on what the kernel does not take.
     """
-    if not _usable(img, xs, ys, g):
-        _refuse("warp_bilinear_bwd", {"img": img, "xs": xs, "ys": ys, "g": g})
-    n, h, w, c = img.shape
-    ho, wo = xs.shape[1:]
-    if xs.shape != ys.shape or tuple(g.shape) != (n, ho, wo, c):
-        raise ValueError(f"warp_bilinear_bwd: bad shapes img {tuple(img.shape)}, "
-                         f"xs {tuple(xs.shape)}, ys {tuple(ys.shape)}, g {tuple(g.shape)}")
-    if not 0 <= grad_channels <= c:
-        raise ValueError(f"warp_bilinear_bwd: grad_channels {grad_channels} not in [0, {c}]")
-    dev = img.device
-    dxs = torch.empty_like(xs)
-    dys = torch.empty_like(ys)
-    dimg = torch.empty_like(img) if grad_channels else None
-    acc = torch.zeros((n, h, w, grad_channels), dtype=torch.int64, device=dev)
-    gmax = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _build.op("warp_bwd")(img, xs, ys, g, dimg, dxs, dys, acc, gmax, grad_channels)
-    warp_bilinear_bwd.launches += 1
-    return dimg, dxs, dys
+    if not _usable(img, grid, g):
+        _refuse("warp_grid_bwd", {"img": img, "grid": grid, "g": g})
+    padding = PADDING_MODES.get(padding_mode)
+    if padding is None:
+        raise ValueError(f"unknown padding_mode: {padding_mode!r}")
+    gc = img.shape[-1] if grad_channels < 0 else grad_channels
+    dimg, dgrid = (_warp_grid_bwd or _load_warp_grid_bwd())(img, grid, g, padding,
+                                                              align_corners, gc)
+    warp_grid_bwd.launches += 1
+    return (dimg if gc else None), dgrid
 
 
-warp_bilinear_bwd.launches = 0
+def _load_warp_grid_bwd():
+    global _warp_grid_bwd
+    _warp_grid_bwd = _build.op("warp_grid_bwd")
+    return _warp_grid_bwd
+
+
+warp_grid_bwd.launches = 0

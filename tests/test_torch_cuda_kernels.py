@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton, warp
-from nemar_tpu_torch.ops import warp_cuda
+from nemar_tpu_torch.ops import _build, conv_fused, conv_head, convt_fused, norm, norm_triton
+from nemar_tpu_torch.ops import warp, warp_cuda
 from nemar_tpu_torch.ops.warp import identity_grid
 
 pytestmark = pytest.mark.cuda
@@ -219,6 +219,48 @@ def test_block_autograd_runs_the_kernels(dev):
         assert torch.max(torch.abs(a - b)).item() < 1e-3 * torch.max(torch.abs(b)).item()
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 8, 128), (3, 8, 24, 128), (1, 12, 16, 256)])
+def test_block_kernel_ragged_tiles(dev, shape):
+    """Shapes whose samples end inside a 128-pixel tile (H*W of 64, 192, 192):
+    out, y1, y2 within 1e-3, the IN means within 1e-4 and the rstds within
+    1e-4 relative; bit for bit repeatable."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(h * w)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    w1, w2 = (torch.from_numpy((0.05 * rng.standard_normal((3, 3, c, c))).astype(np.float32)).to(dev)
+              for _ in range(2))
+    got = conv_fused.fused_resblock_cuda(x, w1, w2)
+    again = conv_fused.fused_resblock_cuda(x, w1, w2)
+    ref = conv_fused.resblock_fwd_plain(x, w1, w2)
+    torch.cuda.synchronize()
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+    for a, r in zip(got[:3], ref[:3]):
+        assert torch.max(torch.abs(a - r)).item() < 1e-3
+    assert torch.max(torch.abs(got[3][:, 0::2] - ref[3][:, 0::2])).item() < 1e-4
+    assert torch.max(torch.abs(got[3][:, 1::2] / ref[3][:, 1::2] - 1)).item() < 1e-4
+
+
+@pytest.mark.parametrize("n", [1, 8])
+def test_block_kernel_fp64_accuracy(dev, n):
+    """K-block's 3xTF32 convolutions keep fp32-level accuracy: against the
+    plain forward in float64 (the same inputs cast up), its largest relative
+    error on out, y1 and y2 is at most 4x that of the fp32 plain version."""
+    rng = np.random.default_rng(29 + n)
+    shape = (n, 64, 64, 256)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    w1, w2 = (torch.from_numpy((0.02 * rng.standard_normal((3, 3, 256, 256))).astype(np.float32))
+              .to(dev) for _ in range(2))
+    got = conv_fused.fused_resblock_cuda(x, w1, w2)[:3]
+    ref32 = conv_fused.resblock_fwd_plain(x, w1, w2)[:3]
+    ref64 = conv_fused.resblock_fwd_plain(x.double(), w1.double(), w2.double())[:3]
+
+    def rel(a, b):
+        return max(float((p.double() - q).abs().max() / q.abs().max()) for p, q in zip(a, b))
+
+    assert rel(got, ref64) <= 4 * rel(ref32, ref64)
+
+
 def test_block_kernel_refuses_unsupported_shapes(dev):
     x = torch.zeros((1, 8, 8, 96), device=dev)
     w = torch.zeros((3, 3, 96, 96), device=dev)
@@ -242,26 +284,121 @@ def test_kernels_refuse_autograd_inputs(dev):
             assert call().shape[0] == 1
 
 
+def _rel_close(a, r, tol):
+    return torch.max(torch.abs(a - r)).item() <= tol * torch.max(torch.abs(r)).item()
+
+
 @pytest.mark.parametrize("n", [1, 8])
 def test_warp_bwd_kernel_matches_plain(dev, n):
-    """K-warp-bwd against the plain backward (d img for 3 of 4 channels,
-    exact zeros for the 4th; d x, d y), 1e-5 of the largest value, and bit
-    for bit repeatable (the fixed-point scatter)."""
+    """K-warp-bwd, one operator from (img, grid, g) to (d img, d grid),
+    against its written-out plain version at the slice's shape (d img for 3
+    of 4 channels, exact zeros for the 4th), 1e-5 of the largest value, and
+    bit for bit repeatable (the fixed-point scatter)."""
     rng = np.random.default_rng(n + 5)
     img = torch.from_numpy(rng.standard_normal((n, 256, 256, 4), dtype=np.float32)).to(dev)
     grid = smooth_grid(rng, n, 256, 256).to(dev)
-    xs, ys = (t.contiguous() for t in warp._pixel_coords(img, grid, "zeros", False))
     g = torch.from_numpy(rng.standard_normal((n, 256, 256, 4), dtype=np.float32)).to(dev)
-    before = warp_cuda.warp_bilinear_bwd.launches
-    got = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
-    again = warp_cuda.warp_bilinear_bwd(img, xs, ys, g, 3)
-    ref = warp._sample_plain_bwd(img, xs, ys, g, 3)
+    before = warp_cuda.warp_grid_bwd.launches
+    got = warp_cuda.warp_grid_bwd(img, grid, g, "zeros", False, 3)
+    again = warp_cuda.warp_grid_bwd(img, grid, g, "zeros", False, 3)
+    ref = warp._grid_sample_plain_bwd(img, grid, g, "zeros", False, 3)
     torch.cuda.synchronize()
-    assert warp_cuda.warp_bilinear_bwd.launches == before + 2
+    assert warp_cuda.warp_grid_bwd.launches == before + 2
     assert not torch.any(got[0][..., 3])
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b)
-        assert torch.max(torch.abs(a - r)).item() < 1e-5 * torch.max(torch.abs(r)).item()
+        assert _rel_close(a, r, 1e-5)
+
+
+def _bwd_case(kind, rng, align_corners):
+    """(img, grid, grad_channels): a ragged random grid reaching off the
+    frame, the identity grid (every edge pixel on the clip's tie), grid
+    entries of exactly +-1 (the clip's and the reflection's ties), or a
+    large random grid whose every output block reads from the whole image
+    (K-warp-bwd's path for more candidate blocks than its lists hold)."""
+    if kind == "far":
+        img = rng.standard_normal((1, 64, 64, 4), dtype=np.float32)
+        return img, rng.uniform(-1, 1, (1, 272, 256, 2)).astype(np.float32), 3
+    if kind == "ragged":
+        img = rng.standard_normal((2, 33, 47, 3), dtype=np.float32)
+        grid = rng.uniform(-1.3, 1.3, (2, 21, 19, 2)).astype(np.float32)
+        return img, grid, 2
+    img = rng.standard_normal((2, 37, 29, 4), dtype=np.float32)
+    if kind == "identity":
+        grid = np.broadcast_to(identity_grid(37, 29, align_corners).numpy(), (2, 37, 29, 2))
+        return img, np.ascontiguousarray(grid), 4
+    pick = rng.integers(0, 3, (2, 37, 29, 2))
+    grid = np.where(pick == 0, -1.0, np.where(pick == 1, 1.0, rng.uniform(-1, 1, pick.shape)))
+    return img, grid.astype(np.float32), 0
+
+
+@pytest.mark.parametrize("kind", ["ragged", "identity", "plus_minus_one", "far"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_warp_bwd_kernel_padding_modes_and_ties(dev, padding_mode, align_corners, kind):
+    """K-warp-bwd against its plain version in every padding mode, at ties,
+    ragged shapes and a far-reaching field, with grad_channels 2 of 3, all
+    4, 3 of 4, or 0 (d grid alone): 1e-5 of the largest value, bit for bit
+    repeatable."""
+    rng = np.random.default_rng(23 + len(kind))
+    img, grid, gc = _bwd_case(kind, rng, align_corners)
+    img, grid = torch.from_numpy(img).to(dev), torch.from_numpy(grid).to(dev)
+    g = torch.from_numpy(rng.standard_normal(grid.shape[:3] + img.shape[3:]).astype(np.float32)).to(dev)
+    got = warp_cuda.warp_grid_bwd(img, grid, g, padding_mode, align_corners, gc)
+    again = warp_cuda.warp_grid_bwd(img, grid, g, padding_mode, align_corners, gc)
+    ref = warp._grid_sample_plain_bwd(img, grid, g, padding_mode, align_corners, gc)
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (ref[0] is None) == (gc == 0)
+    for a, b, r in zip(got, again, ref):
+        if r is not None:
+            assert torch.equal(a, b)
+            assert _rel_close(a, r, 1e-5)
+
+
+@pytest.mark.parametrize("kind", ["ragged", "identity"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
+def test_warp_bwd_kernel_non_finite_g(dev, padding_mode, kind):
+    """A NaN, +inf and -inf in g (C = 3 and C = 4, the float4 path): d img
+    and d grid hold the plain version's non-finite values at the same
+    places, and agree with it elsewhere at 1e-5 of the largest finite value."""
+    rng = np.random.default_rng(61 + len(kind))
+    img, grid, gc = _bwd_case(kind, rng, False)
+    g = rng.standard_normal(grid.shape[:3] + img.shape[3:]).astype(np.float32)
+    g[0, 1, 2, 0], g[0, 3, 1, 1], g[1, 0, 0, 1], g[1, 6, 4, 0] = np.nan, np.inf, -np.inf, np.inf
+    grid[1, 0, 0] = (-1.0, 0.25)  # the -inf pixel: two taps in frame at weight 0
+    img, grid, g = (torch.from_numpy(a).to(dev) for a in (img, grid, g))
+    got = warp_cuda.warp_grid_bwd(img, grid, g, padding_mode, False, gc)
+    ref = warp._grid_sample_plain_bwd(img, grid, g, padding_mode, False, gc)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ref[0]).all())
+    for a, r in zip(got, ref):
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(a), test(r))
+        finite = torch.isfinite(r)
+        assert _rel_close(a[finite], r[finite], 1e-5)
+
+
+def test_warp_bwd_op_refuses_what_it_cannot_run(dev):
+    img = torch.zeros((1, 8, 8, 3), device=dev)
+    grid = identity_grid(8, 8, device=dev)[None]
+    g = torch.zeros((1, 8, 8, 3), device=dev)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        warp_cuda.warp_grid_bwd(img.cpu(), grid.cpu(), g.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        warp_cuda.warp_grid_bwd(img, grid.double(), g)
+    with pytest.raises(ValueError, match="not contiguous"):
+        warp_cuda.warp_grid_bwd(img, grid.transpose(1, 2), g)
+    with pytest.raises(ValueError, match="padding_mode"):
+        warp_cuda.warp_grid_bwd(img, grid, g, "wrap")
+    op = _build.op("warp_grid_bwd")
+    with pytest.raises(RuntimeError, match="contiguous"):
+        op(img, grid.transpose(1, 2), g, 0, False, 3)
+    with pytest.raises(RuntimeError, match="float32"):
+        op(img, grid.double(), g, 0, False, 3)
+    with pytest.raises(RuntimeError, match="bad g"):
+        op(img, grid, g[..., :2].contiguous(), 0, False, 3)
+    with pytest.raises(RuntimeError, match="grad_channels"):
+        op(img, grid, g, 0, False, 4)
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border", "reflection"])
