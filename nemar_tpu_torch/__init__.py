@@ -11,12 +11,13 @@ names so each module's counterpart is easy to find:
   * ``ops/norm.py`` + ``ops/norm_triton.py`` — instance norm + activation;
     the Triton kernels K-in and K-in-bwd.
   * ``ops/conv_fused.py`` + ``csrc/resblock_{fwd,bwd}.cu`` — the ResNet
-    trunk block; the CUDA kernels K-block and K-block-bwd, on the GEMM core
-    ``csrc/gemm_core.cuh``.
+    trunk block; the CUDA kernels K-block and K-block-bwd, on the 3xTF32
+    tensor-core GEMM core ``csrc/gemm_tc.cuh``.
   * ``ops/conv_head.py`` + ``csrc/head_{fwd,bwd}.cu`` — the generator's 7x7
     head conv; the CUDA kernels K-head and K-head-bwd.
   * ``ops/convt_fused.py`` + ``csrc/convt_{fwd,bwd}.cu`` — a decoder stage
-    (ConvTranspose + IN + ReLU); the CUDA kernels K-convt and K-convt-bwd.
+    (ConvTranspose + IN + ReLU); the CUDA kernels K-convt and K-convt-bwd,
+    on the same GEMM core.
   * ``models/`` — ResnetGenerator, NLayerDiscriminator, UnetSTN, NEMARModel
     (inference and the training step).
   * ``options/``, ``data/``, ``utils/`` — this package's copies of the JAX

@@ -10,8 +10,12 @@
 //
 // What bounds it on the H100: arithmetic. dW and dx each cost the forward's
 // 2.42 GFLOP per image and stage, around an instance-norm backward over the
-// 2H x 2W output that moves a few tens of MB. The TPU kernel keeps a sample
-// in VMEM and carries dW across its sequential grid; Hopper blocks run in no
+// 2H x 2W output that moves a few tens of MB. Both GEMMs run on the wgmma
+// core of gemm_tc.cuh in 3xTF32 (fp32-level accuracy; the tensor-core
+// bound is 3 x 2 x 2.42 GFLOP at 495 TFLOP/s = 29 us per image and stage),
+// with every operand row and every channel past Ci or Co zero-filled by
+// cp.async, so any Ci, Co % 4 == 0 runs. The TPU kernel keeps a sample in
+// VMEM and carries dW across its sequential grid; Hopper blocks run in no
 // order, so every sum across blocks here is a partial buffer merged in a
 // fixed order (no float atomics: two identical runs are bit-identical).
 // Six launches, counted as one call:
@@ -19,39 +23,38 @@
 //   1-3. gh = g * (yhat > 0); per (n, c) the means m1 = mean(gh) and
 //        m2 = mean(gh * yhat) over the 4 planes together (per-tile partial
 //        sums, a fixed-order fp64 merge by a block per (n, 32 channels));
-//        dz = rstd * (gh - m1 - yhat * m2).
+//        dz = rstd * (gh - m1 - yhat * m2). Launch 3's blocks past the
+//        apply also split W into TF32 big and small parts for the dgrad.
 //   4.   dW[ky, kx] = sum over pixels (n, i, j) of x[n, i + dy, j + dx] (x)
 //        dz[n, 2i + py, 2j + px], the tap's one parity plane (py, dy) from
 //        the forward's table: a GEMM M = 9 * Ci (tap, ci), N = Co,
-//        K = N*H*W, split over pixel ranges into a partial buffer, then
-//        summed in split order (as K-block-bwd's weight gradients).
-//   5-6. dx[n, i, j] = sum over the 9 taps of dz[n, 2i + 2 - ky, 2j + 2 - kx]
+//        K = N*H*W, on gemm_wgmma_mn_kernel (A = x shifted by the tap, B =
+//        the parity plane of dz, both pixel-major), split over pixel ranges
+//        into a partial buffer (as K-block-bwd's weight gradients), 64 or
+//        128 output channels a tile;
+//   5.   dW = the partials summed in split order;
+//   6.   dx[n, i, j] = sum over the 9 taps of dz[n, 2i + 2 - ky, 2j + 2 - kx]
 //        . W[ky, kx]^T (zero past the output's edge), the TPU kernel's _AXB
-//        table: a GEMM M = N*H*W pixels, N = Ci, K = 9 * Co (tap, co) with
-//        wt = W transposed to (3, 3, Co, Ci).
-//
-// All three GEMMs run on the templated FMA core (gemm_core.cuh).
+//        table: a GEMM M = N*H*W pixels, N = Ci, K = 9 * Co (tap, co) on
+//        gemm_wgmma_kernel, A = dz along co, B = W in HWIO as it lies
+//        (K-major: rows ci, co contiguous), as K-block-bwd's dgrad reads W.
 //
 // Layouts: x, dx (N, H, W, Ci); yhat, g, dz (N, 2H, 2W, Co); stats
-// (N, 2, Co) = (mu, rstd); wt (3, 3, Co, Ci); dw (3, 3, Ci, Co) HWIO;
-// part_in (N * tiles, 2, Co), tiles = ceil(4*H*W / 64); means (N, 2, Co);
-// part_w (splits, 9 * Ci, Co). All fp32. Requirements (checked by the
-// wrapper): Ci % 4 == 0, Co % 4 == 0, 16-byte aligned pointers,
-// pix_per_split % 8 == 0.
+// (N, 2, Co) = (mu, rstd); w, dw (3, 3, Ci, Co) HWIO; wsplit (2, 9 * Ci, Co)
+// = (W big, W small); part_in (N * tiles, 2, Co), tiles = ceil(4*H*W / 64);
+// means (N, 2, Co); part_w (splits, 9 * Ci, Co). All fp32. Requirements
+// (checked by the wrapper): Ci % 4 == 0, Co % 4 == 0, 16-byte aligned
+// pointers, pix_per_split % 32 == 0.
 #include <cuda_runtime.h>
 
-#include "gemm_core.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
-using gemm::BK;
-using gemm::BLoader;
-using gemm::BM;
-using gemm::BN;
-using gemm::gemm_kernel;
-using gemm::split_sum_kernel;
-using gemm::THREADS;
-using gemm::zero4;
+using tc::BK;
+using tc::BM;
+using tc::CHUNKS;
+using tc::cp_async16;
 
 constexpr int IN_TILE = 64;  // output pixels per IN-backward partial
 
@@ -116,10 +119,27 @@ in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means, i
   }
 }
 
+// blocks [0, apply_blocks): dz; the rest split w (w4 float4s) into
+// wsplit = (w big, w small) for the dgrad's B operand
 __global__ void in_bwd_apply_kernel(const float4* __restrict__ g, const float4* __restrict__ yh,
                                     const float* __restrict__ stats,
                                     const float* __restrict__ means, float4* __restrict__ dz,
-                                    long long total4, long long per_sample, int c) {
+                                    long long total4, long long per_sample, int c,
+                                    int apply_blocks, const float4* __restrict__ w,
+                                    uint4* __restrict__ wsplit, long long w4) {
+  if ((int)blockIdx.x >= apply_blocks) {
+    const long long i = (long long)(blockIdx.x - apply_blocks) * blockDim.x + threadIdx.x;
+    if (i >= w4) return;
+    const float4 v = w[i];
+    uint4 big, small;
+    tc::split_tf32(v.x, big.x, small.x);
+    tc::split_tf32(v.y, big.y, small.y);
+    tc::split_tf32(v.z, big.z, small.z);
+    tc::split_tf32(v.w, big.w, small.w);
+    wsplit[i] = big;
+    wsplit[w4 + i] = small;
+    return;
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total4) return;
   const long long e = i * 4;
@@ -144,145 +164,190 @@ __global__ void in_bwd_apply_kernel(const float4* __restrict__ g, const float4* 
 // 4. dW partials: part[s][tap*Ci + ci][co] = sum over the pixels p of split
 // s of x[b, i + dy, j + dx, ci] * dz[b, 2i + py, 2j + px, co]
 // ---------------------------------------------------------------------------
+template <int kTN>
 struct ConvtWgradOp {
-  static constexpr bool kTileStats = false;
+  static constexpr bool kNormRelu = false;
+  static constexpr int kTileN = kTN;  // output channels per tile: 128 or 64
   const float* x;
   const float* dz;
   float* part;
-  int h, w_, ci, co, total, pix_per_split;
+  int h, w, ci, co, total, pix_per_split, mtiles;
   // per thread
-  int tap, ci0, n0, py, px, dy, dx, p0, a_k, a_c;
-  BLoader bl;
-  struct Stage { float4 a, b0, b1; };
+  int tap, ci0, n0, py, px, dy, dx, p0, nkt, col;
 
   __device__ void setup(int tid) {
-    const int mtiles = (ci + BM - 1) / BM;  // 64-row tiles within one tap
-    tap = blockIdx.x / mtiles;
+    tap = blockIdx.x / mtiles;  // mtiles 128-row tiles (ci) within one tap
     ci0 = (blockIdx.x - tap * mtiles) * BM;
-    n0 = blockIdx.y * BN;
-    const int ky = tap / 3, kx = tap - (tap / 3) * 3;
+    n0 = blockIdx.y * kTN;
+    const int ky = tap / 3, kx = tap - 3 * ky;
     py = ky == 1;
     px = kx == 1;
     dy = ky == 0 ? -1 : 0;
     dx = kx == 0 ? -1 : 0;
-    a_k = tid >> 4;        // pixel of the K slice, 0..7
-    a_c = (tid & 15) * 4;  // four consecutive rows (input channels)
     p0 = blockIdx.z * pix_per_split;
-    bl.init(tid);
+    nkt = (min(pix_per_split, total - p0) + BK - 1) / BK;
+    col = tc::mmajor_col(tid);
   }
-  __device__ int ktiles() const { return pix_per_split / BK; }
-  // the dz offset of plane pixel p, or -1 past the last pixel
-  __device__ long long dz_row(int p) const {
-    if (p >= total) return -1;
-    const int hw = h * w_;
-    const int b = p / hw;
-    const int pix = p - b * hw;
-    const int i = pix / w_, j = pix - (pix / w_) * w_;
-    return (((long long)b * 2 * h + 2 * i + py) * 2 * w_ + 2 * j + px) * co;
-  }
-  __device__ void load(int kt, Stage& s) const {
-    const int hw = h * w_;
-    const int p = p0 + kt * BK + a_k;
-    const int c = ci0 + a_c;
-    s.a = zero4();
-    if (p < total && c < ci) {
-      const int b = p / hw;
-      const int pix = p - b * hw;
-      const int ii = pix / w_ + dy, jj = pix - (pix / w_) * w_ + dx;
-      if (ii >= 0 && jj >= 0)
-        s.a = *reinterpret_cast<const float4*>(x + (((size_t)b * h + ii) * w_ + jj) * ci + c);
+  __device__ int ktiles() const { return nkt; }
+  __device__ void load(int kt, float* As, float* Bs, int tid) const {
+    // this thread's rows k = warp + 8 i (i < 4) are the warp's: lane l works
+    // out, for row warp + 8 (l % 4), the pixel of x (-1 off the frame or past
+    // the last pixel) and that of dz (-1 past the last pixel), shared by
+    // shuffles
+    const int pk = p0 + kt * BK, kw = tid >> 5;
+    int xs, zs;
+    {
+      const int p = pk + kw + 8 * (tid & 3);
+      const int hw = h * w, b = p / hw, pix = p - b * hw;
+      const int i = pix / w, j = pix - (pix / w) * w;
+      const bool in = p < total;
+      xs = in && i + dy >= 0 && j + dx >= 0 ? (b * h + i + dy) * w + j + dx : -1;
+      zs = in ? (b * 2 * h + 2 * i + py) * 2 * w + 2 * j + px : -1;
     }
-    const int col = n0 + bl.b_c;
-    const long long r0 = dz_row(p0 + kt * BK + bl.b_r);
-    const long long r1 = dz_row(p0 + kt * BK + bl.b_r + 4);
-    s.b0 = (r0 >= 0 && col < co) ? *reinterpret_cast<const float4*>(dz + r0 + col) : zero4();
-    s.b1 = (r1 >= 0 && col < co) ? *reinterpret_cast<const float4*>(dz + r1 + col) : zero4();
+    const bool cin = ci0 + col < ci, nin = n0 + col < co;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int k = kw + 8 * i;
+      const int sx = __shfl_sync(0xffffffffu, xs, i), sz = __shfl_sync(0xffffffffu, zs, i);
+      const bool va = cin && sx >= 0, vb = nin && sz >= 0;
+      cp_async16(tc::mmajor_at(As, k, col), va ? x + (size_t)sx * ci + ci0 + col : x, va);
+      if (kTN == 128 || col < kTN)
+        cp_async16(tc::mmajor_at(Bs, k, col), vb ? dz + (size_t)sz * co + n0 + col : dz, vb);
+    }
   }
-  __device__ void store(float (&A)[BK][BM], float (&B)[BK][BN], const Stage& s) const {
-    *reinterpret_cast<float4*>(&A[a_k][a_c]) = s.a;
-    *reinterpret_cast<float4*>(&B[bl.b_r][bl.b_c]) = s.b0;
-    *reinterpret_cast<float4*>(&B[bl.b_r + 4][bl.b_c]) = s.b1;
-  }
-  __device__ void write(int r, int col, float4 val) const {
-    if (ci0 + r >= ci || n0 + col >= co) return;
-    float* dst = part + ((size_t)blockIdx.z * 9 * ci + (size_t)tap * ci + ci0 + r) * co + n0 + col;
-    *reinterpret_cast<float4*>(dst) = val;
+  template <class V>
+  __device__ void write(int r, int cl, V val) const {
+    if (ci0 + r >= ci || n0 + cl >= co) return;
+    float* dst = part + ((size_t)blockIdx.z * 9 * ci + (size_t)tap * ci + ci0 + r) * co + n0 + cl;
+    *reinterpret_cast<V*>(dst) = val;
   }
 };
 
+// 5. out = sum over the splits of part, in split order; float4-wide
+__global__ void split_sum_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                                 long long total4, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total4) return;
+  float4 s = part[i];
+  for (int k = 1; k < splits; ++k) {
+    const float4 v = part[(size_t)k * total4 + i];
+    s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+  }
+  out[i] = s;
+}
+
 // ---------------------------------------------------------------------------
-// 5-6. dx[p, ci] = sum_{tap, co} dz[b, 2i + 2 - ky, 2j + 2 - kx, co] * wt[tap, co, ci]
+// 6. dx[p, ci] = sum_{tap, co} dz[b, 2i + 2 - ky, 2j + 2 - kx, co] * w[tap][ci][co]
 // ---------------------------------------------------------------------------
+template <int kTN>
 struct ConvtDgradOp {
+  static constexpr bool kNormRelu = false;
   static constexpr bool kTileStats = false;
+  static constexpr int kTileN = kTN;  // input channels per tile: 128 or 64
   const float* dz;
-  const float* wt;
+  // W in HWIO, split: B(k = (tap, co), n = ci) is K-major as it lies
+  const float* wbig;
+  const float* wsmall;
   float* dx;
-  int h, w_, ci, co, total;
-  // per thread
-  int m0, n0, a_p, a_c, b, i, j, spt;
-  bool valid;
-  BLoader bl;
-  struct Stage { float4 a, b0, b1; };
+  int h, w, ci, co, total;
+  // per thread, for its A rows: the dz pixel of (b, 0, 0) and i << 16 | j
+  // (i = 0x7fff past the last pixel: every tap falls off the output)
+  int m0, n0, kc, spt;
+  int rbase[CHUNKS], rij[CHUNKS];
 
   __device__ void setup(int tid) {
-    const int hw = h * w_;
     m0 = blockIdx.x * BM;
-    n0 = blockIdx.y * BN;
-    a_p = tid >> 1;
-    a_c = (tid & 1) * 4;
-    const int p = m0 + a_p;
-    valid = p < total;
-    b = p / hw;
-    const int pix = p - b * hw;
-    i = pix / w_;
-    j = pix - i * w_;
+    n0 = blockIdx.y * kTN;
+    kc = tc::kmajor_k(tid);
     spt = (co + BK - 1) / BK;
-    bl.init(tid);
+    const int hw = h * w;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int p = m0 + tc::kmajor_row(tid, i);
+      const int b = p / hw, pix = p - b * hw, u = pix / w;
+      rbase[i] = 4 * b * hw;
+      rij[i] = p < total ? (u << 16) | (pix - u * w) : 0x7fff0000;
+    }
   }
   __device__ int ktiles() const { return 9 * spt; }
-  __device__ void load(int kt, Stage& s) const {
+  __device__ void load(int kt, float* As, float* Bb, float* Bs, int tid) const {
     const int tap = kt / spt;
-    const int cs = (kt - tap * spt) * BK;
-    const int ky = tap / 3, kx = tap - (tap / 3) * 3;
-    const int oi = 2 * i + 2 - ky, oj = 2 * j + 2 - kx;
-    const int c = cs + a_c;
-    s.a = (valid && oi < 2 * h && oj < 2 * w_ && c < co)
-              ? *reinterpret_cast<const float4*>(
-                    dz + (((size_t)b * 2 * h + oi) * 2 * w_ + oj) * co + c)
-              : zero4();
-    const int r0 = cs + bl.b_r, col = n0 + bl.b_c;
-    const float* wk = wt + (size_t)tap * co * ci;
-    s.b0 = (r0 < co && col < ci) ? *reinterpret_cast<const float4*>(wk + (size_t)r0 * ci + col)
-                                 : zero4();
-    s.b1 = (r0 + 4 < co && col < ci)
-               ? *reinterpret_cast<const float4*>(wk + (size_t)(r0 + 4) * ci + col) : zero4();
+    const int c = (kt - tap * spt) * BK + kc;
+    const int ky = tap / 3, kx = tap - 3 * ky;
+    const bool cin = c < co;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int oi = 2 * (rij[i] >> 16) + 2 - ky, oj = 2 * (rij[i] & 0xffff) + 2 - kx;
+      const bool valid = cin && oi < 2 * h && oj < 2 * w;
+      cp_async16(tc::kmajor_at(As, tc::kmajor_row(tid, i), kc),
+                 valid ? dz + (size_t)(rbase[i] + oi * 2 * w + oj) * co + c : dz, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < kTN * BK / 4 / tc::THREADS; ++i) {
+      const int nr = tc::kmajor_row(tid, i);
+      const bool valid = cin && n0 + nr < ci;
+      const size_t off = ((size_t)tap * ci + n0 + nr) * co + c;
+      const int dst = tc::swizzled_off(nr, kc / 4);
+      cp_async16(Bb + dst, valid ? wbig + off : wbig, valid);
+      cp_async16(Bs + dst, valid ? wsmall + off : wsmall, valid);
+    }
   }
-  __device__ void store(float (&A)[BK][BM], float (&B)[BK][BN], const Stage& s) const {
-    A[a_c + 0][a_p] = s.a.x;
-    A[a_c + 1][a_p] = s.a.y;
-    A[a_c + 2][a_p] = s.a.z;
-    A[a_c + 3][a_p] = s.a.w;
-    *reinterpret_cast<float4*>(&B[bl.b_r][bl.b_c]) = s.b0;
-    *reinterpret_cast<float4*>(&B[bl.b_r + 4][bl.b_c]) = s.b1;
-  }
-  __device__ void write(int r, int col, float4 val) const {
+  template <class V>
+  __device__ void write(int r, int col, V val) const {
     const int p = m0 + r;
-    if (p >= total || n0 + col >= ci) return;
-    *reinterpret_cast<float4*>(dx + (size_t)p * ci + n0 + col) = val;
+    if (p < total && n0 + col < ci) *reinterpret_cast<V*>(dx + (size_t)p * ci + n0 + col) = val;
   }
 };
+
+template <int kTN>
+cudaError_t wgrad(const float* x, const float* dz, float* part, int h, int w, int ci, int co,
+                  int total, int splits, int pix_per_split, cudaStream_t stream) {
+  ConvtWgradOp<kTN> op;
+  op.x = x;
+  op.dz = dz;
+  op.part = part;
+  op.h = h;
+  op.w = w;
+  op.ci = ci;
+  op.co = co;
+  op.total = total;
+  op.pix_per_split = pix_per_split;
+  op.mtiles = (ci + BM - 1) / BM;
+  return tc::launch_wgmma_mn(
+      op, dim3((unsigned)(9 * op.mtiles), (unsigned)((co + kTN - 1) / kTN), (unsigned)splits),
+      stream);
+}
+
+template <int kTN>
+cudaError_t dgrad(const float* dz, const float* wsplit, float* dx, int h, int w, int ci, int co,
+                  int total, cudaStream_t stream) {
+  ConvtDgradOp<kTN> op;
+  op.dz = dz;
+  op.wbig = wsplit;
+  op.wsmall = wsplit + (size_t)9 * ci * co;
+  op.dx = dx;
+  op.h = h;
+  op.w = w;
+  op.ci = ci;
+  op.co = co;
+  op.total = total;
+  return tc::launch_wgmma(
+      op, dim3((unsigned)((total + BM - 1) / BM), (unsigned)((ci + kTN - 1) / kTN)), stream);
+}
 
 }  // namespace
 
-extern "C" int nemar_convt_in_bwd(const float* x, const float* wt, const float* yhat,
-                                  const float* stats, const float* g, float* dz, float* part_in,
-                                  float* means, float* part_w, float* dw, float* dx, int n, int h,
-                                  int w_, int ci, int co, int splits, int pix_per_split,
-                                  cudaStream_t stream) {
+extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* yhat,
+                                  const float* stats, const float* g, float* wsplit, float* dz,
+                                  float* part_in, float* means, float* part_w, float* dw,
+                                  float* dx, int n, int h, int w_, int ci, int co, int splits,
+                                  int pix_per_split, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   const int pixels = 4 * h * w_;  // of one sample's output
   const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
-  cudaError_t err;
   in_bwd_partial_kernel<<<dim3((unsigned)(n * tiles), (unsigned)((co + 127) / 128)), 128, 0,
                           stream>>>(g, yhat, part_in, pixels, co, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -291,40 +356,25 @@ extern "C" int nemar_convt_in_bwd(const float* x, const float* wt, const float* 
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = (long long)pixels * co;
   const long long total4 = n * per_sample / 4;
-  in_bwd_apply_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+  const int apply_blocks = (int)((total4 + 255) / 256);
+  const long long w4 = (long long)9 * ci * co / 4;
+  in_bwd_apply_kernel<<<(unsigned)(apply_blocks + (w4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(g), reinterpret_cast<const float4*>(yhat), stats, means,
-      reinterpret_cast<float4*>(dz), total4, per_sample, co);
+      reinterpret_cast<float4*>(dz), total4, per_sample, co, apply_blocks,
+      reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), w4);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int total = n * h * w_;  // input pixels = each plane's pixels
-  ConvtWgradOp wop;
-  wop.x = x;
-  wop.dz = dz;
-  wop.part = part_w;
-  wop.h = h;
-  wop.w_ = w_;
-  wop.ci = ci;
-  wop.co = co;
-  wop.total = total;
-  wop.pix_per_split = pix_per_split;
-  gemm_kernel<<<dim3((unsigned)(9 * ((ci + BM - 1) / BM)), (unsigned)((co + BN - 1) / BN),
-                     (unsigned)splits), THREADS, 0, stream>>>(wop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long w4 = (long long)9 * ci * co / 4;
+  err = co <= 64 ? wgrad<64>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream)
+                 : wgrad<128>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream);
+  if (err != cudaSuccess) return (int)err;
   split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(part_w), reinterpret_cast<float4*>(dw), w4, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  ConvtDgradOp dop;
-  dop.dz = dz;
-  dop.wt = wt;
-  dop.dx = dx;
-  dop.h = h;
-  dop.w_ = w_;
-  dop.ci = ci;
-  dop.co = co;
-  dop.total = total;
-  gemm_kernel<<<dim3((unsigned)((total + BM - 1) / BM), (unsigned)((ci + BN - 1) / BN)), THREADS,
-                0, stream>>>(dop);
-  return (int)cudaGetLastError();
+  // 64 input channels a tile where 128 would waste half of each, or leave
+  // SMs idle (batch 1 at 64^2: 64 tiles of 128 x 128 for 132 SMs)
+  const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;
+  err = narrow ? dgrad<64>(dz, wsplit, dx, h, w_, ci, co, total, stream)
+               : dgrad<128>(dz, wsplit, dx, h, w_, ci, co, total, stream);
+  return (int)err;
 }

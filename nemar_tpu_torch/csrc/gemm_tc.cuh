@@ -1,9 +1,11 @@
-// The 3xTF32 tensor-core GEMM cores of K-block (resblock_fwd.cu) and
-// K-block-bwd (resblock_bwd.cu).
+// The 3xTF32 tensor-core GEMM core of the kernel library: K-block
+// (resblock_fwd.cu), K-block-bwd (resblock_bwd.cu), K-convt (convt_fwd.cu)
+// and K-convt-bwd (convt_bwd.cu).
 //
-// Both compute a 128 x 128 tile of C = A B over K, in 32-deep slices, with
-// two warpgroups (256 threads): warpgroup w computes rows 64 w .. 64 w + 63
-// with wgmma.mma_async m64n128k8 tf32, A from registers (each warp's 16 x 8
+// Both kernels compute a 128-row tile of C = A B, 128 or 64 columns wide
+// (Op::kTileN), over K in 32-deep slices, with two warpgroups (256 threads):
+// warpgroup w computes rows 64 w .. 64 w + 63 with wgmma.mma_async
+// m64n128k8 (or m64n64k8) tf32, A from registers (each warp's 16 x 8
 // fragment, split there), B from shared memory through a matrix
 // descriptor, in the K-major 128-byte-swizzled layout wgmma reads for TF32:
 // a row (n) holds the slice's 32 k in 128 bytes, its 16-byte chunks
@@ -11,8 +13,8 @@
 // of STAGES slices in dynamic shared memory is filled by cp.async (16 bytes
 // a copy, zero-filled where the Op masks a row: src-size 0); slice
 // kt + STAGES - 1 is in flight while slice kt is multiplied. An Op
-// (resblock_{fwd,bwd}.cu) supplies the operands' addresses, masks and
-// layouts and the epilogue's writes.
+// (resblock_{fwd,bwd}.cu, convt_{fwd,bwd}.cu) supplies the operands'
+// addresses, masks and layouts and the epilogue's writes.
 //
 //   gemm_wgmma_kernel: operands both K-major in device memory (the dgrads:
 //     dz along channels, W in HWIO; the forward's convs: the activation
@@ -24,11 +26,11 @@
 //     instance norm (tile_stats).
 //   gemm_wgmma_mn_kernel: A M-major, B N-major (the wgrads: the pixels,
 //     their K, are outermost in both). Both are copied as rows of 128 (+ 8
-//     floats of pad); per slice each thread transposes and splits 4 chunks
+//     floats of pad); per slice each thread transposes and splits chunks
 //     of B (4 k of one n: column reads, 16-byte swizzled writes) into the
 //     big and small tiles, and reads its A fragments as 8-byte loads (its
 //     two rows of a fragment are adjacent tile rows: the epilogue maps them
-//     back).
+//     back). A 64-wide tile uses the first 64 columns of the B tiles.
 //
 // 3xTF32. Each fp32 value x is split into big = tf32(x) (round to nearest,
 // ties away, as cvt.rna.tf32.f32, with two integer ops) and small = x - big
@@ -359,6 +361,8 @@ cudaError_t launch_wgmma(const Op& op, dim3 grid, cudaStream_t stream) {
 // A M-major, B N-major (the wgrads); see the header.
 template <class Op>
 __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_mn_kernel(const Op params) {
+  constexpr int TN = Op::kTileN;  // the tile's columns: 128, or 64 for 64 output channels
+  static_assert(TN == 128 || TN == 64, "wgmma m64n128k8 or m64n64k8");
   extern __shared__ __align__(1024) float4 smem4[];
   constexpr int T_FL = tile_floats(false);
   constexpr int STAGE_FL = 2 * T_FL;
@@ -374,9 +378,9 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_mn_kernel(const Op para
   op.setup(tid);
   const int ktiles = op.ktiles();
 
-  float acc[64], part[64];
+  float acc[TN / 2], part[TN / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
   float nmu[2] = {0.f, 0.f}, nrs[2] = {0.f, 0.f};
   int cur_sample = -1;
 
@@ -397,10 +401,10 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_mn_kernel(const Op para
     }
     const float* As = ring + (kt % STAGES) * STAGE_FL;
     const float* Bst = As + T_FL;
-    // B: chunk q = tid + 256 i is (n = q % 128, k-group q / 128)
+    // B: chunk q = tid + 256 i is (n = q % TN, k-group q / TN)
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int q = tid + THREADS * i, n = q & (BN - 1), kg = q / BN;
+    for (int i = 0; i < TN * BK / 4 / THREADS; ++i) {
+      const int q = tid + THREADS * i, n = q & (TN - 1), kg = q / TN;
       uint32_t big[4], sm[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) split_tf32(Bst[(4 * kg + j) * MSTRIDE + n], big[j], sm[j]);
@@ -444,14 +448,14 @@ __global__ void __launch_bounds__(THREADS, 1) gemm_wgmma_mn_kernel(const Op para
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     wgmma_fence_operand(part);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    for (int i = 0; i < TN / 2; ++i) acc[i] += part[i];
   }
   cp_async_wait<0>();
 
   // epilogue: d[4 j + v] is fragment row g (v < 2) or g + 8, i.e. tile row
   // row0 + 2g or row0 + 2g + 1, column 8 j + 2 t + (v & 1)
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < TN / 8; ++j) {
     op.write(row0 + 2 * g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
     op.write(row0 + 2 * g + 1, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
   }

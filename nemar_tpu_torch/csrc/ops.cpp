@@ -43,13 +43,13 @@ int nemar_conv_head_fwd(const float* x, const float* w, float* out, int n, int h
                         int co, cudaStream_t stream);
 int nemar_conv_head_bwd(const float* x, const float* w, const float* g, float* part, float* dx,
                         float* dw, int n, int h, int wd, int ci, int co, cudaStream_t stream);
-int nemar_convt_in_fwd(const float* x, const float* w, float* yhat, float* part, float* stats,
-                       float* out, int n, int h, int w_, int ci, int co, float eps,
+int nemar_convt_in_fwd(const float* x, const float* w, float* wsplit, float* yhat, float* part,
+                       float* stats, float* out, int n, int h, int w_, int ci, int co, float eps,
                        cudaStream_t stream);
-int nemar_convt_in_bwd(const float* x, const float* wt, const float* yhat, const float* stats,
-                       const float* g, float* dz, float* part_in, float* means, float* part_w,
-                       float* dw, float* dx, int n, int h, int w_, int ci, int co, int splits,
-                       int pix_per_split, cudaStream_t stream);
+int nemar_convt_in_bwd(const float* x, const float* w, const float* yhat, const float* stats,
+                       const float* g, float* wsplit, float* dz, float* part_in, float* means,
+                       float* part_w, float* dw, float* dx, int n, int h, int w_, int ci, int co,
+                       int splits, int pix_per_split, cudaStream_t stream);
 }
 
 namespace {
@@ -163,26 +163,25 @@ void conv_head_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& g
         "conv_head_bwd");
 }
 
-void convt_in_fwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& yhat,
-                  const at::Tensor& part, const at::Tensor& stats, const at::Tensor& out,
-                  double eps) {
+void convt_in_fwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& wsplit,
+                  const at::Tensor& yhat, const at::Tensor& part, const at::Tensor& stats,
+                  const at::Tensor& out, double eps) {
   const c10::cuda::CUDAGuard guard(x.device());
-  check(nemar_convt_in_fwd(f32(x), f32(w), f32(yhat), f32(part), f32(stats), f32(out), dim(x, 0),
-                           dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3), static_cast<float>(eps),
-                           stream()),
+  check(nemar_convt_in_fwd(f32(x), f32(w), f32(wsplit), f32(yhat), f32(part), f32(stats), f32(out),
+                           dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
+                           static_cast<float>(eps), stream()),
         "convt_in_fwd");
 }
 
-void convt_in_bwd(const at::Tensor& x, const at::Tensor& wt, const at::Tensor& yhat,
-                  const at::Tensor& stats, const at::Tensor& g, const at::Tensor& dz,
-                  const at::Tensor& part_in, const at::Tensor& means, const at::Tensor& part_w,
-                  const at::Tensor& dw, const at::Tensor& dx, int64_t splits,
-                  int64_t pix_per_split) {
+void convt_in_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& yhat,
+                  const at::Tensor& stats, const at::Tensor& g, const at::Tensor& wsplit,
+                  const at::Tensor& dz, const at::Tensor& part_in, const at::Tensor& means,
+                  const at::Tensor& part_w, const at::Tensor& dw, const at::Tensor& dx,
+                  int64_t splits, int64_t pix_per_split) {
   const c10::cuda::CUDAGuard guard(x.device());
-  // wt is W^T, (3, 3, Co, Ci)
-  check(nemar_convt_in_bwd(f32(x), f32(wt), f32(yhat), f32(stats), f32(g), f32(dz), f32(part_in),
-                           f32(means), f32(part_w), f32(dw), f32(dx), dim(x, 0), dim(x, 1),
-                           dim(x, 2), dim(x, 3), dim(wt, 2), static_cast<int>(splits),
+  check(nemar_convt_in_bwd(f32(x), f32(w), f32(yhat), f32(stats), f32(g), f32(wsplit), f32(dz),
+                           f32(part_in), f32(means), f32(part_w), f32(dw), f32(dx), dim(x, 0),
+                           dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3), static_cast<int>(splits),
                            static_cast<int>(pix_per_split), stream()),
         "convt_in_bwd");
 }
@@ -207,11 +206,11 @@ TORCH_LIBRARY(nemar, m) {
   m.def("conv_head_bwd(Tensor x, Tensor w, Tensor g, Tensor(a!) part, Tensor(b!) dx, "
         "Tensor(c!) dw) -> ()",
         &conv_head_bwd);
-  m.def("convt_in_fwd(Tensor x, Tensor w, Tensor(a!) yhat, Tensor(b!) part, Tensor(c!) stats, "
-        "Tensor(d!) out, float eps) -> ()",
+  m.def("convt_in_fwd(Tensor x, Tensor w, Tensor(a!) wsplit, Tensor(b!) yhat, Tensor(c!) part, "
+        "Tensor(d!) stats, Tensor(e!) out, float eps) -> ()",
         &convt_in_fwd);
-  m.def("convt_in_bwd(Tensor x, Tensor wt, Tensor yhat, Tensor stats, Tensor g, Tensor(a!) dz, "
-        "Tensor(b!) part_in, Tensor(c!) means, Tensor(d!) part_w, Tensor(e!) dw, Tensor(f!) dx, "
-        "int splits, int pix_per_split) -> ()",
+  m.def("convt_in_bwd(Tensor x, Tensor w, Tensor yhat, Tensor stats, Tensor g, "
+        "Tensor(a!) wsplit, Tensor(b!) dz, Tensor(c!) part_in, Tensor(d!) means, "
+        "Tensor(e!) part_w, Tensor(f!) dw, Tensor(g!) dx, int splits, int pix_per_split) -> ()",
         &convt_in_bwd);
 }

@@ -200,6 +200,7 @@ struct DgradOp {
 template <bool kNorm>
 struct WgradOp {
   static constexpr bool kNormRelu = kNorm;
+  static constexpr int kTileN = BN;
   const float* src;
   const float* stats;
   const float* dz;

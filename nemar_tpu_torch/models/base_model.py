@@ -9,7 +9,9 @@ Inside:
     from ``--gpu_ids``: none (``-1``) means the CPU, ``k`` means ``cuda:k``
     and raises when CUDA is absent;
   * checkpoints are the reference's per-net state_dict files
-    ``{suffix}_net_{Name}.pth`` under ``checkpoints/{name}/``;
+    ``{suffix}_net_{Name}.pth`` under ``checkpoints/{name}/``; a training
+    model also writes the full training state ``{suffix}_state.pth`` and
+    ``checkpoint_meta.json`` (see ``save_networks``);
   * the model boundary keeps the reference's NHWC numpy layout
     (``set_input`` in, ``get_current_visuals`` out), as the numpy utilities
     of ``nemar_tpu_torch.utils`` and ``nemar_tpu_torch.data`` (copies of the
@@ -22,12 +24,17 @@ Inside:
 
 Training on CUDA sets ``torch.backends.cudnn.deterministic``, so two runs
 from one state are bit-identical, as the JAX package's are.
-``--continue_train`` loads the per-net files; the full training state with
-the Adam moments is queued as ROADMAP.md A6.
+``--continue_train`` restores the full training state (the nets, every
+Adam's moments and step, the step count, the plateau controller), so a
+resumed run continues bit for bit as an uninterrupted one, as the JAX
+package's does (``nemar_tpu/models/base_model.py``: ``save_networks``,
+``load_networks``).
 """
 
 from __future__ import annotations
 
+import glob
+import json
 import os
 from abc import ABC, abstractmethod
 from collections import OrderedDict
@@ -73,6 +80,7 @@ class BaseModel(ABC):
         self.model_names: list[str] = []
         self.loss_names: list[str] = []
         self.optimizers: dict[str, torch.optim.Optimizer] = {}
+        self.step = 0  # training steps taken (optimize_parameters)
         self.metric = 0.0  # fed to the plateau policy
         self._losses: dict[str, torch.Tensor] = {}
         self._visuals: dict[str, torch.Tensor] = {}
@@ -103,21 +111,20 @@ class BaseModel(ABC):
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):
-        """Schedules and optimizers (training), checkpoints (inference or
-        --continue_train), print."""
-        resume = self.isTrain and getattr(opt, "continue_train", False)
-        if self.isTrain:
+        """Schedules and optimizers (training), checkpoints (inference: the
+        nets; --continue_train: the training state), print."""
+        suffix = f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch
+        if not self.isTrain:
+            self.load_networks(suffix)
+        else:
             self.lr_fn = get_lr_multiplier_fn(opt)
             self.current_lr = opt.lr
-            if resume:
+            self.optimizers = self.make_optimizers()
+            if getattr(opt, "continue_train", False):
                 # epoch epoch_count trains at the multiplier of the last
                 # completed epoch, as the JAX package resumes
                 self.current_lr = opt.lr * self.lr_fn(max(0, opt.epoch_count - 1), None)
-        if not self.isTrain or resume:
-            suffix = f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch
-            self.load_networks(suffix)
-        if self.isTrain:
-            self.optimizers = self.make_optimizers()
+                self.load_train_state(suffix)
             self._set_lr()
             self.train()
             if self.device.type == "cuda":
@@ -184,10 +191,73 @@ class BaseModel(ABC):
     def _net_path(self, suffix, name: str) -> str:
         return os.path.join(self.save_dir, f"{suffix}_net_{name}.pth")
 
+    def _state_path(self, suffix) -> str:
+        return os.path.join(self.save_dir, f"{suffix}_state.pth")
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.save_dir, "checkpoint_meta.json")
+
     def save_networks(self, suffix):
+        """Write ``{suffix}_net_{Name}.pth`` per net. A training model then
+        writes ``{suffix}_state.pth`` (every optimizer's state_dict, the step
+        count and current_lr; the step draws no random numbers: no dropout,
+        and --pool_size 0) under a temporary name renamed into place, so a
+        ``*_state.pth`` is always complete, and last ``checkpoint_meta.json``
+        in the JAX package's keys: ``latest``, ``step`` and ``lr_state`` =
+        {current_lr, plateau}. As there, the meta is written at epoch end
+        before ``update_learning_rate`` feeds the plateau controller that
+        epoch's metric: a resumed plateau run replays one fewer observation
+        (the JAX package's accepted one-epoch lag)."""
         for name, net in self.nets().items():
             state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
             torch.save(state, self._net_path(suffix, name))
+        if not self.isTrain:
+            return
+        path = self._state_path(suffix)
+        torch.save({"optimizers": {n: o.state_dict() for n, o in self.optimizers.items()},
+                    "step": self.step, "current_lr": self.current_lr}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        meta = {"latest": str(suffix), "step": self.step,
+                "lr_state": {"current_lr": float(self.current_lr),
+                             "plateau": getattr(self.lr_fn, "state", None)}}
+        with open(self._meta_path(), "w") as f:
+            json.dump(meta, f)
+
+    def load_train_state(self, suffix):
+        """--continue_train: the nets, the optimizers' state and the step
+        count of ``{suffix}_state.pth`` (``latest`` resolves through the
+        meta), or of the newest ``*_state.pth`` when that one is missing;
+        with none at all, training starts fresh. Then the plateau controller
+        from the meta, and current_lr re-derived from it and --epoch_count
+        (a resume may jump --epoch_count)."""
+        meta = {}
+        if os.path.exists(self._meta_path()):
+            with open(self._meta_path()) as f:
+                meta = json.load(f)
+        suffix = str(suffix)
+        if suffix == "latest" and "latest" in meta:
+            suffix = str(meta["latest"])
+        path = self._state_path(suffix)
+        if not os.path.exists(path):
+            # the aliased checkpoint may have been lost to a preemption
+            cands = sorted(glob.glob(self._state_path("*")), key=os.path.getmtime)
+            if not cands:
+                print(f"no checkpoint found at {path}; starting fresh")
+                return
+            path = cands[-1]
+            suffix = os.path.basename(path)[:-len("_state.pth")]
+            print(f"checkpoint '{suffix}' missing; falling back to {path}")
+        self.load_networks(suffix)
+        print(f"loading the training state from {path}")
+        # Adam keeps its step counts on the CPU; its moments follow the params
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        for name, optimizer in self.optimizers.items():
+            optimizer.load_state_dict(state["optimizers"][name])
+        self.step = int(state["step"])
+        plateau = (meta.get("lr_state") or {}).get("plateau")
+        if plateau and getattr(self.lr_fn, "state", None) is not None:
+            self.lr_fn.state.update(plateau)
+        self.current_lr = self.opt.lr * self.lr_fn(max(0, self.opt.epoch_count - 1), None)
 
     def load_networks(self, suffix):
         """Load every net; a missing file raises (never run random weights)."""

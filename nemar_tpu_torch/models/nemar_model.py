@@ -375,6 +375,7 @@ class NEMARModel(BaseModel):
         self._losses = {k: v.detach() for k, v in (
             ("D", loss_D), ("D_real", l_dr), ("D_fake", l_df), ("G_GAN", l_gan),
             ("G_recon", l_rec), ("G_smooth", l_sm), ("G", loss_G))}
+        self.step += 1
 
     # ------------------------------------------------------------------
     # reference-API host methods

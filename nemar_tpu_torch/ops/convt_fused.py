@@ -21,7 +21,8 @@ cropped to 2H x 2W, the model's former path, + IN + relu) forward and
 ``convt_in_bwd_plain`` (the VJP written out over the parity planes)
 backward. A CUDA tensor launches the CUDA kernels K-convt
 (``csrc/convt_fwd.cu``, replacing the TPU kernel ``_fwd_kernel`` of B5) and
-K-convt-bwd (``csrc/convt_bwd.cu``, replacing its ``_bwd_kernel``); the
+K-convt-bwd (``csrc/convt_bwd.cu``, replacing its ``_bwd_kernel``), whose
+GEMMs run in 3xTF32 on the tensor cores (``csrc/gemm_tc.cuh``); the
 forward saves yhat = IN(convT(x, W)) and (mu, rstd) for the backward, as
 the TPU kernel does.
 """
@@ -35,12 +36,15 @@ from nemar_tpu_torch.ops import _build
 from nemar_tpu_torch.ops.norm import instance_norm_stats, normalise
 
 # tile of K-convt's GEMM (pixels of one plane) and of K-convt-bwd's
-# instance-norm partials (output pixels), csrc/gemm_core.cuh and convt_bwd.cu
-_BM = 64
+# instance-norm partials (output pixels), csrc/gemm_tc.cuh and convt_bwd.cu
+_BM = 128
 _IN_TILE = 64
-# pixels per split of K-convt-bwd's weight gradient
-_PIX_PER_SPLIT = 2048
-_MAX_SPLITS = 64
+# K-convt-bwd's weight gradient is a split-K GEMM of 9 ceil(Ci / 128) x
+# ceil(Co / TN) tiles (TN = 64 for Co <= 64, else 128), split into as many
+# pixel ranges as fill three waves of one block on each of the H100's 132 SMs
+# (as K-block-bwd's); a range holds whole K slices of the GEMM (32 pixels)
+_WGRAD_SLOTS = 3 * 132
+_BK = 32
 # per axis, output parity -> [(kernel index, input offset)] (_AX)
 _AX = {0: [(2, 0), (0, -1)], 1: [(1, 0)]}
 
@@ -137,11 +141,12 @@ def fused_convt_in_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> 
     co = w.shape[3]
     dev = x.device
     tiles = -(-(h * wd) // _BM)
+    wsplit = torch.empty((2, 9, co, ci), dtype=torch.float32, device=dev)
     yhat = torch.empty((n, 2 * h, 2 * wd, co), dtype=torch.float32, device=dev)
     out = torch.empty_like(yhat)
     part = torch.empty((n * 4 * tiles, 2, co), dtype=torch.float32, device=dev)
     stats = torch.empty((n, 2, co), dtype=torch.float32, device=dev)
-    _build.op("convt_in_fwd")(x, w, yhat, part, stats, out, eps)
+    _build.op("convt_in_fwd")(x, w, wsplit, yhat, part, stats, out, eps)
     fused_convt_in_cuda.launches += 1
     return out, yhat, stats
 
@@ -149,12 +154,14 @@ def fused_convt_in_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> 
 fused_convt_in_cuda.launches = 0
 
 
-def wgrad_splits(pixels: int) -> tuple:
+def wgrad_splits(pixels: int, ci: int, co: int) -> tuple:
     """(splits, pixels per split) of K-convt-bwd's weight gradient over
-    ``pixels`` = N*H*W: fixed by the shape, so the sum's order is too."""
-    splits = max(1, min(_MAX_SPLITS, pixels // _PIX_PER_SPLIT))
+    ``pixels`` = N*H*W with Ci -> Co channels: fixed by the shape, so the
+    sum's order is too."""
+    tiles = 9 * -(-ci // 128) * -(-co // (64 if co <= 64 else 128))
+    splits = max(1, min(-(-pixels // _BK), _WGRAD_SLOTS // tiles))
     per = -(-pixels // splits)
-    per = -(-per // 8) * 8
+    per = -(-per // _BK) * _BK
     return -(-pixels // per), per
 
 
@@ -173,10 +180,10 @@ def convt_in_bwd_cuda(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stat
                              f"({n}, {2 * h}, {2 * wd}, {co}) tensor on x's device")
     if tuple(stats.shape) != (n, 2, co) or not stats.is_contiguous():
         raise ValueError(f"convt_in_bwd_cuda: stats {tuple(stats.shape)} is not ({n}, 2, {co})")
-    # the input gradient contracts over output channels: W^T, (3, 3, Co, Ci)
-    wt = w.permute(0, 1, 3, 2).contiguous()
+    w = w.contiguous()
     dev = x.device
-    splits, per = wgrad_splits(n * h * wd)
+    splits, per = wgrad_splits(n * h * wd, ci, co)
+    wsplit = torch.empty((2, 9 * ci, co), dtype=torch.float32, device=dev)
     dz = torch.empty_like(yhat)
     part_in = torch.empty((n * -(-(4 * h * wd) // _IN_TILE), 2, co), dtype=torch.float32,
                           device=dev)
@@ -184,8 +191,8 @@ def convt_in_bwd_cuda(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stat
     part_w = torch.empty((splits, 9 * ci, co), dtype=torch.float32, device=dev)
     dw = torch.empty((3, 3, ci, co), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    _aligned("convt_in_bwd_cuda", x, wt, yhat, stats, g)
-    _build.op("convt_in_bwd")(x, wt, yhat, stats, g, dz, part_in, means, part_w, dw, dx,
+    _aligned("convt_in_bwd_cuda", x, w, yhat, stats, g)
+    _build.op("convt_in_bwd")(x, w, yhat, stats, g, wsplit, dz, part_in, means, part_w, dw, dx,
                               splits, per)
     convt_in_bwd_cuda.launches += 1
     return dx, dw

@@ -85,5 +85,6 @@ def test_saved_values_are_the_normalised_output():
 
 @pytest.mark.parametrize("pixels", [16, 4096, 32768, 131072, 1000])
 def test_wgrad_splits_cover_the_pixels(pixels):
-    splits, per = wgrad_splits(pixels)
-    assert per % 8 == 0 and splits * per >= pixels > (splits - 1) * per
+    for ci, co in ((256, 128), (128, 64), (12, 8)):  # the decoder's stages, a ragged one
+        splits, per = wgrad_splits(pixels, ci, co)
+        assert per % 32 == 0 and splits * per >= pixels > (splits - 1) * per

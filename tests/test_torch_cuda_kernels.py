@@ -505,6 +505,34 @@ def test_convt_bwd_kernel_matches_plain(dev, shape):
         assert torch.max(torch.abs(a - r)).item() < 1e-4 * torch.max(torch.abs(r)).item()
 
 
+@pytest.mark.parametrize("shape", [(8, 64, 64, 256, 128), (8, 128, 128, 128, 64)],
+                         ids=["stage1_b8", "stage2_b8"])
+def test_convt_kernels_fp64_accuracy(dev, shape):
+    """K-convt's and K-convt-bwd's 3xTF32 GEMMs keep fp32-level accuracy at
+    the decoder's b8 shapes: against the plain versions in float64 (the same
+    inputs and, backward, the same saved values cast up), their largest
+    relative error is at most 4x that of the fp32 plain versions."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(41 + h)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (3, 3, ci, co), 0.02, dev)
+    g = _randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev)
+
+    def rel(a, b):
+        return max(float((p.double() - q).abs().max() / q.abs().max()) for p, q in zip(a, b))
+
+    got = convt_fused.fused_convt_in_cuda(x, wk)[:2]
+    ref32 = convt_fused.convt_in_fwd_plain(x, wk)
+    ref64 = convt_fused.convt_in_fwd_plain(x.double(), wk.double())[:2]
+    assert rel(got, ref64) <= 4 * rel(ref32[:2], ref64)
+    saved = ref32[1:]
+    got = convt_fused.convt_in_bwd_cuda(x, wk, *saved, g)
+    ref32 = convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved)
+    ref64 = convt_fused.convt_in_bwd_plain(x.double(), wk.double(), g.double(),
+                                           saved=tuple(t.double() for t in saved))
+    assert rel(got, ref64) <= 4 * rel(ref32, ref64)
+
+
 def test_convt_autograd_runs_the_kernels(dev):
     rng = np.random.default_rng(11)
     args = [_randn(rng, (2, 8, 8, 32), 1.0, dev).requires_grad_(),

@@ -1,5 +1,6 @@
-"""The 3xTF32 arithmetic of K-block-bwd's tensor-core GEMMs
-(``nemar_tpu_torch/csrc/gemm_tc.cuh``), emulated in torch on the CPU.
+"""The 3xTF32 arithmetic of the tensor-core GEMMs of K-block, K-block-bwd,
+K-convt and K-convt-bwd (``nemar_tpu_torch/csrc/gemm_tc.cuh``), emulated in
+torch on the CPU.
 
 ``tf32`` mirrors ``cvt.rna.tf32.f32`` (round to nearest, ties away from
 zero, to 10 explicit mantissa bits: add half of the dropped 13 bits to the
@@ -99,7 +100,16 @@ def _operands(k: int) -> tuple:
     return a, b, lambda got: float((got.double() - ref).abs().max()) / scale
 
 
-@pytest.mark.parametrize("k", [9 * 256, 4096], ids=["dgrad_K2304", "wgrad_K4096"])
+# K depths of the GEMMs on the core: K-block(-bwd)'s dgrad (9 x 256) and a
+# wgrad over 4096 pixels; K-convt's 4-tap plane at the first decoder stage
+# (4 x 256), K-convt-bwd's dgrad (9 x 128 at both stages) and its wgrad per
+# pixel split at batch 8 (1504 and 3008 pixels, ops/convt_fused.py)
+DEPTHS = [9 * 256, 4096, 4 * 256, 9 * 128, 1504, 3008]
+DEPTH_IDS = ["dgrad_K2304", "wgrad_K4096", "convt_plane_K1024", "convt_dgrad_K1152",
+             "convt_wgrad_split_K1504", "convt_wgrad_split_K3008"]
+
+
+@pytest.mark.parametrize("k", DEPTHS, ids=DEPTH_IDS)
 def test_3xtf32_is_fp32_accurate_and_1xtf32_is_not(k):
     a, b, err = _operands(k)
     e3, e1 = err(gemm_3xtf32(a, b)), err(gemm_3xtf32(a, b, terms=1))
@@ -109,7 +119,7 @@ def test_3xtf32_is_fp32_accurate_and_1xtf32_is_not(k):
     assert e3 < 10 * max(e32, 1e-7)
 
 
-@pytest.mark.parametrize("k", [9 * 256, 4096], ids=["dgrad_K2304", "wgrad_K4096"])
+@pytest.mark.parametrize("k", DEPTHS, ids=DEPTH_IDS)
 def test_one_chain_over_the_whole_k_is_not_fp32_accurate(k):
     """The core's per-slice chain is what keeps 3xTF32 at fp32's level: the
     same MMAs chained over the whole K miss the 2e-6 limit."""
