@@ -10,8 +10,8 @@ calls, and prints one line per phase. Any failure raises and the exit code
 is not 0.
 
   0. environment: versions, the card, ``nvidia-smi``'s name and power limit;
-  1. build: one nvcc per nemar_tpu_torch/csrc/*.cu, all at once, then a
-     link (Triton compiles K-in and K-in-bwd at their first launch);
+  1. build: one nvcc per nemar_tpu_torch/csrc/*.cu and csrc/ops.cpp, all at
+     once, then a link;
   2. each forward kernel (K-warp, K-in, K-block, K-head, K-convt) against
      its plain PyTorch version on the card, at the slice's shapes, with
      TF32 off: max abs error against the stated tolerance, the median
@@ -24,10 +24,16 @@ is not 0.
      the kernel through grid_sample's autograd.Function,
      ``autograd_fn_ms``), and both by their device time from torch.profiler
      (``device_ms``: the host's cost is the difference; a trace that misses
-     a launch is taken again, then fails the run);
+     a launch is taken again, then fails the run). K-in is checked at every
+     instance norm of a batch-1 request and of a batch-8 training step's
+     forward: twice bit for bit, its event and device time per call (one
+     launch a call, asserted), and F.instance_norm on the same data (no
+     activation) beside it as a yardstick, not as the library call;
   2b. each backward kernel likewise, at the training step's shapes (batch
      8); K-block-bwd and K-convt-bwd are fed the plain forward's saved
      values, and their comparison with their own forward's is shown beside.
+     K-in-bwd is timed like K-in, at the batch-8 and the batch-1 step's
+     shapes, with F.instance_norm's autograd backward as its yardstick.
      K-warp-bwd's library time is aten.grid_sampler_2d_backward's on the
      same image, grid and g. K-block-bwd and K-convt-bwd (and in phase 2
      K-block and K-convt), whose GEMMs run in 3xTF32 on the tensor cores,
@@ -79,8 +85,10 @@ least time the card could take for the same calls (the larger of their
 fp32 operations at 67 TFLOP/s and their bytes at 3.35 TB/s, the H100 SXM's
 peaks at 700 W; ``bound_by`` says which); for a backward kernel, the same
 for one training step at batch 8. ``launches`` counts phase 3's requests
-(forward kernels) or phase 5's steps (backward kernels). The last line is
-``{"ok": true, "device": {...}}``.
+(forward kernels) or phase 5's steps (backward kernels). K-in's and
+K-in-bwd's entries add their device time, their yardstick's event and
+device time, and K-in's b8 step and K-in-bwd's b1 step likewise. The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -366,12 +374,123 @@ def randn(rng, shape, scale: float = 1.0, dev=None) -> torch.Tensor:
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
 
 
+def in_yardstick(x: torch.Tensor, g: torch.Tensor | None = None):
+    """F.instance_norm on x's data (its NCHW view), without the activation:
+    forward, or given g its autograd backward to x. A yardstick for K-in and
+    K-in-bwd, not their library call: no PyTorch call computes IN + relu or
+    IN + leaky_relu. The port never calls it."""
+    xr = x.permute(0, 3, 1, 2)
+    if g is None:
+        return lambda: torch.nn.functional.instance_norm(xr)
+    xr = xr.detach().requires_grad_()
+    y = torch.nn.functional.instance_norm(xr)
+    gy = g.permute(0, 3, 1, 2)
+    return lambda: torch.autograd.grad(y, xr, gy, retain_graph=True)
+
+
+IN_TIMES = ("ms", "device_ms", "yardstick_ms", "yardstick_device_ms")
+
+
+def time_in_call(kern, yard) -> dict:
+    """One K-in / K-in-bwd call's CUDA-event time (timed call by call in
+    alternation with the yardstick's) and device time from the profiler
+    (one launch a call, asserted), and the yardstick's."""
+    ms, yms = paired_median_ms(kern, yard, iters=20, warmup=3)
+    dms, _ = device_ms(kern, 1, 10)
+    ydms, _ = device_ms(yard, None, 10)
+    return dict(zip(IN_TIMES, (ms, dms, yms, ydms)))
+
+
+def check_in(dev) -> dict:
+    """K-in in phase 2: every instance norm of one request at batch 1
+    (IN_SHAPES; the totals) and every forward of a training step at batch 8
+    (IN_BWD_SHAPES, the ``b8_step_*`` totals), each against its plain
+    version, twice bit for bit, and timed by ``time_in_call``."""
+    from nemar_tpu_torch.ops import norm, norm_cuda
+
+    rng = np.random.default_rng(10)
+    tally, step = Tally(), dict.fromkeys(IN_TIMES, 0.0)
+    req = dict.fromkeys(IN_TIMES, 0.0)
+    cases = ([(1, c, h, w, act, calls) for c, h, w, act, calls in IN_SHAPES]
+             + [(TRAIN_BATCH * mult, c, h, w, act, calls)
+                for c, h, w, act, mult, calls in IN_BWD_SHAPES])
+    for i, (n, c, h, w, act, calls) in enumerate(cases):
+        x = randn(rng, (n, h, w, c), 2.0, dev) + 0.5
+
+        def kern():
+            return norm_cuda.instance_norm_act_cuda(x, act)
+
+        (got, stats), (again, again_stats) = kern(), kern()
+        repeatable = torch.equal(got, again) and torch.equal(stats, again_stats)
+        ref = norm.instance_norm_act_plain(x, act)
+        err = torch.max(torch.abs(got - ref)).item()
+        times = time_in_call(kern, in_yardstick(x))
+        pms = median_ms(lambda: norm.instance_norm_act_plain(x, act))
+        bnd = bound(6 * x.numel(), x, got)
+        request = i < len(IN_SHAPES)
+        phase("kernel", name="K-in", shape=f"{n}x{h}x{w}x{c}", act=act, calls=calls,
+              per="b1 request" if request else f"b{TRAIN_BATCH} step", max_abs_err=err,
+              tol=TOL["K-in"], bitwise_repeatable=repeatable, plain_ms=pms, bound_ms=max(bnd),
+              **times)
+        if not (err <= TOL["K-in"] and repeatable):
+            raise AssertionError(f"K-in disagrees with its plain version at {(n, h, w, c)}: "
+                                 f"{err}, repeatable {repeatable}")
+        for k, v in times.items():
+            (req if request else step)[k] += calls * v
+        if request:
+            tally.add(calls, err, times["ms"], pms, bnd)
+    return dict(tally.result(), **{k: req[k] for k in IN_TIMES[1:]},
+                **{f"b8_step_{k}": v for k, v in step.items()})
+
+
+def check_in_bwd(dev) -> dict:
+    """K-in-bwd in phase 2b: every instance-norm backward of a training step
+    at batch 8 (the totals), then at batch 1 (the ``b1_step_*`` totals),
+    each against its plain version, twice bit for bit, and timed by
+    ``time_in_call`` with F.instance_norm's autograd backward as the
+    yardstick."""
+    from nemar_tpu_torch.ops import norm, norm_cuda
+
+    rng = np.random.default_rng(11)
+    n = TRAIN_BATCH
+    tally, per_step = Tally(), {b: dict.fromkeys(IN_TIMES, 0.0) for b in (n, 1)}
+    for b in (n, 1):
+        for c, h, w, act, mult, calls in IN_BWD_SHAPES:
+            shape = (b * mult, h, w, c)
+            x = randn(rng, shape, 2.0, dev) + 0.5
+            g = randn(rng, shape, 1.0, dev)
+            _, stats = norm_cuda.instance_norm_act_cuda(x, act)
+
+            def kern():
+                return norm_cuda.instance_norm_act_bwd_cuda(x, g, stats, act)
+
+            got, again = kern(), kern()
+            ref = norm.instance_norm_act_bwd_plain(x, g, stats, act)
+            err = max_rel_err([got], [ref])
+            abs_err = float((got - ref).abs().max())
+            times = time_in_call(kern, in_yardstick(x, g))
+            pms = median_ms(lambda: norm.instance_norm_act_bwd_plain(x, g, stats, act))
+            bnd = bound(8 * x.numel(), x, g, stats, got)
+            phase("kernel_bwd", name="K-in-bwd", shape="x".join(map(str, shape)), act=act,
+                  calls=calls, per=f"b{b} step", max_rel_err=err, tol=TOL["K-in-bwd"],
+                  max_abs_err=abs_err, bitwise_repeatable=torch.equal(got, again), plain_ms=pms,
+                  bound_ms=max(bnd), **times)
+            if not (err <= TOL["K-in-bwd"] and torch.equal(got, again)):
+                raise AssertionError(f"K-in-bwd disagrees at {shape} {act}: {err}")
+            for k, v in times.items():
+                per_step[b][k] += calls * v
+            if b == n:
+                tally.add(calls, abs_err, times["ms"], pms, bnd)
+    return dict(tally.result(), **{k: per_step[n][k] for k in IN_TIMES[1:]},
+                **{f"b1_step_{k}": v for k, v in per_step[1].items()})
+
+
 def check_kernels(dev) -> dict:
     """Phase 2: every forward kernel against its plain version at the
     slice's shapes. Each kernel's totals are those of one batch-1 request;
     ``library_ms`` times the one PyTorch call that computes the same
     function, where there is one (the port never calls it)."""
-    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton, warp
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, warp
 
     rng = np.random.default_rng(0)
     results = {}
@@ -437,21 +556,7 @@ def check_kernels(dev) -> dict:
             results["K-warp"] = tally.result()
             results["K-warp"].update(device_ms=dms, library_device_ms=lib_dms)
 
-    # K-in: every instance norm shape of one request, batch 1
-    tally = Tally()
-    for c, h, w, act, calls in IN_SHAPES:
-        x = randn(rng, (1, h, w, c), 2.0, dev) + 0.5
-        got, _ = norm_triton.instance_norm_act_triton(x, act)
-        ref = norm.instance_norm_act_plain(x, act)
-        err = torch.max(torch.abs(got - ref)).item()
-        ms = median_ms(lambda: norm_triton.instance_norm_act_triton(x, act))
-        pms = median_ms(lambda: norm.instance_norm_act_plain(x, act))
-        phase("kernel", name="K-in", shape=f"1x{h}x{w}x{c}", act=act, calls=calls,
-              max_abs_err=err, tol=TOL["K-in"], ms=ms, plain_ms=pms)
-        if not err <= TOL["K-in"]:
-            raise AssertionError(f"K-in disagrees with its plain version at {(c, h, w)}: {err}")
-        tally.add(calls, err, ms, pms, bound(6 * x.numel(), x, got))
-    results["K-in"] = tally.result()
+    results["K-in"] = check_in(dev)
 
     # K-block: the trunk, N x 64 x 64 x 256, 6 blocks x 2 G passes per
     # request. Its two convolutions run in 3xTF32 on the tensor cores: held
@@ -617,7 +722,7 @@ def check_bwd_kernels(dev) -> dict:
     """Phase 2b: every backward kernel against its plain version at the
     training step's shapes (batch 8), with each launch repeated to show it
     is bit-for-bit repeatable. Each kernel's totals are those of one step."""
-    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_triton
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm
     from nemar_tpu_torch.ops import warp, warp_cuda
 
     rng = np.random.default_rng(1)
@@ -687,27 +792,7 @@ def check_bwd_kernels(dev) -> dict:
             results["K-warp-bwd"] = tally.result()
             results["K-warp-bwd"].update(device_ms=dms, library_device_ms=lib_dms)
 
-    # K-in-bwd: every instance-norm backward of a step
-    tally = Tally()
-    for c, h, w, act, mult, calls in IN_BWD_SHAPES:
-        shape = (n * mult, h, w, c)
-        x = randn(rng, shape, 2.0, dev) + 0.5
-        g = randn(rng, shape, 1.0, dev)
-        _, stats = norm_triton.instance_norm_act_triton(x, act)
-        got = norm_triton.instance_norm_act_bwd_triton(x, g, stats, act)
-        again = norm_triton.instance_norm_act_bwd_triton(x, g, stats, act)
-        ref = norm.instance_norm_act_bwd_plain(x, g, stats, act)
-        err = max_rel_err([got], [ref])
-        abs_err = float((got - ref).abs().max())
-        ms = median_ms(lambda: norm_triton.instance_norm_act_bwd_triton(x, g, stats, act))
-        pms = median_ms(lambda: norm.instance_norm_act_bwd_plain(x, g, stats, act))
-        phase("kernel_bwd", name="K-in-bwd", shape="x".join(map(str, shape)), act=act,
-              calls=calls, max_rel_err=err, tol=TOL["K-in-bwd"], max_abs_err=abs_err,
-              bitwise_repeatable=torch.equal(got, again), ms=ms, plain_ms=pms)
-        if not (err <= TOL["K-in-bwd"] and torch.equal(got, again)):
-            raise AssertionError(f"K-in-bwd disagrees at {shape} {act}: {err}")
-        tally.add(calls, abs_err, ms, pms, bound(8 * x.numel(), x, g, stats, got))
-    results["K-in-bwd"] = tally.result()
+    results["K-in-bwd"] = check_in_bwd(dev)
 
     # K-block-bwd: the trunk. The kernel is fed the plain forward's saved
     # values (y1, y2, stats), as the plain backward uses them: with K-block's
@@ -850,13 +935,13 @@ def check_bwd_kernels(dev) -> dict:
 
 
 def launch_counters():
-    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm_triton, warp_cuda
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm_cuda, warp_cuda
 
     return {"K-block": conv_fused.fused_resblock_cuda, "K-warp": warp_cuda.warp_bilinear,
-            "K-in": norm_triton.instance_norm_act_triton, "K-head": conv_head.conv_head_cuda,
+            "K-in": norm_cuda.instance_norm_act_cuda, "K-head": conv_head.conv_head_cuda,
             "K-convt": convt_fused.fused_convt_in_cuda,
             "K-block-bwd": conv_fused.resblock_bwd_cuda, "K-warp-bwd": warp_cuda.warp_grid_bwd,
-            "K-in-bwd": norm_triton.instance_norm_act_bwd_triton,
+            "K-in-bwd": norm_cuda.instance_norm_act_bwd_cuda,
             "K-head-bwd": conv_head.conv_head_bwd_cuda,
             "K-convt-bwd": convt_fused.convt_in_bwd_cuda}
 
@@ -1308,7 +1393,7 @@ def main() -> int:
                            "nemar_tpu/ops/conv_fused.py:228"),
                "K-warp": ("cuda", "nemar_tpu_torch/csrc/warp_fwd.cu",
                           "nemar_tpu/ops/warp_pallas.py:152"),
-               "K-in": ("triton", "nemar_tpu_torch/ops/norm_triton.py",
+               "K-in": ("cuda", "nemar_tpu_torch/csrc/in_act_fwd.cu",
                         "nemar_tpu/ops/norm.py:193"),
                "K-head": ("cuda", "nemar_tpu_torch/csrc/head_fwd.cu",
                           "nemar_tpu/ops/conv_head_roll.py:151"),
@@ -1318,7 +1403,7 @@ def main() -> int:
                                "nemar_tpu/ops/conv_fused.py:544"),
                "K-warp-bwd": ("cuda", "nemar_tpu_torch/csrc/warp_bwd.cu",
                               "nemar_tpu/ops/warp_pallas.py:448"),
-               "K-in-bwd": ("triton", "nemar_tpu_torch/ops/norm_triton.py",
+               "K-in-bwd": ("cuda", "nemar_tpu_torch/csrc/in_act_bwd.cu",
                             "nemar_tpu/ops/norm.py:89"),
                "K-head-bwd": ("cuda", "nemar_tpu_torch/csrc/head_bwd.cu",
                               "nemar_tpu/ops/conv_head_roll.py:174"),

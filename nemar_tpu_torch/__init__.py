@@ -1,5 +1,5 @@
 """nemar_tpu_torch — NeMAR registration in PyTorch, with hand-written CUDA
-and Triton kernels for NVIDIA Hopper (sm_90a).
+kernels for NVIDIA Hopper (sm_90a).
 
 The second package beside ``nemar_tpu`` (the JAX reference, which it is
 held against in ``tests/test_torch_*.py``). It mirrors the reference's file
@@ -8,8 +8,9 @@ names so each module's counterpart is easy to find:
   * ``ops/warp.py`` + ``ops/warp_cuda.py`` + ``csrc/warp_{fwd,bwd}.cu`` —
     grid sampling; the bilinear gather and its VJP are the CUDA kernels
     K-warp and K-warp-bwd.
-  * ``ops/norm.py`` + ``ops/norm_triton.py`` — instance norm + activation;
-    the Triton kernels K-in and K-in-bwd.
+  * ``ops/norm.py`` + ``ops/norm_cuda.py`` + ``csrc/in_act_{fwd,bwd}.cu`` —
+    instance norm + activation; the CUDA kernels K-in and K-in-bwd, one
+    cooperative launch each.
   * ``ops/conv_fused.py`` + ``csrc/resblock_{fwd,bwd}.cu`` — the ResNet
     trunk block; the CUDA kernels K-block and K-block-bwd, on the 3xTF32
     tensor-core GEMM core ``csrc/gemm_tc.cuh``.

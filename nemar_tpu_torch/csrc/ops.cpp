@@ -8,14 +8,16 @@
 // on PyTorch's current stream and raises on a CUDA error. The Python
 // wrappers (ops/*.py) check what the kernels take, allocate the outputs and
 // workspaces, and pass them here as the schema's mutable (!) tensors; the
-// launchers take their shapes from the tensors. K-warp's and K-warp-bwd's
-// operators allocate their outputs themselves and do their own checks: at
-// batch 1 their device time is a few microseconds, so the host path is what
-// the caller waits for (chip_smoke.py prints both), and a torch.empty from
-// Python costs more than one here.
+// launchers take their shapes from the tensors. K-warp's, K-warp-bwd's,
+// K-in's and K-in-bwd's operators allocate their outputs and workspaces
+// themselves and do their own checks: at batch 1 their device time is a few
+// microseconds, so the host path is what the caller waits for
+// (chip_smoke.py prints both), and a torch.empty from Python costs more than
+// one here.
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/zeros.h>
+#include <c10/cuda/CUDAException.h>
 #include <c10/cuda/CUDAGuard.h>
 #include <c10/cuda/CUDAStream.h>
 #include <cuda_runtime_api.h>
@@ -50,6 +52,14 @@ int nemar_convt_in_bwd(const float* x, const float* w, const float* yhat, const 
                        const float* g, float* wsplit, float* dz, float* part_in, float* means,
                        float* part_w, float* dw, float* dx, int n, int h, int w_, int ci, int co,
                        int splits, int pix_per_split, cudaStream_t stream);
+long long nemar_in_act_fwd_work(int n, int hw, int c);
+int nemar_in_act_fwd(const float* x, float* y, float* stats, double* work, long long work_doubles,
+                     int n, int h, int w, int c, int act, float eps, float slope,
+                     cudaStream_t stream);
+long long nemar_in_act_bwd_work(int n, int hw, int c);
+int nemar_in_act_bwd(const float* x, const float* g, const float* stats, float* dx, double* work,
+                     long long work_doubles, int n, int h, int w, int c, int act, float slope,
+                     cudaStream_t stream);
 }
 
 namespace {
@@ -186,6 +196,73 @@ void convt_in_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& yh
         "convt_in_bwd");
 }
 
+// K-in's and K-in-bwd's operand: fp32, (N, H, W, C) contiguous on a CUDA device
+void check_nhwc(const char* what, const char* name, const at::Tensor& t, const at::Tensor& x) {
+  TORCH_CHECK(t.is_cuda() && t.device() == x.device(), what, ": ", name,
+              " must lie on x's CUDA device, not ", t.device());
+  TORCH_CHECK(t.scalar_type() == at::kFloat, what, ": ", name, " is ", t.scalar_type(),
+              ", the kernel takes float32");
+  TORCH_CHECK(t.dim() == 4 && t.sizes() == x.sizes(), what, ": ", name, " ", t.sizes(),
+              " must be (N, H, W, C) of x's shape ", x.sizes());
+  TORCH_CHECK(t.is_contiguous(), what, ": ", name, " ", t.sizes(),
+              " must be NHWC-contiguous, its strides are ", t.strides());
+  TORCH_CHECK(t.size(1) * t.size(2) > 0 && t.size(3) > 0, what, ": ", name, " ", t.sizes(),
+              " has no pixel or no channel");
+}
+
+void check_act(const char* what, int64_t act) {
+  TORCH_CHECK(act >= 0 && act <= 2, what, ": act ", act, " not in [0, 2]");
+}
+
+// The workspace of one call, in doubles, from the launcher's own split.
+at::Tensor in_act_work(long long words, const at::Tensor& x, const char* what) {
+  if (words < 0) {
+    (void)cudaGetLastError();  // the query's error is raised here, not by the next check
+    check(static_cast<int>(-words), what);
+  }
+  return at::empty({words}, x.options().dtype(at::kDouble));
+}
+
+std::tuple<at::Tensor, at::Tensor> in_act_fwd(const at::Tensor& x, int64_t act, double eps,
+                                              double slope) {
+  check_nhwc("in_act_fwd", "x", x, x);
+  check_act("in_act_fwd", act);
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int n = dim(x, 0), h = dim(x, 1), w = dim(x, 2), c = dim(x, 3);
+  at::Tensor work = in_act_work(nemar_in_act_fwd_work(n, h * w, c), x, "in_act_fwd");
+  at::Tensor y = at::empty(x.sizes(), x.options());
+  at::Tensor stats = at::empty({x.size(0), 2, x.size(3)}, x.options());
+  const int code = nemar_in_act_fwd(f32(x), f32(y), f32(stats), work.data_ptr<double>(),
+                                    work.numel(), n, h, w, c, static_cast<int>(act),
+                                    static_cast<float>(eps), static_cast<float>(slope), stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  check(code, "in_act_fwd");
+  return {y, stats};
+}
+
+at::Tensor in_act_bwd(const at::Tensor& x, const at::Tensor& g, const at::Tensor& stats,
+                      int64_t act, double slope) {
+  check_nhwc("in_act_bwd", "x", x, x);
+  check_nhwc("in_act_bwd", "g", g, x);
+  check_act("in_act_bwd", act);
+  const int n = dim(x, 0), h = dim(x, 1), w = dim(x, 2), c = dim(x, 3);
+  TORCH_CHECK(stats.is_cuda() && stats.device() == x.device() &&
+                  stats.scalar_type() == at::kFloat && stats.is_contiguous() &&
+                  stats.dim() == 3 && stats.size(0) == n && stats.size(1) == 2 &&
+                  stats.size(2) == c,
+              "in_act_bwd: stats ", stats.sizes(), " must be contiguous fp32 (", n, ", 2, ", c,
+              ") on x's device");
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor work = in_act_work(nemar_in_act_bwd_work(n, h * w, c), x, "in_act_bwd");
+  at::Tensor dx = at::empty(x.sizes(), x.options());
+  const int code =
+      nemar_in_act_bwd(f32(x), f32(g), f32(stats), f32(dx), work.data_ptr<double>(), work.numel(),
+                       n, h, w, c, static_cast<int>(act), static_cast<float>(slope), stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  check(code, "in_act_bwd");
+  return dx;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(nemar, m) {
@@ -213,4 +290,8 @@ TORCH_LIBRARY(nemar, m) {
         "Tensor(a!) wsplit, Tensor(b!) dz, Tensor(c!) part_in, Tensor(d!) means, "
         "Tensor(e!) part_w, Tensor(f!) dw, Tensor(g!) dx, int splits, int pix_per_split) -> ()",
         &convt_in_bwd);
+  m.def("in_act_fwd(Tensor x, int act, float eps, float slope) -> (Tensor y, Tensor stats)",
+        &in_act_fwd);
+  m.def("in_act_bwd(Tensor x, Tensor g, Tensor stats, int act, float slope) -> Tensor dx",
+        &in_act_bwd);
 }

@@ -13,7 +13,7 @@ generator every trunk block goes through ``ops.fused_resblock`` (the CUDA
 kernel K-block on the card), every decoder stage (ConvTranspose + IN +
 relu) through ``ops.fused_convt_in`` (K-convt) and the 7x7 output conv
 through ``ops.conv_head`` (K-head) plus its bias; every other instance norm
-goes through ``ops.instance_norm_act`` (the Triton kernel K-in). The
+goes through ``ops.instance_norm_act`` (the CUDA kernel K-in). The
 remaining convolutions (G's encoder, D) are ``nn.Conv2d``.
 
 The JAX package's convolution rewrites for the TPU

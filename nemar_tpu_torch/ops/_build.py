@@ -1,5 +1,4 @@
-"""Build the package's CUDA kernels with nvcc; load their PyTorch operators;
-locate Triton's cache.
+"""Build the package's CUDA kernels with nvcc and load their PyTorch operators.
 
 The CUDA sources under ``nemar_tpu_torch/csrc/`` are kernels behind plain C
 launchers (``*.cu``) and the PyTorch operators that call them
@@ -131,11 +130,3 @@ def op(name: str):
     and registered at the first call."""
     _library()
     return getattr(torch.ops.nemar, name).default
-
-
-def import_triton():
-    """Import triton, with its kernel cache under the build directory."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-
-    return triton

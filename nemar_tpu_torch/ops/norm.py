@@ -10,10 +10,11 @@ affine (the reference's ``InstanceNorm2d`` configuration), then 'none',
 ``instance_norm_act`` is a ``torch.autograd.Function`` that dispatches on
 the device: a CPU tensor takes the plain versions (``instance_norm_stats``
 + the activation forward, ``instance_norm_act_bwd_plain`` backward); a CUDA
-tensor launches the Triton kernels K-in (forward, which replaces the TPU
+tensor launches the CUDA kernels K-in (forward, which replaces the TPU
 kernel ``nemar_tpu/ops/norm.py:_instance_norm_act_pallas``) and K-in-bwd
-(``ops/norm_triton.py``). The forward saves x and the (mean, rstd) it
-computed, so the backward does not recompute them:
+(``ops/norm_cuda.py``, ``csrc/in_act_{fwd,bwd}.cu``), one launch each. The
+forward saves x and the (mean, rstd) it computed, so the backward does not
+recompute them:
 
     dx = rstd * (ĝ - mean(ĝ) - ŷ * mean(ĝ * ŷ)),   ĝ = g * act'(ŷ),
 
@@ -24,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from nemar_tpu_torch.ops import norm_triton
+from nemar_tpu_torch.ops import norm_cuda
 
 
 def _apply_act(y: torch.Tensor, act: str, negative_slope: float) -> torch.Tensor:
@@ -81,7 +82,7 @@ class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, act, eps, negative_slope):
         if x.is_cuda:
-            y, stats = norm_triton.instance_norm_act_triton(x, act, eps, negative_slope)
+            y, stats = norm_cuda.instance_norm_act_cuda(x, act, eps, negative_slope)
         else:
             stats = instance_norm_stats(x, eps)
             y = _apply_act(normalise(x, stats), act, negative_slope)
@@ -93,8 +94,8 @@ class _InstanceNormAct(torch.autograd.Function):
     def backward(ctx, g):
         x, stats = ctx.saved_tensors
         if x.is_cuda:
-            dx = norm_triton.instance_norm_act_bwd_triton(x, g.contiguous(), stats, ctx.act,
-                                                          ctx.negative_slope)
+            dx = norm_cuda.instance_norm_act_bwd_cuda(x, g.contiguous(), stats, ctx.act,
+                                                      ctx.negative_slope)
         else:
             dx = instance_norm_act_bwd_plain(x, g, stats, ctx.act, ctx.negative_slope)
         return dx, None, None, None

@@ -1,8 +1,9 @@
-"""Times of K-warp-bwd, K-block, K-block-bwd, K-convt and K-convt-bwd at the
-training step's shapes, of the b8 training step, and the SASS of every
-kernel, for one tree of the port.
+"""Times of K-warp-bwd, K-block, K-block-bwd, K-convt, K-convt-bwd, K-in and
+K-in-bwd at the shapes the model gives them, of the b1 request and of the
+b1 and b8 training steps, and the SASS of every kernel, for one tree of the
+port.
 
-    python3 nemar_tpu_torch/probe.py [--root DIR]
+    python3 nemar_tpu_torch/probe.py [--root DIR] [--parts PART,...]
     python3 nemar_tpu_torch/probe.py --trace-check N
 
 Needs one CUDA device and the CUDA toolkit. Imports ``nemar_tpu_torch``
@@ -11,8 +12,8 @@ tree, e.g. a parent commit unpacked by ``git archive``, is measured by the
 same code: this checkout's ``chip_smoke.median_ms`` and
 ``chip_smoke.device_ms`` (which raises unless every traced call shows the
 same launches). Two trees are compared by running this alternately in
-fresh processes on one card (parent, change, change, parent, ...). Prints
-one JSON line:
+fresh processes on one card (parent, change, change, parent, ...).
+``--parts`` picks the parts below (default: all). Prints one JSON line:
 
 - ``warp_bwd``: the grid-sample backward as the model runs it
   (``torch.autograd.grad`` through ``ops.warp.grid_sample``, 8 x 256 x 256
@@ -27,9 +28,22 @@ one JSON line:
   batch 1 and 8 (``chip_smoke.CONVT_SHAPES``; the backward fed the plain
   forward's saved values): the median CUDA-event time of 20 calls, and the
   device time by kernel (the same launches in every traced call);
-- ``train_step``: the b8 training step of ``chip_smoke.py``'s phase 5 (its
-  options and seeded batches): the median host time of 6 steps after 2
-  warm-up steps, each ending in ``torch.cuda.synchronize()``;
+- ``in``: K-in and K-in-bwd called as the autograd Function calls them
+  (the tree's ``norm_cuda`` wrappers, or ``norm_triton``'s on a tree before
+  them): per call the median CUDA-event time of 20 calls and the device
+  time and launches from the profiler, summed over the calls of a b1
+  request (K-in at ``chip_smoke.IN_SHAPES``) and of a b8 step (K-in and
+  K-in-bwd at ``chip_smoke.IN_BWD_SHAPES``); and the same calls issued
+  back to back as the model issues them: their CUDA-event time (median of
+  20) and their host time without synchronisation (mean of 20);
+- ``request``: the b1 request of ``chip_smoke.py``'s phase 3 (its options,
+  seeded checkpoints and batches; set_input -> test ->
+  get_current_visuals): the median host time of 20 after 2 warm-up
+  requests;
+- ``train_step`` and ``train_step_b1``: the b8 and b1 training steps of
+  ``chip_smoke.py``'s phase 5 (its options and seeded batches): the median
+  host time of 6 steps after 2 warm-up steps, each ending in
+  ``torch.cuda.synchronize()``;
 - ``sass``: for each kernel of the tree's library, its SASS instructions
   (``cuobjdump -sass``) counted and hashed, so that two trees' lines show
   which kernels compile to the same code;
@@ -78,6 +92,109 @@ def sass_digest(library: Path, nvcc: str) -> dict:
     return dict(sorted(zip(names, digests)))
 
 
+def in_kernels(chip_smoke, torch, rng, dev) -> dict:
+    """The ``in`` part (see the module's docstring)."""
+    import functools
+    import importlib
+
+    try:
+        mod = importlib.import_module("nemar_tpu_torch.ops.norm_cuda")
+        fwd, bwd = mod.instance_norm_act_cuda, mod.instance_norm_act_bwd_cuda
+    except ImportError:  # a tree before K-in's CUDA kernels
+        mod = importlib.import_module("nemar_tpu_torch.ops.norm_triton")
+        fwd, bwd = mod.instance_norm_act_triton, mod.instance_norm_act_bwd_triton
+    n = chip_smoke.TRAIN_BATCH
+    cells = {"fwd_b1_request": [(fwd, (1, h, w, c), act, calls)
+                                for c, h, w, act, calls in chip_smoke.IN_SHAPES],
+             "fwd_b8_step": [(fwd, (n * m, h, w, c), act, calls)
+                             for c, h, w, act, m, calls in chip_smoke.IN_BWD_SHAPES],
+             "bwd_b8_step": [(bwd, (n * m, h, w, c), act, calls)
+                             for c, h, w, act, m, calls in chip_smoke.IN_BWD_SHAPES]}
+    out = {}
+    for cell, calls_of in cells.items():
+        total = {"module": mod.__name__, "event_ms": 0.0, "device_ms": 0.0,
+                 "launches_per_call": []}
+        seq = []
+        for fn, shape, act, calls in calls_of:
+            x = chip_smoke.randn(rng, shape, 2.0, dev) + 0.5
+            if fn is bwd:
+                g = chip_smoke.randn(rng, shape, 1.0, dev)
+                call = functools.partial(bwd, x, g, fwd(x, act)[1], act)
+            else:
+                call = functools.partial(fwd, x, act)
+            dms, by = chip_smoke.device_ms(call, None, 10)
+            total["event_ms"] += calls * chip_smoke.median_ms(call)
+            total["device_ms"] += calls * dms
+            total["launches_per_call"].append(sum(k for _, k, _ in by))
+            seq += [call] * calls
+
+        def run_seq():
+            for call in seq:
+                call()
+
+        total["seq_event_ms"] = chip_smoke.median_ms(run_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run_seq()
+        total["seq_host_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        out[cell] = total
+    return out
+
+
+def request_ms(chip_smoke, torch, reps: int = 20) -> dict:
+    """The ``request`` part (see the module's docstring)."""
+    import numpy as np
+    from nemar_tpu_torch.models import create_model
+    from nemar_tpu_torch.options import TestOptions
+
+    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+        opt = TestOptions().parse([*chip_smoke.SLICE_ARGS, "--gpu_ids", "0",
+                                   "--checkpoints_dir", ckpt])
+        seeded = create_model(opt)
+        head = seeded.netR.head()
+        with torch.no_grad():  # as phase 3: a field of a few pixels
+            head.weight.copy_(1e-3 * torch.randn(head.weight.shape,
+                                                 generator=torch.Generator().manual_seed(1)))
+        seeded.save_networks("latest")
+        del seeded
+        model = create_model(opt)
+        model.setup(opt)
+        model.eval()
+        times = []
+        for i, b in enumerate(chip_smoke.request_batches(2 + reps, 1, seed=2)):
+            t0 = time.perf_counter()
+            model.set_input(b)
+            model.test()
+            model.get_current_visuals()  # copies to the host: synchronises
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+    return {"batch": 1, "ms_median": float(np.median(times)), "ms": times}
+
+
+def train_step_ms(chip_smoke, torch, batch: int) -> dict:
+    """The ``train_step`` parts (see the module's docstring)."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, "--gpu_ids", "0",
+                                        "--checkpoints_dir", ckpt, "--batch_size", str(batch)])
+        times = []
+        for i, b in enumerate(chip_smoke.request_batches(8, batch, seed=4)):
+            t0 = time.perf_counter()
+            model.set_input(b)
+            model.optimize_parameters()
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        del model
+    return {"batch": batch, "ms_median": float(np.median(times)), "ms": times}
+
+
+PARTS = ("warp_bwd", "block", "convt", "in", "request", "train_step_b1", "train_step", "sass")
+
+
 def trace_check(chip_smoke, torch, traces: int) -> dict:
     """The ``--trace-check`` line (see the module's docstring)."""
     import numpy as np
@@ -109,9 +226,14 @@ def trace_check(chip_smoke, torch, traces: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=CHECKOUT)
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated parts to measure, of {', '.join(PARTS)}")
     ap.add_argument("--trace-check", type=int, default=0, metavar="N",
                     help="measure the profiler's trace window over N traces and exit")
     args = ap.parse_args()
+    parts = args.parts.split(",")
+    if not set(parts) <= set(PARTS):
+        ap.error(f"unknown parts {sorted(set(parts) - set(PARTS))}")
     sys.path.insert(0, str(CHECKOUT))
     import chip_smoke
     import numpy as np
@@ -131,68 +253,69 @@ def main() -> int:
     rng = np.random.default_rng(0)
     n = chip_smoke.TRAIN_BATCH
 
-    img = chip_smoke.randn(rng, (n, 256, 256, 4), 1.0, dev)
-    grid = chip_smoke.smooth_grid(rng, n, 256, 256).to(dev)
-    g = chip_smoke.randn(rng, (n, 256, 256, 4), 1.0, dev)
-    img_rg, grid_rg = img.clone().requires_grad_(), grid.clone().requires_grad_()
-    out = warp.grid_sample(img_rg, grid_rg, "bilinear", "zeros", False, 3)
-    img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-    warp_ms, warp_by = chip_smoke.device_ms(
-        lambda: torch.autograd.grad(out, (img_rg, grid_rg), g, retain_graph=True), None, 20)
-    lib_ms, lib_by = chip_smoke.device_ms(
-        lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, False,
-                                                        [True, True]), None, 20)
+    out = {"root": str(args.root.resolve())}
+    if "warp_bwd" in parts:
+        img = chip_smoke.randn(rng, (n, 256, 256, 4), 1.0, dev)
+        grid = chip_smoke.smooth_grid(rng, n, 256, 256).to(dev)
+        g = chip_smoke.randn(rng, (n, 256, 256, 4), 1.0, dev)
+        img_rg, grid_rg = img.clone().requires_grad_(), grid.clone().requires_grad_()
+        res = warp.grid_sample(img_rg, grid_rg, "bilinear", "zeros", False, 3)
+        img_nchw, g_nchw = img.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        warp_ms, warp_by = chip_smoke.device_ms(
+            lambda: torch.autograd.grad(res, (img_rg, grid_rg), g, retain_graph=True), None, 20)
+        lib_ms, lib_by = chip_smoke.device_ms(
+            lambda: torch.ops.aten.grid_sampler_2d_backward(g_nchw, img_nchw, grid, 0, 0, False,
+                                                            [True, True]), None, 20)
+        out["warp_bwd"] = {"shape": [n, 256, 256, 4], "grad_channels": 3, "device_ms": warp_ms,
+                           "by_kernel": warp_by, "library_device_ms": lib_ms,
+                           "library_by_kernel": lib_by}
 
-    x, gb = (chip_smoke.randn(rng, (n, 64, 64, 256), 1.0, dev) for _ in range(2))
-    w1, w2 = (chip_smoke.randn(rng, (3, 3, 256, 256), 0.02, dev) for _ in range(2))
-    saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
+    if "block" in parts:
+        x, gb = (chip_smoke.randn(rng, (n, 64, 64, 256), 1.0, dev) for _ in range(2))
+        w1, w2 = (chip_smoke.randn(rng, (3, 3, 256, 256), 0.02, dev) for _ in range(2))
+        saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
 
-    def block_bwd():
-        return conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, gb)
+        def block_bwd():
+            return conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, gb)
 
-    event_ms = chip_smoke.median_ms(block_bwd)
-    block_ms, block_by = chip_smoke.device_ms(block_bwd, 12, 10)
-    block_fwd_ms = chip_smoke.median_ms(lambda: conv_fused.fused_resblock_cuda(x, w1, w2))
+        event_ms = chip_smoke.median_ms(block_bwd)
+        block_ms, block_by = chip_smoke.device_ms(block_bwd, 12, 10)
+        block_fwd_ms = chip_smoke.median_ms(lambda: conv_fused.fused_resblock_cuda(x, w1, w2))
+        out["block"] = {"shape": [n, 64, 64, 256], "event_ms": block_fwd_ms}
+        out["block_bwd"] = {"shape": [n, 64, 64, 256], "event_ms": event_ms,
+                            "device_ms": block_ms, "by_kernel": block_by}
 
-    convt = {}
-    for (h, w, ci, co, _), b in ((shape, b) for shape in chip_smoke.CONVT_SHAPES for b in (1, n)):
-        xc = chip_smoke.randn(rng, (b, h, w, ci), 1.0, dev)
-        wk = chip_smoke.randn(rng, (3, 3, ci, co), 0.02, dev)
-        gc = chip_smoke.randn(rng, (b, 2 * h, 2 * w, co), 1.0, dev)
-        saved_c = convt_fused.convt_in_fwd_plain(xc, wk)[1:]
-        calls = {"fwd": lambda: convt_fused.fused_convt_in_cuda(xc, wk),
-                 "bwd": lambda: convt_fused.convt_in_bwd_cuda(xc, wk, *saved_c, gc)}
-        for name, fn in calls.items():
-            dms, by = chip_smoke.device_ms(fn, None, 10)
-            convt[f"{name} {b}x{h}x{w}x{ci}->{co}"] = {
-                "event_ms": chip_smoke.median_ms(fn), "device_ms": dms, "by_kernel": by}
+    if "convt" in parts:
+        convt = {}
+        for (h, w, ci, co, _), b in ((shape, b) for shape in chip_smoke.CONVT_SHAPES
+                                     for b in (1, n)):
+            xc = chip_smoke.randn(rng, (b, h, w, ci), 1.0, dev)
+            wk = chip_smoke.randn(rng, (3, 3, ci, co), 0.02, dev)
+            gc = chip_smoke.randn(rng, (b, 2 * h, 2 * w, co), 1.0, dev)
+            saved_c = convt_fused.convt_in_fwd_plain(xc, wk)[1:]
+            calls = {"fwd": lambda: convt_fused.fused_convt_in_cuda(xc, wk),
+                     "bwd": lambda: convt_fused.convt_in_bwd_cuda(xc, wk, *saved_c, gc)}
+            for name, fn in calls.items():
+                dms, by = chip_smoke.device_ms(fn, None, 10)
+                convt[f"{name} {b}x{h}x{w}x{ci}->{co}"] = {
+                    "event_ms": chip_smoke.median_ms(fn), "device_ms": dms, "by_kernel": by}
+        out["convt"] = convt
 
-    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
-        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, "--gpu_ids", "0",
-                                        "--checkpoints_dir", ckpt, "--batch_size", str(n)])
-        times = []
-        for i, b in enumerate(chip_smoke.request_batches(8, n, seed=4)):
-            t0 = time.perf_counter()
-            model.set_input(b)
-            model.optimize_parameters()
-            torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t0) * 1e3)
-        del model
+    if "in" in parts:
+        out["in"] = in_kernels(chip_smoke, torch, rng, dev)
+    if "request" in parts:
+        out["request"] = request_ms(chip_smoke, torch)
+    if "train_step_b1" in parts:
+        out["train_step_b1"] = train_step_ms(chip_smoke, torch, 1)
+    if "train_step" in parts:
+        out["train_step"] = train_step_ms(chip_smoke, torch, n)
+    if "sass" in parts:
+        out["sass"] = sass_digest(_build.library_path(), _build._nvcc())
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    print(json.dumps({
-        "root": str(args.root.resolve()), "card": smi,
-        "warp_bwd": {"shape": [n, 256, 256, 4], "grad_channels": 3, "device_ms": warp_ms,
-                     "by_kernel": warp_by, "library_device_ms": lib_ms,
-                     "library_by_kernel": lib_by},
-        "block": {"shape": [n, 64, 64, 256], "event_ms": block_fwd_ms},
-        "block_bwd": {"shape": [n, 64, 64, 256], "event_ms": event_ms, "device_ms": block_ms,
-                      "by_kernel": block_by},
-        "convt": convt,
-        "train_step": {"batch": n, "ms_median": float(np.median(times)), "ms": times},
-        "sass": sass_digest(_build.library_path(), _build._nvcc())}), flush=True)
+    out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps(out), flush=True)
     return 0
 
 

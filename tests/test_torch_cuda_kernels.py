@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from nemar_tpu_torch.ops import _build, conv_fused, conv_head, convt_fused, norm, norm_triton
+from nemar_tpu_torch.ops import _build, conv_fused, conv_head, convt_fused, norm, norm_cuda
 from nemar_tpu_torch.ops import warp, warp_cuda
 from nemar_tpu_torch.ops.warp import identity_grid
 
@@ -27,6 +27,8 @@ IN_SHAPES = [
     (128, 32, 32, "leaky_relu"), (256, 16, 16, "leaky_relu"),
     (256, 8, 8, "leaky_relu"), (32, 256, 256, "leaky_relu"),
     (512, 31, 31, "leaky_relu"), (3, 20, 20, "none"),                          # D, ragged
+    # ragged channel counts, and frames smaller than one pass of a block's rows
+    (1, 20, 20, "relu"), (5, 9, 11, "leaky_relu"), (33, 8, 8, "relu"), (3, 8, 8, "leaky_relu"),
 ]
 
 
@@ -113,34 +115,111 @@ def test_warp_nearest_raises_on_cuda(dev):
 
 @pytest.mark.parametrize("c,h,w,act", IN_SHAPES)
 def test_in_kernel_matches_plain(dev, c, h, w, act):
+    """K-in against its plain version, 1e-5; stats too; the same bits from
+    two identical calls."""
     rng = np.random.default_rng(c + h)
     x = torch.from_numpy(
         (rng.standard_normal((2, h, w, c)) * 2.0 + 0.5).astype(np.float32)).to(dev)
-    before = norm_triton.instance_norm_act_triton.launches
+    before = norm_cuda.instance_norm_act_cuda.launches
     got = norm.instance_norm_act(x, act)
     ref = norm.instance_norm_act_plain(x, act)
     torch.cuda.synchronize()
-    assert norm_triton.instance_norm_act_triton.launches == before + 1
+    assert norm_cuda.instance_norm_act_cuda.launches == before + 1
     assert torch.max(torch.abs(got - ref)).item() < 1e-5
+    y1, s1 = norm_cuda.instance_norm_act_cuda(x, act)
+    y2, s2 = norm_cuda.instance_norm_act_cuda(x, act)
+    assert torch.equal(y1, got) and torch.equal(y1, y2) and torch.equal(s1, s2)
+    assert torch.max(torch.abs(s1 - norm.instance_norm_stats(x))).item() < 1e-5
 
 
 @pytest.mark.parametrize("c,h,w,act", IN_SHAPES)
 def test_in_bwd_kernel_matches_plain(dev, c, h, w, act):
     """K-in-bwd through autograd against the plain backward, 1e-5 of the
-    largest gradient; the forward's stats against the plain stats."""
+    largest gradient; the forward's stats against the plain stats; the same
+    bits from two identical calls."""
     rng = np.random.default_rng(c + h + 1)
     x = torch.from_numpy(
         (rng.standard_normal((2, h, w, c)) * 2.0 + 0.5).astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal((2, h, w, c)).astype(np.float32)).to(dev)
-    _, stats = norm_triton.instance_norm_act_triton(x, act)
+    _, stats = norm_cuda.instance_norm_act_cuda(x, act)
     assert torch.max(torch.abs(stats - norm.instance_norm_stats(x))).item() < 1e-5
-    before = norm_triton.instance_norm_act_bwd_triton.launches
+    before = norm_cuda.instance_norm_act_bwd_cuda.launches
     xg = x.clone().requires_grad_()
     (got,) = torch.autograd.grad(norm.instance_norm_act(xg, act), xg, g)
     ref = norm.instance_norm_act_bwd_plain(x, g, stats, act)
     torch.cuda.synchronize()
-    assert norm_triton.instance_norm_act_bwd_triton.launches == before + 1
+    assert norm_cuda.instance_norm_act_bwd_cuda.launches == before + 1
     assert torch.max(torch.abs(got - ref)).item() < 1e-5 * torch.max(torch.abs(ref)).item()
+    again = norm_cuda.instance_norm_act_bwd_cuda(x, g, stats, act)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
+def test_in_kernels_large_offset(dev, act):
+    """Mean 100, std 1: the pivot keeps the one-pass sums from cancelling.
+    Held against the plain versions in float64 on the same input (the fp32
+    plain version's own mean rounds by up to ~1e-5 there), forward 1e-5
+    absolute, backward 1e-5 of the largest gradient."""
+    rng = np.random.default_rng(100)
+    x = torch.from_numpy((rng.standard_normal((2, 64, 64, 64)) + 100.0).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((2, 64, 64, 64)).astype(np.float32)).to(dev)
+    y, stats = norm_cuda.instance_norm_act_cuda(x, act)
+    ref = norm.instance_norm_act_plain(x.double(), act)
+    assert torch.max(torch.abs(y.double() - ref)).item() < 1e-5
+    dx = norm_cuda.instance_norm_act_bwd_cuda(x, g, stats, act)
+    dref = norm.instance_norm_act_bwd_plain(x.double(), g.double(), stats.double(), act)
+    assert torch.max(torch.abs(dx.double() - dref)).item() < 1e-5 * dref.abs().max().item()
+
+
+def test_in_kernels_unaligned_take_the_scalar_path(dev):
+    """x 4 bytes off a 16-byte boundary, C % 4 == 0: the kernels take their
+    one-channel-a-thread layout, and agree with the plain versions."""
+    rng = np.random.default_rng(3)
+    flat = torch.from_numpy(rng.standard_normal(2 * 16 * 16 * 64 + 1).astype(np.float32)).to(dev)
+    x = flat[1:].view(2, 16, 16, 64)
+    g = torch.from_numpy(rng.standard_normal((2, 16, 16, 64)).astype(np.float32)).to(dev)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    y, stats = norm_cuda.instance_norm_act_cuda(x, "leaky_relu")
+    assert torch.max(torch.abs(y - norm.instance_norm_act_plain(x, "leaky_relu"))).item() < 1e-5
+    dx = norm_cuda.instance_norm_act_bwd_cuda(x, g, stats, "leaky_relu")
+    ref = norm.instance_norm_act_bwd_plain(x, g, stats, "leaky_relu")
+    assert torch.max(torch.abs(dx - ref)).item() < 1e-5 * torch.max(torch.abs(ref)).item()
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 64), (8, 64, 64, 256), (2, 8, 8, 33)])
+def test_in_kernels_one_launch_per_call(dev, shape):
+    """One device launch a call, forward and backward, from profiler traces
+    (chip_smoke.device_ms: every traced call must show it)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    _, stats = norm_cuda.instance_norm_act_cuda(x, "relu")
+    for fn in (lambda: norm_cuda.instance_norm_act_cuda(x, "relu"),
+               lambda: norm_cuda.instance_norm_act_bwd_cuda(x, g, stats, "relu")):
+        _, by_kernel = chip_smoke.device_ms(fn, 1, 10)
+        assert [k for _, k, _ in by_kernel] == [1.0]
+
+
+def test_in_kernels_refuse_what_they_cannot_run(dev):
+    x = torch.zeros((1, 8, 8, 4))
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        norm_cuda.instance_norm_act_cuda(x)
+    with pytest.raises(ValueError, match="not on a CUDA device"):
+        norm_cuda.instance_norm_act_bwd_cuda(x, x, torch.zeros((1, 2, 4)))
+    xc = torch.zeros((1, 4, 8, 8), device=dev).permute(0, 2, 3, 1)  # NCHW memory
+    with pytest.raises(RuntimeError, match="NHWC-contiguous"):
+        norm_cuda.instance_norm_act_cuda(xc)
+    with pytest.raises(RuntimeError, match="NHWC-contiguous"):
+        norm.instance_norm_act(xc)
+    xd = x.to(dev)
+    with pytest.raises(RuntimeError, match="NHWC-contiguous"):
+        norm_cuda.instance_norm_act_bwd_cuda(xd, xc, torch.zeros((1, 2, 4), device=dev))
+    with pytest.raises(RuntimeError, match="float32"):
+        norm_cuda.instance_norm_act_cuda(xd.double())
+    with pytest.raises(RuntimeError, match="stats"):
+        norm_cuda.instance_norm_act_bwd_cuda(xd, xd, torch.zeros((1, 2, 3), device=dev))
 
 
 @pytest.mark.parametrize("n", [1, 8])

@@ -1,12 +1,15 @@
 """The port's instance norm + activation against the JAX package's.
 
 The JAX side runs its Pallas kernel (``impl='pallas'``, interpret mode on the
-CPU); the port takes its plain version on the CPU, which the Triton kernel
+CPU); the port takes its plain version on the CPU, which the CUDA kernel
 K-in is held against on the card (tests/test_torch_cuda_kernels.py). The
 backward's plain version is held against the JAX package's analytic VJP
 (``_in_act_vjp_bwd``), which K-in-bwd replaces on the card. Tolerance 1e-5
 (fp32 roundoff of the statistics over H*W).
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +18,7 @@ import torch
 
 from nemar_tpu.ops import norm as jnorm
 from nemar_tpu_torch.ops import norm as tnorm
-from nemar_tpu_torch.ops import norm_triton
+from nemar_tpu_torch.ops import _build, norm_cuda
 
 torch.set_num_threads(2)
 
@@ -61,19 +64,53 @@ def test_unknown_act_raises_and_kernel_refuses_cpu():
     with pytest.raises(ValueError, match="unknown act"):
         tnorm.instance_norm_act(x, "gelu")
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        norm_triton.instance_norm_act_triton(x)
+        norm_cuda.instance_norm_act_cuda(x)
     with pytest.raises(ValueError, match="not on a CUDA device"):
-        norm_triton.instance_norm_act_bwd_triton(x, x, torch.zeros((1, 2, 2)))
-    assert norm_triton.instance_norm_act_triton.launches == 0
-    assert norm_triton.instance_norm_act_bwd_triton.launches == 0
+        norm_cuda.instance_norm_act_bwd_cuda(x, x, torch.zeros((1, 2, 2)))
+    assert norm_cuda.instance_norm_act_cuda.launches == 0
+    assert norm_cuda.instance_norm_act_bwd_cuda.launches == 0
 
 
-def test_launch_shape_fills_the_card_at_batch_one():
-    """K-in's grid: whole row tiles, and about four programs per SM even for
-    the STN's 32-channel 256^2 layer at batch 1."""
-    block_c, block_r, rows, n_split = norm_triton._launch_shape(1, 256 * 256, 32, 132)
-    assert block_c == 32 and rows % block_r == 0
-    assert n_split * rows >= 256 * 256 > (n_split - 1) * rows
-    assert n_split >= 4 * 132 // 2
-    assert norm_triton._launch_shape(2, 31 * 31, 512, 132)[0] == 64
-    assert norm_triton._launch_shape(1, 20 * 20, 3, 132)[0] == 4
+class _CudaStandIn:
+    """Passes the wrappers' device check in place of a CUDA tensor; the
+    operator it reaches is a recorder."""
+
+    is_cuda = True
+    device = "cuda:0"
+
+
+def _schema_args(op_name):
+    """Argument names of ``torch.ops.nemar.<op_name>`` as csrc/ops.cpp
+    registers it."""
+    text = (Path(_build.CSRC_DIR) / "ops.cpp").read_text()
+    args = re.search(rf'm\.def\("{op_name}\((.*?)\) ->', text).group(1)
+    return [a.split()[-1] for a in args.split(",")]
+
+
+@pytest.mark.parametrize("act,code", [("none", 0), ("relu", 1), ("leaky_relu", 2)])
+def test_wrappers_pass_act_eps_slope_in_schema_order(monkeypatch, act, code):
+    """The work split lives in C++ (csrc/in_act.cuh); the wrappers hand the
+    operators their arguments in the order of the schemas csrc/ops.cpp
+    registers, in_act_fwd(x, act, eps, slope) and in_act_bwd(x, g, stats,
+    act, slope), and count one launch a call."""
+    assert _schema_args("in_act_fwd") == ["x", "act", "eps", "slope"]
+    assert _schema_args("in_act_bwd") == ["x", "g", "stats", "act", "slope"]
+    calls = []
+
+    def op(name):
+        def run(*args):
+            calls.append((name, args))
+            return ("y", "stats") if name == "in_act_fwd" else "dx"
+
+        return run
+
+    monkeypatch.setattr(_build, "op", op)
+    monkeypatch.setattr(norm_cuda.instance_norm_act_cuda, "launches", 0)
+    monkeypatch.setattr(norm_cuda.instance_norm_act_bwd_cuda, "launches", 0)
+    x, g, stats = _CudaStandIn(), _CudaStandIn(), _CudaStandIn()
+    assert norm_cuda.instance_norm_act_cuda(x, act, 3e-5, 0.125) == ("y", "stats")
+    assert norm_cuda.instance_norm_act_bwd_cuda(x, g, stats, act, 0.375) == "dx"
+    assert calls == [("in_act_fwd", (x, code, 3e-5, 0.125)),
+                     ("in_act_bwd", (x, g, stats, code, 0.375))]
+    assert norm_cuda.instance_norm_act_cuda.launches == 1
+    assert norm_cuda.instance_norm_act_bwd_cuda.launches == 1

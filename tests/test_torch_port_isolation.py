@@ -1,6 +1,8 @@
 """The port stands alone: no file of ``nemar_tpu_torch/``, and not
 ``chip_smoke.py``, imports the JAX package (``nemar_tpu`` or a submodule)
-or JAX itself, neither at the top of a module nor inside a function."""
+or JAX itself, neither at the top of a module nor inside a function. Nor
+does any import Triton: every kernel of the port is CUDA C++ behind its
+own PyTorch operator."""
 
 import ast
 import os
@@ -47,3 +49,9 @@ def test_the_scan_sees_the_files():
 def test_port_file_imports_no_jax_package(path):
     bad = [(line, m) for line, m in _imports(path) if m.split(".")[0] in BANNED]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_no_port_file_imports_triton():
+    bad = [(str(p.relative_to(REPO)), line, m) for p in FILES for line, m in _imports(p)
+           if m.split(".")[0] == "triton"]
+    assert not bad, f"Triton imported by {bad}"
