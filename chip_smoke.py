@@ -28,15 +28,17 @@ is not 0.
      instance norm of a batch-1 request and of a batch-8 training step's
      forward: twice bit for bit, its event and device time per call (one
      launch a call, asserted), and F.instance_norm on the same data (no
-     activation) beside it as a yardstick, not as the library call;
+     activation) beside it as a yardstick, not as the library call. K-head
+     and its library call also by their device time (one launch a call);
   2b. each backward kernel likewise, at the training step's shapes (batch
      8); K-block-bwd and K-convt-bwd are fed the plain forward's saved
      values, and their comparison with their own forward's is shown beside.
      K-in-bwd is timed like K-in, at the batch-8 and the batch-1 step's
      shapes, with F.instance_norm's autograd backward as its yardstick.
      K-warp-bwd's library time is aten.grid_sampler_2d_backward's on the
-     same image, grid and g. K-block-bwd and K-convt-bwd (and in phase 2
-     K-block and K-convt), whose GEMMs run in 3xTF32 on the tensor cores,
+     same image, grid and g. K-block-bwd, K-convt-bwd and K-head-bwd (at
+     the batch-8 and the batch-1 step's shapes; and in phase 2 K-block and
+     K-convt), whose GEMMs run in 3xTF32 on the tensor cores,
      also print their TFLOP/s, their tensor-core bound ``tc_bound_ms``
      (their fp32 products x 3 at 495 TFLOP/s TF32) beside the fp32
      ``bound_ms``, their device time per launch from the profiler (the
@@ -45,7 +47,9 @@ is not 0.
      4x the fp32 plain version's. Beside K-convt and K-convt-bwd, cuDNN's
      transposed convolution at the same shapes (forward, and backward to
      dx and dw; deterministic, TF32 off) is timed as a yardstick for their
-     GEMMs;
+     GEMMs, and beside K-head-bwd cuDNN's backward of the same function
+     (the convolution's, then the reflect pad's: two calls), by event and
+     device time, with the deterministic and the default algorithms;
   3. the inference slice: options parsed as ``nemar_tpu_torch.test`` parses
      them (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
      non-zero, so the warp samples between pixels) and loaded by
@@ -87,7 +91,9 @@ peaks at 700 W; ``bound_by`` says which); for a backward kernel, the same
 for one training step at batch 8. ``launches`` counts phase 3's requests
 (forward kernels) or phase 5's steps (backward kernels). K-in's and
 K-in-bwd's entries add their device time, their yardstick's event and
-device time, and K-in's b8 step and K-in-bwd's b1 step likewise. The last
+device time, and K-in's b8 step and K-in-bwd's b1 step likewise; K-head's
+adds its and its library call's device time, K-head-bwd's its device time
+and its cuDNN yardstick's event and device time (deterministic). The last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -607,7 +613,8 @@ def check_kernels(dev) -> dict:
             results["K-block"].update(device_ms=12 * dms)
 
     # K-head: G's 7x7 output conv, N x 256 x 256 x 64 -> 3, twice per
-    # request; the library call is nn.Conv2d(padding_mode='reflect')
+    # request; the library call is nn.Conv2d(padding_mode='reflect'); both
+    # also by their device time (one launch a call for K-head, asserted)
     h, w, ci, co, calls = HEAD_SHAPE
     for n in (1, 8):
         x = randn(rng, (n, h, w, ci), 1.0, dev)
@@ -623,17 +630,22 @@ def check_kernels(dev) -> dict:
             x_nchw = x.permute(0, 3, 1, 2)
             lib_err = torch.max(torch.abs(lib(x_nchw).permute(0, 2, 3, 1) - ref)).item()
             lms = median_ms(lambda: lib(x_nchw))
+            lib_dms, _ = device_ms(lambda: lib(x_nchw), None, 10)
+        dms, per_launch = device_ms(lambda: conv_head.conv_head_cuda(x, wk), 1, 10)
         flops = 2 * n * h * w * 49 * ci * co
         bnd = bound(flops, x, wk, got)
         phase("kernel", name="K-head", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
-              max_abs_err=err, tol=TOL["K-head"], ms=ms, plain_ms=pms, library_ms=lms,
-              library_err=lib_err, bound_ms=max(bnd), tflops=round(flops / ms / 1e9, 2))
+              max_abs_err=err, tol=TOL["K-head"], ms=ms, device_ms=dms, plain_ms=pms,
+              library_ms=lms, library_device_ms=lib_dms, library_err=lib_err, bound_ms=max(bnd),
+              tflops=round(flops / ms / 1e9, 2), launches_per_call=sum(k for _, k, _ in per_launch),
+              device_ms_by_kernel=json.dumps(per_launch))
         if not err <= TOL["K-head"]:
             raise AssertionError(f"K-head disagrees with its plain version: {err}")
         if n == 1:
             tally = Tally()
             tally.add(calls, err, ms, pms, bnd, lms)
-            results["K-head"] = tally.result(gemm=True)
+            results["K-head"] = dict(tally.result(gemm=True), device_ms=calls * dms,
+                                     library_device_ms=calls * lib_dms)
 
     # K-convt: G's two decoder stages, twice each per request. Its GEMMs run
     # in 3xTF32 on the tensor cores: held also against the plain forward in
@@ -706,6 +718,42 @@ def cudnn_convt_ms(x: torch.Tensor, wk: torch.Tensor) -> tuple:
     finally:
         torch.backends.cudnn.deterministic = prev
     return fwd, bwd
+
+
+def cudnn_head_bwd(x: torch.Tensor, wk: torch.Tensor, g: torch.Tensor, ref: tuple) -> dict:
+    """cuDNN's backward of K-head's function at x's shape, TF32 off: the
+    convolution's backward to its input and weight on the reflect-padded
+    NCHW input (aten.convolution_backward), then the pad's backward
+    (aten.reflection_pad2d_backward). A yardstick for K-head-bwd, not its
+    library call (two calls compute the function); the port never calls it.
+    Its event and device times with cuDNN's deterministic algorithms (as the
+    training step runs) and with the default ones, and its largest relative
+    error against ``ref`` = (dx, dW)."""
+    aten = torch.ops.aten
+    x_nchw = x.permute(0, 3, 1, 2)
+    xp = torch.nn.functional.pad(x_nchw, (3, 3, 3, 3), mode="reflect")
+    wt = wk.permute(3, 2, 0, 1).contiguous()
+    gn = g.permute(0, 3, 1, 2).contiguous()
+
+    def run():
+        gi, gw, _ = aten.convolution_backward(gn, xp, wt, None, [1, 1], [0, 0], [1, 1], False,
+                                              [0, 0], 1, [True, True, False])
+        return aten.reflection_pad2d_backward(gi, x_nchw, [3, 3, 3, 3]), gw
+
+    out = {}
+    prev = torch.backends.cudnn.deterministic
+    try:
+        for name, det in (("deterministic", True), ("default", False)):
+            torch.backends.cudnn.deterministic = det
+            if det:
+                dx, dw = run()
+                out["yardstick_cudnn_err"] = max_rel_err(
+                    [dx.permute(0, 2, 3, 1), dw.permute(2, 3, 1, 0)], ref)
+            out[f"yardstick_cudnn_{name}_ms"] = median_ms(run, iters=10)
+            out[f"yardstick_cudnn_{name}_device_ms"] = device_ms(run, None, 10)[0]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return out
 
 
 def max_rel_err(got, ref) -> float:
@@ -854,29 +902,61 @@ def check_bwd_kernels(dev) -> dict:
             results["K-block-bwd"] = tally.result(gemm=True)
             results["K-block-bwd"].update(device_ms=12 * dms)
 
-    # K-head-bwd: G's 7x7 output conv, twice per step
+    # K-head-bwd: G's 7x7 output conv, twice per step, at the b1 and the b8
+    # step's shapes. Its two GEMMs run in 3xTF32 on the tensor cores: held
+    # also against the plain backward in float64 (dx and dW, at most 4x the
+    # fp32 plain version's error), with its device time by launch (3 a call,
+    # asserted) and cuDNN's backward of the same function as a yardstick
+    # (two calls: the convolution's backward on the reflect-padded input,
+    # then the pad's), with the deterministic algorithms the step uses and
+    # with the default ones
     h, w, ci, co, calls = HEAD_SHAPE
-    x = randn(rng, (n, h, w, ci), 1.0, dev)
-    wk = randn(rng, (7, 7, ci, co), 0.02, dev)
-    g = randn(rng, (n, h, w, co), 1.0, dev)
-    got = conv_head.conv_head_bwd_cuda(x, wk, g)
-    again = conv_head.conv_head_bwd_cuda(x, wk, g)
-    ref = conv_head.conv_head_bwd_plain(x, wk, g)
-    err = max_rel_err(got, ref)
-    abs_err = max_abs_err(got, ref)
-    repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
-    ms = median_ms(lambda: conv_head.conv_head_bwd_cuda(x, wk, g), iters=10)
-    pms = median_ms(lambda: conv_head.conv_head_bwd_plain(x, wk, g), iters=5)
-    flops = 2 * 2 * n * h * w * 49 * ci * co
-    phase("kernel_bwd", name="K-head-bwd", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
-          max_rel_err_dx_dw=json.dumps([max_rel_err([p], [q]) for p, q in zip(got, ref)]),
-          tol=TOL["K-head-bwd"], max_abs_err=abs_err, bitwise_repeatable=repeatable, ms=ms,
-          plain_ms=pms, tflops=round(flops / ms / 1e9, 2))
-    if not (err <= TOL["K-head-bwd"] and repeatable):
-        raise AssertionError(f"K-head-bwd disagrees with its plain version: {err}")
-    tally = Tally()
-    tally.add(calls, abs_err, ms, pms, bound(flops, x, wk, g, *got))
-    results["K-head-bwd"] = tally.result(gemm=True)
+    for b in (1, n):
+        x = randn(rng, (b, h, w, ci), 1.0, dev)
+        wk = randn(rng, (7, 7, ci, co), 0.02, dev)
+        g = randn(rng, (b, h, w, co), 1.0, dev)
+
+        def kern():
+            return conv_head.conv_head_bwd_cuda(x, wk, g)
+
+        got, again = kern(), kern()
+        ref = conv_head.conv_head_bwd_plain(x, wk, g)
+        err = max_rel_err(got, ref)
+        abs_err = max_abs_err(got, ref)
+        repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+        ref64 = conv_head.conv_head_bwd_plain(x.double(), wk.double(), g.double())
+        err64 = [max_rel_err([p.double()], [q]) for p, q in zip(got, ref64)]
+        plain_err64 = [max_rel_err([p.double()], [q]) for p, q in zip(ref, ref64)]
+        del ref64, again
+        ms = median_ms(kern, iters=20)
+        pms = median_ms(lambda: conv_head.conv_head_bwd_plain(x, wk, g), iters=5)
+        dms, per_launch = device_ms(kern, 3, 10)
+        yard = cudnn_head_bwd(x, wk, g, ref)
+        flops = 2 * 2 * b * h * w * 49 * ci * co
+        bnd = bound(flops, x, wk, g, *got)
+        tc_bound = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        phase("kernel_bwd", name="K-head-bwd", shape=f"{b}x{h}x{w}x{ci}->{co}", calls=calls,
+              max_rel_err_dx_dw=json.dumps([max_rel_err([p], [q]) for p, q in zip(got, ref)]),
+              tol=TOL["K-head-bwd"], max_abs_err=abs_err, bitwise_repeatable=repeatable,
+              rel_err_vs_fp64_dx_dw=json.dumps(err64),
+              plain_fp32_rel_err_vs_fp64=json.dumps(plain_err64), ms=ms, device_ms=dms,
+              plain_ms=pms, tflops=round(flops / ms / 1e9, 2), bound_ms=max(bnd),
+              bound_by="operations" if bnd[0] >= bnd[1] else "bytes", tc_bound_ms=tc_bound,
+              launches_per_call=sum(k for _, k, _ in per_launch),
+              device_ms_by_kernel=json.dumps(per_launch), **yard)
+        if not (err <= TOL["K-head-bwd"] and repeatable):
+            raise AssertionError(f"K-head-bwd disagrees with its plain version: {err}, "
+                                 f"repeatable {repeatable}")
+        if not max(err64) <= 4 * max(plain_err64):
+            raise AssertionError(f"K-head-bwd is less accurate than fp32 allows: {err64} against "
+                                 f"fp64, the fp32 plain version {plain_err64}")
+        if b == n:
+            tally = Tally()
+            tally.add(calls, abs_err, ms, pms, bnd)
+            results["K-head-bwd"] = dict(
+                tally.result(gemm=True), device_ms=calls * dms,
+                yardstick_cudnn_ms=calls * yard["yardstick_cudnn_deterministic_ms"],
+                yardstick_cudnn_device_ms=calls * yard["yardstick_cudnn_deterministic_device_ms"])
 
     # K-convt-bwd: G's two decoder stages, twice each per step. As for
     # K-block-bwd, the kernel is fed the plain forward's saved (yhat, stats),

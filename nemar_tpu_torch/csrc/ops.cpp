@@ -43,8 +43,9 @@ int nemar_resblock_bwd(const float* x, const float* y1, const float* y2, const f
                        cudaStream_t stream);
 int nemar_conv_head_fwd(const float* x, const float* w, float* out, int n, int h, int wd, int ci,
                         int co, cudaStream_t stream);
-int nemar_conv_head_bwd(const float* x, const float* w, const float* g, float* part, float* dx,
-                        float* dw, int n, int h, int wd, int ci, int co, cudaStream_t stream);
+int nemar_conv_head_bwd(const float* x, const float* w, const float* g, float* part, float* frame,
+                        float* dx, float* dw, int n, int h, int wd, int ci, int co, int tr, int tc,
+                        int dw_blocks, int dx_blocks, cudaStream_t stream);
 int nemar_convt_in_fwd(const float* x, const float* w, float* wsplit, float* yhat, float* part,
                        float* stats, float* out, int n, int h, int w_, int ci, int co, float eps,
                        cudaStream_t stream);
@@ -165,11 +166,22 @@ void conv_head_fwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& o
         "conv_head_fwd");
 }
 
+// plan = (tr, tc, dw_blocks, dx_blocks) of ops/conv_head.py:head_bwd_plan,
+// which also sizes part and frame
 void conv_head_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& g,
-                   const at::Tensor& part, const at::Tensor& dx, const at::Tensor& dw) {
+                   const at::Tensor& part, const at::Tensor& frame, const at::Tensor& dx,
+                   const at::Tensor& dw, int64_t tr, int64_t tc, int64_t dw_blocks,
+                   int64_t dx_blocks) {
+  const int64_t n = x.size(0), h = x.size(1), wd = x.size(2), ci = x.size(3), co = w.size(3);
+  TORCH_CHECK(part.numel() >= dw_blocks * 49 * ci * co &&
+                  frame.numel() >= n * (6 * (wd + 6) + 6 * h) * ci,
+              "conv_head_bwd: part ", part.sizes(), " or frame ", frame.sizes(),
+              " is smaller than the plan needs");
   const c10::cuda::CUDAGuard guard(x.device());
-  check(nemar_conv_head_bwd(f32(x), f32(w), f32(g), f32(part), f32(dx), f32(dw), dim(x, 0),
-                            dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3), stream()),
+  check(nemar_conv_head_bwd(f32(x), f32(w), f32(g), f32(part), f32(frame), f32(dx), f32(dw),
+                            dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
+                            static_cast<int>(tr), static_cast<int>(tc),
+                            static_cast<int>(dw_blocks), static_cast<int>(dx_blocks), stream()),
         "conv_head_bwd");
 }
 
@@ -280,8 +292,8 @@ TORCH_LIBRARY(nemar, m) {
         "int splits) -> ()",
         &resblock_bwd);
   m.def("conv_head_fwd(Tensor x, Tensor w, Tensor(a!) out) -> ()", &conv_head_fwd);
-  m.def("conv_head_bwd(Tensor x, Tensor w, Tensor g, Tensor(a!) part, Tensor(b!) dx, "
-        "Tensor(c!) dw) -> ()",
+  m.def("conv_head_bwd(Tensor x, Tensor w, Tensor g, Tensor(a!) part, Tensor(b!) frame, "
+        "Tensor(c!) dx, Tensor(d!) dw, int tr, int tc, int dw_blocks, int dx_blocks) -> ()",
         &conv_head_bwd);
   m.def("convt_in_fwd(Tensor x, Tensor w, Tensor(a!) wsplit, Tensor(b!) yhat, Tensor(c!) part, "
         "Tensor(d!) stats, Tensor(e!) out, float eps) -> ()",

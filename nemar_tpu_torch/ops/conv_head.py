@@ -16,9 +16,20 @@ tensor launches the CUDA kernels K-head (``csrc/head_fwd.cu``, replacing
 the TPU kernels B4 and B6's forwards) and K-head-bwd (``csrc/head_bwd.cu``,
 their backwards). Both compute the convolutions in their own bodies: no
 cuDNN, cuBLAS or ``F.conv2d`` on that path, and no float atomics.
+
+K-head-bwd is two GEMMs on the tensor cores in 3xTF32 with the 49 taps
+folded into them (dW: N = 49 Co; dX: K = 49 Co), over tiles of the
+reflect-padded frame, and one launch that merges dW's per-block partials in
+fp64 and folds the frame's part of dX onto the image's edge pixels: three
+launches a call, one operator call. ``head_bwd_plan`` sizes the tiles, the
+grids and the scratch (a pure function of the shapes and the card's SM
+count).
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +41,14 @@ from nemar_tpu_torch.ops.conv_fused import (
 
 PAD = 3
 MAX_CO = 8
-# pixel tile of K-head-bwd's weight-gradient partials (csrc/head_bwd.cu)
-_WG_TILE = 32
+# K-head-bwd's tiling limits (csrc/head_bwd.cu: TILE_MAX, GW_MAX): a tile's
+# positions, and the floats of its g window, (tr + 6) (tc + 6) Co
+_TILE_MAX = 1024
+_GW_MAX = 4096
+_TC_MAX = 128  # tile columns
+_TR_MAX = 8    # tile rows
+_WG_MT, _WG_NB = 64, 160  # a dW block's input channels and (tap, co) columns
+_DX_WGS = 3               # warpgroups of a dX block
 
 
 def conv_head_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -46,6 +63,61 @@ def conv_head_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tu
     from the padded input's 49 windows, dx the reflect-pad adjoint of the
     conv's input adjoint."""
     return reflect_pad_adjoint(conv_adjoint_plain(g, w), PAD), conv_wgrad_plain(x, g, 7)
+
+
+class HeadBwdPlan(NamedTuple):
+    """K-head-bwd's tiling of one call: the padded frame, (H + 6) x (W + 6)
+    per sample, cut into ``ty`` x ``cx`` tiles of ``tr`` x ``tc`` positions
+    (``tiles`` in all), the persistent grids of the dW and dX launches, and
+    the scratch's floats: dW's partials (one set a dW block) and the frame
+    around each image (6 (W + 6) + 6 H positions of Ci)."""
+    tr: int
+    tc: int
+    ty: int
+    cx: int
+    tiles: int
+    dw_blocks: int
+    dx_blocks: int
+    part_floats: int
+    frame_floats: int
+
+
+def head_bwd_plan(n: int, h: int, w: int, ci: int, co: int, sms: int) -> HeadBwdPlan:
+    """The tiles, grids and scratch of K-head-bwd for x (n, h, w, ci), Co
+    outputs, on a card of ``sms`` SMs. Tiles are at most 128 columns wide
+    (the strips of a row as even as whole positions allow) and 8 rows high,
+    within the kernel's limits on a tile's positions and g window, and low
+    enough that there are about two a SM where the frame allows it: at batch
+    1, 256^2, 393 tiles, so that both GEMMs fill the card. dW's partials are
+    per block (a persistent grid of at most one block a SM), so their number
+    does not grow with the batch."""
+    hp, wp = h + 2 * PAD, w + 2 * PAD
+    halo = 2 * PAD
+    tc_cap = max(1, min(_TC_MAX, _GW_MAX // ((1 + halo) * co) - halo))
+    cx = -(-wp // tc_cap)
+    tc = -(-wp // cx)
+    tr_cap = max(1, min(_TR_MAX, _GW_MAX // ((tc + halo) * co) - halo, _TILE_MAX // tc))
+    tr = max(1, min(tr_cap, n * hp * cx // (2 * sms)))
+    ty = -(-hp // tr)
+    tiles = n * ty * cx
+    dw_tiles = -(-ci // _WG_MT) * -(-49 * co // _WG_NB)
+    dw_blocks = max(1, min(tiles, sms // dw_tiles))
+    dx_tiles = -(-ci // (64 if co <= 3 else 32))
+    dx_blocks = max(1, min(-(-tiles // _DX_WGS), sms // dx_tiles))
+    return HeadBwdPlan(tr, tc, ty, cx, tiles, dw_blocks, dx_blocks,
+                       dw_blocks * 49 * ci * co, n * (6 * wp + 6 * h) * ci)
+
+
+def head_bwd_tile(plan: HeadBwdPlan, t: int) -> tuple:
+    """(sample, first padded row, first padded column) of tile t, as the
+    kernels number them (csrc/head_bwd.cu: Geometry::tile)."""
+    img, r = divmod(t, plan.ty * plan.cx)
+    return img, (r // plan.cx) * plan.tr, (r % plan.cx) * plan.tc
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
@@ -90,11 +162,13 @@ def conv_head_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tup
             or g.device != x.device:
         raise ValueError(f"conv_head_bwd_cuda: g {tuple(g.shape)} must be a contiguous fp32 "
                          f"({n}, {h}, {wd}, {co}) tensor on x's device")
-    tiles = n * (-(-h // _WG_TILE)) * (-(-wd // _WG_TILE))
-    part = torch.empty((tiles, 49, ci, co), dtype=torch.float32, device=x.device)
+    plan = head_bwd_plan(n, h, wd, ci, co, _sm_count(x.device.index))
+    part = torch.empty(plan.part_floats, dtype=torch.float32, device=x.device)
+    frame = torch.empty(plan.frame_floats, dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dw = torch.empty((7, 7, ci, co), dtype=torch.float32, device=x.device)
-    _build.op("conv_head_bwd")(x, w, g, part, dx, dw)
+    _build.op("conv_head_bwd")(x, w, g, part, frame, dx, dw, plan.tr, plan.tc, plan.dw_blocks,
+                               plan.dx_blocks)
     conv_head_bwd_cuda.launches += 1
     return dx, dw
 

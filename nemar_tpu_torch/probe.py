@@ -1,7 +1,7 @@
-"""Times of K-warp-bwd, K-block, K-block-bwd, K-convt, K-convt-bwd, K-in and
-K-in-bwd at the shapes the model gives them, of the b1 request and of the
-b1 and b8 training steps, and the SASS of every kernel, for one tree of the
-port.
+"""Times of K-warp-bwd, K-block, K-block-bwd, K-convt, K-convt-bwd, K-in,
+K-in-bwd, K-head and K-head-bwd at the shapes the model gives them, of the
+b1 request and of the b1 and b8 training steps, and the SASS of every
+kernel, for one tree of the port.
 
     python3 nemar_tpu_torch/probe.py [--root DIR] [--parts PART,...]
     python3 nemar_tpu_torch/probe.py --trace-check N
@@ -28,6 +28,11 @@ fresh processes on one card (parent, change, change, parent, ...).
   batch 1 and 8 (``chip_smoke.CONVT_SHAPES``; the backward fed the plain
   forward's saved values): the median CUDA-event time of 20 calls, and the
   device time by kernel (the same launches in every traced call);
+- ``head``: one K-head and one K-head-bwd call at ``chip_smoke.HEAD_SHAPE``
+  at batch 1 and 8 (G's 7x7 head, 256 x 256 x 64 -> 3; the backward's g
+  drawn N(0, 1)): the median CUDA-event time of 20 calls, and the device
+  time by kernel (the same launches in every traced call), through the
+  tree's ``ops.conv_head.conv_head_cuda`` / ``conv_head_bwd_cuda``;
 - ``in``: K-in and K-in-bwd called as the autograd Function calls them
   (the tree's ``norm_cuda`` wrappers, or ``norm_triton``'s on a tree before
   them): per call the median CUDA-event time of 20 calls and the device
@@ -192,7 +197,8 @@ def train_step_ms(chip_smoke, torch, batch: int) -> dict:
     return {"batch": batch, "ms_median": float(np.median(times)), "ms": times}
 
 
-PARTS = ("warp_bwd", "block", "convt", "in", "request", "train_step_b1", "train_step", "sass")
+PARTS = ("warp_bwd", "block", "convt", "head", "in", "request", "train_step_b1", "train_step",
+         "sass")
 
 
 def trace_check(chip_smoke, torch, traces: int) -> dict:
@@ -300,6 +306,23 @@ def main() -> int:
                 convt[f"{name} {b}x{h}x{w}x{ci}->{co}"] = {
                     "event_ms": chip_smoke.median_ms(fn), "device_ms": dms, "by_kernel": by}
         out["convt"] = convt
+
+    if "head" in parts:
+        from nemar_tpu_torch.ops import conv_head
+
+        head = {}
+        h, w, ci, co, _ = chip_smoke.HEAD_SHAPE
+        for b in (1, n):
+            xh = chip_smoke.randn(rng, (b, h, w, ci), 1.0, dev)
+            wh = chip_smoke.randn(rng, (7, 7, ci, co), 0.02, dev)
+            gh = chip_smoke.randn(rng, (b, h, w, co), 1.0, dev)
+            calls = {"fwd": lambda: conv_head.conv_head_cuda(xh, wh),
+                     "bwd": lambda: conv_head.conv_head_bwd_cuda(xh, wh, gh)}
+            for name, fn in calls.items():
+                dms, by = chip_smoke.device_ms(fn, None, 10)
+                head[f"{name} {b}x{h}x{w}x{ci}->{co}"] = {
+                    "event_ms": chip_smoke.median_ms(fn), "device_ms": dms, "by_kernel": by}
+        out["head"] = head
 
     if "in" in parts:
         out["in"] = in_kernels(chip_smoke, torch, rng, dev)

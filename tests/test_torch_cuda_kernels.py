@@ -543,6 +543,58 @@ def test_head_bwd_kernel_matches_plain(dev, shape):
         assert torch.max(torch.abs(a - r)).item() < 1e-4 * torch.max(torch.abs(r)).item()
 
 
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64, 3), (2, 37, 70, 20, 8), (1, 5, 5, 12, 1)])
+def test_head_bwd_kernel_fp64_accuracy(dev, shape):
+    """K-head-bwd's 3xTF32 GEMMs keep fp32-level accuracy: against the plain
+    backward in float64 (the same inputs cast up), its largest relative
+    error on dx and dW is at most 4x that of the fp32 plain version."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(31 + h)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (7, 7, ci, co), 0.02, dev)
+    g = _randn(rng, (n, h, w, co), 1.0, dev)
+    got = conv_head.conv_head_bwd_cuda(x, wk, g)
+    ref32 = conv_head.conv_head_bwd_plain(x, wk, g)
+    ref64 = conv_head.conv_head_bwd_plain(x.double(), wk.double(), g.double())
+
+    def rel(a, b):
+        return max(float((p.double() - q).abs().max() / q.abs().max()) for p, q in zip(a, b))
+
+    assert rel(got, ref64) <= 4 * rel(ref32, ref64)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 64, 3), (2, 37, 70, 20, 8)])
+def test_head_bwd_kernel_three_launches_per_call(dev, shape):
+    """K-head-bwd is three device launches a call (dW partials, Dx, finish),
+    in every traced call (chip_smoke.device_ms)."""
+    import chip_smoke
+
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(37)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (7, 7, ci, co), 0.02, dev)
+    g = _randn(rng, (n, h, w, co), 1.0, dev)
+    _, by_kernel = chip_smoke.device_ms(lambda: conv_head.conv_head_bwd_cuda(x, wk, g), 3, 10)
+    assert [k for _, k, _ in by_kernel] == [1.0, 1.0, 1.0]
+    assert [name.split("<")[0].split("::")[-1] for name, _, _ in by_kernel] == [
+        "head_wgrad_kernel", "head_dgrad_kernel", "head_bwd_finish_kernel"]
+
+
+def test_head_bwd_refuses_what_it_cannot_run(dev):
+    x = torch.zeros((1, 8, 8, 4))
+    wk = torch.zeros((7, 7, 4, 3))
+    g = torch.zeros((1, 8, 8, 3))
+    with pytest.raises(ValueError, match="CUDA device"):
+        conv_head.conv_head_bwd_cuda(x, wk, g)
+    xd, wd = x.to(dev), wk.to(dev)
+    gt = torch.zeros((1, 3, 8, 8), device=dev).permute(0, 2, 3, 1)  # NCHW memory
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_head.conv_head_bwd_cuda(xd, wd, gt)
+    with pytest.raises(ValueError, match="Co <= 8"):
+        conv_head.conv_head_bwd_cuda(xd, torch.zeros((7, 7, 4, 9), device=dev),
+                                     torch.zeros((1, 8, 8, 9), device=dev))
+
+
 # (N, H, W, Ci, Co): G's two decoder stages, ragged tiles and channels
 CONVT_SHAPES = [(1, 64, 64, 256, 128), (8, 64, 64, 256, 128), (1, 128, 128, 128, 64),
                 (8, 128, 128, 128, 64), (2, 5, 7, 12, 8), (1, 9, 3, 132, 20)]

@@ -1,5 +1,6 @@
 """The 3xTF32 arithmetic of the tensor-core GEMMs of K-block, K-block-bwd,
-K-convt and K-convt-bwd (``nemar_tpu_torch/csrc/gemm_tc.cuh``), emulated in
+K-convt and K-convt-bwd (``nemar_tpu_torch/csrc/gemm_tc.cuh``), and of
+K-head-bwd (``csrc/head_bwd.cu``, the same split and order), emulated in
 torch on the CPU.
 
 ``tf32`` mirrors ``cvt.rna.tf32.f32`` (round to nearest, ties away from
@@ -109,7 +110,15 @@ DEPTH_IDS = ["dgrad_K2304", "wgrad_K4096", "convt_plane_K1024", "convt_dgrad_K11
              "convt_wgrad_split_K1504", "convt_wgrad_split_K3008"]
 
 
-@pytest.mark.parametrize("k", DEPTHS, ids=DEPTH_IDS)
+# K-head-bwd's: its dX GEMM's K = 49 x 3 taps padded to 152 (19 steps of 8,
+# the last chain 24 deep), and its dW GEMM's positions of one batch-8 tile
+# (8 x 88) and of one dW block's six tiles at batch 8 (ops/conv_head.py:
+# head_bwd_plan), which the block sums in fp32 before the fp64 merge
+HEAD_DEPTHS = [152, 8 * 88, 6 * 8 * 88]
+HEAD_DEPTH_IDS = ["head_dgrad_K152", "head_wgrad_tile_K704", "head_wgrad_block_K4224"]
+
+
+@pytest.mark.parametrize("k", DEPTHS + HEAD_DEPTHS, ids=DEPTH_IDS + HEAD_DEPTH_IDS)
 def test_3xtf32_is_fp32_accurate_and_1xtf32_is_not(k):
     a, b, err = _operands(k)
     e3, e1 = err(gemm_3xtf32(a, b)), err(gemm_3xtf32(a, b, terms=1))
