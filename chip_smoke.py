@@ -29,7 +29,12 @@ is not 0.
      forward: twice bit for bit, its event and device time per call (one
      launch a call, asserted), and F.instance_norm on the same data (no
      activation) beside it as a yardstick, not as the library call. K-head
-     and its library call also by their device time (one launch a call);
+     and its library call also by their device time; at the model's shape
+     K-head takes its wgmma route (a 3xTF32 GEMM, one launch a call,
+     asserted by the kernel's name), held also against a float64 run (at
+     most 4x the fp32 plain version's error), bit for bit across two calls,
+     with its tensor-core bound ``tc_bound_ms``; its direct route (the
+     shapes off the model's) at one such shape against its plain version;
   2b. each backward kernel likewise, at the training step's shapes (batch
      8); K-block-bwd and K-convt-bwd are fed the plain forward's saved
      values, and their comparison with their own forward's is shown beside.
@@ -614,15 +619,28 @@ def check_kernels(dev) -> dict:
 
     # K-head: G's 7x7 output conv, N x 256 x 256 x 64 -> 3, twice per
     # request; the library call is nn.Conv2d(padding_mode='reflect'); both
-    # also by their device time (one launch a call for K-head, asserted)
+    # also by their device time. At this shape K-head takes its wgmma route
+    # (ops/conv_head.py:head_fwd_plan; one launch a call, asserted from the
+    # trace by name), a 3xTF32 GEMM on the tensor cores: held also against
+    # the plain version in float64 (at most 4x the fp32 plain version's
+    # error), bit for bit across two calls, with its tensor-core bound. Then
+    # its direct route, which shapes off the model's take, at one of them.
     h, w, ci, co, calls = HEAD_SHAPE
     for n in (1, 8):
         x = randn(rng, (n, h, w, ci), 1.0, dev)
         wk = randn(rng, (7, 7, ci, co), 0.02, dev)
-        got = conv_head.conv_head_cuda(x, wk)
+
+        def kern():
+            return conv_head.conv_head_cuda(x, wk)
+
+        got, again = kern(), kern()
+        repeatable = torch.equal(got, again)
         ref = conv_head.conv_head_plain(x, wk)
         err = torch.max(torch.abs(got - ref)).item()
-        ms = median_ms(lambda: conv_head.conv_head_cuda(x, wk))
+        ref64 = conv_head.conv_head_plain(x.double(), wk.double())
+        err64, plain_err64 = max_rel_err([got.double()], [ref64]), max_rel_err([ref.double()], [ref64])
+        del ref64, again
+        ms = median_ms(kern)
         pms = median_ms(lambda: conv_head.conv_head_plain(x, wk))
         lib = torch.nn.Conv2d(ci, co, 7, padding=3, padding_mode="reflect", bias=False).to(dev)
         with torch.no_grad():
@@ -631,21 +649,42 @@ def check_kernels(dev) -> dict:
             lib_err = torch.max(torch.abs(lib(x_nchw).permute(0, 2, 3, 1) - ref)).item()
             lms = median_ms(lambda: lib(x_nchw))
             lib_dms, _ = device_ms(lambda: lib(x_nchw), None, 10)
-        dms, per_launch = device_ms(lambda: conv_head.conv_head_cuda(x, wk), 1, 10)
+        dms, per_launch = device_ms(kern, 1, 10)
         flops = 2 * n * h * w * 49 * ci * co
         bnd = bound(flops, x, wk, got)
         phase("kernel", name="K-head", shape=f"{n}x{h}x{w}x{ci}->{co}", calls=calls,
-              max_abs_err=err, tol=TOL["K-head"], ms=ms, device_ms=dms, plain_ms=pms,
-              library_ms=lms, library_device_ms=lib_dms, library_err=lib_err, bound_ms=max(bnd),
+              max_abs_err=err, tol=TOL["K-head"], bitwise_repeatable=repeatable,
+              rel_err_vs_fp64=err64, plain_fp32_rel_err_vs_fp64=plain_err64, ms=ms,
+              device_ms=dms, plain_ms=pms, library_ms=lms, library_device_ms=lib_dms,
+              library_err=lib_err, bound_ms=max(bnd), tc_bound_ms=3 * flops / PEAK_TF32_FLOPS * 1e3,
               tflops=round(flops / ms / 1e9, 2), launches_per_call=sum(k for _, k, _ in per_launch),
               device_ms_by_kernel=json.dumps(per_launch))
-        if not err <= TOL["K-head"]:
-            raise AssertionError(f"K-head disagrees with its plain version: {err}")
+        if not (err <= TOL["K-head"] and repeatable):
+            raise AssertionError(f"K-head disagrees with its plain version: {err}, "
+                                 f"repeatable {repeatable}")
+        if not err64 <= 4 * plain_err64:
+            raise AssertionError(f"K-head is less accurate than fp32 allows: {err64} against "
+                                 f"fp64, the fp32 plain version {plain_err64}")
+        if "head_fwd_wgmma_kernel" not in per_launch[0][0]:
+            raise AssertionError(f"K-head did not take its wgmma route: {per_launch}")
         if n == 1:
             tally = Tally()
             tally.add(calls, err, ms, pms, bnd, lms)
             results["K-head"] = dict(tally.result(gemm=True), device_ms=calls * dms,
                                      library_device_ms=calls * lib_dms)
+    x = randn(rng, (2, 37, 70, 20), 1.0, dev)
+    wk = randn(rng, (7, 7, 20, 8), 0.02, dev)
+    got, again = conv_head.conv_head_cuda(x, wk), conv_head.conv_head_cuda(x, wk)
+    ref = conv_head.conv_head_plain(x, wk)
+    err = torch.max(torch.abs(got - ref)).item()
+    _, per_launch = device_ms(lambda: conv_head.conv_head_cuda(x, wk), 1, 10)
+    phase("kernel", name="K-head", route="direct", shape="2x37x70x20->8", max_abs_err=err,
+          tol=TOL["K-head"], bitwise_repeatable=torch.equal(got, again),
+          device_ms_by_kernel=json.dumps(per_launch))
+    if not (err <= TOL["K-head"] and torch.equal(got, again)
+            and "head_fwd_direct_kernel" in per_launch[0][0]):
+        raise AssertionError(f"K-head's direct route disagrees with its plain version: {err}, "
+                             f"{per_launch}")
 
     # K-convt: G's two decoder stages, twice each per request. Its GEMMs run
     # in 3xTF32 on the tensor cores: held also against the plain forward in

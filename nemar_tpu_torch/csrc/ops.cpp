@@ -42,7 +42,7 @@ int nemar_resblock_bwd(const float* x, const float* y1, const float* y2, const f
                        float* dw2, float* dx, int n, int h, int w, int c, int splits,
                        cudaStream_t stream);
 int nemar_conv_head_fwd(const float* x, const float* w, float* out, int n, int h, int wd, int ci,
-                        int co, cudaStream_t stream);
+                        int co, int tc, int blocks, cudaStream_t stream);
 int nemar_conv_head_bwd(const float* x, const float* w, const float* g, float* part, float* frame,
                         float* dx, float* dw, int n, int h, int wd, int ci, int co, int tr, int tc,
                         int dw_blocks, int dx_blocks, cudaStream_t stream);
@@ -159,10 +159,13 @@ void resblock_bwd(const at::Tensor& x, const at::Tensor& y1, const at::Tensor& y
         "resblock_bwd");
 }
 
-void conv_head_fwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& out) {
+// (tc, blocks) of ops/conv_head.py:head_fwd_plan: the wgmma route's strip
+// width and grid, or blocks = 0 for the direct route
+void conv_head_fwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& out, int64_t tc,
+                   int64_t blocks) {
   const c10::cuda::CUDAGuard guard(x.device());
   check(nemar_conv_head_fwd(f32(x), f32(w), f32(out), dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3),
-                            dim(w, 3), stream()),
+                            dim(w, 3), static_cast<int>(tc), static_cast<int>(blocks), stream()),
         "conv_head_fwd");
 }
 
@@ -291,7 +294,8 @@ TORCH_LIBRARY(nemar, m) {
         "Tensor(e!) means, Tensor(f!) part_w, Tensor(g!) dw1, Tensor(h!) dw2, Tensor(i!) dx, "
         "int splits) -> ()",
         &resblock_bwd);
-  m.def("conv_head_fwd(Tensor x, Tensor w, Tensor(a!) out) -> ()", &conv_head_fwd);
+  m.def("conv_head_fwd(Tensor x, Tensor w, Tensor(a!) out, int tc, int blocks) -> ()",
+        &conv_head_fwd);
   m.def("conv_head_bwd(Tensor x, Tensor w, Tensor g, Tensor(a!) part, Tensor(b!) frame, "
         "Tensor(c!) dx, Tensor(d!) dw, int tr, int tc, int dw_blocks, int dx_blocks) -> ()",
         &conv_head_bwd);

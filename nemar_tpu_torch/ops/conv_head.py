@@ -17,6 +17,17 @@ the TPU kernels B4 and B6's forwards) and K-head-bwd (``csrc/head_bwd.cu``,
 their backwards). Both compute the convolutions in their own bodies: no
 cuDNN, cuBLAS or ``F.conv2d`` on that path, and no float atomics.
 
+K-head is one launch a call. On the model's head (Co <= 3, Ci <= 64, Ci a
+multiple of 4) it is a GEMM on the tensor cores in 3xTF32 with the 49 taps
+folded into N (Y[q, (tap, co)] = sum_ci xpad[q, ci] W[tap, ci, co] over 64
+padded positions q of a strip's row), streamed down the frame, each row's Y
+collapsed into a ring of the 7 output rows it feeds (out[y, c] = sum_dy
+sum_dx Y_{y + dy}[c + dx, (dy, dx, co)]); ``head_fwd_plan`` cuts the frame
+into strips and the strips' rows into one run a block of a persistent grid,
+and ``head_fwd_steps`` lists a block's steps as the kernel walks them. Any
+other shape takes the kernel's direct route, a convolution on the CUDA
+cores.
+
 K-head-bwd is two GEMMs on the tensor cores in 3xTF32 with the 49 taps
 folded into them (dW: N = 49 Co; dX: K = 49 Co), over tiles of the
 reflect-padded frame, and one launch that merges dW's per-block partials in
@@ -49,6 +60,14 @@ _TC_MAX = 128  # tile columns
 _TR_MAX = 8    # tile rows
 _WG_MT, _WG_NB = 64, 160  # a dW block's input channels and (tap, co) columns
 _DX_WGS = 3               # warpgroups of a dX block
+# K-head's wgmma route (csrc/head_fwd.cu: G_M, G_CO_MAX, G_KS_MAX): 64
+# padded positions a strip's row, so at most 58 output columns; one wgmma of
+# N = 49 Co rounded up to 8, at most 152, so Co <= 3; two 32-deep K slices,
+# so Ci <= 64, in 16-byte copies
+_FWD_M = 64
+_FWD_TC_MAX = _FWD_M - 2 * PAD
+_FWD_CO_MAX = 3
+_FWD_CI_MAX = 64
 
 
 def conv_head_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -63,6 +82,76 @@ def conv_head_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tu
     from the padded input's 49 windows, dx the reflect-pad adjoint of the
     conv's input adjoint."""
     return reflect_pad_adjoint(conv_adjoint_plain(g, w), PAD), conv_wgrad_plain(x, g, 7)
+
+
+class HeadFwdPlan(NamedTuple):
+    """K-head's route and tiling of one call: ``wgmma`` picks the route; the
+    wgmma route cuts each output row into ``cx`` strips of ``tc`` columns
+    (the last may be narrower), each read as 64 padded positions, and the
+    ``units`` = N cx H strip rows, in (sample, strip, row) order with the
+    row fastest, into ``blocks`` even runs, one a block of a persistent
+    grid. The direct route takes none of it."""
+    tc: int
+    cx: int
+    blocks: int
+    units: int
+    wgmma: bool
+
+
+def _run_steps(units: int, h: int, blocks: int, block: int) -> int:
+    """Steps of one block's run: its strip rows, and 6 halo rows for each
+    strip it touches (csrc/head_fwd.cu: run_steps)."""
+    u0, u1 = units * block // blocks, units * (block + 1) // blocks
+    return u1 - u0 + 2 * PAD * ((u1 - 1) // h - u0 // h + 1) if u1 > u0 else 0
+
+
+@functools.lru_cache(maxsize=64)
+def head_fwd_plan(n: int, h: int, w: int, ci: int, co: int, sms: int) -> HeadFwdPlan:
+    """K-head's route and tiling for x (n, h, w, ci), Co outputs, on a card
+    of ``sms`` SMs. The wgmma route takes Co <= 3 and Ci <= 64 in multiples
+    of 4 (the model's head); its strips are as even as whole columns allow,
+    each at most 58 wide (256 -> 5 strips of 52). Its grid holds at most one
+    block a SM (a block is two warpgroups, and W's split copy and the
+    buffers take 149 KB of its shared memory, so a second would not fit),
+    and the fewer steps its longest run takes the better: ``sms`` blocks
+    (runs may cross a strip's end, 6 more halo rows), or, where the strips
+    are fewer than the SMs, k runs a strip for the largest k that fits (runs
+    then end at the strips' ends). At 256^2 that is 130 blocks of at most
+    16 steps at batch 1, and 132 of at most 90 at batch 8. Every other shape
+    takes the direct route (the tiling is then what the wgmma route would
+    take, which the CPU tests' emulation of it can use at any Co)."""
+    tc = -(-w // -(-w // _FWD_TC_MAX))
+    cx = -(-w // tc)
+    units = n * cx * h
+    grids = {min(sms, units)}
+    if n * cx <= sms:
+        grids.add(n * cx * min(sms // (n * cx), h))
+
+    def longest(blocks):
+        return max(_run_steps(units, h, blocks, b) for b in range(blocks))
+
+    wgmma = co <= _FWD_CO_MAX and ci <= _FWD_CI_MAX and ci % 4 == 0
+    return HeadFwdPlan(tc, cx, min(sorted(grids), key=longest), units, wgmma)
+
+
+def head_fwd_steps(plan: HeadFwdPlan, h: int, w: int, block: int) -> list:
+    """The steps of one block of K-head's wgmma route, in its order (csrc/
+    head_fwd.cu: Cursor): (sample, first output column of the strip, its
+    width, padded row r, first output row y0 of the segment). A segment, a
+    strip's rows y0 .. y0 + R - 1 within the block's run, takes the padded
+    rows y0 .. y0 + R + 5; at r >= y0 + 6 output row r - 6 is complete."""
+    u0 = plan.units * block // plan.blocks
+    u1 = plan.units * (block + 1) // plan.blocks
+    steps = []
+    u = u0
+    while u < u1:
+        col, y0 = divmod(u, h)
+        rows = min(h - y0, u1 - u)
+        img, strip = divmod(col, plan.cx)
+        j0 = strip * plan.tc
+        steps += [(img, j0, min(plan.tc, w - j0), y0 + k, y0) for k in range(rows + 2 * PAD)]
+        u += rows
+    return steps
 
 
 class HeadBwdPlan(NamedTuple):
@@ -137,13 +226,18 @@ def _check_cuda(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
 
 def conv_head_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch K-head. x (N, H, W, Ci) fp32 NHWC-contiguous on a CUDA device;
-    w (7, 7, Ci, Co) HWIO fp32 (made contiguous here). Returns (N, H, W, Co)."""
+    w (7, 7, Ci, Co) HWIO fp32 (made contiguous here). Returns (N, H, W, Co).
+    The route is ``head_fwd_plan``'s; an x whose data is not 16-byte aligned
+    (a view at an odd offset), which the wgmma route's copies cannot read,
+    takes the direct route."""
     _check_cuda("conv_head_cuda", x, w)
     w = w.contiguous()
     n, h, wd, ci = x.shape
     co = w.shape[3]
+    plan = head_fwd_plan(n, h, wd, ci, co, _sm_count(x.device.index))
+    blocks = plan.blocks if plan.wgmma and x.data_ptr() % 16 == 0 else 0
     out = torch.empty((n, h, wd, co), dtype=torch.float32, device=x.device)
-    _build.op("conv_head_fwd")(x, w, out)
+    _build.op("conv_head_fwd")(x, w, out, plan.tc, blocks)
     conv_head_cuda.launches += 1
     return out
 

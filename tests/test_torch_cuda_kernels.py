@@ -518,6 +518,64 @@ def test_head_kernel_matches_plain(dev, shape):
     torch.cuda.synchronize()
     assert conv_head.conv_head_cuda.launches == before + 1
     assert torch.max(torch.abs(got - ref)).item() < 1e-4 * max(1.0, torch.max(torch.abs(ref)).item())
+    # every output written once, in a fixed order: bit for bit again, on either route
+    assert torch.equal(got, conv_head.conv_head_cuda(x, wk))
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64, 3), (1, 256, 256, 64, 1), (2, 37, 70, 20, 8),
+                                   (1, 5, 5, 12, 1), (2, 40, 70, 32, 2)])
+def test_head_kernel_fp64_accuracy(dev, shape):
+    """K-head keeps fp32-level accuracy (the wgmma route's 3xTF32 GEMM, the
+    direct route's fp32 FMAs): against the plain version in float64 (the
+    same inputs cast up), its largest relative error is at most 4x that of
+    the fp32 plain version."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(41 + h)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (7, 7, ci, co), 0.02, dev)
+    got = conv_head.conv_head_cuda(x, wk)
+    ref32 = conv_head.conv_head_plain(x, wk)
+    ref64 = conv_head.conv_head_plain(x.double(), wk.double())
+
+    def rel(a):
+        return float((a.double() - ref64).abs().max() / ref64.abs().max())
+
+    assert rel(got) <= 4 * rel(ref32)
+
+
+@pytest.mark.parametrize("shape,kernel", [((1, 256, 256, 64, 3), "head_fwd_wgmma_kernel"),
+                                          ((8, 256, 256, 64, 3), "head_fwd_wgmma_kernel"),
+                                          ((1, 40, 4, 64, 2), "head_fwd_wgmma_kernel"),
+                                          ((2, 37, 70, 20, 8), "head_fwd_direct_kernel"),
+                                          ((2, 4, 9, 8, 5), "head_fwd_direct_kernel")])
+def test_head_kernel_one_launch_per_call(dev, shape, kernel):
+    """K-head is one device launch a call, in every traced call
+    (chip_smoke.device_ms), on the route head_fwd_plan picks."""
+    import chip_smoke
+
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(43)
+    x = _randn(rng, (n, h, w, ci), 1.0, dev)
+    wk = _randn(rng, (7, 7, ci, co), 0.02, dev)
+    _, by_kernel = chip_smoke.device_ms(lambda: conv_head.conv_head_cuda(x, wk), 1, 10)
+    assert [(name.split("<")[0].split("::")[-1], k) for name, k, _ in by_kernel] == [(kernel, 1.0)]
+
+
+def test_head_kernel_unaligned_x_takes_the_direct_route(dev):
+    """An x view whose data is not 16-byte aligned, which the wgmma route's
+    copies cannot read, takes the direct route, and agrees all the same."""
+    import chip_smoke
+
+    rng = np.random.default_rng(47)
+    flat = _randn(rng, (2 * 32 * 48 * 64 + 1,), 1.0, dev)
+    x = flat[1:].view(2, 32, 48, 64)
+    wk = _randn(rng, (7, 7, 64, 3), 0.02, dev)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = conv_head.conv_head_cuda(x, wk)
+    ref = conv_head.conv_head_plain(x, wk)
+    assert torch.max(torch.abs(got - ref)).item() < 1e-4 * torch.max(torch.abs(ref)).item()
+    _, by_kernel = chip_smoke.device_ms(lambda: conv_head.conv_head_cuda(x, wk), 1, 5)
+    assert by_kernel[0][0].split("<")[0].split("::")[-1] == "head_fwd_direct_kernel"
 
 
 @pytest.mark.parametrize("shape", HEAD_SHAPES)

@@ -1,7 +1,7 @@
 """The 3xTF32 arithmetic of the tensor-core GEMMs of K-block, K-block-bwd,
 K-convt and K-convt-bwd (``nemar_tpu_torch/csrc/gemm_tc.cuh``), and of
-K-head-bwd (``csrc/head_bwd.cu``, the same split and order), emulated in
-torch on the CPU.
+K-head and K-head-bwd (``csrc/head_{fwd,bwd}.cu``, the same split and
+order), emulated in torch on the CPU.
 
 ``tf32`` mirrors ``cvt.rna.tf32.f32`` (round to nearest, ties away from
 zero, to 10 explicit mantissa bits: add half of the dropped 13 bits to the
@@ -113,9 +113,12 @@ DEPTH_IDS = ["dgrad_K2304", "wgrad_K4096", "convt_plane_K1024", "convt_dgrad_K11
 # K-head-bwd's: its dX GEMM's K = 49 x 3 taps padded to 152 (19 steps of 8,
 # the last chain 24 deep), and its dW GEMM's positions of one batch-8 tile
 # (8 x 88) and of one dW block's six tiles at batch 8 (ops/conv_head.py:
-# head_bwd_plan), which the block sums in fp32 before the fp64 merge
-HEAD_DEPTHS = [152, 8 * 88, 6 * 8 * 88]
-HEAD_DEPTH_IDS = ["head_dgrad_K152", "head_wgrad_tile_K704", "head_wgrad_block_K4224"]
+# head_bwd_plan), which the block sums in fp32 before the fp64 merge; and
+# K-head's (csrc/head_fwd.cu): K = Ci, two chains at the model's Ci = 64,
+# one zero-filled to 32 deep at the card tests' Ci = 20 and 12
+HEAD_DEPTHS = [152, 8 * 88, 6 * 8 * 88, 64, 20, 12]
+HEAD_DEPTH_IDS = ["head_dgrad_K152", "head_wgrad_tile_K704", "head_wgrad_block_K4224",
+                  "head_fwd_K64", "head_fwd_K20", "head_fwd_K12"]
 
 
 @pytest.mark.parametrize("k", DEPTHS + HEAD_DEPTHS, ids=DEPTH_IDS + HEAD_DEPTH_IDS)
