@@ -85,6 +85,30 @@ is not 0.
      (with the Adam caveat of tests/test_torch_nemar_train.py); see
      ``compare_train_with_cpu``. Then two fresh, identical two-step runs on
      the card, which must give bit-identical losses and parameters.
+  7. the science recipe's 256^2 multiscale arm (``scripts/science_final.py``'s
+     flags, fp32; ``SCIENCE_SHARED``, ``SCIENCE_ARMS``) at batch 8, parsed
+     as ``nemar_tpu_torch.train`` parses it, on the port's synthetic data:
+     2 warm-up steps, 4 counted ones (ms per step as their median and as
+     the window over the steps, pairs/s, the launches per step asserted:
+     ``SCIENCE_LAUNCHES``, whose comment works them out, so the STN's 5
+     compositions are seen on K-warp and K-warp-bwd), finite losses, every
+     head of R moved, a profile of 1 step
+     (chiprun_out/profile_science_multiscale.txt); then two fresh two-step
+     runs, bit for bit;
+  7b. the affine arm likewise (Dense_1, R's head, must move);
+  7c. each arm's trained R, its heads moved by a seeded draw so that the
+     field is a few pixels (at least 10x the tolerance), on the card and on
+     the CPU, one 256^2 pair: the flow, the grid and both warped images
+     within 1e-3;
+  8. G at each shape the JAX package runs that does not fill a G kernel's
+     tiles (``OFF_KERNEL_SHAPES``: ``--ngf 16``, a 48^2 crop,
+     ``--output_nc 9``, ``--ngf 6``): first each of G's ops at the shape
+     through its autograd op (the wrappers' channel padding, K-head's
+     chunks of 8, K-block's masked pixel tails) against its plain version,
+     values and gradients; then a b1 training step with the counters zeroed
+     just before: every G kernel's launches asserted (K-head's and
+     K-head-bwd's once a chunk), the seven losses within 1e-4 relative of
+     the CPU's step from the same state, and a second card run bit for bit.
 
 The line before the last is a JSON object with one entry per kernel. For a
 forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
@@ -189,6 +213,59 @@ STEP_LAUNCHES = {"K-block": 12, "K-warp": 1, "K-in": 22, "K-head": 2, "K-convt":
                  "K-convt-bwd": 4}
 # the TPU layouts of G's head and decoder: accepted, and the same kernels run
 LAYOUT_FLAGS = [["--block_impl", "pallas_all"], ["--c7_impl", "roll"]]
+# phases 7 and 7b: the two 256^2 arms of scripts/science_final.py (its
+# flags at :87-127), fp32 (the recipe's --bf16 is its TPU runs' only), at
+# batch 8; --epoch_count past each arm's R warm-up and ramp, so R's gate is
+# open, as is the GAN's
+SCIENCE_SHARED = [
+    "--model", "nemar", "--dataset_mode", "synthetic", "--crop_size", "256", "--load_size", "256",
+    "--batch_size", "8", "--synthetic_size", "192", "--synthetic_pad_crop",
+    "--synthetic_appearance", "smooth", "--synthetic_fresh_affine", "--recon_pyramid", "5",
+    "--border_mask", "--stn_lr", "1e-3", "--stn_beta1", "0.9", "--ngf", "32", "--ndf", "32",
+    "--stn_ngf", "16", "--stn_depth", "6", "--gpu_ids", "0",
+]
+SCIENCE_ARMS = {
+    "multiscale": ["--stn_type", "unet", "--stn_multiscale", "--stn_level_scale", "0.25",
+                   "--stn_bounded_flow", "0.15", "--lambda_smooth", "40",
+                   "--stn_smooth_order", "2", "--stn_warmup_epochs", "3",
+                   "--stn_ramp_epochs", "8", "--stn_grad_clip", "0.5", "--epoch_count", "12"],
+    "affine": ["--stn_type", "affine", "--lambda_smooth", "0.1", "--stn_warmup_epochs", "3",
+               "--stn_ramp_epochs", "5", "--stn_grad_clip", "1.0", "--epoch_count", "9"],
+}
+SCIENCE_STEPS = 4
+# Launches per step of the science arms. Both run G at ngf 32 (trunk
+# 64^2 x 128, head 32 -> 3: every G kernel takes it) twice, as phase 5:
+# K-block 12, K-convt 4, K-head 2 and their backwards alike; K-in 6 for G's
+# encoder (3 convs, 2 passes) and 6 for D (3 normed convs, one pass in the
+# D step, one in the G step), K-in-bwd the same 12, plus R's:
+#  * multiscale, depth 6 at 256^2: 6 + 6 normed convs, so K-in +12 and
+#    K-in-bwd +12 (24 each); heads at the decoder's levels 5..1 (8^2 to
+#    128^2) and at 256^2, 6 fields, composed in 5 border-padded grid samples
+#    of a 2-channel field, each with a backward to the field and to the
+#    grid; then the warp of (fake_B, real_A) and --border_mask's validity
+#    warp (no gradient): K-warp 5 + 1 + 1 = 7, K-warp-bwd 5 + 1 = 6;
+#  * affine, 5 normed convs: K-in 17, K-in-bwd 17; K-warp 1 + 1 = 2 (the
+#    warp, the mask), K-warp-bwd 1.
+G_STEP = {"K-block": 12, "K-convt": 4, "K-head": 2, "K-block-bwd": 12, "K-convt-bwd": 4,
+          "K-head-bwd": 2}
+SCIENCE_LAUNCHES = {
+    "multiscale": {**G_STEP, "K-in": 24, "K-in-bwd": 24, "K-warp": 7, "K-warp-bwd": 6},
+    "affine": {**G_STEP, "K-in": 17, "K-in-bwd": 17, "K-warp": 2, "K-warp-bwd": 1},
+}
+# phase 8: shapes the JAX package runs that do not fill a G kernel's tiles
+# (ROADMAP.md queue C item 1): a 64-channel trunk (padded to 128), a 12^2
+# trunk (144 pixels: masked tails), a 9-channel head (two K-head chunks), a
+# 12 -> 6 decoder stage (padded to 12 -> 8); each a b1 step on the card and
+# on the CPU
+OFF_KERNEL_SHAPES = {
+    "ngf16": ["--ngf", "16", "--crop_size", "64", "--load_size", "64"],
+    "crop48": ["--crop_size", "48", "--load_size", "48", "--stn_depth", "4"],
+    "output_nc9": ["--output_nc", "9", "--crop_size", "64", "--load_size", "64"],
+    "ngf6": ["--ngf", "6", "--crop_size", "64", "--load_size", "64"],
+}
+# phase 7c: the std of the seeded draw added to R's heads, for a field of
+# about 4 px at 256^2 (multiscale: 6 heads, each level scaled by 0.25)
+R_HEAD_DRAW = {"multiscale": 5e-3, "affine": 2e-3}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -271,12 +348,13 @@ def device_ms(fn, launches: int | None, reps: int = 10) -> tuple:
 
     Each of the ``reps`` traced calls must show ``launches`` device events
     (None: the same number, at least one): a trace that does not is taken
-    again with its window's padding doubled, from 0.05 s to 1.6 s, and then
+    again with its window's padding doubled, from 0.0125 s (5x the 2.4 ms
+    a trace can misplace an event by) to 1.6 s, and then
     this raises, so no time is returned that was not measured in full."""
     fn()
     torch.cuda.synchronize()
     seen = []
-    for pad_s in (0.05, 0.1, 0.2, 0.4, 0.8, 1.6):
+    for pad_s in (0.0125, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6):
         events = [e for e in trace_events(fn, reps, pad_s)
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         seen.append(len(events))
@@ -1086,7 +1164,7 @@ def run_slice(ckpt: str) -> tuple:
 
     opt = TestOptions().parse([*SLICE_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt])
     seeded = create_model(opt)
-    head = seeded.netR.head()
+    head = seeded.netR.heads()[-1]
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         # a few pixels of field at 256^2: the warp samples between pixels
@@ -1226,7 +1304,7 @@ def run_train(ckpt: str) -> dict:
     algorithms, so phase 6 starts from the same state in every run."""
     model = train_model([*TRAIN_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
                          "--batch_size", str(TRAIN_BATCH)])
-    head = model.netR.head()
+    head = model.netR.heads()[-1]
     head0 = head.weight.detach().clone()
     batches = request_batches(2 + TRAIN_STEPS, TRAIN_BATCH, seed=4)
     for b in batches[:2]:  # warm-up steps, outside the counted run
@@ -1457,6 +1535,275 @@ def compare_train_with_cpu(ckpt: str) -> None:
         raise AssertionError("two identical training runs on the card differ")
 
 
+def _science_args(arm: str, ckpt: str) -> list:
+    return [*SCIENCE_SHARED, *SCIENCE_ARMS[arm], "--checkpoints_dir", ckpt,
+            "--name", f"science_{arm}"]
+
+
+def _science_batches(opt, n: int) -> list:
+    """n batches of the recipe's synthetic data (the arm's own dataset
+    flags, seeded), made before the steps."""
+    from nemar_tpu_torch.data import create_dataset
+
+    it = iter(create_dataset(opt))
+    return [next(it) for _ in range(n)]
+
+
+def _params(model) -> list:
+    return [p.detach().clone() for net in model.nets().values() for p in net.parameters()]
+
+
+def run_science_arm(arm: str, ckpt: str) -> dict:
+    """Phases 7 (multiscale) and 7b (affine): the science recipe's 256^2 arm
+    at batch 8, parsed as ``nemar_tpu_torch.train`` parses it: 2 warm-up
+    steps, then SCIENCE_STEPS counted ones with the counters zeroed just
+    before (ms per step, pairs/s, the launches per step asserted), finite
+    losses, every head of R moved; then two fresh two-step runs, bit for
+    bit. A torch.profiler pass over 1 more step writes
+    chiprun_out/profile_science_<arm>.txt and the device's busy share.
+    Saves R's state for phase 7c; returns the counted launches."""
+    model = train_model(_science_args(arm, ckpt))
+    heads0 = [h.weight.detach().clone() for h in model.netR.heads()]
+    batches = _science_batches(model.opt, 2 + SCIENCE_STEPS)
+    for b in batches[:2]:
+        model.set_input(b)
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    times = []
+    for b in batches[2:]:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = model.get_current_losses()
+    want = {k: v * SCIENCE_STEPS for k, v in SCIENCE_LAUNCHES[arm].items()}
+    moved = [float((h.weight.detach() - h0).abs().max())
+             for h, h0 in zip(model.netR.heads(), heads0)]
+    ms = float(np.median(times))
+    window_ms = float(np.sum(times)) / SCIENCE_STEPS
+    model.test()  # the last batch's field
+    flow_px = float(np.abs(model.last_flow).max()) * 128
+    n = model.opt.batch_size
+    phase("science_" + arm, batch=n, steps=SCIENCE_STEPS, gate=model._r_gate_scalar(),
+          gan_w=model._gan_w_scalar(), launches=json.dumps(launches), expected=json.dumps(want),
+          ms_per_step_median=round(ms, 3), ms_per_step_window=round(window_ms, 3),
+          ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(n / ms * 1e3, 3), pairs_per_s_window=round(n / window_ms * 1e3, 3),
+          losses=json.dumps({k: round(v, 6) for k, v in losses.items()}),
+          heads_moved_max=json.dumps(moved), max_flow_px=round(flow_px, 3))
+    if launches != want:
+        raise AssertionError(f"{arm}: launch counts {launches} != expected {want}")
+    if model._r_gate_scalar() != 1.0 or model._gan_w_scalar() != 1.0:
+        raise AssertionError(f"{arm}: R's gate or the GAN weight is not open")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{arm}: non-finite losses {losses}")
+    if not all(m > 0.0 for m in moved):
+        raise AssertionError(f"{arm}: a head of R did not move: {moved}")
+    torch.save(model.netR.state_dict(), os.path.join(ckpt, f"science_{arm}_R.pth"))
+
+    def run(i):
+        model.set_input(batches[2 + i])
+        model.optimize_parameters()
+
+    profile(run, 1, f"profile_science_{arm}", "step")
+    del model
+
+    outs = []
+    for _ in range(2):
+        m = train_model(_science_args(arm, ckpt))
+        losses = []
+        for b in batches[:2]:
+            m.set_input(b)
+            m.optimize_parameters()
+            losses.append(list(m.get_current_losses().values()))
+        outs.append((np.array(losses), _params(m)))
+        del m
+    loss_diff = float(np.abs(outs[0][0] - outs[1][0]).max())
+    param_diff = max(float((a - b).abs().max()) for a, b in zip(outs[0][1], outs[1][1]))
+    phase("science_" + arm + "_determinism", steps=2, batch=n, max_loss_diff=loss_diff,
+          max_param_diff=param_diff)
+    if loss_diff != 0.0 or param_diff != 0.0:
+        raise AssertionError(f"{arm}: two identical training runs on the card differ")
+    return launches
+
+
+def compare_r_with_cpu(ckpt: str) -> None:
+    """Phase 7c: each science arm's trained R (phases 7, 7b), its heads moved
+    by a seeded draw (R_HEAD_DRAW) so that the field is a few pixels, on the
+    card and on the CPU, on one 256^2 pair at batch 1: the flow, the grid
+    and both warped images within 1e-3, as phase 4 holds inference; the
+    field at least 10x that tolerance, so that the comparison has something
+    to catch."""
+    from nemar_tpu_torch.models.stn import define_stn
+    from nemar_tpu_torch.options import TrainOptions
+
+    for arm in SCIENCE_ARMS:
+        opt = TrainOptions().parse(_science_args(arm, ckpt))
+        state = torch.load(os.path.join(ckpt, f"science_{arm}_R.pth"), weights_only=True)
+        pair = _science_batches(opt, 1)[0]
+        a, b = (torch.from_numpy(pair[k][:1]).permute(0, 3, 1, 2) for k in ("A", "B"))
+        net = define_stn(opt, opt.stn_type)
+        net.load_state_dict(state)
+        gen = torch.Generator().manual_seed(6)
+        with torch.no_grad():
+            for h in net.heads():
+                h.weight.add_(R_HEAD_DRAW[arm] * torch.randn(h.weight.shape, generator=gen))
+        state = {k: v.clone() for k, v in net.state_dict().items()}
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            net = define_stn(opt, opt.stn_type)
+            net.load_state_dict(state)
+            net = net.to(dev, memory_format=torch.channels_last).eval()
+            with torch.no_grad():
+                (wb, wa), reg, aux = net(a.to(dev), b.to(dev), (b.to(dev), a.to(dev)),
+                                         n_grad_imgs=1)
+            outs[dev] = {"flow": aux["flow"], "grid": aux["grid"], "warped_B": wb,
+                         "warped_A": wa, "reg": reg}
+        errs = {k: float((outs["cuda"][k].cpu() - outs["cpu"][k]).abs().max()) for k in outs["cpu"]}
+        flow_px = float(outs["cpu"]["flow"].abs().max()) * 128
+        phase("science_r_card_vs_cpu", arm=arm, batch=1, max_abs_err=json.dumps(errs), tol=1e-3,
+              max_flow_px=round(flow_px, 3))
+        if not max(errs.values()) <= 1e-3:
+            raise AssertionError(f"{arm}: R on the card and on the CPU disagree: {errs}")
+        if not flow_px >= 10 * 1e-3 * 128:
+            raise AssertionError(f"{arm}: R's field ({flow_px} px) is within 10x the tolerance")
+
+
+def _g_op_shapes(model, crop: int) -> dict:
+    """The shapes G gives its kernels at a b1 crop x crop input: the trunk's
+    NHWC x, each decoder stage's (NHWC x, Co), the head's (NHWC x, Co)."""
+    g = model.netG
+    t = crop // 2**g.n_downsampling
+    trunk = g.ResnetBlock_0.Conv_0.in_channels
+    convt = [((1, t << i, t << i, getattr(g, f"ConvTranspose_{i}").in_channels),
+              getattr(g, f"ConvTranspose_{i}").out_channels) for i in range(g.n_downsampling)]
+    head = getattr(g, f"Conv_{1 + g.n_downsampling}")
+    return {"block": (1, t, t, trunk), "convt": convt,
+            "head": ((1, crop, crop, head.in_channels), head.out_channels)}
+
+
+def check_g_ops_off_tiles(shapes: dict, dev) -> dict:
+    """Each of G's ops at ``shapes`` through its autograd op on the card
+    (the wrappers' channel padding, K-head's chunks, K-block's masked
+    pixel tails) against its plain version on the same inputs: the largest
+    error of the value and of the gradients, each over the largest
+    reference value, within the kernel's TOL."""
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused
+
+    rng = np.random.default_rng(12)
+
+    def rel(fn, plain, args, g_shape):
+        args = [a.requires_grad_() for a in args]
+        g = randn(rng, g_shape, 1.0, dev)
+        out, ref = fn(*args), plain(*args)
+        got = torch.autograd.grad(out, args, g)
+        want = torch.autograd.grad(ref, args, g)
+        return max_rel_err([out.detach()], [ref.detach()]), max_rel_err(got, want)
+
+    c = shapes["block"][3]
+    errs = {"K-block": rel(conv_fused.fused_resblock, conv_fused.resblock_plain,
+                           [randn(rng, shapes["block"], 1.0, dev),
+                            randn(rng, (3, 3, c, c), 0.05, dev),
+                            randn(rng, (3, 3, c, c), 0.05, dev)], shapes["block"])}
+    for i, (x_shape, co) in enumerate(shapes["convt"]):
+        n, h, w, ci = x_shape
+        errs[f"K-convt_{i}"] = rel(convt_fused.fused_convt_in, convt_fused.convt_in_plain,
+                                   [randn(rng, x_shape, 1.0, dev),
+                                    randn(rng, (3, 3, ci, co), 0.05, dev)], (n, 2 * h, 2 * w, co))
+    x_shape, co = shapes["head"]
+    errs["K-head"] = rel(conv_head.conv_head, conv_head.conv_head_plain,
+                         [randn(rng, x_shape, 1.0, dev),
+                          randn(rng, (7, 7, x_shape[3], co), 0.05, dev)], x_shape[:3] + (co,))
+    for k, (fwd, bwd) in errs.items():
+        name = k.split("_")[0]
+        if not (fwd <= TOL[name] and bwd <= TOL[name + "-bwd"]):
+            raise AssertionError(f"{k} at {shapes}: value / gradient errors {fwd}, {bwd} "
+                                 f"above {TOL[name]}, {TOL[name + '-bwd']}")
+    return errs
+
+
+def _g_step_launches(model) -> dict:
+    """Launches of one b1 step of the default recipe, as phase 5 counts
+    them: two G passes, each 6 K-block, 2 K-convt, K-head once a chunk of 8
+    output channels and 3 K-in (the encoder); R's depth-d UNet 2d K-in; D's
+    two passes 6; K-warp 1 (the warp of (fake_B, real_A)); each backward
+    as its forward."""
+    from nemar_tpu_torch.ops.conv_head import head_chunks
+
+    chunks = len(head_chunks(getattr(model.netG, f"Conv_{1 + model.netG.n_downsampling}")
+                             .out_channels))
+    want = {"K-block": 12, "K-warp": 1, "K-in": 2 * 3 + 2 * model.netR.depth + 6,
+            "K-head": 2 * chunks, "K-convt": 4}
+    want.update({k + "-bwd": v for k, v in want.items()})
+    return want
+
+
+def run_off_kernel_shapes(ckpt: str) -> None:
+    """Phase 8: at each of OFF_KERNEL_SHAPES, G's ops on the card against
+    their plain versions (``check_g_ops_off_tiles``), then one b1 training
+    step on the card (the counters zeroed just before: every G kernel's
+    launches asserted), its seven losses against the CPU's step from the
+    same state (fresh Adam) within 1e-4 relative, and a second card run,
+    bit for bit."""
+    from nemar_tpu_torch.ops.conv_head import head_chunks
+
+    dev = torch.device("cuda", 0)
+    for case, flags in OFF_KERNEL_SHAPES.items():
+        args = [*TRAIN_ARGS, *flags, "--checkpoints_dir", ckpt, "--batch_size", "1",
+                "--name", f"smoke_{case}"]
+        crop = int(flags[flags.index("--crop_size") + 1])
+        nc = 9 if "--output_nc" in flags else 3
+        rng = np.random.default_rng(8)
+        pair = {"A": smooth_images(rng, 1, 1, crop), "B": smooth_images(rng, 1, nc, crop)}
+        runs = []
+        for _ in range(2):
+            card = train_model([*args, "--gpu_ids", "0"])
+            state = {n: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+                     for n, net in card.nets().items()}
+            want = _g_step_launches(card)
+            shapes = _g_op_shapes(card, crop)
+            counters = zero_counters()
+            card.set_input(pair)
+            card.optimize_parameters()
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            runs.append((card.get_current_losses(), _params(card), launches))
+            del card
+        op_errs = check_g_ops_off_tiles(shapes, dev)
+        cpu = train_model([*args, "--gpu_ids", "-1"])
+        for n, net in cpu.nets().items():
+            net.load_state_dict(state[n])
+        cpu.set_input(pair)
+        cpu.optimize_parameters()
+        lc = cpu.get_current_losses()
+        losses, params, launches = runs[0]
+        errs = {k: abs(losses[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc}
+        same = runs[1][0] == losses and all(torch.equal(p, q) for p, q in zip(params, runs[1][1]))
+        c = shapes["block"][3]
+        feeds = {"trunk": f"{shapes['block']} -> C {-(-c // 128) * 128}",
+                 "convt": [f"{ci} -> {co} as {-(-ci // 4) * 4} -> {-(-co // 4) * 4}"
+                           for (_, _, _, ci), co in shapes["convt"]],
+                 "head_chunks": head_chunks(shapes["head"][1])}
+        phase("off_kernel_shape", case=case, flags=" ".join(flags), batch=1,
+              kernel_feeds=json.dumps(feeds),
+              op_rel_err_value_grad=json.dumps({k: [f"{a:.3g}", f"{b:.3g}"]
+                                                for k, (a, b) in op_errs.items()}),
+              launches=json.dumps(launches), expected=json.dumps(want),
+              loss_rel_err=json.dumps(errs), tol=1e-4, bit_identical=same)
+        if launches != want or runs[1][2] != want:
+            raise AssertionError(f"{case}: launch counts {launches} != expected {want}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{case}: non-finite losses {losses}")
+        if not max(errs.values()) <= 1e-4:
+            raise AssertionError(f"{case}: card and CPU losses disagree: {errs}")
+        if not same:
+            raise AssertionError(f"{case}: two identical steps on the card differ")
+        del cpu
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1504,6 +1851,16 @@ def main() -> int:
         t0 = time.perf_counter()
         compare_train_with_cpu(ckpt)
         phase("train_vs_cpu_phase", seconds=round(time.perf_counter() - t0, 2))
+        for arm in SCIENCE_ARMS:
+            t0 = time.perf_counter()
+            run_science_arm(arm, ckpt)
+            phase("science_phase", arm=arm, seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        compare_r_with_cpu(ckpt)
+        phase("science_r_vs_cpu_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_off_kernel_shapes(ckpt)
+        phase("off_kernel_shapes_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none)
     launches.update({k: v for k, v in train_launches.items() if k.endswith("-bwd")})

@@ -62,13 +62,20 @@
 //   12.  dx = g + fold(dpad1), and dW1 = the fixed-order sum of 10's
 //        partials, in one launch (two independent element-wise passes).
 //
+// A sample's pixels need not fill whole tiles: the instance-norm partials
+// (64 pixels) and the wgrads' K slices (32 pixels) are counted per sample,
+// and a sample's last one is masked (its rows past H*W are zero-filled in
+// both wgrad operands, so they add nothing). Where H*W is a multiple of 32
+// (of 64 for the partials) they are plain pixel ranges, walked by the
+// unmasked loops.
+//
 // Layouts: x, y1, y2, g, dz, dx (N, H, W, C) fp32; dpad (N, H+2, W+2, C);
 // stats (N, 4, C) = (mu1, rstd1, mu2, rstd2), the forward's; w1, w2, dw1,
 // dw2 (3, 3, C_in, C_out) HWIO; wsplit (4, 9C, C) = (W1 big, W1 small, W2
-// big, W2 small); part_in (N*H*W/64, 2, C); means (N, 2, C); part_w
+// big, W2 small); part_in (N*ceil(H*W/64), 2, C); means (N, 2, C); part_w
 // (SPLITS, 9C, C). Requirements (checked by the wrapper): C % 128 == 0,
-// H*W % 64 == 0, H, W >= 2, 16-byte aligned pointers, N (H+2)(W+2) C
-// < 2^31 (32-bit offsets in the dgrad's loader).
+// H, W >= 2, 16-byte aligned pointers, N (H+2)(W+2) C < 2^31 (32-bit
+// offsets in the dgrad's loader).
 #include <cuda_runtime.h>
 
 #include "gemm_tc.cuh"
@@ -195,9 +202,12 @@ struct DgradOp {
 
 // wgrad partial: part[s][tap*C + ci][co] = sum over the pixels p of split s
 // of src'[b, reflect(u + dy - 1), reflect(v + dx - 1), ci] * dz[p, co], with
-// src' = src, or relu((src - mu1) * rstd1) when kNorm (h1 from y1). Split s
-// takes the K slices [s T / S, (s + 1) T / S) of the T = N*H*W / 32.
-template <bool kNorm>
+// src' = src, or relu((src - mu1) * rstd1) when kNorm (h1 from y1). K slice
+// k is the 32 pixels from (k % kps) * 32 of sample k / kps (kps = ceil(H*W /
+// 32) a sample; rows past the sample are zeros, which only kTail, H*W not a
+// multiple of 32, has to mask). Split s takes the K slices [s T / S, (s + 1)
+// T / S) of the T = N * kps.
+template <bool kNorm, bool kTail>
 struct WgradOp {
   static constexpr bool kNormRelu = kNorm;
   static constexpr int kTileN = BN;
@@ -205,7 +215,7 @@ struct WgradOp {
   const float* stats;
   const float* dz;
   float* part;
-  int h, w, c, ktiles_total, splits;
+  int h, w, c, kps, ktiles_total, splits;
   // per thread
   int m0, n0, ci0, dy, dx, kt0, nkt, col;
 
@@ -224,26 +234,48 @@ struct WgradOp {
   __device__ int ktiles() const { return nkt; }
   __device__ void load(int kt, float* As, float* Bs, int tid) const {
     // this thread's rows k = warp + 8 i (i < 4) are the warp's: lane l works
-    // out the reflected source pixel of row warp + 8 (l % 4), shared by shuffles
-    const int p0 = (kt0 + kt) * BK, kw = tid >> 5;
-    int src_pix;
-    {
-      const int hw = h * w;
-      const int p = p0 + kw + 8 * (tid & 3);
-      const int b = p / hw, pix = p - b * hw;
-      const int u = pix / w, v = pix - u * w;
-      src_pix = (b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
-    }
+    // out the reflected source pixel of row warp + 8 (l % 4), shared by
+    // shuffles (-1 past the sample: both operands' rows are zero-filled)
+    const int hw = h * w, kw = tid >> 5;
+    if constexpr (!kTail) {
+      const int p0 = (kt0 + kt) * BK;
+      int src_pix;
+      {
+        const int p = p0 + kw + 8 * (tid & 3);
+        const int b = p / hw, pix = p - b * hw;
+        const int u = pix / w, v = pix - u * w;
+        src_pix = (b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
+      }
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int k = kw + 8 * i;
-      const int sp = __shfl_sync(0xffffffffu, src_pix, i);
-      cp_async16(tc::mmajor_at(As, k, col), src + (size_t)sp * c + ci0 + col, true);
-      cp_async16(tc::mmajor_at(Bs, k, col), dz + (size_t)(p0 + k) * c + n0 + col, true);
+      for (int i = 0; i < CHUNKS; ++i) {
+        const int k = kw + 8 * i;
+        const int sp = __shfl_sync(0xffffffffu, src_pix, i);
+        cp_async16(tc::mmajor_at(As, k, col), src + (size_t)sp * c + ci0 + col, true);
+        cp_async16(tc::mmajor_at(Bs, k, col), dz + (size_t)(p0 + k) * c + n0 + col, true);
+      }
+    } else {
+      const int slice = kt0 + kt, b = slice / kps;
+      const int q0 = (slice - b * kps) * BK;
+      int src_pix;
+      {
+        const int pix = q0 + kw + 8 * (tid & 3);
+        const int u = pix / w, v = pix - u * w;
+        src_pix = pix < hw ? (b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w) : -1;
+      }
+      const float* dzb = dz + ((size_t)b * hw + q0) * c + n0 + col;
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i) {
+        const int k = kw + 8 * i;
+        const int sp = __shfl_sync(0xffffffffu, src_pix, i);
+        const bool valid = sp >= 0;
+        cp_async16(tc::mmajor_at(As, k, col), valid ? src + (size_t)sp * c + ci0 + col : src,
+                   valid);
+        cp_async16(tc::mmajor_at(Bs, k, col), valid ? dzb + (size_t)k * c : dz, valid);
+      }
     }
   }
-  // a K slice never straddles two samples: H*W % 32 == 0
-  __device__ int sample_of(int kt) const { return (kt0 + kt) * BK / (h * w); }
+  // a K slice never straddles two samples: each sample's slices are its own
+  __device__ int sample_of(int kt) const { return (kt0 + kt) / kps; }
   __device__ void norm_params(int b, int r, float& mu, float& rs) const {
     const float* st = stats + (size_t)b * 4 * c + ci0 + r;
     mu = st[0];
@@ -268,24 +300,32 @@ __device__ __forceinline__ void in_bwd_terms(float gin, float yv, float mu, floa
   gv = (kStage == 1 && !(yh > 0.f)) ? 0.f : gin;
 }
 
-// One block per (64-pixel tile, 128-channel block), one thread per channel.
+// One block per (64-pixel tile, 128-channel block), one thread per channel;
+// tile t of sample b covers its pixels [t * 64, min((t + 1) * 64, H*W)).
 template <int kStage>
 __global__ void in_bwd_partial_kernel(const float* __restrict__ gsrc, const float* __restrict__ y,
                                       const float* __restrict__ stats,
-                                      float* __restrict__ part, int h, int w, int c) {
+                                      float* __restrict__ part, int h, int w, int c, int tiles) {
   const int tile = blockIdx.x;
   const int ch = blockIdx.y * blockDim.x + threadIdx.x;
-  const int m0 = tile * IN_TILE;
-  const int b = m0 / (h * w);
+  const int hw = h * w, b = tile / tiles, t = tile - b * tiles;
+  const int m0 = b * hw + t * IN_TILE, count = min(IN_TILE, hw - t * IN_TILE);
   const float* st = stats + (size_t)b * 4 * c + (kStage == 2 ? 2 * c : 0) + ch;
   const float mu = st[0], rs = st[c];
   float s1 = 0.f, s2 = 0.f;
-  for (int i = 0; i < IN_TILE; ++i) {
+  auto add_pixel = [&](int i) {
     float gv, yh;
     in_bwd_terms<kStage>(grad_at<kStage, float>(gsrc, m0 + i, ch, h, w, c),
                          y[(size_t)(m0 + i) * c + ch], mu, rs, gv, yh);
     s1 += gv;
     s2 = fmaf(gv, yh, s2);
+  };
+  // a whole tile with a fixed trip count (the compiler unrolls it), else the
+  // sample's tail: the same pixels in the same order either way
+  if (count == IN_TILE) {
+    for (int i = 0; i < IN_TILE; ++i) add_pixel(i);
+  } else {
+    for (int i = 0; i < count; ++i) add_pixel(i);
   }
   float* p = part + (size_t)tile * 2 * c + ch;
   p[0] = s1;
@@ -393,9 +433,9 @@ template <int kStage>
 cudaError_t in_bwd(const float* gsrc, const float* y, const float* stats, float* part,
                    float* means, float* dz, int n, int h, int w, int c, cudaStream_t stream,
                    const float* w1 = nullptr, const float* w2 = nullptr, float* wsplit = nullptr) {
-  const int hw = h * w, tiles = hw / IN_TILE;
+  const int hw = h * w, tiles = (hw + IN_TILE - 1) / IN_TILE;
   in_bwd_partial_kernel<kStage><<<dim3((unsigned)(n * tiles), (unsigned)(c / 128)), 128, 0, stream>>>(
-      gsrc, y, stats, part, h, w, c);
+      gsrc, y, stats, part, h, w, c, tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_blocks = (n * c + 255) / 256;
@@ -412,10 +452,10 @@ cudaError_t in_bwd(const float* gsrc, const float* y, const float* stats, float*
 }
 
 // 4 / 10: the split-K partials of a weight gradient
-template <bool kNorm>
-cudaError_t wgrad(const float* src, const float* stats, const float* dz, float* part, int n, int h,
-                  int w, int c, int splits, cudaStream_t stream) {
-  WgradOp<kNorm> op;
+template <bool kNorm, bool kTail>
+cudaError_t wgrad_op(const float* src, const float* stats, const float* dz, float* part, int n,
+                     int h, int w, int c, int splits, cudaStream_t stream) {
+  WgradOp<kNorm, kTail> op;
   op.src = src;
   op.stats = stats;
   op.dz = dz;
@@ -423,10 +463,18 @@ cudaError_t wgrad(const float* src, const float* stats, const float* dz, float* 
   op.h = h;
   op.w = w;
   op.c = c;
-  op.ktiles_total = n * h * w / BK;
+  op.kps = (h * w + BK - 1) / BK;
+  op.ktiles_total = n * op.kps;
   op.splits = splits;
   return tc::launch_wgmma_mn(op, dim3((unsigned)(9 * c / BM), (unsigned)(c / BN), (unsigned)splits),
                             stream);
+}
+
+template <bool kNorm>
+cudaError_t wgrad(const float* src, const float* stats, const float* dz, float* part, int n, int h,
+                  int w, int c, int splits, cudaStream_t stream) {
+  return (h * w) % BK ? wgrad_op<kNorm, true>(src, stats, dz, part, n, h, w, c, splits, stream)
+                      : wgrad_op<kNorm, false>(src, stats, dz, part, n, h, w, c, splits, stream);
 }
 
 // 6 / 11

@@ -112,7 +112,10 @@ class BaseModel(ABC):
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):
         """Schedules and optimizers (training), checkpoints (inference: the
-        nets; --continue_train: the training state), print."""
+        nets; --continue_train: the training state), print. --auto_resume
+        turns --continue_train on when ``checkpoint_meta.json`` exists, as
+        the JAX package's setup does (a preempted run restarted with it
+        continues, and does not write over its checkpoints from scratch)."""
         suffix = f"iter_{opt.load_iter}" if opt.load_iter > 0 else opt.epoch
         if not self.isTrain:
             self.load_networks(suffix)
@@ -120,6 +123,12 @@ class BaseModel(ABC):
             self.lr_fn = get_lr_multiplier_fn(opt)
             self.current_lr = opt.lr
             self.optimizers = self.make_optimizers()
+            if getattr(opt, "auto_resume", False) and not getattr(opt, "continue_train", False):
+                if os.path.exists(self._meta_path()):
+                    print("auto-resume: found a checkpoint, continuing training")
+                    opt.continue_train = True
+                else:
+                    print(f"auto-resume: no checkpoint in {self.save_dir}; starting fresh")
             if getattr(opt, "continue_train", False):
                 # epoch epoch_count trains at the multiplier of the last
                 # completed epoch, as the JAX package resumes

@@ -2,7 +2,10 @@
 
 Three networks, as in the JAX package:
   T (netG)  ResNet generator translating modality A to B's appearance,
-  R (netR)  UNet STN predicting the field φ that aligns A to B,
+  R (netR)  the STN predicting the field φ that aligns A to B: the UNet
+            (``--stn_type unet``, one flow head or, with
+            ``--stn_multiscale``, one per decoder level, composed coarse to
+            fine) or the affine STN (``--stn_type affine``),
   D (netD)  70x70 PatchGAN.
 
 The forward is the reference's ``_forward_parts``: φ is predicted once and
@@ -21,7 +24,10 @@ On the card the path runs through ten hand-written kernels: K-block /
 K-block-bwd for the 6 trunk blocks of each G pass, K-convt / K-convt-bwd
 for G's 2 decoder stages, K-head / K-head-bwd for G's 7x7 output conv,
 K-in / K-in-bwd for every other instance norm (G's encoder, the STN, D),
-and K-warp / K-warp-bwd for the one grid sample of (fake_B, real_A).
+and K-warp / K-warp-bwd for the grid sample of (fake_B, real_A), the
+multiscale STN's compositions of its fields and the --border_mask's
+validity warp (forward only). Shapes G's kernels do not take run the stock
+composition the JAX package runs there (``models/networks.py``).
 ``--block_impl`` and ``--c7_impl`` name the JAX package's TPU layouts of G's
 convolutions; every choice runs these kernels.
 """
@@ -211,12 +217,13 @@ class NEMARModel(BaseModel):
         networks.init_weights(self.netG, opt.init_gain, gen)
         networks.init_weights(self.netD, opt.init_gain, gen)
         self.netR = define_stn(opt, opt.stn_type)
-        # R's convs draw from the reference's normal(0.02); its flow head
-        # stays zero so a fresh R warps by the identity
+        # R's layers draw from the reference's normal(0.02); its heads (every
+        # flow head of the UNet, the affine STN's Dense_1) stay zero, so a
+        # fresh R warps by the identity
         networks.init_weights(self.netR, 0.02, gen)
-        head = self.netR.head()
-        torch.nn.init.zeros_(head.weight)
-        torch.nn.init.zeros_(head.bias)
+        for head in self.netR.heads():
+            torch.nn.init.zeros_(head.weight)
+            torch.nn.init.zeros_(head.bias)
         for net in self.nets().values():
             net.to(self.device, memory_format=torch.channels_last)
             net.train(self.isTrain)

@@ -16,6 +16,12 @@ through ``ops.conv_head`` (K-head) plus its bias; every other instance norm
 goes through ``ops.instance_norm_act`` (the CUDA kernel K-in). The
 remaining convolutions (G's encoder, D) are ``nn.Conv2d``.
 
+Every shape the JAX package runs goes through those kernels: K-block
+masks a sample's last pixel tile (a 48^2 crop's 12^2 trunk) and its wrapper
+zero-pads the trunk's channels to a multiple of 128 (``--ngf 16``'s 64);
+K-convt's wrapper pads channels to multiples of 4; K-head's launches once
+for each 8 output channels (``--output_nc 9``).
+
 The JAX package's convolution rewrites for the TPU
 (``--c7_impl s2d|fact|factg|auto|roll``, ``--block_impl
 xla|pallas|pallas_all``) compute the same function from the same parameters
@@ -68,14 +74,15 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def init_weights(module: nn.Module, init_gain: float, generator: torch.Generator) -> None:
-    """Reference init_weights 'normal': conv kernels N(0, init_gain), zero bias.
+    """Reference init_weights 'normal': conv and dense kernels N(0, init_gain),
+    zero bias.
 
     The same seed draws other numbers than the JAX package; a trained model
     comes from a checkpoint. (The other init types are refused by the model,
     ROADMAP.md A5.)
     """
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             with torch.no_grad():
                 nn.init.normal_(m.weight, 0.0, init_gain, generator=generator)
                 m.bias.zero_()

@@ -18,6 +18,13 @@ K-block-bwd (``csrc/resblock_bwd.cu``, replacing ``_bwd_pallas_kstack`` and
 backward needs. The kernels compute the convolutions in their own bodies:
 no cuDNN, cuBLAS or ``F.conv2d`` on that path. The conv biases get no
 gradient (they are inert through IN and no inputs here).
+
+The kernels take any H, W >= 2 (a sample's last pixel tile is masked) and
+C a multiple of 128, their GEMM tiles' width. Other channel counts (the
+64-channel trunk of ``--ngf 16``) are zero-padded to the next multiple of
+128 around the launch (``block_fwd_padded``, ``block_bwd_padded``): a zero
+channel stays zero through both convs and both instance norms, and its
+gradient is dropped.
 """
 
 from __future__ import annotations
@@ -28,9 +35,8 @@ import torch.nn.functional as F
 from nemar_tpu_torch.ops import _build
 from nemar_tpu_torch.ops.norm import instance_norm_stats, normalise
 
-# the shapes both kernels take: 128-channel GEMM tiles, and K-block-bwd's
-# 64-pixel instance-norm tiles must not straddle samples (K-block masks a
-# sample's last pixel tile)
+# K-block-bwd's instance-norm partials (pixels of one sample), and the
+# GEMM tiles' width in channels, which C must fill
 _BM, _BN = 64, 128
 # K-block-bwd's weight gradients are split-K GEMMs of (9C / 128) x (C / 128)
 # tiles: split into as many pixel ranges as fill three waves of one block
@@ -42,7 +48,7 @@ def wgrad_splits(n: int, h: int, w: int, c: int) -> int:
     """Pixel ranges K-block-bwd splits each weight gradient's reduction into
     (K slices of 32 pixels, at least one per range)."""
     tiles = (9 * c // 128) * (c // 128)
-    return max(1, min(n * h * w // 32, _WGRAD_SLOTS // tiles))
+    return max(1, min(n * -(-h * w // 32), _WGRAD_SLOTS // tiles))
 
 
 def _conv3x3_reflect(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -137,9 +143,9 @@ def resblock_bwd_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: t
 
 
 def block_kernel_supported(shape) -> bool:
-    """Shapes K-block takes: C % 128 == 0, H*W % 64 == 0, H and W >= 2."""
+    """Shapes K-block and K-block-bwd take: C % 128 == 0, H and W >= 2."""
     n, h, w, c = shape
-    return c % _BN == 0 and (h * w) % _BM == 0 and h >= 2 and w >= 2
+    return c % _BN == 0 and h >= 2 and w >= 2
 
 
 def _check_cuda(what: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> None:
@@ -155,7 +161,7 @@ def _check_cuda(what: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) 
                          f"are not (3, 3, {c}, {c})")
     if not block_kernel_supported(x.shape):
         raise ValueError(f"{what}: shape {tuple(x.shape)} not supported "
-                         f"(needs C % {_BN} == 0, H*W % {_BM} == 0, H, W >= 2)")
+                         f"(needs C % {_BN} == 0, H, W >= 2)")
 
 
 def _aligned(what: str, *tensors) -> None:
@@ -215,7 +221,7 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: t
     # the gradient of the reflect-padded input, written by each dgrad
     dpad = torch.empty((n, h + 2, w + 2, c), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    part_in = torch.empty((n * h * w // 64, 2, c), dtype=torch.float32, device=dev)
+    part_in = torch.empty((n * -(-h * w // _BM), 2, c), dtype=torch.float32, device=dev)
     means = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
     part_w = torch.empty((splits, 9 * c, c), dtype=torch.float32, device=dev)
     dw1 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
@@ -230,13 +236,42 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: t
 resblock_bwd_cuda.launches = 0
 
 
+def block_fwd_padded(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                     eps: float = 1e-5) -> tuple:
+    """K-block at any channel count: C zero-padded to a multiple of 128 (x's
+    channels, both weights' in and out), the output cut back to C. Returns
+    (out, saved): saved = the padded (x, w1, w2) and K-block's (y1, y2,
+    stats), which ``block_bwd_padded`` takes."""
+    c = x.shape[3]
+    pad = -c % _BN
+    if pad:
+        x = F.pad(x, (0, pad))
+        w1, w2 = F.pad(w1, (0, pad, 0, pad)), F.pad(w2, (0, pad, 0, pad))
+    out, y1, y2, stats = fused_resblock_cuda(x, w1, w2, eps)
+    return (out[..., :c].contiguous() if pad else out), (x, w1, w2, y1, y2, stats)
+
+
+def block_bwd_padded(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: torch.Tensor,
+                     y2: torch.Tensor, stats: torch.Tensor, g: torch.Tensor) -> tuple:
+    """K-block-bwd on ``block_fwd_padded``'s saved values, given g = d out
+    of the C channels the caller sees: (dx, dw1, dw2) cut back to C."""
+    c = g.shape[3]
+    pad = x.shape[3] - c
+    if pad:
+        g = F.pad(g, (0, pad))
+    dx, dw1, dw2 = resblock_bwd_cuda(x, w1, w2, y1, y2, stats, g.contiguous())
+    if pad:
+        dx, dw1, dw2 = dx[..., :c], dw1[:, :, :c, :c], dw2[:, :, :c, :c]
+    return dx, dw1, dw2
+
+
 class _FusedResblock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w2, eps):
         ctx.eps = eps
         if x.is_cuda:
-            out, y1, y2, stats = fused_resblock_cuda(x, w1, w2, eps)
-            ctx.save_for_backward(x, w1, w2, y1, y2, stats)
+            out, saved = block_fwd_padded(x, w1, w2, eps)
+            ctx.save_for_backward(*saved)
         else:
             out = resblock_plain(x, w1, w2, eps)
             ctx.save_for_backward(x, w1, w2)
@@ -245,8 +280,7 @@ class _FusedResblock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if g.is_cuda:
-            x, w1, w2, y1, y2, stats = ctx.saved_tensors
-            dx, dw1, dw2 = resblock_bwd_cuda(x, w1, w2, y1, y2, stats, g.contiguous())
+            dx, dw1, dw2 = block_bwd_padded(*ctx.saved_tensors, g)
         else:
             x, w1, w2 = ctx.saved_tensors
             dx, dw1, dw2 = resblock_bwd_plain(x, w1, w2, g, ctx.eps)

@@ -2,9 +2,8 @@
 
     out = conv7x7(reflect_pad3(x), W)
 
-NHWC x (N, H, W, Ci), HWIO W (7, 7, Ci, Co) with Co <= 8, no bias (the
-generator adds it: the head feeds tanh, not an instance norm, so its bias is
-live). The counterpart of ``nemar_tpu/ops/conv_head_roll.py:conv_head_roll``
+NHWC x (N, H, W, Ci), HWIO W (7, 7, Ci, Co), no bias (the generator adds
+it: the head feeds tanh, not an instance norm, so its bias is live). The counterpart of ``nemar_tpu/ops/conv_head_roll.py:conv_head_roll``
 (``--c7_impl roll``) and ``nemar_tpu/ops/attic/conv_head.py:conv_head``
 (``--block_impl pallas_all``), which compute this function in two TPU
 layouts, and of the direct conv the JAX generator runs otherwise.
@@ -35,6 +34,11 @@ fp64 and folds the frame's part of dX onto the image's edge pixels: three
 launches a call, one operator call. ``head_bwd_plan`` sizes the tiles, the
 grids and the scratch (a pure function of the shapes and the card's SM
 count).
+
+Each launch takes at most ``MAX_CO`` = 8 output channels. A wider head
+(``--output_nc 9``) takes one launch of each kernel a chunk of 8
+(``head_chunks``): the chunks' outputs and weight gradients are
+concatenated, their input gradients added in chunk order.
 """
 
 from __future__ import annotations
@@ -270,23 +274,49 @@ def conv_head_bwd_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tup
 conv_head_bwd_cuda.launches = 0
 
 
+def head_chunks(co: int) -> list:
+    """The output channels [a, b) of each K-head launch for a Co-channel
+    head: chunks of ``MAX_CO`` from channel 0."""
+    return [(a, min(a + MAX_CO, co)) for a in range(0, co, MAX_CO)]
+
+
+def head_fwd_chunked(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K-head at any Co: one launch a chunk, the outputs concatenated."""
+    if w.shape[3] <= MAX_CO:
+        return conv_head_cuda(x, w)
+    return torch.cat([conv_head_cuda(x, w[..., a:b]) for a, b in head_chunks(w.shape[3])], dim=3)
+
+
+def head_bwd_chunked(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tuple:
+    """K-head-bwd at any Co: one launch a chunk of g's channels; dx the sum
+    of the chunks' in chunk order, dw their concatenation."""
+    if w.shape[3] <= MAX_CO:
+        return conv_head_bwd_cuda(x, w, g.contiguous())
+    dx, dws = None, []
+    for a, b in head_chunks(w.shape[3]):
+        d, dw = conv_head_bwd_cuda(x, w[..., a:b], g[..., a:b].contiguous())
+        dx = d if dx is None else dx + d
+        dws.append(dw)
+    return dx, torch.cat(dws, dim=3)
+
+
 class _ConvHead(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return conv_head_cuda(x, w) if x.is_cuda else conv_head_plain(x, w)
+        return head_fwd_chunked(x, w) if x.is_cuda else conv_head_plain(x, w)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         if g.is_cuda:
-            return conv_head_bwd_cuda(x, w, g.contiguous())
+            return head_bwd_chunked(x, w, g)
         return conv_head_bwd_plain(x, w, g)
 
 
 def conv_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """conv7x7(reflect_pad3(x), w); NHWC x, HWIO w with at most 8 output
-    channels, no bias. Differentiable in x and w."""
+    """conv7x7(reflect_pad3(x), w); NHWC x, HWIO w, no bias. Differentiable
+    in x and w."""
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"conv_head: unsupported device {x.device}")
     return _ConvHead.apply(x, w)

@@ -25,6 +25,13 @@ K-convt-bwd (``csrc/convt_bwd.cu``, replacing its ``_bwd_kernel``), whose
 GEMMs run in 3xTF32 on the tensor cores (``csrc/gemm_tc.cuh``); the
 forward saves yhat = IN(convT(x, W)) and (mu, rstd) for the backward, as
 the TPU kernel does.
+
+The kernels copy 16 bytes at a time, so they take Ci and Co multiples of
+4. Other channel counts (``--ngf 6``'s last stage, 12 -> 6) are zero-padded
+to the next multiple of 4 around the launch (``convt_fwd_padded``,
+``convt_bwd_padded``): a zero output channel stays zero through the
+instance norm and the relu, a zero input channel adds nothing, and the
+padding's gradients are dropped.
 """
 
 from __future__ import annotations
@@ -201,22 +208,47 @@ def convt_in_bwd_cuda(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stat
 convt_in_bwd_cuda.launches = 0
 
 
+def convt_fwd_padded(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> tuple:
+    """K-convt at any channel counts: Ci and Co zero-padded to multiples of 4,
+    the output cut back to Co. Returns (out, saved): saved = the padded (x,
+    w) and K-convt's (yhat, stats), which ``convt_bwd_padded`` takes."""
+    ci, co = w.shape[2], w.shape[3]
+    pi, po = -ci % 4, -co % 4
+    if pi or po:
+        x, w = F.pad(x, (0, pi)), F.pad(w, (0, po, 0, pi))
+    out, yhat, stats = fused_convt_in_cuda(x, w, eps)
+    return (out[..., :co].contiguous() if po else out), (x, w, yhat, stats)
+
+
+def convt_bwd_padded(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stats: torch.Tensor,
+                     g: torch.Tensor, ci: int) -> tuple:
+    """K-convt-bwd on ``convt_fwd_padded``'s saved values, given g = d out
+    of the Co channels the caller sees: (dx, dw) cut back to Ci and Co."""
+    co = g.shape[3]
+    if w.shape[3] != co:
+        g = F.pad(g, (0, w.shape[3] - co))
+    dx, dw = convt_in_bwd_cuda(x, w, yhat, stats, g.contiguous())
+    return dx[..., :ci], dw[:, :, :ci, :co]
+
+
 class _FusedConvtIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps):
         ctx.eps = eps
+        ctx.ci = x.shape[3]
         if x.is_cuda:
-            out, yhat, stats = fused_convt_in_cuda(x, w, eps)
+            out, saved = convt_fwd_padded(x, w, eps)
         else:
             out, yhat, stats = convt_in_fwd_plain(x, w, eps)
-        ctx.save_for_backward(x, w, yhat, stats)
+            saved = (x, w, yhat, stats)
+        ctx.save_for_backward(*saved)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, w, yhat, stats = ctx.saved_tensors
         if g.is_cuda:
-            dx, dw = convt_in_bwd_cuda(x, w, yhat, stats, g.contiguous())
+            dx, dw = convt_bwd_padded(x, w, yhat, stats, g, ctx.ci)
         else:
             dx, dw = convt_in_bwd_plain(x, w, g, ctx.eps, saved=(yhat, stats))
         return dx, dw, None

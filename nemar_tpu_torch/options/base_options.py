@@ -12,11 +12,16 @@ means the same to both packages. Differences:
     ``--dataset_mode`` in ``nemar_tpu_torch.data``;
   * ``--gpu_ids`` picks the device: ``-1`` is the CPU, ``k`` is ``cuda:k``
     (``models/base_model.py:resolve_device``);
-  * the TPU-only flags (``--num_devices``, ``--bf16``, ``--warp_impl``,
-    ``--norm_impl``, ...) are parsed and, where they would change the
-    computation, refused by the model by name. ``--block_impl`` and
-    ``--c7_impl`` name TPU layouts of one function: every choice runs the
-    same kernels here.
+  * ``--bf16`` and the flags of the other paths not ported yet are parsed
+    and refused by the model by name, with the ROADMAP.md item that queues
+    them (``models/nemar_model.py:_check_supported``);
+  * the TPU-only flags that name a layout or an implementation of one
+    function (``--num_devices``, ``--warp_impl``, ``--norm_impl``,
+    ``--block_impl``, ``--c7_impl``, ``--stn_head_impl``, ``--stn_up_impl``,
+    ...) are accepted: every choice runs the same kernels here;
+  * ``--profile_dir`` writes a ``torch.profiler`` trace of the training
+    loop (``train.py``), and ``--auto_resume`` continues from
+    ``checkpoint_meta.json`` when there is one (``models/base_model.py``).
 """
 
 from __future__ import annotations

@@ -158,7 +158,9 @@ def request_ms(chip_smoke, torch, reps: int = 20) -> dict:
         opt = TestOptions().parse([*chip_smoke.SLICE_ARGS, "--gpu_ids", "0",
                                    "--checkpoints_dir", ckpt])
         seeded = create_model(opt)
-        head = seeded.netR.head()
+        # a tree from before the multiscale STN has one head, netR.head()
+        net = seeded.netR
+        head = net.heads()[-1] if hasattr(net, "heads") else net.head()
         with torch.no_grad():  # as phase 3: a field of a few pixels
             head.weight.copy_(1e-3 * torch.randn(head.weight.shape,
                                                  generator=torch.Generator().manual_seed(1)))

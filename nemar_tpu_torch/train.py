@@ -10,9 +10,16 @@ end. Each step is the model's ``optimize_parameters``; losses are pulled to
 the host only at --print_freq boundaries. Checkpoints are the per-net files
 ``{epoch}_net_{G,D,R}.pth`` (and ``latest_...``) under
 ``{checkpoints_dir}/{name}/``, which ``nemar_tpu_torch.test`` loads.
+With --profile_dir, a ``torch.profiler`` trace of the epoch loop (host
+ops, and the card's kernels on CUDA) is written there as a Chrome trace
+(``*.pt.trace.json``), where the JAX package writes its ``jax.profiler``
+trace.
 """
 
+import contextlib
 import time
+
+import torch
 
 from nemar_tpu_torch.data import create_dataset
 from nemar_tpu_torch.utils.visualizer import Visualizer
@@ -28,6 +35,25 @@ def main(args=None):
     model = create_model(opt)
     model.setup(opt)
     visualizer = Visualizer(opt)
+    with _profiler(opt.profile_dir, model.device):
+        _train_epochs(opt, dataset, dataset_size, model, visualizer)
+    return model
+
+
+def _profiler(profile_dir: str, device: torch.device):
+    """A torch.profiler trace written to ``profile_dir`` when it exits, or
+    nothing when ``profile_dir`` is empty."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
+def _train_epochs(opt, dataset, dataset_size, model, visualizer):
     total_iters = 0
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
         model.set_epoch(epoch)
@@ -65,7 +91,6 @@ def main(args=None):
         print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay}"
               f" \t Time Taken: {time.time() - epoch_start_time:.0f} sec")
         model.update_learning_rate(epoch)
-    return model
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ nested dicts of numpy arrays (``{'params': {...}}`` or the inner dict) and
 returns the state_dict of ``module``, as tensors of ``dtype`` (float32 by
 default), one of this package's nets, whose attribute names
 are the flax names in creation order (``models/networks.py``,
-``models/stn/unet_stn.py``):
+``models/stn/unet_stn.py``, ``models/stn/affine_stn.py``):
 
   * ``Conv`` kernels go from HWIO to OIHW; biases are copied as they are
     (the trunk blocks' biases load but are inert through IN, as in JAX);
@@ -14,6 +14,9 @@ are the flax names in creation order (``models/networks.py``,
     the module runs ``ConvTranspose2d(stride=2, padding=0)`` and crops to
     ``[:2H, :2W]``, which matches flax exactly. (Flipping and using
     ``padding=1, output_padding=1`` instead is off by one pixel.)
+  * ``Dense`` kernels (in, out) are transposed to ``nn.Linear``'s (out,
+    in); their rows keep flax's order (the affine STN flattens its features
+    NHWC, as flax does, so no permutation is needed).
 
 A flax leaf without a counterpart, a parameter the tree does not give, or a
 shape that differs raises.
@@ -47,13 +50,16 @@ def flax_to_torch(params: Mapping, module: nn.Module, dtype: torch.dtype = torch
         *mod_path, leaf = path
         name = ".".join(mod_path)
         mod = mods.get(name)
-        if not isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)) or leaf not in ("kernel", "bias"):
+        if not isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
+                or leaf not in ("kernel", "bias"):
             raise KeyError(f"flax leaf {'/'.join(path)} has no counterpart in "
                            f"{type(module).__name__}")
         if leaf == "bias":
             key, val = f"{name}.bias", arr
         elif isinstance(mod, nn.ConvTranspose2d):
             key, val = f"{name}.weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif isinstance(mod, nn.Linear):
+            key, val = f"{name}.weight", arr.T
         else:
             key, val = f"{name}.weight", arr.transpose(3, 2, 0, 1)
         if tuple(val.shape) != tuple(target[key].shape):

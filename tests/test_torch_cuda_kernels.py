@@ -238,11 +238,13 @@ def test_block_kernel_matches_plain(dev, n):
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 8, 128), (2, 2, 32, 128), (1, 16, 4, 256),
-                                   (3, 4, 16, 128), (1, 64, 64, 256), (8, 64, 64, 256)])
+                                   (3, 4, 16, 128), (1, 64, 64, 256), (8, 64, 64, 256),
+                                   (2, 12, 12, 128), (2, 5, 7, 128), (1, 3, 50, 128)])
 def test_block_bwd_kernel_matches_plain(dev, shape):
     """K-block-bwd against the written-out plain backward, 1e-3 of each
     output's largest value, at shapes whose edges and corners (H or W of 2)
-    exercise the reflect-pad fold; fed the plain forward's saved values, so
+    exercise the reflect-pad fold, and samples whose pixels end inside a
+    64-pixel tile (144, 35, 150); fed the plain forward's saved values, so
     both take the same relu mask. Bit-for-bit repeatable."""
     rng = np.random.default_rng(shape[1] + shape[2])
     n, h, w, c = shape
@@ -344,7 +346,36 @@ def test_block_kernel_refuses_unsupported_shapes(dev):
     x = torch.zeros((1, 8, 8, 96), device=dev)
     w = torch.zeros((3, 3, 96, 96), device=dev)
     with pytest.raises(ValueError, match="not supported"):
-        conv_fused.fused_resblock(x, w, w)
+        conv_fused.fused_resblock_cuda(x, w, w)
+
+
+def _autograd_vs_plain(fn, plain, args, g, tol):
+    """fn's value and gradients against plain's at the same inputs."""
+    args = [a.requires_grad_() for a in args]
+    out = fn(*args)
+    ref = plain(*args)
+    got = torch.autograd.grad(out, args, g)
+    want = torch.autograd.grad(ref, args, g)
+    assert out.shape == ref.shape and out.is_contiguous()
+    assert _rel_close(out.detach(), ref.detach(), tol)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_close(a, b, tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 64), (2, 12, 12, 256), (1, 5, 7, 192)])
+def test_block_autograd_pads_channels_and_masks_tails(dev, shape):
+    """The trunk at shapes off the kernels' tiles (--ngf 16's 64 channels, a
+    48^2 crop's 144 positions, both): one launch each way, values and
+    gradients within 1e-3 of the plain version's largest value."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(h * c)
+    args = [_randn(rng, shape, 1.0, dev), _randn(rng, (3, 3, c, c), 0.05, dev),
+            _randn(rng, (3, 3, c, c), 0.05, dev)]
+    g = _randn(rng, shape, 1.0, dev)
+    before = conv_fused.fused_resblock_cuda.launches, conv_fused.resblock_bwd_cuda.launches
+    _autograd_vs_plain(conv_fused.fused_resblock, conv_fused.resblock_plain, args, g, 1e-3)
+    assert (conv_fused.fused_resblock_cuda.launches,
+            conv_fused.resblock_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_kernels_refuse_autograd_inputs(dev):
@@ -733,6 +764,34 @@ def test_convt_autograd_runs_the_kernels(dev):
     assert convt_fused.convt_in_bwd_cuda.launches == before + 1
     for a, b in zip(got, want):
         assert torch.max(torch.abs(a - b)).item() < 1e-3 * torch.max(torch.abs(b)).item()
+
+
+@pytest.mark.parametrize("co", [9, 17])
+def test_head_autograd_chunks_output_channels(dev, co):
+    """A head wider than 8 channels (--output_nc 9): one launch of K-head and
+    of K-head-bwd a chunk of 8, within 1e-4 of the plain version."""
+    rng = np.random.default_rng(co)
+    args = [_randn(rng, (2, 20, 24, 32), 1.0, dev), _randn(rng, (7, 7, 32, co), 0.05, dev)]
+    g = _randn(rng, (2, 20, 24, co), 1.0, dev)
+    before = conv_head.conv_head_cuda.launches, conv_head.conv_head_bwd_cuda.launches
+    _autograd_vs_plain(conv_head.conv_head, conv_head.conv_head_plain, args, g, 1e-4)
+    chunks = len(conv_head.head_chunks(co))
+    assert (conv_head.conv_head_cuda.launches,
+            conv_head.conv_head_bwd_cuda.launches) == (before[0] + chunks, before[1] + chunks)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 12, 6), (1, 5, 7, 6, 3)])
+def test_convt_autograd_pads_channels(dev, shape):
+    """A decoder stage whose channels are not multiples of 4 (--ngf 6's 12 ->
+    6): one launch each way, within 1e-4 of the plain version."""
+    n, h, w, ci, co = shape
+    rng = np.random.default_rng(ci + co)
+    args = [_randn(rng, (n, h, w, ci), 1.0, dev), _randn(rng, (3, 3, ci, co), 0.1, dev)]
+    g = _randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev)
+    before = convt_fused.fused_convt_in_cuda.launches, convt_fused.convt_in_bwd_cuda.launches
+    _autograd_vs_plain(convt_fused.fused_convt_in, convt_fused.convt_in_plain, args, g, 1e-4)
+    assert (convt_fused.fused_convt_in_cuda.launches,
+            convt_fused.convt_in_bwd_cuda.launches) == (before[0] + 1, before[1] + 1)
 
 
 def test_head_and_convt_refuse_what_they_cannot_run(dev):

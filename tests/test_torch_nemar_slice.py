@@ -171,9 +171,21 @@ def test_field_source_fake_predicts_from_the_translation(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--bf16"], ["--use_ema"], ["--init_type", "xavier"],
-                                  ["--mesh_spatial", "2"], ["--stn_type", "affine"]])
+                                  ["--mesh_spatial", "2"], ["--stn_type", "affine"],
+                                  ["--netG", "unet_256"]])
 def test_unported_flags_raise(tmp_path, flag):
+    """Flags of paths not ported yet raise, naming their ROADMAP.md item.
+    ``--stn_type affine`` was one until the affine STN was ported: it now
+    builds and answers a request."""
     opt = TestOptions().parse(_port_args(tmp_path, *flag))
+    if flag == ["--stn_type", "affine"]:
+        model = create_model(opt)
+        assert type(model.netR).__name__ == "AffineSTN"
+        model.set_input({"A": np.zeros((2, 32, 32, 1), np.float32),
+                         "B": np.ones((2, 32, 32, 3), np.float32)})
+        model.test()
+        assert model.last_flow.shape == (2, 32, 32, 2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(opt)
 

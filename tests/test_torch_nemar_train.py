@@ -295,7 +295,7 @@ def test_zero_init_head_moves_by_lr(tmp_path):
     gradient on step 1 and Adam moves every head weight by ~lr."""
     model = create_model(_port_opt(tmp_path))
     model.setup(model.opt)
-    head = model.netR.head()
+    head = model.netR.heads()[-1]
     assert float(head.weight.abs().max()) == 0.0
     rng = np.random.default_rng(3)
     model.set_input({"A": rng.standard_normal((2, 32, 32, 1)).astype(np.float32),

@@ -74,12 +74,27 @@ def test_fresh_stn_warps_by_identity():
 
 
 class _Opt:
-    input_nc, output_nc = 1, 3
+    input_nc, output_nc, crop_size, stn_ngf, stn_depth = 1, 3, 32, 8, 3
 
 
-@pytest.mark.parametrize("kind,flags", [("affine", {}), ("unet", {"stn_multiscale": True})])
+@pytest.mark.parametrize("kind,flags", [("affine", {}), ("unet", {"stn_multiscale": True}),
+                                        ("nope", {})])
 def test_unported_stn_options_raise(kind, flags):
+    """The two options that were refused until they were ported (the affine
+    STN, the multiscale UNet) now build, and start at the identity warp;
+    an unknown STN type still raises."""
     opt = _Opt()
     opt.__dict__.update(flags)
-    with pytest.raises(NotImplementedError, match="A4"):
-        define_stn(opt, kind)
+    if kind == "nope":
+        with pytest.raises(NotImplementedError, match="nope"):
+            define_stn(opt, kind)
+        return
+    stn = define_stn(opt, kind)
+    assert type(stn).__name__ == {"affine": "AffineSTN", "unet": "UnetSTN"}[kind]
+    heads = stn.heads()
+    assert len(heads) == (1 if kind == "affine" else 3)  # depth 3: levels 2, 1 and 0
+    a, b = torch.randn(1, 1, 32, 32), torch.randn(1, 3, 32, 32)
+    with torch.no_grad():
+        (wa,), reg, aux = stn(a, b, (a,))
+    assert float(aux["flow"].abs().max()) == 0.0 and float(reg) == 0.0
+    torch.testing.assert_close(wa, a, atol=1e-6, rtol=0)
