@@ -109,6 +109,14 @@ is not 0.
      just before: every G kernel's launches asserted (K-head's and
      K-head-bwd's once a chunk), the seven losses within 1e-4 relative of
      the CPU's step from the same state, and a second card run bit for bit.
+  9. the JAX package's default-on adversarial gate
+     (``tests/test_adversarial_gate.py``: 48^2, 96 pairs, 22 epochs, G and
+     D at ngf 32, the damped depth-4 multiscale UNet STN), through
+     ``nemar_tpu_torch.science.run_adversarial_gate`` on the card: the best
+     held-out direction cosine of the last 6 epochs above 0.5 and the
+     field above 0.4 px, as there; the launches of every kernel over the
+     run asserted (``ADV_GATE_STEP``, ``ADV_GATE_EVAL``, worked out in
+     their comment); the trail, ms per step and seconds printed.
 
 The line before the last is a JSON object with one entry per kernel. For a
 forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
@@ -263,6 +271,25 @@ OFF_KERNEL_SHAPES = {
     "output_nc9": ["--output_nc", "9", "--crop_size", "64", "--load_size", "64"],
     "ngf6": ["--ngf", "6", "--crop_size", "64", "--load_size", "64"],
 }
+# phase 9: the 48^2 adversarial gate (res, pairs, epochs), 12 steps of 8
+# pairs an epoch, evaluated on 12 held-out pairs after each of the last 6
+# epochs. G at ngf 32 on a 48^2 crop has a 12^2 x 128 trunk (144 pixels:
+# K-block's and K-block-bwd's masked tails) and 2 decoder stages to a
+# 3-channel head, two passes a step: K-block 12, K-convt 4, K-head 2 and
+# their backwards alike. K-in: G's encoder 3 x 2, D's 3 normed convs in the
+# D step and in the G step, R's depth-4 UNet 4 + 4: 20; K-in-bwd the same.
+# R has heads at the decoder's levels 3, 2, 1 (6^2, 12^2, 24^2) and at
+# 48^2: 4 fields, 3 compositions, each with a backward; then the warp of
+# (fake_B, real_A) and --border_mask's validity warp (no gradient): K-warp
+# 3 + 1 + 1 = 5, K-warp-bwd 3 + 1 = 4. An evaluation is one forward at
+# batch 12 without autograd: G twice, R, the warps, no D and no backward.
+ADV_GATE = (48, 96, 22)
+ADV_GATE_STEPS = ADV_GATE[2] * (ADV_GATE[1] // 8)
+ADV_GATE_EVALS = 6
+ADV_GATE_STEP = {**G_STEP, "K-in": 20, "K-in-bwd": 20, "K-warp": 5, "K-warp-bwd": 4}
+ADV_GATE_EVAL = {"K-block": 12, "K-convt": 4, "K-head": 2, "K-in": 14, "K-warp": 5,
+                 "K-block-bwd": 0, "K-convt-bwd": 0, "K-head-bwd": 0, "K-in-bwd": 0,
+                 "K-warp-bwd": 0}
 # phase 7c: the std of the seeded draw added to R's heads, for a field of
 # about 4 px at 256^2 (multiscale: 6 heads, each level scaled by 0.25)
 R_HEAD_DRAW = {"multiscale": 5e-3, "affine": 2e-3}
@@ -1804,6 +1831,32 @@ def run_off_kernel_shapes(ckpt: str) -> None:
         del cpu
 
 
+def run_adversarial_gate() -> None:
+    """Phase 9: the JAX package's 48^2 adversarial gate on the card, the
+    counters zeroed just before: the held-out direction locked (cos > 0.5,
+    field > 0.4 px, the best of the last 6 epochs, as
+    ``tests/test_adversarial_gate.py`` asserts) and every kernel launched
+    ADV_GATE_STEPS x ADV_GATE_STEP + ADV_GATE_EVALS x ADV_GATE_EVAL times."""
+    from nemar_tpu_torch.science import run_adversarial_gate as gate
+
+    counters = zero_counters()
+    cos, mag, trail, ms = gate(*ADV_GATE, device="cuda:0")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: ADV_GATE_STEPS * ADV_GATE_STEP[k] + ADV_GATE_EVALS * ADV_GATE_EVAL[k]
+            for k in counters}
+    res, pairs, epochs = ADV_GATE
+    phase("adversarial_gate", res=res, pairs=pairs, epochs=epochs, steps=ADV_GATE_STEPS,
+          cos=round(cos, 4), mag_px=round(mag, 4), ms_per_step=round(ms, 3),
+          trail=json.dumps([[round(c, 4), round(m, 4)] for c, m in trail]),
+          launches=json.dumps(launches), expected=json.dumps(want))
+    if launches != want:
+        raise AssertionError(f"adversarial gate: launch counts {launches} != expected {want}")
+    if not cos > 0.5:
+        raise AssertionError(f"held-out direction cos {cos:.2f} (trail {trail})")
+    if not mag > 0.4:
+        raise AssertionError(f"field magnitude {mag:.2f}px: not moving")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1861,6 +1914,9 @@ def main() -> int:
         t0 = time.perf_counter()
         run_off_kernel_shapes(ckpt)
         phase("off_kernel_shapes_phase", seconds=round(time.perf_counter() - t0, 2))
+    t0 = time.perf_counter()
+    run_adversarial_gate()
+    phase("adversarial_gate_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none)
     launches.update({k: v for k, v in train_launches.items() if k.endswith("-bwd")})

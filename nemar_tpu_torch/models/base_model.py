@@ -19,8 +19,12 @@ Inside:
 
   * for training, ``setup()`` builds one ``torch.optim.Adam`` per net
     (``make_optimizers``); the lr is stepped once per epoch on the host by
-    the JAX package's policies (``networks.get_lr_multiplier_fn``) and set
-    on every param group, times the group's ``lr_ratio``.
+    the JAX package's policies (``networks.get_lr_multiplier_fn``).
+    ``current_lr`` is a property: assigning it (the policy's step, a
+    resume, or a caller such as the science recipe's refinement phase)
+    sets every param group's lr to it times the group's ``lr_ratio``, so
+    the next step runs at it, as the JAX package's step reads
+    ``current_lr`` at every call.
 
 Training on CUDA sets ``torch.backends.cudnn.deterministic``, so two runs
 from one state are bit-identical, as the JAX package's are.
@@ -134,7 +138,6 @@ class BaseModel(ABC):
                 # completed epoch, as the JAX package resumes
                 self.current_lr = opt.lr * self.lr_fn(max(0, opt.epoch_count - 1), None)
                 self.load_train_state(suffix)
-            self._set_lr()
             self.train()
             if self.device.type == "cuda":
                 # bit-identical steps, as the JAX package's: cuDNN's default
@@ -167,10 +170,18 @@ class BaseModel(ABC):
         it feeds the warm-up and ramp schedules)."""
         self._cur_epoch = int(epoch)
 
-    def _set_lr(self):
+    @property
+    def current_lr(self) -> float:
+        return self._current_lr
+
+    @current_lr.setter
+    def current_lr(self, lr: float):
+        """The lr of the next step: every param group's is ``lr`` times its
+        ``lr_ratio``."""
+        self._current_lr = lr
         for optimizer in self.optimizers.values():
             for group in optimizer.param_groups:
-                group["lr"] = self.current_lr * group.get("lr_ratio", 1.0)
+                group["lr"] = lr * group.get("lr_ratio", 1.0)
 
     def update_learning_rate(self, epoch: int | None = None):
         """Step the per-epoch lr multiplier (reference update_learning_rate);
@@ -184,7 +195,6 @@ class BaseModel(ABC):
             self.metric = float(self._losses[key])
         old = self.current_lr
         self.current_lr = self.opt.lr * self.lr_fn(epoch, self.metric)
-        self._set_lr()
         print(f"learning rate {old:.7f} -> {self.current_lr:.7f}")
 
     # -- visuals -------------------------------------------------------------

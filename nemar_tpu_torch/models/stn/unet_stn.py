@@ -40,6 +40,13 @@ from nemar_tpu_torch.models.networks import norm_act, to_nchw, to_nhwc
 from nemar_tpu_torch.ops.warp import compose_flows, grid_sample_multi, identity_grid
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with gradient +1 at 0, as ``jax.grad(jnp.abs)``; torch.abs has 0.
+    A fresh R's field is zero, so every difference of the TV below sits on
+    that tie at R's first update."""
+    return torch.where(x >= 0, x, -x)
+
+
 def smoothness_loss(flow: torch.Tensor, smooth_type: str = "l1", order: int = 1) -> torch.Tensor:
     """Difference-based TV penalty on a (N, H, W, 2) field (order 1 or 2)."""
     dy = flow[:, 1:, :, :] - flow[:, :-1, :, :]
@@ -48,7 +55,7 @@ def smoothness_loss(flow: torch.Tensor, smooth_type: str = "l1", order: int = 1)
         dy = dy[:, 1:, :, :] - dy[:, :-1, :, :]
         dx = dx[:, :, 1:, :] - dx[:, :, :-1, :]
     if smooth_type == "l1":
-        return dy.abs().mean() + dx.abs().mean()
+        return _abs(dy).mean() + _abs(dx).mean()
     if smooth_type == "l2":
         return dy.square().mean() + dx.square().mean()
     raise NotImplementedError(f"smooth type {smooth_type!r}")
