@@ -54,7 +54,13 @@ is not 0.
      dx and dw; deterministic, TF32 off) is timed as a yardstick for their
      GEMMs, and beside K-head-bwd cuDNN's backward of the same function
      (the convolution's, then the reflect pad's: two calls), by event and
-     device time, with the deterministic and the default algorithms;
+     device time, with the deterministic and the default algorithms.
+     Then K-in's double backward (the WGAN-GP penalty's, through D) at D's
+     three instance norms of the penalty's pass, at phase 10's microbatch
+     of 4 and at batch 8: d x by K-in-bwd
+     and the VJP of (x, g) -> d x by stock ops against the plain function's
+     autograd on the card, within 1e-4 of the largest value, one K-in and
+     one K-in-bwd launch a call (asserted);
   3. the inference slice: options parsed as ``nemar_tpu_torch.test`` parses
      them (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
      non-zero, so the warp samples between pixels) and loaded by
@@ -117,6 +123,32 @@ is not 0.
      field above 0.4 px, as there; the launches of every kernel over the
      run asserted (``ADV_GATE_STEP``, ``ADV_GATE_EVAL``, worked out in
      their comment); the trail, ms per step and seconds printed.
+  10. the rest of the JAX package's training step (ROADMAP.md A5,
+     ``A5_FLAGS``: --init_type xavier, --ema_decay 0.999, --pool_size 50,
+     --grad_accum 2, --gan_mode wgangp) on the default model at 256^2,
+     batch 8: two fresh runs of 8 steps bit for bit (parameters, EMA
+     shadows, pool, losses), past the pool's filling (its swaps counted and
+     asserted); in the first step, K-in, K-in-bwd, K-warp and K-warp-bwd
+     against their plain versions at every configuration the step gives
+     them, on its own activations, and then G's kernels at the microbatch's
+     shapes (``check_g_kernels_at``); 4 more steps with every kernel's launches per step asserted
+     (``accum_launches``), K-in-bwd at least as often per microbatch as in
+     phase 5's step, ms per step, pairs/s, peak memory; a repeated-slot pool
+     swap on the card against the CPU, bit for bit, the last writer kept; a
+     profile of 1 step (chiprun_out/profile_a5_step.txt); then (10b) one
+     step at batch 8 (microbatches of 4) on the card against the CPU from
+     that run's saved state, as phase 6 holds one, plus the penalty among
+     the losses, the EMA shadows and the pool (``compare_a5_with_cpu``);
+  11. BASELINE.md config #4 (``B32_ARGS``): 512^2 pairs at batch 32 in 4
+     microbatches of 8, lsgan, fp32, full width: 3 steps; in the first,
+     K-in, K-in-bwd, K-warp and K-warp-bwd against their plain versions at
+     every configuration the step gives them, then G's kernels (K-block,
+     K-convt, K-head, values and gradients, the backwards fed the plain
+     forward's saved values as in phase 2b) at the microbatch's shapes;
+     ms per step, pairs/s, peak memory, launches asserted, a profile of 1
+     step (chiprun_out/profile_b32_512.txt). Whether batch 32 fits without
+     accumulation is measured by ``nemar_tpu_torch/probe.py --parts
+     fit_512``, not here.
 
 The line before the last is a JSON object with one entry per kernel. For a
 forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
@@ -136,6 +168,8 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -293,6 +327,43 @@ ADV_GATE_EVAL = {"K-block": 12, "K-convt": 4, "K-head": 2, "K-in": 14, "K-warp":
 # phase 7c: the std of the seeded draw added to R's heads, for a field of
 # about 4 px at 256^2 (multiscale: 6 heads, each level scaled by 0.25)
 R_HEAD_DRAW = {"multiscale": 5e-3, "affine": 2e-3}
+# phase 2b: D's instance norms at 256^2 in the WGAN-GP penalty's pass over
+# the mix of real and fake (one sample a pair, not 2): (C, H, W), at the
+# batches D_IN_BATCHES (phase 10's microbatch of 4, and 8)
+D_IN_SHAPES = [(128, 64, 64), (256, 32, 32), (512, 31, 31)]
+D_IN_BATCHES = (TRAIN_BATCH // 2, TRAIN_BATCH)
+# phase 10: the rest of the JAX training step (ROADMAP.md A5) at full width;
+# the two bit-for-bit runs take A5_STEPS steps of 8, so the pool of 50
+# fills in the 7th and swaps from then on
+A5_FLAGS = ["--init_type", "xavier", "--ema_decay", "0.999", "--pool_size", "50",
+            "--grad_accum", "2", "--gan_mode", "wgangp"]
+A5_STEPS = 8
+A5_TIMED_STEPS = 4
+# phase 11: BASELINE.md config #4, 512^2 pairs at batch 32, in 4 microbatches
+# of 8 (lsgan, fp32)
+B32_ARGS = ["--crop_size", "512", "--load_size", "512", "--batch_size", "32",
+            "--grad_accum", "4"]
+B32_STEPS = 3
+# the forward kernels of one forward pass of the step's model (G twice, R,
+# the warp), which each microbatch but a lone one runs once more without
+# autograd for the D phase (``_train_step_accum``)
+FWD_LAUNCHES = {"K-block": 12, "K-convt": 4, "K-head": 2, "K-in": 16, "K-warp": 1}
+
+
+def accum_launches(k: int, wgangp: bool) -> dict:
+    """Launches per step of the default model under --grad_accum k: k times
+    a microbatch's, which is phase 5's step plus the D phase's forward
+    (FWD_LAUNCHES). Under wgangp each microbatch adds the penalty's D pass
+    over the mix (K-in 3), its first-order gradient (K-in-bwd 3, with the
+    graph) and, in the D loss's backward, the first-order backward of the
+    mix's three instance norms (K-in-bwd 3): the gradient's graph reads
+    the first two's outputs, and the third's gets the zero gradient that
+    the next convolution's double backward hands its input."""
+    micro = {key: v + FWD_LAUNCHES.get(key, 0) for key, v in STEP_LAUNCHES.items()}
+    if wgangp:
+        micro["K-in"] += 3
+        micro["K-in-bwd"] += 6
+    return {key: k * v for key, v in micro.items()}
 
 
 def phase(tag: str, /, **fields) -> None:
@@ -599,6 +670,46 @@ def check_in_bwd(dev) -> dict:
                 tally.add(calls, abs_err, times["ms"], pms, bnd)
     return dict(tally.result(), **{k: per_step[n][k] for k in IN_TIMES[1:]},
                 **{f"b1_step_{k}": v for k, v in per_step[1].items()})
+
+
+def check_in_double_bwd(dev) -> None:
+    """Phase 2b: K-in's double backward at D_IN_SHAPES (leaky_relu) and
+    each of D_IN_BATCHES: d x = the first-order backward (K-in-bwd, through
+    the Function that the WGAN-GP penalty differentiates), then the VJP of
+    (x, g) -> d x with a random gg (stock ops recomputing the statistics),
+    against the same two derivatives of the plain function by autograd on
+    the card, within 1e-4 of the largest value; the time of both and the
+    K-in and K-in-bwd launches of one call (1 each, asserted)."""
+    from nemar_tpu_torch.ops import norm
+
+    rng = np.random.default_rng(14)
+    for n, (c, h, w) in ((n, s) for n in D_IN_BATCHES for s in D_IN_SHAPES):
+        x = randn(rng, (n, h, w, c), 2.0, dev) + 0.5
+        g, gg = randn(rng, x.shape, 1.0, dev), randn(rng, x.shape, 1.0, dev)
+
+        def second_order(fn):
+            def call():
+                xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+                (dx,) = torch.autograd.grad(fn(xr, "leaky_relu"), xr, gr, create_graph=True)
+                return (dx.detach(), *torch.autograd.grad(dx, (xr, gr), gg))
+            return call
+
+        kern = second_order(norm.instance_norm_act)
+        plain = second_order(norm.instance_norm_act_plain)
+        counters = zero_counters()
+        got = kern()
+        torch.cuda.synchronize()
+        launches = {k: counters[k].launches for k in ("K-in", "K-in-bwd")}
+        ref = plain()
+        errs = [max_rel_err([p], [q]) for p, q in zip(got, ref)]
+        ms, pms = paired_median_ms(kern, plain, iters=10, warmup=2)
+        phase("kernel_double_bwd", name="K-in-bwd", shape=f"{n}x{h}x{w}x{c}", act="leaky_relu",
+              max_rel_err_dx_ddx_dg=json.dumps(errs), tol=1e-4, launches=json.dumps(launches),
+              ms=ms, plain_ms=pms)
+        if launches != {"K-in": 1, "K-in-bwd": 1}:
+            raise AssertionError(f"K-in's double backward launched {launches}")
+        if not max(errs) <= 1e-4:
+            raise AssertionError(f"K-in's double backward disagrees at {x.shape}: {errs}")
 
 
 def check_kernels(dev) -> dict:
@@ -985,6 +1096,7 @@ def check_bwd_kernels(dev) -> dict:
             results["K-warp-bwd"].update(device_ms=dms, library_device_ms=lib_dms)
 
     results["K-in-bwd"] = check_in_bwd(dev)
+    check_in_double_bwd(dev)
 
     # K-block-bwd: the trunk. The kernel is fed the plain forward's saved
     # values (y1, y2, stats), as the plain backward uses them: with K-block's
@@ -1177,9 +1289,9 @@ def zero_counters() -> dict:
     return counters
 
 
-def request_batches(n_batches: int, n: int, seed: int):
+def request_batches(n_batches: int, n: int, seed: int, size: int = 256):
     rng = np.random.default_rng(seed)
-    return [{"A": smooth_images(rng, n, 1), "B": smooth_images(rng, n, 3),
+    return [{"A": smooth_images(rng, n, 1, size), "B": smooth_images(rng, n, 3, size),
              "A_paths": [f"smoke_{seed}_{i}_{j}" for j in range(n)]} for i in range(n_batches)]
 
 
@@ -1425,12 +1537,16 @@ def run_layout_flags(ckpt: str) -> None:
         del model
 
 
-def _in_biases(model) -> dict:
-    """Per net, the biases of convolutions followed by instance norm (zero
-    gradient up to roundoff)."""
+def _zero_grad_biases(model) -> dict:
+    """Per net, the biases whose gradient is 0 up to roundoff: those of
+    convolutions followed by instance norm and, under wgangp, D's output
+    bias (the Wasserstein loss moves by +1 and -1 with it, and the penalty,
+    a gradient in D's input, does not see it)."""
     g = {k for k in model.netG.state_dict() if k.endswith(".bias")
          and not k.startswith(f"Conv_{1 + model.netG.n_downsampling}.")}
     d = {f"Conv_{i}.bias" for i in range(1, model.netD.n_layers + 1)}
+    if model.gan_mode == "wgangp":
+        d.add(f"Conv_{model.netD.n_layers + 1}.bias")
     r = {f"Conv_{i}.bias" for i in range(model.netR.n_convs - 1)}
     return {"G": g, "D": d, "R": r}
 
@@ -1438,6 +1554,88 @@ def _in_biases(model) -> dict:
 def _grad(net_params: dict, key: str) -> torch.Tensor:
     p = net_params[key]
     return torch.zeros_like(p).cpu() if p.grad is None else p.grad.detach().cpu()
+
+
+def adam_bound(t: int, b1: float, b2: float = 0.999) -> float:
+    """max |m / sqrt(v)| of Adam's bias-corrected t-th step over all
+    gradient histories: sqrt(sum_k a_k^2 / w_k), a_k and w_k the weights of
+    gradient k in m and v (1.054 at t = 2, 1.637 at t = 8 with b1 = 0.5)."""
+    return float(np.sqrt(sum(((1 - b1) * b1 ** (t - k) / (1 - b1**t)) ** 2
+                             / ((1 - b2) * b2 ** (t - k) / (1 - b2**t))
+                             for k in range(1, t + 1))))
+
+
+def step_against_cpu(runs: dict, before: dict, loss_floor: float = 0.0,
+                     adam_t: int | None = None) -> tuple:
+    """The comparison of phases 6 and 10: one step on the card against the
+    same step on the CPU (``runs['card']``, ``runs['cpu']``) from one shared
+    state, and against the CPU's step from a perturbed input
+    (``runs['cpu_perturbed']``), the conditioning baseline; ``before`` holds
+    each run's parameters before the step. Returns (the fields to print,
+    the failures of the gradient and parameter checks, the losses'
+    relative errors, each over max(|loss|, loss_floor)). An unresolved
+    element may move by at most one Adam step in each run: lr x 1.1 from
+    phase 6's second Adam step, or lr x ``adam_bound(adam_t, beta1)`` (+
+    1e-3 for roundoff) from the adam_t-th. See ``compare_train_with_cpu``."""
+    card = runs["card"]
+    losses = {name: m.get_current_losses() for name, m in runs.items()}
+    lc = losses["cpu"]
+
+    def loss_rel(other):
+        return {k: abs(other[k] - lc[k]) / max(abs(lc[k]), loss_floor, 1e-12) for k in lc}
+
+    loss_errs, loss_base = loss_rel(losses["card"]), loss_rel(losses["cpu_perturbed"])
+    skip = _zero_grad_biases(card)
+    grad_worst, bias_err, param_err, unresolved, fails = [], 0.0, 0.0, 0, []
+    per_net = {}
+    for n in ("G", "D", "R"):
+        group = card.optimizers[n].param_groups[0]
+        bound = (card.opt.lr * 1.1 if adam_t is None  # phase 6's, with margin
+                 else group["lr"] * adam_bound(adam_t, group["betas"][0]) * (1 + 1e-3))
+        net_grad, net_base, net_param = 0.0, 0.0, 0.0
+        params = {name: dict(m.nets()[n].named_parameters()) for name, m in runs.items()}
+        for key in params["cpu"]:
+            gc = _grad(params["cpu"], key)
+            gg, gp = _grad(params["card"], key), _grad(params["cpu_perturbed"], key)
+            if key in skip[n]:  # roundoff of a sum that is 0 exactly, relative
+                # to the conv's weight gradient (absolute below norm 1)
+                scale = float(torch.linalg.vector_norm(_grad(params["cpu"],
+                                                             key.replace(".bias", ".weight"))))
+                bias_err = max(bias_err, max(float(gg.abs().max()), float(gc.abs().max()))
+                               / max(scale, 1.0))
+                continue
+            norm = float(torch.linalg.vector_norm(gc))
+            if norm == 0.0:  # no gradient at this state: none on the card either
+                if torch.any(gg):
+                    fails.append(f"grad {n}.{key}: non-zero on the card only")
+                continue
+            err = float(torch.linalg.vector_norm(gg - gc)) / norm
+            base = float(torch.linalg.vector_norm(gp - gc)) / norm
+            grad_worst.append((f"{n}.{key}", err, base))
+            net_grad, net_base = max(net_grad, err), max(net_base, base)
+            if err > max(1e-3, 3 * base):
+                fails.append(f"grad {n}.{key}: {err} (baseline {base})")
+            # where the two gradients agree to 1e-3, so must the updates (to
+            # 1e-5); the other elements move by at most one Adam step each
+            free = (gg - gc).abs() > 1e-3 * gc.abs()
+            unresolved += int(free.sum())
+            dcard = params["card"][key].detach().cpu() - before["card"][n][key]
+            dcpu = params["cpu"][key].detach() - before["cpu"][n][key]
+            if float(torch.where(free, dcard.abs() + dcpu.abs(), 0.0).max()) > 2 * bound:
+                fails.append(f"{n}.{key}: an unresolved element moved more than lr")
+            net_param = max(net_param, float(torch.where(free, 0.0, dcard - dcpu).abs().max()))
+        per_net[n] = {"grad_err": net_grad, "grad_baseline": net_base, "param_err": net_param}
+        param_err = max(param_err, net_param)
+    grad_worst.sort(key=lambda t: -t[1])
+    fields = dict(loss_rel_err=json.dumps(loss_errs), loss_baseline=json.dumps(loss_base),
+                  tol_losses=1e-4, worst_grads_err_baseline=json.dumps(grad_worst[:8]),
+                  per_net=json.dumps(per_net), grads_max_rel_err=grad_worst[0][1],
+                  tol_grads="max(1e-3, 3 x baseline)", zero_grad_bias_over_weight_grad=bias_err,
+                  tol_zero_grad_bias=1e-4, unresolved_elements=unresolved,
+                  params_max_abs_err=param_err, tol_params=1e-5)
+    if bias_err > 1e-4 or param_err > 1e-5:
+        fails.append(f"zero-gradient biases {bias_err}, params {param_err}")
+    return fields, fails, loss_errs
 
 
 def compare_train_with_cpu(ckpt: str) -> None:
@@ -1478,63 +1676,10 @@ def compare_train_with_cpu(ckpt: str) -> None:
         scale = np.float32(1 + PERTURB) if name == "cpu_perturbed" else np.float32(1)
         m.set_input(dict(pairs[1], A=pairs[1]["A"] * scale))
         m.optimize_parameters()
-    losses = {name: m.get_current_losses() for name, m in runs.items()}
-    lc = losses["cpu"]
-
-    def loss_rel(other):
-        return {k: abs(other[k] - lc[k]) / max(abs(lc[k]), 1e-12) for k in lc}
-
-    loss_errs, loss_base = loss_rel(losses["card"]), loss_rel(losses["cpu_perturbed"])
-    skip = _in_biases(card)
-    bound = card.opt.lr * 1.1  # Adam's step bound from a warm state, with margin
-    grad_worst, bias_err, param_err, unresolved, fails = [], 0.0, 0.0, 0, []
-    per_net = {}
-    for n in ("G", "D", "R"):
-        net_grad, net_base, net_param = 0.0, 0.0, 0.0
-        params = {name: dict(m.nets()[n].named_parameters()) for name, m in runs.items()}
-        for key in params["cpu"]:
-            gc = _grad(params["cpu"], key)
-            gg, gp = _grad(params["card"], key), _grad(params["cpu_perturbed"], key)
-            if key in skip[n]:  # roundoff of a 65536-term sum that is 0 exactly,
-                # relative to the conv's weight gradient (absolute below norm 1)
-                scale = float(torch.linalg.vector_norm(_grad(params["cpu"],
-                                                             key.replace(".bias", ".weight"))))
-                bias_err = max(bias_err, max(float(gg.abs().max()), float(gc.abs().max()))
-                               / max(scale, 1.0))
-                continue
-            norm = float(torch.linalg.vector_norm(gc))
-            if norm == 0.0:  # no gradient at this state: none on the card either
-                if torch.any(gg):
-                    fails.append(f"grad {n}.{key}: non-zero on the card only")
-                continue
-            err = float(torch.linalg.vector_norm(gg - gc)) / norm
-            base = float(torch.linalg.vector_norm(gp - gc)) / norm
-            grad_worst.append((f"{n}.{key}", err, base))
-            net_grad, net_base = max(net_grad, err), max(net_base, base)
-            if err > max(1e-3, 3 * base):
-                fails.append(f"grad {n}.{key}: {err} (baseline {base})")
-            # where the two gradients agree to 1e-3, so must the updates (to
-            # 1e-5); the other elements move by at most one Adam step each
-            free = (gg - gc).abs() > 1e-3 * gc.abs()
-            unresolved += int(free.sum())
-            dcard = params["card"][key].detach().cpu() - before["card"][n][key]
-            dcpu = params["cpu"][key].detach() - before["cpu"][n][key]
-            if float(torch.where(free, dcard.abs() + dcpu.abs(), 0.0).max()) > 2 * bound:
-                fails.append(f"{n}.{key}: an unresolved element moved more than lr")
-            net_param = max(net_param, float(torch.where(free, 0.0, dcard - dcpu).abs().max()))
-        per_net[n] = {"grad_err": net_grad, "grad_baseline": net_base, "param_err": net_param}
-        param_err = max(param_err, net_param)
-    grad_worst.sort(key=lambda t: -t[1])
-    phase("train_card_vs_cpu", loss_rel_err=json.dumps(loss_errs),
-          loss_baseline=json.dumps(loss_base), tol_losses=1e-4,
-          worst_grads_err_baseline=json.dumps(grad_worst[:8]), per_net=json.dumps(per_net),
-          grads_max_rel_err=grad_worst[0][1], tol_grads="max(1e-3, 3 x baseline)",
-          in_bias_grad_over_weight_grad=bias_err, tol_in_bias=1e-4,
-          unresolved_elements=unresolved, params_max_abs_err=param_err, tol_params=1e-5)
+    fields, fails, loss_errs = step_against_cpu(runs, before)
+    phase("train_card_vs_cpu", **fields)
     if max(loss_errs.values()) > 1e-4:
         fails.append(f"losses {loss_errs}")
-    if bias_err > 1e-4 or param_err > 1e-5:
-        fails.append(f"IN biases {bias_err}, params {param_err}")
     if fails:
         raise AssertionError("card and CPU disagree on the training step: " + "; ".join(fails))
     del runs, card
@@ -1699,17 +1844,18 @@ def compare_r_with_cpu(ckpt: str) -> None:
             raise AssertionError(f"{arm}: R's field ({flow_px} px) is within 10x the tolerance")
 
 
-def _g_op_shapes(model, crop: int) -> dict:
-    """The shapes G gives its kernels at a b1 crop x crop input: the trunk's
-    NHWC x, each decoder stage's (NHWC x, Co), the head's (NHWC x, Co)."""
+def _g_op_shapes(model, crop: int, n: int = 1) -> dict:
+    """The shapes G gives its kernels at a batch of n crop x crop inputs:
+    the trunk's NHWC x, each decoder stage's (NHWC x, Co), the head's (NHWC
+    x, Co)."""
     g = model.netG
     t = crop // 2**g.n_downsampling
     trunk = g.ResnetBlock_0.Conv_0.in_channels
-    convt = [((1, t << i, t << i, getattr(g, f"ConvTranspose_{i}").in_channels),
+    convt = [((n, t << i, t << i, getattr(g, f"ConvTranspose_{i}").in_channels),
               getattr(g, f"ConvTranspose_{i}").out_channels) for i in range(g.n_downsampling)]
     head = getattr(g, f"Conv_{1 + g.n_downsampling}")
-    return {"block": (1, t, t, trunk), "convt": convt,
-            "head": ((1, crop, crop, head.in_channels), head.out_channels)}
+    return {"block": (n, t, t, trunk), "convt": convt,
+            "head": ((n, crop, crop, head.in_channels), head.out_channels)}
 
 
 def check_g_ops_off_tiles(shapes: dict, dev) -> dict:
@@ -1744,6 +1890,53 @@ def check_g_ops_off_tiles(shapes: dict, dev) -> dict:
     errs["K-head"] = rel(conv_head.conv_head, conv_head.conv_head_plain,
                          [randn(rng, x_shape, 1.0, dev),
                           randn(rng, (7, 7, x_shape[3], co), 0.05, dev)], x_shape[:3] + (co,))
+    for k, (fwd, bwd) in errs.items():
+        name = k.split("_")[0]
+        if not (fwd <= TOL[name] and bwd <= TOL[name + "-bwd"]):
+            raise AssertionError(f"{k} at {shapes}: value / gradient errors {fwd}, {bwd} "
+                                 f"above {TOL[name]}, {TOL[name + '-bwd']}")
+    return errs
+
+
+def check_g_kernels_at(shapes: dict, dev) -> dict:
+    """G's kernels at ``shapes`` (``_g_op_shapes`` of a model whose trunk
+    and decoder fill the kernels' tiles: no padding, one K-head chunk), by
+    their launch wrappers against their plain versions on the same inputs:
+    each forward's value; each backward fed the plain forward's saved
+    values (K-block's y1, y2, stats, K-convt's yhat, stats), as phase 2b
+    feeds them, since at these sizes a pre-relu value within roundoff of 0
+    can take the other side of the relu in the kernel's forward and move
+    that element's gradient by O(1) (phase 2b's ``relu_flips``). The
+    largest error of the value and of the gradients, each over the largest
+    reference value, within the kernel's TOL."""
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused
+
+    rng = np.random.default_rng(16)
+    errs = {}
+    x_shape = shapes["block"]
+    c = x_shape[3]
+    x, g = randn(rng, x_shape, 1.0, dev), randn(rng, x_shape, 1.0, dev)
+    w1, w2 = (randn(rng, (3, 3, c, c), 0.05, dev) for _ in range(2))
+    out, *saved = conv_fused.resblock_fwd_plain(x, w1, w2)
+    errs["K-block"] = (max_rel_err([conv_fused.fused_resblock_cuda(x, w1, w2)[0]], [out]),
+                       max_rel_err(conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g),
+                                   conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved)))
+    for i, (x_shape, co) in enumerate(shapes["convt"]):
+        n, h, w, ci = x_shape
+        x, wk = randn(rng, x_shape, 1.0, dev), randn(rng, (3, 3, ci, co), 0.05, dev)
+        g = randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev)
+        out, *saved = convt_fused.convt_in_fwd_plain(x, wk)
+        errs[f"K-convt_{i}"] = (
+            max_rel_err([convt_fused.fused_convt_in_cuda(x, wk)[0]], [out]),
+            max_rel_err(convt_fused.convt_in_bwd_cuda(x, wk, *saved, g),
+                        convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved)))
+    x_shape, co = shapes["head"]
+    x, wk = randn(rng, x_shape, 1.0, dev), randn(rng, (7, 7, x_shape[3], co), 0.05, dev)
+    g = randn(rng, x_shape[:3] + (co,), 1.0, dev)
+    errs["K-head"] = (max_rel_err([conv_head.conv_head_cuda(x, wk)],
+                                  [conv_head.conv_head_plain(x, wk)]),
+                      max_rel_err(conv_head.conv_head_bwd_cuda(x, wk, g),
+                                  conv_head.conv_head_bwd_plain(x, wk, g)))
     for k, (fwd, bwd) in errs.items():
         name = k.split("_")[0]
         if not (fwd <= TOL[name] and bwd <= TOL[name + "-bwd"]):
@@ -1857,6 +2050,400 @@ def run_adversarial_gate() -> None:
         raise AssertionError(f"field magnitude {mag:.2f}px: not moving")
 
 
+def _rel_err(got, ref) -> float:
+    """``max_rel_err``, 0 where the reference and the result are both 0."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, ref) if a is not None)
+
+
+@contextlib.contextmanager
+def watch_kernels():
+    """A context in which the first launch of K-in, K-in-bwd, K-warp and
+    K-warp-bwd at each configuration (shapes and options) is held against
+    the kernel's plain version on that launch's own inputs, the activations
+    of the path that runs inside, by ``_rel_err``. Yields {kernel: {config:
+    error}}. A wrapper counts its launches on the name its module binds
+    it to, so the watching wrapper carries the count inside and hands it
+    back on exit; the counters are not zeroed inside."""
+    from nemar_tpu_torch.ops import norm, norm_cuda, warp, warp_cuda
+
+    seen = {k: {} for k in ("K-in", "K-in-bwd", "K-warp", "K-warp-bwd")}
+
+    def held(name, key, got, plain):
+        key = " ".join(map(str, key))
+        if key not in seen[name]:
+            with torch.no_grad():
+                seen[name][key] = _rel_err(got, plain())
+
+    def in_fwd(orig, x, act="relu", eps=1e-5, negative_slope=0.2):
+        y, stats = orig(x, act, eps, negative_slope)
+        held("K-in", ("x".join(map(str, x.shape)), act), [y],
+             lambda: [norm.instance_norm_act_plain(x, act, eps, negative_slope)])
+        return y, stats
+
+    def in_bwd(orig, x, g, stats, act="relu", negative_slope=0.2):
+        dx = orig(x, g, stats, act, negative_slope)
+        held("K-in-bwd", ("x".join(map(str, x.shape)), act), [dx],
+             lambda: [norm.instance_norm_act_bwd_plain(x, g, stats, act, negative_slope)])
+        return dx
+
+    def warp_fwd(orig, img, grid, padding_mode="zeros", align_corners=False):
+        out = orig(img, grid, padding_mode, align_corners)
+        held("K-warp", ("x".join(map(str, img.shape)), "x".join(map(str, grid.shape)),
+                        padding_mode, align_corners), [out],
+             lambda: [warp.grid_sample_plain(img, grid, "bilinear", padding_mode, align_corners)])
+        return out
+
+    def warp_bwd(orig, img, grid, g, padding_mode="zeros", align_corners=False,
+                 grad_channels=-1):
+        out = orig(img, grid, g, padding_mode, align_corners, grad_channels)
+        gc = img.shape[-1] if grad_channels < 0 else grad_channels
+        held("K-warp-bwd", ("x".join(map(str, img.shape)), "x".join(map(str, grid.shape)),
+                            padding_mode, align_corners, gc), out,
+             lambda: warp._grid_sample_plain_bwd(img, grid, g, padding_mode, align_corners, gc))
+        return out
+
+    hooks = {(norm_cuda, "instance_norm_act_cuda"): in_fwd,
+             (norm_cuda, "instance_norm_act_bwd_cuda"): in_bwd,
+             (warp_cuda, "warp_bilinear"): warp_fwd, (warp_cuda, "warp_grid_bwd"): warp_bwd}
+    saved = {key: getattr(*key) for key in hooks}
+    for (mod, name), hook in hooks.items():
+        watching = functools.partial(hook, saved[(mod, name)])
+        watching.launches = saved[(mod, name)].launches
+        setattr(mod, name, watching)
+    try:
+        yield seen
+    finally:
+        for (mod, name), fn in saved.items():
+            fn.launches = getattr(mod, name).launches
+            setattr(mod, name, fn)
+
+
+def check_watched(seen: dict, where: str) -> dict:
+    """``watch_kernels``'s errors within each kernel's TOL, every kernel
+    seen; returns {kernel: [configurations, largest error]}."""
+    for k, errs in seen.items():
+        if not errs:
+            raise AssertionError(f"{where}: {k} was not launched")
+        bad = {c: e for c, e in errs.items() if not e <= TOL[k]}
+        if bad:
+            raise AssertionError(f"{where}: {k} disagrees with its plain version (tol "
+                                 f"{TOL[k]}): {bad}")
+    return {k: [len(errs), max(errs.values())] for k, errs in seen.items()}
+
+
+@contextlib.contextmanager
+def watch_pool(tally: dict):
+    """A context in which every ``query_pool`` call adds its swaps to
+    ``tally['swaps']`` and its swaps into a slot that another swap of the
+    same call also takes to ``tally['repeated']``."""
+    from nemar_tpu_torch.utils import image_pool
+
+    orig = image_pool.query_pool
+
+    def query(images, count, fakes, use_old, rand_idx):
+        p, n = images.shape[0], fakes.shape[0]
+        filling = count + torch.arange(n, device=images.device) < p
+        slots = rand_idx[~filling & use_old & (rand_idx < count)]
+        tally["swaps"] += int(slots.numel())
+        tally["repeated"] += int(slots.numel()) - int(torch.unique(slots).numel())
+        return orig(images, count, fakes, use_old, rand_idx)
+
+    image_pool.query_pool = query
+    try:
+        yield tally
+    finally:
+        image_pool.query_pool = orig
+
+
+def check_pool_last_writer(pool: tuple, dev) -> dict:
+    """``query_pool`` on the card from a full pool with a draw whose swaps
+    take slot 7 three times and slot 3 once, against the CPU's call on the
+    same tensors, bit for bit: slot 7 holds the last of its writers, slot 3
+    its one, and the batch D sees reads the buffer as it was before."""
+    from nemar_tpu_torch.utils import image_pool
+
+    images, count = (t.to(dev) for t in pool)
+    if int(count) != images.shape[0]:
+        raise AssertionError(f"the pool holds {int(count)} of {images.shape[0]}")
+    rng = np.random.default_rng(15)
+    fakes = randn(rng, (4, *images.shape[1:]), 1.0, dev)
+    use_old, rand_idx = torch.ones(4, dtype=torch.bool), torch.tensor([7, 7, 3, 7])
+    card = image_pool.query_pool(images, count, fakes, use_old.to(dev), rand_idx.to(dev))
+    cpu = image_pool.query_pool(images.cpu(), count.cpu(), fakes.cpu(), use_old, rand_idx)
+    new, _, out = card
+    checks = {"card_equals_cpu": all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)),
+              "last_writer": torch.equal(new[7], fakes[3]) and torch.equal(new[3], fakes[2]),
+              "reads_before": torch.equal(out, images[rand_idx.to(dev)]),
+              "others_kept": torch.equal(new[:3], images[:3])}
+    if not all(checks.values()):
+        raise AssertionError(f"the pool's repeated-slot swap on the card: {checks}")
+    return checks
+
+
+def _train_state(model) -> dict:
+    """A model's parameters, EMA shadows and pool, cloned to the CPU."""
+    out = {f"{n}.{k}": p.detach().cpu().clone() for n, net in model.nets().items()
+           for k, p in net.named_parameters()}
+    for n, shadow in (model.ema or {}).items():
+        out.update({f"{n}_ema.{k}": v.cpu().clone() for k, v in shadow.items()})
+    if model.pool is not None:
+        out["pool.images"], out["pool.count"] = (t.cpu().clone() for t in model.pool)
+    return out
+
+
+def _a5_args(ckpt: str, *extra) -> list:
+    return [*TRAIN_ARGS, *A5_FLAGS, "--checkpoints_dir", ckpt, "--name", "smoke_a5", *extra]
+
+
+def run_a5_step(ckpt: str) -> None:
+    """Phase 10: the rest of the JAX training step (A5_FLAGS: xavier init,
+    EMA 0.999, a pool of 50, 2 microbatches, WGAN-GP) on the default model
+    at 256^2, batch 8. Two fresh models from one seed take A5_STEPS steps
+    each, past the pool's filling: their parameters, EMA shadows, pool and
+    losses bit for bit. In the first run's first step each of K-in,
+    K-in-bwd, K-warp and K-warp-bwd is held against its plain version at
+    every configuration the step gives it (``watch_kernels``: the
+    microbatch of 4, D's pass over [real; fake] and the penalty's), and the
+    first run's pool swaps are counted (``watch_pool``: some, asserted); G's
+    kernels at the microbatch's shapes against theirs (``check_g_kernels_at``).
+    The second run then takes A5_TIMED_STEPS more with the counters zeroed
+    just before: ms per step (median), pairs/s, peak memory, every kernel's
+    launches per step (``accum_launches``, asserted), K-in-bwd at least as
+    often per microbatch of 4 as in phase 5's lsgan step (the penalty's
+    first-order gradient runs on it), finite losses, the pool full; its
+    pool takes a repeated-slot swap on the card (``check_pool_last_writer``);
+    then it is saved as epoch ``a5`` (the shared state of
+    ``compare_a5_with_cpu``) and one more step is profiled
+    (chiprun_out/profile_a5_step.txt)."""
+    dev = torch.device("cuda", 0)
+    args = _a5_args(ckpt, "--gpu_ids", "0", "--batch_size", str(TRAIN_BATCH))
+    batches = request_batches(A5_STEPS + A5_TIMED_STEPS + 1, TRAIN_BATCH, seed=9)
+    runs, pool_tally = [], {"swaps": 0, "repeated": 0}
+    for r in range(2):
+        model = train_model(args)
+        with contextlib.ExitStack() as stack:
+            if r == 0:
+                stack.enter_context(watch_pool(pool_tally))
+            for i, b in enumerate(batches[:A5_STEPS]):
+                with watch_kernels() if (r, i) == (0, 0) else contextlib.nullcontext() as seen:
+                    model.set_input(b)
+                    model.optimize_parameters()
+                    torch.cuda.synchronize()
+                if (r, i) == (0, 0):
+                    watched = check_watched(seen, "A5 step")
+        runs.append((_train_state(model), model.get_current_losses()))
+    same = runs[0][1] == runs[1][1] and all(torch.equal(v, runs[1][0][k])
+                                            for k, v in runs[0][0].items())
+    op_errs = check_g_kernels_at(_g_op_shapes(model, model.opt.crop_size,
+                                              TRAIN_BATCH // model.grad_accum), dev)
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    times = []
+    for b in batches[A5_STEPS:-1]:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    losses = model.get_current_losses()
+    k = model.grad_accum
+    want = {key: v * A5_TIMED_STEPS for key, v in accum_launches(k, True).items()}
+    per_micro = launches["K-in-bwd"] / (A5_TIMED_STEPS * k)
+    ms = float(np.median(times))
+    phase("a5_step", flags=" ".join(A5_FLAGS), batch=TRAIN_BATCH, microbatch=TRAIN_BATCH // k,
+          steps=A5_TIMED_STEPS, ms_per_step_median=round(ms, 3),
+          ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(TRAIN_BATCH / ms * 1e3, 3),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+          launches=json.dumps(launches), expected=json.dumps(want),
+          k_in_bwd_per_microbatch=per_micro, phase5_k_in_bwd=STEP_LAUNCHES["K-in-bwd"],
+          pool_count=int(model.pool[1]), pool_swaps_in_compared_run=json.dumps(pool_tally),
+          losses=json.dumps({key: round(v, 6) for key, v in losses.items()}),
+          bit_identical_twice=same, compared=len(runs[0][0]), steps_compared=A5_STEPS,
+          watched_configs_max_rel_err=json.dumps(watched),
+          g_kernels_rel_err_value_grad=json.dumps({key: [f"{a:.3g}", f"{b:.3g}"]
+                                               for key, (a, b) in op_errs.items()}))
+    if launches != want:
+        raise AssertionError(f"A5 step: launch counts {launches} != expected {want}")
+    if not per_micro >= STEP_LAUNCHES["K-in-bwd"]:
+        raise AssertionError(f"K-in-bwd ran {per_micro} times a microbatch, under phase 5's")
+    if not all(np.isfinite(v) for v in losses.values()) or "D_gp" not in losses:
+        raise AssertionError(f"A5 step: losses {losses}")
+    if int(model.pool[1]) != 50:
+        raise AssertionError(f"the pool holds {int(model.pool[1])} of 50 after "
+                             f"{A5_STEPS + A5_TIMED_STEPS} steps of {TRAIN_BATCH}")
+    if not same:
+        raise AssertionError("two identical A5 runs on the card differ")
+    if not pool_tally["swaps"] > 0:
+        raise AssertionError(f"the pool never swapped in {A5_STEPS} steps: {pool_tally}")
+    phase("a5_pool_last_writer", **check_pool_last_writer(model.pool, dev))
+    model.save_networks("a5")
+
+    def run(i):
+        model.set_input(batches[-1])
+        model.optimize_parameters()
+
+    profile(run, 1, "profile_a5_step", "step")
+    del model
+
+
+def _g_gan_with(model, d_state: dict, pair: dict) -> float:
+    """The G phase's G_GAN of ``model`` (its nets as loaded, no step taken)
+    on ``pair``'s microbatches against D with ``d_state``, without
+    autograd: the mean over the microbatches, as the step reports it."""
+    model.netD.load_state_dict(d_state)
+    model.set_input(pair)
+    k, gan_w = model.grad_accum, model._gan_w_scalar()
+    with torch.no_grad():
+        terms = [model._head_loss(model._forward_parts(a, b), b, gan_w)[1][0]
+                 for a, b in zip(torch.chunk(model.real_A, k), torch.chunk(model.real_B, k))]
+    return float(sum(terms[1:], terms[0]) / k)
+
+
+def compare_a5_with_cpu(ckpt: str) -> None:
+    """Phase 10b: one A5 step (A5_FLAGS, batch 8: two microbatches of 4, as
+    phase 10 times) on the card against the CPU from phase 10's saved state
+    (parameters, Adam moments, EMA shadows, the full pool, the generator's
+    state, so both draw the same pool swaps, several a microbatch, and
+    penalty alphas), by ``step_against_cpu``: the
+    gradients within max(1e-3, 3 x baseline) and the parameters within 1e-5
+    as in phase 6, an unresolved element by at most one Adam step from the
+    state's (``adam_bound``); D's output bias among the biases whose
+    gradient is 0 up to roundoff (``_zero_grad_biases``); the losses (the
+    penalty D_gp among them) within 1e-4 of max(|loss|, 0.1), since
+    wgangp's D_real, D_fake and G_GAN are means of D's raw outputs that sit
+    near 0; the EMA shadows within 1e-5, the parameters' tolerance; the
+    pool's buffer within 1e-3, phase 4's tolerance on G's outputs, and its
+    count exactly.
+
+    G_GAN is read through D after D's Adam step, where each unresolved
+    element may take a different step on the card (above): at batch 8 that
+    moved G_GAN by ~6e-5 on an H100 (5.7e-4 of 0.1), while the perturbed
+    CPU run, whose G and R are all but blind to a scaled real_A (instance
+    norm), moved it by 2.3e-7. So G_GAN is held in two parts, each recomputed on
+    the CPU from the shared state (``_g_gan_with``): with the card's updated
+    D, the card's G_GAN within 1e-4 (G, R and D's forward on the card); and
+    with the CPU's, the CPU's own (the recomputation, within 1e-6). What
+    the two updated Ds make of the same fakes is printed
+    (``g_gan_d_update_rel``), not bounded: its elements are the parameter
+    check's."""
+    pair = request_batches(1, TRAIN_BATCH, seed=10)[0]
+    args = _a5_args(ckpt, "--continue_train", "--epoch", "a5", "--batch_size", str(TRAIN_BATCH))
+    runs = {name: train_model([*args, "--gpu_ids", dev]) for name, dev in
+            (("card", "0"), ("cpu", "-1"), ("cpu_perturbed", "-1"))}
+    before, after = {}, {}
+    pool0 = runs["cpu"].pool[0].clone()
+    for name, m in runs.items():
+        before[name] = {n: {k: p.detach().cpu().clone() for k, p in net.named_parameters()}
+                        for n, net in m.nets().items()}
+        scale = np.float32(1 + PERTURB) if name == "cpu_perturbed" else np.float32(1)
+        m.set_input(dict(pair, A=pair["A"] * scale))
+        m.optimize_parameters()
+        after[name] = _train_state(m)
+    fields, fails, loss_errs = step_against_cpu(runs, before, loss_floor=0.1,
+                                                adam_t=runs["card"].step)
+    shared = train_model([*args, "--gpu_ids", "-1"])  # the state before the step
+    gan = {name: _g_gan_with(shared, {k: v.detach().cpu() for k, v in
+                                      runs[name].netD.state_dict().items()}, pair)
+           for name in ("card", "cpu")}
+    reported = {name: runs[name].get_current_losses()["G_GAN"] for name in ("card", "cpu")}
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 0.1)
+
+    gan_errs = {"g_gan_card_same_d_rel": rel(reported["card"], gan["card"]),
+                "g_gan_cpu_recomputed_rel": rel(reported["cpu"], gan["cpu"]),
+                "g_gan_d_update_rel": rel(gan["card"], gan["cpu"])}
+    del loss_errs["G_GAN"]
+    card, cpu = after["card"], after["cpu"]
+    shadow_err = max(float((card[k] - v).abs().max()) for k, v in cpu.items() if "_ema." in k)
+    pool_err = float((card["pool.images"] - cpu["pool.images"]).abs().max())
+    swapped = int(((cpu["pool.images"] - pool0).flatten(1).abs().amax(1) > 0).sum())
+    phase("a5_card_vs_cpu", batch=TRAIN_BATCH, microbatch=TRAIN_BATCH // runs["card"].grad_accum,
+          **fields, shadows_max_abs_err=shadow_err,
+          tol_shadows=1e-5, pool_max_abs_err=pool_err, tol_pool=1e-3, pool_slots_swapped=swapped,
+          pool_count=json.dumps([int(card["pool.count"]), int(cpu["pool.count"])]),
+          g_gan=json.dumps({"reported": reported, "recomputed": gan}), **gan_errs,
+          tol_g_gan_same_d=1e-4, tol_g_gan_recomputed=1e-6)
+    if max(loss_errs.values()) > 1e-4:
+        fails.append(f"losses {loss_errs}")
+    if not (gan_errs["g_gan_card_same_d_rel"] <= 1e-4
+            and gan_errs["g_gan_cpu_recomputed_rel"] <= 1e-6):
+        fails.append(f"G_GAN {gan_errs}")
+    if "D_gp" not in loss_errs:
+        fails.append("no penalty term D_gp among the losses")
+    if not shadow_err <= 1e-5:
+        fails.append(f"EMA shadows {shadow_err}")
+    if not (pool_err <= 1e-3 and torch.equal(card["pool.count"], cpu["pool.count"])):
+        fails.append(f"pool {pool_err}")
+    if fails:
+        raise AssertionError("card and CPU disagree on the A5 step: " + "; ".join(fails))
+
+
+def run_b32_512(ckpt: str) -> None:
+    """Phase 11: BASELINE.md config #4 (B32_ARGS: 512^2 pairs, batch 32,
+    4 microbatches of 8, lsgan, fp32) on the default model at full width:
+    B32_STEPS steps, the first a warm-up, in which K-in, K-in-bwd, K-warp
+    and K-warp-bwd are held against their plain versions at every
+    configuration the step gives them (``watch_kernels``: G, R and D at
+    512^2 and a microbatch of 8, D's pass over [real; fake] at 16); then G's
+    kernels at the microbatch's shapes against theirs (K-block on
+    8x128x128x256, K-convt to 8x512x512x64, K-head on 8x512x512x64, values
+    and gradients: ``check_g_kernels_at``); over the other steps, with the counters
+    zeroed just before, ms per step (median), pairs/s, peak memory
+    (``torch.cuda.max_memory_allocated``), every kernel's launches per step
+    (``accum_launches``, asserted) and finite losses; then one profiled step
+    (chiprun_out/profile_b32_512.txt)."""
+    model = train_model([*TRAIN_ARGS, *B32_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+                         "--name", "smoke_b32"])
+    n, k = model.opt.batch_size, model.grad_accum
+    batches = request_batches(2, n, seed=11, size=model.opt.crop_size)
+    with watch_kernels() as seen:
+        model.set_input(batches[0])
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+    watched = check_watched(seen, "512^2 b32")
+    op_errs = check_g_kernels_at(_g_op_shapes(model, model.opt.crop_size, n // k),
+                                 torch.device("cuda", 0))
+    phase("b32_512_kernels", microbatch=n // k, watched_configs_max_rel_err=json.dumps(watched),
+          watched=json.dumps(seen),
+          g_kernels_rel_err_value_grad=json.dumps({key: [f"{a:.3g}", f"{b:.3g}"]
+                                               for key, (a, b) in op_errs.items()}))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = zero_counters()
+    times = []
+    for i in range(1, B32_STEPS):
+        t0 = time.perf_counter()
+        model.set_input(batches[i % 2])
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {key: fn.launches for key, fn in counters.items()}
+    want = {key: v * (B32_STEPS - 1) for key, v in accum_launches(k, False).items()}
+    losses = model.get_current_losses()
+    ms = float(np.median(times))
+    phase("b32_512", flags=" ".join(B32_ARGS), batch=n, microbatch=n // k, steps=B32_STEPS - 1,
+          ms_per_step_median=round(ms, 3), ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(n / ms * 1e3, 3),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+          launches=json.dumps(launches), expected=json.dumps(want),
+          losses=json.dumps({key: round(v, 6) for key, v in losses.items()}))
+    if launches != want:
+        raise AssertionError(f"512^2 b32: launch counts {launches} != expected {want}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"512^2 b32: non-finite losses {losses}")
+
+    def run(i):
+        model.set_input(batches[i % 2])
+        model.optimize_parameters()
+
+    profile(run, 1, "profile_b32_512", "step")
+    del model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1914,9 +2501,18 @@ def main() -> int:
         t0 = time.perf_counter()
         run_off_kernel_shapes(ckpt)
         phase("off_kernel_shapes_phase", seconds=round(time.perf_counter() - t0, 2))
-    t0 = time.perf_counter()
-    run_adversarial_gate()
-    phase("adversarial_gate_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_adversarial_gate()
+        phase("adversarial_gate_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_a5_step(ckpt)
+        phase("a5_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        compare_a5_with_cpu(ckpt)
+        phase("a5_vs_cpu_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_b32_512(ckpt)
+        phase("b32_512_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none)
     launches.update({k: v for k, v in train_launches.items() if k.endswith("-bwd")})

@@ -29,7 +29,8 @@ Inside:
 Training on CUDA sets ``torch.backends.cudnn.deterministic``, so two runs
 from one state are bit-identical, as the JAX package's are.
 ``--continue_train`` restores the full training state (the nets, every
-Adam's moments and step, the step count, the plateau controller), so a
+Adam's moments and step, the step count, the plateau controller, and the
+NeMAR model's EMA shadows, image pool and step generator), so a
 resumed run continues bit for bit as an uninterrupted one, as the JAX
 package's does (``nemar_tpu/models/base_model.py``: ``save_networks``,
 ``load_networks``).
@@ -216,25 +217,43 @@ class BaseModel(ABC):
     def _meta_path(self) -> str:
         return os.path.join(self.save_dir, "checkpoint_meta.json")
 
+    def shadow_states(self) -> dict:
+        """{pseudo-net name: state_dict} saved beside the nets (the NeMAR
+        model's EMA shadows)."""
+        return {}
+
+    def extra_train_state(self) -> dict:
+        """What ``{suffix}_state.pth`` holds beyond the optimizers, the step
+        count and current_lr, as CPU tensors (the NeMAR model's generator
+        state and pool)."""
+        return {}
+
+    def load_extra_train_state(self, state: dict, suffix) -> None:
+        """Restore ``extra_train_state`` (and the shadows of ``suffix``)."""
+
     def save_networks(self, suffix):
-        """Write ``{suffix}_net_{Name}.pth`` per net. A training model then
-        writes ``{suffix}_state.pth`` (every optimizer's state_dict, the step
-        count and current_lr; the step draws no random numbers: no dropout,
-        and --pool_size 0) under a temporary name renamed into place, so a
+        """Write ``{suffix}_net_{Name}.pth`` per net and per pseudo-net of
+        ``shadow_states``. A training model then writes ``{suffix}_state.pth``
+        (every optimizer's state_dict, the step count, current_lr and
+        ``extra_train_state``: the state of the generator the step draws
+        from, and the image pool's buffer and count) under a temporary name
+        renamed into place, so a
         ``*_state.pth`` is always complete, and last ``checkpoint_meta.json``
         in the JAX package's keys: ``latest``, ``step`` and ``lr_state`` =
         {current_lr, plateau}. As there, the meta is written at epoch end
         before ``update_learning_rate`` feeds the plateau controller that
         epoch's metric: a resumed plateau run replays one fewer observation
         (the JAX package's accepted one-epoch lag)."""
-        for name, net in self.nets().items():
-            state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
-            torch.save(state, self._net_path(suffix, name))
+        nets = {n: net.state_dict() for n, net in self.nets().items()}
+        for name, state in {**nets, **self.shadow_states()}.items():
+            torch.save({k: v.detach().cpu() for k, v in state.items()},
+                       self._net_path(suffix, name))
         if not self.isTrain:
             return
         path = self._state_path(suffix)
         torch.save({"optimizers": {n: o.state_dict() for n, o in self.optimizers.items()},
-                    "step": self.step, "current_lr": self.current_lr}, path + ".tmp")
+                    "step": self.step, "current_lr": self.current_lr,
+                    **self.extra_train_state()}, path + ".tmp")
         os.replace(path + ".tmp", path)
         meta = {"latest": str(suffix), "step": self.step,
                 "lr_state": {"current_lr": float(self.current_lr),
@@ -243,8 +262,9 @@ class BaseModel(ABC):
             json.dump(meta, f)
 
     def load_train_state(self, suffix):
-        """--continue_train: the nets, the optimizers' state and the step
-        count of ``{suffix}_state.pth`` (``latest`` resolves through the
+        """--continue_train: the nets, the optimizers' state, the step
+        count and ``extra_train_state`` of ``{suffix}_state.pth`` and its
+        shadows (``latest`` resolves through the
         meta), or of the newest ``*_state.pth`` when that one is missing;
         with none at all, training starts fresh. Then the plateau controller
         from the meta, and current_lr re-derived from it and --epoch_count
@@ -273,6 +293,7 @@ class BaseModel(ABC):
         for name, optimizer in self.optimizers.items():
             optimizer.load_state_dict(state["optimizers"][name])
         self.step = int(state["step"])
+        self.load_extra_train_state(state, suffix)
         plateau = (meta.get("lr_state") or {}).get("plateau")
         if plateau and getattr(self.lr_fn, "state", None) is not None:
             self.lr_fn.state.update(plateau)

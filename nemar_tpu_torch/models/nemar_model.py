@@ -15,10 +15,20 @@ JAX model, as NHWC numpy arrays.
 
 ``optimize_parameters`` is the JAX package's ``_train_step_impl`` in the
 same order: one forward with the graph kept; the D step on the detached
-reg_fakeB (one D pass over [real_B; fake], Adam); the G+R loss against the
-UPDATED D, backpropagated through the kept graph with D's parameters
-frozen; R's gradients clipped to --stn_grad_clip by global norm and then
-multiplied by the R gate; Adam for G (not under --freeze_g) and for R.
+reg_fakeB, through the image pool under --pool_size > 0 (one D pass over
+[real_B; fake], plus the gradient penalty's pass under --gan_mode wgangp;
+Adam); the G+R loss against the UPDATED D, backpropagated through the kept
+graph with D's parameters frozen; R's gradients clipped to --stn_grad_clip
+by global norm and then multiplied by the R gate; Adam for G (not under
+--freeze_g) and for R; then the EMA shadows of G and R under --ema_decay.
+--grad_accum k > 1 is ``_train_step_accum``: the D phase over k
+microbatches (a forward without autograd each, the pool threaded through
+them), D's summed gradients over k, Adam; then the G+R phase over the
+microbatches against the updated D (a forward with the graph and a backward
+each), the summed gradients over k, the clip, the gate, the Adams, the EMA.
+Activations live one microbatch at a time. The step's random draws (the
+pool's, the penalty's alpha) come from a CPU ``torch.Generator`` seeded
+from --seed, so the card and the CPU draw the same numbers.
 
 On the card the path runs through ten hand-written kernels: K-block /
 K-block-bwd for the 6 trunk blocks of each G pass, K-convt / K-convt-bwd
@@ -34,6 +44,8 @@ convolutions; every choice runs these kernels.
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -41,6 +53,7 @@ from nemar_tpu_torch.models import networks
 from nemar_tpu_torch.models.base_model import BaseModel, to_device_nchw
 from nemar_tpu_torch.models.stn import define_stn
 from nemar_tpu_torch.ops.warp import grid_sample
+from nemar_tpu_torch.utils import image_pool
 
 
 class NEMARModel(BaseModel):
@@ -189,9 +202,11 @@ class NEMARModel(BaseModel):
         self.model_names = ["G", "D", "R"]
         self.loss_names = ["D", "D_real", "D_fake", "G_GAN", "G_recon", "G_smooth", "G"]
         _check_supported(opt)
+        self.gan_mode = getattr(opt, "gan_mode", "lsgan")
+        if self.gan_mode == "wgangp":
+            self.loss_names.insert(3, "D_gp")
         self.field_source = getattr(opt, "stn_field_source", "pair")
         self.g_batch = getattr(opt, "g_batch", False)
-        self.gan_mode = getattr(opt, "gan_mode", "lsgan")
         self.lambda_GAN = getattr(opt, "lambda_GAN", 1.0)
         self.lambda_recon = getattr(opt, "lambda_recon", 100.0)
         self.lambda_smooth = getattr(opt, "lambda_smooth", 10.0)
@@ -205,6 +220,13 @@ class NEMARModel(BaseModel):
         self.border_mask = getattr(opt, "border_mask", False)
         self.recon_pyramid = getattr(opt, "recon_pyramid", 0)
         self.freeze_g = getattr(opt, "freeze_g", False)
+        self.grad_accum = max(1, getattr(opt, "grad_accum", 1))
+        if self.isTrain and opt.batch_size % self.grad_accum:
+            raise ValueError(f"--grad_accum {self.grad_accum} must divide "
+                             f"--batch_size {opt.batch_size}")
+        self.ema_decay = getattr(opt, "ema_decay", 0.0) if self.isTrain else 0.0
+        self.use_ema = getattr(opt, "use_ema", False)
+        self.pool_size = getattr(opt, "pool_size", 0) if self.isTrain else 0
         if self.recon_pyramid > 0 and opt.crop_size % (2 ** self.recon_pyramid):
             raise ValueError(
                 f"--recon_pyramid {self.recon_pyramid} needs --crop_size "
@@ -214,10 +236,11 @@ class NEMARModel(BaseModel):
         self.netG = networks.define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.netG,
                                       opt.norm, not opt.no_dropout)
         self.netD = networks.define_D(opt.output_nc, opt.ndf, opt.netD, opt.n_layers_D, opt.norm)
-        networks.init_weights(self.netG, opt.init_gain, gen)
-        networks.init_weights(self.netD, opt.init_gain, gen)
+        networks.init_weights(self.netG, opt.init_gain, gen, opt.init_type)
+        networks.init_weights(self.netD, opt.init_gain, gen, opt.init_type)
         self.netR = define_stn(opt, opt.stn_type)
-        # R's layers draw from the reference's normal(0.02); its heads (every
+        # R's layers draw from the reference's normal(0.02) whatever
+        # --init_type says (the JAX define_stn takes none); its heads (every
         # flow head of the UNet, the affine STN's Dense_1) stay zero, so a
         # fresh R warps by the identity
         networks.init_weights(self.netR, 0.02, gen)
@@ -227,6 +250,20 @@ class NEMARModel(BaseModel):
         for net in self.nets().values():
             net.to(self.device, memory_format=torch.channels_last)
             net.train(self.isTrain)
+        # the step's draws (the pool's, the penalty's alpha), on the CPU
+        self.rng = torch.Generator().manual_seed(getattr(opt, "seed", 0) + 17)
+        self.pool = (image_pool.init_pool(self.pool_size, (opt.output_nc, opt.crop_size,
+                                                           opt.crop_size), self.device)
+                     if self.pool_size > 0 else None)
+        self.ema = None  # {net: {parameter name: shadow}}, made by setup
+
+    def setup(self, opt):
+        """BaseModel.setup, then the EMA shadows of G and R as copies of
+        their parameters (a resume then loads the saved ones)."""
+        if self.ema_decay > 0:
+            self.ema = {n: {k: p.detach().clone() for k, p in self.nets()[n].named_parameters()}
+                        for n in ("G", "R")}
+        super().setup(opt)
 
     def make_optimizers(self) -> dict:
         """Adam per net, ``betas=(beta1, 0.999), eps=1e-8``: optax
@@ -278,11 +315,35 @@ class NEMARModel(BaseModel):
     # the training step
     # ------------------------------------------------------------------
     def _d_loss(self, fake: torch.Tensor, b: torch.Tensor):
-        """One D pass over [real; fake] (instance norm is per sample)."""
+        """One D pass over [real; fake] (instance norm is per sample); under
+        wgangp the gradient penalty adds its own pass over the mix.
+        -> (loss, (l_real, l_fake, penalty or None))."""
         pred_real, pred_fake = torch.chunk(self.netD(torch.cat([b, fake], dim=0)), 2, dim=0)
         l_real = networks.gan_loss(pred_real, True, self.gan_mode)
         l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
-        return 0.5 * (l_real + l_fake), (l_real, l_fake)
+        loss = 0.5 * (l_real + l_fake)
+        gp = None
+        if self.gan_mode == "wgangp":
+            alpha = self._gp_alpha(b.shape[0]).to(b.dtype)
+            gp = networks.cal_gradient_penalty(self.netD, b, fake, alpha)
+            loss = loss + gp
+        return loss, (l_real, l_fake, gp)
+
+    def _gp_alpha(self, n: int) -> torch.Tensor:
+        """The penalty's alpha (n, 1, 1, 1), uniform in [0, 1)."""
+        return torch.rand((n, 1, 1, 1), generator=self.rng).to(self.device)
+
+    def _pool_draws(self, n: int) -> tuple:
+        """The pool's draws for n fakes (``utils/image_pool.draw``)."""
+        return tuple(t.to(self.device) for t in image_pool.draw(self.rng, n, self.pool_size))
+
+    def _query_pool(self, fake: torch.Tensor) -> torch.Tensor:
+        if self.pool is None:
+            return fake
+        images, count, fake = image_pool.query_pool(*self.pool, fake,
+                                                    *self._pool_draws(fake.shape[0]))
+        self.pool = (images, count)
+        return fake
 
     @staticmethod
     def _recon_l1(x, y, m):
@@ -344,32 +405,29 @@ class NEMARModel(BaseModel):
         return 1.0
 
     def optimize_parameters(self):
-        """One training step (the JAX package's ``_train_step_impl``)."""
+        """One training step: the JAX package's ``_train_step_impl``, or
+        under --grad_accum k > 1 its ``_train_step_accum``."""
         a, b = self.real_A, self.real_B
         gan_w, r_gate = self._gan_w_scalar(), self._r_gate_scalar()
-        out = self._forward_parts(a, b)
-
-        # ---- D step: the current fake, detached --------------------------
-        fake = out["reg_fakeB"].detach()
-        opt_D = self.optimizers["D"]
-        if self.freeze_g:  # D is not updated: its loss is only reported
-            with torch.no_grad():
-                loss_D, (l_dr, l_df) = self._d_loss(fake, b)
+        k = self.grad_accum
+        if k == 1:  # one forward, kept for the G+R backward
+            out = self._forward_parts(a, b)
+            d_micro = [(out["reg_fakeB"].detach(), b)]
+            g_micro = [(out, b)]
         else:
-            loss_D, (l_dr, l_df) = self._d_loss(fake, b)
-            opt_D.zero_grad(set_to_none=True)
-            loss_D.backward()
-            opt_D.step()
+            pairs = list(zip(torch.chunk(a, k), torch.chunk(b, k)))
 
-        # ---- G+R step against the UPDATED D, frozen ------------------------
-        self.netD.requires_grad_(False)
-        try:
-            loss_G, (l_gan, l_rec, l_sm) = self._head_loss(out, b, gan_w)
-            self.optimizers["G"].zero_grad(set_to_none=True)
-            self.optimizers["R"].zero_grad(set_to_none=True)
-            loss_G.backward()
-        finally:
-            self.netD.requires_grad_(True)
+            def detached_fakes():
+                for ai, bi in pairs:
+                    with torch.no_grad():  # not around the yield: it would hold
+                        fake = self._forward_parts(ai, bi)["reg_fakeB"]
+                    yield fake, bi
+
+            d_micro = detached_fakes()
+            g_micro = ((self._forward_parts(ai, bi), bi) for ai, bi in pairs)
+        loss_D, l_dr, l_df, l_gp = self._d_phase(d_micro)
+        loss_G, l_gan, l_rec, l_sm = self._g_phase(g_micro, gan_w)
+
         grads_R = [p.grad for p in self.netR.parameters() if p.grad is not None]
         self._clip_r(grads_R)
         if r_gate != 1.0:
@@ -379,10 +437,119 @@ class NEMARModel(BaseModel):
         self.optimizers["R"].step()
         if not self.freeze_g:
             self.optimizers["G"].step()
+        self._update_ema()
         self._losses = {k: v.detach() for k, v in (
-            ("D", loss_D), ("D_real", l_dr), ("D_fake", l_df), ("G_GAN", l_gan),
-            ("G_recon", l_rec), ("G_smooth", l_sm), ("G", loss_G))}
+            ("D", loss_D), ("D_real", l_dr), ("D_fake", l_df), ("D_gp", l_gp),
+            ("G_GAN", l_gan), ("G_recon", l_rec), ("G_smooth", l_sm), ("G", loss_G))
+            if v is not None}
         self.step += 1
+
+    def _d_phase(self, micro) -> list:
+        """D's step over the microbatches ``micro`` of (detached fake, real):
+        each through the pool, its loss (and penalty) backpropagated into
+        D's .grad; the summed gradients over their number, then D's Adam (not
+        under --freeze_g, where the loss is only reported). -> the mean
+        losses [D, D_real, D_fake, D_gp or None]."""
+        opt_D = self.optimizers["D"]
+        params = list(self.netD.parameters())
+        opt_D.zero_grad(set_to_none=True)
+        sums, k = None, 0
+        for fake, bi in micro:
+            fake = self._query_pool(fake)
+            if self.freeze_g:
+                with torch.no_grad():
+                    loss, parts = self._d_loss(fake, bi)
+            else:
+                loss, parts = self._d_loss(fake, bi)
+                loss.backward(inputs=params)
+            terms = [loss.detach(), *(t if t is None else t.detach() for t in parts)]
+            sums = terms if sums is None else [t if t is None else s + t
+                                               for s, t in zip(sums, terms)]
+            k += 1
+        if not self.freeze_g:
+            _mean_grads(params, k)
+            opt_D.step()
+        return [t if t is None or k == 1 else t / k for t in sums]
+
+    def _g_phase(self, micro, gan_w: float) -> list:
+        """The G+R gradients over the microbatches ``micro`` of (forward
+        outputs with their graph, real) against D as it is now, frozen: each
+        head loss backpropagated, the summed gradients over their number.
+        -> the mean losses [G, G_GAN, G_recon, G_smooth]."""
+        params = list(self.netG.parameters()) + list(self.netR.parameters())
+        self.optimizers["G"].zero_grad(set_to_none=True)
+        self.optimizers["R"].zero_grad(set_to_none=True)
+        self.netD.requires_grad_(False)
+        sums, k = None, 0
+        try:
+            for o, bi in micro:
+                loss, parts = self._head_loss(o, bi, gan_w)
+                loss.backward()
+                terms = [loss.detach(), *(t.detach() for t in parts)]
+                sums = terms if sums is None else [s + t for s, t in zip(sums, terms)]
+                k += 1
+        finally:
+            self.netD.requires_grad_(True)
+        _mean_grads(params, k)
+        return [t if k == 1 else t / k for t in sums]
+
+    def _update_ema(self) -> None:
+        """e <- d * e + (1 - d) * p for G's and R's shadows (the JAX
+        package's form, after the Adam steps; under --freeze_g too)."""
+        if self.ema is None:
+            return
+        d = self.ema_decay
+        for n, shadow in self.ema.items():
+            params = dict(self.nets()[n].named_parameters())
+            keys = list(shadow)
+            new = torch._foreach_add(torch._foreach_mul([shadow[k] for k in keys], d),
+                                     torch._foreach_mul([params[k].detach() for k in keys],
+                                                        1.0 - d))
+            self.ema[n] = dict(zip(keys, new))
+
+    # -- the training state beyond the nets and the Adams ------------------
+    def shadow_states(self) -> dict:
+        """The EMA shadows as the pseudo-nets G_ema and R_ema, with netG's
+        and netR's keys."""
+        if self.ema is None:
+            return {}
+        return {f"{n}_ema": shadow for n, shadow in self.ema.items()}
+
+    def extra_train_state(self) -> dict:
+        """The step generator's state and the pool (buffer and count)."""
+        state = {"rng": self.rng.get_state()}
+        if self.pool is not None:
+            state["pool"] = {"images": self.pool[0].cpu(), "count": self.pool[1].cpu()}
+        return state
+
+    def load_extra_train_state(self, state: dict, suffix) -> None:
+        if "rng" in state:
+            self.rng.set_state(state["rng"])
+        if self.pool is not None and "pool" in state:
+            self.pool = (state["pool"]["images"].to(self.device),
+                         state["pool"]["count"].to(self.device))
+        if self.ema is not None:
+            for n in self.ema:
+                self.ema[n] = self._load_shadow(suffix, n)
+
+    def _load_shadow(self, suffix, name: str) -> dict:
+        path = self._net_path(suffix, f"{name}_ema")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"no EMA shadow of net {name} at {path}")
+        print(f"loading the EMA shadow from {path}")
+        shadow = torch.load(path, map_location=self.device, weights_only=True)
+        params = dict(self.nets()[name].named_parameters())
+        if set(shadow) != set(params):
+            raise KeyError(f"{path}: keys differ from net{name}'s")
+        return {k: shadow[k].to(params[k].dtype) for k in params}
+
+    def load_networks(self, suffix):
+        """Every net; with --use_ema (test) then G's and R's EMA shadows
+        into netG and netR, so the forward runs through them."""
+        super().load_networks(suffix)
+        if not self.isTrain and self.use_ema:
+            for n in ("G", "R"):
+                self.nets()[n].load_state_dict(self._load_shadow(suffix, n))
 
     # ------------------------------------------------------------------
     # reference-API host methods
@@ -406,22 +573,29 @@ class NEMARModel(BaseModel):
 
 
 
+def _mean_grads(params: list, k: int) -> None:
+    """Divide the gradients summed over k microbatches by k (in place)."""
+    if k > 1:
+        for p in params:
+            if p.grad is not None:
+                p.grad.div_(k)
+
+
 def _check_supported(opt) -> None:
-    """Refuse the flags whose code paths are not ported yet, by name."""
-    queued = [
-        (getattr(opt, "bf16", False), "--bf16", "A7"),
-        (getattr(opt, "init_type", "normal") != "normal", f"--init_type {opt.init_type}", "A5"),
-        (getattr(opt, "use_ema", False), "--use_ema (EMA shadows come with training)", "A5"),
-        (getattr(opt, "pool_size", 0) > 0, "--pool_size > 0 (the image pool)", "A5"),
-        (getattr(opt, "grad_accum", 1) > 1, "--grad_accum > 1", "A5"),
-        (getattr(opt, "ema_decay", 0.0) > 0, "--ema_decay > 0", "A5"),
-        (getattr(opt, "gan_mode", "lsgan") == "wgangp",
-         "--gan_mode wgangp (a double backward through the kernels)", "A5"),
-        (getattr(opt, "steps_per_execution", 1) > 1, "--steps_per_execution > 1", "A5"),
-        (getattr(opt, "opt_fused", False), "--opt_fused", "A5"),
-        (getattr(opt, "opt_split", False), "--opt_split", "A5"),
-        (getattr(opt, "mesh_spatial", 1) > 1, "--mesh_spatial > 1", "A10"),
+    """Refuse, by name, the flags whose code paths are not ported yet or are
+    the TPU's only."""
+    refused = [
+        (getattr(opt, "bf16", False), "--bf16 is not ported yet (queued as ROADMAP.md A7)"),
+        (getattr(opt, "steps_per_execution", 1) > 1,
+         "--steps_per_execution > 1 is not ported yet (queued as ROADMAP.md A9: a CUDA "
+         "graph is the Hopper analogue)"),
+        (getattr(opt, "opt_fused", False),
+         "--opt_fused: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),
+        (getattr(opt, "opt_split", False),
+         "--opt_split: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),
+        (getattr(opt, "mesh_spatial", 1) > 1,
+         "--mesh_spatial > 1 is not ported yet (queued as ROADMAP.md A10)"),
     ]
-    for on, flag, item in queued:
+    for on, message in refused:
         if on:
-            raise NotImplementedError(f"{flag} is not ported yet (queued as ROADMAP.md {item})")
+            raise NotImplementedError(message)

@@ -2,7 +2,8 @@
 
 Counterpart of ``nemar_tpu/models/networks.py`` (``ResnetBlock``,
 ``ResnetGenerator``, ``NLayerDiscriminator``, ``define_G``, ``define_D``,
-``gan_loss``, ``get_lr_multiplier_fn``). Every op is differentiable: the
+``_make_init``, ``gan_loss``, ``cal_gradient_penalty``,
+``get_lr_multiplier_fn``). Every op is differentiable: the
 kernels' wrappers are ``torch.autograd.Function``s with hand-written
 backwards on the card. Module attribute names are the flax parameter names
 (``Conv_0``, ``ResnetBlock_3``, ``ConvTranspose_1``, ...), so a state_dict
@@ -33,6 +34,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -41,6 +43,7 @@ from nemar_tpu_torch.ops.conv_fused import fused_resblock
 from nemar_tpu_torch.ops.conv_head import conv_head
 from nemar_tpu_torch.ops.convt_fused import fused_convt_in
 from nemar_tpu_torch.ops.norm import instance_norm_act
+from nemar_tpu_torch.utils.convert import kernel_to_torch
 
 _QUEUED = "queued as ROADMAP.md A9"
 
@@ -73,18 +76,71 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
                      dim=3)
 
 
-def init_weights(module: nn.Module, init_gain: float, generator: torch.Generator) -> None:
-    """Reference init_weights 'normal': conv and dense kernels N(0, init_gain),
-    zero bias.
+def _jax_kernel_shape(m: nn.Module) -> tuple:
+    """The JAX package's shape of m's kernel: HWIO for a convolution, flax's
+    ConvTranspose (kh, kw, in, out), Dense (in, out)."""
+    w = m.weight
+    if isinstance(m, nn.Conv2d):
+        return (w.shape[2], w.shape[3], w.shape[1], w.shape[0])
+    if isinstance(m, nn.ConvTranspose2d):
+        return (w.shape[2], w.shape[3], w.shape[0], w.shape[1])
+    return (w.shape[1], w.shape[0])
 
-    The same seed draws other numbers than the JAX package; a trained model
-    comes from a checkpoint. (The other init types are refused by the model,
-    ROADMAP.md A5.)
-    """
+
+def draw_kernel(init_type: str, init_gain: float, shape: tuple,
+                generator: torch.Generator) -> torch.Tensor:
+    """A kernel of the JAX layout ``shape`` drawn as the JAX package's
+    ``_make_init(init_type, init_gain)`` draws it (``nemar_tpu/models/
+    networks.py``), the fans taken from that layout (in: all axes but the
+    last, out: all but the second last):
+
+      * xavier: flax ``variance_scaling(init_gain^2 * 2, 'fan_avg',
+        'truncated_normal')``, a normal truncated at +-2 standard units whose
+        stddev is divided by 0.87962566 so that the draw has variance
+        2 init_gain^2 / fan_avg (twice ``nn.init.xavier_normal_``'s);
+      * kaiming: ``variance_scaling(2.0, 'fan_in', 'normal')``, init_gain
+        unused;
+      * orthogonal: ``orthogonal(scale=init_gain)`` over the kernel viewed as
+        (prod(shape[:-1]), shape[-1]), orthonormal columns (rows where there
+        are fewer rows than columns), each sign taken from R's diagonal.
+
+    The same seed draws other numbers than JAX: parity is of the
+    distributions."""
+    receptive = math.prod(shape[:-2])
+    fan_in, fan_out = receptive * shape[-2], receptive * shape[-1]
+    if init_type == "xavier":
+        std = math.sqrt(init_gain**2 * 2.0 / ((fan_in + fan_out) / 2)) / 0.87962566103423978
+        k = torch.empty(shape)
+        nn.init.trunc_normal_(k, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return k * std
+    if init_type == "kaiming":
+        return torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in)
+    if init_type == "orthogonal":
+        rows, cols = math.prod(shape[:-1]), shape[-1]
+        a = torch.randn((cols, rows) if rows < cols else (rows, cols), generator=generator,
+                        dtype=torch.float64)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        q = q.T if rows < cols else q
+        return (init_gain * q).reshape(shape).float()
+    raise NotImplementedError(f"initialization method [{init_type}] is not implemented")
+
+
+def init_weights(module: nn.Module, init_gain: float, generator: torch.Generator,
+                 init_type: str = "normal") -> None:
+    """Reference init_weights: every conv, transposed conv and dense kernel
+    N(0, init_gain) ('normal', drawn in place) or drawn by ``draw_kernel``
+    in the JAX layout and carried as ``utils/convert.py`` carries kernels;
+    zero bias."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             with torch.no_grad():
-                nn.init.normal_(m.weight, 0.0, init_gain, generator=generator)
+                if init_type == "normal":
+                    nn.init.normal_(m.weight, 0.0, init_gain, generator=generator)
+                else:
+                    k = draw_kernel(init_type, init_gain, _jax_kernel_shape(m), generator)
+                    m.weight.copy_(torch.from_numpy(
+                        np.ascontiguousarray(kernel_to_torch(m, k.numpy()))))
                 m.bias.zero_()
 
 
@@ -205,18 +261,37 @@ def define_D(input_nc: int, ndf: int, netD: str, n_layers_D: int = 3,
 
 
 def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_mode: str) -> torch.Tensor:
-    """Reference GANLoss: lsgan = MSE against 1/0, vanilla = BCE with logits.
-
-    'wgangp' needs a double backward through the kernels and is refused by
-    the model (ROADMAP.md A5).
-    """
+    """Reference GANLoss: lsgan = MSE against 1/0, vanilla = BCE with logits,
+    wgangp = -mean for real, mean for fake."""
     if gan_mode == "lsgan":
         return torch.mean(torch.square(pred - (1.0 if target_is_real else 0.0)))
     if gan_mode == "vanilla":
         target = 1.0 if target_is_real else 0.0
         return torch.mean(torch.clamp_min(pred, 0.0) - pred * target
                           + torch.log1p(torch.exp(-torch.abs(pred))))
+    if gan_mode == "wgangp":
+        return -torch.mean(pred) if target_is_real else torch.mean(pred)
     raise NotImplementedError(f"gan mode {gan_mode!r}")
+
+
+def cal_gradient_penalty(net_d: nn.Module, real: torch.Tensor, fake: torch.Tensor,
+                         alpha: torch.Tensor, constant: float = 1.0,
+                         lambda_gp: float = 10.0) -> torch.Tensor:
+    """WGAN-GP penalty, gp_type 'mixed' (the JAX package's
+    ``cal_gradient_penalty``): D's input gradient at interp = alpha * real +
+    (1 - alpha) * fake, alpha (n, 1, 1, 1) drawn by the caller; returns
+    mean((sqrt(sum(grad^2) + 1e-16) - constant)^2) * lambda_gp per sample.
+
+    Under autograd the gradient keeps its graph (``create_graph``), so the
+    penalty's backward is a double backward through D: cuDNN's convolutions,
+    the leaky ReLUs and K-in's backward (``ops/norm.py``). Without autograd
+    it is only a value."""
+    create_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_()
+        (grad,) = torch.autograd.grad(net_d(interp).sum(), interp, create_graph=create_graph)
+    gnorm = torch.sqrt(torch.sum(torch.square(grad.reshape(real.shape[0], -1)), dim=1) + 1e-16)
+    return torch.mean(torch.square(gnorm - constant)) * lambda_gp
 
 
 def get_lr_multiplier_fn(opt) -> Callable[[int, float], float]:

@@ -278,6 +278,7 @@ class _FusedResblock(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         if g.is_cuda:
             dx, dw1, dw2 = block_bwd_padded(*ctx.saved_tensors, g)

@@ -307,6 +307,7 @@ class _ConvHead(torch.autograd.Function):
         return head_fwd_chunked(x, w) if x.is_cuda else conv_head_plain(x, w)
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         if g.is_cuda:

@@ -245,6 +245,7 @@ class _FusedConvtIn(torch.autograd.Function):
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, w, yhat, stats = ctx.saved_tensors
         if g.is_cuda:

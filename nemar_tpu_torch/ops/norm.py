@@ -18,7 +18,15 @@ recompute them:
 
     dx = rstd * (ĝ - mean(ĝ) - ŷ * mean(ĝ * ŷ)),   ĝ = g * act'(ŷ),
 
-the JAX package's analytic backward (``_in_act_vjp_bwd``).
+the JAX package's analytic backward (``_in_act_vjp_bwd``). That backward
+is itself a differentiable function of (x, g), ``_InstanceNormActBwd``: its
+forward is K-in-bwd on the card, its backward the VJP of
+``instance_norm_act_bwd_recompute``, which recomputes the statistics from x
+as ``_in_act_vjp_bwd`` does, so a double backward (the WGAN-GP penalty's,
+through D) keeps the terms through the mean and the variance. The JAX
+package takes that second derivative with XLA's autodiff, not with a Pallas
+kernel, and so does this one with stock torch ops. The activation's mask is
+piecewise constant and adds no term of its own.
 """
 
 from __future__ import annotations
@@ -62,20 +70,37 @@ def instance_norm_act_plain(x: torch.Tensor, act: str = "relu", eps: float = 1e-
     return _apply_act(instance_norm(x, eps), act, negative_slope)
 
 
-def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
-                                act: str = "relu", negative_slope: float = 0.2) -> torch.Tensor:
-    """Plain version of K-in-bwd: d x of ``instance_norm_act`` given g = d y
-    and the forward's stats (N, 2, C) = (mean, rstd)."""
-    y = normalise(x, stats)
+def _in_act_bwd(x, g, mean, rstd, act: str, negative_slope: float) -> torch.Tensor:
+    """d x of act((x - mean) * rstd) given g = d y, the activation's mask
+    taken as a constant (it is piecewise constant)."""
+    y = (x - mean) * rstd
     if act == "relu":
-        g = torch.where(y > 0, g, 0.0)
+        g = torch.where(y.detach() > 0, g, 0.0)
     elif act == "leaky_relu":
-        g = torch.where(y >= 0, g, negative_slope * g)
+        g = torch.where(y.detach() >= 0, g, negative_slope * g)
     elif act != "none":
         raise ValueError(f"unknown act: {act!r}")
     m1 = g.mean(dim=(1, 2), keepdim=True)
     m2 = (g * y).mean(dim=(1, 2), keepdim=True)
-    return stats[:, None, None, 1] * (g - m1 - y * m2)
+    return rstd * (g - m1 - y * m2)
+
+
+def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                                act: str = "relu", negative_slope: float = 0.2) -> torch.Tensor:
+    """Plain version of K-in-bwd: d x of ``instance_norm_act`` given g = d y
+    and the forward's stats (N, 2, C) = (mean, rstd)."""
+    return _in_act_bwd(x, g, stats[:, None, None, 0], stats[:, None, None, 1], act,
+                       negative_slope)
+
+
+def instance_norm_act_bwd_recompute(x: torch.Tensor, g: torch.Tensor, act: str = "relu",
+                                    eps: float = 1e-5,
+                                    negative_slope: float = 0.2) -> torch.Tensor:
+    """``instance_norm_act_bwd_plain`` with the statistics recomputed from x
+    (the JAX package's ``_in_act_vjp_bwd``): differentiable in x and g."""
+    mean = x.mean(dim=(1, 2), keepdim=True)
+    rstd = torch.rsqrt(torch.square(x - mean).mean(dim=(1, 2), keepdim=True) + eps)
+    return _in_act_bwd(x, g, mean, rstd, act, negative_slope)
 
 
 class _InstanceNormAct(torch.autograd.Function):
@@ -86,19 +111,42 @@ class _InstanceNormAct(torch.autograd.Function):
         else:
             stats = instance_norm_stats(x, eps)
             y = _apply_act(normalise(x, stats), act, negative_slope)
-        ctx.act, ctx.negative_slope = act, negative_slope
+        ctx.act, ctx.eps, ctx.negative_slope = act, eps, negative_slope
         ctx.save_for_backward(x, stats)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, stats = ctx.saved_tensors
+        return (_InstanceNormActBwd.apply(x, stats, g, ctx.act, ctx.eps, ctx.negative_slope),
+                None, None, None)
+
+
+class _InstanceNormActBwd(torch.autograd.Function):
+    """(x, stats, g) -> d x: K-in-bwd on the card, the plain version on the
+    CPU; its own backward recomputes the statistics from x (stats carries
+    no gradient: it is a value of x)."""
+
+    @staticmethod
+    def forward(ctx, x, stats, g, act, eps, negative_slope):
         if x.is_cuda:
-            dx = norm_cuda.instance_norm_act_bwd_cuda(x, g.contiguous(), stats, ctx.act,
-                                                      ctx.negative_slope)
+            dx = norm_cuda.instance_norm_act_bwd_cuda(x, g.contiguous(), stats, act,
+                                                      negative_slope)
         else:
-            dx = instance_norm_act_bwd_plain(x, g, stats, ctx.act, ctx.negative_slope)
-        return dx, None, None, None
+            dx = instance_norm_act_bwd_plain(x, g, stats, act, negative_slope)
+        ctx.act, ctx.eps, ctx.negative_slope = act, eps, negative_slope
+        ctx.save_for_backward(x, g)
+        return dx
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gg):
+        x, g = ctx.saved_tensors
+        with torch.enable_grad():
+            x, g = x.detach().requires_grad_(), g.detach().requires_grad_()
+            dx = instance_norm_act_bwd_recompute(x, g, ctx.act, ctx.eps, ctx.negative_slope)
+            ddx, dg = torch.autograd.grad(dx, (x, g), gg)
+        return ddx, None, dg, None, None, None
 
 
 def instance_norm_act(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,

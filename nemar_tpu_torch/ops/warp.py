@@ -312,6 +312,7 @@ class _GridSample(torch.autograd.Function):
         return _sample_plain(img, x, y, "bilinear")
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         img, grid = ctx.saved_tensors
         padding_mode, align_corners, gc = ctx.conf

@@ -1,8 +1,7 @@
 """Train options (reference options/train_options.py), this package's copy
 of ``nemar_tpu/options/train_options.py``. The flags whose code paths are
-not ported are parsed and refused by the model, by name (``--pool_size >
-0``, ``--grad_accum > 1``, ``--ema_decay > 0``, ``--gan_mode wgangp``,
-``--steps_per_execution > 1``, ``--opt_fused``, ``--opt_split``)."""
+not ported or are TPU-only are parsed and refused by the model, by name
+(``--steps_per_execution > 1``, ``--opt_fused``, ``--opt_split``)."""
 
 from nemar_tpu_torch.options.base_options import BaseOptions
 

@@ -49,6 +49,18 @@ fresh processes on one card (parent, change, change, parent, ...).
   ``chip_smoke.py``'s phase 5 (its options and seeded batches): the median
   host time of 6 steps after 2 warm-up steps, each ending in
   ``torch.cuda.synchronize()``;
+- ``fit_512``: BASELINE.md config #4's training step (``chip_smoke.py``'s
+  phase 11: 512^2 pairs at batch 32, lsgan, fp32) at ``--grad_accum`` 1, 2
+  and 4: whether one step fits the card (a CUDA out-of-memory error is
+  caught and recorded), and where it does the peak memory
+  (``torch.cuda.max_memory_allocated``) and the host time of a second step;
+- ``a5_split``: where the A5 step's time goes (``chip_smoke.py``'s phase
+  10, 256^2, batch 8): the median host time of 4 steps after 2 warm-up
+  steps of phase 5's step, then with ``--grad_accum 2``, then also
+  ``--gan_mode wgangp``, then with all of ``chip_smoke.A5_FLAGS``; and the
+  WGAN-GP penalty alone at a microbatch of 4 (D's pass over the mix, its
+  input gradient with the graph, the penalty's backward into D): its median
+  CUDA-event time and its device time by kernel;
 - ``sass``: for each kernel of the tree's library, its SASS instructions
   (``cuobjdump -sass``) counted and hashed, so that two trees' lines show
   which kernels compile to the same code;
@@ -180,15 +192,17 @@ def request_ms(chip_smoke, torch, reps: int = 20) -> dict:
     return {"batch": 1, "ms_median": float(np.median(times)), "ms": times}
 
 
-def train_step_ms(chip_smoke, torch, batch: int) -> dict:
-    """The ``train_step`` parts (see the module's docstring)."""
+def train_step_ms(chip_smoke, torch, batch: int, flags: tuple = (), steps: int = 8) -> dict:
+    """The ``train_step`` parts (see the module's docstring): the median
+    host time of ``steps`` - 2 steps after 2 warm-up steps, with ``flags``
+    added to phase 5's options."""
     import numpy as np
 
     with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
-        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, "--gpu_ids", "0",
+        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, *flags, "--gpu_ids", "0",
                                         "--checkpoints_dir", ckpt, "--batch_size", str(batch)])
         times = []
-        for i, b in enumerate(chip_smoke.request_batches(8, batch, seed=4)):
+        for i, b in enumerate(chip_smoke.request_batches(steps, batch, seed=4)):
             t0 = time.perf_counter()
             model.set_input(b)
             model.optimize_parameters()
@@ -199,8 +213,61 @@ def train_step_ms(chip_smoke, torch, batch: int) -> dict:
     return {"batch": batch, "ms_median": float(np.median(times)), "ms": times}
 
 
+def fit_512(chip_smoke, torch, k: int) -> dict:
+    """The ``fit_512`` part at --grad_accum k (see the module's docstring)."""
+    import gc
+
+    args = [*chip_smoke.TRAIN_ARGS, *chip_smoke.B32_ARGS, "--grad_accum", str(k),
+            "--gpu_ids", "0"]
+    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+        model = chip_smoke.train_model([*args, "--checkpoints_dir", ckpt])
+        batch = chip_smoke.request_batches(1, model.opt.batch_size, 12, model.opt.crop_size)[0]
+        torch.cuda.reset_peak_memory_stats()
+        out = {"grad_accum": k, "fits": True}
+        try:
+            for step in range(2):
+                t0 = time.perf_counter()
+                model.set_input(batch)
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+            out["ms"] = (time.perf_counter() - t0) * 1e3
+        except torch.cuda.OutOfMemoryError as e:
+            out.update(fits=False, step=step, error=str(e).splitlines()[0])
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def a5_split(chip_smoke, torch) -> dict:
+    """The ``a5_split`` part (see the module's docstring)."""
+    from nemar_tpu_torch.models import networks
+
+    n, a5 = chip_smoke.TRAIN_BATCH, chip_smoke.A5_FLAGS
+    variants = {"phase5": (), "grad_accum_2": ("--grad_accum", "2"),
+                "grad_accum_2_wgangp": ("--grad_accum", "2", "--gan_mode", "wgangp"), "a5": a5}
+    out = {name: train_step_ms(chip_smoke, torch, n, flags, steps=6)
+           for name, flags in variants.items()}
+    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, *a5, "--gpu_ids", "0",
+                                        "--checkpoints_dir", ckpt, "--batch_size", str(n)])
+    model.set_input(chip_smoke.request_batches(1, n, seed=4)[0])
+    net_d, real, fake = model.netD, model.real_B[: n // 2], model.real_B[n // 2:].flip(3)
+    alpha = torch.rand((n // 2, 1, 1, 1), generator=torch.Generator().manual_seed(0)).cuda()
+    params = list(net_d.parameters())
+
+    def penalty():
+        networks.cal_gradient_penalty(net_d, real, fake, alpha).backward(inputs=params)
+
+    dms, by = chip_smoke.device_ms(penalty, None, 5)
+    out["penalty_b4"] = {"event_ms": chip_smoke.median_ms(penalty, iters=10), "device_ms": dms,
+                         "by_kernel": by}
+    return out
+
+
 PARTS = ("warp_bwd", "block", "convt", "head", "in", "request", "train_step_b1", "train_step",
-         "sass")
+         "fit_512", "a5_split", "sass")
 
 
 def trace_check(chip_smoke, torch, traces: int) -> dict:
@@ -334,6 +401,10 @@ def main() -> int:
         out["train_step_b1"] = train_step_ms(chip_smoke, torch, 1)
     if "train_step" in parts:
         out["train_step"] = train_step_ms(chip_smoke, torch, n)
+    if "fit_512" in parts:
+        out["fit_512"] = [fit_512(chip_smoke, torch, k) for k in (1, 2, 4)]
+    if "a5_split" in parts:
+        out["a5_split"] = a5_split(chip_smoke, torch)
     if "sass" in parts:
         out["sass"] = sass_digest(_build.library_path(), _build._nvcc())
 

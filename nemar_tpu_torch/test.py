@@ -8,7 +8,10 @@ Loads the per-net checkpoints ``{epoch}_net_{G,D,R}.pth`` from
 gallery of visuals to ``{results_dir}/{name}/{phase}_{epoch}/index.html``.
 With ``--eval_registration`` it also writes the registration metrics
 (NCC / PSNR / L1 of reg_fakeB against real_B; flow EPE in pixels where the
-dataset has ground truth) to ``eval.json``. ``--gpu_ids -1`` runs on the CPU.
+dataset has ground truth) to ``eval.json``. With ``--use_ema`` the forward
+runs through the EMA shadows of G and R that a ``--ema_decay`` training run
+saved beside the nets (``{epoch}_net_{G,R}_ema.pth``). ``--gpu_ids -1`` runs
+on the CPU.
 """
 
 import json

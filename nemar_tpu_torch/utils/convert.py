@@ -18,6 +18,11 @@ are the flax names in creation order (``models/networks.py``,
     in); their rows keep flax's order (the affine STN flattens its features
     NHWC, as flax does, so no permutation is needed).
 
+The JAX state's EMA shadows (``state.ema["G"]``, ``state.ema["R"]``) are
+parameter trees of G and R: ``flax_to_torch(state.ema["G"], netG)`` is the
+state_dict of the pseudo-net ``{suffix}_net_G_ema.pth`` (``--ema_decay``,
+``models/nemar_model.py``), with netG's keys.
+
 A flax leaf without a counterpart, a parameter the tree does not give, or a
 shape that differs raises.
 """
@@ -41,6 +46,15 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict:
     return out
 
 
+def kernel_to_torch(mod: nn.Module, kernel: np.ndarray) -> np.ndarray:
+    """A flax kernel of the layer ``mod`` in the layout of ``mod.weight``."""
+    if isinstance(mod, nn.ConvTranspose2d):
+        return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+    if isinstance(mod, nn.Linear):
+        return kernel.T
+    return kernel.transpose(3, 2, 0, 1)
+
+
 def flax_to_torch(params: Mapping, module: nn.Module, dtype: torch.dtype = torch.float32) -> dict:
     tree = params["params"] if "params" in params else params
     mods = dict(module.named_modules())
@@ -56,12 +70,8 @@ def flax_to_torch(params: Mapping, module: nn.Module, dtype: torch.dtype = torch
                            f"{type(module).__name__}")
         if leaf == "bias":
             key, val = f"{name}.bias", arr
-        elif isinstance(mod, nn.ConvTranspose2d):
-            key, val = f"{name}.weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        elif isinstance(mod, nn.Linear):
-            key, val = f"{name}.weight", arr.T
         else:
-            key, val = f"{name}.weight", arr.transpose(3, 2, 0, 1)
+            key, val = f"{name}.weight", kernel_to_torch(mod, arr)
         if tuple(val.shape) != tuple(target[key].shape):
             raise ValueError(f"{'/'.join(path)}: shape {val.shape} does not fit {key} "
                              f"{tuple(target[key].shape)}")

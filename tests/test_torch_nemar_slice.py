@@ -175,12 +175,19 @@ def test_field_source_fake_predicts_from_the_translation(tmp_path):
                                   ["--netG", "unet_256"]])
 def test_unported_flags_raise(tmp_path, flag):
     """Flags of paths not ported yet raise, naming their ROADMAP.md item.
-    ``--stn_type affine`` was one until the affine STN was ported: it now
-    builds and answers a request."""
+    ``--stn_type affine`` was one until the affine STN was ported, and
+    ``--init_type xavier`` and ``--use_ema`` until A5 was: each now builds
+    and answers a request; ``--use_ema`` first loads the EMA shadows, and
+    without them on disk its setup raises (never random weights)."""
     opt = TestOptions().parse(_port_args(tmp_path, *flag))
-    if flag == ["--stn_type", "affine"]:
+    if flag in (["--stn_type", "affine"], ["--init_type", "xavier"], ["--use_ema"]):
         model = create_model(opt)
-        assert type(model.netR).__name__ == "AffineSTN"
+        if flag == ["--stn_type", "affine"]:
+            assert type(model.netR).__name__ == "AffineSTN"
+        if flag == ["--use_ema"]:
+            model.save_networks("latest")
+            with pytest.raises(FileNotFoundError, match="EMA shadow of net G"):
+                model.setup(opt)
         model.set_input({"A": np.zeros((2, 32, 32, 1), np.float32),
                          "B": np.ones((2, 32, 32, 3), np.float32)})
         model.test()
