@@ -60,7 +60,19 @@ is not 0.
      of 4 and at batch 8: d x by K-in-bwd
      and the VJP of (x, g) -> d x by stock ops against the plain function's
      autograd on the card, within 1e-4 of the largest value, one K-in and
-     one K-in-bwd launch a call (asserted);
+     one K-in-bwd launch a call (asserted).
+     In phases 2 and 2b also the bf16 variants (--bf16) of K-block,
+     K-convt, K-in and their backwards against their plain versions at bf16
+     on the same bf16 inputs, at the shapes of phases 2, 2b, 10 and 11
+     (``check_bf16_kernels``, ``check_bf16_bwd_kernels``; phases 8, 12 and
+     12b hold them at their own shapes): each bf16 output
+     within one bf16 ulp of its value (K-block's forward stage by stage;
+     downstream of a rounding inside the kernel, of the tensor's largest
+     value), the fp32 statistics within 1e-5, twice bit for bit; the GEMM
+     variants at phase 2's b1 and phase 2b's b8 shapes also against a
+     float64 computation from the same bf16 inputs with the same roundings
+     (no worse than the plain fp32 version), timed by event and device time
+     (launches asserted) beside cuDNN's bf16 convolutions of the same shapes;
   3. the inference slice: options parsed as ``nemar_tpu_torch.test`` parses
      them (``--gpu_ids 0``), seeded checkpoints written (the flow head drawn
      non-zero, so the warp samples between pixels) and loaded by
@@ -149,6 +161,22 @@ is not 0.
      step (chiprun_out/profile_b32_512.txt). Whether batch 32 fits without
      accumulation is measured by ``nemar_tpu_torch/probe.py --parts
      fit_512``, not here.
+  12. --bf16 (ROADMAP.md A7) on the default model at 256^2 (``run_bf16``):
+     phase 3's checkpoints through ``nemar_tpu_torch.test``'s options with
+     --bf16, 8 b1 requests with every counter zeroed just before (the bf16
+     variants' launches, K-warp's and K-head's and their casts asserted:
+     ``bf16_launches``, BF16_CASTS_*), then b8, each twice bit for bit; the
+     card's bf16 outputs against the CPU's fp32 within 4x the CPU's own
+     bf16-vs-fp32 difference; the b8 training step (ms, pairs/s, peak
+     memory, launches and casts, two runs bit for bit; in the first step,
+     K-in's and K-in-bwd's bf16 variants, K-warp and K-warp-bwd against
+     their plain versions at every configuration the step gives them), and
+     one b1 step's losses and gradients card against CPU by the same rule;
+     phase 8's bf16 step is watched the same way;
+  12b. 512^2 b32 under --bf16 in 2 microbatches of 16 (BF16_B32_ARGS): in
+     the first step the watch of phase 12, then the bf16 variants of the
+     core's operators at the microbatch's shapes (``check_g_kernels_bf16_at``);
+     ms per step, pairs/s, peak memory, launches and casts asserted.
 
 The line before the last is a JSON object with one entry per kernel. For a
 forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
@@ -162,8 +190,12 @@ for one training step at batch 8. ``launches`` counts phase 3's requests
 K-in-bwd's entries add their device time, their yardstick's event and
 device time, and K-in's b8 step and K-in-bwd's b1 step likewise; K-head's
 adds its and its library call's device time, K-head-bwd's its device time
-and its cuDNN yardstick's event and device time (deterministic). The last
-line is ``{"ok": true, "device": {...}}``.
+and its cuDNN yardstick's event and device time (deterministic). The bf16
+variants have entries of their own (``K-block-bf16``, ...): the same
+totals at bf16 (their bound's operations at the 989 TFLOP/s bf16 peak),
+their launches from phase 12's requests and steps, and cuDNN's bf16
+convolutions of the same shapes (F.instance_norm at bf16 for K-in) as a
+yardstick. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -171,6 +203,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import os
 import re
 import subprocess
@@ -558,7 +591,16 @@ class Tally:
 
 
 def randn(rng, shape, scale: float = 1.0, dev=None) -> torch.Tensor:
+    """Seeded normals: from a numpy generator, drawn on the host; from a
+    torch.Generator on the card, drawn there (large operands: the host
+    draws ~50 M values a second)."""
+    if isinstance(rng, torch.Generator):
+        return scale * torch.randn(shape, generator=rng, device=rng.device)
     return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+
+def card_rng(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
 
 
 def in_yardstick(x: torch.Tensor, g: torch.Tensor | None = None):
@@ -1858,22 +1900,28 @@ def _g_op_shapes(model, crop: int, n: int = 1) -> dict:
             "head": ((n, crop, crop, head.in_channels), head.out_channels)}
 
 
-def check_g_ops_off_tiles(shapes: dict, dev) -> dict:
+def check_g_ops_off_tiles(shapes: dict, dev, dtype: torch.dtype = torch.float32) -> dict:
     """Each of G's ops at ``shapes`` through its autograd op on the card
     (the wrappers' channel padding, K-head's chunks, K-block's masked
     pixel tails) against its plain version on the same inputs: the largest
     error of the value and of the gradients, each over the largest
-    reference value, within the kernel's TOL."""
+    reference value, within the kernel's TOL. At bf16 (the bf16 variants,
+    K-head's cast), in bf16 spacings of each tensor's largest value, within
+    BF16_ULPS: through autograd each backward takes its own forward's saved
+    values, downstream of its roundings."""
     from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused
 
     rng = np.random.default_rng(12)
 
     def rel(fn, plain, args, g_shape):
-        args = [a.requires_grad_() for a in args]
-        g = randn(rng, g_shape, 1.0, dev)
+        args = [a.to(dtype).requires_grad_() for a in args]
+        g = randn(rng, g_shape, 1.0, dev).to(dtype)
         out, ref = fn(*args), plain(*args)
         got = torch.autograd.grad(out, args, g)
         want = torch.autograd.grad(ref, args, g)
+        if dtype == torch.bfloat16:
+            return (bf16_ulps(out.detach(), ref.detach(), at_scale=True),
+                    max(bf16_ulps(p, q, at_scale=True) for p, q in zip(got, want)))
         return max_rel_err([out.detach()], [ref.detach()]), max_rel_err(got, want)
 
     c = shapes["block"][3]
@@ -1892,9 +1940,11 @@ def check_g_ops_off_tiles(shapes: dict, dev) -> dict:
                           randn(rng, (7, 7, x_shape[3], co), 0.05, dev)], x_shape[:3] + (co,))
     for k, (fwd, bwd) in errs.items():
         name = k.split("_")[0]
-        if not (fwd <= TOL[name] and bwd <= TOL[name + "-bwd"]):
-            raise AssertionError(f"{k} at {shapes}: value / gradient errors {fwd}, {bwd} "
-                                 f"above {TOL[name]}, {TOL[name + '-bwd']}")
+        tol = ((BF16_ULPS, BF16_ULPS) if dtype == torch.bfloat16
+               else (TOL[name], TOL[name + "-bwd"]))
+        if not (fwd <= tol[0] and bwd <= tol[1]):
+            raise AssertionError(f"{k} at {shapes} ({dtype}): value / gradient errors {fwd}, "
+                                 f"{bwd} above {tol}")
     return errs
 
 
@@ -1945,6 +1995,63 @@ def check_g_kernels_at(shapes: dict, dev) -> dict:
     return errs
 
 
+def check_g_kernels_bf16_at(shapes: dict, dev) -> dict:
+    """``check_g_kernels_at`` for the --bf16 path: the bf16 variants of
+    K-block, K-block-bwd, K-convt and K-convt-bwd at ``shapes`` by their
+    launch wrappers against their plain versions at bf16 on the same bf16
+    inputs, as phases 2 and 2b hold them (``hold_bf16``: K-block's forward
+    stage by stage, each backward fed the plain forward's saved values, in
+    bf16 spacings of the largest value); K-head, whose fp32 kernel runs on
+    the upcast bf16 operands under --bf16, on such operands within its
+    TOL. Returns {kernel: [forward, backward] largest error}."""
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused
+
+    rng = card_rng(17)
+    bf = torch.bfloat16
+    x_shape = shapes["block"]
+    c, shape = x_shape[3], "x".join(map(str, x_shape))
+    x, g = randn(rng, x_shape, 1.0, dev).to(bf), randn(rng, x_shape, 1.0, dev).to(bf)
+    w1, w2 = (randn(rng, (3, 3, c, c), 0.02, dev).to(bf) for _ in range(2))
+    got, again = [conv_fused.fused_resblock_cuda(x, w1, w2) for _ in range(2)]
+    errs = {"K-block": [hold_bf16("K-block-bf16", shape, got, again,
+                                  block_fwd_ref_bf16(x, w1, w2, got[2]), tag="kernel_at")]}
+    del got, again
+    saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
+    got, again = [conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g) for _ in range(2)]
+    errs["K-block"].append(hold_bf16("K-block-bwd-bf16", shape, got, again,
+                                     conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved),
+                                     tag="kernel_bwd_at", at_scale=True))
+    del got, again, saved
+    for i, (x_shape, co) in enumerate(shapes["convt"]):
+        n, h, w, ci = x_shape
+        shape = f"{n}x{h}x{w}x{ci}->{co}"
+        x = randn(rng, x_shape, 1.0, dev).to(bf)
+        wk = randn(rng, (3, 3, ci, co), 0.02, dev).to(bf)
+        g = randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev).to(bf)
+        got, again = [convt_fused.fused_convt_in_cuda(x, wk) for _ in range(2)]
+        errs[f"K-convt_{i}"] = [hold_bf16("K-convt-bf16", shape, got, again,
+                                          convt_fused.convt_in_fwd_plain(x, wk), tag="kernel_at")]
+        saved = convt_fused.convt_in_fwd_plain(x, wk)[1:]
+        got, again = [convt_fused.convt_in_bwd_cuda(x, wk, *saved, g) for _ in range(2)]
+        errs[f"K-convt_{i}"].append(hold_bf16(
+            "K-convt-bwd-bf16", shape, got, again,
+            convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved), tag="kernel_bwd_at",
+            at_scale=True))
+        del got, again, saved
+    x_shape, co = shapes["head"]
+    x = randn(rng, x_shape, 1.0, dev).to(bf).float()
+    wk = randn(rng, (7, 7, x_shape[3], co), 0.02, dev).to(bf).float()
+    g = randn(rng, x_shape[:3] + (co,), 1.0, dev).to(bf).float()
+    errs["K-head"] = [max_rel_err([conv_head.conv_head_cuda(x, wk)],
+                                  [conv_head.conv_head_plain(x, wk)]),
+                      max_rel_err(conv_head.conv_head_bwd_cuda(x, wk, g),
+                                  conv_head.conv_head_bwd_plain(x, wk, g))]
+    if not (errs["K-head"][0] <= TOL["K-head"] and errs["K-head"][1] <= TOL["K-head-bwd"]):
+        raise AssertionError(f"K-head at {shapes} on bf16 operands: value / gradient errors "
+                             f"{errs['K-head']} above {TOL['K-head']}, {TOL['K-head-bwd']}")
+    return errs
+
+
 def _g_step_launches(model) -> dict:
     """Launches of one b1 step of the default recipe, as phase 5 counts
     them: two G passes, each 6 K-block, 2 K-convt, K-head once a chunk of 8
@@ -1967,7 +2074,12 @@ def run_off_kernel_shapes(ckpt: str) -> None:
     step on the card (the counters zeroed just before: every G kernel's
     launches asserted), its seven losses against the CPU's step from the
     same state (fresh Adam) within 1e-4 relative, and a second card run,
-    bit for bit."""
+    bit for bit. Then the same under --bf16: G's ops at bf16, and a b1 step
+    on the card from the same state (the bf16 variants' launches and the
+    casts asserted; K-in's and K-in-bwd's bf16 variants, K-warp and
+    K-warp-bwd held at each configuration the step gives them,
+    ``watch_kernels``), its losses against the CPU's fp32 step within
+    BF16_VS_CPU x the CPU's own bf16 step's difference from it."""
     from nemar_tpu_torch.ops.conv_head import head_chunks
 
     dev = torch.device("cuda", 0)
@@ -2022,6 +2134,39 @@ def run_off_kernel_shapes(ckpt: str) -> None:
         if not same:
             raise AssertionError(f"{case}: two identical steps on the card differ")
         del cpu
+        op16 = check_g_ops_off_tiles(shapes, dev, torch.bfloat16)
+        bf16_steps = {}
+        for name, gpu in (("card", "0"), ("cpu", "-1")):
+            m = train_model([*args, "--bf16", "--gpu_ids", gpu])
+            for n, net in m.nets().items():
+                net.load_state_dict(state[n])
+            with watch_kernels(bf16=True) if gpu == "0" else contextlib.nullcontext({}) as got:
+                counters, casts = zero_all_counters()
+                m.set_input(pair)
+                m.optimize_parameters()
+                torch.cuda.synchronize()
+                bf16_steps[name] = (m.get_current_losses(),
+                                    {k: fn.launches for k, fn in counters.items()},
+                                    {k: fn.casts for k, fn in casts.items()})
+            if gpu == "0":
+                seen, watched = got, check_watched(got, f"{case} --bf16")
+            del m
+        (l16, launches16, casts16), (l16c, _, _) = bf16_steps["card"], bf16_steps["cpu"]
+        want16 = bf16_launches({k: want.get(k, 0) for k in counters if k not in BF16.values()})
+        err16 = (_rel_to_max(l16, lc, list(lc)), _rel_to_max(l16c, lc, list(lc)))
+        phase("off_kernel_shape_bf16", case=case, batch=1,
+              op_bf16_ulps_value_grad=json.dumps(op16),
+              watched_configs_max_err=json.dumps(watched), watched=json.dumps(seen),
+              launches=json.dumps(launches16),
+              expected=json.dumps(want16), casts=json.dumps(casts16),
+              losses_card_bf16_vs_cpu_fp32_and_cpu_bf16_vs_cpu_fp32=json.dumps(err16),
+              factor=BF16_VS_CPU)
+        if launches16 != want16 or casts16 != BF16_CASTS_STEP:
+            raise AssertionError(f"{case} --bf16: launches {launches16} / casts {casts16}, "
+                                 f"expected {want16} / {BF16_CASTS_STEP}")
+        if not (all(np.isfinite(v) for v in l16.values())
+                and 0 < err16[0] <= BF16_VS_CPU * err16[1]):
+            raise AssertionError(f"{case} --bf16: losses {l16}, against the CPU {err16}")
 
 
 def run_adversarial_gate() -> None:
@@ -2057,33 +2202,39 @@ def _rel_err(got, ref) -> float:
 
 
 @contextlib.contextmanager
-def watch_kernels():
+def watch_kernels(bf16: bool = False):
     """A context in which the first launch of K-in, K-in-bwd, K-warp and
     K-warp-bwd at each configuration (shapes and options) is held against
     the kernel's plain version on that launch's own inputs, the activations
-    of the path that runs inside, by ``_rel_err``. Yields {kernel: {config:
-    error}}. A wrapper counts its launches on the name its module binds
-    it to, so the watching wrapper carries the count inside and hands it
-    back on exit; the counters are not zeroed inside."""
+    of the path that runs inside, by ``_rel_err``; with ``bf16``, K-in's
+    and K-in-bwd's bf16 variants in their place (--bf16), against their
+    plain versions at bf16 in bf16 spacings of each value (``bf16_ulps``),
+    as phases 2 and 2b hold them. Yields {kernel: {config: error}}. A wrapper
+    counts its launches on the name its module binds it to, so the watching
+    wrapper carries the count inside and hands it back on exit; the
+    counters are not zeroed inside."""
     from nemar_tpu_torch.ops import norm, norm_cuda, warp, warp_cuda
 
-    seen = {k: {} for k in ("K-in", "K-in-bwd", "K-warp", "K-warp-bwd")}
+    k_in = ("K-in-bf16", "K-in-bwd-bf16") if bf16 else ("K-in", "K-in-bwd")
+    seen = {k: {} for k in (*k_in, "K-warp", "K-warp-bwd")}
 
     def held(name, key, got, plain):
         key = " ".join(map(str, key))
         if key not in seen[name]:
             with torch.no_grad():
-                seen[name][key] = _rel_err(got, plain())
+                ref = plain()
+                seen[name][key] = (max(bf16_ulps(p, q) for p, q in zip(got, ref))
+                                   if name.endswith("-bf16") else _rel_err(got, ref))
 
-    def in_fwd(orig, x, act="relu", eps=1e-5, negative_slope=0.2):
+    def in_fwd(name, orig, x, act="relu", eps=1e-5, negative_slope=0.2):
         y, stats = orig(x, act, eps, negative_slope)
-        held("K-in", ("x".join(map(str, x.shape)), act), [y],
+        held(name, ("x".join(map(str, x.shape)), act), [y],
              lambda: [norm.instance_norm_act_plain(x, act, eps, negative_slope)])
         return y, stats
 
-    def in_bwd(orig, x, g, stats, act="relu", negative_slope=0.2):
+    def in_bwd(name, orig, x, g, stats, act="relu", negative_slope=0.2):
         dx = orig(x, g, stats, act, negative_slope)
-        held("K-in-bwd", ("x".join(map(str, x.shape)), act), [dx],
+        held(name, ("x".join(map(str, x.shape)), act), [dx],
              lambda: [norm.instance_norm_act_bwd_plain(x, g, stats, act, negative_slope)])
         return dx
 
@@ -2103,8 +2254,9 @@ def watch_kernels():
              lambda: warp._grid_sample_plain_bwd(img, grid, g, padding_mode, align_corners, gc))
         return out
 
-    hooks = {(norm_cuda, "instance_norm_act_cuda"): in_fwd,
-             (norm_cuda, "instance_norm_act_bwd_cuda"): in_bwd,
+    suffix = "_bf16" if bf16 else ""
+    hooks = {(norm_cuda, f"instance_norm_act{suffix}_cuda"): functools.partial(in_fwd, k_in[0]),
+             (norm_cuda, f"instance_norm_act_bwd{suffix}_cuda"): functools.partial(in_bwd, k_in[1]),
              (warp_cuda, "warp_bilinear"): warp_fwd, (warp_cuda, "warp_grid_bwd"): warp_bwd}
     saved = {key: getattr(*key) for key in hooks}
     for (mod, name), hook in hooks.items():
@@ -2120,15 +2272,17 @@ def watch_kernels():
 
 
 def check_watched(seen: dict, where: str) -> dict:
-    """``watch_kernels``'s errors within each kernel's TOL, every kernel
-    seen; returns {kernel: [configurations, largest error]}."""
+    """``watch_kernels``'s errors within each kernel's TOL (a bf16
+    variant's within BF16_ULPS), every kernel seen; returns {kernel:
+    [configurations, largest error]}."""
     for k, errs in seen.items():
         if not errs:
             raise AssertionError(f"{where}: {k} was not launched")
-        bad = {c: e for c, e in errs.items() if not e <= TOL[k]}
+        tol = BF16_ULPS if k.endswith("-bf16") else TOL[k]
+        bad = {c: e for c, e in errs.items() if not e <= tol}
         if bad:
             raise AssertionError(f"{where}: {k} disagrees with its plain version (tol "
-                                 f"{TOL[k]}): {bad}")
+                                 f"{tol}): {bad}")
     return {k: [len(errs), max(errs.values())] for k, errs in seen.items()}
 
 
@@ -2444,6 +2598,737 @@ def run_b32_512(ckpt: str) -> None:
     del model
 
 
+# ---------------------------------------------------------------------------
+# --bf16 (ROADMAP.md A7): the bf16 variants and the bf16 path
+# ---------------------------------------------------------------------------
+# the bf16 variant of each kernel that has one; K-warp and K-head (and their
+# backwards) run their fp32 kernels under --bf16, behind counted casts
+BF16 = {"K-block": "K-block-bf16", "K-convt": "K-convt-bf16", "K-in": "K-in-bf16",
+        "K-block-bwd": "K-block-bwd-bf16", "K-convt-bwd": "K-convt-bwd-bf16",
+        "K-in-bwd": "K-in-bwd-bf16"}
+# the H100 SXM's dense bf16 tensor-core peak at 700 W (NVIDIA's data sheet)
+PEAK_BF16_FLOPS = 989e12
+# a bf16 output's tolerance against its plain version: where the output is
+# one rounding of fp32 arithmetic on the same bf16 values, one bf16 spacing
+# of the value (ulp), the spacing taken at no less than BF16_FLOOR x the
+# tensor's largest value (an element that cancels to near 0 carries the
+# fp32 sums' roundoff, ~1e-7 of the terms, in absolute terms); where a
+# bf16 rounding inside the kernel lies upstream (K-block-bwd's and
+# K-convt-bwd's outputs, downstream of dz's rounding: fp32 roundoff puts
+# some of its elements on the other side of a rounding, as it does in the
+# plain version, so the two differ there by an ulp of dz), one bf16 spacing
+# of the tensor's largest value. fp32 outputs (statistics, the pre-norm
+# conv output) within BF16_FP32_TOL of the largest value. K-block's forward
+# is held stage by stage: y1hat, h1 and the first statistics against the
+# plain version from x, then y2, the second statistics and out against the
+# plain version from the kernel's own h1 (``block_fwd_ref_bf16``)
+BF16_ULPS = 1.0
+BF16_FLOOR = 1e-3
+BF16_FP32_TOL = 1e-5
+# the trunk (N, side) at 256 channels of phases 2 (b1, b8), 10 (a
+# microbatch of 4) and 11 (512^2: a microbatch of 8); the decoder stages
+# (N, H, W, Ci, Co) likewise. Phase 12b holds them at its microbatch of 16
+# itself (``check_g_kernels_bf16_at``).
+BF16_BLOCK = [(1, 64), (8, 64), (4, 64), (8, 128)]
+BF16_CONVT = ([(n, *s[:4]) for s in CONVT_SHAPES for n in (1, 8, 4)]
+              + [(8, h, w, ci, co) for h, w, ci, co in ((128, 128, 256, 128), (256, 256, 128, 64))])
+# phase 12: the --bf16 path at full width, 256^2; the card's bf16 outputs and
+# losses against the CPU's fp32 ones, within BF16_VS_CPU x the CPU's own
+# bf16-vs-fp32 difference
+BF16_STEPS = 4
+BF16_VS_CPU = 4.0
+# per b1 request and per b8 step under --bf16: the casts around K-warp's and
+# K-head's fp32 kernels. A request's one warp of (fake_B, real_A) casts the
+# image up and the output down (2) and each of its two K-head calls x and w
+# up and the output down (6); a step adds the backward of each cast (warp 2,
+# head 6): g up, then d img (dx, dw) down
+BF16_CASTS_REQUEST = {"K-warp": 2, "K-head": 6}
+BF16_CASTS_STEP = {"K-warp": 4, "K-head": 12}
+# phase 12b: 512^2 pairs at batch 32 under --bf16 in 2 microbatches of 16
+# (bench.py's first try at that cell; its --remat is a no-op in the port)
+BF16_B32_ARGS = ["--crop_size", "512", "--load_size", "512", "--batch_size", "32",
+                 "--grad_accum", "2", "--bf16"]
+BF16_B32_STEPS = 3
+
+
+def bf16_launches(fp32: dict) -> dict:
+    """Launches of the fp32 path (every kernel's) as the --bf16 path runs
+    them: a kernel with a bf16 variant's moved onto the variant, 0 on the
+    fp32 kernel."""
+    out = {k: (0 if k in BF16 else v) for k, v in fp32.items()}
+    out.update({BF16[k]: v for k, v in fp32.items() if k in BF16})
+    return out
+
+
+class Bf16Launches:
+    """The bf16 variant's launch count of a wrapper that launches either
+    variant (``fn.launches_bf16``), read and set as ``.launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.launches_bf16 = value
+
+
+def bf16_counters() -> dict:
+    """The bf16 variants' launch counters: K-in's and K-in-bwd's own
+    wrappers, the core's operators' bf16 counts on their one wrapper."""
+    from nemar_tpu_torch.ops import conv_fused, convt_fused, norm_cuda
+
+    return {"K-block-bf16": Bf16Launches(conv_fused.fused_resblock_cuda),
+            "K-convt-bf16": Bf16Launches(convt_fused.fused_convt_in_cuda),
+            "K-in-bf16": norm_cuda.instance_norm_act_bf16_cuda,
+            "K-block-bwd-bf16": Bf16Launches(conv_fused.resblock_bwd_cuda),
+            "K-convt-bwd-bf16": Bf16Launches(convt_fused.convt_in_bwd_cuda),
+            "K-in-bwd-bf16": norm_cuda.instance_norm_act_bwd_bf16_cuda}
+
+
+def zero_all_counters() -> tuple:
+    """Every kernel's launch counter (fp32 kernels and bf16 variants) and
+    the cast counters of K-warp's and K-head's wrappers, set to 0:
+    (launches, casts), the functions that carry them."""
+    from nemar_tpu_torch.ops import conv_head, warp
+
+    counters = {**zero_counters(), **bf16_counters()}
+    for fn in counters.values():
+        fn.launches = 0
+    casts = {"K-warp": warp.grid_sample, "K-head": conv_head.conv_head}
+    for fn in casts.values():
+        fn.casts = 0
+    return counters, casts
+
+
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor, at_scale: bool = False) -> float:
+    """Largest |got - ref| in units of the bf16 spacing of ref's value (2^(e
+    - 7) for |ref| in [2^e, 2^(e + 1))), the value taken at no less than
+    BF16_FLOOR x max|ref|; with ``at_scale``, of max|ref|. A reference that
+    is 0 everywhere (a gradient that does not reach a net yet) is met only
+    by 0: 0 ulps, else infinitely many."""
+    got, ref = got.double(), ref.double()
+    top = float(ref.abs().max())
+    if top == 0:
+        return math.inf if bool(got.any()) else 0.0
+    mag = torch.full_like(ref, top) if at_scale else torch.clamp_min(ref.abs(), BF16_FLOOR * top)
+    return float(((got - ref).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def block_fwd_ref_bf16(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, h1: torch.Tensor):
+    """K-block's bf16 plain forward in its two stages, each one rounding of
+    fp32 arithmetic on the same bf16 values as the kernel's: (y1hat, h1) and
+    the first statistics from x, then y2, the second statistics and out
+    from ``h1``, the kernel's (a rounding of h1 that lands the other way
+    moves y2 by W times an ulp, and out by more than one)."""
+    from nemar_tpu_torch.ops import conv_fused, norm
+
+    _, y1hat, h1_ref, _, stats = conv_fused.resblock_fwd_plain(x, w1, w2)
+    y2 = conv_fused.conv3x3_reflect(h1.float(), w2.float())
+    st2 = norm.instance_norm_stats(y2)
+    out = (x.float() + norm.normalise(y2, st2)).to(torch.bfloat16)
+    return out, y1hat, h1_ref, y2, torch.cat([stats[:, :2], st2], dim=1)
+
+
+def bound_bf16(flops: float, *tensors) -> tuple:
+    """``bound`` with the operations at the bf16 tensor-core peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def cudnn_bf16_convs(x: torch.Tensor, ws: list, transposed: bool = False) -> tuple:
+    """Median ms of cuDNN's bf16 convolutions of K-block's shape (a 3x3 over
+    the reflect-padded input for each HWIO w of ``ws``) or K-convt's (the
+    transposed convolution, stride 2, of flax's kernel), forward, and
+    backward to the input and the weights; channels_last, deterministic.
+    The yardstick of the core's bf16 operators (no PyTorch call computes
+    them with their instance norms); the port never calls it."""
+    F_ = torch.nn.functional
+    xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    if transposed:
+        wr = [w.flip(0, 1).permute(2, 3, 0, 1).contiguous().requires_grad_() for w in ws]
+    else:
+        wr = [w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+              .requires_grad_() for w in ws]
+
+    def fwd():
+        if transposed:
+            return [F_.conv_transpose2d(xr, w, stride=2) for w in wr]
+        return [F_.conv2d(F_.pad(xr, (1, 1, 1, 1), mode="reflect"), w) for w in wr]
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            fms = median_ms(fwd, iters=10)
+        ys = fwd()
+        gs = [torch.ones_like(y) for y in ys]
+        bms = median_ms(lambda: torch.autograd.grad(ys, [xr, *wr], gs, retain_graph=True),
+                        iters=10)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    return fms, bms
+
+
+def hold_bf16(name: str, shape: str, got: tuple, again: tuple, ref: tuple,
+              tag: str = "kernel", at_scale: bool = False, **extra) -> float:
+    """A bf16 variant's outputs against its plain version's at bf16 on the
+    same inputs: every bf16 output within BF16_ULPS (of its values, or with
+    ``at_scale`` of its largest value), every fp32 one within BF16_FP32_TOL,
+    and two calls bit for bit. Prints the phase line; returns the largest
+    absolute error."""
+    ulps = max((bf16_ulps(p, q, at_scale) for p, q in zip(got, ref)
+                if q.dtype == torch.bfloat16), default=0.0)
+    rel = max((max_rel_err([p], [q]) for p, q in zip(got, ref) if q.dtype != torch.bfloat16),
+              default=0.0)
+    abs_err = max(float((p.double() - q.double()).abs().max()) for p, q in zip(got, ref))
+    repeatable = all(torch.equal(p, q) for p, q in zip(got, again))
+    phase(tag, name=name, shape=shape, max_bf16_ulps=ulps, tol_ulps=BF16_ULPS,
+          ulps_of="the tensor's largest value" if at_scale else "each value",
+          max_rel_err_fp32=rel, tol_fp32=BF16_FP32_TOL, max_abs_err=abs_err,
+          bitwise_repeatable=repeatable, **extra)
+    if not (ulps <= BF16_ULPS and rel <= BF16_FP32_TOL and repeatable):
+        raise AssertionError(f"{name} at {shape} disagrees with its plain version at bf16: "
+                             f"{ulps} ulps, fp32 {rel}, repeatable {repeatable}")
+    return abs_err
+
+
+def vs_fp64_bf16(name: str, got: tuple, ref: tuple, ref64: tuple) -> dict:
+    """The core's bf16 error against a float64 computation from the same
+    bf16 inputs with the same roundings (the plain version in float64),
+    beside the plain fp32 version's: the kernel's largest relative error at
+    most 4x the plain version's, plus one bf16 spacing of the largest value
+    for a bf16 output (a rounding that lands on the other side)."""
+    err = [max_rel_err([p.double()], [q.double()]) for p, q in zip(got, ref64)]
+    plain = [max_rel_err([p.double()], [q.double()]) for p, q in zip(ref, ref64)]
+    slack = [2.0**-8 if q.dtype == torch.bfloat16 else 0.0 for q in got]
+    if not all(e <= 4 * p + s for e, p, s in zip(err, plain, slack)):
+        raise AssertionError(f"{name} is less accurate than the plain fp32 version allows "
+                             f"against fp64: {err}, plain {plain}")
+    return {"rel_err_vs_fp64": json.dumps(err), "plain_fp32_rel_err_vs_fp64": json.dumps(plain)}
+
+
+def timed_bf16(kern, plain, launches: int, flops: float, tensors: tuple) -> dict:
+    """A bf16 variant's CUDA-event and device time (``launches`` a call,
+    asserted), its plain version's time, its bound at bf16."""
+    ms = median_ms(kern, iters=10)
+    dms, per_launch = device_ms(kern, launches, 5)
+    bnd = bound_bf16(flops, *tensors)
+    return {"ms": ms, "device_ms": dms, "plain_ms": median_ms(plain, iters=3),
+            "bound": bnd, "bound_ms": max(bnd), "tflops": round(flops / ms / 1e9, 2),
+            "device_ms_by_kernel": json.dumps(per_launch)}
+
+
+def check_bf16_kernels(dev) -> dict:
+    """Phase 2 for the bf16 variants of K-block, K-convt and K-in: each
+    against its plain version at bf16 on the same bf16 inputs
+    (``hold_bf16``) at the shapes of phases 2, 10 and 11 (BF16_BLOCK,
+    BF16_CONVT; K-in at IN_SHAPES, b1, and IN_BWD_SHAPES at b8 and phase
+    10's microbatch of 4); K-block and
+    K-convt at phase 2's b1 shapes also against float64 (``vs_fp64_bf16``)
+    and timed (``timed_bf16``), with cuDNN's bf16 convolutions of the same
+    shapes as a yardstick (F.instance_norm at bf16 for K-in). The totals are
+    those of one b1 request."""
+    from nemar_tpu_torch.ops import conv_fused, convt_fused, norm, norm_cuda
+
+    rng = np.random.default_rng(20)
+    bf = torch.bfloat16
+    results = {}
+    for n, side in BF16_BLOCK:
+        x = randn(rng, (n, side, side, 256), 1.0, dev).to(bf)
+        w1, w2 = (randn(rng, (3, 3, 256, 256), 0.02, dev).to(bf) for _ in range(2))
+
+        def kern():
+            return conv_fused.fused_resblock_cuda(x, w1, w2)
+
+        got, again = kern(), kern()
+        ref = block_fwd_ref_bf16(x, w1, w2, got[2])
+        extra = {}
+        if n == 1:
+            extra = vs_fp64_bf16("K-block-bf16", got, conv_fused.resblock_fwd_plain(x, w1, w2),
+                                 conv_fused.resblock_fwd_plain(x, w1, w2, work=torch.float64))
+            t = timed_bf16(kern, lambda: conv_fused.resblock_fwd_plain(x, w1, w2), 7,
+                           2 * 2 * n * side * side * 256 * 9 * 256, (x, w1, w2, *got))
+            yard = cudnn_bf16_convs(x, [w1, w2])[0]
+            extra.update({k: v for k, v in t.items() if k != "bound"}, yardstick_cudnn_bf16_ms=yard)
+        err = hold_bf16("K-block-bf16", f"{n}x{side}x{side}x256", got, again, ref, **extra)
+        if n == 1:
+            tally = Tally()
+            tally.add(12, err, t["ms"], t["plain_ms"], t["bound"])
+            results["K-block-bf16"] = dict(tally.result(), device_ms=12 * t["device_ms"],
+                                           yardstick_cudnn_bf16_ms=12 * yard)
+        del got, again, ref
+
+    tally, yard = Tally(), 0.0
+    for n, h, w, ci, co in BF16_CONVT:
+        x = randn(rng, (n, h, w, ci), 1.0, dev).to(bf)
+        wk = randn(rng, (3, 3, ci, co), 0.02, dev).to(bf)
+
+        def kern():
+            return convt_fused.fused_convt_in_cuda(x, wk)
+
+        got, again = kern(), kern()
+        ref = convt_fused.convt_in_fwd_plain(x, wk)
+        extra = {}
+        if n == 1:
+            extra = vs_fp64_bf16("K-convt-bf16", got, ref,
+                                 convt_fused.convt_in_fwd_plain(x, wk, work=torch.float64))
+            t = timed_bf16(kern, lambda: convt_fused.convt_in_fwd_plain(x, wk), 4,
+                           2 * n * h * w * 9 * ci * co, (x, wk, *got))
+            cudnn = cudnn_bf16_convs(x, [wk], transposed=True)[0]
+            extra.update({k: v for k, v in t.items() if k != "bound"},
+                         yardstick_cudnn_bf16_ms=cudnn)
+        err = hold_bf16("K-convt-bf16", f"{n}x{h}x{w}x{ci}->{co}", got, again, ref, **extra)
+        if n == 1:
+            tally.add(2, err, t["ms"], t["plain_ms"], t["bound"])
+            tally.device_ms += 2 * t["device_ms"]
+            yard += 2 * cudnn
+    results["K-convt-bf16"] = dict(tally.result(), device_ms=tally.device_ms,
+                                   yardstick_cudnn_bf16_ms=yard)
+
+    tally, step_ms, yard = Tally(), 0.0, 0.0
+    cases = ([(1, c, h, w, act, calls, "b1 request") for c, h, w, act, calls in IN_SHAPES]
+             + [(b * mult, c, h, w, act, calls, per)
+                for b, per in ((TRAIN_BATCH, "b8 step"), (TRAIN_BATCH // 2, "b4 microbatch"))
+                for c, h, w, act, mult, calls in IN_BWD_SHAPES])
+    card = card_rng(20)
+    for n, c, h, w, act, calls, per in cases:
+        x = (randn(card if per == "b4 microbatch" else rng, (n, h, w, c), 2.0, dev) + 0.5).to(bf)
+
+        def kern():
+            return norm_cuda.instance_norm_act_bf16_cuda(x, act)
+
+        got, again = kern(), kern()
+        ref = (norm.instance_norm_act_plain(x, act), norm.instance_norm_stats(x))
+        ms = median_ms(kern, iters=10) if per != "b4 microbatch" else None
+        err = hold_bf16("K-in-bf16", f"{n}x{h}x{w}x{c}", got, again, ref, act=act,
+                        calls=calls, per=per, ms=ms)
+        if per == "b1 request":
+            pms = median_ms(lambda: norm.instance_norm_act_plain(x, act), iters=3)
+            yard += calls * median_ms(in_yardstick(x), iters=10)
+            tally.add(calls, err, ms, pms, bound_bf16(6 * x.numel(), x, *got))
+        elif per == "b8 step":
+            step_ms += calls * ms
+    results["K-in-bf16"] = dict(tally.result(), yardstick_ms=yard, b8_step_ms=step_ms)
+    torch.cuda.synchronize()
+    return results
+
+
+def check_bf16_bwd_kernels(dev) -> dict:
+    """Phase 2b for the bf16 variants of K-block-bwd, K-convt-bwd and
+    K-in-bwd, as ``check_bf16_kernels`` holds the forwards: fed the plain
+    forward's saved values at bf16 (as phase 2b feeds the fp32 ones) at the
+    shapes of phases 2b, 10 and 11 (K-in-bwd at IN_BWD_SHAPES, b8 and b4), at
+    phase 2b's b8 shapes also against float64 from the same bf16 inputs and
+    saved values, and timed, cuDNN's bf16 convolution backward as the
+    yardstick (F.instance_norm's backward at bf16 for K-in-bwd). The totals
+    are those of one b8 step."""
+    from nemar_tpu_torch.ops import conv_fused, convt_fused, norm, norm_cuda
+
+    rng = np.random.default_rng(21)
+    bf = torch.bfloat16
+    results = {}
+    for n, side in BF16_BLOCK[1:]:
+        x = randn(rng, (n, side, side, 256), 1.0, dev).to(bf)
+        w1, w2 = (randn(rng, (3, 3, 256, 256), 0.02, dev).to(bf) for _ in range(2))
+        g = randn(rng, x.shape, 1.0, dev).to(bf)
+        saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
+
+        def kern():
+            return conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, g)
+
+        got, again = kern(), kern()
+        ref = conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved)
+        extra = {}
+        if (n, side) == (TRAIN_BATCH, 64):
+            extra = vs_fp64_bf16("K-block-bwd-bf16", got, ref, conv_fused.resblock_bwd_plain(
+                x, w1, w2, g, saved=saved, work=torch.float64))
+            t = timed_bf16(kern, lambda: conv_fused.resblock_bwd_plain(x, w1, w2, g, saved=saved),
+                           12, 4 * 2 * n * side * side * 256 * 9 * 256,
+                           (x, w1, w2, *saved, g, *got))
+            yard = cudnn_bf16_convs(x, [w1, w2])[1]
+            extra.update({k: v for k, v in t.items() if k != "bound"},
+                         yardstick_cudnn_bf16_bwd_ms=yard)
+        err = hold_bf16("K-block-bwd-bf16", f"{n}x{side}x{side}x256", got, again, ref,
+                        tag="kernel_bwd", at_scale=True, **extra)
+        if (n, side) == (TRAIN_BATCH, 64):
+            tally = Tally()
+            tally.add(12, err, t["ms"], t["plain_ms"], t["bound"])
+            results["K-block-bwd-bf16"] = dict(tally.result(), device_ms=12 * t["device_ms"],
+                                               yardstick_cudnn_bf16_ms=12 * yard)
+        del got, again, ref, saved
+
+    tally, yard = Tally(), 0.0
+    for n, h, w, ci, co in BF16_CONVT:
+        if n == 1:
+            continue
+        x = randn(rng, (n, h, w, ci), 1.0, dev).to(bf)
+        wk = randn(rng, (3, 3, ci, co), 0.02, dev).to(bf)
+        g = randn(rng, (n, 2 * h, 2 * w, co), 1.0, dev).to(bf)
+        saved = convt_fused.convt_in_fwd_plain(x, wk)[1:]
+
+        def kern():
+            return convt_fused.convt_in_bwd_cuda(x, wk, *saved, g)
+
+        got, again = kern(), kern()
+        ref = convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved)
+        extra = {}
+        main = n == TRAIN_BATCH and (h, w, ci, co) in [s[:4] for s in CONVT_SHAPES]
+        if main:
+            extra = vs_fp64_bf16("K-convt-bwd-bf16", got, ref, convt_fused.convt_in_bwd_plain(
+                x, wk, g, saved=saved, work=torch.float64))
+            t = timed_bf16(kern, lambda: convt_fused.convt_in_bwd_plain(x, wk, g, saved=saved),
+                           6, 2 * 2 * n * h * w * 9 * ci * co, (x, wk, *saved, g, *got))
+            cudnn = cudnn_bf16_convs(x, [wk], transposed=True)[1]
+            extra.update({k: v for k, v in t.items() if k != "bound"},
+                         yardstick_cudnn_bf16_bwd_ms=cudnn)
+        err = hold_bf16("K-convt-bwd-bf16", f"{n}x{h}x{w}x{ci}->{co}", got, again, ref,
+                        tag="kernel_bwd", at_scale=True, **extra)
+        if main:
+            tally.add(2, err, t["ms"], t["plain_ms"], t["bound"])
+            tally.device_ms += 2 * t["device_ms"]
+            yard += 2 * cudnn
+    results["K-convt-bwd-bf16"] = dict(tally.result(), device_ms=tally.device_ms,
+                                       yardstick_cudnn_bf16_ms=yard)
+
+    tally, yard = Tally(), 0.0
+    # a b8 step; phase 10's microbatch of 4, drawn on the card
+    for b, draw in ((TRAIN_BATCH, rng), (TRAIN_BATCH // 2, card_rng(21))):
+        for c, h, w, act, mult, calls in IN_BWD_SHAPES:
+            shape = (b * mult, h, w, c)
+            x = (randn(draw, shape, 2.0, dev) + 0.5).to(bf)
+            g = randn(draw, shape, 1.0, dev).to(bf)
+            _, stats = norm_cuda.instance_norm_act_bf16_cuda(x, act)
+
+            def kern():
+                return norm_cuda.instance_norm_act_bwd_bf16_cuda(x, g, stats, act)
+
+            got, again = (kern(),), (kern(),)
+            ref = (norm.instance_norm_act_bwd_plain(x, g, stats, act),)
+            if b != TRAIN_BATCH:
+                hold_bf16("K-in-bwd-bf16", "x".join(map(str, shape)), got, again, ref,
+                          tag="kernel_bwd", act=act, per="b4 microbatch")
+                continue
+            ms = median_ms(kern, iters=10)
+            pms = median_ms(lambda: norm.instance_norm_act_bwd_plain(x, g, stats, act), iters=3)
+            err = hold_bf16("K-in-bwd-bf16", "x".join(map(str, shape)), got, again, ref,
+                            tag="kernel_bwd", act=act, calls=calls, ms=ms, plain_ms=pms)
+            yard += calls * median_ms(in_yardstick(x, g), iters=10)
+            tally.add(calls, err, ms, pms, bound_bf16(8 * x.numel(), x, g, stats, *got))
+    results["K-in-bwd-bf16"] = dict(tally.result(), yardstick_ms=yard)
+    torch.cuda.synchronize()
+    return results
+
+
+def _rel_to_max(got: dict, ref: dict, keys) -> float:
+    """max |got[k] - ref[k]| over the keys, over the largest |ref[k]|:
+    scalars and arrays alike, each entry one vector."""
+    diff = max(float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(ref[k], np.float64))))
+               for k in keys)
+    return diff / max(float(np.max(np.abs(np.asarray(ref[k], np.float64)))) for k in keys)
+
+
+def _bf16_step_on(args: list, pair: dict) -> tuple:
+    """One b1 training step of a fresh model from the seed: (losses, {net:
+    its gradients flattened into one vector})."""
+    model = train_model(args)
+    model.set_input(pair)
+    model.optimize_parameters()
+    grads = {n: torch.cat([p.grad.detach().flatten().double().cpu() for p in net.parameters()
+                           if p.grad is not None]).numpy() for n, net in model.nets().items()}
+    return model.get_current_losses(), grads
+
+
+def run_bf16(ckpt: str) -> dict:
+    """Phase 12: the --bf16 path at full width, 256^2 (BF16_*). Inference:
+    phase 3's checkpoints through ``nemar_tpu_torch.test``'s options with
+    --bf16, 8 b1 requests with every counter zeroed just before (the bf16
+    variants' launches and the casts asserted, ms per pair), then batch 8;
+    each twice bit for bit. Card against CPU at b1: the card's bf16
+    outputs against the CPU's fp32 ones within BF16_VS_CPU x the CPU's own
+    bf16-vs-fp32 difference, per output; a profile of 3 requests
+    (chiprun_out/profile_bf16_b1.txt). The b8 training step: 2 warm-up
+    steps, the first watched (``watch_kernels``: K-in's and K-in-bwd's
+    bf16 variants, K-warp and K-warp-bwd held at each configuration), then
+    BF16_STEPS with the counters zeroed just before: ms per
+    step, pairs/s, peak memory, launches and casts asserted, finite losses,
+    a profile of one more step (chiprun_out/profile_bf16_step.txt);
+    a fresh model's first two steps bit for bit the first model's; then one
+    b1 step on the card and on the CPU (bf16 and fp32) from the seed: the
+    seven losses as one vector and each net's gradients as one, card bf16
+    against CPU fp32 within BF16_VS_CPU x CPU bf16 against CPU fp32; the
+    casts' cost (``time_bf16_casts``).
+    Returns the launches of the request (forward variants) and the step
+    (backward variants)."""
+    from nemar_tpu_torch.models import create_model
+    from nemar_tpu_torch.options import TestOptions
+
+    opt = TestOptions().parse([*SLICE_ARGS, "--bf16", "--gpu_ids", "0", "--checkpoints_dir", ckpt])
+    model = create_model(opt)
+    model.setup(opt)
+    model.eval()
+    batches = request_batches(REQUESTS, 1, seed=2)
+    outs = []
+    for b in batches[:2]:
+        model.set_input(b)
+        model.test()
+        outs.append(dict(model.get_current_visuals(), flow=model.last_flow))
+    torch.cuda.synchronize()
+    counters, casts = zero_all_counters()
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.test()
+        visuals = model.get_current_visuals()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not all(np.all(np.isfinite(v)) for v in visuals.values()):
+            raise AssertionError("--bf16 inference: non-finite outputs")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    cast_counts = {k: fn.casts for k, fn in casts.items()}
+    want = {k: v * REQUESTS for k, v in bf16_launches(REQUEST_LAUNCHES).items()}
+    want_casts = {k: v * REQUESTS for k, v in BF16_CASTS_REQUEST.items()}
+    first = outs[0]
+    model.set_input(batches[0])
+    model.test()
+    again = dict(model.get_current_visuals(), flow=model.last_flow)
+    same_b1 = all(np.array_equal(first[k], again[k]) for k in first)
+    big = request_batches(3, 8, seed=3)
+    t8, b8_out = [], []
+    for b in [*big, big[0]]:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.test()
+        b8_out.append(model.get_current_visuals())
+        t8.append((time.perf_counter() - t0) * 1e3)
+    same_b8 = all(np.array_equal(b8_out[0][k], b8_out[-1][k]) for k in b8_out[0])
+    phase("bf16_slice", requests=REQUESTS, batch=1, launches=json.dumps(launches),
+          expected=json.dumps(want), casts=json.dumps(cast_counts),
+          expected_casts=json.dumps(want_casts),
+          ms_per_pair_median=round(float(np.median(times)), 3),
+          b8_ms_per_pair_median_of_last_2=round(float(np.median(t8[1:3])) / 8, 3),
+          bit_identical_twice_b1=same_b1, bit_identical_twice_b8=same_b8)
+    if launches != want or cast_counts != want_casts:
+        raise AssertionError(f"--bf16 request: launches {launches} / casts {cast_counts}, "
+                             f"expected {want} / {want_casts}")
+    if not (same_b1 and same_b8):
+        raise AssertionError("--bf16 inference is not bit for bit repeatable")
+
+    def run_request(_):
+        model.set_input(batches[0])
+        model.test()
+
+    profile(run_request, 3, "profile_bf16_b1", "request")
+    del model
+
+    # card against CPU, b1: the card's bf16 against the CPU's fp32, bounded
+    # by the CPU's own bf16-vs-fp32 difference
+    cpu = {}
+    for name, extra in (("fp32", []), ("bf16", ["--bf16"])):
+        o = TestOptions().parse([*SLICE_ARGS, *extra, "--gpu_ids", "-1", "--checkpoints_dir", ckpt])
+        m = create_model(o)
+        m.setup(o)
+        m.set_input(batches[0])
+        m.test()
+        cpu[name] = dict(m.get_current_visuals(), flow=m.last_flow)
+        del m
+    errs = {}
+    for k in ("fake_B", "reg_fakeB", "warped_A", "fake_B2", "flow"):
+        card_err = float(np.max(np.abs(first[k] - cpu["fp32"][k])))
+        cpu_err = float(np.max(np.abs(cpu["bf16"][k] - cpu["fp32"][k])))
+        errs[k] = (card_err, cpu_err)
+    phase("bf16_card_vs_cpu", batch=1, card_bf16_vs_cpu_fp32_and_cpu_bf16_vs_cpu_fp32=json.dumps(errs),
+          factor=BF16_VS_CPU)
+    if not all(0 < c <= BF16_VS_CPU * p for c, p in errs.values()):
+        raise AssertionError(f"--bf16 card against CPU: {errs}")
+
+    # the b8 step
+    args = [*TRAIN_ARGS, "--bf16", "--checkpoints_dir", ckpt, "--name", "smoke_bf16"]
+    model = train_model([*args, "--gpu_ids", "0", "--batch_size", str(TRAIN_BATCH)])
+    sb = request_batches(2 + BF16_STEPS, TRAIN_BATCH, seed=4)
+    with watch_kernels(bf16=True) as seen:
+        model.set_input(sb[0])
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+    watched = check_watched(seen, "--bf16 b8 step")
+    model.set_input(sb[1])
+    model.optimize_parameters()
+    state2 = _train_state(model)
+    losses2 = model.get_current_losses()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters, casts = zero_all_counters()
+    times = []
+    for b in sb[2:]:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_launches = {k: fn.launches for k, fn in counters.items()}
+    step_casts = {k: fn.casts for k, fn in casts.items()}
+    want = {k: v * BF16_STEPS for k, v in bf16_launches(STEP_LAUNCHES).items()}
+    want_casts = {k: v * BF16_STEPS for k, v in BF16_CASTS_STEP.items()}
+    losses = model.get_current_losses()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    def run(i):
+        model.set_input(sb[2 + i % BF16_STEPS])
+        model.optimize_parameters()
+
+    profile(run, 1, "profile_bf16_step", "step")
+    del model
+    twin = train_model([*args, "--gpu_ids", "0", "--batch_size", str(TRAIN_BATCH)])
+    for b in sb[:2]:
+        twin.set_input(b)
+        twin.optimize_parameters()
+    same = (twin.get_current_losses() == losses2
+            and all(torch.equal(v, state2[k]) for k, v in _train_state(twin).items()))
+    del twin
+    ms = float(np.median(times))
+    phase("bf16_train", batch=TRAIN_BATCH, steps=BF16_STEPS, launches=json.dumps(step_launches),
+          expected=json.dumps(want), casts=json.dumps(step_casts),
+          expected_casts=json.dumps(want_casts), ms_per_step_median=round(ms, 3),
+          ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(TRAIN_BATCH / ms * 1e3, 3), peak_mem_gib=round(peak, 3),
+          losses=json.dumps({k: round(v, 6) for k, v in losses.items()}),
+          bit_identical_twice=same, watched_configs_max_err=json.dumps(watched),
+          watched=json.dumps(seen))
+    if step_launches != want or step_casts != want_casts:
+        raise AssertionError(f"--bf16 step: launches {step_launches} / casts {step_casts}, "
+                             f"expected {want} / {want_casts}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"--bf16 step: non-finite losses {losses}")
+    if not same:
+        raise AssertionError("two identical --bf16 runs on the card differ")
+
+    # card against CPU, one b1 step from the seed
+    pair = request_batches(1, 1, seed=5)[0]
+    steps = {name: _bf16_step_on([*TRAIN_ARGS, *extra, "--gpu_ids", dev, "--checkpoints_dir", ckpt,
+                                  "--name", f"smoke_bf16_{name}", "--batch_size", "1"], pair)
+             for name, extra, dev in (("card_bf16", ["--bf16"], "0"), ("cpu_bf16", ["--bf16"], "-1"),
+                                      ("cpu_fp32", [], "-1"))}
+    (l_card, g_card), (l_cpu16, g_cpu16), (l_cpu32, g_cpu32) = steps.values()
+    keys = list(l_cpu32)
+    errs = {"losses": (_rel_to_max(l_card, l_cpu32, keys), _rel_to_max(l_cpu16, l_cpu32, keys))}
+    for n in g_cpu32:
+        errs[f"grad_{n}"] = (_rel_to_max({0: g_card[n]}, {0: g_cpu32[n]}, [0]),
+                             _rel_to_max({0: g_cpu16[n]}, {0: g_cpu32[n]}, [0]))
+    phase("bf16_train_card_vs_cpu", batch=1,
+          card_bf16_vs_cpu_fp32_and_cpu_bf16_vs_cpu_fp32=json.dumps(errs), factor=BF16_VS_CPU)
+    if not all(0 < c <= BF16_VS_CPU * p for c, p in errs.values()):
+        raise AssertionError(f"--bf16 step, card against CPU: {errs}")
+    time_bf16_casts(torch.device("cuda", 0))
+    return {**{k: v for k, v in launches.items() if not k.endswith("-bwd-bf16")},
+            **{k: v for k, v in step_launches.items() if k.endswith("-bwd-bf16")}}
+
+
+def time_bf16_casts(dev) -> dict:
+    """Phase 12: what the casts around K-warp's and K-head's fp32 kernels
+    cost under --bf16, at a b1 request's and a b8 step's shapes: the median
+    CUDA-event time of the op as the bf16 model calls it (bf16 image, or x
+    and w: cast up, the fp32 kernel, the output cast down; and with g, its
+    backward through the casts) against the same op on fp32 tensors, in
+    alternation; the difference is the casts'. Returns ms per request (b1,
+    forward) and per step (b8, forward and backward), K-warp once and
+    K-head twice each (the casts' totals scaled by those calls)."""
+    from nemar_tpu_torch.ops import conv_head, warp
+
+    rng = np.random.default_rng(22)
+    h, w, ci, co, calls = HEAD_SHAPE
+    out = {"K-warp": {}, "K-head": {}}
+    for n in (1, TRAIN_BATCH):
+        img = randn(rng, (n, 256, 256, 4), 1.0, dev)
+        grid = smooth_grid(rng, n, 256, 256).to(dev)
+        x, wk = randn(rng, (n, h, w, ci), 1.0, dev), randn(rng, (7, 7, ci, co), 0.02, dev)
+        gw, gh = randn(rng, (n, 256, 256, 4), 1.0, dev), randn(rng, (n, h, w, co), 1.0, dev)
+        ops = {"K-warp": (lambda a: warp.grid_sample(a[0], grid, grad_channels=3), [img], gw, 1),
+               "K-head": (lambda a: conv_head.conv_head(a[0], a[1]), [x, wk], gh, calls)}
+        for name, (fn, args, g, k) in ops.items():
+            runs = []
+            for dt in (torch.bfloat16, torch.float32):
+                ins = [a.to(dt).requires_grad_(n > 1) for a in args]
+                if n == 1:
+                    runs.append(functools.partial(fn, ins))
+                else:
+                    runs.append(lambda fn=fn, ins=ins, gd=g.to(dt):
+                                torch.autograd.grad(fn(ins), ins, gd))
+            bf, fp = paired_median_ms(*runs, iters=30, warmup=5)
+            out[name].update({f"b{n}_bf16_ms": bf, f"b{n}_fp32_ms": fp,
+                              f"b{n}_casts_ms": k * (bf - fp)})
+    phase("bf16_casts", per="b1 request (forward) and b8 step (forward and backward)",
+          **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def run_bf16_b32_512(ckpt: str) -> None:
+    """Phase 12b: 512^2 pairs at batch 32 under --bf16 in 2 microbatches of
+    16 (BF16_B32_ARGS), at full width: BF16_B32_STEPS steps, the first a
+    warm-up, in which K-in's and K-in-bwd's bf16 variants, K-warp and
+    K-warp-bwd are held at every configuration the step gives them
+    (``watch_kernels``: G, R and D at 512^2 and a microbatch of 16, D's
+    pass over [real; fake] at 32); then the bf16 variants of the core's
+    operators at the microbatch's shapes (K-block on 16x128x128x256, K-convt
+    to 16x512x512x64, K-head's fp32 kernel on bf16 operands at
+    16x512x512x64: ``check_g_kernels_bf16_at``); over the others, with every
+    counter zeroed just before, ms per
+    step, pairs/s, peak memory, the launches (``accum_launches`` on the bf16
+    variants) and the casts (a microbatch's D-phase forward and its G-phase
+    forward and backward: BF16_CASTS_REQUEST + BF16_CASTS_STEP) asserted,
+    finite losses."""
+    model = train_model([*TRAIN_ARGS, *BF16_B32_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+                         "--name", "smoke_bf16_b32"])
+    n, k = model.opt.batch_size, model.grad_accum
+    batches = request_batches(2, n, seed=12, size=model.opt.crop_size)
+    t0 = time.perf_counter()
+    with watch_kernels(bf16=True) as seen:
+        model.set_input(batches[0])
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+    watched = check_watched(seen, "512^2 b32 --bf16")
+    t1 = time.perf_counter()
+    op_errs = check_g_kernels_bf16_at(_g_op_shapes(model, model.opt.crop_size, n // k),
+                                      torch.device("cuda", 0))
+    phase("bf16_b32_512_kernels", microbatch=n // k, watched_step_seconds=round(t1 - t0, 2),
+          g_kernels_seconds=round(time.perf_counter() - t1, 2),
+          watched_configs_max_err=json.dumps(watched), watched=json.dumps(seen),
+          g_kernels_err_value_grad=json.dumps(op_errs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters, casts = zero_all_counters()
+    times = []
+    for i in range(1, BF16_B32_STEPS):
+        t0 = time.perf_counter()
+        model.set_input(batches[i % 2])
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    steps = BF16_B32_STEPS - 1
+    launches = {key: fn.launches for key, fn in counters.items()}
+    cast_counts = {key: fn.casts for key, fn in casts.items()}
+    want = {key: v * steps for key, v in bf16_launches(accum_launches(k, False)).items()}
+    want_casts = {key: steps * k * (BF16_CASTS_REQUEST[key] + BF16_CASTS_STEP[key])
+                  for key in BF16_CASTS_STEP}
+    losses = model.get_current_losses()
+    ms = float(np.median(times))
+    phase("bf16_b32_512", flags=" ".join(BF16_B32_ARGS), batch=n, microbatch=n // k, steps=steps,
+          ms_per_step_median=round(ms, 3), ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(n / ms * 1e3, 3),
+          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
+          launches=json.dumps(launches), expected=json.dumps(want),
+          casts=json.dumps(cast_counts), expected_casts=json.dumps(want_casts),
+          losses=json.dumps({key: round(v, 6) for key, v in losses.items()}))
+    if launches != want or cast_counts != want_casts:
+        raise AssertionError(f"512^2 b32 --bf16: launches {launches} / casts {cast_counts}, "
+                             f"expected {want} / {want_casts}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"512^2 b32 --bf16: non-finite losses {losses}")
+    del model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2471,13 +3356,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     results = check_kernels(dev)
+    t1 = time.perf_counter()
+    results.update(check_bf16_kernels(dev))
     phase("kernels", seconds=round(time.perf_counter() - t0, 2),
-          trace_retries=json.dumps(TRACE_RETRIES))
+          bf16_seconds=round(time.perf_counter() - t1, 2), trace_retries=json.dumps(TRACE_RETRIES))
     TRACE_RETRIES.clear()
     t0 = time.perf_counter()
     results.update(check_bwd_kernels(dev))
+    t1 = time.perf_counter()
+    results.update(check_bf16_bwd_kernels(dev))
     phase("kernels_bwd", seconds=round(time.perf_counter() - t0, 2),
-          trace_retries=json.dumps(TRACE_RETRIES))
+          bf16_seconds=round(time.perf_counter() - t1, 2), trace_retries=json.dumps(TRACE_RETRIES))
 
     with tempfile.TemporaryDirectory(prefix="nemar_smoke_") as ckpt:
         launches, first, batch = run_slice(ckpt)
@@ -2513,9 +3402,17 @@ def main() -> int:
         t0 = time.perf_counter()
         run_b32_512(ckpt)
         phase("b32_512_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        bf16_launch_counts = run_bf16(ckpt)
+        phase("bf16_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_bf16_b32_512(ckpt)
+        phase("bf16_b32_512_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
-    # from phase 5 (the inference path launches none)
+    # from phase 5 (the inference path launches none); the bf16 variants'
+    # from phase 12's requests and steps
     launches.update({k: v for k, v in train_launches.items() if k.endswith("-bwd")})
+    launches.update({BF16[k]: bf16_launch_counts[BF16[k]] for k in BF16})
 
     sources = {"K-block": ("cuda", "nemar_tpu_torch/csrc/resblock_fwd.cu",
                            "nemar_tpu/ops/conv_fused.py:228"),
@@ -2537,6 +3434,9 @@ def main() -> int:
                               "nemar_tpu/ops/conv_head_roll.py:174"),
                "K-convt-bwd": ("cuda", "nemar_tpu_torch/csrc/convt_bwd.cu",
                                "nemar_tpu/ops/attic/convt_fused.py:216")}
+    # each bf16 variant replaces the same TPU kernel as its fp32 kernel,
+    # which the JAX package runs in bf16 under --bf16
+    sources.update({BF16[k]: sources[k] for k in BF16})
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep, "launches": launches[k],
                 **results[k]} for k, (r, s, rep) in sources.items()]
     print(smi, flush=True)

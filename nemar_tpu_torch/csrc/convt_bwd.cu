@@ -45,6 +45,15 @@
 // means (N, 2, Co); part_w (splits, 9 * Ci, Co). All fp32. Requirements
 // (checked by the wrapper): Ci % 4 == 0, Co % 4 == 0, 16-byte aligned
 // pointers, pix_per_split % 32 == 0.
+//
+// The bf16 variant (--bf16; nemar_convt_in_bwd_bf16) takes x, W, yhat and
+// g in bf16 and runs both GEMMs on the core's bf16 path (one bf16 MMA a
+// product, fp32 accumulators; the wgrad's pixel-major operands read by
+// wgmma as they lie, K slices of 64 pixels): the same six launches, W's
+// split left out (the dgrad reads the bf16 W as it lies), dz, dW (the
+// split sum) and dx rounded to bf16, the sums and partials fp32. It takes
+// Ci % 8 == 0, Co % 8 == 0, pix_per_split % 64 == 0. Bound: 2 x 2.42
+// GFLOP per image and stage at 989 TFLOP/s = 4.9 us.
 #include <cuda_runtime.h>
 
 #include "gemm_tc.cuh"
@@ -58,12 +67,16 @@ using tc::cp_async16;
 
 constexpr int IN_TILE = 64;  // output pixels per IN-backward partial
 
+using bf16 = __nv_bfloat16;
+
 // ---------------------------------------------------------------------------
 // 1-3. the instance norm + relu backward over the 4 planes
 // ---------------------------------------------------------------------------
 // One block per (64-pixel tile of one sample, 128-channel block), one thread
-// per channel.
-__global__ void in_bwd_partial_kernel(const float* __restrict__ g, const float* __restrict__ yh,
+// per channel. T: g's and yhat's element type (float, or bf16 in the bf16
+// variant); the sums are fp32.
+template <class T>
+__global__ void in_bwd_partial_kernel(const T* __restrict__ g, const T* __restrict__ yh,
                                       float* __restrict__ part, int pixels, int c, int tiles) {
   const int blk = blockIdx.x;  // (n, tile)
   const int ch = blockIdx.y * blockDim.x + threadIdx.x;
@@ -75,8 +88,8 @@ __global__ void in_bwd_partial_kernel(const float* __restrict__ g, const float* 
   float s1 = 0.f, s2 = 0.f;
   for (int q = 0; q < cnt; ++q) {
     const size_t idx = ((size_t)b * pixels + p0 + q) * c + ch;
-    const float y = yh[idx];
-    const float gv = y > 0.f ? g[idx] : 0.f;
+    const float y = tc::load1(yh + idx);
+    const float gv = y > 0.f ? tc::load1(g + idx) : 0.f;
     s1 += gv;
     s2 = fmaf(gv, y, s2);
   }
@@ -119,11 +132,13 @@ in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means, i
   }
 }
 
-// blocks [0, apply_blocks): dz; the rest split w (w4 float4s) into
-// wsplit = (w big, w small) for the dgrad's B operand
-__global__ void in_bwd_apply_kernel(const float4* __restrict__ g, const float4* __restrict__ yh,
+// blocks [0, apply_blocks): dz, stored as T; the rest split w (w4 float4s)
+// into wsplit = (w big, w small) for the fp32 dgrad's B operand (none in
+// the bf16 variant, whose dgrad reads W as it lies)
+template <class T>
+__global__ void in_bwd_apply_kernel(const T* __restrict__ g, const T* __restrict__ yh,
                                     const float* __restrict__ stats,
-                                    const float* __restrict__ means, float4* __restrict__ dz,
+                                    const float* __restrict__ means, T* __restrict__ dz,
                                     long long total4, long long per_sample, int c,
                                     int apply_blocks, const float4* __restrict__ w,
                                     uint4* __restrict__ wsplit, long long w4) {
@@ -148,7 +163,7 @@ __global__ void in_bwd_apply_kernel(const float4* __restrict__ g, const float4* 
   const float* rs = stats + (size_t)b * 2 * c + c + ch;
   const float* m1 = means + (size_t)b * 2 * c + ch;
   const float* m2 = m1 + c;
-  const float4 gv4 = g[i], yv4 = yh[i];
+  const float4 gv4 = tc::load4(g + e), yv4 = tc::load4(yh + e);
   const float gin[4] = {gv4.x, gv4.y, gv4.z, gv4.w};
   const float yin[4] = {yv4.x, yv4.y, yv4.z, yv4.w};
   float o[4];
@@ -157,7 +172,7 @@ __global__ void in_bwd_apply_kernel(const float4* __restrict__ g, const float4* 
     const float gv = yin[k] > 0.f ? gin[k] : 0.f;
     o[k] = rs[k] * (gv - m1[k] - yin[k] * m2[k]);
   }
-  dz[i] = make_float4(o[0], o[1], o[2], o[3]);
+  tc::store4(dz + e, make_float4(o[0], o[1], o[2], o[3]));
 }
 
 // ---------------------------------------------------------------------------
@@ -223,8 +238,10 @@ struct ConvtWgradOp {
   }
 };
 
-// 5. out = sum over the splits of part, in split order; float4-wide
-__global__ void split_sum_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+// 5. out = sum over the splits of part, in split order, float4-wide;
+// stored as T (rounded to bf16 in the bf16 variant)
+template <class T>
+__global__ void split_sum_kernel(const float4* __restrict__ part, T* __restrict__ out,
                                  long long total4, int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total4) return;
@@ -233,7 +250,7 @@ __global__ void split_sum_kernel(const float4* __restrict__ part, float4* __rest
     const float4 v = part[(size_t)k * total4 + i];
     s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
   }
-  out[i] = s;
+  tc::store4(out + 4 * i, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -335,6 +352,160 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dx, int h, int w,
       op, dim3((unsigned)((total + BM - 1) / BM), (unsigned)((ci + kTN - 1) / kTN)), stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 variant (nemar_convt_in_bwd_bf16): its GEMM operands; the
+// instance-norm backward and the split sum are the templates above
+// ---------------------------------------------------------------------------
+
+// 4: dW partials with bf16 operands, K slices of 64 pixels (pix_per_split
+// a multiple of 64); x shifted by the tap (M-major: ci) and the tap's
+// parity plane of dz (N-major: co), both read by wgmma as they lie
+template <int kTN>
+struct ConvtWgradOp16 {
+  static constexpr bool kNormRelu = false;
+  static constexpr int kTileN = kTN;
+  const bf16* x;
+  const bf16* dz;
+  float* part;
+  int h, w, ci, co, total, pix_per_split, mtiles;
+  int tap, ci0, n0, py, px, dy, dx, p0, nkt;
+
+  __device__ void setup(int) {
+    tap = blockIdx.x / mtiles;
+    ci0 = (blockIdx.x - tap * mtiles) * BM;
+    n0 = blockIdx.y * kTN;
+    const int ky = tap / 3, kx = tap - 3 * ky;
+    py = ky == 1;
+    px = kx == 1;
+    dy = ky == 0 ? -1 : 0;
+    dx = kx == 0 ? -1 : 0;
+    p0 = blockIdx.z * pix_per_split;
+    nkt = (min(pix_per_split, total - p0) + tc::BK16 - 1) / tc::BK16;
+  }
+  __device__ int ktiles() const { return nkt; }
+  // (the pixel of x, or -1 off the frame or past the last pixel; that of dz)
+  __device__ void pixels(int p, int& xs, int& zs) const {
+    const int hw = h * w, b = p / hw, pix = p - b * hw;
+    const int i = pix / w, j = pix - (pix / w) * w;
+    const bool in = p < total;
+    xs = in && i + dy >= 0 && j + dx >= 0 ? (b * h + i + dy) * w + j + dx : -1;
+    zs = in ? (b * 2 * h + 2 * i + py) * 2 * w + 2 * j + px : -1;
+  }
+  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+    const int pk = p0 + kt * tc::BK16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = tid + tc::THREADS * i, k = q >> 4, ch = 8 * (q & 15);
+      int xs, zs;
+      pixels(pk + k, xs, zs);
+      const bool va = ci0 + ch < ci && xs >= 0;
+      tc::cp_async16b(As + tc::mn16(k, q & 15), va ? x + (size_t)xs * ci + ci0 + ch : x, va);
+    }
+#pragma unroll
+    for (int i = 0; i < kTN * 8 / tc::THREADS; ++i) {
+      const int q = tid + tc::THREADS * i, k = q / (kTN / 8), cc = q % (kTN / 8), ch = 8 * cc;
+      int xs, zs;
+      pixels(pk + k, xs, zs);
+      const bool vb = n0 + ch < co && zs >= 0;
+      tc::cp_async16b(Bs + tc::mn16(k, cc), vb ? dz + (size_t)zs * co + n0 + ch : dz, vb);
+    }
+  }
+  __device__ void write(int r, int cl, float2 val) const {
+    if (ci0 + r >= ci || n0 + cl >= co) return;
+    tc::store2(part + ((size_t)blockIdx.z * 9 * ci + (size_t)tap * ci + ci0 + r) * co + n0 + cl,
+               val);
+  }
+};
+
+// 6: dx with bf16 operands (dz along co, W in HWIO as it lies), dx bf16
+template <int kTN>
+struct ConvtDgradOp16 {
+  static constexpr bool kNormRelu = false;
+  static constexpr bool kTileStats = false;
+  static constexpr int kTileN = kTN;
+  const bf16* dz;
+  const bf16* w;
+  bf16* dx;
+  int h, wd, ci, co, total;
+  int m0, n0, kc, spt;
+  int rbase[CHUNKS], rij[CHUNKS];
+
+  __device__ void setup(int tid) {
+    m0 = blockIdx.x * BM;
+    n0 = blockIdx.y * kTN;
+    kc = tid & 7;
+    spt = (co + tc::BK16 - 1) / tc::BK16;
+    const int hw = h * wd;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int p = m0 + tc::kmajor_row(tid, i);
+      const int b = p / hw, pix = p - b * hw, u = pix / wd;
+      rbase[i] = 4 * b * hw;
+      rij[i] = p < total ? (u << 16) | (pix - u * wd) : 0x7fff0000;
+    }
+  }
+  __device__ int ktiles() const { return 9 * spt; }
+  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+    const int tap = kt / spt;
+    const int c = (kt - tap * spt) * tc::BK16 + 8 * kc;
+    const int ky = tap / 3, kx = tap - 3 * ky;
+    const bool cin = c < co;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int oi = 2 * (rij[i] >> 16) + 2 - ky, oj = 2 * (rij[i] & 0xffff) + 2 - kx;
+      const bool valid = cin && oi < 2 * h && oj < 2 * wd;
+      tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
+                      valid ? dz + (size_t)(rbase[i] + oi * 2 * wd + oj) * co + c : dz, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < kTN * 8 / tc::THREADS; ++i) {
+      const int nr = tc::kmajor_row(tid, i);
+      const bool valid = cin && n0 + nr < ci;
+      tc::cp_async16b(Bs + tc::swz16(nr, kc),
+                      valid ? w + ((size_t)tap * ci + n0 + nr) * co + c : w, valid);
+    }
+  }
+  __device__ void write(int r, int col, float2 val) const {
+    const int p = m0 + r;
+    if (p < total && n0 + col < ci) tc::store2(dx + (size_t)p * ci + n0 + col, val);
+  }
+};
+
+template <int kTN>
+cudaError_t wgrad16(const bf16* x, const bf16* dz, float* part, int h, int w, int ci, int co,
+                    int total, int splits, int pix_per_split, cudaStream_t stream) {
+  ConvtWgradOp16<kTN> op;
+  op.x = x;
+  op.dz = dz;
+  op.part = part;
+  op.h = h;
+  op.w = w;
+  op.ci = ci;
+  op.co = co;
+  op.total = total;
+  op.pix_per_split = pix_per_split;
+  op.mtiles = (ci + BM - 1) / BM;
+  return tc::launch_bf16_mn(
+      op, dim3((unsigned)(9 * op.mtiles), (unsigned)((co + kTN - 1) / kTN), (unsigned)splits),
+      stream);
+}
+
+template <int kTN>
+cudaError_t dgrad16(const bf16* dz, const bf16* w, bf16* dx, int h, int wd, int ci, int co,
+                    int total, cudaStream_t stream) {
+  ConvtDgradOp16<kTN> op;
+  op.dz = dz;
+  op.w = w;
+  op.dx = dx;
+  op.h = h;
+  op.wd = wd;
+  op.ci = ci;
+  op.co = co;
+  op.total = total;
+  return tc::launch_bf16(
+      op, dim3((unsigned)((total + BM - 1) / BM), (unsigned)((ci + kTN - 1) / kTN)), stream);
+}
+
 }  // namespace
 
 extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* yhat,
@@ -359,8 +530,7 @@ extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* y
   const int apply_blocks = (int)((total4 + 255) / 256);
   const long long w4 = (long long)9 * ci * co / 4;
   in_bwd_apply_kernel<<<(unsigned)(apply_blocks + (w4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(g), reinterpret_cast<const float4*>(yhat), stats, means,
-      reinterpret_cast<float4*>(dz), total4, per_sample, co, apply_blocks,
+      g, yhat, stats, means, dz, total4, per_sample, co, apply_blocks,
       reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), w4);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -369,7 +539,7 @@ extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* y
                  : wgrad<128>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream);
   if (err != cudaSuccess) return (int)err;
   split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(part_w), reinterpret_cast<float4*>(dw), w4, splits);
+      reinterpret_cast<const float4*>(part_w), dw, w4, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 64 input channels a tile where 128 would waste half of each, or leave
   // SMs idle (batch 1 at 64^2: 64 tiles of 128 x 128 for 132 SMs)
@@ -377,4 +547,43 @@ extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* y
   err = narrow ? dgrad<64>(dz, wsplit, dx, h, w_, ci, co, total, stream)
                : dgrad<128>(dz, wsplit, dx, h, w_, ci, co, total, stream);
   return (int)err;
+}
+
+// The bf16 variant: x, w, yhat, g, dz, dw, dx bf16; stats, part_in, means,
+// part_w fp32. pix_per_split % 64 == 0; Ci, Co multiples of 8.
+extern "C" int nemar_convt_in_bwd_bf16(const bf16* x, const bf16* w, const bf16* yhat,
+                                       const float* stats, const bf16* g, bf16* dz,
+                                       float* part_in, float* means, float* part_w, bf16* dw,
+                                       bf16* dx, int n, int h, int w_, int ci, int co, int splits,
+                                       int pix_per_split, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int pixels = 4 * h * w_;
+  const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
+  in_bwd_partial_kernel<<<dim3((unsigned)(n * tiles), (unsigned)((co + 127) / 128)), 128, 0,
+                          stream>>>(g, yhat, part_in, pixels, co, tiles);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
+                        MG_LANES * MG_WARPS, 0, stream>>>(part_in, means, co, tiles, pixels);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const long long per_sample = (long long)pixels * co;
+  const long long total4 = n * per_sample / 4;
+  const int apply_blocks = (int)((total4 + 255) / 256);
+  in_bwd_apply_kernel<<<(unsigned)apply_blocks, 256, 0, stream>>>(
+      g, yhat, stats, means, dz, total4, per_sample, co, apply_blocks, nullptr, nullptr, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  const int total = n * h * w_;
+  err = co <= 64 ? wgrad16<64>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream)
+                 : wgrad16<128>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long w4 = (long long)9 * ci * co / 4;
+  split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(part_w), dw, w4, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;
+  return (int)(narrow ? dgrad16<64>(dz, w, dx, h, w_, ci, co, total, stream)
+                      : dgrad16<128>(dz, w, dx, h, w_, ci, co, total, stream));
 }

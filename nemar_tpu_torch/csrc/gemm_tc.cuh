@@ -67,8 +67,11 @@
 // beside the slice (gemm_wgmma_kernel).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // Everything is internal to each translation unit that includes this.
 namespace tc {
@@ -584,6 +587,291 @@ cudaError_t launch_wgmma_mn(const Op& op, dim3 grid, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   gemm_wgmma_mn_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
   return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// bf16 (--bf16): the same two kernels with bf16 operands, one MMA a product
+// ---------------------------------------------------------------------------
+//
+// gemm_bf16_kernel (operands K-major, as gemm_wgmma_kernel's) and
+// gemm_bf16_mn_kernel (A M-major and B N-major, as gemm_wgmma_mn_kernel's)
+// compute the same 128-row tiles of C = A B, 128 or 64 columns wide, over K
+// in 64-deep slices: a slice's row of 64 bf16 is 128 bytes, one row of the
+// 128-byte swizzle. Both operands are copied by cp.async (16 bytes, 8
+// values, zero-filled where the Op masks them) straight into the layouts
+// wgmma reads from shared memory, and each warpgroup issues
+// wgmma.mma_async m64n128k16 (or m64n64k16) .f32.bf16.bf16 with A and B
+// both through matrix descriptors: four MMAs a slice, one per 16-deep step,
+// into a chain that spans the slice, added at the end of the slice to the
+// fp32 total as in 3xTF32 (the tensor core's own accumulation rounds toward
+// zero; chains of 4 keep that bias to the fp32 level: chip_smoke.py's phase
+// 2b holds each operator against float64 from the same bf16 inputs). There
+// is no big/small split: a bf16 x bf16 product is exact in the fp32
+// accumulator, so the error is the inputs' rounding to bf16, the caller's.
+//
+//   K-major (gemm_bf16_kernel): a tile is rows of 128 bytes, the 16-byte
+//     chunk kg of row r at r * 128 + ((kg ^ (r % 8)) << 4) (swz16); 8-row
+//     groups 1024 bytes apart (descriptor SBO). Warpgroup w reads A's rows
+//     64 w .. 64 w + 63, step s at byte 32 s of the row.
+//   MN-major (gemm_bf16_mn_kernel): the wgrads' operands have the pixels (K)
+//     outermost and 128 channels (M or N) contiguous. wgmma takes them as
+//     they lie, through the descriptor's transpose bit: a 1024-byte atom
+//     holds 8 k rows of 64 MN values (128 bytes each, chunks swizzled by the
+//     row as above); atoms along MN are 8192 bytes apart (LBO), along K
+//     1024 (SBO): atom (j, q) = MN values 64 j .., k rows 8 q .. (mn16).
+//
+// The epilogue and tile_stats are the fp32 kernels': the fp32 accumulators
+// are the Op's to write (in fp32 or rounded to bf16, as the Op stores) and
+// to reduce, before any rounding. No Op of the bf16 kernels has kNormRelu:
+// the bf16 K-block materialises h1 = relu(IN(y1)) in bf16 (the JAX kernel
+// rounds it there too) and its backward reads it.
+constexpr int BK16 = 64;                  // reduction depth per stage, bf16 values
+constexpr int A16_BYTES = BM * BK16 * 2;  // one 128-row operand tile: 16 KB
+
+// byte offset of the 16-byte chunk (row r, chunk kg) of a K-major swizzled tile
+__device__ __forceinline__ int swz16(int r, int kg) { return r * 128 + ((kg ^ (r & 7)) << 4); }
+
+// byte offset of the 16-byte chunk (k row k, chunk c of the 128 MN values)
+// of an MN-major tile of 64 k rows
+__device__ __forceinline__ int mn16(int k, int c) {
+  return ((c >> 3) * 8 + (k >> 3)) * 1024 + (k & 7) * 128 + (((c & 7) ^ (k & 7)) << 4);
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16b(void* smem, const void* src, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+}
+
+// 128-byte-swizzle descriptor at p (the tile 1024-byte aligned), with the
+// leading and stride byte offsets lbo, sbo
+__device__ __forceinline__ uint64_t desc16(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d = a b + (accumulate ? d : 0), m64n128k16 (or m64n64k16), fp32 += bf16 x
+// bf16, A and B through descriptors, both K-major (kTrans 0) or both
+// MN-major (kTrans 1)
+template <int kTrans>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTrans)
+      : "memory");
+}
+
+template <int kTrans>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTrans)
+      : "memory");
+}
+
+// The MMA loop both bf16 kernels share: a ring of STAGES slices (A tile,
+// then B tile), slice kt + STAGES - 1 in flight while slice kt is
+// multiplied; kTrans 0 reads K-major tiles, 1 MN-major ones.
+template <int kTrans, class Op, int TN>
+__device__ __forceinline__ void bf16_mainloop(const Op& op, unsigned char* smem, int tid,
+                                              float (&acc)[TN / 2]) {
+  constexpr int STAGE_BYTES = A16_BYTES + TN * BK16 * 2;
+  // the warpgroup, uniform to ptxas (a branch on threadIdx.x / 128 would
+  // serialise the wgmma's: note C7518)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int ktiles = op.ktiles();
+  float part[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    unsigned char* st = smem + s * STAGE_BYTES;
+    if (s < ktiles) op.load(s, st, st + A16_BYTES, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // slice kt landed for all; slice kt - 1's stage is free
+    {
+      const int nk = kt + STAGES - 1;
+      unsigned char* st = smem + (nk % STAGES) * STAGE_BYTES;
+      if (nk < ktiles) op.load(nk, st, st + A16_BYTES, tid);
+      cp_async_commit();
+    }
+    const unsigned char* As = smem + (kt % STAGES) * STAGE_BYTES;
+    const unsigned char* Bs = As + A16_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence_operand(part);
+#pragma unroll
+    for (int s = 0; s < BK16 / 16; ++s) {
+      uint64_t da, db;
+      if constexpr (kTrans == 0) {
+        da = desc16(As + wg * 64 * 128 + 32 * s, 16, 1024);
+        db = desc16(Bs + 32 * s, 16, 1024);
+      } else {
+        da = desc16(As + wg * 8192 + 2048 * s, 8192, 1024);
+        db = desc16(Bs + 2048 * s, 8192, 1024);
+      }
+      wgmma_bf16<kTrans>(part, da, db, s > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_fence_operand(part);
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[i] += part[i];
+  }
+  cp_async_wait<0>();
+}
+
+// A and B K-major, bf16 (the bf16 convolutions and dgrads); see above.
+template <class Op>
+__global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(const Op params) {
+  constexpr int TN = Op::kTileN;
+  static_assert(TN == 128 || TN == 64, "wgmma m64n128k16 or m64n64k16");
+  static_assert(!Op::kNormRelu, "the bf16 operands are materialised");
+  extern __shared__ __align__(1024) uint4 smem16[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem16);
+  Op op = params;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;  // warpgroup warp >> 2 owns rows 64 (warp >> 2) .. + 63
+  op.setup(tid);
+  float acc[TN / 2];
+  bf16_mainloop<0, Op, TN>(op, smem, tid, acc);
+  // epilogue: d[4 j + v] is row g (v < 2) or g + 8, column 8 j + 2 t + (v & 1)
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    op.write(row0 + g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
+    op.write(row0 + g + 8, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+  if constexpr (Op::kTileStats) {
+    __syncthreads();  // every warp is done with the ring
+    tile_stats<TN>(op, acc, reinterpret_cast<float*>(smem), tid, row0, g, t);
+  }
+}
+
+template <class Op>
+cudaError_t launch_bf16(const Op& op, dim3 grid, cudaStream_t stream) {
+  constexpr int bytes = STAGES * (A16_BYTES + Op::kTileN * BK16 * 2);
+  cudaError_t err =
+      cudaFuncSetAttribute(gemm_bf16_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  gemm_bf16_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
+  return cudaGetLastError();
+}
+
+// A M-major, B N-major, bf16 (the bf16 wgrads): both read by wgmma as they
+// lie (the transpose bit); see above.
+template <class Op>
+__global__ void __launch_bounds__(THREADS, 1) gemm_bf16_mn_kernel(const Op params) {
+  constexpr int TN = Op::kTileN;
+  static_assert(TN == 128 || TN == 64, "wgmma m64n128k16 or m64n64k16");
+  static_assert(!Op::kNormRelu, "the bf16 operands are materialised");
+  extern __shared__ __align__(1024) uint4 smem16[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem16);
+  Op op = params;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 16 * warp;
+  op.setup(tid);
+  float acc[TN / 2];
+  bf16_mainloop<1, Op, TN>(op, smem, tid, acc);
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    op.write(row0 + g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
+    op.write(row0 + g + 8, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+  }
+}
+
+template <class Op>
+cudaError_t launch_bf16_mn(const Op& op, dim3 grid, cudaStream_t stream) {
+  constexpr int bytes = STAGES * (A16_BYTES + Op::kTileN * BK16 * 2);
+  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_mn_kernel<Op>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  gemm_bf16_mn_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
+  return cudaGetLastError();
+}
+
+// 4 adjacent values in and out, in fp32 registers: fp32 as 16 bytes, bf16
+// as 8 (widened on the load, rounded on the store)
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 q;
+  q.x = *reinterpret_cast<const unsigned*>(&a);
+  q.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+// One value widened to fp32.
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+// An fp32 value as an element of type T holds it: itself for fp32, rounded
+// to bf16 (and widened back) for bf16.
+template <class T>
+__device__ __forceinline__ float rounded(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16(v));
+  }
+}
+template <class T>
+__device__ __forceinline__ float4 rounded(float4 v) {
+  return make_float4(rounded<T>(v.x), rounded<T>(v.y), rounded<T>(v.z), rounded<T>(v.w));
+}
+
+// The epilogue's store of two adjacent columns: fp32, or rounded to bf16.
+__device__ __forceinline__ void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
 }
 
 }  // namespace

@@ -11,9 +11,17 @@
 // depends only on (N, HW, C) and the device's count of co-resident blocks,
 // never on VEC or on which block takes which item, so two identical calls
 // sum in the same order and give the same bits.
+//
+// Each kernel is a template on its tensors' element type: float, or bf16
+// for the --bf16 variants, whose loads widen to fp32 (exact) and whose
+// stores round to bf16 once; the arithmetic, the sums, the statistics and
+// the rows kept in shared memory are fp32 either way, so a bf16 call has
+// the split and the order of its fp32 counterpart. Its 4-wide loads are 8
+// bytes (where C % 4 == 0 and the pointers are 8-byte aligned).
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -103,6 +111,37 @@ __device__ __forceinline__ Pack<VEC> load(const float* p) {
   }
   return r;
 }
+
+template <int VEC>
+__device__ __forceinline__ Pack<VEC> load(const __nv_bfloat16* p) {
+  Pack<VEC> r;
+  if constexpr (VEC == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    r.v[0] = a.x, r.v[1] = a.y, r.v[2] = b.x, r.v[3] = b.y;
+  } else {
+    r.v[0] = __bfloat162float(*p);
+  }
+  return r;
+}
+
+template <int VEC>
+__device__ __forceinline__ void store(__nv_bfloat16* p, const Pack<VEC>& r) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(r.v[0], r.v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(r.v[2], r.v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&a);
+    q.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+    *p = __float2bfloat16(r.v[0]);
+  }
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <int VEC>
 __device__ __forceinline__ void store(float* p, const Pack<VEC>& r) {

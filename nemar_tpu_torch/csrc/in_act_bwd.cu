@@ -29,8 +29,11 @@
 // and the ten larger read x and g twice; at batch 1 (chip_smoke.IN_SHAPES)
 // every shape but 64 x 256^2 keeps them.
 //
-// Layouts: x, g, dx (N, H, W, C) fp32 contiguous; stats (N, 2, C) fp32;
-// work the doubles nemar_in_act_bwd_work asks for. Any N, C >= 1, H * W >= 1.
+// Layouts: x, g, dx (N, H, W, C) fp32 contiguous (bf16 in the --bf16
+// variant, nemar_in_act_bwd_bf16: the same kernel instantiated for bf16,
+// its sums and arithmetic fp32, d x rounded once); stats (N, 2, C) fp32;
+// work the doubles nemar_in_act_bwd_work (nemar_in_act_bwd_bf16_work) asks
+// for. Any N, C >= 1, H * W >= 1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,10 +53,10 @@ __device__ __forceinline__ float act_grad(float yh, float g, int act, float slop
   return act == 1 ? (yh > 0.f ? g : 0.f) : act == 2 ? (yh >= 0.f ? g : g * slope) : g;
 }
 
-template <int VEC>
+template <int VEC, class T>
 __global__ void __launch_bounds__(kThreads, 2)
-    in_act_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                      const float* __restrict__ stats, float* __restrict__ dx, double* part,
+    in_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ stats, T* __restrict__ dx, double* part,
                       double* means, Plan p, int hw, int c, int act, float slope) {
   extern __shared__ float4 cache_raw[];
   float* cache = reinterpret_cast<float*>(cache_raw);
@@ -178,46 +181,77 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-std::atomic<int> g_blocks4[kMaxDevices], g_blocks1[kMaxDevices];
+// the co-resident blocks of each element type's two instantiations, per device
+template <class T>
+struct Blocks {
+  static std::atomic<int> b4[kMaxDevices], b1[kMaxDevices];
+};
+template <class T>
+std::atomic<int> Blocks<T>::b4[kMaxDevices];
+template <class T>
+std::atomic<int> Blocks<T>::b1[kMaxDevices];
 
+template <class T>
 cudaError_t plan_for(int n, int hw, int c, Plan* p) {
-  const void* k4 = reinterpret_cast<const void*>(&in_act_bwd_kernel<4>);
-  const void* k1 = reinterpret_cast<const void*>(&in_act_bwd_kernel<1>);
-  return in_act::plan_for(k4, g_blocks4, k1, g_blocks1, n, hw, c, 2, p);
+  const void* k4 = reinterpret_cast<const void*>(&in_act_bwd_kernel<4, T>);
+  const void* k1 = reinterpret_cast<const void*>(&in_act_bwd_kernel<1, T>);
+  return in_act::plan_for(k4, Blocks<T>::b4, k1, Blocks<T>::b1, n, hw, c, 2, p);
 }
 
 long long work_doubles_of(const Plan& p, int n, int c) {
   return static_cast<long long>(n) * (p.chunks + 1) * 2 * c;  // part, then means
 }
 
+template <class T>
+long long work(int n, int hw, int c) {
+  if (static_cast<long long>(n) * hw * c == 0) return 0;
+  Plan p;
+  const cudaError_t e = plan_for<T>(n, hw, c, &p);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  return work_doubles_of(p, n, c);
+}
+
+template <class T>
+int launch(const T* x, const T* g, const float* stats, T* dx, double* work, long long work_doubles,
+           int n, int h, int w, int c, int act, float slope, cudaStream_t stream) {
+  const int hw = h * w;
+  if (static_cast<long long>(n) * hw * c == 0) return static_cast<int>(cudaSuccess);
+  Plan p;
+  const cudaError_t e = plan_for<T>(n, hw, c, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (work_doubles < work_doubles_of(p, n, c)) return static_cast<int>(cudaErrorInvalidValue);
+  double* means = work + static_cast<size_t>(n) * p.chunks * 2 * c;
+  const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
+                                    reinterpret_cast<uintptr_t>(dx)) % (4 * sizeof(T)) == 0;
+  void* args[] = {&x, &g, &stats, &dx, &work, &means, &p, const_cast<int*>(&hw), &c, &act, &slope};
+  const void* kernel = vec4 ? reinterpret_cast<const void*>(&in_act_bwd_kernel<4, T>)
+                            : reinterpret_cast<const void*>(&in_act_bwd_kernel<1, T>);
+  return static_cast<int>(
+      cudaLaunchCooperativeKernel(kernel, p.grid, kThreads, args, kCacheBytes, stream));
+}
+
 }  // namespace
 
 // The doubles of workspace a call at this shape needs on the current
 // device, or minus a CUDA error code.
-extern "C" long long nemar_in_act_bwd_work(int n, int hw, int c) {
-  if (static_cast<long long>(n) * hw * c == 0) return 0;
-  Plan p;
-  const cudaError_t e = plan_for(n, hw, c, &p);
-  if (e != cudaSuccess) return -static_cast<long long>(e);
-  return work_doubles_of(p, n, c);
-}
+extern "C" long long nemar_in_act_bwd_work(int n, int hw, int c) { return work<float>(n, hw, c); }
 
 // act: 0 none, 1 relu, 2 leaky_relu. Returns the launch's CUDA error code.
 extern "C" int nemar_in_act_bwd(const float* x, const float* g, const float* stats, float* dx,
                                 double* work, long long work_doubles, int n, int h, int w, int c,
                                 int act, float slope, cudaStream_t stream) {
-  const int hw = h * w;
-  if (static_cast<long long>(n) * hw * c == 0) return static_cast<int>(cudaSuccess);
-  Plan p;
-  const cudaError_t e = plan_for(n, hw, c, &p);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (work_doubles < work_doubles_of(p, n, c)) return static_cast<int>(cudaErrorInvalidValue);
-  double* means = work + static_cast<size_t>(n) * p.chunks * 2 * c;
-  const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(g) |
-                                    reinterpret_cast<uintptr_t>(dx)) % 16 == 0;
-  void* args[] = {&x, &g, &stats, &dx, &work, &means, &p, const_cast<int*>(&hw), &c, &act, &slope};
-  const void* kernel = vec4 ? reinterpret_cast<const void*>(&in_act_bwd_kernel<4>)
-                            : reinterpret_cast<const void*>(&in_act_bwd_kernel<1>);
-  return static_cast<int>(
-      cudaLaunchCooperativeKernel(kernel, p.grid, kThreads, args, kCacheBytes, stream));
+  return launch<float>(x, g, stats, dx, work, work_doubles, n, h, w, c, act, slope, stream);
+}
+
+// The bf16 variant: x, g, dx bf16; stats fp32.
+extern "C" long long nemar_in_act_bwd_bf16_work(int n, int hw, int c) {
+  return work<__nv_bfloat16>(n, hw, c);
+}
+
+extern "C" int nemar_in_act_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                     const float* stats, __nv_bfloat16* dx, double* work,
+                                     long long work_doubles, int n, int h, int w, int c, int act,
+                                     float slope, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(x, g, stats, dx, work, work_doubles, n, h, w, c, act, slope,
+                               stream);
 }

@@ -39,8 +39,10 @@
 // at most 4.2M elements do, and the six larger (64 and 32 x 256^2, 128 x
 // 128^2, 256 x 64^2, 128 x 64^2 and 512 x 31^2 at 16) read x twice.
 //
-// Layouts: x, y (N, H, W, C) fp32 contiguous; stats (N, 2, C) fp32; work
-// the doubles nemar_in_act_fwd_work asks for. Any N, C >= 1, H * W >= 1.
+// Layouts: x, y (N, H, W, C) fp32 contiguous (bf16 in the --bf16 variant,
+// nemar_in_act_fwd_bf16, which is the same kernel instantiated for bf16:
+// in_act.cuh); stats (N, 2, C) fp32; work the doubles nemar_in_act_fwd_work
+// (nemar_in_act_fwd_bf16_work) asks for. Any N, C >= 1, H * W >= 1.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,9 +56,9 @@ namespace cg = cooperative_groups;
 // rows a thread loads before it sums them, for memory-level parallelism
 constexpr int kUnroll = 4;
 
-template <int VEC>
+template <int VEC, class T>
 __global__ void __launch_bounds__(kThreads, 2)
-    in_act_fwd_kernel(const float* __restrict__ x, float* __restrict__ y, float* stats,
+    in_act_fwd_kernel(const T* __restrict__ x, T* __restrict__ y, float* stats,
                       double* part, Plan p, int hw, int c, int act, float eps, float slope) {
   extern __shared__ float4 cache_raw[];
   float* cache = reinterpret_cast<float*>(cache_raw);
@@ -70,7 +72,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const Item it = item_of(p, i);
     const int ch = it.cblk * p.cb + lane * VEC;
     const bool ok = ch < c;
-    const float* xs = x + static_cast<size_t>(it.n) * hw * c;
+    const T* xs = x + static_cast<size_t>(it.n) * hw * c;
     const Pack<VEC> piv = ok ? load<VEC>(xs + ch) : zeros<VEC>();
     float* tile = p.cached ? cache + static_cast<size_t>(slot) * p.rows * p.cb : nullptr;
     const int r0 = it.chunk * p.rows + rg;
@@ -121,7 +123,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if ((threadIdx.x & 31) == 0) {
       const double m1 = s1 / hw;
       const double var = fmax(s2 / hw - m1 * m1, 0.0);
-      const double pivot = x[static_cast<size_t>(n) * hw * c + ch];
+      const double pivot = to_float(x[static_cast<size_t>(n) * hw * c + ch]);
       stats[static_cast<size_t>(n) * 2 * c + ch] = static_cast<float>(pivot + m1);
       stats[static_cast<size_t>(n) * 2 * c + c + ch] =
           static_cast<float>(1.0 / sqrt(var + static_cast<double>(eps)));
@@ -166,42 +168,72 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-std::atomic<int> g_blocks4[kMaxDevices], g_blocks1[kMaxDevices];
+// the co-resident blocks of each element type's two instantiations, per device
+template <class T>
+struct Blocks {
+  static std::atomic<int> b4[kMaxDevices], b1[kMaxDevices];
+};
+template <class T>
+std::atomic<int> Blocks<T>::b4[kMaxDevices];
+template <class T>
+std::atomic<int> Blocks<T>::b1[kMaxDevices];
 
+template <class T>
 cudaError_t plan_for(int n, int hw, int c, Plan* p) {
-  const void* k4 = reinterpret_cast<const void*>(&in_act_fwd_kernel<4>);
-  const void* k1 = reinterpret_cast<const void*>(&in_act_fwd_kernel<1>);
-  return in_act::plan_for(k4, g_blocks4, k1, g_blocks1, n, hw, c, 1, p);
+  const void* k4 = reinterpret_cast<const void*>(&in_act_fwd_kernel<4, T>);
+  const void* k1 = reinterpret_cast<const void*>(&in_act_fwd_kernel<1, T>);
+  return in_act::plan_for(k4, Blocks<T>::b4, k1, Blocks<T>::b1, n, hw, c, 1, p);
+}
+
+template <class T>
+long long work(int n, int hw, int c) {
+  if (static_cast<long long>(n) * hw * c == 0) return 0;
+  Plan p;
+  const cudaError_t e = plan_for<T>(n, hw, c, &p);
+  if (e != cudaSuccess) return -static_cast<long long>(e);
+  return static_cast<long long>(n) * p.chunks * 2 * c;
+}
+
+template <class T>
+int launch(const T* x, T* y, float* stats, double* work, long long work_doubles, int n, int h,
+           int w, int c, int act, float eps, float slope, cudaStream_t stream) {
+  const int hw = h * w;
+  if (static_cast<long long>(n) * hw * c == 0) return static_cast<int>(cudaSuccess);
+  Plan p;
+  const cudaError_t e = plan_for<T>(n, hw, c, &p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (work_doubles < static_cast<long long>(n) * p.chunks * 2 * c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = c % 4 == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) %
+                                          (4 * sizeof(T)) == 0;
+  void* args[] = {&x, &y, &stats, &work, &p, const_cast<int*>(&hw), &c, &act, &eps, &slope};
+  const void* kernel = vec4 ? reinterpret_cast<const void*>(&in_act_fwd_kernel<4, T>)
+                            : reinterpret_cast<const void*>(&in_act_fwd_kernel<1, T>);
+  return static_cast<int>(
+      cudaLaunchCooperativeKernel(kernel, p.grid, kThreads, args, kCacheBytes, stream));
 }
 
 }  // namespace
 
 // The doubles of workspace a call at this shape needs on the current
 // device, or minus a CUDA error code.
-extern "C" long long nemar_in_act_fwd_work(int n, int hw, int c) {
-  if (static_cast<long long>(n) * hw * c == 0) return 0;
-  Plan p;
-  const cudaError_t e = plan_for(n, hw, c, &p);
-  if (e != cudaSuccess) return -static_cast<long long>(e);
-  return static_cast<long long>(n) * p.chunks * 2 * c;
-}
+extern "C" long long nemar_in_act_fwd_work(int n, int hw, int c) { return work<float>(n, hw, c); }
 
 // act: 0 none, 1 relu, 2 leaky_relu. Returns the launch's CUDA error code.
 extern "C" int nemar_in_act_fwd(const float* x, float* y, float* stats, double* work,
                                 long long work_doubles, int n, int h, int w, int c, int act,
                                 float eps, float slope, cudaStream_t stream) {
-  const int hw = h * w;
-  if (static_cast<long long>(n) * hw * c == 0) return static_cast<int>(cudaSuccess);
-  Plan p;
-  const cudaError_t e = plan_for(n, hw, c, &p);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (work_doubles < static_cast<long long>(n) * p.chunks * 2 * c)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec4 = c % 4 == 0 &&
-                    (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  void* args[] = {&x, &y, &stats, &work, &p, const_cast<int*>(&hw), &c, &act, &eps, &slope};
-  const void* kernel = vec4 ? reinterpret_cast<const void*>(&in_act_fwd_kernel<4>)
-                            : reinterpret_cast<const void*>(&in_act_fwd_kernel<1>);
-  return static_cast<int>(
-      cudaLaunchCooperativeKernel(kernel, p.grid, kThreads, args, kCacheBytes, stream));
+  return launch<float>(x, y, stats, work, work_doubles, n, h, w, c, act, eps, slope, stream);
+}
+
+// The bf16 variant: x, y bf16; stats fp32.
+extern "C" long long nemar_in_act_fwd_bf16_work(int n, int hw, int c) {
+  return work<__nv_bfloat16>(n, hw, c);
+}
+
+extern "C" int nemar_in_act_fwd_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, float* stats,
+                                     double* work, long long work_doubles, int n, int h, int w,
+                                     int c, int act, float eps, float slope, cudaStream_t stream) {
+  return launch<__nv_bfloat16>(x, y, stats, work, work_doubles, n, h, w, c, act, eps, slope,
+                               stream);
 }

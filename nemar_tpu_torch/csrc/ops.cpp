@@ -14,6 +14,11 @@
 // microseconds, so the host path is what the caller waits for
 // (chip_smoke.py prints both), and a torch.empty from Python costs more than
 // one here.
+//
+// The --bf16 variants of K-block, K-block-bwd, K-convt, K-convt-bwd, K-in
+// and K-in-bwd have operators of their own (*_bf16). Every operator checks
+// each tensor's dtype and refuses, by the tensor's name, one of another
+// type: a mix of bf16 and fp32 operands is an error, never converted.
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
 #include <ATen/ops/zeros.h>
@@ -23,8 +28,12 @@
 #include <cuda_runtime_api.h>
 #include <torch/library.h>
 
+#include <cuda_bf16.h>
+
 #include <cstdint>
+#include <initializer_list>
 #include <tuple>
+#include <utility>
 
 extern "C" {
 int nemar_warp_grid_fwd(const float* img, const float* grid, float* out, int n, int h, int w, int c,
@@ -61,11 +70,53 @@ long long nemar_in_act_bwd_work(int n, int hw, int c);
 int nemar_in_act_bwd(const float* x, const float* g, const float* stats, float* dx, double* work,
                      long long work_doubles, int n, int h, int w, int c, int act, float slope,
                      cudaStream_t stream);
+int nemar_resblock_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
+                            const __nv_bfloat16* w2, __nv_bfloat16* wt, float* y1,
+                            __nv_bfloat16* y1hat, __nv_bfloat16* h1, float* y2, float* part,
+                            float* stats, __nv_bfloat16* out, int n, int h, int w, int c, float eps,
+                            cudaStream_t stream);
+int nemar_resblock_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y1hat,
+                            const __nv_bfloat16* h1, const float* y2, const float* stats,
+                            const __nv_bfloat16* g, const __nv_bfloat16* w1,
+                            const __nv_bfloat16* w2, __nv_bfloat16* dz, float* dpad, float* part_in,
+                            float* means, float* part_w, __nv_bfloat16* dw1, __nv_bfloat16* dw2,
+                            __nv_bfloat16* dx, int n, int h, int w, int c, int splits,
+                            cudaStream_t stream);
+int nemar_convt_in_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* wt,
+                            float* y, float* part, float* stats, __nv_bfloat16* yhat,
+                            __nv_bfloat16* out, int n, int h, int w_, int ci, int co, float eps,
+                            cudaStream_t stream);
+int nemar_convt_in_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                            const __nv_bfloat16* yhat, const float* stats, const __nv_bfloat16* g,
+                            __nv_bfloat16* dz, float* part_in, float* means, float* part_w,
+                            __nv_bfloat16* dw, __nv_bfloat16* dx, int n, int h, int w_, int ci,
+                            int co, int splits, int pix_per_split, cudaStream_t stream);
+long long nemar_in_act_fwd_bf16_work(int n, int hw, int c);
+int nemar_in_act_fwd_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, float* stats, double* work,
+                          long long work_doubles, int n, int h, int w, int c, int act, float eps,
+                          float slope, cudaStream_t stream);
+long long nemar_in_act_bwd_bf16_work(int n, int hw, int c);
+int nemar_in_act_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const float* stats,
+                          __nv_bfloat16* dx, double* work, long long work_doubles, int n, int h,
+                          int w, int c, int act, float slope, cudaStream_t stream);
 }
 
 namespace {
 
 float* f32(const at::Tensor& t) { return t.data_ptr<float>(); }
+__nv_bfloat16* b16(const at::Tensor& t) {
+  return reinterpret_cast<__nv_bfloat16*>(t.data_ptr<at::BFloat16>());
+}
+
+// Each named tensor of an operator has the dtype the kernel takes, else
+// the operator raises naming it.
+void dtypes(const char* what,
+            std::initializer_list<std::pair<const char*, const at::Tensor*>> tensors,
+            at::ScalarType want) {
+  for (const auto& [name, t] : tensors)
+    TORCH_CHECK(t->scalar_type() == want, what, ": ", name, " is ", t->scalar_type(),
+                ", the kernel takes ", want);
+}
 int dim(const at::Tensor& t, int d) { return static_cast<int>(t.size(d)); }
 cudaStream_t stream() { return c10::cuda::getCurrentCUDAStream().stream(); }
 
@@ -138,6 +189,8 @@ void resblock_fwd(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w
                   const at::Tensor& wsplit, const at::Tensor& y1, const at::Tensor& y2,
                   const at::Tensor& part, const at::Tensor& stats, const at::Tensor& out,
                   double eps) {
+  dtypes("resblock_fwd", {{"x", &x}, {"w1", &w1}, {"w2", &w2}, {"y1", &y1}, {"y2", &y2},
+                          {"out", &out}}, at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
   check(nemar_resblock_fwd(f32(x), f32(w1), f32(w2), f32(wsplit), f32(y1), f32(y2), f32(part),
                            f32(stats), f32(out), dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3),
@@ -151,6 +204,8 @@ void resblock_bwd(const at::Tensor& x, const at::Tensor& y1, const at::Tensor& y
                   const at::Tensor& dpad, const at::Tensor& part_in, const at::Tensor& means,
                   const at::Tensor& part_w, const at::Tensor& dw1, const at::Tensor& dw2,
                   const at::Tensor& dx, int64_t splits) {
+  dtypes("resblock_bwd", {{"x", &x}, {"y1", &y1}, {"y2", &y2}, {"g", &g}, {"w1", &w1},
+                          {"w2", &w2}, {"dw1", &dw1}, {"dw2", &dw2}, {"dx", &dx}}, at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
   check(nemar_resblock_bwd(f32(x), f32(y1), f32(y2), f32(stats), f32(g), f32(w1), f32(w2),
                            f32(wsplit), f32(dz), f32(dpad), f32(part_in), f32(means), f32(part_w),
@@ -191,6 +246,7 @@ void conv_head_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& g
 void convt_in_fwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& wsplit,
                   const at::Tensor& yhat, const at::Tensor& part, const at::Tensor& stats,
                   const at::Tensor& out, double eps) {
+  dtypes("convt_in_fwd", {{"x", &x}, {"w", &w}, {"yhat", &yhat}, {"out", &out}}, at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
   check(nemar_convt_in_fwd(f32(x), f32(w), f32(wsplit), f32(yhat), f32(part), f32(stats), f32(out),
                            dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
@@ -203,6 +259,8 @@ void convt_in_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& yh
                   const at::Tensor& dz, const at::Tensor& part_in, const at::Tensor& means,
                   const at::Tensor& part_w, const at::Tensor& dw, const at::Tensor& dx,
                   int64_t splits, int64_t pix_per_split) {
+  dtypes("convt_in_bwd", {{"x", &x}, {"w", &w}, {"yhat", &yhat}, {"g", &g}, {"dw", &dw},
+                          {"dx", &dx}}, at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
   check(nemar_convt_in_bwd(f32(x), f32(w), f32(yhat), f32(stats), f32(g), f32(wsplit), f32(dz),
                            f32(part_in), f32(means), f32(part_w), f32(dw), f32(dx), dim(x, 0),
@@ -211,12 +269,14 @@ void convt_in_bwd(const at::Tensor& x, const at::Tensor& w, const at::Tensor& yh
         "convt_in_bwd");
 }
 
-// K-in's and K-in-bwd's operand: fp32, (N, H, W, C) contiguous on a CUDA device
-void check_nhwc(const char* what, const char* name, const at::Tensor& t, const at::Tensor& x) {
+// K-in's and K-in-bwd's operand: fp32 (bf16 for the bf16 variants), (N, H,
+// W, C) contiguous on a CUDA device
+void check_nhwc(const char* what, const char* name, const at::Tensor& t, const at::Tensor& x,
+                at::ScalarType want = at::kFloat) {
   TORCH_CHECK(t.is_cuda() && t.device() == x.device(), what, ": ", name,
               " must lie on x's CUDA device, not ", t.device());
-  TORCH_CHECK(t.scalar_type() == at::kFloat, what, ": ", name, " is ", t.scalar_type(),
-              ", the kernel takes float32");
+  TORCH_CHECK(t.scalar_type() == want, what, ": ", name, " is ", t.scalar_type(),
+              ", the kernel takes ", want);
   TORCH_CHECK(t.dim() == 4 && t.sizes() == x.sizes(), what, ": ", name, " ", t.sizes(),
               " must be (N, H, W, C) of x's shape ", x.sizes());
   TORCH_CHECK(t.is_contiguous(), what, ": ", name, " ", t.sizes(),
@@ -255,18 +315,23 @@ std::tuple<at::Tensor, at::Tensor> in_act_fwd(const at::Tensor& x, int64_t act, 
   return {y, stats};
 }
 
+void check_stats(const char* what, const at::Tensor& stats, const at::Tensor& x) {
+  const int64_t n = x.size(0), c = x.size(3);
+  TORCH_CHECK(stats.is_cuda() && stats.device() == x.device() &&
+                  stats.scalar_type() == at::kFloat && stats.is_contiguous() &&
+                  stats.dim() == 3 && stats.size(0) == n && stats.size(1) == 2 &&
+                  stats.size(2) == c,
+              what, ": stats ", stats.sizes(), " ", stats.scalar_type(),
+              " must be contiguous fp32 (", n, ", 2, ", c, ") on x's device");
+}
+
 at::Tensor in_act_bwd(const at::Tensor& x, const at::Tensor& g, const at::Tensor& stats,
                       int64_t act, double slope) {
   check_nhwc("in_act_bwd", "x", x, x);
   check_nhwc("in_act_bwd", "g", g, x);
   check_act("in_act_bwd", act);
   const int n = dim(x, 0), h = dim(x, 1), w = dim(x, 2), c = dim(x, 3);
-  TORCH_CHECK(stats.is_cuda() && stats.device() == x.device() &&
-                  stats.scalar_type() == at::kFloat && stats.is_contiguous() &&
-                  stats.dim() == 3 && stats.size(0) == n && stats.size(1) == 2 &&
-                  stats.size(2) == c,
-              "in_act_bwd: stats ", stats.sizes(), " must be contiguous fp32 (", n, ", 2, ", c,
-              ") on x's device");
+  check_stats("in_act_bwd", stats, x);
   const c10::cuda::CUDAGuard guard(x.device());
   at::Tensor work = in_act_work(nemar_in_act_bwd_work(n, h * w, c), x, "in_act_bwd");
   at::Tensor dx = at::empty(x.sizes(), x.options());
@@ -275,6 +340,113 @@ at::Tensor in_act_bwd(const at::Tensor& x, const at::Tensor& g, const at::Tensor
                        n, h, w, c, static_cast<int>(act), static_cast<float>(slope), stream());
   C10_CUDA_KERNEL_LAUNCH_CHECK();
   check(code, "in_act_bwd");
+  return dx;
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 variants
+// ---------------------------------------------------------------------------
+
+void resblock_fwd_bf16(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2,
+                       const at::Tensor& wt, const at::Tensor& y1, const at::Tensor& y1hat,
+                       const at::Tensor& h1, const at::Tensor& y2, const at::Tensor& part,
+                       const at::Tensor& stats, const at::Tensor& out, double eps) {
+  dtypes("resblock_fwd_bf16", {{"x", &x}, {"w1", &w1}, {"w2", &w2}, {"wt", &wt},
+                               {"y1hat", &y1hat}, {"h1", &h1}, {"out", &out}}, at::kBFloat16);
+  dtypes("resblock_fwd_bf16", {{"y1", &y1}, {"y2", &y2}, {"part", &part}, {"stats", &stats}},
+         at::kFloat);
+  const c10::cuda::CUDAGuard guard(x.device());
+  check(nemar_resblock_fwd_bf16(b16(x), b16(w1), b16(w2), b16(wt), f32(y1), b16(y1hat), b16(h1),
+                                f32(y2), f32(part), f32(stats), b16(out), dim(x, 0), dim(x, 1),
+                                dim(x, 2), dim(x, 3), static_cast<float>(eps), stream()),
+        "resblock_fwd_bf16");
+}
+
+void resblock_bwd_bf16(const at::Tensor& x, const at::Tensor& y1hat, const at::Tensor& h1,
+                       const at::Tensor& y2, const at::Tensor& stats, const at::Tensor& g,
+                       const at::Tensor& w1, const at::Tensor& w2, const at::Tensor& dz,
+                       const at::Tensor& dpad, const at::Tensor& part_in, const at::Tensor& means,
+                       const at::Tensor& part_w, const at::Tensor& dw1, const at::Tensor& dw2,
+                       const at::Tensor& dx, int64_t splits) {
+  dtypes("resblock_bwd_bf16", {{"x", &x}, {"y1hat", &y1hat}, {"h1", &h1}, {"g", &g},
+                               {"w1", &w1}, {"w2", &w2}, {"dz", &dz}, {"dw1", &dw1},
+                               {"dw2", &dw2}, {"dx", &dx}}, at::kBFloat16);
+  dtypes("resblock_bwd_bf16", {{"y2", &y2}, {"stats", &stats}, {"dpad", &dpad},
+                               {"part_in", &part_in}, {"means", &means}, {"part_w", &part_w}},
+         at::kFloat);
+  const c10::cuda::CUDAGuard guard(x.device());
+  check(nemar_resblock_bwd_bf16(b16(x), b16(y1hat), b16(h1), f32(y2), f32(stats), b16(g),
+                                b16(w1), b16(w2), b16(dz), f32(dpad), f32(part_in), f32(means),
+                                f32(part_w), b16(dw1), b16(dw2), b16(dx), dim(x, 0), dim(x, 1),
+                                dim(x, 2), dim(x, 3), static_cast<int>(splits), stream()),
+        "resblock_bwd_bf16");
+}
+
+void convt_in_fwd_bf16(const at::Tensor& x, const at::Tensor& w, const at::Tensor& wt,
+                       const at::Tensor& y, const at::Tensor& part, const at::Tensor& stats,
+                       const at::Tensor& yhat, const at::Tensor& out, double eps) {
+  dtypes("convt_in_fwd_bf16", {{"x", &x}, {"w", &w}, {"wt", &wt}, {"yhat", &yhat},
+                               {"out", &out}}, at::kBFloat16);
+  dtypes("convt_in_fwd_bf16", {{"y", &y}, {"part", &part}, {"stats", &stats}}, at::kFloat);
+  const c10::cuda::CUDAGuard guard(x.device());
+  check(nemar_convt_in_fwd_bf16(b16(x), b16(w), b16(wt), f32(y), f32(part), f32(stats), b16(yhat),
+                                b16(out), dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
+                                static_cast<float>(eps), stream()),
+        "convt_in_fwd_bf16");
+}
+
+void convt_in_bwd_bf16(const at::Tensor& x, const at::Tensor& w, const at::Tensor& yhat,
+                       const at::Tensor& stats, const at::Tensor& g, const at::Tensor& dz,
+                       const at::Tensor& part_in, const at::Tensor& means,
+                       const at::Tensor& part_w, const at::Tensor& dw, const at::Tensor& dx,
+                       int64_t splits, int64_t pix_per_split) {
+  dtypes("convt_in_bwd_bf16", {{"x", &x}, {"w", &w}, {"yhat", &yhat}, {"g", &g}, {"dz", &dz},
+                               {"dw", &dw}, {"dx", &dx}}, at::kBFloat16);
+  dtypes("convt_in_bwd_bf16", {{"stats", &stats}, {"part_in", &part_in}, {"means", &means},
+                               {"part_w", &part_w}}, at::kFloat);
+  const c10::cuda::CUDAGuard guard(x.device());
+  check(nemar_convt_in_bwd_bf16(b16(x), b16(w), b16(yhat), f32(stats), b16(g), b16(dz),
+                                f32(part_in), f32(means), f32(part_w), b16(dw), b16(dx),
+                                dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
+                                static_cast<int>(splits), static_cast<int>(pix_per_split),
+                                stream()),
+        "convt_in_bwd_bf16");
+}
+
+std::tuple<at::Tensor, at::Tensor> in_act_fwd_bf16(const at::Tensor& x, int64_t act, double eps,
+                                                   double slope) {
+  check_nhwc("in_act_fwd_bf16", "x", x, x, at::kBFloat16);
+  check_act("in_act_fwd_bf16", act);
+  const c10::cuda::CUDAGuard guard(x.device());
+  const int n = dim(x, 0), h = dim(x, 1), w = dim(x, 2), c = dim(x, 3);
+  at::Tensor work = in_act_work(nemar_in_act_fwd_bf16_work(n, h * w, c), x, "in_act_fwd_bf16");
+  at::Tensor y = at::empty(x.sizes(), x.options());
+  at::Tensor stats = at::empty({x.size(0), 2, x.size(3)}, x.options().dtype(at::kFloat));
+  const int code = nemar_in_act_fwd_bf16(b16(x), b16(y), f32(stats), work.data_ptr<double>(),
+                                         work.numel(), n, h, w, c, static_cast<int>(act),
+                                         static_cast<float>(eps), static_cast<float>(slope),
+                                         stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  check(code, "in_act_fwd_bf16");
+  return {y, stats};
+}
+
+at::Tensor in_act_bwd_bf16(const at::Tensor& x, const at::Tensor& g, const at::Tensor& stats,
+                           int64_t act, double slope) {
+  check_nhwc("in_act_bwd_bf16", "x", x, x, at::kBFloat16);
+  check_nhwc("in_act_bwd_bf16", "g", g, x, at::kBFloat16);
+  check_act("in_act_bwd_bf16", act);
+  check_stats("in_act_bwd_bf16", stats, x);
+  const int n = dim(x, 0), h = dim(x, 1), w = dim(x, 2), c = dim(x, 3);
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor work = in_act_work(nemar_in_act_bwd_bf16_work(n, h * w, c), x, "in_act_bwd_bf16");
+  at::Tensor dx = at::empty(x.sizes(), x.options());
+  const int code = nemar_in_act_bwd_bf16(b16(x), b16(g), f32(stats), b16(dx),
+                                         work.data_ptr<double>(), work.numel(), n, h, w, c,
+                                         static_cast<int>(act), static_cast<float>(slope),
+                                         stream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  check(code, "in_act_bwd_bf16");
   return dx;
 }
 
@@ -310,4 +482,24 @@ TORCH_LIBRARY(nemar, m) {
         &in_act_fwd);
   m.def("in_act_bwd(Tensor x, Tensor g, Tensor stats, int act, float slope) -> Tensor dx",
         &in_act_bwd);
+  m.def("resblock_fwd_bf16(Tensor x, Tensor w1, Tensor w2, Tensor(a!) wt, Tensor(b!) y1, "
+        "Tensor(c!) y1hat, Tensor(d!) h1, Tensor(e!) y2, Tensor(f!) part, Tensor(g!) stats, "
+        "Tensor(h!) out, float eps) -> ()",
+        &resblock_fwd_bf16);
+  m.def("resblock_bwd_bf16(Tensor x, Tensor y1hat, Tensor h1, Tensor y2, Tensor stats, "
+        "Tensor g, Tensor w1, Tensor w2, Tensor(a!) dz, Tensor(b!) dpad, Tensor(c!) part_in, "
+        "Tensor(d!) means, Tensor(e!) part_w, Tensor(f!) dw1, Tensor(g!) dw2, Tensor(h!) dx, "
+        "int splits) -> ()",
+        &resblock_bwd_bf16);
+  m.def("convt_in_fwd_bf16(Tensor x, Tensor w, Tensor(a!) wt, Tensor(b!) y, Tensor(c!) part, "
+        "Tensor(d!) stats, Tensor(e!) yhat, Tensor(f!) out, float eps) -> ()",
+        &convt_in_fwd_bf16);
+  m.def("convt_in_bwd_bf16(Tensor x, Tensor w, Tensor yhat, Tensor stats, Tensor g, "
+        "Tensor(a!) dz, Tensor(b!) part_in, Tensor(c!) means, Tensor(d!) part_w, Tensor(e!) dw, "
+        "Tensor(f!) dx, int splits, int pix_per_split) -> ()",
+        &convt_in_bwd_bf16);
+  m.def("in_act_fwd_bf16(Tensor x, int act, float eps, float slope) -> (Tensor y, Tensor stats)",
+        &in_act_fwd_bf16);
+  m.def("in_act_bwd_bf16(Tensor x, Tensor g, Tensor stats, int act, float slope) -> Tensor dx",
+        &in_act_bwd_bf16);
 }

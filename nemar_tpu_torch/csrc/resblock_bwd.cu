@@ -76,6 +76,16 @@
 // (SPLITS, 9C, C). Requirements (checked by the wrapper): C % 128 == 0,
 // H, W >= 2, 16-byte aligned pointers, N (H+2)(W+2) C < 2^31 (32-bit
 // offsets in the dgrad's loader).
+//
+// The bf16 variant (--bf16; nemar_resblock_bwd_bf16) is the same backward
+// with bf16 operands on the core's bf16 path (one bf16 MMA a product, fp32
+// accumulators; the wgrads' pixel-major operands read by wgmma as they
+// lie), from the bf16 K-block's saved y1hat, h1 (bf16) and y2, stats
+// (fp32). It rounds where the TPU kernels store the compute dtype
+// (conv_fused.py:_bwd2_kernel_kstack, _bwd1_kernel_kstack): dz2, dh1 =
+// fold(dpad2) as the IN1 backward reads it, dz1 and dx to bf16, and dW1,
+// dW2 to the weights' bf16; the sums, dpad and the partials stay fp32.
+// Bound: 154.6 GFLOP a b8 call at 989 TFLOP/s = 0.16 ms.
 #include <cuda_runtime.h>
 
 #include "gemm_tc.cuh"
@@ -98,8 +108,20 @@ __device__ __forceinline__ float add(float a, float b) { return a + b; }
 __device__ __forceinline__ float4 add(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
-template <class T>
-__device__ __forceinline__ T load(const float* p) { return *reinterpret_cast<const T*>(p); }
+using bf16 = __nv_bfloat16;
+
+// V = float (one value) or float4 (4 adjacent ones) of an fp32 or a bf16
+// tensor, in fp32 registers
+template <class V>
+__device__ __forceinline__ V load(const float* p) { return *reinterpret_cast<const V*>(p); }
+template <class V>
+__device__ __forceinline__ V load(const bf16* p) {
+  if constexpr (std::is_same_v<V, float>) {
+    return tc::load1(p);
+  } else {
+    return tc::load4(p);
+  }
+}
 
 // reflect_pad_adjoint(dpad, 1) at (b, u, v), channels ch.. (1 or 4 of them):
 // the padded row U = u + 1 plus padded row 0 (U == 2) then row H + 1
@@ -123,15 +145,15 @@ __device__ __forceinline__ T fold(const float* __restrict__ dpad, int b, int u, 
 }
 
 // The gradient arriving at an instance norm, at pixel p (global index):
-// stage 2 reads g; stage 1 reads dh1 = fold(dpad2).
-template <int kStage, class T>
-__device__ __forceinline__ T grad_at(const float* __restrict__ src, int p, int ch, int h, int w,
+// stage 2 reads g (S = the element type); stage 1 reads dh1 = fold(dpad2).
+template <int kStage, class V, class S>
+__device__ __forceinline__ V grad_at(const S* __restrict__ src, int p, int ch, int h, int w,
                                      int c) {
   if constexpr (kStage == 2) {
-    return load<T>(src + (size_t)p * c + ch);
+    return load<V>(src + (size_t)p * c + ch);
   } else {
     const int hw = h * w, b = p / hw, pix = p - b * hw, u = pix / w;
-    return fold<T>(src, b, u, pix - u * w, ch, h, w, c);
+    return fold<V>(src, b, u, pix - u * w, ch, h, w, c);
   }
 }
 
@@ -290,20 +312,42 @@ struct WgradOp {
 
 // ---------------------------------------------------------------------------
 // Instance-norm backward: dz = rstd * (gv - mean(gv) - yhat * mean(gv * yhat))
-// per (n, c). kStage 2: gv = g, yhat = (y2 - mu2) * rstd2.
-//             kStage 1: yhat = (y1 - mu1) * rstd1, gv = dh1 * (yhat > 0).
+// per (n, c), T the element type of the block's activations (float, or bf16
+// in the bf16 variant), the arithmetic fp32.
+//   kStage 2: gv = g (T), yhat = (y2 - mu2) * rstd2 (y2 fp32 in both).
+//   kStage 1: gv = dh1 * (yhat > 0), dh1 = fold(dpad2) rounded to T (the
+//             TPU kernel stores dh1 in the compute dtype); yhat = (y1 - mu1)
+//             * rstd1 from fp32's y1, the bf16 variant's saved y1hat as it is.
+// G and Y: the types of the gradient's source and of y at each stage.
 // ---------------------------------------------------------------------------
-template <int kStage>
+template <int kStage, class T>
+using InG = std::conditional_t<kStage == 2, T, float>;
+template <int kStage, class T>
+using InY = std::conditional_t<kStage == 1, T, float>;
+
+template <int kStage, class T, class V>
+__device__ __forceinline__ V in_grad(const InG<kStage, T>* __restrict__ src, int p, int ch, int h,
+                                     int w, int c) {
+  const V v = grad_at<kStage, V>(src, p, ch, h, w, c);
+  if constexpr (kStage == 1) {
+    return tc::rounded<T>(v);
+  } else {
+    return v;
+  }
+}
+
+template <int kStage, class T>
 __device__ __forceinline__ void in_bwd_terms(float gin, float yv, float mu, float rs,
                                              float& gv, float& yh) {
-  yh = (yv - mu) * rs;
+  yh = (kStage == 1 && !std::is_same_v<T, float>) ? yv : (yv - mu) * rs;
   gv = (kStage == 1 && !(yh > 0.f)) ? 0.f : gin;
 }
 
 // One block per (64-pixel tile, 128-channel block), one thread per channel;
 // tile t of sample b covers its pixels [t * 64, min((t + 1) * 64, H*W)).
-template <int kStage>
-__global__ void in_bwd_partial_kernel(const float* __restrict__ gsrc, const float* __restrict__ y,
+template <int kStage, class T>
+__global__ void in_bwd_partial_kernel(const InG<kStage, T>* __restrict__ gsrc,
+                                      const InY<kStage, T>* __restrict__ y,
                                       const float* __restrict__ stats,
                                       float* __restrict__ part, int h, int w, int c, int tiles) {
   const int tile = blockIdx.x;
@@ -315,8 +359,8 @@ __global__ void in_bwd_partial_kernel(const float* __restrict__ gsrc, const floa
   float s1 = 0.f, s2 = 0.f;
   auto add_pixel = [&](int i) {
     float gv, yh;
-    in_bwd_terms<kStage>(grad_at<kStage, float>(gsrc, m0 + i, ch, h, w, c),
-                         y[(size_t)(m0 + i) * c + ch], mu, rs, gv, yh);
+    in_bwd_terms<kStage, T>(in_grad<kStage, T, float>(gsrc, m0 + i, ch, h, w, c),
+                            tc::load1(y + (size_t)(m0 + i) * c + ch), mu, rs, gv, yh);
     s1 += gv;
     s2 = fmaf(gv, yh, s2);
   };
@@ -368,10 +412,11 @@ __global__ void in_bwd_merge_kernel(const float* __restrict__ part, float* __res
   m[c] = (float)(s2 / hw);
 }
 
-template <int kStage>
-__global__ void in_bwd_apply_kernel(const float* __restrict__ gsrc, const float4* __restrict__ y,
+template <int kStage, class T>
+__global__ void in_bwd_apply_kernel(const InG<kStage, T>* __restrict__ gsrc,
+                                    const InY<kStage, T>* __restrict__ y,
                                     const float* __restrict__ stats,
-                                    const float* __restrict__ means, float4* __restrict__ dz,
+                                    const float* __restrict__ means, T* __restrict__ dz,
                                     long long total4, int h, int w, int c) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total4) return;
@@ -383,37 +428,41 @@ __global__ void in_bwd_apply_kernel(const float* __restrict__ gsrc, const float4
   const float* rs = mu + c;
   const float* m1 = means + (size_t)b * 2 * c + ch;
   const float* m2 = m1 + c;
-  const float4 gv4 = grad_at<kStage, float4>(gsrc, p, ch, h, w, c), yv4 = y[i];
+  const float4 gv4 = in_grad<kStage, T, float4>(gsrc, p, ch, h, w, c), yv4 = tc::load4(y + e);
   const float gin[4] = {gv4.x, gv4.y, gv4.z, gv4.w};
   const float yin[4] = {yv4.x, yv4.y, yv4.z, yv4.w};
   float o[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float gv, yh;
-    in_bwd_terms<kStage>(gin[k], yin[k], mu[k], rs[k], gv, yh);
+    in_bwd_terms<kStage, T>(gin[k], yin[k], mu[k], rs[k], gv, yh);
     o[k] = rs[k] * (gv - m1[k] - yh * m2[k]);
   }
-  dz[i] = make_float4(o[0], o[1], o[2], o[3]);
+  tc::store4(dz + e, make_float4(o[0], o[1], o[2], o[3]));
 }
 
-// out = sum over the splits of part, in split order; float4-wide
-__device__ __forceinline__ void split_sum(const float4* __restrict__ part, float4* __restrict__ out,
+// out = sum over the splits of part, in split order, float4-wide; stored
+// as T (rounded to bf16 in the bf16 variant)
+template <class T>
+__device__ __forceinline__ void split_sum(const float4* __restrict__ part, T* __restrict__ out,
                                           long long i, long long total4, int splits) {
   float4 s = part[i];
   for (int k = 1; k < splits; ++k) s = add(s, part[(size_t)k * total4 + i]);
-  out[i] = s;
+  tc::store4(out + 4 * i, s);
 }
 
-__global__ void split_sum_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+template <class T>
+__global__ void split_sum_kernel(const float4* __restrict__ part, T* __restrict__ out,
                                  long long total4, int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < total4) split_sum(part, out, i, total4, splits);
 }
 
 // 12: blocks [0, fold_blocks) write dx = g + fold(dpad1), the rest dW1
-__global__ void finish_kernel(const float* __restrict__ g, const float* __restrict__ dpad,
-                              float4* __restrict__ dx, const float4* __restrict__ part,
-                              float4* __restrict__ dw, long long total4_x, long long total4_w,
+template <class T>
+__global__ void finish_kernel(const T* __restrict__ g, const float* __restrict__ dpad,
+                              T* __restrict__ dx, const float4* __restrict__ part,
+                              T* __restrict__ dw, long long total4_x, long long total4_w,
                               int splits, int fold_blocks, int h, int w, int c) {
   if ((int)blockIdx.x < fold_blocks) {
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -421,20 +470,21 @@ __global__ void finish_kernel(const float* __restrict__ g, const float* __restri
     const long long e = i * 4;
     const int p = (int)(e / c);
     const int ch = (int)(e - (long long)p * c);
-    dx[i] = add(load<float4>(g + e), grad_at<1, float4>(dpad, p, ch, h, w, c));
+    tc::store4(dx + e, add(load<float4>(g + e), grad_at<1, float4>(dpad, p, ch, h, w, c)));
   } else {
     const long long i = (long long)(blockIdx.x - fold_blocks) * blockDim.x + threadIdx.x;
     if (i < total4_w) split_sum(part, dw, i, total4_w, splits);
   }
 }
 
-// 1-3 / 7-9
-template <int kStage>
-cudaError_t in_bwd(const float* gsrc, const float* y, const float* stats, float* part,
-                   float* means, float* dz, int n, int h, int w, int c, cudaStream_t stream,
-                   const float* w1 = nullptr, const float* w2 = nullptr, float* wsplit = nullptr) {
+// 1-3 / 7-9 (the fp32 backward's merge also splits W1 and W2)
+template <int kStage, class T>
+cudaError_t in_bwd(const InG<kStage, T>* gsrc, const InY<kStage, T>* y, const float* stats,
+                   float* part, float* means, T* dz, int n, int h, int w, int c,
+                   cudaStream_t stream, const float* w1 = nullptr, const float* w2 = nullptr,
+                   float* wsplit = nullptr) {
   const int hw = h * w, tiles = (hw + IN_TILE - 1) / IN_TILE;
-  in_bwd_partial_kernel<kStage><<<dim3((unsigned)(n * tiles), (unsigned)(c / 128)), 128, 0, stream>>>(
+  in_bwd_partial_kernel<kStage, T><<<dim3((unsigned)(n * tiles), (unsigned)(c / 128)), 128, 0, stream>>>(
       gsrc, y, stats, part, h, w, c, tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -445,9 +495,8 @@ cudaError_t in_bwd(const float* gsrc, const float* y, const float* stats, float*
       reinterpret_cast<const float4*>(w2), reinterpret_cast<uint4*>(wsplit), w4);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long total4 = (long long)n * hw * c / 4;
-  in_bwd_apply_kernel<kStage><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-      gsrc, reinterpret_cast<const float4*>(y), stats, means, reinterpret_cast<float4*>(dz),
-      total4, h, w, c);
+  in_bwd_apply_kernel<kStage, T><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      gsrc, y, stats, means, dz, total4, h, w, c);
   return cudaGetLastError();
 }
 
@@ -492,6 +541,141 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dpad, int n, int 
   return tc::launch_wgmma(op, dim3((unsigned)((op.rows + BM - 1) / BM), (unsigned)(c / BN)), stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 variant (nemar_resblock_bwd_bf16): its GEMM operands; the
+// instance-norm backwards, split sums and finish are the templates above
+// ---------------------------------------------------------------------------
+// wgrad partial, bf16 operands: part[s][tap*C + ci][co] = sum over the
+// pixels of split s of src[b, reflect(u + dy - 1), reflect(v + dx - 1), ci]
+// * dz[p, co]. K slice k is the 64 pixels from (k % kps) * 64 of sample
+// k / kps (kps = ceil(H*W / 64)); rows past the sample are zero-filled.
+// Both operands are pixel-major, read by wgmma as they lie (MN-major).
+struct WgradOp16 {
+  static constexpr bool kNormRelu = false;
+  static constexpr int kTileN = BN;
+  const bf16* src;
+  const bf16* dz;
+  float* part;
+  int h, w, c, kps, ktiles_total, splits;
+  int m0, n0, ci0, dy, dx, kt0, nkt;
+
+  __device__ void setup(int) {
+    m0 = blockIdx.x * BM;  // 128 rows (tap, ci) of one tap: C % 128 == 0
+    n0 = blockIdx.y * BN;
+    const int tap = m0 / c;
+    ci0 = m0 - tap * c;
+    dy = tap / 3;
+    dx = tap - 3 * dy;
+    const int s = blockIdx.z;
+    kt0 = (int)((long long)s * ktiles_total / splits);
+    nkt = (int)((long long)(s + 1) * ktiles_total / splits) - kt0;
+  }
+  __device__ int ktiles() const { return nkt; }
+  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+    const int slice = kt0 + kt, b = slice / kps, hw = h * w;
+    const int q0 = (slice - b * kps) * tc::BK16;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = tid + tc::THREADS * i, k = q >> 4, ch = 8 * (q & 15);
+      const int pix = q0 + k;
+      const bool valid = pix < hw;
+      const int u = pix / w, v = pix - u * w;
+      const size_t sp = ((size_t)b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
+      tc::cp_async16b(As + tc::mn16(k, q & 15), valid ? src + sp * c + ci0 + ch : src, valid);
+      tc::cp_async16b(Bs + tc::mn16(k, q & 15),
+                      valid ? dz + ((size_t)b * hw + pix) * c + n0 + ch : dz, valid);
+    }
+  }
+  __device__ void write(int r, int cl, float2 val) const {
+    tc::store2(part + ((size_t)blockIdx.z * 9 * c + m0 + r) * c + n0 + cl, val);
+  }
+};
+
+// dgrad, bf16 operands: dpad[(b, U, V), ci] = sum_{tap, co} dz[b, U - dy, V - dx, co]
+// * w[tap][ci][co], dpad fp32
+struct DgradOp16 {
+  static constexpr bool kNormRelu = false;
+  static constexpr bool kTileStats = false;
+  static constexpr int kTileN = BN;
+  const bf16* dz;
+  // W in HWIO: B(k = (tap, co), n = ci) is K-major as it lies
+  const bf16* w;
+  float* dpad;
+  int h, wd, c, rows;
+  int m0, n0, kc;
+  int roff[CHUNKS], ruv[CHUNKS];
+
+  __device__ void setup(int tid) {
+    m0 = blockIdx.x * BM;
+    n0 = blockIdx.y * BN;
+    kc = tid & 7;
+    const int wp = wd + 2, plane = (h + 2) * wp;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int m = m0 + tc::kmajor_row(tid, i);
+      const int b = m / plane, r = m - b * plane;
+      const int u = r / wp, v = r - u * wp;
+      roff[i] = ((b * h + u) * wd + v) * c;
+      ruv[i] = m < rows ? (u << 16) | v : 0x7fff0000;
+    }
+  }
+  __device__ int ktiles() const { return 9 * c / tc::BK16; }
+  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+    const int k0 = kt * tc::BK16;
+    const int tap = k0 / c;
+    const int co = k0 - tap * c + 8 * kc;
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const int shift = (dy * wd + dx) * c - co;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int si = (ruv[i] >> 16) - dy, sj = (ruv[i] & 0xffff) - dx;
+      const bool valid = (unsigned)si < (unsigned)h && (unsigned)sj < (unsigned)wd;
+      tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc), valid ? dz + (roff[i] - shift) : dz,
+                      valid);
+    }
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int nr = tc::kmajor_row(tid, i);
+      tc::cp_async16b(Bs + tc::swz16(nr, kc), w + ((size_t)tap * c + n0 + nr) * c + co, true);
+    }
+  }
+  __device__ void write(int r, int col, float2 val) const {
+    const int m = m0 + r;
+    if (m < rows) tc::store2(dpad + (size_t)m * c + n0 + col, val);
+  }
+};
+
+// 4 / 10
+cudaError_t wgrad16(const bf16* src, const bf16* dz, float* part, int n, int h, int w, int c,
+                    int splits, cudaStream_t stream) {
+  WgradOp16 op;
+  op.src = src;
+  op.dz = dz;
+  op.part = part;
+  op.h = h;
+  op.w = w;
+  op.c = c;
+  op.kps = (h * w + tc::BK16 - 1) / tc::BK16;
+  op.ktiles_total = n * op.kps;
+  op.splits = splits;
+  return tc::launch_bf16_mn(op, dim3((unsigned)(9 * c / BM), (unsigned)(c / BN), (unsigned)splits),
+                            stream);
+}
+
+// 6 / 11
+cudaError_t dgrad16(const bf16* dz, const bf16* w, float* dpad, int n, int h, int wd, int c,
+                    cudaStream_t stream) {
+  DgradOp16 op;
+  op.dz = dz;
+  op.w = w;
+  op.dpad = dpad;
+  op.h = h;
+  op.wd = wd;
+  op.c = c;
+  op.rows = n * (h + 2) * (wd + 2);
+  return tc::launch_bf16(op, dim3((unsigned)((op.rows + BM - 1) / BM), (unsigned)(c / BN)), stream);
+}
+
 }  // namespace
 
 extern "C" int nemar_resblock_bwd(const float* x, const float* y1, const float* y2,
@@ -503,20 +687,52 @@ extern "C" int nemar_resblock_bwd(const float* x, const float* y1, const float* 
   const long long total4_w = (long long)9 * c * c / 4;
   const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
   // stage 2: through IN2 and conv2 -> dW2, dpad2
-  if ((err = in_bwd<2>(g, y2, stats, part_in, means, dz, n, h, w, c, stream, w1, w2, wsplit)) != cudaSuccess) return (int)err;
+  if ((err = in_bwd<2, float>(g, y2, stats, part_in, means, dz, n, h, w, c, stream, w1, w2, wsplit)) != cudaSuccess) return (int)err;
   if ((err = wgrad<true>(y1, stats, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
-  split_sum_kernel<<<sum_blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part_w),
-                                                   reinterpret_cast<float4*>(dw2), total4_w, splits);
+  split_sum_kernel<<<sum_blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part_w), dw2,
+                                                   total4_w, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = dgrad(dz, wsplit + (size_t)18 * c * c, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   // stage 1: through the fold, relu, IN1 and conv1 -> dW1, dx = g + fold(dpad1)
-  if ((err = in_bwd<1>(dpad, y1, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = in_bwd<1, float>(dpad, y1, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   if ((err = wgrad<false>(x, stats, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
   if ((err = dgrad(dz, wsplit, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   const long long total4_x = (long long)n * h * w * c / 4;
   const int fold_blocks = (int)((total4_x + 255) / 256);
   finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
-      g, dpad, reinterpret_cast<float4*>(dx), reinterpret_cast<const float4*>(part_w),
-      reinterpret_cast<float4*>(dw1), total4_x, total4_w, splits, fold_blocks, h, w, c);
+      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1, total4_x, total4_w, splits,
+      fold_blocks, h, w, c);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 variant: x, y1hat, h1, g, w1, w2, dz, dw1, dw2, dx bf16; y2,
+// stats, dpad, part_in, means, part_w fp32. The weight gradients' K slices
+// are 64 pixels; otherwise the launches of the fp32 backward, without W's
+// split (the dgrads read the bf16 W as it lies).
+extern "C" int nemar_resblock_bwd_bf16(const bf16* x, const bf16* y1hat, const bf16* h1,
+                                       const float* y2, const float* stats, const bf16* g,
+                                       const bf16* w1, const bf16* w2, bf16* dz, float* dpad,
+                                       float* part_in, float* means, float* part_w, bf16* dw1,
+                                       bf16* dw2, bf16* dx, int n, int h, int w, int c,
+                                       int splits, cudaStream_t stream) {
+  cudaError_t err;
+  const long long total4_w = (long long)9 * c * c / 4;
+  const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
+  // stage 2: through IN2 and conv2 -> dW2, dpad2
+  if ((err = in_bwd<2, bf16>(g, y2, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = wgrad16(h1, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
+  split_sum_kernel<<<sum_blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part_w), dw2,
+                                                     total4_w, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = dgrad16(dz, w2, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  // stage 1: through the fold, relu, IN1 and conv1 -> dW1, dx = g + fold(dpad1)
+  if ((err = in_bwd<1, bf16>(dpad, y1hat, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = wgrad16(x, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
+  if ((err = dgrad16(dz, w1, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  const long long total4_x = (long long)n * h * w * c / 4;
+  const int fold_blocks = (int)((total4_x + 255) / 256);
+  finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
+      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1, total4_x, total4_w, splits,
+      fold_blocks, h, w, c);
   return (int)cudaGetLastError();
 }

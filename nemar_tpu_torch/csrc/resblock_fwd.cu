@@ -54,6 +54,22 @@
 // (tap, C_out, C_in); stats (N, 4, C) = (mu1, rstd1, mu2, rstd2) as in the
 // TPU kernel; part (N * ceil(H*W / 128), 2, C). Requirements (checked by the
 // wrapper): C % 128 == 0, H, W >= 2, 16-byte aligned pointers.
+//
+// The bf16 variant (--bf16; nemar_resblock_fwd_bf16) takes x, W1, W2 in
+// bf16, as the TPU kernel does under bf16, and runs both convolutions on
+// the core's bf16 path (gemm_tc.cuh: one bf16 MMA a product, fp32
+// accumulators). It rounds where the TPU kernel stores the compute dtype:
+// h1 = relu(y1hat), conv2's operand, and out, and it keeps y1hat in bf16
+// for the backward; y1, y2 and the statistics are fp32. Bound: 2 x 77.3
+// GFLOP a b8 call at 989 TFLOP/s = 0.16 ms. Seven launches:
+//
+//   1. transpose: W1, W2 -> W^T per tap (tap, C_out, C_in), bf16;
+//   2. conv1 (bf16 x): y1 fp32 and its tile statistics;
+//   3. stats: (mu1, rstd1);
+//   4. y1hat = (y1 - mu1) * rstd1 and h1 = relu(y1hat), both bf16;
+//   5. conv2 (bf16 h1): y2 fp32 and its tile statistics;
+//   6. stats: (mu2, rstd2);
+//   7. out = x + (y2 - mu2) * rstd2, bf16.
 #include <cuda_runtime.h>
 
 #include "gemm_tc.cuh"
@@ -197,9 +213,11 @@ __global__ void in_stats_kernel(const float* __restrict__ part, float* __restric
   s[c] = (float)(1.0 / sqrt(m2 / (double)hw + (double)eps));
 }
 
-// 6: out = x + (y2 - mu2) * rstd2, float4-wide.
-__global__ void residual_kernel(const float4* __restrict__ x, const float4* __restrict__ y,
-                                const float* __restrict__ stats, float4* __restrict__ out,
+// 6 (7 in the bf16 variant): out = x + (y2 - mu2) * rstd2, float4-wide; x
+// and out of the element type T, y2 fp32
+template <class T>
+__global__ void residual_kernel(const T* __restrict__ x, const float4* __restrict__ y,
+                                const float* __restrict__ stats, T* __restrict__ out,
                                 long long total4, int hw, int c) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total4) return;
@@ -208,9 +226,9 @@ __global__ void residual_kernel(const float4* __restrict__ x, const float4* __re
   const int b = (int)(e / ((long long)hw * c));
   const float* mu = stats + (size_t)b * 4 * c + 2 * c + ch;
   const float* rs = mu + c;
-  const float4 xv = x[i], yv = y[i];
-  out[i] = make_float4(xv.x + (yv.x - mu[0]) * rs[0], xv.y + (yv.y - mu[1]) * rs[1],
-                       xv.z + (yv.z - mu[2]) * rs[2], xv.w + (yv.w - mu[3]) * rs[3]);
+  const float4 xv = tc::load4(x + e), yv = y[i];
+  tc::store4(out + e, make_float4(xv.x + (yv.x - mu[0]) * rs[0], xv.y + (yv.y - mu[1]) * rs[1],
+                                  xv.z + (yv.z - mu[2]) * rs[2], xv.w + (yv.w - mu[3]) * rs[3]));
 }
 
 template <bool kNorm, int kTN>
@@ -248,6 +266,146 @@ cudaError_t convs(const float* x, const float* wsplit, float* y1, float* y2, flo
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 variant
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+// y[b, p, co] = sum_{tap, ci} src[b, reflect(u + dy - 1), reflect(v + dx - 1), ci]
+//                             * W[tap][ci][co], src and W bf16, y fp32;
+// the tile's per-column (mean, M2) to part. A K slice is one tap and 64
+// channels.
+template <int kTN>
+struct ConvOp16 {
+  static constexpr bool kNormRelu = false;
+  static constexpr bool kTileStats = true;
+  static constexpr int kTileN = kTN;
+  const bf16* src;
+  // W^T (tap, co, ci): B(k = (tap, ci), n = co) is K-major as it lies
+  const bf16* wt;
+  float* y;
+  float* part;
+  int h, w, c, tiles;
+  // per thread: the tile, its 16-byte chunk of a K slice's row, and for
+  // its A rows u << 16 | v (-1 past the sample)
+  int b, tile, m0, n0, kc, rows;
+  int ruv[CHUNKS];
+
+  __device__ void setup(int tid) {
+    b = blockIdx.x / tiles;
+    tile = blockIdx.x - b * tiles;
+    m0 = tile * BM;
+    n0 = blockIdx.y * kTN;
+    kc = tid & 7;
+    const int hw = h * w;
+    rows = min(BM, hw - m0);
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const int p = m0 + tc::kmajor_row(tid, i);
+      const int u = p / w;
+      ruv[i] = p < hw ? (u << 16) | (p - u * w) : -1;
+    }
+  }
+  __device__ int ktiles() const { return 9 * c / tc::BK16; }
+  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+    const int k0 = kt * tc::BK16;
+    const int tap = k0 / c;
+    const int ci = k0 - tap * c + 8 * kc;
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const bf16* sb = src + (size_t)b * h * w * c;
+#pragma unroll
+    for (int i = 0; i < CHUNKS; ++i) {
+      const bool valid = ruv[i] >= 0;
+      const int su = reflect((ruv[i] >> 16) + dy - 1, h), sv = reflect((ruv[i] & 0xffff) + dx - 1, w);
+      tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
+                      valid ? sb + ((size_t)su * w + sv) * c + ci : sb, valid);
+    }
+#pragma unroll
+    for (int i = 0; i < kTN * 8 / tc::THREADS; ++i) {
+      const int nr = tc::kmajor_row(tid, i);
+      tc::cp_async16b(Bs + tc::swz16(nr, kc), wt + ((size_t)tap * c + n0 + nr) * c + ci, true);
+    }
+  }
+  __device__ void write(int r, int col, float2 val) const {
+    if (r < rows) tc::store2(y + ((size_t)b * h * w + m0 + r) * c + n0 + col, val);
+  }
+  __device__ int rows_in_tile() const { return rows; }
+  __device__ void write_stats(int col, float mean, float m2) const {
+    float* p = part + (size_t)(b * tiles + tile) * 2 * c + n0 + col;
+    p[0] = mean;
+    p[c] = m2;
+  }
+};
+
+// 1: wt[which][tap][co][ci] = w_which[tap][ci][co], through a 32 x 32 tile
+__global__ void transpose16_kernel(const bf16* __restrict__ w1, const bf16* __restrict__ w2,
+                                   bf16* __restrict__ wt, int c) {
+  __shared__ bf16 tile[32][34];
+  const int which = blockIdx.z / 9, tap = blockIdx.z - 9 * which;
+  const bf16* src = (which ? w2 : w1) + (size_t)tap * c * c;
+  const int ci0 = blockIdx.y * 32, co0 = blockIdx.x * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int r = ty; r < 32; r += 8) tile[r][tx] = src[(size_t)(ci0 + r) * c + co0 + tx];
+  __syncthreads();
+  bf16* dst = wt + ((size_t)which * 9 + tap) * c * c;
+  for (int r = ty; r < 32; r += 8) dst[(size_t)(co0 + r) * c + ci0 + tx] = tile[tx][r];
+}
+
+// 4: y1hat = (y1 - mu1) * rstd1, h1 = relu(y1hat), both rounded to bf16
+__global__ void norm_relu16_kernel(const float4* __restrict__ y, const float* __restrict__ stats,
+                                   bf16* __restrict__ yhat, bf16* __restrict__ h1, long long total4,
+                                   int hw, int c) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total4) return;
+  const long long e = i * 4;
+  const int ch = (int)(e % c);
+  const int b = (int)(e / ((long long)hw * c));
+  const float* mu = stats + (size_t)b * 4 * c + ch;
+  const float* rs = mu + c;
+  const float4 v = y[i];
+  const float4 yh = make_float4((v.x - mu[0]) * rs[0], (v.y - mu[1]) * rs[1],
+                                (v.z - mu[2]) * rs[2], (v.w - mu[3]) * rs[3]);
+  tc::store4(yhat + e, yh);
+  tc::store4(h1 + e, make_float4(fmaxf(yh.x, 0.f), fmaxf(yh.y, 0.f), fmaxf(yh.z, 0.f),
+                                 fmaxf(yh.w, 0.f)));
+}
+
+template <int kTN>
+cudaError_t conv16(const bf16* src, const bf16* wt, float* y, float* part, int n, int h, int w,
+                   int c, int tiles, cudaStream_t stream) {
+  ConvOp16<kTN> op;
+  op.src = src;
+  op.wt = wt;
+  op.y = y;
+  op.part = part;
+  op.h = h;
+  op.w = w;
+  op.c = c;
+  op.tiles = tiles;
+  return tc::launch_bf16(op, dim3((unsigned)(n * tiles), (unsigned)(c / kTN)), stream);
+}
+
+template <int kTN>
+cudaError_t convs16(const bf16* x, const bf16* wt, float* y1, bf16* y1hat, bf16* h1, float* y2,
+                    float* part, float* stats, int n, int h, int w, int c, int tiles, float eps,
+                    cudaStream_t stream) {
+  const int hw = h * w;
+  const unsigned st_blocks = (unsigned)((n * c + 255) / 256);
+  const long long total4 = (long long)n * hw * c / 4;
+  cudaError_t err;
+  if ((err = conv16<kTN>(x, wt, y1, part, n, h, w, c, tiles, stream)) != cudaSuccess) return err;
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  norm_relu16_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(y1), stats, y1hat, h1, total4, hw, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = conv16<kTN>(h1, wt + (size_t)9 * c * c, y2, part, n, h, w, c, tiles, stream)) !=
+      cudaSuccess)
+    return err;
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The GEMM tiles are 128 output channels wide, or 64 where 128-wide tiles
@@ -272,7 +430,31 @@ extern "C" int nemar_resblock_fwd(const float* x, const float* w1, const float* 
   const int r_threads = 256;
   const unsigned r_blocks = (unsigned)((total4 + r_threads - 1) / r_threads);
   residual_kernel<<<r_blocks, r_threads, 0, stream>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(y2), stats,
-      reinterpret_cast<float4*>(out), total4, hw, c);
+      x, reinterpret_cast<const float4*>(y2), stats, out, total4, hw, c);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 variant: x, w1, w2, wt (2, 9, C, C), y1hat, h1, out bf16; y1, y2,
+// part, stats fp32. Tiles as the fp32 forward's.
+extern "C" int nemar_resblock_fwd_bf16(const bf16* x, const bf16* w1, const bf16* w2, bf16* wt,
+                                       float* y1, bf16* y1hat, bf16* h1, float* y2, float* part,
+                                       float* stats, bf16* out, int n, int h, int w, int c,
+                                       float eps, cudaStream_t stream) {
+  const int hw = h * w;
+  const int tiles = (hw + BM - 1) / BM;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const bool narrow = (long long)n * tiles * (c / BN) < sms;
+  transpose16_kernel<<<dim3((unsigned)(c / 32), (unsigned)(c / 32), 18), dim3(32, 8), 0, stream>>>(
+      w1, w2, wt, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = narrow ? convs16<64>(x, wt, y1, y1hat, h1, y2, part, stats, n, h, w, c, tiles, eps, stream)
+               : convs16<128>(x, wt, y1, y1hat, h1, y2, part, stats, n, h, w, c, tiles, eps, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long total4 = (long long)n * hw * c / 4;
+  residual_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      x, reinterpret_cast<const float4*>(y2), stats, out, total4, hw, c);
   return (int)cudaGetLastError();
 }

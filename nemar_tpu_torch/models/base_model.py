@@ -26,6 +26,15 @@ Inside:
     the next step runs at it, as the JAX package's step reads
     ``current_lr`` at every call.
 
+``--bf16`` is the JAX package's bfloat16 compute with fp32 parameters
+(``nemar_tpu/models/nemar_model.py:_cast``): the parameters, their
+gradients, the optimizers' state (and the NeMAR model's EMA shadows and
+image pool) stay fp32; a forward runs a net through ``compute(net)``, a
+call of the net on bf16 copies of its parameters made by differentiable
+casts, so every gradient reaches its fp32 parameter in fp32. A forward
+without autograd (``test``) reuses one set of copies until a parameter
+changes.
+
 Training on CUDA sets ``torch.backends.cudnn.deterministic``, so two runs
 from one state are bit-identical, as the JAX package's are.
 ``--continue_train`` restores the full training state (the nets, every
@@ -43,6 +52,7 @@ import json
 import os
 from abc import ABC, abstractmethod
 from collections import OrderedDict
+from typing import Callable
 
 import numpy as np
 import torch
@@ -80,6 +90,10 @@ class BaseModel(ABC):
         self.opt = opt
         self.isTrain = opt.isTrain
         self.device = resolve_device(opt.gpu_ids)
+        # --bf16: the forward computes in bf16 (the parameters stay fp32)
+        self.bf16 = getattr(opt, "bf16", False)
+        # {net: ((id, version) of each parameter, its bf16 copies)}
+        self._bf16_copies: dict = {}
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         os.makedirs(self.save_dir, exist_ok=True)
         self.model_names: list[str] = []
@@ -108,6 +122,35 @@ class BaseModel(ABC):
 
     def nets(self) -> dict:
         return {n: getattr(self, f"net{n}") for n in self.model_names}
+
+    def compute(self, net: torch.nn.Module) -> Callable:
+        """``net`` as the forward runs it: under --bf16 a call of net on bf16
+        copies of its fp32 parameters (``torch.func.functional_call``; the
+        casts are differentiable, so each gradient reaches its parameter in
+        fp32), else net itself. Without autograd the copies are made once
+        and kept while no parameter changes (each parameter's in-place
+        version counter, moved by an optimizer step or a load)."""
+        if not self.bf16:
+            return net
+        if torch.is_grad_enabled():
+            params = {k: p.to(torch.bfloat16) for k, p in net.named_parameters()}
+        else:
+            named = list(net.named_parameters())
+            key = tuple((id(p), p._version) for _, p in named)
+            kept = self._bf16_copies.get(net)
+            if kept is None or kept[0] != key:
+                kept = key, {k: p.to(torch.bfloat16) for k, p in named}
+                self._bf16_copies[net] = kept
+            params = kept[1]
+        return lambda *args, **kwargs: torch.func.functional_call(net, params, args, kwargs)
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        """x in bf16 under --bf16 (differentiably), else x itself."""
+        return x.to(torch.bfloat16) if self.bf16 else x
+
+    def uncast(self, x: torch.Tensor) -> torch.Tensor:
+        """x back in fp32 under --bf16 (differentiably), else x itself."""
+        return x.float() if self.bf16 else x
 
     def make_optimizers(self) -> dict:
         """{net name: optimizer} for training; each param group carries an

@@ -40,6 +40,18 @@ validity warp (forward only). Shapes G's kernels do not take run the stock
 composition the JAX package runs there (``models/networks.py``).
 ``--block_impl`` and ``--c7_impl`` name the JAX package's TPU layouts of G's
 convolutions; every choice runs these kernels.
+
+``--bf16`` follows the JAX package's ``_cast`` at its call sites: G, R and
+D run on bf16 copies of their fp32 parameters (``BaseModel.compute``), the
+inputs a and b and the fake fed to D are cast to bf16, every output of the
+forward and D's predictions are cast back to fp32 before a loss, and the
+grid stays fp32 (``models/stn``), as do the --border_mask's ones and their
+warp. The WGAN-GP penalty's pass runs D on its fp32 parameters and fp32
+inputs, as the JAX package's ``cal_gradient_penalty`` call does. The
+parameters, the gradients Adam sees, the Adam state, the EMA shadows and
+the pool stay fp32. K-block, K-convt, K-in and their backwards run their
+bf16 variants; K-warp and K-head (and their backwards) their fp32 kernels
+on fp32 copies (``ops/cast.py``).
 """
 
 from __future__ import annotations
@@ -282,24 +294,28 @@ class NEMARModel(BaseModel):
 
     def _forward_parts(self, a: torch.Tensor, b: torch.Tensor) -> dict:
         """Both warp orders from one φ; NCHW tensors in and out. With
-        --border_mask, also the warp's validity mask (N, 1, H, W), detached."""
-        netG, netR = self.netG, self.netR
+        --border_mask, also the warp's validity mask (N, 1, H, W), detached.
+        Under --bf16 the nets run in bf16 and every output is cast back to
+        fp32."""
+        netG, netR = self.compute(self.netG), self.compute(self.netR)
+        ca, cb = self.cast(a), self.cast(b)
         if self.field_source == "pair" and self.g_batch:
             # φ depends only on (a, b): R first, then ONE G pass at 2N over
             # [a; warp(a, φ)], then the warp of fake_B with the same grid
-            (warped_A,), reg, aux = netR(a, b, (a,), n_grad_imgs=0)
-            both = netG(torch.cat([a, warped_A], dim=0))
+            (warped_A,), reg, aux = netR(ca, cb, (ca,), n_grad_imgs=0)
+            both = netG(torch.cat([ca, warped_A], dim=0))
             fake_B, fake_B2 = torch.split(both, a.shape[0], dim=0)
             reg_fakeB = networks.to_nchw(grid_sample(
                 networks.to_nhwc(fake_B), aux["grid"], "bilinear",
-                netR.padding_mode, netR.align_corners))
+                self.netR.padding_mode, self.netR.align_corners))
         else:
-            fake_B = netG(a)
-            src = (a, b) if self.field_source == "pair" else (fake_B, b)
-            (reg_fakeB, warped_A), reg, aux = netR(src[0], src[1], (fake_B, a), n_grad_imgs=1)
+            fake_B = netG(ca)
+            src = (ca, cb) if self.field_source == "pair" else (fake_B, cb)
+            (reg_fakeB, warped_A), reg, aux = netR(src[0], src[1], (fake_B, ca), n_grad_imgs=1)
             fake_B2 = netG(warped_A)
-        out = {"fake_B": fake_B, "reg_fakeB": reg_fakeB, "warped_A": warped_A,
-               "fake_B2": fake_B2, "reg": reg, "flow": aux["flow"]}
+        out = {k: self.uncast(v) for k, v in (
+            ("fake_B", fake_B), ("reg_fakeB", reg_fakeB), ("warped_A", warped_A),
+            ("fake_B2", fake_B2), ("reg", reg), ("flow", aux["flow"]))}
         if self.border_mask:
             # validity of each output pixel under the warp; no gradient: the
             # mask must not be a lever for shrinking the loss support
@@ -317,8 +333,11 @@ class NEMARModel(BaseModel):
     def _d_loss(self, fake: torch.Tensor, b: torch.Tensor):
         """One D pass over [real; fake] (instance norm is per sample); under
         wgangp the gradient penalty adds its own pass over the mix.
-        -> (loss, (l_real, l_fake, penalty or None))."""
-        pred_real, pred_fake = torch.chunk(self.netD(torch.cat([b, fake], dim=0)), 2, dim=0)
+        -> (loss, (l_real, l_fake, penalty or None)). Under --bf16 D's pass
+        over [real; fake] is bf16, its predictions cast back to fp32; the
+        penalty's pass is fp32, as the JAX package's."""
+        preds = self.compute(self.netD)(torch.cat([self.cast(b), self.cast(fake)], dim=0))
+        pred_real, pred_fake = torch.chunk(self.uncast(preds), 2, dim=0)
         l_real = networks.gan_loss(pred_real, True, self.gan_mode)
         l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
         loss = 0.5 * (l_real + l_fake)
@@ -353,8 +372,10 @@ class NEMARModel(BaseModel):
             torch.sum(m), 1.0)
 
     def _head_loss(self, o: dict, b: torch.Tensor, gan_w: float):
-        """G+R loss on the forward outputs ``o`` against D as it is now."""
-        l_gan = networks.gan_loss(self.netD(o["reg_fakeB"]), True, self.gan_mode)
+        """G+R loss on the forward outputs ``o`` against D as it is now (its
+        pass in bf16 under --bf16, the prediction cast back to fp32)."""
+        pred = self.uncast(self.compute(self.netD)(self.cast(o["reg_fakeB"])))
+        l_gan = networks.gan_loss(pred, True, self.gan_mode)
         m = o.get("mask")
         rf, f2, bb = o["reg_fakeB"], o["fake_B2"], b
         l_recon = self._recon_l1(rf, bb, m) + self._recon_l1(f2, bb, m)
@@ -585,7 +606,6 @@ def _check_supported(opt) -> None:
     """Refuse, by name, the flags whose code paths are not ported yet or are
     the TPU's only."""
     refused = [
-        (getattr(opt, "bf16", False), "--bf16 is not ported yet (queued as ROADMAP.md A7)"),
         (getattr(opt, "steps_per_execution", 1) > 1,
          "--steps_per_execution > 1 is not ported yet (queued as ROADMAP.md A9: a CUDA "
          "graph is the Hopper analogue)"),

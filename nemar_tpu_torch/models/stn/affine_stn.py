@@ -15,6 +15,9 @@ Counterpart of ``nemar_tpu/models/stn/affine_stn.py``:
   * reg: the batch mean of Σ Δθ²; aux: θ, the grid, Δθ and the implied
     displacement field, grid − identity.
 
+Under ``--bf16`` Δθ and the reg are bf16, as in the JAX package; θ and the
+grid are fp32 (identity + Δθ cast up), and so is the implied field.
+
 Layers are named ``Conv_<k>`` and ``Dense_<k>`` as flax names them, so the
 state_dict matches the flax tree (``utils/convert.py`` transposes the dense
 kernels).

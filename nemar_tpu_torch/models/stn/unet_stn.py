@@ -20,6 +20,10 @@ Counterpart of ``nemar_tpu/models/stn/unet_stn.py``:
   * reg: the TV of the final field; under ``multiscale`` each head's TV at
     its own resolution, before scale and tanh, averaged over the heads.
 
+Under ``--bf16`` (the model runs R on bf16 copies of its parameters) the
+field, its compositions and the TV are bf16, as in the JAX package; the
+grid the images are sampled at is fp32 (identity + the field cast up).
+
 Convs are named ``Conv_<k>`` in the reference's creation order (the
 multiscale heads between the decoder's convs), so the state_dict matches
 the flax tree. ``--stn_head_impl fact`` and ``--stn_up_impl fused*`` are the
@@ -67,7 +71,10 @@ def resize_weights(n_in: int, n_out: int, dtype=torch.float32, device=None) -> t
     one axis, computed in ``dtype`` as jax computes them in its float type
     (``compute_weight_mat``: a triangle kernel at half-pixel centres, each
     row normalised by its sum, so an edge sample takes the edge pixel whole;
-    no anti-aliasing filter going up). Cached: callers must not write to it."""
+    no anti-aliasing filter going up); for bf16, in fp32 and then rounded,
+    as jax casts its fp32 weights to a bf16 field's type. Cached: callers
+    must not write to it."""
+    out_dtype, dtype = dtype, (torch.float32 if dtype == torch.bfloat16 else dtype)
     inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=dtype)
     sample = (torch.arange(n_out, dtype=dtype) + 0.5) * inv_scale - 0.5
     dist = (sample[:, None] - torch.arange(n_in, dtype=dtype)[None, :]).abs()
@@ -76,7 +83,7 @@ def resize_weights(n_in: int, n_out: int, dtype=torch.float32, device=None) -> t
     eps = 1000.0 * torch.finfo(torch.float32).eps
     w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
     inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[:, None], w, 0.0).to(device)
+    return torch.where(inside[:, None], w, 0.0).to(device=device, dtype=out_dtype)
 
 
 def resize_bilinear(f: torch.Tensor, height: int, width: int) -> torch.Tensor:

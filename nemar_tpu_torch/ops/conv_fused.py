@@ -25,6 +25,22 @@ C a multiple of 128, their GEMM tiles' width. Other channel counts (the
 128 around the launch (``block_fwd_padded``, ``block_bwd_padded``): a zero
 channel stays zero through both convs and both instance norms, and its
 gradient is dropped.
+
+Under ``--bf16`` x, w1 and w2 are bfloat16, as the JAX kernels take them
+(``nemar_tpu/ops/conv_fused.py:_fwd_kernel``, ``_bwd2_kernel_kstack``,
+``_bwd1_kernel_kstack``), and every sum is fp32. The bf16 variants of
+K-block and K-block-bwd (one bf16 MMA a product on the shared wgmma core,
+``csrc/gemm_tc.cuh``) and the plain versions at bf16 round where the JAX
+kernels round: forward, y1hat and h1 = relu(y1hat) (conv2's operand) and
+out to bf16, the statistics fp32; backward, dz2, dh1 = fold(dpad2), dz1 and
+dx to bf16 and dw1, dw2 to the weights' type. The plain versions upcast the
+bf16 operands to fp32 (exact), convolve, accumulate and normalise in fp32,
+and round at those points. The forward saves (y1hat, h1, y2, stats), y2 in
+fp32 (the JAX kernel's stage B2 recomputes y2hat from its bf16 out and x
+instead; from y2 the backward keeps IN2's input exact). One wrapper
+launches either variant by x's type (``fused_resblock_cuda``,
+``resblock_bwd_cuda``) and counts each on its own (``.launches``,
+``.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -44,14 +60,15 @@ _BM, _BN = 64, 128
 _WGRAD_SLOTS = 3 * 132
 
 
-def wgrad_splits(n: int, h: int, w: int, c: int) -> int:
+def wgrad_splits(n: int, h: int, w: int, c: int, bk: int = 32) -> int:
     """Pixel ranges K-block-bwd splits each weight gradient's reduction into
-    (K slices of 32 pixels, at least one per range)."""
+    (K slices of ``bk`` pixels, 32 in fp32 and 64 in the bf16 variant, at
+    least one per range)."""
     tiles = (9 * c // 128) * (c // 128)
-    return max(1, min(n * -(-h * w // 32), _WGRAD_SLOTS // tiles))
+    return max(1, min(n * -(-h * w // bk), _WGRAD_SLOTS // tiles))
 
 
-def _conv3x3_reflect(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """NHWC x, HWIO w -> NHWC conv over a reflect-padded x, no bias."""
     xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
     return F.conv2d(xp, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
@@ -112,25 +129,66 @@ def reflect_pad_adjoint(dpad: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def resblock_fwd_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                       eps: float = 1e-5) -> tuple:
+                       eps: float = 1e-5, work: torch.dtype = torch.float32) -> tuple:
     """Plain version of everything K-block returns: (out, y1, y2, stats),
-    the conv outputs before IN and stats (N, 4, C) = (mu1, rstd1, mu2, rstd2)."""
-    y1 = _conv3x3_reflect(x, w1)
+    the conv outputs before IN and stats (N, 4, C) = (mu1, rstd1, mu2, rstd2);
+    for bf16 x, w1, w2 that of the bf16 variant, (out, y1hat, h1, y2, stats),
+    computed in ``work`` (float64: a reference with the variant's roundings)."""
+    if x.dtype == torch.bfloat16:
+        return _resblock_fwd_plain_bf16(x, w1, w2, eps, work)
+    y1 = conv3x3_reflect(x, w1)
     st1 = instance_norm_stats(y1, eps)
-    y2 = _conv3x3_reflect(torch.clamp_min(normalise(y1, st1), 0.0), w2)
+    y2 = conv3x3_reflect(torch.clamp_min(normalise(y1, st1), 0.0), w2)
     st2 = instance_norm_stats(y2, eps)
     # y1, y2 NHWC-contiguous, as K-block writes them
     return x + normalise(y2, st2), y1.contiguous(), y2.contiguous(), torch.cat([st1, st2], dim=1)
 
 
+def _resblock_fwd_plain_bf16(x, w1, w2, eps, work):
+    """``resblock_fwd_plain`` at bf16: convolutions of the exact ``work``
+    (fp32) copies, statistics in ``work``, bf16 y1hat, h1 and out."""
+    xf = x.to(work)
+    y1 = conv3x3_reflect(xf, w1.to(work))
+    st1 = instance_norm_stats(y1, eps)
+    y1hat = normalise(y1, st1)
+    h1 = torch.clamp_min(y1hat, 0.0).to(torch.bfloat16)
+    y2 = conv3x3_reflect(h1.to(work), w2.to(work))
+    st2 = instance_norm_stats(y2, eps)
+    out = (xf + normalise(y2, st2)).to(torch.bfloat16)
+    return (out, y1hat.to(torch.bfloat16).contiguous(), h1.contiguous(), y2.contiguous(),
+            torch.cat([st1, st2], dim=1))
+
+
+def _resblock_bwd_plain_bf16(x, w1, w2, g, y1hat, h1, y2, stats, work):
+    """``resblock_bwd_plain`` at bf16, in ``work`` (fp32) from the exact
+    copies, rounding dz2, dh1, dz1, dx, dw1 and dw2 to bf16 where K-block-bwd's
+    bf16 variant stores them."""
+    bf = torch.bfloat16
+    y2, stats = y2.to(work), stats.to(work)
+    dz2 = _in_bwd(g.to(work), normalise(y2, stats[:, 2:4]), stats[:, None, None, 3]).to(bf)
+    dw2 = conv_wgrad_plain(h1.to(work), dz2.to(work))
+    dh1 = reflect_pad_adjoint(conv_adjoint_plain(dz2.to(work), w2.to(work)), 1).to(bf)
+    y1h = y1hat.to(work)
+    dz1 = _in_bwd(torch.where(y1h > 0, dh1.to(work), 0.0), y1h, stats[:, None, None, 1]).to(bf)
+    dw1 = conv_wgrad_plain(x.to(work), dz1.to(work))
+    dx = g.to(work) + reflect_pad_adjoint(conv_adjoint_plain(dz1.to(work), w1.to(work)), 1)
+    return dx.to(bf), dw1.to(w1.dtype), dw2.to(w2.dtype)
+
+
 def resblock_bwd_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor,
-                       eps: float = 1e-5, saved: tuple | None = None) -> tuple:
+                       eps: float = 1e-5, saved: tuple | None = None,
+                       work: torch.dtype = torch.float32) -> tuple:
     """Plain version of K-block-bwd: (dx, dw1, dw2) of ``fused_resblock``
     given g = d out, written out (no autograd): IN2's backward, conv2's
     weight gradient and input adjoint with the reflect-pad fold, relu, IN1's
     backward, and conv1's. ``saved`` = (y1, y2, stats) of the forward, as
-    K-block-bwd takes them; recomputed when None."""
-    _, y1, y2, stats = resblock_fwd_plain(x, w1, w2, eps) if saved is None else (None, *saved)
+    K-block-bwd takes them ((y1hat, h1, y2, stats) at bf16, the backward
+    then computed in ``work``); recomputed when None."""
+    if saved is None:
+        saved = resblock_fwd_plain(x, w1, w2, eps, work)[1:]
+    if x.dtype == torch.bfloat16:
+        return _resblock_bwd_plain_bf16(x, w1, w2, g, *saved, work)
+    y1, y2, stats = saved
     y1h = normalise(y1, stats[:, 0:2])
     h1 = torch.clamp_min(y1h, 0.0)
     dz2 = _in_bwd(g, normalise(y2, stats[:, 2:4]), stats[:, None, None, 3])
@@ -151,8 +209,9 @@ def block_kernel_supported(shape) -> bool:
 def _check_cuda(what: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> None:
     if not (x.is_cuda and w1.device == x.device and w2.device == x.device):
         raise ValueError(f"{what}: x, w1, w2 must be on one CUDA device")
-    if not (x.dtype == w1.dtype == w2.dtype == torch.float32):
-        raise TypeError(f"{what}: the kernel takes float32 x, w1, w2")
+    if not (x.dtype == w1.dtype == w2.dtype and x.dtype in (torch.float32, torch.bfloat16)):
+        raise TypeError(f"{what}: x, w1, w2 are {x.dtype}, {w1.dtype}, {w2.dtype}; the kernel "
+                        f"takes float32 (bfloat16: its bf16 variant) for all three")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{what}: x {tuple(x.shape)} must be NHWC-contiguous")
     n, h, w, c = x.shape
@@ -171,69 +230,96 @@ def _aligned(what: str, *tensors) -> None:
 
 def fused_resblock_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                         eps: float = 1e-5) -> tuple:
-    """Launch K-block. x (N, H, W, C) fp32 NHWC-contiguous on a CUDA device;
-    w1, w2 (3, 3, C, C) HWIO fp32 (made contiguous here). Returns (out, y1,
-    y2, stats): the conv outputs before IN and stats (N, 4, C) = (mu1,
-    rstd1, mu2, rstd2), which K-block-bwd takes."""
+    """Launch K-block, or its bf16 variant for bf16 x, w1, w2 (each counted
+    on its own: ``.launches``, ``.launches_bf16``). x (N, H, W, C)
+    NHWC-contiguous on a CUDA device; w1, w2 (3, 3, C, C) HWIO (made
+    contiguous here). Returns (out, *saved), out of x's type, saved what
+    K-block-bwd takes: fp32, (y1, y2, stats), the conv outputs before IN and
+    stats (N, 4, C) = (mu1, rstd1, mu2, rstd2); bf16, (y1hat, h1, y2,
+    stats), y1hat and h1 = relu(y1hat) bf16, y2 and stats fp32."""
     _check_cuda("fused_resblock_cuda", x, w1, w2)
     w1, w2 = w1.contiguous(), w2.contiguous()
     _aligned("fused_resblock_cuda", x, w1, w2)
     n, h, w, c = x.shape
-    dev = x.device
-    # W1^T, W2^T per tap, split into TF32 big and small parts
-    wsplit = torch.empty((4, 9, c, c), dtype=torch.float32, device=dev)
-    y1 = torch.empty_like(x)
-    y2 = torch.empty_like(x)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y1, y2 = torch.empty((n, h, w, c), **f32), torch.empty((n, h, w, c), **f32)
     out = torch.empty_like(x)
     # per 128-pixel tile of a sample, its per-channel (mean, M2)
-    part = torch.empty((n * -(-h * w // 128), 2, c), dtype=torch.float32, device=dev)
-    stats = torch.empty((n, 4, c), dtype=torch.float32, device=dev)
+    part = torch.empty((n * -(-h * w // 128), 2, c), **f32)
+    stats = torch.empty((n, 4, c), **f32)
+    if x.dtype == torch.bfloat16:
+        # W1^T, W2^T per tap (tap, C_out, C_in)
+        wt = torch.empty((2, 9, c, c), dtype=torch.bfloat16, device=x.device)
+        y1hat, h1 = torch.empty_like(x), torch.empty_like(x)
+        _build.op("resblock_fwd_bf16")(x, w1, w2, wt, y1, y1hat, h1, y2, part, stats, out, eps)
+        fused_resblock_cuda.launches_bf16 += 1
+        return out, y1hat, h1, y2, stats
+    # W1^T, W2^T per tap, split into TF32 big and small parts
+    wsplit = torch.empty((4, 9, c, c), **f32)
     _build.op("resblock_fwd")(x, w1, w2, wsplit, y1, y2, part, stats, out, eps)
     fused_resblock_cuda.launches += 1
     return out, y1, y2, stats
 
 
 fused_resblock_cuda.launches = 0
+fused_resblock_cuda.launches_bf16 = 0
 
 
-def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: torch.Tensor,
-                      y2: torch.Tensor, stats: torch.Tensor, g: torch.Tensor) -> tuple:
-    """Launch K-block-bwd: (dx, dw1, dw2) of ``fused_resblock`` given g = d
-    out and K-block's saved (y1, y2, stats). Same layouts and shape rules
-    as ``fused_resblock_cuda``; dw1, dw2 are HWIO."""
+def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *saved_g) -> tuple:
+    """Launch K-block-bwd, or its bf16 variant for bf16 x (counted as
+    ``fused_resblock_cuda``'s): (dx, dw1, dw2), of x's type, of
+    ``fused_resblock`` given K-block's saved values as
+    ``fused_resblock_cuda`` returns them, then g = d out (x's type). Same
+    layouts and shape rules as ``fused_resblock_cuda``; dw1, dw2 are HWIO."""
     _check_cuda("resblock_bwd_cuda", x, w1, w2)
+    *saved, g = saved_g
     n, h, w, c = x.shape
-    for name, t in (("y1", y1), ("y2", y2), ("g", g)):
-        if t.shape != x.shape or t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != x.device:
-            raise ValueError(f"resblock_bwd_cuda: {name} must be a contiguous fp32 tensor "
-                             f"of x's shape {tuple(x.shape)} and device")
-    if tuple(stats.shape) != (n, 4, c) or not stats.is_contiguous():
-        raise ValueError(f"resblock_bwd_cuda: stats {tuple(stats.shape)} is not ({n}, 4, {c})")
+    bf = x.dtype == torch.bfloat16
+    names = ("y1hat", "h1", "y2") if bf else ("y1", "y2")
+    if len(saved) != len(names) + 1:
+        raise TypeError(f"resblock_bwd_cuda: takes x, w1, w2, {', '.join(names)}, stats, g "
+                        f"for {x.dtype} x")
+    *acts, stats = saved
+    for name, t in (*zip(names, acts), ("g", g)):
+        dt = torch.float32 if name in ("y1", "y2") else x.dtype
+        if t.shape != x.shape or t.dtype != dt or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f"resblock_bwd_cuda: {name} must be a contiguous {dt} tensor of "
+                             f"x's shape {tuple(x.shape)} and device")
+    if tuple(stats.shape) != (n, 4, c) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous():
+        raise ValueError(f"resblock_bwd_cuda: stats {tuple(stats.shape)} {stats.dtype} is not "
+                         f"fp32 ({n}, 4, {c})")
     if n * (h + 2) * (w + 2) * c >= 2**31:
         raise ValueError(f"resblock_bwd_cuda: {tuple(x.shape)} is too large for 32-bit offsets")
     # HWIO as they are: the dgrads read W[tap][ci][co] K-major (along co)
     w1, w2 = w1.contiguous(), w2.contiguous()
-    splits = wgrad_splits(n, h, w, c)
-    dev = x.device
-    wsplit = torch.empty((4, 9 * c, c), dtype=torch.float32, device=dev)
+    # the bf16 variant's weight gradients take K slices of 64 pixels
+    splits = wgrad_splits(n, h, w, c, 64 if bf else 32)
+    f32 = dict(dtype=torch.float32, device=x.device)
     dz = torch.empty_like(x)
     # the gradient of the reflect-padded input, written by each dgrad
-    dpad = torch.empty((n, h + 2, w + 2, c), dtype=torch.float32, device=dev)
+    dpad = torch.empty((n, h + 2, w + 2, c), **f32)
     dx = torch.empty_like(x)
-    part_in = torch.empty((n * -(-h * w // _BM), 2, c), dtype=torch.float32, device=dev)
-    means = torch.empty((n, 2, c), dtype=torch.float32, device=dev)
-    part_w = torch.empty((splits, 9 * c, c), dtype=torch.float32, device=dev)
-    dw1 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
-    dw2 = torch.empty((3, 3, c, c), dtype=torch.float32, device=dev)
-    _aligned("resblock_bwd_cuda", x, y1, y2, stats, g, w1, w2)
-    _build.op("resblock_bwd")(x, y1, y2, stats, g, w1, w2, wsplit, dz, dpad, part_in, means,
-                              part_w, dw1, dw2, dx, splits)
-    resblock_bwd_cuda.launches += 1
+    part_in = torch.empty((n * -(-h * w // _BM), 2, c), **f32)
+    means = torch.empty((n, 2, c), **f32)
+    part_w = torch.empty((splits, 9 * c, c), **f32)
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    _aligned("resblock_bwd_cuda", x, *saved, g, w1, w2)
+    if bf:
+        _build.op("resblock_bwd_bf16")(x, *saved, g, w1, w2, dz, dpad, part_in, means, part_w,
+                                       dw1, dw2, dx, splits)
+        resblock_bwd_cuda.launches_bf16 += 1
+    else:
+        # W1, W2 split into TF32 big and small parts for the dgrads
+        wsplit = torch.empty((4, 9 * c, c), **f32)
+        _build.op("resblock_bwd")(x, *saved, g, w1, w2, wsplit, dz, dpad, part_in, means,
+                                  part_w, dw1, dw2, dx, splits)
+        resblock_bwd_cuda.launches += 1
     return dx, dw1, dw2
 
 
 resblock_bwd_cuda.launches = 0
+resblock_bwd_cuda.launches_bf16 = 0
 
 
 def block_fwd_padded(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -241,25 +327,27 @@ def block_fwd_padded(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     """K-block at any channel count: C zero-padded to a multiple of 128 (x's
     channels, both weights' in and out), the output cut back to C. Returns
     (out, saved): saved = the padded (x, w1, w2) and K-block's (y1, y2,
-    stats), which ``block_bwd_padded`` takes."""
+    stats), or the bf16 variant's (y1hat, h1, y2, stats) for bf16 x, which
+    ``block_bwd_padded`` takes."""
     c = x.shape[3]
     pad = -c % _BN
     if pad:
         x = F.pad(x, (0, pad))
         w1, w2 = F.pad(w1, (0, pad, 0, pad)), F.pad(w2, (0, pad, 0, pad))
-    out, y1, y2, stats = fused_resblock_cuda(x, w1, w2, eps)
-    return (out[..., :c].contiguous() if pad else out), (x, w1, w2, y1, y2, stats)
+    out, *saved = fused_resblock_cuda(x, w1, w2, eps)
+    return (out[..., :c].contiguous() if pad else out), (x, w1, w2, *saved)
 
 
-def block_bwd_padded(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, y1: torch.Tensor,
-                     y2: torch.Tensor, stats: torch.Tensor, g: torch.Tensor) -> tuple:
-    """K-block-bwd on ``block_fwd_padded``'s saved values, given g = d out
-    of the C channels the caller sees: (dx, dw1, dw2) cut back to C."""
+def block_bwd_padded(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *saved_g) -> tuple:
+    """K-block-bwd (its bf16 variant for bf16 x) on ``block_fwd_padded``'s
+    saved values, then g = d out of the C channels the caller sees, last:
+    (dx, dw1, dw2) cut back to C."""
+    *saved, g = saved_g
     c = g.shape[3]
     pad = x.shape[3] - c
     if pad:
         g = F.pad(g, (0, pad))
-    dx, dw1, dw2 = resblock_bwd_cuda(x, w1, w2, y1, y2, stats, g.contiguous())
+    dx, dw1, dw2 = resblock_bwd_cuda(x, w1, w2, *saved, g.contiguous())
     if pad:
         dx, dw1, dw2 = dx[..., :c], dw1[:, :, :c, :c], dw2[:, :, :c, :c]
     return dx, dw1, dw2
@@ -269,6 +357,9 @@ class _FusedResblock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w1, w2, eps):
         ctx.eps = eps
+        if not x.dtype == w1.dtype == w2.dtype:
+            raise TypeError(f"fused_resblock: x, w1, w2 are {x.dtype}, {w1.dtype}, "
+                            f"{w2.dtype}: one type for all three")
         if x.is_cuda:
             out, saved = block_fwd_padded(x, w1, w2, eps)
             ctx.save_for_backward(*saved)
@@ -291,7 +382,8 @@ class _FusedResblock(torch.autograd.Function):
 def fused_resblock(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """out = x + IN(conv3x3r(relu(IN(conv3x3r(x, w1))), w2)); NHWC x, HWIO w.
-    Differentiable in x, w1 and w2."""
+    Differentiable in x, w1 and w2, which are fp32 (float64 on the CPU) or
+    all three bf16."""
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"fused_resblock: unsupported device {x.device}")
     return _FusedResblock.apply(x, w1, w2, eps)

@@ -39,6 +39,12 @@ Each launch takes at most ``MAX_CO`` = 8 output channels. A wider head
 (``--output_nc 9``) takes one launch of each kernel a chunk of 8
 (``head_chunks``): the chunks' outputs and weight gradients are
 concatenated, their input gradients added in chunk order.
+
+Under ``--bf16`` (x and w bfloat16) the head runs on fp32 copies, on the
+card and on the CPU alike: x and w cast up, the output cast down, and in
+the backward g up and dx and dw down (``ops/cast.py``, counted on
+``conv_head.casts``). K-head's GEMM folds the 49 taps into N, a layout
+built for 3xTF32; its bf16 variant is queued as ROADMAP.md A7b.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from nemar_tpu_torch.ops import _build
+from nemar_tpu_torch.ops.cast import to_dtype
 from nemar_tpu_torch.ops.conv_fused import (
     conv_adjoint_plain, conv_wgrad_plain, reflect_pad_adjoint,
 )
@@ -317,7 +324,18 @@ class _ConvHead(torch.autograd.Function):
 
 def conv_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """conv7x7(reflect_pad3(x), w); NHWC x, HWIO w, no bias. Differentiable
-    in x and w."""
+    in x and w. x and w are both fp32 (or float64 on the CPU) or both
+    bf16; bf16 runs on fp32 copies, each cast counted on ``conv_head.casts``."""
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"conv_head: unsupported device {x.device}")
+    if torch.bfloat16 in (x.dtype, w.dtype):
+        if x.dtype != w.dtype:
+            raise TypeError(f"conv_head: x is {x.dtype} and w {w.dtype}: a mix of bf16 "
+                            f"and another type")
+        out = _ConvHead.apply(to_dtype(x, torch.float32, conv_head),
+                              to_dtype(w, torch.float32, conv_head))
+        return to_dtype(out, torch.bfloat16, conv_head)
     return _ConvHead.apply(x, w)
+
+
+conv_head.casts = 0

@@ -32,6 +32,17 @@ to the next multiple of 4 around the launch (``convt_fwd_padded``,
 ``convt_bwd_padded``): a zero output channel stays zero through the
 instance norm and the relu, a zero input channel adds nothing, and the
 padding's gradients are dropped.
+
+Under ``--bf16`` x and W are bfloat16. The bf16 variants of K-convt and
+K-convt-bwd (one bf16 MMA a product on the shared wgmma core) and the
+plain versions at bf16 compute the convolutions, the statistics and the
+instance-norm backward in fp32 and round where the TPU kernel stores the
+compute dtype: yhat and out, dz, dx, and dw (to W's type); the statistics
+stay fp32. A 16-byte copy holds 8 bf16 channels, so the bf16 variants take
+Ci and Co multiples of 8 (the padding above pads to 8 at bf16). One
+wrapper launches either variant by x's type (``fused_convt_in_cuda``,
+``convt_in_bwd_cuda``) and counts each on its own (``.launches``,
+``.launches_bf16``).
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ _IN_TILE = 64
 # (as K-block-bwd's); a range holds whole K slices of the GEMM (32 pixels)
 _WGRAD_SLOTS = 3 * 132
 _BK = 32
+# the channel multiple each variant's 16-byte copies need
+_CH_MULT = {torch.float32: 4, torch.bfloat16: 8}
 # per axis, output parity -> [(kernel index, input offset)] (_AX)
 _AX = {0: [(2, 0), (0, -1)], 1: [(1, 0)]}
 
@@ -66,12 +79,19 @@ def convt_flax(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def convt_in_fwd_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> tuple:
+def convt_in_fwd_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+                       work: torch.dtype = torch.float32) -> tuple:
     """Plain version of everything K-convt returns: (out, yhat, stats), yhat
-    the normalised output before the relu, stats (N, 2, Co) = (mu, rstd)."""
+    the normalised output before the relu, stats (N, 2, Co) = (mu, rstd).
+    bf16 x and w are convolved and normalised in ``work`` (fp32; float64 for
+    a reference with the bf16 variant's roundings), out and yhat rounded to
+    bf16."""
+    dtype = x.dtype
+    if dtype == torch.bfloat16:
+        x, w = x.to(work), w.to(work)
     y = convt_flax(x, w)
     stats = instance_norm_stats(y, eps)
-    yhat = normalise(y, stats).contiguous()
+    yhat = normalise(y, stats).to(dtype).contiguous()
     return torch.clamp_min(yhat, 0.0), yhat, stats
 
 
@@ -81,21 +101,27 @@ def convt_in_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch
 
 
 def convt_in_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: float = 1e-5,
-                       saved: tuple | None = None) -> tuple:
+                       saved: tuple | None = None, work: torch.dtype = torch.float32) -> tuple:
     """Plain version of K-convt-bwd: (dx, dw) of ``fused_convt_in`` given
     g = d out, written out over the parity planes (no autograd): the IN +
     relu backward over the 4 planes together, then per tap (ky, kx), with
     (py, dy) and (px, dx) its plane and input offsets, dW[ky, kx] = the
     shifted x^T . dz_plane, and dx = sum over the taps of dz at
     (2i + 2 - ky, 2j + 2 - kx) . W[ky, kx]^T. ``saved`` = (yhat, stats) of
-    the forward, as K-convt-bwd takes them; recomputed when None."""
-    yhat, stats = convt_in_fwd_plain(x, w, eps)[1:] if saved is None else saved
+    the forward, as K-convt-bwd takes them; recomputed when None. At bf16
+    computed in ``work``."""
+    yhat, stats = convt_in_fwd_plain(x, w, eps, work)[1:] if saved is None else saved
+    dtype = x.dtype
+    if dtype == torch.bfloat16:  # in work from here, dz, dx and dw rounded to bf16
+        x, w, g, yhat, stats = (t.to(work) for t in (x, w, g, yhat, stats))
     n, h, wd, ci = x.shape
     co = w.shape[-1]
     gh = torch.where(yhat > 0, g, 0.0)
     m1 = gh.mean(dim=(1, 2), keepdim=True)
     m2 = (gh * yhat).mean(dim=(1, 2), keepdim=True)
     dz = stats[:, None, None, 1] * (gh - m1 - yhat * m2)
+    if dtype == torch.bfloat16:
+        dz = dz.to(dtype).to(work)
     # x with one zero row on top and one zero column on the left: input
     # offset -1 of plane pixel i is padded row i
     xp = F.pad(x, (0, 0, 1, 0, 1, 0))
@@ -114,21 +140,23 @@ def convt_in_bwd_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, eps: f
         for kx in range(3):
             src = dzp[:, 2 - ky::2, 2 - kx::2, :][:, :h, :wd, :]
             dxx += src @ w[ky, kx].T
-    return dxx, dw
+    return dxx.to(dtype), dw.to(dtype)
 
 
 def _check_cuda(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(f"{what}: x and w must be on one CUDA device")
-    if not (x.dtype == w.dtype == torch.float32):
-        raise TypeError(f"{what}: the kernel takes float32 x and w")
+    if not (x.dtype == w.dtype and x.dtype in _CH_MULT):
+        raise TypeError(f"{what}: x is {x.dtype} and w {w.dtype}; the kernel takes float32 "
+                        f"(bfloat16: its bf16 variant) for both")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{what}: x {tuple(x.shape)} must be NHWC-contiguous")
     ci = x.shape[3]
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, ci):
         raise ValueError(f"{what}: w {tuple(w.shape)} is not (3, 3, {ci}, Co)")
-    if ci % 4 or w.shape[3] % 4:
-        raise ValueError(f"{what}: channels {ci} -> {w.shape[3]} must be multiples of 4")
+    m = _CH_MULT[x.dtype]
+    if ci % m or w.shape[3] % m:
+        raise ValueError(f"{what}: channels {ci} -> {w.shape[3]} must be multiples of {m}")
 
 
 def _aligned(what: str, *tensors) -> None:
@@ -137,83 +165,107 @@ def _aligned(what: str, *tensors) -> None:
 
 
 def fused_convt_in_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> tuple:
-    """Launch K-convt. x (N, H, W, Ci) fp32 NHWC-contiguous on a CUDA device;
-    w (3, 3, Ci, Co) fp32 (made contiguous here). Returns (out, yhat, stats):
-    out = relu(yhat) and yhat (N, 2H, 2W, Co), stats (N, 2, Co) = (mu, rstd),
-    which K-convt-bwd takes."""
+    """Launch K-convt, or its bf16 variant for bf16 x and w (each counted on
+    its own: ``.launches``, ``.launches_bf16``). x (N, H, W, Ci)
+    NHWC-contiguous on a CUDA device; w (3, 3, Ci, Co) (made contiguous
+    here); Ci and Co multiples of 4 (8 at bf16). Returns (out, yhat,
+    stats): out = relu(yhat) and yhat (N, 2H, 2W, Co) of x's type, stats
+    (N, 2, Co) = (mu, rstd) fp32, which K-convt-bwd takes."""
     _check_cuda("fused_convt_in_cuda", x, w)
     w = w.contiguous()
     _aligned("fused_convt_in_cuda", x, w)
     n, h, wd, ci = x.shape
     co = w.shape[3]
-    dev = x.device
+    f32 = dict(dtype=torch.float32, device=x.device)
     tiles = -(-(h * wd) // _BM)
-    wsplit = torch.empty((2, 9, co, ci), dtype=torch.float32, device=dev)
-    yhat = torch.empty((n, 2 * h, 2 * wd, co), dtype=torch.float32, device=dev)
+    yhat = torch.empty((n, 2 * h, 2 * wd, co), dtype=x.dtype, device=x.device)
     out = torch.empty_like(yhat)
-    part = torch.empty((n * 4 * tiles, 2, co), dtype=torch.float32, device=dev)
-    stats = torch.empty((n, 2, co), dtype=torch.float32, device=dev)
-    _build.op("convt_in_fwd")(x, w, wsplit, yhat, part, stats, out, eps)
-    fused_convt_in_cuda.launches += 1
+    part = torch.empty((n * 4 * tiles, 2, co), **f32)
+    stats = torch.empty((n, 2, co), **f32)
+    if x.dtype == torch.bfloat16:
+        wt = torch.empty((9, co, ci), dtype=torch.bfloat16, device=x.device)  # W^T per tap
+        y = torch.empty((n, 2 * h, 2 * wd, co), **f32)
+        _build.op("convt_in_fwd_bf16")(x, w, wt, y, part, stats, yhat, out, eps)
+        fused_convt_in_cuda.launches_bf16 += 1
+    else:
+        wsplit = torch.empty((2, 9, co, ci), **f32)
+        _build.op("convt_in_fwd")(x, w, wsplit, yhat, part, stats, out, eps)
+        fused_convt_in_cuda.launches += 1
     return out, yhat, stats
 
 
 fused_convt_in_cuda.launches = 0
+fused_convt_in_cuda.launches_bf16 = 0
 
 
-def wgrad_splits(pixels: int, ci: int, co: int) -> tuple:
+def wgrad_splits(pixels: int, ci: int, co: int, bk: int = _BK) -> tuple:
     """(splits, pixels per split) of K-convt-bwd's weight gradient over
-    ``pixels`` = N*H*W with Ci -> Co channels: fixed by the shape, so the
-    sum's order is too."""
+    ``pixels`` = N*H*W with Ci -> Co channels, in K slices of ``bk`` pixels
+    (32; 64 in the bf16 variant): fixed by the shape, so the sum's order is
+    too."""
     tiles = 9 * -(-ci // 128) * -(-co // (64 if co <= 64 else 128))
-    splits = max(1, min(-(-pixels // _BK), _WGRAD_SLOTS // tiles))
+    splits = max(1, min(-(-pixels // bk), _WGRAD_SLOTS // tiles))
     per = -(-pixels // splits)
-    per = -(-per // _BK) * _BK
+    per = -(-per // bk) * bk
     return -(-pixels // per), per
 
 
 def convt_in_bwd_cuda(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stats: torch.Tensor,
                       g: torch.Tensor) -> tuple:
-    """Launch K-convt-bwd: (dx, dw) of ``fused_convt_in`` given g = d out and
-    K-convt's saved (yhat, stats). Same layouts and shape rules as
-    ``fused_convt_in_cuda``; dw is (3, 3, Ci, Co)."""
+    """Launch K-convt-bwd, or its bf16 variant for bf16 x (counted as
+    ``fused_convt_in_cuda``'s): (dx, dw), of x's type, of ``fused_convt_in``
+    given g = d out and K-convt's saved (yhat, stats), g and yhat of x's
+    type. Same layouts and shape rules as ``fused_convt_in_cuda``; dw is
+    (3, 3, Ci, Co)."""
     _check_cuda("convt_in_bwd_cuda", x, w)
     n, h, wd, ci = x.shape
     co = w.shape[3]
     for name, t in (("yhat", yhat), ("g", g)):
-        if tuple(t.shape) != (n, 2 * h, 2 * wd, co) or t.dtype != torch.float32 \
+        if tuple(t.shape) != (n, 2 * h, 2 * wd, co) or t.dtype != x.dtype \
                 or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"convt_in_bwd_cuda: {name} must be a contiguous fp32 "
+            raise ValueError(f"convt_in_bwd_cuda: {name} must be a contiguous {x.dtype} "
                              f"({n}, {2 * h}, {2 * wd}, {co}) tensor on x's device")
-    if tuple(stats.shape) != (n, 2, co) or not stats.is_contiguous():
-        raise ValueError(f"convt_in_bwd_cuda: stats {tuple(stats.shape)} is not ({n}, 2, {co})")
+    if tuple(stats.shape) != (n, 2, co) or stats.dtype != torch.float32 \
+            or not stats.is_contiguous():
+        raise ValueError(f"convt_in_bwd_cuda: stats {tuple(stats.shape)} {stats.dtype} is not "
+                         f"fp32 ({n}, 2, {co})")
     w = w.contiguous()
-    dev = x.device
-    splits, per = wgrad_splits(n * h * wd, ci, co)
-    wsplit = torch.empty((2, 9 * ci, co), dtype=torch.float32, device=dev)
+    bf = x.dtype == torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # the bf16 variant's weight gradient takes K slices of 64 pixels
+    splits, per = wgrad_splits(n * h * wd, ci, co, 64 if bf else _BK)
     dz = torch.empty_like(yhat)
-    part_in = torch.empty((n * -(-(4 * h * wd) // _IN_TILE), 2, co), dtype=torch.float32,
-                          device=dev)
-    means = torch.empty((n, 2, co), dtype=torch.float32, device=dev)
-    part_w = torch.empty((splits, 9 * ci, co), dtype=torch.float32, device=dev)
-    dw = torch.empty((3, 3, ci, co), dtype=torch.float32, device=dev)
+    part_in = torch.empty((n * -(-(4 * h * wd) // _IN_TILE), 2, co), **f32)
+    means = torch.empty((n, 2, co), **f32)
+    part_w = torch.empty((splits, 9 * ci, co), **f32)
+    dw = torch.empty_like(w)
     dx = torch.empty_like(x)
     _aligned("convt_in_bwd_cuda", x, w, yhat, stats, g)
-    _build.op("convt_in_bwd")(x, w, yhat, stats, g, wsplit, dz, part_in, means, part_w, dw, dx,
-                              splits, per)
-    convt_in_bwd_cuda.launches += 1
+    if bf:
+        _build.op("convt_in_bwd_bf16")(x, w, yhat, stats, g, dz, part_in, means, part_w, dw, dx,
+                                       splits, per)
+        convt_in_bwd_cuda.launches_bf16 += 1
+    else:
+        # w split into TF32 big and small parts for the dgrad
+        wsplit = torch.empty((2, 9 * ci, co), **f32)
+        _build.op("convt_in_bwd")(x, w, yhat, stats, g, wsplit, dz, part_in, means, part_w, dw,
+                                  dx, splits, per)
+        convt_in_bwd_cuda.launches += 1
     return dx, dw
 
 
 convt_in_bwd_cuda.launches = 0
+convt_in_bwd_cuda.launches_bf16 = 0
 
 
 def convt_fwd_padded(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> tuple:
-    """K-convt at any channel counts: Ci and Co zero-padded to multiples of 4,
-    the output cut back to Co. Returns (out, saved): saved = the padded (x,
-    w) and K-convt's (yhat, stats), which ``convt_bwd_padded`` takes."""
+    """K-convt (its bf16 variant for bf16 x) at any channel counts: Ci and
+    Co zero-padded to multiples of 4 (8 at bf16), the output cut back to Co.
+    Returns (out, saved): saved = the padded (x, w) and K-convt's (yhat,
+    stats), which ``convt_bwd_padded`` takes."""
     ci, co = w.shape[2], w.shape[3]
-    pi, po = -ci % 4, -co % 4
+    m = _CH_MULT.get(x.dtype, 4)
+    pi, po = -ci % m, -co % m
     if pi or po:
         x, w = F.pad(x, (0, pi)), F.pad(w, (0, po, 0, pi))
     out, yhat, stats = fused_convt_in_cuda(x, w, eps)
@@ -234,6 +286,8 @@ def convt_bwd_padded(x: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor, stats
 class _FusedConvtIn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, eps):
+        if x.dtype != w.dtype:
+            raise TypeError(f"fused_convt_in: x is {x.dtype} and w {w.dtype}: one type for both")
         ctx.eps = eps
         ctx.ci = x.shape[3]
         if x.is_cuda:

@@ -27,6 +27,14 @@ through D) keeps the terms through the mean and the variance. The JAX
 package takes that second derivative with XLA's autodiff, not with a Pallas
 kernel, and so does this one with stock torch ops. The activation's mask is
 piecewise constant and adds no term of its own.
+
+Under ``--bf16`` x is bfloat16, and so are y, g and d x, as in the JAX
+package (``_in_act_kernel`` and ``_in_act_vjp_bwd`` store the activation's
+dtype): the statistics, the sums and the arithmetic are fp32 whatever the
+activation's type (``nemar_tpu/ops/norm.py:131``), and each output is
+rounded to bf16 once, where it is stored. K-in and K-in-bwd have bf16
+variants that do the same; the plain versions upcast x and g to fp32
+(exact), compute, and round the result. The statistics stay fp32.
 """
 
 from __future__ import annotations
@@ -53,8 +61,16 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x as the arithmetic sees it: fp32 for a bf16 tensor (an exact cast;
+    torch's CPU reductions of a bf16 tensor would return bf16), else x."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """(N, 2, C) = (mean, rstd) per (sample, channel) of an NHWC tensor."""
+    """(N, 2, C) = (mean, rstd) per (sample, channel) of an NHWC tensor, in
+    fp32 for a bf16 x."""
+    x = _wide(x)
     mean = x.mean(dim=(1, 2))
     var = torch.square(x - mean[:, None, None]).mean(dim=(1, 2))  # biased
     return torch.stack([mean, torch.rsqrt(var + eps)], dim=1)
@@ -66,8 +82,9 @@ def normalise(x: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
 
 def instance_norm_act_plain(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,
                             negative_slope: float = 0.2) -> torch.Tensor:
-    """Plain PyTorch version of ``instance_norm_act`` (any device)."""
-    return _apply_act(instance_norm(x, eps), act, negative_slope)
+    """Plain PyTorch version of ``instance_norm_act`` (any device); a bf16 x
+    is normalised in fp32 and the result rounded to bf16."""
+    return _apply_act(instance_norm(_wide(x), eps), act, negative_slope).to(x.dtype)
 
 
 def _in_act_bwd(x, g, mean, rstd, act: str, negative_slope: float) -> torch.Tensor:
@@ -88,29 +105,35 @@ def _in_act_bwd(x, g, mean, rstd, act: str, negative_slope: float) -> torch.Tens
 def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
                                 act: str = "relu", negative_slope: float = 0.2) -> torch.Tensor:
     """Plain version of K-in-bwd: d x of ``instance_norm_act`` given g = d y
-    and the forward's stats (N, 2, C) = (mean, rstd)."""
-    return _in_act_bwd(x, g, stats[:, None, None, 0], stats[:, None, None, 1], act,
-                       negative_slope)
+    and the forward's stats (N, 2, C) = (mean, rstd); bf16 x and g give a
+    bf16 d x, computed in fp32."""
+    return _in_act_bwd(_wide(x), _wide(g), stats[:, None, None, 0], stats[:, None, None, 1],
+                       act, negative_slope).to(x.dtype)
 
 
 def instance_norm_act_bwd_recompute(x: torch.Tensor, g: torch.Tensor, act: str = "relu",
                                     eps: float = 1e-5,
                                     negative_slope: float = 0.2) -> torch.Tensor:
     """``instance_norm_act_bwd_plain`` with the statistics recomputed from x
-    (the JAX package's ``_in_act_vjp_bwd``): differentiable in x and g."""
+    (the JAX package's ``_in_act_vjp_bwd``): differentiable in x and g; in
+    fp32 for bf16 x and g, the result rounded to their type."""
+    dtype = x.dtype
+    x, g = _wide(x), _wide(g)
     mean = x.mean(dim=(1, 2), keepdim=True)
     rstd = torch.rsqrt(torch.square(x - mean).mean(dim=(1, 2), keepdim=True) + eps)
-    return _in_act_bwd(x, g, mean, rstd, act, negative_slope)
+    return _in_act_bwd(x, g, mean, rstd, act, negative_slope).to(dtype)
 
 
 class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, act, eps, negative_slope):
         if x.is_cuda:
-            y, stats = norm_cuda.instance_norm_act_cuda(x, act, eps, negative_slope)
+            launch = (norm_cuda.instance_norm_act_bf16_cuda if x.dtype == torch.bfloat16
+                      else norm_cuda.instance_norm_act_cuda)
+            y, stats = launch(x, act, eps, negative_slope)
         else:
             stats = instance_norm_stats(x, eps)
-            y = _apply_act(normalise(x, stats), act, negative_slope)
+            y = _apply_act(normalise(_wide(x), stats), act, negative_slope).to(x.dtype)
         ctx.act, ctx.eps, ctx.negative_slope = act, eps, negative_slope
         ctx.save_for_backward(x, stats)
         return y
@@ -129,9 +152,12 @@ class _InstanceNormActBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, stats, g, act, eps, negative_slope):
+        if x.dtype != g.dtype:
+            raise TypeError(f"instance_norm_act backward: x is {x.dtype} and g {g.dtype}")
         if x.is_cuda:
-            dx = norm_cuda.instance_norm_act_bwd_cuda(x, g.contiguous(), stats, act,
-                                                      negative_slope)
+            launch = (norm_cuda.instance_norm_act_bwd_bf16_cuda if x.dtype == torch.bfloat16
+                      else norm_cuda.instance_norm_act_bwd_cuda)
+            dx = launch(x, g.contiguous(), stats, act, negative_slope)
         else:
             dx = instance_norm_act_bwd_plain(x, g, stats, act, negative_slope)
         ctx.act, ctx.eps, ctx.negative_slope = act, eps, negative_slope

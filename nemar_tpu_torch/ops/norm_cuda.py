@@ -12,10 +12,18 @@ backward (``nemar_tpu/ops/norm.py:_in_act_vjp_bwd``, plain XLA there):
 
 Each is one cooperative launch (partial sums, a grid barrier, a
 fixed-order fp64 merge, a grid barrier, the apply) behind its own PyTorch
-operator, ``torch.ops.nemar.in_act_fwd`` / ``in_act_bwd`` (``csrc/ops.cpp``),
-which checks the operands, allocates the outputs and the workspace, and
-computes the work split in C++. These wrappers only refuse tensors off the
+operator, ``torch.ops.nemar.in_act_fwd`` / ``in_act_bwd`` (``csrc/ops.cpp``;
+``in_act_fwd_bf16`` / ``in_act_bwd_bf16`` for the bf16 variants, each
+refusing a tensor of another type by name), which checks the operands,
+allocates the outputs and the workspace, and computes the work split in C++. These wrappers only refuse tensors off the
 card, map the activation to the operator's code and count the launches.
+
+Each kernel has an fp32 and a bf16 variant (``--bf16``: x, y, g and d x in
+bfloat16, the statistics, sums and arithmetic in fp32, each output rounded
+once where it is stored), one template instantiated for each type, with its
+own wrapper and count: ``instance_norm_act_cuda`` and
+``instance_norm_act_bf16_cuda``, ``instance_norm_act_bwd_cuda`` and
+``instance_norm_act_bwd_bf16_cuda``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,19 @@ def instance_norm_act_cuda(x: torch.Tensor, act: str = "relu", eps: float = 1e-5
 instance_norm_act_cuda.launches = 0
 
 
+def instance_norm_act_bf16_cuda(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,
+                                negative_slope: float = 0.2) -> tuple:
+    """Launch K-in's bf16 variant: x (N, H, W, C) bf16 -> (y bf16, stats
+    (N, 2, C) fp32)."""
+    _check("instance_norm_act_bf16_cuda", x, act)
+    y, stats = _build.op("in_act_fwd_bf16")(x, _ACT_CODE[act], eps, negative_slope)
+    instance_norm_act_bf16_cuda.launches += 1
+    return y, stats
+
+
+instance_norm_act_bf16_cuda.launches = 0
+
+
 def instance_norm_act_bwd_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
                                act: str = "relu", negative_slope: float = 0.2) -> torch.Tensor:
     """Launch K-in-bwd: d x of ``instance_norm_act`` given g = d y (both
@@ -59,3 +80,16 @@ def instance_norm_act_bwd_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Te
 
 
 instance_norm_act_bwd_cuda.launches = 0
+
+
+def instance_norm_act_bwd_bf16_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                                    act: str = "relu",
+                                    negative_slope: float = 0.2) -> torch.Tensor:
+    """Launch K-in-bwd's bf16 variant: x and g bf16, stats fp32 -> d x bf16."""
+    _check("instance_norm_act_bwd_bf16_cuda", x, act)
+    dx = _build.op("in_act_bwd_bf16")(x, g, stats, _ACT_CODE[act], negative_slope)
+    instance_norm_act_bwd_bf16_cuda.launches += 1
+    return dx
+
+
+instance_norm_act_bwd_bf16_cuda.launches = 0

@@ -30,6 +30,12 @@ reflection's abs has slope +1 at 0. It differs there from
 ``grad_channels`` limits d img to the first channels, the rest get exact
 zeros, as ``grid_sample_pallas(grad_channels=...)`` does: the model warps
 (fake_B, real_A) in one call and only fake_B needs an image gradient.
+
+A bfloat16 image (``--bf16``) is sampled through an fp32 copy, on the card
+and on the CPU alike: the image cast up, the output cast down, and in the
+backward g up and d img down (``ops/cast.py``, counted on
+``grid_sample.casts``); the grid is fp32 whatever the image's type, and so
+is d grid. K-warp's bf16 variant is queued as ROADMAP.md A7b.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from typing import Sequence
 import torch
 
 from nemar_tpu_torch.ops import warp_cuda
+from nemar_tpu_torch.ops.cast import to_dtype
 
 # ---------------------------------------------------------------------------
 # Coordinate transforms
@@ -332,8 +339,14 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
 
     CPU tensors take the plain gather; CUDA tensors the kernels K-warp and
     K-warp-bwd (bilinear only). ``grad_channels >= 0`` limits d img to the
-    first channels (exact zeros for the rest); -1 means all.
+    first channels (exact zeros for the rest); -1 means all. A bf16 image is
+    sampled through an fp32 copy and the output cast back to bf16, each
+    cast counted on ``grid_sample.casts``.
     """
+    if img.dtype == torch.bfloat16:
+        out = grid_sample(to_dtype(img, torch.float32, grid_sample), grid, mode, padding_mode,
+                          align_corners, grad_channels)
+        return to_dtype(out, torch.bfloat16, grid_sample)
     if (img.is_cuda and not (img.requires_grad or grid.requires_grad) and mode == "bilinear"
             and grid.dtype == torch.float32):
         # nothing to differentiate: the kernel's operator alone, which checks
@@ -357,6 +370,9 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
     c = img.shape[-1]
     return _GridSample.apply(img, grid, padding_mode, align_corners,
                              c if grad_channels < 0 else min(grad_channels, c))
+
+
+grid_sample.casts = 0
 
 
 # ---------------------------------------------------------------------------

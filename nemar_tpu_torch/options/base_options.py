@@ -12,9 +12,11 @@ means the same to both packages. Differences:
     ``--dataset_mode`` in ``nemar_tpu_torch.data``;
   * ``--gpu_ids`` picks the device: ``-1`` is the CPU, ``k`` is ``cuda:k``
     (``models/base_model.py:resolve_device``);
-  * ``--bf16`` and the flags of the other paths not ported yet are parsed
-    and refused by the model by name, with the ROADMAP.md item that queues
-    them (``models/nemar_model.py:_check_supported``);
+  * ``--bf16`` runs the forward in bfloat16 with fp32 parameters, as the
+    JAX package's (``models/base_model.py``, ``models/nemar_model.py``);
+    the flags of the paths not ported yet are parsed and refused by the
+    model by name, with the ROADMAP.md item that queues them
+    (``models/nemar_model.py:_check_supported``);
   * the TPU-only flags that name a layout or an implementation of one
     function (``--num_devices``, ``--warp_impl``, ``--norm_impl``,
     ``--block_impl``, ``--c7_impl``, ``--stn_head_impl``, ``--stn_up_impl``,
@@ -101,7 +103,9 @@ class BaseOptions:
                             help="customized suffix: name = name + suffix, e.g. {model}_{netG}")
         # -- TPU-native extras --
         parser.add_argument("--bf16", action="store_true",
-                            help="bfloat16 compute with fp32 params (TPU fast path)")
+                            help="bfloat16 compute with fp32 params: params, "
+                                 "gradients, optimizer state, EMA shadows, the "
+                                 "image pool and the warp grid stay fp32")
         parser.add_argument("--remat", action="store_true",
                             help="rematerialize generator blocks (trade FLOPs for "
                                  "HBM; enables 512^2 batch-32 on one chip)")

@@ -49,6 +49,17 @@ fresh processes on one card (parent, change, change, parent, ...).
   ``chip_smoke.py``'s phase 5 (its options and seeded batches): the median
   host time of 6 steps after 2 warm-up steps, each ending in
   ``torch.cuda.synchronize()``;
+- ``train_step_bf16``: ``train_step`` with ``--bf16``;
+- ``step_params``: 3 fp32 steps of phase 5's b8 training step from the
+  seed (its options and seeded batches), then a sha256 of every
+  parameter's bytes (G, D, R in state_dict order) and the losses: two
+  trees whose hashes agree train bit for bit alike;
+- ``science_bf16``: the science recipe's 256^2 multiscale arm
+  (``chip_smoke.py``'s phase 7 options, batch 8, its own synthetic
+  batches) in fp32 and with ``--bf16``: the median host time of 4 steps
+  after 2 warm-up steps, then one more step under the profiler: device time
+  (the kernels', memcpys' and memsets' events), the device's busy share of
+  the step, and the 12 largest device times by kernel name;
 - ``fit_512``: BASELINE.md config #4's training step (``chip_smoke.py``'s
   phase 11: 512^2 pairs at batch 32, lsgan, fp32) at ``--grad_accum`` 1, 2
   and 4: whether one step fits the card (a CUDA out-of-memory error is
@@ -213,6 +224,63 @@ def train_step_ms(chip_smoke, torch, batch: int, flags: tuple = (), steps: int =
     return {"batch": batch, "ms_median": float(np.median(times)), "ms": times}
 
 
+def step_params(chip_smoke, torch, steps: int = 3) -> dict:
+    """The ``step_params`` part (see the module's docstring)."""
+    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, "--gpu_ids", "0",
+                                        "--checkpoints_dir", ckpt,
+                                        "--batch_size", str(chip_smoke.TRAIN_BATCH)])
+        for b in chip_smoke.request_batches(steps, chip_smoke.TRAIN_BATCH, seed=4):
+            model.set_input(b)
+            model.optimize_parameters()
+        digest = hashlib.sha256()
+        for name, net in model.nets().items():
+            for key, p in net.state_dict().items():
+                digest.update(f"{name}.{key}".encode())
+                digest.update(p.detach().cpu().numpy().tobytes())
+        losses = model.get_current_losses()
+        del model
+    return {"steps": steps, "sha256": digest.hexdigest(), "losses": losses}
+
+
+def science_bf16(chip_smoke, torch) -> dict:
+    """The ``science_bf16`` part (see the module's docstring)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, extra in (("fp32", ()), ("bf16", ("--bf16",))):
+        with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+            model = chip_smoke.train_model([*chip_smoke._science_args("multiscale", ckpt),
+                                            *extra])
+            batches = chip_smoke._science_batches(model.opt, 7)
+            times = []
+            for i, b in enumerate(batches[:6]):
+                t0 = time.perf_counter()
+                model.set_input(b)
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.set_input(batches[6])
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            by = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            device = sum(by.values())
+            out[name] = {"ms_median": float(np.median(times)), "ms": times,
+                         "profiled_wall_ms": wall, "device_ms": device,
+                         "busy_share": device / wall,
+                         "top_kernels_ms": sorted(by.items(), key=lambda kv: -kv[1])[:12]}
+            del model
+    return out
+
+
 def fit_512(chip_smoke, torch, k: int) -> dict:
     """The ``fit_512`` part at --grad_accum k (see the module's docstring)."""
     import gc
@@ -267,6 +335,7 @@ def a5_split(chip_smoke, torch) -> dict:
 
 
 PARTS = ("warp_bwd", "block", "convt", "head", "in", "request", "train_step_b1", "train_step",
+         "train_step_bf16", "step_params", "science_bf16",
          "fit_512", "a5_split", "sass")
 
 
@@ -401,6 +470,12 @@ def main() -> int:
         out["train_step_b1"] = train_step_ms(chip_smoke, torch, 1)
     if "train_step" in parts:
         out["train_step"] = train_step_ms(chip_smoke, torch, n)
+    if "train_step_bf16" in parts:
+        out["train_step_bf16"] = train_step_ms(chip_smoke, torch, n, ("--bf16",))
+    if "step_params" in parts:
+        out["step_params"] = step_params(chip_smoke, torch)
+    if "science_bf16" in parts:
+        out["science_bf16"] = science_bf16(chip_smoke, torch)
     if "fit_512" in parts:
         out["fit_512"] = [fit_512(chip_smoke, torch, k) for k in (1, 2, 4)]
     if "a5_split" in parts:

@@ -4,6 +4,7 @@ held-out registration error written as a trajectory.
 
     python -m nemar_tpu_torch.science [E1] [E1_decay] [E2] [seed] [res] [stn] [fresh] [pyr=N] [gate=E:T]
     python -m nemar_tpu_torch.science 120 20 20 0 256 unet fresh --out runs/flagship.jsonl
+    python -m nemar_tpu_torch.science 120 20 20 0 256 unet fresh --bf16  # the TPU runs' bf16
     python -m nemar_tpu_torch.science 2 0 1 0 32 --gpu_ids -1      # on the CPU
 
 The counterpart of the JAX package's ``scripts/science_final.py``, argument
@@ -15,8 +16,11 @@ for argument (defaults ``45 10 15 0 64 unet``):
     R at stn_ngf 16 and depth 6 at 256^2 (4 below); ``stn unet`` is the
     damped multiscale UNet (warm-up 3, ramp 8, clip 0.5; the tanh flow
     bound and order-2 TV from 128^2), ``stn affine`` the affine STN on
-    fresh per-visit misalignments. The JAX recipe's TPU-only ``--bf16`` is
-    not taken: the port trains in fp32 (ROADMAP.md A7);
+    fresh per-visit misalignments. ``--bf16`` takes the recipe's bf16 arm:
+    the JAX script adds ``--bf16`` at res >= 256 on a TPU
+    (``SCIENCE_TPU=1``), and so does this one at res >= 256 when asked; the
+    default is fp32. (The TPU runs of the bf16 era also shipped bf16
+    inputs, ``NEMAR_SHIP_BF16``; the port's recon targets stay fp32);
   * phase 1: E1 + E1_decay epochs of the joint step, the lr stepped per
     epoch; phase 2: E2 epochs with G and D frozen and R's warm-up and ramp
     off, the lr restored to ``--lr`` and decayed linearly to 0 over the
@@ -31,7 +35,7 @@ for argument (defaults ``45 10 15 0 64 unet``):
     script's keys. The last line printed is a JSON summary with
     ``final_epe_ho_px``, ``minutes`` and the ms per step of each phase.
 
-``--gpu_ids`` (default 0, the card; -1 the CPU), ``--synthetic_size``
+``--gpu_ids`` (default 0, the card; -1 the CPU), ``--bf16``, ``--synthetic_size``
 (default the recipe's 192 pairs), ``--out`` (the jsonl; default
 ``science_final_torch{tag}.jsonl`` in the temporary directory) and
 ``--checkpoints_dir`` (default ``sci_final_torch{tag}`` there) may follow.
@@ -78,6 +82,7 @@ class Recipe:
     pyr: int = 3
     gate: tuple | None = None
     gpu_ids: str = "0"
+    bf16: bool = False
     synthetic_size: int = 192
     out: str = ""
     checkpoints_dir: str = ""
@@ -89,13 +94,16 @@ class Recipe:
                 + (f"_r{self.res}" if self.res != 64 else "")
                 + ("_fresh" if self.fresh else "")
                 + (f"_p{self.pyr}" if self.pyr != 3 else "")
-                + ("_gate" if self.gate else ""))
+                + ("_gate" if self.gate else "")
+                + ("_bf16" if self.bf16 and self.res >= 256 else ""))
 
 
 def parse_args(argv=None) -> Recipe:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("args", nargs="*", help="E1 E1_decay E2 seed res stn [fresh] [pyr=N] [gate=E:T]")
     p.add_argument("--gpu_ids", default=Recipe.gpu_ids, help="the card's id, or -1 for the CPU")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute at res >= 256, as the JAX recipe on a TPU")
     p.add_argument("--synthetic_size", type=int, default=Recipe.synthetic_size,
                    help="synthetic training pairs")
     p.add_argument("--out", default="", help="the trajectory's jsonl")
@@ -105,7 +113,7 @@ def parse_args(argv=None) -> Recipe:
     pos = [t for t in ns.args if t not in extra]
     if len(pos) > 6:
         raise SystemExit(f"unknown arguments {pos[6:]}")
-    r = Recipe(gpu_ids=ns.gpu_ids, synthetic_size=ns.synthetic_size)
+    r = Recipe(gpu_ids=ns.gpu_ids, bf16=ns.bf16, synthetic_size=ns.synthetic_size)
     for i, (name, cast) in enumerate((("e1", int), ("e1d", int), ("e2", int), ("seed", int),
                                       ("res", int), ("stn", str))):
         if i < len(pos):
@@ -128,8 +136,8 @@ def parse_args(argv=None) -> Recipe:
 
 
 def recipe_flags(r: Recipe, seed: int) -> list:
-    """``scripts/science_final.py``'s flags (its ``build``), without
-    ``--bf16``, on ``--gpu_ids``."""
+    """``scripts/science_final.py``'s flags (its ``build``) on
+    ``--gpu_ids``, with ``--bf16`` at res >= 256 when the recipe asks."""
     if r.stn != "unet":
         arm = ["--synthetic_fresh_affine", "--lambda_smooth", "0.1",
                "--stn_warmup_epochs", "3", "--stn_ramp_epochs", "5", "--stn_grad_clip", "1.0"]
@@ -159,6 +167,7 @@ def recipe_flags(r: Recipe, seed: int) -> list:
         "--display_freq", "1000000", "--no_html",
         "--ngf", "32", "--ndf", "32", "--stn_ngf", "16",
         "--stn_depth", "6" if r.res >= 256 else "4",
+        *(["--bf16"] if r.bf16 and r.res >= 256 else []),
     ]
 
 

@@ -175,12 +175,15 @@ def test_field_source_fake_predicts_from_the_translation(tmp_path):
                                   ["--netG", "unet_256"]])
 def test_unported_flags_raise(tmp_path, flag):
     """Flags of paths not ported yet raise, naming their ROADMAP.md item.
-    ``--stn_type affine`` was one until the affine STN was ported, and
-    ``--init_type xavier`` and ``--use_ema`` until A5 was: each now builds
-    and answers a request; ``--use_ema`` first loads the EMA shadows, and
-    without them on disk its setup raises (never random weights)."""
+    ``--stn_type affine`` was one until the affine STN was ported,
+    ``--init_type xavier`` and ``--use_ema`` until A5 was, and ``--bf16``
+    until A7 was: each now builds and answers a request (``--bf16``'s
+    outputs fp32, as the JAX package's); ``--use_ema`` first loads the EMA
+    shadows, and without them on disk its setup raises (never random
+    weights)."""
     opt = TestOptions().parse(_port_args(tmp_path, *flag))
-    if flag in (["--stn_type", "affine"], ["--init_type", "xavier"], ["--use_ema"]):
+    if flag in (["--stn_type", "affine"], ["--init_type", "xavier"], ["--use_ema"],
+                ["--bf16"]):
         model = create_model(opt)
         if flag == ["--stn_type", "affine"]:
             assert type(model.netR).__name__ == "AffineSTN"
@@ -192,6 +195,7 @@ def test_unported_flags_raise(tmp_path, flag):
                          "B": np.ones((2, 32, 32, 3), np.float32)})
         model.test()
         assert model.last_flow.shape == (2, 32, 32, 2)
+        assert model.last_flow.dtype == np.float32
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(opt)

@@ -2,10 +2,11 @@
 ``watch_pool``, ``check_pool_last_writer``).
 
 On the card, ``watch_kernels`` holds the first launch of K-in, K-in-bwd,
-K-warp and K-warp-bwd at each configuration a path gives them against
-their plain versions on the launch's own inputs. Here the kernels'
-wrappers are replaced by CPU stand-ins (the plain versions, one of them
-off by a known amount), so that the watcher's plumbing is tested: every
+K-warp and K-warp-bwd (under --bf16, K-in's and K-in-bwd's bf16 variants
+in bf16 spacings) at each configuration a path gives them against their
+plain versions on the launch's own inputs. Here the kernels' wrappers
+are replaced by CPU stand-ins (the plain versions, one of them off by a
+known amount), so that the watcher's plumbing is tested: every
 wrapper's signature, one entry per configuration, errors relative to the
 largest reference value, 0 where both sides are 0, the launches counted
 through the watch, and the wrappers put back on exit.
@@ -26,29 +27,105 @@ from nemar_tpu_torch.utils import image_pool
 K_IN_OFFSET = 1e-5
 
 
+def _stand_in(monkeypatch, mod, name, fn):
+    """``mod.name`` replaced by ``fn``, counting its launches as the real
+    wrappers do: on the name its module binds it to."""
+
+    def wrapper(*args):
+        getattr(mod, name).launches += 1
+        return fn(*args)
+
+    wrapper.launches = 0
+    monkeypatch.setattr(mod, name, wrapper)
+
+
+def _warp_stand_ins(stand_in):
+    stand_in(warp_cuda, "warp_bilinear", lambda img, grid, pm, ac: (
+        warp.grid_sample_plain(img, grid, "bilinear", pm, ac)))
+    stand_in(warp_cuda, "warp_grid_bwd", lambda img, grid, g, pm, ac, gc: (
+        warp._grid_sample_plain_bwd(img, grid, g, pm, ac, img.shape[-1] if gc < 0 else gc)))
+
+
 @pytest.fixture
 def cpu_wrappers(monkeypatch):
     """The four watched wrappers as plain CPU versions (K-in off by
-    K_IN_OFFSET), each counting its launches as the real ones do: on the
-    name its module binds it to."""
+    K_IN_OFFSET), each counting its launches as the real ones do."""
 
     def stand_in(mod, name, fn):
-        def wrapper(*args):
-            getattr(mod, name).launches += 1
-            return fn(*args)
-
-        wrapper.launches = 0
-        monkeypatch.setattr(mod, name, wrapper)
+        _stand_in(monkeypatch, mod, name, fn)
 
     stand_in(norm_cuda, "instance_norm_act_cuda", lambda x, act, eps, ns: (
         norm.instance_norm_act_plain(x, act, eps, ns) + K_IN_OFFSET,
         norm.instance_norm_stats(x, eps)))
     stand_in(norm_cuda, "instance_norm_act_bwd_cuda",
              lambda x, g, stats, act, ns: norm.instance_norm_act_bwd_plain(x, g, stats, act, ns))
-    stand_in(warp_cuda, "warp_bilinear", lambda img, grid, pm, ac: (
-        warp.grid_sample_plain(img, grid, "bilinear", pm, ac)))
-    stand_in(warp_cuda, "warp_grid_bwd", lambda img, grid, g, pm, ac, gc: (
-        warp._grid_sample_plain_bwd(img, grid, g, pm, ac, img.shape[-1] if gc < 0 else gc)))
+    _warp_stand_ins(stand_in)
+
+
+def _nudged(y: torch.Tensor) -> torch.Tensor:
+    """bf16 y with its largest element moved up by 4 bf16 spacings of it."""
+    y = y.float()
+    i = int(y.abs().argmax())
+    flat = y.flatten().clone()
+    flat[i] += 4 * 2.0 ** (np.floor(np.log2(abs(float(flat[i])))) - 7)
+    return flat.reshape(y.shape).to(torch.bfloat16)
+
+
+def test_watch_kernels_bf16_holds_the_variants(monkeypatch):
+    """With ``bf16``, the watch holds K-in's and K-in-bwd's bf16 variants
+    (stand-ins: the plain versions at bf16, K-in's largest output moved by
+    4 spacings) in bf16 spacings, beside K-warp and K-warp-bwd; the fp32
+    K-in wrappers are not watched, and check_watched holds the variants
+    within BF16_ULPS."""
+
+    def stand_in(mod, name, fn):
+        _stand_in(monkeypatch, mod, name, fn)
+
+    stand_in(norm_cuda, "instance_norm_act_bf16_cuda", lambda x, act, eps, ns: (
+        _nudged(norm.instance_norm_act_plain(x, act, eps, ns)), norm.instance_norm_stats(x, eps)))
+    stand_in(norm_cuda, "instance_norm_act_bwd_bf16_cuda",
+             lambda x, g, stats, act, ns: norm.instance_norm_act_bwd_plain(x, g, stats, act, ns))
+    _warp_stand_ins(stand_in)
+    fp32_in = norm_cuda.instance_norm_act_cuda
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    x, g = chip_smoke.randn(rng, (2, 8, 8, 4)).to(bf), chip_smoke.randn(rng, (2, 8, 8, 4)).to(bf)
+    img, grid = chip_smoke.randn(rng, (2, 8, 8, 4)), chip_smoke.smooth_grid(rng, 2, 8, 8)
+    wrapper = norm_cuda.instance_norm_act_bf16_cuda
+    with chip_smoke.watch_kernels(bf16=True) as seen:
+        assert norm_cuda.instance_norm_act_cuda is fp32_in
+        _, stats = norm_cuda.instance_norm_act_bf16_cuda(x, "relu", 1e-5, 0.2)
+        norm_cuda.instance_norm_act_bwd_bf16_cuda(x, g, stats, "leaky_relu", 0.2)
+        # a zero cotangent (a net the loss does not reach yet): 0 on both sides
+        norm_cuda.instance_norm_act_bwd_bf16_cuda(x, torch.zeros_like(g), stats, "relu", 0.2)
+        warp_cuda.warp_bilinear(img, grid, "zeros", False)
+        warp_cuda.warp_grid_bwd(img, grid, img, "zeros", False, 3)
+    assert {k: sorted(v) for k, v in seen.items()} == {
+        "K-in-bf16": ["2x8x8x4 relu"], "K-in-bwd-bf16": ["2x8x8x4 leaky_relu", "2x8x8x4 relu"],
+        "K-warp": ["2x8x8x4 2x8x8x2 zeros False"],
+        "K-warp-bwd": ["2x8x8x4 2x8x8x2 zeros False 3"]}
+    assert seen["K-in-bf16"]["2x8x8x4 relu"] > chip_smoke.BF16_ULPS
+    assert seen["K-in-bwd-bf16"] == {"2x8x8x4 leaky_relu": 0.0, "2x8x8x4 relu": 0.0}
+    assert chip_smoke.bf16_ulps(torch.ones(2), torch.zeros(2)) == float("inf")
+    with pytest.raises(AssertionError, match="K-in-bf16 disagrees"):
+        chip_smoke.check_watched(seen, "cpu")
+    seen["K-in-bf16"]["2x8x8x4 relu"] = chip_smoke.BF16_ULPS
+    assert chip_smoke.check_watched(seen, "cpu")["K-in-bf16"] == [1, chip_smoke.BF16_ULPS]
+    assert norm_cuda.instance_norm_act_bf16_cuda is wrapper and wrapper.launches == 1
+
+
+def test_bf16_launches_reads_the_variants_count():
+    """``Bf16Launches`` reads and sets a wrapper's ``launches_bf16`` as
+    ``.launches``, beside the fp32 count."""
+
+    def fn():
+        pass
+
+    fn.launches, fn.launches_bf16 = 3, 5
+    count = chip_smoke.Bf16Launches(fn)
+    assert count.launches == 5
+    count.launches = 0
+    assert (fn.launches, fn.launches_bf16) == (3, 0)
 
 
 def test_watch_kernels_holds_each_configuration(cpu_wrappers):
