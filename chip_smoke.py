@@ -173,10 +173,41 @@ is not 0.
      their plain versions at every configuration the step gives them), and
      one b1 step's losses and gradients card against CPU by the same rule;
      phase 8's bf16 step is watched the same way;
-  12b. 512^2 b32 under --bf16 in 2 microbatches of 16 (BF16_B32_ARGS): in
-     the first step the watch of phase 12, then the bf16 variants of the
-     core's operators at the microbatch's shapes (``check_g_kernels_bf16_at``);
-     ms per step, pairs/s, peak memory, launches and casts asserted.
+  12b. 512^2 b32 under --bf16 --remat in 2 microbatches of 16
+     (BF16_B32_ARGS, bench.py's first try at that cell): in the first step
+     the watch of phase 12, then the bf16 variants of the core's operators
+     at the microbatch's shapes (``check_g_kernels_bf16_at``); ms per step,
+     pairs/s, peak memory, launches and casts asserted; then the same
+     steps from the same seed without --remat: its launches asserted, the
+     parameters bit for bit against the run with it, and the peak memory
+     higher than with it (asserted);
+  13. cycle_gan at its template defaults (ROADMAP.md A9, ``CYCLE_ARGS``:
+     resnet_9blocks at ngf 64, ndf 64, instance norm, lsgan, a pool of 50,
+     256^2, batch 1), parsed as ``nemar_tpu_torch.train`` parses it: two
+     fresh runs of 3 steps bit for bit (parameters, pools, losses); in the
+     first step K-in and K-in-bwd against their plain versions at every
+     configuration, then G's kernels at G's shapes (K-head writes Co 3);
+     6 timed steps: ms per step, pairs/s, peak memory, the launches per
+     step of every kernel asserted (``CYCLE_STEP_LAUNCHES``: 6 G passes, 4
+     D passes); a profile of 1 step (chiprun_out/profile_cycle_gan.txt);
+  13b. one cycle_gan step on the card against the CPU's at a 64^2 crop with
+     the same widths, from one shared state, as phase 6 holds NeMAR's
+     (``compare_cycle_with_cpu``);
+  14. pix2pix at its template defaults (``PIX2PIX_ARGS``: unet_256 at ngf
+     64, batch norm, dropout, vanilla, 256^2, batch 1): two fresh runs of 3
+     steps bit for bit (dropout draws from the model's seeded generator on
+     the card), 6 timed steps (no kernel launched: batch norm and the
+     UNet are plain); then one step under --norm instance with K-in and
+     K-in-bwd held at every configuration, the UNet's 2x2x512 planes
+     among them, and their launches asserted;
+  15. ``--model test --model_suffix _A`` (``nemar_tpu_torch.test``'s
+     options) on phase 13's saved G_A: 8 b1 requests, ms a request, the
+     launches asserted, each output against G_A's in a cycle_gan model
+     restored from the same checkpoint;
+  16. --remat on phase 5's step (256^2, batch 8): the parameters after 2
+     steps bit for bit against the step without it; then 4 steps of each
+     in turns: ms per step, pairs/s, peak memory (lower with --remat,
+     asserted) and the launches (the backwards as phase 5's).
 
 The line before the last is a JSON object with one entry per kernel. For a
 forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
@@ -1608,7 +1639,8 @@ def adam_bound(t: int, b1: float, b2: float = 0.999) -> float:
 
 
 def step_against_cpu(runs: dict, before: dict, loss_floor: float = 0.0,
-                     adam_t: int | None = None) -> tuple:
+                     adam_t: int | None = None, nets: dict | None = None,
+                     skip: dict | None = None) -> tuple:
     """The comparison of phases 6 and 10: one step on the card against the
     same step on the CPU (``runs['card']``, ``runs['cpu']``) from one shared
     state, and against the CPU's step from a perturbed input
@@ -1618,7 +1650,10 @@ def step_against_cpu(runs: dict, before: dict, loss_floor: float = 0.0,
     relative errors, each over max(|loss|, loss_floor)). An unresolved
     element may move by at most one Adam step in each run: lr x 1.1 from
     phase 6's second Adam step, or lr x ``adam_bound(adam_t, beta1)`` (+
-    1e-3 for roundoff) from the adam_t-th. See ``compare_train_with_cpu``."""
+    1e-3 for roundoff) from the adam_t-th. See ``compare_train_with_cpu``.
+    ``nets`` maps each net to its optimizer (NeMAR's G, D, R by default),
+    ``skip`` each net to its biases of zero gradient
+    (``_zero_grad_biases`` by default)."""
     card = runs["card"]
     losses = {name: m.get_current_losses() for name, m in runs.items()}
     lc = losses["cpu"]
@@ -1627,11 +1662,11 @@ def step_against_cpu(runs: dict, before: dict, loss_floor: float = 0.0,
         return {k: abs(other[k] - lc[k]) / max(abs(lc[k]), loss_floor, 1e-12) for k in lc}
 
     loss_errs, loss_base = loss_rel(losses["card"]), loss_rel(losses["cpu_perturbed"])
-    skip = _zero_grad_biases(card)
+    skip = _zero_grad_biases(card) if skip is None else skip
     grad_worst, bias_err, param_err, unresolved, fails = [], 0.0, 0.0, 0, []
     per_net = {}
-    for n in ("G", "D", "R"):
-        group = card.optimizers[n].param_groups[0]
+    for n, o in (nets or {n: n for n in ("G", "D", "R")}).items():
+        group = card.optimizers[o].param_groups[0]
         bound = (card.opt.lr * 1.1 if adam_t is None  # phase 6's, with margin
                  else group["lr"] * adam_bound(adam_t, group["betas"][0]) * (1 + 1e-3))
         net_grad, net_base, net_param = 0.0, 0.0, 0.0
@@ -2644,11 +2679,25 @@ BF16_VS_CPU = 4.0
 # head 6): g up, then d img (dx, dw) down
 BF16_CASTS_REQUEST = {"K-warp": 2, "K-head": 6}
 BF16_CASTS_STEP = {"K-warp": 4, "K-head": 12}
-# phase 12b: 512^2 pairs at batch 32 under --bf16 in 2 microbatches of 16
-# (bench.py's first try at that cell; its --remat is a no-op in the port)
+# phase 12b: 512^2 pairs at batch 32 under --bf16 --remat in 2 microbatches
+# of 16 (bench.py's first try at that cell), and without --remat to compare
 BF16_B32_ARGS = ["--crop_size", "512", "--load_size", "512", "--batch_size", "32",
-                 "--grad_accum", "2", "--bf16"]
+                 "--grad_accum", "2", "--bf16", "--remat"]
 BF16_B32_STEPS = 3
+
+
+def remat_launches(plain: dict, depth: int, k: int, bf16: bool = False) -> dict:
+    """Launches per step of the default model's step ``plain`` under
+    --remat, in k microbatches: each trunk block whose backward runs is
+    run forward again (K-block += K-block-bwd), and each microbatch's R
+    of the G phase (K-warp 1, K-in 2 x depth: R's encoder and decoder); the
+    bf16 variants' under --bf16."""
+    tag = "-bf16" if bf16 else ""
+    out = dict(plain)
+    out["K-block" + tag] += plain["K-block-bwd" + tag]
+    out["K-in" + tag] += 2 * depth * k
+    out["K-warp"] += k
+    return out
 
 
 def bf16_launches(fp32: dict) -> dict:
@@ -3265,22 +3314,27 @@ def time_bf16_casts(dev) -> dict:
 
 
 def run_bf16_b32_512(ckpt: str) -> None:
-    """Phase 12b: 512^2 pairs at batch 32 under --bf16 in 2 microbatches of
-    16 (BF16_B32_ARGS), at full width: BF16_B32_STEPS steps, the first a
-    warm-up, in which K-in's and K-in-bwd's bf16 variants, K-warp and
-    K-warp-bwd are held at every configuration the step gives them
-    (``watch_kernels``: G, R and D at 512^2 and a microbatch of 16, D's
-    pass over [real; fake] at 32); then the bf16 variants of the core's
-    operators at the microbatch's shapes (K-block on 16x128x128x256, K-convt
-    to 16x512x512x64, K-head's fp32 kernel on bf16 operands at
-    16x512x512x64: ``check_g_kernels_bf16_at``); over the others, with every
-    counter zeroed just before, ms per
-    step, pairs/s, peak memory, the launches (``accum_launches`` on the bf16
-    variants) and the casts (a microbatch's D-phase forward and its G-phase
-    forward and backward: BF16_CASTS_REQUEST + BF16_CASTS_STEP) asserted,
-    finite losses."""
-    model = train_model([*TRAIN_ARGS, *BF16_B32_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
-                         "--name", "smoke_bf16_b32"])
+    """Phase 12b: 512^2 pairs at batch 32 under --bf16 --remat in 2
+    microbatches of 16 (BF16_B32_ARGS, bench.py's first try at that cell),
+    at full width: BF16_B32_STEPS steps, the first a warm-up, in which
+    K-in's and K-in-bwd's bf16 variants, K-warp and K-warp-bwd are held at
+    every configuration the step gives them (``watch_kernels``: G, R and D
+    at 512^2 and a microbatch of 16, D's pass over [real; fake] at 32);
+    then the bf16 variants of the core's operators at the microbatch's
+    shapes (K-block on 16x128x128x256, K-convt to 16x512x512x64, K-head's
+    fp32 kernel on bf16 operands at 16x512x512x64:
+    ``check_g_kernels_bf16_at``); over the others, with every counter
+    zeroed just before, ms per step, pairs/s, peak memory, the launches
+    (``remat_launches`` of ``accum_launches`` on the bf16 variants) and the
+    casts (a microbatch's D-phase forward, its G-phase forward and
+    backward, and R's forward again: BF16_CASTS_REQUEST + BF16_CASTS_STEP +
+    K-warp's 2) asserted, finite losses. Then a fresh model without
+    --remat takes the same steps on the same batches: its launches
+    asserted, every parameter bit for bit against the run with --remat, and
+    its peak memory above that run's."""
+    args = [*TRAIN_ARGS, *BF16_B32_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+            "--name", "smoke_bf16_b32"]
+    model = train_model(args)
     n, k = model.opt.batch_size, model.grad_accum
     batches = request_batches(2, n, seed=12, size=model.opt.crop_size)
     t0 = time.perf_counter()
@@ -3288,7 +3342,7 @@ def run_bf16_b32_512(ckpt: str) -> None:
         model.set_input(batches[0])
         model.optimize_parameters()
         torch.cuda.synchronize()
-    watched = check_watched(seen, "512^2 b32 --bf16")
+    watched = check_watched(seen, "512^2 b32 --bf16 --remat")
     t1 = time.perf_counter()
     op_errs = check_g_kernels_bf16_at(_g_op_shapes(model, model.opt.crop_size, n // k),
                                       torch.device("cuda", 0))
@@ -3296,37 +3350,432 @@ def run_bf16_b32_512(ckpt: str) -> None:
           g_kernels_seconds=round(time.perf_counter() - t1, 2),
           watched_configs_max_err=json.dumps(watched), watched=json.dumps(seen),
           g_kernels_err_value_grad=json.dumps(op_errs))
+    steps = BF16_B32_STEPS - 1
+    plain_step = bf16_launches(accum_launches(k, False))
+    want = {"remat": remat_launches(plain_step, model.netR.depth, k, bf16=True),
+            "plain": plain_step}
+    per_micro = {key: BF16_CASTS_REQUEST[key] + BF16_CASTS_STEP[key] for key in BF16_CASTS_STEP}
+    casts_want = {"remat": {**per_micro, "K-warp": per_micro["K-warp"] + 2}, "plain": per_micro}
+    out, states = {}, {}
+    for name in ("remat", "plain"):
+        if name == "plain":
+            del model
+            model = train_model([a for a in args if a != "--remat"])
+            model.set_input(batches[0])
+            model.optimize_parameters()
+        assert model.remat == (name == "remat")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters, casts = zero_all_counters()
+        times = []
+        for i in range(1, BF16_B32_STEPS):
+            t0 = time.perf_counter()
+            model.set_input(batches[i % 2])
+            model.optimize_parameters()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {key: fn.launches for key, fn in counters.items()}
+        cast_counts = {key: fn.casts for key, fn in casts.items()}
+        losses = model.get_current_losses()
+        ms = float(np.median(times))
+        out[name] = {"ms_per_step_median": round(ms, 3),
+                     "ms_per_step": [round(t, 3) for t in times],
+                     "pairs_per_s": round(n / ms * 1e3, 3),
+                     "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                     "launches": launches,
+                     "expected": {key: v * steps for key, v in want[name].items()},
+                     "casts": cast_counts,
+                     "expected_casts": {key: steps * k * v for key, v in casts_want[name].items()},
+                     "losses": {key: round(v, 6) for key, v in losses.items()}}
+        states[name] = _net_state(model)
+    del model
+    same = (states["remat"].keys() == states["plain"].keys()
+            and all(torch.equal(v, states["plain"][key]) for key, v in states["remat"].items()))
+    phase("bf16_b32_512", flags=" ".join(BF16_B32_ARGS), batch=n, microbatch=n // k, steps=steps,
+          bit_identical_without_remat=same, compared=len(states["remat"]),
+          **{name: json.dumps(rec) for name, rec in out.items()})
+    for name, rec in out.items():
+        if rec["launches"] != rec["expected"] or rec["casts"] != rec["expected_casts"]:
+            raise AssertionError(f"512^2 b32 --bf16 ({name}): launches {rec['launches']} / casts "
+                                 f"{rec['casts']}, expected {rec['expected']} / "
+                                 f"{rec['expected_casts']}")
+        if not all(np.isfinite(v) for v in rec["losses"].values()):
+            raise AssertionError(f"512^2 b32 --bf16 ({name}): non-finite losses {rec['losses']}")
+    if not same:
+        raise AssertionError("512^2 b32 --bf16: --remat changed the parameters")
+    if not out["remat"]["peak_mem_gib"] < out["plain"]["peak_mem_gib"]:
+        raise AssertionError(f"512^2 b32 --bf16: --remat did not lower the peak memory: {out}")
+
+
+# ---------------------------------------------------------------------------
+# The template model families (ROADMAP.md A9): cycle_gan, pix2pix, test, and
+# --remat on NeMAR's step
+# ---------------------------------------------------------------------------
+# phase 13: cycle_gan at its template defaults (resnet_9blocks, instance
+# norm, lsgan, a pool of 50, no dropout) at full width, 256^2, batch 1
+CYCLE_ARGS = [
+    "--model", "cycle_gan", "--netG", "resnet_9blocks", "--ngf", "64", "--ndf", "64",
+    "--input_nc", "3", "--output_nc", "3", "--crop_size", "256", "--load_size", "256",
+    "--dataset_mode", "synthetic", "--name", "smoke_cycle", "--pool_size", "50",
+    "--batch_size", "1",
+]
+CYCLE_STEPS = 3  # each of the two runs held bit for bit
+CYCLE_TIMED_STEPS = 6
+# the card-against-CPU step's crop (the same widths): the CPU's six G passes
+# at 256^2 would take minutes
+CYCLE_CPU_CROP = 64
+# launches per cycle_gan step: 6 G passes (G_A(a), G_B(fake_B), G_B(b),
+# G_A(fake_A) and the identities G_A(b), G_B(a)), each 9 K-block, 2 K-convt,
+# 1 K-head (Co 3) and 3 K-in (the encoder); 4 D passes (D_A(fake_B) and
+# D_B(fake_A) in G's loss; D_A over [b; fake_B] and D_B over [a; fake_A] in
+# the D step), each 3 K-in; every pass is in a backward
+CYCLE_STEP_LAUNCHES = {"K-block": 54, "K-warp": 0, "K-in": 30, "K-head": 6, "K-convt": 12}
+CYCLE_STEP_LAUNCHES.update({k + "-bwd": v for k, v in CYCLE_STEP_LAUNCHES.items()})
+# phase 14: pix2pix at its template defaults (unet_256, batch norm, dropout,
+# vanilla GAN, no pool) at full width, 256^2, batch 1
+PIX2PIX_ARGS = [
+    "--model", "pix2pix", "--netG", "unet_256", "--ngf", "64", "--ndf", "64",
+    "--input_nc", "3", "--output_nc", "3", "--crop_size", "256", "--load_size", "256",
+    "--dataset_mode", "synthetic", "--name", "smoke_pix2pix", "--batch_size", "1",
+]
+PIX2PIX_STEPS = 3
+PIX2PIX_TIMED_STEPS = 6
+# the UNet's instance norms under --norm instance, per step: 6 on the encoder
+# (levels 1..6: 128^2 x 128 down to 2^2 x 512) and 7 on the decoder (2^2 x
+# 512 up to 128^2 x 64), and D's 3 in one pass over [real; fake] in the D
+# step and one in G's loss; each in a backward
+PIX2PIX_IN_LAUNCHES = {"K-in": 19, "K-in-bwd": 19}
+# phase 15: --model test --model_suffix _A on phase 13's G_A
+TEST_REQUESTS = 8
+TEST_REQUEST_LAUNCHES = {"K-block": 9, "K-warp": 0, "K-in": 3, "K-head": 1, "K-convt": 2}
+TEST_REQUEST_LAUNCHES.update({k + "-bwd": 0 for k in list(TEST_REQUEST_LAUNCHES)})
+# phase 16: --remat on phase 5's step (256^2, batch 8)
+REMAT_STEPS = 2  # held bit for bit against the step without --remat
+REMAT_TIMED_STEPS = 4
+
+
+def pair_batches(n_batches: int, n: int, seed: int, size: int = 256) -> list:
+    """Seeded 3-channel A and B batches (``smooth_images``)."""
+    rng = np.random.default_rng(seed)
+    return [{"A": smooth_images(rng, n, 3, size), "B": smooth_images(rng, n, 3, size),
+             "A_paths": [f"smoke_{seed}_{i}_{j}" for j in range(n)]} for i in range(n_batches)]
+
+
+def _net_state(model) -> dict:
+    """Every parameter of a model's nets, and its pools, cloned to the CPU."""
+    out = {f"{n}.{k}": p.detach().cpu().clone() for n, net in model.nets().items()
+           for k, p in net.named_parameters()}
+    for key, (images, count) in (getattr(model, "pools", None) or {}).items():
+        out[f"pool_{key}.images"], out[f"pool_{key}.count"] = images.cpu(), count.cpu()
+    return out
+
+
+def _runs_bit_identical(args: list, batches: list, watch_first: bool = False) -> tuple:
+    """Two fresh models of ``args`` from one seed take a step on each batch:
+    (the second model, whether their parameters, pools and losses are equal
+    bit for bit, how many tensors were compared, the first step's
+    ``watch_kernels`` record when ``watch_first``, whether the second
+    model's dropout generator moved)."""
+    runs, seen = [], None
+    for r in range(2):
+        model = train_model(args)
+        gen0 = model.drop_gen.get_state()
+        for i, b in enumerate(batches):
+            watching = watch_first and (r, i) == (0, 0)
+            with watch_kernels() if watching else contextlib.nullcontext() as record:
+                model.set_input(b)
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+            if watching:
+                seen = record
+        runs.append((_net_state(model), model.get_current_losses()))
+        if r == 0:
+            del model
+    same = runs[0][1] == runs[1][1] and all(torch.equal(v, runs[1][0][k])
+                                            for k, v in runs[0][0].items())
+    return model, same, len(runs[0][0]), seen, not torch.equal(model.drop_gen.get_state(), gen0)
+
+
+def _timed_steps(model, batches: list) -> tuple:
+    """A step on each batch with the counters zeroed just before and the
+    peak memory reset: (ms per step, the launches, the peak GiB)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters, casts = zero_all_counters()
+    counters = zero_counters()
     times = []
-    for i in range(1, BF16_B32_STEPS):
+    for b in batches:
         t0 = time.perf_counter()
-        model.set_input(batches[i % 2])
+        model.set_input(b)
         model.optimize_parameters()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    steps = BF16_B32_STEPS - 1
-    launches = {key: fn.launches for key, fn in counters.items()}
-    cast_counts = {key: fn.casts for key, fn in casts.items()}
-    want = {key: v * steps for key, v in bf16_launches(accum_launches(k, False)).items()}
-    want_casts = {key: steps * k * (BF16_CASTS_REQUEST[key] + BF16_CASTS_STEP[key])
-                  for key in BF16_CASTS_STEP}
+    return (times, {k: fn.launches for k, fn in counters.items()},
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _in_only(seen: dict, where: str) -> dict:
+    """``check_watched`` for K-in and K-in-bwd, on a path that warps nothing
+    (K-warp and K-warp-bwd must not have launched)."""
+    if seen["K-warp"] or seen["K-warp-bwd"]:
+        raise AssertionError(f"{where}: K-warp launched on a path without a warp")
+    return check_watched({k: seen[k] for k in ("K-in", "K-in-bwd")}, where)
+
+
+def run_cycle_gan(ckpt: str) -> dict:
+    """Phase 13: cycle_gan at its template defaults (CYCLE_ARGS) on the card.
+    Two fresh models from one seed take CYCLE_STEPS steps each on the same
+    pairs: their parameters, pools and losses bit for bit; in the first
+    run's first step K-in and K-in-bwd are held against their plain
+    versions at every configuration the step gives them
+    (``watch_kernels``), then G's kernels at G's shapes (K-block on
+    1x64x64x256, K-convt to 1x256x256x64, K-head 1x256x256x64 -> 3, values
+    and gradients: ``check_g_kernels_at``). The second run takes
+    CYCLE_TIMED_STEPS more with the counters zeroed just before: ms per
+    step, pairs/s, peak memory, every kernel's launches per step
+    (CYCLE_STEP_LAUNCHES, asserted), finite losses; one profiled step
+    (chiprun_out/profile_cycle_gan.txt); then it is saved (``latest``, for
+    phase 15). Returns the launches per step."""
+    dev = torch.device("cuda", 0)
+    args = [*CYCLE_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt]
+    batches = pair_batches(CYCLE_STEPS + CYCLE_TIMED_STEPS + 1, 1, seed=13)
+    model, same, compared, seen, _ = _runs_bit_identical(args, batches[:CYCLE_STEPS], True)
+    watched = _in_only(seen, "cycle_gan step")
+    op_errs = check_g_kernels_at(_g_op_shapes(SimpleNamespace(netG=model.netG_A),
+                                              model.opt.crop_size), dev)
+    times, launches, peak = _timed_steps(model, batches[CYCLE_STEPS:-1])
+    per_step = {k: v // CYCLE_TIMED_STEPS for k, v in launches.items()}
+    want = {k: v * CYCLE_TIMED_STEPS for k, v in CYCLE_STEP_LAUNCHES.items()}
     losses = model.get_current_losses()
     ms = float(np.median(times))
-    phase("bf16_b32_512", flags=" ".join(BF16_B32_ARGS), batch=n, microbatch=n // k, steps=steps,
-          ms_per_step_median=round(ms, 3), ms_per_step=json.dumps([round(t, 3) for t in times]),
-          pairs_per_s=round(n / ms * 1e3, 3),
-          peak_mem_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3),
-          launches=json.dumps(launches), expected=json.dumps(want),
-          casts=json.dumps(cast_counts), expected_casts=json.dumps(want_casts),
-          losses=json.dumps({key: round(v, 6) for key, v in losses.items()}))
-    if launches != want or cast_counts != want_casts:
-        raise AssertionError(f"512^2 b32 --bf16: launches {launches} / casts {cast_counts}, "
-                             f"expected {want} / {want_casts}")
+    phase("cycle_gan", batch=1, steps=CYCLE_TIMED_STEPS, ms_per_step_median=round(ms, 3),
+          ms_per_step=json.dumps([round(t, 3) for t in times]),
+          pairs_per_s=round(1e3 / ms, 3), peak_mem_gib=round(peak, 3),
+          launches_per_step=json.dumps(per_step), expected=json.dumps(CYCLE_STEP_LAUNCHES),
+          pool_count=int(model.pools["B"][1]),
+          losses=json.dumps({k: round(v, 6) for k, v in losses.items()}),
+          bit_identical_twice=same, compared=compared, steps_compared=CYCLE_STEPS,
+          watched_configs_max_rel_err=json.dumps(watched),
+          g_kernels_rel_err_value_grad=json.dumps({k: [f"{a:.3g}", f"{b:.3g}"]
+                                               for k, (a, b) in op_errs.items()}))
+    if launches != want:
+        raise AssertionError(f"cycle_gan: launch counts {launches} != expected {want}")
     if not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"512^2 b32 --bf16: non-finite losses {losses}")
+        raise AssertionError(f"cycle_gan: non-finite losses {losses}")
+    if not same:
+        raise AssertionError("two identical cycle_gan runs on the card differ")
+
+    def run(i):
+        model.set_input(batches[-1])
+        model.optimize_parameters()
+
+    profile(run, 1, "profile_cycle_gan", "step")
+    model.save_networks("latest")
     del model
+    return per_step
+
+
+def compare_cycle_with_cpu(ckpt: str) -> None:
+    """Phase 13b: one cycle_gan step on the card against the CPU's, as phase
+    6 holds NeMAR's, at a CYCLE_CPU_CROP^2 crop with the template's widths:
+    the shared state is the card's model after one step from its seed
+    (nets, both Adams, the pools, the generators), saved and restored by
+    --continue_train; the compared step is Adam's second. The eight losses
+    within 1e-4 relative, every gradient within max(1e-3, 3 x its baseline),
+    the updated parameters within 1e-5 (``step_against_cpu``; the biases
+    of zero gradient: every G bias but the head's, D's Conv_1..3). The
+    baseline is the CPU's step with real_A and real_B scaled by 1 +
+    PERTURB: both feed the generators (NeMAR's real_B is only a target),
+    and with real_A alone G_B's baseline misses the paths through real_B
+    (G_B(b), G_A(G_B(b)), G_B's identity on a: measured 6.9e-4 against the
+    card's 2.1e-3 at G_B's trunk, while G_A's was 3.3e-3)."""
+    size = str(CYCLE_CPU_CROP)
+    args = [*CYCLE_ARGS, "--crop_size", size, "--load_size", size, "--checkpoints_dir", ckpt,
+            "--name", "smoke_cycle_cpu"]
+    pairs = pair_batches(2, 1, seed=14, size=CYCLE_CPU_CROP)
+    card = train_model([*args, "--gpu_ids", "0"])
+    card.set_input(pairs[0])
+    card.optimize_parameters()
+    card.save_networks("shared")
+    runs = {"card": card}
+    for name in ("cpu", "cpu_perturbed"):
+        runs[name] = train_model([*args, "--continue_train", "--epoch", "shared", "--gpu_ids",
+                                  "-1"])
+    before = {}
+    for name, m in runs.items():
+        before[name] = {n: {k: p.detach().cpu().clone() for k, p in net.named_parameters()}
+                        for n, net in m.nets().items()}
+        scale = np.float32(1 + PERTURB) if name == "cpu_perturbed" else np.float32(1)
+        m.set_input(dict(pairs[1], A=pairs[1]["A"] * scale, B=pairs[1]["B"] * scale))
+        m.optimize_parameters()
+    g_skip = {k for k in card.netG_A.state_dict() if k.endswith(".bias") and k != "Conv_3.bias"}
+    d_skip = {f"Conv_{i}.bias" for i in range(1, card.netD_A.n_layers + 1)}
+    fields, fails, loss_errs = step_against_cpu(
+        runs, before, nets={"G_A": "G", "G_B": "G", "D_A": "D", "D_B": "D"},
+        skip={"G_A": g_skip, "G_B": g_skip, "D_A": d_skip, "D_B": d_skip})
+    phase("cycle_gan_card_vs_cpu", crop=CYCLE_CPU_CROP, batch=1, **fields)
+    if max(loss_errs.values()) > 1e-4:
+        fails.append(f"losses {loss_errs}")
+    if fails:
+        raise AssertionError("card and CPU disagree on the cycle_gan step: " + "; ".join(fails))
+
+
+def run_pix2pix(ckpt: str) -> None:
+    """Phase 14: pix2pix at its template defaults (PIX2PIX_ARGS: unet_256,
+    batch norm, dropout, vanilla GAN) on the card. Two fresh models from one
+    seed take PIX2PIX_STEPS steps each on the same pairs: parameters and
+    losses bit for bit (dropout draws from the model's seeded generator on
+    the card, which must have moved); then PIX2PIX_TIMED_STEPS more with the
+    counters zeroed just before: ms per step, pairs/s, peak memory, and no
+    kernel launched (batch norm and the UNet's convolutions are plain, as
+    in the JAX package). Then one step under --norm instance in
+    ``watch_kernels``: K-in and K-in-bwd held against their plain versions
+    at every configuration the UNet and D give them, among them the
+    2x2x512 planes of the UNet's innermost levels at batch 1, and their
+    launches (PIX2PIX_IN_LAUNCHES) asserted."""
+    args = [*PIX2PIX_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt]
+    batches = pair_batches(PIX2PIX_STEPS + PIX2PIX_TIMED_STEPS, 1, seed=15)
+    model, same, compared, _, drew = _runs_bit_identical(args, batches[:PIX2PIX_STEPS])
+    times, launches, peak = _timed_steps(model, batches[PIX2PIX_STEPS:])
+    losses = model.get_current_losses()
+    ms = float(np.median(times))
+    phase("pix2pix", batch=1, norm=model.opt.norm, dropout=not model.opt.no_dropout,
+          steps=PIX2PIX_TIMED_STEPS, ms_per_step_median=round(ms, 3),
+          ms_per_step=json.dumps([round(t, 3) for t in times]), pairs_per_s=round(1e3 / ms, 3),
+          peak_mem_gib=round(peak, 3), launches=json.dumps(launches),
+          losses=json.dumps({k: round(v, 6) for k, v in losses.items()}),
+          bit_identical_twice=same, compared=compared, steps_compared=PIX2PIX_STEPS,
+          dropout_drew=drew)
+    if any(launches.values()):
+        raise AssertionError(f"pix2pix under batch norm launched kernels: {launches}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"pix2pix: non-finite losses {losses}")
+    if not (same and drew):
+        raise AssertionError(f"pix2pix: bit-identical {same}, dropout drew {drew}")
+    del model
+
+    model = train_model([*args, "--norm", "instance", "--name", "smoke_pix2pix_in"])
+    counters = zero_counters()
+    with watch_kernels() as seen:
+        model.set_input(batches[0])
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    watched = _in_only(seen, "pix2pix --norm instance step")
+    planes = [c for c in (*seen["K-in"], *seen["K-in-bwd"]) if c.startswith("1x2x2x512 ")]
+    phase("pix2pix_instance", batch=1, launches=json.dumps(launches),
+          expected=json.dumps(PIX2PIX_IN_LAUNCHES),
+          watched_configs_max_rel_err=json.dumps(watched),
+          watched=json.dumps(seen), unet_2x2_configs=json.dumps(planes))
+    if {k: launches[k] for k in PIX2PIX_IN_LAUNCHES} != PIX2PIX_IN_LAUNCHES \
+            or any(v for k, v in launches.items() if k not in PIX2PIX_IN_LAUNCHES):
+        raise AssertionError(f"pix2pix --norm instance: launches {launches}")
+    if not all(any(c.startswith("1x2x2x512 ") for c in seen[k]) for k in ("K-in", "K-in-bwd")):
+        raise AssertionError(f"K-in / K-in-bwd never saw the UNet's 2x2 planes: {seen}")
+    del model
+
+
+def run_test_model(ckpt: str) -> None:
+    """Phase 15: ``--model test --model_suffix _A --no_dropout``, parsed as
+    ``nemar_tpu_torch.test`` parses it, loads phase 13's saved G_A and
+    serves TEST_REQUESTS b1 requests (two warm-ups before): ms a request,
+    the launches a request (TEST_REQUEST_LAUNCHES, asserted, the counters
+    zeroed just before), finite outputs, and each output against phase
+    13's G_A on the same request in a cycle_gan model restored from the
+    same checkpoint (bit-identical expected; held within 1e-5)."""
+    from nemar_tpu_torch.models import create_model
+    from nemar_tpu_torch.options import TestOptions
+
+    flags = ["--dataset_mode", "synthetic", "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+             "--name", "smoke_cycle", "--crop_size", "256", "--load_size", "256",
+             "--input_nc", "3", "--output_nc", "3", "--ngf", "64", "--netG", "resnet_9blocks"]
+    opt = TestOptions().parse(["--model", "test", "--model_suffix", "_A", "--no_dropout",
+                               *flags])
+    model = create_model(opt)
+    model.setup(opt)
+    ref_opt = TestOptions().parse(["--model", "cycle_gan", *flags])
+    ref = create_model(ref_opt)
+    ref.setup(ref_opt)
+    batches = pair_batches(TEST_REQUESTS + 2, 1, seed=16)
+    for b in batches[:2]:
+        model.set_input(b)
+        model.test()
+    torch.cuda.synchronize()
+    counters = zero_counters()
+    times, outs = [], []
+    for b in batches[2:]:
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.test()
+        outs.append(model.get_current_visuals()["fake"])  # copies to the host: synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {k: v * TEST_REQUESTS for k, v in TEST_REQUEST_LAUNCHES.items()}
+    errs = []
+    with torch.no_grad():
+        for b, out in zip(batches[2:], outs):
+            ref.set_input(b)
+            errs.append(float(np.abs(out - ref.netG_A(ref.real_A).permute(0, 2, 3, 1)
+                                     .cpu().numpy()).max()))
+    phase("test_model", requests=TEST_REQUESTS, batch=1,
+          ms_per_request_median=round(float(np.median(times)), 3),
+          ms_per_request=json.dumps([round(t, 3) for t in times]),
+          launches=json.dumps(launches), expected=json.dumps(want),
+          max_abs_err_vs_cycle_gan_g_a=max(errs), bit_identical=max(errs) == 0.0, tol=1e-5)
+    if launches != want:
+        raise AssertionError(f"test model: launch counts {launches} != expected {want}")
+    if not all(np.all(np.isfinite(o)) for o in outs) or not max(errs) <= 1e-5:
+        raise AssertionError(f"test model against cycle_gan's G_A: {errs}")
+
+
+def run_remat(ckpt: str) -> None:
+    """Phase 16: --remat on phase 5's step (TRAIN_ARGS, 256^2, batch 8).
+    Two fresh models from one seed, without and with --remat, take
+    REMAT_STEPS steps on the same batches: every parameter bit for bit.
+    Then each takes REMAT_TIMED_STEPS more, in turns (without, with), the
+    counters zeroed and the peak memory reset just before each: ms per
+    step, pairs/s, peak memory (lower with --remat, asserted), the
+    launches per step, asserted: phase 5's, and with --remat each trunk
+    block's forward and R's again in the backward (K-block 24, K-in 22 +
+    R's 2 x depth, K-warp 2)."""
+    args = [*TRAIN_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt, "--batch_size",
+            str(TRAIN_BATCH), "--name", "smoke_remat"]
+    batches = request_batches(REMAT_STEPS + REMAT_TIMED_STEPS, TRAIN_BATCH, seed=17)
+    models, states = [], []
+    for flags in ([], ["--remat"]):
+        m = train_model([*args, *flags])
+        for b in batches[:REMAT_STEPS]:
+            m.set_input(b)
+            m.optimize_parameters()
+        torch.cuda.synchronize()
+        models.append(m)
+        states.append(_net_state(m))
+    same = all(torch.equal(v, states[1][k]) for k, v in states[0].items())
+    out = {}
+    for i in range(REMAT_TIMED_STEPS):
+        for name, m in zip(("plain", "remat"), models):
+            times, launches, peak = _timed_steps(m, [batches[REMAT_STEPS + i]])
+            rec = out.setdefault(name, {"ms": [], "peak_gib": 0.0})
+            rec["ms"].append(round(times[0], 3))
+            rec["peak_gib"] = max(rec["peak_gib"], round(peak, 3))
+            rec["launches"] = launches
+    fields = {}
+    for name, rec in out.items():
+        ms = float(np.median(rec["ms"]))
+        fields[name] = {"ms_per_step_median": round(ms, 3), "ms_per_step": rec["ms"],
+                        "pairs_per_s": round(TRAIN_BATCH / ms * 1e3, 3),
+                        "peak_mem_gib": rec["peak_gib"], "launches_per_step": rec["launches"]}
+    phase("remat", batch=TRAIN_BATCH, steps_compared=REMAT_STEPS, bit_identical=same,
+          compared=len(states[0]), **{k: json.dumps(v) for k, v in fields.items()})
+    plain, remat = out["plain"]["launches"], out["remat"]["launches"]
+    want = remat_launches(STEP_LAUNCHES, models[1].netR.depth, 1)
+    if not same:
+        raise AssertionError("--remat changed the parameters after "
+                             f"{REMAT_STEPS} steps")
+    if plain != STEP_LAUNCHES or remat != want:
+        raise AssertionError(f"launches {plain} without --remat, {remat} with it; "
+                             f"expected {STEP_LAUNCHES}, {want}")
+    if not out["remat"]["peak_gib"] < out["plain"]["peak_gib"]:
+        raise AssertionError(f"--remat did not lower the peak memory: {fields}")
 
 
 def main() -> int:
@@ -3408,6 +3857,12 @@ def main() -> int:
         t0 = time.perf_counter()
         run_bf16_b32_512(ckpt)
         phase("bf16_b32_512_phase", seconds=round(time.perf_counter() - t0, 2))
+        for tag, fn in (("cycle_gan", run_cycle_gan), ("cycle_gan_vs_cpu", compare_cycle_with_cpu),
+                        ("pix2pix", run_pix2pix), ("test_model", run_test_model),
+                        ("remat", run_remat)):
+            t0 = time.perf_counter()
+            fn(ckpt)
+            phase(f"{tag}_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

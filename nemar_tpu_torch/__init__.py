@@ -19,8 +19,10 @@ names so each module's counterpart is easy to find:
   * ``ops/convt_fused.py`` + ``csrc/convt_{fwd,bwd}.cu`` — a decoder stage
     (ConvTranspose + IN + ReLU); the CUDA kernels K-convt and K-convt-bwd,
     on the same GEMM core.
-  * ``models/`` — ResnetGenerator, NLayerDiscriminator, UnetSTN, NEMARModel
-    (inference and the training step).
+  * ``models/`` — ResnetGenerator, UnetGenerator, NLayerDiscriminator,
+    PixelDiscriminator, the STNs, and the four models: NEMARModel,
+    Pix2PixModel, CycleGANModel and TestModel (inference and the training
+    step).
   * ``options/``, ``data/``, ``utils/`` — this package's copies of the JAX
     package's framework-free modules (flags, datasets and loaders, HTML and
     metrics), so that it imports nothing of ``nemar_tpu``.

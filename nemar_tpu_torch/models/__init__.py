@@ -2,8 +2,8 @@
 
 ``--model nemar`` resolves ``models/nemar_model.py`` class ``NEMARModel`` by
 the reference's naming convention; models add their flags through
-``modify_commandline_options``. Only ``nemar`` is ported; ``pix2pix``,
-``cycle_gan`` and ``test`` are queued as ROADMAP.md A9.
+``modify_commandline_options``. The JAX package's four models are here:
+``nemar``, ``pix2pix``, ``cycle_gan`` and ``test``.
 """
 
 from __future__ import annotations
@@ -20,8 +20,7 @@ def find_model_using_name(model_name: str):
     except ModuleNotFoundError as e:
         if e.name != model_filename:
             raise
-        raise NotImplementedError(
-            f"model [{model_name}] is not ported yet (queued as ROADMAP.md A9)") from None
+        raise NotImplementedError(f"model [{model_name}] is not recognized") from None
     target_name = model_name.replace("_", "") + "model"
     for name, cls in modellib.__dict__.items():
         if name.lower() == target_name and isinstance(cls, type) and issubclass(cls, BaseModel):

@@ -50,6 +50,7 @@ from __future__ import annotations
 import glob
 import json
 import os
+import warnings
 from abc import ABC, abstractmethod
 from collections import OrderedDict
 from typing import Callable
@@ -83,6 +84,26 @@ def to_device_nchw(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def to_numpy_nhwc(t: torch.Tensor) -> np.ndarray:
     """NCHW tensor -> NHWC numpy array."""
     return t.detach().permute(0, 2, 3, 1).cpu().numpy()
+
+
+def device_generator_state(gen: torch.Generator) -> dict:
+    """A device generator's state for ``{suffix}_state.pth``, with its
+    device type."""
+    return {"device": gen.device.type, "state": gen.get_state()}
+
+
+def load_device_generator_state(gen: torch.Generator, saved: dict) -> None:
+    """Restore ``device_generator_state`` on the same device type. A CUDA
+    generator (Philox) and a CPU one (Mersenne Twister) draw other streams
+    and their states do not fit each other, so a resume on the other device
+    type keeps the freshly seeded generator, and says so: its dropout masks
+    start again from the first step's."""
+    if saved["device"] != gen.device.type:
+        warnings.warn(f"the saved dropout generator is a {saved['device']} one and this run's is "
+                      f"a {gen.device.type} one: its state does not carry over, so the dropout "
+                      "masks restart from the seed's", RuntimeWarning, stacklevel=2)
+        return
+    gen.set_state(saved["state"])
 
 
 class BaseModel(ABC):
@@ -156,6 +177,13 @@ class BaseModel(ABC):
         """{net name: optimizer} for training; each param group carries an
         ``lr_ratio`` (its lr is ``current_lr * lr_ratio``)."""
         return {}
+
+    def adam(self, params, beta1: float, lr_ratio: float = 1.0) -> torch.optim.Adam:
+        """Adam, ``betas=(beta1, 0.999), eps=1e-8``: optax ``scale_by_adam``
+        with the lr applied outside, as the JAX package's
+        ``models/optim.py``; the lr is ``current_lr * lr_ratio``."""
+        return torch.optim.Adam([{"params": list(params), "lr_ratio": lr_ratio}],
+                                lr=self.current_lr * lr_ratio, betas=(beta1, 0.999), eps=1e-8)
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):

@@ -16,11 +16,12 @@ JAX model, as NHWC numpy arrays.
 ``optimize_parameters`` is the JAX package's ``_train_step_impl`` in the
 same order: one forward with the graph kept; the D step on the detached
 reg_fakeB, through the image pool under --pool_size > 0 (one D pass over
-[real_B; fake], plus the gradient penalty's pass under --gan_mode wgangp;
-Adam); the G+R loss against the UPDATED D, backpropagated through the kept
-graph with D's parameters frozen; R's gradients clipped to --stn_grad_clip
-by global norm and then multiplied by the R gate; Adam for G (not under
---freeze_g) and for R; then the EMA shadows of G and R under --ema_decay.
+[real_B; fake], two passes under --norm batch, plus the gradient penalty's
+pass under --gan_mode wgangp; Adam); the G+R loss against the UPDATED D,
+backpropagated through the kept graph with D's parameters frozen; R's
+gradients clipped to --stn_grad_clip by global norm and then multiplied by
+the R gate; Adam for G (not under --freeze_g) and for R; then the EMA
+shadows of G and R under --ema_decay.
 --grad_accum k > 1 is ``_train_step_accum``: the D phase over k
 microbatches (a forward without autograd each, the pool threaded through
 them), D's summed gradients over k, Adam; then the G+R phase over the
@@ -39,7 +40,12 @@ multiscale STN's compositions of its fields and the --border_mask's
 validity warp (forward only). Shapes G's kernels do not take run the stock
 composition the JAX package runs there (``models/networks.py``).
 ``--block_impl`` and ``--c7_impl`` name the JAX package's TPU layouts of G's
-convolutions; every choice runs these kernels.
+convolutions; every choice runs these kernels. ``--norm batch|none`` runs
+G's trunk and decoder and D's norms as plain convolutions and norms
+(``models/networks.py``). ``--remat`` recomputes R's activations and
+those of each of G's trunk blocks in the backward (the JAX package's
+``jax.checkpoint`` of R and ``nn.remat`` of the blocks): the same
+parameters after a step, less memory, more launches.
 
 ``--bf16`` follows the JAX package's ``_cast`` at its call sites: G, R and
 D run on bf16 copies of their fp32 parameters (``BaseModel.compute``), the
@@ -56,6 +62,7 @@ on fp32 copies (``ops/cast.py``).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -239,6 +246,17 @@ class NEMARModel(BaseModel):
         self.ema_decay = getattr(opt, "ema_decay", 0.0) if self.isTrain else 0.0
         self.use_ema = getattr(opt, "use_ema", False)
         self.pool_size = getattr(opt, "pool_size", 0) if self.isTrain else 0
+        if self.g_batch and opt.norm == "batch":
+            # the 2N concatenated G pass would mix batch statistics between
+            # a and warped_A (the JAX package's refusal)
+            raise ValueError("--g_batch requires --norm instance|none "
+                             "(batch norm mixes stats across the 2N pass)")
+        self.remat = getattr(opt, "remat", False)
+        if not opt.no_dropout:
+            # the JAX package's step passes G no dropout key either, and
+            # fails at its first training forward
+            raise ValueError("the nemar model's G takes no dropout: set no_dropout "
+                             "(--no_dropout, the model's default)")
         if self.recon_pyramid > 0 and opt.crop_size % (2 ** self.recon_pyramid):
             raise ValueError(
                 f"--recon_pyramid {self.recon_pyramid} needs --crop_size "
@@ -246,7 +264,7 @@ class NEMARModel(BaseModel):
 
         gen = torch.Generator().manual_seed(getattr(opt, "seed", 0))
         self.netG = networks.define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.netG,
-                                      opt.norm, not opt.no_dropout)
+                                      opt.norm, not opt.no_dropout, self.remat)
         self.netD = networks.define_D(opt.output_nc, opt.ndf, opt.netD, opt.n_layers_D, opt.norm)
         networks.init_weights(self.netG, opt.init_gain, gen, opt.init_type)
         networks.init_weights(self.netD, opt.init_gain, gen, opt.init_type)
@@ -278,19 +296,14 @@ class NEMARModel(BaseModel):
         super().setup(opt)
 
     def make_optimizers(self) -> dict:
-        """Adam per net, ``betas=(beta1, 0.999), eps=1e-8``: optax
-        ``scale_by_adam`` with the lr applied outside, as the JAX package's
-        ``models/optim.py``. R takes --stn_beta1 and lr * stn_lr / lr."""
+        """Adam per net (``BaseModel.adam``); R takes --stn_beta1 and lr *
+        stn_lr / lr."""
         beta1 = self.opt.beta1
         stn_beta1 = getattr(self.opt, "stn_beta1", None)
-
-        def adam(net, b1, ratio):
-            return torch.optim.Adam([{"params": list(net.parameters()), "lr_ratio": ratio}],
-                                    lr=self.current_lr * ratio, betas=(b1, 0.999), eps=1e-8)
-
-        return {"G": adam(self.netG, beta1, 1.0), "D": adam(self.netD, beta1, 1.0),
-                "R": adam(self.netR, beta1 if stn_beta1 is None else stn_beta1,
-                          self.stn_lr_ratio)}
+        return {"G": self.adam(self.netG.parameters(), beta1),
+                "D": self.adam(self.netD.parameters(), beta1),
+                "R": self.adam(self.netR.parameters(), beta1 if stn_beta1 is None else stn_beta1,
+                               self.stn_lr_ratio)}
 
     def _forward_parts(self, a: torch.Tensor, b: torch.Tensor) -> dict:
         """Both warp orders from one φ; NCHW tensors in and out. With
@@ -298,6 +311,10 @@ class NEMARModel(BaseModel):
         Under --bf16 the nets run in bf16 and every output is cast back to
         fp32."""
         netG, netR = self.compute(self.netG), self.compute(self.netR)
+        if self.remat and torch.is_grad_enabled():
+            # R's activations recomputed in the backward (jax.checkpoint of
+            # netR.apply); G's blocks are checkpointed by define_G
+            netR = functools.partial(networks.remat, netR)
         ca, cb = self.cast(a), self.cast(b)
         if self.field_source == "pair" and self.g_batch:
             # φ depends only on (a, b): R first, then ONE G pass at 2N over
@@ -331,13 +348,14 @@ class NEMARModel(BaseModel):
     # the training step
     # ------------------------------------------------------------------
     def _d_loss(self, fake: torch.Tensor, b: torch.Tensor):
-        """One D pass over [real; fake] (instance norm is per sample); under
-        wgangp the gradient penalty adds its own pass over the mix.
-        -> (loss, (l_real, l_fake, penalty or None)). Under --bf16 D's pass
-        over [real; fake] is bf16, its predictions cast back to fp32; the
-        penalty's pass is fp32, as the JAX package's."""
-        preds = self.compute(self.netD)(torch.cat([self.cast(b), self.cast(fake)], dim=0))
-        pred_real, pred_fake = torch.chunk(self.uncast(preds), 2, dim=0)
+        """One D pass over [real; fake] (instance norm is per sample; two
+        passes under --norm batch, as the JAX package's); under wgangp the
+        gradient penalty adds its own pass over the mix.
+        -> (loss, (l_real, l_fake, penalty or None)). Under --bf16 D's passes
+        are bf16, their predictions cast back to fp32; the penalty's pass is
+        fp32, as the JAX package's."""
+        pred_real, pred_fake = (self.uncast(p) for p in networks.d_preds(
+            self.compute(self.netD), self.cast(b), self.cast(fake), self.opt.norm))
         l_real = networks.gan_loss(pred_real, True, self.gan_mode)
         l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
         loss = 0.5 * (l_real + l_fake)
@@ -607,7 +625,7 @@ def _check_supported(opt) -> None:
     the TPU's only."""
     refused = [
         (getattr(opt, "steps_per_execution", 1) > 1,
-         "--steps_per_execution > 1 is not ported yet (queued as ROADMAP.md A9: a CUDA "
+         "--steps_per_execution > 1 is not ported yet (queued as ROADMAP.md A9b: a CUDA "
          "graph is the Hopper analogue)"),
         (getattr(opt, "opt_fused", False),
          "--opt_fused: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),

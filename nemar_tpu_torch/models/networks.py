@@ -1,23 +1,35 @@
 """Generators and discriminators, the GAN objective and the lr schedules.
 
-Counterpart of ``nemar_tpu/models/networks.py`` (``ResnetBlock``,
-``ResnetGenerator``, ``NLayerDiscriminator``, ``define_G``, ``define_D``,
-``_make_init``, ``gan_loss``, ``cal_gradient_penalty``,
-``get_lr_multiplier_fn``). Every op is differentiable: the
-kernels' wrappers are ``torch.autograd.Function``s with hand-written
-backwards on the card. Module attribute names are the flax parameter names
-(``Conv_0``, ``ResnetBlock_3``, ``ConvTranspose_1``, ...), so a state_dict
-key reads as the flax tree path it was converted from (``utils/convert.py``).
+Counterpart of ``nemar_tpu/models/networks.py`` (``_norm_act``,
+``ResnetBlock``, ``ResnetGenerator``, ``UnetGenerator``,
+``NLayerDiscriminator``, ``PixelDiscriminator``, ``define_G``,
+``define_D``, ``_make_init``, ``gan_loss``, ``cal_gradient_penalty``,
+``get_lr_multiplier_fn``). Every op is differentiable: the kernels'
+wrappers are ``torch.autograd.Function``s with hand-written backwards on
+the card. Module attribute names are the flax parameter names (``Conv_0``,
+``ResnetBlock_3``, ``ConvTranspose_1``, ...), so a state_dict key reads as
+the flax tree path it was converted from (``utils/convert.py``).
 
-Activations are NCHW tensors in ``channels_last`` memory. In the ResNet
-generator every trunk block goes through ``ops.fused_resblock`` (the CUDA
-kernel K-block on the card), every decoder stage (ConvTranspose + IN +
-relu) through ``ops.fused_convt_in`` (K-convt) and the 7x7 output conv
-through ``ops.conv_head`` (K-head) plus its bias; every other instance norm
-goes through ``ops.instance_norm_act`` (the CUDA kernel K-in). The
-remaining convolutions (G's encoder, D) are ``nn.Conv2d``.
+Activations are NCHW tensors in ``channels_last`` memory. ``--norm`` is the
+JAX package's: ``instance`` (the kernel K-in, ``ops.instance_norm_act``),
+``batch`` (per-batch statistics over (N, H, W), eps 1e-5, no affine and no
+running statistics, the same in training and at test: the JAX package's
+stateless branch, not ``nn.BatchNorm2d``) or ``none`` (the activation
+alone). Under instance norm the ResNet generator runs its trunk blocks
+through ``ops.fused_resblock`` (K-block on the card) unless it has dropout,
+its decoder stages (ConvTranspose + IN + relu) through
+``ops.fused_convt_in`` (K-convt); those routes are the JAX package's
+predicates on the norm and dropout, so under ``batch`` or ``none`` or with
+dropout the block and the decoder are the plain convolutions (cuDNN), with
+live biases. The 7x7 output conv runs ``ops.conv_head`` (K-head) plus its
+bias whatever the norm. The other convolutions (G's encoder, the UNet, D)
+are ``nn.Conv2d`` / ``nn.ConvTranspose2d``.
 
-Every shape the JAX package runs goes through those kernels: K-block
+Dropout (``Dropout``) draws from a ``torch.Generator`` the model owns,
+never from the global one, and is off in eval mode. ``--remat`` checkpoints
+each trunk block (``remat``), the counterpart of ``nn.remat(ResnetBlock)``.
+
+Every shape the JAX package runs goes through the kernels: K-block
 masks a sample's last pixel tile (a 48^2 crop's 12^2 trunk) and its wrapper
 zero-pads the trunk's channels to a multiple of 128 (``--ngf 16``'s 64);
 K-convt's wrapper pads channels to multiples of 4; K-head's launches once
@@ -31,6 +43,7 @@ in other layouts; here every choice runs the path above.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -38,15 +51,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nemar_tpu_torch.ops.conv_fused import fused_resblock
 from nemar_tpu_torch.ops.conv_head import conv_head
 from nemar_tpu_torch.ops.convt_fused import fused_convt_in
 from nemar_tpu_torch.ops.norm import instance_norm_act
 from nemar_tpu_torch.utils.convert import kernel_to_torch
-
-_QUEUED = "queued as ROADMAP.md A9"
-
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW tensor -> NHWC view of its channels_last memory (copies only if
@@ -59,9 +70,26 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def norm_act(x: torch.Tensor, act: str) -> torch.Tensor:
-    """Instance norm + activation of an NCHW tensor (reference ``_norm_act``)."""
-    return to_nchw(instance_norm_act(to_nhwc(x), act=act))
+def _act(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "relu":
+        return F.relu(x)
+    if act == "leaky_relu":
+        return F.leaky_relu(x, 0.2)
+    return x
+
+
+def norm_act(x: torch.Tensor, act: str, norm: str = "instance") -> torch.Tensor:
+    """Norm + activation of an NCHW tensor (reference ``_norm_act``):
+    instance norm through K-in, the stateless batch norm, or none."""
+    if norm == "instance":
+        return to_nchw(instance_norm_act(to_nhwc(x), act=act))
+    if norm == "batch":
+        mean = x.mean(dim=(0, 2, 3), keepdim=True)
+        var = torch.square(x - mean).mean(dim=(0, 2, 3), keepdim=True)
+        x = (x - mean) * torch.rsqrt(var + 1e-5)
+    elif norm != "none":
+        raise NotImplementedError(f"norm {norm!r}")
+    return _act(x, act)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -74,6 +102,80 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
     x = torch.cat([x[:, :, 1:pad + 1].flip(2), x, x[:, :, h - pad - 1:h - 1].flip(2)], dim=2)
     return torch.cat([x[:, :, :, 1:pad + 1].flip(3), x, x[:, :, :, w - pad - 1:w - 1].flip(3)],
                      dim=3)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(p)``: in training each value is kept with
+    probability 1 - p and scaled by 1 / (1 - p), else 0; the draw comes
+    from ``generator`` (on the activations' device), which the model
+    sets; in eval mode the identity."""
+
+    def __init__(self, p: float = 0.5, generator: torch.Generator | None = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training draws from the model's generator; none is set")
+        # drawn in x's memory layout, so the result keeps it
+        keep = torch.empty_like(x).uniform_(generator=self.generator) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def dropout_generators(module: nn.Module) -> list:
+    """The generators of ``module``'s Dropout layers (one each)."""
+    return [m.generator for m in module.modules() if isinstance(m, Dropout)]
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """``module`` in eval mode (dropout off) inside, its mode restored after."""
+    was = module.training
+    module.eval()
+    try:
+        yield module
+    finally:
+        module.train(was)
+
+
+def remat(fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its activations recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant), as
+    ``nn.remat`` / ``jax.checkpoint``: the forward keeps only the inputs.
+    The recomputation draws the same dropout masks: each Dropout generator
+    under ``fn`` (when it is a module) is set back to its state at the
+    forward and then forward again to where it was. A module is recomputed
+    on the tensors its forward read: inside ``torch.func.functional_call``
+    (``BaseModel.compute`` under --bf16: the bf16 copies) the backward runs
+    after the call has put the module's own parameters back."""
+    is_module = isinstance(fn, nn.Module)
+    gens = dropout_generators(fn) if is_module else []
+    start = [g.get_state() for g in gens]
+    tensors = {**dict(fn.named_parameters()), **dict(fn.named_buffers())} if is_module else {}
+    calls = [0]
+
+    def again(*a, **k):
+        return torch.func.functional_call(fn, tensors, a, k) if is_module else fn(*a, **k)
+
+    def run(*a, **k):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a, **k)
+        if not gens:
+            return again(*a, **k)
+        now = [g.get_state() for g in gens]
+        for g, s in zip(gens, start):
+            g.set_state(s)
+        try:
+            return again(*a, **k)
+        finally:
+            for g, s in zip(gens, now):
+                g.set_state(s)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def _jax_kernel_shape(m: nn.Module) -> tuple:
@@ -145,30 +247,44 @@ def init_weights(module: nn.Module, init_gain: float, generator: torch.Generator
 
 
 class ResnetBlock(nn.Module):
-    """Reflect-pad conv block with skip, as one fused op (K-block on the
-    card). ``Conv_0``/``Conv_1`` keep the reference's parameters; their
-    biases are inert through instance norm and the fused op leaves them out."""
+    """Reflect-pad conv block with skip. Under instance norm without dropout
+    it is one fused op (K-block on the card), whose ``Conv_0``/``Conv_1``
+    biases are inert through the norm and left out; otherwise the reference's
+    reflect-pad conv, norm, relu, dropout, reflect-pad conv, norm and the
+    skip, biases live, as the JAX package's XLA branch."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, norm: str = "instance", use_dropout: bool = False,
+                 generator: torch.Generator | None = None):
         super().__init__()
+        self.norm = norm
+        self.fused = norm == "instance" and not use_dropout
         self.Conv_0 = nn.Conv2d(dim, dim, 3)
         self.Conv_1 = nn.Conv2d(dim, dim, 3)
+        self.dropout = Dropout(0.5, generator) if use_dropout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # OIHW -> HWIO, the layout of the JAX op and of the kernel
-        w1 = self.Conv_0.weight.permute(2, 3, 1, 0)
-        w2 = self.Conv_1.weight.permute(2, 3, 1, 0)
-        return to_nchw(fused_resblock(to_nhwc(x), w1, w2))
+        if self.fused:
+            # OIHW -> HWIO, the layout of the JAX op and of the kernel
+            w1 = self.Conv_0.weight.permute(2, 3, 1, 0)
+            w2 = self.Conv_1.weight.permute(2, 3, 1, 0)
+            return to_nchw(fused_resblock(to_nhwc(x), w1, w2))
+        h = norm_act(self.Conv_0(reflect_pad(x, 1)), "relu", self.norm)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return x + norm_act(self.Conv_1(reflect_pad(h, 1)), "none", self.norm)
 
 
 class ResnetGenerator(nn.Module):
     """c7s1-ngf, d(2ngf), d(4ngf), n x ResnetBlock, u(2ngf), u(ngf), c7s1-out, tanh."""
 
     def __init__(self, input_nc: int, output_nc: int = 3, ngf: int = 64, n_blocks: int = 9,
-                 n_downsampling: int = 2):
+                 n_downsampling: int = 2, norm: str = "instance", use_dropout: bool = False,
+                 use_remat: bool = False, generator: torch.Generator | None = None):
         super().__init__()
         self.n_blocks = n_blocks
         self.n_downsampling = n_downsampling
+        self.norm = norm
+        self.use_remat = use_remat
         self.Conv_0 = nn.Conv2d(input_nc, ngf, 7)
         for i in range(n_downsampling):
             mult = 2**i
@@ -176,38 +292,99 @@ class ResnetGenerator(nn.Module):
                     nn.Conv2d(ngf * mult, ngf * mult * 2, 3, stride=2, padding=1))
         dim = ngf * 2**n_downsampling
         for i in range(n_blocks):
-            setattr(self, f"ResnetBlock_{i}", ResnetBlock(dim))
+            setattr(self, f"ResnetBlock_{i}", ResnetBlock(dim, norm, use_dropout, generator))
         for i in range(n_downsampling):
             mult = 2 ** (n_downsampling - i)
             # flax ConvTranspose(k3, s2, 'SAME') == this (kernel flipped by
-            # utils/convert.py) cropped to [:2H, :2W]; its bias is inert
-            # through IN and the fused op leaves it out
+            # utils/convert.py) cropped to [:2H, :2W]; under instance norm
+            # its bias is inert and the fused op leaves it out
             setattr(self, f"ConvTranspose_{i}",
                     nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 3, stride=2, padding=0))
         setattr(self, f"Conv_{1 + n_downsampling}", nn.Conv2d(ngf, output_nc, 7))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = norm_act(self.Conv_0(reflect_pad(x, 3)), "relu")
+        h = norm_act(self.Conv_0(reflect_pad(x, 3)), "relu", self.norm)
         for i in range(self.n_downsampling):
-            h = norm_act(getattr(self, f"Conv_{i + 1}")(h), "relu")
+            h = norm_act(getattr(self, f"Conv_{i + 1}")(h), "relu", self.norm)
         for i in range(self.n_blocks):
-            h = getattr(self, f"ResnetBlock_{i}")(h)
+            block = getattr(self, f"ResnetBlock_{i}")
+            h = remat(block, h) if self.use_remat and torch.is_grad_enabled() else block(h)
         for i in range(self.n_downsampling):
-            # (in, out, kh, kw), flipped -> flax's HWIO kernel
-            w = getattr(self, f"ConvTranspose_{i}").weight.permute(2, 3, 0, 1).flip(0, 1)
-            h = to_nchw(fused_convt_in(to_nhwc(h), w))
+            convt = getattr(self, f"ConvTranspose_{i}")
+            if self.norm == "instance":
+                # (in, out, kh, kw), flipped -> flax's HWIO kernel
+                w = convt.weight.permute(2, 3, 0, 1).flip(0, 1)
+                h = to_nchw(fused_convt_in(to_nhwc(h), w))
+            else:  # flax's 3x3 'SAME' transposed conv: padding 0, cropped
+                h = norm_act(convt(h)[:, :, :2 * h.shape[2], :2 * h.shape[3]], "relu", self.norm)
         head = getattr(self, f"Conv_{1 + self.n_downsampling}")
         h = to_nchw(conv_head(to_nhwc(h), head.weight.permute(2, 3, 1, 0)))
         return torch.tanh(h + head.bias[:, None, None])
+
+
+class UnetGenerator(nn.Module):
+    """The reference's UNet (``UnetSkipConnectionBlock`` nest) as the JAX
+    package's flat form: ``num_downs`` k4 s2 p1 convs down (``Conv_i``;
+    LeakyReLU(0.2) before each but the first, norm after each but the first
+    and the innermost; channels ngf * 2^i capped at 8 ngf), then back up
+    (``ConvTranspose_j``, j = 0 the innermost): ReLU, ConvTranspose k4 s2,
+    and at every level but the outermost norm, dropout on the three
+    innermost levels, and the concatenation [skip, h]; tanh at the end."""
+
+    def __init__(self, input_nc: int, output_nc: int = 3, num_downs: int = 8, ngf: int = 64,
+                 norm: str = "instance", use_dropout: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_downs = num_downs
+        self.norm = norm
+        chans = [min(ngf * 2**i, ngf * 8) for i in range(num_downs)]
+        prev = input_nc
+        for i, ch in enumerate(chans):
+            setattr(self, f"Conv_{i}", nn.Conv2d(prev, ch, 4, stride=2, padding=1))
+            prev = ch
+        # level i's transposed conv reads the inner level's output (with its
+        # skip concatenated below the innermost)
+        for j, i in enumerate(reversed(range(num_downs))):
+            cin = chans[i] if i == num_downs - 1 else 2 * chans[i]
+            cout = output_nc if i == 0 else chans[i - 1]
+            setattr(self, f"ConvTranspose_{j}", nn.ConvTranspose2d(cin, cout, 4, stride=2,
+                                                                   padding=1))
+        self.dropouts = nn.ModuleList(Dropout(0.5, generator) for _ in range(3)) \
+            if use_dropout else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        need = 2**self.num_downs
+        if x.shape[2] % need or x.shape[3] % need or min(x.shape[2], x.shape[3]) < need:
+            raise ValueError(
+                f"UnetGenerator with num_downs={self.num_downs} needs input "
+                f"H/W divisible by and >= {need}, got {x.shape[2]}x{x.shape[3]} "
+                f"(use --netG unet_128/unet_256 to match --crop_size)")
+        skips, h = [], x
+        for i in range(self.num_downs):
+            if i > 0:
+                h = F.leaky_relu(h, 0.2)
+            h = getattr(self, f"Conv_{i}")(h)
+            if 0 < i < self.num_downs - 1:
+                h = norm_act(h, "none", self.norm)
+            skips.append(h)
+        for j, i in enumerate(reversed(range(self.num_downs))):
+            h = getattr(self, f"ConvTranspose_{j}")(F.relu(h))
+            if i > 0:
+                h = norm_act(h, "none", self.norm)
+                if self.dropouts is not None and i >= self.num_downs - 3:
+                    h = self.dropouts[self.num_downs - 1 - i](h)
+                h = torch.cat([skips[i - 1], h], dim=1)
+        return torch.tanh(h)
 
 
 class NLayerDiscriminator(nn.Module):
     """70x70 PatchGAN: C64-C128-C256-C512, k4, strides 2,2,2,1,1,
     LeakyReLU(0.2), no norm on the first layer."""
 
-    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3):
+    def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3, norm: str = "instance"):
         super().__init__()
         self.n_layers = n_layers
+        self.norm = norm
         self.Conv_0 = nn.Conv2d(input_nc, ndf, 4, stride=2, padding=1)
         nf_mult = 1
         for n in range(1, n_layers):
@@ -221,38 +398,70 @@ class NLayerDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.Conv_0(x), 0.2)
         for n in range(1, self.n_layers + 1):
-            h = norm_act(getattr(self, f"Conv_{n}")(h), "leaky_relu")
+            h = norm_act(getattr(self, f"Conv_{n}")(h), "leaky_relu", self.norm)
         return getattr(self, f"Conv_{self.n_layers + 1}")(h)
 
 
+class PixelDiscriminator(nn.Module):
+    """1x1 PatchGAN: 1x1 convs ndf, 2 ndf (normed), 1; LeakyReLU(0.2)."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, norm: str = "instance"):
+        super().__init__()
+        self.norm = norm
+        self.Conv_0 = nn.Conv2d(input_nc, ndf, 1)
+        self.Conv_1 = nn.Conv2d(ndf, ndf * 2, 1)
+        self.Conv_2 = nn.Conv2d(ndf * 2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.leaky_relu(self.Conv_0(x), 0.2)
+        h = norm_act(self.Conv_1(h), "leaky_relu", self.norm)
+        return self.Conv_2(h)
+
+
+def _check_norm(norm: str) -> None:
+    if norm not in ("instance", "batch", "none"):
+        raise NotImplementedError(f"norm {norm!r}")
+
+
 def define_G(input_nc: int, output_nc: int, ngf: int, netG: str, norm: str = "instance",
-             use_dropout: bool = False) -> nn.Module:
-    if norm != "instance" or use_dropout:
-        raise NotImplementedError(f"generator with norm {norm!r}, dropout {use_dropout}: "
-                                  f"not ported yet ({_QUEUED})")
+             use_dropout: bool = False, use_remat: bool = False,
+             generator: torch.Generator | None = None) -> nn.Module:
+    """The JAX package's ``define_G``; ``generator`` feeds the dropout
+    layers (``use_dropout``), ``use_remat`` checkpoints the ResNet trunk's
+    blocks (the UNet takes none, as in JAX)."""
+    _check_norm(norm)
     if netG == "resnet_9blocks":
-        return ResnetGenerator(input_nc, output_nc, ngf, 9)
+        return ResnetGenerator(input_nc, output_nc, ngf, 9, 2, norm, use_dropout, use_remat,
+                               generator)
     if netG == "resnet_6blocks":
-        return ResnetGenerator(input_nc, output_nc, ngf, 6)
-    if netG in ("unet_128", "unet_256"):
-        raise NotImplementedError(f"Generator model name [{netG}] is not ported yet "
-                                  f"({_QUEUED})")
+        return ResnetGenerator(input_nc, output_nc, ngf, 6, 2, norm, use_dropout, use_remat,
+                               generator)
+    if netG == "unet_128":
+        return UnetGenerator(input_nc, output_nc, 7, ngf, norm, use_dropout, generator)
+    if netG == "unet_256":
+        return UnetGenerator(input_nc, output_nc, 8, ngf, norm, use_dropout, generator)
     raise NotImplementedError(f"Generator model name [{netG}] is not recognized")
 
 
 def define_D(input_nc: int, ndf: int, netD: str, n_layers_D: int = 3,
              norm: str = "instance") -> nn.Module:
-    if norm != "instance":
-        raise NotImplementedError(f"discriminator with norm {norm!r}: not ported yet "
-                                  f"({_QUEUED})")
+    _check_norm(norm)
     if netD == "basic":
-        return NLayerDiscriminator(input_nc, ndf, 3)
+        return NLayerDiscriminator(input_nc, ndf, 3, norm)
     if netD == "n_layers":
-        return NLayerDiscriminator(input_nc, ndf, n_layers_D)
+        return NLayerDiscriminator(input_nc, ndf, n_layers_D, norm)
     if netD == "pixel":
-        raise NotImplementedError(f"Discriminator model name [{netD}] is not ported yet "
-                                  f"({_QUEUED})")
+        return PixelDiscriminator(input_nc, ndf, norm)
     raise NotImplementedError(f"Discriminator model name [{netD}] is not recognized")
+
+
+def d_preds(net_d: Callable, real: torch.Tensor, fake: torch.Tensor, norm: str) -> tuple:
+    """D's predictions (on real, on fake): one pass over [real; fake] where
+    D's norm is per sample, two passes under batch norm, whose statistics
+    would otherwise mix real and fake (the JAX NeMAR model's ``_d_loss``)."""
+    if norm == "batch":
+        return net_d(real), net_d(fake)
+    return torch.chunk(net_d(torch.cat([real, fake], dim=0)), 2, dim=0)
 
 
 # ---------------------------------------------------------------------------

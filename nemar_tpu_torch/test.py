@@ -2,13 +2,18 @@
 
     python -m nemar_tpu_torch.test --dataroot ./datasets/xyz --name run1 --model nemar --gpu_ids 0
 
-Loads the per-net checkpoints ``{epoch}_net_{G,D,R}.pth`` from
+Any of the four models (``--model nemar|pix2pix|cycle_gan|test``). Loads
+the per-net checkpoints of the model's nets (``{epoch}_net_{G,D,R}.pth``
+for NeMAR, ``_net_G`` for pix2pix, ``_net_G_A`` and ``_net_G_B`` for
+cycle_gan, ``_net_G{--model_suffix}`` for test) from
 ``{checkpoints_dir}/{name}/``, runs the forward pass over the dataset
 (batch 1, ordered, no flip — forced by TestOptions) and writes an HTML
 gallery of visuals to ``{results_dir}/{name}/{phase}_{epoch}/index.html``.
 With ``--eval_registration`` it also writes the registration metrics
 (NCC / PSNR / L1 of reg_fakeB against real_B; flow EPE in pixels where the
-dataset has ground truth) to ``eval.json``. With ``--use_ema`` the forward
+dataset has ground truth) to ``eval.json``, for a model that registers
+(one whose visuals hold ``reg_fakeB``; for the others it writes an empty
+summary, as the JAX package's ``test.py``). With ``--use_ema`` the forward
 runs through the EMA shadows of G and R that a ``--ema_decay`` training run
 saved beside the nets (``{epoch}_net_{G,R}_ema.pth``). ``--gpu_ids -1`` runs
 on the CPU.
@@ -80,8 +85,9 @@ def main(args=None) -> dict:
             print(f"processing ({i:04d})-th image... {img_path}")
         save_images(webpage, visuals, img_path, aspect_ratio=opt.aspect_ratio,
                     width=opt.display_winsize)
-        if evaluating:
-            accumulate_metrics(metrics_acc, visuals, model.last_flow, data.get("theta_gt"))
+        if evaluating and "reg_fakeB" in visuals:  # a registration model
+            accumulate_metrics(metrics_acc, visuals, getattr(model, "last_flow", None),
+                               data.get("theta_gt"))
     webpage.save()
 
     summary = {}

@@ -7,8 +7,11 @@ The JAX package's loop: options -> data (``nemar_tpu_torch.data``, numpy) ->
 model -> epochs from --epoch_count to --n_epochs + --n_epochs_decay, with
 the display / print / save frequencies, and the lr stepped at each epoch's
 end. Each step is the model's ``optimize_parameters``; losses are pulled to
-the host only at --print_freq boundaries. Checkpoints are the per-net files
-``{epoch}_net_{G,D,R}.pth`` (and ``latest_...``) under
+the host only at --print_freq boundaries. ``--model`` is any of
+``nemar``, ``pix2pix`` and ``cycle_gan``; a model's losses are its
+``loss_names``, its visuals its ``visual_names``. Checkpoints are the
+per-net files ``{epoch}_net_{Name}.pth`` (``G``, ``D``, ``R`` for NeMAR;
+``G_A``, ``G_B``, ``D_A``, ``D_B`` for cycle_gan; and ``latest_...``) under
 ``{checkpoints_dir}/{name}/``, which ``nemar_tpu_torch.test`` loads.
 With --profile_dir, a ``torch.profiler`` trace of the epoch loop (host
 ops, and the card's kernels on CUDA) is written there as a Chrome trace

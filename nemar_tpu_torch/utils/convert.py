@@ -4,16 +4,22 @@
 nested dicts of numpy arrays (``{'params': {...}}`` or the inner dict) and
 returns the state_dict of ``module``, as tensors of ``dtype`` (float32 by
 default), one of this package's nets, whose attribute names
-are the flax names in creation order (``models/networks.py``,
+are the flax names in creation order (``models/networks.py``: the ResNet
+and UNet generators, whose ``ConvTranspose_0`` is the UNet's innermost,
+the PatchGAN and the pixel D, each of cycle_gan's four nets;
 ``models/stn/unet_stn.py``, ``models/stn/affine_stn.py``):
 
   * ``Conv`` kernels go from HWIO to OIHW; biases are copied as they are
-    (the trunk blocks' biases load but are inert through IN, as in JAX);
+    (under instance norm the fused trunk blocks' load but are inert, as in
+    JAX);
   * ``ConvTranspose`` kernels (flax ``ConvTranspose(k, s2, 'SAME')``) are
-    flipped spatially and permuted (kh, kw, in, out) -> (in, out, kh, kw);
-    the module runs ``ConvTranspose2d(stride=2, padding=0)`` and crops to
-    ``[:2H, :2W]``, which matches flax exactly. (Flipping and using
-    ``padding=1, output_padding=1`` instead is off by one pixel.)
+    flipped spatially and permuted (kh, kw, in, out) -> (in, out, kh, kw),
+    whatever k. The modules differ in their padding: flax pads the
+    dilated input by (2, 1) for k 3 and by (2, 2) for k 4. So the ResNet
+    decoder's 3x3 runs ``ConvTranspose2d(stride=2, padding=0)`` cropped to
+    ``[:2H, :2W]`` (flipping and using ``padding=1, output_padding=1``
+    instead is off by one pixel), and the UNet's 4x4
+    ``ConvTranspose2d(stride=2, padding=1)``, uncropped;
   * ``Dense`` kernels (in, out) are transposed to ``nn.Linear``'s (out,
     in); their rows keep flax's order (the affine STN flattens its features
     NHWC, as flax does, so no permutation is needed).

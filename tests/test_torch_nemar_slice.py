@@ -180,7 +180,9 @@ def test_unported_flags_raise(tmp_path, flag):
     until A7 was: each now builds and answers a request (``--bf16``'s
     outputs fp32, as the JAX package's); ``--use_ema`` first loads the EMA
     shadows, and without them on disk its setup raises (never random
-    weights)."""
+    weights). ``--netG unet_256`` was one until A9 was: it now builds a UNet
+    G, whose forward at this 32^2 crop raises the JAX package's error (it
+    needs 256^2)."""
     opt = TestOptions().parse(_port_args(tmp_path, *flag))
     if flag in (["--stn_type", "affine"], ["--init_type", "xavier"], ["--use_ema"],
                 ["--bf16"]):
@@ -196,6 +198,14 @@ def test_unported_flags_raise(tmp_path, flag):
         model.test()
         assert model.last_flow.shape == (2, 32, 32, 2)
         assert model.last_flow.dtype == np.float32
+        return
+    if flag == ["--netG", "unet_256"]:
+        model = create_model(opt)
+        assert type(model.netG).__name__ == "UnetGenerator"
+        model.set_input({"A": np.zeros((1, 32, 32, 1), np.float32),
+                         "B": np.ones((1, 32, 32, 3), np.float32)})
+        with pytest.raises(ValueError, match="divisible by and >= 256"):
+            model.test()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(opt)
