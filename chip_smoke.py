@@ -208,6 +208,34 @@ is not 0.
      steps bit for bit against the step without it; then 4 steps of each
      in turns: ms per step, pairs/s, peak memory (lower with --remat,
      asserted) and the launches (the backwards as phase 5's).
+  17. --steps_per_execution 4 as a CUDA graph of the step (ROADMAP.md A9b,
+     ``run_step_graph``) on phase 5's cell: 10 batches (chunks of 4, 4, 2)
+     through ``optimize_parameters_scan`` on the graph and, in a model from
+     the same seed, through the same chunk code run eagerly: the mean
+     losses, parameters, Adam's state, pool, EMA and step generator bit
+     for bit; the eager run's launches phase 5's per step, the graph run's
+     two steps' (the eager first and the capture); the peak memory of
+     each; then chunks in turns on the graph, the eager chunk code and the
+     step-by-step path: ms a step; one chunk of each profiled: device ms,
+     busy share, the device events by name equal (a trace that misses
+     some is taken again); capturable Adam against plain Adam on copies of
+     G's parameters with the same gradients (``adam_capturable_vs_plain``);
+  17b. the same under --bf16 (phase 12's cell), and the graph's memory at
+     phase 12b's cell (512^2, batch 32, --bf16 --remat --grad_accum 2);
+  17c. the same on phase 10's A5 flags with --gan_warmup_epochs 1
+     --gan_ramp_epochs 2 --stn_warmup_epochs 1 --stn_ramp_epochs 2, the
+     chunks at epochs 1, 2, 3 and the lr assigned between them (nothing
+     stale in the graph);
+  17d. the b1 fp32 step at k = 8: ms a step on the graph, the eager chunk
+     code and the step-by-step path, in turns;
+  17e. --async_checkpoint (A12) under --steps_per_execution 2: a save
+     returns before any of its files or its meta is written (the writer
+     held), the meta names a save only once its files are in place, a run
+     resumed with --auto_resume equals the uninterrupted one bit for bit,
+     Adam's state loads across the capturable setting both ways; and
+     pix2pix with dropout trained 2 steps on the CPU and resumed on the
+     card draws at step 3 the masks of a run on the card alone (ROADMAP.md
+     queue C 3).
 
 The line before the last is a JSON object with one entry per kernel. For a
 forward kernel, ``ms``/``plain_ms``/``library_ms`` are the kernel's, the
@@ -241,6 +269,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -1438,6 +1467,22 @@ def run_slice(ckpt: str) -> tuple:
     return launches, first, batches[0]
 
 
+def device_work(prof) -> list:
+    """A profile's device work: the kernel, memcpy and memset events (an
+    aten op's "self device time" repeats the time of the kernels it
+    launched), without the device-side spans of the host's annotations
+    (``Optimizer.step#Adam.step`` spans Adam's kernels)."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _is_memory_op(name: str) -> bool:
+    """A copy or a memset: eagerly a ``Memcpy ...`` / ``Memset ...`` event,
+    in a CUDA graph's replay also the CUDA runtime's own kernels for its memory
+    nodes (``memset32``, ``memcpy128``, ...)."""
+    return name.lower().startswith(("memset", "memcpy"))
+
+
 def profile(run, reps: int, name: str, unit: str) -> None:
     """Device time by kernel name over ``reps`` calls of ``run``, written to
     chiprun_out/<name>.txt, and the device's busy share of the window
@@ -1456,10 +1501,7 @@ def profile(run, reps: int, name: str, unit: str) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         time.sleep(0.05)
-    # device work = the kernel, memcpy and memset events (an aten op's
-    # "self device time" repeats the time of the kernels it launched)
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    device_us = sum(e.time_range.elapsed_us() for e in device_work(prof))
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
     table += "\n" + prof.key_averages(group_by_input_shape=True).table(
         sort_by="self_device_time_total", row_limit=30)
@@ -2959,9 +3001,11 @@ def check_bf16_kernels(dev) -> dict:
             pms = median_ms(lambda: norm.instance_norm_act_plain(x, act), iters=3)
             yard += calls * median_ms(in_yardstick(x), iters=10)
             tally.add(calls, err, ms, pms, bound_bf16(6 * x.numel(), x, *got))
+            tally.device_ms += calls * device_ms(kern, 1, 5)[0]  # one cooperative launch
         elif per == "b8 step":
             step_ms += calls * ms
-    results["K-in-bf16"] = dict(tally.result(), yardstick_ms=yard, b8_step_ms=step_ms)
+    results["K-in-bf16"] = dict(tally.result(), device_ms=tally.device_ms, yardstick_ms=yard,
+                                b8_step_ms=step_ms)
     torch.cuda.synchronize()
     return results
 
@@ -3067,7 +3111,8 @@ def check_bf16_bwd_kernels(dev) -> dict:
                             tag="kernel_bwd", act=act, calls=calls, ms=ms, plain_ms=pms)
             yard += calls * median_ms(in_yardstick(x, g), iters=10)
             tally.add(calls, err, ms, pms, bound_bf16(8 * x.numel(), x, g, stats, *got))
-    results["K-in-bwd-bf16"] = dict(tally.result(), yardstick_ms=yard)
+            tally.device_ms += calls * device_ms(kern, 1, 5)[0]  # one cooperative launch
+    results["K-in-bwd-bf16"] = dict(tally.result(), device_ms=tally.device_ms, yardstick_ms=yard)
     torch.cuda.synchronize()
     return results
 
@@ -3778,6 +3823,485 @@ def run_remat(ckpt: str) -> None:
         raise AssertionError(f"--remat did not lower the peak memory: {fields}")
 
 
+# phase 17: --steps_per_execution as a CUDA graph of the step (ROADMAP.md
+# A9b). SPE_BATCHES batches (2 chunks of SPE and a tail of 2) through
+# optimize_parameters_scan on the graph and, in a second model from the same
+# seed, through the same chunk code run eagerly
+# (optimize_parameters_scan_eager); then SPE_TIMED_CHUNKS chunks of each, and
+# of the step-by-step path, in turns
+SPE = 4
+SPE_BATCHES = 10
+SPE_TIMED_CHUNKS = 4
+SPE_TRACES = 4
+# 17c: A5_FLAGS with warm-ups and ramps; its three chunks at epochs 1, 2, 3
+# (GAN weight 0, 0.5, 1; R's gate likewise) with the lr assigned between them
+SPE_SCHEDULE_FLAGS = ["--gan_warmup_epochs", "1", "--gan_ramp_epochs", "2",
+                      "--stn_warmup_epochs", "1", "--stn_ramp_epochs", "2"]
+SPE_SCHEDULE = [(1, 1.0), (2, 0.5), (3, 0.25)]  # (epoch, lr / --lr) of each chunk
+# 17d: the b1 step, k = 8
+SPE_B1 = 8
+SPE_B1_CHUNKS = 4
+# 17b: the memory of the graph at BF16_B32_ARGS (phase 12b's cell), chunks of 2
+SPE_B32 = 2
+
+
+def _chunk_state(model) -> dict:
+    """``_train_state`` and every Adam's state, the step generator's."""
+    out = _train_state(model)
+    for n, o in model.optimizers.items():
+        for i, st in o.state_dict()["state"].items():
+            out.update({f"adam_{n}.{i}.{k}": v.detach().cpu().clone() for k, v in st.items()})
+    out["rng"] = model.rng.get_state()
+    return out
+
+
+def _spe_run(model, chunks: list, graph: bool, schedule=None) -> dict:
+    """``chunks`` through ``model`` (on the graph, or the same chunk code
+    run eagerly), the counters zeroed and the peak memory reset just
+    before, the cache emptied: each chunk's mean losses, the launches, the
+    peak allocated and reserved GiB and the state after."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters, _ = zero_all_counters()
+    run = model.optimize_parameters_scan if graph else model.optimize_parameters_scan_eager
+    losses = []
+    for i, chunk in enumerate(chunks):
+        if schedule:
+            model.set_epoch(schedule[i][0])
+            model.current_lr = model.opt.lr * schedule[i][1]
+        run(chunk)
+        losses.append({k: v.clone() for k, v in model._losses.items()})
+    torch.cuda.synchronize()
+    return {"losses": losses, "launches": {k: fn.launches for k, fn in counters.items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+            "state": _chunk_state(model)}
+
+
+def profile_chunk(run, name: str) -> tuple:
+    """One call of ``run`` under torch.profiler: wall and device ms, the
+    device's busy share, and the device events counted by name, the copies
+    and memsets together (the table in chiprun_out/<name>.txt)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(0.05)
+    events = device_work(prof)
+    device_us = sum(e.time_range.elapsed_us() for e in events)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"{name}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    # a graph's replay runs its memory nodes as other events than the eager
+    # copies and memsets: those are counted together
+    return ({"wall_ms": round(wall_us / 1e3, 3), "device_ms": round(device_us / 1e3, 3),
+             "busy": round(device_us / wall_us, 3), "device_events": len(events)},
+            Counter("copies and memsets" if _is_memory_op(e.name) else e.name for e in events))
+
+
+def _time_chunks(runs: dict, chunks: list) -> dict:
+    """Each of ``runs`` ({name: fn(chunk)}) on each chunk, in turns: ms a
+    step, the median over the chunks."""
+    times = {name: [] for name in runs}
+    for chunk in chunks:
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(chunk)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / len(chunk))
+    return {name: {"ms_per_step_median": round(float(np.median(t)), 3),
+                   "ms_per_step": [round(x, 3) for x in t]} for name, t in times.items()}
+
+
+def _steps(model):
+    def run(chunk):
+        for b in chunk:
+            model.set_input(b)
+            model.optimize_parameters()
+    return run
+
+
+def run_step_graph(ckpt: str, tag: str, args: list, batch: int, per_step: dict,
+                   schedule=None, seed: int = 18) -> dict:
+    """Phases 17, 17b, 17c: ``args`` at ``batch`` under --steps_per_execution
+    SPE. A model takes SPE_BATCHES batches in chunks (SPE, SPE, 2) through
+    the graph; before it, alone on the card, a model from the same seed
+    takes them through the same chunk code run eagerly (``schedule``: the
+    epoch and lr of each chunk, set on both). Held: each chunk's mean
+    losses, and after the run the parameters, every Adam's moments and
+    step counts, the EMA shadows, the pool and the step generator's state,
+    bit for bit; the eager run's launches SPE_BATCHES x ``per_step`` (the
+    matching step-by-step phase's) and the graph run's 2 x ``per_step``
+    (its first step runs eagerly, the second is captured and counted there,
+    the rest are replays); the peak memory of each run. Then
+    SPE_TIMED_CHUNKS chunks of SPE in turns on the graph, the eager chunk
+    code and the step-by-step path (a third model): ms a step; and one
+    chunk of the graph and of the eager code profiled: device ms, busy
+    share, and the device events by name, equal (the replays run every
+    kernel the eager steps run)."""
+    name = f"smoke_spe_{tag}"
+    spe_args = [*args, "--gpu_ids", "0", "--checkpoints_dir", ckpt, "--batch_size", str(batch),
+                "--steps_per_execution", str(SPE)]
+    batches = request_batches(SPE_BATCHES + SPE * (SPE_TIMED_CHUNKS + 2), batch, seed=seed)
+    chunks = [batches[:SPE], batches[SPE:2 * SPE], batches[2 * SPE:SPE_BATCHES]]
+    eager = train_model([*spe_args, "--name", name + "_eager"])
+    e = _spe_run(eager, chunks, False, schedule)
+    del eager
+    graph = train_model([*spe_args, "--name", name + "_graph"])
+    g = _spe_run(graph, chunks, True, schedule)
+    same_losses = all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                      for a, b in zip(g["losses"], e["losses"]))
+    differ = sorted(k for k, v in e["state"].items() if not torch.equal(v, g["state"][k]))
+    zeros = {k: 0 for k in e["launches"]}
+    want_eager = {**zeros, **{k: v * SPE_BATCHES for k, v in per_step.items()}}
+    want_graph = {**zeros, **{k: v * 2 for k, v in per_step.items()}}
+    fields = {"eager": {"peak_mem_gib": round(e["peak_gib"], 3),
+                        "reserved_gib": round(e["reserved_gib"], 3)},
+              "graph": {"peak_mem_gib": round(g["peak_gib"], 3),
+                        "reserved_gib": round(g["reserved_gib"], 3)}}
+
+    eager = train_model([*spe_args, "--name", name + "_eager2"])
+    plain = train_model([*args, "--gpu_ids", "0", "--checkpoints_dir", ckpt, "--batch_size",
+                         str(batch), "--name", name + "_plain"])
+    timed = [batches[SPE_BATCHES + SPE * i:SPE_BATCHES + SPE * (i + 1)]
+             for i in range(SPE_TIMED_CHUNKS + 2)]
+    runs = {"graph": graph.optimize_parameters_scan,
+            "eager": eager.optimize_parameters_scan_eager, "plain": _steps(plain)}
+    adam = adam_capturable_vs_plain(graph) if tag == "fp32" else None
+    runs["eager"](timed[0])  # Adam's first step, outside the timed chunks
+    runs["plain"](timed[0])
+    times = _time_chunks(runs, timed[1:-1])
+    # a trace can miss a few device events (PERF.md section 7): profiled
+    # again, up to SPE_TRACES times, until the two chunks' events agree
+    for attempt in range(1, SPE_TRACES + 1):
+        prof_g, count_g = profile_chunk(lambda: graph.optimize_parameters_scan(timed[-1]),
+                                        f"profile_spe_{tag}_graph")
+        prof_e, count_e = profile_chunk(lambda: eager.optimize_parameters_scan_eager(timed[-1]),
+                                        f"profile_spe_{tag}_eager")
+        count_diff = {k: [count_g.get(k, 0), count_e.get(k, 0)]
+                      for k in set(count_g) | set(count_e) if count_g.get(k, 0) != count_e.get(k, 0)}
+        if not count_diff:
+            break
+    for k in fields:
+        fields[k].update(times[k], **(prof_g if k == "graph" else prof_e))
+    fields["plain"] = times["plain"]
+    phase(f"step_graph_{tag}", batch=batch, spe=SPE, batches=SPE_BATCHES,
+          chunks=json.dumps([len(c) for c in chunks]), bit_identical=not differ and same_losses,
+          compared=len(e["state"]), differ=json.dumps(differ[:8]),
+          launches_eager=json.dumps(e["launches"]), launches_graph=json.dumps(g["launches"]),
+          launches_per_step=json.dumps(per_step),
+          graphs=len(graph._step_graphs), capturable_vs_plain_adam=json.dumps(adam),
+          profiled_events_equal=not count_diff,
+          trace_attempts=attempt, events_differ=json.dumps(count_diff),
+          **{k: json.dumps(v) for k, v in fields.items()},
+          losses=json.dumps({k: round(float(v), 6) for k, v in g["losses"][-1].items()}))
+    if differ or not same_losses:
+        raise AssertionError(f"{tag}: the graph's replays differ from the eager chunk: {differ}")
+    if e["launches"] != want_eager or g["launches"] != want_graph:
+        raise AssertionError(f"{tag}: launches {e['launches']} eager, {g['launches']} graph; "
+                             f"expected {want_eager}, {want_graph}")
+    if count_diff or not sum(count_g.values()):
+        raise AssertionError(f"{tag}: the replays' device events differ: {count_diff}")
+    if not all(np.isfinite(float(v)) for v in g["losses"][-1].values()):
+        raise AssertionError(f"{tag}: non-finite losses")
+    del graph, eager, plain
+    return fields
+
+
+def adam_capturable_vs_plain(model, steps: int = 3) -> dict:
+    """Capturable Adam (its step count, bias corrections and lr on the
+    card, in fp32) against plain Adam (bias corrections in double on the
+    host) on copies of ``model``'s G parameters with the same seeded
+    gradients, ``steps`` steps at the model's lr and betas: whether the
+    parameters stay bit-identical, the largest difference, and that over
+    the largest update."""
+    group = model.optimizers["G"].param_groups[0]
+    lr, betas = model.opt.lr, group["betas"]
+    start = [p.detach().clone() for p in model.netG.parameters()]
+    gen = card_rng(23)
+    grads = [[torch.randn(p.shape, generator=gen, device=p.device) * 1e-2 for p in start]
+             for _ in range(steps)]
+    out = {}
+    for capturable in (True, False):
+        params = [torch.nn.Parameter(p.clone()) for p in start]
+        adam = torch.optim.Adam(params, lr=torch.tensor(lr, device=start[0].device)
+                                if capturable else lr, betas=betas, eps=1e-8,
+                                capturable=capturable)
+        for g in grads:
+            for p, gi in zip(params, g):
+                p.grad = gi.clone()
+            adam.step()
+        out[capturable] = [p.detach() for p in params]
+    diff = max(float((a - b).abs().max()) for a, b in zip(out[True], out[False]))
+    update = max(float((a - s).abs().max()) for a, s in zip(out[False], start))
+    return {"steps": steps, "bit_identical": diff == 0.0, "max_abs_diff": diff,
+            "max_update": update, "diff_over_update": diff / update}
+
+
+def run_step_graph_b32(ckpt: str) -> None:
+    """Phase 17b, second cell: the graph's memory at BF16_B32_ARGS (512^2,
+    batch 32, --bf16 --remat --grad_accum 2): 2 chunks of SPE_B32 eagerly,
+    then on the graph (a model from the same seed each, alone on the card):
+    the peak allocated and reserved memory of each, ms a step of each's
+    second chunk, the parameters bit for bit."""
+    args = [*TRAIN_ARGS, *BF16_B32_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt,
+            "--steps_per_execution", str(SPE_B32)]
+    batches = request_batches(2 * SPE_B32, 32, seed=19, size=512)
+    chunks = [batches[:SPE_B32], batches[SPE_B32:]]
+    out, states = {}, {}
+    for name, graph in (("eager", False), ("graph", True)):
+        model = train_model([*args, "--name", f"smoke_spe_b32_{name}"])
+        run = model.optimize_parameters_scan if graph else model.optimize_parameters_scan_eager
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run(chunks[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(chunks[1])
+        torch.cuda.synchronize()
+        out[name] = {"ms_per_step": round((time.perf_counter() - t0) * 1e3 / SPE_B32, 3),
+                     "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+                     "reserved_gib": round(torch.cuda.max_memory_reserved() / 2**30, 3)}
+        states[name] = _train_state(model)
+        del model
+    same = all(torch.equal(v, states["graph"][k]) for k, v in states["eager"].items())
+    phase("step_graph_bf16_b32_512", flags=" ".join(BF16_B32_ARGS), spe=SPE_B32, chunks=2,
+          bit_identical=same, **{k: json.dumps(v) for k, v in out.items()})
+    if not same:
+        raise AssertionError("512^2 b32: the graph's replays differ from the eager chunk")
+
+
+def run_step_graph_b1(ckpt: str) -> None:
+    """Phase 17d: the b1 fp32 step at k = SPE_B1: SPE_B1_CHUNKS chunks in
+    turns on the graph, the eager chunk code and the step-by-step path
+    (after one chunk of each outside the timing, the graph's capture in
+    it): ms a step."""
+    args = [*TRAIN_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt, "--batch_size", "1"]
+    spe = ["--steps_per_execution", str(SPE_B1)]
+    batches = request_batches(SPE_B1 * (SPE_B1_CHUNKS + 1), 1, seed=20)
+    chunks = [batches[SPE_B1 * i:SPE_B1 * (i + 1)] for i in range(SPE_B1_CHUNKS + 1)]
+    graph = train_model([*args, *spe, "--name", "smoke_spe_b1_graph"])
+    eager = train_model([*args, *spe, "--name", "smoke_spe_b1_eager"])
+    plain = train_model([*args, "--name", "smoke_spe_b1_plain"])
+    runs = {"graph": graph.optimize_parameters_scan,
+            "eager": eager.optimize_parameters_scan_eager, "plain": _steps(plain)}
+    for fn in runs.values():
+        fn(chunks[0])
+    times = _time_chunks(runs, chunks[1:])
+    prof, _ = profile_chunk(lambda: graph.optimize_parameters_scan(chunks[-1]),
+                            "profile_spe_b1_graph")
+    prof_e, _ = profile_chunk(lambda: eager.optimize_parameters_scan_eager(chunks[-1]),
+                              "profile_spe_b1_eager")
+    times["graph"].update(prof)
+    times["eager"].update(prof_e)
+    phase("step_graph_b1", batch=1, spe=SPE_B1, chunks=SPE_B1_CHUNKS,
+          **{k: json.dumps(v) for k, v in times.items()})
+    del graph, eager, plain
+
+
+class _HeldWriter:
+    """``base_model.write_checkpoint`` held until ``release`` is set."""
+
+    def __init__(self):
+        import threading
+
+        from nemar_tpu_torch.models import base_model
+
+        self.mod, self.orig = base_model, base_model.write_checkpoint
+        self.release, self.started = threading.Event(), threading.Event()
+
+    def __enter__(self):
+        def held(files):
+            self.started.set()
+            if not self.release.wait(300):
+                raise TimeoutError("the held checkpoint writer was never released")
+            self.orig(files)
+
+        self.mod.write_checkpoint = held
+        return self
+
+    def __exit__(self, *exc):
+        self.release.set()
+        self.mod.write_checkpoint = self.orig
+
+
+def _dropout_masks(model, batch) -> list:
+    """The keep masks of each Dropout call in one training step of
+    ``model`` on ``batch``, drawn again from the generator's state at the
+    call (on the CPU)."""
+    from nemar_tpu_torch.models import networks
+
+    masks, orig = [], networks.Dropout.forward
+
+    def forward(self, x):
+        if self.training:
+            gen = torch.Generator(x.device)
+            gen.set_state(self.generator.get_state())
+            masks.append((torch.empty_like(x).uniform_(generator=gen) >= self.p).cpu())
+        return orig(self, x)
+
+    networks.Dropout.forward = forward
+    try:
+        model.set_input(batch)
+        model.optimize_parameters()
+    finally:
+        networks.Dropout.forward = orig
+    return masks
+
+
+def run_async_and_resume(ckpt: str) -> None:
+    """Phase 17e, on the card. (1) --async_checkpoint at phase 5's cell
+    under --steps_per_execution 2: a chunk, an asynchronous save with the
+    writer held: it returns with none of its files and no meta written;
+    released, the meta names it once the files are in place. (2) A run
+    (chunk, async save as train.py's epoch end, chunk while it is in
+    flight, join) and a run resumed from that save with --auto_resume
+    (chunk): every parameter, Adam moment and step count bit for bit. The
+    save, made by capturable Adam, loads into the step-by-step model's
+    plain Adam, and phase 5's (plain Adam) into a capturable one: Adam's
+    state equal to the file's. Times: the async save's return against a
+    synchronous save's. (3) pix2pix with dropout at 256^2 (unet_256 at ngf
+    8) trained 2 steps on the CPU, saved, resumed on the card: its step 3
+    draws the masks that a run on the card alone draws at its step 3."""
+    plain_args = [*TRAIN_ARGS, "--gpu_ids", "0", "--checkpoints_dir", ckpt, "--batch_size",
+                  str(TRAIN_BATCH)]
+    spe_args = [*plain_args, "--steps_per_execution", "2"]
+    args = [*spe_args, "--async_checkpoint", "--name", "smoke_async"]
+    batches = request_batches(6, TRAIN_BATCH, seed=21)
+    save_dir = os.path.join(ckpt, "smoke_async")
+    meta_path = os.path.join(save_dir, "checkpoint_meta.json")
+
+    run = train_model(args)
+    run.optimize_parameters_scan(batches[:2])
+    with _HeldWriter() as held:
+        t0 = time.perf_counter()
+        run.save_networks("latest")
+        async_ms = (time.perf_counter() - t0) * 1e3
+        if not held.started.wait(60):
+            raise AssertionError("the asynchronous save never started writing")
+        landed = [f for f in os.listdir(save_dir) if f.startswith("latest_")]
+        meta_before = os.path.exists(meta_path)
+        held.release.set()
+        run.save_networks(1)  # joins the first, publishes its meta, starts its own
+    with open(meta_path) as f:
+        meta_mid = json.load(f)
+    run.update_learning_rate(1)
+    run.set_epoch(2)
+    run.optimize_parameters_scan(batches[2:4])  # while the second save is in flight
+    run._flush_pending_meta()
+    with open(meta_path) as f:
+        meta_end = json.load(f)
+    resumed = train_model([*args, "--auto_resume", "--epoch_count", "2"])
+    resumed.optimize_parameters_scan(batches[2:4])
+    want, got = _chunk_state(run), _chunk_state(resumed)
+    differ = sorted(k for k, v in want.items() if not torch.equal(v, got[k]))
+    resumed_lr = resumed.current_lr == run.current_lr
+
+    saved = torch.load(os.path.join(save_dir, "1_state.pth"), map_location="cpu",
+                       weights_only=True)["optimizers"]
+    plain = train_model([*plain_args, "--name", "smoke_async", "--continue_train", "--epoch",
+                         "1", "--epoch_count", "2"])
+    cross = {"capturable_into_plain": _adam_equals(plain, saved)}
+    smoke = torch.load(os.path.join(ckpt, "smoke_train", "smoke_state.pth"), map_location="cpu",
+                       weights_only=True)["optimizers"]
+    into = train_model([*spe_args, "--continue_train", "--epoch", "smoke"])
+    cross["plain_into_capturable"] = _adam_equals(into, smoke)
+    steps_on = {"plain": str(plain.optimizers["G"].state_dict()["state"][0]["step"].device),
+                "capturable": str(into.optimizers["G"].state_dict()["state"][0]["step"].device)}
+    sync = train_model([*spe_args, "--name", "smoke_sync"])
+    sync.optimize_parameters_scan(batches[4:6])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync.save_networks("latest")
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    del run, resumed, plain, into, sync
+
+    p2p = ["--model", "pix2pix", "--netG", "unet_256", "--ngf", "8", "--ndf", "8",
+           "--input_nc", "3", "--output_nc", "3", "--crop_size", "256", "--load_size", "256",
+           "--dataset_mode", "synthetic", "--batch_size", "1", "--checkpoints_dir", ckpt]
+    pairs = pair_batches(3, 1, seed=22)
+    cpu = train_model([*p2p, "--gpu_ids", "-1", "--name", "smoke_drop_cpu"])
+    for b in pairs[:2]:
+        cpu.set_input(b)
+        cpu.optimize_parameters()
+    cpu.save_networks("latest")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        moved = train_model([*p2p, "--gpu_ids", "0", "--name", "smoke_drop_cpu",
+                             "--continue_train"])
+    card = train_model([*p2p, "--gpu_ids", "0", "--name", "smoke_drop_card"])
+    for b in pairs[:2]:
+        card.set_input(b)
+        card.optimize_parameters()
+    masks = {"resumed": _dropout_masks(moved, pairs[2]), "card": _dropout_masks(card, pairs[2])}
+    same_masks = (len(masks["card"]) == len(masks["resumed"]) > 0
+                  and all(torch.equal(a, b) for a, b in zip(masks["card"], masks["resumed"])))
+    warned = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    phase("async_checkpoint", batch=TRAIN_BATCH, spe=2, async_save_ms=round(async_ms, 3),
+          sync_save_ms=round(sync_ms, 3), files_when_returned=len(landed),
+          meta_when_returned=meta_before, meta_after_second_save=json.dumps(meta_mid),
+          meta_at_end=json.dumps(meta_end), resume_bit_identical=not differ,
+          compared=len(want), differ=json.dumps(differ[:8]), resumed_lr_equal=resumed_lr,
+          cross_capturable=json.dumps(cross), adam_step_on=json.dumps(steps_on))
+    phase("dropout_resume", model="pix2pix", steps_on_cpu=2, resumed_on="cuda",
+          step=3, dropout_calls=len(masks["card"]), masks_equal=same_masks,
+          warnings=json.dumps(warned))
+    if landed or meta_before:
+        raise AssertionError(f"the async save wrote {landed} (meta: {meta_before}) before "
+                             "returning")
+    if meta_mid.get("latest") != "latest" or meta_end.get("latest") != "1":
+        raise AssertionError(f"the meta named {meta_mid}, then {meta_end}")
+    if differ or not resumed_lr:
+        raise AssertionError(f"the --auto_resume run differs from the uninterrupted one: {differ}")
+    if not all(cross.values()):
+        raise AssertionError(f"Adam's state across the capturable setting: {cross}")
+    if not same_masks or warned:
+        raise AssertionError(f"pix2pix resumed on the card drew other masks ({same_masks}) or "
+                             f"warned {warned}")
+
+
+def _adam_equals(model, saved: dict) -> bool:
+    """Every Adam state of ``model`` equal to ``saved`` (a state file's
+    optimizers), on the CPU."""
+    for n, o in model.optimizers.items():
+        have = o.state_dict()["state"]
+        want = saved[n]["state"]
+        if have.keys() != want.keys() or not have:
+            return False
+        for i, st in want.items():
+            for k, v in st.items():
+                if not torch.equal(have[i][k].detach().cpu().to(v.dtype), v):
+                    return False
+    return True
+
+
+def run_step_graph_phases(ckpt: str) -> None:
+    """Phases 17-17e (ROADMAP.md A9b, A12), each timed."""
+    cells = (("17", lambda: run_step_graph(ckpt, "fp32", TRAIN_ARGS, TRAIN_BATCH, STEP_LAUNCHES)),
+             ("17b", lambda: run_step_graph(ckpt, "bf16", [*TRAIN_ARGS, "--bf16"], TRAIN_BATCH,
+                                            bf16_launches(STEP_LAUNCHES))),
+             ("17b_512", lambda: run_step_graph_b32(ckpt)),
+             ("17c", lambda: run_step_graph(ckpt, "a5", [*TRAIN_ARGS, *A5_FLAGS,
+                                                         *SPE_SCHEDULE_FLAGS],
+                                            TRAIN_BATCH, accum_launches(2, True), SPE_SCHEDULE)),
+             ("17d", lambda: run_step_graph_b1(ckpt)),
+             ("17e", lambda: run_async_and_resume(ckpt)))
+    for tag, fn in cells:
+        t0 = time.perf_counter()
+        fn()
+        phase("step_graph_phase", phase=tag, seconds=round(time.perf_counter() - t0, 2))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3863,6 +4387,7 @@ def main() -> int:
             t0 = time.perf_counter()
             fn(ckpt)
             phase(f"{tag}_phase", seconds=round(time.perf_counter() - t0, 2))
+        run_step_graph_phases(ckpt)
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

@@ -47,10 +47,12 @@ package's does (``nemar_tpu/models/base_model.py``: ``save_networks``,
 
 from __future__ import annotations
 
+import atexit
 import glob
 import json
 import os
-import warnings
+import threading
+import weakref
 from abc import ABC, abstractmethod
 from collections import OrderedDict
 from typing import Callable
@@ -86,24 +88,42 @@ def to_numpy_nhwc(t: torch.Tensor) -> np.ndarray:
     return t.detach().permute(0, 2, 3, 1).cpu().numpy()
 
 
-def device_generator_state(gen: torch.Generator) -> dict:
-    """A device generator's state for ``{suffix}_state.pth``, with its
-    device type."""
-    return {"device": gen.device.type, "state": gen.get_state()}
+def dropout_seed(seed: int, step: int) -> int:
+    """The seed of training step ``step``'s dropout draws (the model
+    reseeds its dropout generator with it before each step): a function of
+    --seed and the step count alone, which ``{suffix}_state.pth`` carries,
+    so a resumed run draws the masks an uninterrupted one draws, on either
+    device type, as the JAX package's key, carried in its state, continues
+    on any device. (A CUDA generator's state does not fit a CPU one's, and
+    a CPU generator keeps 32 bits of a seed.) Step 0 draws from ``seed``;
+    the multiplier is odd, so 2^32 steps in a row take distinct seeds."""
+    return (seed + step * 0x9E3779B1) % 2**32
 
 
-def load_device_generator_state(gen: torch.Generator, saved: dict) -> None:
-    """Restore ``device_generator_state`` on the same device type. A CUDA
-    generator (Philox) and a CPU one (Mersenne Twister) draw other streams
-    and their states do not fit each other, so a resume on the other device
-    type keeps the freshly seeded generator, and says so: its dropout masks
-    start again from the first step's."""
-    if saved["device"] != gen.device.type:
-        warnings.warn(f"the saved dropout generator is a {saved['device']} one and this run's is "
-                      f"a {gen.device.type} one: its state does not carry over, so the dropout "
-                      "masks restart from the seed's", RuntimeWarning, stacklevel=2)
-        return
-    gen.set_state(saved["state"])
+def to_host(obj):
+    """``obj`` (tensors in dicts, lists and tuples) with every tensor copied
+    to the host: a snapshot that later in-place writes do not reach."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, to_host(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_host(v) for v in obj)
+    return obj
+
+
+def write_checkpoint(files: dict) -> None:
+    """torch.save each {path: object}, each under a temporary name renamed
+    into place, so a file is whole or absent."""
+    for path, obj in files.items():
+        torch.save(obj, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+
+def _flush_at_exit(ref) -> None:
+    model = ref()
+    if model is not None:
+        model._flush_pending_meta()
 
 
 class BaseModel(ABC):
@@ -124,6 +144,12 @@ class BaseModel(ABC):
         self.metric = 0.0  # fed to the plateau policy
         self._losses: dict[str, torch.Tensor] = {}
         self._visuals: dict[str, torch.Tensor] = {}
+        if getattr(opt, "steps_per_execution", 1) > 1 and not hasattr(
+                self, "optimize_parameters_scan"):
+            raise NotImplementedError(
+                f"--steps_per_execution > 1: the JAX package has no fused step for the "
+                f"{getattr(opt, 'model', type(self).__name__)} model (only nemar's "
+                f"optimize_parameters_scan)")
 
     @staticmethod
     def modify_commandline_options(parser, is_train):
@@ -181,9 +207,19 @@ class BaseModel(ABC):
     def adam(self, params, beta1: float, lr_ratio: float = 1.0) -> torch.optim.Adam:
         """Adam, ``betas=(beta1, 0.999), eps=1e-8``: optax ``scale_by_adam``
         with the lr applied outside, as the JAX package's
-        ``models/optim.py``; the lr is ``current_lr * lr_ratio``."""
+        ``models/optim.py``; the lr is ``current_lr * lr_ratio``. On the
+        card under --steps_per_execution > 1 it is ``capturable`` (its step
+        counts on the device, for a CUDA graph of the step) and its lr a
+        device scalar that ``current_lr`` fills in place, so a captured
+        step reads the lr of its replay; elsewhere plain Adam, so the
+        step-by-step path keeps its numbers."""
+        lr = self.current_lr * lr_ratio
+        if self.device.type == "cuda" and getattr(self.opt, "steps_per_execution", 1) > 1:
+            return torch.optim.Adam([{"params": list(params), "lr_ratio": lr_ratio}],
+                                    lr=torch.tensor(lr, device=self.device),
+                                    betas=(beta1, 0.999), eps=1e-8, capturable=True)
         return torch.optim.Adam([{"params": list(params), "lr_ratio": lr_ratio}],
-                                lr=self.current_lr * lr_ratio, betas=(beta1, 0.999), eps=1e-8)
+                                lr=lr, betas=(beta1, 0.999), eps=1e-8)
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):
@@ -253,7 +289,11 @@ class BaseModel(ABC):
         self._current_lr = lr
         for optimizer in self.optimizers.values():
             for group in optimizer.param_groups:
-                group["lr"] = lr * group.get("lr_ratio", 1.0)
+                value = lr * group.get("lr_ratio", 1.0)
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].fill_(value)
+                else:
+                    group["lr"] = value
 
     def update_learning_rate(self, epoch: int | None = None):
         """Step the per-epoch lr multiplier (reference update_learning_rate);
@@ -307,30 +347,78 @@ class BaseModel(ABC):
         ``shadow_states``. A training model then writes ``{suffix}_state.pth``
         (every optimizer's state_dict, the step count, current_lr and
         ``extra_train_state``: the state of the generator the step draws
-        from, and the image pool's buffer and count) under a temporary name
-        renamed into place, so a
-        ``*_state.pth`` is always complete, and last ``checkpoint_meta.json``
-        in the JAX package's keys: ``latest``, ``step`` and ``lr_state`` =
-        {current_lr, plateau}. As there, the meta is written at epoch end
-        before ``update_learning_rate`` feeds the plateau controller that
-        epoch's metric: a resumed plateau run replays one fewer observation
-        (the JAX package's accepted one-epoch lag)."""
+        from, and the image pool's buffer and count), and last
+        ``checkpoint_meta.json`` in the JAX package's keys: ``latest``,
+        ``step`` and ``lr_state`` = {current_lr, plateau}. Each file is
+        written under a temporary name renamed into place, so a file is
+        always whole. As in the JAX package, the meta is written at epoch
+        end before ``update_learning_rate`` feeds the plateau controller
+        that epoch's metric: a resumed plateau run replays one fewer
+        observation (the JAX package's accepted one-epoch lag).
+
+        Under --async_checkpoint the save first joins the previous one and
+        publishes its meta (``_flush_pending_meta``); it then takes host
+        copies of everything it writes, so that no later step, nor a CUDA
+        graph's replay writing in place, reaches them; writes the files on
+        a background thread and returns. Its meta is published by the next
+        save, at the end of ``train.main`` or at exit: ``checkpoint_meta.json``
+        names only a save whose files are all in place, so --auto_resume
+        never lands on a half-written checkpoint."""
+        is_async = getattr(self.opt, "async_checkpoint", False)
+        if is_async:
+            self._flush_pending_meta()
+        files = {}
         nets = {n: net.state_dict() for n, net in self.nets().items()}
         for name, state in {**nets, **self.shadow_states()}.items():
-            torch.save({k: v.detach().cpu() for k, v in state.items()},
-                       self._net_path(suffix, name))
-        if not self.isTrain:
+            files[self._net_path(suffix, name)] = to_host(dict(state))
+        meta = None
+        if self.isTrain:
+            files[self._state_path(suffix)] = to_host(
+                {"optimizers": {n: o.state_dict() for n, o in self.optimizers.items()},
+                 "step": self.step, "current_lr": self.current_lr, **self.extra_train_state()})
+            meta = {"latest": str(suffix), "step": self.step,
+                    "lr_state": {"current_lr": float(self.current_lr),
+                                 "plateau": getattr(self.lr_fn, "state", None)}}
+        if not is_async:
+            write_checkpoint(files)
+            if meta is not None:
+                self._write_meta(meta)
             return
-        path = self._state_path(suffix)
-        torch.save({"optimizers": {n: o.state_dict() for n, o in self.optimizers.items()},
-                    "step": self.step, "current_lr": self.current_lr,
-                    **self.extra_train_state()}, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        meta = {"latest": str(suffix), "step": self.step,
-                "lr_state": {"current_lr": float(self.current_lr),
-                             "plateau": getattr(self.lr_fn, "state", None)}}
-        with open(self._meta_path(), "w") as f:
+        self._pending_meta = meta
+        self._save_error = None
+
+        def write():
+            try:
+                write_checkpoint(files)
+            except BaseException as e:  # raised by the join
+                self._save_error = e
+
+        self._save_thread = threading.Thread(target=write, name="async_checkpoint")
+        self._save_thread.start()
+        if not getattr(self, "_atexit_registered", False):
+            atexit.register(_flush_at_exit, weakref.ref(self))
+            self._atexit_registered = True
+
+    def _write_meta(self, meta: dict) -> None:
+        with open(self._meta_path() + ".tmp", "w") as f:
             json.dump(meta, f)
+        os.replace(self._meta_path() + ".tmp", self._meta_path())
+
+    def _flush_pending_meta(self) -> None:
+        """Join the in-flight --async_checkpoint save, then publish its meta
+        (the JAX package's ``_flush_pending_meta``); a no-op when nothing is
+        in flight. A save that failed raises here, and its meta is not
+        published."""
+        thread = getattr(self, "_save_thread", None)
+        if thread is None:
+            return
+        thread.join()
+        self._save_thread = None
+        meta, self._pending_meta = self._pending_meta, None
+        if self._save_error is not None:
+            raise RuntimeError("the asynchronous checkpoint save failed") from self._save_error
+        if meta is not None:
+            self._write_meta(meta)
 
     def load_train_state(self, suffix):
         """--continue_train: the nets, the optimizers' state, the step
@@ -359,10 +447,17 @@ class BaseModel(ABC):
             print(f"checkpoint '{suffix}' missing; falling back to {path}")
         self.load_networks(suffix)
         print(f"loading the training state from {path}")
-        # Adam keeps its step counts on the CPU; its moments follow the params
+        # Adam keeps its step counts on the CPU (on the device when
+        # capturable); its moments follow the params. A state saved under
+        # the other ``capturable`` setting loads under this run's: the
+        # saved groups' setting and lr give way to this optimizer's
         state = torch.load(path, map_location="cpu", weights_only=True)
         for name, optimizer in self.optimizers.items():
-            optimizer.load_state_dict(state["optimizers"][name])
+            saved = state["optimizers"][name]
+            for group, saved_group in zip(optimizer.param_groups, saved["param_groups"]):
+                saved_group["capturable"] = group["capturable"]
+                saved_group["lr"] = group["lr"]
+            optimizer.load_state_dict(saved)
         self.step = int(state["step"])
         self.load_extra_train_state(state, suffix)
         plateau = (meta.get("lr_state") or {}).get("plateau")

@@ -25,8 +25,7 @@ from __future__ import annotations
 import torch
 
 from nemar_tpu_torch.models import networks
-from nemar_tpu_torch.models.base_model import (BaseModel, device_generator_state,
-                                               load_device_generator_state, to_device_nchw)
+from nemar_tpu_torch.models.base_model import BaseModel, dropout_seed, to_device_nchw
 from nemar_tpu_torch.utils import image_pool
 
 
@@ -52,7 +51,10 @@ class CycleGANModel(BaseModel):
             raise ValueError("cycle_gan requires input_nc == output_nc "
                              "(identity/cycle terms compare across domains)")
         seed = getattr(opt, "seed", 0)
-        self.drop_gen = torch.Generator(self.device).manual_seed(seed + 23)
+        # dropout's draws (with --no_dropout off), reseeded before each step
+        # from the seed and the step count, as pix2pix's
+        self.drop_seed = seed + 23
+        self.drop_gen = torch.Generator(self.device).manual_seed(self.drop_seed)
         gen = torch.Generator().manual_seed(seed)
         for n in ("G_A", "G_B"):
             net = networks.define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.netG, opt.norm,
@@ -105,6 +107,7 @@ class CycleGANModel(BaseModel):
         """One step: the JAX package's ``_train_step_impl``."""
         a, b = self.real_A, self.real_B
         opt_G, opt_D = self.optimizers["G"], self.optimizers["D"]
+        self.drop_gen.manual_seed(dropout_seed(self.drop_seed, self.step))
 
         # G_A + G_B against the Ds as they are, the Ds frozen
         opt_G.zero_grad(set_to_none=True)
@@ -149,8 +152,8 @@ class CycleGANModel(BaseModel):
         self.step += 1
 
     def extra_train_state(self) -> dict:
-        """The generators' states and the pools (buffer and count)."""
-        state = {"rng": self.rng.get_state(), "drop_gen": device_generator_state(self.drop_gen)}
+        """The pools' generator state and the pools (buffer and count)."""
+        state = {"rng": self.rng.get_state()}
         if self.pools is not None:
             state["pools"] = {k: {"images": p[0].cpu(), "count": p[1].cpu()}
                               for k, p in self.pools.items()}
@@ -158,7 +161,6 @@ class CycleGANModel(BaseModel):
 
     def load_extra_train_state(self, state: dict, suffix) -> None:
         self.rng.set_state(state["rng"])
-        load_device_generator_state(self.drop_gen, state["drop_gen"])
         if self.pools is not None and "pools" in state:
             self.pools = {k: (p["images"].to(self.device), p["count"].to(self.device))
                           for k, p in state["pools"].items()}

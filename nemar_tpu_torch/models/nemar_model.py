@@ -68,7 +68,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from nemar_tpu_torch.models import networks
+from nemar_tpu_torch.models import networks, step_graph
 from nemar_tpu_torch.models.base_model import BaseModel, to_device_nchw
 from nemar_tpu_torch.models.stn import define_stn
 from nemar_tpu_torch.ops.warp import grid_sample
@@ -286,6 +286,10 @@ class NEMARModel(BaseModel):
                                                            opt.crop_size), self.device)
                      if self.pool_size > 0 else None)
         self.ema = None  # {net: {parameter name: shadow}}, made by setup
+        # --steps_per_execution: the chunk's draws while a chunk's step runs,
+        # and a step_graph.StepGraph per chunk shape
+        self._slots = None
+        self._step_graphs: dict = {}
 
     def setup(self, opt):
         """BaseModel.setup, then the EMA shadows of G and R as copies of
@@ -367,19 +371,41 @@ class NEMARModel(BaseModel):
         return loss, (l_real, l_fake, gp)
 
     def _gp_alpha(self, n: int) -> torch.Tensor:
-        """The penalty's alpha (n, 1, 1, 1), uniform in [0, 1)."""
+        """The penalty's alpha (n, 1, 1, 1), uniform in [0, 1) (in a chunk,
+        the next of the chunk's draws)."""
+        if self._slots is not None:
+            return next(self._slots)
         return torch.rand((n, 1, 1, 1), generator=self.rng).to(self.device)
 
     def _pool_draws(self, n: int) -> tuple:
-        """The pool's draws for n fakes (``utils/image_pool.draw``)."""
+        """The pool's draws for n fakes (``utils/image_pool.draw``; in a
+        chunk, the next of the chunk's draws)."""
+        if self._slots is not None:
+            return next(self._slots), next(self._slots)
         return tuple(t.to(self.device) for t in image_pool.draw(self.rng, n, self.pool_size))
 
+    def _step_draws(self, n: int) -> list:
+        """One step's draws from ``self.rng`` in the order the step takes
+        them, per microbatch of n / --grad_accum: the pool's (use_old,
+        rand_idx), then the penalty's alpha (CPU tensors)."""
+        m = n // self.grad_accum
+        out = []
+        for _ in range(self.grad_accum):
+            if self.pool is not None:
+                out.extend(image_pool.draw(self.rng, m, self.pool_size))
+            if self.gan_mode == "wgangp":
+                out.append(torch.rand((m, 1, 1, 1), generator=self.rng))
+        return out
+
     def _query_pool(self, fake: torch.Tensor) -> torch.Tensor:
+        """The batch D sees; the pool is updated in place (a CUDA graph of
+        the step writes to the addresses it was captured with)."""
         if self.pool is None:
             return fake
         images, count, fake = image_pool.query_pool(*self.pool, fake,
                                                     *self._pool_draws(fake.shape[0]))
-        self.pool = (images, count)
+        self.pool[0].copy_(images)
+        self.pool[1].copy_(count)
         return fake
 
     @staticmethod
@@ -389,9 +415,10 @@ class NEMARModel(BaseModel):
         return torch.sum(torch.abs(x - y).mean(1, keepdim=True) * m) / torch.clamp_min(
             torch.sum(m), 1.0)
 
-    def _head_loss(self, o: dict, b: torch.Tensor, gan_w: float):
+    def _head_loss(self, o: dict, b: torch.Tensor, gan_scale):
         """G+R loss on the forward outputs ``o`` against D as it is now (its
-        pass in bf16 under --bf16, the prediction cast back to fp32)."""
+        pass in bf16 under --bf16, the prediction cast back to fp32);
+        ``gan_scale`` is the GAN weight times --lambda_GAN."""
         pred = self.uncast(self.compute(self.netD)(self.cast(o["reg_fakeB"])))
         l_gan = networks.gan_loss(pred, True, self.gan_mode)
         m = o.get("mask")
@@ -404,7 +431,7 @@ class NEMARModel(BaseModel):
             l_recon = l_recon + self._recon_l1(rf, bb, m) + self._recon_l1(f2, bb, m)
         l_recon = l_recon / (1 + self.recon_pyramid)
         l_smooth = o["reg"]
-        total = (gan_w * self.lambda_GAN * l_gan + self.lambda_recon * l_recon
+        total = (gan_scale * l_gan + self.lambda_recon * l_recon
                  + self.lambda_smooth * l_smooth)
         return total, (l_gan, l_recon, l_smooth)
 
@@ -446,8 +473,18 @@ class NEMARModel(BaseModel):
     def optimize_parameters(self):
         """One training step: the JAX package's ``_train_step_impl``, or
         under --grad_accum k > 1 its ``_train_step_accum``."""
-        a, b = self.real_A, self.real_B
-        gan_w, r_gate = self._gan_w_scalar(), self._r_gate_scalar()
+        self._losses = self._train_step(self.real_A, self.real_B,
+                                        self._gan_w_scalar() * self.lambda_GAN,
+                                        self._r_gate_scalar())
+        self.step += 1
+
+    def _train_step(self, a: torch.Tensor, b: torch.Tensor, gan_scale, r_gate) -> dict:
+        """The step on (a, b) -> its losses (detached). ``gan_scale`` (the
+        GAN weight times --lambda_GAN) and ``r_gate`` are floats, or, in a
+        chunk of --steps_per_execution, device scalars of the parameters'
+        dtype holding the same values (a CUDA graph reads them at each
+        replay): the products round alike either way, and R's gradients
+        are gated by a multiply that is exact at a gate of 1."""
         k = self.grad_accum
         if k == 1:  # one forward, kept for the G+R backward
             out = self._forward_parts(a, b)
@@ -465,23 +502,53 @@ class NEMARModel(BaseModel):
             d_micro = detached_fakes()
             g_micro = ((self._forward_parts(ai, bi), bi) for ai, bi in pairs)
         loss_D, l_dr, l_df, l_gp = self._d_phase(d_micro)
-        loss_G, l_gan, l_rec, l_sm = self._g_phase(g_micro, gan_w)
+        loss_G, l_gan, l_rec, l_sm = self._g_phase(g_micro, gan_scale)
 
         grads_R = [p.grad for p in self.netR.parameters() if p.grad is not None]
         self._clip_r(grads_R)
-        if r_gate != 1.0:
+        if isinstance(r_gate, torch.Tensor) or r_gate != 1.0:
             # zeroed grads keep the Adam moments at zero while R is frozen
-            for g in grads_R:
-                g.mul_(r_gate)
+            torch._foreach_mul_(grads_R, r_gate)
         self.optimizers["R"].step()
         if not self.freeze_g:
             self.optimizers["G"].step()
         self._update_ema()
-        self._losses = {k: v.detach() for k, v in (
+        return {k: v.detach() for k, v in (
             ("D", loss_D), ("D_real", l_dr), ("D_fake", l_df), ("D_gp", l_gp),
             ("G_GAN", l_gan), ("G_recon", l_rec), ("G_smooth", l_sm), ("G", loss_G))
             if v is not None}
-        self.step += 1
+
+    # -- --steps_per_execution ---------------------------------------------
+    def optimize_parameters_scan(self, batches: list):
+        """--steps_per_execution: one step on each of ``batches``, the JAX
+        package's ``optimize_parameters_scan``. The lr, the GAN weight and
+        R's gate are read once and hold across the chunk; the losses
+        reported after it are the means over its steps; real_A and real_B
+        are left at its last batch; the step count advances by its length.
+        The chunk's batches and draws go to the device at once
+        (``step_graph.Chunk``). On the card its steps are replays of one
+        CUDA graph of the step (``step_graph.StepGraph``); on the CPU they
+        run eagerly, through the same code."""
+        self._run_chunk(batches, self.device.type == "cuda")
+
+    def optimize_parameters_scan_eager(self, batches: list):
+        """``optimize_parameters_scan`` with every step run eagerly: on the
+        card, what the graph's replays are held against."""
+        self._run_chunk(batches, False)
+
+    def _run_chunk(self, batches: list, graph: bool) -> None:
+        dtype = next(self.netG.parameters()).dtype
+        gan_scale, r_gate = self._gan_w_scalar() * self.lambda_GAN, self._r_gate_scalar()
+        draws = [self._step_draws(batches[0]["A"].shape[0]) for _ in batches]
+        chunk = step_graph.Chunk(batches, draws, self.device, dtype)
+        key = chunk.key()
+        if key not in self._step_graphs:
+            self._step_graphs[key] = step_graph.StepGraph(self, chunk, dtype)
+        runner = self._step_graphs[key]
+        self._losses = runner.run(self, chunk, gan_scale, r_gate, graph)
+        self.real_A, self.real_B = chunk.last()
+        self.image_paths = batches[-1].get("A_paths", [])
+        self.step += len(batches)
 
     def _d_phase(self, micro) -> list:
         """D's step over the microbatches ``micro`` of (detached fake, real):
@@ -510,7 +577,7 @@ class NEMARModel(BaseModel):
             opt_D.step()
         return [t if t is None or k == 1 else t / k for t in sums]
 
-    def _g_phase(self, micro, gan_w: float) -> list:
+    def _g_phase(self, micro, gan_scale) -> list:
         """The G+R gradients over the microbatches ``micro`` of (forward
         outputs with their graph, real) against D as it is now, frozen: each
         head loss backpropagated, the summed gradients over their number.
@@ -522,7 +589,7 @@ class NEMARModel(BaseModel):
         sums, k = None, 0
         try:
             for o, bi in micro:
-                loss, parts = self._head_loss(o, bi, gan_w)
+                loss, parts = self._head_loss(o, bi, gan_scale)
                 loss.backward()
                 terms = [loss.detach(), *(t.detach() for t in parts)]
                 sums = terms if sums is None else [s + t for s, t in zip(sums, terms)]
@@ -541,10 +608,12 @@ class NEMARModel(BaseModel):
         for n, shadow in self.ema.items():
             params = dict(self.nets()[n].named_parameters())
             keys = list(shadow)
-            new = torch._foreach_add(torch._foreach_mul([shadow[k] for k in keys], d),
-                                     torch._foreach_mul([params[k].detach() for k in keys],
-                                                        1.0 - d))
-            self.ema[n] = dict(zip(keys, new))
+            # in place (a CUDA graph of the step writes to the addresses it
+            # was captured with), rounded as d * e + (1 - d) * p
+            shadows = [shadow[k] for k in keys]
+            torch._foreach_mul_(shadows, d)
+            torch._foreach_add_(shadows, torch._foreach_mul([params[k].detach() for k in keys],
+                                                            1.0 - d))
 
     # -- the training state beyond the nets and the Adams ------------------
     def shadow_states(self) -> dict:
@@ -624,9 +693,6 @@ def _check_supported(opt) -> None:
     """Refuse, by name, the flags whose code paths are not ported yet or are
     the TPU's only."""
     refused = [
-        (getattr(opt, "steps_per_execution", 1) > 1,
-         "--steps_per_execution > 1 is not ported yet (queued as ROADMAP.md A9b: a CUDA "
-         "graph is the Hopper analogue)"),
         (getattr(opt, "opt_fused", False),
          "--opt_fused: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),
         (getattr(opt, "opt_split", False),

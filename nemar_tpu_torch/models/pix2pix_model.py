@@ -13,7 +13,9 @@ parameters frozen, and is backpropagated through the kept graph (Adam).
 One dropout draw therefore serves D's fake and G's backward. D sees real
 and fake in one pass where its norm is per sample, in two under batch
 norm (``networks.d_preds``). Dropout draws from the model's generator on
-its device, seeded from --seed. The visuals' forward has dropout off (the
+its device, reseeded before each step from --seed and the step count
+(``base_model.dropout_seed``), so a resumed run draws the masks of an
+uninterrupted one on either device type. The visuals' forward has dropout off (the
 JAX package's ``train=False``); batch norm keeps its batch statistics.
 
 The model computes in fp32 whatever --bf16 says, as the JAX package's,
@@ -25,8 +27,7 @@ from __future__ import annotations
 import torch
 
 from nemar_tpu_torch.models import networks
-from nemar_tpu_torch.models.base_model import (BaseModel, device_generator_state,
-                                               load_device_generator_state, to_device_nchw)
+from nemar_tpu_torch.models.base_model import BaseModel, dropout_seed, to_device_nchw
 
 
 class Pix2PixModel(BaseModel):
@@ -45,8 +46,10 @@ class Pix2PixModel(BaseModel):
         self.visual_names = ["real_A", "fake_B", "real_B"]
         self.model_names = ["G", "D"] if self.isTrain else ["G"]
         seed = getattr(opt, "seed", 0)
-        # dropout's draws, on the device (the JAX state's key is seed + 23)
-        self.drop_gen = torch.Generator(self.device).manual_seed(seed + 23)
+        # dropout's draws, on the device (the JAX state's key is seed + 23),
+        # reseeded before each step from the seed and the step count
+        self.drop_seed = seed + 23
+        self.drop_gen = torch.Generator(self.device).manual_seed(self.drop_seed)
         gen = torch.Generator().manual_seed(seed)
         self.netG = networks.define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.netG, opt.norm,
                                       not opt.no_dropout, getattr(opt, "remat", False),
@@ -70,6 +73,7 @@ class Pix2PixModel(BaseModel):
     def optimize_parameters(self):
         """One step: the JAX package's ``_train_step_impl``."""
         a, b = self.real_A, self.real_B
+        self.drop_gen.manual_seed(dropout_seed(self.drop_seed, self.step))
         fake_B = self.netG(a)  # one forward, kept for G's backward
 
         opt_D = self.optimizers["D"]
@@ -96,12 +100,6 @@ class Pix2PixModel(BaseModel):
         self._losses = {k: v.detach() for k, v in (
             ("G_GAN", l_gan), ("G_L1", l_l1), ("D_real", l_dr), ("D_fake", l_df))}
         self.step += 1
-
-    def extra_train_state(self) -> dict:
-        return {"drop_gen": device_generator_state(self.drop_gen)}
-
-    def load_extra_train_state(self, state: dict, suffix) -> None:
-        load_device_generator_state(self.drop_gen, state["drop_gen"])
 
     def set_input(self, data: dict):
         """data['A'], data['B']: NHWC float numpy batches."""

@@ -82,7 +82,8 @@ class AffineSTN(nn.Module):
         n, _, h, w = a.shape
         # grid coordinates are at least fp32 whatever the activations' type
         cdt = torch.float64 if dtheta.dtype == torch.float64 else torch.float32
-        eye = torch.tensor([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]], dtype=cdt, device=a.device)
+        # made on the device (no copy from the host: a CUDA graph captures it)
+        eye = torch.eye(2, 3, dtype=cdt, device=a.device)
         theta = eye[None] + dtheta.to(cdt)
         grid = affine_grid(theta, (n, 1, h, w), self.align_corners)
         warped = ()

@@ -6,8 +6,15 @@
 The JAX package's loop: options -> data (``nemar_tpu_torch.data``, numpy) ->
 model -> epochs from --epoch_count to --n_epochs + --n_epochs_decay, with
 the display / print / save frequencies, and the lr stepped at each epoch's
-end. Each step is the model's ``optimize_parameters``; losses are pulled to
-the host only at --print_freq boundaries. ``--model`` is any of
+end. Each step is the model's ``optimize_parameters``; under
+--steps_per_execution k > 1 (the nemar model only) the loop gathers k
+batches and runs them as one chunk (``optimize_parameters_scan``: on the
+card one CUDA graph of the step, replayed k times), fires a periodic action
+when the chunk crosses its multiple, with the chunk's mean losses, and
+runs a tail shorter than k at the epoch's end, as the JAX package's loop.
+Losses are pulled to the host only at --print_freq boundaries. Under
+--async_checkpoint the last save is joined (and its
+``checkpoint_meta.json`` published) before ``main`` returns. ``--model`` is any of
 ``nemar``, ``pix2pix`` and ``cycle_gan``; a model's losses are its
 ``loss_names``, its visuals its ``visual_names``. Checkpoints are the
 per-net files ``{epoch}_net_{Name}.pth`` (``G``, ``D``, ``R`` for NeMAR;
@@ -40,6 +47,7 @@ def main(args=None):
     visualizer = Visualizer(opt)
     with _profiler(opt.profile_dir, model.device):
         _train_epochs(opt, dataset, dataset_size, model, visualizer)
+    model._flush_pending_meta()
     return model
 
 
@@ -58,35 +66,52 @@ def _profiler(profile_dir: str, device: torch.device):
 
 def _train_epochs(opt, dataset, dataset_size, model, visualizer):
     total_iters = 0
+    spe = max(1, getattr(opt, "steps_per_execution", 1))
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
         model.set_epoch(epoch)
         epoch_start_time = time.time()
         iter_data_time = time.time()
         epoch_iter = 0
         visualizer.reset()
+        pending = []
         for data in dataset:
             iter_start_time = time.time()
             t_data = iter_start_time - iter_data_time
             total_iters += opt.batch_size
             epoch_iter += opt.batch_size
-            model.set_input(data)
-            model.optimize_parameters()
+            if spe > 1:
+                pending.append(data)
+                if len(pending) < spe:
+                    iter_data_time = time.time()
+                    continue
+                model.optimize_parameters_scan(pending)
+                pending = []
+            else:
+                model.set_input(data)
+                model.optimize_parameters()
 
-            # freq <= 0 disables the periodic action
-            if opt.display_freq > 0 and total_iters % opt.display_freq < opt.batch_size:
+            # freq <= 0 disables the periodic action; a chunk fires it when
+            # it crosses the multiple
+            window = opt.batch_size * spe
+            if opt.display_freq > 0 and total_iters % opt.display_freq < window:
                 model.test()
                 visualizer.display_current_results(model.get_current_visuals(), epoch, True)
-            if opt.print_freq > 0 and total_iters % opt.print_freq < opt.batch_size:
+            if opt.print_freq > 0 and total_iters % opt.print_freq < window:
                 losses = model.get_current_losses()  # device sync point
                 t_comp = (time.time() - iter_start_time) / opt.batch_size
                 visualizer.print_current_losses(epoch, epoch_iter, losses, t_comp, t_data)
                 visualizer.plot_current_losses(
                     epoch, float(epoch_iter) / max(dataset_size, 1), losses)
-            if opt.save_latest_freq > 0 and total_iters % opt.save_latest_freq < opt.batch_size:
+            if opt.save_latest_freq > 0 and total_iters % opt.save_latest_freq < window:
                 print(f"saving the latest model (epoch {epoch}, total_iters {total_iters})")
                 model.save_networks(f"iter_{total_iters}" if opt.save_by_iter else "latest")
             iter_data_time = time.time()
 
+        if pending:
+            # the tail, when spe does not divide the epoch's batches (the same
+            # graph, fewer replays)
+            model.optimize_parameters_scan(pending)
+            pending = []
         if opt.save_epoch_freq > 0 and epoch % opt.save_epoch_freq == 0:
             print(f"saving the model at the end of epoch {epoch}, iters {total_iters}")
             model.save_networks("latest")

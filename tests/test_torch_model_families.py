@@ -23,6 +23,7 @@ and the parameters are replaced anyway.
 
 import contextlib
 import os
+import warnings
 
 import flax.linen as fnn
 import jax
@@ -385,17 +386,33 @@ def test_nemar_refuses_dropout_when_built(tmp_path):
         create_model(opt)
 
 
-def test_dropout_generator_state_across_device_types():
-    """A saved dropout generator's state is restored on its own device type;
-    on another one the fresh generator is kept and a warning says so."""
-    saved = base_model.device_generator_state(torch.Generator().manual_seed(5))
-    gen = torch.Generator().manual_seed(6)
-    base_model.load_device_generator_state(gen, saved)
-    assert torch.equal(gen.get_state(), saved["state"])
-    fresh = torch.Generator().manual_seed(6)
-    with pytest.warns(RuntimeWarning, match="dropout masks restart"):
-        base_model.load_device_generator_state(fresh, {**saved, "device": "cuda"})
-    assert torch.equal(fresh.get_state(), torch.Generator().manual_seed(6).get_state())
+def test_dropout_generator_state_across_device_types(tmp_path):
+    """The dropout generator's state is not saved: a step reseeds it from
+    --seed and the step count (``base_model.dropout_seed``), which carry
+    over on either device type. A state of the earlier format, whose
+    generator was a card one, loads on the CPU without a warning, and the
+    next step's first mask is the first draw from its step count's seed."""
+    flags = [f for f in PIX2PIX if f != "--no_dropout"]
+    model = create_model(TrainOptions().parse([*flags, "--dataset_mode", "synthetic",
+                                               "--gpu_ids", "-1", "--checkpoints_dir",
+                                               str(tmp_path)]))
+    model.setup(model.opt)
+    assert "drop_gen" not in model.extra_train_state()
+    model.step = 5
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        model.load_extra_train_state({"drop_gen": {"device": "cuda", "state": torch.zeros(
+            16, dtype=torch.uint8)}}, "latest")
+    drop = next(m for m in model.netG.modules() if isinstance(m, networks.Dropout))
+    seen = []
+    drop.register_forward_hook(lambda m, i, o: seen.append((i[0].detach(), o.detach())))
+    (batch,) = _batches(1, 3, 3, 128, 7)
+    model.set_input(batch)
+    model.optimize_parameters()
+    x, y = seen[0]
+    gen = torch.Generator().manual_seed(base_model.dropout_seed(model.opt.seed + 23, 5))
+    keep = torch.empty_like(x).uniform_(generator=gen) >= drop.p
+    assert model.step == 6 and torch.equal(y, torch.where(keep, x / (1.0 - drop.p), 0.0))
 
 
 def test_pix2pix_dropout_one_draw_from_the_model_generator(tmp_path):

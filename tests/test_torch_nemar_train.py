@@ -387,7 +387,6 @@ def test_train_path_imports_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag,label", [
-    (["--steps_per_execution", "2"], "ROADMAP.md A9b: a CUDA graph is the Hopper analogue"),
     (["--opt_fused"], "TPU-only Adam layouts, not to port"),
     (["--opt_split"], "TPU-only Adam layouts, not to port"),
 ])
