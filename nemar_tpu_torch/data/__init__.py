@@ -7,7 +7,9 @@ String registry: ``--dataset_mode x`` resolves ``data/x_dataset.py`` class
 API. The loader replaces torch's worker-process DataLoader with a
 thread-pool prefetcher producing device-ready NHWC numpy batches (the
 device transfer itself happens in the model layer, where sharding is
-known).
+known). In a data-parallel run every rank's loader gives the same global
+batches in the same order (the same seed), and the model keeps the rank's
+rows (``nemar_tpu_torch.parallel.shard_rows``).
 """
 
 from __future__ import annotations

@@ -44,18 +44,14 @@ class GrainDatasetLoader:
             seed=getattr(opt, "seed", 0),
         )
         self._num_workers = max(0, int(getattr(opt, "num_threads", 4)))
-        # multi-process data sharding: each process reads its disjoint
-        # slice. Defaults to torch.distributed's rank and world size when a
-        # process group is up (one shard otherwise); overridable for tests.
+        # data sharding by host: only with an explicit --data_shard_count.
+        # By default every process reads the whole stream, as the ranks of
+        # a data-parallel run do: each reads the same global batches and
+        # keeps its rows (``parallel.shard_rows``), so that the global batch
+        # is --batch_size and the one-process run's. (The JAX package shards
+        # by jax.process_count(), and one node's devices are one process.)
         shard_count = getattr(opt, "data_shard_count", -1)
-        if shard_count < 0:
-            import torch.distributed as dist
-
-            up = dist.is_available() and dist.is_initialized()
-            shard_index = dist.get_rank() if up else 0
-            shard_count = dist.get_world_size() if up else 1
-        else:
-            shard_index = getattr(opt, "data_shard_index", 0)
+        shard_index = getattr(opt, "data_shard_index", 0) if shard_count >= 0 else 0
         self._shard = (
             grain.ShardOptions(shard_index=shard_index,
                                shard_count=shard_count, drop_remainder=True)

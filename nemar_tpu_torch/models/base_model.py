@@ -7,7 +7,12 @@ Inside:
 
   * one ``nn.Module`` per net (``self.net<Name>``) on ``self.device``, taken
     from ``--gpu_ids``: none (``-1``) means the CPU, ``k`` means ``cuda:k``
-    and raises when CUDA is absent;
+    and raises when CUDA is absent; in a rank of a data-parallel run
+    (``nemar_tpu_torch.parallel``) the rank's device;
+  * in a data-parallel run every rank builds the same model from the same
+    seed and takes its rows of the global batch (``set_input``); the
+    reported losses are the global batch's (``get_current_losses``), and
+    rank 0 alone writes checkpoints;
   * checkpoints are the reference's per-net state_dict files
     ``{suffix}_net_{Name}.pth`` under ``checkpoints/{name}/``; a training
     model also writes the full training state ``{suffix}_state.pth`` and
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import atexit
 import glob
+import hashlib
 import json
 import os
 import threading
@@ -60,27 +66,34 @@ from typing import Callable
 import numpy as np
 import torch
 
+from nemar_tpu_torch import parallel
 from nemar_tpu_torch.models.networks import get_lr_multiplier_fn
 
 
 def resolve_device(gpu_ids) -> torch.device:
-    """``--gpu_ids`` (parsed to a list of ints) -> the device to run on."""
+    """``--gpu_ids`` (parsed to a list of ints) -> this process's device:
+    the CPU for none; in a rank of a data-parallel run the device its
+    launch gave it (``cuda:gpu_ids[rank]``); else ``cuda:gpu_ids[0]`` (a
+    one-process run, such as test.py's, serves on the first id). Ids
+    without CUDA raise: there is no CPU fallback."""
     if not gpu_ids:
         return torch.device("cpu")
-    if len(gpu_ids) > 1:
-        raise NotImplementedError(
-            f"--gpu_ids {gpu_ids}: one device per process for now (queued as ROADMAP.md A10)")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            f"--gpu_ids {gpu_ids[0]} asks for CUDA, but torch.cuda.is_available() is False; "
-            f"pass --gpu_ids -1 to run on the CPU")
+            f"--gpu_ids {','.join(map(str, gpu_ids))} asks for CUDA, but "
+            f"torch.cuda.is_available() is False; pass --gpu_ids -1 to run on the CPU")
+    dev = parallel.device()
+    if dev is not None and dev.type == "cuda":
+        return dev
     return torch.device("cuda", gpu_ids[0])
 
 
-def to_device_nchw(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """NHWC numpy batch -> NCHW fp32 tensor in channels_last memory."""
+def to_device_nchw(arr: np.ndarray, device: torch.device,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """NHWC numpy batch -> NCHW tensor (fp32 unless ``dtype`` says) in
+    channels_last memory."""
     t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
-    return t.to(device).permute(0, 3, 1, 2)
+    return t.to(device, dtype).permute(0, 3, 1, 2)
 
 
 def to_numpy_nhwc(t: torch.Tensor) -> np.ndarray:
@@ -98,6 +111,32 @@ def dropout_seed(seed: int, step: int) -> int:
     a CPU generator keeps 32 bits of a seed.) Step 0 draws from ``seed``;
     the multiplier is odd, so 2^32 steps in a row take distinct seeds."""
     return (seed + step * 0x9E3779B1) % 2**32
+
+
+def state_digest(model) -> str:
+    """A SHA-256 over the model's parameters and its optimizers' state, in
+    a fixed order: equal digests mean bit-identical training states (the
+    ranks of a data-parallel run are held to this)."""
+    h = hashlib.sha256()
+
+    def add(t) -> None:
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().contiguous()
+            h.update(str((t.dtype, tuple(t.shape))).encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(repr(t).encode())
+
+    for name, net in model.nets().items():
+        for key, p in net.named_parameters():
+            h.update(f"{name}.{key}".encode())
+            add(p)
+    for name, optimizer in model.optimizers.items():
+        for i, p in enumerate(p for g in optimizer.param_groups for p in g["params"]):
+            for key, v in sorted(optimizer.state.get(p, {}).items()):
+                h.update(f"{name}.{i}.{key}".encode())
+                add(v)
+    return h.hexdigest()
 
 
 def to_host(obj):
@@ -131,6 +170,7 @@ class BaseModel(ABC):
         self.opt = opt
         self.isTrain = opt.isTrain
         self.device = resolve_device(opt.gpu_ids)
+        self.dtype = torch.float32  # of the parameters and inputs (``to_dtype``)
         # --bf16: the forward computes in bf16 (the parameters stay fp32)
         self.bf16 = getattr(opt, "bf16", False)
         # {net: ((id, version) of each parameter, its bf16 copies)}
@@ -169,6 +209,15 @@ class BaseModel(ABC):
 
     def nets(self) -> dict:
         return {n: getattr(self, f"net{n}") for n in self.model_names}
+
+    def to_dtype(self, dtype: torch.dtype) -> None:
+        """Run the model in ``dtype`` (torch.float64 for the CPU tests
+        against the JAX package): the nets, and the inputs ``set_input``
+        makes; before ``setup``, which makes the optimizers and shadows
+        from the parameters."""
+        self.dtype = dtype
+        for net in self.nets().values():
+            net.to(dtype)
 
     def compute(self, net: torch.nn.Module) -> Callable:
         """``net`` as the forward runs it: under --bf16 a call of net on bf16
@@ -269,9 +318,11 @@ class BaseModel(ABC):
     # -- losses, epoch-indexed schedules, lr -----------------------------------
     def get_current_losses(self) -> "OrderedDict[str, float]":
         """The last step's losses as floats, in ``loss_names`` order (one
-        device sync)."""
-        return OrderedDict((k, float(self._losses[k])) for k in self.loss_names
-                           if k in self._losses)
+        device sync); in a data-parallel run the means over the ranks, the
+        global batch's (every rank calls it)."""
+        names = [k for k in self.loss_names if k in self._losses]
+        means = parallel.mean_over_ranks({k: self._losses[k] for k in names})
+        return OrderedDict((k, means[k]) for k in names)
 
     def set_epoch(self, epoch: int):
         """Current absolute epoch (the train loop calls this at epoch start;
@@ -304,7 +355,8 @@ class BaseModel(ABC):
             self._epoch = epoch + 1
         if getattr(self.opt, "lr_policy", "linear") == "plateau" and self._losses:
             key = "G" if "G" in self._losses else sorted(self._losses)[0]
-            self.metric = float(self._losses[key])
+            # the global batch's loss, so every rank's controller steps alike
+            self.metric = self.get_current_losses()[key]
         old = self.current_lr
         self.current_lr = self.opt.lr * self.lr_fn(epoch, self.metric)
         print(f"learning rate {old:.7f} -> {self.current_lr:.7f}")
@@ -363,7 +415,12 @@ class BaseModel(ABC):
         a background thread and returns. Its meta is published by the next
         save, at the end of ``train.main`` or at exit: ``checkpoint_meta.json``
         names only a save whose files are all in place, so --auto_resume
-        never lands on a half-written checkpoint."""
+        never lands on a half-written checkpoint. In a data-parallel run
+        rank 0 alone writes."""
+        if parallel.rank() != 0:
+            # in a data-parallel run rank 0 writes for all: their training
+            # states are bit-identical (every rank loads)
+            return
         is_async = getattr(self.opt, "async_checkpoint", False)
         if is_async:
             self._flush_pending_meta()

@@ -18,12 +18,16 @@ where its norm is per sample, in two under batch norm
 (``networks.d_preds``). Six G passes and four D passes a step.
 
 The model computes in fp32 whatever --bf16 says, as the JAX package's.
+In a data-parallel run each rank takes its rows of the global batch, the
+gradients are averaged over the ranks before each Adam step, and each
+pool is one global pool, the same on every rank (``_query_pool``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from nemar_tpu_torch import parallel
 from nemar_tpu_torch.models import networks
 from nemar_tpu_torch.models.base_model import BaseModel, dropout_seed, to_device_nchw
 from nemar_tpu_torch.utils import image_pool
@@ -88,17 +92,27 @@ class CycleGANModel(BaseModel):
         return {"G": self.adam([*self.netG_A.parameters(), *self.netG_B.parameters()], b1),
                 "D": self.adam([*self.netD_A.parameters(), *self.netD_B.parameters()], b1)}
 
+    def to_dtype(self, dtype: torch.dtype) -> None:
+        """BaseModel.to_dtype, and the pools' buffers."""
+        super().to_dtype(dtype)
+        if self.pools is not None:
+            self.pools = {k: (p[0].to(dtype), p[1]) for k, p in self.pools.items()}
+
     def _pool_draws(self, n: int) -> tuple:
         """One pool's draws for n fakes (``utils/image_pool.draw``)."""
         return tuple(t.to(self.device) for t in image_pool.draw(self.rng, n, self.pool_size))
 
     def _query_pool(self, key: str, fake: torch.Tensor) -> torch.Tensor:
+        """The batch D sees. In a data-parallel run each pool is one global
+        pool, the same on every rank: it takes the global batch's fakes,
+        gathered from the ranks, and this rank keeps its rows."""
         if self.pools is None:
             return fake
-        images, count, fake = image_pool.query_pool(*self.pools[key], fake,
-                                                    *self._pool_draws(fake.shape[0]))
+        n = fake.shape[0] if parallel.world() == 1 else self.global_n
+        full = parallel.all_gather_rows(fake) if parallel.sharded(n) else fake
+        images, count, out = image_pool.query_pool(*self.pools[key], full, *self._pool_draws(n))
         self.pools[key] = (images, count)
-        return fake
+        return out[parallel.rows_in(n)]
 
     def _l1(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         return torch.mean(torch.abs(x - y))
@@ -131,6 +145,7 @@ class CycleGANModel(BaseModel):
         else:
             l_idt_a = l_idt_b = torch.zeros((), device=a.device, dtype=a.dtype)
         (l_g_a + l_g_b + l_cyc_a + l_cyc_b + l_idt_a + l_idt_b).backward()
+        parallel.all_reduce_grads([*self.netG_A.parameters(), *self.netG_B.parameters()])
         opt_G.step()
 
         # D_A and D_B on the pooled, detached fakes
@@ -145,6 +160,7 @@ class CycleGANModel(BaseModel):
         l_d_b = 0.5 * (networks.gan_loss(pr_b, True, self.gan_mode)
                        + networks.gan_loss(pf_b, False, self.gan_mode))
         (l_d_a + l_d_b).backward()
+        parallel.all_reduce_grads([*self.netD_A.parameters(), *self.netD_B.parameters()])
         opt_D.step()
         self._losses = {k: v.detach() for k, v in (
             ("D_A", l_d_a), ("G_A", l_g_a), ("cycle_A", l_cyc_a), ("idt_A", l_idt_a),
@@ -166,9 +182,17 @@ class CycleGANModel(BaseModel):
                           for k, p in state["pools"].items()}
 
     def set_input(self, data: dict):
-        """data['A'], data['B']: NHWC float numpy batches."""
-        self.real_A = to_device_nchw(data["A"], self.device)
-        self.real_B = to_device_nchw(data["B"], self.device)
+        """data['A'], data['B']: NHWC float numpy batches, the global batch;
+        in a data-parallel run this rank keeps its rows (and the dropout
+        layers draw for the global batch)."""
+        self.global_n = len(data["A"])
+        data = parallel.shard_rows(data)
+        if parallel.world() > 1:
+            for n in ("G_A", "G_B"):
+                networks.set_dropout_rows(self.nets()[n],
+                                          (self.global_n, parallel.rows_in(self.global_n)))
+        self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
+        self.real_B = to_device_nchw(data["B"], self.device, self.dtype)
         self.image_paths = data.get("A_paths", [])
 
     def forward(self):

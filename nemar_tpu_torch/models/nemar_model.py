@@ -58,6 +58,16 @@ parameters, the gradients Adam sees, the Adam state, the EMA shadows and
 the pool stay fp32. K-block, K-convt, K-in and their backwards run their
 bf16 variants; K-warp and K-head (and their backwards) their fp32 kernels
 on fp32 copies (``ops/cast.py``).
+
+In a data-parallel run (``nemar_tpu_torch.parallel``) --batch_size is the
+global batch, as the JAX package's mesh takes it: each rank keeps its
+rows of each microbatch (``set_input``); D's gradients are averaged over
+the ranks after ``_mean_grads`` and before D's Adam, G's and R's before
+R's clip (which then sees the global norm); the pool is one global pool,
+queried with the gathered fakes; the step's draws are made for the
+global rows (``_step_draws``); --border_mask's count is the global
+microbatch's. ``--mesh_spatial`` (the image height over devices) is
+refused, queued as ROADMAP.md A10b.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from nemar_tpu_torch import parallel
 from nemar_tpu_torch.models import networks, step_graph
 from nemar_tpu_torch.models.base_model import BaseModel, to_device_nchw
 from nemar_tpu_torch.models.stn import define_stn
@@ -299,6 +310,12 @@ class NEMARModel(BaseModel):
                         for n in ("G", "R")}
         super().setup(opt)
 
+    def to_dtype(self, dtype: torch.dtype) -> None:
+        """BaseModel.to_dtype, and the pool's buffer."""
+        super().to_dtype(dtype)
+        if self.pool is not None:
+            self.pool = (self.pool[0].to(dtype), self.pool[1])
+
     def make_optimizers(self) -> dict:
         """Adam per net (``BaseModel.adam``); R takes --stn_beta1 and lr *
         stn_lr / lr."""
@@ -370,50 +387,70 @@ class NEMARModel(BaseModel):
             loss = loss + gp
         return loss, (l_real, l_fake, gp)
 
+    def _global_micro(self, m: int) -> int:
+        """The global microbatch that a local one of m rows belongs to (m
+        itself outside a data-parallel run)."""
+        return m if parallel.world() == 1 else self.micro_n
+
     def _gp_alpha(self, n: int) -> torch.Tensor:
-        """The penalty's alpha (n, 1, 1, 1), uniform in [0, 1) (in a chunk,
-        the next of the chunk's draws)."""
+        """The penalty's alpha for the n rows of this microbatch (n, 1, 1,
+        1), uniform in [0, 1): drawn for the global microbatch, this rank's
+        rows of it (in a chunk, the next of the chunk's draws)."""
         if self._slots is not None:
             return next(self._slots)
-        return torch.rand((n, 1, 1, 1), generator=self.rng).to(self.device)
+        m = self._global_micro(n)
+        return torch.rand((m, 1, 1, 1), generator=self.rng)[parallel.rows_in(m)].to(self.device)
 
     def _pool_draws(self, n: int) -> tuple:
-        """The pool's draws for n fakes (``utils/image_pool.draw``; in a
-        chunk, the next of the chunk's draws)."""
+        """The pool's draws for n fakes of the global microbatch
+        (``utils/image_pool.draw``; in a chunk, the next of the chunk's
+        draws)."""
         if self._slots is not None:
             return next(self._slots), next(self._slots)
         return tuple(t.to(self.device) for t in image_pool.draw(self.rng, n, self.pool_size))
 
     def _step_draws(self, n: int) -> list:
         """One step's draws from ``self.rng`` in the order the step takes
-        them, per microbatch of n / --grad_accum: the pool's (use_old,
-        rand_idx), then the penalty's alpha (CPU tensors)."""
+        them, per microbatch of the global batch of n rows split by
+        --grad_accum: the pool's (use_old, rand_idx) for the microbatch,
+        then the penalty's alpha for this rank's rows of it (CPU tensors)."""
         m = n // self.grad_accum
         out = []
         for _ in range(self.grad_accum):
             if self.pool is not None:
                 out.extend(image_pool.draw(self.rng, m, self.pool_size))
             if self.gan_mode == "wgangp":
-                out.append(torch.rand((m, 1, 1, 1), generator=self.rng))
+                out.append(torch.rand((m, 1, 1, 1), generator=self.rng)[parallel.rows_in(m)])
         return out
 
     def _query_pool(self, fake: torch.Tensor) -> torch.Tensor:
         """The batch D sees; the pool is updated in place (a CUDA graph of
-        the step writes to the addresses it was captured with)."""
+        the step writes to the addresses it was captured with). In a
+        data-parallel run the pool is the one global pool, the same on
+        every rank: it takes the global microbatch's fakes, gathered from
+        the ranks, and this rank keeps its rows of what comes out."""
         if self.pool is None:
             return fake
-        images, count, fake = image_pool.query_pool(*self.pool, fake,
-                                                    *self._pool_draws(fake.shape[0]))
+        m = self._global_micro(fake.shape[0])
+        full = parallel.all_gather_rows(fake) if parallel.sharded(m) else fake
+        images, count, out = image_pool.query_pool(*self.pool, full, *self._pool_draws(m))
         self.pool[0].copy_(images)
         self.pool[1].copy_(count)
-        return fake
+        return out[parallel.rows_in(m)]
 
-    @staticmethod
-    def _recon_l1(x, y, m):
+    def _recon_l1(self, x, y, m):
+        """mean |x - y|, or under --border_mask the sum over the valid
+        pixels over their count: the global microbatch's count in a
+        data-parallel run, the numerator scaled by W so that the ranks'
+        mean is the global loss."""
         if m is None:
             return torch.mean(torch.abs(x - y))
-        return torch.sum(torch.abs(x - y).mean(1, keepdim=True) * m) / torch.clamp_min(
-            torch.sum(m), 1.0)
+        num = torch.sum(torch.abs(x - y).mean(1, keepdim=True) * m)
+        den = torch.sum(m)
+        if parallel.sharded(self._global_micro(x.shape[0])):
+            num = num * parallel.world()
+            den = parallel.sum_over_ranks(den)
+        return num / torch.clamp_min(den, 1.0)
 
     def _head_loss(self, o: dict, b: torch.Tensor, gan_scale):
         """G+R loss on the forward outputs ``o`` against D as it is now (its
@@ -539,7 +576,11 @@ class NEMARModel(BaseModel):
     def _run_chunk(self, batches: list, graph: bool) -> None:
         dtype = next(self.netG.parameters()).dtype
         gan_scale, r_gate = self._gan_w_scalar() * self.lambda_GAN, self._r_gate_scalar()
-        draws = [self._step_draws(batches[0]["A"].shape[0]) for _ in batches]
+        n = len(batches[0]["A"])
+        self.micro_n = n // self.grad_accum
+        draws = [self._step_draws(n) for _ in batches]
+        # the chunk is sharded as a batch is (P(None, 'data') in the JAX package)
+        batches = [parallel.shard_rows(b, self.grad_accum) for b in batches]
         chunk = step_graph.Chunk(batches, draws, self.device, dtype)
         key = chunk.key()
         if key not in self._step_graphs:
@@ -574,6 +615,7 @@ class NEMARModel(BaseModel):
             k += 1
         if not self.freeze_g:
             _mean_grads(params, k)
+            parallel.all_reduce_grads(params)
             opt_D.step()
         return [t if t is None or k == 1 else t / k for t in sums]
 
@@ -597,6 +639,8 @@ class NEMARModel(BaseModel):
         finally:
             self.netD.requires_grad_(True)
         _mean_grads(params, k)
+        # before R's clip, which then sees the global norm
+        parallel.all_reduce_grads(params)
         return [t if k == 1 else t / k for t in sums]
 
     def _update_ema(self) -> None:
@@ -663,9 +707,13 @@ class NEMARModel(BaseModel):
     # reference-API host methods
     # ------------------------------------------------------------------
     def set_input(self, data: dict):
-        """data['A'], data['B']: NHWC float numpy batches."""
-        self.real_A = to_device_nchw(data["A"], self.device)
-        self.real_B = to_device_nchw(data["B"], self.device)
+        """data['A'], data['B']: NHWC float numpy batches, the global batch;
+        in a data-parallel run this rank keeps its rows of each microbatch
+        (``parallel.shard_rows``)."""
+        self.micro_n = len(data["A"]) // self.grad_accum
+        data = parallel.shard_rows(data, self.grad_accum)
+        self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
+        self.real_B = to_device_nchw(data["B"], self.device, self.dtype)
         self.image_paths = data.get("A_paths", [])
 
     def forward(self):
@@ -698,7 +746,8 @@ def _check_supported(opt) -> None:
         (getattr(opt, "opt_split", False),
          "--opt_split: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),
         (getattr(opt, "mesh_spatial", 1) > 1,
-         "--mesh_spatial > 1 is not ported yet (queued as ROADMAP.md A10)"),
+         "--mesh_spatial > 1 (the image height sharded over devices) is not ported yet "
+         "(queued as ROADMAP.md A10b)"),
     ]
     for on, message in refused:
         if on:

@@ -25,6 +25,13 @@ live biases. The 7x7 output conv runs ``ops.conv_head`` (K-head) plus its
 bias whatever the norm. The other convolutions (G's encoder, the UNet, D)
 are ``nn.Conv2d`` / ``nn.ConvTranspose2d``.
 
+In a data-parallel run (``nemar_tpu_torch.parallel``) batch norm
+normalises over the global batch (``batch_norm_global``: its sums
+all-reduced, differentiably) and each dropout layer draws the global
+batch's mask and keeps its rank's rows (``set_dropout_rows``), as the JAX
+package's SPMD program does, so a run over W ranks computes the
+one-process run's function.
+
 Dropout (``Dropout``) draws from a ``torch.Generator`` the model owns,
 never from the global one, and is off in eval mode. ``--remat`` checkpoints
 each trunk block (``remat``), the counterpart of ``nn.remat(ResnetBlock)``.
@@ -53,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from nemar_tpu_torch import parallel
 from nemar_tpu_torch.ops.conv_fused import fused_resblock
 from nemar_tpu_torch.ops.conv_head import conv_head
 from nemar_tpu_torch.ops.convt_fused import fused_convt_in
@@ -78,15 +86,39 @@ def _act(x: torch.Tensor, act: str) -> torch.Tensor:
     return x
 
 
+def batch_norm_local(x: torch.Tensor) -> torch.Tensor:
+    """The stateless batch norm over (N, H, W) of this process's rows, in
+    the JAX package's two passes (the mean, then the mean squared
+    deviation)."""
+    mean = x.mean(dim=(0, 2, 3), keepdim=True)
+    var = torch.square(x - mean).mean(dim=(0, 2, 3), keepdim=True)
+    return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+def batch_norm_global(x: torch.Tensor) -> torch.Tensor:
+    """The same batch norm over the GLOBAL batch of a data-parallel run,
+    as the JAX package's mean over a batch sharded on 'data': the two
+    passes' sums (and the rows' count, so that a batch replicated on every
+    rank normalises as well) summed over the ranks, differentiably
+    (``parallel.sum_over_ranks``), so the backward's sums are global too."""
+    count = torch.full((1,), x.shape[0] * x.shape[2] * x.shape[3], dtype=x.dtype,
+                       device=x.device)
+    sums = parallel.sum_over_ranks(torch.cat([x.sum(dim=(0, 2, 3)), count]))
+    n = sums[-1]
+    mean = (sums[:-1] / n)[None, :, None, None]
+    dev = x - mean
+    var = parallel.sum_over_ranks(torch.square(dev).sum(dim=(0, 2, 3))) / n
+    return dev * torch.rsqrt(var[None, :, None, None] + 1e-5)
+
+
 def norm_act(x: torch.Tensor, act: str, norm: str = "instance") -> torch.Tensor:
     """Norm + activation of an NCHW tensor (reference ``_norm_act``):
-    instance norm through K-in, the stateless batch norm, or none."""
+    instance norm through K-in, the stateless batch norm (over the global
+    batch when the rows are spread over several ranks), or none."""
     if norm == "instance":
         return to_nchw(instance_norm_act(to_nhwc(x), act=act))
     if norm == "batch":
-        mean = x.mean(dim=(0, 2, 3), keepdim=True)
-        var = torch.square(x - mean).mean(dim=(0, 2, 3), keepdim=True)
-        x = (x - mean) * torch.rsqrt(var + 1e-5)
+        x = batch_norm_global(x) if parallel.world() > 1 else batch_norm_local(x)
     elif norm != "none":
         raise NotImplementedError(f"norm {norm!r}")
     return _act(x, act)
@@ -108,21 +140,43 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout(p)``: in training each value is kept with
     probability 1 - p and scaled by 1 / (1 - p), else 0; the draw comes
     from ``generator`` (on the activations' device), which the model
-    sets; in eval mode the identity."""
+    sets; in eval mode the identity. ``rows`` (set by the model through
+    ``set_dropout_rows`` in a data-parallel run): (n, slice) when x holds
+    the rows ``slice`` of a global batch of n; the mask is then drawn for
+    the global batch and sliced, so it is the one-process run's."""
 
     def __init__(self, p: float = 0.5, generator: torch.Generator | None = None):
         super().__init__()
         self.p = p
         self.generator = generator
+        self.rows: tuple | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in training draws from the model's generator; none is set")
-        # drawn in x's memory layout, so the result keeps it
-        keep = torch.empty_like(x).uniform_(generator=self.generator) >= self.p
+        if self.rows is None:
+            # drawn in x's memory layout, so the result keeps it
+            u = torch.empty_like(x)
+        else:
+            n, rows = self.rows
+            layout = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                      and not x.is_contiguous() else torch.contiguous_format)
+            u = torch.empty((n, *x.shape[1:]), dtype=x.dtype, device=x.device,
+                            memory_format=layout)
+        keep = u.uniform_(generator=self.generator) >= self.p
+        if self.rows is not None:
+            keep = keep[self.rows[1]]
         return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
+def set_dropout_rows(module: nn.Module, rows: tuple | None) -> None:
+    """Give each Dropout under ``module`` the rows its input holds of the
+    global batch ((n, slice); None: all of them)."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.rows = rows
 
 
 def dropout_generators(module: nn.Module) -> list:

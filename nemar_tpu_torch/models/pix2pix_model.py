@@ -19,13 +19,17 @@ uninterrupted one on either device type. The visuals' forward has dropout off (t
 JAX package's ``train=False``); batch norm keeps its batch statistics.
 
 The model computes in fp32 whatever --bf16 says, as the JAX package's,
-whose step never casts.
+whose step never casts. In a data-parallel run each rank takes its rows
+of the global batch, batch norm and dropout act on the global batch
+(``models/networks.py``), and D's and G's gradients are averaged over the
+ranks before each Adam step.
 """
 
 from __future__ import annotations
 
 import torch
 
+from nemar_tpu_torch import parallel
 from nemar_tpu_torch.models import networks
 from nemar_tpu_torch.models.base_model import BaseModel, dropout_seed, to_device_nchw
 
@@ -84,6 +88,7 @@ class Pix2PixModel(BaseModel):
         l_dr = networks.gan_loss(pred_real, True, self.gan_mode)
         l_df = networks.gan_loss(pred_fake, False, self.gan_mode)
         (0.5 * (l_df + l_dr)).backward()
+        parallel.all_reduce_grads(self.netD.parameters())
         opt_D.step()
 
         opt_G = self.optimizers["G"]
@@ -96,15 +101,22 @@ class Pix2PixModel(BaseModel):
         l_gan = networks.gan_loss(pred, True, self.gan_mode)
         l_l1 = torch.mean(torch.abs(fake_B - b)) * self.lambda_L1
         (l_gan + l_l1).backward()
+        parallel.all_reduce_grads(self.netG.parameters())
         opt_G.step()
         self._losses = {k: v.detach() for k, v in (
             ("G_GAN", l_gan), ("G_L1", l_l1), ("D_real", l_dr), ("D_fake", l_df))}
         self.step += 1
 
     def set_input(self, data: dict):
-        """data['A'], data['B']: NHWC float numpy batches."""
-        self.real_A = to_device_nchw(data["A"], self.device)
-        self.real_B = to_device_nchw(data["B"], self.device)
+        """data['A'], data['B']: NHWC float numpy batches, the global batch;
+        in a data-parallel run this rank keeps its rows (and the dropout
+        layers draw for the global batch)."""
+        n = len(data["A"])
+        data = parallel.shard_rows(data)
+        if parallel.world() > 1:
+            networks.set_dropout_rows(self.netG, (n, parallel.rows_in(n)))
+        self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
+        self.real_B = to_device_nchw(data["B"], self.device, self.dtype)
         self.image_paths = data.get("A_paths", [])
 
     def forward(self):

@@ -31,12 +31,20 @@ capture); the next is captured and then replayed (a capture executes
 nothing); the rest are replayed. Each step of a chunk is taken exactly
 once. A capture or a replay that fails raises: no step falls back to an
 eager one. On the CPU the same steps run eagerly on the same buffers.
+
+In a data-parallel run over NCCL the step's collectives (the gradients'
+all-reduces, the pool's gather) are captured with it and replayed; the
+communicator exists by then, made by the eager first step. gloo's
+collectives cannot be captured: a graph in a gloo group is refused, it
+does not fall back to eager steps.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from nemar_tpu_torch import parallel
 
 
 class Chunk:
@@ -112,6 +120,10 @@ class StepGraph:
     def run(self, model, chunk: Chunk, gan_scale: float, r_gate: float, graph: bool) -> dict:
         """A step on each batch of ``chunk`` -> the mean losses. ``graph``:
         the steps are replays of the captured step (the card)."""
+        if graph and parallel.backend() == "gloo":
+            raise NotImplementedError(
+                "--steps_per_execution on the card in a gloo process group: gloo's "
+                "collectives cannot be captured in a CUDA graph (run the ranks over NCCL)")
         self.gan_scale.fill_(gan_scale)
         self.r_gate.fill_(r_gate)
         for s in self.sums.values():

@@ -18,8 +18,12 @@ padding mode, ``_compute_source_coords``) in torch, then ``_sample_plain``
 ``_grid_sample_plain_bwd`` backward, from g to (d img, d grid). A CUDA
 tensor launches K-warp and K-warp-bwd (``ops/warp_cuda.py``), each from the
 normalised grid, with the coordinate transform and its derivative in the
-kernel. 'nearest' is plain torch on the CPU and raises on CUDA, where no
-path of the package uses it.
+kernel. 'nearest' is ``_GridSampleNearest`` on either device: the JAX
+package computes it in plain XLA, a rounded gather (ties to even), not in
+a Pallas kernel, so its counterpart here is the plain gather, with a
+deterministic VJP (d img summed by a sorted ``index_put_``, the same bits
+in every call on the card; d grid zero, as JAX's gradient of the
+rounding).
 
 The grid gradient follows the JAX package where a coordinate sits exactly
 on a limit of the padding mode's clip (the identity grid's edge pixels):
@@ -200,10 +204,8 @@ def _sample_plain(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
         return torch.gather(flat, 1, idx)
 
     if mode == "nearest":
-        # round half to even, as torch's grid_sample (std::nearbyint)
-        xi, yi = torch.round(x), torch.round(y)
-        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        vals = gather(xi.clamp(0, w - 1).long(), yi.clamp(0, h - 1).long())
+        idx, valid = _nearest_taps(h, w, x, y)
+        vals = torch.gather(flat, 1, idx[:, :, None].expand(n, gh * gw, c))
         zero = torch.zeros((), dtype=img.dtype, device=img.device)
         return torch.where(valid[..., None], vals, zero).reshape(n, gh, gw, c)
     if mode != "bilinear":
@@ -303,6 +305,54 @@ def grid_sample_plain(img: torch.Tensor, grid: torch.Tensor, mode: str = "biline
     return _sample_plain(img, x, y, mode)
 
 
+def _nearest_taps(h: int, w: int, x: torch.Tensor, y: torch.Tensor) -> tuple:
+    """(idx, valid), each (N, Ho*Wo): the flat source pixel of each output
+    of nearest sampling at pixel coords x, y (N, ...) in an h x w frame
+    (clipped into it) and whether it lies in the frame, as the JAX
+    package's ``_grid_sample_xla`` computes them."""
+    n = x.shape[0]
+    # round half to even, as torch's grid_sample (std::nearbyint) and jnp.round
+    xi, yi = torch.round(x).reshape(n, -1), torch.round(y).reshape(n, -1)
+    valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+    return yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long(), valid
+
+
+class _GridSampleNearest(torch.autograd.Function):
+    """Nearest sampling of img (N, H, W, C) at a normalised grid, on any
+    device, differentiable in img (first ``grad_channels`` channels); d
+    grid is zero. d img adds each output's g into its source pixel with
+    ``index_put_(accumulate=True)``, which sorts the indices and sums each
+    pixel's terms in that order (on CUDA too): no float atomics."""
+
+    @staticmethod
+    def forward(ctx, img, grid, padding_mode, align_corners, grad_channels):
+        n, h, w, c = img.shape
+        x, y = _pixel_coords(img, grid, padding_mode, align_corners)
+        ctx.save_for_backward(*_nearest_taps(h, w, x, y))
+        ctx.conf = (img.shape, grad_channels, grid.shape, grid.dtype)
+        return _sample_plain(img, x, y, "nearest")
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        idx, valid = ctx.saved_tensors
+        (n, h, w, c), gc, grid_shape, grid_dtype = ctx.conf
+        dimg = dgrid = None
+        if ctx.needs_input_grad[0]:
+            g = g.reshape(n, -1, c)[..., :gc]
+            # out of frame, nothing (not g * 0, which is NaN for g = inf)
+            contrib = torch.where(valid[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                                   device=g.device))
+            base = torch.arange(n, device=idx.device)[:, None] * (h * w)
+            acc = torch.zeros((n * h * w, gc), dtype=g.dtype, device=g.device)
+            acc.index_put_(((base + idx).reshape(-1),), contrib.reshape(-1, gc), accumulate=True)
+            pad = torch.zeros((n * h * w, c - gc), dtype=g.dtype, device=g.device)
+            dimg = torch.cat([acc, pad], dim=1).reshape(n, h, w, c)
+        if ctx.needs_input_grad[1]:
+            dgrid = torch.zeros(grid_shape, dtype=grid_dtype, device=idx.device)
+        return dimg, dgrid, None, None, None
+
+
 class _GridSample(torch.autograd.Function):
     """Bilinear zeros-padded sampling of img at a normalised grid (after the
     padding mode's coordinate transform), differentiable in img (first
@@ -337,8 +387,8 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
                 grad_channels: int = -1) -> torch.Tensor:
     """Sample ``img`` (N, H, W, C) at ``grid`` (N, Ho, Wo, 2) locations.
 
-    CPU tensors take the plain gather; CUDA tensors the kernels K-warp and
-    K-warp-bwd (bilinear only). ``grad_channels >= 0`` limits d img to the
+    Bilinear: CPU tensors take the plain gather; CUDA tensors the kernels
+    K-warp and K-warp-bwd. Nearest: the plain gather on either device. ``grad_channels >= 0`` limits d img to the
     first channels (exact zeros for the rest); -1 means all. A bf16 image is
     sampled through an fp32 copy and the output cast back to bf16, each
     cast counted on ``grid_sample.casts``.
@@ -358,18 +408,17 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, mode: str = "bilinear",
         raise ValueError(f"unknown padding_mode: {padding_mode!r}")
     if not img.is_cuda and img.device.type != "cpu":
         raise ValueError(f"grid_sample: unsupported device {img.device}")
+    c = img.shape[-1]
+    gc = c if grad_channels < 0 else min(grad_channels, c)
+    if mode == "nearest":
+        return _GridSampleNearest.apply(img, grid, padding_mode, align_corners, gc)
     if mode != "bilinear":
-        if img.is_cuda:
-            raise NotImplementedError(
-                f"grid_sample mode {mode!r} has no CUDA kernel; the CUDA path samples bilinearly")
-        return grid_sample_plain(img, grid, mode, padding_mode, align_corners)
+        raise ValueError(f"unknown mode: {mode!r}")
     if grid.dtype != torch.float64:
         grid = grid.float()
     if img.is_cuda:
         img, grid = img.contiguous(), grid.contiguous()
-    c = img.shape[-1]
-    return _GridSample.apply(img, grid, padding_mode, align_corners,
-                             c if grad_channels < 0 else min(grad_channels, c))
+    return _GridSample.apply(img, grid, padding_mode, align_corners, gc)
 
 
 grid_sample.casts = 0

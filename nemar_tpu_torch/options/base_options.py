@@ -10,15 +10,21 @@ The flag surface (names, defaults, help) is the JAX package's
 means the same to both packages. Differences:
   * ``--model`` resolves in ``nemar_tpu_torch.models`` and
     ``--dataset_mode`` in ``nemar_tpu_torch.data``;
-  * ``--gpu_ids`` picks the device: ``-1`` is the CPU, ``k`` is ``cuda:k``
-    (``models/base_model.py:resolve_device``);
+  * ``--gpu_ids`` picks the devices: ``-1`` is the CPU, ``k`` is ``cuda:k``
+    (``models/base_model.py:resolve_device``); several ids are the world of
+    a data-parallel training run, one process per device
+    (``nemar_tpu_torch/parallel``), of which ``--num_devices N`` keeps the
+    first N (-1: all), as the JAX package's ``make_mesh`` keeps
+    ``devs[:num_devices]``; ``--gpu_ids -1 --num_devices N`` runs N ranks
+    on the CPU (gloo), the counterpart of the JAX package's --num_devices on
+    its virtual CPU devices;
   * ``--bf16`` runs the forward in bfloat16 with fp32 parameters, as the
     JAX package's (``models/base_model.py``, ``models/nemar_model.py``);
     the flags of the paths not ported yet are parsed and refused by the
     model by name, with the ROADMAP.md item that queues them
     (``models/nemar_model.py:_check_supported``);
   * the TPU-only flags that name a layout or an implementation of one
-    function (``--num_devices``, ``--warp_impl``, ``--norm_impl``,
+    function (``--warp_impl``, ``--norm_impl``,
     ``--block_impl``, ``--c7_impl``, ``--stn_head_impl``, ``--stn_up_impl``,
     ...) are accepted: every choice runs the same kernels here;
   * ``--profile_dir`` writes a ``torch.profiler`` trace of the training
@@ -209,9 +215,12 @@ class BaseOptions:
 
         self.print_options(opt)
 
-        # "-1" (or nothing) -> [] = the CPU; "k" -> [k] = cuda:k
+        # "-1" (or nothing) -> [] = the CPU; "k" -> [k] = cuda:k; "j,k" ->
+        # [j, k], of which --num_devices N > 0 keeps the first N
         str_ids = opt.gpu_ids.split(",")
         opt.gpu_ids = [int(s) for s in str_ids if s.strip() not in ("", "-1")]
+        if opt.num_devices > 0:
+            opt.gpu_ids = opt.gpu_ids[:opt.num_devices]
 
         self.opt = opt
         return opt

@@ -16,7 +16,10 @@ dataset has ground truth) to ``eval.json``, for a model that registers
 summary, as the JAX package's ``test.py``). With ``--use_ema`` the forward
 runs through the EMA shadows of G and R that a ``--ema_decay`` training run
 saved beside the nets (``{epoch}_net_{G,R}_ema.pth``). ``--gpu_ids -1`` runs
-on the CPU.
+on the CPU. Under several ids (``--gpu_ids 0,1``) it serves on the first,
+in one process: the JAX package's mesh replicates test.py's batch of 1,
+which no data axis of two or more divides (``nemar_tpu/parallel/mesh.py:
+shard_batch``), so every device computes the same outputs as one.
 """
 
 import json

@@ -39,6 +39,8 @@ def _imports(path: Path) -> list:
 def test_the_scan_sees_the_files():
     assert len(FILES) > 20
     assert any(p.name == "chip_smoke.py" for p in FILES)
+    # the data-parallel layer is among them
+    assert REPO / "nemar_tpu_torch" / "parallel" / "__init__.py" in FILES
     # the scan finds what it is looking for: the JAX package's own options
     # import nemar_tpu modules
     assert any(m.split(".")[0] == "nemar_tpu"
