@@ -257,6 +257,22 @@ is not 0.
      after each of GLOO_STEPS steps, the first step within phase 6's
      limits of the one-process step on the card (``step_against_cpu``),
      ms a step of each rank.
+  19. the image height in bands over two ranks (``--mesh_spatial 2``; two
+     ranks sharing cuda:0 over gloo, one spatial group, ``run_spatial``):
+     in each rank, ``[spatial_kernels]``: each kernel's band form (K-in,
+     K-in-bwd, K-block, K-block-bwd, K-convt, K-convt-bwd, K-head,
+     K-head-bwd, K-warp, K-warp-bwd) on the card against its plain band
+     form on the card (the plain ops with the same exchanges) at the band
+     shapes of the 256^2 b8 step, within the kernel's TOL, and bit for bit
+     in two calls; then one b1 request, which gathers the frames, within
+     the inference limit (1e-3) of the one-process request; then
+     SPATIAL_STEPS b8 steps from phase 6's shared state: the ranks' states
+     bit-identical after each, the first step within phase 6's limits of
+     the one-process step (``_hold_two_ranks``), each kernel's launches per
+     rank per step (the band forms' calls and their stages:
+     SPATIAL_STEP_LAUNCHES), ms a step per rank, and each rank's peak
+     allocated memory over its first step beside the one-process step's,
+     with the bytes each step saves for its backwards (``saved_bytes``).
 
 The smoke's total time is printed (``[total]``) before the device lines.
 The line before the last is a JSON object with one entry per kernel. For a
@@ -4415,6 +4431,22 @@ NCCL_TIMEOUT = 900.0  # seconds, the launch and each collective
 # with the one-process step, every one's state held equal across the ranks)
 GLOO_STEPS = 3
 GLOO_PIX2PIX_BATCH = 2
+# phase 19: --mesh_spatial 2, two ranks on cuda:0
+SPATIAL = 2
+SPATIAL_STEPS = 3
+# launches per step and rank of the band step (every rank runs every layer
+# on its band): the kernels that run as they are (K-head on the band with
+# its halo rows, K-warp from the gathered frames) phase 5's counts, the
+# one-process launchers of the kernels that have a band form none
+SPATIAL_STEP_LAUNCHES = {"K-block": 0, "K-warp": 1, "K-in": 0, "K-head": 2, "K-convt": 0,
+                         "K-block-bwd": 0, "K-warp-bwd": 1, "K-in-bwd": 0, "K-head-bwd": 2,
+                         "K-convt-bwd": 0}
+# the band forms: (calls, stage launches) per step and rank, one call where
+# phase 5's step makes one (STEP_LAUNCHES): K-in 2 stages a call (partials,
+# merge + apply), K-block 4 (conv1, stats, conv2, residual), K-block-bwd 5,
+# K-convt 2, K-convt-bwd 3; each stage's launcher is a few kernels
+SPATIAL_BAND_STEP = {"K-in": (22, 44), "K-in-bwd": (22, 44), "K-block": (12, 48),
+                     "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12)}
 
 
 def fp32_only() -> None:
@@ -4716,6 +4748,290 @@ def run_gloo_two_ranks(ckpt: str) -> None:
                     nets={"G": "G", "D": "D"}, skip=skip)
 
 
+def band_counters() -> dict:
+    """{kernel: (its band form's call counter, its stage counter)}: the
+    launchers' ``.launches`` and ``.stages`` (K-in's two stages counted on
+    their own wrappers)."""
+    from nemar_tpu_torch.ops import conv_fused, convt_fused, norm_cuda
+
+    return {"K-in": (norm_cuda.in_band_part_cuda, norm_cuda.in_band_apply_cuda),
+            "K-in-bwd": (norm_cuda.in_band_bwd_part_cuda, norm_cuda.in_band_bwd_apply_cuda),
+            "K-block": conv_fused.block_band_fwd_cuda,
+            "K-block-bwd": conv_fused.block_band_bwd_cuda,
+            "K-convt": convt_fused.convt_band_fwd_cuda,
+            "K-convt-bwd": convt_fused.convt_band_bwd_cuda}
+
+
+def zero_band_counters() -> None:
+    for c in band_counters().values():
+        for fn in (c if isinstance(c, tuple) else (c,)):
+            fn.launches = 0
+            if hasattr(fn, "stages"):
+                fn.stages = 0
+
+
+def read_band_counters() -> dict:
+    """{kernel: (calls, stage launches)} since ``zero_band_counters``."""
+    out = {}
+    for k, c in band_counters().items():
+        if isinstance(c, tuple):
+            out[k] = (c[0].launches, c[0].launches + c[1].launches)
+        else:
+            out[k] = (c.launches, c.stages)
+    return out
+
+
+def check_band_kernels() -> dict:
+    """Phase 19's ``[spatial_kernels]``, in a rank of the spatial group:
+    each kernel's band form on the card against its plain band form on
+    the card (the plain ops with the same exchanges), at the band shapes of
+    the 256^2 b8 step at s = 2, each rank its band of one seeded frame: the
+    output's max abs error, the input and weight gradients' (a seeded
+    upstream gradient; the weights' the band's shares) max error over the
+    largest reference value, the band form twice bit for bit, and the
+    forward's median event time (its exchanges and all-gathers included).
+    K-block-bwd's and K-convt-bwd's band forms take the plain forward's
+    saved values, as phase 2b's checks do: through autograd, the relu
+    masks of two fp32 forwards differ where a normalised value is within
+    roundoff of 0, which moves K-block's dx by up to 1.3e-2 of its largest
+    value at these shapes (measured on the card)."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm
+    from nemar_tpu_torch.ops.warp import grid_sample, grid_sample_plain, identity_grid
+    from nemar_tpu_torch.parallel import spatial
+
+    j = parallel.spatial_rank()
+    out = {}
+
+    def case(name, tol, tol_bwd, frames, weights, band, kern, plain, saved=None,
+             kern_bwd=None):
+        xs = [f.narrow(1, band.r0, band.rows).contiguous() for f in frames]
+        # the plain forward's saved values, once (cuDNN's transposed
+        # convolution is not deterministic outside the step's setting)
+        sv = saved(*xs, *weights) if saved is not None else None
+
+        def run(fn):
+            a = [x.clone().requires_grad_() for x in xs]
+            b = [w.clone().requires_grad_() for w in weights]
+            y = fn(*a, *b)
+            g = randn(card_rng(77), tuple(y.shape))
+            if kern_bwd is not None and fn is kern:
+                # the backward fed the plain forward's saved values, so both
+                # take the same relu masks (as phase 2b's checks)
+                grads = kern_bwd(*sv, g)
+            else:
+                grads = torch.autograd.grad(y, a + b, g)
+            torch.cuda.synchronize()
+            return [y.detach(), *grads]
+
+        got, again, ref = run(kern), run(kern), run(plain)
+        # each gradient's error, and the band's row of an input gradient's
+        # largest error
+        errs = [max_rel_err([a], [b]) for a, b in zip(got[1:], ref[1:])]
+        rows = [int(((a - b).abs().amax(dim=(0, 2, 3))).argmax())
+                for a, b in zip(got[1:1 + len(xs)], ref[1:1 + len(xs)])]
+        with torch.no_grad():
+            ms = median_ms(lambda: kern(*xs, *weights), iters=5, warmup=1)
+        out[name] = {"fwd_err": max_abs_err(got[:1], ref[:1]), "bwd_err": max(errs),
+                     "bwd_errs": errs, "worst_rows": rows, "tol": tol, "tol_bwd": tol_bwd,
+                     "bits": all(torch.equal(p, q) for p, q in zip(got, again)),
+                     "band": list(xs[0].shape), "ms": round(ms, 4)}
+
+    rng = card_rng(41)
+    frame = lambda *shape: randn(rng, shape)  # noqa: E731
+    b256 = spatial.Band.split(256, SPATIAL, j)
+    case("K-in", TOL["K-in"], TOL["K-in-bwd"], [frame(TRAIN_BATCH, 256, 256, 64)], [], b256,
+         lambda x: norm.instance_norm_act_band(x, b256, "relu"),
+         lambda x: norm.instance_norm_act_band(x, b256, "relu", plain=True))
+    # D's third normed conv: 31 rows in bands of 16 and 15
+    b31 = b256.conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 1, 1)[0]
+    case("K-in (D, 31 rows)", TOL["K-in"], TOL["K-in-bwd"], [frame(2 * TRAIN_BATCH, 31, 31, 512)],
+         [], b31, lambda x: norm.instance_norm_act_band(x, b31, "leaky_relu"),
+         lambda x: norm.instance_norm_act_band(x, b31, "leaky_relu", plain=True))
+    b64 = spatial.Band.split(64, SPATIAL, j)
+    case("K-block", TOL["K-block"], TOL["K-block-bwd"], [frame(TRAIN_BATCH, 64, 64, 256)],
+         [frame(3, 3, 256, 256) * 0.02, frame(3, 3, 256, 256) * 0.02], b64,
+         lambda x, w1, w2: conv_fused.fused_resblock_band(x, w1, w2, b64),
+         lambda x, w1, w2: conv_fused.resblock_band_plain(x, w1, w2, b64),
+         saved=lambda x, w1, w2: (w1, w2, *conv_fused.resblock_band_saved_plain(x, w1, w2, b64)),
+         kern_bwd=lambda *a: conv_fused.block_band_bwd_cuda(*a, b64))
+    b128 = spatial.Band.split(128, SPATIAL, j)
+    for hh, ci, co, band in ((64, 256, 128, b64), (128, 128, 64, b128)):
+        case(f"K-convt {ci}->{co}", TOL["K-convt"], TOL["K-convt-bwd"],
+             [frame(TRAIN_BATCH, hh, hh, ci)], [frame(3, 3, ci, co) * 0.02], band,
+             lambda x, w, band=band: convt_fused.fused_convt_in_band(x, w, band),
+             lambda x, w, band=band: convt_fused.convt_band_plain(x, w, band),
+             saved=lambda x, w, band=band: (lambda xp, yhat, st: (xp, w, yhat, st))(
+                 *convt_fused.convt_band_saved_plain(x, w, band)),
+             kern_bwd=lambda *a, band=band: convt_fused.convt_band_bwd_cuda(*a, band))
+    three = (3,) * SPATIAL
+    case("K-head", TOL["K-head"], TOL["K-head-bwd"], [frame(TRAIN_BATCH, 256, 256, 64)],
+         [frame(7, 7, 64, 3) * 0.02], b256,
+         lambda x, w: conv_head.conv_head_band(x, w, b256),
+         lambda x, w: conv_head.conv_head_plain(spatial.exchange_rows(
+             x, b256, three, three, dim=1, mode="reflect"), w)[:, 3:3 + b256.rows])
+    ident = identity_grid(256, 256, False, torch.float32, frame(1).device)[b256.r0:b256.r1][None]
+
+    def warp(sample):
+        return lambda img, flow: sample(spatial.gather_frame(img, b256, dim=1), ident + flow,
+                                        "bilinear", "zeros", False)
+
+    case("K-warp", TOL["K-warp"], TOL["K-warp-bwd"],
+         [frame(TRAIN_BATCH, 256, 256, 4), frame(TRAIN_BATCH, 256, 256, 2) * 0.02], [], b256,
+         warp(grid_sample), warp(grid_sample_plain))
+    return out
+
+
+@contextlib.contextmanager
+def saved_bytes():
+    """Inside, every CUDA tensor autograd saves for a backward is counted
+    once by its storage: -> a dict whose ``bytes`` holds the sum."""
+    seen = {}
+    out = {"bytes": 0}
+
+    def pack(t):
+        if t.is_cuda:
+            st = t.untyped_storage()
+            seen.setdefault(st.data_ptr(), st.nbytes())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        yield out
+    out["bytes"] = sum(seen.values())
+
+
+def _spatial_rank(args: list, request: dict, batches: list) -> dict:
+    """Phase 19 inside its rank (gloo, one spatial group of 2 on cuda:0):
+    ``check_band_kernels``; a model from phase 6's state answers the b1
+    request (the frames gathered on every rank) and takes a step on each
+    batch; -> the checks, rank 0's request visuals, per step the ms, the
+    state's digest, the launches (``launch_counters``, ``read_band_counters``)
+    and the spatial group's all-gathers (``spatial._gather.calls``),
+    the losses after the first and, at rank 0, the parameters and
+    gradients after the first (on the host), and the peak allocated memory
+    over the first step."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.models.base_model import state_digest, to_host
+    from nemar_tpu_torch.parallel import spatial
+
+    fp32_only()
+    parallel.set_mesh(SPATIAL)
+    out = {"kernels": check_band_kernels(), "rank": parallel.rank(), "ms": [], "digests": [],
+           "launches": [], "band_launches": [], "gathers": []}
+    model = train_model(args)
+    model.set_input(request)
+    model.test()
+    if parallel.rank() == 0:
+        out["request"] = dict(model.get_current_visuals())
+    for i, b in enumerate(batches):
+        counters = zero_counters()
+        zero_band_counters()
+        spatial._gather.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.set_input(b)
+        if i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        with saved_bytes() if i == 0 else contextlib.nullcontext() as saved:
+            model.optimize_parameters()
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out["memory"] = {"before": before, "peak": torch.cuda.max_memory_allocated(),
+                             "saved": saved["bytes"]}
+        out["launches"].append({k: fn.launches for k, fn in counters.items()})
+        out["band_launches"].append(read_band_counters())
+        out["gathers"].append(spatial._gather.calls)
+        out["digests"].append(state_digest(model))
+        losses = dict(model.get_current_losses())
+        if i == 0:
+            out["losses"] = losses
+            if parallel.rank() == 0:
+                out["params"] = {n: {k: to_host(p) for k, p in net.named_parameters()}
+                                 for n, net in model.nets().items()}
+                out["grads"] = {n: {k: to_host(p.grad) for k, p in net.named_parameters()}
+                                for n, net in model.nets().items()}
+    return out
+
+
+def run_spatial(ckpt: str) -> None:
+    """Phase 19: --mesh_spatial 2 over two ranks sharing cuda:0 (gloo): the
+    band forms' checks, the b1 request and SPATIAL_STEPS b8 steps from phase
+    6's shared state (``_spatial_rank``), held here against this process's
+    request and step on the card; the launches per rank and step; each
+    rank's peak memory over its first step beside the one-process step's."""
+    from nemar_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    args = [*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--continue_train", "--epoch", "smoke6",
+            "--gpu_ids", "0", "--batch_size", str(TRAIN_BATCH)]
+    request = request_batches(1, 1, seed=31)[0]
+    batches = request_batches(SPATIAL_STEPS, TRAIN_BATCH, seed=29)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_spatial_rank, [dev, dev], backend="gloo",
+                            args=([*args, "--mesh_spatial", str(SPATIAL)], request, batches),
+                            timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
+    phase("spatial", seconds=round(time.perf_counter() - t0, 2))
+    fails = []
+    for r in ranks:
+        for name, c in r["kernels"].items():
+            phase("spatial_kernels", rank=r["rank"], kernel=repr(name), **c)
+            if not (c["fwd_err"] <= c["tol"] and c["bwd_err"] <= c["tol_bwd"] and c["bits"]):
+                fails.append(f"rank {r['rank']} {name}: {c}")
+    for r in ranks:
+        for i, (got, band) in enumerate(zip(r["launches"], r["band_launches"])):
+            want = {k: v for k, v in SPATIAL_STEP_LAUNCHES.items()}
+            bad = {k: v for k, v in got.items() if v != want[k]}
+            bad.update({k: v for k, v in band.items() if tuple(v) != SPATIAL_BAND_STEP[k]})
+            if bad:
+                fails.append(f"rank {r['rank']} step {i}: launches {bad}")
+        phase("spatial_launches", rank=r["rank"], per_step=json.dumps(r["launches"][0]),
+              band_calls_stages_per_step=json.dumps(r["band_launches"][0]),
+              all_gathers_per_step=json.dumps(r["gathers"]))
+    # the request against this process's
+    m = train_model(args)
+    m.set_input(request)
+    m.test()
+    want = m.get_current_visuals()
+    req_err = max(float(np.abs(ranks[0]["request"][k] - want[k]).max()) for k in want)
+    phase("spatial_request", max_abs_err=req_err, tol=1e-3)
+    if not req_err <= 1e-3:
+        fails.append(f"the b1 request: {req_err}")
+    # the one-process step's peak memory over what was allocated before it
+    # (the model and its Adam state included there, and in a rank's
+    # ``before``), from the same state
+    del m
+    torch.cuda.synchronize()
+    empty = torch.cuda.memory_allocated()
+    m = train_model(args)
+    m.set_input(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with saved_bytes() as saved:
+        m.optimize_parameters()
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated() - before
+    del m
+    gib = 2.0**30
+    phase("spatial_memory", one_process_step_peak_over_before_gib=round(one_peak / gib, 3),
+          one_process_before_gib=round((before - empty) / gib, 3),
+          one_process_saved_for_backward_gib=round(saved["bytes"] / gib, 3),
+          **{f"rank{r['rank']}_saved_for_backward_gib": round(r["memory"]["saved"] / gib, 3)
+             for r in ranks},
+          **{f"rank{r['rank']}_step_peak_over_before_gib":
+             round((r["memory"]["peak"] - r["memory"]["before"]) / gib, 3) for r in ranks},
+          **{f"rank{r['rank']}_before_gib": round(r["memory"]["before"] / gib, 3)
+             for r in ranks},
+          **{f"rank{r['rank']}_peak_gib": round(r["memory"]["peak"] / gib, 3) for r in ranks})
+    if fails:
+        raise AssertionError("phase 19: " + "; ".join(fails))
+    _hold_two_ranks("spatial", args, batches[0], ranks, ("A",))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4802,7 +5118,8 @@ def main() -> int:
             fn(ckpt)
             phase(f"{tag}_phase", seconds=round(time.perf_counter() - t0, 2))
         run_step_graph_phases(ckpt)
-        for tag, fn in (("nccl_world1", run_nccl_world1), ("gloo_two_ranks", run_gloo_two_ranks)):
+        for tag, fn in (("nccl_world1", run_nccl_world1), ("gloo_two_ranks", run_gloo_two_ranks),
+                        ("spatial", run_spatial)):
             t0 = time.perf_counter()
             fn(ckpt)
             phase(f"{tag}_phase", seconds=round(time.perf_counter() - t0, 2))

@@ -103,9 +103,12 @@ __global__ void in_bwd_partial_kernel(const T* __restrict__ g, const T* __restri
 // t = k, k + 32, ..., and warp 0 adds the 32 warps' sums in warp order.
 constexpr int MG_LANES = 32, MG_WARPS = 32;
 
+// The band form (--mesh_spatial) merges every rank's partials, `ranks`
+// blocks `rank_stride` floats apart, warp k taking the entries k, k + 32, ...
+// of them in rank order; pixels is then the frame's.
 __global__ void __launch_bounds__(MG_LANES * MG_WARPS)
 in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means, int c, int tiles,
-                    int pixels) {
+                    int pixels, int ranks, long long rank_stride) {
   __shared__ double red[2][MG_WARPS][MG_LANES];
   const int lane = threadIdx.x % MG_LANES, warp = threadIdx.x / MG_LANES;
   const int b = blockIdx.y;
@@ -113,9 +116,10 @@ in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means, i
   const bool live = ch < c;
   const float* p = part + (size_t)b * tiles * 2 * c + ch;
   double s1 = 0.0, s2 = 0.0;
-  for (int t = warp; live && t < tiles; t += MG_WARPS) {
-    s1 += (double)p[(size_t)t * 2 * c];
-    s2 += (double)p[(size_t)t * 2 * c + c];
+  for (int e = warp; live && e < ranks * tiles; e += MG_WARPS) {
+    const float* q = p + (size_t)(e / tiles) * rank_stride + (size_t)(e % tiles) * 2 * c;
+    s1 += (double)q[0];
+    s2 += (double)q[c];
   }
   red[0][warp][lane] = s1;
   red[1][warp][lane] = s2;
@@ -179,7 +183,10 @@ __global__ void in_bwd_apply_kernel(const T* __restrict__ g, const T* __restrict
 // 4. dW partials: part[s][tap*Ci + ci][co] = sum over the pixels p of split
 // s of x[b, i + dy, j + dx, ci] * dz[b, 2i + py, 2j + px, co]
 // ---------------------------------------------------------------------------
-template <int kTN>
+// kBand (the band form): x holds each sample's H + 1 rows, the halo row
+// above the band first; dz each sample's 2H + 1 rows, the halo row below
+// the band last (never read here: the band's pixels' planes are its rows).
+template <int kTN, bool kBand = false>
 struct ConvtWgradOp {
   static constexpr bool kNormRelu = false;
   static constexpr int kTileN = kTN;  // output channels per tile: 128 or 64
@@ -216,8 +223,9 @@ struct ConvtWgradOp {
       const int hw = h * w, b = p / hw, pix = p - b * hw;
       const int i = pix / w, j = pix - (pix / w) * w;
       const bool in = p < total;
-      xs = in && i + dy >= 0 && j + dx >= 0 ? (b * h + i + dy) * w + j + dx : -1;
-      zs = in ? (b * 2 * h + 2 * i + py) * 2 * w + 2 * j + px : -1;
+      constexpr int hb = kBand ? 1 : 0;
+      xs = in && i + dy + hb >= 0 && j + dx >= 0 ? (b * (h + hb) + i + dy + hb) * w + j + dx : -1;
+      zs = in ? (b * (2 * h + hb) + 2 * i + py) * 2 * w + 2 * j + px : -1;
     }
     const bool cin = ci0 + col < ci, nin = n0 + col < co;
 #pragma unroll
@@ -256,7 +264,10 @@ __global__ void split_sum_kernel(const float4* __restrict__ part, T* __restrict_
 // ---------------------------------------------------------------------------
 // 6. dx[p, ci] = sum_{tap, co} dz[b, 2i + 2 - ky, 2j + 2 - kx, co] * w[tap][ci][co]
 // ---------------------------------------------------------------------------
-template <int kTN>
+// kBand (the band form): dz holds each sample's 2H + 1 rows, the halo row
+// below the band last (zeros at the frame's bottom), so output row 2i + 2
+// of the band's last input row is read from it.
+template <int kTN, bool kBand = false>
 struct ConvtDgradOp {
   static constexpr bool kNormRelu = false;
   static constexpr bool kTileStats = false;
@@ -282,7 +293,7 @@ struct ConvtDgradOp {
     for (int i = 0; i < CHUNKS; ++i) {
       const int p = m0 + tc::kmajor_row(tid, i);
       const int b = p / hw, pix = p - b * hw, u = pix / w;
-      rbase[i] = 4 * b * hw;
+      rbase[i] = kBand ? b * (2 * h + 1) * 2 * w : 4 * b * hw;
       rij[i] = p < total ? (u << 16) | (pix - u * w) : 0x7fff0000;
     }
   }
@@ -295,7 +306,7 @@ struct ConvtDgradOp {
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const int oi = 2 * (rij[i] >> 16) + 2 - ky, oj = 2 * (rij[i] & 0xffff) + 2 - kx;
-      const bool valid = cin && oi < 2 * h && oj < 2 * w;
+      const bool valid = cin && oi < 2 * h + (kBand ? 1 : 0) && oj < 2 * w;
       cp_async16(tc::kmajor_at(As, tc::kmajor_row(tid, i), kc),
                  valid ? dz + (size_t)(rbase[i] + oi * 2 * w + oj) * co + c : dz, valid);
     }
@@ -316,10 +327,10 @@ struct ConvtDgradOp {
   }
 };
 
-template <int kTN>
+template <int kTN, bool kBand = false>
 cudaError_t wgrad(const float* x, const float* dz, float* part, int h, int w, int ci, int co,
                   int total, int splits, int pix_per_split, cudaStream_t stream) {
-  ConvtWgradOp<kTN> op;
+  ConvtWgradOp<kTN, kBand> op;
   op.x = x;
   op.dz = dz;
   op.part = part;
@@ -335,10 +346,10 @@ cudaError_t wgrad(const float* x, const float* dz, float* part, int h, int w, in
       stream);
 }
 
-template <int kTN>
+template <int kTN, bool kBand = false>
 cudaError_t dgrad(const float* dz, const float* wsplit, float* dx, int h, int w, int ci, int co,
                   int total, cudaStream_t stream) {
-  ConvtDgradOp<kTN> op;
+  ConvtDgradOp<kTN, kBand> op;
   op.dz = dz;
   op.wbig = wsplit;
   op.wsmall = wsplit + (size_t)9 * ci * co;
@@ -523,7 +534,8 @@ extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* y
                           stream>>>(g, yhat, part_in, pixels, co, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
-                        MG_LANES * MG_WARPS, 0, stream>>>(part_in, means, co, tiles, pixels);
+                        MG_LANES * MG_WARPS, 0, stream>>>(part_in, means, co, tiles, pixels, 1,
+                                                          0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = (long long)pixels * co;
   const long long total4 = n * per_sample / 4;
@@ -566,7 +578,8 @@ extern "C" int nemar_convt_in_bwd_bf16(const bf16* x, const bf16* w, const bf16*
                           stream>>>(g, yhat, part_in, pixels, co, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
-                        MG_LANES * MG_WARPS, 0, stream>>>(part_in, means, co, tiles, pixels);
+                        MG_LANES * MG_WARPS, 0, stream>>>(part_in, means, co, tiles, pixels, 1,
+                                                          0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = (long long)pixels * co;
   const long long total4 = n * per_sample / 4;
@@ -586,4 +599,67 @@ extern "C" int nemar_convt_in_bwd_bf16(const bf16* x, const bf16* w, const bf16*
   const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;
   return (int)(narrow ? dgrad16<64>(dz, w, dx, h, w_, ci, co, total, stream)
                       : dgrad16<128>(dz, w, dx, h, w_, ci, co, total, stream));
+}
+
+// ---------------------------------------------------------------------------
+// The band form (--mesh_spatial; ops/convt_fused.py:convt_band_bwd_cuda):
+// the backward over this rank's band, x's band xp (N, H + 1, W, Ci) with its
+// halo row above, as the forward read it. Three launchers: the IN
+// backward's partials; then, from every rank's partials (ranks, N * tiles,
+// 2, Co), the frame's means, dz and W's split; then, given dz with its halo
+// row from below (dzp, N, 2H + 1, 2W, Co: the rank below's first row, zeros
+// at the frame's bottom), dW's partials and sum (the band's share) and dx.
+// ---------------------------------------------------------------------------
+extern "C" int nemar_convt_band_bwd_part(const float* g, const float* yhat, float* part, int n,
+                                         int h, int w_, int co, cudaStream_t stream) {
+  const int pixels = 4 * h * w_;
+  const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
+  in_bwd_partial_kernel<<<dim3((unsigned)(n * tiles), (unsigned)((co + 127) / 128)), 128, 0,
+                          stream>>>(g, yhat, part, pixels, co, tiles);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nemar_convt_band_bwd_dz(const float* parts, float* means, const float* g,
+                                       const float* yhat, const float* stats, float* dz,
+                                       const float* w, float* wsplit, int ranks, int n, int h,
+                                       int w_, int ci, int co, cudaStream_t stream) {
+  const int pixels = 4 * h * w_;
+  const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
+  in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
+                        MG_LANES * MG_WARPS, 0, stream>>>(parts, means, co, tiles, pixels * ranks,
+                                                          ranks, (long long)n * tiles * 2 * co);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long per_sample = (long long)pixels * co;
+  const long long total4 = n * per_sample / 4;
+  const int apply_blocks = (int)((total4 + 255) / 256);
+  const long long w4 = (long long)9 * ci * co / 4;
+  in_bwd_apply_kernel<<<(unsigned)(apply_blocks + (w4 + 255) / 256), 256, 0, stream>>>(
+      g, yhat, stats, means, dz, total4, per_sample, co, apply_blocks,
+      reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), w4);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nemar_convt_band_bwd_dx(const float* xp, const float* dzp, const float* wsplit,
+                                       float* part_w, float* dw, float* dx, int n, int h, int w_,
+                                       int ci, int co, int splits, int pix_per_split,
+                                       cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int total = n * h * w_;
+  err = co <= 64
+            ? wgrad<64, true>(xp, dzp, part_w, h, w_, ci, co, total, splits, pix_per_split, stream)
+            : wgrad<128, true>(xp, dzp, part_w, h, w_, ci, co, total, splits, pix_per_split,
+                               stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long w4 = (long long)9 * ci * co / 4;
+  split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(part_w), dw, w4, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;
+  err = narrow ? dgrad<64, true>(dzp, wsplit, dx, h, w_, ci, co, total, stream)
+               : dgrad<128, true>(dzp, wsplit, dx, h, w_, ci, co, total, stream);
+  return (int)err;
 }

@@ -83,8 +83,10 @@ __device__ __forceinline__ void parity_tap(int parity, int t, int& k, int& d) {
 
 // y[b, 2i + py, 2j + px, co] = sum over the plane's taps and ci of
 // x[b, i + dy, j + dx, ci] * W[ky, kx, ci, co] (0 off the frame); the
-// tile's per-column (mean, M2) to part.
-template <int kTN>
+// tile's per-column (mean, M2) to part. kHp (the band form): x holds each
+// sample's H + 1 rows, the halo row above the band first, so row i + dy of
+// the band is x's row i + dy + 1, never off the frame.
+template <int kTN, bool kHp = false>
 struct ConvtFwdOp {
   static constexpr bool kNormRelu = false;
   static constexpr bool kTileStats = true;
@@ -96,6 +98,7 @@ struct ConvtFwdOp {
   float* y;
   float* part;
   int n, h, w, ci, co, tiles, cotiles;
+  static constexpr int hp = kHp ? 1 : 0;
   // per thread: the tile, and for its A rows i << 16 | j (-1 past the plane)
   int b, plane, py, px, tile, m0, n0, kc, spt, ntx, rows;
   int rij[CHUNKS];
@@ -133,10 +136,10 @@ struct ConvtFwdOp {
     parity_tap(py, t / ntx, ky, dy);
     parity_tap(px, t - (t / ntx) * ntx, kx, dx);
     const bool cin = c < ci;
-    const float* xb = x + (size_t)b * h * w * ci;
+    const float* xb = x + (size_t)b * (h + hp) * w * ci;
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
-      const int ii = (rij[i] >> 16) + dy, jj = (rij[i] & 0xffff) + dx;
+      const int ii = (rij[i] >> 16) + dy + hp, jj = (rij[i] & 0xffff) + dx;
       const bool valid = cin && rij[i] >= 0 && ii >= 0 && jj >= 0;
       cp_async16(tc::kmajor_at(As, tc::kmajor_row(tid, i), kc),
                  valid ? xb + ((size_t)ii * w + jj) * ci + c : x, valid);
@@ -200,9 +203,14 @@ __global__ void split_transpose_kernel(const float* __restrict__ w, float* __res
 // the order of every sum is fixed.
 constexpr int ST_LANES = 32, ST_WARPS = 32;
 
+//
+// The band form (--mesh_spatial) merges every rank's partials, `ranks`
+// blocks of N * 4 * tiles partials `rank_stride` floats apart: warp k then
+// takes the entries t = k, k + 32, ... of the ranks' partials in rank order
+// (every band of one height: hw the band's).
 __global__ void __launch_bounds__(ST_LANES * ST_WARPS)
 convt_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, int c, int tiles,
-                   int hw, float eps) {
+                   int hw, float eps, int ranks, long long rank_stride) {
   __shared__ double red[ST_WARPS][ST_LANES];
   __shared__ double mean_s[ST_LANES];
   const int lane = threadIdx.x % ST_LANES, warp = threadIdx.x / ST_LANES;
@@ -211,22 +219,28 @@ convt_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, in
   const bool live = ch < c;
   const float* p = part + (size_t)b * 4 * tiles * 2 * c + ch;
   const int per_sample = 4 * tiles;
+  const int entries = ranks * per_sample;
+  const double pixels = 4.0 * (double)hw * (double)ranks;
+  // entry e: partial t = e % per_sample of rank e / per_sample
+  auto at = [&](int e) {
+    return p + (size_t)(e / per_sample) * rank_stride + (size_t)(e % per_sample) * 2 * c;
+  };
   double s = 0.0;
-  for (int t = warp; live && t < per_sample; t += ST_WARPS)
-    s += (double)min(BM, hw - (t % tiles) * BM) * (double)p[(size_t)t * 2 * c];
+  for (int e = warp; live && e < entries; e += ST_WARPS)
+    s += (double)min(BM, hw - (e % per_sample % tiles) * BM) * (double)at(e)[0];
   red[warp][lane] = s;
   __syncthreads();
   if (warp == 0) {
     double m = 0.0;
     for (int k = 0; k < ST_WARPS; ++k) m += red[k][lane];
-    mean_s[lane] = m / (4.0 * (double)hw);
+    mean_s[lane] = m / pixels;
   }
   __syncthreads();
   const double mean = mean_s[lane];
   double m2 = 0.0;
-  for (int t = warp; live && t < per_sample; t += ST_WARPS) {
-    const double d = (double)p[(size_t)t * 2 * c] - mean;
-    m2 += (double)p[(size_t)t * 2 * c + c] + (double)min(BM, hw - (t % tiles) * BM) * d * d;
+  for (int e = warp; live && e < entries; e += ST_WARPS) {
+    const double d = (double)at(e)[0] - mean;
+    m2 += (double)at(e)[c] + (double)min(BM, hw - (e % per_sample % tiles) * BM) * d * d;
   }
   red[warp][lane] = m2;
   __syncthreads();
@@ -235,7 +249,7 @@ convt_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, in
     for (int k = 0; k < ST_WARPS; ++k) q += red[k][lane];
     float* st = stats + (size_t)b * 2 * c + ch;
     st[0] = (float)mean;
-    st[c] = (float)(1.0 / sqrt(q / (4.0 * (double)hw) + (double)eps));
+    st[c] = (float)(1.0 / sqrt(q / pixels + (double)eps));
   }
 }
 
@@ -262,10 +276,10 @@ __global__ void convt_apply_kernel(const float4* y, const float* __restrict__ st
 }
 
 // 2
-template <int kTN>
+template <int kTN, bool kHp = false>
 cudaError_t planes(const float* x, const float* wsplit, float* y, float* part, int n, int h, int w,
                    int ci, int co, int tiles, cudaStream_t stream) {
-  ConvtFwdOp<kTN> op;
+  ConvtFwdOp<kTN, kHp> op;
   op.x = x;
   op.wbig = wsplit;
   op.wsmall = wsplit + (size_t)9 * co * ci;
@@ -419,7 +433,7 @@ extern "C" int nemar_convt_in_fwd(const float* x, const float* w, float* wsplit,
                : planes<128>(x, wsplit, yhat, part, n, h, w_, ci, co, tiles, stream);
   if (err != cudaSuccess) return (int)err;
   convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
-                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, hw, eps);
+                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, hw, eps, 1, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = 4LL * hw * co;
   const long long total4 = n * per_sample / 4;
@@ -448,11 +462,54 @@ extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, bf16* wt, f
                : planes16<128>(x, wt, y, part, n, h, w_, ci, co, tiles, stream);
   if (err != cudaSuccess) return (int)err;
   convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
-                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, hw, eps);
+                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, hw, eps, 1, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = 4LL * hw * co;
   const long long total4 = n * per_sample / 4;
   convt_apply_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(y), stats, yhat, out, total4, per_sample, co);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The band form (--mesh_spatial; ops/convt_fused.py:convt_band_fwd_cuda):
+// xp (N, H + 1, W, Ci) is this rank's band with its halo row above (zeros
+// at the frame's top); y, yhat, out (N, 2H, 2W, Co) the band of the output
+// frame. Two launchers, the caller all-gathering the tile partials between
+// them: the split and the four planes' GEMMs over xp; then the frame's
+// (mu, rstd) from every rank's partials (ranks, N * 4 * tiles, 2, Co) and
+// the apply.
+// ---------------------------------------------------------------------------
+extern "C" int nemar_convt_band_planes(const float* xp, const float* w, float* wsplit, float* y,
+                                       float* part, int n, int h, int w_, int ci, int co,
+                                       cudaStream_t stream) {
+  const int tiles = (h * w_ + BM - 1) / BM;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  split_transpose_kernel<<<dim3((unsigned)((co + 31) / 32), (unsigned)((ci + 31) / 32), 9),
+                           dim3(32, 8), 0, stream>>>(w, wsplit, ci, co);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bool narrow = co <= 64 || 4LL * n * tiles * ((co + 127) / 128) < sms;
+  err = narrow ? planes<64, true>(xp, wsplit, y, part, n, h, w_, ci, co, tiles, stream)
+               : planes<128, true>(xp, wsplit, y, part, n, h, w_, ci, co, tiles, stream);
+  return (int)err;
+}
+
+extern "C" int nemar_convt_band_apply(const float* parts, float* stats, float* yhat, float* out,
+                                      int ranks, int n, int h, int w_, int co, float eps,
+                                      cudaStream_t stream) {
+  const int hw = h * w_;
+  const int tiles = (hw + BM - 1) / BM;
+  convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
+                       ST_LANES * ST_WARPS, 0, stream>>>(parts, stats, co, tiles, hw, eps, ranks,
+                                                         (long long)n * 4 * tiles * 2 * co);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long per_sample = 4LL * hw * co;
+  const long long total4 = n * per_sample / 4;
+  convt_apply_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(yhat), stats, yhat, out, total4, per_sample, co);
   return (int)cudaGetLastError();
 }

@@ -228,8 +228,10 @@ struct DgradOp {
 // k is the 32 pixels from (k % kps) * 32 of sample k / kps (kps = ceil(H*W /
 // 32) a sample; rows past the sample are zeros, which only kTail, H*W not a
 // multiple of 32, has to mask). Split s takes the K slices [s T / S, (s + 1)
-// T / S) of the T = N * kps.
-template <bool kNorm, bool kTail>
+// T / S) of the T = N * kps. kHp (the band form): src holds each sample's
+// H + 2 rows, its halo rows already in place, read at row u + dy (only W is
+// reflected).
+template <bool kNorm, bool kTail, bool kHp = false>
 struct WgradOp {
   static constexpr bool kNormRelu = kNorm;
   static constexpr int kTileN = BN;
@@ -240,6 +242,10 @@ struct WgradOp {
   int h, w, c, kps, ktiles_total, splits;
   // per thread
   int m0, n0, ci0, dy, dx, kt0, nkt, col;
+
+  // the source row of output row u at tap row dy, and a sample's source rows
+  __device__ int src_row(int u) const { return kHp ? u + dy : reflect(u + dy - 1, h); }
+  __device__ int src_rows() const { return kHp ? h + 2 : h; }
 
   __device__ void setup(int tid) {
     m0 = blockIdx.x * BM;  // 128 rows (tap, ci) of one tap: C % 128 == 0
@@ -266,7 +272,7 @@ struct WgradOp {
         const int p = p0 + kw + 8 * (tid & 3);
         const int b = p / hw, pix = p - b * hw;
         const int u = pix / w, v = pix - u * w;
-        src_pix = (b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
+        src_pix = (b * src_rows() + src_row(u)) * w + reflect(v + dx - 1, w);
       }
 #pragma unroll
       for (int i = 0; i < CHUNKS; ++i) {
@@ -282,7 +288,7 @@ struct WgradOp {
       {
         const int pix = q0 + kw + 8 * (tid & 3);
         const int u = pix / w, v = pix - u * w;
-        src_pix = pix < hw ? (b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w) : -1;
+        src_pix = pix < hw ? (b * src_rows() + src_row(u)) * w + reflect(v + dx - 1, w) : -1;
       }
       const float* dzb = dz + ((size_t)b * hw + q0) * c + n0 + col;
 #pragma unroll
@@ -379,10 +385,13 @@ __global__ void in_bwd_partial_kernel(const InG<kStage, T>* __restrict__ gsrc,
 // means (N, 2, C) = (mean(gv), mean(gv * yhat)): fixed-order fp64 merge.
 // Blocks past merge_blocks split the weights w1, w2 (w4 float4s each) into
 // wsplit = (w1 big, w1 small, w2 big, w2 small), for the dgrads' B operand.
+// The band form (--mesh_spatial) merges every rank's partials, `ranks`
+// blocks `rank_stride` floats apart, rank by rank; hw is then the frame's.
 __global__ void in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means,
                                     int n, int c, int tiles, int hw, int merge_blocks,
                                     const float4* __restrict__ w1, const float4* __restrict__ w2,
-                                    uint4* __restrict__ wsplit, long long w4) {
+                                    uint4* __restrict__ wsplit, long long w4, int ranks,
+                                    long long rank_stride) {
   if ((int)blockIdx.x >= merge_blocks) {
     const long long i = (long long)(blockIdx.x - merge_blocks) * blockDim.x + threadIdx.x;
     if (i >= 2 * w4) return;
@@ -401,11 +410,13 @@ __global__ void in_bwd_merge_kernel(const float* __restrict__ part, float* __res
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * c) return;
   const int b = idx / c, ch = idx - b * c;
-  const float* p = part + (size_t)b * tiles * 2 * c + ch;
   double s1 = 0.0, s2 = 0.0;
-  for (int t = 0; t < tiles; ++t) {
-    s1 += (double)p[(size_t)t * 2 * c];
-    s2 += (double)p[(size_t)t * 2 * c + c];
+  for (int r = 0; r < ranks; ++r) {
+    const float* p = part + (size_t)r * rank_stride + (size_t)b * tiles * 2 * c + ch;
+    for (int t = 0; t < tiles; ++t) {
+      s1 += (double)p[(size_t)t * 2 * c];
+      s2 += (double)p[(size_t)t * 2 * c + c];
+    }
   }
   float* m = means + (size_t)b * 2 * c + ch;
   m[0] = (float)(s1 / hw);
@@ -492,7 +503,7 @@ cudaError_t in_bwd(const InG<kStage, T>* gsrc, const InY<kStage, T>* y, const fl
   const long long w4 = w1 ? (long long)9 * c * c / 4 : 0;
   in_bwd_merge_kernel<<<(unsigned)(merge_blocks + (2 * w4 + 255) / 256), 256, 0, stream>>>(
       part, means, n, c, tiles, hw, merge_blocks, reinterpret_cast<const float4*>(w1),
-      reinterpret_cast<const float4*>(w2), reinterpret_cast<uint4*>(wsplit), w4);
+      reinterpret_cast<const float4*>(w2), reinterpret_cast<uint4*>(wsplit), w4, 1, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long total4 = (long long)n * hw * c / 4;
   in_bwd_apply_kernel<kStage, T><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
@@ -501,10 +512,10 @@ cudaError_t in_bwd(const InG<kStage, T>* gsrc, const InY<kStage, T>* y, const fl
 }
 
 // 4 / 10: the split-K partials of a weight gradient
-template <bool kNorm, bool kTail>
+template <bool kNorm, bool kTail, bool kHp = false>
 cudaError_t wgrad_op(const float* src, const float* stats, const float* dz, float* part, int n,
                      int h, int w, int c, int splits, cudaStream_t stream) {
-  WgradOp<kNorm, kTail> op;
+  WgradOp<kNorm, kTail, kHp> op;
   op.src = src;
   op.stats = stats;
   op.dz = dz;
@@ -519,11 +530,12 @@ cudaError_t wgrad_op(const float* src, const float* stats, const float* dz, floa
                             stream);
 }
 
-template <bool kNorm>
+template <bool kNorm, bool kHp = false>
 cudaError_t wgrad(const float* src, const float* stats, const float* dz, float* part, int n, int h,
                   int w, int c, int splits, cudaStream_t stream) {
-  return (h * w) % BK ? wgrad_op<kNorm, true>(src, stats, dz, part, n, h, w, c, splits, stream)
-                      : wgrad_op<kNorm, false>(src, stats, dz, part, n, h, w, c, splits, stream);
+  return (h * w) % BK
+             ? wgrad_op<kNorm, true, kHp>(src, stats, dz, part, n, h, w, c, splits, stream)
+             : wgrad_op<kNorm, false, kHp>(src, stats, dz, part, n, h, w, c, splits, stream);
 }
 
 // 6 / 11
@@ -729,6 +741,114 @@ extern "C" int nemar_resblock_bwd_bf16(const bf16* x, const bf16* y1hat, const b
   if ((err = in_bwd<1, bf16>(dpad, y1hat, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
   if ((err = wgrad16(x, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
   if ((err = dgrad16(dz, w1, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  const long long total4_x = (long long)n * h * w * c / 4;
+  const int fold_blocks = (int)((total4_x + 255) / 256);
+  finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
+      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1, total4_x, total4_w, splits,
+      fold_blocks, h, w, c);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The band form (--mesh_spatial; ops/conv_fused.py:block_band_bwd_cuda): the
+// backward's launches over this rank's band, cut where the IN backward's
+// means need every rank's partials (the caller all-gathers them) and where
+// a dgrad's padded gradient holds rows of the neighbours' bands (the caller
+// sends them to their owners and zeroes them: spatial.fold_halo_rows; the
+// frame's edges keep the fold of the reflection). The wgrads read the
+// forward's padded sources (x and y1 with their halo rows: WgradOp's kHp);
+// dW1 and dW2 are the band's shares. parts: (ranks, N * tiles, 2, C),
+// tiles = ceil(H * W / 64).
+// ---------------------------------------------------------------------------
+// IN2's (stage 2: gsrc = g, y = y2) or IN1's (stage 1: gsrc = dpad2, folded
+// where it is read, y = y1) partials
+extern "C" int nemar_resblock_band_bwd_part(const float* gsrc, const float* y,
+                                            const float* stats, float* part, int stage, int n,
+                                            int h, int w, int c, cudaStream_t stream) {
+  const int tiles = (h * w + IN_TILE - 1) / IN_TILE;
+  const dim3 grid((unsigned)(n * tiles), (unsigned)(c / 128));
+  if (stage == 2)
+    in_bwd_partial_kernel<2, float><<<grid, 128, 0, stream>>>(gsrc, y, stats, part, h, w, c,
+                                                               tiles);
+  else
+    in_bwd_partial_kernel<1, float><<<grid, 128, 0, stream>>>(gsrc, y, stats, part, h, w, c,
+                                                               tiles);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+// the means from every rank's partials (and, given w1, W1's and W2's split)
+cudaError_t band_merge(const float* parts, float* means, int ranks, int n, int h, int w, int c,
+                       cudaStream_t stream, const float* w1 = nullptr, const float* w2 = nullptr,
+                       float* wsplit = nullptr) {
+  const int tiles = (h * w + IN_TILE - 1) / IN_TILE;
+  const int merge_blocks = (n * c + 255) / 256;
+  const long long w4 = w1 ? (long long)9 * c * c / 4 : 0;
+  in_bwd_merge_kernel<<<(unsigned)(merge_blocks + (2 * w4 + 255) / 256), 256, 0, stream>>>(
+      parts, means, n, c, tiles, h * w * ranks, merge_blocks,
+      reinterpret_cast<const float4*>(w1), reinterpret_cast<const float4*>(w2),
+      reinterpret_cast<uint4*>(wsplit), w4, ranks, (long long)n * tiles * 2 * c);
+  return cudaGetLastError();
+}
+
+template <int kStage>
+cudaError_t band_apply(const float* gsrc, const float* y, const float* stats, const float* means,
+                       float* dz, int n, int h, int w, int c, cudaStream_t stream) {
+  const long long total4 = (long long)n * h * w * c / 4;
+  in_bwd_apply_kernel<kStage, float><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      gsrc, y, stats, means, dz, total4, h, w, c);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// IN2's means (and W1's, W2's split), dz2, dW2 (from y1p, H + 2 rows) and
+// dpad2
+extern "C" int nemar_resblock_band_bwd_dz2(const float* parts, float* means, const float* w1,
+                                           const float* w2, float* wsplit, const float* g,
+                                           const float* y2, const float* stats, float* dz,
+                                           const float* y1p, float* part_w, float* dw2,
+                                           float* dpad, int ranks, int n, int h, int w, int c,
+                                           int splits, cudaStream_t stream) {
+  cudaError_t err;
+  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream, w1, w2, wsplit)) != cudaSuccess)
+    return (int)err;
+  if ((err = band_apply<2>(g, y2, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = wgrad<true, true>(y1p, stats, dz, part_w, n, h, w, c, splits, stream)) !=
+      cudaSuccess)
+    return (int)err;
+  const long long total4_w = (long long)9 * c * c / 4;
+  split_sum_kernel<<<(unsigned)((total4_w + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(part_w), dw2, total4_w, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)dgrad(dz, wsplit + (size_t)18 * c * c, dpad, n, h, w, c, stream);
+}
+
+// IN1's means, dz1 from fold(dpad2), dW1's partials (from xp, H + 2 rows)
+// and dpad1 (written over dpad2, which the apply has read)
+extern "C" int nemar_resblock_band_bwd_dz1(const float* parts, float* means, const float* wsplit,
+                                           float* dpad, const float* y1, const float* stats,
+                                           float* dz, const float* xp, float* part_w, int ranks,
+                                           int n, int h, int w, int c, int splits,
+                                           cudaStream_t stream) {
+  cudaError_t err;
+  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = band_apply<1>(dpad, y1, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = wgrad<false, true>(xp, stats, dz, part_w, n, h, w, c, splits, stream)) !=
+      cudaSuccess)
+    return (int)err;
+  return (int)dgrad(dz, wsplit, dpad, n, h, w, c, stream);
+}
+
+// dx = g + fold(dpad1), and dW1 = the sum of its partials
+extern "C" int nemar_resblock_band_bwd_dx(const float* g, const float* dpad, float* dx,
+                                          const float* part_w, float* dw1, int n, int h, int w,
+                                          int c, int splits, cudaStream_t stream) {
+  const long long total4_w = (long long)9 * c * c / 4;
+  const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
   const long long total4_x = (long long)n * h * w * c / 4;
   const int fold_blocks = (int)((total4_x + 255) / 256);
   finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(

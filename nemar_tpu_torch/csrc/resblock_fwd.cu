@@ -89,8 +89,10 @@ __device__ __forceinline__ int reflect(int i, int n) {
 // y[b, p, co] = sum_{tap, ci} src'[b, reflect(u + dy - 1), reflect(v + dx - 1), ci]
 //                             * W[tap][ci][co],
 // src' = src, or relu((src - mu1) * rstd1) when kNorm (h1 from y1); the
-// tile's per-column (mean, M2) to part.
-template <bool kNorm, int kTN>
+// tile's per-column (mean, M2) to part. kHp (the band form): src holds each
+// sample's H + 2 rows, its halo rows already in place, and only W is
+// reflected: src'[b, u + dy, reflect(v + dx - 1), ci].
+template <bool kNorm, int kTN, bool kHp = false>
 struct ConvOp {
   static constexpr bool kNormRelu = kNorm;
   static constexpr bool kTileStats = true;
@@ -103,6 +105,7 @@ struct ConvOp {
   float* y;
   float* part;
   int h, w, c, tiles;  // tiles: 128-pixel tiles per sample
+  static constexpr int hp = kHp ? 1 : 0;
   // per thread: the tile, and for its A rows u << 16 | v (-1 past the sample)
   int b, tile, m0, n0, kc, rows;
   int ruv[CHUNKS];
@@ -128,11 +131,12 @@ struct ConvOp {
     const int tap = k0 / c;
     const int ci = k0 - tap * c + kc;
     const int dy = tap / 3, dx = tap - 3 * dy;
-    const float* sb = src + (size_t)b * h * w * c;
+    const float* sb = src + (size_t)b * (h + 2 * hp) * w * c;
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const bool valid = ruv[i] >= 0;
-      const int su = reflect((ruv[i] >> 16) + dy - 1, h), sv = reflect((ruv[i] & 0xffff) + dx - 1, w);
+      const int su = kHp ? (ruv[i] >> 16) + dy : reflect((ruv[i] >> 16) + dy - 1, h);
+      const int sv = reflect((ruv[i] & 0xffff) + dx - 1, w);
       cp_async16(tc::kmajor_at(As, tc::kmajor_row(tid, i), kc),
                  valid ? sb + ((size_t)su * w + sv) * c + ci : sb, valid);
     }
@@ -193,24 +197,35 @@ __global__ void split_transpose_kernel(const float* __restrict__ w1, const float
 }
 
 // 3 / 5: (mu, rstd) per (n, c) from the sample's tile partials, in fp64 and
-// tile order: mean = sum_t n_t m_t / HW, M2 = sum_t (M2_t + n_t (m_t - mean)^2)
+// tile order: mean = sum_t n_t m_t / HW, M2 = sum_t (M2_t + n_t (m_t - mean)^2).
+// The band form (--mesh_spatial) merges every rank's partials, `ranks`
+// blocks of (N * tiles, 2, C) `rank_stride` floats apart, rank by rank in
+// the same order (every band of one height hw): the frame's statistics.
 __global__ void in_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, int n,
-                                int c, int tiles, int hw, float eps) {
+                                int c, int tiles, int hw, float eps, int ranks,
+                                long long rank_stride) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * c) return;
   const int b = idx / c, ch = idx - b * c;
-  const float* p = part + (size_t)b * tiles * 2 * c + ch;
+  const double pixels = (double)hw * (double)ranks;
   double mean = 0.0;
-  for (int t = 0; t < tiles; ++t) mean += (double)min(BM, hw - t * BM) * (double)p[(size_t)t * 2 * c];
-  mean /= (double)hw;
+  for (int r = 0; r < ranks; ++r) {
+    const float* p = part + (size_t)r * rank_stride + (size_t)b * tiles * 2 * c + ch;
+    for (int t = 0; t < tiles; ++t)
+      mean += (double)min(BM, hw - t * BM) * (double)p[(size_t)t * 2 * c];
+  }
+  mean /= pixels;
   double m2 = 0.0;
-  for (int t = 0; t < tiles; ++t) {
-    const double d = (double)p[(size_t)t * 2 * c] - mean;
-    m2 += (double)p[(size_t)t * 2 * c + c] + (double)min(BM, hw - t * BM) * d * d;
+  for (int r = 0; r < ranks; ++r) {
+    const float* p = part + (size_t)r * rank_stride + (size_t)b * tiles * 2 * c + ch;
+    for (int t = 0; t < tiles; ++t) {
+      const double d = (double)p[(size_t)t * 2 * c] - mean;
+      m2 += (double)p[(size_t)t * 2 * c + c] + (double)min(BM, hw - t * BM) * d * d;
+    }
   }
   float* s = stats + (size_t)b * 4 * c + ch;
   s[0] = (float)mean;
-  s[c] = (float)(1.0 / sqrt(m2 / (double)hw + (double)eps));
+  s[c] = (float)(1.0 / sqrt(m2 / pixels + (double)eps));
 }
 
 // 6 (7 in the bf16 variant): out = x + (y2 - mu2) * rstd2, float4-wide; x
@@ -231,10 +246,10 @@ __global__ void residual_kernel(const T* __restrict__ x, const float4* __restric
                                   xv.z + (yv.z - mu[2]) * rs[2], xv.w + (yv.w - mu[3]) * rs[3]));
 }
 
-template <bool kNorm, int kTN>
+template <bool kNorm, int kTN, bool kHp = false>
 cudaError_t conv(const float* src, const float* stats, const float* wsplit, float* y, float* part,
                  int n, int h, int w, int c, int tiles, cudaStream_t stream) {
-  ConvOp<kNorm, kTN> op;
+  ConvOp<kNorm, kTN, kHp> op;
   op.src = src;
   op.stats = stats;
   op.wbig = wsplit;
@@ -257,12 +272,13 @@ cudaError_t convs(const float* x, const float* wsplit, float* y1, float* y2, flo
   cudaError_t err;
   if ((err = conv<false, kTN>(x, nullptr, wsplit, y1, part, n, h, w, c, tiles, stream)) != cudaSuccess)
     return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps, 1, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = conv<true, kTN>(y1, stats, wsplit + (size_t)18 * c * c, y2, part, n, h, w, c, tiles,
                              stream)) != cudaSuccess)
     return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps, 1,
+                                                 0);
   return cudaGetLastError();
 }
 
@@ -394,7 +410,7 @@ cudaError_t convs16(const bf16* x, const bf16* wt, float* y1, bf16* y1hat, bf16*
   const long long total4 = (long long)n * hw * c / 4;
   cudaError_t err;
   if ((err = conv16<kTN>(x, wt, y1, part, n, h, w, c, tiles, stream)) != cudaSuccess) return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps, 1, 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   norm_relu16_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(y1), stats, y1hat, h1, total4, hw, c);
@@ -402,8 +418,19 @@ cudaError_t convs16(const bf16* x, const bf16* wt, float* y1, bf16* y1hat, bf16*
   if ((err = conv16<kTN>(h1, wt + (size_t)9 * c * c, y2, part, n, h, w, c, tiles, stream)) !=
       cudaSuccess)
     return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps, 1,
+                                                 0);
   return cudaGetLastError();
+}
+
+// the GEMM tiles' width of a call: 64 where 128-wide tiles would leave SMs
+// idle
+cudaError_t narrow_tiles(int n, int tiles, int c, bool* narrow) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *narrow = (long long)n * tiles * (c / BN) < sms;
+  return err;
 }
 
 }  // namespace
@@ -453,6 +480,67 @@ extern "C" int nemar_resblock_fwd_bf16(const bf16* x, const bf16* w1, const bf16
   err = narrow ? convs16<64>(x, wt, y1, y1hat, h1, y2, part, stats, n, h, w, c, tiles, eps, stream)
                : convs16<128>(x, wt, y1, y1hat, h1, y2, part, stats, n, h, w, c, tiles, eps, stream);
   if (err != cudaSuccess) return (int)err;
+  const long long total4 = (long long)n * hw * c / 4;
+  residual_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      x, reinterpret_cast<const float4*>(y2), stats, out, total4, hw, c);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The band form (--mesh_spatial; ops/conv_fused.py:block_band_fwd_cuda): x's
+// rows are this rank's band of the frame, the statistics the frame's. The
+// forward's launches, cut where a statistic needs every rank's tiles (the
+// caller all-gathers the tile partials between them) and where conv2 needs
+// y1's halo rows (the caller exchanges them); both convs read a source that
+// holds its halo rows (ConvOp's kHp). Four launchers, each a few launches:
+//   conv1: W1, W2's split, conv1 over xp (N, H + 2, W, C) -> y1, part;
+//   stats: (mu, rstd) into stats' slot from every rank's part;
+//   conv2: conv2 over y1p (N, H + 2, W, C) with IN1 + relu on the fly;
+//   residual: (mu2, rstd2) from every rank's part, out = x + IN2(y2).
+// parts: (ranks, N * tiles, 2, C), tiles = ceil(H * W / 128).
+// ---------------------------------------------------------------------------
+extern "C" int nemar_resblock_band_conv1(const float* xp, const float* w1, const float* w2,
+                                         float* wsplit, float* y1, float* part, int n, int h,
+                                         int w, int c, cudaStream_t stream) {
+  const int tiles = (h * w + BM - 1) / BM;
+  bool narrow = false;
+  cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
+  if (err != cudaSuccess) return (int)err;
+  split_transpose_kernel<<<dim3((unsigned)(c / 32), (unsigned)(c / 32), 18), dim3(32, 8), 0,
+                           stream>>>(w1, w2, wsplit, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = narrow ? conv<false, 64, true>(xp, nullptr, wsplit, y1, part, n, h, w, c, tiles, stream)
+               : conv<false, 128, true>(xp, nullptr, wsplit, y1, part, n, h, w, c, tiles, stream);
+  return (int)err;
+}
+
+extern "C" int nemar_resblock_band_stats(const float* parts, float* stats, int ranks, int slot,
+                                         int n, int hw, int c, float eps, cudaStream_t stream) {
+  const int tiles = (hw + BM - 1) / BM;
+  in_stats_kernel<<<(unsigned)((n * c + 255) / 256), 256, 0, stream>>>(
+      parts, stats + (size_t)2 * slot * c, n, c, tiles, hw, eps, ranks,
+      (long long)n * tiles * 2 * c);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nemar_resblock_band_conv2(const float* y1p, const float* stats, const float* wsplit,
+                                         float* y2, float* part, int n, int h, int w, int c,
+                                         cudaStream_t stream) {
+  const int tiles = (h * w + BM - 1) / BM;
+  bool narrow = false;
+  cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
+  if (err != cudaSuccess) return (int)err;
+  const float* w2split = wsplit + (size_t)18 * c * c;
+  err = narrow ? conv<true, 64, true>(y1p, stats, w2split, y2, part, n, h, w, c, tiles, stream)
+               : conv<true, 128, true>(y1p, stats, w2split, y2, part, n, h, w, c, tiles, stream);
+  return (int)err;
+}
+
+extern "C" int nemar_resblock_band_residual(const float* parts, float* stats, const float* x,
+                                            const float* y2, float* out, int ranks, int n, int hw,
+                                            int c, float eps, cudaStream_t stream) {
+  const int err = nemar_resblock_band_stats(parts, stats, ranks, 1, n, hw, c, eps, stream);
+  if (err != 0) return err;
   const long long total4 = (long long)n * hw * c / 4;
   residual_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       x, reinterpret_cast<const float4*>(y2), stats, out, total4, hw, c);

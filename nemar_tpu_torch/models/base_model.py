@@ -166,6 +166,9 @@ def _flush_at_exit(ref) -> None:
 
 
 class BaseModel(ABC):
+    # whether the model runs under --mesh_spatial > 1 (its nets in bands)
+    spatial = False
+
     def __init__(self, opt):
         self.opt = opt
         self.isTrain = opt.isTrain
@@ -184,6 +187,11 @@ class BaseModel(ABC):
         self.metric = 0.0  # fed to the plateau policy
         self._losses: dict[str, torch.Tensor] = {}
         self._visuals: dict[str, torch.Tensor] = {}
+        if getattr(opt, "mesh_spatial", 1) > 1 and not self.spatial:
+            raise NotImplementedError(
+                f"--model {getattr(opt, 'model', type(self).__name__)} under --mesh_spatial "
+                f"{opt.mesh_spatial} is not ported (only nemar's step runs in bands; queued as "
+                f"ROADMAP.md A10c)")
         if getattr(opt, "steps_per_execution", 1) > 1 and not hasattr(
                 self, "optimize_parameters_scan"):
             raise NotImplementedError(
@@ -261,14 +269,28 @@ class BaseModel(ABC):
         counts on the device, for a CUDA graph of the step) and its lr a
         device scalar that ``current_lr`` fills in place, so a captured
         step reads the lr of its replay; elsewhere plain Adam, so the
-        step-by-step path keeps its numbers."""
+        step-by-step path keeps its numbers.
+
+        --opt_fused and --opt_split are the JAX package's flat-bucket Adam
+        (``nemar_tpu/models/optim.py``: the same elementwise math, a layout
+        of a few flat vectors): here torch's multi-tensor Adam,
+        ``foreach=True``, each of its operations applied to the whole list
+        of a net's parameters at once. ``foreach`` and not ``fused``: the
+        foreach path does the per-tensor path's operations in the same
+        order, so the step keeps its bits (on the card it is already
+        PyTorch's default for CUDA parameters), and it takes a CUDA graph's
+        capturable state; ``fused=True`` is one kernel with its own
+        arithmetic order, and would change the numbers."""
         lr = self.current_lr * lr_ratio
+        foreach = (True if getattr(self.opt, "opt_fused", False)
+                   or getattr(self.opt, "opt_split", False) else None)
         if self.device.type == "cuda" and getattr(self.opt, "steps_per_execution", 1) > 1:
             return torch.optim.Adam([{"params": list(params), "lr_ratio": lr_ratio}],
                                     lr=torch.tensor(lr, device=self.device),
-                                    betas=(beta1, 0.999), eps=1e-8, capturable=True)
+                                    betas=(beta1, 0.999), eps=1e-8, capturable=True,
+                                    foreach=foreach)
         return torch.optim.Adam([{"params": list(params), "lr_ratio": lr_ratio}],
-                                lr=lr, betas=(beta1, 0.999), eps=1e-8)
+                                lr=lr, betas=(beta1, 0.999), eps=1e-8, foreach=foreach)
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):

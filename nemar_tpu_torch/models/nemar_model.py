@@ -83,10 +83,13 @@ from nemar_tpu_torch.models import networks, step_graph
 from nemar_tpu_torch.models.base_model import BaseModel, to_device_nchw
 from nemar_tpu_torch.models.stn import define_stn
 from nemar_tpu_torch.ops.warp import grid_sample
+from nemar_tpu_torch.parallel import spatial
 from nemar_tpu_torch.utils import image_pool
 
 
 class NEMARModel(BaseModel):
+    spatial = True
+
     @staticmethod
     def modify_commandline_options(parser, is_train=True):
         """Reference flag surface: --stn_type and the λ weights."""
@@ -251,6 +254,14 @@ class NEMARModel(BaseModel):
         self.recon_pyramid = getattr(opt, "recon_pyramid", 0)
         self.freeze_g = getattr(opt, "freeze_g", False)
         self.grad_accum = max(1, getattr(opt, "grad_accum", 1))
+        if getattr(opt, "opt_split", False):
+            # the JAX package's refusals (its two programs a step), word for word
+            if getattr(opt, "steps_per_execution", 1) > 1:
+                raise ValueError("--opt_split is per-step (two programs); "
+                                 "incompatible with --steps_per_execution > 1")
+            if self.grad_accum > 1:
+                raise ValueError("--opt_split is incompatible with "
+                                 "--grad_accum > 1")
         if self.isTrain and opt.batch_size % self.grad_accum:
             raise ValueError(f"--grad_accum {self.grad_accum} must divide "
                              f"--batch_size {opt.batch_size}")
@@ -293,7 +304,12 @@ class NEMARModel(BaseModel):
             net.train(self.isTrain)
         # the step's draws (the pool's, the penalty's alpha), on the CPU
         self.rng = torch.Generator().manual_seed(getattr(opt, "seed", 0) + 17)
-        self.pool = (image_pool.init_pool(self.pool_size, (opt.output_nc, opt.crop_size,
+        # under --mesh_spatial the pool holds this rank's band of each image
+        # (and a save gathers its frames for a moment)
+        self.band = None
+        self._pool_frames = None
+        pool_rows = opt.crop_size // parallel.spatial_size()
+        self.pool = (image_pool.init_pool(self.pool_size, (opt.output_nc, pool_rows,
                                                            opt.crop_size), self.device)
                      if self.pool_size > 0 else None)
         self.ema = None  # {net: {parameter name: shadow}}, made by setup
@@ -331,6 +347,8 @@ class NEMARModel(BaseModel):
         --border_mask, also the warp's validity mask (N, 1, H, W), detached.
         Under --bf16 the nets run in bf16 and every output is cast back to
         fp32."""
+        if self.band is not None:
+            return self._forward_parts_band(a, b)
         netG, netR = self.compute(self.netG), self.compute(self.netR)
         if self.remat and torch.is_grad_enabled():
             # R's activations recomputed in the backward (jax.checkpoint of
@@ -365,6 +383,15 @@ class NEMARModel(BaseModel):
                     getattr(self.opt, "stn_align_corners", False)))
         return out
 
+    def _forward_parts_band(self, a: torch.Tensor, b: torch.Tensor) -> dict:
+        """``_forward_parts`` on this rank's band (--mesh_spatial): every
+        output is its band of the frame's, reg its share."""
+        fake_B = self.netG(a, self.band)
+        (reg_fakeB, warped_A), reg, aux = self.netR(a, b, (fake_B, a), n_grad_imgs=1,
+                                                    band=self.band)
+        return {"fake_B": fake_B, "reg_fakeB": reg_fakeB, "warped_A": warped_A,
+                "fake_B2": self.netG(warped_A, self.band), "reg": reg, "flow": aux["flow"]}
+
     # ------------------------------------------------------------------
     # the training step
     # ------------------------------------------------------------------
@@ -374,7 +401,13 @@ class NEMARModel(BaseModel):
         gradient penalty adds its own pass over the mix.
         -> (loss, (l_real, l_fake, penalty or None)). Under --bf16 D's passes
         are bf16, their predictions cast back to fp32; the penalty's pass is
-        fp32, as the JAX package's."""
+        fp32, as the JAX package's. Under --mesh_spatial the band's shares."""
+        if self.band is not None:
+            pred, pband = self.netD(torch.cat([b, fake], dim=0), self.band)
+            pred_real, pred_fake = torch.chunk(pred, 2, dim=0)
+            l_real = networks.gan_loss(pred_real, True, self.gan_mode, pband)
+            l_fake = networks.gan_loss(pred_fake, False, self.gan_mode, pband)
+            return 0.5 * (l_real + l_fake), (l_real, l_fake, None)
         pred_real, pred_fake = (self.uncast(p) for p in networks.d_preds(
             self.compute(self.netD), self.cast(b), self.cast(fake), self.opt.norm))
         l_real = networks.gan_loss(pred_real, True, self.gan_mode)
@@ -390,7 +423,7 @@ class NEMARModel(BaseModel):
     def _global_micro(self, m: int) -> int:
         """The global microbatch that a local one of m rows belongs to (m
         itself outside a data-parallel run)."""
-        return m if parallel.world() == 1 else self.micro_n
+        return m if parallel.data_world() == 1 else self.micro_n
 
     def _gp_alpha(self, n: int) -> torch.Tensor:
         """The penalty's alpha for the n rows of this microbatch (n, 1, 1,
@@ -455,7 +488,16 @@ class NEMARModel(BaseModel):
     def _head_loss(self, o: dict, b: torch.Tensor, gan_scale):
         """G+R loss on the forward outputs ``o`` against D as it is now (its
         pass in bf16 under --bf16, the prediction cast back to fp32);
-        ``gan_scale`` is the GAN weight times --lambda_GAN."""
+        ``gan_scale`` is the GAN weight times --lambda_GAN. Under
+        --mesh_spatial each term is the band's share of the global mean."""
+        if self.band is not None:
+            pred, pband = self.netD(o["reg_fakeB"], self.band)
+            l_gan = networks.gan_loss(pred, True, self.gan_mode, pband)
+            l_recon = (spatial.frame_mean(torch.abs(o["reg_fakeB"] - b), self.band)
+                       + spatial.frame_mean(torch.abs(o["fake_B2"] - b), self.band))
+            total = (gan_scale * l_gan + self.lambda_recon * l_recon
+                     + self.lambda_smooth * o["reg"])
+            return total, (l_gan, l_recon, o["reg"])
         pred = self.uncast(self.compute(self.netD)(self.cast(o["reg_fakeB"])))
         l_gan = networks.gan_loss(pred, True, self.gan_mode)
         m = o.get("mask")
@@ -667,19 +709,41 @@ class NEMARModel(BaseModel):
             return {}
         return {f"{n}_ema": shadow for n, shadow in self.ema.items()}
 
+    def save_networks(self, suffix):
+        """BaseModel.save_networks; under --mesh_spatial every rank first
+        gathers the pool's frames (rank 0 writes them), so the saved pool is
+        the whole frames', which any width resumes."""
+        if self.pool is not None and parallel.spatial_size() > 1:
+            self._pool_frames = spatial.gather_frame(
+                self.pool[0], self._band_of(self.opt.crop_size), dim=2)
+        try:
+            super().save_networks(suffix)
+        finally:
+            self._pool_frames = None
+
+    def _band_of(self, height: int):
+        """This rank's band of a frame of ``height`` rows (None: no
+        spatial group)."""
+        s = parallel.spatial_size()
+        return None if s == 1 else spatial.Band.split(height, s, parallel.spatial_rank())
+
     def extra_train_state(self) -> dict:
         """The step generator's state and the pool (buffer and count)."""
         state = {"rng": self.rng.get_state()}
         if self.pool is not None:
-            state["pool"] = {"images": self.pool[0].cpu(), "count": self.pool[1].cpu()}
+            images = self.pool[0] if self._pool_frames is None else self._pool_frames
+            state["pool"] = {"images": images.cpu(), "count": self.pool[1].cpu()}
         return state
 
     def load_extra_train_state(self, state: dict, suffix) -> None:
         if "rng" in state:
             self.rng.set_state(state["rng"])
         if self.pool is not None and "pool" in state:
-            self.pool = (state["pool"]["images"].to(self.device),
-                         state["pool"]["count"].to(self.device))
+            images = state["pool"]["images"]
+            band = self._band_of(images.shape[2])
+            if band is not None:
+                images = images[:, :, band.r0:band.r1]
+            self.pool = (images.to(self.device), state["pool"]["count"].to(self.device))
         if self.ema is not None:
             for n in self.ema:
                 self.ema[n] = self._load_shadow(suffix, n)
@@ -709,22 +773,34 @@ class NEMARModel(BaseModel):
     def set_input(self, data: dict):
         """data['A'], data['B']: NHWC float numpy batches, the global batch;
         in a data-parallel run this rank keeps its rows of each microbatch
-        (``parallel.shard_rows``)."""
+        (``parallel.shard_rows``), and under --mesh_spatial its band of
+        their rows (``self.band``)."""
         self.micro_n = len(data["A"]) // self.grad_accum
         data = parallel.shard_rows(data, self.grad_accum)
+        self.band = self._band_of(data["A"].shape[1])
+        if self.band is not None:
+            data = {**data, "A": data["A"][:, self.band.r0:self.band.r1],
+                    "B": data["B"][:, self.band.r0:self.band.r1]}
         self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
         self.real_B = to_device_nchw(data["B"], self.device, self.dtype)
         self.image_paths = data.get("A_paths", [])
 
     def forward(self):
+        """The forward's visuals and ``last_flow``; under --mesh_spatial
+        their whole frames, gathered on every rank."""
         out = self._forward_parts(self.real_A, self.real_B)
-        # (N, H, W, 2) normalised field, NHWC numpy as the JAX model's
-        self.last_flow = out["flow"].detach().cpu().numpy()
-        self._visuals = {
+        visuals = {
             "real_A": self.real_A, "real_B": self.real_B,
             "fake_B": out["fake_B"], "reg_fakeB": out["reg_fakeB"],
             "warped_A": out["warped_A"], "fake_B2": out["fake_B2"],
         }
+        flow = out["flow"]
+        if self.band is not None:
+            visuals = {k: spatial.gather_frame(v, self.band, dim=2) for k, v in visuals.items()}
+            flow = spatial.gather_frame(flow, self.band, dim=1)
+        # (N, H, W, 2) normalised field, NHWC numpy as the JAX model's
+        self.last_flow = flow.detach().cpu().numpy()
+        self._visuals = visuals
         return out
 
 
@@ -738,17 +814,48 @@ def _mean_grads(params: list, k: int) -> None:
 
 
 def _check_supported(opt) -> None:
-    """Refuse, by name, the flags whose code paths are not ported yet or are
-    the TPU's only."""
+    """Refuse, by name, the flags whose code paths are not ported: under
+    --mesh_spatial > 1 every flag whose path the spatial step does not hold
+    (queued as ROADMAP.md A10c)."""
+    if getattr(opt, "mesh_spatial", 1) <= 1:
+        return
     refused = [
-        (getattr(opt, "opt_fused", False),
-         "--opt_fused: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),
-        (getattr(opt, "opt_split", False),
-         "--opt_split: TPU-only Adam layouts, not to port (ROADMAP.md, Not to port)"),
-        (getattr(opt, "mesh_spatial", 1) > 1,
-         "--mesh_spatial > 1 (the image height sharded over devices) is not ported yet "
-         "(queued as ROADMAP.md A10b)"),
+        (getattr(opt, "bf16", False), "--bf16"),
+        (getattr(opt, "stn_type", "unet") != "unet",
+         f"--stn_type {getattr(opt, 'stn_type', 'unet')} (its flatten head is an FC over the "
+         f"whole frame)"),
+        (getattr(opt, "stn_multiscale", False),
+         "--stn_multiscale (its resize is two matrix products over the full height)"),
+        (getattr(opt, "gan_mode", "lsgan") != "lsgan",
+         f"--gan_mode {getattr(opt, 'gan_mode', 'lsgan')} (wgangp: a double backward through "
+         f"the exchanges)"),
+        (getattr(opt, "steps_per_execution", 1) > 1, "--steps_per_execution > 1"),
+        (getattr(opt, "border_mask", False), "--border_mask"),
+        (getattr(opt, "recon_pyramid", 0) > 0, "--recon_pyramid"),
+        (getattr(opt, "norm", "instance") != "instance",
+         f"--norm {getattr(opt, 'norm', 'instance')}"),
+        (getattr(opt, "netG", "resnet_6blocks") != "resnet_6blocks",
+         f"--netG {getattr(opt, 'netG', '')}"),
+        (getattr(opt, "netD", "basic") != "basic", f"--netD {getattr(opt, 'netD', '')}"),
+        (getattr(opt, "remat", False), "--remat"),
+        (getattr(opt, "g_batch", False), "--g_batch"),
+        (getattr(opt, "freeze_g", False), "--freeze_g"),
+        (getattr(opt, "stn_field_source", "pair") != "pair", "--stn_field_source fake"),
+        (getattr(opt, "stn_bounded_flow", 0.0) > 0, "--stn_bounded_flow"),
+        (getattr(opt, "stn_smooth_order", 1) != 1, "--stn_smooth_order 2"),
+        (getattr(opt, "stn_padding_mode", "zeros") != "zeros",
+         f"--stn_padding_mode {getattr(opt, 'stn_padding_mode', '')}"),
+        (getattr(opt, "stn_align_corners", False), "--stn_align_corners"),
     ]
-    for on, message in refused:
+    for on, flag in refused:
         if on:
-            raise NotImplementedError(message)
+            raise NotImplementedError(
+                f"{flag} under --mesh_spatial {opt.mesh_spatial} is not ported (the spatial step "
+                f"does not hold it; queued as ROADMAP.md A10c)")
+    depth = max(2, getattr(opt, "stn_depth", 5))
+    need = opt.mesh_spatial * 2 ** depth
+    if opt.crop_size % need:
+        raise ValueError(
+            f"--mesh_spatial {opt.mesh_spatial}: the image height {opt.crop_size} must split "
+            f"evenly over the ranks at every level of G and of the STN (depth {depth}): a "
+            f"multiple of {need}")

@@ -32,6 +32,15 @@ batch's mask and keeps its rank's rows (``set_dropout_rows``), as the JAX
 package's SPMD program does, so a run over W ranks computes the
 one-process run's function.
 
+Under --mesh_spatial (``parallel/spatial.py``) the ResNet generator and
+the n-layer PatchGAN take a ``band`` (``spatial.Band``: this rank's rows of
+the frame) and run their band forms: every convolution over the band with
+its halo rows (``conv_band``: the neighbours' rows, the layer's padding at
+the frame's edges), every instance norm with the frame's statistics
+(``norm_act_band``, K-in's band form on the card), the trunk blocks, the
+decoder stages and the head through K-block's, K-convt's and K-head's band
+forms. ``band=None`` is the one-process path, unchanged.
+
 Dropout (``Dropout``) draws from a ``torch.Generator`` the model owns,
 never from the global one, and is off in eval mode. ``--remat`` checkpoints
 each trunk block (``remat``), the counterpart of ``nn.remat(ResnetBlock)``.
@@ -61,10 +70,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nemar_tpu_torch import parallel
-from nemar_tpu_torch.ops.conv_fused import fused_resblock
-from nemar_tpu_torch.ops.conv_head import conv_head
-from nemar_tpu_torch.ops.convt_fused import fused_convt_in
-from nemar_tpu_torch.ops.norm import instance_norm_act
+from nemar_tpu_torch.ops.conv_fused import fused_resblock, fused_resblock_band
+from nemar_tpu_torch.ops.conv_head import conv_head, conv_head_band
+from nemar_tpu_torch.ops.convt_fused import fused_convt_in, fused_convt_in_band
+from nemar_tpu_torch.ops.norm import instance_norm_act, instance_norm_act_band
+from nemar_tpu_torch.parallel import spatial
 from nemar_tpu_torch.utils.convert import kernel_to_torch
 
 def to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +132,32 @@ def norm_act(x: torch.Tensor, act: str, norm: str = "instance") -> torch.Tensor:
     elif norm != "none":
         raise NotImplementedError(f"norm {norm!r}")
     return _act(x, act)
+
+
+def norm_act_band(x: torch.Tensor, band, act: str) -> torch.Tensor:
+    """``norm_act`` under instance norm of the frame of which the NCHW x is
+    this rank's band: the frame's statistics (``instance_norm_act_band``)."""
+    return to_nchw(instance_norm_act_band(to_nhwc(x), band, act=act))
+
+
+def conv_band(conv: nn.Conv2d, x: torch.Tensor, band) -> tuple:
+    """``conv`` (zero-padded, square kernel) of the frame of which the NCHW
+    x is this rank's band -> (its output band, the output's ``Band``): the
+    band with the rows its output band reads above and below
+    (``Band.conv``; zeros past the frame's edges), convolved with the
+    layer's padding in W only."""
+    out, tops, bottoms = band.conv(conv.kernel_size[0], conv.stride[0], conv.padding[0])
+    xp = spatial.exchange_rows(x, band, tops, bottoms, dim=2, mode="zeros")
+    return F.conv2d(xp, conv.weight, conv.bias, stride=conv.stride,
+                    padding=(0, conv.padding[1])), out
+
+
+def reflect_pad_w(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``reflect_pad`` in W only (the band forms' H padding is the
+    exchange's)."""
+    w = x.shape[3]
+    return torch.cat([x[:, :, :, 1:pad + 1].flip(3), x, x[:, :, :, w - pad - 1:w - 1].flip(3)],
+                     dim=3)
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -356,7 +392,9 @@ class ResnetGenerator(nn.Module):
                     nn.ConvTranspose2d(ngf * mult, ngf * mult // 2, 3, stride=2, padding=0))
         setattr(self, f"Conv_{1 + n_downsampling}", nn.Conv2d(ngf, output_nc, 7))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        if band is not None:
+            return self._forward_band(x, band)
         h = norm_act(self.Conv_0(reflect_pad(x, 3)), "relu", self.norm)
         for i in range(self.n_downsampling):
             h = norm_act(getattr(self, f"Conv_{i + 1}")(h), "relu", self.norm)
@@ -373,6 +411,31 @@ class ResnetGenerator(nn.Module):
                 h = norm_act(convt(h)[:, :, :2 * h.shape[2], :2 * h.shape[3]], "relu", self.norm)
         head = getattr(self, f"Conv_{1 + self.n_downsampling}")
         h = to_nchw(conv_head(to_nhwc(h), head.weight.permute(2, 3, 1, 0)))
+        return torch.tanh(h + head.bias[:, None, None])
+
+    def _forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
+        """The forward of the frame of which x is this rank's band (instance
+        norm, no dropout): the same layers in band form; the output is the
+        output frame's band, rows of the input's."""
+        three = (3,) * band.size
+        xp = reflect_pad_w(spatial.exchange_rows(x, band, three, three, dim=2, mode="reflect"), 3)
+        h = norm_act_band(self.Conv_0(xp), band, "relu")
+        b = band
+        for i in range(self.n_downsampling):
+            h, b = conv_band(getattr(self, f"Conv_{i + 1}"), h, b)
+            h = norm_act_band(h, b, "relu")
+        for i in range(self.n_blocks):
+            block = getattr(self, f"ResnetBlock_{i}")
+            w1 = block.Conv_0.weight.permute(2, 3, 1, 0)
+            w2 = block.Conv_1.weight.permute(2, 3, 1, 0)
+            h = to_nchw(fused_resblock_band(to_nhwc(h), w1, w2, b))
+        for i in range(self.n_downsampling):
+            convt = getattr(self, f"ConvTranspose_{i}")
+            w = convt.weight.permute(2, 3, 0, 1).flip(0, 1)
+            h = to_nchw(fused_convt_in_band(to_nhwc(h), w, b))
+            b = b.up(2)
+        head = getattr(self, f"Conv_{1 + self.n_downsampling}")
+        h = to_nchw(conv_head_band(to_nhwc(h), head.weight.permute(2, 3, 1, 0), b))
         return torch.tanh(h + head.bias[:, None, None])
 
 
@@ -449,7 +512,17 @@ class NLayerDiscriminator(nn.Module):
         setattr(self, f"Conv_{n_layers}", nn.Conv2d(ndf * prev, ndf * nf_mult, 4, padding=1))
         setattr(self, f"Conv_{n_layers + 1}", nn.Conv2d(ndf * nf_mult, 1, 4, padding=1))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None):
+        """The patch predictions; with ``band`` (instance norm) those of the
+        frame of which x is this rank's band, and their ``Band``: (pred,
+        band) (D's stride-1 layers give uneven bands: ``Band.conv``)."""
+        if band is not None:
+            h, b = conv_band(self.Conv_0, x, band)
+            h = F.leaky_relu(h, 0.2)
+            for n in range(1, self.n_layers + 1):
+                h, b = conv_band(getattr(self, f"Conv_{n}"), h, b)
+                h = norm_act_band(h, b, "leaky_relu")
+            return conv_band(getattr(self, f"Conv_{self.n_layers + 1}"), h, b)
         h = F.leaky_relu(self.Conv_0(x), 0.2)
         for n in range(1, self.n_layers + 1):
             h = norm_act(getattr(self, f"Conv_{n}")(h), "leaky_relu", self.norm)
@@ -523,9 +596,17 @@ def d_preds(net_d: Callable, real: torch.Tensor, fake: torch.Tensor, norm: str) 
 # ---------------------------------------------------------------------------
 
 
-def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_mode: str) -> torch.Tensor:
+def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_mode: str,
+             band=None) -> torch.Tensor:
     """Reference GANLoss: lsgan = MSE against 1/0, vanilla = BCE with logits,
-    wgangp = -mean for real, mean for fake."""
+    wgangp = -mean for real, mean for fake. With ``band`` (lsgan) the NCHW
+    pred is this rank's band of the frame's predictions: the band's share
+    of the mean over the frame's patches (``spatial.frame_mean``)."""
+    if band is not None:
+        if gan_mode != "lsgan":
+            raise NotImplementedError(f"--gan_mode {gan_mode} under --mesh_spatial is refused "
+                                      f"(ROADMAP.md A10c)")
+        return spatial.frame_mean(torch.square(pred - (1.0 if target_is_real else 0.0)), band)
     if gan_mode == "lsgan":
         return torch.mean(torch.square(pred - (1.0 if target_is_real else 0.0)))
     if gan_mode == "vanilla":

@@ -24,6 +24,16 @@ Under ``--bf16`` (the model runs R on bf16 copies of its parameters) the
 field, its compositions and the TV are bf16, as in the JAX package; the
 grid the images are sampled at is fp32 (identity + the field cast up).
 
+Under --mesh_spatial (``parallel/spatial.py``) ``forward`` takes a
+``band``, this rank's rows of the frame: the UNet's convolutions run on the
+band with their halo rows (``networks.conv_band``), its instance norms with
+the frame's statistics, the nearest up-sampling locally; the grid is the
+band's rows of the frame's identity plus φ's band; the warped images are
+sampled from the whole frames (``spatial.gather_frame``: d img, a frame on
+every rank, is summed over the group and cut to the band), the JAX
+package's ``mm`` route under GSPMD computing the same function; the TV
+takes one row of φ from the band below (``smoothness_loss_band``).
+
 Convs are named ``Conv_<k>`` in the reference's creation order (the
 multiscale heads between the decoder's convs), so the state_dict matches
 the flax tree. ``--stn_head_impl fact`` and ``--stn_up_impl fused*`` are the
@@ -40,8 +50,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from nemar_tpu_torch.models.networks import norm_act, to_nchw, to_nhwc
+from nemar_tpu_torch.models.networks import conv_band, norm_act, norm_act_band, to_nchw, to_nhwc
 from nemar_tpu_torch.ops.warp import compose_flows, grid_sample_multi, identity_grid
+from nemar_tpu_torch.parallel import spatial
 
 
 def _abs(x: torch.Tensor) -> torch.Tensor:
@@ -63,6 +74,28 @@ def smoothness_loss(flow: torch.Tensor, smooth_type: str = "l1", order: int = 1)
     if smooth_type == "l2":
         return dy.square().mean() + dx.square().mean()
     raise NotImplementedError(f"smooth type {smooth_type!r}")
+
+
+def smoothness_loss_band(flow: torch.Tensor, band, smooth_type: str = "l1") -> torch.Tensor:
+    """This rank's share of the order-1 ``smoothness_loss`` of the frame of
+    which the (N, H, W, 2) flow is its band: the difference across the
+    band's lower edge takes the first row of the band below (none at the
+    frame's bottom), so each difference is counted once; each term is the
+    band's sum over the frame's count."""
+    n, h, w, c = flow.shape
+    below = spatial.exchange_rows(flow, band, (0,) * band.size, (1,) * band.size, dim=1,
+                                  mode="zeros")
+    if band.last:
+        below = below[:, :h]
+    dy = below[:, 1:] - below[:, :-1]
+    dx = flow[:, :, 1:] - flow[:, :, :-1]
+    if smooth_type == "l1":
+        fy, fx = _abs(dy), _abs(dx)
+    elif smooth_type == "l2":
+        fy, fx = dy.square(), dx.square()
+    else:
+        raise NotImplementedError(f"smooth type {smooth_type!r}")
+    return fy.sum() / (n * (band.height - 1) * w * c) + fx.sum() / (n * band.height * (w - 1) * c)
 
 
 @functools.cache
@@ -199,9 +232,36 @@ class UnetSTN(nn.Module):
             flow = torch.tanh(flow) * self.bounded_flow
         return flow, level_reg
 
+    def predict_flow_band(self, a: torch.Tensor, b: torch.Tensor, band) -> torch.Tensor:
+        """``predict_flow`` (one head, no bound) of the frame of which a and
+        b are this rank's band: φ's band, (N, H_band, W, 2)."""
+        h, bd = torch.cat([a, b], dim=1), band
+        skips = []
+        for k in range(self.depth):
+            h, bd = conv_band(getattr(self, f"Conv_{k}"), h, bd)
+            h = norm_act_band(h, bd, "leaky_relu")
+            skips.append((h, bd))
+        for j, i in enumerate(reversed(range(self.depth))):
+            h, bd = F.interpolate(h, scale_factor=2, mode="nearest"), bd.up(2)
+            h, bd = conv_band(getattr(self, f"Conv_{self.depth + j}"), h, bd)
+            h = norm_act_band(h, bd, "leaky_relu")
+            if i > 0:
+                skip, sb = skips[i - 1]
+                if sb != bd:
+                    raise ValueError(f"--mesh_spatial {band.size}: the UNet's bands at level "
+                                     f"{i} differ ({sb.bounds} and {bd.bounds}); the height "
+                                     f"must split evenly at every level")
+                h = torch.cat([skip, h], dim=1)
+        head = getattr(self, f"Conv_{self.head_index[0]}")
+        return to_nhwc(self.level_scale * conv_band(head, h, bd)[0]) * self.flow_scale
+
     def forward(self, a: torch.Tensor, b: torch.Tensor, imgs: Sequence[torch.Tensor] = (),
-                n_grad_imgs: int = -1):
-        """(warped imgs, smoothness reg, {'flow', 'grid'}); images NCHW in and out."""
+                n_grad_imgs: int = -1, band=None):
+        """(warped imgs, smoothness reg, {'flow', 'grid'}); images NCHW in and out.
+        With ``band`` (``spatial.Band``) a, b and every output are this
+        rank's band of the frame, the reg its share."""
+        if band is not None:
+            return self._forward_band(a, b, imgs, n_grad_imgs, band)
         flow, level_reg = self.predict_flow(a, b)
         n, h, w, _ = flow.shape
         # grid coordinates are at least fp32 whatever the activations' type
@@ -214,4 +274,19 @@ class UnetSTN(nn.Module):
             warped = tuple(to_nchw(wp) for wp in warped)
         reg = (level_reg if self.multiscale
                else smoothness_loss(flow, self.smooth_type, self.smooth_order))
+        return warped, reg, {"flow": flow, "grid": grid}
+
+    def _forward_band(self, a, b, imgs, n_grad_imgs: int, band):
+        flow = self.predict_flow_band(a, b, band)
+        n, h, w, _ = flow.shape
+        cdt = torch.float64 if flow.dtype == torch.float64 else torch.float32
+        ident = identity_grid(band.height, w, self.align_corners, cdt, flow.device)
+        grid = ident[band.r0:band.r1][None] + flow.to(cdt)
+        warped = ()
+        if imgs:
+            frames = [spatial.gather_frame(to_nhwc(i), band, dim=1) for i in imgs]
+            warped = grid_sample_multi(frames, grid, "bilinear", self.padding_mode,
+                                       self.align_corners, n_grad_imgs)
+            warped = tuple(to_nchw(wp) for wp in warped)
+        reg = smoothness_loss_band(flow, band, self.smooth_type)
         return warped, reg, {"flow": flow, "grid": grid}

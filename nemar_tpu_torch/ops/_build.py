@@ -19,6 +19,7 @@ without CUDA, where only the ops' plain PyTorch versions run.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import hashlib
 import os
@@ -122,6 +123,32 @@ def _library() -> Path:
     path, _ = build()
     torch.ops.load_library(str(path))
     return path
+
+
+# ctypes types of the C launchers' arguments, by the letter ``cfn`` takes
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
+
+
+@functools.cache
+def cfn(name: str, sig: str):
+    """The library's C launcher ``name`` (the band forms' stages, which have
+    no PyTorch operator), through ctypes: ``sig`` its arguments' types, one
+    letter each (p pointer, i int, l long long, f float), the stream last
+    included; it returns an int CUDA error code."""
+    fn = getattr(ctypes.CDLL(str(_library())), name)
+    fn.argtypes = [_CTYPES[k] for k in sig]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, sig: str, *args) -> None:
+    """Call the C launcher ``name`` with ``args`` (tensors as their data
+    pointers) on PyTorch's current stream; raise on a CUDA error."""
+    vals = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    code = cfn(name, sig + "p")(*vals, torch.cuda.current_stream().cuda_stream)
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA error {code}")
 
 
 @functools.cache

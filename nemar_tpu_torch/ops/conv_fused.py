@@ -387,3 +387,187 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"fused_resblock: unsupported device {x.device}")
     return _FusedResblock.apply(x, w1, w2, eps)
+
+
+# ---------------------------------------------------------------------------
+# band form (--mesh_spatial): the block over the rows of the frame that this
+# rank holds (``parallel/spatial.py``), the frame's statistics and the
+# reflection at the frame's edges
+# ---------------------------------------------------------------------------
+def conv3x3_wreflect(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """NHWC xp whose H rows are already padded (by 1 each side), HWIO w ->
+    the 3x3 conv over xp reflect-padded in W only: H - 2 output rows."""
+    xq = F.pad(xp.permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect")
+    return F.conv2d(xq, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+
+
+def resblock_band_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of ``fused_resblock_band`` (any device, differentiable
+    by autograd): the halo row of x above and below (the frame's reflection
+    at its edges), conv1, the frame's IN + relu, the halo rows of h1, conv2,
+    the frame's IN, the residual."""
+    from nemar_tpu_torch.ops.norm import instance_norm_act_band
+    from nemar_tpu_torch.parallel import spatial
+
+    one = (1,) * band.size
+    xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect")
+    h1 = instance_norm_act_band(conv3x3_wreflect(xp, w1), band, "relu", eps, plain=True)
+    hp = spatial.exchange_rows(h1, band, one, one, dim=1, mode="reflect")
+    return x + instance_norm_act_band(conv3x3_wreflect(hp, w2), band, "none", eps, plain=True)
+
+
+def resblock_band_saved_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
+                              eps: float = 1e-5) -> tuple:
+    """Plain version of what K-block's band form saves for its backward,
+    (xp, y1, y1p, y2, stats), from ``resblock_band_plain``'s values (no
+    gradient): a check feeds them to K-block-bwd's band form, so that the
+    kernel and the plain backward take the same relu masks."""
+    from nemar_tpu_torch.ops.norm import in_band_stats
+    from nemar_tpu_torch.parallel import spatial
+
+    one = (1,) * band.size
+    with torch.no_grad():
+        xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect")
+        y1 = conv3x3_wreflect(xp, w1).contiguous()
+        st1 = in_band_stats(y1, eps)
+        y1p = spatial.exchange_rows(y1, band, one, one, dim=1, mode="reflect").contiguous()
+        y2 = conv3x3_wreflect(torch.clamp_min(normalise(y1p, st1), 0.0), w2).contiguous()
+        return xp.contiguous(), y1, y1p, y2, torch.cat([st1, in_band_stats(y2, eps)], dim=1)
+
+
+def block_band_fwd_cuda(x: torch.Tensor, xp: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                        band, eps: float = 1e-5) -> tuple:
+    """K-block in band form on the card: x (N, H, W, C) this rank's band,
+    xp the band with its halo rows (N, H + 2, W, C). Four launches, with an
+    all-gather of the tile statistics after the first and the third and an
+    exchange of y1's halo rows after the second: (1) W1, W2 split and conv1
+    over xp (H pre-padded), (2) the frame's (mu1, rstd1) from every rank's
+    tiles, (3) conv2 over y1's padded band with IN + relu on the fly, (4)
+    the frame's (mu2, rstd2) and the residual. -> (out, (xp, y1, y1p, y2,
+    stats)), what ``block_band_bwd_cuda`` takes."""
+    from nemar_tpu_torch.parallel import spatial
+
+    _check_cuda("block_band_fwd_cuda", x, w1, w2)
+    if x.dtype != torch.float32:
+        raise TypeError("block_band_fwd_cuda: the band form is fp32 (--bf16 is refused under "
+                        "--mesh_spatial, ROADMAP.md A10c)")
+    n, h, w, c = x.shape
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    tiles = -(-h * w // 128)
+    wsplit = torch.empty((4, 9, c, c), **f32)
+    y1, y2 = torch.empty((n, h, w, c), **f32), torch.empty((n, h, w, c), **f32)
+    part = torch.empty((n * tiles, 2, c), **f32)
+    stats = torch.empty((n, 4, c), **f32)
+    out = torch.empty_like(x)
+    xp = xp.contiguous()
+    _aligned("block_band_fwd_cuda", x, xp, w1, w2)
+    _build.launch("nemar_resblock_band_conv1", "ppppppiiii", xp, w1, w2, wsplit, y1, part,
+                  n, h, w, c)
+    parts = spatial.gather_parts(part)
+    _build.launch("nemar_resblock_band_stats", "ppiiiiif", parts, stats, band.size, 0, n,
+                  h * w, c, eps)
+    one = (1,) * band.size
+    y1p = spatial.exchange_rows(y1, band, one, one, dim=1, mode="reflect").contiguous()
+    _build.launch("nemar_resblock_band_conv2", "pppppiiii", y1p, stats, wsplit, y2, part,
+                  n, h, w, c)
+    parts = spatial.gather_parts(part)
+    _build.launch("nemar_resblock_band_residual", "pppppiiiif", parts, stats, x, y2, out,
+                  band.size, n, h * w, c, eps)
+    block_band_fwd_cuda.launches += 1
+    block_band_fwd_cuda.stages += 4
+    return out, (xp, y1, y1p, y2, stats)
+
+
+block_band_fwd_cuda.launches = 0
+block_band_fwd_cuda.stages = 0
+
+
+def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1: torch.Tensor,
+                        y1p: torch.Tensor, y2: torch.Tensor, stats: torch.Tensor,
+                        g: torch.Tensor, band) -> tuple:
+    """K-block-bwd in band form on the card: (dx, dw1, dw2) of this rank's
+    band, dw1 and dw2 the band's shares (the gradient all-reduce sums
+    them). Five launches, with an all-gather of the IN backward's partials
+    before each merge and the halo rows of each dgrad's padded gradient
+    sent to their owners (``spatial.fold_halo_rows``): (1) IN2's partials;
+    (2) their merge over every rank (and W's split), dz2, dW2, dpad2; (3)
+    IN1's partials from fold(dpad2); (4) their merge, dz1, dW1's partials,
+    dpad1; (5) dx = g + fold(dpad1) and dW1."""
+    from nemar_tpu_torch.parallel import spatial
+
+    n, h, w, c = g.shape
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    g = g.contiguous()
+    f32 = dict(dtype=torch.float32, device=g.device)
+    splits = wgrad_splits(n, h, w, c)
+    part_in = torch.empty((n * -(-h * w // _BM), 2, c), **f32)
+    means = torch.empty((n, 2, c), **f32)
+    wsplit = torch.empty((4, 9 * c, c), **f32)
+    dz = torch.empty_like(g)
+    dpad = torch.empty((n, h + 2, w + 2, c), **f32)
+    part_w = torch.empty((splits, 9 * c, c), **f32)
+    dw1, dw2, dx = torch.empty_like(w1), torch.empty_like(w2), torch.empty_like(g)
+    _aligned("block_band_bwd_cuda", xp, y1, y1p, y2, g, w1, w2)
+    _build.launch("nemar_resblock_band_bwd_part", "ppppiiiii", g, y2, stats, part_in, 2,
+                  n, h, w, c)
+    parts = spatial.gather_parts(part_in)
+    _build.launch("nemar_resblock_band_bwd_dz2", "pppppppppppppiiiiii", parts, means, w1, w2,
+                  wsplit, g, y2, stats, dz, y1p, part_w, dw2, dpad, band.size, n, h, w, c,
+                  splits)
+    spatial.fold_halo_rows(dpad, band)
+    _build.launch("nemar_resblock_band_bwd_part", "ppppiiiii", dpad, y1, stats, part_in, 1,
+                  n, h, w, c)
+    parts = spatial.gather_parts(part_in)
+    _build.launch("nemar_resblock_band_bwd_dz1", "pppppppppiiiiii", parts, means, wsplit, dpad,
+                  y1, stats, dz, xp, part_w, band.size, n, h, w, c, splits)
+    spatial.fold_halo_rows(dpad, band)
+    _build.launch("nemar_resblock_band_bwd_dx", "pppppiiiii", g, dpad, dx, part_w, dw1,
+                  n, h, w, c, splits)
+    block_band_bwd_cuda.launches += 1
+    block_band_bwd_cuda.stages += 5
+    return dx, dw1, dw2
+
+
+block_band_bwd_cuda.launches = 0
+block_band_bwd_cuda.stages = 0
+
+
+class _FusedResblockBand(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, w2, band, eps):
+        from nemar_tpu_torch.parallel import spatial
+
+        c = x.shape[3]
+        pad = -c % _BN
+        if pad:
+            x = F.pad(x, (0, pad))
+            w1, w2 = F.pad(w1, (0, pad, 0, pad)), F.pad(w2, (0, pad, 0, pad))
+        one = (1,) * band.size
+        x = x.contiguous()
+        xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect")
+        out, saved = block_band_fwd_cuda(x, xp, w1, w2, band, eps)
+        ctx.band, ctx.c = band, c
+        ctx.save_for_backward(w1, w2, *saved)
+        return out[..., :c].contiguous() if pad else out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        c = ctx.c
+        w1, w2, *saved = ctx.saved_tensors
+        if w1.shape[2] != c:
+            g = F.pad(g, (0, w1.shape[2] - c))
+        dx, dw1, dw2 = block_band_bwd_cuda(w1, w2, *saved, g, ctx.band)
+        return dx[..., :c], dw1[:, :, :c, :c], dw2[:, :, :c, :c], None, None
+
+
+def fused_resblock_band(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """``fused_resblock`` of the frame of which the NHWC x is this rank's
+    band (``parallel.spatial.Band``): K-block's and K-block-bwd's band forms
+    on the card (fp32), ``resblock_band_plain`` on the CPU."""
+    if x.is_cuda:
+        return _FusedResblockBand.apply(x, w1, w2, band, eps)
+    return resblock_band_plain(x, w1, w2, band, eps)

@@ -315,3 +315,154 @@ def fused_convt_in(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"fused_convt_in: unsupported device {x.device}")
     return _FusedConvtIn.apply(x, w, eps)
+
+
+# ---------------------------------------------------------------------------
+# band form (--mesh_spatial): the decoder stage over this rank's band of the
+# frame (``parallel/spatial.py``). Output row 2i reads input row i - 1 (the
+# tap ky = 0), so the band takes one halo row from above (zeros at the
+# frame's top); its backward's dgrad reads d z row 2i + 2, one halo row of
+# d z from below (zeros at the frame's bottom).
+# ---------------------------------------------------------------------------
+def convt_band_plain(x: torch.Tensor, w: torch.Tensor, band, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of ``fused_convt_in_band`` (any device, differentiable
+    by autograd): the transposed conv of the band with its halo row above,
+    its 2H output rows kept, the frame's IN + relu."""
+    from nemar_tpu_torch.ops.norm import instance_norm_act_band
+    from nemar_tpu_torch.parallel import spatial
+
+    h = x.shape[1]
+    xp = spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
+                               mode="zeros")
+    y = convt_flax(xp, w)[:, 2:2 * h + 2]
+    return instance_norm_act_band(y, band.up(2), "relu", eps, plain=True)
+
+
+def convt_band_saved_plain(x: torch.Tensor, w: torch.Tensor, band, eps: float = 1e-5) -> tuple:
+    """Plain version of what K-convt's band form saves for its backward,
+    (xp, yhat, stats), from ``convt_band_plain``'s values (no gradient): a
+    check feeds them to K-convt-bwd's band form, so that the kernel and
+    the plain backward take the same relu mask."""
+    from nemar_tpu_torch.ops.norm import in_band_stats
+    from nemar_tpu_torch.parallel import spatial
+
+    h = x.shape[1]
+    with torch.no_grad():
+        xp = spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
+                                   mode="zeros").contiguous()
+        y = convt_flax(xp, w)[:, 2:2 * h + 2]
+        stats = in_band_stats(y, eps)
+        return xp, normalise(y, stats).contiguous(), stats
+
+
+def convt_band_fwd_cuda(xp: torch.Tensor, w: torch.Tensor, band, eps: float = 1e-5) -> tuple:
+    """K-convt in band form on the card: xp (N, H + 1, W, Ci) this rank's
+    band with its halo row above. Two launches around an all-gather of the
+    tile statistics: (1) W's split and the four planes' GEMMs over xp, (2)
+    the frame's (mu, rstd) from every rank's tiles and the apply. -> (out,
+    yhat, stats)."""
+    from nemar_tpu_torch.parallel import spatial
+
+    _check_cuda("convt_band_fwd_cuda", xp, w)
+    if xp.dtype != torch.float32:
+        raise TypeError("convt_band_fwd_cuda: the band form is fp32")
+    n, hp, wd, ci = xp.shape
+    h, co = hp - 1, w.shape[3]
+    w = w.contiguous()
+    f32 = dict(dtype=torch.float32, device=xp.device)
+    tiles = -(-h * wd // _BM)
+    wsplit = torch.empty((2, 9, co, ci), **f32)
+    yhat = torch.empty((n, 2 * h, 2 * wd, co), **f32)
+    out = torch.empty_like(yhat)
+    part = torch.empty((n * 4 * tiles, 2, co), **f32)
+    stats = torch.empty((n, 2, co), **f32)
+    _aligned("convt_band_fwd_cuda", xp, w)
+    _build.launch("nemar_convt_band_planes", "pppppiiiii", xp, w, wsplit, yhat, part,
+                  n, h, wd, ci, co)
+    parts = spatial.gather_parts(part)
+    _build.launch("nemar_convt_band_apply", "ppppiiiiif", parts, stats, yhat, out, band.size,
+                  n, h, wd, co, eps)
+    convt_band_fwd_cuda.launches += 1
+    convt_band_fwd_cuda.stages += 2
+    return out, yhat, stats
+
+
+convt_band_fwd_cuda.launches = 0
+convt_band_fwd_cuda.stages = 0
+
+
+def convt_band_bwd_cuda(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
+                        stats: torch.Tensor, g: torch.Tensor, band) -> tuple:
+    """K-convt-bwd in band form on the card: (dx, dw) of this rank's band
+    (dw its share). Three launches: (1) the IN backward's partials; an
+    all-gather; (2) their merge over every rank (and W's split) and dz; the
+    halo row of dz from below; (3) dW's partials and their sum, and the
+    dgrad over dz with its halo row."""
+    from nemar_tpu_torch.parallel import spatial
+
+    n, hp, wd, ci = xp.shape
+    h, co = hp - 1, w.shape[3]
+    w = w.contiguous()
+    g = g.contiguous()
+    f32 = dict(dtype=torch.float32, device=xp.device)
+    splits, per = wgrad_splits(n * h * wd, ci, co)
+    part_in = torch.empty((n * -(-(4 * h * wd) // _IN_TILE), 2, co), **f32)
+    means = torch.empty((n, 2, co), **f32)
+    wsplit = torch.empty((2, 9 * ci, co), **f32)
+    dz = torch.empty_like(yhat)
+    part_w = torch.empty((splits, 9 * ci, co), **f32)
+    dw, dx = torch.empty_like(w), torch.empty((n, h, wd, ci), **f32)
+    _aligned("convt_band_bwd_cuda", xp, w, yhat, stats, g)
+    _build.launch("nemar_convt_band_bwd_part", "pppiiii", g, yhat, part_in, n, h, wd, co)
+    parts = spatial.gather_parts(part_in)
+    _build.launch("nemar_convt_band_bwd_dz", "ppppppppiiiiii", parts, means, g, yhat, stats,
+                  dz, w, wsplit, band.size, n, h, wd, ci, co)
+    up = band.up(2)
+    dzp = spatial.exchange_rows(dz, up, (0,) * band.size, (1,) * band.size, dim=1,
+                                mode="zeros").contiguous()
+    _build.launch("nemar_convt_band_bwd_dx", "ppppppiiiiiii", xp, dzp, wsplit, part_w, dw, dx,
+                  n, h, wd, ci, co, splits, per)
+    convt_band_bwd_cuda.launches += 1
+    convt_band_bwd_cuda.stages += 3
+    return dx, dw
+
+
+convt_band_bwd_cuda.launches = 0
+convt_band_bwd_cuda.stages = 0
+
+
+class _FusedConvtInBand(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, band, eps):
+        from nemar_tpu_torch.parallel import spatial
+
+        ci, co = w.shape[2], w.shape[3]
+        pi, po = -ci % 4, -co % 4
+        if pi or po:
+            x, w = F.pad(x, (0, pi)), F.pad(w, (0, po, 0, pi))
+        xp = spatial.exchange_rows(x.contiguous(), band, (1,) * band.size, (0,) * band.size,
+                                   dim=1, mode="zeros").contiguous()
+        out, yhat, stats = convt_band_fwd_cuda(xp, w, band, eps)
+        ctx.band, ctx.ci, ctx.co = band, ci, co
+        ctx.save_for_backward(xp, w, yhat, stats)
+        return out[..., :co].contiguous() if po else out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xp, w, yhat, stats = ctx.saved_tensors
+        if w.shape[3] != ctx.co:
+            g = F.pad(g, (0, w.shape[3] - ctx.co))
+        dx, dw = convt_band_bwd_cuda(xp, w, yhat, stats, g, ctx.band)
+        return dx[..., :ctx.ci], dw[:, :, :ctx.ci, :ctx.co], None, None
+
+
+def fused_convt_in_band(x: torch.Tensor, w: torch.Tensor, band,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """``fused_convt_in`` of the frame of which the NHWC x is this rank's
+    band (``parallel.spatial.Band``): the output is the band of the 2H-row
+    frame (``band.up(2)``). K-convt's and K-convt-bwd's band forms on the
+    card (fp32), ``convt_band_plain`` on the CPU."""
+    if x.is_cuda:
+        return _FusedConvtInBand.apply(x, w, band, eps)
+    return convt_band_plain(x, w, band, eps)

@@ -87,16 +87,23 @@ def instance_norm_act_plain(x: torch.Tensor, act: str = "relu", eps: float = 1e-
     return _apply_act(instance_norm(_wide(x), eps), act, negative_slope).to(x.dtype)
 
 
+def _act_grad(y: torch.Tensor, g: torch.Tensor, act: str, negative_slope: float) -> torch.Tensor:
+    """g = d act(y) through the activation's mask at y, taken as a constant
+    (it is piecewise constant)."""
+    if act == "relu":
+        return torch.where(y > 0, g, 0.0)
+    if act == "leaky_relu":
+        return torch.where(y >= 0, g, negative_slope * g)
+    if act != "none":
+        raise ValueError(f"unknown act: {act!r}")
+    return g
+
+
 def _in_act_bwd(x, g, mean, rstd, act: str, negative_slope: float) -> torch.Tensor:
     """d x of act((x - mean) * rstd) given g = d y, the activation's mask
     taken as a constant (it is piecewise constant)."""
     y = (x - mean) * rstd
-    if act == "relu":
-        g = torch.where(y.detach() > 0, g, 0.0)
-    elif act == "leaky_relu":
-        g = torch.where(y.detach() >= 0, g, negative_slope * g)
-    elif act != "none":
-        raise ValueError(f"unknown act: {act!r}")
+    g = _act_grad(y.detach(), g, act, negative_slope)
     m1 = g.mean(dim=(1, 2), keepdim=True)
     m2 = (g * y).mean(dim=(1, 2), keepdim=True)
     return rstd * (g - m1 - y * m2)
@@ -183,3 +190,113 @@ def instance_norm_act(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,
     if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"instance_norm_act: unsupported device {x.device}")
     return _InstanceNormAct.apply(x, act, eps, negative_slope)
+
+
+# ---------------------------------------------------------------------------
+# band form (--mesh_spatial): the statistics of the whole frame of which x
+# is this rank's band (``parallel/spatial.py``)
+# ---------------------------------------------------------------------------
+def in_band_part_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of K-in's band partials, one chunk a band: (N, 1, 3, C)
+    float64 = (count, mean, M2) of the band."""
+    xd = x.double()
+    n, h, w, c = x.shape
+    mean = xd.mean(dim=(1, 2))
+    m2 = torch.square(xd - mean[:, None, None]).sum(dim=(1, 2))
+    return torch.stack([torch.full_like(mean, h * w), mean, m2], dim=1)[:, None]
+
+
+def in_band_stats_plain(parts: torch.Tensor, eps: float) -> torch.Tensor:
+    """(mean, rstd) (N, 2, C) in float64 from every rank's partials (ranks,
+    N, chunks, 3, C), merged in rank then chunk order (Chan's formula)."""
+    count, mean_t, m2_t = parts[:, :, :, 0], parts[:, :, :, 1], parts[:, :, :, 2]
+    total = count.sum(dim=(0, 2))
+    mean = (count * mean_t).sum(dim=(0, 2)) / total
+    m2 = (m2_t + count * torch.square(mean_t - mean[None, :, None])).sum(dim=(0, 2))
+    return torch.stack([mean, 1.0 / torch.sqrt(m2 / total + eps)], dim=1)
+
+
+def in_band_stats(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(mean, rstd) (N, 2, C) of the frame of which the NHWC x is this
+    rank's band, in x's type: every rank's plain partials, all-gathered
+    over the spatial group, merged (no gradient)."""
+    from nemar_tpu_torch.parallel import spatial
+
+    return in_band_stats_plain(spatial.gather_parts(in_band_part_plain(x)), eps).to(x.dtype)
+
+
+def in_band_bwd_part_plain(x, g, stats, act: str, slope: float) -> torch.Tensor:
+    """Plain version of K-in-bwd's band partials: (N, 1, 2, C) float64 =
+    the band's sums of gh and gh * yhat."""
+    yh = normalise(x, stats)
+    gh = _act_grad(yh, g, act, slope)
+    return torch.stack([gh.double().sum(dim=(1, 2)), (gh * yh).double().sum(dim=(1, 2))],
+                       dim=1)[:, None]
+
+
+def in_band_bwd_apply_plain(x, g, stats, parts, frame_pixels: int, act: str,
+                            slope: float) -> torch.Tensor:
+    """Plain version of K-in-bwd's band apply: the frame's means from every
+    rank's partials, then d x of the band."""
+    m = (parts.sum(dim=(0, 2)) / frame_pixels).to(x.dtype)
+    y = normalise(x, stats)
+    return stats[:, None, None, 1] * (_act_grad(y, g, act, slope) - m[:, None, None, 0]
+                                      - y * m[:, None, None, 1])
+
+
+class _InstanceNormActBand(torch.autograd.Function):
+    """K-in / K-in-bwd on a band: partials, an all-gather over the spatial
+    group, a merge in one fixed order and the apply. On the card the band
+    launches of ``csrc/in_band.cu``; on the CPU (or ``plain``) the plain
+    versions, one partial a band."""
+
+    @staticmethod
+    def forward(ctx, x, band, act, eps, slope, plain):
+        from nemar_tpu_torch.parallel import spatial
+
+        cuda = x.is_cuda and not plain
+        n, h, w, c = x.shape
+        ctx.chunks = norm_cuda.band_chunks(max(b - a for a, b in band.bounds) * w)
+        if cuda:
+            parts = spatial.gather_parts(norm_cuda.in_band_part_cuda(x, ctx.chunks))
+            y, stats = norm_cuda.in_band_apply_cuda(x, parts, act, eps, slope)
+        else:
+            stats = in_band_stats(x, eps)
+            y = _apply_act(normalise(x, stats), act, slope)
+        ctx.band, ctx.act, ctx.slope, ctx.cuda = band, act, slope, cuda
+        ctx.frame_pixels = band.height * w
+        ctx.save_for_backward(x, stats)
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        from nemar_tpu_torch.parallel import spatial
+
+        x, stats = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.cuda:
+            part = norm_cuda.in_band_bwd_part_cuda(x, g, stats, ctx.chunks, ctx.act, ctx.slope)
+            parts = spatial.gather_parts(part)
+            dx = norm_cuda.in_band_bwd_apply_cuda(x, g, stats, parts, ctx.frame_pixels, ctx.act,
+                                                  ctx.slope)
+        else:
+            parts = spatial.gather_parts(in_band_bwd_part_plain(x, g, stats, ctx.act, ctx.slope))
+            dx = in_band_bwd_apply_plain(x, g, stats, parts, ctx.frame_pixels, ctx.act,
+                                         ctx.slope)
+        return dx, None, None, None, None, None
+
+
+def instance_norm_act_band(x: torch.Tensor, band, act: str = "relu", eps: float = 1e-5,
+                           negative_slope: float = 0.2, plain: bool = False) -> torch.Tensor:
+    """``instance_norm_act`` of the frame of which the NHWC x is this rank's
+    band (``parallel.spatial.Band``): the frame's statistics, differentiable
+    once (the WGAN-GP penalty's double backward is refused under
+    --mesh_spatial). ``plain`` takes the plain versions on the card too
+    (the kernels' comparison)."""
+    if act not in ("none", "relu", "leaky_relu"):
+        raise ValueError(f"unknown act: {act!r}")
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError("instance_norm_act_band: --bf16 under --mesh_spatial is "
+                                  "refused (ROADMAP.md A10c)")
+    return _InstanceNormActBand.apply(x.contiguous(), band, act, eps, negative_slope, plain)

@@ -93,3 +93,89 @@ def instance_norm_act_bwd_bf16_cuda(x: torch.Tensor, g: torch.Tensor, stats: tor
 
 
 instance_norm_act_bwd_bf16_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# band form (--mesh_spatial): csrc/in_band.cu, two launches a direction with
+# the caller's all-gather of the partials between them
+# ---------------------------------------------------------------------------
+BAND_CHUNK = 256  # pixels of a band's partial
+
+
+def band_chunks(hw_most: int) -> int:
+    """Partials per sample: the largest band's pixels in chunks of
+    BAND_CHUNK (one count for every rank, so the partials gather)."""
+    return max(1, -(-hw_most // BAND_CHUNK))
+
+
+def _check_band(what: str, *tensors) -> None:
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: takes contiguous float32 CUDA tensors, got "
+                             f"{t.dtype} on {t.device}")
+
+
+def in_band_part_cuda(x: torch.Tensor, chunks: int) -> torch.Tensor:
+    """K-in band form, stage 1: x (N, H, W, C), a band -> part (N, chunks,
+    3, C) float64, each chunk's (count, mean, M2)."""
+    _check_band("in_band_part_cuda", x)
+    n, h, w, c = x.shape
+    part = torch.empty((n, chunks, 3, c), dtype=torch.float64, device=x.device)
+    _build.launch("nemar_in_band_fwd_part", "ppiiiii", x, part, n, h * w, c, BAND_CHUNK, chunks)
+    in_band_part_cuda.launches += 1
+    return part
+
+
+in_band_part_cuda.launches = 0
+
+
+def in_band_apply_cuda(x: torch.Tensor, parts: torch.Tensor, act: str, eps: float,
+                       slope: float) -> tuple:
+    """K-in band form, stage 2: every rank's partials (ranks, N, chunks, 3,
+    C) merged in one fixed order, applied -> (y, stats (N, 2, C))."""
+    _check_band("in_band_apply_cuda", x)
+    n, h, w, c = x.shape
+    ranks, chunks = parts.shape[0], parts.shape[2]
+    y = torch.empty_like(x)
+    stats = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    _build.launch("nemar_in_band_fwd_apply", "ppppiiiiiiff", x, parts.contiguous(), y, stats,
+                  ranks, n, h * w, c, chunks, _ACT_CODE[act], eps, slope)
+    in_band_apply_cuda.launches += 1
+    return y, stats
+
+
+in_band_apply_cuda.launches = 0
+
+
+def in_band_bwd_part_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, chunks: int,
+                          act: str, slope: float) -> torch.Tensor:
+    """K-in-bwd band form, stage 1: -> part (N, chunks, 2, C) float64, each
+    chunk's sums of gh and gh * yhat."""
+    _check_band("in_band_bwd_part_cuda", x, g, stats)
+    n, h, w, c = x.shape
+    part = torch.empty((n, chunks, 2, c), dtype=torch.float64, device=x.device)
+    _build.launch("nemar_in_band_bwd_part", "ppppiiiiiif", x, g, stats, part, n, h * w, c,
+                  BAND_CHUNK, chunks, _ACT_CODE[act], slope)
+    in_band_bwd_part_cuda.launches += 1
+    return part
+
+
+in_band_bwd_part_cuda.launches = 0
+
+
+def in_band_bwd_apply_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
+                           parts: torch.Tensor, frame_pixels: int, act: str,
+                           slope: float) -> torch.Tensor:
+    """K-in-bwd band form, stage 2: the means over the frame's
+    ``frame_pixels`` from every rank's partials, then d x of the band."""
+    _check_band("in_band_bwd_apply_cuda", x, g, stats)
+    n, h, w, c = x.shape
+    ranks, chunks = parts.shape[0], parts.shape[2]
+    dx = torch.empty_like(x)
+    _build.launch("nemar_in_band_bwd_apply", "pppppiiiiilif", x, g, stats, parts.contiguous(), dx,
+                  ranks, n, h * w, c, chunks, frame_pixels, _ACT_CODE[act], slope)
+    in_band_bwd_apply_cuda.launches += 1
+    return dx
+
+
+in_band_bwd_apply_cuda.launches = 0

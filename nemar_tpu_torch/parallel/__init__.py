@@ -39,6 +39,12 @@ function here is the identity, so a one-process run is the code path it
 was before. Inside one, ``world()`` may still be 1 (one device through
 NCCL): then the gradients and losses go through the collective (a copy)
 and batch norm, dropout and the pool take their one-process paths.
+
+``--mesh_spatial s`` (``set_mesh``) lays the W ranks out as the JAX
+package's ('data', 'spatial') mesh, (W / s, s), rank r at (r // s, r % s):
+the batch is split over 'data' (``data_world``, ``data_rank``: the row
+functions below follow it), the image height over 'spatial', in bands
+(``parallel/spatial.py``). The parameters stay replicated.
 """
 
 from __future__ import annotations
@@ -60,6 +66,19 @@ import torch.distributed as dist
 
 # the device ``launch`` gave this process (None outside a launch)
 _device: torch.device | None = None
+# the ('data', 'spatial') grid of a --mesh_spatial run (None: all on 'data')
+_mesh: "Mesh | None" = None
+
+
+class Mesh:
+    """The rank grid of ``set_mesh``: ``spatial`` ranks a spatial group,
+    this rank's two groups (``torch.distributed`` process groups: the ranks
+    that share its data index, and those that share its spatial index)."""
+
+    def __init__(self, spatial: int, spatial_group, data_group):
+        self.spatial = spatial
+        self.spatial_group = spatial_group
+        self.data_group = data_group
 
 
 def initialized() -> bool:
@@ -73,6 +92,55 @@ def rank() -> int:
 
 def world() -> int:
     return dist.get_world_size() if initialized() else 1
+
+
+def set_mesh(spatial: int) -> None:
+    """Lay this run's ranks out as the JAX package's ``make_mesh(spatial=
+    ...)``: (W / spatial, spatial), rank r at (r // spatial, r % spatial).
+    ``spatial`` must divide W (the JAX package's ValueError). Every rank
+    calls it, and makes one ``new_group`` per spatial group and then one per
+    data group, in the same order. spatial 1 leaves every rank on 'data'."""
+    global _mesh
+    w = world()
+    if spatial < 1 or w % spatial:
+        raise ValueError(f"spatial={spatial} must divide device count {w}")
+    _mesh = None
+    if spatial == 1:
+        return
+    d = w // spatial
+    spatial_groups = [dist.new_group([k * spatial + j for j in range(spatial)]) for k in range(d)]
+    data_groups = [dist.new_group([k * spatial + j for k in range(d)]) for j in range(spatial)]
+    _mesh = Mesh(spatial, spatial_groups[rank() // spatial], data_groups[rank() % spatial])
+
+
+def spatial_size() -> int:
+    """Ranks of a spatial group (--mesh_spatial; 1 outside such a run)."""
+    return _mesh.spatial if _mesh is not None else 1
+
+
+def spatial_rank() -> int:
+    """This rank's index in its spatial group: its band of the height."""
+    return rank() % spatial_size()
+
+
+def spatial_group():
+    """The process group of this rank's spatial group (None: no mesh)."""
+    return _mesh.spatial_group if _mesh is not None else None
+
+
+def data_world() -> int:
+    """Ranks over which the batch is split: W / --mesh_spatial."""
+    return world() // spatial_size()
+
+
+def data_rank() -> int:
+    return rank() // spatial_size()
+
+
+def data_group():
+    """The process group of the ranks that hold this rank's band (the
+    default group without a mesh)."""
+    return _mesh.data_group if _mesh is not None else None
 
 
 def device() -> torch.device | None:
@@ -212,10 +280,11 @@ def _rank_main(r: int, n: int, dev: torch.device, backend: str, init: str, pg_ti
 
 
 def sharded(n: int) -> bool:
-    """Whether a global (micro)batch of n rows is split over the ranks: W
-    divides it, as the JAX package's ``shard_batch`` asks; otherwise each
-    rank holds all of it (replicated)."""
-    w = world()
+    """Whether a global (micro)batch of n rows is split over the ranks: the
+    'data' axis (W, or W / --mesh_spatial) divides it, as the JAX package's
+    ``shard_batch`` asks; otherwise each rank holds all of it
+    (replicated)."""
+    w = data_world()
     return w > 1 and n % w == 0
 
 
@@ -223,8 +292,8 @@ def rows_in(n: int) -> slice:
     """This rank's rows of a global (micro)batch of n rows."""
     if not sharded(n):
         return slice(0, n)
-    s = n // world()
-    return slice(rank() * s, (rank() + 1) * s)
+    s = n // data_world()
+    return slice(data_rank() * s, (data_rank() + 1) * s)
 
 
 def shard_slices(n: int, k: int = 1) -> list:
@@ -242,7 +311,7 @@ def shard_rows(batch: dict, k: int = 1) -> dict:
     per-row lists): for each of its k microbatches the rank's shard,
     concatenated, so ``torch.chunk(local, k)`` gives the rank's shard of
     each global microbatch. Values without the batch's rows pass through."""
-    if world() == 1:
+    if data_world() == 1:
         return batch
     n = len(batch["A"])
     slices = shard_slices(n, k)
@@ -263,7 +332,10 @@ def shard_rows(batch: dict, k: int = 1) -> dict:
 
 def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:
     """Average the gradients of ``params`` over the ranks, in place: one
-    flat buffer in the parameters' order, SUM, then divided by W. A None
+    flat buffer in the parameters' order, SUM over all W ranks, then
+    divided by the data width (W, or W / --mesh_spatial: a rank of a
+    spatial group holds its band's share of its rows' gradient, so the sum
+    over the group is the whole frame's). A None
     grad counts as zeros, so every rank reduces the same layout, and stays
     None (every rank runs the same step, so it is None on every rank: the
     fused blocks' inert biases). Nothing here waits for the device, so a
@@ -277,7 +349,7 @@ def all_reduce_grads(params: Sequence[torch.Tensor]) -> None:
                       else torch.zeros(p.numel(), dtype=p.dtype, device=p.device)
                       for p in params])
     dist.all_reduce(flat)
-    flat.div_(world())
+    flat.div_(data_world())
     offset = 0
     for p in params:
         if p.grad is not None:
@@ -289,13 +361,14 @@ all_reduce_grads.calls = 0
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's x (the same shape on each) concatenated along dim 0 in
-    rank order: the global batch of a sharded one. No gradient."""
-    if world() == 1:
+    """Every rank's x of this rank's data group (the same shape on each)
+    concatenated along dim 0 in rank order: the global batch of a sharded
+    one (of this rank's band, under --mesh_spatial). No gradient."""
+    if data_world() == 1:
         return x
     x = x.detach().contiguous()
-    parts = [torch.empty_like(x) for _ in range(world())]
-    dist.all_gather(parts, x)
+    parts = [torch.empty_like(x) for _ in range(data_world())]
+    dist.all_gather(parts, x, group=data_group())
     return torch.cat(parts)
 
 
@@ -328,7 +401,9 @@ class _SumOverRanks(torch.autograd.Function):
 
 def mean_over_ranks(values: dict) -> dict:
     """{name: scalar tensor or float} -> {name: float}, each the mean over
-    the ranks (every rank calls it with the same names)."""
+    the ranks (every rank calls it with the same names): the sum over all W
+    ranks over the data width, so under --mesh_spatial, where a rank's
+    value is its band's share of its rows' loss, the global loss."""
     names = list(values)
     if not initialized() or not names:
         return {k: float(values[k]) for k in names}
@@ -336,5 +411,5 @@ def mean_over_ranks(values: dict) -> dict:
     t = torch.stack([torch.as_tensor(values[k], dtype=torch.float64).reshape(()).to(dev)
                      for k in names])
     dist.all_reduce(t)
-    t = (t / world()).cpu()
+    t = (t / data_world()).cpu()
     return {k: float(t[i]) for i, k in enumerate(names)}

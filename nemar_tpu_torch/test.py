@@ -22,11 +22,14 @@ which no data axis of two or more divides (``nemar_tpu/parallel/mesh.py:
 shard_batch``), so every device computes the same outputs as one.
 """
 
+import contextlib
 import json
 import os
 
 import numpy as np
+import torch
 
+from nemar_tpu_torch import parallel
 from nemar_tpu_torch.data import create_dataset
 from nemar_tpu_torch.utils import html as html_mod
 from nemar_tpu_torch.utils import metrics as M
@@ -62,6 +65,28 @@ def main(args=None) -> dict:
     """Run the test loop; returns the registration summary (empty without
     ``--eval_registration``)."""
     opt = TestOptions().parse(args)
+    s = opt.mesh_spatial
+    if s > 1:
+        devs = parallel.devices(opt) if opt.gpu_ids else [torch.device("cpu")] * s
+        if len(devs) < s:
+            raise ValueError(f"spatial={s} must divide device count {len(devs)}")
+        return parallel.launch(_test_rank, devs[:s], args=(opt,))[0]
+    return _test(opt)
+
+
+def _test_rank(opt) -> dict:
+    """One rank of a --mesh_spatial test run: its band; rank 0 prints and
+    writes."""
+    parallel.set_mesh(opt.mesh_spatial)
+    with contextlib.ExitStack() as stack:
+        if parallel.rank() != 0:
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        return _test(opt)
+
+
+def _test(opt) -> dict:
+    lead = parallel.rank() == 0
     dataset = create_dataset(opt)
     model = create_model(opt)
     model.setup(opt)
@@ -86,19 +111,22 @@ def main(args=None) -> dict:
         img_path = model.get_image_paths()
         if i % 5 == 0:
             print(f"processing ({i:04d})-th image... {img_path}")
-        save_images(webpage, visuals, img_path, aspect_ratio=opt.aspect_ratio,
-                    width=opt.display_winsize)
+        if lead:
+            save_images(webpage, visuals, img_path, aspect_ratio=opt.aspect_ratio,
+                        width=opt.display_winsize)
         if evaluating and "reg_fakeB" in visuals:  # a registration model
             accumulate_metrics(metrics_acc, visuals, getattr(model, "last_flow", None),
                                data.get("theta_gt"))
-    webpage.save()
+    if lead:
+        webpage.save()
 
     summary = {}
     if evaluating:
         summary = summarize(metrics_acc)
         print(f"registration eval: {summary}")
-        with open(os.path.join(web_dir, "eval.json"), "w") as f:
-            json.dump(summary, f, indent=1)
+        if lead:
+            with open(os.path.join(web_dir, "eval.json"), "w") as f:
+                json.dump(summary, f, indent=1)
     return summary
 
 

@@ -38,6 +38,12 @@ global batch's means. ``main`` then returns each rank's
 states.
     python -m nemar_tpu_torch.train --gpu_ids 0,1,2,3 --batch_size 32 ...
     python -m nemar_tpu_torch.train --gpu_ids -1 --num_devices 2 ...   # 2 CPU ranks
+
+``--mesh_spatial s`` lays the ranks out as the JAX package's ('data',
+'spatial') mesh, (W / s, s) (``parallel.set_mesh``): each rank also keeps
+its band of the image height (the nemar model's spatial step); s must
+divide W, as the JAX package's ``make_mesh`` asks.
+    python -m nemar_tpu_torch.train --gpu_ids -1 --num_devices 4 --mesh_spatial 2 ...
 """
 
 import contextlib
@@ -59,6 +65,8 @@ def main(args=None):
     ``state_digest`` (printed too)."""
     opt = TrainOptions().parse(args)
     devs = parallel.devices(opt)
+    if opt.mesh_spatial < 1 or len(devs) % opt.mesh_spatial:
+        raise ValueError(f"spatial={opt.mesh_spatial} must divide device count {len(devs)}")
     if len(devs) == 1:
         return _train(opt)
     digests = parallel.launch(_train_rank, devs, args=(opt,))
@@ -69,6 +77,7 @@ def main(args=None):
 def _train_rank(opt, dtype: torch.dtype | None = None):
     """One rank of a data-parallel run: the loop, with this rank's rows;
     only rank 0 prints. -> its ``state_digest``."""
+    parallel.set_mesh(opt.mesh_spatial)
     with contextlib.ExitStack() as stack:
         if parallel.rank() != 0:
             stack.enter_context(contextlib.redirect_stdout(

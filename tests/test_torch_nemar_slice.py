@@ -182,10 +182,13 @@ def test_unported_flags_raise(tmp_path, flag):
     shadows, and without them on disk its setup raises (never random
     weights). ``--netG unet_256`` was one until A9 was: it now builds a UNet
     G, whose forward at this 32^2 crop raises the JAX package's error (it
-    needs 256^2)."""
+    needs 256^2). ``--mesh_spatial 2`` was one until A10b was: it now
+    builds, and outside a spatial group (one process, as here) answers the
+    request on the whole frame; ``test.py`` launches its ranks
+    (``tests/test_torch_spatial.py``)."""
     opt = TestOptions().parse(_port_args(tmp_path, *flag))
     if flag in (["--stn_type", "affine"], ["--init_type", "xavier"], ["--use_ema"],
-                ["--bf16"]):
+                ["--bf16"], ["--mesh_spatial", "2"]):
         model = create_model(opt)
         if flag == ["--stn_type", "affine"]:
             assert type(model.netR).__name__ == "AffineSTN"

@@ -387,12 +387,94 @@ def test_train_path_imports_no_jax(tmp_path):
 
 
 @pytest.mark.parametrize("flag,label", [
-    (["--opt_fused"], "TPU-only Adam layouts, not to port"),
-    (["--opt_split"], "TPU-only Adam layouts, not to port"),
+    (["--opt_fused"], "opt_fused"),
+    (["--opt_split"], "opt_split"),
 ])
 def test_unported_train_flags_raise(tmp_path, flag, label):
-    with pytest.raises(NotImplementedError, match=label):
-        create_model(_port_opt(tmp_path, *flag))
+    """--opt_fused and --opt_split were refused as TPU-only Adam layouts
+    until the port took them: the JAX package's flat-bucket Adam is the
+    same elementwise math (``nemar_tpu/models/optim.py``), here torch's
+    multi-tensor Adam (``foreach``). Two steps with the flag equal two
+    without it bit for bit (parameters and Adam moments); --opt_split keeps
+    the JAX package's two refusals, word for word."""
+    rng = np.random.default_rng(9)
+    batches = [{"A": rng.uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32),
+                "B": rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)} for _ in range(2)]
+    models = []
+    for extra in ([], flag):
+        model = create_model(_port_opt(tmp_path / label / str(len(extra)), *extra))
+        model.setup(model.opt)
+        model.set_epoch(1)
+        for batch in batches:
+            model.set_input(batch)
+            model.optimize_parameters()
+        models.append(model)
+    plain, fused = models
+    assert all(o.defaults["foreach"] is True for o in fused.optimizers.values())
+    for n in "GDR":
+        for (k, p), q in zip(plain.nets()[n].named_parameters(), fused.nets()[n].parameters()):
+            assert torch.equal(p, q), (n, k)
+            if p not in plain.optimizers[n].state:  # an inert bias: no gradient, no state
+                assert q not in fused.optimizers[n].state
+                continue
+            for m in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(plain.optimizers[n].state[p][m],
+                                   fused.optimizers[n].state[q][m]), (n, k, m)
+    if flag == ["--opt_split"]:
+        with pytest.raises(ValueError, match=r"--opt_split is per-step \(two programs\); "
+                                             r"incompatible with --steps_per_execution > 1"):
+            create_model(_port_opt(tmp_path / "spe", *flag, "--steps_per_execution", "2"))
+        with pytest.raises(ValueError, match="--opt_split is incompatible with --grad_accum > 1"):
+            create_model(_port_opt(tmp_path / "acc", *flag, "--grad_accum", "2"))
+
+
+def test_opt_fused_step_matches_jax_float64(tmp_path):
+    """One --opt_fused step of the port against the JAX package's
+    (``make_adam(fused=True)``: Adam over flat buckets), both in float64
+    from the same parameters and numpy batch: losses and gradients within
+    1e-9, parameters within 1e-10 (``test_torch_model_families``'s
+    ``_hold_losses`` and ``_hold_step``)."""
+    import test_torch_model_families as fam
+    import test_torch_nemar_pallas_all as pa
+
+    flags = [*fam.NEMAR_BATCH[:2], *fam.NEMAR_BATCH[4:], "--opt_fused"]
+    jm = fam._jax_model(tmp_path, flags)
+    assert len(jm.tx.init({"a": jnp.zeros(3)})) == 1  # flat buckets
+    rng = np.random.default_rng(14)
+    params = {n: fam._draw(getattr(jm.state, f"params_{n}"), rng) for n in "GDR"}
+    rec = []
+    jm.tx, jm.tx_R = _recording(jm.tx, "GD", rec), _recording(jm.tx_R, "R", rec)
+    batch = {k: rng.uniform(-1, 1, (2, 32, 32, c)).astype(np.float32)
+             for k, c in (("A", 1), ("B", 3))}
+    with pa.jax_float64():
+        p = {n: fam._f64(t) for n, t in params.items()}
+        state = fam._one_device(jm.state.replace(
+            params_G=p["G"], params_D=p["D"], params_R=p["R"],
+            opt_G={"G": jm.tx.init(p["G"]), "R": jm.tx_R.init(p["R"])},
+            opt_D=jm.tx.init(p["D"])))
+        state, metrics = jax.jit(lambda *a: jm._train_step_impl(*a))(
+            state, jnp.asarray(batch["A"], jnp.float64), jnp.asarray(batch["B"], jnp.float64),
+            jnp.float64(LR), jm._gan_w_scalar(), jm._r_gate_scalar())
+        jax.block_until_ready(state)
+    grads = {}
+    for tag, t in rec:
+        grads["R" if tag == "R" else ("G" if "ResnetBlock_0" in t["params"] else "D")] = t
+    model = create_model(TrainOptions().parse(
+        [*flags, "--dataset_mode", "synthetic", "--gpu_ids", "-1", "--checkpoints_dir",
+         str(tmp_path / "port")]))
+    model.to_dtype(torch.float64)
+    starts = {n: flax_to_torch(params[n], model.nets()[n], torch.float64) for n in "GDR"}
+    for n in "GDR":
+        model.nets()[n].load_state_dict(starts[n])
+    model.setup(model.opt)
+    model.set_epoch(1)
+    model.set_input(batch)
+    model.optimize_parameters()
+    fam._hold_losses(dict(model.get_current_losses()),
+                     {k: float(metrics[k]) for k in model.loss_names})
+    for n in "GDR":
+        fam._hold_step(n, model.nets()[n], grads[n],
+                       jax.device_get(getattr(state, f"params_{n}")), starts[n], 1)
 
 
 def test_vanilla_gan_loss_matches_jax():

@@ -257,7 +257,11 @@ def test_a_rank_that_raises_fails_the_launch():
 
 def test_refusals(tmp_path):
     """Ids without CUDA raise (no CPU fallback); --num_devices keeps the
-    first ids; --mesh_spatial stays refused, by its ROADMAP item."""
+    first ids. --mesh_spatial was refused (ROADMAP A10b) until it was
+    ported: the model now builds at --mesh_spatial 2, and the entry point
+    refuses a spatial axis that does not divide the devices, with the JAX
+    package's ``make_mesh`` error (``tests/test_torch_spatial.py`` holds
+    the spatial runs)."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the refusal is for CPU-only machines")
     argv = [*RUN, *NEMAR, "--checkpoints_dir", str(tmp_path)]
@@ -270,8 +274,9 @@ def test_refusals(tmp_path):
     assert TrainOptions().parse([*argv, "--gpu_ids", "0,1,2", "--num_devices", "2"]).gpu_ids \
         == [0, 1]
     opt = TrainOptions().parse([*argv, "--gpu_ids", "-1", "--mesh_spatial", "2"])
-    with pytest.raises(NotImplementedError, match="A10b"):
-        create_model(opt)
+    assert create_model(opt).spatial
+    with pytest.raises(ValueError, match="spatial=2 must divide device count 1"):
+        port_train.main([*argv, "--gpu_ids", "-1", "--mesh_spatial", "2"])
 
 
 def test_cli_two_ranks(tmp_path):
