@@ -263,9 +263,16 @@ is not 0.
      K-in-bwd, K-block, K-block-bwd, K-convt, K-convt-bwd, K-head,
      K-head-bwd, K-warp, K-warp-bwd) on the card against its plain band
      form on the card (the plain ops with the same exchanges) at the band
-     shapes of the 256^2 b8 step, within the kernel's TOL, and bit for bit
-     in two calls; then one b1 request, which gathers the frames, within
-     the inference limit (1e-3) of the one-process request; then
+     shapes of the 256^2 b8 step and of phase 19b's recipe, within the
+     kernel's TOL, and bit for bit in two calls, the bf16 band forms of
+     K-in, K-block, K-convt and their backwards at both against their
+     plain bf16 band forms (K-in's and K-convt's forwards within BF16_ULPS
+     of each value and their statistics within BF16_FP32_TOL, K-block's
+     forward stage by stage, the backwards within BF16_ULPS of the
+     tensor's largest value), each timed forward and backward beside its
+     plain band form; then one b1
+     request, which gathers the frames, within the inference limit (1e-3)
+     of the one-process request; then
      SPATIAL_STEPS b8 steps from phase 6's shared state: the ranks' states
      bit-identical after each, the first step within phase 6's limits of
      the one-process step (``_hold_two_ranks``), each kernel's launches per
@@ -273,6 +280,18 @@ is not 0.
      SPATIAL_STEP_LAUNCHES), ms a step per rank, and each rank's peak
      allocated memory over its first step beside the one-process step's,
      with the bytes each step saves for its backwards (``saved_bytes``).
+  19b. the registration recipe in bands (``run_spatial_recipe``; two ranks
+     on cuda:0 over gloo): the science arms' 256^2 flags (SCIENCE_SHARED,
+     SCIENCE_ARMS), the multiscale arm under --bf16 for
+     SPATIAL_RECIPE_STEPS b8 steps, then one affine-arm step in fp32, each
+     from a state saved from the seed with R's heads drawn: the ranks
+     bit-identical, the launches per step and rank
+     (SPATIAL_RECIPE_LAUNCHES: the bf16 band forms' calls and stages, the
+     fp32 ones' for the affine arm), the bf16 step within
+     test_torch_bf16.py's rule (a) of the one-process bf16 step
+     (``_hold_bf16_rule_a``), the affine step within phase 6's limits of
+     the one-process step, ms a step and each rank's peak memory over its
+     first step beside the one-process step's.
 
 The smoke's total time is printed (``[total]``) before the device lines.
 The line before the last is a JSON object with one entry per kernel. For a
@@ -292,7 +311,13 @@ variants have entries of their own (``K-block-bf16``, ...): the same
 totals at bf16 (their bound's operations at the 989 TFLOP/s bf16 peak),
 their launches from phase 12's requests and steps, and cuDNN's bf16
 convolutions of the same shapes (F.instance_norm at bf16 for K-in) as a
-yardstick. The last line is ``{"ok": true, "device": {...}}``.
+yardstick. The band forms (phases 19 and 19b) have entries of their own,
+``<kernel>-band`` and ``<kernel>-band-bf16`` (``band_kernel_entries``): one
+call at the 256^2 b8 step's band shapes (summed over K-convt's two), its
+exchanges and all-gathers included, beside its plain band form, its
+bound the band's work, and its stage launches in the main path's first
+step (phase 19's fp32 step, 19b's bf16 step). The last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1743,7 +1768,12 @@ def _zero_grad_biases(model) -> dict:
     d = {f"Conv_{i}.bias" for i in range(1, model.netD.n_layers + 1)}
     if model.gan_mode == "wgangp":
         d.add(f"Conv_{model.netD.n_layers + 1}.bias")
-    r = {f"Conv_{i}.bias" for i in range(model.netR.n_convs - 1)}
+    net_r = model.netR
+    if hasattr(net_r, "n_downs"):  # the affine STN
+        r = {f"Conv_{i}.bias" for i in range(net_r.n_downs)}
+    else:  # the UNet: every conv but the flow heads
+        heads = set(net_r.head_index.values())
+        r = {f"Conv_{i}.bias" for i in range(net_r.n_convs) if i not in heads}
     return {"G": g, "D": d, "R": r}
 
 
@@ -4446,7 +4476,38 @@ SPATIAL_STEP_LAUNCHES = {"K-block": 0, "K-warp": 1, "K-in": 0, "K-head": 2, "K-c
 # merge + apply), K-block 4 (conv1, stats, conv2, residual), K-block-bwd 5,
 # K-convt 2, K-convt-bwd 3; each stage's launcher is a few kernels
 SPATIAL_BAND_STEP = {"K-in": (22, 44), "K-in-bwd": (22, 44), "K-block": (12, 48),
-                     "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12)}
+                     "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12),
+                     **{k + "-bf16": (0, 0) for k in ("K-in", "K-in-bwd", "K-block",
+                                                      "K-block-bwd", "K-convt", "K-convt-bwd")}}
+
+
+# phase 19b: the registration recipe in bands, two ranks of one spatial group
+# on cuda:0 over gloo: the science arms' 256^2 flags (SCIENCE_SHARED,
+# SCIENCE_ARMS: ngf/ndf 32, stn_ngf 16, stn_depth 6, b8, --recon_pyramid 5,
+# --border_mask), the multiscale arm under --bf16 for SPATIAL_RECIPE_STEPS
+# steps, then one affine-arm step in fp32, from a saved state of each arm
+# with R's heads drawn (R_HEAD_DRAW)
+SPATIAL_RECIPE_STEPS = 2
+SPATIAL_RECIPE = {"multiscale": (["--bf16"], SPATIAL_RECIPE_STEPS), "affine": ([], 1)}
+# launches per step and rank: the kernels that run as they are (phase 7's
+# and 7b's counts: SCIENCE_LAUNCHES' working; under --bf16 K-warp and K-head
+# on their fp32 kernels), the band forms' (calls, stages) where phase 7's
+# and 7b's steps make a call (K-in 24 / 17 a step and its backward alike)
+_BAND_ZERO = {k + t: (0, 0) for t in ("", "-bf16")
+              for k in ("K-in", "K-in-bwd", "K-block", "K-block-bwd", "K-convt", "K-convt-bwd")}
+SPATIAL_RECIPE_LAUNCHES = {
+    "multiscale": ({"K-warp": 7, "K-warp-bwd": 6, "K-head": 2, "K-head-bwd": 2},
+                   {**_BAND_ZERO, "K-in-bf16": (24, 48), "K-in-bwd-bf16": (24, 48),
+                    "K-block-bf16": (12, 48), "K-block-bwd-bf16": (12, 60),
+                    "K-convt-bf16": (4, 8), "K-convt-bwd-bf16": (4, 12)}),
+    "affine": ({"K-warp": 2, "K-warp-bwd": 1, "K-head": 2, "K-head-bwd": 2},
+               {**_BAND_ZERO, "K-in": (17, 34), "K-in-bwd": (17, 34), "K-block": (12, 48),
+                "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12)}),
+}
+# test_torch_bf16.py's rule (a): a tensor of at most BF16_FEW elements is
+# held as a scalar, its e floored at BF16_Q, bf16's relative spacing
+BF16_Q = 2.0**-8
+BF16_FEW = 8
 
 
 def fp32_only() -> None:
@@ -4663,7 +4724,8 @@ def _unet_norm_biases(net) -> set:
 
 
 def _hold_two_ranks(tag: str, args: list, batch: dict, ranks: list, pert_keys: tuple,
-                    nets: dict | None = None, skip: dict | None = None) -> None:
+                    nets: dict | None = None, skip: dict | None = None,
+                    adam_t: int | None = None) -> None:
     """The two ranks' first step (rank 0's parameters and gradients)
     against the same step in this process on the card, by phase 6's rule
     (``step_against_cpu``: "card" is the two ranks, "cpu" the one process,
@@ -4696,7 +4758,7 @@ def _hold_two_ranks(tag: str, args: list, batch: dict, ranks: list, pert_keys: t
             one_ms = (time.perf_counter() - t0) * 1e3
         runs[name] = m
     fields, fails, loss_errs = step_against_cpu(runs, {n: before for n in runs}, nets=nets,
-                                                skip=skip)
+                                                skip=skip, adam_t=adam_t)
     same = r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
     phase(f"gloo_two_ranks_{tag}", steps=len(r0["digests"]), ranks_bit_identical=same,
           ms_per_step_rank0=json.dumps([round(t, 3) for t in r0["ms"]]),
@@ -4765,19 +4827,23 @@ def band_counters() -> dict:
 def zero_band_counters() -> None:
     for c in band_counters().values():
         for fn in (c if isinstance(c, tuple) else (c,)):
-            fn.launches = 0
+            fn.launches = fn.launches_bf16 = 0
             if hasattr(fn, "stages"):
-                fn.stages = 0
+                fn.stages = fn.stages_bf16 = 0
 
 
 def read_band_counters() -> dict:
-    """{kernel: (calls, stage launches)} since ``zero_band_counters``."""
+    """{kernel: (calls, stage launches)} since ``zero_band_counters``, the
+    fp32 band forms' under the kernel's name, the bf16 variants' under
+    ``<kernel>-bf16``."""
     out = {}
     for k, c in band_counters().items():
-        if isinstance(c, tuple):
-            out[k] = (c[0].launches, c[0].launches + c[1].launches)
-        else:
-            out[k] = (c.launches, c.stages)
+        for tag, sfx in (("", ""), ("-bf16", "_bf16")):
+            if isinstance(c, tuple):
+                calls = getattr(c[0], "launches" + sfx)
+                out[k + tag] = (calls, calls + getattr(c[1], "launches" + sfx))
+            else:
+                out[k + tag] = (getattr(c, "launches" + sfx), getattr(c, "stages" + sfx))
     return out
 
 
@@ -4789,14 +4855,24 @@ def check_band_kernels() -> dict:
     output's max abs error, the input and weight gradients' (a seeded
     upstream gradient; the weights' the band's shares) max error over the
     largest reference value, the band form twice bit for bit, and the
-    forward's median event time (its exchanges and all-gathers included).
-    K-block-bwd's and K-convt-bwd's band forms take the plain forward's
-    saved values, as phase 2b's checks do: through autograd, the relu
-    masks of two fp32 forwards differ where a normalised value is within
-    roundoff of 0, which moves K-block's dx by up to 1.3e-2 of its largest
-    value at these shapes (measured on the card)."""
+    forward's and the backward's median event time (their exchanges and
+    all-gathers included) beside the plain band form's, with the bound of
+    the band's work. The cases named ``(recipe)`` are phase 19b's band
+    shapes (the 256^2 recipe at ngf/ndf 32, b8), in fp32 and bf16, so that
+    every GEMM instantiation of the band steps is held here. The bf16 band
+    forms of K-in, K-block and K-convt (``-bf16``) on bf16 operands against
+    their plain bf16 band forms: K-in's and K-convt's forwards, one
+    rounding of fp32 arithmetic, within BF16_ULPS of each value (``yhat``
+    too) and their fp32 statistics within BF16_FP32_TOL (``fwd_parts``);
+    K-block's forward stage by stage (``block_band_stages_bf16``); the
+    gradients, downstream of dz's rounding, within BF16_ULPS of the
+    tensor's largest value. K-block-bwd's and K-convt-bwd's band forms
+    take the plain forward's saved values, as phase 2b's checks do: through
+    autograd, the relu masks of two fp32 forwards differ where a normalised
+    value is within roundoff of 0, which moves K-block's dx by up to 1.3e-2
+    of its largest value at these shapes (measured on the card)."""
     from nemar_tpu_torch import parallel
-    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm
+    from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_cuda
     from nemar_tpu_torch.ops.warp import grid_sample, grid_sample_plain, identity_grid
     from nemar_tpu_torch.parallel import spatial
 
@@ -4804,7 +4880,7 @@ def check_band_kernels() -> dict:
     out = {}
 
     def case(name, tol, tol_bwd, frames, weights, band, kern, plain, saved=None,
-             kern_bwd=None):
+             kern_bwd=None, bf16=False, flops=(0.0, 0.0), stages=None, fwd_parts=None):
         xs = [f.narrow(1, band.r0, band.rows).contiguous() for f in frames]
         # the plain forward's saved values, once (cuDNN's transposed
         # convolution is not deterministic outside the step's setting)
@@ -4814,56 +4890,127 @@ def check_band_kernels() -> dict:
             a = [x.clone().requires_grad_() for x in xs]
             b = [w.clone().requires_grad_() for w in weights]
             y = fn(*a, *b)
-            g = randn(card_rng(77), tuple(y.shape))
+            g = randn(card_rng(77), tuple(y.shape)).to(y.dtype)
             if kern_bwd is not None and fn is kern:
                 # the backward fed the plain forward's saved values, so both
                 # take the same relu masks (as phase 2b's checks)
                 grads = kern_bwd(*sv, g)
+                bwd = lambda: kern_bwd(*sv, g)  # noqa: E731
             else:
-                grads = torch.autograd.grad(y, a + b, g)
+                grads = torch.autograd.grad(y, a + b, g, retain_graph=True)
+                bwd = lambda: torch.autograd.grad(y, a + b, g, retain_graph=True)  # noqa: E731
             torch.cuda.synchronize()
-            return [y.detach(), *grads]
+            return [y.detach(), *grads], bwd, (y, g)
 
-        got, again, ref = run(kern), run(kern), run(plain)
-        # each gradient's error, and the band's row of an input gradient's
-        # largest error
-        errs = [max_rel_err([a], [b]) for a, b in zip(got[1:], ref[1:])]
-        rows = [int(((a - b).abs().amax(dim=(0, 2, 3))).argmax())
+        (got, bwd, yg), (again, _, _), (ref, plain_bwd, _) = run(kern), run(kern), run(plain)
+        fp32_err = 0.0
+        if bf16:
+            if stages is not None:
+                fwd_err = max(stages(*xs, *weights))
+            else:
+                kp, pp = fwd_parts(*xs, *weights)
+                fwd_err = max(bf16_ulps(a, b) for a, b in zip(kp, pp) if b.dtype == bf)
+                fp32_err = max(max_rel_err([a], [b]) for a, b in zip(kp, pp) if b.dtype != bf)
+            errs = [bf16_ulps(a, b, at_scale=True) for a, b in zip(got[1:], ref[1:])]
+        else:
+            fwd_err = max_abs_err(got[:1], ref[:1])
+            errs = [max_rel_err([a], [b]) for a, b in zip(got[1:], ref[1:])]
+        # the band's row of an input gradient's largest error
+        rows = [int(((a.float() - b.float()).abs().amax(dim=(0, 2, 3))).argmax())
                 for a, b in zip(got[1:1 + len(xs)], ref[1:1 + len(xs)])]
         with torch.no_grad():
             ms = median_ms(lambda: kern(*xs, *weights), iters=5, warmup=1)
-        out[name] = {"fwd_err": max_abs_err(got[:1], ref[:1]), "bwd_err": max(errs),
-                     "bwd_errs": errs, "worst_rows": rows, "tol": tol, "tol_bwd": tol_bwd,
+            pms = median_ms(lambda: plain(*xs, *weights), iters=3, warmup=1)
+        bms, pbms = median_ms(bwd, iters=5, warmup=1), median_ms(plain_bwd, iters=3, warmup=1)
+        peak = bound_bf16 if bf16 else bound
+        bnd = peak(flops[0], *xs, *weights, yg[0])
+        bnd_bwd = peak(flops[1], *xs, *weights, yg[1], *got[1:])
+        out[name] = {"fwd_err": fwd_err, "bwd_err": max(errs), "bwd_errs": errs,
+                     "worst_rows": rows, "tol": tol, "tol_bwd": tol_bwd,
+                     "fp32_err": fp32_err, "tol_fp32": BF16_FP32_TOL,
+                     "unit": ("bf16 ulps (forward: " + ("of each value" if fwd_parts else
+                                                        "of the largest value, by stage")
+                              + "; backward: of the largest value)") if bf16 else "abs; rel",
+                     "fwd_abs_err": max_abs_err(got[:1], ref[:1]),
+                     "bwd_abs_err": max(float((a.double() - b.double()).abs().max())
+                                        for a, b in zip(got[1:], ref[1:])),
                      "bits": all(torch.equal(p, q) for p, q in zip(got, again)),
-                     "band": list(xs[0].shape), "ms": round(ms, 4)}
+                     "band": list(xs[0].shape), "ms": round(ms, 4), "plain_ms": round(pms, 4),
+                     "bwd_ms": round(bms, 4), "plain_bwd_ms": round(pbms, 4),
+                     "bound": bnd, "bound_bwd": bnd_bwd}
 
     rng = card_rng(41)
     frame = lambda *shape: randn(rng, shape)  # noqa: E731
-    b256 = spatial.Band.split(256, SPATIAL, j)
-    case("K-in", TOL["K-in"], TOL["K-in-bwd"], [frame(TRAIN_BATCH, 256, 256, 64)], [], b256,
-         lambda x: norm.instance_norm_act_band(x, b256, "relu"),
-         lambda x: norm.instance_norm_act_band(x, b256, "relu", plain=True))
-    # D's third normed conv: 31 rows in bands of 16 and 15
-    b31 = b256.conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 1, 1)[0]
-    case("K-in (D, 31 rows)", TOL["K-in"], TOL["K-in-bwd"], [frame(2 * TRAIN_BATCH, 31, 31, 512)],
-         [], b31, lambda x: norm.instance_norm_act_band(x, b31, "leaky_relu"),
-         lambda x: norm.instance_norm_act_band(x, b31, "leaky_relu", plain=True))
-    b64 = spatial.Band.split(64, SPATIAL, j)
-    case("K-block", TOL["K-block"], TOL["K-block-bwd"], [frame(TRAIN_BATCH, 64, 64, 256)],
-         [frame(3, 3, 256, 256) * 0.02, frame(3, 3, 256, 256) * 0.02], b64,
-         lambda x, w1, w2: conv_fused.fused_resblock_band(x, w1, w2, b64),
-         lambda x, w1, w2: conv_fused.resblock_band_plain(x, w1, w2, b64),
-         saved=lambda x, w1, w2: (w1, w2, *conv_fused.resblock_band_saved_plain(x, w1, w2, b64)),
-         kern_bwd=lambda *a: conv_fused.block_band_bwd_cuda(*a, b64))
-    b128 = spatial.Band.split(128, SPATIAL, j)
-    for hh, ci, co, band in ((64, 256, 128, b64), (128, 128, 64, b128)):
-        case(f"K-convt {ci}->{co}", TOL["K-convt"], TOL["K-convt-bwd"],
-             [frame(TRAIN_BATCH, hh, hh, ci)], [frame(3, 3, ci, co) * 0.02], band,
-             lambda x, w, band=band: convt_fused.fused_convt_in_band(x, w, band),
-             lambda x, w, band=band: convt_fused.convt_band_plain(x, w, band),
-             saved=lambda x, w, band=band: (lambda xp, yhat, st: (xp, w, yhat, st))(
+    bf = torch.bfloat16
+    dts = (("", torch.float32), ("-bf16", bf))
+
+    def in_case(name, tag, dt, shape, band, act):
+        # shape (N, H, W, C): the frame's, of which band holds rows
+        x = frame(*shape).to(dt)
+        chunks = norm_cuda.band_chunks(max(b - a for a, b in band.bounds) * shape[2])
+        fl = x.numel() * band.rows / shape[1]
+        case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-in"], TOL["K-in-bwd"])), [x],
+             [], band, lambda x: norm.instance_norm_act_band(x, band, act),
+             lambda x: norm.instance_norm_act_band(x, band, act, plain=True),
+             bf16=bool(tag), flops=(6.0 * fl, 8.0 * fl),
+             fwd_parts=lambda x: (norm_cuda.in_band_apply_cuda(
+                 x, spatial.gather_parts(norm_cuda.in_band_part_cuda(x, chunks)), act, 1e-5, 0.2),
+                 (norm.instance_norm_act_band(x, band, act, plain=True), norm.in_band_stats(x))))
+
+    def block_case(name, tag, dt, side, c):
+        band = spatial.Band.split(side, SPATIAL, j)
+        gemm = 2 * 2 * TRAIN_BATCH * band.rows * side * 9 * c * c  # two 3x3 convs of the band
+        case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-block"], TOL["K-block-bwd"])),
+             [frame(TRAIN_BATCH, side, side, c).to(dt)],
+             [(frame(3, 3, c, c) * 0.02).to(dt), (frame(3, 3, c, c) * 0.02).to(dt)],
+             band, lambda x, w1, w2: conv_fused.fused_resblock_band(x, w1, w2, band),
+             lambda x, w1, w2: conv_fused.resblock_band_plain(x, w1, w2, band),
+             saved=lambda x, w1, w2: (w1, w2,
+                                      *conv_fused.resblock_band_saved_plain(x, w1, w2, band)),
+             kern_bwd=lambda *a: conv_fused.block_band_bwd_cuda(*a, band), bf16=bool(tag),
+             flops=(gemm, 2 * gemm), stages=block_band_stages_bf16(band) if tag else None)
+
+    def convt_case(name, tag, dt, hh, ci, co):
+        band = spatial.Band.split(hh, SPATIAL, j)
+        gemm = 2 * TRAIN_BATCH * band.rows * hh * 9 * ci * co
+
+        def xp(x):
+            return spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
+                                         mode="zeros").contiguous()
+
+        case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-convt"], TOL["K-convt-bwd"])),
+             [frame(TRAIN_BATCH, hh, hh, ci).to(dt)], [(frame(3, 3, ci, co) * 0.02).to(dt)], band,
+             lambda x, w: convt_fused.fused_convt_in_band(x, w, band),
+             lambda x, w: convt_fused.convt_band_plain(x, w, band),
+             saved=lambda x, w: (lambda xp, yhat, st: (xp, w, yhat, st))(
                  *convt_fused.convt_band_saved_plain(x, w, band)),
-             kern_bwd=lambda *a, band=band: convt_fused.convt_band_bwd_cuda(*a, band))
+             kern_bwd=lambda *a: convt_fused.convt_band_bwd_cuda(*a, band),
+             bf16=bool(tag), flops=(gemm, 2 * gemm),
+             fwd_parts=lambda x, w: (convt_fused.convt_band_fwd_cuda(xp(x), w, band), (
+                 lambda out, saved: (out, *saved[1:]))(
+                     *convt_fused.convt_band_fwd_plain_bf16(x, w, band))))
+
+    # phase 19's step (ngf 64): G's first K-in, its trunk and its decoder;
+    # D's third normed conv, 31 rows in bands of 16 and 15
+    b256 = spatial.Band.split(256, SPATIAL, j)
+    b31 = b256.conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 1, 1)[0]
+    for tag, dt in dts:
+        in_case("K-in" + tag, tag, dt, (TRAIN_BATCH, 256, 256, 64), b256, "relu")
+    in_case("K-in (D, 31 rows)", "", torch.float32, (2 * TRAIN_BATCH, 31, 31, 512), b31,
+            "leaky_relu")
+    for tag, dt in dts:
+        block_case("K-block" + tag, tag, dt, 64, 256)
+    for tag, dt in dts:
+        for hh, ci, co in ((64, 256, 128), (128, 128, 64)):
+            convt_case(f"K-convt{tag} {ci}->{co}", tag, dt, hh, ci, co)
+    # phase 19b's recipe (ngf/ndf 32), its bf16 and fp32 arms alike
+    for tag, dt in dts:
+        in_case(f"K-in{tag} (recipe)", tag, dt, (TRAIN_BATCH, 256, 256, 32), b256, "relu")
+        in_case(f"K-in{tag} (recipe D, 31 rows)", tag, dt, (2 * TRAIN_BATCH, 31, 31, 256), b31,
+                "leaky_relu")
+        block_case(f"K-block{tag} (recipe)", tag, dt, 64, 128)
+        for hh, ci, co in ((64, 128, 64), (128, 64, 32)):
+            convt_case(f"K-convt{tag} {ci}->{co} (recipe)", tag, dt, hh, ci, co)
     three = (3,) * SPATIAL
     case("K-head", TOL["K-head"], TOL["K-head-bwd"], [frame(TRAIN_BATCH, 256, 256, 64)],
          [frame(7, 7, 64, 3) * 0.02], b256,
@@ -4879,6 +5026,79 @@ def check_band_kernels() -> dict:
     case("K-warp", TOL["K-warp"], TOL["K-warp-bwd"],
          [frame(TRAIN_BATCH, 256, 256, 4), frame(TRAIN_BATCH, 256, 256, 2) * 0.02], [], b256,
          warp(grid_sample), warp(grid_sample_plain))
+    return out
+
+
+def block_band_stages_bf16(band):
+    """K-block's bf16 band form held stage by stage, as
+    ``block_fwd_ref_bf16`` holds the whole-frame variant: -> a function of
+    (x, w1, w2) giving the bf16 spacings (of each tensor's largest value)
+    between the kernel's y1hat and h1p and the plain band form's from x,
+    and between its out and the plain out from the kernel's own h1p (a
+    rounding of h1 that lands the other way moves y2 by W times a spacing,
+    and out by more than one)."""
+    from nemar_tpu_torch.ops import conv_fused, norm
+    from nemar_tpu_torch.parallel import spatial
+
+    def held(x, w1, w2):
+        one = (1,) * band.size
+        xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect").contiguous()
+        with torch.no_grad():
+            out, (_, y1hat, h1p, _, _) = conv_fused.block_band_fwd_cuda(x, xp, w1, w2, band)
+            _, (_, y1hat_ref, h1p_ref, _, _) = conv_fused.resblock_band_fwd_plain_bf16(
+                x, w1, w2, band)
+            y2 = conv_fused.conv3x3_wreflect(h1p.float(), w2.float())
+            out_ref = (x.float() + norm.normalise(y2, norm.in_band_stats(y2))).to(torch.bfloat16)
+        return [bf16_ulps(p, q, at_scale=True)
+                for p, q in ((y1hat, y1hat_ref), (h1p, h1p_ref), (out, out_ref))]
+
+    return held
+
+
+# the band forms' entries of the kernels line: (entry, [spatial_kernels]
+# cases, forward or backward, the band-form counter), the fp32 band forms
+# timed at phase 19's step's shapes, the bf16 ones at phase 19b's recipe's
+# (the one step that launches them); each band form replaces the TPU kernel
+# its whole-frame kernel replaces
+BAND_CASES = {"": {"K-in": ["K-in"], "K-block": ["K-block"],
+                   "K-convt": ["K-convt 256->128", "K-convt 128->64"]},
+              "-bf16": {"K-in": ["K-in-bf16 (recipe)"], "K-block": ["K-block-bf16 (recipe)"],
+                        "K-convt": ["K-convt-bf16 128->64 (recipe)",
+                                    "K-convt-bf16 64->32 (recipe)"]}}
+BAND_ENTRIES = [(f"{k}{d}-band{t}", cases, d, k + d + t)
+                for t, fam in BAND_CASES.items() for k, cases in fam.items()
+                for d in ("", "-bwd")]
+BAND_SOURCES = {"K-in": "nemar_tpu_torch/csrc/in_band.cu",
+                "K-block": "nemar_tpu_torch/csrc/resblock_fwd.cu",
+                "K-block-bwd": "nemar_tpu_torch/csrc/resblock_bwd.cu",
+                "K-convt": "nemar_tpu_torch/csrc/convt_fwd.cu",
+                "K-convt-bwd": "nemar_tpu_torch/csrc/convt_bwd.cu"}
+
+
+def band_kernel_entries(checks: dict, launches: dict, replaces: dict) -> list:
+    """The band forms' entries of the kernels line, from rank 0's
+    ``[spatial_kernels]`` (one call of each case at the step's band shape,
+    summed over a family's shapes; ms, plain ms, the bound of the band's
+    work, the largest absolute error) and ``launches``, {counter: stage
+    launches} of the main path's steps (phase 19's fp32 step, 19b's bf16
+    steps)."""
+    out = []
+    for name, cases, d, counter in BAND_ENTRIES:
+        fam = counter.replace("-bf16", "")
+        ms = plain_ms = ops = byt = err = 0.0
+        for c in cases:
+            r = checks[c]
+            ms += r["bwd_ms" if d else "ms"]
+            plain_ms += r["plain_bwd_ms" if d else "plain_ms"]
+            bnd = r["bound_bwd" if d else "bound"]
+            ops, byt = ops + bnd[0], byt + bnd[1]
+            err = max(err, r["bwd_abs_err" if d else "fwd_abs_err"])
+        src = BAND_SOURCES["K-in" if fam.startswith("K-in") else fam]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces[fam], "launches": launches[counter],
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": max(ops, byt),
+                    "bound_by": "operations" if ops >= byt else "bytes", "library_ms": None})
     return out
 
 
@@ -4979,7 +5199,8 @@ def run_spatial(ckpt: str) -> None:
     for r in ranks:
         for name, c in r["kernels"].items():
             phase("spatial_kernels", rank=r["rank"], kernel=repr(name), **c)
-            if not (c["fwd_err"] <= c["tol"] and c["bwd_err"] <= c["tol_bwd"] and c["bits"]):
+            if not (c["fwd_err"] <= c["tol"] and c["bwd_err"] <= c["tol_bwd"]
+                    and c["fp32_err"] <= c["tol_fp32"] and c["bits"]):
                 fails.append(f"rank {r['rank']} {name}: {c}")
     for r in ranks:
         for i, (got, band) in enumerate(zip(r["launches"], r["band_launches"])):
@@ -5030,6 +5251,190 @@ def run_spatial(ckpt: str) -> None:
     if fails:
         raise AssertionError("phase 19: " + "; ".join(fails))
     _hold_two_ranks("spatial", args, batches[0], ranks, ("A",))
+    return ranks[0]["kernels"], {k: v[1] for k, v in ranks[0]["band_launches"][0].items()}
+
+
+def _spatial_recipe_rank(cells: list) -> list:
+    """Phase 19b inside its rank: for each (args, batches) a model from the
+    args' saved state takes a step on each batch; -> per cell the ms of
+    each step, the state's digest, the launches (``zero_all_counters``,
+    ``read_band_counters``, zeroed before each step), the losses after the
+    first and, at rank 0, the gradients after the first (on the host)."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.models.base_model import state_digest, to_host
+
+    fp32_only()
+    parallel.set_mesh(SPATIAL)
+    outs = []
+    for args, batches in cells:
+        model = train_model(args)
+        out = {"ms": [], "digests": [], "launches": [], "band_launches": [],
+               "rank": parallel.rank()}
+        for i, b in enumerate(batches):
+            counters, _ = zero_all_counters()
+            zero_band_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.set_input(b)
+            if i == 0:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+            model.optimize_parameters()
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                out["peak_over_before"] = torch.cuda.max_memory_allocated() - before
+            out["launches"].append({k: fn.launches for k, fn in counters.items()})
+            out["band_launches"].append(read_band_counters())
+            out["digests"].append(state_digest(model))
+            if i == 0:
+                out["losses"] = dict(model.get_current_losses())
+                if parallel.rank() == 0:
+                    out["params"] = {n: {k: to_host(p) for k, p in net.named_parameters()}
+                                     for n, net in model.nets().items()}
+                    out["grads"] = {n: {k: to_host(p.grad) for k, p in net.named_parameters()}
+                                    for n, net in model.nets().items()}
+        outs.append(out)
+        del model
+    return outs
+
+
+def _hold_bf16_rule_a(args: list, batch: dict, r0: dict) -> None:
+    """The band bf16 step (rank 0's losses and gradients) against the
+    one-process bf16 step from the same state, by test_torch_bf16.py's
+    rule (a): with e = max|T_one,bf16 - T_one,fp32| / max|T_one,fp32| (the
+    one process's own bf16 error; at least BF16_Q for a tensor of at most
+    BF16_FEW elements), max|T_band,bf16 - T_one,bf16| / max|T_one,fp32| <=
+    2 e + 1e-6. A gradient 0 in the fp32 step must be 0 in both bf16 steps;
+    one that is None (no path to the loss) must be None in all. The biases
+    an instance norm follows have a gradient of roundoff (their e is not
+    bf16's error): held, as test_torch_bf16.py holds them, within 5% of
+    their conv's largest weight gradient."""
+    runs, peak = {}, {}
+    for name, a in (("bf16", args), ("fp32", [x for x in args if x != "--bf16"])):
+        m = train_model(a)
+        m.set_input(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m.optimize_parameters()
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - before,
+                      (time.perf_counter() - t0) * 1e3)
+        skip = _zero_grad_biases(m)
+        runs[name] = {"losses": {k: torch.tensor(v) for k, v in m.get_current_losses().items()},
+                      **{n: {k: None if p.grad is None else p.grad.detach().cpu()
+                             for k, p in net.named_parameters()}
+                         for n, net in m.nets().items()}}
+        del m
+    band = {"losses": {k: torch.tensor(v) for k, v in r0["losses"].items()}, **r0["grads"]}
+    worst, fails = {}, []
+    for n, tensors in runs["fp32"].items():
+        for k, t32 in tensors.items():
+            t16, tb = runs["bf16"][n][k], band[n][k]
+            if t32 is None:
+                if t16 is not None or tb is not None:
+                    fails.append(f"{n}.{k}: a gradient where the fp32 step has none")
+                continue
+            if k in skip.get(n, ()):
+                w = float(tensors[k.replace(".bias", ".weight")].abs().max())
+                if not float(tb.abs().max()) <= 0.05 * w:
+                    fails.append(f"{n}.{k}: a roundoff gradient above 5% of its weight's")
+                continue
+            scale = float(t32.abs().max())
+            if scale == 0:
+                if bool(t16.any()) or bool(tb.any()):
+                    fails.append(f"{n}.{k}: not 0 as in the fp32 step")
+                continue
+            e = float((t16.double() - t32.double()).abs().max()) / scale
+            if t32.numel() <= BF16_FEW:
+                e = max(e, BF16_Q)
+            a = float((tb.double() - t16.double()).abs().max()) / scale
+            ratio = a / (2 * e + 1e-6)
+            worst[f"{n}.{k}"] = ratio
+            if ratio > 1:
+                fails.append(f"{n}.{k}: {a:.3g} > 2 e + 1e-6, e = {e:.3g}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
+    gib = 2.0**30
+    phase("spatial_recipe_one_process", arm="multiscale",
+          **{f"{k}_step_peak_over_before_gib": round(v[0] / gib, 3) for k, v in peak.items()},
+          **{f"{k}_first_step_ms": round(v[1], 3) for k, v in peak.items()})
+    phase("spatial_recipe_bf16_rule_a", tensors=len(worst),
+          worst_over_limit=json.dumps({k: round(v, 4) for k, v in top}),
+          losses_band=json.dumps({k: float(v) for k, v in band["losses"].items()}),
+          losses_one_process_bf16=json.dumps({k: float(v) for k, v in
+                                               runs["bf16"]["losses"].items()}))
+    if fails:
+        raise AssertionError("phase 19b, rule (a): " + "; ".join(fails[:8]))
+
+
+def run_spatial_recipe(ckpt: str) -> dict:
+    """Phase 19b: the registration recipe in bands (SPATIAL_RECIPE) over two
+    ranks sharing cuda:0 (gloo): per arm a state saved here from the seed
+    with R's heads drawn, then ``_spatial_recipe_rank``; the ranks
+    bit-identical after every step, the launches per step and rank
+    (SPATIAL_RECIPE_LAUNCHES), the multiscale arm's bf16 step held to rule
+    (a) of the one-process bf16 step (``_hold_bf16_rule_a``), the affine
+    arm's fp32 step to phase 6's limits of the one-process step
+    (``_hold_two_ranks``). -> the bf16 band forms' stage launches of the
+    first multiscale step."""
+    from nemar_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    cells = []
+    for arm, (extra, steps) in SPATIAL_RECIPE.items():
+        args = [*_science_args(arm, ckpt), *extra, "--name", f"spatial_recipe_{arm}"]
+        m = train_model(args)
+        gen = torch.Generator().manual_seed(6)
+        with torch.no_grad():
+            for h in m.netR.heads():
+                h.weight.add_(R_HEAD_DRAW[arm] * torch.randn(h.weight.shape, generator=gen)
+                              .to(h.weight.device))
+        m.save_networks("recipe")
+        batches = _science_batches(m.opt, steps)
+        del m
+        cells.append(([*args, "--continue_train", "--epoch", "recipe",
+                       "--mesh_spatial", str(SPATIAL)], batches))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(_spatial_recipe_rank, [dev, dev], backend="gloo", args=(cells,),
+                            timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
+    phase("spatial_recipe", seconds=round(time.perf_counter() - t0, 2))
+    fails = []
+    for c, arm in enumerate(SPATIAL_RECIPE):
+        r0, r1 = ranks[0][c], ranks[1][c]
+        want, want_band = SPATIAL_RECIPE_LAUNCHES[arm]
+        for r in (r0, r1):
+            for i, (got, band) in enumerate(zip(r["launches"], r["band_launches"])):
+                bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+                bad.update({k: v for k, v in band.items() if tuple(v) != want_band[k]})
+                if bad:
+                    fails.append(f"{arm} rank {r['rank']} step {i}: launches {bad}")
+        same = r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
+        phase("spatial_recipe_" + arm, steps=len(r0["ms"]), ranks_bit_identical=same,
+              step_peak_over_before_gib=json.dumps([round(r["peak_over_before"] / 2.0**30, 3)
+                                                    for r in (r0, r1)]),
+              ms_per_step_rank0=json.dumps([round(t, 3) for t in r0["ms"]]),
+              ms_per_step_rank1=json.dumps([round(t, 3) for t in r1["ms"]]),
+              launches_per_step=json.dumps(r0["launches"][0]),
+              band_calls_stages_per_step=json.dumps(
+                  {k: v for k, v in r0["band_launches"][0].items() if v[0]}),
+              losses=json.dumps(r0["losses"]))
+        if not same:
+            fails.append(f"{arm}: the two ranks' states differ")
+    if fails:
+        raise AssertionError("phase 19b: " + "; ".join(fails))
+    # the one-process runs: each cell's args without the trailing
+    # --mesh_spatial
+    (args_ms, batches_ms), (args_af, batches_af) = cells
+    _hold_bf16_rule_a(args_ms[:-2], batches_ms[0], ranks[0][0])
+    # from a state saved before any step: Adam's first step (each net's own
+    # lr, R's at --stn_lr)
+    _hold_two_ranks("recipe_affine", args_af[:-2], batches_af[0], [r[1] for r in ranks], ("A",),
+                    adam_t=1)
+    return {k: v[1] for k, v in ranks[0][0]["band_launches"][0].items()}
 
 
 def main() -> int:
@@ -5118,11 +5523,17 @@ def main() -> int:
             fn(ckpt)
             phase(f"{tag}_phase", seconds=round(time.perf_counter() - t0, 2))
         run_step_graph_phases(ckpt)
-        for tag, fn in (("nccl_world1", run_nccl_world1), ("gloo_two_ranks", run_gloo_two_ranks),
-                        ("spatial", run_spatial)):
+        for tag, fn in (("nccl_world1", run_nccl_world1), ("gloo_two_ranks", run_gloo_two_ranks)):
             t0 = time.perf_counter()
             fn(ckpt)
             phase(f"{tag}_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        band_checks, band_launches = run_spatial(ckpt)
+        phase("spatial_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        band_launches.update({k: v for k, v in run_spatial_recipe(ckpt).items()
+                              if k.endswith("-bf16")})
+        phase("spatial_recipe_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps
@@ -5154,6 +5565,8 @@ def main() -> int:
     sources.update({BF16[k]: sources[k] for k in BF16})
     kernels = [{"name": k, "route": r, "source": s, "replaces": rep, "launches": launches[k],
                 **results[k]} for k, (r, s, rep) in sources.items()]
+    kernels += band_kernel_entries(band_checks, band_launches,
+                                   {k: rep for k, (_, _, rep) in sources.items()})
     phase("total", seconds=round(time.perf_counter() - START, 2))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

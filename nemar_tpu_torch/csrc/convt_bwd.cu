@@ -370,8 +370,9 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dx, int h, int w,
 
 // 4: dW partials with bf16 operands, K slices of 64 pixels (pix_per_split
 // a multiple of 64); x shifted by the tap (M-major: ci) and the tap's
-// parity plane of dz (N-major: co), both read by wgmma as they lie
-template <int kTN>
+// parity plane of dz (N-major: co), both read by wgmma as they lie; kBand
+// as ConvtWgradOp's
+template <int kTN, bool kBand = false>
 struct ConvtWgradOp16 {
   static constexpr bool kNormRelu = false;
   static constexpr int kTileN = kTN;
@@ -399,8 +400,9 @@ struct ConvtWgradOp16 {
     const int hw = h * w, b = p / hw, pix = p - b * hw;
     const int i = pix / w, j = pix - (pix / w) * w;
     const bool in = p < total;
-    xs = in && i + dy >= 0 && j + dx >= 0 ? (b * h + i + dy) * w + j + dx : -1;
-    zs = in ? (b * 2 * h + 2 * i + py) * 2 * w + 2 * j + px : -1;
+    constexpr int hb = kBand ? 1 : 0;
+    xs = in && i + dy + hb >= 0 && j + dx >= 0 ? (b * (h + hb) + i + dy + hb) * w + j + dx : -1;
+    zs = in ? (b * (2 * h + hb) + 2 * i + py) * 2 * w + 2 * j + px : -1;
   }
   __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
     const int pk = p0 + kt * tc::BK16;
@@ -428,8 +430,9 @@ struct ConvtWgradOp16 {
   }
 };
 
-// 6: dx with bf16 operands (dz along co, W in HWIO as it lies), dx bf16
-template <int kTN>
+// 6: dx with bf16 operands (dz along co, W in HWIO as it lies), dx bf16;
+// kBand as ConvtDgradOp's
+template <int kTN, bool kBand = false>
 struct ConvtDgradOp16 {
   static constexpr bool kNormRelu = false;
   static constexpr bool kTileStats = false;
@@ -451,7 +454,7 @@ struct ConvtDgradOp16 {
     for (int i = 0; i < CHUNKS; ++i) {
       const int p = m0 + tc::kmajor_row(tid, i);
       const int b = p / hw, pix = p - b * hw, u = pix / wd;
-      rbase[i] = 4 * b * hw;
+      rbase[i] = kBand ? b * (2 * h + 1) * 2 * wd : 4 * b * hw;
       rij[i] = p < total ? (u << 16) | (pix - u * wd) : 0x7fff0000;
     }
   }
@@ -464,7 +467,7 @@ struct ConvtDgradOp16 {
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const int oi = 2 * (rij[i] >> 16) + 2 - ky, oj = 2 * (rij[i] & 0xffff) + 2 - kx;
-      const bool valid = cin && oi < 2 * h && oj < 2 * wd;
+      const bool valid = cin && oi < 2 * h + (kBand ? 1 : 0) && oj < 2 * wd;
       tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
                       valid ? dz + (size_t)(rbase[i] + oi * 2 * wd + oj) * co + c : dz, valid);
     }
@@ -482,10 +485,10 @@ struct ConvtDgradOp16 {
   }
 };
 
-template <int kTN>
+template <int kTN, bool kBand = false>
 cudaError_t wgrad16(const bf16* x, const bf16* dz, float* part, int h, int w, int ci, int co,
                     int total, int splits, int pix_per_split, cudaStream_t stream) {
-  ConvtWgradOp16<kTN> op;
+  ConvtWgradOp16<kTN, kBand> op;
   op.x = x;
   op.dz = dz;
   op.part = part;
@@ -501,10 +504,10 @@ cudaError_t wgrad16(const bf16* x, const bf16* dz, float* part, int h, int w, in
       stream);
 }
 
-template <int kTN>
+template <int kTN, bool kBand = false>
 cudaError_t dgrad16(const bf16* dz, const bf16* w, bf16* dx, int h, int wd, int ci, int co,
                     int total, cudaStream_t stream) {
-  ConvtDgradOp16<kTN> op;
+  ConvtDgradOp16<kTN, kBand> op;
   op.dz = dz;
   op.w = w;
   op.dx = dx;
@@ -609,9 +612,17 @@ extern "C" int nemar_convt_in_bwd_bf16(const bf16* x, const bf16* w, const bf16*
 // 2, Co), the frame's means, dz and W's split; then, given dz with its halo
 // row from below (dzp, N, 2H + 1, 2W, Co: the rank below's first row, zeros
 // at the frame's bottom), dW's partials and sum (the band's share) and dx.
+// The bf16 variant's (the *_bf16 launchers) takes xp, W, yhat, g and dzp in
+// bf16 and writes dz, dW and dx in bf16, as the bf16 backward, W read as it
+// lies (no split).
 // ---------------------------------------------------------------------------
-extern "C" int nemar_convt_band_bwd_part(const float* g, const float* yhat, float* part, int n,
-                                         int h, int w_, int co, cudaStream_t stream) {
+namespace {
+
+// the IN backward's partials over the band's output rows, T the step's
+// element type
+template <class T>
+int band_bwd_part(const T* g, const T* yhat, float* part, int n, int h, int w_, int co,
+                  cudaStream_t stream) {
   const int pixels = 4 * h * w_;
   const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
   in_bwd_partial_kernel<<<dim3((unsigned)(n * tiles), (unsigned)((co + 127) / 128)), 128, 0,
@@ -619,10 +630,12 @@ extern "C" int nemar_convt_band_bwd_part(const float* g, const float* yhat, floa
   return (int)cudaGetLastError();
 }
 
-extern "C" int nemar_convt_band_bwd_dz(const float* parts, float* means, const float* g,
-                                       const float* yhat, const float* stats, float* dz,
-                                       const float* w, float* wsplit, int ranks, int n, int h,
-                                       int w_, int ci, int co, cudaStream_t stream) {
+// the frame's means from every rank's partials, then dz; given w, W's split
+// into wsplit in the same launch (the fp32 dgrad's B operand)
+template <class T>
+int band_bwd_dz(const float* parts, float* means, const T* g, const T* yhat, const float* stats,
+                T* dz, const float* w, float* wsplit, int ranks, int n, int h, int w_, int ci,
+                int co, cudaStream_t stream) {
   const int pixels = 4 * h * w_;
   const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
   in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
@@ -633,11 +646,26 @@ extern "C" int nemar_convt_band_bwd_dz(const float* parts, float* means, const f
   const long long per_sample = (long long)pixels * co;
   const long long total4 = n * per_sample / 4;
   const int apply_blocks = (int)((total4 + 255) / 256);
-  const long long w4 = (long long)9 * ci * co / 4;
+  const long long w4 = w ? (long long)9 * ci * co / 4 : 0;
   in_bwd_apply_kernel<<<(unsigned)(apply_blocks + (w4 + 255) / 256), 256, 0, stream>>>(
       g, yhat, stats, means, dz, total4, per_sample, co, apply_blocks,
       reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), w4);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nemar_convt_band_bwd_part(const float* g, const float* yhat, float* part, int n,
+                                         int h, int w_, int co, cudaStream_t stream) {
+  return band_bwd_part(g, yhat, part, n, h, w_, co, stream);
+}
+
+extern "C" int nemar_convt_band_bwd_dz(const float* parts, float* means, const float* g,
+                                       const float* yhat, const float* stats, float* dz,
+                                       const float* w, float* wsplit, int ranks, int n, int h,
+                                       int w_, int ci, int co, cudaStream_t stream) {
+  return band_bwd_dz(parts, means, g, yhat, stats, dz, w, wsplit, ranks, n, h, w_, ci, co,
+                     stream);
 }
 
 extern "C" int nemar_convt_band_bwd_dx(const float* xp, const float* dzp, const float* wsplit,
@@ -662,4 +690,40 @@ extern "C" int nemar_convt_band_bwd_dx(const float* xp, const float* dzp, const 
   err = narrow ? dgrad<64, true>(dzp, wsplit, dx, h, w_, ci, co, total, stream)
                : dgrad<128, true>(dzp, wsplit, dx, h, w_, ci, co, total, stream);
   return (int)err;
+}
+
+extern "C" int nemar_convt_band_bwd_part_bf16(const bf16* g, const bf16* yhat, float* part, int n,
+                                              int h, int w_, int co, cudaStream_t stream) {
+  return band_bwd_part(g, yhat, part, n, h, w_, co, stream);
+}
+
+extern "C" int nemar_convt_band_bwd_dz_bf16(const float* parts, float* means, const bf16* g,
+                                            const bf16* yhat, const float* stats, bf16* dz,
+                                            int ranks, int n, int h, int w_, int co,
+                                            cudaStream_t stream) {
+  return band_bwd_dz(parts, means, g, yhat, stats, dz, nullptr, nullptr, ranks, n, h, w_, 0, co,
+                     stream);
+}
+
+extern "C" int nemar_convt_band_bwd_dx_bf16(const bf16* xp, const bf16* dzp, const bf16* w,
+                                            float* part_w, bf16* dw, bf16* dx, int n, int h,
+                                            int w_, int ci, int co, int splits, int pix_per_split,
+                                            cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int total = n * h * w_;
+  err = co <= 64 ? wgrad16<64, true>(xp, dzp, part_w, h, w_, ci, co, total, splits,
+                                     pix_per_split, stream)
+                 : wgrad16<128, true>(xp, dzp, part_w, h, w_, ci, co, total, splits,
+                                      pix_per_split, stream);
+  if (err != cudaSuccess) return (int)err;
+  const long long w4 = (long long)9 * ci * co / 4;
+  split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(part_w), dw, w4, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;
+  return (int)(narrow ? dgrad16<64, true>(dzp, w, dx, h, w_, ci, co, total, stream)
+                      : dgrad16<128, true>(dzp, w, dx, h, w_, ci, co, total, stream));
 }

@@ -301,8 +301,9 @@ cudaError_t planes(const float* x, const float* wsplit, float* y, float* part, i
 using bf16 = __nv_bfloat16;
 
 // ConvtFwdOp with bf16 x and W^T: K slices of one tap and 64 channels,
-// y fp32 (the interleaved output before IN), tile statistics as there.
-template <int kTN>
+// y fp32 (the interleaved output before IN), tile statistics as there;
+// kHp as there (the band form: x holds each sample's H + 1 rows).
+template <int kTN, bool kHp = false>
 struct ConvtFwdOp16 {
   static constexpr bool kNormRelu = false;
   static constexpr bool kTileStats = true;
@@ -347,10 +348,11 @@ struct ConvtFwdOp16 {
     parity_tap(py, t / ntx, ky, dy);
     parity_tap(px, t - (t / ntx) * ntx, kx, dx);
     const bool cin = c < ci;
-    const bf16* xb = x + (size_t)b * h * w * ci;
+    constexpr int hp = kHp ? 1 : 0;
+    const bf16* xb = x + (size_t)b * (h + hp) * w * ci;
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
-      const int ii = (rij[i] >> 16) + dy, jj = (rij[i] & 0xffff) + dx;
+      const int ii = (rij[i] >> 16) + dy + hp, jj = (rij[i] & 0xffff) + dx;
       const bool valid = cin && rij[i] >= 0 && ii >= 0 && jj >= 0;
       tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
                       valid ? xb + ((size_t)ii * w + jj) * ci + c : x, valid);
@@ -394,10 +396,10 @@ __global__ void transpose16_kernel(const bf16* __restrict__ w, bf16* __restrict_
     if (co0 + r < co && ci0 + tx < ci) dst[(size_t)(co0 + r) * ci + ci0 + tx] = tile[tx][r];
 }
 
-template <int kTN>
+template <int kTN, bool kHp = false>
 cudaError_t planes16(const bf16* x, const bf16* wt, float* y, float* part, int n, int h, int w,
                      int ci, int co, int tiles, cudaStream_t stream) {
-  ConvtFwdOp16<kTN> op;
+  ConvtFwdOp16<kTN, kHp> op;
   op.x = x;
   op.wt = wt;
   op.y = y;
@@ -478,7 +480,8 @@ extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, bf16* wt, f
 // frame. Two launchers, the caller all-gathering the tile partials between
 // them: the split and the four planes' GEMMs over xp; then the frame's
 // (mu, rstd) from every rank's partials (ranks, N * 4 * tiles, 2, Co) and
-// the apply.
+// the apply. The bf16 variant's (the *_bf16 launchers): xp, W, yhat and out
+// bf16, y (before IN) and the statistics fp32, as the bf16 forward's.
 // ---------------------------------------------------------------------------
 extern "C" int nemar_convt_band_planes(const float* xp, const float* w, float* wsplit, float* y,
                                        float* part, int n, int h, int w_, int ci, int co,
@@ -497,9 +500,13 @@ extern "C" int nemar_convt_band_planes(const float* xp, const float* w, float* w
   return (int)err;
 }
 
-extern "C" int nemar_convt_band_apply(const float* parts, float* stats, float* yhat, float* out,
-                                      int ranks, int n, int h, int w_, int co, float eps,
-                                      cudaStream_t stream) {
+namespace {
+
+// the frame's (mu, rstd) from every rank's partials, yhat and out of the
+// step's element type T from y (fp32; yhat's own storage in fp32)
+template <class T>
+int band_apply(const float* parts, float* stats, const float* y, T* yhat, T* out, int ranks,
+               int n, int h, int w_, int co, float eps, cudaStream_t stream) {
   const int hw = h * w_;
   const int tiles = (hw + BM - 1) / BM;
   convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
@@ -510,6 +517,37 @@ extern "C" int nemar_convt_band_apply(const float* parts, float* stats, float* y
   const long long per_sample = 4LL * hw * co;
   const long long total4 = n * per_sample / 4;
   convt_apply_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(yhat), stats, yhat, out, total4, per_sample, co);
+      reinterpret_cast<const float4*>(y), stats, yhat, out, total4, per_sample, co);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nemar_convt_band_apply(const float* parts, float* stats, float* yhat, float* out,
+                                      int ranks, int n, int h, int w_, int co, float eps,
+                                      cudaStream_t stream) {
+  return band_apply(parts, stats, yhat, yhat, out, ranks, n, h, w_, co, eps, stream);
+}
+
+extern "C" int nemar_convt_band_planes_bf16(const bf16* xp, const bf16* w, bf16* wt, float* y,
+                                            float* part, int n, int h, int w_, int ci, int co,
+                                            cudaStream_t stream) {
+  const int tiles = (h * w_ + BM - 1) / BM;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  transpose16_kernel<<<dim3((unsigned)((co + 31) / 32), (unsigned)((ci + 31) / 32), 9),
+                       dim3(32, 8), 0, stream>>>(w, wt, ci, co);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const bool narrow = co <= 64 || 4LL * n * tiles * ((co + 127) / 128) < sms;
+  err = narrow ? planes16<64, true>(xp, wt, y, part, n, h, w_, ci, co, tiles, stream)
+               : planes16<128, true>(xp, wt, y, part, n, h, w_, ci, co, tiles, stream);
+  return (int)err;
+}
+
+extern "C" int nemar_convt_band_apply_bf16(const float* parts, float* stats, const float* y,
+                                           bf16* yhat, bf16* out, int ranks, int n, int h, int w_,
+                                           int co, float eps, cudaStream_t stream) {
+  return band_apply(parts, stats, y, yhat, out, ranks, n, h, w_, co, eps, stream);
 }

@@ -40,9 +40,34 @@
 //
 // Layouts: x, y, g, dx (N, H_band, W, C) fp32 contiguous, hw = H_band * W;
 // stats (N, 2, C) fp32. Any N, C >= 1.
+//
+// The bf16 variant (--bf16; the *_bf16 launchers) is the same four stages
+// with x, y, g and dx in bf16, as in_act_fwd.cu's and in_act_bwd.cu's bf16
+// variants take them: each element widened to fp32 on the load (exact),
+// the partials and merges fp64, the arithmetic fp32 and the statistics
+// fp32, y and dx rounded to bf16 once, where they are stored. The
+// partials' fp64 merge is not the whole-frame variant's fp32 one, so a
+// value within an fp32 roundoff of a bf16 rounding boundary can round the
+// other way than in one process.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// an element of x, g (T = float or bf16) in fp32, and an fp32 value stored
+// as T (rounded to nearest for bf16)
+__device__ __forceinline__ float wide(float v) { return v; }
+__device__ __forceinline__ float wide(bf16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T narrow(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
 
 constexpr int kThreads = 128;  // channels of a block
 constexpr int kApplyPixels = 256;  // pixels of an apply block
@@ -56,20 +81,21 @@ __device__ __forceinline__ float act_grad(float yh, float g, int act, float slop
 }
 
 // grid (chunks, N, ceil(C / kThreads))
-__global__ void in_band_fwd_part_kernel(const float* __restrict__ x, double* __restrict__ part,
+template <class T>
+__global__ void in_band_fwd_part_kernel(const T* __restrict__ x, double* __restrict__ part,
                                         int hw, int c, int rows, int chunks) {
   const int chunk = blockIdx.x, b = blockIdx.y;
   const int ch = blockIdx.z * kThreads + threadIdx.x;
   if (ch >= c) return;
   const int p0 = min(chunk * rows, hw), p1 = min(p0 + rows, hw);
-  const float* xs = x + (size_t)b * hw * c + ch;
+  const T* xs = x + (size_t)b * hw * c + ch;
   double s = 0.0;
-  for (int p = p0; p < p1; ++p) s += (double)xs[(size_t)p * c];
+  for (int p = p0; p < p1; ++p) s += (double)wide(xs[(size_t)p * c]);
   const int count = p1 - p0;
   const double mean = count > 0 ? s / count : 0.0;
   double m2 = 0.0;
   for (int p = p0; p < p1; ++p) {
-    const double d = (double)xs[(size_t)p * c] - mean;
+    const double d = (double)wide(xs[(size_t)p * c]) - mean;
     m2 += d * d;
   }
   double* q = part + ((size_t)b * chunks + chunk) * 3 * c + ch;
@@ -102,8 +128,9 @@ __device__ void merge_fwd(const double* __restrict__ parts, int ranks, int n, in
 }
 
 // grid (ceil(hw / kApplyPixels), N, ceil(C / kThreads))
-__global__ void in_band_fwd_apply_kernel(const float* __restrict__ x,
-                                         const double* __restrict__ parts, float* __restrict__ y,
+template <class T>
+__global__ void in_band_fwd_apply_kernel(const T* __restrict__ x,
+                                         const double* __restrict__ parts, T* __restrict__ y,
                                          float* __restrict__ stats, int ranks, int n, int hw,
                                          int c, int chunks, int act, float eps, float slope) {
   const int b = blockIdx.y;
@@ -118,11 +145,13 @@ __global__ void in_band_fwd_apply_kernel(const float* __restrict__ x,
   const int p0 = blockIdx.x * kApplyPixels, p1 = min(p0 + kApplyPixels, hw);
   const size_t base = (size_t)b * hw * c + ch;
   for (int p = p0; p < p1; ++p)
-    y[base + (size_t)p * c] = act_fwd((x[base + (size_t)p * c] - mean) * rstd, act, slope);
+    y[base + (size_t)p * c] =
+        narrow<T>(act_fwd((wide(x[base + (size_t)p * c]) - mean) * rstd, act, slope));
 }
 
 // grid (chunks, N, ceil(C / kThreads))
-__global__ void in_band_bwd_part_kernel(const float* __restrict__ x, const float* __restrict__ g,
+template <class T>
+__global__ void in_band_bwd_part_kernel(const T* __restrict__ x, const T* __restrict__ g,
                                         const float* __restrict__ stats,
                                         double* __restrict__ part, int hw, int c, int rows,
                                         int chunks, int act, float slope) {
@@ -134,8 +163,8 @@ __global__ void in_band_bwd_part_kernel(const float* __restrict__ x, const float
   const size_t base = (size_t)b * hw * c + ch;
   double s1 = 0.0, s2 = 0.0;
   for (int p = p0; p < p1; ++p) {
-    const float yh = (x[base + (size_t)p * c] - mean) * rstd;
-    const float gh = act_grad(yh, g[base + (size_t)p * c], act, slope);
+    const float yh = (wide(x[base + (size_t)p * c]) - mean) * rstd;
+    const float gh = act_grad(yh, wide(g[base + (size_t)p * c]), act, slope);
     s1 += (double)gh;
     s2 += (double)gh * (double)yh;
   }
@@ -145,9 +174,10 @@ __global__ void in_band_bwd_part_kernel(const float* __restrict__ x, const float
 }
 
 // grid (ceil(hw / kApplyPixels), N, ceil(C / kThreads))
-__global__ void in_band_bwd_apply_kernel(const float* __restrict__ x, const float* __restrict__ g,
+template <class T>
+__global__ void in_band_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                                          const float* __restrict__ stats,
-                                         const double* __restrict__ parts, float* __restrict__ dx,
+                                         const double* __restrict__ parts, T* __restrict__ dx,
                                          int ranks, int n, int hw, int c, int chunks,
                                          double frame_pixels, int act, float slope) {
   const int b = blockIdx.y;
@@ -165,9 +195,9 @@ __global__ void in_band_bwd_apply_kernel(const float* __restrict__ x, const floa
   const int p0 = blockIdx.x * kApplyPixels, p1 = min(p0 + kApplyPixels, hw);
   const size_t base = (size_t)b * hw * c + ch;
   for (int p = p0; p < p1; ++p) {
-    const float yh = (x[base + (size_t)p * c] - mean) * rstd;
-    const float gh = act_grad(yh, g[base + (size_t)p * c], act, slope);
-    dx[base + (size_t)p * c] = rstd * (gh - m1 - yh * m2);
+    const float yh = (wide(x[base + (size_t)p * c]) - mean) * rstd;
+    const float gh = act_grad(yh, wide(g[base + (size_t)p * c]), act, slope);
+    dx[base + (size_t)p * c] = narrow<T>(rstd * (gh - m1 - yh * m2));
   }
 }
 
@@ -180,37 +210,91 @@ dim3 apply_grid(int hw, int n, int c) {
               (unsigned)((c + kThreads - 1) / kThreads));
 }
 
+template <class T>
+int fwd_part(const T* x, double* part, int n, int hw, int c, int rows, int chunks,
+             cudaStream_t stream) {
+  in_band_fwd_part_kernel<T><<<part_grid(chunks, n, c), kThreads, 0, stream>>>(x, part, hw, c,
+                                                                               rows, chunks);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int fwd_apply(const T* x, const double* parts, T* y, float* stats, int ranks, int n, int hw,
+              int c, int chunks, int act, float eps, float slope, cudaStream_t stream) {
+  in_band_fwd_apply_kernel<T><<<apply_grid(hw, n, c), kThreads, 0, stream>>>(
+      x, parts, y, stats, ranks, n, hw, c, chunks, act, eps, slope);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int bwd_part(const T* x, const T* g, const float* stats, double* part, int n, int hw, int c,
+             int rows, int chunks, int act, float slope, cudaStream_t stream) {
+  in_band_bwd_part_kernel<T><<<part_grid(chunks, n, c), kThreads, 0, stream>>>(
+      x, g, stats, part, hw, c, rows, chunks, act, slope);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int bwd_apply(const T* x, const T* g, const float* stats, const double* parts, T* dx, int ranks,
+              int n, int hw, int c, int chunks, long long frame_pixels, int act, float slope,
+              cudaStream_t stream) {
+  in_band_bwd_apply_kernel<T><<<apply_grid(hw, n, c), kThreads, 0, stream>>>(
+      x, g, stats, parts, dx, ranks, n, hw, c, chunks, (double)frame_pixels, act, slope);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each returns the launch's CUDA error code. act: 0 none, 1 relu, 2 leaky_relu.
+// The *_bf16 launchers take x, y, g and dx in bf16; stats and the partials
+// are fp32 and fp64 in both.
 extern "C" int nemar_in_band_fwd_part(const float* x, double* part, int n, int hw, int c, int rows,
                                       int chunks, cudaStream_t stream) {
-  in_band_fwd_part_kernel<<<part_grid(chunks, n, c), kThreads, 0, stream>>>(x, part, hw, c, rows,
-                                                                            chunks);
-  return (int)cudaGetLastError();
+  return fwd_part(x, part, n, hw, c, rows, chunks, stream);
 }
 
 extern "C" int nemar_in_band_fwd_apply(const float* x, const double* parts, float* y,
                                        float* stats, int ranks, int n, int hw, int c, int chunks,
                                        int act, float eps, float slope, cudaStream_t stream) {
-  in_band_fwd_apply_kernel<<<apply_grid(hw, n, c), kThreads, 0, stream>>>(
-      x, parts, y, stats, ranks, n, hw, c, chunks, act, eps, slope);
-  return (int)cudaGetLastError();
+  return fwd_apply(x, parts, y, stats, ranks, n, hw, c, chunks, act, eps, slope, stream);
 }
 
 extern "C" int nemar_in_band_bwd_part(const float* x, const float* g, const float* stats,
                                       double* part, int n, int hw, int c, int rows, int chunks,
                                       int act, float slope, cudaStream_t stream) {
-  in_band_bwd_part_kernel<<<part_grid(chunks, n, c), kThreads, 0, stream>>>(
-      x, g, stats, part, hw, c, rows, chunks, act, slope);
-  return (int)cudaGetLastError();
+  return bwd_part(x, g, stats, part, n, hw, c, rows, chunks, act, slope, stream);
 }
 
 extern "C" int nemar_in_band_bwd_apply(const float* x, const float* g, const float* stats,
                                        const double* parts, float* dx, int ranks, int n, int hw,
                                        int c, int chunks, long long frame_pixels, int act,
                                        float slope, cudaStream_t stream) {
-  in_band_bwd_apply_kernel<<<apply_grid(hw, n, c), kThreads, 0, stream>>>(
-      x, g, stats, parts, dx, ranks, n, hw, c, chunks, (double)frame_pixels, act, slope);
-  return (int)cudaGetLastError();
+  return bwd_apply(x, g, stats, parts, dx, ranks, n, hw, c, chunks, frame_pixels, act, slope,
+                   stream);
+}
+
+extern "C" int nemar_in_band_fwd_part_bf16(const bf16* x, double* part, int n, int hw, int c,
+                                           int rows, int chunks, cudaStream_t stream) {
+  return fwd_part(x, part, n, hw, c, rows, chunks, stream);
+}
+
+extern "C" int nemar_in_band_fwd_apply_bf16(const bf16* x, const double* parts, bf16* y,
+                                            float* stats, int ranks, int n, int hw, int c,
+                                            int chunks, int act, float eps, float slope,
+                                            cudaStream_t stream) {
+  return fwd_apply(x, parts, y, stats, ranks, n, hw, c, chunks, act, eps, slope, stream);
+}
+
+extern "C" int nemar_in_band_bwd_part_bf16(const bf16* x, const bf16* g, const float* stats,
+                                           double* part, int n, int hw, int c, int rows,
+                                           int chunks, int act, float slope, cudaStream_t stream) {
+  return bwd_part(x, g, stats, part, n, hw, c, rows, chunks, act, slope, stream);
+}
+
+extern "C" int nemar_in_band_bwd_apply_bf16(const bf16* x, const bf16* g, const float* stats,
+                                            const double* parts, bf16* dx, int ranks, int n,
+                                            int hw, int c, int chunks, long long frame_pixels,
+                                            int act, float slope, cudaStream_t stream) {
+  return bwd_apply(x, g, stats, parts, dx, ranks, n, hw, c, chunks, frame_pixels, act, slope,
+                   stream);
 }

@@ -562,6 +562,9 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dpad, int n, int 
 // * dz[p, co]. K slice k is the 64 pixels from (k % kps) * 64 of sample
 // k / kps (kps = ceil(H*W / 64)); rows past the sample are zero-filled.
 // Both operands are pixel-major, read by wgmma as they lie (MN-major).
+// kHp (the band form), as WgradOp's: src holds each sample's H + 2 rows, its
+// halo rows in place, read at row u + dy.
+template <bool kHp = false>
 struct WgradOp16 {
   static constexpr bool kNormRelu = false;
   static constexpr int kTileN = BN;
@@ -592,7 +595,8 @@ struct WgradOp16 {
       const int pix = q0 + k;
       const bool valid = pix < hw;
       const int u = pix / w, v = pix - u * w;
-      const size_t sp = ((size_t)b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
+      const size_t sp = kHp ? ((size_t)b * (h + 2) + u + dy) * w + reflect(v + dx - 1, w)
+                            : ((size_t)b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
       tc::cp_async16b(As + tc::mn16(k, q & 15), valid ? src + sp * c + ci0 + ch : src, valid);
       tc::cp_async16b(Bs + tc::mn16(k, q & 15),
                       valid ? dz + ((size_t)b * hw + pix) * c + n0 + ch : dz, valid);
@@ -658,9 +662,10 @@ struct DgradOp16 {
 };
 
 // 4 / 10
+template <bool kHp = false>
 cudaError_t wgrad16(const bf16* src, const bf16* dz, float* part, int n, int h, int w, int c,
                     int splits, cudaStream_t stream) {
-  WgradOp16 op;
+  WgradOp16<kHp> op;
   op.src = src;
   op.dz = dz;
   op.part = part;
@@ -761,22 +766,30 @@ extern "C" int nemar_resblock_bwd_bf16(const bf16* x, const bf16* y1hat, const b
 // tiles = ceil(H * W / 64).
 // ---------------------------------------------------------------------------
 // IN2's (stage 2: gsrc = g, y = y2) or IN1's (stage 1: gsrc = dpad2, folded
-// where it is read, y = y1) partials
-extern "C" int nemar_resblock_band_bwd_part(const float* gsrc, const float* y,
-                                            const float* stats, float* part, int stage, int n,
-                                            int h, int w, int c, cudaStream_t stream) {
+// where it is read, y = y1) partials. The bf16 variant's band form (the
+// *_bf16 launchers) is the bf16 backward's launches cut the same way, from
+// the bf16 band forward's saved values: stage 2 reads g (bf16) and y2,
+// stage 1 dpad2 and y1hat (bf16); its wgrads read xp and h1p (bf16, H + 2
+// rows), its dgrads W1 and W2 as they lie; dz, dW1, dW2 and dx bf16.
+namespace {
+
+// stage 2's (g, y2) or stage 1's (dpad2, y1 or y1hat) partials, T the
+// step's element type
+template <class T>
+cudaError_t band_part(const void* gsrc, const void* y, const float* stats, float* part,
+                      int stage, int n, int h, int w, int c, cudaStream_t stream) {
   const int tiles = (h * w + IN_TILE - 1) / IN_TILE;
   const dim3 grid((unsigned)(n * tiles), (unsigned)(c / 128));
   if (stage == 2)
-    in_bwd_partial_kernel<2, float><<<grid, 128, 0, stream>>>(gsrc, y, stats, part, h, w, c,
-                                                               tiles);
+    in_bwd_partial_kernel<2, T><<<grid, 128, 0, stream>>>(
+        static_cast<const InG<2, T>*>(gsrc), static_cast<const InY<2, T>*>(y), stats, part, h,
+        w, c, tiles);
   else
-    in_bwd_partial_kernel<1, float><<<grid, 128, 0, stream>>>(gsrc, y, stats, part, h, w, c,
-                                                               tiles);
-  return (int)cudaGetLastError();
+    in_bwd_partial_kernel<1, T><<<grid, 128, 0, stream>>>(
+        static_cast<const InG<1, T>*>(gsrc), static_cast<const InY<1, T>*>(y), stats, part, h,
+        w, c, tiles);
+  return cudaGetLastError();
 }
-
-namespace {
 
 // the means from every rank's partials (and, given w1, W1's and W2's split)
 cudaError_t band_merge(const float* parts, float* means, int ranks, int n, int h, int w, int c,
@@ -792,16 +805,37 @@ cudaError_t band_merge(const float* parts, float* means, int ranks, int n, int h
   return cudaGetLastError();
 }
 
-template <int kStage>
-cudaError_t band_apply(const float* gsrc, const float* y, const float* stats, const float* means,
-                       float* dz, int n, int h, int w, int c, cudaStream_t stream) {
+template <int kStage, class T>
+cudaError_t band_apply(const InG<kStage, T>* gsrc, const InY<kStage, T>* y, const float* stats,
+                       const float* means, T* dz, int n, int h, int w, int c,
+                       cudaStream_t stream) {
   const long long total4 = (long long)n * h * w * c / 4;
-  in_bwd_apply_kernel<kStage, float><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+  in_bwd_apply_kernel<kStage, T><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       gsrc, y, stats, means, dz, total4, h, w, c);
   return cudaGetLastError();
 }
 
+// dx = g + fold(dpad1), and dW1 = the sum of its partials
+template <class T>
+cudaError_t band_finish(const T* g, const float* dpad, T* dx, const float* part_w, T* dw1, int n,
+                        int h, int w, int c, int splits, cudaStream_t stream) {
+  const long long total4_w = (long long)9 * c * c / 4;
+  const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
+  const long long total4_x = (long long)n * h * w * c / 4;
+  const int fold_blocks = (int)((total4_x + 255) / 256);
+  finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
+      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1, total4_x, total4_w, splits,
+      fold_blocks, h, w, c);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int nemar_resblock_band_bwd_part(const float* gsrc, const float* y,
+                                            const float* stats, float* part, int stage, int n,
+                                            int h, int w, int c, cudaStream_t stream) {
+  return (int)band_part<float>(gsrc, y, stats, part, stage, n, h, w, c, stream);
+}
 
 // IN2's means (and W1's, W2's split), dz2, dW2 (from y1p, H + 2 rows) and
 // dpad2
@@ -843,16 +877,57 @@ extern "C" int nemar_resblock_band_bwd_dz1(const float* parts, float* means, con
   return (int)dgrad(dz, wsplit, dpad, n, h, w, c, stream);
 }
 
-// dx = g + fold(dpad1), and dW1 = the sum of its partials
 extern "C" int nemar_resblock_band_bwd_dx(const float* g, const float* dpad, float* dx,
                                           const float* part_w, float* dw1, int n, int h, int w,
                                           int c, int splits, cudaStream_t stream) {
+  return (int)band_finish(g, dpad, dx, part_w, dw1, n, h, w, c, splits, stream);
+}
+
+extern "C" int nemar_resblock_band_bwd_part_bf16(const void* gsrc, const void* y,
+                                                 const float* stats, float* part, int stage,
+                                                 int n, int h, int w, int c,
+                                                 cudaStream_t stream) {
+  return (int)band_part<bf16>(gsrc, y, stats, part, stage, n, h, w, c, stream);
+}
+
+// IN2's means, dz2, dW2 (from h1p, H + 2 rows) and dpad2
+extern "C" int nemar_resblock_band_bwd_dz2_bf16(const float* parts, float* means, const bf16* g,
+                                                const float* y2, const float* stats, bf16* dz,
+                                                const bf16* h1p, const bf16* w2, float* part_w,
+                                                bf16* dw2, float* dpad, int ranks, int n, int h,
+                                                int w, int c, int splits, cudaStream_t stream) {
+  cudaError_t err;
+  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = band_apply<2>(g, y2, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = wgrad16<true>(h1p, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
+    return (int)err;
   const long long total4_w = (long long)9 * c * c / 4;
-  const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
-  const long long total4_x = (long long)n * h * w * c / 4;
-  const int fold_blocks = (int)((total4_x + 255) / 256);
-  finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
-      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1, total4_x, total4_w, splits,
-      fold_blocks, h, w, c);
-  return (int)cudaGetLastError();
+  split_sum_kernel<<<(unsigned)((total4_w + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(part_w), dw2, total4_w, splits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)dgrad16(dz, w2, dpad, n, h, w, c, stream);
+}
+
+// IN1's means, dz1 from fold(dpad2), dW1's partials (from xp, H + 2 rows)
+// and dpad1 (written over dpad2, which the apply has read)
+extern "C" int nemar_resblock_band_bwd_dz1_bf16(const float* parts, float* means, float* dpad,
+                                                const bf16* y1hat, const float* stats, bf16* dz,
+                                                const bf16* xp, const bf16* w1, float* part_w,
+                                                int ranks, int n, int h, int w, int c, int splits,
+                                                cudaStream_t stream) {
+  cudaError_t err;
+  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = band_apply<1>(dpad, y1hat, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = wgrad16<true>(xp, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
+    return (int)err;
+  return (int)dgrad16(dz, w1, dpad, n, h, w, c, stream);
+}
+
+// dx = g + fold(dpad1), and dW1 = the sum of its partials, both bf16
+extern "C" int nemar_resblock_band_bwd_dx_bf16(const bf16* g, const float* dpad, bf16* dx,
+                                               const float* part_w, bf16* dw1, int n, int h,
+                                               int w, int c, int splits, cudaStream_t stream) {
+  return (int)band_finish(g, dpad, dx, part_w, dw1, n, h, w, c, splits, stream);
 }

@@ -290,8 +290,9 @@ using bf16 = __nv_bfloat16;
 // y[b, p, co] = sum_{tap, ci} src[b, reflect(u + dy - 1), reflect(v + dx - 1), ci]
 //                             * W[tap][ci][co], src and W bf16, y fp32;
 // the tile's per-column (mean, M2) to part. A K slice is one tap and 64
-// channels.
-template <int kTN>
+// channels. kHp (the band form), as ConvOp's: src holds each sample's H + 2
+// rows, its halo rows in place, read at row u + dy.
+template <int kTN, bool kHp = false>
 struct ConvOp16 {
   static constexpr bool kNormRelu = false;
   static constexpr bool kTileStats = true;
@@ -328,11 +329,12 @@ struct ConvOp16 {
     const int tap = k0 / c;
     const int ci = k0 - tap * c + 8 * kc;
     const int dy = tap / 3, dx = tap - 3 * dy;
-    const bf16* sb = src + (size_t)b * h * w * c;
+    const bf16* sb = src + (size_t)b * (h + (kHp ? 2 : 0)) * w * c;
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const bool valid = ruv[i] >= 0;
-      const int su = reflect((ruv[i] >> 16) + dy - 1, h), sv = reflect((ruv[i] & 0xffff) + dx - 1, w);
+      const int su = kHp ? (ruv[i] >> 16) + dy : reflect((ruv[i] >> 16) + dy - 1, h);
+      const int sv = reflect((ruv[i] & 0xffff) + dx - 1, w);
       tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
                       valid ? sb + ((size_t)su * w + sv) * c + ci : sb, valid);
     }
@@ -386,10 +388,10 @@ __global__ void norm_relu16_kernel(const float4* __restrict__ y, const float* __
                                  fmaxf(yh.w, 0.f)));
 }
 
-template <int kTN>
+template <int kTN, bool kHp = false>
 cudaError_t conv16(const bf16* src, const bf16* wt, float* y, float* part, int n, int h, int w,
                    int c, int tiles, cudaStream_t stream) {
-  ConvOp16<kTN> op;
+  ConvOp16<kTN, kHp> op;
   op.src = src;
   op.wt = wt;
   op.y = y;
@@ -498,6 +500,18 @@ extern "C" int nemar_resblock_fwd_bf16(const bf16* x, const bf16* w1, const bf16
 //   conv2: conv2 over y1p (N, H + 2, W, C) with IN1 + relu on the fly;
 //   residual: (mu2, rstd2) from every rank's part, out = x + IN2(y2).
 // parts: (ranks, N * tiles, 2, C), tiles = ceil(H * W / 128).
+//
+// The bf16 variant's band form (the *_bf16 launchers) rounds where the
+// bf16 forward does: x, W1, W2 bf16, y1 and y2 fp32 with their tile
+// statistics, y1hat and h1 bf16 on the band, out bf16. conv2 reads h1
+// with its halo rows (h1p, N, H + 2, W, C bf16: the caller exchanges the
+// bf16 rows, the frame's reflection at its edges), not y1, so the rows
+// the ranks exchange are the bf16 values the whole-frame variant's conv2
+// reads. Four launchers:
+//   conv1_bf16: W1, W2 -> W^T per tap (bf16), conv1 over xp -> y1, part;
+//   norm_relu_bf16: (mu1, rstd1) from every rank's part, y1hat and h1;
+//   conv2_bf16: conv2 over h1p -> y2, part;
+//   residual_bf16: (mu2, rstd2) from every rank's part, out = x + IN2(y2).
 // ---------------------------------------------------------------------------
 extern "C" int nemar_resblock_band_conv1(const float* xp, const float* w1, const float* w2,
                                          float* wsplit, float* y1, float* part, int n, int h,
@@ -536,13 +550,71 @@ extern "C" int nemar_resblock_band_conv2(const float* y1p, const float* stats, c
   return (int)err;
 }
 
-extern "C" int nemar_resblock_band_residual(const float* parts, float* stats, const float* x,
-                                            const float* y2, float* out, int ranks, int n, int hw,
-                                            int c, float eps, cudaStream_t stream) {
+namespace {
+
+// (mu2, rstd2) from every rank's part, out = x + IN2(y2); x and out of the
+// step's element type T
+template <class T>
+int band_residual(const float* parts, float* stats, const T* x, const float* y2, T* out,
+                  int ranks, int n, int hw, int c, float eps, cudaStream_t stream) {
   const int err = nemar_resblock_band_stats(parts, stats, ranks, 1, n, hw, c, eps, stream);
   if (err != 0) return err;
   const long long total4 = (long long)n * hw * c / 4;
   residual_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       x, reinterpret_cast<const float4*>(y2), stats, out, total4, hw, c);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int nemar_resblock_band_residual(const float* parts, float* stats, const float* x,
+                                            const float* y2, float* out, int ranks, int n, int hw,
+                                            int c, float eps, cudaStream_t stream) {
+  return band_residual(parts, stats, x, y2, out, ranks, n, hw, c, eps, stream);
+}
+
+extern "C" int nemar_resblock_band_conv1_bf16(const bf16* xp, const bf16* w1, const bf16* w2,
+                                              bf16* wt, float* y1, float* part, int n, int h,
+                                              int w, int c, cudaStream_t stream) {
+  const int tiles = (h * w + BM - 1) / BM;
+  bool narrow = false;
+  cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
+  if (err != cudaSuccess) return (int)err;
+  transpose16_kernel<<<dim3((unsigned)(c / 32), (unsigned)(c / 32), 18), dim3(32, 8), 0, stream>>>(
+      w1, w2, wt, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = narrow ? conv16<64, true>(xp, wt, y1, part, n, h, w, c, tiles, stream)
+               : conv16<128, true>(xp, wt, y1, part, n, h, w, c, tiles, stream);
+  return (int)err;
+}
+
+extern "C" int nemar_resblock_band_norm_relu_bf16(const float* parts, float* stats,
+                                                  const float* y1, bf16* y1hat, bf16* h1,
+                                                  int ranks, int n, int hw, int c, float eps,
+                                                  cudaStream_t stream) {
+  const int err = nemar_resblock_band_stats(parts, stats, ranks, 0, n, hw, c, eps, stream);
+  if (err != 0) return err;
+  const long long total4 = (long long)n * hw * c / 4;
+  norm_relu16_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(y1), stats, y1hat, h1, total4, hw, c);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int nemar_resblock_band_conv2_bf16(const bf16* h1p, const bf16* wt, float* y2,
+                                              float* part, int n, int h, int w, int c,
+                                              cudaStream_t stream) {
+  const int tiles = (h * w + BM - 1) / BM;
+  bool narrow = false;
+  cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* w2t = wt + (size_t)9 * c * c;
+  err = narrow ? conv16<64, true>(h1p, w2t, y2, part, n, h, w, c, tiles, stream)
+               : conv16<128, true>(h1p, w2t, y2, part, n, h, w, c, tiles, stream);
+  return (int)err;
+}
+
+extern "C" int nemar_resblock_band_residual_bf16(const float* parts, float* stats, const bf16* x,
+                                                 const float* y2, bf16* out, int ranks, int n,
+                                                 int hw, int c, float eps, cudaStream_t stream) {
+  return band_residual(parts, stats, x, y2, out, ranks, n, hw, c, eps, stream);
 }

@@ -66,8 +66,11 @@ the ranks after ``_mean_grads`` and before D's Adam, G's and R's before
 R's clip (which then sees the global norm); the pool is one global pool,
 queried with the gathered fakes; the step's draws are made for the
 global rows (``_step_draws``); --border_mask's count is the global
-microbatch's. ``--mesh_spatial`` (the image height over devices) is
-refused, queued as ROADMAP.md A10b.
+microbatch's. Under ``--mesh_spatial`` (the image height over the ranks
+of a spatial group, ``parallel/spatial.py``) every net runs its band form
+and each loss is the band's share; --border_mask's count is summed over
+every rank; the flags whose paths the band step does not hold are
+refused by name (``_check_supported``, ROADMAP.md A10c).
 """
 
 from __future__ import annotations
@@ -376,21 +379,38 @@ class NEMARModel(BaseModel):
             # validity of each output pixel under the warp; no gradient: the
             # mask must not be a lever for shrinking the loss support
             with torch.no_grad():
-                n, _, h, w = a.shape
-                ones = torch.ones((n, h, w, 1), dtype=torch.float32, device=a.device)
-                out["mask"] = networks.to_nchw(grid_sample(
-                    ones, aux["grid"], "bilinear", "zeros",
-                    getattr(self.opt, "stn_align_corners", False)))
+                out["mask"] = self._validity(a.shape[2], aux["grid"])
         return out
+
+    def _validity(self, height: int, grid: torch.Tensor) -> torch.Tensor:
+        """--border_mask's mask (N, 1, H_grid, W): ones of a frame of
+        ``height`` rows sampled at ``grid``, in the grid's type (fp32 under
+        fp32 and --bf16, as the JAX package's; float64 in a float64 run,
+        whose count would otherwise carry fp32 roundoff that depends on the
+        order of its sum, over bands or ranks)."""
+        n, _, w, _ = grid.shape
+        ones = torch.ones((n, height, w, 1), dtype=grid.dtype, device=grid.device)
+        return networks.to_nchw(grid_sample(ones, grid, "bilinear", "zeros",
+                                            getattr(self.opt, "stn_align_corners", False)))
 
     def _forward_parts_band(self, a: torch.Tensor, b: torch.Tensor) -> dict:
         """``_forward_parts`` on this rank's band (--mesh_spatial): every
-        output is its band of the frame's, reg its share."""
-        fake_B = self.netG(a, self.band)
-        (reg_fakeB, warped_A), reg, aux = self.netR(a, b, (fake_B, a), n_grad_imgs=1,
-                                                    band=self.band)
-        return {"fake_B": fake_B, "reg_fakeB": reg_fakeB, "warped_A": warped_A,
-                "fake_B2": self.netG(warped_A, self.band), "reg": reg, "flow": aux["flow"]}
+        output is its band of the frame's, reg its share; the mask the
+        warp's validity on the band's rows (the frame's ones sampled at the
+        band's grid). Under --bf16 the nets run in bf16 as in one process."""
+        netG, netR = self.compute(self.netG), self.compute(self.netR)
+        ca, cb = self.cast(a), self.cast(b)
+        fake_B = netG(ca, self.band)
+        (reg_fakeB, warped_A), reg, aux = netR(ca, cb, (fake_B, ca), n_grad_imgs=1,
+                                               band=self.band)
+        fake_B2 = netG(warped_A, self.band)
+        out = {k: self.uncast(v) for k, v in (
+            ("fake_B", fake_B), ("reg_fakeB", reg_fakeB), ("warped_A", warped_A),
+            ("fake_B2", fake_B2), ("reg", reg), ("flow", aux["flow"]))}
+        if self.border_mask:
+            with torch.no_grad():
+                out["mask"] = self._validity(self.band.height, aux["grid"])
+        return out
 
     # ------------------------------------------------------------------
     # the training step
@@ -403,8 +423,9 @@ class NEMARModel(BaseModel):
         are bf16, their predictions cast back to fp32; the penalty's pass is
         fp32, as the JAX package's. Under --mesh_spatial the band's shares."""
         if self.band is not None:
-            pred, pband = self.netD(torch.cat([b, fake], dim=0), self.band)
-            pred_real, pred_fake = torch.chunk(pred, 2, dim=0)
+            pred, pband = self.compute(self.netD)(self.cast(torch.cat([b, fake], dim=0)),
+                                                  self.band)
+            pred_real, pred_fake = torch.chunk(self.uncast(pred), 2, dim=0)
             l_real = networks.gan_loss(pred_real, True, self.gan_mode, pband)
             l_fake = networks.gan_loss(pred_fake, False, self.gan_mode, pband)
             return 0.5 * (l_real + l_fake), (l_real, l_fake, None)
@@ -471,17 +492,21 @@ class NEMARModel(BaseModel):
         self.pool[1].copy_(count)
         return out[parallel.rows_in(m)]
 
-    def _recon_l1(self, x, y, m):
+    def _recon_l1(self, x, y, m, band=None):
         """mean |x - y|, or under --border_mask the sum over the valid
         pixels over their count: the global microbatch's count in a
-        data-parallel run, the numerator scaled by W so that the ranks'
-        mean is the global loss."""
+        data-parallel run or over bands (every rank's), the numerator scaled
+        by the data width so that the gradient all-reduce's sum over the
+        ranks over that width is the global loss. With ``band`` (x, y, m
+        this rank's band of their frames) the band's share of the mean."""
         if m is None:
+            if band is not None:
+                return spatial.frame_mean(torch.abs(x - y), band)
             return torch.mean(torch.abs(x - y))
         num = torch.sum(torch.abs(x - y).mean(1, keepdim=True) * m)
         den = torch.sum(m)
-        if parallel.sharded(self._global_micro(x.shape[0])):
-            num = num * parallel.world()
+        if band is not None or parallel.sharded(self._global_micro(x.shape[0])):
+            num = num * parallel.data_world()
             den = parallel.sum_over_ranks(den)
         return num / torch.clamp_min(den, 1.0)
 
@@ -489,25 +514,25 @@ class NEMARModel(BaseModel):
         """G+R loss on the forward outputs ``o`` against D as it is now (its
         pass in bf16 under --bf16, the prediction cast back to fp32);
         ``gan_scale`` is the GAN weight times --lambda_GAN. Under
-        --mesh_spatial each term is the band's share of the global mean."""
-        if self.band is not None:
-            pred, pband = self.netD(o["reg_fakeB"], self.band)
-            l_gan = networks.gan_loss(pred, True, self.gan_mode, pband)
-            l_recon = (spatial.frame_mean(torch.abs(o["reg_fakeB"] - b), self.band)
-                       + spatial.frame_mean(torch.abs(o["fake_B2"] - b), self.band))
-            total = (gan_scale * l_gan + self.lambda_recon * l_recon
-                     + self.lambda_smooth * o["reg"])
-            return total, (l_gan, l_recon, o["reg"])
-        pred = self.uncast(self.compute(self.netD)(self.cast(o["reg_fakeB"])))
-        l_gan = networks.gan_loss(pred, True, self.gan_mode)
+        --mesh_spatial each term is the band's share of the global mean (the
+        pyramid's pools local to the band: its height is a multiple of
+        2^K, ``_check_supported``)."""
+        band = self.band
+        if band is not None:
+            pred, pband = self.compute(self.netD)(self.cast(o["reg_fakeB"]), band)
+            l_gan = networks.gan_loss(self.uncast(pred), True, self.gan_mode, pband)
+        else:
+            pred = self.uncast(self.compute(self.netD)(self.cast(o["reg_fakeB"])))
+            l_gan = networks.gan_loss(pred, True, self.gan_mode)
         m = o.get("mask")
         rf, f2, bb = o["reg_fakeB"], o["fake_B2"], b
-        l_recon = self._recon_l1(rf, bb, m) + self._recon_l1(f2, bb, m)
+        l_recon = self._recon_l1(rf, bb, m, band) + self._recon_l1(f2, bb, m, band)
         # --recon_pyramid: K extra 2x2-average-pooled octaves
         for _ in range(self.recon_pyramid):
             rf, f2, bb = F.avg_pool2d(rf, 2), F.avg_pool2d(f2, 2), F.avg_pool2d(bb, 2)
             m = F.avg_pool2d(m, 2) if m is not None else None
-            l_recon = l_recon + self._recon_l1(rf, bb, m) + self._recon_l1(f2, bb, m)
+            band = band.down(2) if band is not None else None
+            l_recon = l_recon + self._recon_l1(rf, bb, m, band) + self._recon_l1(f2, bb, m, band)
         l_recon = l_recon / (1 + self.recon_pyramid)
         l_smooth = o["reg"]
         total = (gan_scale * l_gan + self.lambda_recon * l_recon
@@ -820,18 +845,10 @@ def _check_supported(opt) -> None:
     if getattr(opt, "mesh_spatial", 1) <= 1:
         return
     refused = [
-        (getattr(opt, "bf16", False), "--bf16"),
-        (getattr(opt, "stn_type", "unet") != "unet",
-         f"--stn_type {getattr(opt, 'stn_type', 'unet')} (its flatten head is an FC over the "
-         f"whole frame)"),
-        (getattr(opt, "stn_multiscale", False),
-         "--stn_multiscale (its resize is two matrix products over the full height)"),
         (getattr(opt, "gan_mode", "lsgan") != "lsgan",
          f"--gan_mode {getattr(opt, 'gan_mode', 'lsgan')} (wgangp: a double backward through "
          f"the exchanges)"),
         (getattr(opt, "steps_per_execution", 1) > 1, "--steps_per_execution > 1"),
-        (getattr(opt, "border_mask", False), "--border_mask"),
-        (getattr(opt, "recon_pyramid", 0) > 0, "--recon_pyramid"),
         (getattr(opt, "norm", "instance") != "instance",
          f"--norm {getattr(opt, 'norm', 'instance')}"),
         (getattr(opt, "netG", "resnet_6blocks") != "resnet_6blocks",
@@ -841,8 +858,6 @@ def _check_supported(opt) -> None:
         (getattr(opt, "g_batch", False), "--g_batch"),
         (getattr(opt, "freeze_g", False), "--freeze_g"),
         (getattr(opt, "stn_field_source", "pair") != "pair", "--stn_field_source fake"),
-        (getattr(opt, "stn_bounded_flow", 0.0) > 0, "--stn_bounded_flow"),
-        (getattr(opt, "stn_smooth_order", 1) != 1, "--stn_smooth_order 2"),
         (getattr(opt, "stn_padding_mode", "zeros") != "zeros",
          f"--stn_padding_mode {getattr(opt, 'stn_padding_mode', '')}"),
         (getattr(opt, "stn_align_corners", False), "--stn_align_corners"),
@@ -859,3 +874,10 @@ def _check_supported(opt) -> None:
             f"--mesh_spatial {opt.mesh_spatial}: the image height {opt.crop_size} must split "
             f"evenly over the ranks at every level of G and of the STN (depth {depth}): a "
             f"multiple of {need}")
+    k = getattr(opt, "recon_pyramid", 0)
+    rows = opt.crop_size // opt.mesh_spatial
+    if k > 0 and rows % 2**k:
+        raise ValueError(
+            f"--mesh_spatial {opt.mesh_spatial}: --recon_pyramid {k} pools each band of {rows} "
+            f"rows 2x2 {k} times on its own: the band height must be a multiple of {2**k} "
+            f"(queued as ROADMAP.md A10c)")

@@ -18,6 +18,18 @@ Counterpart of ``nemar_tpu/models/stn/affine_stn.py``:
 Under ``--bf16`` Δθ and the reg are bf16, as in the JAX package; θ and the
 grid are fp32 (identity + Δθ cast up), and so is the implied field.
 
+Under --mesh_spatial ``forward`` takes a ``band``, this rank's rows of the
+frame: each conv and its instance norm run in band form
+(``networks.conv_band``, ``norm_act_band``) while the band can serve its
+halo, and a level whose bands would be thinner than their halo (64^2 over
+4 ranks: the last conv's input rows) runs on the gathered map; the head
+runs on the last map gathered (``spatial.gather_frame``: 8x8x256 at 256^2),
+so every rank holds the same Δθ; the grid is the band's rows of
+``affine_grid`` and the images are sampled from their gathered frames.
+What every rank computes whole reaches the loss only through the band's
+share: the warp of its rows, and reg over the group's size (the gradient
+all-reduce sums over every rank).
+
 Layers are named ``Conv_<k>`` and ``Dense_<k>`` as flax names them, so the
 state_dict matches the flax tree (``utils/convert.py`` transposes the dense
 kernels).
@@ -31,8 +43,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from nemar_tpu_torch.models.networks import norm_act, to_nchw, to_nhwc
+from nemar_tpu_torch.models.networks import (conv_band, norm_act, norm_act_band, to_nchw,
+                                             to_nhwc)
 from nemar_tpu_torch.ops.warp import affine_grid, grid_sample_multi, identity_grid
+from nemar_tpu_torch.parallel import spatial
 
 
 class AffineSTN(nn.Module):
@@ -66,6 +80,30 @@ class AffineSTN(nn.Module):
         h = torch.cat([a, b], dim=1)
         for k in range(self.n_downs):
             h = norm_act(getattr(self, f"Conv_{k}")(h), "leaky_relu")
+        return self._head(h)
+
+    def predict_dtheta_band(self, a: torch.Tensor, b: torch.Tensor, band) -> torch.Tensor:
+        """``predict_dtheta`` of the frame of which a and b are this rank's
+        band: the encoder in band form while the bands serve their halos,
+        then on the gathered map; the head on the last map's frame (the
+        same Δθ on every rank)."""
+        h, bd = torch.cat([a, b], dim=1), band
+        for k in range(self.n_downs):
+            conv = getattr(self, f"Conv_{k}")
+            if bd is not None and not bd.fits(conv.kernel_size[0], conv.stride[0],
+                                              conv.padding[0]):
+                h, bd = spatial.gather_frame(h, bd, dim=2), None
+            if bd is None:
+                h = norm_act(conv(h), "leaky_relu")
+            else:
+                h, bd = conv_band(conv, h, bd)
+                h = norm_act_band(h, bd, "leaky_relu")
+        if bd is not None:
+            h = spatial.gather_frame(h, bd, dim=2)
+        return self._head(h)
+
+    def _head(self, h: torch.Tensor) -> torch.Tensor:
+        """Δθ (N, 2, 3) from the last map (NCHW)."""
         if self.head == "gap":
             h = h.mean(dim=(2, 3))
         else:
@@ -75,9 +113,13 @@ class AffineSTN(nn.Module):
         return self.Dense_1(h).reshape(-1, 2, 3)
 
     def forward(self, a: torch.Tensor, b: torch.Tensor, imgs: Sequence[torch.Tensor] = (),
-                n_grad_imgs: int = -1):
+                n_grad_imgs: int = -1, band=None):
         """(warped imgs, identity reg, {'theta', 'grid', 'dtheta', 'flow'});
-        images NCHW in and out."""
+        images NCHW in and out. With ``band`` (``spatial.Band``) a, b, the
+        images, the grid and the flow are this rank's band of the frame's,
+        reg its share."""
+        if band is not None:
+            return self._forward_band(a, b, imgs, n_grad_imgs, band)
         dtheta = self.predict_dtheta(a, b)
         n, _, h, w = a.shape
         # grid coordinates are at least fp32 whatever the activations' type
@@ -93,4 +135,23 @@ class AffineSTN(nn.Module):
             warped = tuple(to_nchw(wp) for wp in warped)
         reg = dtheta.reshape(n, -1).square().sum(dim=1).mean()
         flow = grid - identity_grid(h, w, self.align_corners, grid.dtype, grid.device)[None]
+        return warped, reg, {"theta": theta, "grid": grid, "dtheta": dtheta, "flow": flow}
+
+    def _forward_band(self, a, b, imgs, n_grad_imgs: int, band):
+        dtheta = self.predict_dtheta_band(a, b, band)
+        n, w = a.shape[0], a.shape[3]
+        cdt = torch.float64 if dtheta.dtype == torch.float64 else torch.float32
+        eye = torch.eye(2, 3, dtype=cdt, device=a.device)
+        theta = eye[None] + dtheta.to(cdt)
+        grid = affine_grid(theta, (n, 1, band.height, w), self.align_corners)[:, band.r0:band.r1]
+        warped = ()
+        if imgs:
+            frames = [spatial.gather_frame(to_nhwc(i), band, dim=1) for i in imgs]
+            warped = grid_sample_multi(frames, grid, "bilinear", self.padding_mode,
+                                       self.align_corners, n_grad_imgs)
+            warped = tuple(to_nchw(wp) for wp in warped)
+        # Δθ is the same on every rank: each holds 1/size of its reg
+        reg = dtheta.reshape(n, -1).square().sum(dim=1).mean() / band.size
+        ident = identity_grid(band.height, w, self.align_corners, grid.dtype, grid.device)
+        flow = grid - ident[band.r0:band.r1][None]
         return warped, reg, {"theta": theta, "grid": grid, "dtheta": dtheta, "flow": flow}

@@ -32,7 +32,13 @@ band's rows of the frame's identity plus φ's band; the warped images are
 sampled from the whole frames (``spatial.gather_frame``: d img, a frame on
 every rank, is summed over the group and cut to the band), the JAX
 package's ``mm`` route under GSPMD computing the same function; the TV
-takes one row of φ from the band below (``smoothness_loss_band``).
+takes one row of φ from the band below, two for order 2
+(``smoothness_loss_band``). Under ``multiscale`` each head's field is on
+its level's band: its resize takes the band's rows of the weights against
+the coarse field's gathered frame (``resize_bilinear(rows=)``, still two
+matrix products), each composition samples the field so far from its
+gathered frame (``compose_flows_band``), and each level's TV is its band's
+share; the tanh bound is elementwise on φ's band.
 
 Convs are named ``Conv_<k>`` in the reference's creation order (the
 multiscale heads between the decoder's convs), so the state_dict matches
@@ -51,7 +57,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nemar_tpu_torch.models.networks import conv_band, norm_act, norm_act_band, to_nchw, to_nhwc
-from nemar_tpu_torch.ops.warp import compose_flows, grid_sample_multi, identity_grid
+from nemar_tpu_torch.ops.warp import (compose_flows, grid_sample, grid_sample_multi,
+                                      identity_grid)
 from nemar_tpu_torch.parallel import spatial
 
 
@@ -76,26 +83,31 @@ def smoothness_loss(flow: torch.Tensor, smooth_type: str = "l1", order: int = 1)
     raise NotImplementedError(f"smooth type {smooth_type!r}")
 
 
-def smoothness_loss_band(flow: torch.Tensor, band, smooth_type: str = "l1") -> torch.Tensor:
-    """This rank's share of the order-1 ``smoothness_loss`` of the frame of
-    which the (N, H, W, 2) flow is its band: the difference across the
-    band's lower edge takes the first row of the band below (none at the
-    frame's bottom), so each difference is counted once; each term is the
-    band's sum over the frame's count."""
+def smoothness_loss_band(flow: torch.Tensor, band, smooth_type: str = "l1",
+                         order: int = 1) -> torch.Tensor:
+    """This rank's share of ``smoothness_loss`` (order 1 or 2) of the frame
+    of which the (N, H, W, 2) flow is its band: the differences across the
+    band's lower edge take the first ``order`` rows of the band below (none
+    at the frame's bottom, where the differences end), so each difference
+    is counted once; each term is the band's sum over the frame's count."""
     n, h, w, c = flow.shape
-    below = spatial.exchange_rows(flow, band, (0,) * band.size, (1,) * band.size, dim=1,
+    below = spatial.exchange_rows(flow, band, (0,) * band.size, (order,) * band.size, dim=1,
                                   mode="zeros")
     if band.last:
         below = below[:, :h]
     dy = below[:, 1:] - below[:, :-1]
     dx = flow[:, :, 1:] - flow[:, :, :-1]
+    if order == 2:
+        dy = dy[:, 1:] - dy[:, :-1]
+        dx = dx[:, :, 1:] - dx[:, :, :-1]
     if smooth_type == "l1":
         fy, fx = _abs(dy), _abs(dx)
     elif smooth_type == "l2":
         fy, fx = dy.square(), dx.square()
     else:
         raise NotImplementedError(f"smooth type {smooth_type!r}")
-    return fy.sum() / (n * (band.height - 1) * w * c) + fx.sum() / (n * band.height * (w - 1) * c)
+    return (fy.sum() / (n * (band.height - order) * w * c)
+            + fx.sum() / (n * band.height * (w - order) * c))
 
 
 @functools.cache
@@ -119,25 +131,45 @@ def resize_weights(n_in: int, n_out: int, dtype=torch.float32, device=None) -> t
     return torch.where(inside[:, None], w, 0.0).to(device=device, dtype=out_dtype)
 
 
-def resize_bilinear(f: torch.Tensor, height: int, width: int) -> torch.Tensor:
+def resize_bilinear(f: torch.Tensor, height: int, width: int, rows: slice | None = None
+                    ) -> torch.Tensor:
     """``jax.image.resize(f, (n, height, width, c), 'bilinear')`` of an NHWC
     field, as jax computes it: one weight matrix per axis, contracted with
     the field (an axis of unchanged size is left as it is). Two matrix
     products, so the backward is the transposed contraction, again two
     products, with no scatter: F.interpolate's bilinear backward adds with
-    float atomics on CUDA and would make two training runs differ."""
+    float atomics on CUDA and would make two training runs differ.
+    ``rows``: only those output rows (a band's, --mesh_spatial), the same
+    products with the H weights' rows cut to them."""
     n, h, w, c = f.shape
     if h != height:
         # (height, h) @ (h, n w c)
         wh = resize_weights(h, height, f.dtype, f.device)
+        if rows is not None:
+            wh = wh[rows]
         f = wh @ f.permute(1, 0, 2, 3).reshape(h, n * w * c)
-        f = f.reshape(height, n, w, c).permute(1, 0, 2, 3)
+        f = f.reshape(wh.shape[0], n, w, c).permute(1, 0, 2, 3)
     if w != width:
         # (width, w) @ (w, n height c)
-        g = f.permute(2, 0, 1, 3).reshape(w, n * height * c)
-        f = (resize_weights(w, width, f.dtype, f.device) @ g).reshape(width, n, height, c)
+        ho = f.shape[1]
+        g = f.permute(2, 0, 1, 3).reshape(w, n * ho * c)
+        f = (resize_weights(w, width, f.dtype, f.device) @ g).reshape(width, n, ho, c)
         f = f.permute(1, 2, 0, 3)
     return f
+
+
+def compose_flows_band(flow_outer: torch.Tensor, flow_inner: torch.Tensor, band,
+                       align_corners: bool = False) -> torch.Tensor:
+    """``compose_flows`` of the frames of which both (N, H_band, W, 2) fields
+    are this rank's band: the inner field's frame gathered and sampled at
+    the band's rows of identity + outer (its adjoint sums the ranks'
+    gradients of the frame in rank order)."""
+    _, h, w, _ = flow_outer.shape
+    ident = identity_grid(band.height, w, align_corners, flow_outer.dtype, flow_outer.device)
+    grid = ident[band.r0:band.r1][None] + flow_outer
+    inner_at = grid_sample(spatial.gather_frame(flow_inner, band, dim=1), grid, "bilinear",
+                           "border", align_corners)
+    return flow_outer + inner_at
 
 
 class UnetSTN(nn.Module):
@@ -232,18 +264,21 @@ class UnetSTN(nn.Module):
             flow = torch.tanh(flow) * self.bounded_flow
         return flow, level_reg
 
-    def predict_flow_band(self, a: torch.Tensor, b: torch.Tensor, band) -> torch.Tensor:
-        """``predict_flow`` (one head, no bound) of the frame of which a and
-        b are this rank's band: φ's band, (N, H_band, W, 2)."""
+    def predict_flow_band(self, a: torch.Tensor, b: torch.Tensor, band) -> tuple:
+        """``predict_flow`` of the frame of which a and b are this rank's
+        band: (φ's band (N, H_band, W, 2), the level-wise TV's share or
+        None)."""
+        hh, ww = band.height, a.shape[3]
         h, bd = torch.cat([a, b], dim=1), band
         skips = []
         for k in range(self.depth):
             h, bd = conv_band(getattr(self, f"Conv_{k}"), h, bd)
             h = norm_act_band(h, bd, "leaky_relu")
             skips.append((h, bd))
+        flows = []  # (a head's field on its level's band, that band), coarse to fine
         for j, i in enumerate(reversed(range(self.depth))):
             h, bd = F.interpolate(h, scale_factor=2, mode="nearest"), bd.up(2)
-            h, bd = conv_band(getattr(self, f"Conv_{self.depth + j}"), h, bd)
+            h, bd = conv_band(getattr(self, f"Conv_{self.depth + j + len(flows)}"), h, bd)
             h = norm_act_band(h, bd, "leaky_relu")
             if i > 0:
                 skip, sb = skips[i - 1]
@@ -252,8 +287,41 @@ class UnetSTN(nn.Module):
                                      f"{i} differ ({sb.bounds} and {bd.bounds}); the height "
                                      f"must split evenly at every level")
                 h = torch.cat([skip, h], dim=1)
-        head = getattr(self, f"Conv_{self.head_index[0]}")
-        return to_nhwc(self.level_scale * conv_band(head, h, bd)[0]) * self.flow_scale
+                wanted = self.multiscale and bd.height >= self.head_min_res
+                if wanted != (i in self.head_index):
+                    raise ValueError(f"R was built with heads at levels {sorted(self.head_index)}"
+                                     f" for another input size than {hh}x{ww}")
+                if wanted:
+                    flows.append((self._field_band(i, h, bd), bd))
+        flows.append((self._field_band(0, h, bd), bd))
+
+        def full(f, fb):  # a field at the output's resolution, this rank's rows
+            if fb.height == hh:
+                return f
+            return resize_bilinear(spatial.gather_frame(f, fb, dim=1), hh, ww,
+                                   slice(band.r0, band.r1))
+
+        level_reg = None
+        flow = full(*flows[0])
+        if self.multiscale:
+            level_reg = smoothness_loss_band(flows[0][0], flows[0][1], self.smooth_type,
+                                             self.smooth_order)
+        for f, fb in flows[1:]:
+            level_reg = level_reg + smoothness_loss_band(f, fb, self.smooth_type,
+                                                         self.smooth_order)
+            # the warp so far applied first (inner), this level refines (outer)
+            flow = compose_flows_band(full(f, fb), flow, band, self.align_corners)
+        if level_reg is not None:
+            level_reg = level_reg / len(flows)
+        flow = flow * self.flow_scale
+        if self.bounded_flow > 0:
+            flow = torch.tanh(flow) * self.bounded_flow
+        return flow, level_reg
+
+    def _field_band(self, level: int, h: torch.Tensor, band) -> torch.Tensor:
+        """``_field`` of the frame of which h is this rank's band."""
+        head = getattr(self, f"Conv_{self.head_index[level]}")
+        return to_nhwc(self.level_scale * conv_band(head, h, band)[0])
 
     def forward(self, a: torch.Tensor, b: torch.Tensor, imgs: Sequence[torch.Tensor] = (),
                 n_grad_imgs: int = -1, band=None):
@@ -277,7 +345,7 @@ class UnetSTN(nn.Module):
         return warped, reg, {"flow": flow, "grid": grid}
 
     def _forward_band(self, a, b, imgs, n_grad_imgs: int, band):
-        flow = self.predict_flow_band(a, b, band)
+        flow, level_reg = self.predict_flow_band(a, b, band)
         n, h, w, _ = flow.shape
         cdt = torch.float64 if flow.dtype == torch.float64 else torch.float32
         ident = identity_grid(band.height, w, self.align_corners, cdt, flow.device)
@@ -288,5 +356,6 @@ class UnetSTN(nn.Module):
             warped = grid_sample_multi(frames, grid, "bilinear", self.padding_mode,
                                        self.align_corners, n_grad_imgs)
             warped = tuple(to_nchw(wp) for wp in warped)
-        reg = smoothness_loss_band(flow, band, self.smooth_type)
+        reg = (level_reg if self.multiscale
+               else smoothness_loss_band(flow, band, self.smooth_type, self.smooth_order))
         return warped, reg, {"flow": flow, "grid": grid}

@@ -403,13 +403,16 @@ def conv3x3_wreflect(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def resblock_band_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
                         eps: float = 1e-5) -> torch.Tensor:
-    """Plain version of ``fused_resblock_band`` (any device, differentiable
-    by autograd): the halo row of x above and below (the frame's reflection
-    at its edges), conv1, the frame's IN + relu, the halo rows of h1, conv2,
-    the frame's IN, the residual."""
+    """Plain version of ``fused_resblock_band`` (any device, differentiable):
+    the halo row of x above and below (the frame's reflection at its
+    edges), conv1, the frame's IN + relu, the halo rows of h1, conv2, the
+    frame's IN, the residual; by autograd, or at bf16 the bf16 variant's
+    roundings forward and backward (``_ResblockBandBf16``)."""
     from nemar_tpu_torch.ops.norm import instance_norm_act_band
     from nemar_tpu_torch.parallel import spatial
 
+    if x.dtype == torch.bfloat16:
+        return _ResblockBandBf16.apply(x, w1, w2, band, eps)
     one = (1,) * band.size
     xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect")
     h1 = instance_norm_act_band(conv3x3_wreflect(xp, w1), band, "relu", eps, plain=True)
@@ -420,12 +423,15 @@ def resblock_band_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, ban
 def resblock_band_saved_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
                               eps: float = 1e-5) -> tuple:
     """Plain version of what K-block's band form saves for its backward,
-    (xp, y1, y1p, y2, stats), from ``resblock_band_plain``'s values (no
-    gradient): a check feeds them to K-block-bwd's band form, so that the
-    kernel and the plain backward take the same relu masks."""
+    (xp, y1, y1p, y2, stats), or at bf16 (xp, y1hat, h1p, y2, stats), from
+    ``resblock_band_plain``'s values (no gradient): a check feeds them to
+    K-block-bwd's band form, so that the kernel and the plain backward take
+    the same relu masks."""
     from nemar_tpu_torch.ops.norm import in_band_stats
     from nemar_tpu_torch.parallel import spatial
 
+    if x.dtype == torch.bfloat16:
+        return resblock_band_fwd_plain_bf16(x, w1, w2, band, eps)[1]
     one = (1,) * band.size
     with torch.no_grad():
         xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect")
@@ -434,6 +440,95 @@ def resblock_band_saved_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tenso
         y1p = spatial.exchange_rows(y1, band, one, one, dim=1, mode="reflect").contiguous()
         y2 = conv3x3_wreflect(torch.clamp_min(normalise(y1p, st1), 0.0), w2).contiguous()
         return xp.contiguous(), y1, y1p, y2, torch.cat([st1, in_band_stats(y2, eps)], dim=1)
+
+
+def resblock_band_fwd_plain_bf16(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
+                                 eps: float = 1e-5) -> tuple:
+    """Plain version of K-block's bf16 band form, rounded where
+    ``_resblock_fwd_plain_bf16`` rounds (y1hat, h1, out bf16; the
+    convolutions of the exact fp32 copies, the frame's statistics fp32):
+    -> (out, (xp, y1hat, h1p, y2, stats)), h1p h1 with its halo rows (the
+    bf16 rows the ranks exchange), what ``resblock_band_bwd_plain_bf16``
+    and K-block-bwd's bf16 band form take."""
+    from nemar_tpu_torch.ops.norm import in_band_stats
+    from nemar_tpu_torch.parallel import spatial
+
+    one = (1,) * band.size
+    with torch.no_grad():
+        xp = spatial.exchange_rows(x, band, one, one, dim=1, mode="reflect").contiguous()
+        y1 = conv3x3_wreflect(xp.float(), w1.float())
+        st1 = in_band_stats(y1, eps)
+        y1hat = normalise(y1, st1).to(torch.bfloat16).contiguous()
+        h1 = torch.clamp_min(y1hat, 0.0)
+        h1p = spatial.exchange_rows(h1, band, one, one, dim=1, mode="reflect").contiguous()
+        y2 = conv3x3_wreflect(h1p.float(), w2.float()).contiguous()
+        st2 = in_band_stats(y2, eps)
+        out = (x.float() + normalise(y2, st2)).to(torch.bfloat16)
+    return out, (xp, y1hat, h1p, y2, torch.cat([st1, st2], dim=1))
+
+
+def _wgrad_hp(srcp: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """``conv_wgrad_plain`` over a source whose H rows are already padded
+    (N, H + 2, W, C): only W reflected; HWIO."""
+    n, hp, w, c = srcp.shape
+    sp = F.pad(srcp.permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect").permute(0, 2, 3, 1)
+    dzf = dz.reshape(-1, dz.shape[-1])
+    return torch.stack([torch.stack([
+        sp[:, dy:dy + hp - 2, dx:dx + w, :].reshape(-1, c).T @ dzf for dx in range(3)])
+        for dy in range(3)])
+
+
+def _in_bwd_band(g: torch.Tensor, yhat: torch.Tensor, rstd: torch.Tensor, band) -> torch.Tensor:
+    """``_in_bwd`` over the frame of which g and yhat are this rank's band:
+    the means from every rank's fp64 sums, in rank order."""
+    from nemar_tpu_torch.parallel import spatial
+
+    sums = torch.stack([g.double().sum(dim=(1, 2)), (g * yhat).double().sum(dim=(1, 2))])
+    m = (spatial.gather_parts(sums).sum(dim=0) / (band.height * g.shape[2])).to(g.dtype)
+    return rstd * (g - m[0][:, None, None] - yhat * m[1][:, None, None])
+
+
+def resblock_band_bwd_plain_bf16(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor,
+                                 y1hat: torch.Tensor, h1p: torch.Tensor, y2: torch.Tensor,
+                                 stats: torch.Tensor, g: torch.Tensor, band) -> tuple:
+    """Plain version of K-block-bwd's bf16 band form: (dx, dw1, dw2) of this
+    rank's band (dw1, dw2 its shares), rounded where
+    ``_resblock_bwd_plain_bf16`` rounds (dz2, dh1, dz1, dx, dw1, dw2 bf16;
+    the arithmetic fp32), each dgrad's halo rows sent to their owners
+    (``spatial.fold_halo_rows``) before the fold of the frame's reflection."""
+    from nemar_tpu_torch.parallel import spatial
+
+    bf, f = torch.bfloat16, torch.float32
+    dz2 = _in_bwd_band(g.to(f), normalise(y2, stats[:, 2:4]), stats[:, None, None, 3],
+                       band).to(bf)
+    dw2 = _wgrad_hp(h1p.to(f), dz2.to(f)).to(bf)
+    dpad = spatial.fold_halo_rows(conv_adjoint_plain(dz2.to(f), w2.to(f)), band)
+    dh1 = reflect_pad_adjoint(dpad, 1).to(bf)
+    y1h = y1hat.to(f)
+    dz1 = _in_bwd_band(torch.where(y1h > 0, dh1.to(f), 0.0), y1h, stats[:, None, None, 1],
+                       band).to(bf)
+    dw1 = _wgrad_hp(xp.to(f), dz1.to(f)).to(bf)
+    dpad = spatial.fold_halo_rows(conv_adjoint_plain(dz1.to(f), w1.to(f)), band)
+    dx = g.to(f) + reflect_pad_adjoint(dpad, 1)
+    return dx.to(bf), dw1, dw2
+
+
+class _ResblockBandBf16(torch.autograd.Function):
+    """The plain bf16 band form, its backward written out as the kernel
+    computes it (autograd through the roundings would round elsewhere)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, band, eps):
+        out, saved = resblock_band_fwd_plain_bf16(x, w1, w2, band, eps)
+        ctx.band = band
+        ctx.save_for_backward(w1, w2, *saved)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        dx, dw1, dw2 = resblock_band_bwd_plain_bf16(*ctx.saved_tensors, g, ctx.band)
+        return dx, dw1, dw2, None, None
 
 
 def block_band_fwd_cuda(x: torch.Tensor, xp: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -445,13 +540,14 @@ def block_band_fwd_cuda(x: torch.Tensor, xp: torch.Tensor, w1: torch.Tensor, w2:
     over xp (H pre-padded), (2) the frame's (mu1, rstd1) from every rank's
     tiles, (3) conv2 over y1's padded band with IN + relu on the fly, (4)
     the frame's (mu2, rstd2) and the residual. -> (out, (xp, y1, y1p, y2,
-    stats)), what ``block_band_bwd_cuda`` takes."""
+    stats)), what ``block_band_bwd_cuda`` takes. bf16 x, w1, w2 launch the
+    bf16 variant's stages (``_block_band_fwd_bf16``), counted on
+    ``.launches_bf16`` and ``.stages_bf16``."""
     from nemar_tpu_torch.parallel import spatial
 
     _check_cuda("block_band_fwd_cuda", x, w1, w2)
-    if x.dtype != torch.float32:
-        raise TypeError("block_band_fwd_cuda: the band form is fp32 (--bf16 is refused under "
-                        "--mesh_spatial, ROADMAP.md A10c)")
+    if x.dtype == torch.bfloat16:
+        return _block_band_fwd_bf16(x, xp, w1, w2, band, eps)
     n, h, w, c = x.shape
     w1, w2 = w1.contiguous(), w2.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -482,6 +578,43 @@ def block_band_fwd_cuda(x: torch.Tensor, xp: torch.Tensor, w1: torch.Tensor, w2:
 
 block_band_fwd_cuda.launches = 0
 block_band_fwd_cuda.stages = 0
+block_band_fwd_cuda.launches_bf16 = 0
+block_band_fwd_cuda.stages_bf16 = 0
+
+
+def _block_band_fwd_bf16(x, xp, w1, w2, band, eps):
+    """K-block's bf16 band form: (1) W^T per tap and conv1 over xp, (2) the
+    frame's (mu1, rstd1) from every rank's tiles, y1hat and h1 (bf16), then
+    h1's halo rows exchanged, (3) conv2 over h1p, (4) the frame's (mu2,
+    rstd2) and the residual. -> (out, (xp, y1hat, h1p, y2, stats))."""
+    from nemar_tpu_torch.parallel import spatial
+
+    n, h, w, c = x.shape
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    tiles = -(-h * w // 128)
+    wt = torch.empty((2, 9, c, c), dtype=torch.bfloat16, device=x.device)
+    y1, y2 = torch.empty((n, h, w, c), **f32), torch.empty((n, h, w, c), **f32)
+    y1hat, h1 = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty((n * tiles, 2, c), **f32)
+    stats = torch.empty((n, 4, c), **f32)
+    out = torch.empty_like(x)
+    xp = xp.contiguous()
+    _aligned("block_band_fwd_cuda", x, xp, w1, w2)
+    _build.launch("nemar_resblock_band_conv1_bf16", "ppppppiiii", xp, w1, w2, wt, y1, part,
+                  n, h, w, c)
+    parts = spatial.gather_parts(part)
+    _build.launch("nemar_resblock_band_norm_relu_bf16", "pppppiiiif", parts, stats, y1, y1hat,
+                  h1, band.size, n, h * w, c, eps)
+    one = (1,) * band.size
+    h1p = spatial.exchange_rows(h1, band, one, one, dim=1, mode="reflect").contiguous()
+    _build.launch("nemar_resblock_band_conv2_bf16", "ppppiiii", h1p, wt, y2, part, n, h, w, c)
+    parts = spatial.gather_parts(part)
+    _build.launch("nemar_resblock_band_residual_bf16", "pppppiiiif", parts, stats, x, y2, out,
+                  band.size, n, h * w, c, eps)
+    block_band_fwd_cuda.launches_bf16 += 1
+    block_band_fwd_cuda.stages_bf16 += 4
+    return out, (xp, y1hat, h1p, y2, stats)
 
 
 def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1: torch.Tensor,
@@ -494,9 +627,13 @@ def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1
     sent to their owners (``spatial.fold_halo_rows``): (1) IN2's partials;
     (2) their merge over every rank (and W's split), dz2, dW2, dpad2; (3)
     IN1's partials from fold(dpad2); (4) their merge, dz1, dW1's partials,
-    dpad1; (5) dx = g + fold(dpad1) and dW1."""
+    dpad1; (5) dx = g + fold(dpad1) and dW1. bf16 values (K-block's bf16
+    band form's (xp, y1hat, h1p, y2, stats), g bf16) launch the bf16
+    variant's five stages (``_block_band_bwd_bf16``)."""
     from nemar_tpu_torch.parallel import spatial
 
+    if g.dtype == torch.bfloat16:
+        return _block_band_bwd_bf16(w1, w2, xp, y1, y1p, y2, stats, g, band)
     n, h, w, c = g.shape
     w1, w2 = w1.contiguous(), w2.contiguous()
     g = g.contiguous()
@@ -532,6 +669,44 @@ def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1
 
 block_band_bwd_cuda.launches = 0
 block_band_bwd_cuda.stages = 0
+block_band_bwd_cuda.launches_bf16 = 0
+block_band_bwd_cuda.stages_bf16 = 0
+
+
+def _block_band_bwd_bf16(w1, w2, xp, y1hat, h1p, y2, stats, g, band):
+    """K-block-bwd's bf16 band form: the fp32 band form's five stages on the
+    bf16 backward's operands (no W split: the dgrads read W as it lies)."""
+    from nemar_tpu_torch.parallel import spatial
+
+    n, h, w, c = g.shape
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    g = g.contiguous()
+    f32 = dict(dtype=torch.float32, device=g.device)
+    splits = wgrad_splits(n, h, w, c, 64)
+    part_in = torch.empty((n * -(-h * w // _BM), 2, c), **f32)
+    means = torch.empty((n, 2, c), **f32)
+    dz = torch.empty_like(g)
+    dpad = torch.empty((n, h + 2, w + 2, c), **f32)
+    part_w = torch.empty((splits, 9 * c, c), **f32)
+    dw1, dw2, dx = torch.empty_like(w1), torch.empty_like(w2), torch.empty_like(g)
+    _aligned("block_band_bwd_cuda", xp, y1hat, h1p, y2, g, w1, w2)
+    _build.launch("nemar_resblock_band_bwd_part_bf16", "ppppiiiii", g, y2, stats, part_in, 2,
+                  n, h, w, c)
+    parts = spatial.gather_parts(part_in)
+    _build.launch("nemar_resblock_band_bwd_dz2_bf16", "pppppppppppiiiiii", parts, means, g, y2,
+                  stats, dz, h1p, w2, part_w, dw2, dpad, band.size, n, h, w, c, splits)
+    spatial.fold_halo_rows(dpad, band)
+    _build.launch("nemar_resblock_band_bwd_part_bf16", "ppppiiiii", dpad, y1hat, stats, part_in,
+                  1, n, h, w, c)
+    parts = spatial.gather_parts(part_in)
+    _build.launch("nemar_resblock_band_bwd_dz1_bf16", "pppppppppiiiiii", parts, means, dpad,
+                  y1hat, stats, dz, xp, w1, part_w, band.size, n, h, w, c, splits)
+    spatial.fold_halo_rows(dpad, band)
+    _build.launch("nemar_resblock_band_bwd_dx_bf16", "pppppiiiii", g, dpad, dx, part_w, dw1,
+                  n, h, w, c, splits)
+    block_band_bwd_cuda.launches_bf16 += 1
+    block_band_bwd_cuda.stages_bf16 += 5
+    return dx, dw1, dw2
 
 
 class _FusedResblockBand(torch.autograd.Function):
@@ -567,7 +742,8 @@ def fused_resblock_band(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, ban
                         eps: float = 1e-5) -> torch.Tensor:
     """``fused_resblock`` of the frame of which the NHWC x is this rank's
     band (``parallel.spatial.Band``): K-block's and K-block-bwd's band forms
-    on the card (fp32), ``resblock_band_plain`` on the CPU."""
+    on the card (their bf16 variants' for bf16 x, w1, w2),
+    ``resblock_band_plain`` on the CPU."""
     if x.is_cuda:
         return _FusedResblockBand.apply(x, w1, w2, band, eps)
     return resblock_band_plain(x, w1, w2, band, eps)

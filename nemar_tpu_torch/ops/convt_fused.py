@@ -325,12 +325,15 @@ def fused_convt_in(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch
 # d z from below (zeros at the frame's bottom).
 # ---------------------------------------------------------------------------
 def convt_band_plain(x: torch.Tensor, w: torch.Tensor, band, eps: float = 1e-5) -> torch.Tensor:
-    """Plain version of ``fused_convt_in_band`` (any device, differentiable
-    by autograd): the transposed conv of the band with its halo row above,
-    its 2H output rows kept, the frame's IN + relu."""
+    """Plain version of ``fused_convt_in_band`` (any device, differentiable):
+    the transposed conv of the band with its halo row above, its 2H output
+    rows kept, the frame's IN + relu; by autograd, or at bf16 the bf16
+    variant's roundings forward and backward (``_ConvtBandBf16``)."""
     from nemar_tpu_torch.ops.norm import instance_norm_act_band
     from nemar_tpu_torch.parallel import spatial
 
+    if x.dtype == torch.bfloat16:
+        return _ConvtBandBf16.apply(x, w, band, eps)
     h = x.shape[1]
     xp = spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
                                mode="zeros")
@@ -342,10 +345,13 @@ def convt_band_saved_plain(x: torch.Tensor, w: torch.Tensor, band, eps: float = 
     """Plain version of what K-convt's band form saves for its backward,
     (xp, yhat, stats), from ``convt_band_plain``'s values (no gradient): a
     check feeds them to K-convt-bwd's band form, so that the kernel and
-    the plain backward take the same relu mask."""
+    the plain backward take the same relu mask. At bf16 those of
+    ``convt_band_fwd_plain_bf16``."""
     from nemar_tpu_torch.ops.norm import in_band_stats
     from nemar_tpu_torch.parallel import spatial
 
+    if x.dtype == torch.bfloat16:
+        return convt_band_fwd_plain_bf16(x, w, band, eps)[1]
     h = x.shape[1]
     with torch.no_grad():
         xp = spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
@@ -355,28 +361,119 @@ def convt_band_saved_plain(x: torch.Tensor, w: torch.Tensor, band, eps: float = 
         return xp, normalise(y, stats).contiguous(), stats
 
 
+def convt_band_fwd_plain_bf16(x: torch.Tensor, w: torch.Tensor, band,
+                              eps: float = 1e-5) -> tuple:
+    """Plain version of K-convt's bf16 band form, rounded as
+    ``convt_in_fwd_plain`` rounds at bf16 (yhat and out bf16; the
+    convolution of the exact fp32 copies, the frame's statistics fp32):
+    -> (out, (xp, yhat, stats))."""
+    from nemar_tpu_torch.ops.norm import in_band_stats
+    from nemar_tpu_torch.parallel import spatial
+
+    h = x.shape[1]
+    with torch.no_grad():
+        xp = spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
+                                   mode="zeros").contiguous()
+        y = convt_flax(xp.float(), w.float())[:, 2:2 * h + 2]
+        stats = in_band_stats(y, eps)
+        yhat = normalise(y, stats).to(torch.bfloat16).contiguous()
+    return torch.clamp_min(yhat, 0.0), (xp, yhat, stats)
+
+
+def _convt_band_grads(xp: torch.Tensor, dzp: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(dx, dw) of the transposed conv over a band, as
+    ``convt_in_bwd_plain`` computes them over the frame: xp the band with
+    its halo row above (N, H + 1, W, Ci), dzp d z with its halo row below
+    (N, 2H + 1, 2W, Co); dw the band's share."""
+    n, hp, wd, ci = xp.shape
+    h, co = hp - 1, w.shape[-1]
+    xq = F.pad(xp, (0, 0, 1, 0))  # a zero column on the left: input offset -1
+    dw = xp.new_zeros((3, 3, ci, co))
+    for py in (0, 1):
+        for px in (0, 1):
+            plane = dzp[:, py:2 * h:2, px::2, :].reshape(-1, co)
+            for ky, dy in _AX[py]:
+                for kx, dx in _AX[px]:
+                    slab = xq[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + wd, :].reshape(-1, ci)
+                    dw[ky, kx] = slab.T @ plane
+    dzq = F.pad(dzp, (0, 0, 0, 2, 0, 1))
+    dx = xp.new_zeros((n, h, wd, ci))
+    for ky in range(3):
+        for kx in range(3):
+            dx += dzq[:, 2 - ky::2, 2 - kx::2, :][:, :h, :wd, :] @ w[ky, kx].T
+    return dx, dw
+
+
+def convt_band_bwd_plain_bf16(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
+                              stats: torch.Tensor, g: torch.Tensor, band) -> tuple:
+    """Plain version of K-convt-bwd's bf16 band form: (dx, dw) of this
+    rank's band (dw its share), dz, dx and dw rounded to bf16 as
+    ``convt_in_bwd_plain`` rounds at bf16; dz's halo row from below."""
+    from nemar_tpu_torch.ops.conv_fused import _in_bwd_band
+    from nemar_tpu_torch.parallel import spatial
+
+    f = torch.float32
+    yh = yhat.to(f)
+    dz = _in_bwd_band(torch.where(yh > 0, g.to(f), 0.0), yh, stats[:, None, None, 1],
+                      band.up(2)).to(torch.bfloat16)
+    dzp = spatial.exchange_rows(dz, band.up(2), (0,) * band.size, (1,) * band.size, dim=1,
+                                mode="zeros")
+    dx, dw = _convt_band_grads(xp.to(f), dzp.to(f), w.to(f))
+    return dx.to(torch.bfloat16), dw.to(torch.bfloat16)
+
+
+class _ConvtBandBf16(torch.autograd.Function):
+    """The plain bf16 band form, its backward written out as the kernel
+    computes it."""
+
+    @staticmethod
+    def forward(ctx, x, w, band, eps):
+        out, saved = convt_band_fwd_plain_bf16(x, w, band, eps)
+        ctx.band = band
+        ctx.save_for_backward(saved[0], w, *saved[1:])
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        dx, dw = convt_band_bwd_plain_bf16(*ctx.saved_tensors, g, ctx.band)
+        return dx, dw, None, None
+
+
 def convt_band_fwd_cuda(xp: torch.Tensor, w: torch.Tensor, band, eps: float = 1e-5) -> tuple:
     """K-convt in band form on the card: xp (N, H + 1, W, Ci) this rank's
     band with its halo row above. Two launches around an all-gather of the
     tile statistics: (1) W's split and the four planes' GEMMs over xp, (2)
     the frame's (mu, rstd) from every rank's tiles and the apply. -> (out,
-    yhat, stats)."""
+    yhat, stats). bf16 xp and w launch the bf16 variant's two stages (W^T
+    per tap and the planes into an fp32 y; the statistics, yhat and out in
+    bf16), counted on ``.launches_bf16`` and ``.stages_bf16``."""
     from nemar_tpu_torch.parallel import spatial
 
     _check_cuda("convt_band_fwd_cuda", xp, w)
-    if xp.dtype != torch.float32:
-        raise TypeError("convt_band_fwd_cuda: the band form is fp32")
+    bf = xp.dtype == torch.bfloat16
     n, hp, wd, ci = xp.shape
     h, co = hp - 1, w.shape[3]
     w = w.contiguous()
     f32 = dict(dtype=torch.float32, device=xp.device)
     tiles = -(-h * wd // _BM)
-    wsplit = torch.empty((2, 9, co, ci), **f32)
-    yhat = torch.empty((n, 2 * h, 2 * wd, co), **f32)
+    yhat = torch.empty((n, 2 * h, 2 * wd, co), dtype=xp.dtype, device=xp.device)
     out = torch.empty_like(yhat)
     part = torch.empty((n * 4 * tiles, 2, co), **f32)
     stats = torch.empty((n, 2, co), **f32)
     _aligned("convt_band_fwd_cuda", xp, w)
+    if bf:
+        wt = torch.empty((9, co, ci), dtype=torch.bfloat16, device=xp.device)
+        y = torch.empty((n, 2 * h, 2 * wd, co), **f32)
+        _build.launch("nemar_convt_band_planes_bf16", "pppppiiiii", xp, w, wt, y, part,
+                      n, h, wd, ci, co)
+        parts = spatial.gather_parts(part)
+        _build.launch("nemar_convt_band_apply_bf16", "pppppiiiiif", parts, stats, y, yhat, out,
+                      band.size, n, h, wd, co, eps)
+        convt_band_fwd_cuda.launches_bf16 += 1
+        convt_band_fwd_cuda.stages_bf16 += 2
+        return out, yhat, stats
+    wsplit = torch.empty((2, 9, co, ci), **f32)
     _build.launch("nemar_convt_band_planes", "pppppiiiii", xp, w, wsplit, yhat, part,
                   n, h, wd, ci, co)
     parts = spatial.gather_parts(part)
@@ -389,6 +486,8 @@ def convt_band_fwd_cuda(xp: torch.Tensor, w: torch.Tensor, band, eps: float = 1e
 
 convt_band_fwd_cuda.launches = 0
 convt_band_fwd_cuda.stages = 0
+convt_band_fwd_cuda.launches_bf16 = 0
+convt_band_fwd_cuda.stages_bf16 = 0
 
 
 def convt_band_bwd_cuda(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
@@ -397,27 +496,42 @@ def convt_band_bwd_cuda(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
     (dw its share). Three launches: (1) the IN backward's partials; an
     all-gather; (2) their merge over every rank (and W's split) and dz; the
     halo row of dz from below; (3) dW's partials and their sum, and the
-    dgrad over dz with its halo row."""
+    dgrad over dz with its halo row. bf16 operands launch the bf16
+    variant's three stages (dz, dw, dx bf16; W read as it lies)."""
     from nemar_tpu_torch.parallel import spatial
 
     n, hp, wd, ci = xp.shape
     h, co = hp - 1, w.shape[3]
     w = w.contiguous()
     g = g.contiguous()
+    bf = xp.dtype == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=xp.device)
-    splits, per = wgrad_splits(n * h * wd, ci, co)
+    splits, per = wgrad_splits(n * h * wd, ci, co, 64 if bf else _BK)
     part_in = torch.empty((n * -(-(4 * h * wd) // _IN_TILE), 2, co), **f32)
     means = torch.empty((n, 2, co), **f32)
-    wsplit = torch.empty((2, 9 * ci, co), **f32)
     dz = torch.empty_like(yhat)
     part_w = torch.empty((splits, 9 * ci, co), **f32)
-    dw, dx = torch.empty_like(w), torch.empty((n, h, wd, ci), **f32)
+    dw, dx = torch.empty_like(w), torch.empty((n, h, wd, ci), dtype=xp.dtype, device=xp.device)
     _aligned("convt_band_bwd_cuda", xp, w, yhat, stats, g)
+    up = band.up(2)
+    if bf:
+        _build.launch("nemar_convt_band_bwd_part_bf16", "pppiiii", g, yhat, part_in, n, h, wd,
+                      co)
+        parts = spatial.gather_parts(part_in)
+        _build.launch("nemar_convt_band_bwd_dz_bf16", "ppppppiiiii", parts, means, g, yhat,
+                      stats, dz, band.size, n, h, wd, co)
+        dzp = spatial.exchange_rows(dz, up, (0,) * band.size, (1,) * band.size, dim=1,
+                                    mode="zeros").contiguous()
+        _build.launch("nemar_convt_band_bwd_dx_bf16", "ppppppiiiiiii", xp, dzp, w, part_w, dw,
+                      dx, n, h, wd, ci, co, splits, per)
+        convt_band_bwd_cuda.launches_bf16 += 1
+        convt_band_bwd_cuda.stages_bf16 += 3
+        return dx, dw
+    wsplit = torch.empty((2, 9 * ci, co), **f32)
     _build.launch("nemar_convt_band_bwd_part", "pppiiii", g, yhat, part_in, n, h, wd, co)
     parts = spatial.gather_parts(part_in)
     _build.launch("nemar_convt_band_bwd_dz", "ppppppppiiiiii", parts, means, g, yhat, stats,
                   dz, w, wsplit, band.size, n, h, wd, ci, co)
-    up = band.up(2)
     dzp = spatial.exchange_rows(dz, up, (0,) * band.size, (1,) * band.size, dim=1,
                                 mode="zeros").contiguous()
     _build.launch("nemar_convt_band_bwd_dx", "ppppppiiiiiii", xp, dzp, wsplit, part_w, dw, dx,
@@ -429,6 +543,8 @@ def convt_band_bwd_cuda(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
 
 convt_band_bwd_cuda.launches = 0
 convt_band_bwd_cuda.stages = 0
+convt_band_bwd_cuda.launches_bf16 = 0
+convt_band_bwd_cuda.stages_bf16 = 0
 
 
 class _FusedConvtInBand(torch.autograd.Function):
@@ -437,7 +553,8 @@ class _FusedConvtInBand(torch.autograd.Function):
         from nemar_tpu_torch.parallel import spatial
 
         ci, co = w.shape[2], w.shape[3]
-        pi, po = -ci % 4, -co % 4
+        m = _CH_MULT.get(x.dtype, 4)
+        pi, po = -ci % m, -co % m
         if pi or po:
             x, w = F.pad(x, (0, pi)), F.pad(w, (0, po, 0, pi))
         xp = spatial.exchange_rows(x.contiguous(), band, (1,) * band.size, (0,) * band.size,
@@ -462,7 +579,8 @@ def fused_convt_in_band(x: torch.Tensor, w: torch.Tensor, band,
     """``fused_convt_in`` of the frame of which the NHWC x is this rank's
     band (``parallel.spatial.Band``): the output is the band of the 2H-row
     frame (``band.up(2)``). K-convt's and K-convt-bwd's band forms on the
-    card (fp32), ``convt_band_plain`` on the CPU."""
+    card (their bf16 variants' for bf16 x and w), ``convt_band_plain`` on
+    the CPU."""
     if x.is_cuda:
         return _FusedConvtInBand.apply(x, w, band, eps)
     return convt_band_plain(x, w, band, eps)

@@ -196,6 +196,11 @@ def instance_norm_act(x: torch.Tensor, act: str = "relu", eps: float = 1e-5,
 # band form (--mesh_spatial): the statistics of the whole frame of which x
 # is this rank's band (``parallel/spatial.py``)
 # ---------------------------------------------------------------------------
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """The statistics' type for activations of x's: fp32 for bf16, else x's."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+
 def in_band_part_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of K-in's band partials, one chunk a band: (N, 1, 3, C)
     float64 = (count, mean, M2) of the band."""
@@ -218,18 +223,19 @@ def in_band_stats_plain(parts: torch.Tensor, eps: float) -> torch.Tensor:
 
 def in_band_stats(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """(mean, rstd) (N, 2, C) of the frame of which the NHWC x is this
-    rank's band, in x's type: every rank's plain partials, all-gathered
-    over the spatial group, merged (no gradient)."""
+    rank's band, in x's type (fp32 for a bf16 x): every rank's plain
+    partials, all-gathered over the spatial group, merged (no gradient)."""
     from nemar_tpu_torch.parallel import spatial
 
-    return in_band_stats_plain(spatial.gather_parts(in_band_part_plain(x)), eps).to(x.dtype)
+    return in_band_stats_plain(spatial.gather_parts(in_band_part_plain(x)), eps).to(
+        _stats_dtype(x))
 
 
 def in_band_bwd_part_plain(x, g, stats, act: str, slope: float) -> torch.Tensor:
     """Plain version of K-in-bwd's band partials: (N, 1, 2, C) float64 =
-    the band's sums of gh and gh * yhat."""
-    yh = normalise(x, stats)
-    gh = _act_grad(yh, g, act, slope)
+    the band's sums of gh and gh * yhat (bf16 x and g widened to fp32)."""
+    yh = normalise(_wide(x), stats)
+    gh = _act_grad(yh, _wide(g), act, slope)
     return torch.stack([gh.double().sum(dim=(1, 2)), (gh * yh).double().sum(dim=(1, 2))],
                        dim=1)[:, None]
 
@@ -237,11 +243,12 @@ def in_band_bwd_part_plain(x, g, stats, act: str, slope: float) -> torch.Tensor:
 def in_band_bwd_apply_plain(x, g, stats, parts, frame_pixels: int, act: str,
                             slope: float) -> torch.Tensor:
     """Plain version of K-in-bwd's band apply: the frame's means from every
-    rank's partials, then d x of the band."""
-    m = (parts.sum(dim=(0, 2)) / frame_pixels).to(x.dtype)
-    y = normalise(x, stats)
-    return stats[:, None, None, 1] * (_act_grad(y, g, act, slope) - m[:, None, None, 0]
-                                      - y * m[:, None, None, 1])
+    rank's partials, then d x of the band (computed in fp32 and rounded for
+    bf16 x and g)."""
+    m = (parts.sum(dim=(0, 2)) / frame_pixels).to(_stats_dtype(x))
+    y = normalise(_wide(x), stats)
+    return (stats[:, None, None, 1] * (_act_grad(y, _wide(g), act, slope) - m[:, None, None, 0]
+                                       - y * m[:, None, None, 1])).to(x.dtype)
 
 
 class _InstanceNormActBand(torch.autograd.Function):
@@ -262,7 +269,7 @@ class _InstanceNormActBand(torch.autograd.Function):
             y, stats = norm_cuda.in_band_apply_cuda(x, parts, act, eps, slope)
         else:
             stats = in_band_stats(x, eps)
-            y = _apply_act(normalise(x, stats), act, slope)
+            y = _apply_act(normalise(_wide(x), stats), act, slope).to(x.dtype)
         ctx.band, ctx.act, ctx.slope, ctx.cuda = band, act, slope, cuda
         ctx.frame_pixels = band.height * w
         ctx.save_for_backward(x, stats)
@@ -292,11 +299,9 @@ def instance_norm_act_band(x: torch.Tensor, band, act: str = "relu", eps: float 
     """``instance_norm_act`` of the frame of which the NHWC x is this rank's
     band (``parallel.spatial.Band``): the frame's statistics, differentiable
     once (the WGAN-GP penalty's double backward is refused under
-    --mesh_spatial). ``plain`` takes the plain versions on the card too
-    (the kernels' comparison)."""
+    --mesh_spatial). A bf16 x gives a bf16 y (and d x), the statistics and
+    the arithmetic fp32, as ``instance_norm_act``'s bf16 variant. ``plain``
+    takes the plain versions on the card too (the kernels' comparison)."""
     if act not in ("none", "relu", "leaky_relu"):
         raise ValueError(f"unknown act: {act!r}")
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError("instance_norm_act_band: --bf16 under --mesh_spatial is "
-                                  "refused (ROADMAP.md A10c)")
     return _InstanceNormActBand.apply(x.contiguous(), band, act, eps, negative_slope, plain)

@@ -97,7 +97,9 @@ instance_norm_act_bwd_bf16_cuda.launches = 0
 
 # ---------------------------------------------------------------------------
 # band form (--mesh_spatial): csrc/in_band.cu, two launches a direction with
-# the caller's all-gather of the partials between them
+# the caller's all-gather of the partials between them. A bf16 x (and g)
+# launches the bf16 variant's stages (``*_bf16``: y and d x bf16, the
+# statistics fp32, the partials fp64), counted on ``.launches_bf16``.
 # ---------------------------------------------------------------------------
 BAND_CHUNK = 256  # pixels of a band's partial
 
@@ -108,59 +110,74 @@ def band_chunks(hw_most: int) -> int:
     return max(1, -(-hw_most // BAND_CHUNK))
 
 
-def _check_band(what: str, *tensors) -> None:
-    for t in tensors:
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: takes contiguous float32 CUDA tensors, got "
+def _check_band(what: str, x: torch.Tensor, *tensors) -> str:
+    """The stage's launcher suffix: '' for fp32 x, '_bf16' for bf16 x (the
+    other activations of x's type, the statistics fp32)."""
+    for t in (x, *tensors):
+        if not t.is_cuda or not t.is_contiguous() or t.dtype not in (torch.float32,
+                                                                     torch.bfloat16):
+            raise ValueError(f"{what}: takes contiguous float32 or bfloat16 CUDA tensors, got "
                              f"{t.dtype} on {t.device}")
+    return "_bf16" if x.dtype == torch.bfloat16 else ""
+
+
+def _count(fn, tag: str) -> None:
+    if tag:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def in_band_part_cuda(x: torch.Tensor, chunks: int) -> torch.Tensor:
     """K-in band form, stage 1: x (N, H, W, C), a band -> part (N, chunks,
     3, C) float64, each chunk's (count, mean, M2)."""
-    _check_band("in_band_part_cuda", x)
+    tag = _check_band("in_band_part_cuda", x)
     n, h, w, c = x.shape
     part = torch.empty((n, chunks, 3, c), dtype=torch.float64, device=x.device)
-    _build.launch("nemar_in_band_fwd_part", "ppiiiii", x, part, n, h * w, c, BAND_CHUNK, chunks)
-    in_band_part_cuda.launches += 1
+    _build.launch("nemar_in_band_fwd_part" + tag, "ppiiiii", x, part, n, h * w, c, BAND_CHUNK,
+                  chunks)
+    _count(in_band_part_cuda, tag)
     return part
 
 
 in_band_part_cuda.launches = 0
+in_band_part_cuda.launches_bf16 = 0
 
 
 def in_band_apply_cuda(x: torch.Tensor, parts: torch.Tensor, act: str, eps: float,
                        slope: float) -> tuple:
     """K-in band form, stage 2: every rank's partials (ranks, N, chunks, 3,
     C) merged in one fixed order, applied -> (y, stats (N, 2, C))."""
-    _check_band("in_band_apply_cuda", x)
+    tag = _check_band("in_band_apply_cuda", x)
     n, h, w, c = x.shape
     ranks, chunks = parts.shape[0], parts.shape[2]
     y = torch.empty_like(x)
     stats = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
-    _build.launch("nemar_in_band_fwd_apply", "ppppiiiiiiff", x, parts.contiguous(), y, stats,
-                  ranks, n, h * w, c, chunks, _ACT_CODE[act], eps, slope)
-    in_band_apply_cuda.launches += 1
+    _build.launch("nemar_in_band_fwd_apply" + tag, "ppppiiiiiiff", x, parts.contiguous(), y,
+                  stats, ranks, n, h * w, c, chunks, _ACT_CODE[act], eps, slope)
+    _count(in_band_apply_cuda, tag)
     return y, stats
 
 
 in_band_apply_cuda.launches = 0
+in_band_apply_cuda.launches_bf16 = 0
 
 
 def in_band_bwd_part_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor, chunks: int,
                           act: str, slope: float) -> torch.Tensor:
     """K-in-bwd band form, stage 1: -> part (N, chunks, 2, C) float64, each
     chunk's sums of gh and gh * yhat."""
-    _check_band("in_band_bwd_part_cuda", x, g, stats)
+    tag = _check_band("in_band_bwd_part_cuda", x, g, stats)
     n, h, w, c = x.shape
     part = torch.empty((n, chunks, 2, c), dtype=torch.float64, device=x.device)
-    _build.launch("nemar_in_band_bwd_part", "ppppiiiiiif", x, g, stats, part, n, h * w, c,
+    _build.launch("nemar_in_band_bwd_part" + tag, "ppppiiiiiif", x, g, stats, part, n, h * w, c,
                   BAND_CHUNK, chunks, _ACT_CODE[act], slope)
-    in_band_bwd_part_cuda.launches += 1
+    _count(in_band_bwd_part_cuda, tag)
     return part
 
 
 in_band_bwd_part_cuda.launches = 0
+in_band_bwd_part_cuda.launches_bf16 = 0
 
 
 def in_band_bwd_apply_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
@@ -168,14 +185,16 @@ def in_band_bwd_apply_cuda(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor
                            slope: float) -> torch.Tensor:
     """K-in-bwd band form, stage 2: the means over the frame's
     ``frame_pixels`` from every rank's partials, then d x of the band."""
-    _check_band("in_band_bwd_apply_cuda", x, g, stats)
+    tag = _check_band("in_band_bwd_apply_cuda", x, g, stats)
     n, h, w, c = x.shape
     ranks, chunks = parts.shape[0], parts.shape[2]
     dx = torch.empty_like(x)
-    _build.launch("nemar_in_band_bwd_apply", "pppppiiiiilif", x, g, stats, parts.contiguous(), dx,
-                  ranks, n, h * w, c, chunks, frame_pixels, _ACT_CODE[act], slope)
-    in_band_bwd_apply_cuda.launches += 1
+    _build.launch("nemar_in_band_bwd_apply" + tag, "pppppiiiiilif", x, g, stats,
+                  parts.contiguous(), dx, ranks, n, h * w, c, chunks, frame_pixels,
+                  _ACT_CODE[act], slope)
+    _count(in_band_bwd_apply_cuda, tag)
     return dx
 
 
 in_band_bwd_apply_cuda.launches = 0
+in_band_bwd_apply_cuda.launches_bf16 = 0

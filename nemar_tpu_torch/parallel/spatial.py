@@ -99,6 +99,22 @@ class Band:
         return Band(tuple((a * factor, b * factor) for a, b in self.bounds), self.index,
                     self.height * factor)
 
+    def down(self, factor: int = 2) -> "Band":
+        """The band of a ``factor`` x ``factor`` average pooling, each band's
+        rows pooled on their own (every bound a multiple of ``factor``: the
+        caller's geometry check)."""
+        return Band(tuple((a // factor, b // factor) for a, b in self.bounds), self.index,
+                    self.height // factor)
+
+    def fits(self, k: int, stride: int = 1, pad: int = 0) -> bool:
+        """Whether ``conv(k, stride, pad)`` takes this geometry (no rank's
+        band is thinner than a halo it must send, none is empty)."""
+        try:
+            self.conv(k, stride, pad)
+        except ValueError:
+            return False
+        return True
+
     def conv(self, k: int, stride: int = 1, pad: int = 0) -> tuple:
         """A conv (k, stride, pad) over the height -> (output band, tops,
         bottoms): output row i is the band's that holds input row stride *

@@ -140,8 +140,8 @@ def _norm_biases(net) -> set:
     """The biases of ``net``'s convolutions that a norm follows (a gradient
     of roundoff): every one but the ResNet head's; the UNet's encoder
     convolutions but the first and the innermost, and its transposed ones
-    but the outermost; the PatchGAN's Conv_1..n_layers. R's as
-    ``test_torch_nemar_train._in_biases``."""
+    but the outermost; the PatchGAN's Conv_1..n_layers; the UNet STN's
+    every one but its flow heads'."""
     if isinstance(net, networks.ResnetGenerator):
         head = f"Conv_{1 + net.n_downsampling}."
         return {k for k, _ in net.named_parameters() if k.endswith(".bias")
@@ -152,7 +152,8 @@ def _norm_biases(net) -> set:
                 | {f"ConvTranspose_{j}.bias" for j in range(n - 1)})
     if isinstance(net, networks.NLayerDiscriminator):
         return {f"Conv_{i}.bias" for i in range(1, net.n_layers + 1)}
-    return {f"Conv_{i}.bias" for i in range(net.n_convs - 1)}
+    heads = set(net.head_index.values())  # R's flow heads: no norm follows
+    return {f"Conv_{i}.bias" for i in range(net.n_convs) if i not in heads}
 
 
 def _hold_step(name, net, jgrads, jparams, start, steps):

@@ -34,6 +34,7 @@ import torch
 from nemar_tpu_torch import parallel
 from nemar_tpu_torch import train as port_train
 from nemar_tpu_torch.models import create_model, networks
+from nemar_tpu_torch.models.stn.affine_stn import AffineSTN
 from nemar_tpu_torch.models.stn.unet_stn import UnetSTN
 from nemar_tpu_torch.options import TrainOptions
 from nemar_tpu_torch.utils.convert import flax_to_torch
@@ -102,8 +103,11 @@ def _norm_biases(net) -> set:
                 | {f"ConvTranspose_{j}.bias" for j in range(n - 1)})
     if isinstance(net, networks.NLayerDiscriminator):
         return {f"Conv_{i}.bias" for i in range(1, net.n_layers + 1)}
+    if isinstance(net, AffineSTN):
+        return {f"Conv_{i}.bias" for i in range(net.n_downs)}
     assert isinstance(net, UnetSTN)
-    return {f"Conv_{i}.bias" for i in range(net.n_convs - 1)}
+    heads = set(net.head_index.values())  # the flow heads: no norm follows
+    return {f"Conv_{i}.bias" for i in range(net.n_convs) if i not in heads}
 
 
 def _load(root, name, suffix, model):

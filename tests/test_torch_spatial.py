@@ -299,13 +299,20 @@ def test_spatial_step_equals_one_process(tmp_path, devices, batch):
     _hold_ranks(ranks, want_nets, want, create_model(TrainOptions().parse(argv)))
 
 
-def test_two_rank_spatial_step_matches_jax(tmp_path):
+# the registration recipe's UNet arm (science.recipe_flags) at this size
+RECIPE_UNET = ["--stn_multiscale", "--stn_level_scale", "0.25", "--stn_bounded_flow", "0.15",
+               "--stn_smooth_order", "2", "--recon_pyramid", "3", "--border_mask"]
+
+
+@pytest.mark.parametrize("recipe", [[], RECIPE_UNET], ids=["default", "recipe_unet"])
+def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
     """The port's (data 1, spatial 2) step against the JAX package's on a
     (data 1, spatial 2) mesh (``shard_batch(..., shard_spatial=True)``),
     both in float64 from the same parameters and numpy batch; losses and
-    gradients within 1e-9, parameters within 1e-10 (``_hold_step``). The
-    JAX package routes its warp to the one-hot matmul path that GSPMD
-    shards; the function is the same."""
+    gradients within 1e-9, parameters within 1e-10 (``_hold_step``), with
+    the default flags and with the recipe's UNet arm. The JAX package
+    routes its warp to the one-hot matmul path that GSPMD shards; the
+    function is the same."""
     import jax
     import jax.numpy as jnp
     import test_torch_model_families as fam
@@ -315,7 +322,7 @@ def test_two_rank_spatial_step_matches_jax(tmp_path):
     from nemar_tpu.parallel import replicate, shard_batch
     from nemar_tpu_torch.utils.convert import flax_to_torch
 
-    flags = [*SPATIAL, "--batch_size", "2"]
+    flags = [*SPATIAL, *recipe, "--batch_size", "2"]
     jm = fam._jax_model(tmp_path, [*flags, "--num_devices", "2", "--mesh_spatial", "2"])
     assert dict(jm.mesh.shape) == {"data": 1, "spatial": 2}
     rng = np.random.default_rng(11)
@@ -408,11 +415,9 @@ def test_eval_registration_at_spatial_two(tmp_path):
 # ---------------------------------------------------------------------------
 # the refusals
 # ---------------------------------------------------------------------------
-A10C = [["--bf16"], ["--stn_type", "affine"], ["--stn_multiscale"], ["--gan_mode", "wgangp"],
-        ["--steps_per_execution", "2"], ["--border_mask"], ["--recon_pyramid", "1"],
-        ["--norm", "batch"], ["--remat"], ["--g_batch"], ["--freeze_g"],
-        ["--stn_field_source", "fake"], ["--stn_bounded_flow", "0.5"],
-        ["--stn_smooth_order", "2"], ["--stn_padding_mode", "border"], ["--stn_align_corners"],
+A10C = [["--gan_mode", "wgangp"], ["--steps_per_execution", "2"], ["--norm", "batch"],
+        ["--remat"], ["--g_batch"], ["--freeze_g"], ["--stn_field_source", "fake"],
+        ["--stn_padding_mode", "border"], ["--stn_align_corners"],
         ["--netG", "resnet_9blocks"], ["--netD", "pixel"]]
 
 
