@@ -292,6 +292,26 @@ is not 0.
      (``_hold_bf16_rule_a``), the affine step within phase 6's limits of
      the one-process step, ms a step and each rank's peak memory over its
      first step beside the one-process step's.
+  19c. NeMAR's step flags in bands (``run_spatial_flags``; two ranks on
+     cuda:0 over gloo, 256^2 b8, SPATIAL_FLAGS): (a) --gan_mode wgangp with
+     --remat and without it, SPATIAL_FLAG_STEPS steps each from phase 6's
+     shared state; (b) --g_batch --stn_padding_mode border
+     --stn_align_corners, one step from that state; (c)
+     --stn_field_source fake --freeze_g --gan_mode vanilla --netG
+     resnet_9blocks, one step from a state saved from the seed with R's
+     head drawn. The ranks bit-identical after every step; (a) under
+     --remat bit for bit the band step without it; the launches per step
+     and rank asserted (SPATIAL_FLAG_LAUNCHES; K-in-bwd's band stages
+     inside the penalty apart, SPATIAL_PENALTY_IN_BWD); each cell's first
+     step within phase 6's limits of the one-process step (under wgangp
+     G_GAN in two parts, as phase 10b holds it: the two ranks' within 1e-4
+     of the one process's recomputed with their updated D); ms a step and
+     rank, each rank's peak memory over its
+     first step beside one process's, with and without --remat. Its
+     ``[spatial_kernels]``: K-in's band double backward at D's three band
+     shapes of the penalty's pass (``check_band_double_bwd``) against its
+     plain band form and the whole-frame plain function, within 1e-4 of
+     the largest value, bit for bit twice, its launches asserted.
 
 The smoke's total time is printed (``[total]``) before the device lines.
 The line before the last is a JSON object with one entry per kernel. For a
@@ -4504,6 +4524,58 @@ SPATIAL_RECIPE_LAUNCHES = {
                {**_BAND_ZERO, "K-in": (17, 34), "K-in-bwd": (17, 34), "K-block": (12, 48),
                 "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12)}),
 }
+# phase 19c: NeMAR's step flags in bands, two ranks of one spatial group on
+# cuda:0 over gloo at 256^2 b8 (TRAIN_ARGS): (a) wgangp under --remat and
+# without it, from phase 6's shared state, SPATIAL_FLAG_STEPS steps each;
+# (b) --g_batch with the warp's border padding and align_corners, from the
+# same state, 1 step; (c) --stn_field_source fake --freeze_g, vanilla,
+# resnet_9blocks, from a state saved from the seed with R's head drawn
+# (R_HEAD_DRAW's multiscale std), 1 step
+SPATIAL_FLAG_STEPS = 2
+SPATIAL_FLAGS = {
+    "wgangp_remat": (["--gan_mode", "wgangp", "--remat"], SPATIAL_FLAG_STEPS),
+    "wgangp": (["--gan_mode", "wgangp"], SPATIAL_FLAG_STEPS),
+    "g_batch_border_align": (["--g_batch", "--stn_padding_mode", "border",
+                              "--stn_align_corners"], 1),
+    "fake_freeze_g_vanilla_9blocks": (["--stn_field_source", "fake", "--freeze_g", "--gan_mode",
+                                       "vanilla", "--netG", "resnet_9blocks"], 1),
+}
+# launches per step and rank, worked out from phase 19's
+# (SPATIAL_STEP_LAUNCHES, SPATIAL_BAND_STEP: (calls, stages)):
+#  * wgangp adds the penalty's D pass over the mix (K-in 3 calls), its
+#    first-order backward with the graph (K-in-bwd 3, inside the penalty)
+#    and, in the D loss's backward, the mix's three norms' backward (K-in-bwd
+#    3), as ``accum_launches``; --remat runs each trunk block's band form
+#    again (K-block 12) and R (K-in 2 x 5, K-warp 1), as ``remat_launches``;
+#  * --g_batch runs G once at 2N: G's calls halve (K-in 3, K-block 6,
+#    K-convt 2, K-head 1 and their backwards), and fake_B is warped on its
+#    own (K-warp 2, K-warp-bwd 2);
+#  * --freeze_g's D step is a forward without autograd (D's K-in-bwd 3 go),
+#    resnet_9blocks has 9 trunk blocks a pass (K-block 18)
+_SPATIAL_WARP = {"K-block": 0, "K-in": 0, "K-convt": 0, "K-block-bwd": 0, "K-in-bwd": 0,
+                 "K-convt-bwd": 0}
+SPATIAL_FLAG_LAUNCHES = {
+    "wgangp_remat": ({**_SPATIAL_WARP, "K-head": 2, "K-head-bwd": 2, "K-warp": 2,
+                      "K-warp-bwd": 1},
+                     {**_BAND_ZERO, "K-in": (35, 70), "K-in-bwd": (28, 56), "K-block": (24, 96),
+                      "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12)}),
+    "wgangp": ({**_SPATIAL_WARP, "K-head": 2, "K-head-bwd": 2, "K-warp": 1, "K-warp-bwd": 1},
+               {**_BAND_ZERO, "K-in": (25, 50), "K-in-bwd": (28, 56), "K-block": (12, 48),
+                "K-block-bwd": (12, 60), "K-convt": (4, 8), "K-convt-bwd": (4, 12)}),
+    "g_batch_border_align": ({**_SPATIAL_WARP, "K-head": 1, "K-head-bwd": 1, "K-warp": 2,
+                              "K-warp-bwd": 2},
+                             {**_BAND_ZERO, "K-in": (19, 38), "K-in-bwd": (19, 38),
+                              "K-block": (6, 24), "K-block-bwd": (6, 30), "K-convt": (2, 4),
+                              "K-convt-bwd": (2, 6)}),
+    "fake_freeze_g_vanilla_9blocks": ({**_SPATIAL_WARP, "K-head": 2, "K-head-bwd": 2,
+                                       "K-warp": 1, "K-warp-bwd": 1},
+                                      {**_BAND_ZERO, "K-in": (22, 44), "K-in-bwd": (19, 38),
+                                       "K-block": (18, 72), "K-block-bwd": (18, 90),
+                                       "K-convt": (4, 8), "K-convt-bwd": (4, 12)}),
+}
+# K-in-bwd's band stages inside the penalty a step (its first-order
+# gradient, through D's three norms): (calls, stages)
+SPATIAL_PENALTY_IN_BWD = (3, 6)
 # test_torch_bf16.py's rule (a): a tensor of at most BF16_FEW elements is
 # held as a scalar, its e floored at BF16_Q, bf16's relative spacing
 BF16_Q = 2.0**-8
@@ -4725,12 +4797,19 @@ def _unet_norm_biases(net) -> set:
 
 def _hold_two_ranks(tag: str, args: list, batch: dict, ranks: list, pert_keys: tuple,
                     nets: dict | None = None, skip: dict | None = None,
-                    adam_t: int | None = None) -> None:
+                    adam_t: int | None = None, g_gan_via_d: bool = False) -> None:
     """The two ranks' first step (rank 0's parameters and gradients)
     against the same step in this process on the card, by phase 6's rule
     (``step_against_cpu``: "card" is the two ranks, "cpu" the one process,
     and the baselines the one process from perturbed inputs); the ranks'
-    states bit-identical after every step."""
+    states bit-identical after every step. Each loss within 1e-4; with
+    ``g_gan_via_d`` (phase 19c's wgangp cells) G_GAN in two parts, as phase
+    10b holds it (``compare_a5_with_cpu``): it is read through D after D's
+    Adam step, whose elements of roundoff-sized gradient may step either
+    way in the two runs, so the two ranks' G_GAN is held within 1e-4
+    (of max(|G_GAN|, 0.1)) of the one process's recomputed with the two
+    ranks' updated D, the one process's own within 1e-6 of its
+    recomputation, and what the two updated Ds make of it is printed."""
     r0, r1 = ranks
     runs = {}
     one_ms = None
@@ -4760,16 +4839,38 @@ def _hold_two_ranks(tag: str, args: list, batch: dict, ranks: list, pert_keys: t
     fields, fails, loss_errs = step_against_cpu(runs, {n: before for n in runs}, nets=nets,
                                                 skip=skip, adam_t=adam_t)
     same = r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
+    gan_fields = {}
+    if g_gan_via_d:
+        shared = train_model(args)  # the state before the step
+        gan = {"two": _g_gan_with(shared, r0["params"]["D"], batch),
+               "one": _g_gan_with(shared, {k: v.detach() for k, v in
+                                           runs["cpu"].netD.state_dict().items()}, batch)}
+        del shared
+        reported = {"two": r0["losses"]["G_GAN"],
+                    "one": runs["cpu"].get_current_losses()["G_GAN"]}
+
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 0.1)
+
+        gan_fields = {"g_gan": json.dumps({"reported": reported, "recomputed": gan}),
+                      "g_gan_two_same_d_rel": rel(reported["two"], gan["two"]),
+                      "g_gan_one_recomputed_rel": rel(reported["one"], gan["one"]),
+                      "g_gan_d_update_rel": rel(gan["two"], gan["one"]),
+                      "tol_g_gan_same_d": 1e-4, "tol_g_gan_recomputed": 1e-6}
+        del loss_errs["G_GAN"]
+        if not (gan_fields["g_gan_two_same_d_rel"] <= 1e-4
+                and gan_fields["g_gan_one_recomputed_rel"] <= 1e-6):
+            fails.append(f"G_GAN {gan_fields}")
     phase(f"gloo_two_ranks_{tag}", steps=len(r0["digests"]), ranks_bit_identical=same,
           ms_per_step_rank0=json.dumps([round(t, 3) for t in r0["ms"]]),
           ms_per_step_rank1=json.dumps([round(t, 3) for t in r1["ms"]]),
-          ms_one_process_first_step=round(one_ms, 3), **fields)
+          ms_one_process_first_step=round(one_ms, 3), **fields, **gan_fields)
     if max(loss_errs.values()) > 1e-4:
         fails.append(f"losses {loss_errs}")
     if not same:
         fails.append("the two ranks' states differ")
     if fails:
-        raise AssertionError(f"phase 18b {tag}: " + "; ".join(fails))
+        raise AssertionError(f"gloo_two_ranks_{tag}: " + "; ".join(fails))
 
 
 def run_gloo_two_ranks(ckpt: str) -> None:
@@ -5254,49 +5355,70 @@ def run_spatial(ckpt: str) -> None:
     return ranks[0]["kernels"], {k: v[1] for k, v in ranks[0]["band_launches"][0].items()}
 
 
-def _spatial_recipe_rank(cells: list) -> list:
-    """Phase 19b inside its rank: for each (args, batches) a model from the
-    args' saved state takes a step on each batch; -> per cell the ms of
-    each step, the state's digest, the launches (``zero_all_counters``,
-    ``read_band_counters``, zeroed before each step), the losses after the
-    first and, at rank 0, the gradients after the first (on the host)."""
+def _band_steps_rank(cells: list) -> list:
+    """Phases 19b and 19c inside their rank: for each (args, batches) a
+    model from the args' saved state takes a step on each batch; -> per cell
+    the ms of each step, the state's digest, the launches
+    (``zero_all_counters``, ``read_band_counters``, zeroed before each step;
+    K-in-bwd's band calls and stages inside the WGAN-GP penalty apart), the
+    losses after the first, the peak memory over the first and, at rank 0,
+    the parameters and gradients after the first (on the host)."""
     from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.models import networks
     from nemar_tpu_torch.models.base_model import state_digest, to_host
 
     fp32_only()
     parallel.set_mesh(SPATIAL)
+    penalty = networks.cal_gradient_penalty
+    inside = [0, 0]
+
+    def counted(*a, **k):
+        before = read_band_counters()["K-in-bwd"]
+        gp = penalty(*a, **k)
+        after = read_band_counters()["K-in-bwd"]
+        inside[0] += after[0] - before[0]
+        inside[1] += after[1] - before[1]
+        return gp
+
+    networks.cal_gradient_penalty = counted
     outs = []
-    for args, batches in cells:
-        model = train_model(args)
-        out = {"ms": [], "digests": [], "launches": [], "band_launches": [],
-               "rank": parallel.rank()}
-        for i, b in enumerate(batches):
-            counters, _ = zero_all_counters()
-            zero_band_counters()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model.set_input(b)
-            if i == 0:
+    try:
+        for args, batches in cells:
+            model = train_model(args)
+            out = {"ms": [], "digests": [], "launches": [], "band_launches": [],
+                   "penalty_in_bwd": [], "rank": parallel.rank()}
+            for i, b in enumerate(batches):
+                counters, _ = zero_all_counters()
+                zero_band_counters()
+                inside[:] = [0, 0]
                 torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                before = torch.cuda.memory_allocated()
-            model.optimize_parameters()
-            torch.cuda.synchronize()
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
-            if i == 0:
-                out["peak_over_before"] = torch.cuda.max_memory_allocated() - before
-            out["launches"].append({k: fn.launches for k, fn in counters.items()})
-            out["band_launches"].append(read_band_counters())
-            out["digests"].append(state_digest(model))
-            if i == 0:
-                out["losses"] = dict(model.get_current_losses())
-                if parallel.rank() == 0:
-                    out["params"] = {n: {k: to_host(p) for k, p in net.named_parameters()}
-                                     for n, net in model.nets().items()}
-                    out["grads"] = {n: {k: to_host(p.grad) for k, p in net.named_parameters()}
-                                    for n, net in model.nets().items()}
-        outs.append(out)
-        del model
+                t0 = time.perf_counter()
+                model.set_input(b)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    before = torch.cuda.memory_allocated()
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+                out["ms"].append((time.perf_counter() - t0) * 1e3)
+                if i == 0:
+                    out["peak_over_before"] = torch.cuda.max_memory_allocated() - before
+                out["launches"].append({k: fn.launches for k, fn in counters.items()})
+                out["band_launches"].append(read_band_counters())
+                out["penalty_in_bwd"].append(tuple(inside))
+                out["digests"].append(state_digest(model))
+                if i == 0:
+                    out["losses"] = dict(model.get_current_losses())
+                    if parallel.rank() == 0:
+                        out["params"] = {n: {k: to_host(p) for k, p in net.named_parameters()}
+                                         for n, net in model.nets().items()}
+                        out["grads"] = {n: {k: to_host(p.grad) for k, p in
+                                            net.named_parameters()}
+                                        for n, net in model.nets().items()}
+            outs.append(out)
+            del model
+    finally:
+        networks.cal_gradient_penalty = penalty
     return outs
 
 
@@ -5373,7 +5495,7 @@ def _hold_bf16_rule_a(args: list, batch: dict, r0: dict) -> None:
 def run_spatial_recipe(ckpt: str) -> dict:
     """Phase 19b: the registration recipe in bands (SPATIAL_RECIPE) over two
     ranks sharing cuda:0 (gloo): per arm a state saved here from the seed
-    with R's heads drawn, then ``_spatial_recipe_rank``; the ranks
+    with R's heads drawn, then ``_band_steps_rank``; the ranks
     bit-identical after every step, the launches per step and rank
     (SPATIAL_RECIPE_LAUNCHES), the multiscale arm's bf16 step held to rule
     (a) of the one-process bf16 step (``_hold_bf16_rule_a``), the affine
@@ -5399,7 +5521,7 @@ def run_spatial_recipe(ckpt: str) -> dict:
                        "--mesh_spatial", str(SPATIAL)], batches))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = parallel.launch(_spatial_recipe_rank, [dev, dev], backend="gloo", args=(cells,),
+    ranks = parallel.launch(_band_steps_rank, [dev, dev], backend="gloo", args=(cells,),
                             timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
     phase("spatial_recipe", seconds=round(time.perf_counter() - t0, 2))
     fails = []
@@ -5435,6 +5557,189 @@ def run_spatial_recipe(ckpt: str) -> dict:
     _hold_two_ranks("recipe_affine", args_af[:-2], batches_af[0], [r[1] for r in ranks], ("A",),
                     adam_t=1)
     return {k: v[1] for k, v in ranks[0][0]["band_launches"][0].items()}
+
+
+def check_band_double_bwd() -> dict:
+    """Phase 19c's ``[spatial_kernels]``, in a rank of the spatial group: K-in's
+    band double backward (the WGAN-GP penalty's, through D's band form) at
+    D's three instance norms of the penalty's pass over the mix at 256^2 b8
+    (D_IN_SHAPES, one sample a pair: bands of 32, 16 and 16 / 15 rows),
+    leaky_relu, each rank its band of one seeded frame: d x by K-in-bwd's
+    band stages (through the Function the penalty differentiates), then the
+    VJP of (x, g) -> d x (stock ops with the frame's sums through the
+    differentiable all-gather), against the same two derivatives of the
+    plain band form and of the whole-frame plain function by autograd, cut
+    to the band, on the card: within 1e-4 of the largest value, bit for bit
+    in two calls, the band forms' launches of one call asserted (K-in's
+    partials and apply once, K-in-bwd's once), and the time of the band
+    form and of the plain band form."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.ops import norm
+    from nemar_tpu_torch.parallel import spatial
+
+    j = parallel.spatial_rank()
+    rng = card_rng(43)
+    out = {}
+    # D's bands: its k4 convs' from the 256-row frame's (Band.conv), the
+    # normed ones after Conv_0
+    bands, b = {}, spatial.Band.split(256, SPATIAL, j)
+    for stride in (2, 2, 2, 1):
+        b = b.conv(4, stride, 1)[0]
+        bands.setdefault(b.height, b)
+    for c, h, w in D_IN_SHAPES:
+        band = bands[h]
+        frames = [randn(rng, (TRAIN_BATCH, h, w, c), 2.0) + 0.5, randn(rng, (TRAIN_BATCH, h, w, c)),
+                  randn(rng, (TRAIN_BATCH, h, w, c))]
+
+        def second_order(fn, rows):
+            def call():
+                x, g, gg = (f[:, rows] for f in frames)
+                xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+                (dx,) = torch.autograd.grad(fn(xr), xr, gr, create_graph=True)
+                got = (dx.detach(), *torch.autograd.grad(dx, (xr, gr), gg))
+                torch.cuda.synchronize()
+                return got
+            return call
+
+        rows = slice(band.r0, band.r1)
+        kern = second_order(lambda x: norm.instance_norm_act_band(x, band, "leaky_relu"), rows)
+        plain = second_order(lambda x: norm.instance_norm_act_band(x, band, "leaky_relu",
+                                                                   plain=True), rows)
+        frame = second_order(lambda x: norm.instance_norm_act_plain(x, "leaky_relu"),
+                             slice(None))
+        zero_band_counters()
+        got = kern()
+        launches = {k: v for k, v in read_band_counters().items() if v[0]}
+        again, ref, whole = kern(), plain(), frame()
+        errs = [max_rel_err([p], [q]) for p, q in zip(got, ref)]
+        frame_errs = [max_rel_err([p], [q[:, rows]]) for p, q in zip(got, whole)]
+        ms, pms = paired_median_ms(kern, plain, iters=5, warmup=1)
+        out[f"K-in-bwd-band double backward (D, {h} rows)"] = {
+            "band": f"{TRAIN_BATCH}x{band.rows}x{w}x{c}", "act": "leaky_relu",
+            "max_rel_err_dx_ddx_dg": errs, "vs_frame_max_rel_err_dx_ddx_dg": frame_errs,
+            "tol": 1e-4, "bits": all(torch.equal(p, q) for p, q in zip(got, again)),
+            "launches": launches, "ms": ms, "plain_ms": pms}
+    return out
+
+
+def _spatial_flags_rank(cells: list) -> dict:
+    """Phase 19c inside its rank: ``_band_steps_rank`` on the cells (which
+    lays out the mesh), then ``check_band_double_bwd``."""
+    from nemar_tpu_torch import parallel
+
+    cells = _band_steps_rank(cells)
+    return {"kernels": check_band_double_bwd(), "rank": parallel.rank(), "cells": cells}
+
+
+def _one_process_peak(args: list, batch: dict) -> tuple:
+    """(peak allocated memory over what was allocated before the step, ms)
+    of one step in this process from the args' saved state."""
+    m = train_model(args)
+    m.set_input(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m.optimize_parameters()
+    torch.cuda.synchronize()
+    out = (torch.cuda.max_memory_allocated() - before, (time.perf_counter() - t0) * 1e3)
+    del m
+    return out
+
+
+def run_spatial_flags(ckpt: str) -> None:
+    """Phase 19c: NeMAR's step flags in bands (SPATIAL_FLAGS) over two ranks
+    sharing cuda:0 (gloo): ``_spatial_flags_rank``; K-in's band double
+    backward held (``check_band_double_bwd``); the ranks bit-identical
+    after every step; the wgangp step under --remat bit for bit the step
+    without it; the launches per step and rank (SPATIAL_FLAG_LAUNCHES, and
+    K-in-bwd's band stages inside the penalty, SPATIAL_PENALTY_IN_BWD);
+    each cell's first step within phase 6's limits of the one-process step
+    on the card (``_hold_two_ranks``); ms a step and rank, and each rank's
+    peak memory over its first step beside one process's, with and without
+    --remat."""
+    from nemar_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    shared = [*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--continue_train", "--epoch", "smoke6",
+              "--gpu_ids", "0", "--batch_size", str(TRAIN_BATCH)]
+    batches = request_batches(SPATIAL_FLAG_STEPS, TRAIN_BATCH, seed=37)
+    cells = {}
+    for name, (flags, steps) in SPATIAL_FLAGS.items():
+        if "--netG" not in flags:
+            cells[name] = ([*shared, *flags], batches[:steps])
+            continue
+        # phase 6's G has 6 blocks: a state of this G from the seed
+        args = [*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--gpu_ids", "0", "--batch_size",
+                str(TRAIN_BATCH), *flags, "--name", f"spatial_flags_{name}"]
+        m = train_model(args)
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            for h in m.netR.heads():
+                h.weight.add_(R_HEAD_DRAW["multiscale"] * torch.randn(
+                    h.weight.shape, generator=gen).to(h.weight.device))
+        m.save_networks("flags")
+        del m
+        cells[name] = ([*args, "--continue_train", "--epoch", "flags"], batches[:steps])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(
+        _spatial_flags_rank, [dev, dev], backend="gloo",
+        args=([([*a, "--mesh_spatial", str(SPATIAL)], b) for a, b in cells.values()],),
+        timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
+    phase("spatial_flags", seconds=round(time.perf_counter() - t0, 2))
+    fails = []
+    for r in ranks:
+        for name, c in r["kernels"].items():
+            phase("spatial_kernels", rank=r["rank"], kernel=repr(name), **c)
+            if not (max(c["max_rel_err_dx_ddx_dg"]) <= c["tol"]
+                    and max(c["vs_frame_max_rel_err_dx_ddx_dg"]) <= c["tol"] and c["bits"]
+                    and c["launches"] == {"K-in": (1, 2), "K-in-bwd": (1, 2)}):
+                fails.append(f"rank {r['rank']} {name}: {c}")
+    gib = 2.0**30
+    for c, name in enumerate(cells):
+        r0, r1 = ranks[0]["cells"][c], ranks[1]["cells"][c]
+        want, want_band = SPATIAL_FLAG_LAUNCHES[name]
+        for rank, r in enumerate((r0, r1)):
+            for i, (got, band, gp) in enumerate(zip(r["launches"], r["band_launches"],
+                                                    r["penalty_in_bwd"])):
+                bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+                bad.update({k: v for k, v in band.items() if tuple(v) != want_band[k]})
+                if gp != (SPATIAL_PENALTY_IN_BWD if "wgangp" in name else (0, 0)):
+                    bad["K-in-bwd inside the penalty"] = gp
+                if bad:
+                    fails.append(f"{name} rank {rank} step {i}: launches {bad}")
+        same = r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
+        one_peak, one_ms = _one_process_peak(cells[name][0], cells[name][1][0])
+        phase("spatial_flags_" + name, steps=len(r0["ms"]), ranks_bit_identical=same,
+              step_peak_over_before_gib=json.dumps([round(r["peak_over_before"] / gib, 3)
+                                                    for r in (r0, r1)]),
+              one_process_step_peak_over_before_gib=round(one_peak / gib, 3),
+              one_process_first_step_ms=round(one_ms, 3),
+              ms_per_step_rank0=json.dumps([round(t, 3) for t in r0["ms"]]),
+              ms_per_step_rank1=json.dumps([round(t, 3) for t in r1["ms"]]),
+              launches_per_step=json.dumps({k: v for k, v in r0["launches"][0].items() if v}),
+              band_calls_stages_per_step=json.dumps(
+                  {k: v for k, v in r0["band_launches"][0].items() if v[0]}),
+              in_bwd_calls_stages_inside_penalty=json.dumps(r0["penalty_in_bwd"][0]),
+              losses=json.dumps(r0["losses"]))
+        if not same:
+            fails.append(f"{name}: the two ranks' states differ")
+    names = list(cells)
+    remat, plain = (ranks[0]["cells"][names.index(n)] for n in ("wgangp_remat", "wgangp"))
+    remat_bits = remat["digests"] == plain["digests"] and remat["losses"] == plain["losses"]
+    phase("spatial_flags_remat", steps=len(remat["digests"]), bit_identical=remat_bits)
+    if not remat_bits:
+        fails.append("wgangp under --remat differs from the band step without it")
+    if fails:
+        raise AssertionError("phase 19c: " + "; ".join(fails))
+    for c, name in enumerate(cells):
+        if name == "wgangp":  # bit for bit the --remat cell, held above
+            continue
+        args, steps = cells[name]
+        _hold_two_ranks("flags_" + name, args, steps[0], [r["cells"][c] for r in ranks], ("A",),
+                        adam_t=1 if "--netG" in SPATIAL_FLAGS[name][0] else None,
+                        g_gan_via_d="wgangp" in name)
 
 
 def main() -> int:
@@ -5534,6 +5839,9 @@ def main() -> int:
         band_launches.update({k: v for k, v in run_spatial_recipe(ckpt).items()
                               if k.endswith("-bf16")})
         phase("spatial_recipe_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_spatial_flags(ckpt)
+        phase("spatial_flags_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

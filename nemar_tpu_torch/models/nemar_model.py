@@ -69,8 +69,11 @@ global rows (``_step_draws``); --border_mask's count is the global
 microbatch's. Under ``--mesh_spatial`` (the image height over the ranks
 of a spatial group, ``parallel/spatial.py``) every net runs its band form
 and each loss is the band's share; --border_mask's count is summed over
-every rank; the flags whose paths the band step does not hold are
-refused by name (``_check_supported``, ROADMAP.md A10c).
+every rank; the WGAN-GP penalty differentiates D's band form twice, its
+per-sample norm summed over the group, and each rank's loss takes a 1/s
+share of it; --remat recomputes the band forms with their exchanges; the
+flags whose paths the band step does not hold are refused by name
+(``_check_supported``, ROADMAP.md A10c).
 """
 
 from __future__ import annotations
@@ -349,9 +352,13 @@ class NEMARModel(BaseModel):
         """Both warp orders from one φ; NCHW tensors in and out. With
         --border_mask, also the warp's validity mask (N, 1, H, W), detached.
         Under --bf16 the nets run in bf16 and every output is cast back to
-        fp32."""
-        if self.band is not None:
-            return self._forward_parts_band(a, b)
+        fp32. Under --mesh_spatial (``self.band``) every net runs its band
+        form: every output is its band of the frame's, reg its share, the
+        mask the warp's validity on the band's rows (the frame's ones
+        sampled at the band's grid), and --remat's recomputation runs R's
+        exchanges and all-gathers again."""
+        band = self.band
+        kw = {} if band is None else {"band": band}
         netG, netR = self.compute(self.netG), self.compute(self.netR)
         if self.remat and torch.is_grad_enabled():
             # R's activations recomputed in the backward (jax.checkpoint of
@@ -361,17 +368,21 @@ class NEMARModel(BaseModel):
         if self.field_source == "pair" and self.g_batch:
             # φ depends only on (a, b): R first, then ONE G pass at 2N over
             # [a; warp(a, φ)], then the warp of fake_B with the same grid
-            (warped_A,), reg, aux = netR(ca, cb, (ca,), n_grad_imgs=0)
-            both = netG(torch.cat([ca, warped_A], dim=0))
+            # (of fake_B's frame, gathered, under --mesh_spatial)
+            (warped_A,), reg, aux = netR(ca, cb, (ca,), n_grad_imgs=0, **kw)
+            both = netG(torch.cat([ca, warped_A], dim=0), **kw)
             fake_B, fake_B2 = torch.split(both, a.shape[0], dim=0)
+            src = networks.to_nhwc(fake_B)
+            if band is not None:
+                src = spatial.gather_frame(src, band, dim=1)
             reg_fakeB = networks.to_nchw(grid_sample(
-                networks.to_nhwc(fake_B), aux["grid"], "bilinear",
-                self.netR.padding_mode, self.netR.align_corners))
+                src, aux["grid"], "bilinear", self.netR.padding_mode, self.netR.align_corners))
         else:
-            fake_B = netG(ca)
+            fake_B = netG(ca, **kw)
             src = (ca, cb) if self.field_source == "pair" else (fake_B, cb)
-            (reg_fakeB, warped_A), reg, aux = netR(src[0], src[1], (fake_B, ca), n_grad_imgs=1)
-            fake_B2 = netG(warped_A)
+            (reg_fakeB, warped_A), reg, aux = netR(src[0], src[1], (fake_B, ca), n_grad_imgs=1,
+                                                   **kw)
+            fake_B2 = netG(warped_A, **kw)
         out = {k: self.uncast(v) for k, v in (
             ("fake_B", fake_B), ("reg_fakeB", reg_fakeB), ("warped_A", warped_A),
             ("fake_B2", fake_B2), ("reg", reg), ("flow", aux["flow"]))}
@@ -379,7 +390,8 @@ class NEMARModel(BaseModel):
             # validity of each output pixel under the warp; no gradient: the
             # mask must not be a lever for shrinking the loss support
             with torch.no_grad():
-                out["mask"] = self._validity(a.shape[2], aux["grid"])
+                out["mask"] = self._validity(a.shape[2] if band is None else band.height,
+                                             aux["grid"])
         return out
 
     def _validity(self, height: int, grid: torch.Tensor) -> torch.Tensor:
@@ -393,25 +405,6 @@ class NEMARModel(BaseModel):
         return networks.to_nchw(grid_sample(ones, grid, "bilinear", "zeros",
                                             getattr(self.opt, "stn_align_corners", False)))
 
-    def _forward_parts_band(self, a: torch.Tensor, b: torch.Tensor) -> dict:
-        """``_forward_parts`` on this rank's band (--mesh_spatial): every
-        output is its band of the frame's, reg its share; the mask the
-        warp's validity on the band's rows (the frame's ones sampled at the
-        band's grid). Under --bf16 the nets run in bf16 as in one process."""
-        netG, netR = self.compute(self.netG), self.compute(self.netR)
-        ca, cb = self.cast(a), self.cast(b)
-        fake_B = netG(ca, self.band)
-        (reg_fakeB, warped_A), reg, aux = netR(ca, cb, (fake_B, ca), n_grad_imgs=1,
-                                               band=self.band)
-        fake_B2 = netG(warped_A, self.band)
-        out = {k: self.uncast(v) for k, v in (
-            ("fake_B", fake_B), ("reg_fakeB", reg_fakeB), ("warped_A", warped_A),
-            ("fake_B2", fake_B2), ("reg", reg), ("flow", aux["flow"]))}
-        if self.border_mask:
-            with torch.no_grad():
-                out["mask"] = self._validity(self.band.height, aux["grid"])
-        return out
-
     # ------------------------------------------------------------------
     # the training step
     # ------------------------------------------------------------------
@@ -422,22 +415,27 @@ class NEMARModel(BaseModel):
         -> (loss, (l_real, l_fake, penalty or None)). Under --bf16 D's passes
         are bf16, their predictions cast back to fp32; the penalty's pass is
         fp32, as the JAX package's. Under --mesh_spatial the band's shares."""
-        if self.band is not None:
-            pred, pband = self.compute(self.netD)(self.cast(torch.cat([b, fake], dim=0)),
-                                                  self.band)
+        band = self.band
+        if band is not None:
+            pred, pband = self.compute(self.netD)(self.cast(torch.cat([b, fake], dim=0)), band)
             pred_real, pred_fake = torch.chunk(self.uncast(pred), 2, dim=0)
             l_real = networks.gan_loss(pred_real, True, self.gan_mode, pband)
             l_fake = networks.gan_loss(pred_fake, False, self.gan_mode, pband)
-            return 0.5 * (l_real + l_fake), (l_real, l_fake, None)
-        pred_real, pred_fake = (self.uncast(p) for p in networks.d_preds(
-            self.compute(self.netD), self.cast(b), self.cast(fake), self.opt.norm))
-        l_real = networks.gan_loss(pred_real, True, self.gan_mode)
-        l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
+        else:
+            pred_real, pred_fake = (self.uncast(p) for p in networks.d_preds(
+                self.compute(self.netD), self.cast(b), self.cast(fake), self.opt.norm))
+            l_real = networks.gan_loss(pred_real, True, self.gan_mode)
+            l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
         loss = 0.5 * (l_real + l_fake)
         gp = None
         if self.gan_mode == "wgangp":
+            # the same alpha on every rank of a spatial group (its rows')
             alpha = self._gp_alpha(b.shape[0]).to(b.dtype)
-            gp = networks.cal_gradient_penalty(self.netD, b, fake, alpha)
+            gp = networks.cal_gradient_penalty(self.netD, b, fake, alpha, band=band)
+            if band is not None:
+                # every rank of the group holds the whole penalty, and the
+                # gradients' all-reduce sums over the group: a 1/s share each
+                gp = gp / band.size
             loss = loss + gp
         return loss, (l_real, l_fake, gp)
 
@@ -844,23 +842,16 @@ def _check_supported(opt) -> None:
     (queued as ROADMAP.md A10c)."""
     if getattr(opt, "mesh_spatial", 1) <= 1:
         return
+    netG, netD = getattr(opt, "netG", "resnet_6blocks"), getattr(opt, "netD", "basic")
+    template = "the template models in bands"
     refused = [
-        (getattr(opt, "gan_mode", "lsgan") != "lsgan",
-         f"--gan_mode {getattr(opt, 'gan_mode', 'lsgan')} (wgangp: a double backward through "
-         f"the exchanges)"),
-        (getattr(opt, "steps_per_execution", 1) > 1, "--steps_per_execution > 1"),
+        (getattr(opt, "steps_per_execution", 1) > 1,
+         "--steps_per_execution > 1 (the band step's exchanges in a CUDA graph, on two or "
+         "more GPUs)"),
         (getattr(opt, "norm", "instance") != "instance",
-         f"--norm {getattr(opt, 'norm', 'instance')}"),
-        (getattr(opt, "netG", "resnet_6blocks") != "resnet_6blocks",
-         f"--netG {getattr(opt, 'netG', '')}"),
-        (getattr(opt, "netD", "basic") != "basic", f"--netD {getattr(opt, 'netD', '')}"),
-        (getattr(opt, "remat", False), "--remat"),
-        (getattr(opt, "g_batch", False), "--g_batch"),
-        (getattr(opt, "freeze_g", False), "--freeze_g"),
-        (getattr(opt, "stn_field_source", "pair") != "pair", "--stn_field_source fake"),
-        (getattr(opt, "stn_padding_mode", "zeros") != "zeros",
-         f"--stn_padding_mode {getattr(opt, 'stn_padding_mode', '')}"),
-        (getattr(opt, "stn_align_corners", False), "--stn_align_corners"),
+         f"--norm {getattr(opt, 'norm', 'instance')} ({template})"),
+        (netG.startswith("unet"), f"--netG {netG} (no band form of the UNet G: {template})"),
+        (netD == "pixel", f"--netD {netD} (no band form of the pixel D: {template})"),
     ]
     for on, flag in refused:
         if on:

@@ -39,7 +39,11 @@ its halo rows (``conv_band``: the neighbours' rows, the layer's padding at
 the frame's edges), every instance norm with the frame's statistics
 (``norm_act_band``, K-in's band form on the card), the trunk blocks, the
 decoder stages and the head through K-block's, K-convt's and K-head's band
-forms. ``band=None`` is the one-process path, unchanged.
+forms, each trunk block checkpointed under ``--remat`` as in one process.
+``gan_loss`` and ``cal_gradient_penalty`` take the band too: the losses'
+means are the band's shares, and the penalty differentiates D's band form
+twice (``parallel/spatial.py``'s primitives and K-in's band backward are
+differentiable twice). ``band=None`` is the one-process path, unchanged.
 
 Dropout (``Dropout``) draws from a ``torch.Generator`` the model owns,
 never from the global one, and is off in eval mode. ``--remat`` checkpoints
@@ -352,11 +356,15 @@ class ResnetBlock(nn.Module):
         self.Conv_1 = nn.Conv2d(dim, dim, 3)
         self.dropout = Dropout(0.5, generator) if use_dropout else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        """The block; with ``band`` (instance norm, no dropout) that of the
+        frame of which x is this rank's band (K-block's band form)."""
         if self.fused:
             # OIHW -> HWIO, the layout of the JAX op and of the kernel
             w1 = self.Conv_0.weight.permute(2, 3, 1, 0)
             w2 = self.Conv_1.weight.permute(2, 3, 1, 0)
+            if band is not None:
+                return to_nchw(fused_resblock_band(to_nhwc(x), w1, w2, band))
             return to_nchw(fused_resblock(to_nhwc(x), w1, w2))
         h = norm_act(self.Conv_0(reflect_pad(x, 1)), "relu", self.norm)
         if self.dropout is not None:
@@ -426,9 +434,11 @@ class ResnetGenerator(nn.Module):
             h = norm_act_band(h, b, "relu")
         for i in range(self.n_blocks):
             block = getattr(self, f"ResnetBlock_{i}")
-            w1 = block.Conv_0.weight.permute(2, 3, 1, 0)
-            w2 = block.Conv_1.weight.permute(2, 3, 1, 0)
-            h = to_nchw(fused_resblock_band(to_nhwc(h), w1, w2, b))
+            # --remat: the block's band form run again in the backward, its
+            # exchanges and all-gathers with it, in the same order on every
+            # rank
+            h = (remat(block, h, band=b) if self.use_remat and torch.is_grad_enabled()
+                 else block(h, b))
         for i in range(self.n_downsampling):
             convt = getattr(self, f"ConvTranspose_{i}")
             w = convt.weight.permute(2, 3, 0, 1).flip(0, 1)
@@ -599,28 +609,26 @@ def d_preds(net_d: Callable, real: torch.Tensor, fake: torch.Tensor, norm: str) 
 def gan_loss(pred: torch.Tensor, target_is_real: bool, gan_mode: str,
              band=None) -> torch.Tensor:
     """Reference GANLoss: lsgan = MSE against 1/0, vanilla = BCE with logits,
-    wgangp = -mean for real, mean for fake. With ``band`` (lsgan) the NCHW
-    pred is this rank's band of the frame's predictions: the band's share
-    of the mean over the frame's patches (``spatial.frame_mean``)."""
-    if band is not None:
-        if gan_mode != "lsgan":
-            raise NotImplementedError(f"--gan_mode {gan_mode} under --mesh_spatial is refused "
-                                      f"(ROADMAP.md A10c)")
-        return spatial.frame_mean(torch.square(pred - (1.0 if target_is_real else 0.0)), band)
+    wgangp = -mean for real, mean for fake. With ``band`` the NCHW pred is
+    this rank's band of the frame's predictions: each mean is the band's
+    share of the mean over the frame's patches (``spatial.frame_mean``)."""
+    def mean(t):
+        return torch.mean(t) if band is None else spatial.frame_mean(t, band)
+
     if gan_mode == "lsgan":
-        return torch.mean(torch.square(pred - (1.0 if target_is_real else 0.0)))
+        return mean(torch.square(pred - (1.0 if target_is_real else 0.0)))
     if gan_mode == "vanilla":
         target = 1.0 if target_is_real else 0.0
-        return torch.mean(torch.clamp_min(pred, 0.0) - pred * target
-                          + torch.log1p(torch.exp(-torch.abs(pred))))
+        return mean(torch.clamp_min(pred, 0.0) - pred * target
+                    + torch.log1p(torch.exp(-torch.abs(pred))))
     if gan_mode == "wgangp":
-        return -torch.mean(pred) if target_is_real else torch.mean(pred)
+        return -mean(pred) if target_is_real else mean(pred)
     raise NotImplementedError(f"gan mode {gan_mode!r}")
 
 
 def cal_gradient_penalty(net_d: nn.Module, real: torch.Tensor, fake: torch.Tensor,
                          alpha: torch.Tensor, constant: float = 1.0,
-                         lambda_gp: float = 10.0) -> torch.Tensor:
+                         lambda_gp: float = 10.0, band=None) -> torch.Tensor:
     """WGAN-GP penalty, gp_type 'mixed' (the JAX package's
     ``cal_gradient_penalty``): D's input gradient at interp = alpha * real +
     (1 - alpha) * fake, alpha (n, 1, 1, 1) drawn by the caller; returns
@@ -629,12 +637,25 @@ def cal_gradient_penalty(net_d: nn.Module, real: torch.Tensor, fake: torch.Tenso
     Under autograd the gradient keeps its graph (``create_graph``), so the
     penalty's backward is a double backward through D: cuDNN's convolutions,
     the leaky ReLUs and K-in's backward (``ops/norm.py``). Without autograd
-    it is only a value."""
+    it is only a value.
+
+    With ``band`` (--mesh_spatial) real and fake are this rank's band of
+    their frames and D runs its band form: the gradient of the band's
+    summed predictions reaches every rank's band through the exchanges'
+    adjoints (every rank takes it at the same point, so their collectives
+    line up), which gives this rank its band of the frame's input gradient;
+    the per-sample squared norm is summed over the spatial group
+    (``spatial.group_sum``, differentiable), so every rank holds the whole
+    penalty."""
     create_graph = torch.is_grad_enabled()
     with torch.enable_grad():
         interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_()
-        (grad,) = torch.autograd.grad(net_d(interp).sum(), interp, create_graph=create_graph)
-    gnorm = torch.sqrt(torch.sum(torch.square(grad.reshape(real.shape[0], -1)), dim=1) + 1e-16)
+        pred = net_d(interp) if band is None else net_d(interp, band)[0]
+        (grad,) = torch.autograd.grad(pred.sum(), interp, create_graph=create_graph)
+    sq = torch.sum(torch.square(grad.reshape(real.shape[0], -1)), dim=1)
+    if band is not None:
+        sq = spatial.group_sum(sq)
+    gnorm = torch.sqrt(sq + 1e-16)
     return torch.mean(torch.square(gnorm - constant)) * lambda_gp
 
 

@@ -99,13 +99,19 @@ def _act_grad(y: torch.Tensor, g: torch.Tensor, act: str, negative_slope: float)
     return g
 
 
-def _in_act_bwd(x, g, mean, rstd, act: str, negative_slope: float) -> torch.Tensor:
+def _spatial_mean(t: torch.Tensor) -> torch.Tensor:
+    return t.mean(dim=(1, 2), keepdim=True)
+
+
+def _in_act_bwd(x, g, mean, rstd, act: str, negative_slope: float,
+                frame_mean=_spatial_mean) -> torch.Tensor:
     """d x of act((x - mean) * rstd) given g = d y, the activation's mask
-    taken as a constant (it is piecewise constant)."""
+    taken as a constant (it is piecewise constant); ``frame_mean`` takes the
+    per-(sample, channel) means (of the whole frame, for a band)."""
     y = (x - mean) * rstd
     g = _act_grad(y.detach(), g, act, negative_slope)
-    m1 = g.mean(dim=(1, 2), keepdim=True)
-    m2 = (g * y).mean(dim=(1, 2), keepdim=True)
+    m1 = frame_mean(g)
+    m2 = frame_mean(g * y)
     return rstd * (g - m1 - y * m2)
 
 
@@ -119,16 +125,29 @@ def instance_norm_act_bwd_plain(x: torch.Tensor, g: torch.Tensor, stats: torch.T
 
 
 def instance_norm_act_bwd_recompute(x: torch.Tensor, g: torch.Tensor, act: str = "relu",
-                                    eps: float = 1e-5,
-                                    negative_slope: float = 0.2) -> torch.Tensor:
+                                    eps: float = 1e-5, negative_slope: float = 0.2,
+                                    band=None) -> torch.Tensor:
     """``instance_norm_act_bwd_plain`` with the statistics recomputed from x
     (the JAX package's ``_in_act_vjp_bwd``): differentiable in x and g; in
-    fp32 for bf16 x and g, the result rounded to their type."""
+    fp32 for bf16 x and g, the result rounded to their type. With ``band``
+    (x and g this rank's band of their frames) d x of the band: the frame's
+    statistics and the frame means of ĝ and ĝ·ŷ summed over the spatial
+    group (``spatial.group_sum``, differentiable), so the terms through the
+    whole frame's mean and variance reach every rank."""
     dtype = x.dtype
     x, g = _wide(x), _wide(g)
-    mean = x.mean(dim=(1, 2), keepdim=True)
-    rstd = torch.rsqrt(torch.square(x - mean).mean(dim=(1, 2), keepdim=True) + eps)
-    return _in_act_bwd(x, g, mean, rstd, act, negative_slope).to(dtype)
+    frame_mean = _spatial_mean
+    if band is not None:
+        from nemar_tpu_torch.parallel import spatial
+
+        count = x.shape[2] * band.height
+
+        def frame_mean(t):
+            return spatial.group_sum(t.sum(dim=(1, 2), keepdim=True)) / count
+
+    mean = frame_mean(x)
+    rstd = torch.rsqrt(frame_mean(torch.square(x - mean)) + eps)
+    return _in_act_bwd(x, g, mean, rstd, act, negative_slope, frame_mean).to(dtype)
 
 
 class _InstanceNormAct(torch.autograd.Function):
@@ -270,36 +289,61 @@ class _InstanceNormActBand(torch.autograd.Function):
         else:
             stats = in_band_stats(x, eps)
             y = _apply_act(normalise(_wide(x), stats), act, slope).to(x.dtype)
-        ctx.band, ctx.act, ctx.slope, ctx.cuda = band, act, slope, cuda
+        ctx.band, ctx.act, ctx.eps, ctx.slope, ctx.cuda = band, act, eps, slope, cuda
         ctx.frame_pixels = band.height * w
         ctx.save_for_backward(x, stats)
         return y
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
+        x, stats = ctx.saved_tensors
+        dx = _InstanceNormActBandBwd.apply(x, stats, g, ctx.band, ctx.act, ctx.eps, ctx.slope,
+                                           ctx.cuda, ctx.chunks, ctx.frame_pixels)
+        return dx, None, None, None, None, None
+
+
+class _InstanceNormActBandBwd(torch.autograd.Function):
+    """(x, stats, g) -> d x of the band, as ``_InstanceNormActBwd`` is of the
+    frame: K-in-bwd's band stages on the card (partials, the all-gather,
+    the merge and apply), the plain versions on the CPU. Its own backward is
+    the VJP of ``instance_norm_act_bwd_recompute`` of the band: stock ops
+    whose frame sums go through the differentiable all-gather (the WGAN-GP
+    penalty's double backward through D under --mesh_spatial)."""
+
+    @staticmethod
+    def forward(ctx, x, stats, g, band, act, eps, slope, cuda, chunks, frame_pixels):
         from nemar_tpu_torch.parallel import spatial
 
-        x, stats = ctx.saved_tensors
         g = g.contiguous()
-        if ctx.cuda:
-            part = norm_cuda.in_band_bwd_part_cuda(x, g, stats, ctx.chunks, ctx.act, ctx.slope)
+        if cuda:
+            part = norm_cuda.in_band_bwd_part_cuda(x, g, stats, chunks, act, slope)
             parts = spatial.gather_parts(part)
-            dx = norm_cuda.in_band_bwd_apply_cuda(x, g, stats, parts, ctx.frame_pixels, ctx.act,
-                                                  ctx.slope)
+            dx = norm_cuda.in_band_bwd_apply_cuda(x, g, stats, parts, frame_pixels, act, slope)
         else:
-            parts = spatial.gather_parts(in_band_bwd_part_plain(x, g, stats, ctx.act, ctx.slope))
-            dx = in_band_bwd_apply_plain(x, g, stats, parts, ctx.frame_pixels, ctx.act,
-                                         ctx.slope)
-        return dx, None, None, None, None, None
+            parts = spatial.gather_parts(in_band_bwd_part_plain(x, g, stats, act, slope))
+            dx = in_band_bwd_apply_plain(x, g, stats, parts, frame_pixels, act, slope)
+        ctx.band, ctx.act, ctx.eps, ctx.slope = band, act, eps, slope
+        ctx.save_for_backward(x, g)
+        return dx
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gg):
+        x, g = ctx.saved_tensors
+        with torch.enable_grad():
+            x, g = x.detach().requires_grad_(), g.detach().requires_grad_()
+            dx = instance_norm_act_bwd_recompute(x, g, ctx.act, ctx.eps, ctx.slope, ctx.band)
+            ddx, dg = torch.autograd.grad(dx, (x, g), gg)
+        return ddx, None, dg, None, None, None, None, None, None, None
 
 
 def instance_norm_act_band(x: torch.Tensor, band, act: str = "relu", eps: float = 1e-5,
                            negative_slope: float = 0.2, plain: bool = False) -> torch.Tensor:
     """``instance_norm_act`` of the frame of which the NHWC x is this rank's
-    band (``parallel.spatial.Band``): the frame's statistics, differentiable
-    once (the WGAN-GP penalty's double backward is refused under
-    --mesh_spatial). A bf16 x gives a bf16 y (and d x), the statistics and
+    band (``parallel.spatial.Band``): the frame's statistics. Differentiable
+    twice: the backward (K-in-bwd's band stages) is a Function whose own
+    backward recomputes it in stock ops (the WGAN-GP penalty's double
+    backward). A bf16 x gives a bf16 y (and d x), the statistics and
     the arithmetic fp32, as ``instance_norm_act``'s bf16 variant. ``plain``
     takes the plain versions on the card too (the kernels' comparison)."""
     if act not in ("none", "relu", "leaky_relu"):

@@ -18,7 +18,9 @@ below (negative: rows of the band it does not read).
 
 Primitives, each a ``torch.autograd.Function`` whose backward is the
 adjoint, every sum in a fixed order, so every rank of a spatial group
-computes the same bits:
+computes the same bits. Each adjoint is a Function too, whose backward is
+the primitive again (both maps are linear), so a band function can be
+differentiated twice, as the WGAN-GP penalty differentiates D:
 
   * ``exchange_rows``: the band with ``top`` rows above it and ``bottom``
     below, from the neighbours (one ``all_gather`` over the spatial group
@@ -30,6 +32,9 @@ computes the same bits:
   * ``gather_frame``: all_gather of the bands into the frame. Its adjoint
     sums every rank's gradient of the frame in rank order, then keeps the
     band.
+  * ``gather_parts`` (with ``differentiable``) and ``group_sum``: every
+    rank's partial sums stacked, and their sum over the group; the
+    adjoint hands each rank the gradient of its own part.
   * ``frame_mean``: a band's share of a mean over the frame, its sum over
     the frame's count: summed over the group, the mean. The step's losses
     are such shares, and ``parallel.all_reduce_grads`` sums the gradients
@@ -217,10 +222,24 @@ class _Exchange(torch.autograd.Function):
         return torch.cat(pieces, dim=dim) if len(pieces) > 1 else pieces[0].clone()
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        band, tops, bottoms, dim, mode = ctx.band, ctx.tops, ctx.bottoms, ctx.dim, ctx.mode
-        return _exchange_adjoint(g, band, tops, bottoms, dim, mode), None, None, None, None, None
+        return (_ExchangeAdjoint.apply(g, ctx.band, ctx.tops, ctx.bottoms, ctx.dim, ctx.mode),
+                None, None, None, None, None)
+
+
+class _ExchangeAdjoint(torch.autograd.Function):
+    """The adjoint exchange as a Function: both maps are linear, so its
+    backward is the exchange again (WGAN-GP's double backward)."""
+
+    @staticmethod
+    def forward(ctx, g, band, tops, bottoms, dim, mode):
+        ctx.band, ctx.tops, ctx.bottoms, ctx.dim, ctx.mode = band, tops, bottoms, dim, mode
+        return _exchange_adjoint(g, band, tops, bottoms, dim, mode)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return (_Exchange.apply(gg, ctx.band, ctx.tops, ctx.bottoms, ctx.dim, ctx.mode),
+                None, None, None, None, None)
 
 
 def _exchange_adjoint(g: torch.Tensor, band: Band, tops: tuple, bottoms: tuple, dim: int,
@@ -291,27 +310,83 @@ class _GatherFrame(torch.autograd.Function):
                          dim=dim)
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
+        return _GatherFrameAdjoint.apply(g, ctx.band, ctx.dim), None, None
+
+
+class _GatherFrameAdjoint(torch.autograd.Function):
+    """The adjoint of ``gather_frame``: every rank's gradient of the frame
+    summed in rank order, this rank's band kept. Its backward is
+    ``gather_frame`` again."""
+
+    @staticmethod
+    def forward(ctx, g, band, dim):
+        ctx.band, ctx.dim = band, dim
         parts = _gather(g)
         total = parts[0]
         for p in parts[1:]:
             total = total + p
-        return total.narrow(ctx.dim, ctx.band.r0, ctx.band.rows).contiguous(), None, None
+        return total.narrow(dim, band.r0, band.rows).contiguous()
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _GatherFrame.apply(gg, ctx.band, ctx.dim), None, None
 
 
 def gather_frame(x: torch.Tensor, band: Band, dim: int = 2) -> torch.Tensor:
     """The whole frame of which x is this rank's band along ``dim`` (every
-    rank gets it). Differentiable: the adjoint sums the ranks' gradients of
-    the frame in rank order and keeps the band."""
+    rank gets it). Differentiable, twice and more: the adjoint sums the
+    ranks' gradients of the frame in rank order and keeps the band."""
     return _GatherFrame.apply(x, band, dim)
 
 
-def gather_parts(t: torch.Tensor) -> torch.Tensor:
-    """(size, *t.shape): every spatial rank's t stacked in rank order, no
-    gradient: the band forms' partial statistics, which a merge launch
-    then takes in one fixed global order."""
+class _GatherParts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        return torch.stack(_gather(t))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherPartsAdjoint.apply(g)
+
+
+class _GatherPartsAdjoint(torch.autograd.Function):
+    """The adjoint of the differentiable ``gather_parts``: (size, *shape)
+    on every rank -> this rank's part's gradient, the ranks' rows of its
+    index summed in rank order. Its backward is ``gather_parts`` again."""
+
+    @staticmethod
+    def forward(ctx, g):
+        parts = _gather(g)
+        j = parallel.spatial_rank()
+        total = parts[0][j]
+        for p in parts[1:]:
+            total = total + p[j]
+        return total
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _GatherParts.apply(gg)
+
+
+def gather_parts(t: torch.Tensor, differentiable: bool = False) -> torch.Tensor:
+    """(size, *t.shape): every spatial rank's t stacked in rank order: the
+    band forms' partial statistics, which a merge then takes in one fixed
+    global order. No gradient, or with ``differentiable`` the adjoint (each
+    rank gets the gradient of its own part, summed over the ranks in rank
+    order), itself differentiable: the band's partial sums of a function
+    that is differentiated twice (K-in's band backward, the WGAN-GP
+    penalty's norm)."""
+    if differentiable:
+        return _GatherParts.apply(t.contiguous())
     return torch.stack(_gather(t.detach()))
+
+
+def group_sum(t: torch.Tensor) -> torch.Tensor:
+    """t summed over the spatial group in rank order, the same on every
+    rank; differentiable any number of times (its adjoint is the same sum
+    of the incoming gradients)."""
+    return gather_parts(t, differentiable=True).sum(dim=0)
 
 
 def frame_mean(x: torch.Tensor, band: Band, dim: int = 2) -> torch.Tensor:

@@ -29,6 +29,12 @@ parameter trees of G and R: ``flax_to_torch(state.ema["G"], netG)`` is the
 state_dict of the pseudo-net ``{suffix}_net_G_ema.pth`` (``--ema_decay``,
 ``models/nemar_model.py``), with netG's keys.
 
+A module that flax's ``nn.remat`` wrapped is named after the wrapped class
+with ``Checkpoint`` in front (``--remat``'s ResNet trunk blocks:
+``CheckpointResnetBlock_3``): it is read as the module it wraps
+(``ResnetBlock_3``), so a tree from a run with or without --remat converts
+alike.
+
 A flax leaf without a counterpart, a parameter the tree does not give, or a
 shape that differs raises.
 """
@@ -61,6 +67,11 @@ def kernel_to_torch(mod: nn.Module, kernel: np.ndarray) -> np.ndarray:
     return kernel.transpose(3, 2, 0, 1)
 
 
+def _unwrap_remat(name: str) -> str:
+    """A flax module name with ``nn.remat``'s ``Checkpoint`` prefix removed."""
+    return name.removeprefix("Checkpoint")
+
+
 def flax_to_torch(params: Mapping, module: nn.Module, dtype: torch.dtype = torch.float32) -> dict:
     tree = params["params"] if "params" in params else params
     mods = dict(module.named_modules())
@@ -68,7 +79,7 @@ def flax_to_torch(params: Mapping, module: nn.Module, dtype: torch.dtype = torch
     out = {}
     for path, arr in _flatten(tree).items():
         *mod_path, leaf = path
-        name = ".".join(mod_path)
+        name = ".".join(_unwrap_remat(m) for m in mod_path)
         mod = mods.get(name)
         if not isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) \
                 or leaf not in ("kernel", "bias"):

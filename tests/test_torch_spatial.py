@@ -30,8 +30,10 @@ forms on small frames. Held:
     spatial 2) mesh of its virtual CPU devices;
   * a checkpoint written at (2, 2) resumed in one process, and ``test
     --eval_registration`` at spatial 2 against one process;
-  * the refusals (ROADMAP.md A10c), an undivided height, a band thinner
-    than a halo it must send.
+  * the refusals (ROADMAP.md A10c: --steps_per_execution > 1, --norm
+    other than instance, the UNet G and the pixel D), the flags held in
+    bands accepted, an undivided height, a band thinner than a halo it
+    must send.
 """
 
 import os
@@ -217,9 +219,10 @@ def test_band_forms_against_the_frame(s):
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
-def _step_rank(argv, states, batch, spatial_size):
+def _step_rank(argv, states, batch, spatial_size, alphas=None):
     """One float64 NeMAR step from ``states`` on the global ``batch`` at
-    this rank: -> ({net: {key: (param, grad)}}, losses)."""
+    this rank (the penalty's alpha, per microbatch, from ``alphas`` when
+    given): -> ({net: {key: (param, grad)}}, losses)."""
     parallel.set_mesh(spatial_size)
     opt = TrainOptions().parse(argv)
     model = create_model(opt)
@@ -228,6 +231,8 @@ def _step_rank(argv, states, batch, spatial_size):
         model.nets()[n].load_state_dict(sd)
     model.setup(opt)
     model.set_epoch(1)
+    if alphas is not None:
+        model._gp_alpha = lambda n, it=iter(alphas): next(it)
     model.set_input(batch)
     model.optimize_parameters()
     nets = {n: {k: (p.detach().clone(), None if p.grad is None else p.grad.clone())
@@ -256,21 +261,23 @@ def _batch(n, size=64, seed=12):
             for k, c in (("A", 1), ("B", 3))}
 
 
-def _hold_ranks(ranks, want_nets, want, host):
+def _hold_ranks(ranks, want_nets, want, host, roundoff=None):
     """Every rank's losses, gradients and parameters after one step against
     the one-process step's; the ranks' parameters bit-identical. A bias a
     norm follows has a gradient of roundoff, which Adam turns into a move
     of up to lr: its gradient is held to 1e-9 of its weight's and its move
     to 1.1 lr; so are the few elements of a weight whose gradient is within
     roundoff of zero (at most 2 + 1e-4 of them, ``test_torch_parallel``'s
-    rule)."""
+    rule), and ``roundoff``'s parameters ({net: keys}: a gradient that is 0
+    but for roundoff, such as D's last bias under wgangp, where the real
+    and the fake terms cancel)."""
     first = ranks[0][0]
     bound = 1.1 * tp.LR
     for nets, losses in ranks:
         for k, v in want.items():
             assert abs(losses[k] - v) <= 1e-9 * abs(v) + 1e-15, (k, losses[k], v)
         for n, params in want_nets.items():
-            skip = tp._norm_biases(host.nets()[n])
+            skip = tp._norm_biases(host.nets()[n]) | set((roundoff or {}).get(n, ()))
             for k, (p, g) in params.items():
                 assert torch.equal(nets[n][k][0], first[n][k][0]), (n, k)  # across the ranks
                 diff = (nets[n][k][0] - p).abs()
@@ -302,19 +309,28 @@ def test_spatial_step_equals_one_process(tmp_path, devices, batch):
 # the registration recipe's UNet arm (science.recipe_flags) at this size
 RECIPE_UNET = ["--stn_multiscale", "--stn_level_scale", "0.25", "--stn_bounded_flow", "0.15",
                "--stn_smooth_order", "2", "--recon_pyramid", "3", "--border_mask"]
+# NeMAR's step flags in bands: the penalty's double backward, --remat, the
+# warp's options
+STEP_FLAGS = ["--gan_mode", "wgangp", "--remat", "--stn_padding_mode", "border",
+              "--stn_align_corners"]
 
 
-@pytest.mark.parametrize("recipe", [[], RECIPE_UNET], ids=["default", "recipe_unet"])
+@pytest.mark.parametrize("recipe", [[], RECIPE_UNET, STEP_FLAGS],
+                         ids=["default", "recipe_unet", "wgangp_remat_border_align"])
 def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
     """The port's (data 1, spatial 2) step against the JAX package's on a
     (data 1, spatial 2) mesh (``shard_batch(..., shard_spatial=True)``),
     both in float64 from the same parameters and numpy batch; losses and
     gradients within 1e-9, parameters within 1e-10 (``_hold_step``), with
-    the default flags and with the recipe's UNet arm. The JAX package
+    the default flags, with the recipe's UNet arm and with wgangp, --remat
+    and the warp's border padding and align_corners (the penalty's alpha
+    JAX's draw, fed to the port; its D_gp JAX's D - (D_real + D_fake) / 2;
+    D's last bias, whose gradient is 0 there, 0 here too). The JAX package
     routes its warp to the one-hot matmul path that GSPMD shards; the
     function is the same."""
     import jax
     import jax.numpy as jnp
+    import test_torch_a5_step as a5
     import test_torch_model_families as fam
     import test_torch_nemar_pallas_all as pa
     import test_torch_nemar_train as tt
@@ -339,22 +355,34 @@ def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
         sharded = shard_batch(jm.mesh, {k: np.asarray(v, np.float64) for k, v in batch.items()},
                               shard_spatial=True)
         assert len(sharded["A"].sharding.device_set) == 2
+        _, _, alphas = a5._jax_draws(state.rng, 2, 1, False, jnp.float64)
         state, metrics = jax.jit(lambda *a: jm._train_step_impl(*a))(
             state, sharded["A"], sharded["B"], jnp.float64(tp.LR), jm._gan_w_scalar(),
             jm._r_gate_scalar())
         jax.block_until_ready(state)
     grads = {}
     for tag, t in rec:
-        grads["R" if tag == "R" else ("G" if "ResnetBlock_0" in t["params"] else "D")] = t
+        # G's trunk block: ResnetBlock_0, or CheckpointResnetBlock_0 under --remat
+        g = any(k.endswith("ResnetBlock_0") for k in t["params"])
+        grads["R" if tag == "R" else ("G" if g else "D")] = t
     argv = [*RUN, *flags, "--checkpoints_dir", str(tmp_path / "port"), "--name", "port"]
     host = create_model(TrainOptions().parse(argv))
     host.to_dtype(F64)
     states = {n: flax_to_torch(params[n], host.nets()[n], F64) for n in "GDR"}
+    wgangp = "wgangp" in recipe
     ranks = _launch(_step_rank, 2, [*argv, "--num_devices", "2", "--mesh_spatial", "2"], states,
-                    batch, 2)
+                    batch, 2, alphas if wgangp else None)
     (nets, losses), (nets1, losses1) = ranks
     assert losses == losses1
-    fam._hold_losses(losses, {k: float(metrics[k]) for k in host.loss_names})
+    want = {k: float(metrics[k]) for k in host.loss_names if k != "D_gp"}
+    if wgangp:
+        want["D_gp"] = want["D"] - 0.5 * (want["D_real"] + want["D_fake"])
+        assert want["D_gp"] > 0
+        losses = {k: losses[k] for k in want}
+    fam._hold_losses(losses, want)
+    # under wgangp D's last bias has a gradient of 0 in JAX (-mean real +
+    # mean fake) and of roundoff here: held as the norms' biases are
+    zero = {f"Conv_{host.netD.n_layers + 1}.bias"} if wgangp else set()
     for n in "GDR":
         net = host.nets()[n]
         for k, prm in net.named_parameters():
@@ -362,8 +390,23 @@ def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
             assert torch.equal(value, nets1[n][k][0])
             prm.data.copy_(value)
             prm.grad = grad
-        fam._hold_step(n, net, grads[n], jax.device_get(getattr(state, f"params_{n}")),
-                       states[n], 1)
+        if n != "D" or not zero:
+            fam._hold_step(n, net, grads[n], jax.device_get(getattr(state, f"params_{n}")),
+                           states[n], 1)
+            continue
+        ref_g = flax_to_torch(grads[n], net, F64)
+        ref_p = flax_to_torch(jax.device_get(state.params_D), net, F64)
+        skip = tp._norm_biases(net) | zero
+        for k, prm in net.named_parameters():
+            if k in skip:
+                scale = float(torch.linalg.vector_norm(ref_g[k.replace(".bias", ".weight")]))
+                assert max(float(ref_g[k].abs().max()), float(prm.grad.abs().max())) \
+                    <= pa.TOL64 * scale, (n, k)
+                for p in (prm.detach(), ref_p[k]):
+                    assert float((p - states[n][k]).abs().max()) <= 1.1 * tp.LR, (n, k)
+                continue
+            assert pa._rel(prm.grad, ref_g[k]) <= pa.TOL64, (n, k, pa._rel(prm.grad, ref_g[k]))
+            assert float((prm.detach() - ref_p[k]).abs().max()) <= 1e-10, (n, k)
 
 
 # ---------------------------------------------------------------------------
@@ -415,10 +458,13 @@ def test_eval_registration_at_spatial_two(tmp_path):
 # ---------------------------------------------------------------------------
 # the refusals
 # ---------------------------------------------------------------------------
-A10C = [["--gan_mode", "wgangp"], ["--steps_per_execution", "2"], ["--norm", "batch"],
-        ["--remat"], ["--g_batch"], ["--freeze_g"], ["--stn_field_source", "fake"],
-        ["--stn_padding_mode", "border"], ["--stn_align_corners"],
-        ["--netG", "resnet_9blocks"], ["--netD", "pixel"]]
+A10C = [["--steps_per_execution", "2"], ["--norm", "batch"], ["--netD", "pixel"],
+        ["--netG", "unet_256"]]
+# held in bands since the step flags' slice (tests/test_torch_spatial_flags.py)
+HELD = [["--gan_mode", "wgangp"], ["--gan_mode", "vanilla"], ["--remat"], ["--g_batch"],
+        ["--freeze_g"], ["--stn_field_source", "fake"], ["--stn_padding_mode", "border"],
+        ["--stn_padding_mode", "reflection"], ["--stn_align_corners"],
+        ["--netG", "resnet_9blocks"], ["--netD", "n_layers"]]
 
 
 @pytest.mark.parametrize("flag", A10C, ids=lambda f: " ".join(f))
@@ -427,6 +473,13 @@ def test_unheld_flags_refused_under_spatial(tmp_path, flag):
                                 "--mesh_spatial", "2", *flag])
     with pytest.raises(NotImplementedError, match=f"{flag[0]}.*A10c"):
         create_model(opt)
+
+
+@pytest.mark.parametrize("flag", HELD, ids=lambda f: " ".join(f))
+def test_held_flags_accepted_under_spatial(tmp_path, flag):
+    opt = TrainOptions().parse([*RUN, *SPATIAL, "--checkpoints_dir", str(tmp_path),
+                                "--mesh_spatial", "2", *flag])
+    create_model(opt)
 
 
 @pytest.mark.parametrize("model", ["pix2pix", "cycle_gan"])
