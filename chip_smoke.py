@@ -312,6 +312,25 @@ is not 0.
      shapes of the penalty's pass (``check_band_double_bwd``) against its
      plain band form and the whole-frame plain function, within 1e-4 of
      the largest value, bit for bit twice, its launches asserted.
+  19d. the band geometry of the JAX package's spatial mesh
+     (``run_spatial_geometry``; two ranks on cuda:0 over gloo,
+     SPATIAL_GEOMETRY): (a) NeMAR's default network at 224^2 b8 with
+     --recon_pyramid 5, fp32 (the STN's 14- and 7-row levels in bands of 7
+     | 7 and 4 | 3, its skips re-cut, G's output re-cut, the pyramid's
+     bands re-cut to even bounds before each pool), then one b1 request;
+     (b) __graft_entry__.py's network flags (32^2, ngf, ndf and stn_ngf 8)
+     at --stn_depth 3 and 5 (D's bands of 2 and 1 rows, then 2 and none;
+     at depth 5 the STN's bottom level of one row, rank 1's band empty);
+     SPATIAL_GEOMETRY_STEPS b8 steps each from a state saved from the seed
+     with R's head drawn. The ranks bit-identical after every step, the
+     launches per step and rank asserted (``geometry_launches``), each
+     cell's first step within phase 6's limits of the one-process step,
+     the request, from the ranks' state after the steps, within 1e-3 of
+     the one-process request at that state, ms a step and rank and each
+     rank's peak memory beside one process's. Its ``[spatial_kernels]``:
+     the band forms of K-in, K-block, K-convt and K-head, forward and
+     backward, fp32 and bf16, on bands of 33 | 32, 1 | 64 and (K-in) 0 |
+     65 rows (GEOMETRY_BANDS), as phase 19's (``check_band_kernels``).
 
 The smoke's total time is printed (``[total]``) before the device lines.
 The line before the last is a JSON object with one entry per kernel. For a
@@ -4576,6 +4595,36 @@ SPATIAL_FLAG_LAUNCHES = {
 # K-in-bwd's band stages inside the penalty a step (its first-order
 # gradient, through D's three norms): (calls, stages)
 SPATIAL_PENALTY_IN_BWD = (3, 6)
+# phase 19d: the band geometry of the JAX package's spatial mesh, two ranks
+# of one spatial group on cuda:0 over gloo, each cell from a state saved
+# from the seed with R's head drawn (R_HEAD_DRAW's multiscale std): (a)
+# NeMAR's default network (TRAIN_ARGS) at 224^2 with --recon_pyramid 5; (b)
+# __graft_entry__.py's network flags (32^2, ngf, ndf and stn_ngf 8, no
+# pool) at --stn_depth 3 and 5; b8, SPATIAL_GEOMETRY_STEPS steps each
+SPATIAL_GEOMETRY_STEPS = 2
+_GRAFT_NET = ["--ngf", "8", "--ndf", "8", "--stn_ngf", "8", "--crop_size", "32",
+              "--load_size", "32", "--pool_size", "0"]
+SPATIAL_GEOMETRY = {
+    "224_pyramid_5": (["--crop_size", "224", "--load_size", "224", "--recon_pyramid", "5"],
+                      224, 5),
+    "graft_depth_3": ([*_GRAFT_NET, "--stn_depth", "3"], 32, 3),
+    "graft_depth_5": ([*_GRAFT_NET, "--stn_depth", "5"], 32, 5),
+}
+# its [spatial_kernels]: the bounds of a 65-row frame over the two ranks
+GEOMETRY_BANDS = {"uneven": ((0, 33), (33, 65)), "thin": ((0, 1), (1, 65)),
+                  "empty": ((0, 0), (0, 65))}
+
+
+def geometry_launches(depth: int) -> tuple:
+    """Launches per step and rank of a 19d cell: phase 19's
+    (SPATIAL_STEP_LAUNCHES, SPATIAL_BAND_STEP), K-in's calls G's 6, D's 6
+    and the STN's 2 a level (depth 5: phase 19's 22), its backward's alike;
+    an empty band's K-in launches its stages as any other (no empty grid)."""
+    k_in = 12 + 2 * depth
+    return (dict(SPATIAL_STEP_LAUNCHES),
+            {**SPATIAL_BAND_STEP, "K-in": (k_in, 2 * k_in), "K-in-bwd": (k_in, 2 * k_in)})
+
+
 # test_torch_bf16.py's rule (a): a tensor of at most BF16_FEW elements is
 # held as a scalar, its e floored at BF16_Q, bf16's relative spacing
 BF16_Q = 2.0**-8
@@ -4948,7 +4997,7 @@ def read_band_counters() -> dict:
     return out
 
 
-def check_band_kernels() -> dict:
+def check_band_kernels(geometry: bool = False) -> dict:
     """Phase 19's ``[spatial_kernels]``, in a rank of the spatial group:
     each kernel's band form on the card against its plain band form on
     the card (the plain ops with the same exchanges), at the band shapes of
@@ -4971,7 +5020,15 @@ def check_band_kernels() -> dict:
     take the plain forward's saved values, as phase 2b's checks do: through
     autograd, the relu masks of two fp32 forwards differ where a normalised
     value is within roundoff of 0, which moves K-block's dx by up to 1.3e-2
-    of its largest value at these shapes (measured on the card)."""
+    of its largest value at these shapes (measured on the card).
+
+    With ``geometry`` (phase 19d) the cases of GEOMETRY_BANDS instead: each
+    band form at phase 19's widths on a 65-row frame in bands of 33 and 32
+    rows (``(uneven)``), of 1 and 64 (``(thin)``: K-head's 3-row halo
+    reflected across the band of one) and, for K-in, of 0 and 65
+    (``(empty)``), fp32 and bf16 (K-head fp32: its bf16 runs the fp32 kernel
+    behind casts); each case's band-form calls and stage launches counted
+    (``launches``). An empty band's errors are its partner's (0 here)."""
     from nemar_tpu_torch import parallel
     from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_cuda
     from nemar_tpu_torch.ops.warp import grid_sample, grid_sample_plain, identity_grid
@@ -4981,7 +5038,11 @@ def check_band_kernels() -> dict:
     out = {}
 
     def case(name, tol, tol_bwd, frames, weights, band, kern, plain, saved=None,
-             kern_bwd=None, bf16=False, flops=(0.0, 0.0), stages=None, fwd_parts=None):
+             kern_bwd=None, bf16=False, flops=(0.0, 0.0), stages=None, fwd_parts=None,
+             plain_from_saved=None):
+        # plain_from_saved: the plain band backward fed the same saved values
+        # as the kernel's (the geometry cases' bf16 comparisons), not
+        # autograd through a plain forward of its own
         xs = [f.narrow(1, band.r0, band.rows).contiguous() for f in frames]
         # the plain forward's saved values, once (cuDNN's transposed
         # convolution is not deterministic outside the step's setting)
@@ -4992,33 +5053,42 @@ def check_band_kernels() -> dict:
             b = [w.clone().requires_grad_() for w in weights]
             y = fn(*a, *b)
             g = randn(card_rng(77), tuple(y.shape)).to(y.dtype)
-            if kern_bwd is not None and fn is kern:
+            from_saved = kern_bwd if fn is kern else plain_from_saved
+            if from_saved is not None:
                 # the backward fed the plain forward's saved values, so both
                 # take the same relu masks (as phase 2b's checks)
-                grads = kern_bwd(*sv, g)
-                bwd = lambda: kern_bwd(*sv, g)  # noqa: E731
+                grads = from_saved(*sv, g)
+                bwd = lambda: from_saved(*sv, g)  # noqa: E731
             else:
                 grads = torch.autograd.grad(y, a + b, g, retain_graph=True)
                 bwd = lambda: torch.autograd.grad(y, a + b, g, retain_graph=True)  # noqa: E731
             torch.cuda.synchronize()
             return [y.detach(), *grads], bwd, (y, g)
 
-        (got, bwd, yg), (again, _, _), (ref, plain_bwd, _) = run(kern), run(kern), run(plain)
+        zero_band_counters()
+        counters = zero_counters()
+        got, bwd, yg = run(kern)
+        launches = {**{k: v for k, v in read_band_counters().items() if v[0]},
+                    **{k: fn.launches for k, fn in counters.items() if fn.launches}}
+        (again, _, _), (ref, plain_bwd, _) = run(kern), run(plain)
+        if not yg[0].numel():  # an empty band: nothing of its own to hold
+            got, ref = [t for t in got if t.numel()], [t for t in ref if t.numel()]
         fp32_err = 0.0
         if bf16:
             if stages is not None:
                 fwd_err = max(stages(*xs, *weights))
             else:
                 kp, pp = fwd_parts(*xs, *weights)
-                fwd_err = max(bf16_ulps(a, b) for a, b in zip(kp, pp) if b.dtype == bf)
+                fwd_err = max([bf16_ulps(a, b) for a, b in zip(kp, pp)
+                               if b.dtype == bf and b.numel()] + [0.0])
                 fp32_err = max(max_rel_err([a], [b]) for a, b in zip(kp, pp) if b.dtype != bf)
             errs = [bf16_ulps(a, b, at_scale=True) for a, b in zip(got[1:], ref[1:])]
         else:
-            fwd_err = max_abs_err(got[:1], ref[:1])
+            fwd_err = max_abs_err(got[:1], ref[:1]) if yg[0].numel() else 0.0
             errs = [max_rel_err([a], [b]) for a, b in zip(got[1:], ref[1:])]
         # the band's row of an input gradient's largest error
         rows = [int(((a.float() - b.float()).abs().amax(dim=(0, 2, 3))).argmax())
-                for a, b in zip(got[1:1 + len(xs)], ref[1:1 + len(xs)])]
+                for a, b in zip(got[1:1 + len(xs)], ref[1:1 + len(xs)]) if a.numel()]
         with torch.no_grad():
             ms = median_ms(lambda: kern(*xs, *weights), iters=5, warmup=1)
             pms = median_ms(lambda: plain(*xs, *weights), iters=3, warmup=1)
@@ -5026,15 +5096,16 @@ def check_band_kernels() -> dict:
         peak = bound_bf16 if bf16 else bound
         bnd = peak(flops[0], *xs, *weights, yg[0])
         bnd_bwd = peak(flops[1], *xs, *weights, yg[1], *got[1:])
-        out[name] = {"fwd_err": fwd_err, "bwd_err": max(errs), "bwd_errs": errs,
+        out[name] = {"fwd_err": fwd_err, "bwd_err": max(errs, default=0.0), "bwd_errs": errs,
                      "worst_rows": rows, "tol": tol, "tol_bwd": tol_bwd,
                      "fp32_err": fp32_err, "tol_fp32": BF16_FP32_TOL,
                      "unit": ("bf16 ulps (forward: " + ("of each value" if fwd_parts else
                                                         "of the largest value, by stage")
                               + "; backward: of the largest value)") if bf16 else "abs; rel",
-                     "fwd_abs_err": max_abs_err(got[:1], ref[:1]),
-                     "bwd_abs_err": max(float((a.double() - b.double()).abs().max())
-                                        for a, b in zip(got[1:], ref[1:])),
+                     "fwd_abs_err": max_abs_err(got[:1], ref[:1]) if yg[0].numel() else 0.0,
+                     "bwd_abs_err": max((float((a.double() - b.double()).abs().max())
+                                         for a, b in zip(got[1:], ref[1:])), default=0.0),
+                     "launches": launches,
                      "bits": all(torch.equal(p, q) for p, q in zip(got, again)),
                      "band": list(xs[0].shape), "ms": round(ms, 4), "plain_ms": round(pms, 4),
                      "bwd_ms": round(bms, 4), "plain_bwd_ms": round(pbms, 4),
@@ -5058,21 +5129,24 @@ def check_band_kernels() -> dict:
                  x, spatial.gather_parts(norm_cuda.in_band_part_cuda(x, chunks)), act, 1e-5, 0.2),
                  (norm.instance_norm_act_band(x, band, act, plain=True), norm.in_band_stats(x))))
 
-    def block_case(name, tag, dt, side, c):
-        band = spatial.Band.split(side, SPATIAL, j)
+    def block_case(name, tag, dt, side, c, band=None):
+        # a side x side frame (of band's height, given a band)
+        band = band or spatial.Band.split(side, SPATIAL, j)
         gemm = 2 * 2 * TRAIN_BATCH * band.rows * side * 9 * c * c  # two 3x3 convs of the band
         case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-block"], TOL["K-block-bwd"])),
-             [frame(TRAIN_BATCH, side, side, c).to(dt)],
+             [frame(TRAIN_BATCH, band.height, side, c).to(dt)],
              [(frame(3, 3, c, c) * 0.02).to(dt), (frame(3, 3, c, c) * 0.02).to(dt)],
              band, lambda x, w1, w2: conv_fused.fused_resblock_band(x, w1, w2, band),
              lambda x, w1, w2: conv_fused.resblock_band_plain(x, w1, w2, band),
              saved=lambda x, w1, w2: (w1, w2,
                                       *conv_fused.resblock_band_saved_plain(x, w1, w2, band)),
              kern_bwd=lambda *a: conv_fused.block_band_bwd_cuda(*a, band), bf16=bool(tag),
-             flops=(gemm, 2 * gemm), stages=block_band_stages_bf16(band) if tag else None)
+             flops=(gemm, 2 * gemm), stages=block_band_stages_bf16(band) if tag else None,
+             plain_from_saved=(lambda *a: conv_fused.resblock_band_bwd_plain_bf16(*a, band))
+             if tag and geometry else None)
 
-    def convt_case(name, tag, dt, hh, ci, co):
-        band = spatial.Band.split(hh, SPATIAL, j)
+    def convt_case(name, tag, dt, hh, ci, co, band=None):
+        band = band or spatial.Band.split(hh, SPATIAL, j)
         gemm = 2 * TRAIN_BATCH * band.rows * hh * 9 * ci * co
 
         def xp(x):
@@ -5080,17 +5154,41 @@ def check_band_kernels() -> dict:
                                          mode="zeros").contiguous()
 
         case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-convt"], TOL["K-convt-bwd"])),
-             [frame(TRAIN_BATCH, hh, hh, ci).to(dt)], [(frame(3, 3, ci, co) * 0.02).to(dt)], band,
+             [frame(TRAIN_BATCH, band.height, hh, ci).to(dt)],
+             [(frame(3, 3, ci, co) * 0.02).to(dt)], band,
              lambda x, w: convt_fused.fused_convt_in_band(x, w, band),
              lambda x, w: convt_fused.convt_band_plain(x, w, band),
              saved=lambda x, w: (lambda xp, yhat, st: (xp, w, yhat, st))(
                  *convt_fused.convt_band_saved_plain(x, w, band)),
              kern_bwd=lambda *a: convt_fused.convt_band_bwd_cuda(*a, band),
              bf16=bool(tag), flops=(gemm, 2 * gemm),
+             plain_from_saved=(lambda *a: convt_fused.convt_band_bwd_plain_bf16(*a, band))
+             if tag and geometry else None,
              fwd_parts=lambda x, w: (convt_fused.convt_band_fwd_cuda(xp(x), w, band), (
                  lambda out, saved: (out, *saved[1:]))(
                      *convt_fused.convt_band_fwd_plain_bf16(x, w, band))))
 
+    def head_case(name, band, width):
+        three = (3,) * band.size
+        case(name, TOL["K-head"], TOL["K-head-bwd"], [frame(TRAIN_BATCH, band.height, width, 64)],
+             [frame(7, 7, 64, 3) * 0.02], band,
+             lambda x, w: conv_head.conv_head_band(x, w, band),
+             lambda x, w: conv_head.conv_head_plain(spatial.exchange_rows(
+                 x, band, three, three, dim=1, mode="reflect"), w)[:, 3:3 + band.rows])
+
+    if geometry:
+        for geo, bounds in GEOMETRY_BANDS.items():
+            band = spatial.Band(bounds, j, bounds[-1][1])
+            for tag, dt in dts:
+                in_case(f"K-in{tag} ({geo})", tag, dt, (TRAIN_BATCH, band.height, 256, 64), band,
+                        "relu")
+                if geo == "empty":
+                    continue
+                block_case(f"K-block{tag} ({geo})", tag, dt, 64, 256, band)
+                convt_case(f"K-convt{tag} 256->128 ({geo})", tag, dt, 64, 256, 128, band)
+            if geo != "empty":
+                head_case(f"K-head ({geo})", band, 256)
+        return out
     # phase 19's step (ngf 64): G's first K-in, its trunk and its decoder;
     # D's third normed conv, 31 rows in bands of 16 and 15
     b256 = spatial.Band.split(256, SPATIAL, j)
@@ -5112,12 +5210,7 @@ def check_band_kernels() -> dict:
         block_case(f"K-block{tag} (recipe)", tag, dt, 64, 128)
         for hh, ci, co in ((64, 128, 64), (128, 64, 32)):
             convt_case(f"K-convt{tag} {ci}->{co} (recipe)", tag, dt, hh, ci, co)
-    three = (3,) * SPATIAL
-    case("K-head", TOL["K-head"], TOL["K-head-bwd"], [frame(TRAIN_BATCH, 256, 256, 64)],
-         [frame(7, 7, 64, 3) * 0.02], b256,
-         lambda x, w: conv_head.conv_head_band(x, w, b256),
-         lambda x, w: conv_head.conv_head_plain(spatial.exchange_rows(
-             x, b256, three, three, dim=1, mode="reflect"), w)[:, 3:3 + b256.rows])
+    head_case("K-head", b256, 256)
     ident = identity_grid(256, 256, False, torch.float32, frame(1).device)[b256.r0:b256.r1][None]
 
     def warp(sample):
@@ -5355,14 +5448,16 @@ def run_spatial(ckpt: str) -> None:
     return ranks[0]["kernels"], {k: v[1] for k, v in ranks[0]["band_launches"][0].items()}
 
 
-def _band_steps_rank(cells: list) -> list:
-    """Phases 19b and 19c inside their rank: for each (args, batches) a
+def _band_steps_rank(cells: list, requests: dict | None = None) -> list:
+    """Phases 19b, 19c and 19d inside their rank: for each (args, batches) a
     model from the args' saved state takes a step on each batch; -> per cell
     the ms of each step, the state's digest, the launches
     (``zero_all_counters``, ``read_band_counters``, zeroed before each step;
     K-in-bwd's band calls and stages inside the WGAN-GP penalty apart), the
     losses after the first, the peak memory over the first and, at rank 0,
-    the parameters and gradients after the first (on the host)."""
+    the parameters and gradients after the first (on the host). A cell
+    with a request in ``requests`` ({cell index: batch}) answers it after
+    its steps; rank 0 returns the gathered visuals and the parameters."""
     from nemar_tpu_torch import parallel
     from nemar_tpu_torch.models import networks
     from nemar_tpu_torch.models.base_model import state_digest, to_host
@@ -5415,6 +5510,14 @@ def _band_steps_rank(cells: list) -> list:
                         out["grads"] = {n: {k: to_host(p.grad) for k, p in
                                             net.named_parameters()}
                                         for n, net in model.nets().items()}
+            if requests and len(outs) in requests:
+                model.set_input(requests[len(outs)])
+                model.test()
+                if parallel.rank() == 0:
+                    out["request"] = dict(model.get_current_visuals())
+                    out["final_params"] = {n: {k: to_host(p) for k, p in
+                                               net.named_parameters()}
+                                           for n, net in model.nets().items()}
             outs.append(out)
             del model
     finally:
@@ -5742,6 +5845,127 @@ def run_spatial_flags(ckpt: str) -> None:
                         g_gan_via_d="wgangp" in name)
 
 
+def _spatial_geometry_rank(cells: list, request: dict) -> dict:
+    """Phase 19d inside its rank: ``check_band_kernels(geometry=True)``, then
+    ``_band_steps_rank`` on the cells, the first answering ``request``."""
+    from nemar_tpu_torch import parallel
+
+    fp32_only()
+    parallel.set_mesh(SPATIAL)
+    kernels = check_band_kernels(geometry=True)
+    return {"kernels": kernels, "rank": parallel.rank(),
+            "cells": _band_steps_rank(cells, {0: request})}
+
+
+def _geometry_case_launches(name: str) -> dict:
+    """The band-form calls and stages (and K-head's launches) of one call,
+    forward and backward, of a 19d ``[spatial_kernels]`` case."""
+    tag = "-bf16" if "-bf16" in name else ""
+    if name.startswith("K-in"):
+        return {"K-in" + tag: (1, 2), "K-in-bwd" + tag: (1, 2)}
+    if name.startswith("K-block"):
+        return {"K-block" + tag: (1, 4), "K-block-bwd" + tag: (1, 5)}
+    if name.startswith("K-convt"):
+        return {"K-convt" + tag: (1, 2), "K-convt-bwd" + tag: (1, 3)}
+    return {"K-head": 1, "K-head-bwd": 1}
+
+
+def run_spatial_geometry(ckpt: str) -> None:
+    """Phase 19d: the band geometry of the JAX package's spatial mesh
+    (SPATIAL_GEOMETRY) over two ranks sharing cuda:0 (gloo): per cell a
+    state saved here from the seed with R's head drawn, then
+    ``_spatial_geometry_rank``; the band forms at uneven, one-row and empty
+    bands held against their plain band forms (``[spatial_kernels]``); the
+    ranks bit-identical after every step; the launches per step and rank
+    (``geometry_launches``); each cell's first step within phase 6's limits
+    of the one-process step (``_hold_two_ranks``); the b1 request of cell
+    (a), answered in bands after its steps, within the inference limit
+    (1e-3) of the one-process request from the same parameters; ms a step
+    and rank, and each rank's peak memory over its first step beside one
+    process's."""
+    from nemar_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    cells = []
+    for name, (flags, size, _) in SPATIAL_GEOMETRY.items():
+        args = [*TRAIN_ARGS, "--checkpoints_dir", ckpt, "--gpu_ids", "0", "--batch_size",
+                str(TRAIN_BATCH), *flags, "--name", f"spatial_geometry_{name}"]
+        m = train_model(args)
+        gen = torch.Generator().manual_seed(8)
+        with torch.no_grad():
+            for h in m.netR.heads():
+                h.weight.add_(R_HEAD_DRAW["multiscale"] * torch.randn(
+                    h.weight.shape, generator=gen).to(h.weight.device))
+        m.save_networks("geometry")
+        del m
+        cells.append(([*args, "--continue_train", "--epoch", "geometry"],
+                      request_batches(SPATIAL_GEOMETRY_STEPS, TRAIN_BATCH, seed=47, size=size)))
+    request = request_batches(1, 1, seed=53, size=SPATIAL_GEOMETRY["224_pyramid_5"][1])[0]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(
+        _spatial_geometry_rank, [dev, dev], backend="gloo",
+        args=([([*a, "--mesh_spatial", str(SPATIAL)], b) for a, b in cells], request),
+        timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
+    phase("spatial_geometry", seconds=round(time.perf_counter() - t0, 2))
+    fails = []
+    for r in ranks:
+        for name, c in r["kernels"].items():
+            phase("spatial_kernels", rank=r["rank"], kernel=repr(name), **c)
+            want = _geometry_case_launches(name)
+            if not (c["fwd_err"] <= c["tol"] and c["bwd_err"] <= c["tol_bwd"]
+                    and c["fp32_err"] <= c["tol_fp32"] and c["bits"] and c["launches"] == want):
+                fails.append(f"rank {r['rank']} {name}: {c} (launches wanted {want})")
+    gib = 2.0**30
+    for c, (name, (_, _, depth)) in enumerate(SPATIAL_GEOMETRY.items()):
+        r0, r1 = ranks[0]["cells"][c], ranks[1]["cells"][c]
+        want, want_band = geometry_launches(depth)
+        for rank, r in enumerate((r0, r1)):
+            for i, (got, band) in enumerate(zip(r["launches"], r["band_launches"])):
+                bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+                bad.update({k: v for k, v in band.items() if tuple(v) != want_band[k]})
+                if bad:
+                    fails.append(f"{name} rank {rank} step {i}: launches {bad}")
+        same = r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
+        one_peak, one_ms = _one_process_peak(cells[c][0], cells[c][1][0])
+        phase("spatial_geometry_" + name, steps=len(r0["ms"]), ranks_bit_identical=same,
+              step_peak_over_before_gib=json.dumps([round(r["peak_over_before"] / gib, 3)
+                                                    for r in (r0, r1)]),
+              one_process_step_peak_over_before_gib=round(one_peak / gib, 3),
+              one_process_first_step_ms=round(one_ms, 3),
+              ms_per_step_rank0=json.dumps([round(t, 3) for t in r0["ms"]]),
+              ms_per_step_rank1=json.dumps([round(t, 3) for t in r1["ms"]]),
+              launches_per_step=json.dumps({k: v for k, v in r0["launches"][0].items() if v}),
+              band_calls_stages_per_step=json.dumps(
+                  {k: v for k, v in r0["band_launches"][0].items() if v[0]}),
+              losses=json.dumps(r0["losses"]))
+        if not same:
+            fails.append(f"{name}: the two ranks' states differ")
+    # the request: the ranks' gathered visuals against one process's from
+    # the parameters the ranks hold after their steps
+    r0 = ranks[0]["cells"][0]
+    m = train_model(cells[0][0])
+    with torch.no_grad():
+        for n, net in m.nets().items():
+            for k, p in net.named_parameters():
+                p.copy_(r0["final_params"][n][k])
+    m.set_input(request)
+    m.test()
+    want = m.get_current_visuals()
+    del m
+    req_err = max(float(np.abs(r0["request"][k] - want[k]).max()) for k in want)
+    phase("spatial_geometry_request", size=SPATIAL_GEOMETRY["224_pyramid_5"][1],
+          max_abs_err=req_err, tol=1e-3)
+    if not req_err <= 1e-3:
+        fails.append(f"the b1 request: {req_err}")
+    if fails:
+        raise AssertionError("phase 19d: " + "; ".join(fails))
+    for c, name in enumerate(SPATIAL_GEOMETRY):
+        args, steps = cells[c]
+        _hold_two_ranks("geometry_" + name, args, steps[0], [r["cells"][c] for r in ranks],
+                        ("A",), adam_t=1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5842,6 +6066,9 @@ def main() -> int:
         t0 = time.perf_counter()
         run_spatial_flags(ckpt)
         phase("spatial_flags_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_spatial_geometry(ckpt)
+        phase("spatial_geometry_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

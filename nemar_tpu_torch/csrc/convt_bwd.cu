@@ -105,10 +105,11 @@ constexpr int MG_LANES = 32, MG_WARPS = 32;
 
 // The band form (--mesh_spatial) merges every rank's partials, `ranks`
 // blocks `rank_stride` floats apart, warp k taking the entries k, k + 32, ...
-// of them in rank order; pixels is then the frame's.
+// of them in rank order (tiles the largest band's, a smaller band's
+// partials zero past its own); pixels is then the frame's.
 __global__ void __launch_bounds__(MG_LANES * MG_WARPS)
 in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means, int c, int tiles,
-                    int pixels, int ranks, long long rank_stride) {
+                    long long pixels, int ranks, long long rank_stride) {
   __shared__ double red[2][MG_WARPS][MG_LANES];
   const int lane = threadIdx.x % MG_LANES, warp = threadIdx.x / MG_LANES;
   const int b = blockIdx.y;
@@ -609,9 +610,10 @@ extern "C" int nemar_convt_in_bwd_bf16(const bf16* x, const bf16* w, const bf16*
 // the backward over this rank's band, x's band xp (N, H + 1, W, Ci) with its
 // halo row above, as the forward read it. Three launchers: the IN
 // backward's partials; then, from every rank's partials (ranks, N * tiles,
-// 2, Co), the frame's means, dz and W's split; then, given dz with its halo
-// row from below (dzp, N, 2H + 1, 2W, Co: the rank below's first row, zeros
-// at the frame's bottom), dW's partials and sum (the band's share) and dx.
+// 2, Co; tiles the largest band's), the frame's means, dz and W's split;
+// then, given dz with its halo row from below (dzp, N, 2H + 1, 2W, Co: the
+// first row below the band, whichever rank holds it, zeros at the frame's
+// bottom), dW's partials and sum (the band's share) and dx.
 // The bf16 variant's (the *_bf16 launchers) takes xp, W, yhat, g and dzp in
 // bf16 and writes dz, dW and dx in bf16, as the bf16 backward, W read as it
 // lies (no split).
@@ -625,21 +627,23 @@ int band_bwd_part(const T* g, const T* yhat, float* part, int n, int h, int w_, 
                   cudaStream_t stream) {
   const int pixels = 4 * h * w_;
   const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
+  if (tiles == 0) return 0;  // an empty band: the caller's partials are zeros
   in_bwd_partial_kernel<<<dim3((unsigned)(n * tiles), (unsigned)((co + 127) / 128)), 128, 0,
                           stream>>>(g, yhat, part, pixels, co, tiles);
   return (int)cudaGetLastError();
 }
 
-// the frame's means from every rank's partials, then dz; given w, W's split
-// into wsplit in the same launch (the fp32 dgrad's B operand)
+// the means over the frame's frame_pixels from every rank's partials
+// (tiles, the largest band's, a rank), then dz; given w, W's split into
+// wsplit in the same launch (the fp32 dgrad's B operand)
 template <class T>
 int band_bwd_dz(const float* parts, float* means, const T* g, const T* yhat, const float* stats,
-                T* dz, const float* w, float* wsplit, int ranks, int n, int h, int w_, int ci,
-                int co, cudaStream_t stream) {
+                T* dz, const float* w, float* wsplit, int ranks, int tiles,
+                long long frame_pixels, int n, int h, int w_, int ci, int co,
+                cudaStream_t stream) {
   const int pixels = 4 * h * w_;
-  const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
   in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
-                        MG_LANES * MG_WARPS, 0, stream>>>(parts, means, co, tiles, pixels * ranks,
+                        MG_LANES * MG_WARPS, 0, stream>>>(parts, means, co, tiles, frame_pixels,
                                                           ranks, (long long)n * tiles * 2 * co);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -647,6 +651,7 @@ int band_bwd_dz(const float* parts, float* means, const T* g, const T* yhat, con
   const long long total4 = n * per_sample / 4;
   const int apply_blocks = (int)((total4 + 255) / 256);
   const long long w4 = w ? (long long)9 * ci * co / 4 : 0;
+  if (apply_blocks == 0 && w4 == 0) return 0;
   in_bwd_apply_kernel<<<(unsigned)(apply_blocks + (w4 + 255) / 256), 256, 0, stream>>>(
       g, yhat, stats, means, dz, total4, per_sample, co, apply_blocks,
       reinterpret_cast<const float4*>(w), reinterpret_cast<uint4*>(wsplit), w4);
@@ -662,10 +667,11 @@ extern "C" int nemar_convt_band_bwd_part(const float* g, const float* yhat, floa
 
 extern "C" int nemar_convt_band_bwd_dz(const float* parts, float* means, const float* g,
                                        const float* yhat, const float* stats, float* dz,
-                                       const float* w, float* wsplit, int ranks, int n, int h,
-                                       int w_, int ci, int co, cudaStream_t stream) {
-  return band_bwd_dz(parts, means, g, yhat, stats, dz, w, wsplit, ranks, n, h, w_, ci, co,
-                     stream);
+                                       const float* w, float* wsplit, int ranks, int tiles,
+                                       long long frame_pixels, int n, int h, int w_, int ci,
+                                       int co, cudaStream_t stream) {
+  return band_bwd_dz(parts, means, g, yhat, stats, dz, w, wsplit, ranks, tiles, frame_pixels,
+                     n, h, w_, ci, co, stream);
 }
 
 extern "C" int nemar_convt_band_bwd_dx(const float* xp, const float* dzp, const float* wsplit,
@@ -699,10 +705,10 @@ extern "C" int nemar_convt_band_bwd_part_bf16(const bf16* g, const bf16* yhat, f
 
 extern "C" int nemar_convt_band_bwd_dz_bf16(const float* parts, float* means, const bf16* g,
                                             const bf16* yhat, const float* stats, bf16* dz,
-                                            int ranks, int n, int h, int w_, int co,
-                                            cudaStream_t stream) {
-  return band_bwd_dz(parts, means, g, yhat, stats, dz, nullptr, nullptr, ranks, n, h, w_, 0, co,
-                     stream);
+                                            int ranks, int tiles, long long frame_pixels, int n,
+                                            int h, int w_, int co, cudaStream_t stream) {
+  return band_bwd_dz(parts, means, g, yhat, stats, dz, nullptr, nullptr, ranks, tiles,
+                     frame_pixels, n, h, w_, 0, co, stream);
 }
 
 extern "C" int nemar_convt_band_bwd_dx_bf16(const bf16* xp, const bf16* dzp, const bf16* w,

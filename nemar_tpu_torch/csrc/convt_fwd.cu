@@ -61,6 +61,7 @@
 // Bound: 2.42 GFLOP per image and stage at 989 TFLOP/s = 2.4 us.
 #include <cuda_runtime.h>
 
+#include "band.cuh"
 #include "gemm_tc.cuh"
 
 namespace {
@@ -204,13 +205,14 @@ __global__ void split_transpose_kernel(const float* __restrict__ w, float* __res
 constexpr int ST_LANES = 32, ST_WARPS = 32;
 
 //
-// The band form (--mesh_spatial) merges every rank's partials, `ranks`
+// The band form (--mesh_spatial) merges every rank's partials, bp.ranks
 // blocks of N * 4 * tiles partials `rank_stride` floats apart: warp k then
-// takes the entries t = k, k + 32, ... of the ranks' partials in rank order
-// (every band of one height: hw the band's).
+// takes the entries t = k, k + 32, ... of the ranks' partials in rank order,
+// each tile's count its rank's (bp: each rank's input pixels H * W;
+// tiles the largest band's, a smaller band's partials zero past its own).
 __global__ void __launch_bounds__(ST_LANES * ST_WARPS)
 convt_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, int c, int tiles,
-                   int hw, float eps, int ranks, long long rank_stride) {
+                   float eps, BandPixels bp, long long rank_stride) {
   __shared__ double red[ST_WARPS][ST_LANES];
   __shared__ double mean_s[ST_LANES];
   const int lane = threadIdx.x % ST_LANES, warp = threadIdx.x / ST_LANES;
@@ -219,15 +221,15 @@ convt_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, in
   const bool live = ch < c;
   const float* p = part + (size_t)b * 4 * tiles * 2 * c + ch;
   const int per_sample = 4 * tiles;
-  const int entries = ranks * per_sample;
-  const double pixels = 4.0 * (double)hw * (double)ranks;
+  const int entries = bp.ranks * per_sample;
+  const double pixels = 4.0 * band_total(bp);
   // entry e: partial t = e % per_sample of rank e / per_sample
   auto at = [&](int e) {
     return p + (size_t)(e / per_sample) * rank_stride + (size_t)(e % per_sample) * 2 * c;
   };
   double s = 0.0;
   for (int e = warp; live && e < entries; e += ST_WARPS)
-    s += (double)min(BM, hw - (e % per_sample % tiles) * BM) * (double)at(e)[0];
+    s += (double)tile_count(bp, e / per_sample, e % per_sample % tiles, BM) * (double)at(e)[0];
   red[warp][lane] = s;
   __syncthreads();
   if (warp == 0) {
@@ -240,7 +242,8 @@ convt_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, in
   double m2 = 0.0;
   for (int e = warp; live && e < entries; e += ST_WARPS) {
     const double d = (double)at(e)[0] - mean;
-    m2 += (double)at(e)[c] + (double)min(BM, hw - (e % per_sample % tiles) * BM) * d * d;
+    m2 += (double)at(e)[c] +
+          (double)tile_count(bp, e / per_sample, e % per_sample % tiles, BM) * d * d;
   }
   red[warp][lane] = m2;
   __syncthreads();
@@ -435,7 +438,8 @@ extern "C" int nemar_convt_in_fwd(const float* x, const float* w, float* wsplit,
                : planes<128>(x, wsplit, yhat, part, n, h, w_, ci, co, tiles, stream);
   if (err != cudaSuccess) return (int)err;
   convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
-                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, hw, eps, 1, 0);
+                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, eps,
+                                                         one_band(hw), 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = 4LL * hw * co;
   const long long total4 = n * per_sample / 4;
@@ -464,7 +468,8 @@ extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, bf16* wt, f
                : planes16<128>(x, wt, y, part, n, h, w_, ci, co, tiles, stream);
   if (err != cudaSuccess) return (int)err;
   convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
-                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, hw, eps, 1, 0);
+                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, eps,
+                                                         one_band(hw), 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const long long per_sample = 4LL * hw * co;
   const long long total4 = n * per_sample / 4;
@@ -479,14 +484,16 @@ extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, bf16* wt, f
 // at the frame's top); y, yhat, out (N, 2H, 2W, Co) the band of the output
 // frame. Two launchers, the caller all-gathering the tile partials between
 // them: the split and the four planes' GEMMs over xp; then the frame's
-// (mu, rstd) from every rank's partials (ranks, N * 4 * tiles, 2, Co) and
-// the apply. The bf16 variant's (the *_bf16 launchers): xp, W, yhat and out
+// (mu, rstd) from every rank's partials (ranks, N * 4 * tiles, 2, Co;
+// tiles the largest band's, band_hw each rank's H * W: band.cuh) and the
+// apply. A band may be uneven, one row or empty (no tile: no GEMM). The bf16 variant's (the *_bf16 launchers): xp, W, yhat and out
 // bf16, y (before IN) and the statistics fp32, as the bf16 forward's.
 // ---------------------------------------------------------------------------
 extern "C" int nemar_convt_band_planes(const float* xp, const float* w, float* wsplit, float* y,
                                        float* part, int n, int h, int w_, int ci, int co,
                                        cudaStream_t stream) {
   const int tiles = (h * w_ + BM - 1) / BM;
+  if (tiles == 0) return 0;  // an empty band: the caller's partials are zeros
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -505,17 +512,19 @@ namespace {
 // the frame's (mu, rstd) from every rank's partials, yhat and out of the
 // step's element type T from y (fp32; yhat's own storage in fp32)
 template <class T>
-int band_apply(const float* parts, float* stats, const float* y, T* yhat, T* out, int ranks,
-               int n, int h, int w_, int co, float eps, cudaStream_t stream) {
-  const int hw = h * w_;
-  const int tiles = (hw + BM - 1) / BM;
+int band_apply(const float* parts, float* stats, const int* band_hw, const float* y, T* yhat,
+               T* out, int ranks, int n, int h, int w_, int tiles, int co, float eps,
+               cudaStream_t stream) {
+  BandPixels bp;
+  if (!band_pixels(band_hw, ranks, bp)) return (int)cudaErrorInvalidValue;
   convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
-                       ST_LANES * ST_WARPS, 0, stream>>>(parts, stats, co, tiles, hw, eps, ranks,
+                       ST_LANES * ST_WARPS, 0, stream>>>(parts, stats, co, tiles, eps, bp,
                                                          (long long)n * 4 * tiles * 2 * co);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long per_sample = 4LL * hw * co;
+  const long long per_sample = 4LL * h * w_ * co;
   const long long total4 = n * per_sample / 4;
+  if (total4 == 0) return 0;
   convt_apply_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(y), stats, yhat, out, total4, per_sample, co);
   return (int)cudaGetLastError();
@@ -523,16 +532,18 @@ int band_apply(const float* parts, float* stats, const float* y, T* yhat, T* out
 
 }  // namespace
 
-extern "C" int nemar_convt_band_apply(const float* parts, float* stats, float* yhat, float* out,
-                                      int ranks, int n, int h, int w_, int co, float eps,
-                                      cudaStream_t stream) {
-  return band_apply(parts, stats, yhat, yhat, out, ranks, n, h, w_, co, eps, stream);
+extern "C" int nemar_convt_band_apply(const float* parts, float* stats, const int* band_hw,
+                                      float* yhat, float* out, int ranks, int n, int h, int w_,
+                                      int tiles, int co, float eps, cudaStream_t stream) {
+  return band_apply(parts, stats, band_hw, yhat, yhat, out, ranks, n, h, w_, tiles, co, eps,
+                    stream);
 }
 
 extern "C" int nemar_convt_band_planes_bf16(const bf16* xp, const bf16* w, bf16* wt, float* y,
                                             float* part, int n, int h, int w_, int ci, int co,
                                             cudaStream_t stream) {
   const int tiles = (h * w_ + BM - 1) / BM;
+  if (tiles == 0) return 0;  // an empty band: the caller's partials are zeros
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -546,8 +557,10 @@ extern "C" int nemar_convt_band_planes_bf16(const bf16* xp, const bf16* w, bf16*
   return (int)err;
 }
 
-extern "C" int nemar_convt_band_apply_bf16(const float* parts, float* stats, const float* y,
-                                           bf16* yhat, bf16* out, int ranks, int n, int h, int w_,
-                                           int co, float eps, cudaStream_t stream) {
-  return band_apply(parts, stats, y, yhat, out, ranks, n, h, w_, co, eps, stream);
+extern "C" int nemar_convt_band_apply_bf16(const float* parts, float* stats, const int* band_hw,
+                                           const float* y, bf16* yhat, bf16* out, int ranks, int n,
+                                           int h, int w_, int tiles, int co, float eps,
+                                           cudaStream_t stream) {
+  return band_apply(parts, stats, band_hw, y, yhat, out, ranks, n, h, w_, tiles, co, eps,
+                    stream);
 }

@@ -25,7 +25,8 @@
 // Every rank merges the same partials in the same order, so every rank
 // holds the same bits of the frame's statistics; two identical calls give
 // the same bits (no atomics). The chunks of a band past its pixels have
-// count 0 (a band of fewer pixels than another, D's odd heights), so the
+// count 0 (a band of fewer pixels than another: D's odd heights, uneven
+// and one-row bands, an empty band, whose partials are all 0), so the
 // gathered partials have one shape on every rank.
 //
 // Replaces, with K-in (in_act_fwd.cu) and K-in-bwd (in_act_bwd.cu), the TPU
@@ -38,8 +39,8 @@
 // doubles, a few hundred KB. One thread per channel walks a chunk's pixels,
 // the block's threads on neighbouring channels (NHWC: coalesced).
 //
-// Layouts: x, y, g, dx (N, H_band, W, C) fp32 contiguous, hw = H_band * W;
-// stats (N, 2, C) fp32. Any N, C >= 1.
+// Layouts: x, y, g, dx (N, H_band, W, C) fp32 contiguous, hw = H_band * W
+// (0 for an empty band); stats (N, 2, C) fp32. Any N, C >= 1.
 //
 // The bf16 variant (--bf16; the *_bf16 launchers) is the same four stages
 // with x, y, g and dx in bf16, as in_act_fwd.cu's and in_act_bwd.cu's bf16
@@ -205,8 +206,11 @@ dim3 part_grid(int chunks, int n, int c) {
   return dim3((unsigned)chunks, (unsigned)n, (unsigned)((c + kThreads - 1) / kThreads));
 }
 
+// at least one block a (sample, channel block), which writes the
+// statistics: an empty band (--mesh_spatial, a level thinner than the
+// group) still gives its saved statistics, and CUDA takes no empty grid
 dim3 apply_grid(int hw, int n, int c) {
-  return dim3((unsigned)((hw + kApplyPixels - 1) / kApplyPixels), (unsigned)n,
+  return dim3((unsigned)max(1, (hw + kApplyPixels - 1) / kApplyPixels), (unsigned)n,
               (unsigned)((c + kThreads - 1) / kThreads));
 }
 

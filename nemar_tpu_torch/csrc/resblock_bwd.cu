@@ -386,9 +386,11 @@ __global__ void in_bwd_partial_kernel(const InG<kStage, T>* __restrict__ gsrc,
 // Blocks past merge_blocks split the weights w1, w2 (w4 float4s each) into
 // wsplit = (w1 big, w1 small, w2 big, w2 small), for the dgrads' B operand.
 // The band form (--mesh_spatial) merges every rank's partials, `ranks`
-// blocks `rank_stride` floats apart, rank by rank; hw is then the frame's.
+// blocks `rank_stride` floats apart, rank by rank (tiles the largest
+// band's, a smaller band's partials zero past its own); pixels is then the
+// frame's.
 __global__ void in_bwd_merge_kernel(const float* __restrict__ part, float* __restrict__ means,
-                                    int n, int c, int tiles, int hw, int merge_blocks,
+                                    int n, int c, int tiles, long long pixels, int merge_blocks,
                                     const float4* __restrict__ w1, const float4* __restrict__ w2,
                                     uint4* __restrict__ wsplit, long long w4, int ranks,
                                     long long rank_stride) {
@@ -419,8 +421,8 @@ __global__ void in_bwd_merge_kernel(const float* __restrict__ part, float* __res
     }
   }
   float* m = means + (size_t)b * 2 * c + ch;
-  m[0] = (float)(s1 / hw);
-  m[c] = (float)(s2 / hw);
+  m[0] = (float)(s1 / pixels);
+  m[c] = (float)(s2 / pixels);
 }
 
 template <int kStage, class T>
@@ -763,7 +765,8 @@ extern "C" int nemar_resblock_bwd_bf16(const bf16* x, const bf16* y1hat, const b
 // frame's edges keep the fold of the reflection). The wgrads read the
 // forward's padded sources (x and y1 with their halo rows: WgradOp's kHp);
 // dW1 and dW2 are the band's shares. parts: (ranks, N * tiles, 2, C),
-// tiles = ceil(H * W / 64).
+// tiles = ceil(H_most * W / 64) of the largest band (a smaller band's
+// partials zero past its own), merged over the frame's `pixels`.
 // ---------------------------------------------------------------------------
 // IN2's (stage 2: gsrc = g, y = y2) or IN1's (stage 1: gsrc = dpad2, folded
 // where it is read, y = y1) partials. The bf16 variant's band form (the
@@ -779,6 +782,7 @@ template <class T>
 cudaError_t band_part(const void* gsrc, const void* y, const float* stats, float* part,
                       int stage, int n, int h, int w, int c, cudaStream_t stream) {
   const int tiles = (h * w + IN_TILE - 1) / IN_TILE;
+  if (tiles == 0) return cudaSuccess;  // an empty band: the caller's partials are zeros
   const dim3 grid((unsigned)(n * tiles), (unsigned)(c / 128));
   if (stage == 2)
     in_bwd_partial_kernel<2, T><<<grid, 128, 0, stream>>>(
@@ -791,15 +795,15 @@ cudaError_t band_part(const void* gsrc, const void* y, const float* stats, float
   return cudaGetLastError();
 }
 
-// the means from every rank's partials (and, given w1, W1's and W2's split)
-cudaError_t band_merge(const float* parts, float* means, int ranks, int n, int h, int w, int c,
-                       cudaStream_t stream, const float* w1 = nullptr, const float* w2 = nullptr,
-                       float* wsplit = nullptr) {
-  const int tiles = (h * w + IN_TILE - 1) / IN_TILE;
+// the means over the frame's `pixels` from every rank's partials, `tiles`
+// (the largest band's) a rank (and, given w1, W1's and W2's split)
+cudaError_t band_merge(const float* parts, float* means, int ranks, int tiles, long long pixels,
+                       int n, int c, cudaStream_t stream, const float* w1 = nullptr,
+                       const float* w2 = nullptr, float* wsplit = nullptr) {
   const int merge_blocks = (n * c + 255) / 256;
   const long long w4 = w1 ? (long long)9 * c * c / 4 : 0;
   in_bwd_merge_kernel<<<(unsigned)(merge_blocks + (2 * w4 + 255) / 256), 256, 0, stream>>>(
-      parts, means, n, c, tiles, h * w * ranks, merge_blocks,
+      parts, means, n, c, tiles, pixels, merge_blocks,
       reinterpret_cast<const float4*>(w1), reinterpret_cast<const float4*>(w2),
       reinterpret_cast<uint4*>(wsplit), w4, ranks, (long long)n * tiles * 2 * c);
   return cudaGetLastError();
@@ -810,6 +814,7 @@ cudaError_t band_apply(const InG<kStage, T>* gsrc, const InY<kStage, T>* y, cons
                        const float* means, T* dz, int n, int h, int w, int c,
                        cudaStream_t stream) {
   const long long total4 = (long long)n * h * w * c / 4;
+  if (total4 == 0) return cudaSuccess;
   in_bwd_apply_kernel<kStage, T><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       gsrc, y, stats, means, dz, total4, h, w, c);
   return cudaGetLastError();
@@ -843,10 +848,12 @@ extern "C" int nemar_resblock_band_bwd_dz2(const float* parts, float* means, con
                                            const float* w2, float* wsplit, const float* g,
                                            const float* y2, const float* stats, float* dz,
                                            const float* y1p, float* part_w, float* dw2,
-                                           float* dpad, int ranks, int n, int h, int w, int c,
-                                           int splits, cudaStream_t stream) {
+                                           float* dpad, int ranks, int tiles, long long pixels,
+                                           int n, int h, int w, int c, int splits,
+                                           cudaStream_t stream) {
   cudaError_t err;
-  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream, w1, w2, wsplit)) != cudaSuccess)
+  if ((err = band_merge(parts, means, ranks, tiles, pixels, n, c, stream, w1, w2, wsplit)) !=
+      cudaSuccess)
     return (int)err;
   if ((err = band_apply<2>(g, y2, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
     return (int)err;
@@ -865,10 +872,11 @@ extern "C" int nemar_resblock_band_bwd_dz2(const float* parts, float* means, con
 extern "C" int nemar_resblock_band_bwd_dz1(const float* parts, float* means, const float* wsplit,
                                            float* dpad, const float* y1, const float* stats,
                                            float* dz, const float* xp, float* part_w, int ranks,
-                                           int n, int h, int w, int c, int splits,
-                                           cudaStream_t stream) {
+                                           int tiles, long long pixels, int n, int h, int w, int c,
+                                           int splits, cudaStream_t stream) {
   cudaError_t err;
-  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = band_merge(parts, means, ranks, tiles, pixels, n, c, stream)) != cudaSuccess)
+    return (int)err;
   if ((err = band_apply<1>(dpad, y1, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
     return (int)err;
   if ((err = wgrad<false, true>(xp, stats, dz, part_w, n, h, w, c, splits, stream)) !=
@@ -894,10 +902,12 @@ extern "C" int nemar_resblock_band_bwd_part_bf16(const void* gsrc, const void* y
 extern "C" int nemar_resblock_band_bwd_dz2_bf16(const float* parts, float* means, const bf16* g,
                                                 const float* y2, const float* stats, bf16* dz,
                                                 const bf16* h1p, const bf16* w2, float* part_w,
-                                                bf16* dw2, float* dpad, int ranks, int n, int h,
-                                                int w, int c, int splits, cudaStream_t stream) {
+                                                bf16* dw2, float* dpad, int ranks, int tiles,
+                                                long long pixels, int n, int h, int w, int c,
+                                                int splits, cudaStream_t stream) {
   cudaError_t err;
-  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = band_merge(parts, means, ranks, tiles, pixels, n, c, stream)) != cudaSuccess)
+    return (int)err;
   if ((err = band_apply<2>(g, y2, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
     return (int)err;
   if ((err = wgrad16<true>(h1p, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
@@ -914,10 +924,12 @@ extern "C" int nemar_resblock_band_bwd_dz2_bf16(const float* parts, float* means
 extern "C" int nemar_resblock_band_bwd_dz1_bf16(const float* parts, float* means, float* dpad,
                                                 const bf16* y1hat, const float* stats, bf16* dz,
                                                 const bf16* xp, const bf16* w1, float* part_w,
-                                                int ranks, int n, int h, int w, int c, int splits,
+                                                int ranks, int tiles, long long pixels, int n,
+                                                int h, int w, int c, int splits,
                                                 cudaStream_t stream) {
   cudaError_t err;
-  if ((err = band_merge(parts, means, ranks, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  if ((err = band_merge(parts, means, ranks, tiles, pixels, n, c, stream)) != cudaSuccess)
+    return (int)err;
   if ((err = band_apply<1>(dpad, y1hat, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
     return (int)err;
   if ((err = wgrad16<true>(xp, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)

@@ -72,6 +72,7 @@
 //   7. out = x + (y2 - mu2) * rstd2, bf16.
 #include <cuda_runtime.h>
 
+#include "band.cuh"
 #include "gemm_tc.cuh"
 
 namespace {
@@ -198,29 +199,31 @@ __global__ void split_transpose_kernel(const float* __restrict__ w1, const float
 
 // 3 / 5: (mu, rstd) per (n, c) from the sample's tile partials, in fp64 and
 // tile order: mean = sum_t n_t m_t / HW, M2 = sum_t (M2_t + n_t (m_t - mean)^2).
-// The band form (--mesh_spatial) merges every rank's partials, `ranks`
+// The band form (--mesh_spatial) merges every rank's partials, bp.ranks
 // blocks of (N * tiles, 2, C) `rank_stride` floats apart, rank by rank in
-// the same order (every band of one height hw): the frame's statistics.
+// the same order, each tile's count its rank's (band.cuh; tiles the
+// largest band's, a smaller band's partials zero past its own): the
+// frame's statistics.
 __global__ void in_stats_kernel(const float* __restrict__ part, float* __restrict__ stats, int n,
-                                int c, int tiles, int hw, float eps, int ranks,
+                                int c, int tiles, float eps, BandPixels bp,
                                 long long rank_stride) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n * c) return;
   const int b = idx / c, ch = idx - b * c;
-  const double pixels = (double)hw * (double)ranks;
+  const double pixels = band_total(bp);
   double mean = 0.0;
-  for (int r = 0; r < ranks; ++r) {
+  for (int r = 0; r < bp.ranks; ++r) {
     const float* p = part + (size_t)r * rank_stride + (size_t)b * tiles * 2 * c + ch;
     for (int t = 0; t < tiles; ++t)
-      mean += (double)min(BM, hw - t * BM) * (double)p[(size_t)t * 2 * c];
+      mean += (double)tile_count(bp, r, t, BM) * (double)p[(size_t)t * 2 * c];
   }
   mean /= pixels;
   double m2 = 0.0;
-  for (int r = 0; r < ranks; ++r) {
+  for (int r = 0; r < bp.ranks; ++r) {
     const float* p = part + (size_t)r * rank_stride + (size_t)b * tiles * 2 * c + ch;
     for (int t = 0; t < tiles; ++t) {
       const double d = (double)p[(size_t)t * 2 * c] - mean;
-      m2 += (double)p[(size_t)t * 2 * c + c] + (double)min(BM, hw - t * BM) * d * d;
+      m2 += (double)p[(size_t)t * 2 * c + c] + (double)tile_count(bp, r, t, BM) * d * d;
     }
   }
   float* s = stats + (size_t)b * 4 * c + ch;
@@ -272,13 +275,14 @@ cudaError_t convs(const float* x, const float* wsplit, float* y1, float* y2, flo
   cudaError_t err;
   if ((err = conv<false, kTN>(x, nullptr, wsplit, y1, part, n, h, w, c, tiles, stream)) != cudaSuccess)
     return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps, 1, 0);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, eps, one_band(hw),
+                                                 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = conv<true, kTN>(y1, stats, wsplit + (size_t)18 * c * c, y2, part, n, h, w, c, tiles,
                              stream)) != cudaSuccess)
     return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps, 1,
-                                                 0);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, eps,
+                                                 one_band(hw), 0);
   return cudaGetLastError();
 }
 
@@ -412,7 +416,8 @@ cudaError_t convs16(const bf16* x, const bf16* wt, float* y1, bf16* y1hat, bf16*
   const long long total4 = (long long)n * hw * c / 4;
   cudaError_t err;
   if ((err = conv16<kTN>(x, wt, y1, part, n, h, w, c, tiles, stream)) != cudaSuccess) return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, hw, eps, 1, 0);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats, n, c, tiles, eps, one_band(hw),
+                                                 0);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   norm_relu16_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(y1), stats, y1hat, h1, total4, hw, c);
@@ -420,8 +425,8 @@ cudaError_t convs16(const bf16* x, const bf16* wt, float* y1, bf16* y1hat, bf16*
   if ((err = conv16<kTN>(h1, wt + (size_t)9 * c * c, y2, part, n, h, w, c, tiles, stream)) !=
       cudaSuccess)
     return err;
-  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, hw, eps, 1,
-                                                 0);
+  in_stats_kernel<<<st_blocks, 256, 0, stream>>>(part, stats + 2 * c, n, c, tiles, eps,
+                                                 one_band(hw), 0);
   return cudaGetLastError();
 }
 
@@ -499,7 +504,10 @@ extern "C" int nemar_resblock_fwd_bf16(const bf16* x, const bf16* w1, const bf16
 //   stats: (mu, rstd) into stats' slot from every rank's part;
 //   conv2: conv2 over y1p (N, H + 2, W, C) with IN1 + relu on the fly;
 //   residual: (mu2, rstd2) from every rank's part, out = x + IN2(y2).
-// parts: (ranks, N * tiles, 2, C), tiles = ceil(H * W / 128).
+// parts: (ranks, N * tiles, 2, C), tiles = ceil(H_most * W / 128) of the
+// largest band (a smaller band's partials zero past its own), and
+// band_hw each rank's H * W (the host's; band.cuh): the bands may be
+// uneven, one row or empty (no tile: the GEMM launchers launch nothing).
 //
 // The bf16 variant's band form (the *_bf16 launchers) rounds where the
 // bf16 forward does: x, W1, W2 bf16, y1 and y2 fp32 with their tile
@@ -517,6 +525,7 @@ extern "C" int nemar_resblock_band_conv1(const float* xp, const float* w1, const
                                          float* wsplit, float* y1, float* part, int n, int h,
                                          int w, int c, cudaStream_t stream) {
   const int tiles = (h * w + BM - 1) / BM;
+  if (tiles == 0) return 0;  // an empty band: no tile (the caller's partials are zeros)
   bool narrow = false;
   cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
   if (err != cudaSuccess) return (int)err;
@@ -528,12 +537,15 @@ extern "C" int nemar_resblock_band_conv1(const float* xp, const float* w1, const
   return (int)err;
 }
 
-extern "C" int nemar_resblock_band_stats(const float* parts, float* stats, int ranks, int slot,
-                                         int n, int hw, int c, float eps, cudaStream_t stream) {
-  const int tiles = (hw + BM - 1) / BM;
+// band_hw: each rank's pixels (host ints); tiles: the largest band's, the
+// stride of each rank's partials
+extern "C" int nemar_resblock_band_stats(const float* parts, float* stats, const int* band_hw,
+                                         int ranks, int slot, int n, int tiles, int c, float eps,
+                                         cudaStream_t stream) {
+  BandPixels bp;
+  if (!band_pixels(band_hw, ranks, bp)) return (int)cudaErrorInvalidValue;
   in_stats_kernel<<<(unsigned)((n * c + 255) / 256), 256, 0, stream>>>(
-      parts, stats + (size_t)2 * slot * c, n, c, tiles, hw, eps, ranks,
-      (long long)n * tiles * 2 * c);
+      parts, stats + (size_t)2 * slot * c, n, c, tiles, eps, bp, (long long)n * tiles * 2 * c);
   return (int)cudaGetLastError();
 }
 
@@ -541,6 +553,7 @@ extern "C" int nemar_resblock_band_conv2(const float* y1p, const float* stats, c
                                          float* y2, float* part, int n, int h, int w, int c,
                                          cudaStream_t stream) {
   const int tiles = (h * w + BM - 1) / BM;
+  if (tiles == 0) return 0;
   bool narrow = false;
   cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
   if (err != cudaSuccess) return (int)err;
@@ -555,11 +568,14 @@ namespace {
 // (mu2, rstd2) from every rank's part, out = x + IN2(y2); x and out of the
 // step's element type T
 template <class T>
-int band_residual(const float* parts, float* stats, const T* x, const float* y2, T* out,
-                  int ranks, int n, int hw, int c, float eps, cudaStream_t stream) {
-  const int err = nemar_resblock_band_stats(parts, stats, ranks, 1, n, hw, c, eps, stream);
+int band_residual(const float* parts, float* stats, const int* band_hw, const T* x,
+                  const float* y2, T* out, int ranks, int n, int hw, int tiles, int c, float eps,
+                  cudaStream_t stream) {
+  const int err =
+      nemar_resblock_band_stats(parts, stats, band_hw, ranks, 1, n, tiles, c, eps, stream);
   if (err != 0) return err;
   const long long total4 = (long long)n * hw * c / 4;
+  if (total4 == 0) return 0;
   residual_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       x, reinterpret_cast<const float4*>(y2), stats, out, total4, hw, c);
   return (int)cudaGetLastError();
@@ -567,16 +583,18 @@ int band_residual(const float* parts, float* stats, const T* x, const float* y2,
 
 }  // namespace
 
-extern "C" int nemar_resblock_band_residual(const float* parts, float* stats, const float* x,
-                                            const float* y2, float* out, int ranks, int n, int hw,
-                                            int c, float eps, cudaStream_t stream) {
-  return band_residual(parts, stats, x, y2, out, ranks, n, hw, c, eps, stream);
+extern "C" int nemar_resblock_band_residual(const float* parts, float* stats, const int* band_hw,
+                                            const float* x, const float* y2, float* out, int ranks,
+                                            int n, int hw, int tiles, int c, float eps,
+                                            cudaStream_t stream) {
+  return band_residual(parts, stats, band_hw, x, y2, out, ranks, n, hw, tiles, c, eps, stream);
 }
 
 extern "C" int nemar_resblock_band_conv1_bf16(const bf16* xp, const bf16* w1, const bf16* w2,
                                               bf16* wt, float* y1, float* part, int n, int h,
                                               int w, int c, cudaStream_t stream) {
   const int tiles = (h * w + BM - 1) / BM;
+  if (tiles == 0) return 0;
   bool narrow = false;
   cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
   if (err != cudaSuccess) return (int)err;
@@ -589,12 +607,15 @@ extern "C" int nemar_resblock_band_conv1_bf16(const bf16* xp, const bf16* w1, co
 }
 
 extern "C" int nemar_resblock_band_norm_relu_bf16(const float* parts, float* stats,
-                                                  const float* y1, bf16* y1hat, bf16* h1,
-                                                  int ranks, int n, int hw, int c, float eps,
+                                                  const int* band_hw, const float* y1,
+                                                  bf16* y1hat, bf16* h1, int ranks, int n,
+                                                  int hw, int tiles, int c, float eps,
                                                   cudaStream_t stream) {
-  const int err = nemar_resblock_band_stats(parts, stats, ranks, 0, n, hw, c, eps, stream);
+  const int err =
+      nemar_resblock_band_stats(parts, stats, band_hw, ranks, 0, n, tiles, c, eps, stream);
   if (err != 0) return err;
   const long long total4 = (long long)n * hw * c / 4;
+  if (total4 == 0) return 0;
   norm_relu16_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(y1), stats, y1hat, h1, total4, hw, c);
   return (int)cudaGetLastError();
@@ -604,6 +625,7 @@ extern "C" int nemar_resblock_band_conv2_bf16(const bf16* h1p, const bf16* wt, f
                                               float* part, int n, int h, int w, int c,
                                               cudaStream_t stream) {
   const int tiles = (h * w + BM - 1) / BM;
+  if (tiles == 0) return 0;
   bool narrow = false;
   cudaError_t err = narrow_tiles(n, tiles, c, &narrow);
   if (err != cudaSuccess) return (int)err;
@@ -613,8 +635,10 @@ extern "C" int nemar_resblock_band_conv2_bf16(const bf16* h1p, const bf16* wt, f
   return (int)err;
 }
 
-extern "C" int nemar_resblock_band_residual_bf16(const float* parts, float* stats, const bf16* x,
+extern "C" int nemar_resblock_band_residual_bf16(const float* parts, float* stats,
+                                                 const int* band_hw, const bf16* x,
                                                  const float* y2, bf16* out, int ranks, int n,
-                                                 int hw, int c, float eps, cudaStream_t stream) {
-  return band_residual(parts, stats, x, y2, out, ranks, n, hw, c, eps, stream);
+                                                 int hw, int tiles, int c, float eps,
+                                                 cudaStream_t stream) {
+  return band_residual(parts, stats, band_hw, x, y2, out, ranks, n, hw, tiles, c, eps, stream);
 }

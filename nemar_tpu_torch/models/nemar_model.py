@@ -68,7 +68,10 @@ queried with the gathered fakes; the step's draws are made for the
 global rows (``_step_draws``); --border_mask's count is the global
 microbatch's. Under ``--mesh_spatial`` (the image height over the ranks
 of a spatial group, ``parallel/spatial.py``) every net runs its band form
-and each loss is the band's share; --border_mask's count is summed over
+at every height the JAX package's spatial mesh runs (any H the group
+divides: the levels' bands may be uneven, one row or empty, re-cut where
+two levels meet, and the pyramid's before each pool), and each loss is
+the band's share; --border_mask's count is summed over
 every rank; the WGAN-GP penalty differentiates D's band form twice, its
 per-sample norm summed over the group, and each rank's loss takes a 1/s
 share of it; --remat recomputes the band forms with their exchanges; the
@@ -513,8 +516,8 @@ class NEMARModel(BaseModel):
         pass in bf16 under --bf16, the prediction cast back to fp32);
         ``gan_scale`` is the GAN weight times --lambda_GAN. Under
         --mesh_spatial each term is the band's share of the global mean (the
-        pyramid's pools local to the band: its height is a multiple of
-        2^K, ``_check_supported``)."""
+        pyramid's bands re-cut to even bounds before each 2x2 pool, the
+        mask's with them: ``spatial.reband``)."""
         band = self.band
         if band is not None:
             pred, pband = self.compute(self.netD)(self.cast(o["reg_fakeB"]), band)
@@ -526,10 +529,15 @@ class NEMARModel(BaseModel):
         rf, f2, bb = o["reg_fakeB"], o["fake_B2"], b
         l_recon = self._recon_l1(rf, bb, m, band) + self._recon_l1(f2, bb, m, band)
         # --recon_pyramid: K extra 2x2-average-pooled octaves
+        pool = functools.partial(F.avg_pool2d, kernel_size=2) if band is None else spatial.pool2
         for _ in range(self.recon_pyramid):
-            rf, f2, bb = F.avg_pool2d(rf, 2), F.avg_pool2d(f2, 2), F.avg_pool2d(bb, 2)
-            m = F.avg_pool2d(m, 2) if m is not None else None
-            band = band.down(2) if band is not None else None
+            if band is not None:  # each pool's 2x2 blocks within one band
+                even = band.aligned(2)
+                rf, f2, bb = (spatial.reband(t, band, even) for t in (rf, f2, bb))
+                m = spatial.reband(m, band, even) if m is not None else None
+                band = even.pooled(2)
+            rf, f2, bb = pool(rf), pool(f2), pool(bb)
+            m = pool(m) if m is not None else None
             l_recon = l_recon + self._recon_l1(rf, bb, m, band) + self._recon_l1(f2, bb, m, band)
         l_recon = l_recon / (1 + self.recon_pyramid)
         l_smooth = o["reg"]
@@ -858,17 +866,3 @@ def _check_supported(opt) -> None:
             raise NotImplementedError(
                 f"{flag} under --mesh_spatial {opt.mesh_spatial} is not ported (the spatial step "
                 f"does not hold it; queued as ROADMAP.md A10c)")
-    depth = max(2, getattr(opt, "stn_depth", 5))
-    need = opt.mesh_spatial * 2 ** depth
-    if opt.crop_size % need:
-        raise ValueError(
-            f"--mesh_spatial {opt.mesh_spatial}: the image height {opt.crop_size} must split "
-            f"evenly over the ranks at every level of G and of the STN (depth {depth}): a "
-            f"multiple of {need}")
-    k = getattr(opt, "recon_pyramid", 0)
-    rows = opt.crop_size // opt.mesh_spatial
-    if k > 0 and rows % 2**k:
-        raise ValueError(
-            f"--mesh_spatial {opt.mesh_spatial}: --recon_pyramid {k} pools each band of {rows} "
-            f"rows 2x2 {k} times on its own: the band height must be a multiple of {2**k} "
-            f"(queued as ROADMAP.md A10c)")

@@ -34,9 +34,10 @@ one-process run's function.
 
 Under --mesh_spatial (``parallel/spatial.py``) the ResNet generator and
 the n-layer PatchGAN take a ``band`` (``spatial.Band``: this rank's rows of
-the frame) and run their band forms: every convolution over the band with
-its halo rows (``conv_band``: the neighbours' rows, the layer's padding at
-the frame's edges), every instance norm with the frame's statistics
+the frame, uneven, one row or empty) and run their band forms: every
+convolution over the band with its halo rows (``conv_band``: the rows of
+whichever ranks hold them, the layer's padding at the frame's edges),
+every instance norm with the frame's statistics
 (``norm_act_band``, K-in's band form on the card), the trunk blocks, the
 decoder stages and the head through K-block's, K-convt's and K-head's band
 forms, each trunk block checkpointed under ``--remat`` as in one process.
@@ -147,13 +148,17 @@ def norm_act_band(x: torch.Tensor, band, act: str) -> torch.Tensor:
 def conv_band(conv: nn.Conv2d, x: torch.Tensor, band) -> tuple:
     """``conv`` (zero-padded, square kernel) of the frame of which the NCHW
     x is this rank's band -> (its output band, the output's ``Band``): the
-    band with the rows its output band reads above and below
-    (``Band.conv``; zeros past the frame's edges), convolved with the
-    layer's padding in W only."""
+    band with the rows its output band reads above and below, from
+    whichever ranks hold them (``Band.conv``; zeros past the frame's
+    edges), convolved with the layer's padding in W only. An empty output
+    band convolves the rows of the one it would hold next and keeps none
+    of it: the rank stays in the graph of its exchange and of the weights,
+    so its backward makes the same collectives as the other ranks' and
+    gives the weights a gradient (of zeros)."""
     out, tops, bottoms = band.conv(conv.kernel_size[0], conv.stride[0], conv.padding[0])
     xp = spatial.exchange_rows(x, band, tops, bottoms, dim=2, mode="zeros")
-    return F.conv2d(xp, conv.weight, conv.bias, stride=conv.stride,
-                    padding=(0, conv.padding[1])), out
+    y = F.conv2d(xp, conv.weight, conv.bias, stride=conv.stride, padding=(0, conv.padding[1]))
+    return (y if out.rows else y[:, :, :0]), out
 
 
 def reflect_pad_w(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -423,8 +428,12 @@ class ResnetGenerator(nn.Module):
 
     def _forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
         """The forward of the frame of which x is this rank's band (instance
-        norm, no dropout): the same layers in band form; the output is the
-        output frame's band, rows of the input's."""
+        norm, no dropout): the same layers in band form, each on the band
+        its own geometry gives (the stride-2 convs' ``Band.conv``, the
+        decoder's ``Band.up``); the output re-cut to the input's band
+        (``spatial.reband``: where the levels split unevenly the up-sampled
+        bands are not the input's, 36^2 at s = 2 gives 20 | 16 for 18 |
+        18)."""
         three = (3,) * band.size
         xp = reflect_pad_w(spatial.exchange_rows(x, band, three, three, dim=2, mode="reflect"), 3)
         h = norm_act_band(self.Conv_0(xp), band, "relu")
@@ -446,7 +455,7 @@ class ResnetGenerator(nn.Module):
             b = b.up(2)
         head = getattr(self, f"Conv_{1 + self.n_downsampling}")
         h = to_nchw(conv_head_band(to_nhwc(h), head.weight.permute(2, 3, 1, 0), b))
-        return torch.tanh(h + head.bias[:, None, None])
+        return torch.tanh(spatial.reband(h, b, band) + head.bias[:, None, None])
 
 
 class UnetGenerator(nn.Module):
@@ -525,7 +534,8 @@ class NLayerDiscriminator(nn.Module):
     def forward(self, x: torch.Tensor, band=None):
         """The patch predictions; with ``band`` (instance norm) those of the
         frame of which x is this rank's band, and their ``Band``: (pred,
-        band) (D's stride-1 layers give uneven bands: ``Band.conv``)."""
+        band) (D's stride-1 layers give uneven bands, at 32^2 over 2 ranks
+        bands of 2 and 1 rows, then 2 and none: ``Band.conv``)."""
         if band is not None:
             h, b = conv_band(self.Conv_0, x, band)
             h = F.leaky_relu(h, 0.2)

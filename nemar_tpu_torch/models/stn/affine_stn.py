@@ -20,10 +20,10 @@ grid are fp32 (identity + Δθ cast up), and so is the implied field.
 
 Under --mesh_spatial ``forward`` takes a ``band``, this rank's rows of the
 frame: each conv and its instance norm run in band form
-(``networks.conv_band``, ``norm_act_band``) while the band can serve its
-halo, and a level whose bands would be thinner than their halo (64^2 over
-4 ranks: the last conv's input rows) runs on the gathered map; the head
-runs on the last map gathered (``spatial.gather_frame``: 8x8x256 at 256^2),
+(``networks.conv_band``, ``norm_act_band``) at every level, on the bands
+its geometry gives, uneven, one row or empty (64^2 over 4 ranks: the last
+conv's 4 input rows in bands of one); the head runs on the last map
+gathered (``spatial.gather_frame``: 8x8x256 at 256^2),
 so every rank holds the same Δθ; the grid is the band's rows of
 ``affine_grid`` and the images are sampled from their gathered frames.
 What every rank computes whole reaches the loss only through the band's
@@ -84,23 +84,15 @@ class AffineSTN(nn.Module):
 
     def predict_dtheta_band(self, a: torch.Tensor, b: torch.Tensor, band) -> torch.Tensor:
         """``predict_dtheta`` of the frame of which a and b are this rank's
-        band: the encoder in band form while the bands serve their halos,
-        then on the gathered map; the head on the last map's frame (the
-        same Δθ on every rank)."""
+        band: the encoder in band form at every level (its bands uneven, one
+        row or empty where the levels are thinner than the group), then
+        the head on the last map's frame, gathered (the same Δθ on every
+        rank)."""
         h, bd = torch.cat([a, b], dim=1), band
         for k in range(self.n_downs):
-            conv = getattr(self, f"Conv_{k}")
-            if bd is not None and not bd.fits(conv.kernel_size[0], conv.stride[0],
-                                              conv.padding[0]):
-                h, bd = spatial.gather_frame(h, bd, dim=2), None
-            if bd is None:
-                h = norm_act(conv(h), "leaky_relu")
-            else:
-                h, bd = conv_band(conv, h, bd)
-                h = norm_act_band(h, bd, "leaky_relu")
-        if bd is not None:
-            h = spatial.gather_frame(h, bd, dim=2)
-        return self._head(h)
+            h, bd = conv_band(getattr(self, f"Conv_{k}"), h, bd)
+            h = norm_act_band(h, bd, "leaky_relu")
+        return self._head(spatial.gather_frame(h, bd, dim=2))
 
     def _head(self, h: torch.Tensor) -> torch.Tensor:
         """Δθ (N, 2, 3) from the last map (NCHW)."""

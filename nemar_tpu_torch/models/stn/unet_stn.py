@@ -32,13 +32,17 @@ band's rows of the frame's identity plus φ's band; the warped images are
 sampled from the whole frames (``spatial.gather_frame``: d img, a frame on
 every rank, is summed over the group and cut to the band), the JAX
 package's ``mm`` route under GSPMD computing the same function; the TV
-takes one row of φ from the band below, two for order 2
-(``smoothness_loss_band``). Under ``multiscale`` each head's field is on
-its level's band: its resize takes the band's rows of the weights against
-the coarse field's gathered frame (``resize_bilinear(rows=)``, still two
-matrix products), each composition samples the field so far from its
-gathered frame (``compose_flows_band``), and each level's TV is its band's
-share; the tanh bound is elementwise on φ's band.
+takes one row of φ from below the band, two for order 2
+(``smoothness_loss_band``). Each level computes on the band its geometry
+gives (``Band.conv``, ``Band.up``), any of them uneven, one row or empty;
+where a decoder level meets its skip, and the full-resolution field the
+input's band, its rows are re-cut (``spatial.reband``). Under
+``multiscale`` each head's field is on its level's band: its resize takes
+the band's rows of the weights against the coarse field's gathered frame
+(``resize_bilinear(rows=)``, still two matrix products), each composition
+samples the field so far from its gathered frame (``compose_flows_band``),
+and each level's TV is its band's share; the tanh bound is elementwise on
+φ's band.
 
 Convs are named ``Conv_<k>`` in the reference's creation order (the
 multiscale heads between the decoder's convs), so the state_dict matches
@@ -86,15 +90,14 @@ def smoothness_loss(flow: torch.Tensor, smooth_type: str = "l1", order: int = 1)
 def smoothness_loss_band(flow: torch.Tensor, band, smooth_type: str = "l1",
                          order: int = 1) -> torch.Tensor:
     """This rank's share of ``smoothness_loss`` (order 1 or 2) of the frame
-    of which the (N, H, W, 2) flow is its band: the differences across the
-    band's lower edge take the first ``order`` rows of the band below (none
-    at the frame's bottom, where the differences end), so each difference
-    is counted once; each term is the band's sum over the frame's count."""
+    of which the (N, H, W, 2) flow is its band: the differences that start
+    in the band take the next ``order`` rows below it, from whichever ranks
+    hold them (fewer near the frame's bottom, where the differences end),
+    so each difference is counted once, a thin or empty band's too; each
+    term is the band's sum over the frame's count."""
     n, h, w, c = flow.shape
-    below = spatial.exchange_rows(flow, band, (0,) * band.size, (order,) * band.size, dim=1,
-                                  mode="zeros")
-    if band.last:
-        below = below[:, :h]
+    bottoms = tuple(min(order, band.height - b) for _, b in band.bounds)
+    below = spatial.exchange_rows(flow, band, (0,) * band.size, bottoms, dim=1, mode="zeros")
     dy = below[:, 1:] - below[:, :-1]
     dx = flow[:, :, 1:] - flow[:, :, :-1]
     if order == 2:
@@ -277,15 +280,15 @@ class UnetSTN(nn.Module):
             skips.append((h, bd))
         flows = []  # (a head's field on its level's band, that band), coarse to fine
         for j, i in enumerate(reversed(range(self.depth))):
-            h, bd = F.interpolate(h, scale_factor=2, mode="nearest"), bd.up(2)
+            h, bd = spatial.up2(h), bd.up(2)
             h, bd = conv_band(getattr(self, f"Conv_{self.depth + j + len(flows)}"), h, bd)
             h = norm_act_band(h, bd, "leaky_relu")
             if i > 0:
+                # the up-sampled level's band re-cut to its skip's (the
+                # levels split unevenly: 7 rows over 2 ranks, 4 | 3, come
+                # back as 8 | 6 against a skip of 7 | 7)
                 skip, sb = skips[i - 1]
-                if sb != bd:
-                    raise ValueError(f"--mesh_spatial {band.size}: the UNet's bands at level "
-                                     f"{i} differ ({sb.bounds} and {bd.bounds}); the height "
-                                     f"must split evenly at every level")
+                h, bd = spatial.reband(h, bd, sb), sb
                 h = torch.cat([skip, h], dim=1)
                 wanted = self.multiscale and bd.height >= self.head_min_res
                 if wanted != (i in self.head_index):
@@ -297,7 +300,7 @@ class UnetSTN(nn.Module):
 
         def full(f, fb):  # a field at the output's resolution, this rank's rows
             if fb.height == hh:
-                return f
+                return spatial.reband(f, fb, band, dim=1)
             return resize_bilinear(spatial.gather_frame(f, fb, dim=1), hh, ww,
                                    slice(band.r0, band.r1))
 

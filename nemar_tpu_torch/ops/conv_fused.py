@@ -206,7 +206,10 @@ def block_kernel_supported(shape) -> bool:
     return c % _BN == 0 and h >= 2 and w >= 2
 
 
-def _check_cuda(what: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> None:
+def _check_cuda(what: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                band: bool = False) -> None:
+    """``band``: x is a band (--mesh_spatial) of any rows, one or none
+    included, its H padding the exchange's."""
     if not (x.is_cuda and w1.device == x.device and w2.device == x.device):
         raise ValueError(f"{what}: x, w1, w2 must be on one CUDA device")
     if not (x.dtype == w1.dtype == w2.dtype and x.dtype in (torch.float32, torch.bfloat16)):
@@ -218,7 +221,7 @@ def _check_cuda(what: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) 
     if tuple(w1.shape) != (3, 3, c, c) or tuple(w2.shape) != (3, 3, c, c):
         raise ValueError(f"{what}: weights {tuple(w1.shape)}, {tuple(w2.shape)} "
                          f"are not (3, 3, {c}, {c})")
-    if not block_kernel_supported(x.shape):
+    if not block_kernel_supported((n, 2, w, c) if band else x.shape):
         raise ValueError(f"{what}: shape {tuple(x.shape)} not supported "
                          f"(needs C % {_BN} == 0, H, W >= 2)")
 
@@ -394,11 +397,29 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 # rank holds (``parallel/spatial.py``), the frame's statistics and the
 # reflection at the frame's edges
 # ---------------------------------------------------------------------------
+def pad_tiles(part: torch.Tensor, groups: int, most: int) -> torch.Tensor:
+    """A band form's tile partials (groups * tiles, 2, C), each group's tiles
+    padded with zeros to ``most`` (the largest band's count), so that every
+    rank's partials all-gather in one shape (uneven, one-row and empty
+    bands); unchanged when they already have it."""
+    tiles = part.shape[0] // groups
+    if tiles == most:
+        return part
+    out = part.new_zeros((groups, most) + tuple(part.shape[1:]))
+    out[:, :tiles] = part.view((groups, tiles) + tuple(part.shape[1:]))
+    return out.view((groups * most,) + tuple(part.shape[1:]))
+
+
 def conv3x3_wreflect(xp: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """NHWC xp whose H rows are already padded (by 1 each side), HWIO w ->
-    the 3x3 conv over xp reflect-padded in W only: H - 2 output rows."""
+    the 3x3 conv over xp reflect-padded in W only: H - 2 output rows (an
+    empty band's none: a zero row's output, dropped, which keeps it in the
+    graph)."""
     xq = F.pad(xp.permute(0, 3, 1, 2), (1, 1, 0, 0), mode="reflect")
-    return F.conv2d(xq, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    rows = xq.shape[2] - 2
+    if rows == 0:
+        xq = F.pad(xq, (0, 0, 0, 1))
+    return F.conv2d(xq, w.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)[:, :rows]
 
 
 def resblock_band_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, band,
@@ -545,13 +566,14 @@ def block_band_fwd_cuda(x: torch.Tensor, xp: torch.Tensor, w1: torch.Tensor, w2:
     ``.launches_bf16`` and ``.stages_bf16``."""
     from nemar_tpu_torch.parallel import spatial
 
-    _check_cuda("block_band_fwd_cuda", x, w1, w2)
+    _check_cuda("block_band_fwd_cuda", x, w1, w2, band=True)
     if x.dtype == torch.bfloat16:
         return _block_band_fwd_bf16(x, xp, w1, w2, band, eps)
     n, h, w, c = x.shape
     w1, w2 = w1.contiguous(), w2.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
-    tiles = -(-h * w // 128)
+    tiles, most = -(-h * w // 128), -(-band.most * w // 128)
+    hw_all = spatial.band_pixels(band, w)
     wsplit = torch.empty((4, 9, c, c), **f32)
     y1, y2 = torch.empty((n, h, w, c), **f32), torch.empty((n, h, w, c), **f32)
     part = torch.empty((n * tiles, 2, c), **f32)
@@ -561,16 +583,16 @@ def block_band_fwd_cuda(x: torch.Tensor, xp: torch.Tensor, w1: torch.Tensor, w2:
     _aligned("block_band_fwd_cuda", x, xp, w1, w2)
     _build.launch("nemar_resblock_band_conv1", "ppppppiiii", xp, w1, w2, wsplit, y1, part,
                   n, h, w, c)
-    parts = spatial.gather_parts(part)
-    _build.launch("nemar_resblock_band_stats", "ppiiiiif", parts, stats, band.size, 0, n,
-                  h * w, c, eps)
+    parts = spatial.gather_parts(pad_tiles(part, n, most))
+    _build.launch("nemar_resblock_band_stats", "pppiiiiif", parts, stats, hw_all, band.size, 0,
+                  n, most, c, eps)
     one = (1,) * band.size
     y1p = spatial.exchange_rows(y1, band, one, one, dim=1, mode="reflect").contiguous()
     _build.launch("nemar_resblock_band_conv2", "pppppiiii", y1p, stats, wsplit, y2, part,
                   n, h, w, c)
-    parts = spatial.gather_parts(part)
-    _build.launch("nemar_resblock_band_residual", "pppppiiiif", parts, stats, x, y2, out,
-                  band.size, n, h * w, c, eps)
+    parts = spatial.gather_parts(pad_tiles(part, n, most))
+    _build.launch("nemar_resblock_band_residual", "ppppppiiiiif", parts, stats, hw_all, x, y2,
+                  out, band.size, n, h * w, most, c, eps)
     block_band_fwd_cuda.launches += 1
     block_band_fwd_cuda.stages += 4
     return out, (xp, y1, y1p, y2, stats)
@@ -592,7 +614,8 @@ def _block_band_fwd_bf16(x, xp, w1, w2, band, eps):
     n, h, w, c = x.shape
     w1, w2 = w1.contiguous(), w2.contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
-    tiles = -(-h * w // 128)
+    tiles, most = -(-h * w // 128), -(-band.most * w // 128)
+    hw_all = spatial.band_pixels(band, w)
     wt = torch.empty((2, 9, c, c), dtype=torch.bfloat16, device=x.device)
     y1, y2 = torch.empty((n, h, w, c), **f32), torch.empty((n, h, w, c), **f32)
     y1hat, h1 = torch.empty_like(x), torch.empty_like(x)
@@ -603,15 +626,15 @@ def _block_band_fwd_bf16(x, xp, w1, w2, band, eps):
     _aligned("block_band_fwd_cuda", x, xp, w1, w2)
     _build.launch("nemar_resblock_band_conv1_bf16", "ppppppiiii", xp, w1, w2, wt, y1, part,
                   n, h, w, c)
-    parts = spatial.gather_parts(part)
-    _build.launch("nemar_resblock_band_norm_relu_bf16", "pppppiiiif", parts, stats, y1, y1hat,
-                  h1, band.size, n, h * w, c, eps)
+    parts = spatial.gather_parts(pad_tiles(part, n, most))
+    _build.launch("nemar_resblock_band_norm_relu_bf16", "ppppppiiiiif", parts, stats, hw_all, y1,
+                  y1hat, h1, band.size, n, h * w, most, c, eps)
     one = (1,) * band.size
     h1p = spatial.exchange_rows(h1, band, one, one, dim=1, mode="reflect").contiguous()
     _build.launch("nemar_resblock_band_conv2_bf16", "ppppiiii", h1p, wt, y2, part, n, h, w, c)
-    parts = spatial.gather_parts(part)
-    _build.launch("nemar_resblock_band_residual_bf16", "pppppiiiif", parts, stats, x, y2, out,
-                  band.size, n, h * w, c, eps)
+    parts = spatial.gather_parts(pad_tiles(part, n, most))
+    _build.launch("nemar_resblock_band_residual_bf16", "ppppppiiiiif", parts, stats, hw_all, x,
+                  y2, out, band.size, n, h * w, most, c, eps)
     block_band_fwd_cuda.launches_bf16 += 1
     block_band_fwd_cuda.stages_bf16 += 4
     return out, (xp, y1hat, h1p, y2, stats)
@@ -632,6 +655,8 @@ def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1
     variant's five stages (``_block_band_bwd_bf16``)."""
     from nemar_tpu_torch.parallel import spatial
 
+    if g.shape[1] == 0:
+        return _block_band_bwd_empty(w1, w2, g, band)
     if g.dtype == torch.bfloat16:
         return _block_band_bwd_bf16(w1, w2, xp, y1, y1p, y2, stats, g, band)
     n, h, w, c = g.shape
@@ -639,6 +664,7 @@ def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1
     g = g.contiguous()
     f32 = dict(dtype=torch.float32, device=g.device)
     splits = wgrad_splits(n, h, w, c)
+    most, pixels = -(-band.most * w // _BM), band.height * w
     part_in = torch.empty((n * -(-h * w // _BM), 2, c), **f32)
     means = torch.empty((n, 2, c), **f32)
     wsplit = torch.empty((4, 9 * c, c), **f32)
@@ -649,16 +675,16 @@ def block_band_bwd_cuda(w1: torch.Tensor, w2: torch.Tensor, xp: torch.Tensor, y1
     _aligned("block_band_bwd_cuda", xp, y1, y1p, y2, g, w1, w2)
     _build.launch("nemar_resblock_band_bwd_part", "ppppiiiii", g, y2, stats, part_in, 2,
                   n, h, w, c)
-    parts = spatial.gather_parts(part_in)
-    _build.launch("nemar_resblock_band_bwd_dz2", "pppppppppppppiiiiii", parts, means, w1, w2,
-                  wsplit, g, y2, stats, dz, y1p, part_w, dw2, dpad, band.size, n, h, w, c,
-                  splits)
+    parts = spatial.gather_parts(pad_tiles(part_in, n, most))
+    _build.launch("nemar_resblock_band_bwd_dz2", "pppppppppppppiiliiiii", parts, means, w1, w2,
+                  wsplit, g, y2, stats, dz, y1p, part_w, dw2, dpad, band.size, most, pixels, n,
+                  h, w, c, splits)
     spatial.fold_halo_rows(dpad, band)
     _build.launch("nemar_resblock_band_bwd_part", "ppppiiiii", dpad, y1, stats, part_in, 1,
                   n, h, w, c)
-    parts = spatial.gather_parts(part_in)
-    _build.launch("nemar_resblock_band_bwd_dz1", "pppppppppiiiiii", parts, means, wsplit, dpad,
-                  y1, stats, dz, xp, part_w, band.size, n, h, w, c, splits)
+    parts = spatial.gather_parts(pad_tiles(part_in, n, most))
+    _build.launch("nemar_resblock_band_bwd_dz1", "pppppppppiiliiiii", parts, means, wsplit, dpad,
+                  y1, stats, dz, xp, part_w, band.size, most, pixels, n, h, w, c, splits)
     spatial.fold_halo_rows(dpad, band)
     _build.launch("nemar_resblock_band_bwd_dx", "pppppiiiii", g, dpad, dx, part_w, dw1,
                   n, h, w, c, splits)
@@ -683,6 +709,7 @@ def _block_band_bwd_bf16(w1, w2, xp, y1hat, h1p, y2, stats, g, band):
     g = g.contiguous()
     f32 = dict(dtype=torch.float32, device=g.device)
     splits = wgrad_splits(n, h, w, c, 64)
+    most, pixels = -(-band.most * w // _BM), band.height * w
     part_in = torch.empty((n * -(-h * w // _BM), 2, c), **f32)
     means = torch.empty((n, 2, c), **f32)
     dz = torch.empty_like(g)
@@ -692,21 +719,38 @@ def _block_band_bwd_bf16(w1, w2, xp, y1hat, h1p, y2, stats, g, band):
     _aligned("block_band_bwd_cuda", xp, y1hat, h1p, y2, g, w1, w2)
     _build.launch("nemar_resblock_band_bwd_part_bf16", "ppppiiiii", g, y2, stats, part_in, 2,
                   n, h, w, c)
-    parts = spatial.gather_parts(part_in)
-    _build.launch("nemar_resblock_band_bwd_dz2_bf16", "pppppppppppiiiiii", parts, means, g, y2,
-                  stats, dz, h1p, w2, part_w, dw2, dpad, band.size, n, h, w, c, splits)
+    parts = spatial.gather_parts(pad_tiles(part_in, n, most))
+    _build.launch("nemar_resblock_band_bwd_dz2_bf16", "pppppppppppiiliiiii", parts, means, g, y2,
+                  stats, dz, h1p, w2, part_w, dw2, dpad, band.size, most, pixels, n, h, w, c,
+                  splits)
     spatial.fold_halo_rows(dpad, band)
     _build.launch("nemar_resblock_band_bwd_part_bf16", "ppppiiiii", dpad, y1hat, stats, part_in,
                   1, n, h, w, c)
-    parts = spatial.gather_parts(part_in)
-    _build.launch("nemar_resblock_band_bwd_dz1_bf16", "pppppppppiiiiii", parts, means, dpad,
-                  y1hat, stats, dz, xp, w1, part_w, band.size, n, h, w, c, splits)
+    parts = spatial.gather_parts(pad_tiles(part_in, n, most))
+    _build.launch("nemar_resblock_band_bwd_dz1_bf16", "pppppppppiiliiiii", parts, means, dpad,
+                  y1hat, stats, dz, xp, w1, part_w, band.size, most, pixels, n, h, w, c, splits)
     spatial.fold_halo_rows(dpad, band)
     _build.launch("nemar_resblock_band_bwd_dx_bf16", "pppppiiiii", g, dpad, dx, part_w, dw1,
                   n, h, w, c, splits)
     block_band_bwd_cuda.launches_bf16 += 1
     block_band_bwd_cuda.stages_bf16 += 5
     return dx, dw1, dw2
+
+
+def _block_band_bwd_empty(w1, w2, g, band) -> tuple:
+    """K-block-bwd's band form on an empty band: no launch, this rank's
+    share of the collectives (zero partials, zero halo gradients) in the
+    order the other ranks make them; dw1 and dw2 its shares, zeros."""
+    from nemar_tpu_torch.parallel import spatial
+
+    n, _, w, c = g.shape
+    part = torch.zeros((n * -(-band.most * w // _BM), 2, c), dtype=torch.float32,
+                       device=g.device)
+    dpad = torch.zeros((n, 2, w + 2, c), dtype=torch.float32, device=g.device)
+    for _ in range(2):
+        spatial.gather_parts(part)
+        spatial.fold_halo_rows(dpad, band)
+    return torch.empty_like(g), torch.zeros_like(w1), torch.zeros_like(w2)
 
 
 class _FusedResblockBand(torch.autograd.Function):

@@ -450,13 +450,16 @@ def convt_band_fwd_cuda(xp: torch.Tensor, w: torch.Tensor, band, eps: float = 1e
     bf16), counted on ``.launches_bf16`` and ``.stages_bf16``."""
     from nemar_tpu_torch.parallel import spatial
 
+    from nemar_tpu_torch.ops.conv_fused import pad_tiles
+
     _check_cuda("convt_band_fwd_cuda", xp, w)
     bf = xp.dtype == torch.bfloat16
     n, hp, wd, ci = xp.shape
     h, co = hp - 1, w.shape[3]
     w = w.contiguous()
     f32 = dict(dtype=torch.float32, device=xp.device)
-    tiles = -(-h * wd // _BM)
+    tiles, most = -(-h * wd // _BM), -(-band.most * wd // _BM)
+    hw_all = spatial.band_pixels(band, wd)
     yhat = torch.empty((n, 2 * h, 2 * wd, co), dtype=xp.dtype, device=xp.device)
     out = torch.empty_like(yhat)
     part = torch.empty((n * 4 * tiles, 2, co), **f32)
@@ -467,18 +470,18 @@ def convt_band_fwd_cuda(xp: torch.Tensor, w: torch.Tensor, band, eps: float = 1e
         y = torch.empty((n, 2 * h, 2 * wd, co), **f32)
         _build.launch("nemar_convt_band_planes_bf16", "pppppiiiii", xp, w, wt, y, part,
                       n, h, wd, ci, co)
-        parts = spatial.gather_parts(part)
-        _build.launch("nemar_convt_band_apply_bf16", "pppppiiiiif", parts, stats, y, yhat, out,
-                      band.size, n, h, wd, co, eps)
+        parts = spatial.gather_parts(pad_tiles(part, 4 * n, most))
+        _build.launch("nemar_convt_band_apply_bf16", "ppppppiiiiiif", parts, stats, hw_all, y,
+                      yhat, out, band.size, n, h, wd, most, co, eps)
         convt_band_fwd_cuda.launches_bf16 += 1
         convt_band_fwd_cuda.stages_bf16 += 2
         return out, yhat, stats
     wsplit = torch.empty((2, 9, co, ci), **f32)
     _build.launch("nemar_convt_band_planes", "pppppiiiii", xp, w, wsplit, yhat, part,
                   n, h, wd, ci, co)
-    parts = spatial.gather_parts(part)
-    _build.launch("nemar_convt_band_apply", "ppppiiiiif", parts, stats, yhat, out, band.size,
-                  n, h, wd, co, eps)
+    parts = spatial.gather_parts(pad_tiles(part, 4 * n, most))
+    _build.launch("nemar_convt_band_apply", "pppppiiiiiif", parts, stats, hw_all, yhat, out,
+                  band.size, n, h, wd, most, co, eps)
     convt_band_fwd_cuda.launches += 1
     convt_band_fwd_cuda.stages += 2
     return out, yhat, stats
@@ -498,28 +501,35 @@ def convt_band_bwd_cuda(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
     halo row of dz from below; (3) dW's partials and their sum, and the
     dgrad over dz with its halo row. bf16 operands launch the bf16
     variant's three stages (dz, dw, dx bf16; W read as it lies)."""
+    from nemar_tpu_torch.ops.conv_fused import pad_tiles
     from nemar_tpu_torch.parallel import spatial
 
     n, hp, wd, ci = xp.shape
     h, co = hp - 1, w.shape[3]
+    up = band.up(2)
+    if h == 0:  # an empty band: no launch, its share of the collectives
+        spatial.gather_parts(torch.zeros((n * -(-(4 * band.most * wd) // _IN_TILE), 2, co),
+                                         dtype=torch.float32, device=xp.device))
+        spatial.exchange_rows(g, up, (0,) * band.size, (1,) * band.size, dim=1, mode="zeros")
+        return xp.new_empty((n, 0, wd, ci)), torch.zeros_like(w)
     w = w.contiguous()
     g = g.contiguous()
     bf = xp.dtype == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=xp.device)
     splits, per = wgrad_splits(n * h * wd, ci, co, 64 if bf else _BK)
+    most, pixels = -(-(4 * band.most * wd) // _IN_TILE), 4 * band.height * wd
     part_in = torch.empty((n * -(-(4 * h * wd) // _IN_TILE), 2, co), **f32)
     means = torch.empty((n, 2, co), **f32)
     dz = torch.empty_like(yhat)
     part_w = torch.empty((splits, 9 * ci, co), **f32)
     dw, dx = torch.empty_like(w), torch.empty((n, h, wd, ci), dtype=xp.dtype, device=xp.device)
     _aligned("convt_band_bwd_cuda", xp, w, yhat, stats, g)
-    up = band.up(2)
     if bf:
         _build.launch("nemar_convt_band_bwd_part_bf16", "pppiiii", g, yhat, part_in, n, h, wd,
                       co)
-        parts = spatial.gather_parts(part_in)
-        _build.launch("nemar_convt_band_bwd_dz_bf16", "ppppppiiiii", parts, means, g, yhat,
-                      stats, dz, band.size, n, h, wd, co)
+        parts = spatial.gather_parts(pad_tiles(part_in, n, most))
+        _build.launch("nemar_convt_band_bwd_dz_bf16", "ppppppiiliiii", parts, means, g, yhat,
+                      stats, dz, band.size, most, pixels, n, h, wd, co)
         dzp = spatial.exchange_rows(dz, up, (0,) * band.size, (1,) * band.size, dim=1,
                                     mode="zeros").contiguous()
         _build.launch("nemar_convt_band_bwd_dx_bf16", "ppppppiiiiiii", xp, dzp, w, part_w, dw,
@@ -529,9 +539,9 @@ def convt_band_bwd_cuda(xp: torch.Tensor, w: torch.Tensor, yhat: torch.Tensor,
         return dx, dw
     wsplit = torch.empty((2, 9 * ci, co), **f32)
     _build.launch("nemar_convt_band_bwd_part", "pppiiii", g, yhat, part_in, n, h, wd, co)
-    parts = spatial.gather_parts(part_in)
-    _build.launch("nemar_convt_band_bwd_dz", "ppppppppiiiiii", parts, means, g, yhat, stats,
-                  dz, w, wsplit, band.size, n, h, wd, ci, co)
+    parts = spatial.gather_parts(pad_tiles(part_in, n, most))
+    _build.launch("nemar_convt_band_bwd_dz", "ppppppppiiliiiii", parts, means, g, yhat, stats,
+                  dz, w, wsplit, band.size, most, pixels, n, h, wd, ci, co)
     dzp = spatial.exchange_rows(dz, up, (0,) * band.size, (1,) * band.size, dim=1,
                                 mode="zeros").contiguous()
     _build.launch("nemar_convt_band_bwd_dx", "ppppppiiiiiii", xp, dzp, wsplit, part_w, dw, dx,

@@ -222,10 +222,10 @@ def _stats_dtype(x: torch.Tensor) -> torch.dtype:
 
 def in_band_part_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of K-in's band partials, one chunk a band: (N, 1, 3, C)
-    float64 = (count, mean, M2) of the band."""
+    float64 = (count, mean, M2) of the band (an empty band's all 0)."""
     xd = x.double()
     n, h, w, c = x.shape
-    mean = xd.mean(dim=(1, 2))
+    mean = xd.sum(dim=(1, 2)) / max(h * w, 1)
     m2 = torch.square(xd - mean[:, None, None]).sum(dim=(1, 2))
     return torch.stack([torch.full_like(mean, h * w), mean, m2], dim=1)[:, None]
 
@@ -282,7 +282,7 @@ class _InstanceNormActBand(torch.autograd.Function):
 
         cuda = x.is_cuda and not plain
         n, h, w, c = x.shape
-        ctx.chunks = norm_cuda.band_chunks(max(b - a for a, b in band.bounds) * w)
+        ctx.chunks = norm_cuda.band_chunks(band.most * w)
         if cuda:
             parts = spatial.gather_parts(norm_cuda.in_band_part_cuda(x, ctx.chunks))
             y, stats = norm_cuda.in_band_apply_cuda(x, parts, act, eps, slope)

@@ -5,9 +5,10 @@ mesh.py``). A run at ``--num_devices W --mesh_spatial s`` equals the
 one-process run on the same global batch.
 
 The ranks run on the CPU over gloo (``parallel.launch``), in float64, at
-64^2 with ngf 8, ndf 8, stn_ngf 8 and stn_depth 3 (D at 32^2 over 2 ranks
-is refused: its band of 1 row would send 2), and the primitives and band
-forms on small frames. Held:
+64^2 with ngf 8, ndf 8, stn_ngf 8 and stn_depth 3 (every level's bands
+even; the uneven, one-row and empty bands of other heights, 32^2 the JAX
+package's own, are ``tests/test_torch_spatial_geometry.py``'s), and the
+primitives and band forms on small frames. Held:
 
   * ``exchange_rows``, ``gather_frame`` and ``fold_halo_rows``, forward and
     adjoint, at s = 2 and 4: the exchange against the padded frame of one
@@ -32,8 +33,10 @@ forms on small frames. Held:
     --eval_registration`` at spatial 2 against one process;
   * the refusals (ROADMAP.md A10c: --steps_per_execution > 1, --norm
     other than instance, the UNet G and the pixel D), the flags held in
-    bands accepted, an undivided height, a band thinner than a halo it
-    must send.
+    bands accepted, an undivided height; the geometries once refused (a
+    band thinner than a halo it must send, an empty output band, a height
+    the levels split unevenly) held (``tests/test_torch_spatial_geometry.py``
+    holds them in full).
 """
 
 import os
@@ -114,17 +117,21 @@ def _primitives_rank(s):
     assert torch.equal(whole, frame)
     (gx,) = torch.autograd.grad(whole, x, torch.full_like(frame, float(j + 1)))
     assert torch.equal(gx, torch.full_like(x, s * (s + 1) / 2))
-    # fold_halo_rows: the interior halo rows of a padded gradient go to
-    # their owners, the frame's edges stay
+    # fold_halo_rows: the halo rows of a padded gradient go to their
+    # owners, and at the frame's edges onto the rows they reflect; every
+    # halo row is zeroed
     blocks = torch.from_numpy(np.random.default_rng(5).standard_normal((s, 16 // s + 2, 2, 5)))
     folded = spatial.fold_halo_rows(blocks[j].clone(), band, dim=0)
     want = blocks[j].clone()
     if j > 0:
         want[1] += blocks[j - 1][-1]
-        want[0] = 0
+    else:
+        want[2] += blocks[j][0]
     if j < s - 1:
         want[-2] += blocks[j + 1][0]
-        want[-1] = 0
+    else:
+        want[-3] += blocks[j][-1]
+    want[0] = want[-1] = 0
     assert torch.equal(folded, want)
     return worst
 
@@ -270,7 +277,10 @@ def _hold_ranks(ranks, want_nets, want, host, roundoff=None):
     roundoff of zero (at most 2 + 1e-4 of them, ``test_torch_parallel``'s
     rule), and ``roundoff``'s parameters ({net: keys}: a gradient that is 0
     but for roundoff, such as D's last bias under wgangp, where the real
-    and the fake terms cancel)."""
+    and the fake terms cancel). A bias whose weight's gradient is 0 (a
+    norm over one pixel a channel gives 0, as the UNet's bottom level of
+    one row at --stn_depth 5 and 32^2) is held to 1e-9 of its net's whole
+    gradient."""
     first = ranks[0][0]
     bound = 1.1 * tp.LR
     for nets, losses in ranks:
@@ -288,7 +298,9 @@ def _hold_ranks(ranks, want_nets, want, host, roundoff=None):
                     continue
                 if k in skip:
                     weight = params[k.replace(".bias", ".weight")][1]
-                    scale = float(torch.linalg.vector_norm(weight))
+                    scale = float(torch.linalg.vector_norm(weight)) or float(
+                        torch.linalg.vector_norm(torch.cat([
+                            q.reshape(-1) for _, q in params.values() if q is not None])))
                     assert float((nets[n][k][1] - g).abs().max()) <= 1e-9 * scale, (n, k)
                 else:
                     assert tp._rel(nets[n][k][1], g) <= 1e-9, (n, k, tp._rel(nets[n][k][1], g))
@@ -328,6 +340,14 @@ def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
     D's last bias, whose gradient is 0 there, 0 here too). The JAX package
     routes its warp to the one-hot matmul path that GSPMD shards; the
     function is the same."""
+    hold_against_jax(tmp_path, [*SPATIAL, *recipe, "--batch_size", "2"], 64,
+                     "wgangp" in recipe)
+
+
+def hold_against_jax(tmp_path, flags, size, wgangp=False):
+    """``test_two_rank_spatial_step_matches_jax``'s comparison of the port's
+    (data 1, spatial 2) step with ``flags`` on a batch of 2 at ``size``^2
+    against the JAX package's."""
     import jax
     import jax.numpy as jnp
     import test_torch_a5_step as a5
@@ -338,14 +358,13 @@ def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
     from nemar_tpu.parallel import replicate, shard_batch
     from nemar_tpu_torch.utils.convert import flax_to_torch
 
-    flags = [*SPATIAL, *recipe, "--batch_size", "2"]
     jm = fam._jax_model(tmp_path, [*flags, "--num_devices", "2", "--mesh_spatial", "2"])
     assert dict(jm.mesh.shape) == {"data": 1, "spatial": 2}
     rng = np.random.default_rng(11)
     params = {n: fam._draw(getattr(jm.state, f"params_{n}"), rng) for n in "GDR"}
     rec = []
     jm.tx, jm.tx_R = tt._recording(jm.tx, "GD", rec), tt._recording(jm.tx_R, "R", rec)
-    batch = _batch(2, 64, 13)
+    batch = _batch(2, size, 13)
     with pa.jax_float64():
         p = {n: fam._f64(t) for n, t in params.items()}
         state = replicate(jm.state.replace(
@@ -369,7 +388,6 @@ def test_two_rank_spatial_step_matches_jax(tmp_path, recipe):
     host = create_model(TrainOptions().parse(argv))
     host.to_dtype(F64)
     states = {n: flax_to_torch(params[n], host.nets()[n], F64) for n in "GDR"}
-    wgangp = "wgangp" in recipe
     ranks = _launch(_step_rank, 2, [*argv, "--num_devices", "2", "--mesh_spatial", "2"], states,
                     batch, 2, alphas if wgangp else None)
     (nets, losses), (nets1, losses1) = ranks
@@ -501,28 +519,49 @@ def test_test_model_refused_under_spatial(tmp_path):
 
 def test_geometry_refusals(tmp_path):
     """s must divide the device count (the JAX package's make_mesh error)
-    and every level's height; a band thinner than a halo it must send is
-    refused by Band.conv."""
+    and the image height (its device_put of an H sharded on 'spatial');
+    every other height is held (``test_band_geometry_held``)."""
     with pytest.raises(ValueError, match="must divide device count 3"):
         port_train.main([*RUN, *SPATIAL, "--checkpoints_dir", str(tmp_path), "--num_devices",
                          "3", "--mesh_spatial", "2"])
     with pytest.raises(ValueError, match="must divide device count 1"):
         port_train.main([*RUN, *SPATIAL, "--checkpoints_dir", str(tmp_path), "--mesh_spatial",
                          "2"])
-    opt = TrainOptions().parse([*RUN, *SPATIAL, "--crop_size", "40", "--load_size", "40",
-                                "--checkpoints_dir", str(tmp_path), "--mesh_spatial", "2"])
-    with pytest.raises(ValueError, match="multiple of 16"):
-        create_model(opt)
     with pytest.raises(ValueError, match="does not divide the image height 30"):
         spatial.Band.split(30, 4, 0)
-    # D at 32^2 over 2 ranks: 4 rows -> 3 (bands 2 and 1) -> the next k4 s1
-    # conv reads 2 rows below rank 0's band from a band of 1
-    band = spatial.Band.split(4, 2, 0).conv(4, 1, 1)[0]
-    assert band.bounds == ((0, 2), (2, 3))
-    with pytest.raises(ValueError, match="is empty"):
-        band.conv(4, 1, 1)
-    with pytest.raises(ValueError, match="thinner than a halo it must send"):
-        spatial.Band(((0, 1), (1, 8)), 1, 8).conv(5, 1, 2)
+
+
+# geometries Band.conv refused until the band geometry's slice, held since:
+# (bands, conv (k, stride, pad)) -> (output bounds, tops, bottoms); an empty
+# output band reads the k rows of the row it would hold next
+GEOMETRY_HELD = {
+    # D at 32^2 over 2 ranks: 3 rows in bands of 2 and 1 -> 2 rows, bands
+    # of 2 and none: rank 0 reads rows 2-3 (row 2 rank 1's band of 1, row
+    # 3 padding), rank 1 the rows 1-4 of the row it would hold next
+    "D 32^2, 3 -> 2 rows": ((((0, 2), (2, 3)), (4, 1, 1)), (((0, 2), (2, 2)), (1, 1), (2, 2))),
+    # a band of 1 row sends 2
+    "thin k5": ((((0, 1), (1, 8)), (5, 1, 2)), (((0, 1), (1, 8)), (2, 2), (2, 2))),
     # a halo of 3 rows reflected at the frame's edge from a band of 3
-    with pytest.raises(ValueError, match="thinner than a halo"):
-        spatial.Band.split(6, 2, 0).conv(7, 1, 3)
+    "reflect k7 of 6 rows": ((((0, 3), (3, 6)), (7, 1, 3)), (((0, 3), (3, 6)), (3, 3), (3, 3))),
+    # 40^2's STN at s = 2: 5 rows in 3 | 2 -> 3 rows in 2 | 1
+    "40^2 STN k3 s2": ((((0, 3), (3, 5)), (3, 2, 1)), (((0, 2), (2, 3)), (1, 0), (1, 1))),
+    # over 3 ranks, the middle band empty
+    "empty middle k3": ((((0, 1), (1, 1), (1, 4)), (3, 1, 1)),
+                        (((0, 1), (1, 1), (1, 4)), (1, 1, 1), (1, 2, 1))),
+}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRY_HELD))
+def test_band_geometry_held(tmp_path, name):
+    """Each geometry Band.conv refused before is taken, with the bounds,
+    tops and bottoms of its ownership rule (output row i is the band's
+    that holds input row stride * i); and a height the levels split
+    unevenly (40^2: G's and the STN's 5-row levels over 2 ranks) builds."""
+    (bounds, conv), want = GEOMETRY_HELD[name]
+    h = bounds[-1][1]
+    out, tops, bottoms = spatial.Band(bounds, 0, h).conv(*conv)
+    assert (out.bounds, tops, bottoms) == want
+    if name == "40^2 STN k3 s2":
+        opt = TrainOptions().parse([*RUN, *SPATIAL, "--crop_size", "40", "--load_size", "40",
+                                    "--checkpoints_dir", str(tmp_path), "--mesh_spatial", "2"])
+        create_model(opt)

@@ -28,7 +28,8 @@ The ranks run on the CPU over gloo, at ``test_torch_spatial.py``'s size
     bf16-vs-fp32 difference, floored at Q = 2^-8 for a scalar), and by its
     rule (b) against the fp32 band step;
   * ``create_model`` under --mesh_spatial 2 takes the seven flags alone and
-    together, and refuses a band height the pyramid cannot pool.
+    together, and a band height that is not a multiple of 2^K under
+    --recon_pyramid K (the bands re-cut to even bounds before each pool).
 """
 
 import numpy as np
@@ -160,7 +161,9 @@ def _forms_rank(s):
     xb, band = x[:, :, b64.r0:b64.r1], b64
     e = 0.0
     for _ in range(3):
-        xb, x, band = F.avg_pool2d(xb, 2), F.avg_pool2d(x, 2), band.down(2)
+        even = band.aligned(2)
+        xb, band = spatial.pool2(spatial.reband(xb, band, even)), even.pooled(2)
+        x = F.avg_pool2d(x, 2)
         e = max(e, err(xb, x[:, :, band.r0:band.r1]))
         e = max(e, err(ts._group_sum(spatial.frame_mean(xb, band)), x.mean()))
     errs["pyramid"] = e
@@ -360,10 +363,15 @@ def test_recipe_flags_accepted_under_spatial(tmp_path, flags):
 
 
 def test_pyramid_band_height_refused(tmp_path):
-    """--recon_pyramid K pools each band 2x2 K times on its own: a band
-    height (64 / 2 = 32 rows) not a multiple of 2^K is refused by name."""
+    """--recon_pyramid K re-cuts the bands to even bounds before each 2x2
+    pool: a band height (64 / 2 = 32 rows) not a multiple of 2^K (K = 6) is
+    held under --mesh_spatial 2; a crop that 2^K does not divide (K = 7) is
+    refused by name, in bands as in one process and in the JAX package."""
     opt = TrainOptions().parse([*ts.RUN, *ts.SPATIAL, "--checkpoints_dir", str(tmp_path),
                                 "--mesh_spatial", "2", "--recon_pyramid", "6"])
-    with pytest.raises(ValueError, match="recon_pyramid 6.*multiple of 64.*A10c"):
+    create_model(opt)
+    opt = TrainOptions().parse([*ts.RUN, *ts.SPATIAL, "--checkpoints_dir", str(tmp_path),
+                                "--mesh_spatial", "2", "--recon_pyramid", "7"])
+    with pytest.raises(ValueError, match="recon_pyramid 7 needs --crop_size divisible by 128"):
         create_model(opt)
 
