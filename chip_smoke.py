@@ -331,6 +331,25 @@ is not 0.
      the band forms of K-in, K-block, K-convt and K-head, forward and
      backward, fp32 and bf16, on bands of 33 | 32, 1 | 64 and (K-in) 0 |
      65 rows (GEOMETRY_BANDS), as phase 19's (``check_band_kernels``).
+  19e. the template models in bands (``run_spatial_templates``; two ranks
+     on cuda:0 over gloo, SPATIAL_TEMPLATES), at full width: (a) pix2pix
+     at its template defaults (unet_256, batch norm, dropout, vanilla,
+     256^2 b1: the innermost level of one row in bands of 1 and none, the
+     dropout masks the frame's cut to the bands), (b) cycle_gan at its
+     template defaults (resnet_9blocks, instance norm, a pool of 50, 256^2
+     b1), each SPATIAL_TEMPLATE_STEPS steps from a state saved from the
+     seed; (c) NeMAR's default network under --norm batch --netD pixel,
+     b8, one step, G and R from phase 6's state; (d) --model test, parsed
+     as test.py parses it, serving (b)'s G_A as the ranks saved it, a b1
+     request. The ranks bit-identical after every step, the launches per
+     step and rank asserted (SPATIAL_TEMPLATE_LAUNCHES: none on (a), the
+     band forms' and K-head's on (b), K-head's, K-warp's and R's K-in band
+     forms on (c)), each cell's first step within phase 6's limits of the
+     one-process step, the request within 1e-3 of the one-process
+     request, ms a step and rank and each rank's peak memory beside one
+     process's. Its ``[spatial_kernels]``: the band forms of K-in, K-block,
+     K-convt and K-head, forward and backward, fp32, at cycle_gan's b1
+     band shapes, against their plain band forms, bit for bit twice.
 
 The smoke's total time is printed (``[total]``) before the device lines.
 The line before the last is a JSON object with one entry per kernel. For a
@@ -1799,14 +1818,16 @@ def run_layout_flags(ckpt: str) -> None:
 
 def _zero_grad_biases(model) -> dict:
     """Per net, the biases whose gradient is 0 up to roundoff: those of
-    convolutions followed by instance norm and, under wgangp, D's output
+    convolutions followed by a norm (instance or batch) and, under wgangp, D's output
     bias (the Wasserstein loss moves by +1 and -1 with it, and the penalty,
     a gradient in D's input, does not see it)."""
     g = {k for k in model.netG.state_dict() if k.endswith(".bias")
          and not k.startswith(f"Conv_{1 + model.netG.n_downsampling}.")}
-    d = {f"Conv_{i}.bias" for i in range(1, model.netD.n_layers + 1)}
+    # the pixel D: its Conv_1, before its norm, and Conv_2 its output
+    n_layers = getattr(model.netD, "n_layers", 1)
+    d = {f"Conv_{i}.bias" for i in range(1, n_layers + 1)}
     if model.gan_mode == "wgangp":
-        d.add(f"Conv_{model.netD.n_layers + 1}.bias")
+        d.add(f"Conv_{n_layers + 1}.bias")
     net_r = model.netR
     if hasattr(net_r, "n_downs"):  # the affine STN
         r = {f"Conv_{i}.bias" for i in range(net_r.n_downs)}
@@ -4625,6 +4646,47 @@ def geometry_launches(depth: int) -> tuple:
             {**SPATIAL_BAND_STEP, "K-in": (k_in, 2 * k_in), "K-in-bwd": (k_in, 2 * k_in)})
 
 
+# phase 19e: the template models in bands, two ranks of one spatial group on
+# cuda:0 over gloo, at full width: (a) pix2pix at its template defaults
+# (PIX2PIX_ARGS: unet_256, ngf and ndf 64, batch norm, dropout on, vanilla
+# GAN, 256^2, b1: eight levels down to one row in bands of 1 and none, the
+# dropout masks cut to the bands) and (b) cycle_gan at its template defaults
+# (CYCLE_ARGS: resnet_9blocks, instance norm, lsgan, a pool of 50, 256^2,
+# b1), each from a state saved from the seed, SPATIAL_TEMPLATE_STEPS steps;
+# (c) NeMAR's default network (TRAIN_ARGS) under --norm batch --netD pixel
+# at b8, G and R from phase 6's shared state and D from the seed, 1 step;
+# (d) the test model (test.py's parse, --model test --model_suffix _A)
+# serving (b)'s G_A as the ranks saved it after their steps, a b1 request
+SPATIAL_TEMPLATE_STEPS = 2
+SPATIAL_TEMPLATES = {
+    "pix2pix": (PIX2PIX_ARGS, 1, SPATIAL_TEMPLATE_STEPS),
+    "cycle_gan": (CYCLE_ARGS, 1, SPATIAL_TEMPLATE_STEPS),
+    "nemar_batch_pixel": ([*TRAIN_ARGS, "--norm", "batch", "--netD", "pixel"], TRAIN_BATCH, 1),
+}
+# launches per step and rank, worked out from phases 13 and 19
+# (CYCLE_STEP_LAUNCHES, SPATIAL_BAND_STEP's stages a call):
+#  * pix2pix none: the UNet, batch norm and the PatchGAN are stock
+#    convolutions and norms, as the JAX package's XLA (phase 14);
+#  * cycle_gan: K-head on the padded band (6 G passes, each in a backward);
+#    the band forms' calls where phase 13's step makes one (K-in 30,
+#    K-block 54, K-convt 12 and their backwards), (calls, stages);
+#  * NeMAR under batch norm with the pixel D: K-head and K-warp as phase
+#    19's step, R's instance norms the band forms (2 a level, 5 levels);
+#    G's trunk, decoder and norms and D stock;
+#  * the test model's request: G_A once, without a backward
+SPATIAL_TEMPLATE_LAUNCHES = {
+    "pix2pix": ({}, _BAND_ZERO),
+    "cycle_gan": ({"K-head": 6, "K-head-bwd": 6},
+                  {**_BAND_ZERO, "K-in": (30, 60), "K-in-bwd": (30, 60),
+                   "K-block": (54, 216), "K-block-bwd": (54, 270), "K-convt": (12, 24),
+                   "K-convt-bwd": (12, 36)}),
+    "nemar_batch_pixel": ({"K-head": 2, "K-head-bwd": 2, "K-warp": 1, "K-warp-bwd": 1},
+                          {**_BAND_ZERO, "K-in": (10, 20), "K-in-bwd": (10, 20)}),
+    "request": ({"K-head": 1}, {**_BAND_ZERO, "K-in": (3, 6), "K-block": (9, 36),
+                                "K-convt": (2, 4)}),
+}
+
+
 # test_torch_bf16.py's rule (a): a tensor of at most BF16_FEW elements is
 # held as a scalar, its e floored at BF16_Q, bf16's relative spacing
 BF16_Q = 2.0**-8
@@ -4997,7 +5059,7 @@ def read_band_counters() -> dict:
     return out
 
 
-def check_band_kernels(geometry: bool = False) -> dict:
+def check_band_kernels(geometry: bool = False, templates: bool = False) -> dict:
     """Phase 19's ``[spatial_kernels]``, in a rank of the spatial group:
     each kernel's band form on the card against its plain band form on
     the card (the plain ops with the same exchanges), at the band shapes of
@@ -5028,7 +5090,13 @@ def check_band_kernels(geometry: bool = False) -> dict:
     reflected across the band of one) and, for K-in, of 0 and 65
     (``(empty)``), fp32 and bf16 (K-head fp32: its bf16 runs the fp32 kernel
     behind casts); each case's band-form calls and stage launches counted
-    (``launches``). An empty band's errors are its partner's (0 here)."""
+    (``launches``). An empty band's errors are its partner's (0 here).
+
+    With ``templates`` (phase 19e) the fp32 band forms at cycle_gan's b1
+    band shapes (ngf, ndf 64, 256^2 over the two ranks): G's first K-in,
+    a trunk block (256 channels, a 64-row frame in 32 | 32), both decoder
+    stages, the head, and D's last normed conv over [real; fake] (31 rows
+    in 16 | 15); each case's calls and stages counted (``launches``)."""
     from nemar_tpu_torch import parallel
     from nemar_tpu_torch.ops import conv_fused, conv_head, convt_fused, norm, norm_cuda
     from nemar_tpu_torch.ops.warp import grid_sample, grid_sample_plain, identity_grid
@@ -5129,12 +5197,12 @@ def check_band_kernels(geometry: bool = False) -> dict:
                  x, spatial.gather_parts(norm_cuda.in_band_part_cuda(x, chunks)), act, 1e-5, 0.2),
                  (norm.instance_norm_act_band(x, band, act, plain=True), norm.in_band_stats(x))))
 
-    def block_case(name, tag, dt, side, c, band=None):
+    def block_case(name, tag, dt, side, c, band=None, batch=TRAIN_BATCH):
         # a side x side frame (of band's height, given a band)
         band = band or spatial.Band.split(side, SPATIAL, j)
-        gemm = 2 * 2 * TRAIN_BATCH * band.rows * side * 9 * c * c  # two 3x3 convs of the band
+        gemm = 2 * 2 * batch * band.rows * side * 9 * c * c  # two 3x3 convs of the band
         case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-block"], TOL["K-block-bwd"])),
-             [frame(TRAIN_BATCH, band.height, side, c).to(dt)],
+             [frame(batch, band.height, side, c).to(dt)],
              [(frame(3, 3, c, c) * 0.02).to(dt), (frame(3, 3, c, c) * 0.02).to(dt)],
              band, lambda x, w1, w2: conv_fused.fused_resblock_band(x, w1, w2, band),
              lambda x, w1, w2: conv_fused.resblock_band_plain(x, w1, w2, band),
@@ -5145,16 +5213,16 @@ def check_band_kernels(geometry: bool = False) -> dict:
              plain_from_saved=(lambda *a: conv_fused.resblock_band_bwd_plain_bf16(*a, band))
              if tag and geometry else None)
 
-    def convt_case(name, tag, dt, hh, ci, co, band=None):
+    def convt_case(name, tag, dt, hh, ci, co, band=None, batch=TRAIN_BATCH):
         band = band or spatial.Band.split(hh, SPATIAL, j)
-        gemm = 2 * TRAIN_BATCH * band.rows * hh * 9 * ci * co
+        gemm = 2 * batch * band.rows * hh * 9 * ci * co
 
         def xp(x):
             return spatial.exchange_rows(x, band, (1,) * band.size, (0,) * band.size, dim=1,
                                          mode="zeros").contiguous()
 
         case(name, *((BF16_ULPS, BF16_ULPS) if tag else (TOL["K-convt"], TOL["K-convt-bwd"])),
-             [frame(TRAIN_BATCH, band.height, hh, ci).to(dt)],
+             [frame(batch, band.height, hh, ci).to(dt)],
              [(frame(3, 3, ci, co) * 0.02).to(dt)], band,
              lambda x, w: convt_fused.fused_convt_in_band(x, w, band),
              lambda x, w: convt_fused.convt_band_plain(x, w, band),
@@ -5168,9 +5236,9 @@ def check_band_kernels(geometry: bool = False) -> dict:
                  lambda out, saved: (out, *saved[1:]))(
                      *convt_fused.convt_band_fwd_plain_bf16(x, w, band))))
 
-    def head_case(name, band, width):
+    def head_case(name, band, width, batch=TRAIN_BATCH):
         three = (3,) * band.size
-        case(name, TOL["K-head"], TOL["K-head-bwd"], [frame(TRAIN_BATCH, band.height, width, 64)],
+        case(name, TOL["K-head"], TOL["K-head-bwd"], [frame(batch, band.height, width, 64)],
              [frame(7, 7, 64, 3) * 0.02], band,
              lambda x, w: conv_head.conv_head_band(x, w, band),
              lambda x, w: conv_head.conv_head_plain(spatial.exchange_rows(
@@ -5193,6 +5261,15 @@ def check_band_kernels(geometry: bool = False) -> dict:
     # D's third normed conv, 31 rows in bands of 16 and 15
     b256 = spatial.Band.split(256, SPATIAL, j)
     b31 = b256.conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 2, 1)[0].conv(4, 1, 1)[0]
+    if templates:
+        f32 = torch.float32
+        in_case("K-in (cycle_gan)", "", f32, (1, 256, 256, 64), b256, "relu")
+        in_case("K-in (cycle_gan D, 31 rows)", "", f32, (2, 31, 31, 512), b31, "leaky_relu")
+        block_case("K-block (cycle_gan)", "", f32, 64, 256, batch=1)
+        for hh, ci, co in ((64, 256, 128), (128, 128, 64)):
+            convt_case(f"K-convt {ci}->{co} (cycle_gan)", "", f32, hh, ci, co, batch=1)
+        head_case("K-head (cycle_gan)", b256, 256, batch=1)
+        return out
     for tag, dt in dts:
         in_case("K-in" + tag, tag, dt, (TRAIN_BATCH, 256, 256, 64), b256, "relu")
     in_case("K-in (D, 31 rows)", "", torch.float32, (2 * TRAIN_BATCH, 31, 31, 512), b31,
@@ -5448,8 +5525,9 @@ def run_spatial(ckpt: str) -> None:
     return ranks[0]["kernels"], {k: v[1] for k, v in ranks[0]["band_launches"][0].items()}
 
 
-def _band_steps_rank(cells: list, requests: dict | None = None) -> list:
-    """Phases 19b, 19c and 19d inside their rank: for each (args, batches) a
+def _band_steps_rank(cells: list, requests: dict | None = None,
+                     saves: dict | None = None) -> list:
+    """Phases 19b-19e inside their rank: for each (args, batches) a
     model from the args' saved state takes a step on each batch; -> per cell
     the ms of each step, the state's digest, the launches
     (``zero_all_counters``, ``read_band_counters``, zeroed before each step;
@@ -5457,7 +5535,9 @@ def _band_steps_rank(cells: list, requests: dict | None = None) -> list:
     losses after the first, the peak memory over the first and, at rank 0,
     the parameters and gradients after the first (on the host). A cell
     with a request in ``requests`` ({cell index: batch}) answers it after
-    its steps; rank 0 returns the gathered visuals and the parameters."""
+    its steps; rank 0 returns the gathered visuals and the parameters. A
+    cell in ``saves`` ({cell index: suffix}) is then saved under that suffix
+    (every rank in the save, rank 0 writing; a barrier after it)."""
     from nemar_tpu_torch import parallel
     from nemar_tpu_torch.models import networks
     from nemar_tpu_torch.models.base_model import state_digest, to_host
@@ -5518,6 +5598,9 @@ def _band_steps_rank(cells: list, requests: dict | None = None) -> list:
                     out["final_params"] = {n: {k: to_host(p) for k, p in
                                                net.named_parameters()}
                                            for n, net in model.nets().items()}
+            if saves and len(outs) in saves:
+                model.save_networks(saves[len(outs)])
+                torch.distributed.barrier()
             outs.append(out)
             del model
     finally:
@@ -5966,6 +6049,176 @@ def run_spatial_geometry(ckpt: str) -> None:
                         ("A",), adam_t=1)
 
 
+def _spatial_templates_rank(cells: list, serve: list, request: dict) -> dict:
+    """Phase 19e inside its rank: ``check_band_kernels(templates=True)``;
+    ``_band_steps_rank`` on the cells, the cycle_gan cell saved after its
+    steps as ``templates_steps``; then the test model of ``serve`` (as
+    test.py parses it) answering ``request`` in bands, its launches
+    counted: rank 0 returns its visuals."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.models import create_model
+    from nemar_tpu_torch.options import TestOptions
+
+    fp32_only()
+    parallel.set_mesh(SPATIAL)
+    out = {"kernels": check_band_kernels(templates=True), "rank": parallel.rank(),
+           "cells": _band_steps_rank(cells, saves={list(SPATIAL_TEMPLATES).index("cycle_gan"):
+                                                   "templates_steps"})}
+    opt = TestOptions().parse(serve)
+    model = create_model(opt)
+    model.setup(opt)
+    counters, _ = zero_all_counters()
+    zero_band_counters()
+    model.set_input(request)
+    model.test()
+    torch.cuda.synchronize()
+    out["request_launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["request_band_launches"] = read_band_counters()
+    if parallel.rank() == 0:
+        out["request"] = dict(model.get_current_visuals())
+    return out
+
+
+def _template_skip(model) -> dict:
+    """Per net, the biases of zero gradient up to roundoff of a phase 19e
+    cell (``step_against_cpu``'s ``skip``): NeMAR's ``_zero_grad_biases``;
+    else a norm follows each but the ResNet head's, the UNet's first and
+    innermost convolutions' and its outermost transposed one's, and D's
+    first and last ones'."""
+    if hasattr(model, "netR"):
+        return _zero_grad_biases(model)
+
+    def skip(net):
+        if hasattr(net, "num_downs"):
+            return _unet_norm_biases(net)
+        if hasattr(net, "n_layers"):
+            return {f"Conv_{i}.bias" for i in range(1, net.n_layers + 1)}
+        head = f"Conv_{1 + net.n_downsampling}.bias"
+        return {k for k in net.state_dict() if k.endswith(".bias") and k != head}
+
+    return {n: skip(net) for n, net in model.nets().items()}
+
+
+def run_spatial_templates(ckpt: str) -> None:
+    """Phase 19e: the template models in bands (SPATIAL_TEMPLATES) over two
+    ranks sharing cuda:0 (gloo): per cell a state saved here (from the
+    seed; NeMAR's G and R phase 6's), then ``_spatial_templates_rank``; the
+    band forms at cycle_gan's b1 band shapes held against their plain band
+    forms, bit for bit twice (``[spatial_kernels]``); the ranks
+    bit-identical after every step; the launches per step and rank
+    (SPATIAL_TEMPLATE_LAUNCHES); each cell's first step within phase 6's
+    limits of the one-process step (``_hold_two_ranks``); the test model's
+    request in bands within the inference limit (1e-3) of the one-process
+    request from the same checkpoint; ms a step and rank, and each rank's
+    peak memory over its first step beside one process's."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.models import create_model
+    from nemar_tpu_torch.options import TestOptions
+
+    dev = torch.device("cuda", 0)
+    cells = []
+    for name, (flags, batch, steps) in SPATIAL_TEMPLATES.items():
+        args = [*flags, "--checkpoints_dir", ckpt, "--gpu_ids", "0", "--batch_size", str(batch),
+                "--name", f"spatial_templates_{name}"]
+        m = train_model(args)
+        if name == "nemar_batch_pixel":  # G and R phase 6's, D from the seed
+            for n in "GR":
+                m.nets()[n].load_state_dict(torch.load(
+                    os.path.join(ckpt, "smoke_train", f"smoke6_net_{n}.pth"), map_location=dev,
+                    weights_only=True))
+        m.save_networks("templates")
+        del m
+        pairs = (request_batches(steps, batch, seed=59) if name.startswith("nemar")
+                 else pair_batches(steps, batch, seed=59))
+        cells.append(([*args, "--continue_train", "--epoch", "templates"], pairs))
+    serve = ["--model", "test", "--model_suffix", "_A", "--no_dropout", "--dataset_mode",
+             "synthetic", "--gpu_ids", "0", "--checkpoints_dir", ckpt, "--name",
+             "spatial_templates_cycle_gan", "--epoch", "templates_steps", "--crop_size", "256",
+             "--load_size", "256", "--input_nc", "3", "--output_nc", "3", "--ngf", "64",
+             "--netG", "resnet_9blocks"]
+    request = pair_batches(1, 1, seed=61)[0]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(
+        _spatial_templates_rank, [dev, dev], backend="gloo",
+        args=([([*a, "--mesh_spatial", str(SPATIAL)], b) for a, b in cells],
+              [*serve, "--mesh_spatial", str(SPATIAL)], request),
+        timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
+    phase("spatial_templates", seconds=round(time.perf_counter() - t0, 2))
+    fails = []
+    for r in ranks:
+        for name, c in r["kernels"].items():
+            phase("spatial_kernels", rank=r["rank"], kernel=repr(name), **c)
+            want = _geometry_case_launches(name)
+            if not (c["fwd_err"] <= c["tol"] and c["bwd_err"] <= c["tol_bwd"] and c["bits"]
+                    and c["launches"] == want):
+                fails.append(f"rank {r['rank']} {name}: {c} (launches wanted {want})")
+    gib = 2.0**30
+
+    def bad_launches(got, band, name):
+        want, want_band = SPATIAL_TEMPLATE_LAUNCHES[name]
+        bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+        bad.update({k: v for k, v in band.items() if tuple(v) != want_band[k]})
+        return bad
+
+    for c, name in enumerate(SPATIAL_TEMPLATES):
+        r0, r1 = ranks[0]["cells"][c], ranks[1]["cells"][c]
+        for rank, r in enumerate((r0, r1)):
+            for i, (got, band) in enumerate(zip(r["launches"], r["band_launches"])):
+                bad = bad_launches(got, band, name)
+                if bad:
+                    fails.append(f"{name} rank {rank} step {i}: launches {bad}")
+        same = r0["digests"] == r1["digests"] and r0["losses"] == r1["losses"]
+        one_peak, one_ms = _one_process_peak(cells[c][0], cells[c][1][0])
+        phase("spatial_templates_" + name, steps=len(r0["ms"]), ranks_bit_identical=same,
+              step_peak_over_before_gib=json.dumps([round(r["peak_over_before"] / gib, 3)
+                                                    for r in (r0, r1)]),
+              one_process_step_peak_over_before_gib=round(one_peak / gib, 3),
+              one_process_first_step_ms=round(one_ms, 3),
+              ms_per_step_rank0=json.dumps([round(t, 3) for t in r0["ms"]]),
+              ms_per_step_rank1=json.dumps([round(t, 3) for t in r1["ms"]]),
+              launches_per_step=json.dumps({k: v for k, v in r0["launches"][0].items() if v}),
+              band_calls_stages_per_step=json.dumps(
+                  {k: v for k, v in r0["band_launches"][0].items() if v[0]}),
+              losses=json.dumps(r0["losses"]))
+        if not same or not all(np.isfinite(v) for v in r0["losses"].values()):
+            fails.append(f"{name}: the two ranks' states differ, or a loss is not finite")
+    # the request: the ranks' gathered visuals against one process's from
+    # the same checkpoint
+    for r in ranks:
+        bad = bad_launches(r["request_launches"], r["request_band_launches"], "request")
+        if bad:
+            fails.append(f"the request at rank {r['rank']}: launches {bad}")
+    opt = TestOptions().parse(serve)
+    m = create_model(opt)
+    m.setup(opt)
+    m.set_input(request)
+    m.test()
+    want = m.get_current_visuals()
+    del m
+    got = ranks[0]["request"]
+    req_err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    phase("spatial_templates_request", batch=1, max_abs_err=req_err, tol=1e-3,
+          finite=bool(np.all(np.isfinite(got["fake"]))),
+          launches=json.dumps({k: v for k, v in ranks[0]["request_launches"].items() if v}),
+          band_calls_stages=json.dumps({k: v for k, v in
+                                        ranks[0]["request_band_launches"].items() if v[0]}))
+    if not (req_err <= 1e-3 and list(got) == list(want) == ["real", "fake"]):
+        fails.append(f"the request: {req_err}")
+    if fails:
+        raise AssertionError("phase 19e: " + "; ".join(fails))
+    for c, name in enumerate(SPATIAL_TEMPLATES):
+        args, steps = cells[c]
+        host = train_model(args)
+        nets = {n: o for n, o in (("G", "G"), ("D", "D"), ("R", "R"), ("G_A", "G"), ("G_B", "G"),
+                                  ("D_A", "D"), ("D_B", "D")) if n in host.nets()}
+        skip = _template_skip(host)
+        del host
+        _hold_two_ranks("templates_" + name, args, steps[0], [r["cells"][c] for r in ranks],
+                        ("A",) if name.startswith("nemar") else ("A", "B"), nets=nets,
+                        skip=skip, adam_t=1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -6069,6 +6322,9 @@ def main() -> int:
         t0 = time.perf_counter()
         run_spatial_geometry(ckpt)
         phase("spatial_geometry_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_spatial_templates(ckpt)
+        phase("spatial_templates_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

@@ -10,9 +10,10 @@ Inside:
     and raises when CUDA is absent; in a rank of a data-parallel run
     (``nemar_tpu_torch.parallel``) the rank's device;
   * in a data-parallel run every rank builds the same model from the same
-    seed and takes its rows of the global batch (``set_input``); the
-    reported losses are the global batch's (``get_current_losses``), and
-    rank 0 alone writes checkpoints;
+    seed and takes its rows of the global batch (``set_input``), and under
+    --mesh_spatial its band of their rows (``band_of``); the reported
+    losses are the global batch's (``get_current_losses``), and rank 0
+    alone writes checkpoints;
   * checkpoints are the reference's per-net state_dict files
     ``{suffix}_net_{Name}.pth`` under ``checkpoints/{name}/``; a training
     model also writes the full training state ``{suffix}_state.pth`` and
@@ -68,6 +69,7 @@ import torch
 
 from nemar_tpu_torch import parallel
 from nemar_tpu_torch.models.networks import get_lr_multiplier_fn
+from nemar_tpu_torch.parallel import spatial
 
 
 def resolve_device(gpu_ids) -> torch.device:
@@ -190,8 +192,7 @@ class BaseModel(ABC):
         if getattr(opt, "mesh_spatial", 1) > 1 and not self.spatial:
             raise NotImplementedError(
                 f"--model {getattr(opt, 'model', type(self).__name__)} under --mesh_spatial "
-                f"{opt.mesh_spatial} is not ported (only nemar's step runs in bands; queued as "
-                f"ROADMAP.md A10c)")
+                f"{opt.mesh_spatial}: the model has no band form")
         if getattr(opt, "steps_per_execution", 1) > 1 and not hasattr(
                 self, "optimize_parameters_scan"):
             raise NotImplementedError(
@@ -217,6 +218,12 @@ class BaseModel(ABC):
 
     def nets(self) -> dict:
         return {n: getattr(self, f"net{n}") for n in self.model_names}
+
+    def band_of(self, height: int):
+        """This rank's band of a frame of ``height`` rows under
+        --mesh_spatial (``spatial.Band.split``; None: no spatial group)."""
+        s = parallel.spatial_size()
+        return None if s == 1 else spatial.Band.split(height, s, parallel.spatial_rank())
 
     def to_dtype(self, dtype: torch.dtype) -> None:
         """Run the model in ``dtype`` (torch.float64 for the CPU tests

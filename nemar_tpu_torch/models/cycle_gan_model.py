@@ -20,7 +20,15 @@ where its norm is per sample, in two under batch norm
 The model computes in fp32 whatever --bf16 says, as the JAX package's.
 In a data-parallel run each rank takes its rows of the global batch, the
 gradients are averaged over the ranks before each Adam step, and each
-pool is one global pool, the same on every rank (``_query_pool``).
+pool is one global pool, the same on every rank (``_query_pool``). Under
+--mesh_spatial each rank also keeps its band of the rows (``band``): the
+six G passes and four D passes run their band forms, the GAN, cycle and
+identity terms are the band's shares of their means
+(``spatial.frame_mean``), each pool holds this rank's band of each image
+(the same draws on every rank, so the bands of one pool are the frames
+of the one-process pool), a save gathers the pools' frames and a load cuts
+them to the band, so a checkpoint is the same at any width, and the
+visuals are the whole frames, gathered on every rank.
 """
 
 from __future__ import annotations
@@ -30,10 +38,13 @@ import torch
 from nemar_tpu_torch import parallel
 from nemar_tpu_torch.models import networks
 from nemar_tpu_torch.models.base_model import BaseModel, dropout_seed, to_device_nchw
+from nemar_tpu_torch.parallel import spatial
 from nemar_tpu_torch.utils import image_pool
 
 
 class CycleGANModel(BaseModel):
+    spatial = True
+
     @staticmethod
     def modify_commandline_options(parser, is_train=True):
         parser.set_defaults(no_dropout=True, netG="resnet_9blocks", dataset_mode="unaligned")
@@ -81,7 +92,11 @@ class CycleGANModel(BaseModel):
         self.pool_size = getattr(opt, "pool_size", 50) if self.isTrain else 0
         # the pools' draws, on the CPU (the JAX state's key is seed + 31)
         self.rng = torch.Generator().manual_seed(seed + 31)
-        shape = (opt.output_nc, opt.crop_size, opt.crop_size)
+        # under --mesh_spatial each pool holds this rank's band of each image
+        # (and a save gathers their frames for a moment)
+        self.band = None
+        self._pool_frames = None
+        shape = (opt.output_nc, opt.crop_size // parallel.spatial_size(), opt.crop_size)
         self.pools = ({k: image_pool.init_pool(self.pool_size, shape, self.device)
                        for k in ("A", "B")} if self.pool_size > 0 else None)
 
@@ -115,7 +130,14 @@ class CycleGANModel(BaseModel):
         return out[parallel.rows_in(n)]
 
     def _l1(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return torch.mean(torch.abs(x - y))
+        """mean |x - y|: the band's share of it under --mesh_spatial."""
+        d = torch.abs(x - y)
+        return torch.mean(d) if self.band is None else spatial.frame_mean(d, self.band)
+
+    def _gan(self, net_d, fake: torch.Tensor) -> torch.Tensor:
+        """The generator's GAN term of D on fake (the band's share)."""
+        pred, pband = networks.d_pred(net_d, fake, self.band)
+        return networks.gan_loss(pred, True, self.gan_mode, pband)
 
     def optimize_parameters(self):
         """One step: the JAX package's ``_train_step_impl``."""
@@ -128,20 +150,20 @@ class CycleGANModel(BaseModel):
         for net in (self.netD_A, self.netD_B):
             net.requires_grad_(False)
         try:
-            fake_B = self.netG_A(a)
-            rec_A = self.netG_B(fake_B)
-            fake_A = self.netG_B(b)
-            rec_B = self.netG_A(fake_A)
-            l_g_a = networks.gan_loss(self.netD_A(fake_B), True, self.gan_mode)
-            l_g_b = networks.gan_loss(self.netD_B(fake_A), True, self.gan_mode)
+            fake_B = self.netG_A(a, self.band)
+            rec_A = self.netG_B(fake_B, self.band)
+            fake_A = self.netG_B(b, self.band)
+            rec_B = self.netG_A(fake_A, self.band)
+            l_g_a = self._gan(self.netD_A, fake_B)
+            l_g_b = self._gan(self.netD_B, fake_A)
         finally:
             for net in (self.netD_A, self.netD_B):
                 net.requires_grad_(True)
         l_cyc_a = self._l1(rec_A, a) * self.lambda_A
         l_cyc_b = self._l1(rec_B, b) * self.lambda_B
         if self.lambda_idt > 0:
-            l_idt_a = self._l1(self.netG_A(b), b) * self.lambda_B * self.lambda_idt
-            l_idt_b = self._l1(self.netG_B(a), a) * self.lambda_A * self.lambda_idt
+            l_idt_a = self._l1(self.netG_A(b, self.band), b) * self.lambda_B * self.lambda_idt
+            l_idt_b = self._l1(self.netG_B(a, self.band), a) * self.lambda_A * self.lambda_idt
         else:
             l_idt_a = l_idt_b = torch.zeros((), device=a.device, dtype=a.dtype)
         (l_g_a + l_g_b + l_cyc_a + l_cyc_b + l_idt_a + l_idt_b).backward()
@@ -153,12 +175,12 @@ class CycleGANModel(BaseModel):
         fake_A = self._query_pool("A", fake_A.detach())
         opt_D.zero_grad(set_to_none=True)
         norm = self.opt.norm
-        pr_a, pf_a = networks.d_preds(self.netD_A, b, fake_B, norm)
-        pr_b, pf_b = networks.d_preds(self.netD_B, a, fake_A, norm)
-        l_d_a = 0.5 * (networks.gan_loss(pr_a, True, self.gan_mode)
-                       + networks.gan_loss(pf_a, False, self.gan_mode))
-        l_d_b = 0.5 * (networks.gan_loss(pr_b, True, self.gan_mode)
-                       + networks.gan_loss(pf_b, False, self.gan_mode))
+        pr_a, pf_a, pb_a = networks.d_preds(self.netD_A, b, fake_B, norm, self.band)
+        pr_b, pf_b, pb_b = networks.d_preds(self.netD_B, a, fake_A, norm, self.band)
+        l_d_a = 0.5 * (networks.gan_loss(pr_a, True, self.gan_mode, pb_a)
+                       + networks.gan_loss(pf_a, False, self.gan_mode, pb_a))
+        l_d_b = 0.5 * (networks.gan_loss(pr_b, True, self.gan_mode, pb_b)
+                       + networks.gan_loss(pf_b, False, self.gan_mode, pb_b))
         (l_d_a + l_d_b).backward()
         parallel.all_reduce_grads([*self.netD_A.parameters(), *self.netD_B.parameters()])
         opt_D.step()
@@ -167,38 +189,66 @@ class CycleGANModel(BaseModel):
             ("D_B", l_d_b), ("G_B", l_g_b), ("cycle_B", l_cyc_b), ("idt_B", l_idt_b))}
         self.step += 1
 
+    def save_networks(self, suffix):
+        """BaseModel.save_networks; under --mesh_spatial every rank first
+        gathers the pools' frames (rank 0 writes them), so the saved pools
+        are the whole frames', which any width resumes."""
+        if self.pools is not None and parallel.spatial_size() > 1:
+            band = self.band_of(self.opt.crop_size)
+            self._pool_frames = {k: spatial.gather_frame(p[0], band)
+                                 for k, p in self.pools.items()}
+        try:
+            super().save_networks(suffix)
+        finally:
+            self._pool_frames = None
+
     def extra_train_state(self) -> dict:
         """The pools' generator state and the pools (buffer and count)."""
         state = {"rng": self.rng.get_state()}
         if self.pools is not None:
-            state["pools"] = {k: {"images": p[0].cpu(), "count": p[1].cpu()}
+            frames = self._pool_frames or {k: p[0] for k, p in self.pools.items()}
+            state["pools"] = {k: {"images": frames[k].cpu(), "count": p[1].cpu()}
                               for k, p in self.pools.items()}
         return state
 
     def load_extra_train_state(self, state: dict, suffix) -> None:
         self.rng.set_state(state["rng"])
         if self.pools is not None and "pools" in state:
-            self.pools = {k: (p["images"].to(self.device), p["count"].to(self.device))
-                          for k, p in state["pools"].items()}
+            pools = {}
+            for k, p in state["pools"].items():
+                images, band = p["images"], self.band_of(p["images"].shape[2])
+                if band is not None:
+                    images = images[:, :, band.r0:band.r1]
+                pools[k] = (images.to(self.device), p["count"].to(self.device))
+            self.pools = pools
 
     def set_input(self, data: dict):
         """data['A'], data['B']: NHWC float numpy batches, the global batch;
         in a data-parallel run this rank keeps its rows (and the dropout
-        layers draw for the global batch)."""
+        layers draw for the global batch), under --mesh_spatial its band of
+        their rows."""
         self.global_n = len(data["A"])
         data = parallel.shard_rows(data)
         if parallel.world() > 1:
             for n in ("G_A", "G_B"):
                 networks.set_dropout_rows(self.nets()[n],
                                           (self.global_n, parallel.rows_in(self.global_n)))
+        self.band = self.band_of(data["A"].shape[1])
+        if self.band is not None:
+            data = {**data, **{k: data[k][:, self.band.r0:self.band.r1] for k in ("A", "B")}}
         self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
         self.real_B = to_device_nchw(data["B"], self.device, self.dtype)
         self.image_paths = data.get("A_paths", [])
 
     def forward(self):
         """The four translations of the visuals (the JAX package's
-        ``_forward_all``)."""
-        fake_B = self.netG_A(self.real_A)
-        fake_A = self.netG_B(self.real_B)
-        self._visuals = {"real_A": self.real_A, "fake_B": fake_B, "rec_A": self.netG_B(fake_B),
-                         "real_B": self.real_B, "fake_A": fake_A, "rec_B": self.netG_A(fake_A)}
+        ``_forward_all``; under --mesh_spatial the whole frames, gathered on
+        every rank)."""
+        fake_B = self.netG_A(self.real_A, self.band)
+        fake_A = self.netG_B(self.real_B, self.band)
+        visuals = {"real_A": self.real_A, "fake_B": fake_B,
+                   "rec_A": self.netG_B(fake_B, self.band), "real_B": self.real_B,
+                   "fake_A": fake_A, "rec_B": self.netG_A(fake_A, self.band)}
+        if self.band is not None:
+            visuals = {k: spatial.gather_frame(v, self.band) for k, v in visuals.items()}
+        self._visuals = visuals

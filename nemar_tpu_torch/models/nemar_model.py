@@ -74,9 +74,11 @@ two levels meet, and the pyramid's before each pool), and each loss is
 the band's share; --border_mask's count is summed over
 every rank; the WGAN-GP penalty differentiates D's band form twice, its
 per-sample norm summed over the group, and each rank's loss takes a 1/s
-share of it; --remat recomputes the band forms with their exchanges; the
-flags whose paths the band step does not hold are refused by name
-(``_check_supported``, ROADMAP.md A10c).
+share of it; --remat recomputes the band forms with their exchanges;
+under --norm batch D's two passes and every batch norm take their sums
+over every rank of the mesh; --steps_per_execution > 1, whose path the
+band step does not hold, is refused by name (``_check_supported``,
+ROADMAP.md A10c).
 """
 
 from __future__ import annotations
@@ -419,16 +421,10 @@ class NEMARModel(BaseModel):
         are bf16, their predictions cast back to fp32; the penalty's pass is
         fp32, as the JAX package's. Under --mesh_spatial the band's shares."""
         band = self.band
-        if band is not None:
-            pred, pband = self.compute(self.netD)(self.cast(torch.cat([b, fake], dim=0)), band)
-            pred_real, pred_fake = torch.chunk(self.uncast(pred), 2, dim=0)
-            l_real = networks.gan_loss(pred_real, True, self.gan_mode, pband)
-            l_fake = networks.gan_loss(pred_fake, False, self.gan_mode, pband)
-        else:
-            pred_real, pred_fake = (self.uncast(p) for p in networks.d_preds(
-                self.compute(self.netD), self.cast(b), self.cast(fake), self.opt.norm))
-            l_real = networks.gan_loss(pred_real, True, self.gan_mode)
-            l_fake = networks.gan_loss(pred_fake, False, self.gan_mode)
+        pred_real, pred_fake, pband = networks.d_preds(
+            self.compute(self.netD), self.cast(b), self.cast(fake), self.opt.norm, band)
+        l_real = networks.gan_loss(self.uncast(pred_real), True, self.gan_mode, pband)
+        l_fake = networks.gan_loss(self.uncast(pred_fake), False, self.gan_mode, pband)
         loss = 0.5 * (l_real + l_fake)
         gp = None
         if self.gan_mode == "wgangp":
@@ -746,17 +742,11 @@ class NEMARModel(BaseModel):
         the whole frames', which any width resumes."""
         if self.pool is not None and parallel.spatial_size() > 1:
             self._pool_frames = spatial.gather_frame(
-                self.pool[0], self._band_of(self.opt.crop_size), dim=2)
+                self.pool[0], self.band_of(self.opt.crop_size), dim=2)
         try:
             super().save_networks(suffix)
         finally:
             self._pool_frames = None
-
-    def _band_of(self, height: int):
-        """This rank's band of a frame of ``height`` rows (None: no
-        spatial group)."""
-        s = parallel.spatial_size()
-        return None if s == 1 else spatial.Band.split(height, s, parallel.spatial_rank())
 
     def extra_train_state(self) -> dict:
         """The step generator's state and the pool (buffer and count)."""
@@ -771,7 +761,7 @@ class NEMARModel(BaseModel):
             self.rng.set_state(state["rng"])
         if self.pool is not None and "pool" in state:
             images = state["pool"]["images"]
-            band = self._band_of(images.shape[2])
+            band = self.band_of(images.shape[2])
             if band is not None:
                 images = images[:, :, band.r0:band.r1]
             self.pool = (images.to(self.device), state["pool"]["count"].to(self.device))
@@ -808,7 +798,7 @@ class NEMARModel(BaseModel):
         their rows (``self.band``)."""
         self.micro_n = len(data["A"]) // self.grad_accum
         data = parallel.shard_rows(data, self.grad_accum)
-        self.band = self._band_of(data["A"].shape[1])
+        self.band = self.band_of(data["A"].shape[1])
         if self.band is not None:
             data = {**data, "A": data["A"][:, self.band.r0:self.band.r1],
                     "B": data["B"][:, self.band.r0:self.band.r1]}
@@ -846,23 +836,10 @@ def _mean_grads(params: list, k: int) -> None:
 
 def _check_supported(opt) -> None:
     """Refuse, by name, the flags whose code paths are not ported: under
-    --mesh_spatial > 1 every flag whose path the spatial step does not hold
-    (queued as ROADMAP.md A10c)."""
-    if getattr(opt, "mesh_spatial", 1) <= 1:
-        return
-    netG, netD = getattr(opt, "netG", "resnet_6blocks"), getattr(opt, "netD", "basic")
-    template = "the template models in bands"
-    refused = [
-        (getattr(opt, "steps_per_execution", 1) > 1,
-         "--steps_per_execution > 1 (the band step's exchanges in a CUDA graph, on two or "
-         "more GPUs)"),
-        (getattr(opt, "norm", "instance") != "instance",
-         f"--norm {getattr(opt, 'norm', 'instance')} ({template})"),
-        (netG.startswith("unet"), f"--netG {netG} (no band form of the UNet G: {template})"),
-        (netD == "pixel", f"--netD {netD} (no band form of the pixel D: {template})"),
-    ]
-    for on, flag in refused:
-        if on:
-            raise NotImplementedError(
-                f"{flag} under --mesh_spatial {opt.mesh_spatial} is not ported (the spatial step "
-                f"does not hold it; queued as ROADMAP.md A10c)")
+    --mesh_spatial > 1, --steps_per_execution > 1 (queued as ROADMAP.md
+    A10c)."""
+    if getattr(opt, "mesh_spatial", 1) > 1 and getattr(opt, "steps_per_execution", 1) > 1:
+        raise NotImplementedError(
+            f"--steps_per_execution > 1 (the band step's exchanges in a CUDA graph, on two or "
+            f"more GPUs) under --mesh_spatial {opt.mesh_spatial} is not ported (the spatial step "
+            f"does not hold it; queued as ROADMAP.md A10c)")

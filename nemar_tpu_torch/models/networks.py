@@ -32,19 +32,26 @@ batch's mask and keeps its rank's rows (``set_dropout_rows``), as the JAX
 package's SPMD program does, so a run over W ranks computes the
 one-process run's function.
 
-Under --mesh_spatial (``parallel/spatial.py``) the ResNet generator and
-the n-layer PatchGAN take a ``band`` (``spatial.Band``: this rank's rows of
-the frame, uneven, one row or empty) and run their band forms: every
+Under --mesh_spatial (``parallel/spatial.py``) every generator and
+discriminator takes a ``band`` (``spatial.Band``: this rank's rows of the
+frame, uneven, one row or empty) and runs its band form: every
 convolution over the band with its halo rows (``conv_band``: the rows of
-whichever ranks hold them, the layer's padding at the frame's edges),
-every instance norm with the frame's statistics
-(``norm_act_band``, K-in's band form on the card), the trunk blocks, the
-decoder stages and the head through K-block's, K-convt's and K-head's band
-forms, each trunk block checkpointed under ``--remat`` as in one process.
-``gan_loss`` and ``cal_gradient_penalty`` take the band too: the losses'
-means are the band's shares, and the penalty differentiates D's band form
-twice (``parallel/spatial.py``'s primitives and K-in's band backward are
-differentiable twice). ``band=None`` is the one-process path, unchanged.
+whichever ranks hold them, the layer's padding at the frame's edges;
+``conv_band_reflect`` for the ResNet block's reflect-padded ones), every
+transposed convolution over the band with a zero halo row above (and
+below, the UNet's k4: ``conv_transpose_band``), every norm with the
+frame's statistics (``norm_act_band``: K-in's band form on the card, or
+batch norm's sums over every rank of the mesh), each dropout mask drawn
+for the frame and cut to the band (``Dropout``), the UNet's skips re-cut
+to their level's bands (``spatial.reband``); under instance norm without
+dropout the ResNet trunk blocks and decoder stages through K-block's and
+K-convt's band forms, the head through K-head's whatever the norm, each
+trunk block checkpointed under ``--remat`` as in one process. ``gan_loss``
+and ``cal_gradient_penalty`` take the band too: the losses' means are the
+band's shares, and the penalty differentiates D's band form twice
+(``parallel/spatial.py``'s primitives, batch norm's sums and K-in's band
+backward are differentiable twice). ``band=None`` is the one-process path,
+unchanged.
 
 Dropout (``Dropout``) draws from a ``torch.Generator`` the model owns,
 never from the global one, and is off in eval mode. ``--remat`` checkpoints
@@ -139,10 +146,21 @@ def norm_act(x: torch.Tensor, act: str, norm: str = "instance") -> torch.Tensor:
     return _act(x, act)
 
 
-def norm_act_band(x: torch.Tensor, band, act: str) -> torch.Tensor:
-    """``norm_act`` under instance norm of the frame of which the NCHW x is
-    this rank's band: the frame's statistics (``instance_norm_act_band``)."""
-    return to_nchw(instance_norm_act_band(to_nhwc(x), band, act=act))
+def norm_act_band(x: torch.Tensor, band, act: str, norm: str = "instance") -> torch.Tensor:
+    """``norm_act`` of the frame of which the NCHW x is this rank's band:
+    instance norm with the frame's statistics (``instance_norm_act_band``);
+    batch norm with the frame's and the global batch's (``batch_norm_global``:
+    the sums over every rank of the mesh, each rank's count its band's
+    pixels, so an empty band adds nothing and a batch replicated over the
+    data ranks counts each copy once a rank, which cancels in the mean);
+    or the activation alone."""
+    if norm == "instance":
+        return to_nchw(instance_norm_act_band(to_nhwc(x), band, act=act))
+    if norm == "batch":
+        x = batch_norm_global(x)
+    elif norm != "none":
+        raise NotImplementedError(f"norm {norm!r}")
+    return _act(x, act)
 
 
 def conv_band(conv: nn.Conv2d, x: torch.Tensor, band) -> tuple:
@@ -159,6 +177,50 @@ def conv_band(conv: nn.Conv2d, x: torch.Tensor, band) -> tuple:
     xp = spatial.exchange_rows(x, band, tops, bottoms, dim=2, mode="zeros")
     y = F.conv2d(xp, conv.weight, conv.bias, stride=conv.stride, padding=(0, conv.padding[1]))
     return (y if out.rows else y[:, :, :0]), out
+
+
+def conv_band_reflect(conv: nn.Conv2d, x: torch.Tensor, band, pad: int) -> torch.Tensor:
+    """``conv(reflect_pad(x, pad))`` (stride 1, a kernel of 2 pad + 1, no
+    padding of its own: the ResNet block's) of the frame of which the NCHW
+    x is this rank's band -> its band, the same rows as x's: the band with
+    ``pad`` rows above and below from whichever ranks hold them (reflected
+    at the frame's edges), reflect-padded in W. An empty band convolves the
+    rows of the one it would hold next and keeps none of it, as
+    ``conv_band``."""
+    out, tops, bottoms = band.conv(conv.kernel_size[0], 1, pad)
+    xp = spatial.exchange_rows(x, band, tops, bottoms, dim=2, mode="reflect")
+    y = conv(reflect_pad_w(xp, pad).contiguous(memory_format=torch.channels_last))
+    return y if out.rows else y[:, :, :0]
+
+
+def conv_transpose_band(convt: nn.ConvTranspose2d, x: torch.Tensor, band) -> tuple:
+    """``convt`` (stride 2: kernel 3 without padding cropped to 2H x 2W, flax's
+    'SAME' ConvTranspose, or the UNet's kernel 4 padding 1) of the frame of
+    which the NCHW x is this rank's band -> (its output band, ``Band.up``):
+    the band with the rows its output reads above (one) and below (none,
+    kernel 3; one, kernel 4), zeros past the frame's edges, transposed-
+    convolved, and the band's 2 rows an input row kept. Each output row is
+    computed once, by its owner, from the rows it reads (no overlapping
+    outputs added across ranks); an empty band convolves its halo rows and
+    keeps none, so the rank stays in the graph of the exchange."""
+    k, p = convt.kernel_size[0], convt.padding[0]
+    if convt.stride[0] != 2:
+        raise ValueError(f"conv_transpose_band: stride {convt.stride[0]}")
+    top, bottom = (k - 1 - p) // 2, (1 + p) // 2
+    h, w = x.shape[2], x.shape[3]
+    xp = spatial.exchange_rows(x, band, (top,) * band.size, (bottom,) * band.size, dim=2,
+                               mode="zeros")
+    y = convt(xp.contiguous(memory_format=torch.channels_last))
+    # dense, in the one-process output's layout (a dropout draws in it)
+    y = y[:, :, 2 * top:2 * top + 2 * h, :2 * w].contiguous(memory_format=torch.channels_last)
+    return y, band.up(2)
+
+
+def _conv1x1_band(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 ``conv`` of a band, an empty band's too (PyTorch refuses a
+    convolution of a tensor without rows: one zero row convolved and
+    dropped), in the graph."""
+    return conv(x) if x.shape[2] else conv(F.pad(x, (0, 0, 0, 1)))[:, :, :0]
 
 
 def reflect_pad_w(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -188,7 +250,12 @@ class Dropout(nn.Module):
     sets; in eval mode the identity. ``rows`` (set by the model through
     ``set_dropout_rows`` in a data-parallel run): (n, slice) when x holds
     the rows ``slice`` of a global batch of n; the mask is then drawn for
-    the global batch and sliced, so it is the one-process run's."""
+    the global batch and sliced, so it is the one-process run's. With
+    ``band`` (--mesh_spatial) x is this rank's band of the level's frame:
+    the mask is drawn for the whole frame (of the global batch), in the
+    one-process layout, and cut to the band's rows, so every rank draws
+    the same numbers and advances its generator alike, an empty band too,
+    and keeps the one-process mask's rows."""
 
     def __init__(self, p: float = 0.5, generator: torch.Generator | None = None):
         super().__init__()
@@ -196,23 +263,26 @@ class Dropout(nn.Module):
         self.generator = generator
         self.rows: tuple | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
         if not self.training:
             return x
         if self.generator is None:
             raise RuntimeError("Dropout in training draws from the model's generator; none is set")
-        if self.rows is None:
+        if self.rows is None and band is None:
             # drawn in x's memory layout, so the result keeps it
             u = torch.empty_like(x)
         else:
-            n, rows = self.rows
+            n = x.shape[0] if self.rows is None else self.rows[0]
+            h = x.shape[2] if band is None else band.height
             layout = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
                       and not x.is_contiguous() else torch.contiguous_format)
-            u = torch.empty((n, *x.shape[1:]), dtype=x.dtype, device=x.device,
+            u = torch.empty((n, x.shape[1], h, x.shape[3]), dtype=x.dtype, device=x.device,
                             memory_format=layout)
         keep = u.uniform_(generator=self.generator) >= self.p
         if self.rows is not None:
             keep = keep[self.rows[1]]
+        if band is not None:
+            keep = keep[:, :, band.r0:band.r1]
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 
 
@@ -362,8 +432,10 @@ class ResnetBlock(nn.Module):
         self.dropout = Dropout(0.5, generator) if use_dropout else None
 
     def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
-        """The block; with ``band`` (instance norm, no dropout) that of the
-        frame of which x is this rank's band (K-block's band form)."""
+        """The block; with ``band`` that of the frame of which x is this
+        rank's band: K-block's band form, or the plain block's (each conv
+        over the band with its reflected halo rows, the norms with the
+        frame's statistics, the dropout mask the frame's rows)."""
         if self.fused:
             # OIHW -> HWIO, the layout of the JAX op and of the kernel
             w1 = self.Conv_0.weight.permute(2, 3, 1, 0)
@@ -371,6 +443,12 @@ class ResnetBlock(nn.Module):
             if band is not None:
                 return to_nchw(fused_resblock_band(to_nhwc(x), w1, w2, band))
             return to_nchw(fused_resblock(to_nhwc(x), w1, w2))
+        if band is not None:
+            h = norm_act_band(conv_band_reflect(self.Conv_0, x, band, 1), band, "relu", self.norm)
+            if self.dropout is not None:
+                h = self.dropout(h, band)
+            return x + norm_act_band(conv_band_reflect(self.Conv_1, h, band, 1), band, "none",
+                                     self.norm)
         h = norm_act(self.Conv_0(reflect_pad(x, 1)), "relu", self.norm)
         if self.dropout is not None:
             h = self.dropout(h)
@@ -427,20 +505,21 @@ class ResnetGenerator(nn.Module):
         return torch.tanh(h + head.bias[:, None, None])
 
     def _forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
-        """The forward of the frame of which x is this rank's band (instance
-        norm, no dropout): the same layers in band form, each on the band
-        its own geometry gives (the stride-2 convs' ``Band.conv``, the
-        decoder's ``Band.up``); the output re-cut to the input's band
-        (``spatial.reband``: where the levels split unevenly the up-sampled
-        bands are not the input's, 36^2 at s = 2 gives 20 | 16 for 18 |
-        18)."""
+        """The forward of the frame of which x is this rank's band: the same
+        layers in band form, each on the band its own geometry gives (the
+        stride-2 convs' ``Band.conv``, the decoder's ``Band.up``), the
+        decoder's stages K-convt's band form under instance norm, else the
+        transposed conv's (``conv_transpose_band``) and the norm's; the
+        output re-cut to the input's band (``spatial.reband``: where the
+        levels split unevenly the up-sampled bands are not the input's,
+        36^2 at s = 2 gives 20 | 16 for 18 | 18)."""
         three = (3,) * band.size
         xp = reflect_pad_w(spatial.exchange_rows(x, band, three, three, dim=2, mode="reflect"), 3)
-        h = norm_act_band(self.Conv_0(xp), band, "relu")
+        h = norm_act_band(self.Conv_0(xp), band, "relu", self.norm)
         b = band
         for i in range(self.n_downsampling):
             h, b = conv_band(getattr(self, f"Conv_{i + 1}"), h, b)
-            h = norm_act_band(h, b, "relu")
+            h = norm_act_band(h, b, "relu", self.norm)
         for i in range(self.n_blocks):
             block = getattr(self, f"ResnetBlock_{i}")
             # --remat: the block's band form run again in the backward, its
@@ -450,9 +529,12 @@ class ResnetGenerator(nn.Module):
                  else block(h, b))
         for i in range(self.n_downsampling):
             convt = getattr(self, f"ConvTranspose_{i}")
-            w = convt.weight.permute(2, 3, 0, 1).flip(0, 1)
-            h = to_nchw(fused_convt_in_band(to_nhwc(h), w, b))
-            b = b.up(2)
+            if self.norm == "instance":
+                w = convt.weight.permute(2, 3, 0, 1).flip(0, 1)
+                h, b = to_nchw(fused_convt_in_band(to_nhwc(h), w, b)), b.up(2)
+            else:
+                h, b = conv_transpose_band(convt, h, b)
+                h = norm_act_band(h, b, "relu", self.norm)
         head = getattr(self, f"Conv_{1 + self.n_downsampling}")
         h = to_nchw(conv_head_band(to_nhwc(h), head.weight.permute(2, 3, 1, 0), b))
         return torch.tanh(spatial.reband(h, b, band) + head.bias[:, None, None])
@@ -488,13 +570,18 @@ class UnetGenerator(nn.Module):
         self.dropouts = nn.ModuleList(Dropout(0.5, generator) for _ in range(3)) \
             if use_dropout else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None) -> torch.Tensor:
+        """G(x); with ``band`` that of the frame of which x is this rank's
+        band (``_forward_band``)."""
         need = 2**self.num_downs
-        if x.shape[2] % need or x.shape[3] % need or min(x.shape[2], x.shape[3]) < need:
+        height = x.shape[2] if band is None else band.height
+        if height % need or x.shape[3] % need or min(height, x.shape[3]) < need:
             raise ValueError(
                 f"UnetGenerator with num_downs={self.num_downs} needs input "
-                f"H/W divisible by and >= {need}, got {x.shape[2]}x{x.shape[3]} "
+                f"H/W divisible by and >= {need}, got {height}x{x.shape[3]} "
                 f"(use --netG unet_128/unet_256 to match --crop_size)")
+        if band is not None:
+            return self._forward_band(x, band)
         skips, h = [], x
         for i in range(self.num_downs):
             if i > 0:
@@ -511,6 +598,34 @@ class UnetGenerator(nn.Module):
                     h = self.dropouts[self.num_downs - 1 - i](h)
                 h = torch.cat([skips[i - 1], h], dim=1)
         return torch.tanh(h)
+
+    def _forward_band(self, x: torch.Tensor, band) -> torch.Tensor:
+        """The forward of the frame of which x is this rank's band: the k4
+        s2 p1 convs through ``conv_band``, the transposed ones through
+        ``conv_transpose_band`` (each level's bands ``Band.up`` of its
+        input's), the norms with the frame's statistics, each dropout mask
+        the frame's cut to the band, and before each concatenation the
+        up-sampled band re-cut to its skip's (``spatial.reband``: unet_256
+        at 256^2 over 2 ranks ends in a level of one row in bands of 1 and
+        none, whose up-sampling of 2 | 0 rows meets a skip of 1 | 1); the
+        output re-cut to the input's band."""
+        skips, h, b = [], x, band
+        for i in range(self.num_downs):
+            if i > 0:
+                h = F.leaky_relu(h, 0.2)
+            h, b = conv_band(getattr(self, f"Conv_{i}"), h, b)
+            if 0 < i < self.num_downs - 1:
+                h = norm_act_band(h, b, "none", self.norm)
+            skips.append((h, b))
+        for j, i in enumerate(reversed(range(self.num_downs))):
+            h, b = conv_transpose_band(getattr(self, f"ConvTranspose_{j}"), F.relu(h), b)
+            if i > 0:
+                h = norm_act_band(h, b, "none", self.norm)
+                if self.dropouts is not None and i >= self.num_downs - 3:
+                    h = self.dropouts[self.num_downs - 1 - i](h, b)
+                skip, sb = skips[i - 1]
+                h, b = torch.cat([skip, spatial.reband(h, b, sb)], dim=1), sb
+        return torch.tanh(spatial.reband(h, b, band))
 
 
 class NLayerDiscriminator(nn.Module):
@@ -532,16 +647,16 @@ class NLayerDiscriminator(nn.Module):
         setattr(self, f"Conv_{n_layers + 1}", nn.Conv2d(ndf * nf_mult, 1, 4, padding=1))
 
     def forward(self, x: torch.Tensor, band=None):
-        """The patch predictions; with ``band`` (instance norm) those of the
-        frame of which x is this rank's band, and their ``Band``: (pred,
-        band) (D's stride-1 layers give uneven bands, at 32^2 over 2 ranks
-        bands of 2 and 1 rows, then 2 and none: ``Band.conv``)."""
+        """The patch predictions; with ``band`` those of the frame of which
+        x is this rank's band, and their ``Band``: (pred, band) (D's
+        stride-1 layers give uneven bands, at 32^2 over 2 ranks bands of 2
+        and 1 rows, then 2 and none: ``Band.conv``)."""
         if band is not None:
             h, b = conv_band(self.Conv_0, x, band)
             h = F.leaky_relu(h, 0.2)
             for n in range(1, self.n_layers + 1):
                 h, b = conv_band(getattr(self, f"Conv_{n}"), h, b)
-                h = norm_act_band(h, b, "leaky_relu")
+                h = norm_act_band(h, b, "leaky_relu", self.norm)
             return conv_band(getattr(self, f"Conv_{self.n_layers + 1}"), h, b)
         h = F.leaky_relu(self.Conv_0(x), 0.2)
         for n in range(1, self.n_layers + 1):
@@ -559,7 +674,14 @@ class PixelDiscriminator(nn.Module):
         self.Conv_1 = nn.Conv2d(ndf, ndf * 2, 1)
         self.Conv_2 = nn.Conv2d(ndf * 2, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, band=None):
+        """The pixel predictions; with ``band`` those of the frame of which
+        x is this rank's band and their ``Band`` (its own: 1x1 convs read no
+        halo), (pred, band), as the n-layer D's."""
+        if band is not None:
+            h = F.leaky_relu(_conv1x1_band(self.Conv_0, x), 0.2)
+            h = norm_act_band(_conv1x1_band(self.Conv_1, h), band, "leaky_relu", self.norm)
+            return _conv1x1_band(self.Conv_2, h), band
         h = F.leaky_relu(self.Conv_0(x), 0.2)
         h = norm_act(self.Conv_1(h), "leaky_relu", self.norm)
         return self.Conv_2(h)
@@ -602,13 +724,23 @@ def define_D(input_nc: int, ndf: int, netD: str, n_layers_D: int = 3,
     raise NotImplementedError(f"Discriminator model name [{netD}] is not recognized")
 
 
-def d_preds(net_d: Callable, real: torch.Tensor, fake: torch.Tensor, norm: str) -> tuple:
-    """D's predictions (on real, on fake): one pass over [real; fake] where
-    D's norm is per sample, two passes under batch norm, whose statistics
-    would otherwise mix real and fake (the JAX NeMAR model's ``_d_loss``)."""
+def d_pred(net_d: Callable, x: torch.Tensor, band=None) -> tuple:
+    """(D's predictions on x, their ``Band``): with ``band`` D's band form
+    on this rank's band of x's frame, else D on x and None."""
+    return (net_d(x), None) if band is None else net_d(x, band)
+
+
+def d_preds(net_d: Callable, real: torch.Tensor, fake: torch.Tensor, norm: str,
+            band=None) -> tuple:
+    """D's predictions (on real, on fake, their ``Band`` or None): one pass
+    over [real; fake] where D's norm is per sample, two passes under batch
+    norm, whose statistics would otherwise mix real and fake (the JAX NeMAR
+    model's ``_d_loss``); with ``band`` D's band passes (``d_pred``)."""
     if norm == "batch":
-        return net_d(real), net_d(fake)
-    return torch.chunk(net_d(torch.cat([real, fake], dim=0)), 2, dim=0)
+        (pred_real, pband), (pred_fake, _) = d_pred(net_d, real, band), d_pred(net_d, fake, band)
+        return pred_real, pred_fake, pband
+    pred, pband = d_pred(net_d, torch.cat([real, fake], dim=0), band)
+    return (*torch.chunk(pred, 2, dim=0), pband)
 
 
 # ---------------------------------------------------------------------------
@@ -660,7 +792,7 @@ def cal_gradient_penalty(net_d: nn.Module, real: torch.Tensor, fake: torch.Tenso
     create_graph = torch.is_grad_enabled()
     with torch.enable_grad():
         interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_()
-        pred = net_d(interp) if band is None else net_d(interp, band)[0]
+        pred = d_pred(net_d, interp, band)[0]
         (grad,) = torch.autograd.grad(pred.sum(), interp, create_graph=create_graph)
     sq = torch.sum(torch.square(grad.reshape(real.shape[0], -1)), dim=1)
     if band is not None:

@@ -8,7 +8,9 @@
 ``--model_suffix _A``. The forward has dropout off (the JAX package's
 ``train=False``). Visuals: ``real`` and ``fake``. It has no training step,
 and a training parse refuses it. It computes in fp32 whatever --bf16 says,
-as the JAX package's.
+as the JAX package's. Under --mesh_spatial (``test.py --mesh_spatial s``,
+one rank a band) G runs its band form on this rank's band of the rows and
+the visuals are the whole frames, gathered on every rank.
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ import torch
 
 from nemar_tpu_torch.models import networks
 from nemar_tpu_torch.models.base_model import BaseModel, to_device_nchw
+from nemar_tpu_torch.parallel import spatial
 
 
 class TestModel(BaseModel):
+    spatial = True
+
     @staticmethod
     def modify_commandline_options(parser, is_train=False):
         assert not is_train, "TestModel is inference-only; use it with test.py"
@@ -44,14 +49,21 @@ class TestModel(BaseModel):
         setattr(self, f"net{self.model_names[0]}", self.netG)
 
     def set_input(self, data: dict):
-        """data['A']: an NHWC float numpy batch."""
-        self.real = to_device_nchw(data["A"], self.device)
+        """data['A']: an NHWC float numpy batch (this rank's band of its
+        rows under --mesh_spatial)."""
+        self.band = self.band_of(data["A"].shape[1])
+        a = data["A"] if self.band is None else data["A"][:, self.band.r0:self.band.r1]
+        self.real = to_device_nchw(a, self.device)
         self.image_paths = data.get("A_paths", [])
 
     def forward(self):
         with networks.eval_mode(self.netG):
-            self.fake = self.netG(self.real)
-        self._visuals = {"real": self.real, "fake": self.fake}
+            fake = self.netG(self.real, self.band)
+        visuals = {"real": self.real, "fake": fake}
+        if self.band is not None:
+            visuals = {k: spatial.gather_frame(v, self.band) for k, v in visuals.items()}
+        self.fake = visuals["fake"]
+        self._visuals = visuals
 
     def optimize_parameters(self):
         raise RuntimeError("TestModel has no training step")

@@ -103,6 +103,8 @@ def _norm_biases(net) -> set:
                 | {f"ConvTranspose_{j}.bias" for j in range(n - 1)})
     if isinstance(net, networks.NLayerDiscriminator):
         return {f"Conv_{i}.bias" for i in range(1, net.n_layers + 1)}
+    if isinstance(net, networks.PixelDiscriminator):
+        return {"Conv_1.bias"}
     if isinstance(net, AffineSTN):
         return {f"Conv_{i}.bias" for i in range(net.n_downs)}
     assert isinstance(net, UnetSTN)

@@ -31,9 +31,9 @@ primitives and band forms on small frames. Held:
     spatial 2) mesh of its virtual CPU devices;
   * a checkpoint written at (2, 2) resumed in one process, and ``test
     --eval_registration`` at spatial 2 against one process;
-  * the refusals (ROADMAP.md A10c: --steps_per_execution > 1, --norm
-    other than instance, the UNet G and the pixel D), the flags held in
-    bands accepted, an undivided height; the geometries once refused (a
+  * the refusal (ROADMAP.md A10c: --steps_per_execution > 1), the flags
+    held in bands accepted, the other models built and run in bands, an
+    undivided height; the geometries once refused (a
     band thinner than a halo it must send, an empty output band, a height
     the levels split unevenly) held (``tests/test_torch_spatial_geometry.py``
     holds them in full).
@@ -476,13 +476,14 @@ def test_eval_registration_at_spatial_two(tmp_path):
 # ---------------------------------------------------------------------------
 # the refusals
 # ---------------------------------------------------------------------------
-A10C = [["--steps_per_execution", "2"], ["--norm", "batch"], ["--netD", "pixel"],
-        ["--netG", "unet_256"]]
+A10C = [["--steps_per_execution", "2"]]
 # held in bands since the step flags' slice (tests/test_torch_spatial_flags.py)
+# and, the last three, the template models' (tests/test_torch_spatial_templates.py)
 HELD = [["--gan_mode", "wgangp"], ["--gan_mode", "vanilla"], ["--remat"], ["--g_batch"],
         ["--freeze_g"], ["--stn_field_source", "fake"], ["--stn_padding_mode", "border"],
         ["--stn_padding_mode", "reflection"], ["--stn_align_corners"],
-        ["--netG", "resnet_9blocks"], ["--netD", "n_layers"]]
+        ["--netG", "resnet_9blocks"], ["--netD", "n_layers"], ["--norm", "batch"],
+        ["--netD", "pixel"], ["--netG", "unet_256"]]
 
 
 @pytest.mark.parametrize("flag", A10C, ids=lambda f: " ".join(f))
@@ -500,21 +501,46 @@ def test_held_flags_accepted_under_spatial(tmp_path, flag):
     create_model(opt)
 
 
+# a G each model runs at 32^2 (pix2pix's template unet_256 needs 256^2)
+OTHER_G = {"pix2pix": "resnet_6blocks", "cycle_gan": "resnet_6blocks"}
+
+
 @pytest.mark.parametrize("model", ["pix2pix", "cycle_gan"])
 def test_other_models_refused_under_spatial(tmp_path, model):
-    argv = [*RUN, "--model", model, "--crop_size", "32", "--load_size", "32", "--ngf", "4",
-            "--ndf", "4", "--input_nc", "3", "--output_nc", "3", "--checkpoints_dir",
-            str(tmp_path), "--mesh_spatial", "2"]
-    with pytest.raises(NotImplementedError, match="mesh_spatial.*A10c"):
-        create_model(TrainOptions().parse(argv))
+    """Refused under --mesh_spatial until the template models' slice: now
+    each builds and takes a step at (data 1, spatial 2), the two ranks
+    bit-identical (``tests/test_torch_spatial_templates.py`` holds the
+    steps against one process and the JAX mesh)."""
+    argv = [*RUN, "--model", model, "--netG", OTHER_G[model], "--crop_size", "32",
+            "--load_size", "32", "--ngf", "4", "--ndf", "4", "--input_nc", "3", "--output_nc",
+            "3", "--checkpoints_dir", str(tmp_path), "--mesh_spatial", "2", "--num_devices",
+            "2", "--batch_size", "2", "--synthetic_size", "2", "--n_epochs", "1",
+            "--n_epochs_decay", "0", "--save_epoch_freq", "0", "--display_freq", "0"]
+    digests = tp._main(argv)
+    assert len(digests) == 2 and digests[0] == digests[1]
+
+
+def _request_rank(argv, x):
+    """The test model of ``argv`` (seeded weights) at this rank answering x."""
+    parallel.set_mesh(TestOptions().parse(argv).mesh_spatial)
+    model = create_model(TestOptions().parse(argv))
+    model.set_input({"A": x, "A_paths": ["x"]})
+    model.test()
+    return dict(model.get_current_visuals())
 
 
 def test_test_model_refused_under_spatial(tmp_path):
+    """Refused under --mesh_spatial until the template models' slice: now
+    the test model builds and answers a request at spatial 2, each rank
+    the whole frames, within fp32 roundoff of one process's."""
     argv = [*RUN, "--model", "test", "--netG", "resnet_6blocks", "--crop_size", "32",
             "--load_size", "32", "--ngf", "4", "--input_nc", "3", "--output_nc", "3",
-            "--checkpoints_dir", str(tmp_path), "--mesh_spatial", "2", "--no_dropout"]
-    with pytest.raises(NotImplementedError, match="mesh_spatial.*A10c"):
-        create_model(TestOptions().parse(argv))
+            "--checkpoints_dir", str(tmp_path), "--no_dropout"]
+    x = np.random.default_rng(6).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+    want = _request_rank(argv, x)
+    for got in _launch(_request_rank, 2, [*argv, "--mesh_spatial", "2"], x):
+        assert list(got) == ["real", "fake"]
+        assert all(float(np.abs(got[k] - want[k]).max()) <= 1e-5 for k in want)
 
 
 def test_geometry_refusals(tmp_path):
