@@ -4687,6 +4687,23 @@ SPATIAL_TEMPLATE_LAUNCHES = {
 }
 
 
+# phase 19f: --steps_per_execution in bands, two ranks of one spatial group
+# on cuda:0 over gloo: NeMAR's default network (TRAIN_ARGS) at b8 from a
+# state saved from the seed with R's head drawn (R_HEAD_DRAW's multiscale
+# std), a pool of 50 filled before the chunk (its steps swap) and wgangp (so
+# the chunk has draws), (a) fp32 and (b) --bf16: a chunk of SPATIAL_CHUNK
+# steps through optimize_parameters_scan_eager (gloo's collectives cannot be
+# captured in a CUDA graph) beside as many band optimize_parameters calls,
+# the chunk run twice; one process's chunk of the same batches is the step
+# graph's replays (optimize_parameters_scan)
+SPATIAL_CHUNK = 4
+SPATIAL_CHUNK_FLAGS = ["--pool_size", "50", "--gan_mode", "wgangp", "--steps_per_execution",
+                       str(SPATIAL_CHUNK)]
+SPATIAL_CHUNK_CELLS = {"fp32": [], "bf16": ["--bf16"]}
+# the refusal a chunk on the graph meets in a gloo group (step_graph.StepGraph)
+GLOO_GRAPH_REFUSAL = "gloo's collectives cannot be captured"
+
+
 # test_torch_bf16.py's rule (a): a tensor of at most BF16_FEW elements is
 # held as a scalar, its e floored at BF16_Q, bf16's relative spacing
 BF16_Q = 2.0**-8
@@ -5608,7 +5625,8 @@ def _band_steps_rank(cells: list, requests: dict | None = None,
     return outs
 
 
-def _hold_bf16_rule_a(args: list, batch: dict, r0: dict) -> None:
+def _hold_bf16_rule_a(args: list, batch: dict, r0: dict, tag: str = "spatial_recipe",
+                      arm: str = "multiscale") -> None:
     """The band bf16 step (rank 0's losses and gradients) against the
     one-process bf16 step from the same state, by test_torch_bf16.py's
     rule (a): with e = max|T_one,bf16 - T_one,fp32| / max|T_one,fp32| (the
@@ -5666,16 +5684,16 @@ def _hold_bf16_rule_a(args: list, batch: dict, r0: dict) -> None:
                 fails.append(f"{n}.{k}: {a:.3g} > 2 e + 1e-6, e = {e:.3g}")
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:4]
     gib = 2.0**30
-    phase("spatial_recipe_one_process", arm="multiscale",
+    phase(f"{tag}_one_process", arm=arm,
           **{f"{k}_step_peak_over_before_gib": round(v[0] / gib, 3) for k, v in peak.items()},
           **{f"{k}_first_step_ms": round(v[1], 3) for k, v in peak.items()})
-    phase("spatial_recipe_bf16_rule_a", tensors=len(worst),
+    phase(f"{tag}_bf16_rule_a", tensors=len(worst),
           worst_over_limit=json.dumps({k: round(v, 4) for k, v in top}),
           losses_band=json.dumps({k: float(v) for k, v in band["losses"].items()}),
           losses_one_process_bf16=json.dumps({k: float(v) for k, v in
                                                runs["bf16"]["losses"].items()}))
     if fails:
-        raise AssertionError("phase 19b, rule (a): " + "; ".join(fails[:8]))
+        raise AssertionError(f"{tag}, rule (a): " + "; ".join(fails[:8]))
 
 
 def run_spatial_recipe(ckpt: str) -> dict:
@@ -6219,6 +6237,247 @@ def run_spatial_templates(ckpt: str) -> None:
                         skip=skip, adam_t=1)
 
 
+
+def _chunk_digests(model) -> tuple:
+    """SHA-256s over ``_chunk_state`` (parameters, Adam's state, the pool,
+    the step generator's state): (with this rank's band of the pool, with
+    its frames gathered from the spatial group, the same on every rank)."""
+    import hashlib
+
+    from nemar_tpu_torch.parallel import spatial
+
+    state = _chunk_state(model)
+    frames = spatial.gather_frame(model.pool[0], model.band_of(model.opt.crop_size)).cpu()
+    out = []
+    for images in (state["pool.images"], frames):
+        h = hashlib.sha256()
+        for k, v in sorted({**state, "pool.images": images}.items()):
+            h.update(k.encode())
+            h.update(v.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        out.append(h.hexdigest())
+    return tuple(out)
+
+
+def _spatial_chunk_rank(cells: list) -> list:
+    """Phase 19f inside its rank: per (args, batches) a model from the
+    args' saved state (its pool full) runs the batches as one chunk
+    (``optimize_parameters_scan_eager``), a second one as band
+    ``optimize_parameters`` calls, and a third as the chunk again (the
+    chunk twice); the counters zeroed and the peak memory reset before
+    each. -> per cell and run the ms a step, the
+    launches (``zero_all_counters``), the band forms' calls and stages, the
+    peak over what was allocated before, the state's digests
+    (``_chunk_digests``) and the band losses' means; the chunk's global
+    mean losses and, at rank 0, its parameters; the steps' first step as
+    ``_hold_two_ranks`` reads it (its global losses, each step's ms and
+    ``state_digest``; at rank 0 the parameters and gradients after it);
+    and what ``optimize_parameters_scan`` (the graph) raises in the gloo
+    group."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.models.base_model import state_digest, to_host
+
+    fp32_only()
+    parallel.set_mesh(SPATIAL)
+    lead = parallel.rank() == 0
+    outs = []
+    for args, batches in cells:
+        cell = {"rank": parallel.rank()}
+        for run in ("chunk", "steps", "again"):
+            model = train_model(args)
+            counters, _ = zero_all_counters()
+            zero_band_counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = {"ms": [], "digests": []}
+            t0 = time.perf_counter()
+            if run != "steps":
+                model.optimize_parameters_scan_eager(batches)
+                means = model._losses
+            else:
+                sums = None
+                for i, b in enumerate(batches):
+                    t1 = time.perf_counter()
+                    model.set_input(b)
+                    model.optimize_parameters()
+                    torch.cuda.synchronize()
+                    out["ms"].append((time.perf_counter() - t1) * 1e3)
+                    out["digests"].append(state_digest(model))
+                    sums = (model._losses if sums is None
+                            else {k: sums[k] + v for k, v in model._losses.items()})
+                    if i == 0:  # the first step, for _hold_two_ranks
+                        out["losses"] = dict(model.get_current_losses())
+                        if lead:
+                            out["params"] = {n: {k: to_host(p) for k, p in
+                                                 net.named_parameters()}
+                                             for n, net in model.nets().items()}
+                            out["grads"] = {n: {k: to_host(p.grad) for k, p in
+                                                net.named_parameters()}
+                                            for n, net in model.nets().items()}
+                means = {k: v / len(batches) for k, v in sums.items()}
+            torch.cuda.synchronize()
+            band, frames = _chunk_digests(model)
+            out.update(ms_per_step=(time.perf_counter() - t0) * 1e3 / len(batches),
+                       peak_over_before=torch.cuda.max_memory_allocated() - before,
+                       launches={k: fn.launches for k, fn in counters.items()},
+                       band_launches=read_band_counters(), digest=band, frames_digest=frames,
+                       band_losses={k: float(v) for k, v in means.items()})
+            if run == "chunk":
+                out["losses"] = dict(model.get_current_losses())
+                if lead:
+                    out["params"] = {n: {k: to_host(p) for k, p in net.named_parameters()}
+                                     for n, net in model.nets().items()}
+                try:  # the graph, refused in a gloo group before any step
+                    model.optimize_parameters_scan(batches)
+                    cell["refusal"] = None
+                except NotImplementedError as e:
+                    cell["refusal"] = str(e)
+            cell[run] = out
+            del model
+        outs.append(cell)
+    return outs
+
+
+def _one_process_chunk(args: list, batches: list) -> tuple:
+    """One process's chunk of ``batches`` on the step graph
+    (``optimize_parameters_scan``: its replays) from the args' saved state:
+    (the model, ms a step, the peak memory over what was allocated before
+    the chunk)."""
+    m = train_model(args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m.optimize_parameters_scan(batches)
+    torch.cuda.synchronize()
+    assert all(g.graph is not None for g in m._step_graphs.values())
+    return (m, (time.perf_counter() - t0) * 1e3 / len(batches),
+            torch.cuda.max_memory_allocated() - before)
+
+
+def run_spatial_chunks(ckpt: str) -> None:
+    """Phase 19f: --steps_per_execution in bands over two ranks sharing
+    cuda:0 (gloo), fp32 and --bf16 (SPATIAL_CHUNK_CELLS), from a state saved
+    here with the pool full: ``_spatial_chunk_rank``. Held: the band chunk
+    equal bit for bit to as many band steps fed the same draws (state,
+    band losses), on both ranks; the two ranks bit-identical; the chunk
+    run twice bit-identical; the band forms' calls and stages and the kernels'
+    launches over the chunk those of the band steps (fp32: SPATIAL_CHUNK x
+    phase 19c's wgangp step); ``optimize_parameters_scan`` refused in the
+    gloo group by StepGraph's own refusal; the chunk's first step (the band
+    steps' first, which the chunk equals) within phase 6's limits of one
+    process's step on the card (fp32: ``_hold_two_ranks``, G_GAN read
+    through D as phase 19c holds wgangp; bf16: ``_hold_bf16_rule_a``); and
+    the chunk against one process's chunk of the same batches on the step
+    graph: every parameter within the chunk's Adam bound (each run moves
+    an element by at most the sum of Adam's bounds over its steps), the
+    losses finite, their relative differences printed (four steps of
+    wgangp from a fresh Adam amplify roundoff to ~1e-3: PERF.md, PR 23).
+    Printed: ms a step and rank, and each rank's peak over the chunk
+    beside one process's chunk."""
+    from nemar_tpu_torch import parallel
+
+    dev = torch.device("cuda", 0)
+    base = [*TRAIN_ARGS, *SPATIAL_CHUNK_FLAGS, "--checkpoints_dir", ckpt, "--gpu_ids", "0",
+            "--batch_size", str(TRAIN_BATCH), "--name", "spatial_chunks"]
+    m = train_model(base)
+    gen = torch.Generator().manual_seed(73)
+    with torch.no_grad():
+        for h in m.netR.heads():
+            h.weight.add_(R_HEAD_DRAW["multiscale"] * torch.randn(
+                h.weight.shape, generator=gen).to(h.weight.device))
+    # the pool full of 50 smooth images, as the batches are (its steps swap)
+    m.pool[0].copy_(torch.from_numpy(np.ascontiguousarray(
+        smooth_images(np.random.default_rng(71), 50, 3).transpose(0, 3, 1, 2))))
+    m.pool[1].fill_(50)
+    m.save_networks("chunks")
+    del m
+    batches = request_batches(SPATIAL_CHUNK, TRAIN_BATCH, seed=67)
+    cells = {name: [*base, *flags, "--continue_train", "--epoch", "chunks"]
+             for name, flags in SPATIAL_CHUNK_CELLS.items()}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.launch(
+        _spatial_chunk_rank, [dev, dev], backend="gloo",
+        args=([([*a, "--mesh_spatial", str(SPATIAL)], batches) for a in cells.values()],),
+        timeout=NCCL_TIMEOUT, pg_timeout=NCCL_TIMEOUT)
+    phase("spatial_chunks", seconds=round(time.perf_counter() - t0, 2))
+    fails = []
+    gib = 2.0**30
+    want_fp32 = {k: SPATIAL_CHUNK * v for k, v in SPATIAL_FLAG_LAUNCHES["wgangp"][0].items()}
+    want_band_fp32 = {k: tuple(SPATIAL_CHUNK * x for x in v)
+                      for k, v in SPATIAL_FLAG_LAUNCHES["wgangp"][1].items()}
+    for c, name in enumerate(cells):
+        r0, r1 = ranks[0][c], ranks[1][c]
+        for r in (r0, r1):
+            chunk, steps = r["chunk"], r["steps"]
+            if chunk["digest"] != steps["digest"] or chunk["band_losses"] != steps["band_losses"]:
+                fails.append(f"{name} rank {r['rank']}: the chunk differs from the band steps")
+            if chunk["launches"] != steps["launches"] or \
+                    chunk["band_launches"] != steps["band_launches"]:
+                fails.append(f"{name} rank {r['rank']}: launches {chunk['launches']} "
+                             f"{chunk['band_launches']} against the steps' {steps['launches']} "
+                             f"{steps['band_launches']}")
+            if name == "fp32":
+                bad = {k: v for k, v in chunk["launches"].items() if v != want_fp32.get(k, 0)}
+                bad.update({k: v for k, v in chunk["band_launches"].items()
+                            if tuple(v) != want_band_fp32[k]})
+                if bad:
+                    fails.append(f"{name} rank {r['rank']}: launches over the chunk {bad}")
+            if not (r["refusal"] and GLOO_GRAPH_REFUSAL in r["refusal"]):
+                fails.append(f"{name} rank {r['rank']}: the graph in a gloo group: "
+                             f"{r['refusal']!r}")
+        same = (r0["chunk"]["frames_digest"] == r1["chunk"]["frames_digest"]
+                and r0["chunk"]["losses"] == r1["chunk"]["losses"])
+        twice = all(r["again"]["digest"] == r["chunk"]["digest"] for r in (r0, r1))
+        # the chunk against one process's on the step graph
+        one, one_ms, one_peak = _one_process_chunk(cells[name], batches)
+        lc = dict(one.get_current_losses())
+        loss_rel = {k: abs(r0["chunk"]["losses"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in lc.items()}
+        # each run moves an element by at most lr x Adam's bound at each step
+        over = 0.0
+        for n, net in one.nets().items():
+            group = one.optimizers[n].param_groups[0]
+            bound = float(group["lr"]) * sum(adam_bound(t, group["betas"][0])
+                                             for t in range(1, SPATIAL_CHUNK + 1)) * (1 + 1e-3)
+            err = max(float((p.detach().cpu() - r0["chunk"]["params"][n][k]).abs().max())
+                      for k, p in net.named_parameters())
+            over = max(over, err / (2 * bound))
+        del one
+        torch.cuda.empty_cache()
+        phase("spatial_chunks_" + name, chunk=SPATIAL_CHUNK, ranks_bit_identical=same,
+              twice_bit_identical=twice,
+              chunk_equals_band_steps=r0["chunk"]["digest"] == r0["steps"]["digest"],
+              ms_per_step_rank0=round(r0["chunk"]["ms_per_step"], 3),
+              ms_per_step_rank1=round(r1["chunk"]["ms_per_step"], 3),
+              band_steps_ms_per_step_rank0=round(r0["steps"]["ms_per_step"], 3),
+              one_process_graph_ms_per_step=round(one_ms, 3),
+              chunk_peak_over_before_gib=json.dumps(
+                  [round(r["chunk"]["peak_over_before"] / gib, 3) for r in (r0, r1)]),
+              one_process_chunk_peak_over_before_gib=round(one_peak / gib, 3),
+              launches_over_chunk=json.dumps({k: v for k, v in r0["chunk"]["launches"].items()
+                                              if v}),
+              band_calls_stages_over_chunk=json.dumps(
+                  {k: v for k, v in r0["chunk"]["band_launches"].items() if v[0]}),
+              refusal=json.dumps(r0["refusal"]), losses=json.dumps(r0["chunk"]["losses"]),
+              vs_graph_loss_rel_err=json.dumps(loss_rel),
+              vs_graph_params_max_err_over_adam_bound=over)
+        if not same:
+            fails.append(f"{name}: the two ranks' states differ")
+        if not twice:
+            fails.append(f"{name}: the chunk run twice differs")
+        if not (over <= 1 and all(np.isfinite(v) for v in r0["chunk"]["losses"].values())):
+            fails.append(f"{name} against one process's graph: params at {over} of the Adam "
+                         f"bound, losses {r0['chunk']['losses']}")
+    if fails:
+        raise AssertionError("phase 19f: " + "; ".join(fails))
+    # the chunk's first step (the band steps' first) against one process's
+    _hold_two_ranks("chunks_fp32", cells["fp32"], batches[0],
+                    [ranks[0][0]["steps"], ranks[1][0]["steps"]], ("A",), g_gan_via_d=True)
+    _hold_bf16_rule_a(cells["bf16"], batches[0], ranks[0][1]["steps"], tag="spatial_chunks",
+                      arm="bf16 chunk's first step")
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -6325,6 +6584,9 @@ def main() -> int:
         t0 = time.perf_counter()
         run_spatial_templates(ckpt)
         phase("spatial_templates_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_spatial_chunks(ckpt)
+        phase("spatial_chunks_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

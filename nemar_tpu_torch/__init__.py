@@ -37,8 +37,9 @@ Model boundaries keep the reference's NHWC numpy layout; inside,
 activations are NCHW tensors in ``channels_last`` memory, so the kernels see
 NHWC-contiguous data.
 
-The flags of the JAX package that are not ported yet are refused by name,
-each naming its ROADMAP.md item.
+Every flag of the JAX package runs, in one process and in bands
+(``--mesh_spatial``); a combination the JAX package refuses is refused
+here too, by name.
 """
 
 __version__ = "0.1.0"

@@ -76,9 +76,9 @@ every rank; the WGAN-GP penalty differentiates D's band form twice, its
 per-sample norm summed over the group, and each rank's loss takes a 1/s
 share of it; --remat recomputes the band forms with their exchanges;
 under --norm batch D's two passes and every batch norm take their sums
-over every rank of the mesh; --steps_per_execution > 1, whose path the
-band step does not hold, is refused by name (``_check_supported``,
-ROADMAP.md A10c).
+over every rank of the mesh; a chunk of --steps_per_execution runs the
+band step on each batch's band, with the chunk's draws the global ones,
+the same on every rank of a spatial group.
 """
 
 from __future__ import annotations
@@ -86,6 +86,7 @@ from __future__ import annotations
 import functools
 import os
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -245,7 +246,6 @@ class NEMARModel(BaseModel):
         super().__init__(opt)
         self.model_names = ["G", "D", "R"]
         self.loss_names = ["D", "D_real", "D_fake", "G_GAN", "G_recon", "G_smooth", "G"]
-        _check_supported(opt)
         self.gan_mode = getattr(opt, "gan_mode", "lsgan")
         if self.gan_mode == "wgangp":
             self.loss_names.insert(3, "D_gp")
@@ -630,8 +630,10 @@ class NEMARModel(BaseModel):
         package's ``optimize_parameters_scan``. The lr, the GAN weight and
         R's gate are read once and hold across the chunk; the losses
         reported after it are the means over its steps; real_A and real_B
-        are left at its last batch; the step count advances by its length.
-        The chunk's batches and draws go to the device at once
+        are left at its last batch (under --mesh_spatial its band, whose
+        frames ``forward`` gathers); the step count advances by its length.
+        The chunk's batches (this rank's rows and band of each) and draws
+        (the global draws, alike on every rank) go to the device at once
         (``step_graph.Chunk``). On the card its steps are replays of one
         CUDA graph of the step (``step_graph.StepGraph``); on the CPU they
         run eagerly, through the same code."""
@@ -647,11 +649,13 @@ class NEMARModel(BaseModel):
         gan_scale, r_gate = self._gan_w_scalar() * self.lambda_GAN, self._r_gate_scalar()
         n = len(batches[0]["A"])
         self.micro_n = n // self.grad_accum
+        # every rank of a spatial group draws the global draws, alike
         draws = [self._step_draws(n) for _ in batches]
-        # the chunk is sharded as a batch is (P(None, 'data') in the JAX package)
-        batches = [parallel.shard_rows(b, self.grad_accum) for b in batches]
+        # the chunk is sharded as a batch is (P(None, 'data') in the JAX
+        # package), and cut to this rank's band as ``set_input`` cuts
+        batches = [self._band_rows(parallel.shard_rows(b, self.grad_accum)) for b in batches]
         chunk = step_graph.Chunk(batches, draws, self.device, dtype)
-        key = chunk.key()
+        key = (chunk.key(), self.band)
         if key not in self._step_graphs:
             self._step_graphs[key] = step_graph.StepGraph(self, chunk, dtype)
         runner = self._step_graphs[key]
@@ -797,14 +801,20 @@ class NEMARModel(BaseModel):
         (``parallel.shard_rows``), and under --mesh_spatial its band of
         their rows (``self.band``)."""
         self.micro_n = len(data["A"]) // self.grad_accum
-        data = parallel.shard_rows(data, self.grad_accum)
-        self.band = self.band_of(data["A"].shape[1])
-        if self.band is not None:
-            data = {**data, "A": data["A"][:, self.band.r0:self.band.r1],
-                    "B": data["B"][:, self.band.r0:self.band.r1]}
+        data = self._band_rows(parallel.shard_rows(data, self.grad_accum))
         self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
         self.real_B = to_device_nchw(data["B"], self.device, self.dtype)
         self.image_paths = data.get("A_paths", [])
+
+    def _band_rows(self, data: dict) -> dict:
+        """``data`` (this rank's rows) with A and B cut to this rank's band
+        of their height, which becomes ``self.band`` (under --mesh_spatial;
+        else ``data`` itself and no band)."""
+        self.band = self.band_of(np.shape(data["A"])[1])
+        if self.band is None:
+            return data
+        r0, r1 = self.band.r0, self.band.r1
+        return {**data, "A": data["A"][:, r0:r1], "B": data["B"][:, r0:r1]}
 
     def forward(self):
         """The forward's visuals and ``last_flow``; under --mesh_spatial
@@ -833,13 +843,3 @@ def _mean_grads(params: list, k: int) -> None:
             if p.grad is not None:
                 p.grad.div_(k)
 
-
-def _check_supported(opt) -> None:
-    """Refuse, by name, the flags whose code paths are not ported: under
-    --mesh_spatial > 1, --steps_per_execution > 1 (queued as ROADMAP.md
-    A10c)."""
-    if getattr(opt, "mesh_spatial", 1) > 1 and getattr(opt, "steps_per_execution", 1) > 1:
-        raise NotImplementedError(
-            f"--steps_per_execution > 1 (the band step's exchanges in a CUDA graph, on two or "
-            f"more GPUs) under --mesh_spatial {opt.mesh_spatial} is not ported (the spatial step "
-            f"does not hold it; queued as ROADMAP.md A10c)")

@@ -122,15 +122,19 @@ def batch_norm_global(x: torch.Tensor) -> torch.Tensor:
     as the JAX package's mean over a batch sharded on 'data': the two
     passes' sums (and the rows' count, so that a batch replicated on every
     rank normalises as well) summed over the ranks, differentiably
-    (``parallel.sum_over_ranks``), so the backward's sums are global too."""
-    count = torch.full((1,), x.shape[0] * x.shape[2] * x.shape[3], dtype=x.dtype,
-                       device=x.device)
-    sums = parallel.sum_over_ranks(torch.cat([x.sum(dim=(0, 2, 3)), count]))
+    (``parallel.sum_over_ranks``), so the backward's sums are global too.
+    Under bf16 the sums and the count are taken and summed in fp32, and the
+    mean and the variance cast to bf16 once, as the JAX package's
+    ``jnp.mean`` reduces (a count such as 2 x 31 x 31 = 1922 is not a bf16
+    number); fp32 and float64 sum in their own type."""
+    acc = torch.float32 if x.dtype in (torch.bfloat16, torch.float16) else x.dtype
+    count = torch.full((1,), x.shape[0] * x.shape[2] * x.shape[3], dtype=acc, device=x.device)
+    sums = parallel.sum_over_ranks(torch.cat([x.sum(dim=(0, 2, 3), dtype=acc), count]))
     n = sums[-1]
-    mean = (sums[:-1] / n)[None, :, None, None]
+    mean = (sums[:-1] / n).to(x.dtype)[None, :, None, None]
     dev = x - mean
-    var = parallel.sum_over_ranks(torch.square(dev).sum(dim=(0, 2, 3))) / n
-    return dev * torch.rsqrt(var[None, :, None, None] + 1e-5)
+    var = parallel.sum_over_ranks(torch.square(dev).sum(dim=(0, 2, 3), dtype=acc)) / n
+    return dev * torch.rsqrt(var.to(x.dtype)[None, :, None, None] + 1e-5)
 
 
 def norm_act(x: torch.Tensor, act: str, norm: str = "instance") -> torch.Tensor:

@@ -34,7 +34,10 @@ eager one. On the CPU the same steps run eagerly on the same buffers.
 
 In a data-parallel run over NCCL the step's collectives (the gradients'
 all-reduces, the pool's gather) are captured with it and replayed; the
-communicator exists by then, made by the eager first step. gloo's
+communicator exists by then, made by the eager first step. Under
+--mesh_spatial the step is the band step on each batch's band, and its
+exchanges, all-gathers on the spatial group, are captured alike (a run
+on two or more cards, which no check here has run yet). gloo's
 collectives cannot be captured: a graph in a gloo group is refused, it
 does not fall back to eager steps.
 """
@@ -49,14 +52,16 @@ from nemar_tpu_torch import parallel
 
 class Chunk:
     """A chunk's batches and draws on the device. ``a``, ``b``: (k, N, H,
-    W, C) in the parameters' dtype; ``draws``: one (k, ...) tensor per draw
-    a step takes, in the order it takes them."""
+    W, C) in the parameters' dtype, this rank's rows and, under
+    --mesh_spatial, its band of them (H the band's rows); ``draws``: one
+    (k, ...) tensor per draw a step takes, in the order it takes them. An
+    empty batch or draw is not pinned (nothing to copy)."""
 
     def __init__(self, batches: list, draws: list, device: torch.device, dtype: torch.dtype):
         self.n = len(batches)
-        pin = device.type == "cuda"
         shapes = [(self.n, *np.shape(batches[0][k])) for k in ("A", "B")]
         sizes = [int(np.prod(s)) for s in shapes]
+        pin = device.type == "cuda" and sum(sizes) > 0
         host = torch.empty(sum(sizes), dtype=torch.float32, pin_memory=pin)
         flat = host.numpy()
         for key, shape, lo, size in zip(("A", "B"), shapes, (0, sizes[0]), sizes):
@@ -66,12 +71,14 @@ class Chunk:
         self.a = dev[:sizes[0]].view(shapes[0]).to(dtype)
         self.b = dev[sizes[0]:].view(shapes[1]).to(dtype)
         stacked = [torch.stack(col) for col in zip(*draws)]
-        self.draws = [(t.pin_memory() if pin else t).to(device, non_blocking=pin)
-                      for t in stacked]
+        cuda = device.type == "cuda"
+        self.draws = [(t.pin_memory() if cuda and t.numel() else t).to(
+            device, non_blocking=cuda and t.numel() > 0) for t in stacked]
 
     def key(self) -> tuple:
         """What a graph of the step depends on: the shapes and dtypes of one
-        step's inputs and draws."""
+        step's inputs and draws (a band's rows among them; the model adds
+        the band itself)."""
         return tuple((tuple(t.shape[1:]), t.dtype) for t in (self.a, self.b, *self.draws))
 
     def last(self) -> tuple:

@@ -20,9 +20,8 @@ means the same to both packages. Differences:
     its virtual CPU devices;
   * ``--bf16`` runs the forward in bfloat16 with fp32 parameters, as the
     JAX package's (``models/base_model.py``, ``models/nemar_model.py``);
-    the flags of the paths not ported yet are parsed and refused by the
-    model by name, with the ROADMAP.md item that queues them
-    (``models/nemar_model.py:_check_supported``);
+    a combination the JAX package refuses is refused by the model, by
+    name;
   * the TPU-only flags that name a layout or an implementation of one
     function (``--warp_impl``, ``--norm_impl``,
     ``--block_impl``, ``--c7_impl``, ``--stn_head_impl``, ``--stn_up_impl``,

@@ -1,7 +1,5 @@
 """Train options (reference options/train_options.py), this package's copy
-of ``nemar_tpu/options/train_options.py``. The flags whose code paths are
-not ported are parsed and refused by the model, by name (under
-``--mesh_spatial > 1``, those of ROADMAP.md A10c)."""
+of ``nemar_tpu/options/train_options.py``."""
 
 from nemar_tpu_torch.options.base_options import BaseOptions
 

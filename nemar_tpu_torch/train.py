@@ -41,8 +41,9 @@ states.
 
 ``--mesh_spatial s`` lays the ranks out as the JAX package's ('data',
 'spatial') mesh, (W / s, s) (``parallel.set_mesh``): each rank also keeps
-its band of the image height (the nemar model's spatial step); s must
-divide W, as the JAX package's ``make_mesh`` asks.
+its band of the image height (the nemar model's spatial step, and its
+chunks under --steps_per_execution); s must divide W, as the JAX
+package's ``make_mesh`` asks.
     python -m nemar_tpu_torch.train --gpu_ids -1 --num_devices 4 --mesh_spatial 2 ...
 """
 

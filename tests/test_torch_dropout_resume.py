@@ -68,10 +68,22 @@ def test_pix2pix_resumed_from_a_card_state_equals_uninterrupted(tmp_path):
         _train(resumed, batches[2:], 2)
     assert not [w for w in caught if issubclass(w.category, RuntimeWarning)], caught
     assert resumed.step == run.step == 4
-    for name in ("G", "D"):
-        for (key, p), q in zip(resumed.nets()[name].named_parameters(),
-                               run.nets()[name].parameters()):
-            assert torch.equal(p, q), (name, key)
+    differ = [(name, key) for name in ("G", "D")
+              for (key, p), q in zip(resumed.nets()[name].named_parameters(),
+                                     run.nets()[name].parameters()) if not torch.equal(p, q)]
+    if differ:
+        # which of the two strayed: a second uninterrupted run says
+        again = _model(tmp_path / "again")
+        _train(again, batches[:2], 1)
+        again.update_learning_rate(1)
+        _train(again, batches[2:], 2)
+        name, key = differ[0]
+        ref = dict(again.nets()[name].named_parameters())[key]
+        verdict = {"resumed": torch.equal(dict(resumed.nets()[name].named_parameters())[key], ref),
+                   "uninterrupted": torch.equal(dict(run.nets()[name].named_parameters())[key],
+                                                ref)}
+        raise AssertionError(f"{differ[:4]} differ; equal to a second uninterrupted run: "
+                             f"{verdict}")
 
 
 def test_each_step_draws_from_its_own_seed():

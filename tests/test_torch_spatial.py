@@ -31,9 +31,9 @@ primitives and band forms on small frames. Held:
     spatial 2) mesh of its virtual CPU devices;
   * a checkpoint written at (2, 2) resumed in one process, and ``test
     --eval_registration`` at spatial 2 against one process;
-  * the refusal (ROADMAP.md A10c: --steps_per_execution > 1), the flags
-    held in bands accepted, the other models built and run in bands, an
-    undivided height; the geometries once refused (a
+  * the flags held in bands accepted (--steps_per_execution > 1 the last
+    of them), the other models built and run in bands, an undivided
+    height refused; the geometries once refused (a
     band thinner than a halo it must send, an empty output band, a height
     the levels split unevenly) held (``tests/test_torch_spatial_geometry.py``
     holds them in full).
@@ -476,22 +476,14 @@ def test_eval_registration_at_spatial_two(tmp_path):
 # ---------------------------------------------------------------------------
 # the refusals
 # ---------------------------------------------------------------------------
-A10C = [["--steps_per_execution", "2"]]
-# held in bands since the step flags' slice (tests/test_torch_spatial_flags.py)
-# and, the last three, the template models' (tests/test_torch_spatial_templates.py)
+# held in bands since the step flags' slice (tests/test_torch_spatial_flags.py),
+# the template models' (tests/test_torch_spatial_templates.py: --norm batch to
+# unet_256) and the chunks' (tests/test_torch_spatial_chunks.py)
 HELD = [["--gan_mode", "wgangp"], ["--gan_mode", "vanilla"], ["--remat"], ["--g_batch"],
         ["--freeze_g"], ["--stn_field_source", "fake"], ["--stn_padding_mode", "border"],
         ["--stn_padding_mode", "reflection"], ["--stn_align_corners"],
         ["--netG", "resnet_9blocks"], ["--netD", "n_layers"], ["--norm", "batch"],
-        ["--netD", "pixel"], ["--netG", "unet_256"]]
-
-
-@pytest.mark.parametrize("flag", A10C, ids=lambda f: " ".join(f))
-def test_unheld_flags_refused_under_spatial(tmp_path, flag):
-    opt = TrainOptions().parse([*RUN, *SPATIAL, "--checkpoints_dir", str(tmp_path),
-                                "--mesh_spatial", "2", *flag])
-    with pytest.raises(NotImplementedError, match=f"{flag[0]}.*A10c"):
-        create_model(opt)
+        ["--netD", "pixel"], ["--netG", "unet_256"], ["--steps_per_execution", "2"]]
 
 
 @pytest.mark.parametrize("flag", HELD, ids=lambda f: " ".join(f))
