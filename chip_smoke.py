@@ -6478,6 +6478,298 @@ def run_spatial_chunks(ckpt: str) -> None:
     _hold_bf16_rule_a(cells["bf16"], batches[0], ranks[0][1]["steps"], tag="spatial_chunks",
                       arm="bf16 chunk's first step")
 
+# ---------------------------------------------------------------------------
+# phase 20: --loader grain (worker processes) on image files, and two hosts
+# ---------------------------------------------------------------------------
+# a seeded multimodal PNG set written by the phase: FILE_PAIRS pairs at
+# FILE_SIZE^2 (trainA one channel, IR-like; trainB RGB), cropped to 256;
+# an epoch of it is 24 batches of 8, long past the fill of FILE_WORKERS
+# workers (each makes whole batches, two ahead), so it shows their steady
+# rate
+FILE_PAIRS, FILE_SIZE, FILE_CROP = 192, 286, 256
+FILE_STEPS = 4
+FILE_WORKERS = 4
+FILE_BANNED = ("jax", "jaxlib", "grain", "nemar_tpu", "flax")
+# phase 20b: hosts on this machine, each one rank on cuda:0 (gloo), each
+# reading its shard in batches of TRAIN_BATCH / FILE_HOSTS rows
+FILE_HOSTS, FILE_HOST_STEPS = 2, 2
+
+
+def write_pairs(root: str, n: int = FILE_PAIRS, size: int = FILE_SIZE, seed: int = 20) -> None:
+    """{root}/trainA/*.png (one channel: a smooth scene, shifted a few
+    pixels) and {root}/trainB/*.png (RGB: the scene through three monotone
+    maps), 8-bit like real data, as ``scripts/science_realdata.py`` makes
+    them. The draws are taken in order, the pairs written on threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("trainA", "trainB"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    draws = [(rng.random((9, 9)).astype(np.float32), rng.integers(0, 9, 2)) for _ in range(n)]
+
+    def write(i):
+        coarse, (dy, dx) = draws[i]
+        scene = np.asarray(Image.fromarray(coarse).resize((size + 8, size + 8), Image.BICUBIC))
+        scene = np.clip(scene, 0.0, 1.0)
+        a = scene[dy:dy + size, dx:dx + size]
+        b = scene[4:4 + size, 4:4 + size]
+        b = np.stack([b ** 0.5, b, 1.0 - b ** 2], axis=-1)
+        Image.fromarray((a * 255).astype(np.uint8), "L").save(
+            os.path.join(root, "trainA", f"{i:03d}.png"))
+        Image.fromarray((b * 255).astype(np.uint8)).save(
+            os.path.join(root, "trainB", f"{i:03d}.png"))
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, range(n)))
+
+
+def banned_modules() -> list:
+    return sorted(m for m in sys.modules if m.split(".")[0] in FILE_BANNED)
+
+
+class _Tap:
+    """A loader's batches as the training loop takes them: each kept, the
+    ms the loop waited for it and the ms of the step that took it (the
+    card synchronised before the next)."""
+
+    def __init__(self, loader):
+        self.loader, self.batches, self.wait_ms, self.step_ms = loader, [], [], []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def num_batches(self):
+        return self.loader.num_batches()
+
+    def __iter__(self):
+        t = time.perf_counter()
+        for b in self.loader:
+            got = time.perf_counter()
+            self.wait_ms.append((got - t) * 1e3)
+            self.batches.append(b)
+            yield b
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.step_ms.append((t - got) * 1e3)
+
+
+def _file_args(ckpt: str, root: str, name: str, *extra) -> list:
+    return [*TRAIN_ARGS, "--name", name, "--checkpoints_dir", ckpt, "--gpu_ids", "0",
+            "--dataset_mode", "multimodal", "--dataroot", root, "--load_size", str(FILE_SIZE),
+            "--crop_size", str(FILE_CROP), "--batch_size", str(TRAIN_BATCH), "--n_epochs", "1",
+            "--n_epochs_decay", "0", "--display_freq", "0", "--print_freq", "0",
+            "--save_latest_freq", "0", "--save_epoch_freq", "0", *extra]
+
+
+def _train_through_entry(args: list) -> tuple:
+    """``nemar_tpu_torch.train.main(args)`` with its loader tapped: (the
+    model, the tap)."""
+    from nemar_tpu_torch import train
+
+    taps = []
+    real = train.create_dataset
+
+    def tapped(opt):
+        taps.append(_Tap(real(opt)))
+        return taps[-1]
+
+    train.create_dataset = tapped
+    try:
+        with contextlib.redirect_stdout(open(os.devnull, "w")):
+            model = train.main(args)
+    finally:
+        train.create_dataset = real
+    close = getattr(taps[0].loader, "close", None)
+    if close is not None:
+        close()
+    return model, taps[0]
+
+
+def _loader_epochs(args: list, epochs: int = 2) -> dict:
+    """``epochs`` passes of the loader of ``args`` over its set: the ms to
+    its first batch (a worker loader's start), the ms a batch of each
+    epoch (the first with the workers' start; the later ones with the
+    workers kept), each batch's arrival (ms from its epoch's start) and
+    each epoch's record paths in order."""
+    from nemar_tpu_torch.data import create_dataset
+    from nemar_tpu_torch.options import TrainOptions
+
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        opt = TrainOptions().parse(args)
+        loader = create_dataset(opt)
+    out = {"paths": [], "ms_per_batch": [], "arrivals": []}
+    for e in range(epochs):
+        t0 = time.perf_counter()
+        paths, arrivals = [], []
+        for b in loader:
+            arrivals.append((time.perf_counter() - t0) * 1e3)
+            if not paths and e == 0:
+                out["first_ms"] = arrivals[0]
+            paths.append(b["A_paths"])
+        out["ms_per_batch"].append(arrivals[-1] / len(paths))
+        out["arrivals"].append(arrivals)
+        out["paths"].append([p for ps in paths for p in ps])
+    close = getattr(loader, "close", None)
+    if close is not None:
+        close()
+    return out
+
+
+def steady_ms(arrivals: list, fill: int) -> float:
+    """A loader's ms a batch once its pipeline is full: from the arrival
+    of its first round of ``fill`` batches (one a worker, made together)
+    to that of its last batch."""
+    return (arrivals[-1] - arrivals[fill - 1]) / (len(arrivals) - fill)
+
+
+def run_file_loader(ckpt: str, root: str) -> None:
+    """Phase 20a: NeMAR's default network at 256^2 b8 trained FILE_STEPS
+    steps through the entry point on the PNG set, once with --loader
+    threads and once with --loader grain --num_threads FILE_WORKERS, both
+    --serial_batches: the batches the loop took bit-identical, the two
+    runs' parameters and Adam states bit-identical (``state_digest``), no
+    module of JAX, grain, flax or the JAX package in this process after
+    them. Shuffled, each loader's epochs (two) hold the same records, each
+    once, the worker loader's order the same at 0 and FILE_WORKERS workers
+    and another in each epoch. Printed: the loaders' ms a batch over the
+    set in each of two epochs (the first with the workers' start, which
+    is printed apart), their steady ms a batch in each (``steady_ms``:
+    past the pipeline's fill), beside the step's ms."""
+    from nemar_tpu_torch.data import create_dataset
+    from nemar_tpu_torch.data.grain_loader import GrainDatasetLoader
+    from nemar_tpu_torch.models.base_model import state_digest
+    from nemar_tpu_torch.options import TrainOptions
+
+    fp32_only()
+    steps = ["--max_dataset_size", str(FILE_STEPS * TRAIN_BATCH), "--serial_batches"]
+    runs = {}
+    for loader, extra in (("threads", ("--loader", "threads")),
+                          ("grain", ("--loader", "grain", "--num_threads", str(FILE_WORKERS)))):
+        model, tap = _train_through_entry(_file_args(ckpt, root, f"smoke_files_{loader}",
+                                                     *steps, *extra))
+        assert isinstance(tap.loader, GrainDatasetLoader) == (loader == "grain")
+        losses = model.get_current_losses()
+        runs[loader] = {"digest": state_digest(model), "tap": tap, "losses": losses,
+                        "step": model.step}
+        del model
+        torch.cuda.empty_cache()
+    th, gr = runs["threads"], runs["grain"]
+    same_batches = (len(th["tap"].batches) == len(gr["tap"].batches) == FILE_STEPS and all(
+        all(np.array_equal(a[k], b[k]) for k in ("A", "B")) and a["A_paths"] == b["A_paths"]
+        for a, b in zip(th["tap"].batches, gr["tap"].batches)))
+    same_state = th["digest"] == gr["digest"] and th["step"] == gr["step"] == FILE_STEPS
+    finite = all(math.isfinite(v) for r in runs.values() for v in r["losses"].values())
+    banned = banned_modules()
+    # shuffled, over the whole set: the worker loader at 0 and FILE_WORKERS
+    # workers (the same order), the thread loader (the same records)
+    passes = {name: _loader_epochs(_file_args(ckpt, root, "smoke_files_shuffled", *extra))
+              for name, extra in (
+                  ("grain_0", ("--loader", "grain", "--num_threads", "0")),
+                  ("grain", ("--loader", "grain", "--num_threads", str(FILE_WORKERS))),
+                  ("threads", ("--loader", "threads")))}
+    records = {k: v["paths"] for k, v in passes.items()}
+    fill = {"grain_0": 1, "grain": FILE_WORKERS, "threads": 1}
+    steady = {k: [round(steady_ms(a, fill[k]), 3) for a in v["arrivals"]]
+              for k, v in passes.items()}
+    same_records = all(
+        sorted(a) == sorted(b) and len(set(a)) == len(a) == FILE_PAIRS
+        for a, b in zip(records["threads"], records["grain"]))
+    same_order = (records["grain"] == records["grain_0"]
+                  and records["grain"][0] != records["grain"][1])
+    phase("file_loader", pairs=FILE_PAIRS, size=FILE_SIZE, crop=FILE_CROP, batch=TRAIN_BATCH,
+          steps=FILE_STEPS, workers=FILE_WORKERS, batches_bit_identical=same_batches,
+          states_bit_identical=same_state, shuffled_records_equal=same_records,
+          shuffled_order_same_at_0_workers=same_order,
+          banned_modules=json.dumps(banned),
+          step_ms_threads=json.dumps([round(t, 3) for t in th["tap"].step_ms]),
+          step_ms_grain=json.dumps([round(t, 3) for t in gr["tap"].step_ms]),
+          wait_ms_threads=json.dumps([round(t, 3) for t in th["tap"].wait_ms]),
+          wait_ms_grain=json.dumps([round(t, 3) for t in gr["tap"].wait_ms]),
+          loader_ms_per_batch_by_epoch=json.dumps(
+              {k: [round(t, 3) for t in v["ms_per_batch"]] for k, v in passes.items()}),
+          loader_steady_ms_by_epoch=json.dumps(steady),
+          loader_first_ms=json.dumps({k: round(v["first_ms"], 3) for k, v in passes.items()}),
+          loader_batches=FILE_PAIRS // TRAIN_BATCH, losses_grain=json.dumps(gr["losses"]))
+    fails = [k for k, ok in (("batches", same_batches), ("states", same_state),
+                             ("finite", finite), ("shuffled records", same_records),
+                             ("shuffled order at 0 workers", same_order),
+                             ("no JAX module", not banned)) if not ok]
+    if fails:
+        raise AssertionError(f"file_loader: {fails}")
+
+
+def _host_rank(args: list, steps: int) -> dict:
+    """Phase 20b inside a rank of one host: the model from ``args``, its
+    loader (this host's shard), ``steps`` steps; -> the ms of each, the
+    digest after each, the losses and (at rank 0) the parameters and
+    gradients after the first, this host's first batch, and the modules of
+    JAX, grain or the JAX package the rank holds."""
+    from nemar_tpu_torch import parallel
+    from nemar_tpu_torch.data import create_dataset
+    from nemar_tpu_torch.models.base_model import state_digest, to_host
+
+    fp32_only()
+    with contextlib.redirect_stdout(open(os.devnull, "w")):
+        model = train_model(args)
+        loader = create_dataset(model.opt)
+    out = {"ms": [], "digests": [], "rank": parallel.rank(), "host": parallel.host()}
+    for i, b in enumerate(loader):
+        if i == steps:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["digests"].append(state_digest(model))
+        if i == 0:
+            out["batch"] = {k: b[k] for k in ("A", "B")}
+            out["losses"] = dict(model.get_current_losses())
+            if parallel.rank() == 0:
+                out["params"] = {n: {k: to_host(p) for k, p in net.named_parameters()}
+                                 for n, net in model.nets().items()}
+                out["grads"] = {n: {k: to_host(p.grad) for k, p in net.named_parameters()}
+                                for n, net in model.nets().items()}
+    loader.close()
+    out["banned"] = banned_modules()
+    return out
+
+
+def run_two_hosts(ckpt: str, root: str, dev: torch.device = torch.device("cuda", 0)) -> None:
+    """Phase 20b: FILE_HOSTS hosts on this machine (launcher processes of
+    their own, ``multiprocess_smoke.run_hosts``), each one rank on cuda:0,
+    joined over host 0's TCP store on 127.0.0.1 (gloo: NCCL refuses two
+    ranks on one card); --loader grain reading each host's shard of the PNG
+    set, the global b8 batch as TRAIN_BATCH / FILE_HOSTS rows a host, from
+    phase 6's saved state (``smoke6``), FILE_HOST_STEPS steps. Held: the
+    ranks bit-identical after each step; the first step within phase 6's
+    limits of one process fed the global batch (the hosts' first batches
+    in host order: ``_hold_two_ranks``); no JAX module in a rank."""
+    from nemar_tpu_torch.multiprocess_smoke import run_hosts
+
+    args = [*_file_args(ckpt, root, "smoke_train", "--loader", "grain", "--num_threads", "0",
+                        "--max_dataset_size",
+                        str(FILE_HOST_STEPS * TRAIN_BATCH)),
+            "--continue_train", "--epoch", "smoke6"]
+    t0 = time.perf_counter()
+    hosts = run_hosts(_host_rank, [dev], args=(args, FILE_HOST_STEPS),
+                      hosts=FILE_HOSTS, backend="gloo", timeout=NCCL_TIMEOUT,
+                      pg_timeout=NCCL_TIMEOUT)
+    ranks = [r for h in hosts for r in h]
+    phase("two_hosts", hosts=FILE_HOSTS, seconds=round(time.perf_counter() - t0, 2),
+          host_rows=len(ranks[0]["batch"]["A"]),
+          banned_modules=json.dumps(sorted({m for r in ranks for m in r["banned"]})))
+    assert [(r["host"], r["rank"]) for r in ranks] == [(h, h) for h in range(FILE_HOSTS)]
+    assert all(len(r["digests"]) == FILE_HOST_STEPS for r in ranks)
+    assert not any(r["banned"] for r in ranks), [r["banned"] for r in ranks]
+    batch = {k: np.concatenate([r["batch"][k] for r in ranks]) for k in ("A", "B")}
+    assert len(batch["A"]) == TRAIN_BATCH
+    _hold_two_ranks("two_hosts", args, batch, ranks, ("A",))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -6587,6 +6879,14 @@ def main() -> int:
         t0 = time.perf_counter()
         run_spatial_chunks(ckpt)
         phase("spatial_chunks_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        files = os.path.join(ckpt, "pairs")
+        write_pairs(files)
+        run_file_loader(ckpt, files)
+        phase("file_loader_phase", seconds=round(time.perf_counter() - t0, 2))
+        t0 = time.perf_counter()
+        run_two_hosts(ckpt, files)
+        phase("two_hosts_phase", seconds=round(time.perf_counter() - t0, 2))
     # the inference kernels' launches come from phase 3, the backward ones'
     # from phase 5 (the inference path launches none); the bf16 variants'
     # from phase 12's requests and steps

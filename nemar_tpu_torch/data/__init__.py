@@ -9,7 +9,9 @@ thread-pool prefetcher producing device-ready NHWC numpy batches (the
 device transfer itself happens in the model layer, where sharding is
 known). In a data-parallel run every rank's loader gives the same global
 batches in the same order (the same seed), and the model keeps the rank's
-rows (``nemar_tpu_torch.parallel.shard_rows``).
+rows (``nemar_tpu_torch.parallel.shard_rows``). ``--loader grain`` is the
+worker-process loader (``grain_loader.py``, on ``torch.utils.data``), which
+over several hosts reads each host's shard.
 """
 
 from __future__ import annotations
@@ -100,7 +102,7 @@ class CustomDatasetDataLoader:
                 if stop.is_set():
                     return
                 items = [self.dataset[int(i)] for i in idxs]
-                q.put(self._collate(items))
+                q.put(collate(items))
             q.put(None)
 
         t = threading.Thread(target=producer, daemon=True)
@@ -114,13 +116,15 @@ class CustomDatasetDataLoader:
         finally:
             stop.set()
 
-    @staticmethod
-    def _collate(items):
-        out = {}
-        for key in items[0]:
-            vals = [it[key] for it in items]
-            if isinstance(vals[0], np.ndarray):
-                out[key] = np.stack(vals, axis=0)
-            else:
-                out[key] = vals
-        return out
+
+def collate(items: list) -> dict:
+    """Items -> one batch: arrays stacked on a new leading axis (NHWC),
+    other fields (paths) as lists."""
+    out = {}
+    for key in items[0]:
+        vals = [it[key] for it in items]
+        if isinstance(vals[0], np.ndarray):
+            out[key] = np.stack(vals, axis=0)
+        else:
+            out[key] = vals
+    return out

@@ -34,9 +34,9 @@ class BaseDataset(ABC):
     def item_rng(self, index: int) -> np.random.Generator:
         """Deterministic per-(seed, epoch, index) generator for __getitem__
         param draws. A shared mutable stream would re-draw identical crops in
-        every forked grain worker and make thread-loader runs depend on
-        arrival order; keying on the item index makes draws identical for
-        any worker count."""
+        every worker process of the worker loader (``grain_loader.py``) and
+        make thread-loader runs depend on arrival order; keying on the item
+        index makes draws identical for any worker count."""
         return np.random.default_rng(
             (getattr(self.opt, "seed", 0), self._epoch, index)
         )

@@ -4,6 +4,16 @@ The reference's input hot loops live in torch's C++ (SURVEY.md §3.3); ours
 live in libnemar_native.so: fused crop+flip+normalize+collate and bilinear
 resize over uint8 images. Falls back to numpy transparently when the
 library isn't built (build with: make -C native).
+
+The two are not bit-identical: the library computes ``x * (2/255) - 1``
+(one fused multiply-add where the compiler contracts it), numpy ``x / 127.5
+- 1``, an ulp apart for most values. So every process of a run must take
+the same one: the library is opened once per process under a lock (a
+thread that asks while another opens it waits for it, where it used to take
+numpy for that item), and built into a temporary file that is renamed into
+place (a process never opens a half-written library that another is
+building). The worker loader opens it in its parent before the workers
+start (``grain_loader.py``).
 """
 
 from __future__ import annotations
@@ -11,11 +21,13 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_LOCK = threading.Lock()
 
 _NATIVE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -28,15 +40,27 @@ def _load():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB
-    _TRIED = True
+    with _LOCK:
+        if not _TRIED:
+            _LIB = _open()
+            _TRIED = True
+    return _LIB
+
+
+def _open():
     if not os.path.exists(_SO_PATH):
-        # best-effort build (toolchain is available in dev images)
+        # best-effort build (toolchain is available in dev images), under a
+        # name of this process's, then renamed into place
+        tmp = f"{os.path.basename(_SO_PATH)}.{os.getpid()}.tmp"
         try:
             subprocess.run(
-                ["make", "-C", _NATIVE_DIR], capture_output=True, timeout=120,
-                check=True,
+                ["make", "-C", _NATIVE_DIR, f"TARGET={tmp}"], capture_output=True,
+                timeout=120, check=True,
             )
+            os.replace(os.path.join(_NATIVE_DIR, tmp), _SO_PATH)
         except Exception:
+            if os.path.exists(os.path.join(_NATIVE_DIR, tmp)):
+                os.remove(os.path.join(_NATIVE_DIR, tmp))
             return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
@@ -57,10 +81,9 @@ def _load():
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.POINTER(ctypes.c_uint8),
         ]
-        _LIB = lib
+        return lib
     except OSError:
-        _LIB = None
-    return _LIB
+        return None
 
 
 def native_available() -> bool:

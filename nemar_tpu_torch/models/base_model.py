@@ -206,7 +206,10 @@ class BaseModel(ABC):
 
     @abstractmethod
     def set_input(self, data: dict):
-        ...
+        """A batch from the loader: the global batch, or over several hosts
+        under --loader grain its host's rows of it
+        (``parallel.global_rows`` gives the global count); the model keeps
+        this rank's rows (``parallel.shard_rows``)."""
 
     @abstractmethod
     def forward(self):

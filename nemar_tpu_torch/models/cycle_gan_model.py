@@ -223,11 +223,11 @@ class CycleGANModel(BaseModel):
             self.pools = pools
 
     def set_input(self, data: dict):
-        """data['A'], data['B']: NHWC float numpy batches, the global batch;
-        in a data-parallel run this rank keeps its rows (and the dropout
-        layers draw for the global batch), under --mesh_spatial its band of
-        their rows."""
-        self.global_n = len(data["A"])
+        """data['A'], data['B']: NHWC float numpy batches, the global batch
+        (or its host's rows: ``parallel.global_rows``); in a data-parallel
+        run this rank keeps its rows (and the dropout layers draw for the
+        global batch), under --mesh_spatial its band of their rows."""
+        self.global_n = parallel.global_rows(data)
         data = parallel.shard_rows(data)
         if parallel.world() > 1:
             for n in ("G_A", "G_B"):

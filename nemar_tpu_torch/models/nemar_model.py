@@ -647,7 +647,7 @@ class NEMARModel(BaseModel):
     def _run_chunk(self, batches: list, graph: bool) -> None:
         dtype = next(self.netG.parameters()).dtype
         gan_scale, r_gate = self._gan_w_scalar() * self.lambda_GAN, self._r_gate_scalar()
-        n = len(batches[0]["A"])
+        n = parallel.global_rows(batches[0])
         self.micro_n = n // self.grad_accum
         # every rank of a spatial group draws the global draws, alike
         draws = [self._step_draws(n) for _ in batches]
@@ -796,11 +796,12 @@ class NEMARModel(BaseModel):
     # reference-API host methods
     # ------------------------------------------------------------------
     def set_input(self, data: dict):
-        """data['A'], data['B']: NHWC float numpy batches, the global batch;
-        in a data-parallel run this rank keeps its rows of each microbatch
-        (``parallel.shard_rows``), and under --mesh_spatial its band of
-        their rows (``self.band``)."""
-        self.micro_n = len(data["A"]) // self.grad_accum
+        """data['A'], data['B']: NHWC float numpy batches, the global batch
+        (over several hosts under --loader grain, the host's rows of it:
+        ``parallel.global_rows``); in a data-parallel run this rank keeps
+        its rows of each microbatch (``parallel.shard_rows``), and under
+        --mesh_spatial its band of their rows (``self.band``)."""
+        self.micro_n = parallel.global_rows(data) // self.grad_accum
         data = self._band_rows(parallel.shard_rows(data, self.grad_accum))
         self.real_A = to_device_nchw(data["A"], self.device, self.dtype)
         self.real_B = to_device_nchw(data["B"], self.device, self.dtype)

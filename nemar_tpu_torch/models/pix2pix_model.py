@@ -118,11 +118,11 @@ class Pix2PixModel(BaseModel):
         self.step += 1
 
     def set_input(self, data: dict):
-        """data['A'], data['B']: NHWC float numpy batches, the global batch;
-        in a data-parallel run this rank keeps its rows (and the dropout
-        layers draw for the global batch), under --mesh_spatial its band of
-        their rows."""
-        n = len(data["A"])
+        """data['A'], data['B']: NHWC float numpy batches, the global batch
+        (or its host's rows: ``parallel.global_rows``); in a data-parallel
+        run this rank keeps its rows (and the dropout layers draw for the
+        global batch), under --mesh_spatial its band of their rows."""
+        n = parallel.global_rows(data)
         data = parallel.shard_rows(data)
         if parallel.world() > 1:
             networks.set_dropout_rows(self.netG, (n, parallel.rows_in(n)))

@@ -86,7 +86,10 @@ class BaseOptions:
                             help="take images in order instead of randomly")
         parser.add_argument("--num_threads", type=int, default=4, help="# threads for loading data")
         parser.add_argument("--loader", type=str, default="threads",
-                            help="input pipeline backend [threads | grain]")
+                            help="input pipeline backend [threads | grain]: 'grain' "
+                                 "reads in --num_threads worker processes "
+                                 "(torch.utils.data; 0: in this process) and shards "
+                                 "the records by host")
         parser.add_argument("--batch_size", type=int, default=1, help="input batch size")
         parser.add_argument("--load_size", type=int, default=286, help="scale images to this size")
         parser.add_argument("--crop_size", type=int, default=256, help="then crop to this size")
@@ -147,8 +150,9 @@ class BaseOptions:
         parser.add_argument("--profile_dir", type=str, default="",
                             help="if set, write a jax.profiler trace of the hot loop here")
         parser.add_argument("--data_shard_count", type=int, default=-1,
-                            help="multi-host data shards for --loader grain "
-                                 "(-1: jax.process_count())")
+                            help="data shards for --loader grain (-1: one per host "
+                                 "of parallel.launch(hosts=...), each host reading "
+                                 "its own; 1 outside a launch over several hosts)")
         parser.add_argument("--data_shard_index", type=int, default=0,
                             help="this host's shard (used when "
                                  "--data_shard_count >= 0)")

@@ -45,6 +45,22 @@ package's ('data', 'spatial') mesh, (W / s, s), rank r at (r // s, r % s):
 the batch is split over 'data' (``data_world``, ``data_rank``: the row
 functions below follow it), the image height over 'spatial', in bands
 (``parallel/spatial.py``). The parameters stay replicated.
+
+Several hosts (the JAX package's multi-process mesh: ``jax.distributed.
+initialize``, ``scripts/multiprocess_smoke.py``): each host calls
+``launch(..., hosts=(index, count), init=...)`` with its own devices, the
+same number on every host. Host 0's launcher holds a TCP store
+(``host_store``: port 0 takes a free port, which the caller passes on to
+the other hosts), the others' connect to it; the ranks of all hosts form
+one group, global rank = host x local ranks + local rank, so a host's ranks
+are consecutive and a spatial group (``set_mesh``) stays within a host.
+Every rank builds the same parameters from the seed, as the JAX package's
+``replicate`` assumes on several processes. Under ``--loader grain`` each
+host reads its shard of the records (``data/grain_loader.py``): each of
+its batches holds the host's rows of the global batch and says where they
+lie in it (``PART``), and its ranks keep their rows of it;
+under ``--loader threads`` every host reads the whole global stream and
+keeps its rows, as the JAX script's hosts do.
 """
 
 from __future__ import annotations
@@ -68,6 +84,12 @@ import torch.distributed as dist
 _device: torch.device | None = None
 # the ('data', 'spatial') grid of a --mesh_spatial run (None: all on 'data')
 _mesh: "Mesh | None" = None
+# this rank's host and the launch's host count (``launch(hosts=...)``)
+_host, _hosts = 0, 1
+# the key under which a batch that holds only a part of the global batch
+# (a host's rows, ``--loader grain`` over several hosts) carries (its first
+# row in the global batch, the global batch's rows)
+PART = "global_part"
 
 
 class Mesh:
@@ -102,8 +124,7 @@ def set_mesh(spatial: int) -> None:
     data group, in the same order. spatial 1 leaves every rank on 'data'."""
     global _mesh
     w = world()
-    if spatial < 1 or w % spatial:
-        raise ValueError(f"spatial={spatial} must divide device count {w}")
+    check_mesh(spatial, w // _hosts, _hosts)
     _mesh = None
     if spatial == 1:
         return
@@ -111,6 +132,18 @@ def set_mesh(spatial: int) -> None:
     spatial_groups = [dist.new_group([k * spatial + j for j in range(spatial)]) for k in range(d)]
     data_groups = [dist.new_group([k * spatial + j for k in range(d)]) for j in range(spatial)]
     _mesh = Mesh(spatial, spatial_groups[rank() // spatial], data_groups[rank() % spatial])
+
+
+def check_mesh(spatial: int, ranks: int, hosts: int = 1) -> None:
+    """Refuse a --mesh_spatial that does not divide the ranks (the JAX
+    package's ``make_mesh``) or, over several hosts, each host's ``ranks``
+    (a spatial group stays within a host, as in the JAX package's
+    multi-process smoke)."""
+    if hosts > 1 and spatial >= 1 and ranks % spatial:
+        raise ValueError(f"--mesh_spatial {spatial}: a spatial group would span hosts; it "
+                         f"must divide each host's {ranks} ranks")
+    if spatial < 1 or ranks % spatial:
+        raise ValueError(f"spatial={spatial} must divide device count {ranks * hosts}")
 
 
 def spatial_size() -> int:
@@ -143,6 +176,23 @@ def data_group():
     return _mesh.data_group if _mesh is not None else None
 
 
+def host() -> int:
+    """This rank's host in a launch over several hosts (0 otherwise)."""
+    return _host
+
+
+def hosts() -> int:
+    """The launch's host count (1 outside a launch over several hosts)."""
+    return _hosts
+
+
+def global_rows(batch: dict) -> int:
+    """The global batch's rows, of a batch that this rank read (the whole
+    global batch, or a part of it that says so under ``PART``)."""
+    part = batch.get(PART)
+    return len(batch["A"]) if part is None else part[1]
+
+
 def device() -> torch.device | None:
     """The device ``launch`` gave this rank, or None outside a launch."""
     return _device
@@ -167,11 +217,40 @@ def devices(opt) -> list:
 # ---------------------------------------------------------------------------
 
 
+def host_store(addr: str = "127.0.0.1", port: int = 0,
+               timeout: float = 600.0) -> dist.TCPStore:
+    """Host 0's rendezvous for ``launch(hosts=...)``: a TCP store listening
+    on ``addr``; port 0 binds a free port (``.port`` says which), so that
+    concurrent launches cannot collide."""
+    return dist.TCPStore(addr, port, is_master=True, wait_for_workers=False,
+                         timeout=datetime.timedelta(seconds=timeout))
+
+
+def _tcp_address(init) -> tuple:
+    """(addr, port) of a ``tcp://addr:port`` or of a TCP store."""
+    if isinstance(init, dist.TCPStore):
+        return init.host, init.port
+    if not isinstance(init, str) or not init.startswith("tcp://"):
+        raise ValueError(f"launch over several hosts: init must be 'tcp://addr:port' or "
+                         f"host 0's host_store, not {init!r}")
+    addr, port = init[len("tcp://"):].rsplit(":", 1)
+    return addr, int(port)
+
+
 def launch(fn: Callable, devs: Sequence, backend: str | None = None, args: tuple = (),
-           timeout: float | None = None, pg_timeout: float = 600.0) -> list:
+           timeout: float | None = None, pg_timeout: float = 600.0,
+           hosts: tuple = (0, 1), init=None) -> list:
     """Run ``fn(*args)`` in one process per device of ``devs`` (a rank each,
     in that order), all in one process group; -> the ranks' return values,
     in rank order (they must pickle: host objects, no CUDA tensors).
+
+    ``hosts=(index, count)`` with count > 1 makes this launch host ``index``
+    of ``count``, each launching as many ranks, which all join one group
+    (global rank = index x len(devs) + local rank; -> this host's ranks'
+    values). ``init`` is the TCP rendezvous: on host 0 its ``host_store``
+    (or a ``tcp://addr:port`` where it opens one), on the others
+    ``tcp://addr:port`` of host 0's store. Host 0's launcher returns only
+    when every host's ranks have finished, since the store lives in it.
 
     ``backend``: NCCL when the devices are CUDA devices, gloo on the CPU
     (either may be named; gloo also takes CUDA tensors). ``fn`` is pickled
@@ -193,15 +272,27 @@ def launch(fn: Callable, devs: Sequence, backend: str | None = None, args: tuple
         _build.build()
     backend = backend or ("nccl" if cuda else "gloo")
     n = len(devs)
+    index, count = hosts
+    if not 0 <= index < count:
+        raise ValueError(f"launch: host {index} of {count}")
     # the CPU ranks share the host's cores
     threads = max(1, torch.get_num_threads() // n)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="nemar_launch_")
-    init = "file://" + os.path.join(tmp, "rendezvous")
+    store = None
+    if count == 1:
+        rendezvous = "file://" + os.path.join(tmp, "rendezvous")
+    else:
+        addr, port = _tcp_address(init)
+        store = init if isinstance(init, dist.TCPStore) else (
+            host_store(addr, port, pg_timeout) if index == 0 else
+            dist.TCPStore(addr, port, is_master=False,
+                          timeout=datetime.timedelta(seconds=pg_timeout)))
+        rendezvous = (addr, store.port)
     procs = [ctx.Process(target=_rank_main, name=f"rank{r}",
-                         args=(r, n, devs[r], backend, init, pg_timeout, threads, fn, args,
-                               results))
+                         args=(index * n + r, count * n, devs[r], backend, rendezvous,
+                               pg_timeout, threads, fn, args, results, (index, count)))
              for r in range(n)]
     out: list = [None] * n
     try:
@@ -230,10 +321,18 @@ def launch(fn: Callable, devs: Sequence, backend: str | None = None, args: tuple
                 continue
             if not ok:
                 raise RuntimeError(f"launch: rank {r} raised:\n{payload}")
+            r -= index * n
             out[r] = pickle.loads(payload)
             pending.discard(r)
         for p in procs:
             p.join(timeout=60.0)
+        if store is not None:
+            # host 0's store outlives every host's ranks
+            store.set(f"nemar_host_done/{index}", "1")
+            if index == 0:
+                store.wait([f"nemar_host_done/{h}" for h in range(count)],
+                           datetime.timedelta(seconds=pg_timeout if timeout is None
+                                              else max(1.0, deadline - time.monotonic())))
     finally:
         for p in procs:
             if p.is_alive():
@@ -247,20 +346,28 @@ def launch(fn: Callable, devs: Sequence, backend: str | None = None, args: tuple
     return out
 
 
-def _rank_main(r: int, n: int, dev: torch.device, backend: str, init: str, pg_timeout: float,
-               threads: int, fn: Callable, args: tuple, results) -> None:
-    """One rank: join the group, run fn, send back (rank, ok, result or
-    traceback)."""
-    global _device
+def _rank_main(r: int, n: int, dev: torch.device, backend: str, init, pg_timeout: float,
+               threads: int, fn: Callable, args: tuple, results, hosts: tuple) -> None:
+    """One rank: join the group (``init``: a ``file://`` rendezvous, or the
+    (addr, port) of host 0's TCP store), run fn, send back (rank, ok,
+    result or traceback)."""
+    global _device, _host, _hosts
     code = 0
     try:
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         else:
             torch.set_num_threads(threads)
-        dist.init_process_group(backend, init_method=init, world_size=n, rank=r,
-                                timeout=datetime.timedelta(seconds=pg_timeout))
+        pg_td = datetime.timedelta(seconds=pg_timeout)
+        if isinstance(init, str):
+            dist.init_process_group(backend, init_method=init, world_size=n, rank=r,
+                                    timeout=pg_td)
+        else:
+            store = dist.TCPStore(*init, is_master=False, timeout=pg_td)
+            dist.init_process_group(backend, store=dist.PrefixStore("nemar_pg", store),
+                                    world_size=n, rank=r, timeout=pg_td)
         _device = dev
+        _host, _hosts = hosts
         # pickled here, by value: a tensor through the queue itself would be
         # shared memory that this process's exit takes away
         results.put((r, True, pickle.dumps(fn(*args))))
@@ -289,7 +396,8 @@ def sharded(n: int) -> bool:
 
 
 def rows_in(n: int) -> slice:
-    """This rank's rows of a global (micro)batch of n rows."""
+    """This rank's rows of a global (micro)batch of n rows (in the global
+    batch's numbering)."""
     if not sharded(n):
         return slice(0, n)
     s = n // data_world()
@@ -310,13 +418,25 @@ def shard_rows(batch: dict, k: int = 1) -> dict:
     """This rank's rows of a global batch (a dict of NHWC numpy arrays and
     per-row lists): for each of its k microbatches the rank's shard,
     concatenated, so ``torch.chunk(local, k)`` gives the rank's shard of
-    each global microbatch. Values without the batch's rows pass through."""
-    if data_world() == 1:
-        return batch
+    each global microbatch. Values without the batch's rows pass through.
+    A part of the global batch (``PART``: its first row, the global rows)
+    takes one microbatch, and the rank's rows must lie within it."""
     n = len(batch["A"])
-    slices = shard_slices(n, k)
+    start, total = batch.get(PART, (0, n))
+    whole = (start, total) == (0, n)
+    if whole and data_world() == 1:
+        return batch
+    if not whole and k != 1:
+        raise ValueError(f"--grad_accum {k}: a batch of {n} of the global batch's {total} "
+                         f"rows takes one microbatch")
+    slices = [slice(s.start - start, s.stop - start) for s in shard_slices(total, k)]
+    if any(s.start < 0 or s.stop > n for s in slices):
+        raise ValueError(f"rows {slices} of the global batch lie outside this rank's part "
+                         f"of it (rows {start}..{start + n - 1} of {total})")
     out = {}
     for key, v in batch.items():
+        if key == PART:
+            continue
         if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == n:
             out[key] = np.concatenate([v[s] for s in slices])
         elif isinstance(v, list) and len(v) == n:

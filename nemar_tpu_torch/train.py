@@ -30,10 +30,13 @@ CPU ``--gpu_ids -1 --num_devices N``) train data-parallel, as the JAX
 package's mesh: ``main`` launches one rank per device
 (``nemar_tpu_torch.parallel.launch``: NCCL on the cards, gloo on the CPU),
 each runs this loop on the same global batch stream and keeps its rows,
-and --batch_size stays the global batch. Rank 0 alone prints, displays,
-profiles and writes checkpoints; every rank takes part in the
-collectives of the display's forward and of the printed losses, the
-global batch's means. ``main`` then returns each rank's
+and --batch_size stays the global batch. ``main(argv, hosts=(index,
+count), init=...)`` runs one host of several, as ``jax.distributed.
+initialize`` does (``nemar_tpu_torch/multiprocess_smoke.py``); under
+--loader grain each host then reads its own shard of the records. Rank 0
+alone prints, displays, profiles and writes checkpoints; every rank takes
+part in the collectives of the display's forward and of the printed
+losses, the global batch's means. ``main`` then returns each rank's
 ``state_digest``: equal digests, bit-identical parameters and optimizer
 states.
     python -m nemar_tpu_torch.train --gpu_ids 0,1,2,3 --batch_size 32 ...
@@ -61,16 +64,17 @@ from nemar_tpu_torch.models import create_model
 from nemar_tpu_torch.options import TrainOptions
 
 
-def main(args=None):
+def main(args=None, hosts: tuple = (0, 1), init=None):
     """Train; -> the model, or over several devices each rank's
-    ``state_digest`` (printed too)."""
+    ``state_digest`` (printed too). ``hosts=(index, count)`` and ``init``
+    make this run one host of several (``parallel.launch``): then -> this
+    host's ranks' digests."""
     opt = TrainOptions().parse(args)
     devs = parallel.devices(opt)
-    if opt.mesh_spatial < 1 or len(devs) % opt.mesh_spatial:
-        raise ValueError(f"spatial={opt.mesh_spatial} must divide device count {len(devs)}")
-    if len(devs) == 1:
+    parallel.check_mesh(opt.mesh_spatial, len(devs), hosts[1])
+    if len(devs) == 1 and hosts[1] == 1:
         return _train(opt)
-    digests = parallel.launch(_train_rank, devs, args=(opt,))
+    digests = parallel.launch(_train_rank, devs, args=(opt,), hosts=hosts, init=init)
     print(f"the ranks' state digests: {digests}")
     return digests
 
