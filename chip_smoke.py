@@ -150,9 +150,10 @@ is not 0.
      phase 5's step, ms per step, pairs/s, peak memory; a repeated-slot pool
      swap on the card against the CPU, bit for bit, the last writer kept; a
      profile of 1 step (chiprun_out/profile_a5_step.txt); then (10b) one
-     step at batch 8 (microbatches of 4) on the card against the CPU from
-     that run's saved state, as phase 6 holds one, plus the penalty among
-     the losses, the EMA shadows and the pool (``compare_a5_with_cpu``);
+     step at batch A5_CPU_BATCH (microbatches of 2) on the card against
+     the CPU from that run's saved state, as phase 6 holds one, plus the
+     penalty among the losses, the EMA shadows and the pool
+     (``compare_a5_with_cpu``);
   11. BASELINE.md config #4 (``B32_ARGS``): 512^2 pairs at batch 32 in 4
      microbatches of 8, lsgan, fp32, full width: 3 steps; in the first,
      K-in, K-in-bwd, K-warp and K-warp-bwd against their plain versions at
@@ -557,6 +558,10 @@ A5_FLAGS = ["--init_type", "xavier", "--ema_decay", "0.999", "--pool_size", "50"
             "--grad_accum", "2", "--gan_mode", "wgangp"]
 A5_STEPS = 8
 A5_TIMED_STEPS = 4
+# phase 10b's batch: the card's A5 step against the CPU's, and the CPU's
+# perturbed baselines, at two microbatches of 2 (the CPU's four wgangp steps
+# at 256^2 were the smoke's longest phase at batch 8)
+A5_CPU_BATCH = 4
 # phase 11: BASELINE.md config #4, 512^2 pairs at batch 32, in 4 microbatches
 # of 8 (lsgan, fp32)
 B32_ARGS = ["--crop_size", "512", "--load_size", "512", "--batch_size", "32",
@@ -2744,8 +2749,8 @@ def _g_gan_with(model, d_state: dict, pair: dict) -> float:
 
 
 def compare_a5_with_cpu(ckpt: str) -> None:
-    """Phase 10b: one A5 step (A5_FLAGS, batch 8: two microbatches of 4, as
-    phase 10 times) on the card against the CPU from phase 10's saved state
+    """Phase 10b: one A5 step (A5_FLAGS, batch A5_CPU_BATCH: two microbatches
+    of 2) on the card against the CPU from phase 10's saved state
     (parameters, Adam moments, EMA shadows, the full pool, the generator's
     state, so both draw the same pool swaps, several a microbatch, and
     penalty alphas), by ``step_against_cpu``: the
@@ -2771,8 +2776,8 @@ def compare_a5_with_cpu(ckpt: str) -> None:
     the two updated Ds make of the same fakes is printed
     (``g_gan_d_update_rel``), not bounded: its elements are the parameter
     check's."""
-    pair = request_batches(1, TRAIN_BATCH, seed=10)[0]
-    args = _a5_args(ckpt, "--continue_train", "--epoch", "a5", "--batch_size", str(TRAIN_BATCH))
+    pair = request_batches(1, A5_CPU_BATCH, seed=10)[0]
+    args = _a5_args(ckpt, "--continue_train", "--epoch", "a5", "--batch_size", str(A5_CPU_BATCH))
     runs = {name: train_model([*args, "--gpu_ids", dev]) for name, dev in
             (("card", "0"), ("cpu", "-1"), *((p, "-1") for p in perturbed_runs()))}
     before, after = {}, {}
@@ -2802,7 +2807,8 @@ def compare_a5_with_cpu(ckpt: str) -> None:
     shadow_err = max(float((card[k] - v).abs().max()) for k, v in cpu.items() if "_ema." in k)
     pool_err = float((card["pool.images"] - cpu["pool.images"]).abs().max())
     swapped = int(((cpu["pool.images"] - pool0).flatten(1).abs().amax(1) > 0).sum())
-    phase("a5_card_vs_cpu", batch=TRAIN_BATCH, microbatch=TRAIN_BATCH // runs["card"].grad_accum,
+    phase("a5_card_vs_cpu", batch=A5_CPU_BATCH,
+          microbatch=A5_CPU_BATCH // runs["card"].grad_accum,
           **fields, shadows_max_abs_err=shadow_err,
           tol_shadows=1e-5, pool_max_abs_err=pool_err, tol_pool=1e-3, pool_slots_swapped=swapped,
           pool_count=json.dumps([int(card["pool.count"]), int(cpu["pool.count"])]),
@@ -3131,8 +3137,9 @@ def check_bf16_kernels(dev) -> dict:
     10's microbatch of 4); K-block and
     K-convt at phase 2's b1 shapes also against float64 (``vs_fp64_bf16``)
     and timed (``timed_bf16``), with cuDNN's bf16 convolutions of the same
-    shapes as a yardstick (F.instance_norm at bf16 for K-in). The totals are
-    those of one b1 request."""
+    shapes as a yardstick (F.instance_norm at bf16 for K-in); K-block also
+    timed at the b8 step's shape. The totals are those of one b1 request
+    (K-block's b8 call beside them)."""
     from nemar_tpu_torch.ops import conv_fused, convt_fused, norm, norm_cuda
 
     rng = np.random.default_rng(20)
@@ -3148,9 +3155,12 @@ def check_bf16_kernels(dev) -> dict:
         got, again = kern(), kern()
         ref = block_fwd_ref_bf16(x, w1, w2, got[2])
         extra = {}
+        # timed at the b1 request's shape and at the b8 step's
+        timed = side == 64 and n in (1, TRAIN_BATCH)
         if n == 1:
             extra = vs_fp64_bf16("K-block-bf16", got, conv_fused.resblock_fwd_plain(x, w1, w2),
                                  conv_fused.resblock_fwd_plain(x, w1, w2, work=torch.float64))
+        if timed:
             t = timed_bf16(kern, lambda: conv_fused.resblock_fwd_plain(x, w1, w2), 7,
                            2 * 2 * n * side * side * 256 * 9 * 256, (x, w1, w2, *got))
             yard = cudnn_bf16_convs(x, [w1, w2])[0]
@@ -3161,6 +3171,9 @@ def check_bf16_kernels(dev) -> dict:
             tally.add(12, err, t["ms"], t["plain_ms"], t["bound"])
             results["K-block-bf16"] = dict(tally.result(), device_ms=12 * t["device_ms"],
                                            yardstick_cudnn_bf16_ms=12 * yard)
+        elif timed:
+            results["K-block-bf16"].update(b8_device_ms=t["device_ms"], b8_bound_ms=t["bound_ms"],
+                                           b8_yardstick_cudnn_bf16_ms=yard)
         del got, again, ref
 
     tally, yard = Tally(), 0.0
@@ -4519,11 +4532,11 @@ NCCL_SPE = 4
 NCCL_TIMEOUT = 900.0  # seconds, the launch and each collective
 # phase 18b: two ranks on cuda:0 over gloo; steps per run (the first compared
 # with the one-process step, every one's state held equal across the ranks)
-GLOO_STEPS = 3
+GLOO_STEPS = 1
 GLOO_PIX2PIX_BATCH = 2
 # phase 19: --mesh_spatial 2, two ranks on cuda:0
 SPATIAL = 2
-SPATIAL_STEPS = 3
+SPATIAL_STEPS = 2
 # launches per step and rank of the band step (every rank runs every layer
 # on its band): the kernels that run as they are (K-head on the band with
 # its halo rows, K-warp from the gathered frames) phase 5's counts, the
@@ -4571,7 +4584,7 @@ SPATIAL_RECIPE_LAUNCHES = {
 # same state, 1 step; (c) --stn_field_source fake --freeze_g, vanilla,
 # resnet_9blocks, from a state saved from the seed with R's head drawn
 # (R_HEAD_DRAW's multiscale std), 1 step
-SPATIAL_FLAG_STEPS = 2
+SPATIAL_FLAG_STEPS = 1
 SPATIAL_FLAGS = {
     "wgangp_remat": (["--gan_mode", "wgangp", "--remat"], SPATIAL_FLAG_STEPS),
     "wgangp": (["--gan_mode", "wgangp"], SPATIAL_FLAG_STEPS),
@@ -4622,7 +4635,7 @@ SPATIAL_PENALTY_IN_BWD = (3, 6)
 # NeMAR's default network (TRAIN_ARGS) at 224^2 with --recon_pyramid 5; (b)
 # __graft_entry__.py's network flags (32^2, ngf, ndf and stn_ngf 8, no
 # pool) at --stn_depth 3 and 5; b8, SPATIAL_GEOMETRY_STEPS steps each
-SPATIAL_GEOMETRY_STEPS = 2
+SPATIAL_GEOMETRY_STEPS = 1
 _GRAFT_NET = ["--ngf", "8", "--ndf", "8", "--stn_ngf", "8", "--crop_size", "32",
               "--load_size", "32", "--pool_size", "0"]
 SPATIAL_GEOMETRY = {
@@ -4657,7 +4670,7 @@ def geometry_launches(depth: int) -> tuple:
 # at b8, G and R from phase 6's shared state and D from the seed, 1 step;
 # (d) the test model (test.py's parse, --model test --model_suffix _A)
 # serving (b)'s G_A as the ranks saved it after their steps, a b1 request
-SPATIAL_TEMPLATE_STEPS = 2
+SPATIAL_TEMPLATE_STEPS = 1
 SPATIAL_TEMPLATES = {
     "pix2pix": (PIX2PIX_ARGS, 1, SPATIAL_TEMPLATE_STEPS),
     "cycle_gan": (CYCLE_ARGS, 1, SPATIAL_TEMPLATE_STEPS),
@@ -4696,7 +4709,7 @@ SPATIAL_TEMPLATE_LAUNCHES = {
 # captured in a CUDA graph) beside as many band optimize_parameters calls,
 # the chunk run twice; one process's chunk of the same batches is the step
 # graph's replays (optimize_parameters_scan)
-SPATIAL_CHUNK = 4
+SPATIAL_CHUNK = 2
 SPATIAL_CHUNK_FLAGS = ["--pool_size", "50", "--gan_mode", "wgangp", "--steps_per_execution",
                        str(SPATIAL_CHUNK)]
 SPATIAL_CHUNK_CELLS = {"fp32": [], "bf16": ["--bf16"]}

@@ -47,9 +47,10 @@
 // pointers, pix_per_split % 32 == 0.
 //
 // The bf16 variant (--bf16; nemar_convt_in_bwd_bf16) takes x, W, yhat and
-// g in bf16 and runs both GEMMs on the core's bf16 path (one bf16 MMA a
-// product, fp32 accumulators; the wgrad's pixel-major operands read by
-// wgmma as they lie, K slices of 64 pixels): the same six launches, W's
+// g in bf16 and runs both GEMMs on the bf16 core (gemm_tc.cuh: one bf16 MMA
+// a product, fp32 accumulators; the wgrad's pixel-major operands read by
+// wgmma as they lie, K slices of 64 pixels; x, W and dz's parity planes as
+// TMA boxes where a tile's pixels are image rows): the same six launches, W's
 // split left out (the dgrad reads the bf16 W as it lies), dz, dW (the
 // split sum) and dx rounded to bf16, the sums and partials fp32. It takes
 // Ci % 8 == 0, Co % 8 == 0, pix_per_split % 64 == 0. Bound: 2 x 2.42
@@ -369,30 +370,48 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dx, int h, int w,
 // instance-norm backward and the split sum are the templates above
 // ---------------------------------------------------------------------------
 
+// dz (N, 2H, 2W, Co) as (N, H, 2, W, 2 Co): an output parity plane's pixel
+// (i, j) at coordinates (px Co + c, j, py, i, n), read in boxes of 64
+// channels x bw x bh pixels of one plane
+cudaError_t parity_map(CUtensorMap* map, const bf16* dz, int n, int h, int w, int co, int bw,
+                       int bh) {
+  const long long dims[5] = {2LL * co, w, 2, h, n};
+  const int box[5] = {tc::BK16, bw, 1, bh, 1};
+  return tc::bf16_map(map, dz, 5, dims, box);
+}
+
 // 4: dW partials with bf16 operands, K slices of 64 pixels (pix_per_split
 // a multiple of 64); x shifted by the tap (M-major: ci) and the tap's
 // parity plane of dz (N-major: co), both read by wgmma as they lie; kBand
-// as ConvtWgradOp's
+// as ConvtWgradOp's. Where a slice's 64 pixels are image rows of one
+// sample (H W a multiple of 64, W dividing 64 or 64 dividing W), A is two
+// TMA boxes of x (tma_a: 64 channels each, the frame's zeros and Ci's the
+// out-of-bounds fill) and, outside the band form and at Co a multiple of
+// 64, B is TMA boxes of dz's parity plane (tma_b: dz as (N, H, 2, W,
+// 2 Co), the plane's parities fixed coordinates); else the producer's
+// cp.async copies, masked in the index.
 template <int kTN, bool kBand = false>
-struct ConvtWgradOp16 {
-  static constexpr bool kNormRelu = false;
+struct ConvtWgradOp16 : tc::Bf16Loads {
+  static constexpr bool kMN = true;
+  static constexpr bool kTileStats = false;
   static constexpr int kTileN = kTN;
   const bf16* x;
   const bf16* dz;
   float* part;
   int h, w, ci, co, total, pix_per_split, mtiles;
-  int tap, ci0, n0, py, px, dy, dx, p0, nkt;
+  int tap, ci0, n0, py, px, dy, dx, p0, nkt, split;
 
-  __device__ void setup(int) {
-    tap = blockIdx.x / mtiles;
-    ci0 = (blockIdx.x - tap * mtiles) * BM;
-    n0 = blockIdx.y * kTN;
+  __device__ void setup(int, uint3 blk) {
+    tap = blk.x / mtiles;
+    ci0 = (blk.x - tap * mtiles) * BM;
+    n0 = blk.y * kTN;
     const int ky = tap / 3, kx = tap - 3 * ky;
     py = ky == 1;
     px = kx == 1;
     dy = ky == 0 ? -1 : 0;
     dx = kx == 0 ? -1 : 0;
-    p0 = blockIdx.z * pix_per_split;
+    split = blk.z;
+    p0 = split * pix_per_split;
     nkt = (min(pix_per_split, total - p0) + tc::BK16 - 1) / tc::BK16;
   }
   __device__ int ktiles() const { return nkt; }
@@ -405,37 +424,61 @@ struct ConvtWgradOp16 {
     xs = in && i + dy + hb >= 0 && j + dx >= 0 ? (b * (h + hb) + i + dy + hb) * w + j + dx : -1;
     zs = in ? (b * (2 * h + hb) + 2 * i + py) * 2 * w + 2 * j + px : -1;
   }
-  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int ptid) const {
     const int pk = p0 + kt * tc::BK16;
+    if (!tma_a) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = tid + tc::THREADS * i, k = q >> 4, ch = 8 * (q & 15);
-      int xs, zs;
-      pixels(pk + k, xs, zs);
-      const bool va = ci0 + ch < ci && xs >= 0;
-      tc::cp_async16b(As + tc::mn16(k, q & 15), va ? x + (size_t)xs * ci + ci0 + ch : x, va);
+      for (int i = 0; i < tc::PCHUNKS; ++i) {
+        const int q = ptid + tc::PTHREADS * i, k = q >> 4, ch = 8 * (q & 15);
+        int xs, zs;
+        pixels(pk + k, xs, zs);
+        const bool va = ci0 + ch < ci && xs >= 0;
+        tc::cp_async16b(As + tc::mn16(k, q & 15), va ? x + (size_t)xs * ci + ci0 + ch : x, va);
+      }
     }
+    if (tma_b) return;
 #pragma unroll
-    for (int i = 0; i < kTN * 8 / tc::THREADS; ++i) {
-      const int q = tid + tc::THREADS * i, k = q / (kTN / 8), cc = q % (kTN / 8), ch = 8 * cc;
+    for (int i = 0; i < kTN * 8 / tc::PTHREADS; ++i) {
+      const int q = ptid + tc::PTHREADS * i, k = q / (kTN / 8), cc = q % (kTN / 8), ch = 8 * cc;
       int xs, zs;
       pixels(pk + k, xs, zs);
       const bool vb = n0 + ch < co && zs >= 0;
       tc::cp_async16b(Bs + tc::mn16(k, cc), vb ? dz + (size_t)zs * co + n0 + ch : dz, vb);
     }
   }
+  // the slice's sample and first pixel (u0, v0) of its rows
+  __device__ void load_tma(int kt, unsigned char* As, unsigned char* Bs, uint64_t* bar,
+                           const tc::TmaMaps& maps) const {
+    const int pk = p0 + kt * tc::BK16, hw = h * w, b = pk / hw, q0 = pk - b * hw;
+    const int u0 = q0 / w, v0 = q0 - u0 * w;
+    if (tma_a) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        tc::tma_load(As + 8192 * j, &maps.a, bar, ci0 + 64 * j, v0 + dx, u0 + dy + (kBand ? 1 : 0),
+                     b);
+    }
+    if (tma_b) {
+#pragma unroll
+      for (int j = 0; j < kTN / 64; ++j)
+        tc::tma_load(Bs + 8192 * j, &maps.b, bar, px * co + n0 + 64 * j, v0, py, u0, b);
+    }
+  }
   __device__ void write(int r, int cl, float2 val) const {
     if (ci0 + r >= ci || n0 + cl >= co) return;
-    tc::store2(part + ((size_t)blockIdx.z * 9 * ci + (size_t)tap * ci + ci0 + r) * co + n0 + cl,
+    tc::store2(part + ((size_t)split * 9 * ci + (size_t)tap * ci + ci0 + r) * co + n0 + cl,
                val);
   }
 };
 
 // 6: dx with bf16 operands (dz along co, W in HWIO as it lies), dx bf16;
-// kBand as ConvtDgradOp's
+// kBand as ConvtDgradOp's. B (W as (9, Ci, Co)) is a TMA box; A is one
+// (tma_a, outside the band form: a tile's 128 pixels image rows of one
+// sample, Co a multiple of 64) of dz as (N, H, 2, W, 2 Co), the tap's
+// output parities fixed coordinates and its offsets (i + 1 for ky = 0)
+// zeros past the frame, or else the producer's cp.async copies.
 template <int kTN, bool kBand = false>
-struct ConvtDgradOp16 {
-  static constexpr bool kNormRelu = false;
+struct ConvtDgradOp16 : tc::Bf16Loads {
+  static constexpr bool kMN = false;
   static constexpr bool kTileStats = false;
   static constexpr int kTileN = kTN;
   const bf16* dz;
@@ -443,42 +486,51 @@ struct ConvtDgradOp16 {
   bf16* dx;
   int h, wd, ci, co, total;
   int m0, n0, kc, spt;
-  int rbase[CHUNKS], rij[CHUNKS];
+  int rbase[tc::PCHUNKS], rij[tc::PCHUNKS];
 
-  __device__ void setup(int tid) {
-    m0 = blockIdx.x * BM;
-    n0 = blockIdx.y * kTN;
-    kc = tid & 7;
+  __device__ void setup(int ptid, uint3 blk) {
+    m0 = blk.x * BM;
+    n0 = blk.y * kTN;
+    kc = ptid & 7;
     spt = (co + tc::BK16 - 1) / tc::BK16;
     const int hw = h * wd;
+    if (tma_a) return;
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int p = m0 + tc::kmajor_row(tid, i);
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
+      const int p = m0 + tc::prow(ptid, i);
       const int b = p / hw, pix = p - b * hw, u = pix / wd;
       rbase[i] = kBand ? b * (2 * h + 1) * 2 * wd : 4 * b * hw;
       rij[i] = p < total ? (u << 16) | (pix - u * wd) : 0x7fff0000;
     }
   }
   __device__ int ktiles() const { return 9 * spt; }
-  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+  // A by cp.async (tma_a false)
+  __device__ void load(int kt, unsigned char* As, unsigned char*, int ptid) const {
     const int tap = kt / spt;
     const int c = (kt - tap * spt) * tc::BK16 + 8 * kc;
     const int ky = tap / 3, kx = tap - 3 * ky;
     const bool cin = c < co;
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
       const int oi = 2 * (rij[i] >> 16) + 2 - ky, oj = 2 * (rij[i] & 0xffff) + 2 - kx;
       const bool valid = cin && oi < 2 * h + (kBand ? 1 : 0) && oj < 2 * wd;
-      tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
+      tc::cp_async16b(As + tc::swz16(tc::prow(ptid, i), kc),
                       valid ? dz + (size_t)(rbase[i] + oi * 2 * wd + oj) * co + c : dz, valid);
     }
-#pragma unroll
-    for (int i = 0; i < kTN * 8 / tc::THREADS; ++i) {
-      const int nr = tc::kmajor_row(tid, i);
-      const bool valid = cin && n0 + nr < ci;
-      tc::cp_async16b(Bs + tc::swz16(nr, kc),
-                      valid ? w + ((size_t)tap * ci + n0 + nr) * co + c : w, valid);
+  }
+  // B (maps.b: W as (9, Ci, Co)); with tma_a, A (maps.a: dz as (N, H, 2, W,
+  // 2 Co)) at output row 2 (u0 + (ky == 0)) + (ky == 1), column likewise
+  __device__ void load_tma(int kt, unsigned char* As, unsigned char* Bs, uint64_t* bar,
+                           const tc::TmaMaps& maps) const {
+    const int tap = kt / spt;
+    const int c = (kt - tap * spt) * tc::BK16;
+    if (tma_a) {
+      const int ky = tap / 3, kx = tap - 3 * ky, hw = h * wd;
+      const int b = m0 / hw, pix = m0 - b * hw, u0 = pix / wd, v0 = pix - u0 * wd;
+      tc::tma_load(As, &maps.a, bar, (kx == 1) * co + c, v0 + (kx == 0), ky == 1, u0 + (ky == 0),
+                   b);
     }
+    tc::tma_load(Bs, &maps.b, bar, c, n0, tap);
   }
   __device__ void write(int r, int col, float2 val) const {
     const int p = m0 + r;
@@ -500,9 +552,23 @@ cudaError_t wgrad16(const bf16* x, const bf16* dz, float* part, int h, int w, in
   op.total = total;
   op.pix_per_split = pix_per_split;
   op.mtiles = (ci + BM - 1) / BM;
-  return tc::launch_bf16_mn(
+  const int hw = h * w;
+  op.tma_a = hw > 0 && hw % tc::BK16 == 0 && (w % tc::BK16 == 0 || tc::BK16 % w == 0);
+  op.tma_b = op.tma_a && !kBand && co % 64 == 0;
+  tc::TmaMaps maps{};
+  cudaError_t err = cudaSuccess;
+  if (op.tma_a) {
+    const int bw = min(w, tc::BK16);
+    err = tc::image_map(&maps.a, x, total / hw, h + (kBand ? 1 : 0), w, ci, bw, tc::BK16 / bw);
+  }
+  if (err == cudaSuccess && op.tma_b) {
+    const int bw = min(w, tc::BK16);
+    err = parity_map(&maps.b, dz, total / hw, h, w, co, bw, tc::BK16 / bw);
+  }
+  if (err != cudaSuccess) return err;
+  return tc::launch_bf16(
       op, dim3((unsigned)(9 * op.mtiles), (unsigned)((co + kTN - 1) / kTN), (unsigned)splits),
-      stream);
+      stream, maps);
 }
 
 template <int kTN, bool kBand = false>
@@ -517,8 +583,20 @@ cudaError_t dgrad16(const bf16* dz, const bf16* w, bf16* dx, int h, int wd, int 
   op.ci = ci;
   op.co = co;
   op.total = total;
+  const int hw = h * wd;
+  op.tma_b = true;
+  op.tma_a = !kBand && hw > 0 && hw % BM == 0 && co % 64 == 0 && (wd % BM == 0 || BM % wd == 0);
+  tc::TmaMaps maps{};
+  const long long wdims[3] = {co, ci, 9};
+  const int wbox[3] = {tc::BK16, kTN, 1};
+  cudaError_t err = tc::bf16_map(&maps.b, w, 3, wdims, wbox);
+  if (err == cudaSuccess && op.tma_a) {
+    const int bw = min(wd, BM);
+    err = parity_map(&maps.a, dz, total / hw, h, wd, co, bw, BM / bw);
+  }
+  if (err != cudaSuccess) return err;
   return tc::launch_bf16(
-      op, dim3((unsigned)((total + BM - 1) / BM), (unsigned)((ci + kTN - 1) / kTN)), stream);
+      op, dim3((unsigned)((total + BM - 1) / BM), (unsigned)((ci + kTN - 1) / kTN)), stream, maps);
 }
 
 }  // namespace

@@ -52,8 +52,11 @@
 // Ci % 4 == 0, Co % 4 == 0, 16-byte aligned pointers.
 //
 // The bf16 variant (--bf16; nemar_convt_in_fwd_bf16) takes x and W in bf16
-// and runs the four planes' GEMMs on the core's bf16 path (one bf16 MMA a
-// product, fp32 accumulators, K slices of one tap and 64 channels): the
+// and runs the four planes' GEMMs on the bf16 core (gemm_tc.cuh: one bf16
+// MMA a product, fp32 accumulators, K slices of one tap and 64 channels;
+// warp-specialised and persistent, x and W^T as TMA boxes where a tile's
+// pixels are image rows, the frame's zeros the boxes' out-of-bounds fill;
+// the tiles' walk snakes so that the 1- to 4-tap planes even out): the
 // same four launches, the split replaced by a transpose of W to bf16 W^T,
 // y fp32 in a buffer of its own, and the last launch writing yhat and out
 // rounded to bf16 (the statistics stay fp32). A 16-byte copy holds 8 bf16
@@ -305,10 +308,15 @@ using bf16 = __nv_bfloat16;
 
 // ConvtFwdOp with bf16 x and W^T: K slices of one tap and 64 channels,
 // y fp32 (the interleaved output before IN), tile statistics as there;
-// kHp as there (the band form: x holds each sample's H + 1 rows).
+// kHp as there (the band form: x holds each sample's H + 1 rows). B, W^T
+// as (9, Co, Ci), is a TMA box (zeros past Ci and Co); A is one (tma_a:
+// the tile's 128 pixels image rows, W dividing 128 or 128 dividing W) of
+// x at the tap's offset, the frame's zeros (a -1 offset at row or column
+// 0) and Ci's its out-of-bounds fill, or else the producer's cp.async
+// copies, masked in the index.
 template <int kTN, bool kHp = false>
-struct ConvtFwdOp16 {
-  static constexpr bool kNormRelu = false;
+struct ConvtFwdOp16 : tc::Bf16Loads {
+  static constexpr bool kMN = false;
   static constexpr bool kTileStats = true;
   static constexpr int kTileN = kTN;
   const bf16* x;
@@ -317,10 +325,10 @@ struct ConvtFwdOp16 {
   float* part;
   int n, h, w, ci, co, tiles, cotiles;
   int b, plane, py, px, tile, m0, n0, kc, spt, ntx, rows;
-  int rij[CHUNKS];
+  int rij[tc::PCHUNKS];
 
-  __device__ void setup(int tid) {
-    int bid = blockIdx.x;
+  __device__ void setup(int ptid, uint3 blk) {
+    int bid = blk.x;
     const int cot = bid % cotiles;
     bid /= cotiles;
     tile = bid % tiles;
@@ -331,42 +339,54 @@ struct ConvtFwdOp16 {
     px = plane & 1;
     m0 = tile * BM;
     n0 = cot * kTN;
-    kc = tid & 7;
+    kc = ptid & 7;
     const int hw = h * w;
     rows = min(BM, hw - m0);
     spt = (ci + tc::BK16 - 1) / tc::BK16;
     ntx = px == 0 ? 2 : 1;
+    if (tma_a) return;
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int p = m0 + tc::kmajor_row(tid, i);
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
+      const int p = m0 + tc::prow(ptid, i);
       const int u = p / w;
       rij[i] = p < hw ? (u << 16) | (p - u * w) : -1;
     }
   }
-  __device__ int ktiles() const { return (py == 0 ? 2 : 1) * ntx * spt; }
-  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+  // the K slice's tap (ky, kx), its offsets (dy, dx) and first channel c
+  __device__ void slice(int kt, int& ky, int& kx, int& dy, int& dx, int& c) const {
     const int t = kt / spt;
-    const int c = (kt - t * spt) * tc::BK16 + 8 * kc;
-    int ky, dy, kx, dx;
+    c = (kt - t * spt) * tc::BK16;
     parity_tap(py, t / ntx, ky, dy);
     parity_tap(px, t - (t / ntx) * ntx, kx, dx);
+  }
+  __device__ int ktiles() const { return (py == 0 ? 2 : 1) * ntx * spt; }
+  // A by cp.async (tma_a false)
+  __device__ void load(int kt, unsigned char* As, unsigned char*, int ptid) const {
+    int ky, kx, dy, dx, c;
+    slice(kt, ky, kx, dy, dx, c);
+    c += 8 * kc;
     const bool cin = c < ci;
     constexpr int hp = kHp ? 1 : 0;
     const bf16* xb = x + (size_t)b * (h + hp) * w * ci;
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
       const int ii = (rij[i] >> 16) + dy + hp, jj = (rij[i] & 0xffff) + dx;
       const bool valid = cin && rij[i] >= 0 && ii >= 0 && jj >= 0;
-      tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc),
+      tc::cp_async16b(As + tc::swz16(tc::prow(ptid, i), kc),
                       valid ? xb + ((size_t)ii * w + jj) * ci + c : x, valid);
     }
-    const size_t wrow = (size_t)(ky * 3 + kx) * co + n0;
-#pragma unroll
-    for (int i = 0; i < kTN * 8 / tc::THREADS; ++i) {
-      const int nr = tc::kmajor_row(tid, i);
-      const bool valid = cin && n0 + nr < co;
-      tc::cp_async16b(Bs + tc::swz16(nr, kc), valid ? wt + (wrow + nr) * ci + c : wt, valid);
+  }
+  // B (maps.b: W^T as (9, Co, Ci)); with tma_a, A (maps.a: x as (N, H (+ 1),
+  // W, Ci)) at pixel (u0 + dy, v0 + dx)
+  __device__ void load_tma(int kt, unsigned char* As, unsigned char* Bs, uint64_t* bar,
+                           const tc::TmaMaps& maps) const {
+    int ky, kx, dy, dx, c;
+    slice(kt, ky, kx, dy, dx, c);
+    if (tma_a) {
+      const int u0 = m0 / w;
+      tc::tma_load(As, &maps.a, bar, c, m0 - u0 * w + dx, u0 + dy + (kHp ? 1 : 0), b);
     }
+    tc::tma_load(Bs, &maps.b, bar, c, n0, ky * 3 + kx);
   }
   __device__ void write(int r, int col, float2 val) const {
     if (r >= rows || n0 + col >= co) return;
@@ -414,7 +434,18 @@ cudaError_t planes16(const bf16* x, const bf16* wt, float* y, float* part, int n
   op.co = co;
   op.tiles = tiles;
   op.cotiles = (co + kTN - 1) / kTN;
-  return tc::launch_bf16(op, dim3((unsigned)(4 * n * tiles * op.cotiles)), stream);
+  op.tma_b = true;
+  op.tma_a = w % BM == 0 || BM % w == 0;
+  tc::TmaMaps maps{};
+  const long long wdims[3] = {ci, co, 9};
+  const int wbox[3] = {tc::BK16, kTN, 1};
+  cudaError_t err = tc::bf16_map(&maps.b, wt, 3, wdims, wbox);
+  if (err == cudaSuccess && op.tma_a) {
+    const int bw = min(w, BM);
+    err = tc::image_map(&maps.a, x, n, h + (kHp ? 1 : 0), w, ci, bw, BM / bw);
+  }
+  if (err != cudaSuccess) return err;
+  return tc::launch_bf16(op, dim3((unsigned)(4 * n * tiles * op.cotiles)), stream, maps);
 }
 
 }  // namespace

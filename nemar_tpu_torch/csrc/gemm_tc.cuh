@@ -67,8 +67,10 @@
 // beside the slice (gemm_wgmma_kernel).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -317,8 +319,20 @@ constexpr int NORM_FL = 2 * BK;  // (mu, rstd) of a K slice's 32 channels
 // The tile's per-column mean and sum of squared deviations over its first
 // op.rows_in_tile() rows, in a fixed order: each thread's two rows, then the
 // 8 lanes of a warp that share a column (butterfly), then the 8 warps in
-// order through shared memory (red: 8 x TN + TN floats, free by now).
-template <int TN, class Op>
+// order through shared memory (red: 8 x TN + TN floats, free by now); tid
+// counts the 256 threads that hold the tile.
+// the barrier tile_stats syncs its threads with: the block's, or (kNamed)
+// named barrier 1 over the bf16 core's 256 consumer threads
+template <bool kNamed>
+__device__ __forceinline__ void stats_sync() {
+  if constexpr (kNamed) {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+template <int TN, class Op, bool kNamed = false>
 __device__ __forceinline__ void tile_stats(const Op& op, const float (&acc)[TN / 2], float* red,
                                            int tid, int row0, int g, int t) {
   const int warp = tid >> 5, lane = tid & 31, nrows = op.rows_in_tile();
@@ -342,7 +356,7 @@ __device__ __forceinline__ void tile_stats(const Op& op, const float (&acc)[TN /
 #pragma unroll
         for (int e = 0; e < 2; ++e) red[warp * TN + 8 * j + 2 * t + e] = s[2 * j + e];
     }
-    __syncthreads();
+    stats_sync<kNamed>();
     if (tid < TN) {
       float sum = 0.f;
 #pragma unroll
@@ -350,7 +364,7 @@ __device__ __forceinline__ void tile_stats(const Op& op, const float (&acc)[TN /
       if (pass == 0) mean[tid] = sum / (float)nrows;
       else op.write_stats(tid, mean[tid], sum);
     }
-    __syncthreads();
+    stats_sync<kNamed>();
     if (pass == 0) {
 #pragma unroll
       for (int j = 0; j < TN / 8; ++j)
@@ -591,43 +605,86 @@ cudaError_t launch_wgmma_mn(const Op& op, dim3 grid, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// bf16 (--bf16): the same two kernels with bf16 operands, one MMA a product
+// bf16 (--bf16): one warp-specialised, persistent wgmma core, one MMA a product
 // ---------------------------------------------------------------------------
 //
-// gemm_bf16_kernel (operands K-major, as gemm_wgmma_kernel's) and
-// gemm_bf16_mn_kernel (A M-major and B N-major, as gemm_wgmma_mn_kernel's)
-// compute the same 128-row tiles of C = A B, 128 or 64 columns wide, over K
-// in 64-deep slices: a slice's row of 64 bf16 is 128 bytes, one row of the
-// 128-byte swizzle. Both operands are copied by cp.async (16 bytes, 8
-// values, zero-filled where the Op masks them) straight into the layouts
-// wgmma reads from shared memory, and each warpgroup issues
-// wgmma.mma_async m64n128k16 (or m64n64k16) .f32.bf16.bf16 with A and B
-// both through matrix descriptors: four MMAs a slice, one per 16-deep step,
-// into a chain that spans the slice, added at the end of the slice to the
-// fp32 total as in 3xTF32 (the tensor core's own accumulation rounds toward
-// zero; chains of 4 keep that bias to the fp32 level: chip_smoke.py's phase
-// 2b holds each operator against float64 from the same bf16 inputs). There
-// is no big/small split: a bf16 x bf16 product is exact in the fp32
+// gemm_bf16_kernel computes 128-row tiles of C = A B, 128 or 64 columns wide
+// (Op::kTileN), over K in 64-deep slices (a slice's row of 64 bf16 is 128
+// bytes, one row of the 128-byte swizzle), for every bf16 Op: the operands
+// K-major (the convolutions and dgrads) or, with Op::kMN, A M-major and B
+// N-major (the wgrads: the pixels, their K, outermost in both).
+//
+// What bounds it: at bf16 a 128 x 128 x 64 slice is 2.1 MFLOP, 0.28 us of an
+// SM at the card's 989 TFLOP/s, so whatever a slice does beside its four
+// MMAs shows. The design keeps the tensor core fed:
+//
+//   Warp specialisation (384 threads). Warpgroup 0 is the producer: it gives
+//     up its registers (setmaxnreg 40) and fills a ring of STAGES slices (A
+//     tile, then B tile; 6 at 128 columns, 8 at 64) in dynamic shared
+//     memory. Warpgroups 1 and 2 are the consumers (setmaxnreg 232): each
+//     multiplies 64 rows of the tile. A full and an empty mbarrier per stage
+//     replace the block-wide barrier of each slice: the producer waits for
+//     a stage's empty barrier (its 8 consumer warps' arrivals), loads it,
+//     and the loads complete its full barrier; a consumer waits for the full
+//     barrier and releases the stage when its MMAs are done.
+//   Loads that cost the consumers nothing. Where the Op's operand tile is a
+//     box of a tensor (Op::tma_a, tma_b), one producer thread issues it as a
+//     TMA copy (cp.async.bulk.tensor, 128-byte swizzle: exactly the layout
+//     wgmma reads) that completes the full barrier by its byte count: the
+//     weights (2-D), the wgrads' dz (3-D: out-of-bounds pixels are zeros),
+//     and the convolutions' and wgrads' reflect-padded sources (4-D boxes
+//     of whole image rows). Every other tile (a dgrad's dz shifted by the
+//     tap over the padded output domain, the band forms' sources, K-convt's
+//     parity planes) is copied by the producer's 128 threads with cp.async,
+//     16 bytes a copy, each thread's copies arriving on the same full
+//     barrier when they land (cp.async.mbarrier.arrive.noinc).
+//   One slice's MMAs in flight. A consumer issues slice k's four
+//     m64n128k16 (or m64n64k16) MMAs into one of two chains (part0, part1),
+//     commits them, waits until only that group is in flight
+//     (wgmma.wait_group 1), then adds slice k - 1's chain to the fp32 total
+//     and releases slice k - 1's stage, while slice k runs.
+//   A persistent grid: min(tiles, SMs) blocks walking the tiles in a fixed
+//     order (tile t: column tile t % gy, then row tile, then split; block
+//     i takes tile i of each round of gridDim.x tiles, the rounds in
+//     alternate directions), so one tile's epilogue (its stores,
+//     tile_stats) overlaps the producer's loads of the next, and at b1 the
+//     64-column tiles fill the SMs.
+//
+// Accuracy: chains of 4 MMAs (one slice, 64 deep), added to the fp32 total
+// in slice order. The tensor core's own accumulation rounds toward zero, so
+// one chain over the whole K would bias the sum; chains of 4 keep it at the
+// fp32 level (tests/test_torch_bf16_core.py emulates this schedule and holds
+// it against float64; chip_smoke.py's phases 2 and 2b hold each operator).
+// There is no big/small split: a bf16 x bf16 product is exact in the fp32
 // accumulator, so the error is the inputs' rounding to bf16, the caller's.
+// Every output is one consumer thread's fixed sequence of MMAs and adds,
+// whichever block computes its tile: deterministic, no atomics.
 //
-//   K-major (gemm_bf16_kernel): a tile is rows of 128 bytes, the 16-byte
-//     chunk kg of row r at r * 128 + ((kg ^ (r % 8)) << 4) (swz16); 8-row
-//     groups 1024 bytes apart (descriptor SBO). Warpgroup w reads A's rows
-//     64 w .. 64 w + 63, step s at byte 32 s of the row.
-//   MN-major (gemm_bf16_mn_kernel): the wgrads' operands have the pixels (K)
-//     outermost and 128 channels (M or N) contiguous. wgmma takes them as
-//     they lie, through the descriptor's transpose bit: a 1024-byte atom
-//     holds 8 k rows of 64 MN values (128 bytes each, chunks swizzled by the
-//     row as above); atoms along MN are 8192 bytes apart (LBO), along K
-//     1024 (SBO): atom (j, q) = MN values 64 j .., k rows 8 q .. (mn16).
+// Layouts in shared memory (1024-byte aligned tiles):
+//   K-major: a tile is rows of 128 bytes, the 16-byte chunk kg of row r at
+//     r * 128 + ((kg ^ (r % 8)) << 4) (swz16); 8-row groups 1024 bytes
+//     apart (descriptor SBO). Consumer w reads A's rows 64 w .. 64 w + 63,
+//     step s at byte 32 s of the row.
+//   MN-major: wgmma takes the operands as they lie, through the
+//     descriptor's transpose bit: a 1024-byte atom holds 8 k rows of 64 MN
+//     values (128 bytes each, chunks swizzled by the row as above); atoms
+//     along MN are 8192 bytes apart (LBO), along K 1024 (SBO): atom (j, q) =
+//     MN values 64 j .., k rows 8 q .. (mn16).
 //
-// The epilogue and tile_stats are the fp32 kernels': the fp32 accumulators
-// are the Op's to write (in fp32 or rounded to bf16, as the Op stores) and
-// to reduce, before any rounding. No Op of the bf16 kernels has kNormRelu:
-// the bf16 K-block materialises h1 = relu(IN(y1)) in bf16 (the JAX kernel
-// rounds it there too) and its backward reads it.
+// An Op supplies: kTileN, kMN, kTileStats; setup(ptid, tile) (the tile's
+// coordinates, and the producer thread ptid's copies); ktiles(); load()
+// (its cp.async copies, producer threads) and load_tma() (its TMA boxes,
+// one thread); write() and, with kTileStats, rows_in_tile() and
+// write_stats() for the epilogue, which gets the fp32 totals before any
+// rounding. Its tma_a, tma_b say which tiles are boxes (Bf16Loads).
 constexpr int BK16 = 64;                  // reduction depth per stage, bf16 values
 constexpr int A16_BYTES = BM * BK16 * 2;  // one 128-row operand tile: 16 KB
+constexpr int WS_THREADS = 384;           // the producer warpgroup, then two consumers
+constexpr int PTHREADS = 128;             // the producer's threads
+constexpr int PCHUNKS = BM * 8 / PTHREADS;  // 16-byte chunks of a 128-row tile a producer thread copies
+
+// K-major tile row of the producer thread's chunk i (its chunk column ptid % 8)
+__device__ __forceinline__ int prow(int ptid, int i) { return (ptid >> 3) + 16 * i; }
 
 // byte offset of the 16-byte chunk (row r, chunk kg) of a K-major swizzled tile
 __device__ __forceinline__ int swz16(int r, int kg) { return r * 128 + ((kg ^ (r & 7)) << 4); }
@@ -704,131 +761,364 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t
       : "memory");
 }
 
-// The MMA loop both bf16 kernels share: a ring of STAGES slices (A tile,
-// then B tile), slice kt + STAGES - 1 in flight while slice kt is
-// multiplied; kTrans 0 reads K-major tiles, 1 MN-major ones.
-template <int kTrans, class Op, int TN>
-__device__ __forceinline__ void bf16_mainloop(const Op& op, unsigned char* smem, int tid,
-                                              float (&acc)[TN / 2]) {
-  constexpr int STAGE_BYTES = A16_BYTES + TN * BK16 * 2;
+// mbarriers in shared memory, and the copies that complete them
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// one arrival that also expects `bytes` of TMA copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// an arrival when this thread's cp.async copies so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+// TMA: the box of `map` at the coordinates (innermost first) into dst,
+// completing `bar` by its bytes (zeros where the box leaves the tensor)
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// The tensor maps of an Op's TMA boxes (unused ones left zero), a kernel
+// parameter (__grid_constant__: TMA reads them in parameter space).
+struct TmaMaps {
+  CUtensorMap a, b, a2;  // a2: A's boxes of a second shape (K-block-bwd's dgrad's edge tiles)
+};
+
+// Which of an Op's operand tiles are TMA boxes; the others are copied by
+// the producer's threads with cp.async. The full barrier of a stage counts
+// one arrival (with the boxes' bytes) for the boxes and one per producer
+// thread for the copies.
+struct Bf16Loads {
+  bool tma_a = false, tma_b = false;
+  __device__ bool copies() const { return !(tma_a && tma_b); }
+  __device__ int full_arrivals() const { return (copies() ? PTHREADS : 0) + (tma_a || tma_b); }
+};
+
+template <int TN>
+__host__ __device__ constexpr int stage16_bytes() { return A16_BYTES + TN * BK16 * 2; }
+// the ring's depth: 192 KB of slices (6 at 128 columns, 8 at 64)
+template <int TN>
+__host__ __device__ constexpr int stages16() { return 192 * 1024 / stage16_bytes<TN>(); }
+template <int TN>
+__host__ __device__ constexpr int smem16_bytes() {
+  return stages16<TN>() * stage16_bytes<TN>() + 9 * TN * 4 + 2 * stages16<TN>() * 8;
+}
+
+// tile t of the walk over the grid g: the column tile fastest, then the
+// row tile, then the split (the coordinates an Op reads as its block's)
+__device__ __forceinline__ uint3 tile_at(int t, uint3 g) {
+  uint3 b;
+  b.y = t % g.y;
+  t /= g.y;
+  b.x = t % g.x;
+  b.z = t / g.x;
+  return b;
+}
+
+// A ring position: stage s, and the parity of its current phase
+struct RingPos {
+  int s = 0;
+  uint32_t ph = 0;
+  template <int S>
+  __device__ __forceinline__ void next() {
+    if (++s == S) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// One slice of a consumer: wait for its stage, issue its four MMAs into the
+// chain `issue`, then, with slice k - 1's MMAs done (wait_group 1), add its
+// chain `done` to acc and release its stage (`prev`).
+template <int kTrans, int TN, int S>
+__device__ __forceinline__ void mma_slice(unsigned char* smem, uint64_t* full, uint64_t* empty,
+                                          RingPos& pos, int& prev, bool add, bool fence_copies,
+                                          int wg, int lane, float (&issue)[TN / 2],
+                                          float (&done)[TN / 2], float (&acc)[TN / 2]) {
+  constexpr int STAGE = stage16_bytes<TN>();
+  mbar_wait(full + pos.s, pos.ph);
+  // cp.async copies are generic-proxy writes; wgmma reads through the async proxy
+  if (fence_copies) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  const unsigned char* As = smem + pos.s * STAGE;
+  const unsigned char* Bs = As + A16_BYTES;
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma_fence_operand(issue);
+#pragma unroll
+  for (int k = 0; k < BK16 / 16; ++k) {
+    uint64_t da, db;
+    if constexpr (kTrans == 0) {
+      da = desc16(As + wg * 64 * 128 + 32 * k, 16, 1024);
+      db = desc16(Bs + 32 * k, 16, 1024);
+    } else {
+      da = desc16(As + wg * 8192 + 2048 * k, 8192, 1024);
+      db = desc16(Bs + 2048 * k, 8192, 1024);
+    }
+    wgmma_bf16<kTrans>(issue, da, db, k > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  wgmma_fence_operand(done);
+  if (add) {
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) acc[i] += done[i];
+    if (lane == 0) mbar_arrive(empty + prev);
+  }
+  prev = pos.s;
+  pos.next<S>();
+}
+
+// A consumer's tile: acc = the fp32 total over the tile's ktiles slices,
+// chains of one slice added in slice order.
+template <int kTrans, int TN, int S>
+__device__ __forceinline__ void mma_tile(int ktiles, unsigned char* smem, uint64_t* full,
+                                         uint64_t* empty, RingPos& pos, bool fence_copies, int wg,
+                                         int lane, float (&acc)[TN / 2]) {
+  float part0[TN / 2], part1[TN / 2];
+#pragma unroll
+  for (int i = 0; i < TN / 2; ++i) acc[i] = part0[i] = part1[i] = 0.f;
+  int prev = 0;
+  for (int kt = 0; kt < ktiles; kt += 2) {
+    mma_slice<kTrans, TN, S>(smem, full, empty, pos, prev, kt > 0, fence_copies, wg, lane, part0,
+                             part1, acc);
+    if (kt + 1 < ktiles)
+      mma_slice<kTrans, TN, S>(smem, full, empty, pos, prev, true, fence_copies, wg, lane, part1,
+                               part0, acc);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_fence_operand(part0);
+  wgmma_fence_operand(part1);
+  if (ktiles > 0) {
+    if (ktiles & 1) {
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] += part0[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < TN / 2; ++i) acc[i] += part1[i];
+    }
+    if (lane == 0) mbar_arrive(empty + prev);
+  }
+}
+
+// The persistent walk: block i's w-th tile, rounds of gridDim.x tiles
+// taken in alternate directions (snake), so that where tiles differ in
+// length (K-convt's parity planes, 1-4 taps) each block's sum evens out.
+__device__ __forceinline__ int walk_tile(int w) {
+  const int g = gridDim.x, i = blockIdx.x;
+  return w * g + ((w & 1) ? g - 1 - i : i);
+}
+
+template <class Op>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    gemm_bf16_kernel(const __grid_constant__ Op params, const __grid_constant__ TmaMaps maps,
+                     const uint3 grid) {
+  constexpr int TN = Op::kTileN;
+  constexpr int kTrans = Op::kMN ? 1 : 0;
+  constexpr int S = stages16<TN>(), STAGE = stage16_bytes<TN>();
+  static_assert(TN == 128 || TN == 64, "wgmma m64n128k16 or m64n64k16");
+  static_assert(S >= 3, "a slice in flight, one being added, one loading");
+  extern __shared__ __align__(1024) uint4 smem16[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem16);
+  float* red = reinterpret_cast<float*>(smem + S * STAGE);  // tile_stats: 9 TN floats
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 9 * TN);
+  uint64_t* empty = full + S;
+  const int ntiles = (int)(grid.x * grid.y * grid.z);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, params.full_arrivals());
+      mbar_init(empty + s, 8);  // the consumers' 8 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
   // the warpgroup, uniform to ptxas (a branch on threadIdx.x / 128 would
   // serialise the wgmma's: note C7518)
-  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
-  const int ktiles = op.ktiles();
-  float part[TN / 2];
-#pragma unroll
-  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    unsigned char* st = smem + s * STAGE_BYTES;
-    if (s < ktiles) op.load(s, st, st + A16_BYTES, tid);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();  // slice kt landed for all; slice kt - 1's stage is free
-    {
-      const int nk = kt + STAGES - 1;
-      unsigned char* st = smem + (nk % STAGES) * STAGE_BYTES;
-      if (nk < ktiles) op.load(nk, st, st + A16_BYTES, tid);
-      cp_async_commit();
-    }
-    const unsigned char* As = smem + (kt % STAGES) * STAGE_BYTES;
-    const unsigned char* Bs = As + A16_BYTES;
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    wgmma_fence_operand(part);
-#pragma unroll
-    for (int s = 0; s < BK16 / 16; ++s) {
-      uint64_t da, db;
-      if constexpr (kTrans == 0) {
-        da = desc16(As + wg * 64 * 128 + 32 * s, 16, 1024);
-        db = desc16(Bs + 32 * s, 16, 1024);
-      } else {
-        da = desc16(As + wg * 8192 + 2048 * s, 8192, 1024);
-        db = desc16(Bs + 2048 * s, 8192, 1024);
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 7, 0);
+  if (role == 0) {
+    // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    Op op = params;
+    const int ptid = threadIdx.x;
+    const uint32_t tx = (op.tma_a ? A16_BYTES : 0) + (op.tma_b ? TN * BK16 * 2 : 0);
+    // an Op of boxes alone needs one thread: the other warps leave, so
+    // that no idle warp polls the ring beside the consumers
+    if (!op.copies() && ptid >= 32) return;
+    RingPos pos;
+    for (int w = 0, t = walk_tile(0); t < ntiles; t = walk_tile(++w)) {
+      op.setup(ptid, tile_at(t, grid));
+      const int ktiles = op.ktiles();
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(empty + pos.s, pos.ph ^ 1);
+        unsigned char* st = smem + pos.s * STAGE;
+        if (tx != 0 && ptid == 0) {
+          mbar_expect_tx(full + pos.s, tx);
+          op.load_tma(kt, st, st + A16_BYTES, full + pos.s, maps);
+        }
+        if (op.copies()) {
+          op.load(kt, st, st + A16_BYTES, ptid);
+          cp_async_arrive(full + pos.s);
+        }
+        pos.next<S>();
       }
-      wgmma_bf16<kTrans>(part, da, db, s > 0);
     }
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    wgmma_fence_operand(part);
+    cp_async_wait<0>();
+  } else {
+    // the consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    Op op = params;
+    const int wg = role - 1, ctid = threadIdx.x - PTHREADS;
+    const int lane = ctid & 31, g = lane >> 2, t4 = lane & 3;
+    const int row0 = 16 * (ctid >> 5);
+    const bool fence_copies = op.copies();
+    RingPos pos;
+    for (int w = 0, t = walk_tile(0); t < ntiles; t = walk_tile(++w)) {
+      op.setup(0, tile_at(t, grid));
+      float acc[TN / 2];
+      mma_tile<kTrans, TN, S>(op.ktiles(), smem, full, empty, pos, fence_copies, wg, lane, acc);
+      // epilogue: acc[4 j + v] is row g (v < 2) or g + 8, column 8 j + 2 t + (v & 1)
 #pragma unroll
-    for (int i = 0; i < TN / 2; ++i) acc[i] += part[i];
-  }
-  cp_async_wait<0>();
-}
-
-// A and B K-major, bf16 (the bf16 convolutions and dgrads); see above.
-template <class Op>
-__global__ void __launch_bounds__(THREADS, 1) gemm_bf16_kernel(const Op params) {
-  constexpr int TN = Op::kTileN;
-  static_assert(TN == 128 || TN == 64, "wgmma m64n128k16 or m64n64k16");
-  static_assert(!Op::kNormRelu, "the bf16 operands are materialised");
-  extern __shared__ __align__(1024) uint4 smem16[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem16);
-  Op op = params;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * warp;  // warpgroup warp >> 2 owns rows 64 (warp >> 2) .. + 63
-  op.setup(tid);
-  float acc[TN / 2];
-  bf16_mainloop<0, Op, TN>(op, smem, tid, acc);
-  // epilogue: d[4 j + v] is row g (v < 2) or g + 8, column 8 j + 2 t + (v & 1)
-#pragma unroll
-  for (int j = 0; j < TN / 8; ++j) {
-    op.write(row0 + g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
-    op.write(row0 + g + 8, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
-  }
-  if constexpr (Op::kTileStats) {
-    __syncthreads();  // every warp is done with the ring
-    tile_stats<TN>(op, acc, reinterpret_cast<float*>(smem), tid, row0, g, t);
+      for (int j = 0; j < TN / 8; ++j) {
+        op.write(row0 + g, 8 * j + 2 * t4, make_float2(acc[4 * j], acc[4 * j + 1]));
+        op.write(row0 + g + 8, 8 * j + 2 * t4, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+      if constexpr (Op::kTileStats) tile_stats<TN, Op, true>(op, acc, red, ctid, row0, g, t4);
+    }
   }
 }
 
+// Launch gemm_bf16_kernel<Op> over the tiles of `grid` (the Op's tile
+// coordinates), persistent: min(tiles, SMs) blocks of 384 threads.
 template <class Op>
-cudaError_t launch_bf16(const Op& op, dim3 grid, cudaStream_t stream) {
-  constexpr int bytes = STAGES * (A16_BYTES + Op::kTileN * BK16 * 2);
-  cudaError_t err =
-      cudaFuncSetAttribute(gemm_bf16_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+cudaError_t launch_bf16(const Op& op, dim3 grid, cudaStream_t stream,
+                        const TmaMaps& maps = TmaMaps{}) {
+  constexpr int bytes = smem16_bytes<Op::kTileN>();
+  const long long ntiles = (long long)grid.x * grid.y * grid.z;
+  if (ntiles == 0) return cudaSuccess;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  gemm_bf16_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
+  err = cudaFuncSetAttribute(gemm_bf16_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)(ntiles < sms ? ntiles : sms);
+  gemm_bf16_kernel<Op><<<blocks, WS_THREADS, bytes, stream>>>(op, maps,
+                                                             make_uint3(grid.x, grid.y, grid.z));
   return cudaGetLastError();
 }
 
-// A M-major, B N-major, bf16 (the bf16 wgrads): both read by wgmma as they
-// lie (the transpose bit); see above.
-template <class Op>
-__global__ void __launch_bounds__(THREADS, 1) gemm_bf16_mn_kernel(const Op params) {
-  constexpr int TN = Op::kTileN;
-  static_assert(TN == 128 || TN == 64, "wgmma m64n128k16 or m64n64k16");
-  static_assert(!Op::kNormRelu, "the bf16 operands are materialised");
-  extern __shared__ __align__(1024) uint4 smem16[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(smem16);
-  Op op = params;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * warp;
-  op.setup(tid);
-  float acc[TN / 2];
-  bf16_mainloop<1, Op, TN>(op, smem, tid, acc);
-#pragma unroll
-  for (int j = 0; j < TN / 8; ++j) {
-    op.write(row0 + g, 8 * j + 2 * t, make_float2(acc[4 * j], acc[4 * j + 1]));
-    op.write(row0 + g + 8, 8 * j + 2 * t, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
-  }
+
+// A TMA map over a contiguous bf16 tensor: `rank` dims, innermost first,
+// read in boxes of `box`, 128-byte swizzled (the box's innermost extent 64
+// values), zeros outside the tensor. cuTensorMapEncodeTiled is the
+// driver's, found in libcuda at first use. A refused encode is an error.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
 }
 
-template <class Op>
-cudaError_t launch_bf16_mn(const Op& op, dim3 grid, cudaStream_t stream) {
-  constexpr int bytes = STAGES * (A16_BYTES + Op::kTileN * BK16 * 2);
-  cudaError_t err = cudaFuncSetAttribute(gemm_bf16_mn_kernel<Op>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  gemm_bf16_mn_kernel<Op><<<grid, THREADS, bytes, stream>>>(op);
-  return cudaGetLastError();
+inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank, const long long* dims,
+                            const int* box) {
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t bdim[5], ones[5];
+  cuuint64_t stride = 2;
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = (cuuint64_t)dims[i];
+    bdim[i] = (cuuint32_t)box[i];
+    ones[i] = 1;
+    if (i + 1 < rank) gstride[i] = stride *= (cuuint64_t)dims[i];
+  }
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+                        const_cast<void*>(base), gdim, gstride, bdim, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The maps the Ops read: W (9C rows of C, K-major along the inner C) in
+// boxes of 64 x rows; an image (N, H, W, C), or a reflect-padded copy as
+// (N, H + 2, W + 2, C), in boxes of 64 channels x bw x bh pixels; a
+// gradient (N, H W, C) in boxes of 64 channels x 64 pixels.
+inline cudaError_t weight_map(CUtensorMap* map, const void* w, int c, int rows) {
+  const long long dims[2] = {c, 9LL * c};
+  const int box[2] = {BK16, rows};
+  return bf16_map(map, w, 2, dims, box);
+}
+inline cudaError_t image_map(CUtensorMap* map, const void* src, int n, int h, int w, int c,
+                             int bw, int bh) {
+  const long long dims[4] = {c, w, h, n};
+  const int box[4] = {BK16, bw, bh, 1};
+  return bf16_map(map, src, 4, dims, box);
+}
+inline cudaError_t pixels_map(CUtensorMap* map, const void* src, int n, int hw, int c) {
+  const long long dims[3] = {c, hw, n};
+  const int box[3] = {BK16, BK16, 1};
+  return bf16_map(map, src, 3, dims, box);
 }
 
 // 4 adjacent values in and out, in fp32 registers: fp32 as 16 bytes, bf16

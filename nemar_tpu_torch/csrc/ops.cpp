@@ -71,14 +71,16 @@ int nemar_in_act_bwd(const float* x, const float* g, const float* stats, float* 
                      long long work_doubles, int n, int h, int w, int c, int act, float slope,
                      cudaStream_t stream);
 int nemar_resblock_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w1,
-                            const __nv_bfloat16* w2, __nv_bfloat16* wt, float* y1,
+                            const __nv_bfloat16* w2, __nv_bfloat16* wt, __nv_bfloat16* pads,
+                            float* y1,
                             __nv_bfloat16* y1hat, __nv_bfloat16* h1, float* y2, float* part,
                             float* stats, __nv_bfloat16* out, int n, int h, int w, int c, float eps,
                             cudaStream_t stream);
 int nemar_resblock_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y1hat,
                             const __nv_bfloat16* h1, const float* y2, const float* stats,
                             const __nv_bfloat16* g, const __nv_bfloat16* w1,
-                            const __nv_bfloat16* w2, __nv_bfloat16* dz, float* dpad, float* part_in,
+                            const __nv_bfloat16* w2, __nv_bfloat16* pads, __nv_bfloat16* dz,
+                            float* dpad, float* part_in,
                             float* means, float* part_w, __nv_bfloat16* dw1, __nv_bfloat16* dw2,
                             __nv_bfloat16* dx, int n, int h, int w, int c, int splits,
                             cudaStream_t stream);
@@ -348,36 +350,38 @@ at::Tensor in_act_bwd(const at::Tensor& x, const at::Tensor& g, const at::Tensor
 // ---------------------------------------------------------------------------
 
 void resblock_fwd_bf16(const at::Tensor& x, const at::Tensor& w1, const at::Tensor& w2,
-                       const at::Tensor& wt, const at::Tensor& y1, const at::Tensor& y1hat,
-                       const at::Tensor& h1, const at::Tensor& y2, const at::Tensor& part,
-                       const at::Tensor& stats, const at::Tensor& out, double eps) {
+                       const at::Tensor& wt, const at::Tensor& pads, const at::Tensor& y1,
+                       const at::Tensor& y1hat, const at::Tensor& h1, const at::Tensor& y2,
+                       const at::Tensor& part, const at::Tensor& stats, const at::Tensor& out,
+                       double eps) {
   dtypes("resblock_fwd_bf16", {{"x", &x}, {"w1", &w1}, {"w2", &w2}, {"wt", &wt},
-                               {"y1hat", &y1hat}, {"h1", &h1}, {"out", &out}}, at::kBFloat16);
+                               {"pads", &pads}, {"y1hat", &y1hat}, {"h1", &h1}, {"out", &out}},
+         at::kBFloat16);
   dtypes("resblock_fwd_bf16", {{"y1", &y1}, {"y2", &y2}, {"part", &part}, {"stats", &stats}},
          at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
-  check(nemar_resblock_fwd_bf16(b16(x), b16(w1), b16(w2), b16(wt), f32(y1), b16(y1hat), b16(h1),
-                                f32(y2), f32(part), f32(stats), b16(out), dim(x, 0), dim(x, 1),
+  check(nemar_resblock_fwd_bf16(b16(x), b16(w1), b16(w2), b16(wt), b16(pads), f32(y1),
+                                b16(y1hat), b16(h1), f32(y2), f32(part), f32(stats), b16(out), dim(x, 0), dim(x, 1),
                                 dim(x, 2), dim(x, 3), static_cast<float>(eps), stream()),
         "resblock_fwd_bf16");
 }
 
 void resblock_bwd_bf16(const at::Tensor& x, const at::Tensor& y1hat, const at::Tensor& h1,
                        const at::Tensor& y2, const at::Tensor& stats, const at::Tensor& g,
-                       const at::Tensor& w1, const at::Tensor& w2, const at::Tensor& dz,
-                       const at::Tensor& dpad, const at::Tensor& part_in, const at::Tensor& means,
-                       const at::Tensor& part_w, const at::Tensor& dw1, const at::Tensor& dw2,
+                       const at::Tensor& w1, const at::Tensor& w2, const at::Tensor& pads,
+                       const at::Tensor& dz, const at::Tensor& dpad, const at::Tensor& part_in,
+                       const at::Tensor& means, const at::Tensor& part_w, const at::Tensor& dw1, const at::Tensor& dw2,
                        const at::Tensor& dx, int64_t splits) {
   dtypes("resblock_bwd_bf16", {{"x", &x}, {"y1hat", &y1hat}, {"h1", &h1}, {"g", &g},
-                               {"w1", &w1}, {"w2", &w2}, {"dz", &dz}, {"dw1", &dw1},
-                               {"dw2", &dw2}, {"dx", &dx}}, at::kBFloat16);
+                               {"w1", &w1}, {"w2", &w2}, {"pads", &pads}, {"dz", &dz},
+                               {"dw1", &dw1}, {"dw2", &dw2}, {"dx", &dx}}, at::kBFloat16);
   dtypes("resblock_bwd_bf16", {{"y2", &y2}, {"stats", &stats}, {"dpad", &dpad},
                                {"part_in", &part_in}, {"means", &means}, {"part_w", &part_w}},
          at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
   check(nemar_resblock_bwd_bf16(b16(x), b16(y1hat), b16(h1), f32(y2), f32(stats), b16(g),
-                                b16(w1), b16(w2), b16(dz), f32(dpad), f32(part_in), f32(means),
-                                f32(part_w), b16(dw1), b16(dw2), b16(dx), dim(x, 0), dim(x, 1),
+                                b16(w1), b16(w2), b16(pads), b16(dz), f32(dpad), f32(part_in),
+                                f32(means), f32(part_w), b16(dw1), b16(dw2), b16(dx), dim(x, 0), dim(x, 1),
                                 dim(x, 2), dim(x, 3), static_cast<int>(splits), stream()),
         "resblock_bwd_bf16");
 }
@@ -482,12 +486,13 @@ TORCH_LIBRARY(nemar, m) {
         &in_act_fwd);
   m.def("in_act_bwd(Tensor x, Tensor g, Tensor stats, int act, float slope) -> Tensor dx",
         &in_act_bwd);
-  m.def("resblock_fwd_bf16(Tensor x, Tensor w1, Tensor w2, Tensor(a!) wt, Tensor(b!) y1, "
-        "Tensor(c!) y1hat, Tensor(d!) h1, Tensor(e!) y2, Tensor(f!) part, Tensor(g!) stats, "
-        "Tensor(h!) out, float eps) -> ()",
+  m.def("resblock_fwd_bf16(Tensor x, Tensor w1, Tensor w2, Tensor(a!) wt, Tensor(i!) pads, "
+        "Tensor(b!) y1, Tensor(c!) y1hat, Tensor(d!) h1, Tensor(e!) y2, Tensor(f!) part, "
+        "Tensor(g!) stats, Tensor(h!) out, float eps) -> ()",
         &resblock_fwd_bf16);
   m.def("resblock_bwd_bf16(Tensor x, Tensor y1hat, Tensor h1, Tensor y2, Tensor stats, "
-        "Tensor g, Tensor w1, Tensor w2, Tensor(a!) dz, Tensor(b!) dpad, Tensor(c!) part_in, "
+        "Tensor g, Tensor w1, Tensor w2, Tensor(i!) pads, Tensor(a!) dz, Tensor(b!) dpad, "
+        "Tensor(c!) part_in, "
         "Tensor(d!) means, Tensor(e!) part_w, Tensor(f!) dw1, Tensor(g!) dw2, Tensor(h!) dx, "
         "int splits) -> ()",
         &resblock_bwd_bf16);

@@ -78,14 +78,33 @@
 // offsets in the dgrad's loader).
 //
 // The bf16 variant (--bf16; nemar_resblock_bwd_bf16) is the same backward
-// with bf16 operands on the core's bf16 path (one bf16 MMA a product, fp32
-// accumulators; the wgrads' pixel-major operands read by wgmma as they
-// lie), from the bf16 K-block's saved y1hat, h1 (bf16) and y2, stats
-// (fp32). It rounds where the TPU kernels store the compute dtype
-// (conv_fused.py:_bwd2_kernel_kstack, _bwd1_kernel_kstack): dz2, dh1 =
-// fold(dpad2) as the IN1 backward reads it, dz1 and dx to bf16, and dW1,
-// dW2 to the weights' bf16; the sums, dpad and the partials stay fp32.
-// Bound: 154.6 GFLOP a b8 call at 989 TFLOP/s = 0.16 ms.
+// with bf16 operands, from the bf16 K-block's saved y1hat, h1 (bf16) and
+// y2, stats (fp32). It rounds where the TPU kernels store the compute
+// dtype (conv_fused.py:_bwd2_kernel_kstack, _bwd1_kernel_kstack): dz2, dh1
+// = fold(dpad2) as the IN1 backward reads it, dz1 and dx to bf16, and
+// dW1, dW2 to the weights' bf16; the sums, dpad and the partials stay fp32.
+//
+// What bounds it: arithmetic, 154.6 GFLOP a b8 call at 989 TFLOP/s = 0.156
+// ms, against ~0.45 GB of IN passes and partials (0.13 ms at 3.35 TB/s).
+// The design: the four GEMMs on the bf16 core (gemm_tc.cuh:
+// warp-specialised, persistent, one slice's MMAs in flight); the wgrads'
+// operands as TMA boxes (dz, and reflect-padded copies of x and h1 written
+// by one pad launch where a 64-pixel K slice is image rows: slice_boxes),
+// the dgrads' B (W as it lies) as boxes and their A (dz shifted by the tap
+// over the padded domain, no box) as the producer's copies; the IN
+// backward's merge eight loads deep (in_bwd_merge16_kernel); dW2's split
+// sum in the last launch beside dW1's. Twelve launches (eleven without the
+// pad):
+//
+//   1.     x and h1 -> their reflect-padded copies;
+//   2-4.   dz2 as 1-3 above (partials, merge, apply);
+//   5.     dW2's split-K partials (from h1, dz2);
+//   6.     dpad2 from dz2 and W2;
+//   7-9.   dz1 from gh = dh1 * (y1hat > 0), dh1 = fold(dpad2);
+//   10.    dW1's partials (from x, dz1);
+//   11.    dpad1 from dz1 and W1;
+//   12.    dx = g + fold(dpad1), dW1 and dW2 = the fixed-order sums of
+//          their partials.
 #include <cuda_runtime.h>
 
 #include "gemm_tc.cuh"
@@ -363,19 +382,34 @@ __global__ void in_bwd_partial_kernel(const InG<kStage, T>* __restrict__ gsrc,
   const float* st = stats + (size_t)b * 4 * c + (kStage == 2 ? 2 * c : 0) + ch;
   const float mu = st[0], rs = st[c];
   float s1 = 0.f, s2 = 0.f;
-  auto add_pixel = [&](int i) {
-    float gv, yh;
-    in_bwd_terms<kStage, T>(in_grad<kStage, T, float>(gsrc, m0 + i, ch, h, w, c),
-                            tc::load1(y + (size_t)(m0 + i) * c + ch), mu, rs, gv, yh);
-    s1 += gv;
-    s2 = fmaf(gv, yh, s2);
+  // PIX pixels' loads issued together (the fold's are conditional: the
+  // compiler would not hoist them), then added in pixel order
+  constexpr int PIX = 8;
+  auto add_pixels = [&](int i0, int n) {
+    float gin[PIX], yin[PIX];
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      if (k < n) {
+        gin[k] = in_grad<kStage, T, float>(gsrc, m0 + i0 + k, ch, h, w, c);
+        yin[k] = tc::load1(y + (size_t)(m0 + i0 + k) * c + ch);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PIX; ++k) {
+      if (k < n) {
+        float gv, yh;
+        in_bwd_terms<kStage, T>(gin[k], yin[k], mu, rs, gv, yh);
+        s1 += gv;
+        s2 = fmaf(gv, yh, s2);
+      }
+    }
   };
   // a whole tile with a fixed trip count (the compiler unrolls it), else the
   // sample's tail: the same pixels in the same order either way
   if (count == IN_TILE) {
-    for (int i = 0; i < IN_TILE; ++i) add_pixel(i);
+    for (int i = 0; i < IN_TILE; i += PIX) add_pixels(i, PIX);
   } else {
-    for (int i = 0; i < count; ++i) add_pixel(i);
+    for (int i = 0; i < count; i += PIX) add_pixels(i, min(PIX, count - i));
   }
   float* p = part + (size_t)tile * 2 * c + ch;
   p[0] = s1;
@@ -460,6 +494,7 @@ template <class T>
 __device__ __forceinline__ void split_sum(const float4* __restrict__ part, T* __restrict__ out,
                                           long long i, long long total4, int splits) {
   float4 s = part[i];
+#pragma unroll 4
   for (int k = 1; k < splits; ++k) s = add(s, part[(size_t)k * total4 + i]);
   tc::store4(out + 4 * i, s);
 }
@@ -562,114 +597,167 @@ cudaError_t dgrad(const float* dz, const float* wsplit, float* dpad, int n, int 
 // wgrad partial, bf16 operands: part[s][tap*C + ci][co] = sum over the
 // pixels of split s of src[b, reflect(u + dy - 1), reflect(v + dx - 1), ci]
 // * dz[p, co]. K slice k is the 64 pixels from (k % kps) * 64 of sample
-// k / kps (kps = ceil(H*W / 64)); rows past the sample are zero-filled.
-// Both operands are pixel-major, read by wgmma as they lie (MN-major).
-// kHp (the band form), as WgradOp's: src holds each sample's H + 2 rows, its
-// halo rows in place, read at row u + dy.
+// k / kps (kps = ceil(H*W / 64)); rows past the sample are zeros. Both
+// operands are pixel-major, read by wgmma as they lie (MN-major). B (dz, as
+// (N, H W, C)) is two TMA boxes of 64 channels x 64 pixels, zeros past the
+// sample; A is two (tma_a: the reflect-padded source, (N, H + 2, W + 2, C),
+// the slice's pixels whole image rows or part of one: W divides 64 or 64
+// divides W) or the producer's cp.async copies from src, reflected in the
+// index and zero-filled past the sample. kHp (the band form): src holds
+// each sample's H + 2 rows, its halo rows in place, read at row u + dy.
 template <bool kHp = false>
-struct WgradOp16 {
-  static constexpr bool kNormRelu = false;
+struct WgradOp16 : tc::Bf16Loads {
+  static constexpr bool kMN = true;
+  static constexpr bool kTileStats = false;
   static constexpr int kTileN = BN;
   const bf16* src;
-  const bf16* dz;
   float* part;
   int h, w, c, kps, ktiles_total, splits;
-  int m0, n0, ci0, dy, dx, kt0, nkt;
+  int m0, n0, ci0, dy, dx, kt0, nkt, split;
 
-  __device__ void setup(int) {
-    m0 = blockIdx.x * BM;  // 128 rows (tap, ci) of one tap: C % 128 == 0
-    n0 = blockIdx.y * BN;
+  __device__ void setup(int, uint3 blk) {
+    m0 = blk.x * BM;  // 128 rows (tap, ci) of one tap: C % 128 == 0
+    n0 = blk.y * BN;
     const int tap = m0 / c;
     ci0 = m0 - tap * c;
     dy = tap / 3;
     dx = tap - 3 * dy;
-    const int s = blockIdx.z;
-    kt0 = (int)((long long)s * ktiles_total / splits);
-    nkt = (int)((long long)(s + 1) * ktiles_total / splits) - kt0;
+    split = blk.z;
+    kt0 = (int)((long long)split * ktiles_total / splits);
+    nkt = (int)((long long)(split + 1) * ktiles_total / splits) - kt0;
   }
   __device__ int ktiles() const { return nkt; }
-  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+  // A by cp.async (tma_a false)
+  __device__ void load(int kt, unsigned char* As, unsigned char*, int ptid) const {
     const int slice = kt0 + kt, b = slice / kps, hw = h * w;
     const int q0 = (slice - b * kps) * tc::BK16;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = tid + tc::THREADS * i, k = q >> 4, ch = 8 * (q & 15);
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
+      const int q = ptid + tc::PTHREADS * i, k = q >> 4, ch = 8 * (q & 15);
       const int pix = q0 + k;
       const bool valid = pix < hw;
       const int u = pix / w, v = pix - u * w;
       const size_t sp = kHp ? ((size_t)b * (h + 2) + u + dy) * w + reflect(v + dx - 1, w)
                             : ((size_t)b * h + reflect(u + dy - 1, h)) * w + reflect(v + dx - 1, w);
       tc::cp_async16b(As + tc::mn16(k, q & 15), valid ? src + sp * c + ci0 + ch : src, valid);
-      tc::cp_async16b(Bs + tc::mn16(k, q & 15),
-                      valid ? dz + ((size_t)b * hw + pix) * c + n0 + ch : dz, valid);
     }
   }
+  // B from dz (maps.b); with tma_a, A from the padded source (maps.a) at
+  // pixel (u0 + dy, v0 + dx): 64 channels each
+  __device__ void load_tma(int kt, unsigned char* As, unsigned char* Bs, uint64_t* bar,
+                           const tc::TmaMaps& maps) const {
+    const int slice = kt0 + kt, b = slice / kps;
+    const int q0 = (slice - b * kps) * tc::BK16;
+    if (tma_a) {
+      const int u0 = q0 / w, v0 = q0 - u0 * w;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        tc::tma_load(As + 8192 * j, &maps.a, bar, ci0 + 64 * j, v0 + dx, u0 + dy, b);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) tc::tma_load(Bs + 8192 * j, &maps.b, bar, n0 + 64 * j, q0, b);
+  }
   __device__ void write(int r, int cl, float2 val) const {
-    tc::store2(part + ((size_t)blockIdx.z * 9 * c + m0 + r) * c + n0 + cl, val);
+    tc::store2(part + ((size_t)split * 9 * c + m0 + r) * c + n0 + cl, val);
   }
 };
 
 // dgrad, bf16 operands: dpad[(b, U, V), ci] = sum_{tap, co} dz[b, U - dy, V - dx, co]
-// * w[tap][ci][co], dpad fp32
-struct DgradOp16 {
-  static constexpr bool kNormRelu = false;
+// * w[tap][ci][co], dpad fp32. B (W in HWIO, K-major along co) is a TMA
+// box. A is dz shifted by the tap, zero off the frame: with tma_a (W a
+// multiple of 64) the output domain is cut into boxes, so that A is a TMA
+// box of dz with the frame's zeros its out-of-bounds fill: a sample's
+// main tiles, two padded rows U0, U0 + 1 by 64 columns V0 .. V0 + 63 (box
+// 64 x 64 x 2 at (V0 - dx, U0 - dy)), then its edge tiles, 64 padded rows
+// by the columns W, W + 1 (box 64 x 2 x 64 at (W - dx, U0 - dy), maps.a2);
+// otherwise a tile is 128 consecutive pixels of the padded domain (rows of
+// W + 2 pixels: no box) and A is the producer's cp.async copies.
+struct DgradOp16 : tc::Bf16Loads {
+  static constexpr bool kMN = false;
   static constexpr bool kTileStats = false;
   static constexpr int kTileN = BN;
   const bf16* dz;
-  // W in HWIO: B(k = (tap, co), n = ci) is K-major as it lies
-  const bf16* w;
   float* dpad;
   int h, wd, c, rows;
+  int main_tiles, sample_tiles;  // tma_a: a sample's main tiles, and with its edge tiles
   int m0, n0, kc;
-  int roff[CHUNKS], ruv[CHUNKS];
+  int b, u0, v0;  // tma_a: the tile's sample, first padded row and column
+  bool edge;
+  int roff[tc::PCHUNKS], ruv[tc::PCHUNKS];
 
-  __device__ void setup(int tid) {
-    m0 = blockIdx.x * BM;
-    n0 = blockIdx.y * BN;
-    kc = tid & 7;
+  __device__ void setup(int ptid, uint3 blk) {
+    n0 = blk.y * BN;
+    if (tma_a) {
+      b = blk.x / sample_tiles;
+      const int t = blk.x - b * sample_tiles;
+      edge = t >= main_tiles;
+      if (edge) {
+        u0 = 64 * (t - main_tiles);
+        v0 = wd;
+      } else {
+        const int wb = wd / 64, rp = t / wb;
+        u0 = 2 * rp;
+        v0 = 64 * (t - rp * wb);
+      }
+      return;
+    }
+    m0 = blk.x * BM;
+    kc = ptid & 7;
     const int wp = wd + 2, plane = (h + 2) * wp;
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int m = m0 + tc::kmajor_row(tid, i);
-      const int b = m / plane, r = m - b * plane;
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
+      const int m = m0 + tc::prow(ptid, i);
+      const int bb = m / plane, r = m - bb * plane;
       const int u = r / wp, v = r - u * wp;
-      roff[i] = ((b * h + u) * wd + v) * c;
+      roff[i] = ((bb * h + u) * wd + v) * c;
       ruv[i] = m < rows ? (u << 16) | v : 0x7fff0000;
     }
   }
   __device__ int ktiles() const { return 9 * c / tc::BK16; }
-  __device__ void load(int kt, unsigned char* As, unsigned char* Bs, int tid) const {
+  // A by cp.async (tma_a false)
+  __device__ void load(int kt, unsigned char* As, unsigned char*, int ptid) const {
     const int k0 = kt * tc::BK16;
     const int tap = k0 / c;
     const int co = k0 - tap * c + 8 * kc;
     const int dy = tap / 3, dx = tap - 3 * dy;
     const int shift = (dy * wd + dx) * c - co;
 #pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
+    for (int i = 0; i < tc::PCHUNKS; ++i) {
       const int si = (ruv[i] >> 16) - dy, sj = (ruv[i] & 0xffff) - dx;
       const bool valid = (unsigned)si < (unsigned)h && (unsigned)sj < (unsigned)wd;
-      tc::cp_async16b(As + tc::swz16(tc::kmajor_row(tid, i), kc), valid ? dz + (roff[i] - shift) : dz,
+      tc::cp_async16b(As + tc::swz16(tc::prow(ptid, i), kc), valid ? dz + (roff[i] - shift) : dz,
                       valid);
     }
-#pragma unroll
-    for (int i = 0; i < CHUNKS; ++i) {
-      const int nr = tc::kmajor_row(tid, i);
-      tc::cp_async16b(Bs + tc::swz16(nr, kc), w + ((size_t)tap * c + n0 + nr) * c + co, true);
+  }
+  __device__ void load_tma(int kt, unsigned char* As, unsigned char* Bs, uint64_t* bar,
+                           const tc::TmaMaps& maps) const {
+    const int k0 = kt * tc::BK16;
+    const int tap = k0 / c, co = k0 - tap * c;
+    if (tma_a) {
+      const int dy = tap / 3, dx = tap - 3 * dy;
+      tc::tma_load(As, edge ? &maps.a2 : &maps.a, bar, co, v0 - dx, u0 - dy, b);
     }
+    tc::tma_load(Bs, &maps.b, bar, co, tap * c + n0);
   }
   __device__ void write(int r, int col, float2 val) const {
+    if (tma_a) {
+      const int u = u0 + (edge ? r >> 1 : r >> 6), v = v0 + (edge ? r & 1 : r & 63);
+      if (u < h + 2)
+        tc::store2(dpad + (((size_t)b * (h + 2) + u) * (wd + 2) + v) * c + n0 + col, val);
+      return;
+    }
     const int m = m0 + r;
     if (m < rows) tc::store2(dpad + (size_t)m * c + n0 + col, val);
   }
 };
 
-// 4 / 10
+// 4 / 9: a weight gradient's split-K partials; A from the padded source pad
+// by TMA where given, else copied from src
 template <bool kHp = false>
-cudaError_t wgrad16(const bf16* src, const bf16* dz, float* part, int n, int h, int w, int c,
-                    int splits, cudaStream_t stream) {
+cudaError_t wgrad16(const bf16* src, const bf16* pad, const bf16* dz, float* part, int n, int h,
+                    int w, int c, int splits, cudaStream_t stream) {
   WgradOp16<kHp> op;
   op.src = src;
-  op.dz = dz;
   op.part = part;
   op.h = h;
   op.w = w;
@@ -677,22 +765,138 @@ cudaError_t wgrad16(const bf16* src, const bf16* dz, float* part, int n, int h, 
   op.kps = (h * w + tc::BK16 - 1) / tc::BK16;
   op.ktiles_total = n * op.kps;
   op.splits = splits;
-  return tc::launch_bf16_mn(op, dim3((unsigned)(9 * c / BM), (unsigned)(c / BN), (unsigned)splits),
-                            stream);
+  op.tma_b = true;
+  op.tma_a = pad != nullptr;
+  tc::TmaMaps maps{};
+  cudaError_t err = cudaSuccess;
+  if (op.ktiles_total > 0) {  // an empty band loads nothing
+    err = tc::pixels_map(&maps.b, dz, n, h * w, c);
+    if (err == cudaSuccess && pad != nullptr) {
+      const int bw = min(w, tc::BK16);
+      err = tc::image_map(&maps.a, pad, n, h + 2, w + 2, c, bw, tc::BK16 / bw);
+    }
+  }
+  if (err != cudaSuccess) return err;
+  return tc::launch_bf16(op, dim3((unsigned)(9 * c / BM), (unsigned)(c / BN), (unsigned)splits),
+                         stream, maps);
 }
 
-// 6 / 11
+// 5 / 10: dz's boxes where W is a multiple of 64 (and the band not empty)
 cudaError_t dgrad16(const bf16* dz, const bf16* w, float* dpad, int n, int h, int wd, int c,
                     cudaStream_t stream) {
   DgradOp16 op;
   op.dz = dz;
-  op.w = w;
   op.dpad = dpad;
   op.h = h;
   op.wd = wd;
   op.c = c;
   op.rows = n * (h + 2) * (wd + 2);
-  return tc::launch_bf16(op, dim3((unsigned)((op.rows + BM - 1) / BM), (unsigned)(c / BN)), stream);
+  op.tma_b = true;
+  op.tma_a = wd % 64 == 0 && h > 0;
+  op.main_tiles = (h + 3) / 2 * (wd / 64);
+  op.sample_tiles = op.main_tiles + (h + 2 + 63) / 64;
+  tc::TmaMaps maps{};
+  cudaError_t err = tc::weight_map(&maps.b, w, c, BN);
+  if (err == cudaSuccess && op.tma_a) err = tc::image_map(&maps.a, dz, n, h, wd, c, 64, 2);
+  if (err == cudaSuccess && op.tma_a) err = tc::image_map(&maps.a2, dz, n, h, wd, c, 2, 64);
+  if (err != cudaSuccess) return err;
+  const int mtiles = op.tma_a ? n * op.sample_tiles : (op.rows + BM - 1) / BM;
+  return tc::launch_bf16(op, dim3((unsigned)mtiles, (unsigned)(c / BN)), stream, maps);
+}
+
+// whether a 64-pixel K slice of a W-wide frame is a box of whole image rows
+// (or of part of one): W divides 64 or 64 divides W
+inline bool slice_boxes(int w) { return w % tc::BK16 == 0 || tc::BK16 % w == 0; }
+
+// 1: the reflect-padded copies (N, H + 2, W + 2, C) of x and h1, 8 channels
+// a thread
+__global__ void pad16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ h1,
+                             bf16* __restrict__ pads, long long chunks, int h, int w, int c) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * chunks) return;
+  const int which = i >= chunks;
+  const long long e = (i - which * chunks) * 8;
+  const int ch = (int)(e % c);
+  const long long pix = e / c;
+  const int v = (int)(pix % (w + 2));
+  const long long r = pix / (w + 2);
+  const int u = (int)(r % (h + 2)), b = (int)(r / (h + 2));
+  const bf16* src = which ? h1 : x;
+  *reinterpret_cast<uint4*>(pads + which * chunks * 8 + e) = *reinterpret_cast<const uint4*>(
+      src + (((size_t)b * h + reflect(u - 1, h)) * w + reflect(v - 1, w)) * c + ch);
+}
+
+// 3 / 8's merge: means (N, 2, C) = (mean(gv), mean(gv * yhat)) from the
+// sample's partials in fp64: a block takes 32 channels of one sample, its
+// warp j summing the tiles t = j (mod 8) in tile order, then the 8 sums are
+// added in warp order (a fixed order)
+__global__ void in_bwd_merge16_kernel(const float* __restrict__ part, float* __restrict__ means,
+                                      int c, int tiles, long long pixels) {
+  __shared__ double red[2][8][32];
+  const int lane = threadIdx.x & 31, j = threadIdx.x >> 5;
+  const int idx = blockIdx.x * 32 + lane;
+  const int b = idx / c, ch = idx - b * c;
+  const float* p = part + (size_t)b * tiles * 2 * c + ch;
+  double s1 = 0.0, s2 = 0.0;
+  for (int t = j; t < tiles; t += 8) {
+    s1 += (double)p[(size_t)t * 2 * c];
+    s2 += (double)p[(size_t)t * 2 * c + c];
+  }
+  red[0][j][lane] = s1;
+  red[1][j][lane] = s2;
+  __syncthreads();
+  if (j == 0) {
+    s1 = s2 = 0.0;
+    for (int k = 0; k < 8; ++k) {
+      s1 += red[0][k][lane];
+      s2 += red[1][k][lane];
+    }
+    float* m = means + (size_t)b * 2 * c + ch;
+    m[0] = (float)(s1 / pixels);
+    m[c] = (float)(s2 / pixels);
+  }
+}
+
+// 2-3 / 6-8: the IN backward's partials, merge and apply at bf16
+template <int kStage>
+cudaError_t in_bwd16(const InG<kStage, bf16>* gsrc, const InY<kStage, bf16>* y,
+                     const float* stats, float* part, float* means, bf16* dz, int n, int h, int w,
+                     int c, cudaStream_t stream) {
+  const int hw = h * w, tiles = (hw + IN_TILE - 1) / IN_TILE;
+  in_bwd_partial_kernel<kStage, bf16><<<dim3((unsigned)(n * tiles), (unsigned)(c / 128)), 128, 0,
+                                        stream>>>(gsrc, y, stats, part, h, w, c, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  in_bwd_merge16_kernel<<<(unsigned)(n * c / 32), 256, 0, stream>>>(part, means, c, tiles, hw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long long total4 = (long long)n * hw * c / 4;
+  in_bwd_apply_kernel<kStage, bf16><<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
+      gsrc, y, stats, means, dz, total4, h, w, c);
+  return cudaGetLastError();
+}
+
+// 11: blocks [0, fold_blocks) write dx = g + fold(dpad1), the next
+// sum_blocks dW1 = the sum of part1's splits, the last dW2 = part2's
+__global__ void finish16_kernel(const bf16* __restrict__ g, const float* __restrict__ dpad,
+                                bf16* __restrict__ dx, const float4* __restrict__ part1,
+                                bf16* __restrict__ dw1, const float4* __restrict__ part2,
+                                bf16* __restrict__ dw2, long long total4_x, long long total4_w,
+                                int splits, int fold_blocks, int sum_blocks, int h, int w,
+                                int c) {
+  const int blk = blockIdx.x;
+  if (blk < fold_blocks) {
+    const long long i = (long long)blk * blockDim.x + threadIdx.x;
+    if (i >= total4_x) return;
+    const long long e = i * 4;
+    const int p = (int)(e / c);
+    const int ch = (int)(e - (long long)p * c);
+    tc::store4(dx + e, add(load<float4>(g + e), grad_at<1, float4>(dpad, p, ch, h, w, c)));
+    return;
+  }
+  const int second = blk >= fold_blocks + sum_blocks;
+  const long long i =
+      (long long)(blk - fold_blocks - second * sum_blocks) * blockDim.x + threadIdx.x;
+  if (i < total4_w) split_sum(second ? part2 : part1, second ? dw2 : dw1, i, total4_w, splits);
 }
 
 }  // namespace
@@ -724,35 +928,51 @@ extern "C" int nemar_resblock_bwd(const float* x, const float* y1, const float* 
   return (int)cudaGetLastError();
 }
 
-// The bf16 variant: x, y1hat, h1, g, w1, w2, dz, dw1, dw2, dx bf16; y2,
-// stats, dpad, part_in, means, part_w fp32. The weight gradients' K slices
-// are 64 pixels; otherwise the launches of the fp32 backward, without W's
-// split (the dgrads read the bf16 W as it lies).
+// The bf16 variant: x, y1hat, h1, g, w1, w2, pads (2, N, H + 2, W + 2, C: x's
+// and h1's reflect-padded copies, written where a K slice's pixels are
+// image rows: slice_boxes), dz, dw1, dw2, dx bf16; y2, stats, dpad,
+// part_in, means, part_w (2, SPLITS, 9C, C: dW1's, then dW2's partials)
+// fp32. The weight gradients' K slices are 64 pixels; the dgrads read the
+// bf16 W as it lies (no split).
 extern "C" int nemar_resblock_bwd_bf16(const bf16* x, const bf16* y1hat, const bf16* h1,
                                        const float* y2, const float* stats, const bf16* g,
-                                       const bf16* w1, const bf16* w2, bf16* dz, float* dpad,
-                                       float* part_in, float* means, float* part_w, bf16* dw1,
-                                       bf16* dw2, bf16* dx, int n, int h, int w, int c,
+                                       const bf16* w1, const bf16* w2, bf16* pads, bf16* dz,
+                                       float* dpad, float* part_in, float* means, float* part_w,
+                                       bf16* dw1, bf16* dw2, bf16* dx, int n, int h, int w, int c,
                                        int splits, cudaStream_t stream) {
   cudaError_t err;
   const long long total4_w = (long long)9 * c * c / 4;
-  const unsigned sum_blocks = (unsigned)((total4_w + 255) / 256);
-  // stage 2: through IN2 and conv2 -> dW2, dpad2
-  if ((err = in_bwd<2, bf16>(g, y2, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
-  if ((err = wgrad16(h1, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
-  split_sum_kernel<<<sum_blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part_w), dw2,
-                                                     total4_w, splits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int sum_blocks = (int)((total4_w + 255) / 256);
+  float* part_w2 = part_w + (size_t)splits * 9 * c * c;
+  const bool box = slice_boxes(w);
+  const long long chunks = (long long)n * (h + 2) * (w + 2) * c / 8;
+  const bf16* xpad = box ? pads : nullptr;
+  const bf16* hpad = box ? pads + chunks * 8 : nullptr;
+  if (box) {
+    pad16_kernel<<<(unsigned)((2 * chunks + 255) / 256), 256, 0, stream>>>(x, h1, pads, chunks, h,
+                                                                           w, c);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // stage 2: through IN2 and conv2 -> dW2's partials, dpad2
+  if ((err = in_bwd16<2>(g, y2, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess)
+    return (int)err;
+  if ((err = wgrad16(h1, hpad, dz, part_w2, n, h, w, c, splits, stream)) != cudaSuccess)
+    return (int)err;
   if ((err = dgrad16(dz, w2, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
-  // stage 1: through the fold, relu, IN1 and conv1 -> dW1, dx = g + fold(dpad1)
-  if ((err = in_bwd<1, bf16>(dpad, y1hat, stats, part_in, means, dz, n, h, w, c, stream)) != cudaSuccess) return (int)err;
-  if ((err = wgrad16(x, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess) return (int)err;
+  // stage 1: through the fold, relu, IN1 and conv1 -> dW1's partials, dpad1
+  if ((err = in_bwd16<1>(dpad, y1hat, stats, part_in, means, dz, n, h, w, c, stream)) !=
+      cudaSuccess)
+    return (int)err;
+  if ((err = wgrad16(x, xpad, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
+    return (int)err;
   if ((err = dgrad16(dz, w1, dpad, n, h, w, c, stream)) != cudaSuccess) return (int)err;
+  // dx = g + fold(dpad1); dW1, dW2 the sums of their partials
   const long long total4_x = (long long)n * h * w * c / 4;
   const int fold_blocks = (int)((total4_x + 255) / 256);
-  finish_kernel<<<(unsigned)fold_blocks + sum_blocks, 256, 0, stream>>>(
-      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1, total4_x, total4_w, splits,
-      fold_blocks, h, w, c);
+  finish16_kernel<<<(unsigned)(fold_blocks + 2 * sum_blocks), 256, 0, stream>>>(
+      g, dpad, dx, reinterpret_cast<const float4*>(part_w), dw1,
+      reinterpret_cast<const float4*>(part_w2), dw2, total4_x, total4_w, splits, fold_blocks,
+      sum_blocks, h, w, c);
   return (int)cudaGetLastError();
 }
 
@@ -910,7 +1130,7 @@ extern "C" int nemar_resblock_band_bwd_dz2_bf16(const float* parts, float* means
     return (int)err;
   if ((err = band_apply<2>(g, y2, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
     return (int)err;
-  if ((err = wgrad16<true>(h1p, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
+  if ((err = wgrad16<true>(h1p, nullptr, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
     return (int)err;
   const long long total4_w = (long long)9 * c * c / 4;
   split_sum_kernel<<<(unsigned)((total4_w + 255) / 256), 256, 0, stream>>>(
@@ -932,7 +1152,7 @@ extern "C" int nemar_resblock_band_bwd_dz1_bf16(const float* parts, float* means
     return (int)err;
   if ((err = band_apply<1>(dpad, y1hat, stats, means, dz, n, h, w, c, stream)) != cudaSuccess)
     return (int)err;
-  if ((err = wgrad16<true>(xp, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
+  if ((err = wgrad16<true>(xp, nullptr, dz, part_w, n, h, w, c, splits, stream)) != cudaSuccess)
     return (int)err;
   return (int)dgrad16(dz, w1, dpad, n, h, w, c, stream);
 }

@@ -29,8 +29,10 @@ gradient is dropped.
 Under ``--bf16`` x, w1 and w2 are bfloat16, as the JAX kernels take them
 (``nemar_tpu/ops/conv_fused.py:_fwd_kernel``, ``_bwd2_kernel_kstack``,
 ``_bwd1_kernel_kstack``), and every sum is fp32. The bf16 variants of
-K-block and K-block-bwd (one bf16 MMA a product on the shared wgmma core,
-``csrc/gemm_tc.cuh``) and the plain versions at bf16 round where the JAX
+K-block and K-block-bwd (one bf16 MMA a product on the bf16 core,
+``csrc/gemm_tc.cuh``: warp-specialised, persistent, an mbarrier ring fed
+by TMA boxes of reflect-padded copies of their sources, one slice's MMAs in
+flight) and the plain versions at bf16 round where the JAX
 kernels round: forward, y1hat and h1 = relu(y1hat) (conv2's operand) and
 out to bf16, the statistics fp32; backward, dz2, dh1 = fold(dpad2), dz1 and
 dx to bf16 and dw1, dw2 to the weights' type. The plain versions upcast the
@@ -251,10 +253,13 @@ def fused_resblock_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     part = torch.empty((n * -(-h * w // 128), 2, c), **f32)
     stats = torch.empty((n, 4, c), **f32)
     if x.dtype == torch.bfloat16:
-        # W1^T, W2^T per tap (tap, C_out, C_in)
+        # W1^T, W2^T per tap (tap, C_out, C_in); x's and h1's reflect-padded
+        # copies, the convolutions' TMA sources
         wt = torch.empty((2, 9, c, c), dtype=torch.bfloat16, device=x.device)
+        pads = torch.empty((2, n, h + 2, w + 2, c), dtype=torch.bfloat16, device=x.device)
         y1hat, h1 = torch.empty_like(x), torch.empty_like(x)
-        _build.op("resblock_fwd_bf16")(x, w1, w2, wt, y1, y1hat, h1, y2, part, stats, out, eps)
+        _build.op("resblock_fwd_bf16")(x, w1, w2, wt, pads, y1, y1hat, h1, y2, part, stats, out,
+                                       eps)
         fused_resblock_cuda.launches_bf16 += 1
         return out, y1hat, h1, y2, stats
     # W1^T, W2^T per tap, split into TF32 big and small parts
@@ -305,16 +310,20 @@ def resblock_bwd_cuda(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *save
     dx = torch.empty_like(x)
     part_in = torch.empty((n * -(-h * w // _BM), 2, c), **f32)
     means = torch.empty((n, 2, c), **f32)
-    part_w = torch.empty((splits, 9 * c, c), **f32)
     dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
     _aligned("resblock_bwd_cuda", x, *saved, g, w1, w2)
     if bf:
-        _build.op("resblock_bwd_bf16")(x, *saved, g, w1, w2, dz, dpad, part_in, means, part_w,
-                                       dw1, dw2, dx, splits)
+        # x's and h1's reflect-padded copies, the weight gradients' TMA
+        # sources; dW1's and dW2's partials, summed in one last launch
+        pads = torch.empty((2, n, h + 2, w + 2, c), dtype=torch.bfloat16, device=x.device)
+        part_w = torch.empty((2, splits, 9 * c, c), **f32)
+        _build.op("resblock_bwd_bf16")(x, *saved, g, w1, w2, pads, dz, dpad, part_in, means,
+                                       part_w, dw1, dw2, dx, splits)
         resblock_bwd_cuda.launches_bf16 += 1
     else:
         # W1, W2 split into TF32 big and small parts for the dgrads
         wsplit = torch.empty((4, 9 * c, c), **f32)
+        part_w = torch.empty((splits, 9 * c, c), **f32)
         _build.op("resblock_bwd")(x, *saved, g, w1, w2, wsplit, dz, dpad, part_in, means,
                                   part_w, dw1, dw2, dx, splits)
         resblock_bwd_cuda.launches += 1

@@ -24,6 +24,12 @@ fresh processes on one card (parent, change, change, parent, ...).
   8 x 64 x 64 x 256 (the backward fed the plain forward's saved values): the
   median CUDA-event time of 20 calls, and the device time by kernel (12
   launches a call for the backward);
+- ``block_bf16``: the bf16 variants on bf16 inputs (x N(0, 1), W N(0,
+  0.02^2)): one K-block-bf16 call at 1 and 8 x 64 x 64 x 256, one
+  K-block-bwd-bf16 call at 8 x 64 x 64 x 256 (fed the plain forward's saved
+  values), and one K-convt-bf16 and K-convt-bwd-bf16 call at each decoder
+  stage at batch 1 and 8: the median CUDA-event time of 20 calls and the
+  device time by kernel (the same launches in every traced call);
 - ``convt``: one K-convt and one K-convt-bwd call at each decoder stage at
   batch 1 and 8 (``chip_smoke.CONVT_SHAPES``; the backward fed the plain
   forward's saved values): the median CUDA-event time of 20 calls, and the
@@ -334,8 +340,8 @@ def a5_split(chip_smoke, torch) -> dict:
     return out
 
 
-PARTS = ("warp_bwd", "block", "convt", "head", "in", "request", "train_step_b1", "train_step",
-         "train_step_bf16", "step_params", "science_bf16",
+PARTS = ("warp_bwd", "block", "block_bf16", "convt", "head", "in", "request", "train_step_b1",
+         "train_step", "train_step_bf16", "step_params", "science_bf16",
          "fit_512", "a5_split", "sass")
 
 
@@ -428,6 +434,34 @@ def main() -> int:
         out["block"] = {"shape": [n, 64, 64, 256], "event_ms": block_fwd_ms}
         out["block_bwd"] = {"shape": [n, 64, 64, 256], "event_ms": event_ms,
                             "device_ms": block_ms, "by_kernel": block_by}
+
+    if "block_bf16" in parts:
+        bf, timed = torch.bfloat16, {}
+
+        def record(name, fn):
+            dms, by = chip_smoke.device_ms(fn, None, 10)
+            timed[name] = {"event_ms": chip_smoke.median_ms(fn), "device_ms": dms, "by_kernel": by}
+
+        w1, w2 = (chip_smoke.randn(rng, (3, 3, 256, 256), 0.02, dev).to(bf) for _ in range(2))
+        for b in (1, n):
+            x = chip_smoke.randn(rng, (b, 64, 64, 256), 1.0, dev).to(bf)
+            record(f"K-block-bf16 {b}x64x64x256",
+                   lambda: conv_fused.fused_resblock_cuda(x, w1, w2))
+        gb = chip_smoke.randn(rng, x.shape, 1.0, dev).to(bf)
+        saved = conv_fused.resblock_fwd_plain(x, w1, w2)[1:]
+        record(f"K-block-bwd-bf16 {n}x64x64x256",
+               lambda: conv_fused.resblock_bwd_cuda(x, w1, w2, *saved, gb))
+        for (h, w, ci, co, _), b in ((shape, b) for shape in chip_smoke.CONVT_SHAPES
+                                     for b in (1, n)):
+            xc = chip_smoke.randn(rng, (b, h, w, ci), 1.0, dev).to(bf)
+            wk = chip_smoke.randn(rng, (3, 3, ci, co), 0.02, dev).to(bf)
+            gc = chip_smoke.randn(rng, (b, 2 * h, 2 * w, co), 1.0, dev).to(bf)
+            saved_c = convt_fused.convt_in_fwd_plain(xc, wk)[1:]
+            record(f"K-convt-bf16 {b}x{h}x{w}x{ci}->{co}",
+                   lambda: convt_fused.fused_convt_in_cuda(xc, wk))
+            record(f"K-convt-bwd-bf16 {b}x{h}x{w}x{ci}->{co}",
+                   lambda: convt_fused.convt_in_bwd_cuda(xc, wk, *saved_c, gc))
+        out["block_bf16"] = timed
 
     if "convt" in parts:
         convt = {}
