@@ -3137,9 +3137,10 @@ def check_bf16_kernels(dev) -> dict:
     10's microbatch of 4); K-block and
     K-convt at phase 2's b1 shapes also against float64 (``vs_fp64_bf16``)
     and timed (``timed_bf16``), with cuDNN's bf16 convolutions of the same
-    shapes as a yardstick (F.instance_norm at bf16 for K-in); K-block also
-    timed at the b8 step's shape. The totals are those of one b1 request
-    (K-block's b8 call beside them)."""
+    shapes as a yardstick (F.instance_norm at bf16 for K-in); K-block and
+    K-convt also timed at the b8 step's shapes. The totals are those of one
+    b1 request (K-block's b8 call, and K-convt's two b8 calls at each
+    decoder stage, a b8 step's forward, beside them: ``b8_*``)."""
     from nemar_tpu_torch.ops import conv_fused, convt_fused, norm, norm_cuda
 
     rng = np.random.default_rng(20)
@@ -3177,6 +3178,8 @@ def check_bf16_kernels(dev) -> dict:
         del got, again, ref
 
     tally, yard = Tally(), 0.0
+    b8 = {"b8_device_ms": 0.0, "b8_bound_ms": 0.0, "b8_yardstick_cudnn_bf16_ms": 0.0}
+    b8_stages = {}
     for n, h, w, ci, co in BF16_CONVT:
         x = randn(rng, (n, h, w, ci), 1.0, dev).to(bf)
         wk = randn(rng, (3, 3, ci, co), 0.02, dev).to(bf)
@@ -3187,21 +3190,32 @@ def check_bf16_kernels(dev) -> dict:
         got, again = kern(), kern()
         ref = convt_fused.convt_in_fwd_plain(x, wk)
         extra = {}
+        # timed at the b1 request's shapes and at the b8 step's
+        timed = n in (1, TRAIN_BATCH) and (h, w, ci, co) in [s[:4] for s in CONVT_SHAPES]
         if n == 1:
             extra = vs_fp64_bf16("K-convt-bf16", got, ref,
                                  convt_fused.convt_in_fwd_plain(x, wk, work=torch.float64))
-            t = timed_bf16(kern, lambda: convt_fused.convt_in_fwd_plain(x, wk), 4,
+        if timed:
+            t = timed_bf16(kern, lambda: convt_fused.convt_in_fwd_plain(x, wk), 3,
                            2 * n * h * w * 9 * ci * co, (x, wk, *got))
             cudnn = cudnn_bf16_convs(x, [wk], transposed=True)[0]
             extra.update({k: v for k, v in t.items() if k != "bound"},
                          yardstick_cudnn_bf16_ms=cudnn)
         err = hold_bf16("K-convt-bf16", f"{n}x{h}x{w}x{ci}->{co}", got, again, ref, **extra)
-        if n == 1:
+        if timed and n == 1:
             tally.add(2, err, t["ms"], t["plain_ms"], t["bound"])
             tally.device_ms += 2 * t["device_ms"]
             yard += 2 * cudnn
+        elif timed:
+            # a b8 step's forward: two calls at each stage
+            b8["b8_device_ms"] += 2 * t["device_ms"]
+            b8["b8_bound_ms"] += 2 * t["bound_ms"]
+            b8["b8_yardstick_cudnn_bf16_ms"] += 2 * cudnn
+            b8_stages[f"{n}x{h}x{w}x{ci}->{co}"] = {"device_ms": t["device_ms"],
+                                                    "bound_ms": t["bound_ms"]}
     results["K-convt-bf16"] = dict(tally.result(), device_ms=tally.device_ms,
-                                   yardstick_cudnn_bf16_ms=yard)
+                                   yardstick_cudnn_bf16_ms=yard, **b8,
+                                   b8_by_stage=json.dumps(b8_stages))
 
     tally, step_ms, yard = Tally(), 0.0, 0.0
     cases = ([(1, c, h, w, act, calls, "b1 request") for c, h, w, act, calls in IN_SHAPES]
@@ -3277,7 +3291,7 @@ def check_bf16_bwd_kernels(dev) -> dict:
                                                yardstick_cudnn_bf16_ms=12 * yard)
         del got, again, ref, saved
 
-    tally, yard = Tally(), 0.0
+    tally, yard, by_stage = Tally(), 0.0, {}
     for n, h, w, ci, co in BF16_CONVT:
         if n == 1:
             continue
@@ -3307,8 +3321,11 @@ def check_bf16_bwd_kernels(dev) -> dict:
             tally.add(2, err, t["ms"], t["plain_ms"], t["bound"])
             tally.device_ms += 2 * t["device_ms"]
             yard += 2 * cudnn
+            by_stage[f"{n}x{h}x{w}x{ci}->{co}"] = {"device_ms": t["device_ms"],
+                                                   "bound_ms": t["bound_ms"]}
     results["K-convt-bwd-bf16"] = dict(tally.result(), device_ms=tally.device_ms,
-                                       yardstick_cudnn_bf16_ms=yard)
+                                       yardstick_cudnn_bf16_ms=yard,
+                                       b8_by_stage=json.dumps(by_stage))
 
     tally, yard = Tally(), 0.0
     # a b8 step; phase 10's microbatch of 4, drawn on the card

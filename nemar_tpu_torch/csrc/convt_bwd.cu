@@ -50,11 +50,19 @@
 // g in bf16 and runs both GEMMs on the bf16 core (gemm_tc.cuh: one bf16 MMA
 // a product, fp32 accumulators; the wgrad's pixel-major operands read by
 // wgmma as they lie, K slices of 64 pixels; x, W and dz's parity planes as
-// TMA boxes where a tile's pixels are image rows): the same six launches, W's
-// split left out (the dgrad reads the bf16 W as it lies), dz, dW (the
-// split sum) and dx rounded to bf16, the sums and partials fp32. It takes
-// Ci % 8 == 0, Co % 8 == 0, pix_per_split % 64 == 0. Bound: 2 x 2.42
-// GFLOP per image and stage at 989 TFLOP/s = 4.9 us.
+// TMA boxes where a tile's pixels are image rows). Its instance-norm
+// backward is bound by bytes (g and yhat read twice, dz written: 335 MB at
+// 8 x 256^2 x 64) and runs at the card's bandwidth in three launches of
+// its own: the partial sums with 16-byte loads, a block per tile of
+// 256-2048 output pixels, the lanes of a block on neighbouring pixels
+// (convt_partial16_kernel); the means, 8 channels a block
+// (convt_means16_kernel); dz with 16-byte loads and stores
+// (convt_dz16_kernel). Six launches: those three, the wgrad (at Co <= 64
+// and long splits folded: ConvtWgradOp16), the split sum (split_sum16_kernel, dW rounded
+// to bf16) and the dgrad (dx bf16, 16-byte stores; W read as it lies, no
+// split); the sums and partials fp32. It takes Ci % 8 == 0, Co % 8 == 0,
+// Co <= 2048, pix_per_split % 64 == 0. Bound: 2 x 2.42 GFLOP per image and
+// stage at 989 TFLOP/s = 4.9 us.
 #include <cuda_runtime.h>
 
 #include "gemm_tc.cuh"
@@ -181,6 +189,158 @@ __global__ void in_bwd_apply_kernel(const T* __restrict__ g, const T* __restrict
   tc::store4(dz + e, make_float4(o[0], o[1], o[2], o[3]));
 }
 
+// The bf16 variant's instance-norm backward at the card's bandwidth, in two
+// launches. 1: a block per (sample, tile of tile_px output pixels), each
+// thread 16 bytes (8 channels) of a pixel a load, the block's lanes (256 /
+// (C / 8) pixels side by side) walking the tile's pixels, four loads
+// ahead; a thread's sums over its pixels in order, then the lanes' in lane
+// order through shared memory. C <= 2048.
+constexpr int P16_THREADS = 256;
+
+// gh = g (yhat > 0), s1 += gh, s2 += gh yhat over the 8 channels of a load
+__device__ __forceinline__ void in_bwd_sums8(uint4 gq, uint4 yq, float (&s1)[8],
+                                             float (&s2)[8]) {
+  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gq);
+  const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yq);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float2 gv = __bfloat1622float2(g2[k]), yv = __bfloat1622float2(y2[k]);
+    const float a = yv.x > 0.f ? gv.x : 0.f, b = yv.y > 0.f ? gv.y : 0.f;
+    s1[2 * k] += a;
+    s2[2 * k] = fmaf(a, yv.x, s2[2 * k]);
+    s1[2 * k + 1] += b;
+    s2[2 * k + 1] = fmaf(b, yv.y, s2[2 * k + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(P16_THREADS)
+convt_partial16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ yh,
+                        float* __restrict__ part, int pixels, int c, int ptiles, int tile_px) {
+  __shared__ float red[2][P16_THREADS * 8];
+  const int cpp = c / 8, lanes = P16_THREADS / cpp;
+  const int chunk = threadIdx.x % cpp, lane = threadIdx.x / cpp;
+  const int b = blockIdx.x / ptiles, t = blockIdx.x - b * ptiles;
+  const int p0 = t * tile_px, cnt = min(tile_px, pixels - p0);
+  float s1[8], s2[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) s1[k] = s2[k] = 0.f;
+  if (lane < lanes) {
+    const uint4* gp = reinterpret_cast<const uint4*>(g + ((size_t)b * pixels + p0) * c) + chunk;
+    const uint4* yp = reinterpret_cast<const uint4*>(yh + ((size_t)b * pixels + p0) * c) + chunk;
+    int q = lane;
+    for (; q + 3 * lanes < cnt; q += 4 * lanes) {
+      uint4 gq[4], yq[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        gq[k] = gp[(size_t)(q + k * lanes) * cpp];
+        yq[k] = yp[(size_t)(q + k * lanes) * cpp];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) in_bwd_sums8(gq[k], yq[k], s1, s2);
+    }
+    for (; q < cnt; q += lanes) in_bwd_sums8(gp[(size_t)q * cpp], yp[(size_t)q * cpp], s1, s2);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      red[0][lane * c + 8 * chunk + k] = s1[k];
+      red[1][lane * c + 8 * chunk + k] = s2[k];
+    }
+  }
+  __syncthreads();
+  for (int ch = threadIdx.x; ch < c; ch += P16_THREADS) {
+    float a1 = 0.f, a2 = 0.f;
+    for (int l = 0; l < lanes; ++l) {
+      a1 += red[0][l * c + ch];
+      a2 += red[1][l * c + ch];
+    }
+    float* p = part + (size_t)blockIdx.x * 2 * c + ch;
+    p[0] = a1;
+    p[c] = a2;
+  }
+}
+
+// 2: the means (N, 2, C) = (mean(gh), mean(gh yhat)) from a sample's ptiles
+// partials in fp64: a block per (sample, 8 channels), 128 groups of 8
+// threads, group k the partials k, k + 128, ..., the groups added by a
+// fixed pairwise tree (tc::group_sum). (Merged into each block of the dz
+// launch, the 256-2048 partials a sample cost every block more than this
+// launch costs.)
+constexpr int MG16_CH = 8, MG16_GROUPS = 128;
+
+__global__ void __launch_bounds__(MG16_CH * MG16_GROUPS)
+convt_means16_kernel(const float* __restrict__ part, float* __restrict__ means, int c,
+                      int ptiles, int pixels) {
+  __shared__ double red[MG16_GROUPS][MG16_CH];
+  const int lane = threadIdx.x % MG16_CH, grp = threadIdx.x / MG16_CH;
+  const int b = blockIdx.y, ch = blockIdx.x * MG16_CH + lane;
+  const bool live = ch < c;
+  const float* p = part + (size_t)b * ptiles * 2 * c + ch;
+  double s1 = 0.0, s2 = 0.0;
+#pragma unroll 4
+  for (int e = grp; live && e < ptiles; e += MG16_GROUPS) {
+    s1 += (double)p[(size_t)e * 2 * c];
+    s2 += (double)p[(size_t)e * 2 * c + c];
+  }
+  const double m1 = tc::group_sum(red, s1, grp, lane), m2 = tc::group_sum(red, s2, grp, lane);
+  if (grp == 0 && live) {
+    means[(size_t)b * 2 * c + ch] = (float)(m1 / pixels);
+    means[(size_t)b * 2 * c + c + ch] = (float)(m2 / pixels);
+  }
+}
+
+// 3: dz = rstd (gh - m1 - yhat m2) over a range of a sample's pixels, 16
+// bytes a load and a store, the sample's (m1, m2, rstd) staged in shared
+// memory; a block per (range, sample).
+constexpr int DZ_THREADS = 256;
+
+__global__ void __launch_bounds__(DZ_THREADS)
+convt_dz16_kernel(const bf16* __restrict__ g, const bf16* __restrict__ yh,
+                   const float* __restrict__ stats, const float* __restrict__ means,
+                   bf16* __restrict__ dz, int pixels, int c) {
+  extern __shared__ float mrs[];  // m1 [c], m2 [c], rstd [c]
+  const int b = blockIdx.y;
+  for (int ch = threadIdx.x; ch < c; ch += DZ_THREADS) {
+    mrs[ch] = means[(size_t)b * 2 * c + ch];
+    mrs[c + ch] = means[(size_t)b * 2 * c + c + ch];
+    mrs[2 * c + ch] = stats[(size_t)b * 2 * c + c + ch];
+  }
+  __syncthreads();
+  const int cpp = c / 8;
+  const int q0 = (int)((long long)pixels * blockIdx.x / gridDim.x);
+  const int q1 = (int)((long long)pixels * (blockIdx.x + 1) / gridDim.x);
+  const int total = (q1 - q0) * cpp;
+  const size_t base = ((size_t)b * pixels + q0) * cpp;
+  const uint4* gp = reinterpret_cast<const uint4*>(g) + base;
+  const uint4* yp = reinterpret_cast<const uint4*>(yh) + base;
+  uint4* dp = reinterpret_cast<uint4*>(dz) + base;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < total; i += DZ_THREADS) {
+    const int c8 = (i % cpp) * 8;
+    const uint4 gq = gp[i], yq = yp[i];
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gq);
+    const __nv_bfloat162* y2 = reinterpret_cast<const __nv_bfloat162*>(&yq);
+    uint4 o;
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 gv = __bfloat1622float2(g2[k]), yv = __bfloat1622float2(y2[k]);
+      const int ch = c8 + 2 * k;
+      const float a = yv.x > 0.f ? gv.x : 0.f, bb = yv.y > 0.f ? gv.y : 0.f;
+      o2[k] = __floats2bfloat162_rn(mrs[2 * c + ch] * (a - mrs[ch] - yv.x * mrs[c + ch]),
+                                    mrs[2 * c + ch + 1] *
+                                        (bb - mrs[ch + 1] - yv.y * mrs[c + ch + 1]));
+    }
+    dp[i] = o;
+  }
+}
+
+// the tile of convt_partial16_kernel: the largest of 2048 .. 256 pixels
+// that still gives two blocks an SM
+int partial16_tile(int n, int pixels, int sms) {
+  int tile = 2048;
+  while (tile > 256 && (long long)n * ((pixels + tile - 1) / tile) < 2LL * sms) tile /= 2;
+  return tile;
+}
+
 // ---------------------------------------------------------------------------
 // 4. dW partials: part[s][tap*Ci + ci][co] = sum over the pixels p of split
 // s of x[b, i + dy, j + dx, ci] * dz[b, 2i + py, 2j + px, co]
@@ -248,10 +408,9 @@ struct ConvtWgradOp {
   }
 };
 
-// 5. out = sum over the splits of part, in split order, float4-wide;
-// stored as T (rounded to bf16 in the bf16 variant)
-template <class T>
-__global__ void split_sum_kernel(const float4* __restrict__ part, T* __restrict__ out,
+// 5. out = sum over the splits of part, in split order, float4-wide (fp32
+// dW)
+__global__ void split_sum_kernel(const float4* __restrict__ part, float* __restrict__ out,
                                  long long total4, int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total4) return;
@@ -259,6 +418,28 @@ __global__ void split_sum_kernel(const float4* __restrict__ part, T* __restrict_
   for (int k = 1; k < splits; ++k) {
     const float4 v = part[(size_t)k * total4 + i];
     s = make_float4(s.x + v.x, s.y + v.y, s.z + v.z, s.w + v.w);
+  }
+  tc::store4(out + 4 * i, s);
+}
+
+// 5 (the bf16 variant, whole frame and band form): split_sum_kernel's sums
+// in its order, the partials' loads issued eight splits ahead of the adds
+// (one dependent load a split left it waiting on memory), dW rounded to bf16
+constexpr int SPLIT_DEPTH = 8;
+
+__global__ void split_sum16_kernel(const float4* __restrict__ part, bf16* __restrict__ out,
+                                   long long total4, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total4) return;
+  float4 s = part[i];
+  for (int k0 = 1; k0 < splits; k0 += SPLIT_DEPTH) {
+    float4 v[SPLIT_DEPTH];
+#pragma unroll
+    for (int k = 0; k < SPLIT_DEPTH; ++k)
+      if (k0 + k < splits) v[k] = part[(size_t)(k0 + k) * total4 + i];
+#pragma unroll
+    for (int k = 0; k < SPLIT_DEPTH; ++k)
+      if (k0 + k < splits) s = make_float4(s.x + v[k].x, s.y + v[k].y, s.z + v[k].z, s.w + v[k].w);
   }
   tc::store4(out + 4 * i, s);
 }
@@ -389,25 +570,33 @@ cudaError_t parity_map(CUtensorMap* map, const bf16* dz, int n, int h, int w, in
 // out-of-bounds fill) and, outside the band form and at Co a multiple of
 // 64, B is TMA boxes of dz's parity plane (tma_b: dz as (N, H, 2, W,
 // 2 Co), the plane's parities fixed coordinates); else the producer's
-// cp.async copies, masked in the index.
-template <int kTN, bool kBand = false>
+// cp.async copies, masked in the index. kFold (Co <= 64, kTN 128): a tile
+// is a row tap ky and a column offset dx (0, then -1) against both column
+// parities of the row parity (2 Co channels side by side in that view):
+// the taps (ky, 2) | (ky, 1) share A at dx = 0, and (ky, 0) takes the
+// first Co columns at dx = -1 (the rest, no tap's, are not written), so A
+// is read 6 times where 9 tiles read it, for a third more MMAs: faster on
+// long splits (batch 8), slower on short ones (batch 1).
+template <int kTN, bool kBand = false, bool kFold = false>
 struct ConvtWgradOp16 : tc::Bf16Loads {
   static constexpr bool kMN = true;
   static constexpr bool kTileStats = false;
   static constexpr int kTileN = kTN;
+  static_assert(!kFold || (kTN == 128 && !kBand), "a folded tile: both parities, one frame");
   const bf16* x;
   const bf16* dz;
   float* part;
   int h, w, ci, co, total, pix_per_split, mtiles;
-  int tap, ci0, n0, py, px, dy, dx, p0, nkt, split;
+  int tap, ci0, n0, ky, py, px, dy, dx, p0, nkt, split;
 
   __device__ void setup(int, uint3 blk) {
-    tap = blk.x / mtiles;
+    tap = blk.x / mtiles;  // (ky, kx), or folded (ky, dx)
     ci0 = (blk.x - tap * mtiles) * BM;
     n0 = blk.y * kTN;
-    const int ky = tap / 3, kx = tap - 3 * ky;
+    ky = kFold ? tap / 2 : tap / 3;
+    const int kx = kFold ? (tap % 2 == 1 ? 0 : 2) : tap - 3 * ky;
     py = ky == 1;
-    px = kx == 1;
+    px = kFold ? 0 : kx == 1;
     dy = ky == 0 ? -1 : 0;
     dx = kx == 0 ? -1 : 0;
     split = blk.z;
@@ -437,12 +626,14 @@ struct ConvtWgradOp16 : tc::Bf16Loads {
       }
     }
     if (tma_b) return;
+    // kFold: the row's 2 Co channels from px = 0's pixel on, both parities
+    const int cols = kFold ? 2 * co : co;
 #pragma unroll
     for (int i = 0; i < kTN * 8 / tc::PTHREADS; ++i) {
       const int q = ptid + tc::PTHREADS * i, k = q / (kTN / 8), cc = q % (kTN / 8), ch = 8 * cc;
       int xs, zs;
       pixels(pk + k, xs, zs);
-      const bool vb = n0 + ch < co && zs >= 0;
+      const bool vb = n0 + ch < cols && zs >= 0;
       tc::cp_async16b(Bs + tc::mn16(k, cc), vb ? dz + (size_t)zs * co + n0 + ch : dz, vb);
     }
   }
@@ -464,9 +655,16 @@ struct ConvtWgradOp16 : tc::Bf16Loads {
     }
   }
   __device__ void write(int r, int cl, float2 val) const {
-    if (ci0 + r >= ci || n0 + cl >= co) return;
-    tc::store2(part + ((size_t)split * 9 * ci + (size_t)tap * ci + ci0 + r) * co + n0 + cl,
-               val);
+    int t = tap, c = n0 + cl;
+    if constexpr (kFold) {
+      // column (px, c): tap (ky, 2) | (ky, 1) at dx = 0, (ky, 0) | none at dx = -1
+      const int pxn = c >= co;
+      if (pxn && dx) return;
+      c -= pxn * co;
+      t = ky * 3 + (dx ? 0 : 2 - pxn);
+    }
+    if (ci0 + r >= ci || c >= co) return;
+    tc::store2(part + ((size_t)split * 9 * ci + (size_t)t * ci + ci0 + r) * co + c, val);
   }
 };
 
@@ -480,6 +678,7 @@ template <int kTN, bool kBand = false>
 struct ConvtDgradOp16 : tc::Bf16Loads {
   static constexpr bool kMN = false;
   static constexpr bool kTileStats = false;
+  static constexpr bool kTileEpilogue = true;
   static constexpr int kTileN = kTN;
   const bf16* dz;
   const bf16* w;
@@ -532,16 +731,21 @@ struct ConvtDgradOp16 : tc::Bf16Loads {
     }
     tc::tma_load(Bs, &maps.b, bar, c, n0, tap);
   }
-  __device__ void write(int r, int col, float2 val) const {
-    const int p = m0 + r;
-    if (p < total && n0 + col < ci) tc::store2(dx + (size_t)p * ci + n0 + col, val);
+  // dx 16 bytes a lane (tc::store_bf16_rows): whole 32-byte sectors a warp
+  __device__ void tile_epilogue(const float (&acc)[kTN / 2], int row0, int g, int t) const {
+    const int p0 = m0 + row0 + g, p1 = p0 + 8;
+    tc::store_bf16_rows<kTN>(acc, t, p0 < total ? dx + (size_t)p0 * ci + n0 : nullptr,
+                             p1 < total ? dx + (size_t)p1 * ci + n0 : nullptr, ci - n0);
   }
 };
 
-template <int kTN, bool kBand = false>
+// the pixels a split from which the wgrad folds (16 K slices)
+constexpr int WGRAD_FOLD_PIXELS = 16 * tc::BK16;
+
+template <int kTN, bool kBand = false, bool kFold = false>
 cudaError_t wgrad16(const bf16* x, const bf16* dz, float* part, int h, int w, int ci, int co,
                     int total, int splits, int pix_per_split, cudaStream_t stream) {
-  ConvtWgradOp16<kTN, kBand> op;
+  ConvtWgradOp16<kTN, kBand, kFold> op;
   op.x = x;
   op.dz = dz;
   op.part = part;
@@ -566,9 +770,10 @@ cudaError_t wgrad16(const bf16* x, const bf16* dz, float* part, int h, int w, in
     err = parity_map(&maps.b, dz, total / hw, h, w, co, bw, tc::BK16 / bw);
   }
   if (err != cudaSuccess) return err;
-  return tc::launch_bf16(
-      op, dim3((unsigned)(9 * op.mtiles), (unsigned)((co + kTN - 1) / kTN), (unsigned)splits),
-      stream, maps);
+  const int taps = kFold ? 6 : 9, cols = kFold ? 2 * co : co;
+  return tc::launch_bf16(op, dim3((unsigned)(taps * op.mtiles), (unsigned)((cols + kTN - 1) / kTN),
+                                  (unsigned)splits),
+                         stream, maps);
 }
 
 template <int kTN, bool kBand = false>
@@ -643,39 +848,49 @@ extern "C" int nemar_convt_in_bwd(const float* x, const float* w, const float* y
   return (int)err;
 }
 
-// The bf16 variant: x, w, yhat, g, dz, dw, dx bf16; stats, part_in, means,
-// part_w fp32. pix_per_split % 64 == 0; Ci, Co multiples of 8.
+// The bf16 variant: x, w, yhat, g, dz, dw, dx bf16; stats, part_in (at
+// least N ceil(4 H W / 256) partials), means, part_w fp32.
+// pix_per_split % 64 == 0; Ci, Co multiples of 8, Co <= 2048.
 extern "C" int nemar_convt_in_bwd_bf16(const bf16* x, const bf16* w, const bf16* yhat,
                                        const float* stats, const bf16* g, bf16* dz,
                                        float* part_in, float* means, float* part_w, bf16* dw,
                                        bf16* dx, int n, int h, int w_, int ci, int co, int splits,
                                        int pix_per_split, cudaStream_t stream) {
+  if (co > 8 * P16_THREADS) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int pixels = 4 * h * w_;
-  const int tiles = (pixels + IN_TILE - 1) / IN_TILE;
-  in_bwd_partial_kernel<<<dim3((unsigned)(n * tiles), (unsigned)((co + 127) / 128)), 128, 0,
-                          stream>>>(g, yhat, part_in, pixels, co, tiles);
+  const int tile_px = partial16_tile(n, pixels, sms);
+  const int ptiles = (pixels + tile_px - 1) / tile_px;
+  convt_partial16_kernel<<<(unsigned)(n * ptiles), P16_THREADS, 0, stream>>>(
+      g, yhat, part_in, pixels, co, ptiles, tile_px);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  in_bwd_merge_kernel<<<dim3((unsigned)((co + MG_LANES - 1) / MG_LANES), (unsigned)n),
-                        MG_LANES * MG_WARPS, 0, stream>>>(part_in, means, co, tiles, pixels, 1,
-                                                          0);
+  convt_means16_kernel<<<dim3((unsigned)((co + MG16_CH - 1) / MG16_CH), (unsigned)n),
+                          MG16_CH * MG16_GROUPS, 0, stream>>>(part_in, means, co, ptiles, pixels);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long per_sample = (long long)pixels * co;
-  const long long total4 = n * per_sample / 4;
-  const int apply_blocks = (int)((total4 + 255) / 256);
-  in_bwd_apply_kernel<<<(unsigned)apply_blocks, 256, 0, stream>>>(
-      g, yhat, stats, means, dz, total4, per_sample, co, apply_blocks, nullptr, nullptr, 0);
+  // about four blocks an SM, a range of at least 64 pixels each
+  const int ranges = max(1, min((pixels + 63) / 64, (4 * sms + n - 1) / n));
+  convt_dz16_kernel<<<dim3((unsigned)ranges, (unsigned)n), DZ_THREADS,
+                       3 * co * (int)sizeof(float), stream>>>(g, yhat, stats, means, dz, pixels,
+                                                               co);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int total = n * h * w_;
-  err = co <= 64 ? wgrad16<64>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream)
-                 : wgrad16<128>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream);
+  // folded where a split's slices are many (batch 8); at a few slices a
+  // split (batch 1) the folded tiles' third more MMAs cost more than the A
+  // reads they save
+  if (co > 64)
+    err = wgrad16<128>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream);
+  else if (pix_per_split >= WGRAD_FOLD_PIXELS)
+    err = wgrad16<128, false, true>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split,
+                                    stream);
+  else
+    err = wgrad16<64>(x, dz, part_w, h, w_, ci, co, total, splits, pix_per_split, stream);
   if (err != cudaSuccess) return (int)err;
   const long long w4 = (long long)9 * ci * co / 4;
-  split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
+  split_sum16_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(part_w), dw, w4, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;
@@ -804,7 +1019,7 @@ extern "C" int nemar_convt_band_bwd_dx_bf16(const bf16* xp, const bf16* dzp, con
                                       pix_per_split, stream);
   if (err != cudaSuccess) return (int)err;
   const long long w4 = (long long)9 * ci * co / 4;
-  split_sum_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
+  split_sum16_kernel<<<(unsigned)((w4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(part_w), dw, w4, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const bool narrow = ci <= 64 || (long long)((total + BM - 1) / BM) * ((ci + 127) / 128) < sms;

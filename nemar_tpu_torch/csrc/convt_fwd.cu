@@ -52,16 +52,39 @@
 // Ci % 4 == 0, Co % 4 == 0, 16-byte aligned pointers.
 //
 // The bf16 variant (--bf16; nemar_convt_in_fwd_bf16) takes x and W in bf16
-// and runs the four planes' GEMMs on the bf16 core (gemm_tc.cuh: one bf16
-// MMA a product, fp32 accumulators, K slices of one tap and 64 channels;
-// warp-specialised and persistent, x and W^T as TMA boxes where a tile's
-// pixels are image rows, the frame's zeros the boxes' out-of-bounds fill;
-// the tiles' walk snakes so that the 1- to 4-tap planes even out): the
-// same four launches, the split replaced by a transpose of W to bf16 W^T,
-// y fp32 in a buffer of its own, and the last launch writing yhat and out
-// rounded to bf16 (the statistics stay fp32). A 16-byte copy holds 8 bf16
-// channels: it takes Ci % 8 == 0, Co % 8 == 0 (the wrapper pads to them).
-// Bound: 2.42 GFLOP per image and stage at 989 TFLOP/s = 2.4 us.
+// and runs the planes' GEMMs on the bf16 core (gemm_tc.cuh: one bf16 MMA a
+// product, fp32 accumulators, K slices of one tap and 64 channels;
+// warp-specialised and persistent, x and W as TMA boxes, W as it lies
+// (N-major) and x where a tile's pixels are image rows, the frame's zeros
+// the boxes' out-of-bounds fill; the tiles' walk snakes so that the 1- to
+// 4-tap planes even out). 2.42 GFLOP per image and stage is 2.4 us at 989
+// TFLOP/s, but the tiles are short (4-16 slices) and the core reaches
+// 200-330 TFLOP/s on them, and an fp32 y of its own would be written and
+// read back (134 MB each way at 8 x 256^2 x 64, 0.08 ms at 3.35 TB/s,
+// against the 168 MB of x, yhat and out). So no y reaches memory; three
+// launches:
+//
+//   1. pass 1, the GEMMs with an epilogue of the tile statistics alone;
+//   2. the merge (convt_stats16_kernel: the sums of 3 over more threads,
+//      8 channels a block);
+//   3. pass 2, the same tiles in the same slice order again (its totals are
+//      pass 1's bit for bit, so the statistics are those of the y it
+//      normalises), its epilogue writing yhat = (acc - mu) * rstd and
+//      relu(yhat) rounded to bf16 from the fp32 totals, 16 bytes a lane.
+//
+// Twice the MMAs for a third of the bytes to memory. At Co <=
+// 64 a 64-wide tile would read each A box for 64 columns and leave its
+// epilogue exposed after 2-8 slices, so a tile takes both column parities
+// of a row parity (128 columns, 64 px + c): half as many tiles, A read
+// once for both. Its K slices are (row tap, dx = 0 then -1, 64 channels)
+// against [W(ky, 2) | W(ky, 1)] and [W(ky, 0) | 0], each column summing
+// its slices in the unfolded plane's order. The zeros cost a third more
+// MMAs in the py = 0 tiles, and no time (m64n64k16 on the dx = -1 slices,
+// skipping them, ran slower: ptxas serialises the wgmma's around the
+// branch between the two widths). Above 64 channels the tiles are 128
+// columns wide even at batch 1. The statistics stay fp32. A 16-byte copy
+// holds 8 bf16 channels: it takes Ci % 8 == 0, Co % 8 == 0 (the wrapper
+// pads to them).
 #include <cuda_runtime.h>
 
 #include "band.cuh"
@@ -306,23 +329,45 @@ cudaError_t planes(const float* x, const float* wsplit, float* y, float* part, i
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
-// ConvtFwdOp with bf16 x and W^T: K slices of one tap and 64 channels,
-// y fp32 (the interleaved output before IN), tile statistics as there;
-// kHp as there (the band form: x holds each sample's H + 1 rows). B, W^T
-// as (9, Co, Ci), is a TMA box (zeros past Ci and Co); A is one (tma_a:
-// the tile's 128 pixels image rows, W dividing 128 or 128 dividing W) of
-// x at the tap's offset, the frame's zeros (a -1 offset at row or column
+// ConvtFwdOp with bf16 x and W, K slices of one tap and 64 channels. Its
+// epilogue by kPass: kStoreY writes y fp32 (the interleaved output before
+// IN) and the tile statistics as there (the band form); kStats the tile
+// statistics alone (the first pass); kNorm yhat = (acc - mu) * rstd and
+// out = relu(yhat) in bf16 from the fp32 totals, given the statistics (the
+// second pass, whose tiles are the first pass's, computed alike, so its
+// totals are the first pass's bit for bit). kFold (Co <= 64): a tile takes
+// both column parities px of an output row parity py, its columns
+// n = 64 px + c (c < Co; the two pixels 2j, 2j + 1 of a row lie side by
+// side in the output), and its K slices a row tap, a column offset dx (0,
+// then -1) and 64 channels, against B = [W(ky, 2) | W(ky, 1)] at dx = 0 and
+// [W(ky, 0) | 0] at dx = -1: each column's slices come in the unfolded
+// plane's order, the zeros adding exact zeros to the px = 1 columns. kHp
+// as there (the band form: x holds each sample's H + 1 rows). B is W as it
+// lies, N-major (kMNB: Co innermost), in TMA boxes of 64 Co x 64 Ci of one
+// tap (W as (9, Ci, Co); zeros past Ci and Co, and a box at tap 9, past
+// the taps, for the folded zeros): no transpose of W. A is a box (tma_a:
+// the tile's 128 pixels image rows, W dividing 128 or 128 dividing W) of x
+// at the slice's offset, the frame's zeros (a -1 offset at row or column
 // 0) and Ci's its out-of-bounds fill, or else the producer's cp.async
 // copies, masked in the index.
-template <int kTN, bool kHp = false>
+enum ConvtPass { kStoreY, kStats, kNorm };
+
+template <int kTN, int kPass, bool kFold = false, bool kHp = false>
 struct ConvtFwdOp16 : tc::Bf16Loads {
   static constexpr bool kMN = false;
-  static constexpr bool kTileStats = true;
+  static constexpr bool kMNB = true;
+  static constexpr bool kTileStats = kPass != kNorm;
+  static constexpr bool kTileEpilogue = kPass == kNorm;
   static constexpr int kTileN = kTN;
+  static constexpr int kPlanes = kFold ? 2 : 4;  // a tile's plane: py (kFold) or (py, px)
+  static_assert(!kFold || kTN == 128, "a folded tile holds both parities' columns");
+  static_assert(!kFold || kPass != kStoreY, "y stored by the unfolded band form alone");
   const bf16* x;
-  const bf16* wt;  // W^T (tap, co, ci)
   float* y;
   float* part;
+  const float* stats;
+  bf16* yhat;
+  bf16* out;
   int n, h, w, ci, co, tiles, cotiles;
   int b, plane, py, px, tile, m0, n0, kc, spt, ntx, rows;
   int rij[tc::PCHUNKS];
@@ -335,8 +380,8 @@ struct ConvtFwdOp16 : tc::Bf16Loads {
     bid /= tiles;
     b = bid % n;
     plane = bid / n;
-    py = plane >> 1;
-    px = plane & 1;
+    py = kFold ? plane : plane >> 1;
+    px = kFold ? 0 : plane & 1;
     m0 = tile * BM;
     n0 = cot * kTN;
     kc = ptid & 7;
@@ -352,18 +397,20 @@ struct ConvtFwdOp16 : tc::Bf16Loads {
       rij[i] = p < hw ? (u << 16) | (p - u * w) : -1;
     }
   }
-  // the K slice's tap (ky, kx), its offsets (dy, dx) and first channel c
-  __device__ void slice(int kt, int& ky, int& kx, int& dy, int& dx, int& c) const {
+  // the K slice's row tap ky, column tap kx (kFold: of px = 0; tx the dx
+  // slice, 0 or 1), its offsets (dy, dx) and first channel c
+  __device__ void slice(int kt, int& ky, int& kx, int& tx, int& dy, int& dx, int& c) const {
     const int t = kt / spt;
     c = (kt - t * spt) * tc::BK16;
+    tx = t - (t / ntx) * ntx;
     parity_tap(py, t / ntx, ky, dy);
-    parity_tap(px, t - (t / ntx) * ntx, kx, dx);
+    parity_tap(px, tx, kx, dx);
   }
   __device__ int ktiles() const { return (py == 0 ? 2 : 1) * ntx * spt; }
   // A by cp.async (tma_a false)
   __device__ void load(int kt, unsigned char* As, unsigned char*, int ptid) const {
-    int ky, kx, dy, dx, c;
-    slice(kt, ky, kx, dy, dx, c);
+    int ky, kx, tx, dy, dx, c;
+    slice(kt, ky, kx, tx, dy, dx, c);
     c += 8 * kc;
     const bool cin = c < ci;
     constexpr int hp = kHp ? 1 : 0;
@@ -376,76 +423,195 @@ struct ConvtFwdOp16 : tc::Bf16Loads {
                       valid ? xb + ((size_t)ii * w + jj) * ci + c : x, valid);
     }
   }
-  // B (maps.b: W^T as (9, Co, Ci)); with tma_a, A (maps.a: x as (N, H (+ 1),
+  // B (maps.b: W as (9, Ci, Co)); with tma_a, A (maps.a: x as (N, H (+ 1),
   // W, Ci)) at pixel (u0 + dy, v0 + dx)
   __device__ void load_tma(int kt, unsigned char* As, unsigned char* Bs, uint64_t* bar,
                            const tc::TmaMaps& maps) const {
-    int ky, kx, dy, dx, c;
-    slice(kt, ky, kx, dy, dx, c);
+    int ky, kx, tx, dy, dx, c;
+    slice(kt, ky, kx, tx, dy, dx, c);
     if (tma_a) {
       const int u0 = m0 / w;
       tc::tma_load(As, &maps.a, bar, c, m0 - u0 * w + dx, u0 + dy + (kHp ? 1 : 0), b);
     }
-    tc::tma_load(Bs, &maps.b, bar, c, n0, ky * 3 + kx);
+    // B: a box of 64 columns each at Bs + 8192 j (the N-major atoms); kFold:
+    // px = j's tap, (ky, 1) at dx = 0 and none (tap 9, past the taps: zeros)
+    // at dx = -1
+#pragma unroll
+    for (int j = 0; j < kTN / 64; ++j) {
+      const int tap = kFold && j == 1 ? (tx == 0 ? ky * 3 + 1 : 9) : ky * 3 + kx;
+      tc::tma_load(Bs + 8192 * j, &maps.b, bar, kFold ? 0 : n0 + 64 * j, c, tap);
+    }
   }
-  __device__ void write(int r, int col, float2 val) const {
-    if (r >= rows || n0 + col >= co) return;
+  // tile column nn's parity (kFold) and channel; whether it is an output's
+  __device__ int col_px(int nn) const { return kFold ? nn >> 6 : px; }
+  __device__ int col_ch(int nn) const { return kFold ? nn & 63 : nn; }
+  __device__ bool col_live(int nn) const { return col_ch(nn) < co; }
+  // the element of tile row r (the row's first parity px's pixel) in the
+  // (N, 2H, 2W, Co) output, and tile column nn's offset from it
+  __device__ size_t at(int r) const {
     const int p = m0 + r, i = p / w, j = p - i * w;
-    tc::store2(y + (((size_t)b * 2 * h + 2 * i + py) * 2 * w + 2 * j + px) * co + n0 + col, val);
+    return (((size_t)b * 2 * h + 2 * i + py) * 2 * w + 2 * j + px) * co;
+  }
+  __device__ int col_at(int nn) const { return kFold ? (nn >> 6) * co + (nn & 63) : nn; }
+  __device__ void write(int r, int col, float2 val) const {
+    if constexpr (kPass == kStoreY) {
+      if (r < rows && col_live(n0 + col)) tc::store2(y + at(r) + col_at(n0 + col), val);
+    }
+  }
+  // kNorm: yhat = (acc - mu) * rstd and relu(yhat), rounded to bf16, a row's
+  // 8-column chunks 16 bytes a lane (tc::quad_transpose), so that a warp's
+  // store covers whole 32-byte sectors (the fragment's own 4-byte column
+  // pairs would write half sectors)
+  __device__ void tile_epilogue(const float (&acc)[kTN / 2], int row0, int g, int t) const {
+    const float* st = stats + (size_t)b * 2 * co;
+    const int r0 = row0 + g, r1 = r0 + 8;
+    const size_t base0 = r0 < rows ? at(r0) : 0, base1 = r1 < rows ? at(r1) : 0;
+#pragma unroll
+    for (int q = 0; q < kTN / 32; ++q) {
+      uint32_t y0[4], o0[4], y1[4], o1[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        // columns nn, nn + 1: one parity's (nn even, Co % 8 == 0)
+        const int j = 4 * q + k, nn = n0 + 8 * j + 2 * t, c = col_ch(nn);
+        float2 mu = make_float2(0.f, 0.f), rs = mu;
+        if (c < co) {
+          mu = *reinterpret_cast<const float2*>(st + c);
+          rs = *reinterpret_cast<const float2*>(st + co + c);
+        }
+        const float a0 = (acc[4 * j] - mu.x) * rs.x, b0 = (acc[4 * j + 1] - mu.y) * rs.y;
+        const float a1 = (acc[4 * j + 2] - mu.x) * rs.x, b1 = (acc[4 * j + 3] - mu.y) * rs.y;
+        y0[k] = tc::pack_bf16x2(a0, b0);
+        o0[k] = tc::pack_bf16x2(fmaxf(a0, 0.f), fmaxf(b0, 0.f));
+        y1[k] = tc::pack_bf16x2(a1, b1);
+        o1[k] = tc::pack_bf16x2(fmaxf(a1, 0.f), fmaxf(b1, 0.f));
+      }
+      tc::quad_transpose(y0, t);
+      tc::quad_transpose(o0, t);
+      tc::quad_transpose(y1, t);
+      tc::quad_transpose(o1, t);
+      // this lane's chunk of the row: 8 columns of one parity
+      const int nn = n0 + 8 * (4 * q + t);
+      if (col_live(nn)) {
+        const int off = col_at(nn);
+        if (r0 < rows) {
+          *reinterpret_cast<uint4*>(yhat + base0 + off) = make_uint4(y0[0], y0[1], y0[2], y0[3]);
+          *reinterpret_cast<uint4*>(out + base0 + off) = make_uint4(o0[0], o0[1], o0[2], o0[3]);
+        }
+        if (r1 < rows) {
+          *reinterpret_cast<uint4*>(yhat + base1 + off) = make_uint4(y1[0], y1[1], y1[2], y1[3]);
+          *reinterpret_cast<uint4*>(out + base1 + off) = make_uint4(o1[0], o1[1], o1[2], o1[3]);
+        }
+      }
+    }
   }
   __device__ int rows_in_tile() const { return rows; }
+  // the column's plane (py, px) and channel
   __device__ void write_stats(int col, float mean, float m2) const {
-    if (n0 + col >= co) return;
-    float* p = part + ((size_t)((b * 4 + plane) * tiles + tile) * 2) * co + n0 + col;
+    const int nn = n0 + col;
+    if (!col_live(nn)) return;
+    float* p = part + ((size_t)((b * 4 + py * 2 + col_px(nn)) * tiles + tile) * 2) * co +
+               col_ch(nn);
     p[0] = mean;
     p[co] = m2;
   }
 };
 
-// 1: wt[tap][co][ci] = w[tap][ci][co], through a 32 x 32 tile, masked at
-// the edges of Ci and Co
-__global__ void transpose16_kernel(const bf16* __restrict__ w, bf16* __restrict__ wt, int ci,
-                                   int co) {
-  __shared__ bf16 tile[32][34];
-  const int tap = blockIdx.z;
-  const bf16* src = w + (size_t)tap * ci * co;
-  const int ci0 = blockIdx.y * 32, co0 = blockIdx.x * 32;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  for (int r = ty; r < 32; r += 8)
-    if (ci0 + r < ci && co0 + tx < co) tile[r][tx] = src[(size_t)(ci0 + r) * co + co0 + tx];
-  __syncthreads();
-  bf16* dst = wt + (size_t)tap * co * ci;
-  for (int r = ty; r < 32; r += 8)
-    if (co0 + r < co && ci0 + tx < ci) dst[(size_t)(co0 + r) * ci + ci0 + tx] = tile[tx][r];
+// 3 (one frame): the bf16 forward's (mu, rstd) from the 4 planes' tile
+// partials, the sums of convt_stats_kernel (fp64; the mean, then the sum
+// of squared deviations about it), spread wider: a block per (sample, 8
+// channels), 128 groups of 8 threads, group k the partials k, k + 128, ...,
+// the groups added by a fixed pairwise tree (tc::group_sum). A block per
+// 32 channels, each thread chaining 16 partials, took 15 us at 128 tiles a
+// plane.
+constexpr int ST16_CH = 8, ST16_GROUPS = 128;
+
+__global__ void __launch_bounds__(ST16_CH * ST16_GROUPS)
+convt_stats16_kernel(const float* __restrict__ part, float* __restrict__ stats, int c, int tiles,
+                     int hw, float eps) {
+  __shared__ double red[ST16_GROUPS][ST16_CH];
+  const int lane = threadIdx.x % ST16_CH, grp = threadIdx.x / ST16_CH;
+  const int b = blockIdx.y;
+  const int ch = blockIdx.x * ST16_CH + lane;
+  const bool live = ch < c;
+  const float* p = part + (size_t)b * 4 * tiles * 2 * c + ch;
+  const int entries = 4 * tiles;
+  const double pixels = 4.0 * hw, last = (double)(hw - (tiles - 1) * BM);
+  // the pixels of partial e: BM, but the last tile of a plane
+  auto count = [&](int e) { return e % tiles == tiles - 1 ? last : (double)BM; };
+  double s = 0.0;
+#pragma unroll 4
+  for (int e = grp; live && e < entries; e += ST16_GROUPS)
+    s += count(e) * (double)p[(size_t)e * 2 * c];
+  const double mean = tc::group_sum(red, s, grp, lane) / pixels;
+  double m2 = 0.0;
+#pragma unroll 4
+  for (int e = grp; live && e < entries; e += ST16_GROUPS) {
+    const double d = (double)p[(size_t)e * 2 * c] - mean;
+    m2 += (double)p[(size_t)e * 2 * c + c] + count(e) * d * d;
+  }
+  const double q = tc::group_sum(red, m2, grp, lane);
+  if (grp == 0 && live) {
+    float* st = stats + (size_t)b * 2 * c + ch;
+    st[0] = (float)mean;
+    st[c] = (float)(1.0 / sqrt(q / pixels + (double)eps));
+  }
 }
 
-template <int kTN, bool kHp = false>
-cudaError_t planes16(const bf16* x, const bf16* wt, float* y, float* part, int n, int h, int w,
-                     int ci, int co, int tiles, cudaStream_t stream) {
-  ConvtFwdOp16<kTN, kHp> op;
+// The tensor maps of ConvtFwdOp16<.., kHp>'s boxes, and whether A is boxes
+template <bool kHp>
+cudaError_t fwd16_maps(const bf16* x, const bf16* wk, int n, int h, int w, int ci, int co,
+                       bool& tma_a, tc::TmaMaps& maps) {
+  tma_a = w % BM == 0 || BM % w == 0;
+  const long long wdims[3] = {co, ci, 9};
+  const int wbox[3] = {64, tc::BK16, 1};
+  cudaError_t err = tc::bf16_map(&maps.b, wk, 3, wdims, wbox);
+  if (err == cudaSuccess && tma_a) {
+    const int bw = min(w, BM);
+    err = tc::image_map(&maps.a, x, n, h + (kHp ? 1 : 0), w, ci, bw, BM / bw);
+  }
+  return err;
+}
+
+// 2 (and 4): one pass of the planes' GEMMs
+template <int kTN, int kPass, bool kFold = false, bool kHp = false>
+cudaError_t planes16(const bf16* x, const bf16* wk, float* y, float* part, const float* stats,
+                     bf16* yhat, bf16* out, int n, int h, int w, int ci, int co, int tiles,
+                     cudaStream_t stream) {
+  ConvtFwdOp16<kTN, kPass, kFold, kHp> op;
   op.x = x;
-  op.wt = wt;
   op.y = y;
   op.part = part;
+  op.stats = stats;
+  op.yhat = yhat;
+  op.out = out;
   op.n = n;
   op.h = h;
   op.w = w;
   op.ci = ci;
   op.co = co;
   op.tiles = tiles;
-  op.cotiles = (co + kTN - 1) / kTN;
+  op.cotiles = kFold ? 1 : (co + kTN - 1) / kTN;
   op.tma_b = true;
-  op.tma_a = w % BM == 0 || BM % w == 0;
   tc::TmaMaps maps{};
-  const long long wdims[3] = {ci, co, 9};
-  const int wbox[3] = {tc::BK16, kTN, 1};
-  cudaError_t err = tc::bf16_map(&maps.b, wt, 3, wdims, wbox);
-  if (err == cudaSuccess && op.tma_a) {
-    const int bw = min(w, BM);
-    err = tc::image_map(&maps.a, x, n, h + (kHp ? 1 : 0), w, ci, bw, BM / bw);
-  }
+  const cudaError_t err = fwd16_maps<kHp>(x, wk, n, h, w, ci, co, op.tma_a, maps);
   if (err != cudaSuccess) return err;
-  return tc::launch_bf16(op, dim3((unsigned)(4 * n * tiles * op.cotiles)), stream, maps);
+  return tc::launch_bf16(op, dim3((unsigned)(op.kPlanes * n * tiles * op.cotiles)), stream, maps);
+}
+
+// the bf16 forward's two passes around the merge: kFold, or the unfolded
+// tiles kTN wide
+template <int kTN, bool kFold>
+cudaError_t two_pass16(const bf16* x, const bf16* wk, float* part, float* stats, bf16* yhat,
+                       bf16* out, int n, int h, int w, int ci, int co, int tiles, float eps,
+                       cudaStream_t stream) {
+  cudaError_t err = planes16<kTN, kStats, kFold>(x, wk, nullptr, part, nullptr, nullptr, nullptr,
+                                                 n, h, w, ci, co, tiles, stream);
+  if (err != cudaSuccess) return err;
+  convt_stats16_kernel<<<dim3((unsigned)((co + ST16_CH - 1) / ST16_CH), (unsigned)n),
+                         ST16_CH * ST16_GROUPS, 0, stream>>>(part, stats, co, tiles, h * w, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return planes16<kTN, kNorm, kFold>(x, wk, nullptr, nullptr, stats, yhat, out, n, h, w, ci, co,
+                                     tiles, stream);
 }
 
 }  // namespace
@@ -479,34 +645,19 @@ extern "C" int nemar_convt_in_fwd(const float* x, const float* w, float* wsplit,
   return (int)cudaGetLastError();
 }
 
-// The bf16 variant: x, w, wt (9, Co, Ci), yhat, out bf16; y, part, stats
-// fp32. Ci, Co multiples of 8.
-extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, bf16* wt, float* y,
-                                       float* part, float* stats, bf16* yhat, bf16* out, int n,
-                                       int h, int w_, int ci, int co, float eps,
-                                       cudaStream_t stream) {
-  const int hw = h * w_;
-  const int tiles = (hw + BM - 1) / BM;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  transpose16_kernel<<<dim3((unsigned)((co + 31) / 32), (unsigned)((ci + 31) / 32), 9),
-                       dim3(32, 8), 0, stream>>>(w, wt, ci, co);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const bool narrow = co <= 64 || 4LL * n * tiles * ((co + 127) / 128) < sms;
-  err = narrow ? planes16<64>(x, wt, y, part, n, h, w_, ci, co, tiles, stream)
-               : planes16<128>(x, wt, y, part, n, h, w_, ci, co, tiles, stream);
-  if (err != cudaSuccess) return (int)err;
-  convt_stats_kernel<<<dim3((unsigned)((co + ST_LANES - 1) / ST_LANES), (unsigned)n),
-                       ST_LANES * ST_WARPS, 0, stream>>>(part, stats, co, tiles, eps,
-                                                         one_band(hw), 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const long long per_sample = 4LL * hw * co;
-  const long long total4 = n * per_sample / 4;
-  convt_apply_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(y), stats, yhat, out, total4, per_sample, co);
-  return (int)cudaGetLastError();
+// The bf16 variant: x, w, yhat, out bf16; part, stats fp32. Ci, Co
+// multiples of 8. Three launches: the passes around the merge.
+extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, float* part, float* stats,
+                                       bf16* yhat, bf16* out, int n, int h, int w_, int ci, int co,
+                                       float eps, cudaStream_t stream) {
+  const int tiles = (h * w_ + BM - 1) / BM;
+  // unfolded, 128 columns a tile even where that leaves SMs idle (batch 1
+  // at 64^2: 128 tiles for 132 SMs): 64-column tiles, reading each A box
+  // twice, ran slower there
+  return (int)(co <= 64 ? two_pass16<128, true>(x, w, part, stats, yhat, out, n, h, w_, ci, co,
+                                                tiles, eps, stream)
+                        : two_pass16<128, false>(x, w, part, stats, yhat, out, n, h, w_, ci, co,
+                                                 tiles, eps, stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -517,8 +668,11 @@ extern "C" int nemar_convt_in_fwd_bf16(const bf16* x, const bf16* w, bf16* wt, f
 // them: the split and the four planes' GEMMs over xp; then the frame's
 // (mu, rstd) from every rank's partials (ranks, N * 4 * tiles, 2, Co;
 // tiles the largest band's, band_hw each rank's H * W: band.cuh) and the
-// apply. A band may be uneven, one row or empty (no tile: no GEMM). The bf16 variant's (the *_bf16 launchers): xp, W, yhat and out
-// bf16, y (before IN) and the statistics fp32, as the bf16 forward's.
+// apply. A band may be uneven, one row or empty (no tile: no GEMM). The
+// bf16 variant's (the *_bf16 launchers): xp, W, yhat and out bf16, y
+// (before IN) and the statistics fp32. The band form keeps the store of y
+// (ConvtFwdOp16<.., kStoreY>, unfolded): its statistics are the frame's,
+// known only after the all-gather between its two launchers.
 // ---------------------------------------------------------------------------
 extern "C" int nemar_convt_band_planes(const float* xp, const float* w, float* wsplit, float* y,
                                        float* part, int n, int h, int w_, int ci, int co,
@@ -570,8 +724,8 @@ extern "C" int nemar_convt_band_apply(const float* parts, float* stats, const in
                     stream);
 }
 
-extern "C" int nemar_convt_band_planes_bf16(const bf16* xp, const bf16* w, bf16* wt, float* y,
-                                            float* part, int n, int h, int w_, int ci, int co,
+extern "C" int nemar_convt_band_planes_bf16(const bf16* xp, const bf16* w, float* y, float* part,
+                                            int n, int h, int w_, int ci, int co,
                                             cudaStream_t stream) {
   const int tiles = (h * w_ + BM - 1) / BM;
   if (tiles == 0) return 0;  // an empty band: the caller's partials are zeros
@@ -579,12 +733,11 @@ extern "C" int nemar_convt_band_planes_bf16(const bf16* xp, const bf16* w, bf16*
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  transpose16_kernel<<<dim3((unsigned)((co + 31) / 32), (unsigned)((ci + 31) / 32), 9),
-                       dim3(32, 8), 0, stream>>>(w, wt, ci, co);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const bool narrow = co <= 64 || 4LL * n * tiles * ((co + 127) / 128) < sms;
-  err = narrow ? planes16<64, true>(xp, wt, y, part, n, h, w_, ci, co, tiles, stream)
-               : planes16<128, true>(xp, wt, y, part, n, h, w_, ci, co, tiles, stream);
+  err = narrow ? planes16<64, kStoreY, false, true>(xp, w, y, part, nullptr, nullptr, nullptr, n,
+                                                    h, w_, ci, co, tiles, stream)
+               : planes16<128, kStoreY, false, true>(xp, w, y, part, nullptr, nullptr, nullptr,
+                                                     n, h, w_, ci, co, tiles, stream);
   return (int)err;
 }
 

@@ -612,7 +612,9 @@ cudaError_t launch_wgmma_mn(const Op& op, dim3 grid, cudaStream_t stream) {
 // (Op::kTileN), over K in 64-deep slices (a slice's row of 64 bf16 is 128
 // bytes, one row of the 128-byte swizzle), for every bf16 Op: the operands
 // K-major (the convolutions and dgrads) or, with Op::kMN, A M-major and B
-// N-major (the wgrads: the pixels, their K, outermost in both).
+// N-major (the wgrads: the pixels, their K, outermost in both), or with
+// Op::kMNB A K-major and B N-major (K-convt-bf16's W as it lies, Co
+// innermost).
 //
 // What bounds it: at bf16 a 128 x 128 x 64 slice is 2.1 MFLOP, 0.28 us of an
 // SM at the card's 989 TFLOP/s, so whatever a slice does beside its four
@@ -671,6 +673,13 @@ cudaError_t launch_wgmma_mn(const Op& op, dim3 grid, cudaStream_t stream) {
 //     along MN are 8192 bytes apart (LBO), along K 1024 (SBO): atom (j, q) =
 //     MN values 64 j .., k rows 8 q .. (mn16).
 //
+// An Op may store its tiles itself (kTileEpilogue, tile_epilogue(), off in
+// Bf16Loads): it gets each consumer thread's fp32 totals. K-convt-bf16's
+// second pass and K-convt-bwd-bf16's dgrad store bf16 16 bytes a lane after
+// a transpose within each quad of lanes (tc::quad_transpose,
+// store_bf16_rows), so that a warp's stores cover whole 32-byte sectors
+// where the fragment's 4-byte column pairs would write half sectors.
+//
 // An Op supplies: kTileN, kMN, kTileStats; setup(ptid, tile) (the tile's
 // coordinates, and the producer thread ptid's copies); ktiles(); load()
 // (its cp.async copies, producer threads) and load_tma() (its TMA boxes,
@@ -711,9 +720,9 @@ __device__ __forceinline__ uint64_t desc16(const void* p, uint32_t lbo, uint32_t
 }
 
 // d = a b + (accumulate ? d : 0), m64n128k16 (or m64n64k16), fp32 += bf16 x
-// bf16, A and B through descriptors, both K-major (kTrans 0) or both
-// MN-major (kTrans 1)
-template <int kTrans>
+// bf16, A and B through descriptors, each K-major (kTransA, kTransB 0) or
+// MN-major (1)
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db,
                                            int accumulate) {
   asm volatile(
@@ -728,7 +737,7 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, %67, %67;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -737,11 +746,11 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTrans)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB)
       : "memory");
 }
 
-template <int kTrans>
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db,
                                            int accumulate) {
   asm volatile(
@@ -752,12 +761,12 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %35;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTrans)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB)
       : "memory");
 }
 
@@ -842,7 +851,12 @@ struct TmaMaps {
 // the producer's threads with cp.async. The full barrier of a stage counts
 // one arrival (with the boxes' bytes) for the boxes and one per producer
 // thread for the copies.
+// kTileEpilogue: the Op stores a tile itself (tile_epilogue(acc, row0, g,
+// t), every consumer thread with its fragment) in place of write(); an Op
+// that does shadows it.
 struct Bf16Loads {
+  static constexpr bool kTileEpilogue = false;
+  static constexpr bool kMNB = false;  // B N-major beside a K-major A (kMN false)
   bool tma_a = false, tma_b = false;
   __device__ bool copies() const { return !(tma_a && tma_b); }
   __device__ int full_arrivals() const { return (copies() ? PTHREADS : 0) + (tma_a || tma_b); }
@@ -884,8 +898,9 @@ struct RingPos {
 
 // One slice of a consumer: wait for its stage, issue its four MMAs into the
 // chain `issue`, then, with slice k - 1's MMAs done (wait_group 1), add its
-// chain `done` to acc and release its stage (`prev`).
-template <int kTrans, int TN, int S>
+// chain `done` to acc and release its stage (`prev`). A and B K-major or
+// MN-major by kTransA, kTransB.
+template <int kTransA, int kTransB, int TN, int S>
 __device__ __forceinline__ void mma_slice(unsigned char* smem, uint64_t* full, uint64_t* empty,
                                           RingPos& pos, int& prev, bool add, bool fence_copies,
                                           int wg, int lane, float (&issue)[TN / 2],
@@ -900,15 +915,11 @@ __device__ __forceinline__ void mma_slice(unsigned char* smem, uint64_t* full, u
   wgmma_fence_operand(issue);
 #pragma unroll
   for (int k = 0; k < BK16 / 16; ++k) {
-    uint64_t da, db;
-    if constexpr (kTrans == 0) {
-      da = desc16(As + wg * 64 * 128 + 32 * k, 16, 1024);
-      db = desc16(Bs + 32 * k, 16, 1024);
-    } else {
-      da = desc16(As + wg * 8192 + 2048 * k, 8192, 1024);
-      db = desc16(Bs + 2048 * k, 8192, 1024);
-    }
-    wgmma_bf16<kTrans>(issue, da, db, k > 0);
+    const uint64_t da = kTransA == 0 ? desc16(As + wg * 64 * 128 + 32 * k, 16, 1024)
+                                     : desc16(As + wg * 8192 + 2048 * k, 8192, 1024);
+    const uint64_t db = kTransB == 0 ? desc16(Bs + 32 * k, 16, 1024)
+                                     : desc16(Bs + 2048 * k, 8192, 1024);
+    wgmma_bf16<kTransA, kTransB>(issue, da, db, k > 0);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -924,7 +935,7 @@ __device__ __forceinline__ void mma_slice(unsigned char* smem, uint64_t* full, u
 
 // A consumer's tile: acc = the fp32 total over the tile's ktiles slices,
 // chains of one slice added in slice order.
-template <int kTrans, int TN, int S>
+template <int kTransA, int kTransB, int TN, int S>
 __device__ __forceinline__ void mma_tile(int ktiles, unsigned char* smem, uint64_t* full,
                                          uint64_t* empty, RingPos& pos, bool fence_copies, int wg,
                                          int lane, float (&acc)[TN / 2]) {
@@ -933,11 +944,11 @@ __device__ __forceinline__ void mma_tile(int ktiles, unsigned char* smem, uint64
   for (int i = 0; i < TN / 2; ++i) acc[i] = part0[i] = part1[i] = 0.f;
   int prev = 0;
   for (int kt = 0; kt < ktiles; kt += 2) {
-    mma_slice<kTrans, TN, S>(smem, full, empty, pos, prev, kt > 0, fence_copies, wg, lane, part0,
-                             part1, acc);
+    mma_slice<kTransA, kTransB, TN, S>(smem, full, empty, pos, prev, kt > 0, fence_copies, wg,
+                                       lane, part0, part1, acc);
     if (kt + 1 < ktiles)
-      mma_slice<kTrans, TN, S>(smem, full, empty, pos, prev, true, fence_copies, wg, lane, part1,
-                               part0, acc);
+      mma_slice<kTransA, kTransB, TN, S>(smem, full, empty, pos, prev, true, fence_copies, wg,
+                                         lane, part1, part0, acc);
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   wgmma_fence_operand(part0);
@@ -967,7 +978,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     gemm_bf16_kernel(const __grid_constant__ Op params, const __grid_constant__ TmaMaps maps,
                      const uint3 grid) {
   constexpr int TN = Op::kTileN;
-  constexpr int kTrans = Op::kMN ? 1 : 0;
+  constexpr int kTransA = Op::kMN ? 1 : 0, kTransB = Op::kMN || Op::kMNB ? 1 : 0;
   constexpr int S = stages16<TN>(), STAGE = stage16_bytes<TN>();
   static_assert(TN == 128 || TN == 64, "wgmma m64n128k16 or m64n64k16");
   static_assert(S >= 3, "a slice in flight, one being added, one loading");
@@ -1028,12 +1039,17 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int w = 0, t = walk_tile(0); t < ntiles; t = walk_tile(++w)) {
       op.setup(0, tile_at(t, grid));
       float acc[TN / 2];
-      mma_tile<kTrans, TN, S>(op.ktiles(), smem, full, empty, pos, fence_copies, wg, lane, acc);
+      mma_tile<kTransA, kTransB, TN, S>(op.ktiles(), smem, full, empty, pos, fence_copies, wg,
+                                        lane, acc);
       // epilogue: acc[4 j + v] is row g (v < 2) or g + 8, column 8 j + 2 t + (v & 1)
+      if constexpr (Op::kTileEpilogue) {
+        op.tile_epilogue(acc, row0, g, t4);
+      } else {
 #pragma unroll
-      for (int j = 0; j < TN / 8; ++j) {
-        op.write(row0 + g, 8 * j + 2 * t4, make_float2(acc[4 * j], acc[4 * j + 1]));
-        op.write(row0 + g + 8, 8 * j + 2 * t4, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+        for (int j = 0; j < TN / 8; ++j) {
+          op.write(row0 + g, 8 * j + 2 * t4, make_float2(acc[4 * j], acc[4 * j + 1]));
+          op.write(row0 + g + 8, 8 * j + 2 * t4, make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+        }
       }
       if constexpr (Op::kTileStats) tile_stats<TN, Op, true>(op, acc, red, ctid, row0, g, t4);
     }
@@ -1156,6 +1172,79 @@ __device__ __forceinline__ float rounded(float v) {
 template <class T>
 __device__ __forceinline__ float4 rounded(float4 v) {
   return make_float4(rounded<T>(v.x), rounded<T>(v.y), rounded<T>(v.z), rounded<T>(v.w));
+}
+
+// Two fp32 values rounded to bf16, as one 32-bit word (the lower column first).
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Within each quad of lanes (lane t = lane % 4), a 4 x 4 transpose of
+// 32-bit words: lane t's w[k] becomes lane k's w[t] (two butterflies).
+// An epilogue whose lane t holds columns 8 j + 2 t, + 1 of the chunks
+// j = 4 q .. 4 q + 3 (the wgmma fragment) then holds all 8 columns of chunk
+// 4 q + t, a 16-byte store.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4], int t) {
+#pragma unroll
+  for (int k = 0; k < 4; k += 2) {
+    const uint32_t recv = __shfl_xor_sync(0xffffffffu, (t & 1) ? w[k] : w[k + 1], 1);
+    if (t & 1) w[k] = recv;
+    else w[k + 1] = recv;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const uint32_t recv = __shfl_xor_sync(0xffffffffu, (t & 2) ? w[k] : w[k + 2], 2);
+    if (t & 2) w[k] = recv;
+    else w[k + 2] = recv;
+  }
+}
+
+// A consumer thread's fragment of a TN-column tile stored in bf16, 16 bytes
+// a lane: after a quad transpose of the rounded column pairs, lane t writes
+// the 8 columns of chunk 4 q + t of rows g (at p0) and g + 8 (at p1), where
+// the row is the tile's (p0, p1 null past it) and the chunk's columns below
+// ncols (a multiple of 8); p0, p1 16-byte aligned.
+template <int TN>
+__device__ __forceinline__ void store_bf16_rows(const float (&acc)[TN / 2], int t,
+                                                __nv_bfloat16* p0, __nv_bfloat16* p1,
+                                                int ncols) {
+#pragma unroll
+  for (int q = 0; q < TN / 32; ++q) {
+    uint32_t w0[4], w1[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * q + k;
+      w0[k] = pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+      w1[k] = pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    quad_transpose(w0, t);
+    quad_transpose(w1, t);
+    const int col = 8 * (4 * q + t);
+    if (col < ncols) {
+      if (p0) *reinterpret_cast<uint4*>(p0 + col) = make_uint4(w0[0], w0[1], w0[2], w0[3]);
+      if (p1) *reinterpret_cast<uint4*>(p1 + col) = make_uint4(w1[0], w1[1], w1[2], w1[3]);
+    }
+  }
+}
+
+// The sum over the kGroups threads of a channel lane (a block of kGroups x
+// kCh threads, thread = group * kCh + lane) of v, in a fixed order: a
+// pairwise tree through red (kGroups x kCh doubles); every thread gets its
+// lane's sum.
+template <int kGroups, int kCh>
+__device__ __forceinline__ double group_sum(double (&red)[kGroups][kCh], double v, int grp,
+                                            int lane) {
+  red[grp][lane] = v;
+#pragma unroll
+  for (int half = kGroups / 2; half >= 1; half /= 2) {
+    __syncthreads();
+    if (grp < half) red[grp][lane] += red[grp + half][lane];
+  }
+  __syncthreads();
+  const double sum = red[0][lane];
+  __syncthreads();
+  return sum;
 }
 
 // The epilogue's store of two adjacent columns: fp32, or rounded to bf16.

@@ -84,10 +84,9 @@ int nemar_resblock_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* y1hat,
                             float* means, float* part_w, __nv_bfloat16* dw1, __nv_bfloat16* dw2,
                             __nv_bfloat16* dx, int n, int h, int w, int c, int splits,
                             cudaStream_t stream);
-int nemar_convt_in_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* wt,
-                            float* y, float* part, float* stats, __nv_bfloat16* yhat,
-                            __nv_bfloat16* out, int n, int h, int w_, int ci, int co, float eps,
-                            cudaStream_t stream);
+int nemar_convt_in_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, float* part,
+                            float* stats, __nv_bfloat16* yhat, __nv_bfloat16* out, int n, int h,
+                            int w_, int ci, int co, float eps, cudaStream_t stream);
 int nemar_convt_in_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                             const __nv_bfloat16* yhat, const float* stats, const __nv_bfloat16* g,
                             __nv_bfloat16* dz, float* part_in, float* means, float* part_w,
@@ -386,15 +385,15 @@ void resblock_bwd_bf16(const at::Tensor& x, const at::Tensor& y1hat, const at::T
         "resblock_bwd_bf16");
 }
 
-void convt_in_fwd_bf16(const at::Tensor& x, const at::Tensor& w, const at::Tensor& wt,
-                       const at::Tensor& y, const at::Tensor& part, const at::Tensor& stats,
-                       const at::Tensor& yhat, const at::Tensor& out, double eps) {
-  dtypes("convt_in_fwd_bf16", {{"x", &x}, {"w", &w}, {"wt", &wt}, {"yhat", &yhat},
-                               {"out", &out}}, at::kBFloat16);
-  dtypes("convt_in_fwd_bf16", {{"y", &y}, {"part", &part}, {"stats", &stats}}, at::kFloat);
+void convt_in_fwd_bf16(const at::Tensor& x, const at::Tensor& w, const at::Tensor& part,
+                       const at::Tensor& stats, const at::Tensor& yhat, const at::Tensor& out,
+                       double eps) {
+  dtypes("convt_in_fwd_bf16", {{"x", &x}, {"w", &w}, {"yhat", &yhat}, {"out", &out}},
+         at::kBFloat16);
+  dtypes("convt_in_fwd_bf16", {{"part", &part}, {"stats", &stats}}, at::kFloat);
   const c10::cuda::CUDAGuard guard(x.device());
-  check(nemar_convt_in_fwd_bf16(b16(x), b16(w), b16(wt), f32(y), f32(part), f32(stats), b16(yhat),
-                                b16(out), dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
+  check(nemar_convt_in_fwd_bf16(b16(x), b16(w), f32(part), f32(stats), b16(yhat), b16(out),
+                                dim(x, 0), dim(x, 1), dim(x, 2), dim(x, 3), dim(w, 3),
                                 static_cast<float>(eps), stream()),
         "convt_in_fwd_bf16");
 }
@@ -496,8 +495,8 @@ TORCH_LIBRARY(nemar, m) {
         "Tensor(d!) means, Tensor(e!) part_w, Tensor(f!) dw1, Tensor(g!) dw2, Tensor(h!) dx, "
         "int splits) -> ()",
         &resblock_bwd_bf16);
-  m.def("convt_in_fwd_bf16(Tensor x, Tensor w, Tensor(a!) wt, Tensor(b!) y, Tensor(c!) part, "
-        "Tensor(d!) stats, Tensor(e!) yhat, Tensor(f!) out, float eps) -> ()",
+  m.def("convt_in_fwd_bf16(Tensor x, Tensor w, Tensor(a!) part, Tensor(b!) stats, "
+        "Tensor(c!) yhat, Tensor(d!) out, float eps) -> ()",
         &convt_in_fwd_bf16);
   m.def("convt_in_bwd_bf16(Tensor x, Tensor w, Tensor yhat, Tensor stats, Tensor g, "
         "Tensor(a!) dz, Tensor(b!) part_in, Tensor(c!) means, Tensor(d!) part_w, Tensor(e!) dw, "

@@ -55,6 +55,8 @@ from nemar_tpu_torch.ops.norm import instance_norm_stats, normalise
 
 # tile of K-convt's GEMM (pixels of one plane) and of K-convt-bwd's
 # instance-norm partials (output pixels), csrc/gemm_tc.cuh and convt_bwd.cu
+# (the bf16 variant's partial tiles are 256-2048 pixels: the same buffer
+# holds them)
 _BM = 128
 _IN_TILE = 64
 # K-convt-bwd's weight gradient is a split-K GEMM of 9 ceil(Ci / 128) x
@@ -183,9 +185,7 @@ def fused_convt_in_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> 
     part = torch.empty((n * 4 * tiles, 2, co), **f32)
     stats = torch.empty((n, 2, co), **f32)
     if x.dtype == torch.bfloat16:
-        wt = torch.empty((9, co, ci), dtype=torch.bfloat16, device=x.device)  # W^T per tap
-        y = torch.empty((n, 2 * h, 2 * wd, co), **f32)
-        _build.op("convt_in_fwd_bf16")(x, w, wt, y, part, stats, yhat, out, eps)
+        _build.op("convt_in_fwd_bf16")(x, w, part, stats, yhat, out, eps)
         fused_convt_in_cuda.launches_bf16 += 1
     else:
         wsplit = torch.empty((2, 9, co, ci), **f32)
@@ -466,9 +466,8 @@ def convt_band_fwd_cuda(xp: torch.Tensor, w: torch.Tensor, band, eps: float = 1e
     stats = torch.empty((n, 2, co), **f32)
     _aligned("convt_band_fwd_cuda", xp, w)
     if bf:
-        wt = torch.empty((9, co, ci), dtype=torch.bfloat16, device=xp.device)
         y = torch.empty((n, 2 * h, 2 * wd, co), **f32)
-        _build.launch("nemar_convt_band_planes_bf16", "pppppiiiii", xp, w, wt, y, part,
+        _build.launch("nemar_convt_band_planes_bf16", "ppppiiiii", xp, w, y, part,
                       n, h, wd, ci, co)
         parts = spatial.gather_parts(pad_tiles(part, 4 * n, most))
         _build.launch("nemar_convt_band_apply_bf16", "ppppppiiiiiif", parts, stats, hw_all, y,

@@ -60,6 +60,9 @@ fresh processes on one card (parent, change, change, parent, ...).
   seed (its options and seeded batches), then a sha256 of every
   parameter's bytes (G, D, R in state_dict order) and the losses: two
   trees whose hashes agree train bit for bit alike;
+- ``step_bf16_device``: phase 5's b8 training step with ``--bf16``: after
+  2 warm-up steps, 3 steps each under the profiler: each step's device
+  time (its kernels', memcpys' and memsets' events);
 - ``science_bf16``: the science recipe's 256^2 multiscale arm
   (``chip_smoke.py``'s phase 7 options, batch 8, its own synthetic
   batches) in fp32 and with ``--bf16``: the median host time of 4 steps
@@ -287,6 +290,31 @@ def science_bf16(chip_smoke, torch) -> dict:
     return out
 
 
+def step_bf16_device(chip_smoke, torch, steps: int = 3) -> dict:
+    """The ``step_bf16_device`` part (see the module's docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = chip_smoke.TRAIN_BATCH
+    with tempfile.TemporaryDirectory(prefix="nemar_probe_") as ckpt:
+        model = chip_smoke.train_model([*chip_smoke.TRAIN_ARGS, "--bf16", "--gpu_ids", "0",
+                                        "--checkpoints_dir", ckpt, "--batch_size", str(n)])
+        batches = chip_smoke.request_batches(2 + steps, n, seed=4)
+        for b in batches[:2]:
+            model.set_input(b)
+            model.optimize_parameters()
+        torch.cuda.synchronize()
+        device = []
+        for b in batches[2:]:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                model.set_input(b)
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+            device.append(sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA))
+        del model
+    return {"batch": n, "device_ms": device}
+
+
 def fit_512(chip_smoke, torch, k: int) -> dict:
     """The ``fit_512`` part at --grad_accum k (see the module's docstring)."""
     import gc
@@ -341,7 +369,7 @@ def a5_split(chip_smoke, torch) -> dict:
 
 
 PARTS = ("warp_bwd", "block", "block_bf16", "convt", "head", "in", "request", "train_step_b1",
-         "train_step", "train_step_bf16", "step_params", "science_bf16",
+         "train_step", "train_step_bf16", "step_bf16_device", "step_params", "science_bf16",
          "fit_512", "a5_split", "sass")
 
 
@@ -510,6 +538,8 @@ def main() -> int:
         out["step_params"] = step_params(chip_smoke, torch)
     if "science_bf16" in parts:
         out["science_bf16"] = science_bf16(chip_smoke, torch)
+    if "step_bf16_device" in parts:
+        out["step_bf16_device"] = step_bf16_device(chip_smoke, torch)
     if "fit_512" in parts:
         out["fit_512"] = [fit_512(chip_smoke, torch, k) for k in (1, 2, 4)]
     if "a5_split" in parts:
